@@ -9,8 +9,9 @@ non-zero exit and no result line:
 
 1. device     — card name, count, ``nvidia-smi`` name and power limit;
                 TF32 switched off for matmul and cuDNN.
-2. build      — the CUDA source built from the checkout (seconds,
-                ptxas register/shared-memory lines).
+2. build      — both CUDA sources built from the checkout, one ``nvcc``
+                each, started together (seconds per source; ptxas
+                registers, shared memory and spills per instantiation).
 3. kernel     — the fused-fit kernel against its plain PyTorch version on
                 the card: B=100 at F=18 and F=30, 6 batches × 4 epochs,
                 ragged last batch, 0/1 and fractional masks; runs repeat
@@ -26,6 +27,23 @@ non-zero exit and no result line:
                 events over warm launches) beside the plain version's,
                 the autograd step loop's (``fused="never"``) and the
                 bound.
+6. attention_kernel — the flash-attention kernel against its plain
+                version on the card, both entry points, O and LSE: f32
+                D=8 (causal T=40 with blocks 16, non-causal T=32), f32
+                D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
+                T=1000, non-causal T=1024); a second launch repeats the
+                first bit for bit; a ragged non-causal call raises.
+7. sensorformer_path — SensorFormer at full width (its defaults) scores
+                100 cars' 4,096-tick fleet histories: one forward with
+                attn_mode="flash" (2 causal kernel launches), held
+                against the same weights with the kernel's plain version
+                (all cars) and dense attention (4 cars); forward ms and
+                scored steps per second.
+8. attention_timing — kernel, plain version, bound and the library
+                yardstick (``scaled_dot_product_attention``) at the
+                model's per-layer call (f32, B=100, T=4096, H=4, D=16)
+                and the long-context shape (bf16, B=1, T=65,536, H=2,
+                D=128; plain version at blocks 1024), causal and not.
 Then the kernels line, the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -34,19 +52,25 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.data.dataset import RowSource, SensorBatches
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
                                             CREDITCARD_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
+from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import _build, fused_train
+from iotml_torch.ops.attention import (flash_attention, flash_attention_fwd,
+                                       flash_attention_reference)
 from iotml_torch.serve.scorer import StreamScorer
 from iotml_torch.stream.producer import OutputSequence
 from iotml_torch.train.loop import Trainer, TrainState, make_scanned_fit
@@ -56,8 +80,19 @@ from iotml_torch.train.optim import Adam
 METRIC_TOL = dict(rtol=2e-4, atol=1e-6)
 STATE_TOL = dict(rtol=5e-3, atol=2e-5)
 RESUME_TOL = dict(rtol=1e-4, atol=1e-7)
-#: published H100 SXM peaks: fp32 outside the tensor cores, HBM3
+#: flash forward against its plain version: f32 is the JAX suite's flash
+#: forward bound (tests/test_attention.py:56-57); bf16 allows for P being
+#: rounded at the running max of tiles that differ in size
+ATTN_TOL = {torch.float32: (dict(rtol=2e-5, atol=2e-5),
+                            dict(rtol=2e-5, atol=2e-5)),
+            torch.bfloat16: (dict(rtol=2e-2, atol=2e-2),
+                             dict(rtol=0.0, atol=1e-3))}
+#: SensorFormer flash vs plain/dense (tests/test_transformer_sp.py:36-39)
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+#: published H100 SXM peaks: fp32 outside the tensor cores, bf16 dense
+#: tensor cores, HBM3
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -103,17 +138,51 @@ def phase_device() -> dict:
     return info
 
 
+def _ptxas_by_kernel(log: str) -> dict:
+    """Registers and spills of each flash_fwd_kernel instantiation, from
+    ``-Xptxas -v``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for \S*flash_fwd_kernelI"
+                          r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E", line)
+        if found:
+            dtype = "f32" if found.group(1) == "f" else "bf16"
+            name = (f"{dtype} D={found.group(2)} "
+                    f"{'causal' if found.group(3) == '1' else 'full'}")
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            name = None
+    return out
+
+
 def phase_build() -> None:
+    """Build both sources together, one nvcc each."""
+    def timed(name):
+        t0 = time.perf_counter()
+        log = _build.build(name)
+        return name, log, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    log = _build.build("fused_train")
-    ptxas = [line.strip() for line in log.splitlines()
-             if "Used" in line or "spill" in line]
-    seconds = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = list(pool.map(timed, ("fused_train", "flash_attention")))
+    wall = time.perf_counter() - t0
+    sources = {}
+    for name, log, seconds in built:
+        sources[name] = {"seconds": seconds, "built": bool(log)}
+        if name == "flash_attention":
+            sources[name]["ptxas"] = _ptxas_by_kernel(log)
+        else:
+            sources[name]["ptxas"] = [line.strip() for line in log.splitlines()
+                                      if "Used" in line or "spill" in line]
     smem = {f"F={spec.input_dim}": fused_train.smem(
         spec.build("cuda").state_dict(), 100, "cuda")
         for spec in (CAR_AUTOENCODER, CREDITCARD_AUTOENCODER)}
-    emit({"phase": "build", "seconds": seconds, "source": "fused_train",
-          "built": bool(log), "ptxas": ptxas,
+    emit({"phase": "build", "seconds": wall, "sources": sources,
           "smem_need_optin_bytes_at_B100": smem})
 
 
@@ -330,6 +399,223 @@ def phase_timing(card: str, batches) -> dict:
     return info
 
 
+def _qkv(B, T, H, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=(B, T, H, D)).astype(np.float32))
+            .to("cuda", dtype) for _ in range(3)]
+
+
+def check_attention(tag, out, want) -> float:
+    """Kernel (o, lse) against the plain version's at the dtype's bounds;
+    returns the largest absolute difference."""
+    (o, lse), (want_o, want_lse) = out, want
+    o_tol, lse_tol = ATTN_TOL[want_o.dtype]
+    return max(check_close(f"{tag} O", o, want_o, **o_tol),
+               check_close(f"{tag} LSE", lse, want_lse, **lse_tol))
+
+
+ATTN_CASES = [  # dtype, B, T, H, D, causal, block
+    (torch.float32, 2, 40, 2, 8, True, 16),
+    (torch.float32, 2, 32, 2, 8, False, 16),
+    (torch.float32, 2, 4096, 4, 16, True, 128),
+    (torch.bfloat16, 1, 1000, 2, 128, True, 128),
+    (torch.bfloat16, 1, 1024, 2, 128, False, 128),
+]
+
+
+def phase_attention_kernel() -> dict:
+    errs = {"causal": 0.0, "full": 0.0}
+    cases = []
+    for dtype, B, T, H, D, causal, block in ATTN_CASES:
+        q, k, v = _qkv(B, T, H, D, dtype, seed=T + D)
+        entry = "causal" if causal else "full"
+        tag = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D} {entry}"
+        before = flash_attention.launches[entry]
+        out = flash_attention_fwd(q, k, v, causal, block, block)
+        torch.cuda.synchronize()
+        if flash_attention.launches[entry] != before + 1:
+            raise AssertionError(f"{tag}: the {entry} kernel was not launched")
+        want = flash_attention_reference(q, k, v, causal, block, block)
+        err = check_attention(tag, out, want)
+        again = flash_attention_fwd(q, k, v, causal, block, block)
+        if not (torch.equal(again[0], out[0])
+                and torch.equal(again[1], out[1])):
+            raise AssertionError(f"{tag}: two launches differ")
+        errs[entry] = max(errs[entry], err)
+        cases.append({"case": tag, "block": block, "max_abs_err": err})
+    q, k, v = _qkv(1, 40, 2, 8, torch.float32, seed=0)
+    before = dict(flash_attention.launches)
+    try:
+        flash_attention_fwd(q, k, v, False, 16, 16)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("non-causal T=40 with block 16 did not raise")
+    if flash_attention.launches != before:
+        raise AssertionError("a refused call counted a launch")
+    emit({"phase": "attention_kernel", "cases": cases,
+          "tolerance": {"f32": "O, LSE rtol=atol=2e-5",
+                        "bf16": "O rtol=atol=2e-2 in f32, LSE atol 1e-3"},
+          "bit_repeat": True, "ragged_non_causal_raises": True})
+    return errs
+
+
+def fleet_histories(num_cars: int, ticks: int) -> np.ndarray:
+    """[num_cars, ticks, 18] normalized per-car sensor histories: the
+    fleet stepped ``ticks`` times, each tick's rows stacked per car."""
+    gen = FleetGenerator(FleetScenario(num_cars=num_cars, failure_rate=0.01))
+    rows = np.stack([gen.sensor_matrix(gen.step_columns())
+                     for _ in range(ticks)], axis=1)
+    return CAR_NORMALIZER.np(rows)
+
+
+#: the serving path's fleet: cars, and ticks of history per car
+SF_CARS, SF_TICKS = 100, 4096
+
+
+def phase_sensorformer_path(card: str) -> dict:
+    t0 = time.perf_counter()
+    hist = fleet_histories(SF_CARS, SF_TICKS)
+    data_s = time.perf_counter() - t0
+    model = SensorFormer(attn_mode="flash").eval()  # no device: the card
+    x = torch.from_numpy(hist).to(model.head.weight.device)
+    flash_attention.launches.update(causal=0, full=0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        pred = model(x)
+        scores = SensorFormer.anomaly_scores(pred, x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(flash_attention.launches)
+    if launches != {"causal": model.num_layers, "full": 0}:
+        raise AssertionError(f"one forward launched {launches}, not "
+                             f"{model.num_layers} causal")
+    if tuple(scores.shape) != (SF_CARS, SF_TICKS - 1) \
+            or not bool(torch.isfinite(scores).all()):
+        raise AssertionError(f"scores {tuple(scores.shape)}, finite "
+                             f"{bool(torch.isfinite(scores).all())}")
+
+    def same_weights(mode):
+        m = SensorFormer(attn_mode=mode).eval()
+        m.load_state_dict(model.state_dict())
+        return m
+
+    with torch.no_grad():
+        plain_scores = SensorFormer.anomaly_scores(
+            same_weights("flash_reference")(x), x)
+        err = check_close("scores vs plain version", scores, plain_scores,
+                          **MODEL_TOL)
+        dense_scores = SensorFormer.anomaly_scores(
+            same_weights("dense")(x[:4]), x[:4])
+        dense_err = check_close("scores vs dense (4 cars)", scores[:4],
+                                dense_scores, **MODEL_TOL)
+
+        def forward():
+            return SensorFormer.anomaly_scores(model(x), x)
+
+        ms = cuda_ms(forward, 5)
+    steps = SF_CARS * (SF_TICKS - 1)
+    info = {"phase": "sensorformer_path", "card": card,
+            "shape": list(x.shape), "d_model": model.d_model,
+            "num_heads": model.num_heads, "num_layers": model.num_layers,
+            "data_seconds": data_s, "first_forward_seconds": first_s,
+            "kernel_launches": launches, "max_abs_err_vs_plain": err,
+            "max_abs_err_vs_dense_4_cars": dense_err,
+            "score_mean": float(scores.mean()), "forward_ms": ms,
+            "scored_steps_per_s": steps / (ms / 1e3)}
+    emit(info)
+    return info
+
+
+def attention_bound(B, T, H, D, causal, dtype) -> dict:
+    """Least time for one forward on an H100: 4·D flops per live (query,
+    key) pair at the inputs' peak, against q, k, v read once and o, lse
+    written once."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    flops = 4 * D * pairs * B * H
+    elt = torch.tensor([], dtype=dtype).element_size()
+    bytes_moved = 4 * B * H * T * D * elt + 4 * B * H * T
+    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * bytes_moved / HBM_BYTES_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bound_flops": flops, "bound_bytes": bytes_moved,
+            "fp32_fma_floor_ms": 1e3 * flops / FP32_FLOPS}
+
+
+TIMING_SHAPES = {  # name: (dtype, B, T, H, D, plain block, reps)
+    "sensorformer_layer": (torch.float32, 100, 4096, 4, 16, 128, 5),
+    "long_context": (torch.bfloat16, 1, 65536, 2, 128, 1024, 3),
+}
+
+
+def phase_attention_timing(card: str) -> dict:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    out = {}
+    for shape, (dtype, B, T, H, D, block, reps) in TIMING_SHAPES.items():
+        q, k, v = _qkv(B, T, H, D, dtype, seed=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        for causal in (True, False):
+            entry = "causal" if causal else "full"
+
+            def kernel():
+                return flash_attention_fwd(q, k, v, causal, block, block)
+
+            def plain():
+                return flash_attention_reference(q, k, v, causal, block,
+                                                 block)
+
+            def library():
+                # the yardstick only; never the math fallback, which
+                # would hold the whole [B, H, T, T] score matrix
+                with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                                  SDPBackend.EFFICIENT_ATTENTION,
+                                  SDPBackend.CUDNN_ATTENTION]):
+                    return scaled_dot_product_attention(qh, kh, vh,
+                                                        is_causal=causal)
+
+            err = check_attention(f"{shape} {entry}", kernel(), plain())
+            library()
+            torch.cuda.synchronize()
+            ms = cuda_ms(kernel, reps)
+            plain_ms = cuda_ms(plain, 2)
+            library_ms = cuda_ms(library, reps)
+            ms_again = cuda_ms(kernel, reps)
+            out[(shape, entry)] = info = {
+                "phase": "attention_timing", "card": card, "shape": shape,
+                "entry": entry, "dtype": str(dtype)[6:],
+                "B": B, "T": T, "H": H, "D": D, "plain_block": block,
+                "kernel_ms": [ms, ms_again], "plain_ms": plain_ms,
+                "library_ms": library_ms, "max_abs_err": err,
+                **attention_bound(B, T, H, D, causal, dtype)}
+            emit(info)
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    return out
+
+
+def attention_entry(name, replaces, entry, launches, err, timing) -> dict:
+    layer = timing[("sensorformer_layer", entry)]
+    long = timing[("long_context", entry)]
+    return {
+        "name": name, "route": "cuda",
+        "source": "iotml_torch/ops/csrc/flash_attention.cu",
+        "replaces": replaces, "launches": launches[entry],
+        "max_abs_err": max(err[entry], layer["max_abs_err"],
+                           long["max_abs_err"]),
+        "ms": min(layer["kernel_ms"]), "plain_ms": layer["plain_ms"],
+        "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
+        "library_ms": layer["library_ms"],
+        "long_context": {"ms": min(long["kernel_ms"]),
+                         "plain_ms": long["plain_ms"],
+                         "bound_ms": long["bound_ms"],
+                         "bound_by": long["bound_by"],
+                         "fp32_fma_floor_ms": long["fp32_fma_floor_ms"],
+                         "library_ms": long["library_ms"]}}
+
+
 def main() -> int:
     dev = phase_device()
     card = dev["nvidia_smi"]
@@ -337,6 +623,10 @@ def main() -> int:
     err = phase_kernel()
     main_info = phase_main_path(card)
     timing = phase_timing(card, main_info["batches"])
+    attn_err = phase_attention_kernel()
+    sf_info = phase_sensorformer_path(card)
+    attn_timing = phase_attention_timing(card)
+    launches = sf_info["kernel_launches"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
         "source": "iotml_torch/ops/csrc/fused_train.cu",
@@ -345,7 +635,11 @@ def main() -> int:
         "max_abs_err": max(err, timing["max_abs_err"]),
         "ms": min(timing["kernel_ms"]), "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None, "step_loop_ms": timing["step_loop_ms"]}]})
+        "library_ms": None, "step_loop_ms": timing["step_loop_ms"]},
+        attention_entry("flash_fwd_causal", "iotml/ops/attention.py:215",
+                        "causal", launches, attn_err, attn_timing),
+        attention_entry("flash_fwd_full", "iotml/ops/attention.py:149",
+                        "full", launches, attn_err, attn_timing)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -9,9 +9,11 @@ counterpart is easy to find (``iotml_torch/models/autoencoder.py`` ↔
 - ``gen``     car-fleet generator (same numpy draws as ``iotml.gen``)
 - ``data``    in-memory row source → fixed-shape batches
 - ``stream``  ordered prediction write-back
-- ``models``  dense autoencoder (``nn.Module``) + weight converters
+- ``models``  dense autoencoder, SensorFormer (``nn.Module``s) +
+              weight converters
 - ``train``   optax-parity Adam, autograd step loop, ``Trainer``
-- ``ops``     the fused whole-fit CUDA kernel and its plain version
+- ``ops``     the CUDA kernels (fused whole fit, flash-attention
+              forward) and their plain versions
 - ``serve``   super-batched stream scorer
 - ``utils``   device policy
 

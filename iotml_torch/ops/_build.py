@@ -1,16 +1,17 @@
-"""Build the port's CUDA source at first use and load it with ctypes.
+"""Build the port's CUDA sources at first use and load them with ctypes.
 
-``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
-``nvcc`` builds it in seconds:
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers,
+so ``nvcc`` builds it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``iotml_torch/ops/build/`` (gitignored), named by
 the hash of its source, so an edited source builds anew and an unchanged
-one is reused.  A ``lock`` file in the build directory keeps two
-processes from building together; one left behind by a killed build must
-be deleted by hand (the error names it).  Nothing here runs at import.
+one is reused.  A ``<name>.lock`` file in the build directory keeps two
+processes from building one source together (different sources build in
+parallel); one left behind by a killed build must be deleted by hand
+(the error names it).  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def build(name: str) -> str:
     compiler log (``-Xptxas -v``: registers, shared memory, spills), or ""
     when nothing was built; raises RuntimeError on a failed build."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    with _BuildLock(BUILD / "lock"):
+    with _BuildLock(BUILD / f"{name}.lock"):
         target = library_path(name)
         if target.exists():
             return ""
