@@ -9,9 +9,10 @@ non-zero exit and no result line:
 
 1. device     — card name, count, ``nvidia-smi`` name and power limit;
                 TF32 switched off for matmul and cuDNN.
-2. build      — both CUDA sources built from the checkout, one ``nvcc``
-                each, started together (seconds per source; ptxas
-                registers, shared memory and spills per instantiation).
+2. build      — the three CUDA sources built from the checkout, one
+                ``nvcc`` each, started together (seconds per source;
+                ptxas registers and spills per instantiation; the flash
+                kernels' shared memory per block).
 3. kernel     — the fused-fit kernel against its plain PyTorch version on
                 the card: B=100 at F=18 and F=30, 6 batches × 4 epochs,
                 ragged last batch, 0/1 and fractional masks; runs repeat
@@ -44,6 +45,24 @@ non-zero exit and no result line:
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
                 D=128; plain version at blocks 1024), causal and not.
+9. attention_backward_kernel — the dK/dV and dQ kernels against the
+                plain backward on the card, both entry points, dq, dk and
+                dv: the attention_kernel shapes with a seeded random dO;
+                at the f32 D=8 shapes also against autograd through the
+                dense reference; a second launch repeats the first bit
+                for bit; a ragged non-causal call raises.
+10. sensorformer_train — the slice's main path: ``make_sp_train_step``
+                Adam steps (lr 1e-3) of SensorFormer at full width on the
+                fleet histories of phase 7; each step launches exactly
+                ``num_layers`` causal forwards, dK/dV and dQ kernels; step
+                1's loss and every parameter's grad held against the same
+                weights with the plain versions (all cars) and dense
+                attention (4 cars); losses finite and falling; step ms
+                and trained steps per second.
+11. attention_backward_timing — each backward kernel, the plain
+                backward, the port's forward + backward and the library's
+                (``scaled_dot_product_attention`` through autograd) at the
+                shapes of phase 8, beside the bound.
 Then the kernels line, the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -69,8 +88,16 @@ from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import _build, fused_train
-from iotml_torch.ops.attention import (flash_attention, flash_attention_fwd,
-                                       flash_attention_reference)
+from iotml_torch.ops.attention import (attention_reference,
+                                       flash_attention,
+                                       flash_attention_backward_reference,
+                                       flash_attention_bwd,
+                                       flash_attention_fwd,
+                                       flash_attention_reference,
+                                       flash_bwd_dkv, flash_bwd_dq,
+                                       flash_bwd_inputs, flash_bwd_smem)
+from iotml_torch.parallel.seq_parallel import (loss_and_grads,
+                                               make_sp_train_step)
 from iotml_torch.serve.scorer import StreamScorer
 from iotml_torch.stream.producer import OutputSequence
 from iotml_torch.train.loop import Trainer, TrainState, make_scanned_fit
@@ -89,6 +116,16 @@ ATTN_TOL = {torch.float32: (dict(rtol=2e-5, atol=2e-5),
                              dict(rtol=0.0, atol=1e-3))}
 #: SensorFormer flash vs plain/dense (tests/test_transformer_sp.py:36-39)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+#: flash backward against its plain version: f32 is the JAX suite's flash
+#: grad bound (tests/test_attention.py:70-71); bf16 allows one rounding of
+#: each output (2^-7 of the value) after f32 sums in another order (P
+#: comes from the LSE, so the tiles change nothing else)
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+#: a training step's loss and parameter grads, kernels vs plain versions
+#: or dense attention (tests/test_torch_seq_parallel.py)
+TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 #: published H100 SXM peaks: fp32 outside the tensor cores, bf16 dense
 #: tensor cores, HBM3
 FP32_FLOPS = 67e12
@@ -139,16 +176,17 @@ def phase_device() -> dict:
 
 
 def _ptxas_by_kernel(log: str) -> dict:
-    """Registers and spills of each flash_fwd_kernel instantiation, from
-    ``-Xptxas -v``."""
+    """Registers and spills of each flash kernel instantiation
+    (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``,
+    ``flash_bwd_dq_kernel``), from ``-Xptxas -v``."""
     out, name = {}, None
     for line in log.splitlines():
-        found = re.search(r"Function properties for \S*flash_fwd_kernelI"
+        found = re.search(r"Function properties for \S*(flash_\w+)_kernelI"
                           r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E", line)
         if found:
-            dtype = "f32" if found.group(1) == "f" else "bf16"
-            name = (f"{dtype} D={found.group(2)} "
-                    f"{'causal' if found.group(3) == '1' else 'full'}")
+            dtype = "f32" if found.group(2) == "f" else "bf16"
+            name = (f"{found.group(1)} {dtype} D={found.group(3)} "
+                    f"{'causal' if found.group(4) == '1' else 'full'}")
             out[name] = {}
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -161,29 +199,37 @@ def _ptxas_by_kernel(log: str) -> dict:
 
 
 def phase_build() -> None:
-    """Build both sources together, one nvcc each."""
+    """Build the three sources together, one nvcc each."""
     def timed(name):
         t0 = time.perf_counter()
         log = _build.build(name)
         return name, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(timed, ("fused_train", "flash_attention")))
+    names = ("fused_train", "flash_attention", "flash_attention_bwd")
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        built = list(pool.map(timed, names))
     wall = time.perf_counter() - t0
     sources = {}
     for name, log, seconds in built:
         sources[name] = {"seconds": seconds, "built": bool(log)}
-        if name == "flash_attention":
-            sources[name]["ptxas"] = _ptxas_by_kernel(log)
+        if name.startswith("flash_attention"):
+            sources[name]["ptxas"] = ptxas = _ptxas_by_kernel(log)
+            spilled = [k for k, v in ptxas.items()
+                       if v.get("spill_stores") or v.get("spill_loads")]
+            if spilled:
+                raise AssertionError(f"ptxas spills in {spilled}")
         else:
             sources[name]["ptxas"] = [line.strip() for line in log.splitlines()
                                       if "Used" in line or "spill" in line]
     smem = {f"F={spec.input_dim}": fused_train.smem(
         spec.build("cuda").state_dict(), 100, "cuda")
         for spec in (CAR_AUTOENCODER, CREDITCARD_AUTOENCODER)}
+    flash_smem = {f"{kind} D={d}": flash_bwd_smem(kind, d)
+                  for kind in ("dkv", "dq") for d in (8, 16, 128)}
     emit({"phase": "build", "seconds": wall, "sources": sources,
-          "smem_need_optin_bytes_at_B100": smem})
+          "smem_need_optin_bytes_at_B100": smem,
+          "flash_bwd_smem_bytes_per_block": flash_smem})
 
 
 def check_fit(tag: str, kernel_out, plain_out, steps: int) -> float:
@@ -460,6 +506,16 @@ def phase_attention_kernel() -> dict:
     return errs
 
 
+def reset_launches() -> None:
+    for key in flash_attention.launches:
+        flash_attention.launches[key] = 0
+
+
+def expected_launches(**counts) -> dict:
+    """Every flash entry point at 0 but those named."""
+    return {key: counts.get(key, 0) for key in flash_attention.launches}
+
+
 def fleet_histories(num_cars: int, ticks: int) -> np.ndarray:
     """[num_cars, ticks, 18] normalized per-car sensor histories: the
     fleet stepped ``ticks`` times, each tick's rows stacked per car."""
@@ -479,7 +535,7 @@ def phase_sensorformer_path(card: str) -> dict:
     data_s = time.perf_counter() - t0
     model = SensorFormer(attn_mode="flash").eval()  # no device: the card
     x = torch.from_numpy(hist).to(model.head.weight.device)
-    flash_attention.launches.update(causal=0, full=0)
+    reset_launches()
     t0 = time.perf_counter()
     with torch.no_grad():
         pred = model(x)
@@ -487,7 +543,7 @@ def phase_sensorformer_path(card: str) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(flash_attention.launches)
-    if launches != {"causal": model.num_layers, "full": 0}:
+    if launches != expected_launches(causal=model.num_layers):
         raise AssertionError(f"one forward launched {launches}, not "
                              f"{model.num_layers} causal")
     if tuple(scores.shape) != (SF_CARS, SF_TICKS - 1) \
@@ -524,17 +580,20 @@ def phase_sensorformer_path(card: str) -> dict:
             "score_mean": float(scores.mean()), "forward_ms": ms,
             "scored_steps_per_s": steps / (ms / 1e3)}
     emit(info)
-    return info
+    return {**info, "histories": hist}
 
 
-def attention_bound(B, T, H, D, causal, dtype) -> dict:
-    """Least time for one forward on an H100: 4·D flops per live (query,
-    key) pair at the inputs' peak, against q, k, v read once and o, lse
-    written once."""
+def attention_bound(B, T, H, D, causal, dtype, flops_per_pair_per_d=4,
+                    tensors=4, row_bytes=4) -> dict:
+    """Least time for one attention call on an H100: its flops per live
+    (query, key) pair (``flops_per_pair_per_d``·D) at the inputs' peak,
+    against the bytes it must move: ``tensors`` [B, T, H, D] tensors and
+    ``row_bytes`` of f32 per row, each read or written once.  The forward
+    is 4·D flops, q, k, v, o and the lse (the defaults)."""
     pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4 * D * pairs * B * H
+    flops = flops_per_pair_per_d * D * pairs * B * H
     elt = torch.tensor([], dtype=dtype).element_size()
-    bytes_moved = 4 * B * H * T * D * elt + 4 * B * H * T
+    bytes_moved = tensors * B * H * T * D * elt + row_bytes * B * H * T
     peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
     ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * bytes_moved / HBM_BYTES_S
     return {"bound_ms": max(ops_ms, bytes_ms),
@@ -595,6 +654,266 @@ def phase_attention_timing(card: str) -> dict:
         torch.cuda.empty_cache()
     return out
 
+#: the backward's parts: flops per live pair (× D), [B, T, H, D] tensors
+#: moved, f32 bytes per row.  Both kernels recompute Q·Kᵀ and dO·Vᵀ (2·D
+#: each); dK/dV adds Pᵀ·dO and dSᵀ·Q, dQ adds dS·K.  The whole backward
+#: counts each product once: 10·D; it reads q, k, v, o, dO and the lse and
+#: writes dq, dk, dv (delta is derived from o and dO).  dK/dV reads q, k,
+#: v, dO, lse and delta and writes dk, dv; dQ writes dq.
+BWD_PARTS = {"backward": (10, 8, 4), "dkv": (8, 6, 8), "dq": (6, 5, 8)}
+
+
+def check_grads(tag, got, want, dtype) -> dict:
+    """Kernel (dq, dk, dv) against the plain backward's at the dtype's
+    bound; returns the largest absolute difference of each kernel's
+    outputs: {"dkv": .., "dq": ..}."""
+    errs = {name: check_close(f"{tag} d{name}", g.float(), w.float(),
+                              **GRAD_TOL[dtype])
+            for name, g, w in zip("qkv", got, want)}
+    return {"dkv": max(errs["k"], errs["v"]), "dq": errs["q"]}
+
+
+def phase_attention_backward_kernel() -> dict:
+    errs = {}
+    cases = []
+    for dtype, B, T, H, D, causal, block in ATTN_CASES:
+        q, k, v = _qkv(B, T, H, D, dtype, seed=T + D)
+        do = _qkv(B, T, H, D, dtype, seed=T + D + 1)[0]
+        entry = "causal" if causal else "full"
+        tag = f"backward {str(dtype)[6:]} B={B} T={T} H={H} D={D} {entry}"
+        o, lse = flash_attention_fwd(q, k, v, causal, block, block)
+        before = dict(flash_attention.launches)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal, block, block)
+        torch.cuda.synchronize()
+        for kind in ("dkv", "dq"):
+            key = f"bwd_{kind}_{entry}"
+            if flash_attention.launches[key] != before[key] + 1:
+                raise AssertionError(f"{tag}: the {key} kernel was not "
+                                     f"launched")
+        want = flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                  causal, block, block)
+        err = check_grads(tag, got, want, dtype)
+        case = {"case": tag, "block": block, "max_abs_err": err}
+        if dtype == torch.float32 and D == 8:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            dense = torch.autograd.grad(
+                attention_reference(*leaves, causal=causal), leaves, do)
+            case["max_abs_err_vs_dense_autograd"] = check_grads(
+                f"{tag} vs dense autograd", got, dense, dtype)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal, block,
+                                    block)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"{tag}: two launches differ")
+        for kind in ("dkv", "dq"):
+            errs[(kind, entry)] = max(errs.get((kind, entry), 0.0),
+                                      err[kind])
+        cases.append(case)
+    q, k, v = _qkv(1, 40, 2, 8, torch.float32, seed=0)
+    lse = torch.zeros((1, 2, 40), device="cuda")
+    before = dict(flash_attention.launches)
+    try:
+        flash_attention_bwd(q, k, v, q, lse, q, False, 16, 16)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("non-causal backward at T=40 with block 16 "
+                             "did not raise")
+    if flash_attention.launches != before:
+        raise AssertionError("a refused backward counted a launch")
+    emit({"phase": "attention_backward_kernel", "cases": cases,
+          "tolerance": {"f32": "dq, dk, dv rtol 1e-4 atol 1e-5",
+                        "bf16": "dq, dk, dv rtol 1e-2 atol 1e-3 in f32"},
+          "bit_repeat": True, "ragged_non_causal_raises": True})
+    return errs
+
+
+#: SensorFormer training on the fleet histories: Adam steps after one
+#: warm-up step, and cars per chunk of the plain version's gradient
+TRAIN_TIMED_STEPS = 5
+PLAIN_GRAD_CARS = 10
+
+
+def phase_sensorformer_train(card: str, hist: np.ndarray) -> dict:
+    model = SensorFormer(attn_mode="flash")  # no device: the card
+    init, step, put_x = make_sp_train_step(model, Adam(1e-3))
+    x = put_x(hist)
+    n_cars, T = x.shape[:2]
+    L = model.num_layers
+    state = init()
+
+    # step 1's loss and grads — what the step computes — held against the
+    # plain versions on all cars (autograd through the plain forward, in
+    # chunks of cars weighted by their share of the mean) and against
+    # dense attention on 4 cars
+    loss_k, grads_k = loss_and_grads(model, state.params, x)
+    plain = SensorFormer(attn_mode="flash_reference")
+    loss_p, grads_p = 0.0, {key: torch.zeros_like(g)
+                            for key, g in grads_k.items()}
+    for c in range(0, n_cars, PLAIN_GRAD_CARS):
+        share = min(PLAIN_GRAD_CARS, n_cars - c) / n_cars
+        loss_c, grads_c = loss_and_grads(plain, state.params,
+                                         x[c:c + PLAIN_GRAD_CARS])
+        loss_p = loss_p + share * loss_c
+        for key in grads_p:
+            grads_p[key] += share * grads_c[key]
+    err_loss = check_close("step-1 loss vs plain", loss_k, loss_p,
+                           **TRAIN_LOSS_TOL)
+    err_plain = max(check_close(f"grad {key} vs plain", grads_k[key],
+                                grads_p[key], **TRAIN_GRAD_TOL)
+                    for key in grads_k)
+    loss_k4, grads_k4 = loss_and_grads(model, state.params, x[:4])
+    loss_d4, grads_d4 = loss_and_grads(SensorFormer(attn_mode="dense"),
+                                       state.params, x[:4])
+    err_loss_dense = check_close("4-car loss vs dense", loss_k4, loss_d4,
+                                 **TRAIN_LOSS_TOL)
+    err_dense = max(check_close(f"grad {key} vs dense (4 cars)",
+                                grads_k4[key], grads_d4[key],
+                                **TRAIN_GRAD_TOL)
+                    for key in grads_k4)
+    grad_scale = max(float(g.abs().max()) for g in grads_k.values())
+    del grads_k, grads_p, grads_c, grads_k4, grads_d4, plain
+    torch.cuda.empty_cache()
+
+    # the main path: make_sp_train_step's steps
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    per_step = expected_launches(causal=L, bwd_dkv_causal=L,
+                                 bwd_dq_causal=L)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses = []
+    for i in range(1 + TRAIN_TIMED_STEPS):
+        if i == 1:
+            start.record()
+        before = dict(flash_attention.launches)
+        state, metrics = step(state, x)
+        ran = {key: flash_attention.launches[key] - before[key]
+               for key in before}
+        if ran != per_step:
+            raise AssertionError(f"step {i + 1} launched {ran}, not "
+                                 f"{per_step}")
+        losses.append(metrics["loss"])
+    end.record()
+    end.synchronize()
+    launches = dict(flash_attention.launches)
+    step_ms = start.elapsed_time(end) / TRAIN_TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().tolist()
+    check_close("step-1 loss vs loss_and_grads", torch.tensor(losses[0]),
+                loss_k, rtol=1e-6, atol=0.0)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"training did not converge: {losses}")
+    if state.step != 1 + TRAIN_TIMED_STEPS:
+        raise AssertionError(f"state at step {state.step}")
+    steps = n_cars * (T - 1)
+    info = {"phase": "sensorformer_train", "card": card,
+            "shape": list(x.shape), "d_model": model.d_model,
+            "num_heads": model.num_heads, "num_layers": L,
+            "learning_rate": 1e-3, "steps": 1 + TRAIN_TIMED_STEPS,
+            "kernel_launches": launches, "losses": losses,
+            "step1_loss_err_vs_plain": err_loss,
+            "step1_grad_max_abs_err_vs_plain": err_plain,
+            "step1_loss_err_vs_dense_4_cars": err_loss_dense,
+            "step1_grad_max_abs_err_vs_dense_4_cars": err_dense,
+            "step1_grad_max_abs": grad_scale,
+            "tolerance": {"loss": TRAIN_LOSS_TOL, "grads": TRAIN_GRAD_TOL},
+            "step_ms": step_ms, "trained_steps_per_s": steps / (step_ms / 1e3),
+            "peak_memory_bytes": peak}
+    emit(info)
+    return info
+
+
+def phase_attention_backward_timing(card: str) -> dict:
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    # the yardstick only; never the math fallback, which would hold the
+    # whole [B, H, T, T] score matrix
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    out = {}
+    for shape, (dtype, B, T, H, D, block, reps) in TIMING_SHAPES.items():
+        q, k, v = _qkv(B, T, H, D, dtype, seed=1)
+        do = _qkv(B, T, H, D, dtype, seed=2)[0]
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v)]
+        do_h = do.transpose(1, 2).contiguous()
+        for causal in (True, False):
+            entry = "causal" if causal else "full"
+            o, lse = flash_attention_fwd(q, k, v, causal, block, block)
+            folded = flash_bwd_inputs(q, k, v, o, lse, do)
+
+            def dkv():
+                return flash_bwd_dkv(*folded, causal=causal)
+
+            def dq():
+                return flash_bwd_dq(*folded, causal=causal)
+
+            def plain():
+                return flash_attention_backward_reference(
+                    q, k, v, o, lse, do, causal, block, block)
+
+            def port():
+                return torch.autograd.grad(
+                    flash_attention(*leaves, causal, block, block), leaves,
+                    do)
+
+            def lib_forward():
+                with sdpa_kernel(backends):
+                    return scaled_dot_product_attention(*lib_leaves,
+                                                        is_causal=causal)
+
+            def library():
+                return torch.autograd.grad(lib_forward(), lib_leaves, do_h)
+
+            lib_out = lib_forward()
+
+            def lib_bwd(which):
+                return lambda: torch.autograd.grad(
+                    lib_out, [lib_leaves[i] for i in which], do_h,
+                    retain_graph=True)
+
+            err = check_grads(f"{shape} {entry} backward",
+                              flash_attention_bwd(q, k, v, o, lse, do,
+                                                  causal, block, block),
+                              plain(), dtype)
+            for fn in (dkv, dq, port, library):
+                fn()
+            torch.cuda.synchronize()
+            dkv_ms, dq_ms = cuda_ms(dkv, reps), cuda_ms(dq, reps)
+            plain_ms = cuda_ms(plain, 2)
+            port_ms = cuda_ms(port, reps)
+            library_ms = cuda_ms(library, reps)
+            lib_ms = {part: cuda_ms(lib_bwd(which), reps) for part, which in
+                      (("backward", (0, 1, 2)), ("dkv", (1, 2)),
+                       ("dq", (0,)))}
+            dkv_again, dq_again = cuda_ms(dkv, reps), cuda_ms(dq, reps)
+            parts = {part: attention_bound(B, T, H, D, causal, dtype, *spec)
+                     for part, spec in BWD_PARTS.items()}
+            out[(shape, entry)] = info = {
+                "phase": "attention_backward_timing", "card": card,
+                "shape": shape, "entry": entry, "dtype": str(dtype)[6:],
+                "B": B, "T": T, "H": H, "D": D, "plain_block": block,
+                "dkv": {"ms": [dkv_ms, dkv_again],
+                        "library_ms": lib_ms["dkv"], **parts["dkv"]},
+                "dq": {"ms": [dq_ms, dq_again],
+                       "library_ms": lib_ms["dq"], **parts["dq"]},
+                "backward": {"kernels_ms": min(dkv_ms, dkv_again)
+                             + min(dq_ms, dq_again),
+                             "plain_ms": plain_ms,
+                             "library_ms": lib_ms["backward"],
+                             **parts["backward"]},
+                "forward_backward": {"port_ms": port_ms,
+                                     "library_ms": library_ms},
+                "max_abs_err": err}
+            emit(info)
+            del lib_out, o, lse, folded
+        del q, k, v, do, leaves, lib_leaves, do_h
+        torch.cuda.empty_cache()
+    return out
+
 
 def attention_entry(name, replaces, entry, launches, err, timing) -> dict:
     layer = timing[("sensorformer_layer", entry)]
@@ -616,6 +935,32 @@ def attention_entry(name, replaces, entry, launches, err, timing) -> dict:
                          "library_ms": long["library_ms"]}}
 
 
+def backward_entry(name, replaces, kind, entry, launches, errs,
+                   timing) -> dict:
+    """A backward kernel's line: ms, bound and library call of its own
+    part; plain_ms is the whole plain backward (no plain version computes
+    one kernel's share alone)."""
+    layer = timing[("sensorformer_layer", entry)]
+    long = timing[("long_context", entry)]
+    return {
+        "name": name, "route": "cuda",
+        "source": "iotml_torch/ops/csrc/flash_attention_bwd.cu",
+        "replaces": replaces, "launches": launches[f"bwd_{kind}_{entry}"],
+        "max_abs_err": max(errs[(kind, entry)], layer["max_abs_err"][kind],
+                           long["max_abs_err"][kind]),
+        "ms": min(layer[kind]["ms"]),
+        "plain_ms": layer["backward"]["plain_ms"],
+        "bound_ms": layer[kind]["bound_ms"],
+        "bound_by": layer[kind]["bound_by"],
+        "library_ms": layer[kind]["library_ms"],
+        "long_context": {"ms": min(long[kind]["ms"]),
+                         "plain_ms": long["backward"]["plain_ms"],
+                         "bound_ms": long[kind]["bound_ms"],
+                         "bound_by": long[kind]["bound_by"],
+                         "fp32_fma_floor_ms": long[kind]["fp32_fma_floor_ms"],
+                         "library_ms": long[kind]["library_ms"]}}
+
+
 def main() -> int:
     dev = phase_device()
     card = dev["nvidia_smi"]
@@ -626,7 +971,11 @@ def main() -> int:
     attn_err = phase_attention_kernel()
     sf_info = phase_sensorformer_path(card)
     attn_timing = phase_attention_timing(card)
+    bwd_err = phase_attention_backward_kernel()
+    train_info = phase_sensorformer_train(card, sf_info["histories"])
+    bwd_timing = phase_attention_backward_timing(card)
     launches = sf_info["kernel_launches"]
+    train_launches = train_info["kernel_launches"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
         "source": "iotml_torch/ops/csrc/fused_train.cu",
@@ -639,7 +988,15 @@ def main() -> int:
         attention_entry("flash_fwd_causal", "iotml/ops/attention.py:215",
                         "causal", launches, attn_err, attn_timing),
         attention_entry("flash_fwd_full", "iotml/ops/attention.py:149",
-                        "full", launches, attn_err, attn_timing)]})
+                        "full", launches, attn_err, attn_timing),
+        backward_entry("flash_bwd_dkv_causal", "iotml/ops/attention.py:482",
+                       "dkv", "causal", train_launches, bwd_err, bwd_timing),
+        backward_entry("flash_bwd_dq_causal", "iotml/ops/attention.py:518",
+                       "dq", "causal", train_launches, bwd_err, bwd_timing),
+        backward_entry("flash_bwd_dkv_full", "iotml/ops/attention.py:402",
+                       "dkv", "full", train_launches, bwd_err, bwd_timing),
+        backward_entry("flash_bwd_dq_full", "iotml/ops/attention.py:447",
+                       "dq", "full", train_launches, bwd_err, bwd_timing)]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})

@@ -138,3 +138,20 @@ def sensorformer_params_to_jax(state: Dict[str, torch.Tensor],
                              "bias": out["bias"]}},
             "mlp_in": dense(f"{b}.mlp_in"), "mlp_out": dense(f"{b}.mlp_out")}
     return tree
+
+
+def sensorformer_adam_from_optax(count, mu, nu) -> AdamState:
+    """optax ``ScaleByAdamState`` fields over a flax ``SensorFormer``
+    param tree → the port's ``AdamState``."""
+    return AdamState(count=int(np.asarray(count)),
+                     mu=sensorformer_params_from_jax(mu),
+                     nu=sensorformer_params_from_jax(nu))
+
+
+def sensorformer_adam_to_optax(state: AdamState, num_heads: int
+                               ) -> Tuple[np.ndarray, dict, dict]:
+    """The port's SensorFormer ``AdamState`` → (int32 count, mu tree, nu
+    tree); ``num_heads`` as in ``sensorformer_params_to_jax``."""
+    return (np.asarray(state.count, np.int32),
+            sensorformer_params_to_jax(state.mu, num_heads),
+            sensorformer_params_to_jax(state.nu, num_heads))

@@ -149,11 +149,25 @@ def test_flash_attention_on_cpu_takes_the_plain_version():
     assert t_attn.flash_attention.launches == before
 
 
+def _grads_of_sum(q, k, v, fn):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fn(*leaves).sum().backward()
+    return [t.grad for t in leaves]
+
+
 def test_flash_attention_backward_raises_on_cpu():
-    q, k, v = (t.requires_grad_() for t in _t(*_qkv(T=16)))
-    out = t_attn.flash_attention(q, k, v, True, 8, 8)
-    with pytest.raises(NotImplementedError, match="B4-B7"):
-        out.sum().backward()
+    """The backward on CPU tensors runs the plain version and gives dense
+    attention's autograd grads, at the JAX suite's flash-grad bound
+    (tests/test_attention.py:70-71)."""
+    q, k, v = _t(*_qkv(T=16))
+    before = dict(t_attn.flash_attention.launches)
+    got = _grads_of_sum(q, k, v, lambda *a: t_attn.flash_attention(
+        *a, True, 8, 8))
+    want = _grads_of_sum(q, k, v, lambda *a: t_attn.attention_reference(
+        *a, causal=True))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    assert t_attn.flash_attention.launches == before
 
 
 @pytest.fixture
@@ -165,8 +179,16 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_flash_attention_backward_raises_on_cuda(cuda_device):
-    q, k, v = (t.to(cuda_device).requires_grad_()
-               for t in _t(*_qkv(T=16, D=16)))
-    out = t_attn.flash_attention(q, k, v, True, 8, 8)
-    with pytest.raises(NotImplementedError, match="B4-B7"):
-        out.sum().backward()
+    """On the card the backward launches the dK/dV and dQ kernels once
+    each and gives the CPU's grads."""
+    q, k, v = _t(*_qkv(T=16, D=16))
+    before = dict(t_attn.flash_attention.launches)
+    got = _grads_of_sum(*(t.to(cuda_device) for t in (q, k, v)),
+                        lambda *a: t_attn.flash_attention(*a, True, 8, 8))
+    after = t_attn.flash_attention.launches
+    assert after["bwd_dkv_causal"] == before["bwd_dkv_causal"] + 1
+    assert after["bwd_dq_causal"] == before["bwd_dq_causal"] + 1
+    want = _grads_of_sum(q, k, v, lambda *a: t_attn.flash_attention(
+        *a, True, 8, 8))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)

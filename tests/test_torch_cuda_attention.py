@@ -12,7 +12,13 @@ Tolerances: float32 O and LSE 2e-5, the JAX suite's flash forward bound
 in float32 and LSE atol 1e-3, because P is rounded to bfloat16 at the
 running max of each tile and the kernel's tiles differ from the plain
 version's blocks; the model's predictions rtol = atol = 2e-4
-(tests/test_transformer_sp.py:36-39).
+(tests/test_transformer_sp.py:36-39).  Backward: float32 dq, dk, dv
+rtol 1e-4 / atol 1e-5, the JAX suite's flash-grad bound
+(tests/test_attention.py:70-71); bfloat16 rtol 1e-2 / atol 1e-3 in
+float32 (P comes from the LSE, so tiles change only the order of the f32
+sums: one bfloat16 rounding of each output, 2^-7 of the value at most);
+a training step's loss rtol 1e-5 and grads rtol 1e-4 / atol 1e-6
+(tests/test_torch_seq_parallel.py).
 """
 
 import numpy as np
@@ -21,10 +27,15 @@ import torch
 
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import attention as attn
+from iotml_torch.parallel.seq_parallel import loss_and_grads
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_O_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_LSE_TOL = dict(rtol=0, atol=1e-3)
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+            torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+BWD_KEYS = ("bwd_dkv_causal", "bwd_dq_causal", "bwd_dkv_full",
+            "bwd_dq_full")
 
 
 @pytest.fixture
@@ -103,10 +114,99 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, cuda_device):
 
 @pytest.mark.cuda
 def test_backward_raises_on_the_card(cuda_device):
+    """flash_attention(...).backward launches the dK/dV and dQ kernels
+    once each, causal entries only, and gives the plain backward's
+    grads."""
     q, k, v = (t.requires_grad_() for t in
                _qkv(1, 16, 2, 16, torch.float32, cuda_device))
-    with pytest.raises(NotImplementedError, match="B4-B7"):
-        attn.flash_attention(q, k, v).sum().backward()
+    do = _qkv(1, 16, 2, 16, torch.float32, cuda_device, seed=9)[0]
+    before = dict(attn.flash_attention.launches)
+    got = torch.autograd.grad(attn.flash_attention(q, k, v), (q, k, v), do)
+    after = attn.flash_attention.launches
+    assert {key: after[key] - before[key] for key in BWD_KEYS} == {
+        "bwd_dkv_causal": 1, "bwd_dq_causal": 1, "bwd_dkv_full": 0,
+        "bwd_dq_full": 0}
+    o, lse = attn.flash_attention_reference(q.detach(), k.detach(),
+                                            v.detach())
+    want = attn.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), o, lse, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **GRAD_TOL[torch.float32])
+    # only k needs a grad: the dQ kernel is not launched
+    kk = k.detach().clone().requires_grad_()
+    before = dict(attn.flash_attention.launches)
+    torch.autograd.grad(attn.flash_attention(q.detach(), kk, v.detach()),
+                        (kk,), do)
+    assert attn.flash_attention.launches["bwd_dq_causal"] == \
+        before["bwd_dq_causal"]
+    assert attn.flash_attention.launches["bwd_dkv_causal"] == \
+        before["bwd_dkv_causal"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,T,H,D,causal,block", [
+    (torch.float32, 2, 40, 2, 8, True, 16),
+    (torch.float32, 2, 32, 2, 8, False, 16),
+    (torch.float32, 2, 300, 4, 16, True, 128),
+    (torch.float32, 1, 256, 4, 16, False, 128),
+    (torch.float32, 1, 70, 1, 128, True, 32),
+    (torch.bfloat16, 1, 200, 2, 128, True, 128),
+    (torch.bfloat16, 1, 256, 2, 128, False, 128),
+    (torch.bfloat16, 2, 72, 2, 16, True, 16),
+])
+def test_backward_kernels_match_plain_version(dtype, B, T, H, D, causal,
+                                              block, cuda_device):
+    q, k, v, do = _qkv(B, T, H, D, dtype, cuda_device, seed=T + D) + \
+        _qkv(B, T, H, D, dtype, cuda_device, seed=T + D + 1)[:1]
+    o, lse = attn.flash_attention_fwd(q, k, v, causal, block, block)
+    entry = "causal" if causal else "full"
+    before = dict(attn.flash_attention.launches)
+    got = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, block,
+                                   block)
+    torch.cuda.synchronize()
+    for kind in ("dkv", "dq"):
+        key = f"bwd_{kind}_{entry}"
+        assert attn.flash_attention.launches[key] == before[key] + 1
+    want = attn.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                   causal, block, block)
+    for g, w in zip(got, want):
+        assert g.shape == q.shape and g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype])
+    # a second launch repeats the first bit for bit
+    again = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, block,
+                                     block)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "head_dim", "dtype", "shape",
+                                  "lse", "folded"])
+def test_backward_wrapper_refuses_what_the_kernels_do_not_take(case,
+                                                               cuda_device):
+    q, k, v, do = _qkv(1, 40, 2, 16, torch.float32, cuda_device) + \
+        _qkv(1, 40, 2, 16, torch.float32, cuda_device, seed=1)[:1]
+    lse = torch.zeros((1, 2, 40), device=cuda_device)
+    causal = True
+    if case == "ragged":
+        causal = False
+    elif case == "head_dim":
+        q, k, v, do = _qkv(1, 40, 2, 32, torch.float32, cuda_device) + [
+            torch.zeros((1, 40, 2, 32), device=cuda_device)]
+    elif case == "dtype":
+        do = do.half()
+    elif case == "shape":
+        k = k[:, :32]
+    elif case == "lse":
+        lse = lse.double()
+    before = dict(attn.flash_attention.launches)
+    with pytest.raises(ValueError):
+        if case == "folded":  # a strided view where contiguous rows are due
+            qf = q.permute(0, 2, 1, 3).reshape(2, 40, 16)
+            attn.flash_bwd_dq(qf.transpose(0, 1).contiguous().transpose(
+                0, 1), qf, qf, qf, lse[0], lse[0])
+        else:
+            attn.flash_attention_bwd(q, k, v, q, lse, do, causal, 16, 16)
+    assert attn.flash_attention.launches == before
 
 
 @pytest.mark.cuda
@@ -127,3 +227,30 @@ def test_sensorformer_on_the_card_matches_the_cpu(cuda_device):
     torch.testing.assert_close(scores.cpu(),
                                SensorFormer.anomaly_scores(want, x),
                                rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_sensorformer_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One next-step loss and every parameter's grad of a small
+    SensorFormer on the card (flash kernels, forward and backward) against
+    the same weights on the CPU (the plain versions)."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(3, 200, 18)).astype(np.float32))
+    card = SensorFormer(d_model=32, num_heads=2, attn_mode="flash")
+    cpu = SensorFormer(d_model=32, num_heads=2, attn_mode="flash",
+                       device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    before = dict(attn.flash_attention.launches)
+    loss, grads = loss_and_grads(card, card.state_dict(), x.to(cuda_device))
+    after = attn.flash_attention.launches
+    assert after["causal"] - before["causal"] == card.num_layers
+    assert after["bwd_dkv_causal"] - before["bwd_dkv_causal"] == \
+        card.num_layers
+    assert after["bwd_dq_causal"] - before["bwd_dq_causal"] == \
+        card.num_layers
+    want_loss, want_grads = loss_and_grads(cpu, cpu.state_dict(), x)
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-5, atol=0)
+    assert set(grads) == set(want_grads)
+    for name, g in grads.items():
+        torch.testing.assert_close(g.cpu(), want_grads[name], rtol=1e-4,
+                                   atol=1e-6, msg=name)
