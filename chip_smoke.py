@@ -11,8 +11,12 @@ non-zero exit and no result line:
                 TF32 switched off for matmul and cuDNN.
 2. build      — the three CUDA sources built from the checkout, one
                 ``nvcc`` each, started together (seconds per source;
-                ptxas registers and spills per instantiation; the flash
-                kernels' shared memory per block).
+                ptxas registers and spills per instantiation, a spill
+                fails the run; the backward kernels' shared memory per
+                block and dtype; HGMMA instructions in the SASS of each
+                tensor-core instantiation, none fails the run; the
+                backward design of each dtype and head dim, the library's
+                and ``flash_bwd_design``'s, which must agree).
 3. kernel     — the fused-fit kernel against its plain PyTorch version on
                 the card: B=100 at F=18 and F=30, 6 batches × 4 epochs,
                 ragged last batch, 0/1 and fractional masks; runs repeat
@@ -47,10 +51,15 @@ non-zero exit and no result line:
                 D=128; plain version at blocks 1024), causal and not.
 9. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
-                dv: the attention_kernel shapes with a seeded random dO;
-                at the f32 D=8 shapes also against autograd through the
-                dense reference; a second launch repeats the first bit
-                for bit; a ragged non-causal call raises.
+                dv: the attention_kernel shapes with a seeded random dO,
+                then the tensor-core design's cases (bf16 D=128, plain
+                blocks 64: causal T = 1, 63, 64, 65, 1000, 4096 at
+                B·H = 1 and 6, non-causal T = 64 and 1024 at B·H = 6,
+                causal B=2 H=2 T=4096), each checked to take the
+                ``wgmma`` design, and a call that needs only dk (no dQ
+                launch); at the f32 D=8 shapes also against autograd
+                through the dense reference; a second launch repeats the
+                first bit for bit; a ragged non-causal call raises.
 10. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
                 fleet histories of phase 7; each step launches exactly
@@ -62,7 +71,11 @@ non-zero exit and no result line:
 11. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 8, beside the bound.
+                shapes of phase 8, beside the bound; each kernel's design
+                and achieved TFLOP/s (its bound's flops over its time),
+                and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
+                port's forward + backward seconds, as bench.py's
+                long-context line).
 Then the kernels line, the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -76,6 +89,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -94,8 +108,9 @@ from iotml_torch.ops.attention import (attention_reference,
                                        flash_attention_bwd,
                                        flash_attention_fwd,
                                        flash_attention_reference,
-                                       flash_bwd_dkv, flash_bwd_dq,
-                                       flash_bwd_inputs, flash_bwd_smem)
+                                       flash_bwd_design, flash_bwd_dkv,
+                                       flash_bwd_dq, flash_bwd_inputs,
+                                       flash_bwd_smem)
 from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
 from iotml_torch.serve.scorer import StreamScorer
@@ -178,15 +193,22 @@ def phase_device() -> dict:
 def _ptxas_by_kernel(log: str) -> dict:
     """Registers and spills of each flash kernel instantiation
     (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``,
-    ``flash_bwd_dq_kernel``), from ``-Xptxas -v``."""
+    ``flash_bwd_dq_kernel`` and the tensor-core
+    ``flash_bwd_{dkv,dq}_wgmma_kernel``), from ``-Xptxas -v``."""
     out, name = {}, None
     for line in log.splitlines():
         found = re.search(r"Function properties for \S*(flash_\w+)_kernelI"
                           r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E", line)
+        wgmma = re.search(r"Function properties for \S*(flash_\w+)_wgmma_"
+                          r"kernelILb([01])E", line)
         if found:
             dtype = "f32" if found.group(2) == "f" else "bf16"
             name = (f"{found.group(1)} {dtype} D={found.group(3)} "
                     f"{'causal' if found.group(4) == '1' else 'full'}")
+            out[name] = {}
+        elif wgmma:
+            name = (f"{wgmma.group(1)} bf16 D=128 "
+                    f"{'causal' if wgmma.group(2) == '1' else 'full'} wgmma")
             out[name] = {}
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -225,11 +247,55 @@ def phase_build() -> None:
     smem = {f"F={spec.input_dim}": fused_train.smem(
         spec.build("cuda").state_dict(), 100, "cuda")
         for spec in (CAR_AUTOENCODER, CREDITCARD_AUTOENCODER)}
-    flash_smem = {f"{kind} D={d}": flash_bwd_smem(kind, d)
-                  for kind in ("dkv", "dq") for d in (8, 16, 128)}
+    flash_smem = {f"{kind} {str(dtype)[6:]} D={d}": flash_bwd_smem(
+        kind, d, dtype) for kind in ("dkv", "dq") for dtype in BWD_DTYPES
+        for d in (8, 16, 128)}
     emit({"phase": "build", "seconds": wall, "sources": sources,
           "smem_need_optin_bytes_at_B100": smem,
-          "flash_bwd_smem_bytes_per_block": flash_smem})
+          "flash_bwd_smem_bytes_per_block": flash_smem,
+          "flash_bwd_design": check_designs(),
+          "hgmma_per_wgmma_kernel": check_hgmma()})
+
+
+BWD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_designs() -> dict:
+    """The backward design of each dtype and head dim: what the built
+    library dispatches to (``iotml_flash_bwd_design``) must be what
+    ``flash_bwd_design`` says, and ``wgmma`` exactly for bf16 at D=128."""
+    lib = _build.load("flash_attention_bwd")
+    designs = {}
+    for code, dtype in enumerate(BWD_DTYPES):
+        for d in (8, 16, 128):
+            built = {0: "fma", 1: "wgmma"}[lib.iotml_flash_bwd_design(d, code)]
+            said = flash_bwd_design(dtype, d)
+            want = "wgmma" if dtype == torch.bfloat16 and d == 128 else "fma"
+            if not built == said == want:
+                raise AssertionError(f"{dtype} D={d}: library {built}, "
+                                     f"flash_bwd_design {said}, want {want}")
+            designs[f"{str(dtype)[6:]} D={d}"] = built
+    return designs
+
+
+def check_hgmma() -> dict:
+    """HGMMA instructions in the SASS (``cuobjdump -sass``) of each
+    tensor-core backward instantiation; raises unless each of the four
+    has some."""
+    cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", str(_build.library_path("flash_attention_bwd"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        found = re.search(r"\S*(flash_\w+)_wgmma_kernelILb([01])E",
+                          part.splitlines()[0])
+        if found:
+            entry = "causal" if found.group(2) == "1" else "full"
+            counts[f"{found.group(1)} {entry}"] = part.count("HGMMA")
+    if len(counts) != 4 or not all(counts.values()):
+        raise AssertionError(f"HGMMA in the tensor-core kernels: {counts}")
+    return counts
 
 
 def check_fit(tag: str, kernel_out, plain_out, steps: int) -> float:
@@ -673,14 +739,29 @@ def check_grads(tag, got, want, dtype) -> dict:
     return {"dkv": max(errs["k"], errs["v"]), "dq": errs["q"]}
 
 
+#: the tensor-core design's cases (bf16, D=128; the plain version at the
+#: kernels' 64-row tiles): dtype, B, T, H, D, causal, block
+WGMMA_BWD_CASES = [
+    *[(torch.bfloat16, B, T, H, 128, True, 64)
+      for T in (1, 63, 64, 65, 1000, 4096) for B, H in ((1, 1), (2, 3))],
+    (torch.bfloat16, 2, 64, 3, 128, False, 64),
+    (torch.bfloat16, 2, 1024, 3, 128, False, 64),
+    (torch.bfloat16, 2, 4096, 2, 128, True, 64),
+]
+
+
 def phase_attention_backward_kernel() -> dict:
     errs = {}
     cases = []
-    for dtype, B, T, H, D, causal, block in ATTN_CASES:
+    for dtype, B, T, H, D, causal, block in ATTN_CASES + WGMMA_BWD_CASES:
         q, k, v = _qkv(B, T, H, D, dtype, seed=T + D)
         do = _qkv(B, T, H, D, dtype, seed=T + D + 1)[0]
         entry = "causal" if causal else "full"
-        tag = f"backward {str(dtype)[6:]} B={B} T={T} H={H} D={D} {entry}"
+        design = flash_bwd_design(dtype, D)
+        tag = (f"backward {str(dtype)[6:]} B={B} T={T} H={H} D={D} {entry} "
+               f"{design}")
+        if (design == "wgmma") != (dtype == torch.bfloat16 and D == 128):
+            raise AssertionError(f"{tag}: not the expected design")
         o, lse = flash_attention_fwd(q, k, v, causal, block, block)
         before = dict(flash_attention.launches)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal, block, block)
@@ -708,6 +789,16 @@ def phase_attention_backward_kernel() -> dict:
             errs[(kind, entry)] = max(errs.get((kind, entry), 0.0),
                                       err[kind])
         cases.append(case)
+    # only dk is needed: the dK/dV kernel runs, the dQ kernel does not, and
+    # dk is the last case's
+    before = dict(flash_attention.launches)
+    only_k = flash_attention_bwd(q, k, v, o, lse, do, causal, block, block,
+                                 needs=(False, True, False))
+    ran = {key: flash_attention.launches[key] - before[key]
+           for key in before}
+    if ran != expected_launches(bwd_dkv_causal=1) or only_k[0] is not None \
+            or only_k[2] is not None or not torch.equal(only_k[1], got[1]):
+        raise AssertionError(f"{tag}, only dk needed: launched {ran}")
     q, k, v = _qkv(1, 40, 2, 8, torch.float32, seed=0)
     lse = torch.zeros((1, 2, 40), device="cuda")
     before = dict(flash_attention.launches)
@@ -723,7 +814,8 @@ def phase_attention_backward_kernel() -> dict:
     emit({"phase": "attention_backward_kernel", "cases": cases,
           "tolerance": {"f32": "dq, dk, dv rtol 1e-4 atol 1e-5",
                         "bf16": "dq, dk, dv rtol 1e-2 atol 1e-3 in f32"},
-          "bit_repeat": True, "ragged_non_causal_raises": True})
+          "bit_repeat": True, "only_dk_skips_dq": True,
+          "ragged_non_causal_raises": True})
     return errs
 
 
@@ -892,21 +984,32 @@ def phase_attention_backward_timing(card: str) -> dict:
             dkv_again, dq_again = cuda_ms(dkv, reps), cuda_ms(dq, reps)
             parts = {part: attention_bound(B, T, H, D, causal, dtype, *spec)
                      for part, spec in BWD_PARTS.items()}
+            design = flash_bwd_design(dtype, D)
+
+            def kernel_line(kind, times):
+                return {"design": design, "ms": times,
+                        "library_ms": lib_ms[kind], **parts[kind],
+                        "tflops": parts[kind]["bound_flops"]
+                        / (min(times) / 1e3) / 1e12}
+
             out[(shape, entry)] = info = {
                 "phase": "attention_backward_timing", "card": card,
                 "shape": shape, "entry": entry, "dtype": str(dtype)[6:],
                 "B": B, "T": T, "H": H, "D": D, "plain_block": block,
-                "dkv": {"ms": [dkv_ms, dkv_again],
-                        "library_ms": lib_ms["dkv"], **parts["dkv"]},
-                "dq": {"ms": [dq_ms, dq_again],
-                       "library_ms": lib_ms["dq"], **parts["dq"]},
+                "dkv": kernel_line("dkv", [dkv_ms, dkv_again]),
+                "dq": kernel_line("dq", [dq_ms, dq_again]),
                 "backward": {"kernels_ms": min(dkv_ms, dkv_again)
                              + min(dq_ms, dq_again),
                              "plain_ms": plain_ms,
                              "library_ms": lib_ms["backward"],
                              **parts["backward"]},
-                "forward_backward": {"port_ms": port_ms,
-                                     "library_ms": library_ms},
+                # tokens (B·T) over forward + backward seconds: at B=1,
+                # bench.py's flash_attention_fwd_bwd_tokens_per_sec
+                "forward_backward": {
+                    "port_ms": port_ms, "library_ms": library_ms,
+                    "flash_attention_fwd_bwd_tokens_per_sec":
+                        B * T / (port_ms / 1e3),
+                    "library_tokens_per_sec": B * T / (library_ms / 1e3)},
                 "max_abs_err": err}
             emit(info)
             del lib_out, o, lse, folded
@@ -937,14 +1040,16 @@ def attention_entry(name, replaces, entry, launches, err, timing) -> dict:
 
 def backward_entry(name, replaces, kind, entry, launches, errs,
                    timing) -> dict:
-    """A backward kernel's line: ms, bound and library call of its own
-    part; plain_ms is the whole plain backward (no plain version computes
-    one kernel's share alone)."""
+    """A backward kernel's line: design, ms, bound and library call of
+    its own part at the layer call and the long-context call; plain_ms is
+    the whole plain backward (no plain version computes one kernel's
+    share alone)."""
     layer = timing[("sensorformer_layer", entry)]
     long = timing[("long_context", entry)]
     return {
         "name": name, "route": "cuda",
         "source": "iotml_torch/ops/csrc/flash_attention_bwd.cu",
+        "design": layer[kind]["design"],
         "replaces": replaces, "launches": launches[f"bwd_{kind}_{entry}"],
         "max_abs_err": max(errs[(kind, entry)], layer["max_abs_err"][kind],
                            long["max_abs_err"][kind]),
@@ -953,7 +1058,9 @@ def backward_entry(name, replaces, kind, entry, launches, errs,
         "bound_ms": layer[kind]["bound_ms"],
         "bound_by": layer[kind]["bound_by"],
         "library_ms": layer[kind]["library_ms"],
-        "long_context": {"ms": min(long[kind]["ms"]),
+        "long_context": {"design": long[kind]["design"],
+                         "ms": min(long[kind]["ms"]),
+                         "tflops": long[kind]["tflops"],
                          "plain_ms": long["backward"]["plain_ms"],
                          "bound_ms": long[kind]["bound_ms"],
                          "bound_by": long[kind]["bound_by"],

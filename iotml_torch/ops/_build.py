@@ -7,8 +7,8 @@ so ``nvcc`` builds it in seconds:
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``iotml_torch/ops/build/`` (gitignored), named by
-the hash of its source, so an edited source builds anew and an unchanged
-one is reused.  A ``<name>.lock`` file in the build directory keeps two
+the hash of its source and of the ``csrc/*.cuh`` headers, so an edited
+source or header builds anew and an unchanged one is reused.  A ``<name>.lock`` file in the build directory keeps two
 processes from building one source together (different sources build in
 parallel); one left behind by a killed build must be deleted by hand
 (the error names it).  Nothing here runs at import.
@@ -35,8 +35,13 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu``'s library goes: named by the hash of the
+    source and of every ``csrc/*.cuh`` header it may include."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

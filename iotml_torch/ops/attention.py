@@ -21,7 +21,9 @@ log-sum-exp the forward emits is ``[B, H, T]`` float32.
   ``csrc/flash_attention.cu`` / ``csrc/flash_attention_bwd.cu`` (or
   raise); CPU tensors take the plain versions.  ``flash_bwd_dkv`` and
   ``flash_bwd_dq`` launch one backward kernel each on the folded
-  ``[B·H, T, D]`` tensors ``flash_bwd_inputs`` makes.
+  ``[B·H, T, D]`` tensors ``flash_bwd_inputs`` makes; ``flash_bwd_design``
+  says which of the two backward designs (tensor-core ``wgmma`` for
+  bfloat16 at D = 128, fp32 ``fma`` otherwise) a call takes.
 - ``flash_attention``: an ``autograd.Function`` that saves
   ``(q, k, v, o, lse)`` and whose backward is ``flash_attention_bwd``.
 """
@@ -299,9 +301,22 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,
 _BWD_ENTRIES = [("iotml_flash_bwd_dkv", 8), ("iotml_flash_bwd_dq", 7)]
 
 
+def flash_bwd_design(dtype: torch.dtype, head_dim: int) -> str:
+    """Which design the backward kernels take for ``dtype`` and
+    ``head_dim``: ``"wgmma"`` (tensor cores, TMA: bfloat16 at D = 128, the
+    long-context shape) or ``"fma"`` (fp32 FMA: float32, and bfloat16 at
+    D = 8, 16).  ``csrc/flash_attention_bwd.cu`` dispatches by the same
+    rule (``iotml_flash_bwd_design``)."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "fma"
+
+
 def _launch_bwd(kind: str, folded, outs, causal: bool) -> None:
     """Launch one backward kernel on folded inputs ``(q, k, v, do)``
     [B·H, T, D] and ``(lse, delta)`` [B·H, T] f32, writing ``outs``."""
+    # the tensor-core design reads by TMA, which needs every tensor to
+    # start on 16 bytes; a view may not
+    folded = tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in folded)
     qf = folded[0]
     BH, T, D = qf.shape
     lib = _library("flash_attention_bwd", _BWD_ENTRIES)
@@ -318,12 +333,13 @@ def _launch_bwd(kind: str, folded, outs, causal: bool) -> None:
         f"bwd_{kind}_{'causal' if causal else 'full'}"] += 1
 
 
-def flash_bwd_smem(kind: str, head_dim: int) -> int:
+def flash_bwd_smem(kind: str, head_dim: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block of the dK/dV (``"dkv"``) or dQ
-    (``"dq"``) kernel at ``head_dim``, in bytes, as the built library
-    lays it out."""
+    (``"dq"``) kernel at ``head_dim`` and ``dtype``, in bytes, as the
+    built library lays it out."""
     lib = _library("flash_attention_bwd", _BWD_ENTRIES)
-    return int(lib.iotml_flash_bwd_smem(head_dim, int(kind == "dq")))
+    return int(lib.iotml_flash_bwd_smem(head_dim, int(kind == "dq"),
+                                        _DTYPE_CODES[dtype]))
 
 
 def _check_folded(what: str, qf, kf, vf, dof, lse, delta) -> None:

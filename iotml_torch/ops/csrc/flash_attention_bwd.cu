@@ -4,9 +4,10 @@
 //
 // Replaces the TPU kernels iotml/ops/attention.py::_flash_bwd_dkv_kernel
 // (:402, dense grid) and ::_flash_bwd_dkv_kernel_tri (:482, causal
-// triangle) with flash_bwd_dkv_kernel, and ::_flash_bwd_dq_kernel (:447)
-// and ::_flash_bwd_dq_kernel_tri (:518) with flash_bwd_dq_kernel; each
-// has a causal and a full entry.  It computes what they compute
+// triangle) with flash_bwd_dkv_kernel (FMA) and
+// flash_bwd_dkv_wgmma_kernel (tensor cores), and ::_flash_bwd_dq_kernel
+// (:447) and ::_flash_bwd_dq_kernel_tri (:518) with flash_bwd_dq_kernel
+// and flash_bwd_dq_wgmma_kernel; each has a causal and a full entry.  It computes what they compute
 // (_bwd_common, :376), with their dtype policy, and is not carried over
 // block by block.  The plain PyTorch version beside the wrapper
 // (iotml_torch/ops/attention.py::flash_attention_backward_reference)
@@ -22,12 +23,17 @@
 // and dS^T Q in the dK/dV kernel and dS K in the dQ kernel: 8*D and 6*D)
 // against a few loads of D values per row for the whole sequence, so at
 // the shapes the port runs (SensorFormer: T = 4096, D = 16; long context:
-// T = 65,536, D = 128) operations bound it, not bytes.  The products run
-// as fp32 FMA on the CUDA cores (67 TFLOP/s on an H100 SXM), not on the
-// tensor cores (989 TFLOP/s bf16): for bf16 inputs that floor sits ~15x
-// above the card's bound.  Closing it is later work (wgmma, TMA).
+// T = 65,536, D = 128) operations bound it, not bytes.  At the long causal
+// shape (bf16, B = 1, H = 2) that is 4.295e9 live pairs: 4.447 ms for
+// dK/dV and 3.335 ms for dQ at the tensor cores' 989 TFLOP/s.
 //
-// What the design does about it.  Blocks of 128 threads (16 row groups x
+// Two designs, chosen by (dtype, D) in the entry points below
+// (tensor_core_design; iotml_flash_bwd_design reports it):
+// - bf16 at D = 128: the tensor-core kernels (namespace tc, below);
+// - float32 (D = 8, 16, 128) and bf16 at D = 8, 16: the FMA kernels.
+//
+// The FMA kernels.  The products run as fp32 FMA on the CUDA cores
+// (67 TFLOP/s on an H100 SXM).  Blocks of 128 threads (16 row groups x
 // 8 lanes); every tile is staged in shared memory as float32 and each
 // thread keeps a register micro-tile, so every shared-memory load feeds
 // several FMAs, as in the forward.
@@ -51,6 +57,40 @@
 // [BK, 128] f32 tiles per block in dK/dV) stay in registers without
 // spills and three blocks fit an SM's shared memory.
 //
+// The tensor-core kernels (bf16, D = 128) are written for Hopper, not
+// carried over from the TPU's 1024^2 tiles.  What held the FMA kernels
+// back at this shape, and what these do about it:
+// - no tensor cores: every product is a bf16 wgmma with f32 accumulators
+//   (hopper.cuh).  Each of a block's two warpgroups owns 64 rows.
+//   dK/dV: a block owns 128 key rows and loops over q tiles of 64 rows;
+//   S^T = K Q^T and dP^T = V dO^T read K, V and Q, dO from shared memory,
+//   both K-major; dV += P^T dO and dK += dS^T Q take P^T and dS^T from
+//   registers and dO, Q from the same tiles read MN-major.  dQ: a block
+//   owns 128 query rows and loops over key tiles of 64; S = Q K^T and
+//   dP = dO V^T from shared memory, dQ += dS K with dS from registers
+//   and K read MN-major.  The f32 S/dP accumulator fragment is, pair by
+//   pair, the bf16 A fragment of the next product, so P^T and dS^T never
+//   touch shared memory and need no transpose.
+// - bf16 staged as f32: tiles stay bf16, in the 128-byte swizzled layout
+//   wgmma reads (two 64-column chunks at D = 128), with no conversion.
+// - tiny tiles: 64-row warpgroup tiles, 128 rows a block; one k16 wgmma
+//   replaces 64 x 16 x 16 FMAs and their shared loads.
+// - synchronous loads: one thread streams the q (dK/dV) or key (dQ)
+//   tiles by TMA into a ring of two stages, each with an mbarrier that
+//   counts the bytes; lse and delta rows come in beside each dK/dV tile.
+//   The next tile is in flight while the current one is multiplied.
+//   Within a step, exp(s - lse) runs while dP's wgmma is in flight.
+// - the shared-memory round trip of P^T and dS^T: gone (see above).
+// What stays: two kernels and no atomics (a second launch repeats the
+// first bit for bit); the causal start at floor(k0 / BQ) * BQ and the
+// stop at the diagonal; the heaviest blocks first (every head's first
+// key tile, or last query tile, before the next); the live-pair select
+// below, applied only in steps that straddle the diagonal or the ragged
+// end (TMA fills rows past T with zeros); p and ds rounded to bf16 as
+// they become the A operand; ragged T and B*H up to 65,535.  The dK/dV
+// warpgroup holds dK and dV (128 f32 registers a thread) plus S^T and
+// dP^T (64): 256 threads a block, one block an SM.
+//
 // Exactness, as the TPU kernels have it: scores are f32 sums of
 // input-dtype products (exact in f32 for bf16), scaled after Q K^T;
 // p = exp(s - lse) only where the pair is live (kj < T, qi < T and, when
@@ -64,6 +104,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -404,6 +448,502 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------------
+// The tensor-core kernels: bf16, D = 128
+// ------------------------------------------------------------------------
+namespace tc {
+
+using hopper::fence_regs;
+using hopper::sw128_desc;
+
+constexpr int kD = 128;
+constexpr int kThreads = 256;  // two warpgroups of 64 rows each
+constexpr int kStages = 2;     // the ring of streamed tiles
+constexpr uint32_t kRow = 128; // bytes of one swizzled row: 64 bf16
+
+// dK/dV: key rows held per block, q rows streamed per step
+constexpr int kDkvBK = 128, kDkvBQ = 64;
+// dQ: query rows held per block, key rows streamed per step
+constexpr int kDqBQ = 128, kDqBK = 64;
+
+// bytes of a [rows][128] bf16 tile, held as two [rows][64] chunks
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
+  return rows * kD * 2;
+}
+
+// lse and delta rows come in by TMA as boxes of kStatsBox floats that
+// start on the 16-byte boundary at or below the tile's first row (TMA
+// refuses a box whose start is not 16-byte aligned); each lands in a
+// slot of kStatsSlot bytes
+constexpr int kStatsBox = kDkvBQ + 4;
+constexpr uint32_t kStatsSlot = 384;
+static_assert(kStatsBox * 4 <= kStatsSlot && kStatsSlot % 128 == 0,
+              "stats slot");
+
+// A block's shared memory, in bytes from its 1024-aligned start: the two
+// held tiles (k, v or q, do); kStages stages of the two streamed tiles
+// and, with kStats, their lse and delta slots; the barriers (held, then
+// one a stage); 1024 bytes of slack to align the start.
+template <int kHeld, int kStep, bool kStats>
+struct Smem {
+  static constexpr uint32_t kHeldB = tile_bytes(kHeld);
+  static constexpr uint32_t kStage0 = 2 * tile_bytes(kHeld);
+  static constexpr uint32_t kStageBytes = 2 * tile_bytes(kStep);
+  static constexpr uint32_t kStats0 = kStage0 + kStages * kStageBytes;
+  static constexpr uint32_t kStatsBytes = kStats ? 2 * kStatsSlot : 0;
+  static constexpr uint32_t kBars = kStats0 + kStages * kStatsBytes;
+  static constexpr uint32_t kBytes = kBars + 8 * (1 + kStages) + 1024;
+};
+using DkvSmem = Smem<kDkvBK, kDkvBQ, true>;
+using DqSmem = Smem<kDqBQ, kDqBK, false>;
+
+// rows [row0, row0 + rows) of head bh: both 64-column chunks by TMA
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          int rows, int row0, int bh,
+                                          uint32_t bar) {
+  hopper::tma_load_3d(dst, map, 0, row0, bh, bar);
+  hopper::tma_load_3d(dst + rows * kRow, map, 64, row0, bh, bar);
+}
+
+// 8 k16 slices over d: acc = A[64 rows] B[n rows]^T, A and B K-major
+// tiles of a_rows / b_rows rows (a_at / b_at: the first row used)
+template <int kARows, int kBRows>
+__device__ __forceinline__ void scores(float (&acc)[32], uint32_t a_at,
+                                       uint32_t b_at) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a = a_at + (kk / 4) * kARows * kRow + (kk % 4) * 32;
+    const uint32_t b = b_at + (kk / 4) * kBRows * kRow + (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(acc, sw128_desc(a, 0, 1024),
+                               sw128_desc(b, 0, 1024), kk);
+  }
+}
+
+// 4 k16 slices over a tile's 64 rows: acc += A B, A the four bf16
+// fragments, B the tile (of kRows rows) read MN-major
+template <int kRows>
+__device__ __forceinline__ void accumulate(float (&acc)[64],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    hopper::wgmma_m64n128k16_rs(
+        acc, a[t], sw128_desc(tile + t * 16 * kRow, kRows * kRow, 1024));
+}
+
+// Element e of a [64 x 64] accumulator: row 16 * warp + lane / 4 +
+// acc_row(e), column 8 * (e / 4) + 2 * (lane % 4) + (e % 2).
+__device__ __forceinline__ constexpr int acc_row(int e) {
+  return 8 * ((e / 2) % 2);
+}
+__device__ __forceinline__ constexpr int acc_col(int e) {
+  return 8 * (e / 4) + (e % 2);
+}
+
+// One q tile of the dK/dV kernel for one warpgroup: its 64 key rows
+// (from ka) against q rows [q0, q0 + 64).  kMask: the tile straddles the
+// diagonal or the ragged end, so pairs are tested one by one.
+template <bool kCausal, bool kMask>
+__device__ __forceinline__ void dkv_step(
+    float (&dk)[64], float (&dv)[64], uint32_t k_at, uint32_t v_at,
+    uint32_t q_tile, uint32_t do_tile, const float* lse, const float* delta,
+    int ka, int q0, int row0, int col0, int T, float scale) {
+  constexpr int BK = kDkvBK, BQ = kDkvBQ;
+  float st[32], dpt[32];
+  __syncwarp();
+  hopper::wgmma_fence();
+  scores<BK, BQ>(st, k_at, q_tile);  // S^T = K Q^T
+  hopper::wgmma_commit();
+  scores<BK, BQ>(dpt, v_at, do_tile);  // dP^T = V dO^T
+  hopper::wgmma_commit();
+
+  // p = exp(s * scale - lse), in place, while dP^T is in flight; lse and
+  // delta index the accumulator's column (the q row)
+  hopper::wgmma_wait<1>();
+  fence_regs(st);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int c = col0 + acc_col(e);
+    // rounded as the plain version rounds: s * scale, then - lse
+    const float arg = __fmul_rn(st[e], scale) - lse[c];
+    if (kMask) {
+      const int qi = q0 + c, kj = ka + row0 + acc_row(e);
+      const bool live = qi < T && kj < T && (!kCausal || qi >= kj);
+      st[e] = live ? expf(live ? arg : 0.f) : 0.f;
+    } else {
+      st[e] = expf(arg);
+    }
+  }
+
+  // ds = p (dp - delta) scale; p and ds rounded to bf16 as A fragments
+  hopper::wgmma_wait<0>();
+  fence_regs(dpt);
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int c = col0 + acc_col(e);
+    const float ds0 = st[e] * (dpt[e] - delta[c]) * scale;
+    const float ds1 = st[e + 1] * (dpt[e + 1] - delta[c + 1]) * scale;
+    pa[e / 8][(e % 8) / 2] = hopper::pack_bf16(st[e], st[e + 1]);
+    da[e / 8][(e % 8) / 2] = hopper::pack_bf16(ds0, ds1);
+  }
+
+  // dV += P^T dO, dK += dS^T Q over the tile's q rows
+  fence_regs(pa);
+  fence_regs(da);
+  fence_regs(dv);
+  fence_regs(dk);
+  hopper::wgmma_fence();
+  accumulate<BQ>(dv, pa, do_tile);
+  accumulate<BQ>(dk, da, q_tile);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(dv);
+  fence_regs(dk);
+  fence_regs(pa);
+  fence_regs(da);
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const __grid_constant__ CUtensorMap lse_map,
+                           const __grid_constant__ CUtensorMap delta_map,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int BH, int T,
+                           float scale) {
+  constexpr int BK = kDkvBK, BQ = kDkvBQ;
+  using S = DkvSmem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint8_t* smem = smem_raw + (base - raw);
+  const uint32_t held_bar = base + S::kBars;
+
+  // every head's key tile 0 (the most causal work) first, then tile 1, ...
+  const int bh = blockIdx.x % BH;
+  const int k0 = (blockIdx.x / BH) * BK;
+  // a causal call starts at the q tile holding key row k0
+  const int q_begin = kCausal ? (k0 / BQ) * BQ : 0;
+  const int n_steps = (T - q_begin + BQ - 1) / BQ;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(held_bar, 1);
+    for (int s = 0; s < kStages; ++s)
+      hopper::mbar_init(held_bar + 8 * (1 + s), 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 streams q, do, lse and delta of step i into stage i % kStages
+  auto load_step = [&](int i) {
+    const int s = i % kStages, q0 = q_begin + i * BQ;
+    const uint32_t bar = held_bar + 8 * (1 + s);
+    const uint32_t tile = base + S::kStage0 + s * S::kStageBytes;
+    const uint32_t stats = base + S::kStats0 + s * S::kStatsBytes;
+    const int row = (bh * T + q0) & ~3;  // 16-byte aligned, <= bh * T + q0
+    hopper::mbar_expect_tx(bar, S::kStageBytes + 2 * kStatsBox * 4);
+    load_rows(tile, &q_map, BQ, q0, bh, bar);
+    load_rows(tile + tile_bytes(BQ), &do_map, BQ, q0, bh, bar);
+    hopper::tma_load_1d(stats, &lse_map, row, bar);
+    hopper::tma_load_1d(stats + kStatsSlot, &delta_map, row, bar);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(held_bar, 2 * tile_bytes(BK));
+    load_rows(base, &k_map, BK, k0, bh, held_bar);
+    load_rows(base + S::kHeldB, &v_map, BK, k0, bh, held_bar);
+    for (int i = 0; i < kStages && i < n_steps; ++i) load_step(i);
+  }
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+  const int ka = k0 + 64 * wg;            // the warpgroup's first key row
+  const int row0 = 16 * warp + lane / 4;  // the thread's rows: row0, +8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t k_at = base + wg * 64 * kRow;
+  const uint32_t v_at = base + S::kHeldB + wg * 64 * kRow;
+
+  float dk_acc[64], dv_acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+
+  hopper::mbar_wait(held_bar, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % kStages, q0 = q_begin + i * BQ;
+    hopper::mbar_wait(held_bar + 8 * (1 + s), (i / kStages) & 1);
+    // no live pair: keys past T, or (causal) every q row before every key
+    const bool dead = ka >= T || (kCausal && q0 + BQ <= ka);
+    if (!dead) {
+      const uint32_t tile = base + S::kStage0 + s * S::kStageBytes;
+      // lse of q row q0 + c at stats[c], delta at stats[c + kStatsSlot / 4]
+      const float* stats =
+          reinterpret_cast<const float*>(smem + S::kStats0 +
+                                         s * S::kStatsBytes) +
+          ((bh * T + q0) & 3);
+      const bool edge =
+          (kCausal && q0 < ka + 64) || q0 + BQ > T || ka + 64 > T;
+      if (edge)
+        dkv_step<kCausal, true>(dk_acc, dv_acc, k_at, v_at, tile,
+                                tile + tile_bytes(BQ), stats,
+                                stats + kStatsSlot / 4, ka, q0, row0, col0, T,
+                                scale);
+      else
+        dkv_step<kCausal, false>(dk_acc, dv_acc, k_at, v_at, tile,
+                                 tile + tile_bytes(BQ), stats,
+                                 stats + kStatsSlot / 4, ka, q0, row0, col0, T,
+                                 scale);
+    }
+    __syncthreads();  // both warpgroups are done with stage s
+    if (threadIdx.x == 0 && i + kStages < n_steps) {
+      hopper::fence_proxy_async();
+      load_step(i + kStages);
+    }
+  }
+
+  // every key row the block owns is written, rows no q tile reached too
+  const size_t head = (size_t)bh * T * kD;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = ka + row0 + 8 * h;
+      if (kj >= T) continue;
+      const size_t at = head + (size_t)kj * kD + 8 * j + col0;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+          dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(
+          dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+}
+
+// One key tile of the dQ kernel for one warpgroup: its 64 query rows
+// (from qa) against keys [k0, k0 + 64); lse and delta index the
+// accumulator's row, held per thread (rows row0 and row0 + 8).
+template <bool kCausal, bool kMask>
+__device__ __forceinline__ void dq_step(float (&dq)[64], uint32_t q_at,
+                                        uint32_t do_at, uint32_t k_tile,
+                                        uint32_t v_tile, const float (&lse)[2],
+                                        const float (&delta)[2], int qa,
+                                        int k0, int row0, int col0, int T,
+                                        float scale) {
+  constexpr int BQ = kDqBQ, BK = kDqBK;
+  float s[32], dp[32];
+  __syncwarp();
+  hopper::wgmma_fence();
+  scores<BQ, BK>(s, q_at, k_tile);  // S = Q K^T
+  hopper::wgmma_commit();
+  scores<BQ, BK>(dp, do_at, v_tile);  // dP = dO V^T
+  hopper::wgmma_commit();
+
+  hopper::wgmma_wait<1>();
+  fence_regs(s);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = acc_row(e) / 8;
+    const float arg = __fmul_rn(s[e], scale) - lse[h];
+    if (kMask) {
+      const int qi = qa + row0 + acc_row(e), kj = k0 + col0 + acc_col(e);
+      const bool live = qi < T && kj < T && (!kCausal || qi >= kj);
+      s[e] = live ? expf(live ? arg : 0.f) : 0.f;
+    } else {
+      s[e] = expf(arg);
+    }
+  }
+
+  hopper::wgmma_wait<0>();
+  fence_regs(dp);
+  uint32_t da[4][4];
+#pragma unroll
+  for (int e = 0; e < 32; e += 2) {
+    const int h = acc_row(e) / 8;
+    da[e / 8][(e % 8) / 2] =
+        hopper::pack_bf16(s[e] * (dp[e] - delta[h]) * scale,
+                          s[e + 1] * (dp[e + 1] - delta[h]) * scale);
+  }
+
+  // dQ += dS K over the tile's keys
+  fence_regs(da);
+  fence_regs(dq);
+  hopper::wgmma_fence();
+  accumulate<BK>(dq, da, k_tile);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(dq);
+  fence_regs(da);
+}
+
+template <bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int BH, int T,
+                          float scale) {
+  constexpr int BQ = kDqBQ, BK = kDqBK;
+  using S = DqSmem;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t held_bar = base + S::kBars;
+
+  // every head's last query tile (the most causal work) first
+  const int nq = (T + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH;
+  const int tile = blockIdx.x / BH;
+  const int q0 = (kCausal ? nq - 1 - tile : tile) * BQ;
+  // keys [0, kv_end): the causal entry stops at the block's last row
+  const int kv_end = kCausal ? min(q0 + BQ, T) : T;
+  const int n_steps = (kv_end + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(held_bar, 1);
+    for (int s = 0; s < kStages; ++s)
+      hopper::mbar_init(held_bar + 8 * (1 + s), 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 streams k and v of step i into stage i % kStages
+  auto load_step = [&](int i) {
+    const int s = i % kStages;
+    const uint32_t bar = held_bar + 8 * (1 + s);
+    const uint32_t tile = base + S::kStage0 + s * S::kStageBytes;
+    hopper::mbar_expect_tx(bar, S::kStageBytes);
+    load_rows(tile, &k_map, BK, i * BK, bh, bar);
+    load_rows(tile + tile_bytes(BK), &v_map, BK, i * BK, bh, bar);
+  };
+  if (threadIdx.x == 0) {
+    hopper::mbar_expect_tx(held_bar, 2 * tile_bytes(BQ));
+    load_rows(base, &q_map, BQ, q0, bh, held_bar);
+    load_rows(base + S::kHeldB, &do_map, BQ, q0, bh, held_bar);
+    for (int i = 0; i < kStages && i < n_steps; ++i) load_step(i);
+  }
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+  const int qa = q0 + 64 * wg;            // the warpgroup's first query row
+  const int row0 = 16 * warp + lane / 4;  // the thread's rows: row0, +8
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_at = base + wg * 64 * kRow;
+  const uint32_t do_at = base + S::kHeldB + wg * 64 * kRow;
+
+  float lse_r[2], delta_r[2], dq_acc[64];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qa + row0 + 8 * h;
+    lse_r[h] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+    delta_r[h] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < 64; ++e) dq_acc[e] = 0.f;
+
+  hopper::mbar_wait(held_bar, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = i % kStages, k0 = i * BK;
+    hopper::mbar_wait(held_bar + 8 * (1 + s), (i / kStages) & 1);
+    // no live pair: query rows past T, or (causal) every key after every
+    // query row
+    const bool dead = qa >= T || (kCausal && k0 > qa + 63);
+    if (!dead) {
+      const uint32_t tile = base + S::kStage0 + s * S::kStageBytes;
+      const bool edge =
+          (kCausal && k0 + BK - 1 > qa) || k0 + BK > T || qa + 64 > T;
+      if (edge)
+        dq_step<kCausal, true>(dq_acc, q_at, do_at, tile,
+                               tile + tile_bytes(BK), lse_r, delta_r, qa, k0,
+                               row0, col0, T, scale);
+      else
+        dq_step<kCausal, false>(dq_acc, q_at, do_at, tile,
+                                tile + tile_bytes(BK), lse_r, delta_r, qa, k0,
+                                row0, col0, T, scale);
+    }
+    __syncthreads();  // both warpgroups are done with stage s
+    if (threadIdx.x == 0 && i + kStages < n_steps) {
+      hopper::fence_proxy_async();
+      load_step(i + kStages);
+    }
+  }
+
+  const size_t head = (size_t)bh * T * kD;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = qa + row0 + 8 * h;
+      if (qi >= T) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dq + head + (size_t)qi * kD + 8 * j +
+                                         col0) =
+          __floats2bfloat162_rn(dq_acc[4 * j + 2 * h],
+                                dq_acc[4 * j + 2 * h + 1]);
+    }
+}
+
+inline bool misaligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+}
+
+template <bool kCausal>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int bh, int T, float scale, cudaStream_t stream) {
+  // TMA reads 16-byte aligned tensors
+  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout) ||
+      misaligned(lse) || misaligned(delta))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap qm, km, vm, dom, lm, dm;
+  int err = hopper::bf16_rows_map(&qm, q, bh, T, kDkvBQ);
+  if (!err) err = hopper::bf16_rows_map(&km, k, bh, T, kDkvBK);
+  if (!err) err = hopper::bf16_rows_map(&vm, v, bh, T, kDkvBK);
+  if (!err) err = hopper::bf16_rows_map(&dom, dout, bh, T, kDkvBQ);
+  if (!err)
+    err = hopper::f32_vector_map(&lm, lse, (long long)bh * T, kStatsBox);
+  if (!err)
+    err = hopper::f32_vector_map(&dm, delta, (long long)bh * T, kStatsBox);
+  if (err) return err;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<kCausal>;
+  if (int e = configure(kernel, DkvSmem::kBytes)) return e;
+  const int tiles = (T + kDkvBK - 1) / kDkvBK;
+  kernel<<<tiles * bh, kThreads, DkvSmem::kBytes, stream>>>(
+      qm, km, vm, dom, lm, dm, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), bh, T, scale);
+  return (int)cudaGetLastError();
+}
+
+template <bool kCausal>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int bh, int T,
+              float scale, cudaStream_t stream) {
+  if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout))
+    return (int)cudaErrorMisalignedAddress;
+  CUtensorMap qm, km, vm, dom;
+  int err = hopper::bf16_rows_map(&qm, q, bh, T, kDqBQ);
+  if (!err) err = hopper::bf16_rows_map(&km, k, bh, T, kDqBK);
+  if (!err) err = hopper::bf16_rows_map(&vm, v, bh, T, kDqBK);
+  if (!err) err = hopper::bf16_rows_map(&dom, dout, bh, T, kDqBQ);
+  if (err) return err;
+  auto kernel = flash_bwd_dq_wgmma_kernel<kCausal>;
+  if (int e = configure(kernel, DqSmem::kBytes)) return e;
+  const int tiles = (T + kDqBQ - 1) / kDqBQ;
+  kernel<<<tiles * bh, kThreads, DqSmem::kBytes, stream>>>(
+      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), bh, T,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// dtype 1 (bfloat16) at D = 128 takes the tensor-core kernels; everything
+// else the FMA ones
+constexpr bool tensor_core_design(int dtype, int d) {
+  return dtype == 1 && d == 128;
+}
+
 template <typename T> struct Type { using type = T; };
 template <int D, bool C> struct Variant {
   static constexpr int kD = D;
@@ -421,19 +961,26 @@ int pick_dim(int d, int causal, F f) {
   switch (d) {
     case 8: return pick_causal<Elt, 8>(causal, f);
     case 16: return pick_causal<Elt, 16>(causal, f);
-    case 128: return pick_causal<Elt, 128>(causal, f);
+    case 128:
+      // bf16 at D = 128 runs the tensor-core kernels, not these
+      if constexpr (std::is_same<Elt, float>::value)
+        return pick_causal<Elt, 128>(causal, f);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// f(Type<Elt>, Variant<D, causal>) for the runtime dtype (0 float32,
-// 1 bfloat16), head dim (8, 16, 128) and causal flag: 12 instantiations
-template <typename F>
-int dispatch(int bh, int T, int dtype, int d, int causal, F f) {
+// The design (dtype, d) takes: tc(causal) for the tensor-core kernels,
+// else fma(Type<Elt>, Variant<D, causal>) for the runtime dtype
+// (0 float32, 1 bfloat16), head dim (8, 16, 128) and causal flag: 10 FMA
+// instantiations and 2 tensor-core ones a kernel.
+template <typename Fma, typename Tc>
+int dispatch(int bh, int T, int dtype, int d, int causal, Fma fma, Tc tc) {
   if (bh < 1 || bh > 65535 || T < 1) return (int)cudaErrorInvalidValue;
+  if (tensor_core_design(dtype, d)) return tc(causal != 0);
   switch (dtype) {
-    case 0: return pick_dim<float>(d, causal, f);
-    case 1: return pick_dim<__nv_bfloat16>(d, causal, f);
+    case 0: return pick_dim<float>(d, causal, fma);
+    case 1: return pick_dim<__nv_bfloat16>(d, causal, fma);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -448,12 +995,20 @@ extern "C" int iotml_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                    int bh, int T, int d, int dtype, int causal,
                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(bh, T, dtype, d, causal, [&](auto elt, auto var) {
-    using Elt = typename decltype(elt)::type;
-    using V = decltype(var);
-    return launch_dkv<Elt, V::kD, V::kCausal>(q, k, v, dout, lse, delta, dk,
-                                              dv, bh, T, scale, s);
-  });
+  return dispatch(
+      bh, T, dtype, d, causal,
+      [&](auto elt, auto var) {
+        using Elt = typename decltype(elt)::type;
+        using V = decltype(var);
+        return launch_dkv<Elt, V::kD, V::kCausal>(q, k, v, dout, lse, delta,
+                                                  dk, dv, bh, T, scale, s);
+      },
+      [&](bool c) {
+        return c ? tc::launch_dkv<true>(q, k, v, dout, lse, delta, dk, dv, bh,
+                                        T, scale, s)
+                 : tc::launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv,
+                                         bh, T, scale, s);
+      });
 }
 
 // dQ on the given stream; arguments as iotml_flash_bwd_dkv.
@@ -463,18 +1018,38 @@ extern "C" int iotml_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   int d, int dtype, int causal, float scale,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(bh, T, dtype, d, causal, [&](auto elt, auto var) {
-    using Elt = typename decltype(elt)::type;
-    using V = decltype(var);
-    return launch_dq<Elt, V::kD, V::kCausal>(q, k, v, dout, lse, delta, dq,
-                                             bh, T, scale, s);
-  });
+  return dispatch(
+      bh, T, dtype, d, causal,
+      [&](auto elt, auto var) {
+        using Elt = typename decltype(elt)::type;
+        using V = decltype(var);
+        return launch_dq<Elt, V::kD, V::kCausal>(q, k, v, dout, lse, delta, dq,
+                                                 bh, T, scale, s);
+      },
+      [&](bool c) {
+        return c ? tc::launch_dq<true>(q, k, v, dout, lse, delta, dq, bh, T,
+                                       scale, s)
+                 : tc::launch_dq<false>(q, k, v, dout, lse, delta, dq, bh, T,
+                                        scale, s);
+      });
+}
+
+// 1 where (d, dtype) runs the tensor-core kernels, 0 the FMA ones, -1
+// for what the kernels are not built for.
+extern "C" int iotml_flash_bwd_design(int d, int dtype) {
+  if ((d != 8 && d != 16 && d != 128) || (dtype != 0 && dtype != 1))
+    return -1;
+  return tensor_core_design(dtype, d) ? 1 : 0;
 }
 
 // Dynamic shared memory of one block, in bytes: kind 0 the dK/dV kernel,
-// 1 the dQ kernel; -1 for a head dim the kernels are not built for.
-extern "C" int iotml_flash_bwd_smem(int d, int kind) {
-  if (d != 8 && d != 16 && d != 128) return -1;
+// 1 the dQ kernel, at head dim d and dtype (0 float32, 1 bfloat16); -1
+// for what the kernels are not built for.
+extern "C" int iotml_flash_bwd_smem(int d, int kind, int dtype) {
+  const int design = iotml_flash_bwd_design(d, dtype);
+  if (design < 0) return -1;
+  if (design == 1)
+    return (int)(kind == 0 ? tc::DkvSmem::kBytes : tc::DqSmem::kBytes);
   return (kind == 0 ? dkv_smem_floats(d) : dq_smem_floats(d)) *
          (int)sizeof(float);
 }

@@ -155,7 +155,7 @@ def _grads_of_sum(q, k, v, fn):
     return [t.grad for t in leaves]
 
 
-def test_flash_attention_backward_raises_on_cpu():
+def test_flash_attention_backward_on_cpu_takes_the_plain_version():
     """The backward on CPU tensors runs the plain version and gives dense
     attention's autograd grads, at the JAX suite's flash-grad bound
     (tests/test_attention.py:70-71)."""
@@ -178,7 +178,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_flash_attention_backward_raises_on_cuda(cuda_device):
+def test_flash_attention_backward_on_cuda_launches_the_kernels(cuda_device):
     """On the card the backward launches the dK/dV and dQ kernels once
     each and gives the CPU's grads."""
     q, k, v = _t(*_qkv(T=16, D=16))

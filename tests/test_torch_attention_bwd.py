@@ -63,6 +63,28 @@ def test_backward_reference_matches_jax_interpret(T, block, causal, dtype):
                                    err_msg=f"d{name}", **tol)
 
 
+@pytest.mark.parametrize("T,causal", [(130, True), (200, True), (192, False)],
+                         ids=["tri-130", "tri-200", "dense-192"])
+def test_backward_reference_at_the_wgmma_tiles_matches_jax_interpret(
+        T, causal):
+    """bf16 at D=128 with blocks of 64, the tensor-core kernels' own
+    tiles: ragged T causal, and non-causal where T is a multiple of 64."""
+    q, k, v, do = (jnp.asarray(a).astype(jnp.bfloat16)
+                   for a in _inputs(B=1, T=T, H=2, D=128, seed=T))
+    out, lse = j_attn._flash_forward(q, k, v, causal, 64, 64, True)
+    want = j_attn._flash_backward(q, k, v, out, lse, do, causal, 64, 64,
+                                  True)
+    got = t_attn.flash_attention_backward_reference(
+        *(_torch(a, torch.bfloat16) for a in (q, k, v, out)),
+        torch.from_numpy(np.array(lse)), _torch(do, torch.bfloat16), causal,
+        64, 64)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == (1, T, 2, 128) and g.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   err_msg=f"d{name}", **BF16_TOL)
+
+
 def test_flash_attention_grads_match_jax_grad():
     """tests/test_attention.py's grad case: Σ sin(out), causal, T=40,
     blocks 16; the port's autograd (the plain backward on CPU tensors)

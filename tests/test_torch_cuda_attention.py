@@ -18,7 +18,9 @@ rtol 1e-4 / atol 1e-5, the JAX suite's flash-grad bound
 float32 (P comes from the LSE, so tiles change only the order of the f32
 sums: one bfloat16 rounding of each output, 2^-7 of the value at most);
 a training step's loss rtol 1e-5 and grads rtol 1e-4 / atol 1e-6
-(tests/test_torch_seq_parallel.py).
+(tests/test_torch_seq_parallel.py).  The bf16 D=128 backward cases run
+the tensor-core design (``flash_bwd_design`` says "wgmma"); the others
+the FMA one.
 """
 
 import numpy as np
@@ -113,7 +115,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, cuda_device):
 
 
 @pytest.mark.cuda
-def test_backward_raises_on_the_card(cuda_device):
+def test_backward_on_the_card_launches_both_kernels(cuda_device):
     """flash_attention(...).backward launches the dK/dV and dQ kernels
     once each, causal entries only, and gives the plain backward's
     grads."""
@@ -176,6 +178,64 @@ def test_backward_kernels_match_plain_version(dtype, B, T, H, D, causal,
     again = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, block,
                                      block)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def _check_wgmma_backward(B, T, H, causal, device):
+    """bf16 D=128 (the tensor-core design): the kernels' grads against the
+    plain backward at its own tiles (blocks 64), and a bit repeat."""
+    assert attn.flash_bwd_design(torch.bfloat16, 128) == "wgmma"
+    q, k, v, do = _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H) + \
+        _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H + 1)[:1]
+    o, lse = attn.flash_attention_fwd(q, k, v, causal, 64, 64)
+    entry = "causal" if causal else "full"
+    before = dict(attn.flash_attention.launches)
+    got = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, 64, 64)
+    torch.cuda.synchronize()
+    for kind in ("dkv", "dq"):
+        key = f"bwd_{kind}_{entry}"
+        assert attn.flash_attention.launches[key] == before[key] + 1
+    want = attn.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                   causal, 64, 64)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(),
+                                   **GRAD_TOL[torch.bfloat16], msg=name)
+    again = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, 64, 64)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 3)], ids=["BH1", "BH6"])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 1000, 4096])
+def test_wgmma_backward_matches_plain_version_causal(T, B, H, cuda_device):
+    _check_wgmma_backward(B, T, H, True, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [64, 1024])
+def test_wgmma_backward_matches_plain_version_full(T, cuda_device):
+    _check_wgmma_backward(2, T, 3, False, cuda_device)
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_only_k_needs_a_grad(cuda_device):
+    """bf16 D=128 through autograd with only k requiring a grad: the dK/dV
+    kernel runs, the dQ kernel does not, and dk is the plain version's."""
+    assert attn.flash_bwd_design(torch.bfloat16, 128) == "wgmma"
+    q, k, v, do = _qkv(1, 300, 2, 128, torch.bfloat16, cuda_device) + \
+        _qkv(1, 300, 2, 128, torch.bfloat16, cuda_device, seed=1)[:1]
+    kk = k.clone().requires_grad_()
+    before = dict(attn.flash_attention.launches)
+    (dk,) = torch.autograd.grad(attn.flash_attention(q, kk, v, True, 64, 64),
+                                (kk,), do)
+    after = attn.flash_attention.launches
+    assert after["bwd_dq_causal"] == before["bwd_dq_causal"]
+    assert after["bwd_dkv_causal"] == before["bwd_dkv_causal"] + 1
+    o, lse = attn.flash_attention_fwd(q, k, v, True, 64, 64)
+    want = attn.flash_attention_backward_reference(q, k, v, o, lse, do, True,
+                                                   64, 64)[1]
+    torch.testing.assert_close(dk.float(), want.float(),
+                               **GRAD_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
