@@ -21,9 +21,9 @@ log-sum-exp the forward emits is ``[B, H, T]`` float32.
   ``csrc/flash_attention.cu`` / ``csrc/flash_attention_bwd.cu`` (or
   raise); CPU tensors take the plain versions.  ``flash_bwd_dkv`` and
   ``flash_bwd_dq`` launch one backward kernel each on the folded
-  ``[B·H, T, D]`` tensors ``flash_bwd_inputs`` makes; ``flash_bwd_design``
-  says which of the two backward designs (tensor-core ``wgmma`` for
-  bfloat16 at D = 128, fp32 ``fma`` otherwise) a call takes.
+  ``[B·H, T, D]`` tensors ``flash_bwd_inputs`` makes; ``flash_design``
+  says which of the two designs (tensor-core ``wgmma`` for bfloat16 at
+  D = 128, fp32 ``fma`` otherwise) a call takes, in both directions.
 - ``flash_attention``: an ``autograd.Function`` that saves
   ``(q, k, v, o, lse)`` and whose backward is ``flash_attention_bwd``.
 """
@@ -263,6 +263,28 @@ def _check_cuda(what: str, t) -> None:
         raise ValueError(f"{what} takes cuda or cpu tensors, not {t.device}")
 
 
+def _aligned(ts):
+    """``ts`` with each tensor that does not start on 16 bytes replaced by
+    an aligned copy: the tensor-core design reads by TMA, which needs
+    every tensor to start on 16 bytes, and a view may not."""
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
+
+
+_FWD_ENTRIES = [("iotml_flash_fwd", 5)]
+_BWD_ENTRIES = [("iotml_flash_bwd_dkv", 8), ("iotml_flash_bwd_dq", 7)]
+
+
+def flash_design(dtype: torch.dtype, head_dim: int) -> str:
+    """Which design the flash kernels take, forward and backward, for
+    ``dtype`` and ``head_dim``: ``"wgmma"`` (tensor cores, TMA: bfloat16
+    at D = 128, the long-context shape) or ``"fma"`` (fp32 FMA: float32,
+    and bfloat16 at D = 8, 16).  ``csrc/flash_tiles.cuh``'s
+    ``tensor_core_design`` is the same rule for both sources
+    (``iotml_flash_fwd_design`` and ``iotml_flash_bwd_design`` report
+    it)."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "fma"
+
+
 def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,
                         block_k: int = 128
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -273,7 +295,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,
     ``block_q`` / ``block_k`` are the plain version's blocks and set the
     non-causal ragged check; the kernel tiles with its own sizes (f32
     results agree to rounding; bf16 ones to the rounding of P, which
-    depends on the running max at each tile).
+    depends on the running max at each tile: the ``wgmma`` design's key
+    tile is 64 rows).
     """
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, block_q, block_k)
@@ -281,10 +304,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,
     _check_inputs("flash_attention", (q, k, v), q.shape[1], causal, block_q,
                   block_k)
     B, T, H, D = q.shape
-    qf, kf, vf = _fold(q), _fold(k), _fold(v)
+    qf, kf, vf = _aligned((_fold(q), _fold(k), _fold(v)))
     o = torch.empty((B * H, T, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    lib = _library("flash_attention", [("iotml_flash_fwd", 5)])
+    lib = _library("flash_attention", _FWD_ENTRIES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.iotml_flash_fwd(
@@ -298,25 +321,10 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,
     return _unfold(o, B, H), lse.view(B, H, T)
 
 
-_BWD_ENTRIES = [("iotml_flash_bwd_dkv", 8), ("iotml_flash_bwd_dq", 7)]
-
-
-def flash_bwd_design(dtype: torch.dtype, head_dim: int) -> str:
-    """Which design the backward kernels take for ``dtype`` and
-    ``head_dim``: ``"wgmma"`` (tensor cores, TMA: bfloat16 at D = 128, the
-    long-context shape) or ``"fma"`` (fp32 FMA: float32, and bfloat16 at
-    D = 8, 16).  ``csrc/flash_attention_bwd.cu`` dispatches by the same
-    rule (``iotml_flash_bwd_design``)."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "fma"
-
-
 def _launch_bwd(kind: str, folded, outs, causal: bool) -> None:
     """Launch one backward kernel on folded inputs ``(q, k, v, do)``
     [B·H, T, D] and ``(lse, delta)`` [B·H, T] f32, writing ``outs``."""
-    # the tensor-core design reads by TMA, which needs every tensor to
-    # start on 16 bytes; a view may not
-    folded = tuple(t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in folded)
+    folded = _aligned(folded)
     qf = folded[0]
     BH, T, D = qf.shape
     lib = _library("flash_attention_bwd", _BWD_ENTRIES)
@@ -333,13 +341,16 @@ def _launch_bwd(kind: str, folded, outs, causal: bool) -> None:
         f"bwd_{kind}_{'causal' if causal else 'full'}"] += 1
 
 
-def flash_bwd_smem(kind: str, head_dim: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block of the dK/dV (``"dkv"``) or dQ
-    (``"dq"``) kernel at ``head_dim`` and ``dtype``, in bytes, as the
-    built library lays it out."""
+def flash_smem(kind: str, head_dim: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the forward (``"fwd"``), dK/dV
+    (``"dkv"``) or dQ (``"dq"``) kernel at ``head_dim`` and ``dtype``, in
+    bytes, as the built library lays it out."""
+    code = _DTYPE_CODES[dtype]
+    if kind == "fwd":
+        lib = _library("flash_attention", _FWD_ENTRIES)
+        return int(lib.iotml_flash_fwd_smem(head_dim, code))
     lib = _library("flash_attention_bwd", _BWD_ENTRIES)
-    return int(lib.iotml_flash_bwd_smem(head_dim, int(kind == "dq"),
-                                        _DTYPE_CODES[dtype]))
+    return int(lib.iotml_flash_bwd_smem(head_dim, int(kind == "dq"), code))
 
 
 def _check_folded(what: str, qf, kf, vf, dof, lse, delta) -> None:

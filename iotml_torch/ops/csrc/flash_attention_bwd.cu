@@ -28,7 +28,8 @@
 // dK/dV and 3.335 ms for dQ at the tensor cores' 989 TFLOP/s.
 //
 // Two designs, chosen by (dtype, D) in the entry points below
-// (tensor_core_design; iotml_flash_bwd_design reports it):
+// (tensor_core_design in flash_tiles.cuh, the forward's rule too;
+// iotml_flash_bwd_design reports it):
 // - bf16 at D = 128: the tensor-core kernels (namespace tc, below);
 // - float32 (D = 8, 16, 128) and bf16 at D = 8, 16: the FMA kernels.
 //
@@ -107,6 +108,7 @@
 
 #include <type_traits>
 
+#include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -453,23 +455,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // ------------------------------------------------------------------------
 namespace tc {
 
+using namespace flash_tiles;
 using hopper::fence_regs;
-using hopper::sw128_desc;
 
-constexpr int kD = 128;
 constexpr int kThreads = 256;  // two warpgroups of 64 rows each
 constexpr int kStages = 2;     // the ring of streamed tiles
-constexpr uint32_t kRow = 128; // bytes of one swizzled row: 64 bf16
 
 // dK/dV: key rows held per block, q rows streamed per step
 constexpr int kDkvBK = 128, kDkvBQ = 64;
 // dQ: query rows held per block, key rows streamed per step
 constexpr int kDqBQ = 128, kDqBK = 64;
-
-// bytes of a [rows][128] bf16 tile, held as two [rows][64] chunks
-__host__ __device__ constexpr uint32_t tile_bytes(int rows) {
-  return rows * kD * 2;
-}
 
 // lse and delta rows come in by TMA as boxes of kStatsBox floats that
 // start on the 16-byte boundary at or below the tile's first row (TMA
@@ -496,49 +491,6 @@ struct Smem {
 };
 using DkvSmem = Smem<kDkvBK, kDkvBQ, true>;
 using DqSmem = Smem<kDqBQ, kDqBK, false>;
-
-// rows [row0, row0 + rows) of head bh: both 64-column chunks by TMA
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
-                                          int rows, int row0, int bh,
-                                          uint32_t bar) {
-  hopper::tma_load_3d(dst, map, 0, row0, bh, bar);
-  hopper::tma_load_3d(dst + rows * kRow, map, 64, row0, bh, bar);
-}
-
-// 8 k16 slices over d: acc = A[64 rows] B[n rows]^T, A and B K-major
-// tiles of a_rows / b_rows rows (a_at / b_at: the first row used)
-template <int kARows, int kBRows>
-__device__ __forceinline__ void scores(float (&acc)[32], uint32_t a_at,
-                                       uint32_t b_at) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t a = a_at + (kk / 4) * kARows * kRow + (kk % 4) * 32;
-    const uint32_t b = b_at + (kk / 4) * kBRows * kRow + (kk % 4) * 32;
-    hopper::wgmma_m64n64k16_ss(acc, sw128_desc(a, 0, 1024),
-                               sw128_desc(b, 0, 1024), kk);
-  }
-}
-
-// 4 k16 slices over a tile's 64 rows: acc += A B, A the four bf16
-// fragments, B the tile (of kRows rows) read MN-major
-template <int kRows>
-__device__ __forceinline__ void accumulate(float (&acc)[64],
-                                           const uint32_t (&a)[4][4],
-                                           uint32_t tile) {
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    hopper::wgmma_m64n128k16_rs(
-        acc, a[t], sw128_desc(tile + t * 16 * kRow, kRows * kRow, 1024));
-}
-
-// Element e of a [64 x 64] accumulator: row 16 * warp + lane / 4 +
-// acc_row(e), column 8 * (e / 4) + 2 * (lane % 4) + (e % 2).
-__device__ __forceinline__ constexpr int acc_row(int e) {
-  return 8 * ((e / 2) % 2);
-}
-__device__ __forceinline__ constexpr int acc_col(int e) {
-  return 8 * (e / 4) + (e % 2);
-}
 
 // One q tile of the dK/dV kernel for one warpgroup: its 64 key rows
 // (from ka) against q rows [q0, q0 + 64).  kMask: the tile straddles the
@@ -884,15 +836,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 }
 
-inline bool misaligned(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 != 0;
-}
-
 template <bool kCausal>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int bh, int T, float scale, cudaStream_t stream) {
-  // TMA reads 16-byte aligned tensors
   if (misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout) ||
       misaligned(lse) || misaligned(delta))
     return (int)cudaErrorMisalignedAddress;
@@ -938,11 +885,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace tc
 
-// dtype 1 (bfloat16) at D = 128 takes the tensor-core kernels; everything
-// else the FMA ones
-constexpr bool tensor_core_design(int dtype, int d) {
-  return dtype == 1 && d == 128;
-}
+using flash_tiles::tensor_core_design;
 
 template <typename T> struct Type { using type = T; };
 template <int D, bool C> struct Variant {

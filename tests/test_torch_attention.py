@@ -100,9 +100,13 @@ def test_flash_reference_matches_jax_interpret(T, block, causal):
                                **F32_TOL)
 
 
-@pytest.mark.parametrize("T,block,causal", [(40, 16, True), (32, 16, False)])
-def test_flash_reference_bf16_matches_jax_interpret(T, block, causal):
-    q, k, v = (a.astype(jnp.bfloat16) for a in _qkv(T=T, seed=7))
+@pytest.mark.parametrize("T,block,causal,D", [
+    (40, 16, True, 8), (32, 16, False, 8),
+    # the tensor-core forward's dtype and head dim, at its 64-row key tile:
+    # the plain version the card holds that kernel against
+    (200, 64, True, 128), (256, 64, False, 128)])
+def test_flash_reference_bf16_matches_jax_interpret(T, block, causal, D):
+    q, k, v = (a.astype(jnp.bfloat16) for a in _qkv(T=T, D=D, seed=7))
     want_o, want_lse = j_attn._flash_forward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, block, block,
         True)

@@ -8,19 +8,30 @@ numpy and the port, and runs there without the suite's conftest:
         tests/test_torch_cuda_attention.py
 
 Tolerances: float32 O and LSE 2e-5, the JAX suite's flash forward bound
-(tests/test_attention.py:56-57); bfloat16 O atol = rtol = 2e-2 compared
-in float32 and LSE atol 1e-3, because P is rounded to bfloat16 at the
-running max of each tile and the kernel's tiles differ from the plain
-version's blocks; the model's predictions rtol = atol = 2e-4
-(tests/test_transformer_sp.py:36-39).  Backward: float32 dq, dk, dv
-rtol 1e-4 / atol 1e-5, the JAX suite's flash-grad bound
-(tests/test_attention.py:70-71); bfloat16 rtol 1e-2 / atol 1e-3 in
-float32 (P comes from the LSE, so tiles change only the order of the f32
-sums: one bfloat16 rounding of each output, 2^-7 of the value at most);
-a training step's loss rtol 1e-5 and grads rtol 1e-4 / atol 1e-6
-(tests/test_torch_seq_parallel.py).  The bf16 D=128 backward cases run
-the tensor-core design (``flash_bwd_design`` says "wgmma"); the others
-the FMA one.
+(tests/test_attention.py:56-57); bfloat16 at D = 16 (the FMA design) O
+atol = rtol = 2e-2 compared in float32 and LSE atol 1e-3, because P is
+rounded to bfloat16 at the running max of each tile and the kernel's
+tiles differ from the plain version's blocks; bfloat16 at D = 128 (the
+``wgmma`` design) ``flash_parity.check_wgmma_forward``: each O row
+within 1e-2 of its norm, O rtol 2e-2 / atol 1e-3 against the plain
+version at the kernel's key tile (blocks 64; rtol = atol = 2e-2 at other
+blocks), LSE atol 1e-3; the
+model's predictions rtol = atol = 2e-4 (tests/test_transformer_sp.py:
+36-39).  Backward: float32 dq, dk, dv rtol 1e-4 / atol 1e-5, the JAX
+suite's flash-grad bound (tests/test_attention.py:70-71); bfloat16 rtol
+1e-2 / atol 1e-3 in float32 (P comes from the LSE, so tiles change only
+the order of the f32 sums: one bfloat16 rounding of each output, 2^-7 of
+the value at most), where a row outside it passes only as one p or ds
+rounding flip (``flash_parity.bwd_rounding_flips``: kernel and plain
+version sum Q·Kᵀ and dO·Vᵀ in f32 in different orders, so a p or ds at a
+bf16 midpoint rounds apart); on inputs rounded to multiples of 1/4 those
+sums are exact in any order, and no flip is allowed; a training step's
+loss rtol 1e-5 and grads rtol 1e-4 / atol 1e-6
+(tests/test_torch_seq_parallel.py).  The bf16 D=128 cases run the
+tensor-core design in both directions (``flash_design`` says "wgmma");
+the others the FMA one.  The tensor-core cases hold the kernels against
+the plain versions at the kernels' own 64-row tiles (blocks 64), so that
+P is rounded at the same running max.
 """
 
 import numpy as np
@@ -29,13 +40,13 @@ import torch
 
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import attention as attn
+from iotml_torch.ops import flash_parity as fp
 from iotml_torch.parallel.seq_parallel import loss_and_grads
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_O_TOL = dict(rtol=2e-2, atol=2e-2)
 BF16_LSE_TOL = dict(rtol=0, atol=1e-3)
-GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
-            torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5)}
 BWD_KEYS = ("bwd_dkv_causal", "bwd_dq_causal", "bwd_dkv_full",
             "bwd_dq_full")
 
@@ -47,10 +58,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _qkv(B, T, H, D, dtype, device, seed=0):
+def _qkv(B, T, H, D, dtype, device, seed=0, grid=False):
+    """Three seeded normal tensors; ``grid`` rounds them to multiples of
+    1/4 (see the module's note on the bf16 backward cases)."""
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.normal(size=(B, T, H, D)).astype(np.float32))
-            .to(device, dtype) for _ in range(3)]
+    ts = [rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3)]
+    if grid:
+        ts = [np.round(t * 4) / 4 for t in ts]
+    return [torch.from_numpy(t).to(device, dtype) for t in ts]
 
 
 @pytest.mark.cuda
@@ -75,10 +90,13 @@ def test_kernel_matches_plain_version(dtype, B, T, H, D, causal, block,
                                                       block, block)
     assert o.shape == q.shape and o.dtype == dtype
     assert lse.shape == (B, H, T) and lse.dtype == torch.float32
-    o_tol = F32_TOL if dtype == torch.float32 else BF16_O_TOL
-    lse_tol = F32_TOL if dtype == torch.float32 else BF16_LSE_TOL
-    torch.testing.assert_close(o.float(), want_o.float(), **o_tol)
-    torch.testing.assert_close(lse, want_lse, **lse_tol)
+    if attn.flash_design(dtype, D) == "wgmma":
+        fp.check_wgmma_forward("forward", o, lse, want_o, want_lse, block)
+    else:
+        o_tol = F32_TOL if dtype == torch.float32 else BF16_O_TOL
+        lse_tol = F32_TOL if dtype == torch.float32 else BF16_LSE_TOL
+        torch.testing.assert_close(o.float(), want_o.float(), **o_tol)
+        torch.testing.assert_close(lse, want_lse, **lse_tol)
     # a second launch repeats the first bit for bit
     o2, lse2 = attn.flash_attention_fwd(q, k, v, causal, block, block)
     assert torch.equal(o2, o) and torch.equal(lse2, lse)
@@ -173,19 +191,87 @@ def test_backward_kernels_match_plain_version(dtype, B, T, H, D, causal,
                                                    causal, block, block)
     for g, w in zip(got, want):
         assert g.shape == q.shape and g.dtype == dtype
-        torch.testing.assert_close(g.float(), w.float(), **GRAD_TOL[dtype])
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, **GRAD_TOL[dtype])
+    if dtype == torch.bfloat16:
+        fp.bwd_rounding_flips(q, k, v, o, lse, do, got, want, causal)
     # a second launch repeats the first bit for bit
     again = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, block,
                                      block)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
-def _check_wgmma_backward(B, T, H, causal, device):
+def _check_wgmma_forward(B, T, H, causal, block, device):
+    """bf16 D=128 (the tensor-core design): the forward's O and LSE
+    against the plain version at ``block``, and a bit repeat."""
+    assert attn.flash_design(torch.bfloat16, 128) == "wgmma"
+    q, k, v = _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H)
+    entry = "causal" if causal else "full"
+    before = dict(attn.flash_attention.launches)
+    o, lse = attn.flash_attention_fwd(q, k, v, causal, block, block)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches[entry] == before[entry] + 1
+    want_o, want_lse = attn.flash_attention_reference(q, k, v, causal,
+                                                      block, block)
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    fp.check_wgmma_forward("forward", o, lse, want_o, want_lse, block)
+    fp.check_rejects_scaled_o("forward", o, lse, want_o, want_lse, block)
+    o2, lse2 = attn.flash_attention_fwd(q, k, v, causal, block, block)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H", [(1, 1), (2, 3)], ids=["BH1", "BH6"])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 1000, 4096])
+def test_wgmma_forward_matches_plain_version_causal(T, B, H, cuda_device):
+    _check_wgmma_forward(B, T, H, True, 64, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,block", [(64, 64), (1024, 64), (1040, 16)])
+def test_wgmma_forward_matches_plain_version_full(T, block, cuda_device):
+    """Non-causal; T = 1,040 (the caller's block 16) leaves a ragged key
+    tile of 16 rows that the kernel masks."""
+    _check_wgmma_forward(2, T, 3, False, block, cuda_device)
+
+
+@pytest.mark.cuda
+def test_wgmma_forward_realigns_a_misaligned_view(cuda_device):
+    """q, k, v views that start 2 bytes past an allocation (with H = 1 the
+    fold keeps the view): the wrapper hands the kernel aligned copies and
+    answers as for aligned tensors; the library itself refuses the
+    misaligned pointer (cudaErrorMisalignedAddress, 716) without
+    launching."""
+    B, T, H, D = 2, 200, 1, 128
+    q, k, v = _qkv(B, T, H, D, torch.bfloat16, cuda_device, seed=5)
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        views.append(buf[1:].view(t.shape).copy_(t))
+    assert all(t.data_ptr() % 16 for t in views)
+    o, lse = attn.flash_attention_fwd(*views, True, 64, 64)
+    want_o, want_lse = attn.flash_attention_reference(q, k, v, True, 64, 64)
+    fp.check_wgmma_forward("realigned", o, lse, want_o, want_lse)
+    lib = attn._library("flash_attention", attn._FWD_ENTRIES)
+    out = torch.empty_like(q)
+    out_lse = torch.empty((B * H, T), device=cuda_device)
+    err = lib.iotml_flash_fwd(
+        views[0].data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        out_lse.data_ptr(), B * H, T, D, 1, 1, D ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 716
+
+
+def _check_wgmma_backward(B, T, H, causal, device, grid=False):
     """bf16 D=128 (the tensor-core design): the kernels' grads against the
-    plain backward at its own tiles (blocks 64), and a bit repeat."""
-    assert attn.flash_bwd_design(torch.bfloat16, 128) == "wgmma"
-    q, k, v, do = _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H) + \
-        _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H + 1)[:1]
+    plain backward at its own tiles (blocks 64), and a bit repeat; on
+    ``grid`` inputs no rounding flip is allowed."""
+    assert attn.flash_design(torch.bfloat16, 128) == "wgmma"
+    q, k, v, do = _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H,
+                       grid=grid) + \
+        _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H + 1,
+             grid=grid)[:1]
     o, lse = attn.flash_attention_fwd(q, k, v, causal, 64, 64)
     entry = "causal" if causal else "full"
     before = dict(attn.flash_attention.launches)
@@ -196,10 +282,10 @@ def _check_wgmma_backward(B, T, H, causal, device):
         assert attn.flash_attention.launches[key] == before[key] + 1
     want = attn.flash_attention_backward_reference(q, k, v, o, lse, do,
                                                    causal, 64, 64)
-    for name, g, w in zip("qkv", got, want):
+    for g in got:
         assert g.shape == q.shape and g.dtype == torch.bfloat16
-        torch.testing.assert_close(g.float(), w.float(),
-                                   **GRAD_TOL[torch.bfloat16], msg=name)
+    fp.bwd_rounding_flips(q, k, v, o, lse, do, got, want, causal,
+                          max_rows=0 if grid else None)
     again = attn.flash_attention_bwd(q, k, v, o, lse, do, causal, 64, 64)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
@@ -218,10 +304,22 @@ def test_wgmma_backward_matches_plain_version_full(T, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,causal", [
+    (1, 1000, 1, True), (2, 1000, 3, True), (1, 4096, 1, True),
+    (2, 4096, 3, True), (2, 1024, 3, False)])
+def test_wgmma_backward_on_grid_inputs_has_no_rounding_flip(B, T, H, causal,
+                                                            cuda_device):
+    """Inputs rounded to multiples of 1/4: Q·Kᵀ and dO·Vᵀ are exact in f32
+    in any order, so kernel and plain version round every p and ds alike
+    and every row is inside the tolerance."""
+    _check_wgmma_backward(B, T, H, causal, cuda_device, grid=True)
+
+
+@pytest.mark.cuda
 def test_wgmma_backward_only_k_needs_a_grad(cuda_device):
     """bf16 D=128 through autograd with only k requiring a grad: the dK/dV
     kernel runs, the dQ kernel does not, and dk is the plain version's."""
-    assert attn.flash_bwd_design(torch.bfloat16, 128) == "wgmma"
+    assert attn.flash_design(torch.bfloat16, 128) == "wgmma"
     q, k, v, do = _qkv(1, 300, 2, 128, torch.bfloat16, cuda_device) + \
         _qkv(1, 300, 2, 128, torch.bfloat16, cuda_device, seed=1)[:1]
     kk = k.clone().requires_grad_()
@@ -234,8 +332,8 @@ def test_wgmma_backward_only_k_needs_a_grad(cuda_device):
     o, lse = attn.flash_attention_fwd(q, k, v, True, 64, 64)
     want = attn.flash_attention_backward_reference(q, k, v, o, lse, do, True,
                                                    64, 64)[1]
-    torch.testing.assert_close(dk.float(), want.float(),
-                               **GRAD_TOL[torch.bfloat16])
+    fp.bwd_rounding_flips(q, k, v, o, lse, do, (None, dk, None),
+                          (None, want, None), True)
 
 
 @pytest.mark.cuda
