@@ -11,28 +11,39 @@ non-zero exit and no result line:
                 TF32 switched off for matmul and cuDNN.
 2. build      — the three CUDA sources built from the checkout, one
                 ``nvcc`` each, started together (seconds per source;
-                ptxas registers and spills per instantiation, a spill
-                fails the run; the flash kernels' shared memory per
-                block, dtype and head dim; HGMMA instructions in the SASS
-                of each tensor-core instantiation, forward and backward,
-                none fails the run; the design of each dtype and head dim
-                in both directions, the libraries' and ``flash_design``'s,
-                which must agree).
+                ptxas registers and spills per instantiation, a spill in
+                a flash kernel or a rows fit kernel fails the run; the
+                fit kernel's shared memory per design at B=100; the flash
+                kernels' shared memory per block, dtype and head dim;
+                HGMMA instructions in the SASS of each tensor-core
+                instantiation, forward and backward, none fails the run;
+                the fit kernel's design over a grid of shapes, the
+                library's ``iotml_fused_fit_design`` and ``fit_design``'s,
+                and the design of each dtype and head dim in both
+                attention directions, the libraries' and
+                ``flash_design``'s; each pair must agree).
 3. kernel     — the fused-fit kernel against its plain PyTorch version on
-                the card: B=100 at F=18 and F=30, 6 batches × 4 epochs,
-                ragged last batch, 0/1 and fractional masks; runs repeat
-                bit for bit; 2 + 2 epochs equal 4.
+                the card: the rows design at B=100, F=18 and F=30, 0/1
+                and fractional masks, and at B=256 (its largest), F=30;
+                the elements design at B=300, F=18 (each taken by
+                ``fit_design``'s rule); 6 batches × 4
+                epochs, ragged last batch; runs repeat bit for bit; 2 + 2
+                epochs equal 4.
 4. main_path  — the reference job at full width and shape: a 100-car
                 fleet for 300 ticks (30,000 rows), train on 100 batches
                 of 100 normal rows for 20 epochs (``fit_compiled``, one
-                kernel launch), then score batches 100..199 (10,000
-                rows) with threshold 5.
-5. timing     — the kernel held against its plain version over the whole
-                fit at that shape (all 20 epochs' loss and accuracy, the
-                final params, mu and nu), then its time per fit (CUDA
-                events over warm launches) beside the plain version's,
-                the autograd step loop's (``fused="never"``) and the
-                bound.
+                kernel launch, through the rows design), then score
+                batches 100..199 (10,000 rows) with threshold 5.
+5. timing     — each design held against the plain version over the
+                whole fit at that shape (all 20 epochs' loss and
+                accuracy, the final params, mu and nu), then each
+                design's time per fit (CUDA events over warm launches,
+                timed in turns: rows, elements, elements, rows) beside
+                the plain version's, the autograd step loop's
+                (``fused="never"``), the bound and the one-SM bound (the
+                same flops at one SM's share of the fp32 rate: a fit is
+                one block); the same again at B=256 on the same fleet
+                slice (39 batches, 20 epochs).
 6. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
@@ -98,7 +109,8 @@ non-zero exit and no result line:
                 tensor-core one at bf16 D=128); one such call runs with
                 every launch count set to 0 just before it and read just
                 after (exactly one forward, one dK/dV and one dQ launch).
-Then the kernels line (each entry's design at the layer call and the
+Then the kernels line (the fit's design and launches by design on the
+main path; each attention entry's design at the layer call and the
 long-context call; ``launches`` sums the counts read on the paths that
 run the entry: the SensorFormer forward (phase 7), the training steps
 (phase 10) and the long-context forward + backward (phase 11), each also
@@ -175,8 +187,9 @@ GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 #: published H100 SXM peaks: fp32 outside the tensor cores, bf16 dense
-#: tensor cores, HBM3
+#: tensor cores, HBM3; its SMs
 FP32_FLOPS = 67e12
+SMS = 132
 BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 
@@ -223,6 +236,30 @@ def phase_device() -> dict:
     return info
 
 
+def _ptxas_fit(log: str) -> dict:
+    """Registers and spills of each fit kernel: ``elements`` and the rows
+    instantiations (``rows F=18``, ``rows F=30``), from ``-Xptxas -v``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        rows = re.search(r"Function properties for \S*fused_fit_rows_"
+                         r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
+        if rows:
+            name = f"rows F={rows.group(1)} E={rows.group(2)} " \
+                   f"H={rows.group(3)}"
+            out[name] = {}
+        elif re.search(r"Function properties for \S*fused_fit_kernel", line):
+            name = "elements"
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            name = None
+    return out
+
+
 def _ptxas_by_kernel(log: str) -> dict:
     """Registers and spills of each flash kernel instantiation
     (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``,
@@ -257,8 +294,9 @@ def phase_build() -> None:
     """Build the three sources together, one nvcc each."""
     def timed(name):
         t0 = time.perf_counter()
-        log = _build.build(name)
-        return name, log, time.perf_counter() - t0
+        built = not _build.library_path(name).exists()
+        log = _build.build_log(name)
+        return name, log, built, time.perf_counter() - t0
 
     t0 = time.perf_counter()
     names = ("fused_train", "flash_attention", "flash_attention_bwd")
@@ -266,32 +304,62 @@ def phase_build() -> None:
         built = list(pool.map(timed, names))
     wall = time.perf_counter() - t0
     sources = {}
-    for name, log, seconds in built:
-        sources[name] = {"seconds": seconds, "built": bool(log)}
+    for name, log, fresh, seconds in built:
+        sources[name] = {"seconds": seconds, "built": fresh}
         if name.startswith("flash_attention"):
             sources[name]["ptxas"] = ptxas = _ptxas_by_kernel(log)
             spilled = [k for k, v in ptxas.items()
                        if v.get("spill_stores") or v.get("spill_loads")]
-            if spilled:
-                raise AssertionError(f"ptxas spills in {spilled}")
         else:
-            sources[name]["ptxas"] = [line.strip() for line in log.splitlines()
-                                      if "Used" in line or "spill" in line]
-    smem = {f"F={spec.input_dim}": fused_train.smem(
-        spec.build("cuda").state_dict(), 100, "cuda")
-        for spec in (CAR_AUTOENCODER, CREDITCARD_AUTOENCODER)}
+            sources[name]["ptxas"] = ptxas = _ptxas_fit(log)
+            if sorted(ptxas) != ["elements", "rows F=18 E=14 H=7",
+                                 "rows F=30 E=14 H=7"]:
+                raise AssertionError(f"fit kernels in the ptxas log: "
+                                     f"{sorted(ptxas)}")
+            spilled = [k for k, v in ptxas.items() if k.startswith("rows")
+                       and (v.get("spill_stores") or v.get("spill_loads"))]
+        if spilled:
+            raise AssertionError(f"ptxas spills in {spilled}")
+    smem = {f"F={spec.input_dim} {design}": fused_train.smem(
+        spec.build("cuda").state_dict(), 100, "cuda", design)
+        for spec in (CAR_AUTOENCODER, CREDITCARD_AUTOENCODER)
+        for design in fused_train.DESIGNS}
     flash_smem_bytes = {f"{kind} {str(dtype)[6:]} D={d}": flash_smem(
         kind, d, dtype) for kind in ("fwd", "dkv", "dq")
         for dtype in FLASH_DTYPES for d in (8, 16, 128)}
     emit({"phase": "build", "seconds": wall, "sources": sources,
           "smem_need_optin_bytes_at_B100": smem,
           "flash_smem_bytes_per_block": flash_smem_bytes,
+          "fit_design": check_fit_designs(),
           "flash_design": check_designs(),
           "hgmma_per_wgmma_kernel": check_hgmma()})
 
 
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 FLASH_SOURCES = ("flash_attention", "flash_attention_bwd")
+
+
+#: (B, F, E, H) over which the fit kernel's two design rules must agree
+FIT_DESIGN_GRID = [(B, F, E, H)
+                   for B in (1, 31, 100, 128, 129, 200, 256, 257, 300)
+                   for F, E, H in ((18, 14, 7), (30, 14, 7), (18, 16, 7),
+                                   (18, 14, 8), (12, 14, 7))]
+
+
+def check_fit_designs() -> dict:
+    """The fit kernel's design over ``FIT_DESIGN_GRID``: the library's
+    ``iotml_fused_fit_design`` must be ``fit_design``'s (which shapes
+    that is, the CPU tests hold).  Returns the count of each."""
+    lib = fused_train._library()
+    counts = dict.fromkeys(fused_train.DESIGNS, 0)
+    for B, F, E, H in FIT_DESIGN_GRID:
+        built = fused_train.DESIGNS[lib.iotml_fused_fit_design(B, F, E, H)]
+        said = fused_train.fit_design(B, F, E, H)
+        if built != said:
+            raise AssertionError(f"fit design at B={B} F={F} E={E} H={H}: "
+                                 f"library {built}, fit_design {said}")
+        counts[said] += 1
+    return counts
 
 
 def check_designs() -> dict:
@@ -358,10 +426,15 @@ def check_fit(tag: str, kernel_out, plain_out, steps: int) -> float:
     return err
 
 
-def kernel_case(spec, fractional: bool, seed: int) -> float:
-    """Kernel vs plain on one input; returns the largest abs difference."""
+def kernel_case(spec, fractional: bool, seed: int, B: int = 100) -> float:
+    """Kernel vs plain on one input, in the design ``fit_design`` picks
+    (each launch must go through it); returns the largest abs
+    difference."""
     F = spec.input_dim
-    S, B, epochs = 6, 100, 4
+    S, epochs = 6, 4
+    design = fused_train.fit_design(B, F, spec.encoding_dim,
+                                    spec.hidden_dim)
+    by_design = dict(fused_train.fused_fit.launches_by_design)
     rng = np.random.default_rng(seed)
     xs = rng.uniform(-1, 1, (S, B, F)).astype(np.float32)
     xs[:, :, ::5] = 0.0  # zeroed columns, as the parity normalizer makes
@@ -378,7 +451,7 @@ def kernel_case(spec, fractional: bool, seed: int) -> float:
         state, xs_d, masks_d, epochs)
     torch.cuda.synchronize()
     plain_out = fused_train.fused_fit_reference(state, xs_d, masks_d, epochs)
-    tag = f"F={F} fractional={fractional}"
+    tag = f"{design} B={B} F={F} fractional={fractional}"
     err = check_fit(tag, kernel_out, plain_out, S * epochs)
 
     # bit-for-bit repeat
@@ -397,19 +470,29 @@ def kernel_case(spec, fractional: bool, seed: int) -> float:
                 b_state.params["encoder0.weight"],
                 k_state.params["encoder0.weight"], rtol=1e-3, atol=1e-6)
     torch.cuda.synchronize()
+    launched = {k: v - by_design[k] for k, v in
+                fused_train.fused_fit.launches_by_design.items()}
+    if launched != {**dict.fromkeys(by_design, 0), design: 4}:
+        raise AssertionError(f"{tag}: launches by design {launched}")
     return err
 
 
 def phase_kernel() -> float:
-    err = 0.0
+    errs = {}
     for spec in (CAR_AUTOENCODER, CREDITCARD_AUTOENCODER):
         for fractional in (False, True):
-            err = max(err, kernel_case(spec, fractional,
-                                       seed=spec.input_dim + fractional))
-    emit({"phase": "kernel", "kernel": "fused_fit", "cases": 4,
-          "max_abs_err": err, "metric_tol": METRIC_TOL, "state_tol": STATE_TOL,
-          "resume_tol": RESUME_TOL, "bit_repeat": True})
-    return err
+            errs[f"rows F={spec.input_dim} fractional={fractional}"] = \
+                kernel_case(spec, fractional,
+                            seed=spec.input_dim + fractional)
+    errs["rows B=256 F=30 fractional=True"] = kernel_case(
+        CREDITCARD_AUTOENCODER, True, seed=256, B=256)
+    errs["elements B=300 F=18 fractional=True"] = kernel_case(
+        CAR_AUTOENCODER, True, seed=300, B=300)
+    emit({"phase": "kernel", "kernel": "fused_fit", "cases": len(errs),
+          "max_abs_err": errs, "metric_tol": METRIC_TOL,
+          "state_tol": STATE_TOL, "resume_tol": RESUME_TOL,
+          "bit_repeat": True})
+    return max(errs.values())
 
 
 def phase_main_path(card: str) -> dict:
@@ -419,6 +502,8 @@ def phase_main_path(card: str) -> dict:
                                   only_normal=True)
     trainer = Trainer(CAR_AUTOENCODER)  # device=None: the card
     fused_train.fused_fit.launches = 0
+    fused_train.fused_fit.launches_by_design = dict.fromkeys(
+        fused_train.DESIGNS, 0)
     t0 = time.perf_counter()
     hist = trainer.fit_compiled(train_batches, epochs=20)
     torch.cuda.synchronize()
@@ -439,9 +524,11 @@ def phase_main_path(card: str) -> dict:
     n = scorer.score_available()
     score_s = time.perf_counter() - t0
     launches = fused_train.fused_fit.launches
-    if launches != 1:
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if launches != 1 or by_design["rows"] != 1:
         raise AssertionError(f"the main path launched the fit kernel "
-                             f"{launches}x, not once")
+                             f"{launches}x ({by_design}), not once through "
+                             f"the rows design")
     if n != 10_000 or len(out.published) != 10_000:
         raise AssertionError(f"scored {n} rows, published {len(out.published)}")
     if [i for i, _ in out.published] != list(range(10_000)):
@@ -468,20 +555,25 @@ def phase_main_path(card: str) -> dict:
             "host_pipeline_s": hist["host_pipeline_s"],
             "device_compute_s": hist["device_compute_s"],
             "loss_first": losses[0], "loss_last": losses[-1],
-            "kernel_launches": launches, "rows_trained_per_epoch": 10_000,
+            "kernel_launches": launches,
+            "kernel_launches_by_design": by_design,
+            "rows_trained_per_epoch": 10_000,
             "rows_scored": n, "score_seconds": score_s,
             "score_rows_per_s": n / score_s,
             "score_host_pipeline_s": scorer.seconds["host_pipeline"],
             "score_device_compute_s": scorer.seconds["device_compute"],
             "quality": scorer.quality}
     emit(info)
-    return {"launches": launches, "batches": train_batches}
+    return {"launches": launches, "launches_by_design": by_design,
+            "batches": train_batches, "source": source}
 
 
 def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
     """Least time for the fit on an H100: the larger of fp32 work over
     the fp32 peak and bytes (slice + state in, state + history out) over
-    the memory rate."""
+    the memory rate; and the one-SM bound, the same flops over one SM's
+    share of the fp32 peak (the fit is a chain of dependent steps that one
+    block runs)."""
     n = E * F + E + H * E + H + H * H + H + F * H + F
     macs = E * F + H * E + H * H + F * H  # one forward
     # forward + weight grads (2 × macs) + the delta chain (no dW1 input
@@ -492,6 +584,7 @@ def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
     ops_ms, bytes_ms = 1e3 * flops / FP32_FLOPS, 1e3 * bytes_moved / HBM_BYTES_S
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "one_sm_bound_ms": 1e3 * flops / (FP32_FLOPS / SMS),
             "bound_flops": flops, "bound_bytes": bytes_moved}
 
 
@@ -506,16 +599,47 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(card: str, batches) -> dict:
+def fit_in_turns(tag: str, xs, masks, epochs: int):
+    """Both fit designs on one slice: each held against the plain version
+    over the whole fit (every epoch and the final state: a fault that
+    shows only late in a long fit fails here), then timed in turns, the
+    design ``fit_design`` picks first (it, the other, the other, it).
+    Returns (that design, ms per fit by design, largest difference by
+    design, the plain version's output and the kernels')."""
+    S, B, F = xs.shape
+    state = fresh_state(CAR_AUTOENCODER, "cuda")
+    picked = fused_train.fit_design(B, F, CAR_AUTOENCODER.encoding_dim,
+                                    CAR_AUTOENCODER.hidden_dim)
+    designs = (picked,) + tuple(d for d in fused_train.DESIGNS
+                                if d != picked)
+
+    def kernel(design):
+        return fused_train.fused_fit(state, xs, masks, epochs, design=design)
+
+    kernel_out = {d: kernel(d) for d in designs}  # warm, and held below
+    plain_out = fused_train.fused_fit_reference(state, xs, masks, epochs)
+    torch.cuda.synchronize()
+    errs = {d: check_fit(f"{tag} {d}", out, plain_out, epochs * S)
+            for d, out in kernel_out.items()}
+    ms = {d: [] for d in designs}
+    for d in designs + designs[::-1]:
+        ms[d].append(cuda_ms(lambda: kernel(d), 5))
+    return picked, ms, errs, plain_out, kernel_out
+
+
+def _stacked(batches):
     bs = list(next(batches.epochs(1)))
-    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
-    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    return (torch.from_numpy(np.stack([b.x for b in bs])).cuda(),
+            torch.from_numpy(np.stack([b.mask for b in bs])).cuda())
+
+
+def phase_timing(card: str, batches, source) -> dict:
+    xs, masks = _stacked(batches)
     S, B, F = xs.shape
     epochs = 20
     state = fresh_state(CAR_AUTOENCODER, "cuda")
-
-    def kernel():
-        return fused_train.fused_fit(state, xs, masks, epochs)
+    main_design, ms, errs, plain_out, kernel_out = fit_in_turns(
+        "reference shape", xs, masks, epochs)
 
     def plain():
         return fused_train.fused_fit_reference(state, xs, masks, epochs)
@@ -526,26 +650,37 @@ def phase_timing(card: str, batches) -> dict:
     def step_loop():
         return loop(state, xs, xs, masks, epochs)
 
-    kernel_out = kernel()  # warm, and held against the plain version
-    plain_out = plain()
     loop(state, xs[:2], xs[:2], masks[:2], 1)
-    torch.cuda.synchronize()
-    # the whole fit at the main path's shape, every epoch and the final
-    # state: a fault that shows only late in a long fit fails here
-    err = check_fit("reference shape", kernel_out, plain_out, epochs * S)
-    ms = cuda_ms(kernel, 5)
     plain_ms = cuda_ms(plain, 2)
     loop_ms = cuda_ms(step_loop, 1)
-    ms_again = cuda_ms(kernel, 5)
-    E, H = (state.params[f"{k}.weight"].shape[0]
-            for k in ("encoder0", "encoder1"))
-    k_loss, p_loss = kernel_out[1], plain_out[1]
-    rel = ((k_loss - p_loss).abs() / p_loss.abs()).cpu()
+    E, H = CAR_AUTOENCODER.encoding_dim, CAR_AUTOENCODER.hidden_dim
+    p_loss = plain_out[1]
+    rel = {d: float(((out[1] - p_loss).abs() / p_loss.abs()).max())
+           for d, out in kernel_out.items()}
+
+    # the rows design's largest batch, on the same fleet slice
+    wide = SensorBatches(source, batch_size=256, take=39, only_normal=True)
+    w_xs, w_masks = _stacked(wide)
+    w_S, w_B, _ = w_xs.shape
+    w_design, w_ms, w_errs, _, _ = fit_in_turns("B=256", w_xs, w_masks,
+                                               epochs)
+    w_bound = fit_bound(w_S, w_B, F, E, H, epochs)
     info = {"phase": "timing", "card": card, "shape": [S, B, F],
-            "epochs": epochs, "steps": epochs * S,
-            "kernel_ms": [ms, ms_again], "plain_ms": plain_ms,
-            "step_loop_ms": loop_ms, **fit_bound(S, B, F, E, H, epochs),
-            "max_abs_err": err, "loss_rel_diff_max": float(rel.max())}
+            "epochs": epochs, "steps": epochs * S, "design": main_design,
+            "kernel_ms": ms,
+            "us_per_step": {d: 1e3 * min(t) / (epochs * S)
+                            for d, t in ms.items()},
+            "plain_ms": plain_ms, "step_loop_ms": loop_ms,
+            **fit_bound(S, B, F, E, H, epochs),
+            "max_abs_err": errs, "loss_rel_diff_max": rel,
+            "batch_256": {
+                "shape": [w_S, w_B, F], "steps": epochs * w_S,
+                "design": w_design, "kernel_ms": w_ms,
+                "us_per_step": {d: 1e3 * min(t) / (epochs * w_S)
+                                for d, t in w_ms.items()},
+                "bound_ms": w_bound["bound_ms"],
+                "one_sm_bound_ms": w_bound["one_sm_bound_ms"],
+                "max_abs_err": w_errs}}
     emit(info)
     return info
 
@@ -1221,7 +1356,7 @@ def main() -> int:
     phase_build()
     err = phase_kernel()
     main_info = phase_main_path(card)
-    timing = phase_timing(card, main_info["batches"])
+    timing = phase_timing(card, main_info["batches"], main_info["source"])
     attn_err = phase_attention_kernel()
     sf_info = phase_sensorformer_path(card)
     attn_timing = phase_attention_timing(card)
@@ -1234,13 +1369,18 @@ def main() -> int:
              "sensorformer_train": train_info["kernel_launches"],
              "long_context": {key: sum(p[key] for p in long_paths)
                               for key in flash_attention.launches}}
+    design = timing["design"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
         "source": "iotml_torch/ops/csrc/fused_train.cu",
-        "replaces": "iotml/ops/fused_train.py:64",
+        "replaces": "iotml/ops/fused_train.py:64", "design": design,
         "launches": main_info["launches"],
-        "max_abs_err": max(err, timing["max_abs_err"]),
-        "ms": min(timing["kernel_ms"]), "plain_ms": timing["plain_ms"],
+        "launches_by_design": main_info["launches_by_design"],
+        "max_abs_err": max(err, *timing["max_abs_err"].values(),
+                           *timing["batch_256"]["max_abs_err"].values()),
+        "ms": min(timing["kernel_ms"][design]),
+        "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
+        "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None, "step_loop_ms": timing["step_loop_ms"]},
         attention_entry("flash_fwd_causal", "iotml/ops/attention.py:215",

@@ -8,10 +8,13 @@ so ``nvcc`` builds it in seconds:
 
 The library lands in ``iotml_torch/ops/build/`` (gitignored), named by
 the hash of its source and of the ``csrc/*.cuh`` headers, so an edited
-source or header builds anew and an unchanged one is reused.  A ``<name>.lock`` file in the build directory keeps two
-processes from building one source together (different sources build in
-parallel); one left behind by a killed build must be deleted by hand
-(the error names it).  Nothing here runs at import.
+source or header builds anew and an unchanged one is reused.  The
+compiler's log lies beside the library (``build_log``); a library
+without its log is built again.  A ``<name>.lock`` file in the build
+directory keeps two processes from building one source together
+(different sources build in parallel); one left behind by a killed build
+must be deleted by hand (the error names it).  Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -78,19 +81,20 @@ class _BuildLock:
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns the
-    compiler log (``-Xptxas -v``: registers, shared memory, spills), or ""
-    when nothing was built; raises RuntimeError on a failed build."""
+    """Compile ``csrc/<name>.cu`` unless its library and the library's
+    log exist.  Returns the compiler log (``-Xptxas -v``: registers,
+    shared memory, spills), or "" when nothing was built; raises
+    RuntimeError on a failed build."""
     BUILD.mkdir(parents=True, exist_ok=True)
     with _BuildLock(BUILD / f"{name}.lock"):
         target = library_path(name)
-        if target.exists():
+        if target.exists() and target.with_suffix(".log").exists():
             return ""
         tmp = target.with_suffix(f".tmp{os.getpid()}")
         proc = subprocess.run(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        (BUILD / f"{name}.log").write_text(proc.stdout)
+        target.with_suffix(".log").write_text(proc.stdout)
         if proc.returncode != 0:
             if tmp.exists():
                 tmp.unlink()
@@ -98,6 +102,14 @@ def build(name: str) -> str:
                                f"{proc.returncode}):\n{proc.stdout}")
         os.replace(tmp, target)
     return proc.stdout
+
+
+def build_log(name: str) -> str:
+    """Build ``csrc/<name>.cu`` if needed; the compiler's log of the
+    library that is there now (``-Xptxas -v``: registers, shared memory,
+    spills)."""
+    build(name)
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

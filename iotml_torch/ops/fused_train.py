@@ -16,6 +16,11 @@ Exact math (as ``iotml.train.loop`` / ``models.autoencoder`` define it):
   acc  = sum((out==x) * m) / max(sum(m)*F, 1)             (Keras 'accuracy')
   Adam: b1=.9 b2=.999 eps=1e-8, bias correction 1 - exp(t ln b), t=step+1
 
+The kernel has two designs (``fit_design``): "rows", a thread per batch
+row and two barriers a step, at the cardata and creditcard shapes
+(F = 18 or 30, E = 14, H = 7) with B <= 256; "elements", a thread per
+output element and ten barriers a step, everywhere else.
+
 ``fused_fit`` launches the kernel for CUDA tensors and takes the plain
 version, ``fused_fit_reference``, only for CPU tensors.  The kernel's
 gate is its shared-memory footprint (``fits``): the batches stream from
@@ -41,16 +46,48 @@ def _dims(params) -> Tuple[int, int, int]:
     return f, e, h
 
 
-def smem(params, batch_size: int, device) -> Tuple[int, int]:
-    """(bytes of shared memory one step needs, bytes a block may opt into
-    on ``device``), both from the kernel's source, which owns the layout:
+#: the kernel's designs, by the code ``iotml_fused_fit_design`` returns
+DESIGNS = ("elements", "rows")
+#: the (F, E, H) the rows design is built for, and its largest batch
+ROWS_SHAPES = ((18, 14, 7), (30, 14, 7))
+ROWS_MAX_BATCH = 256
+
+
+def fit_design(batch_size: int, F: int, E: int, H: int) -> str:
+    """The design ``fused_fit`` launches at this shape, by the rule of the
+    library's ``iotml_fused_fit_design``: "rows" at the shapes it is built
+    for with 1 <= B <= 256, "elements" everywhere else."""
+    if 1 <= batch_size <= ROWS_MAX_BATCH and (F, E, H) in ROWS_SHAPES:
+        return "rows"
+    return "elements"
+
+
+def _resolve_design(design, batch_size: int, params) -> str:
+    auto = fit_design(batch_size, *_dims(params))
+    if design is None:
+        return auto
+    if design not in DESIGNS:
+        raise ValueError(f"fused_fit design must be one of {DESIGNS}, "
+                         f"not {design!r}")
+    if design == "rows" and auto != "rows":
+        raise ValueError(f"the rows design does not take batch "
+                         f"{batch_size} at (F, E, H) = {_dims(params)}")
+    return design
+
+
+def smem(params, batch_size: int, device, design=None) -> Tuple[int, int]:
+    """(bytes of shared memory one step of ``design`` needs, by default
+    the one ``fit_design`` picks, and bytes a block may opt into on
+    ``device``), both from the kernel's source, which owns the layouts:
     params + mu + nu, the step's batch and mask, every activation and
     delta, and the reduction scratch."""
+    design = _resolve_design(design, batch_size, params)
     need, optin = ctypes.c_longlong(), ctypes.c_int()
     lib = _library()
     with torch.cuda.device(device):
-        err = lib.iotml_fused_fit_smem(batch_size, *_dims(params),
-                                       ctypes.byref(need), ctypes.byref(optin))
+        err = lib.iotml_fused_fit_smem(
+            DESIGNS.index(design), batch_size, *_dims(params),
+            ctypes.byref(need), ctypes.byref(optin))
     if err != 0:
         raise RuntimeError(f"fused_fit shared-memory query failed: CUDA "
                            f"error {err}")
@@ -85,15 +122,19 @@ def _new_state(state, params, mu, nu, total: int):
 
 
 def fused_fit(state, xs: torch.Tensor, masks: torch.Tensor, epochs: int,
-              lr: float = 1e-3, l1: float = 1e-7):
+              lr: float = 1e-3, l1: float = 1e-7, design=None):
     """Run the whole fit in one kernel launch.
 
     state: TrainState (DenseAutoencoder params + AdamState)
     xs: [S, B, F] float32 batches; masks: [S, B] float32
+    design: None for ``fit_design``'s, or "elements" (any shape) or
+    "rows" (only where ``fit_design`` gives it); on the CPU it is checked
+    and the plain version runs.
     Returns (new_state, losses [epochs], accs [epochs]) — per-epoch means,
     the history the autograd step loop reports.  CUDA tensors launch the
     kernel (or raise); CPU tensors run ``fused_fit_reference``.
     """
+    design = _resolve_design(design, xs.shape[1], state.params)
     if xs.device.type == "cpu":
         return fused_fit_reference(state, xs, masks, epochs, lr, l1)
     if xs.device.type != "cuda":
@@ -107,7 +148,7 @@ def fused_fit(state, xs: torch.Tensor, masks: torch.Tensor, epochs: int,
         raise ValueError(f"fused_fit: xs {tuple(xs.shape)} on {xs.device}, "
                          f"masks {tuple(masks.shape)} on {masks.device}, "
                          f"{F} features vs model {f}, epochs {epochs}")
-    need, optin = smem(state.params, B, xs.device)
+    need, optin = smem(state.params, B, xs.device, design)
     if need > optin:
         raise ValueError(f"fused_fit: batch {B} x {F} needs {need} B of "
                          f"shared memory, over the {optin} B a block can "
@@ -126,27 +167,31 @@ def fused_fit(state, xs: torch.Tensor, masks: torch.Tensor, epochs: int,
     outs = [torch.empty_like(t) for t in flat]
     losses = torch.empty(epochs, dtype=torch.float32, device=xs.device)
     accs = torch.empty_like(losses)
+    denoms = torch.empty(S, dtype=torch.float32, device=xs.device)
 
     lib = _library()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = lib.iotml_fused_fit(
-            xs.data_ptr(), masks.data_ptr(),
+            DESIGNS.index(design), xs.data_ptr(), masks.data_ptr(),
             *(t.data_ptr() for t in flat), *(t.data_ptr() for t in outs),
-            losses.data_ptr(), accs.data_ptr(),
+            losses.data_ptr(), accs.data_ptr(), denoms.data_ptr(),
             S, B, F, e, h, epochs, int(opt.count),
             lr, l1, l1 / B, 1.0 / S, B1, 1.0 - B1, B2, 1.0 - B2, EPS,
             math.log(B1), math.log(B2), stream)
     if err != 0:
-        raise RuntimeError(f"fused_fit kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"fused_fit {design} kernel launch failed: CUDA "
+                           f"error {err}")
     fused_fit.launches += 1
+    fused_fit.launches_by_design[design] += 1
     new = [_unflatten(t, state.params) for t in outs]
     return _new_state(state, *new, epochs * S), losses, accs
 
 
-#: kernel launches so far (the plain version is not counted)
+#: kernel launches so far, in all and by design (the plain version is
+#: not counted)
 fused_fit.launches = 0
+fused_fit.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 def _unflatten(flat: torch.Tensor, like) -> dict:
@@ -164,10 +209,12 @@ def _library():
     lib = _build.load("fused_train")
     if lib.iotml_fused_fit.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.iotml_fused_fit.argtypes = [ptr] * 10 + [i32] * 7 + [f32] * 11 \
-            + [ptr]
+        lib.iotml_fused_fit.argtypes = [i32] + [ptr] * 11 + [i32] * 7 \
+            + [f32] * 11 + [ptr]
         lib.iotml_fused_fit.restype = ctypes.c_int
-        lib.iotml_fused_fit_smem.argtypes = [i32] * 4 + [
+        lib.iotml_fused_fit_design.argtypes = [i32] * 4
+        lib.iotml_fused_fit_design.restype = ctypes.c_int
+        lib.iotml_fused_fit_smem.argtypes = [i32] * 5 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
         lib.iotml_fused_fit_smem.restype = ctypes.c_int
     return lib

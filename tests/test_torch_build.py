@@ -1,7 +1,8 @@
 """The port's CUDA build bookkeeping and the flash kernels' design rule,
 on the CPU.
 
-No ``nvcc`` runs here: ``_build.library_path`` only hashes sources, and
+No ``nvcc`` runs here: ``_build.library_path`` only hashes sources,
+``_build.build`` runs a stand-in compiler, and
 ``flash_design`` is plain Python, held here against the rule as the CUDA
 sources state it (the built libraries' ``iotml_flash_fwd_design`` and
 ``iotml_flash_bwd_design`` are held against it on the card by
@@ -9,6 +10,8 @@ sources state it (the built libraries' ``iotml_flash_fwd_design`` and
 """
 
 import re
+import subprocess
+from pathlib import Path
 
 import pytest
 import torch
@@ -48,6 +51,43 @@ def test_library_name_ignores_other_files(csrc):
     (csrc / "notes.txt").write_text("not a header\n")
     (csrc / "other.cu").write_text("// another source\n")
     assert _build.library_path("kern") == before
+
+
+@pytest.fixture
+def fake_nvcc(csrc, tmp_path_factory, monkeypatch):
+    """A temporary ``build`` directory and a stand-in compiler that
+    writes its ``-o`` file and prints one ptxas line; returns the build
+    directory and the list of libraries it was asked for."""
+    build = tmp_path_factory.mktemp("build")
+    calls = []
+
+    def run(cmd, **kwargs):
+        out = Path(cmd[cmd.index("-o") + 1])
+        calls.append(out)
+        out.write_text("library\n")
+        return subprocess.CompletedProcess(cmd, 0, "ptxas info: Used 1 "
+                                           "registers\n")
+
+    monkeypatch.setattr(_build, "BUILD", build)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    return build, calls
+
+
+def test_build_log_rebuilds_a_library_without_its_log(fake_nvcc):
+    """A library left by a build that kept its log elsewhere is built
+    again, so its log can be read; one with its log is reused."""
+    build, calls = fake_nvcc
+    target = _build.library_path("kern")
+    target.write_text("stale library\n")
+    (build / "kern.log").write_text("a log at the old place\n")
+    assert _build.build_log("kern") == "ptxas info: Used 1 registers\n"
+    assert len(calls) == 1 and target.read_text() == "library\n"
+    assert _build.build_log("kern") == "ptxas info: Used 1 registers\n"
+    assert _build.build("kern") == ""
+    assert len(calls) == 1
+    assert sorted(p.name for p in build.iterdir()) == sorted(
+        ["kern.log", target.name, target.with_suffix(".log").name])
 
 
 FLASH_SOURCES = ("flash_attention", "flash_attention_bwd")

@@ -317,6 +317,45 @@ def test_fused_fit_never_runs_the_plain_version_off_cpu(monkeypatch):
         fused_train.fused_fit(st, xs, masks, 1)
 
 
+@pytest.mark.parametrize("B, F", [(100, 18), (1, 18), (128, 18), (256, 18),
+                                  (100, 30), (1, 30), (128, 30), (256, 30)])
+def test_fit_design_takes_rows_at_the_main_path_shapes(B, F):
+    """The cardata (F=18) and creditcard (F=30) autoencoders at batches
+    of 1..256: a thread per row."""
+    assert fused_train.fit_design(B, F, 14, 7) == "rows"
+
+
+@pytest.mark.parametrize("B, F, E, H", [
+    (257, 18, 14, 7), (300, 18, 14, 7), (0, 18, 14, 7), (300, 30, 14, 7),
+    (100, 18, 16, 7), (100, 18, 14, 8), (100, 12, 14, 7), (64, 29, 14, 7)])
+def test_fit_design_takes_elements_elsewhere(B, F, E, H):
+    assert fused_train.fit_design(B, F, E, H) == "elements"
+
+
+def test_fused_fit_checks_the_design_on_the_cpu(monkeypatch):
+    """A design is checked before the device is looked at; on the CPU
+    either one runs the plain version and counts no launch."""
+    monkeypatch.setattr(_build, "load", mock.Mock(
+        side_effect=AssertionError("kernel library loaded")))
+    st = t_loop.TrainState.create(CAR_AUTOENCODER.build("cpu"), Adam())
+    xs, masks = _data(S=2, B=8)
+    x_t, m_t = torch.from_numpy(xs), torch.from_numpy(masks)
+    before = (fused_train.fused_fit.launches,
+              dict(fused_train.fused_fit.launches_by_design))
+    auto = fused_train.fused_fit(st, x_t, m_t, 1)
+    for design in fused_train.DESIGNS:
+        out = fused_train.fused_fit(st, x_t, m_t, 1, design=design)
+        assert torch.equal(out[1], auto[1])
+    assert (fused_train.fused_fit.launches,
+            fused_train.fused_fit.launches_by_design) == before
+    with pytest.raises(ValueError, match="design must be one of"):
+        fused_train.fused_fit(st, x_t, m_t, 1, design="tiles")
+    wide = torch.zeros((1, 300, 18))
+    with pytest.raises(ValueError, match="rows design does not take"):
+        fused_train.fused_fit(st, wide, torch.ones((1, 300)), 1,
+                              design="rows")
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD", tmp_path)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
