@@ -12,16 +12,18 @@ non-zero exit and no result line:
 2. build      — the three CUDA sources built from the checkout, one
                 ``nvcc`` each, started together (seconds per source;
                 ptxas registers and spills per instantiation, a spill in
-                a flash kernel or a rows fit kernel fails the run; the
-                fit kernel's shared memory per design at B=100; the flash
-                kernels' shared memory per block, dtype and head dim;
-                HGMMA instructions in the SASS of each tensor-core
-                instantiation, forward and backward, none fails the run;
-                the fit kernel's design over a grid of shapes, the
-                library's ``iotml_fused_fit_design`` and ``fit_design``'s,
-                and the design of each dtype and head dim in both
-                attention directions, the libraries' and
-                ``flash_design``'s; each pair must agree).
+                a flash kernel or a rows fit kernel fails the run, and so
+                does a missing split-TF32 instantiation; the fit kernel's
+                shared memory per design at B=100; the flash kernels'
+                shared memory per block, dtype and head dim; HGMMA
+                instructions in the SASS of each ``wgmma`` instantiation,
+                forward and backward, and HMMA…TF32 in each split-TF32
+                one, none fails the run; the fit kernel's design over a
+                grid of shapes, the library's ``iotml_fused_fit_design``
+                and ``fit_design``'s, and the design of each dtype and
+                head dim in both attention directions, the libraries'
+                and ``flash_design``'s; each pair must agree, and the
+                backward must take all three designs).
 3. kernel     — the fused-fit kernel against its plain PyTorch version on
                 the card: the rows design at B=100, F=18 and F=30, 0/1
                 and fractional masks, and at B=256 (its largest), F=30;
@@ -72,11 +74,19 @@ non-zero exit and no result line:
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
                 D=128; plain version at blocks 1024), causal and not;
                 each line with the kernel's design and achieved TFLOP/s
-                (its bound's flops over its time).
+                (its bound's flops over its time).  The bound
+                (``attention_bound``) is the larger of the bytes over the
+                memory rate and the flops on the tensor cores: bf16 at
+                its peak, f32 as split TF32 (3 × the flops at the TF32
+                peak); beside it the fp32 FMA floor and the ex2 floor.
 9. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
-                then the tensor-core design's cases (bf16 D=128, plain
+                then the split-TF32 design's cases (f32 D=8 and 16,
+                causal and full, T = 1, 15, 16, 17, 63, 64, 65, 1000 and
+                4096 at B·H = 1 and 6, each checked to take the
+                ``mma_tf32x3`` design), then the tensor-core design's
+                cases (bf16 D=128, plain
                 blocks 64: causal T = 1, 63, 64, 65, 1000, 4096 at
                 B·H = 1 and 6, non-causal T = 64 and 1024 at B·H = 6,
                 causal B=2 H=2 T=4096), each checked to take the
@@ -99,8 +109,9 @@ non-zero exit and no result line:
 11. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 8, beside the bound; each kernel's design
-                and achieved TFLOP/s (its bound's flops over its time),
+                shapes of phase 8, beside the bound, the fp32 FMA floor
+                and the ex2 floor; each kernel's design and achieved
+                TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
                 port's forward + backward seconds, as bench.py's
                 long-context line).  The port's forward + backward is the
@@ -140,7 +151,7 @@ from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import _build, fused_train
-from iotml_torch.ops.attention import (attention_reference,
+from iotml_torch.ops.attention import (BWD_DESIGNS, attention_reference,
                                        flash_attention,
                                        flash_attention_backward_reference,
                                        flash_attention_bwd,
@@ -186,12 +197,19 @@ GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
 #: or dense attention (tests/test_torch_seq_parallel.py)
 TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
-#: published H100 SXM peaks: fp32 outside the tensor cores, bf16 dense
-#: tensor cores, HBM3; its SMs
+#: published H100 SXM peaks: fp32 outside the tensor cores, bf16 and TF32
+#: dense tensor cores, HBM3; its SMs, and their ex2 rate (16 a clock an SM
+#: at 1.98 GHz)
 FP32_FLOPS = 67e12
 SMS = 132
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
+EX2_PER_S = SMS * 16 * 1.98e9
+#: a float32 product on the tensor cores is three tf32 products (split
+#: TF32: hi·hi + hi·lo + lo·hi), so the f32 bound counts 3 × its flops at
+#: the TF32 peak
+TF32_TERMS = 3
 
 
 def emit(obj) -> None:
@@ -236,58 +254,37 @@ def phase_device() -> dict:
     return info
 
 
-def _ptxas_fit(log: str) -> dict:
-    """Registers and spills of each fit kernel: ``elements`` and the rows
-    instantiations (``rows F=18``, ``rows F=30``), from ``-Xptxas -v``."""
-    out, name = {}, None
-    for line in log.splitlines():
-        rows = re.search(r"Function properties for \S*fused_fit_rows_"
-                         r"kernelILi(\d+)ELi(\d+)ELi(\d+)E", line)
-        if rows:
-            name = f"rows F={rows.group(1)} E={rows.group(2)} " \
-                   f"H={rows.group(3)}"
-            out[name] = {}
-        elif re.search(r"Function properties for \S*fused_fit_kernel", line):
-            name = "elements"
-            out[name] = {}
-        elif name and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            out[name].update(spill_stores=int(st), spill_loads=int(ld))
-        elif name and "Used" in line:
-            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                   line).group(1))
-            name = None
-    return out
+def _fit_kernel(mangled: str):
+    """A fit kernel's name in the ptxas log: ``elements`` or a rows
+    instantiation (``rows F=18 E=14 H=7``, ...)."""
+    rows = re.search(r"fused_fit_rows_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                     mangled)
+    if rows:
+        return f"rows F={rows.group(1)} E={rows.group(2)} H={rows.group(3)}"
+    return "elements" if "fused_fit_kernel" in mangled else None
 
 
-def _ptxas_by_kernel(log: str) -> dict:
-    """Registers and spills of each flash kernel instantiation
-    (``flash_fwd_kernel``, ``flash_bwd_dkv_kernel``,
-    ``flash_bwd_dq_kernel`` and the tensor-core
-    ``flash_{fwd,bwd_dkv,bwd_dq}_wgmma_kernel``), from ``-Xptxas -v``."""
-    out, name = {}, None
-    for line in log.splitlines():
-        found = re.search(r"Function properties for \S*(flash_\w+)_kernelI"
-                          r"(f|13__nv_bfloat16)Li(\d+)ELb([01])E", line)
-        wgmma = re.search(r"Function properties for \S*(flash_\w+)_wgmma_"
-                          r"kernelILb([01])E", line)
-        if found:
-            dtype = "f32" if found.group(2) == "f" else "bf16"
-            name = (f"{found.group(1)} {dtype} D={found.group(3)} "
-                    f"{'causal' if found.group(4) == '1' else 'full'}")
-            out[name] = {}
-        elif wgmma:
-            name = (f"{wgmma.group(1)} bf16 D=128 "
-                    f"{'causal' if wgmma.group(2) == '1' else 'full'} wgmma")
-            out[name] = {}
-        elif name and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            out[name].update(spill_stores=int(st), spill_loads=int(ld))
-        elif name and "Used" in line:
-            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                   line).group(1))
-            name = None
-    return out
+def _flash_kernel(mangled: str):
+    """A flash kernel instantiation's name in the ptxas log: the FMA
+    ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and
+    ``flash_bwd_dq_kernel`` by dtype and head dim, the tensor-core
+    ``flash_{fwd,bwd_dkv,bwd_dq}_wgmma_kernel`` and the split-TF32
+    ``flash_bwd_{dkv,dq}_mma_kernel``."""
+    found = re.match(r"\S*(flash_\w+)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb"
+                     r"([01])E", mangled)
+    wgmma = re.match(r"\S*(flash_\w+)_wgmma_kernelILb([01])E", mangled)
+    mma = re.match(r"\S*(flash_\w+)_mma_kernelILi(\d+)ELb([01])E", mangled)
+    if mma:
+        return (f"{mma.group(1)} f32 D={mma.group(2)} "
+                f"{'causal' if mma.group(3) == '1' else 'full'} mma_tf32x3")
+    if found:
+        dtype = "f32" if found.group(2) == "f" else "bf16"
+        return (f"{found.group(1)} {dtype} D={found.group(3)} "
+                f"{'causal' if found.group(4) == '1' else 'full'}")
+    if wgmma:
+        return (f"{wgmma.group(1)} bf16 D=128 "
+                f"{'causal' if wgmma.group(2) == '1' else 'full'} wgmma")
+    return None
 
 
 def phase_build() -> None:
@@ -307,11 +304,20 @@ def phase_build() -> None:
     for name, log, fresh, seconds in built:
         sources[name] = {"seconds": seconds, "built": fresh}
         if name.startswith("flash_attention"):
-            sources[name]["ptxas"] = ptxas = _ptxas_by_kernel(log)
+            sources[name]["ptxas"] = ptxas = _build.ptxas_kernels(
+                log, _flash_kernel)
             spilled = [k for k, v in ptxas.items()
                        if v.get("spill_stores") or v.get("spill_loads")]
+            split = sorted(k for k in ptxas if k.endswith("mma_tf32x3"))
+            if name == "flash_attention_bwd" and split != sorted(
+                    f"flash_bwd_{kind} f32 D={d} {entry} mma_tf32x3"
+                    for kind in ("dkv", "dq") for d in (8, 16)
+                    for entry in ("causal", "full")):
+                raise AssertionError(f"split-TF32 kernels in the ptxas "
+                                     f"log: {split}")
         else:
-            sources[name]["ptxas"] = ptxas = _ptxas_fit(log)
+            sources[name]["ptxas"] = ptxas = _build.ptxas_kernels(
+                log, _fit_kernel)
             if sorted(ptxas) != ["elements", "rows F=18 E=14 H=7",
                                  "rows F=30 E=14 H=7"]:
                 raise AssertionError(f"fit kernels in the ptxas log: "
@@ -332,7 +338,7 @@ def phase_build() -> None:
           "flash_smem_bytes_per_block": flash_smem_bytes,
           "fit_design": check_fit_designs(),
           "flash_design": check_designs(),
-          "hgmma_per_wgmma_kernel": check_hgmma()})
+          **check_tensor_core_sass()})
 
 
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -365,44 +371,62 @@ def check_fit_designs() -> dict:
 def check_designs() -> dict:
     """The design of each dtype and head dim in both directions: what each
     built library dispatches to (``iotml_flash_fwd_design``,
-    ``iotml_flash_bwd_design``) must be what ``flash_design`` says, and
-    ``wgmma`` exactly for bf16 at D=128."""
-    libs = {"fwd": _build.load("flash_attention").iotml_flash_fwd_design,
-            "bwd": _build.load("flash_attention_bwd").iotml_flash_bwd_design}
+    ``iotml_flash_bwd_design``) must be what ``flash_design`` says (which
+    designs those are, the CPU tests hold); the backward takes all three
+    designs."""
+    libs = {"forward": (
+        _build.load("flash_attention").iotml_flash_fwd_design,
+        ("fma", "wgmma")),
+        "backward": (
+        _build.load("flash_attention_bwd").iotml_flash_bwd_design,
+        BWD_DESIGNS)}
     designs = {}
     for code, dtype in enumerate(FLASH_DTYPES):
         for d in (8, 16, 128):
-            said = flash_design(dtype, d)
-            want = "wgmma" if dtype == torch.bfloat16 and d == 128 else "fma"
-            for direction, lib_design in libs.items():
-                built = {0: "fma", 1: "wgmma"}[lib_design(d, code)]
-                if not built == said == want:
+            for direction, (lib_design, names) in libs.items():
+                built = names[lib_design(d, code)]
+                said = flash_design(dtype, d, direction)
+                if built != said:
                     raise AssertionError(
                         f"{direction} {dtype} D={d}: library {built}, "
-                        f"flash_design {said}, want {want}")
-            designs[f"{str(dtype)[6:]} D={d}"] = said
+                        f"flash_design {said}")
+                designs[f"{direction} {str(dtype)[6:]} D={d}"] = said
+    if set(v for k, v in designs.items() if k.startswith("backward")) != \
+            set(BWD_DESIGNS):
+        raise AssertionError(f"the backward does not take all three "
+                             f"designs: {designs}")
     return designs
 
 
-def check_hgmma() -> dict:
-    """HGMMA instructions in the SASS (``cuobjdump -sass``) of each
-    tensor-core instantiation, forward and backward; raises unless each of
-    the six has some."""
+def check_tensor_core_sass() -> dict:
+    """Tensor-core instructions in the SASS (``cuobjdump -sass``): HGMMA in
+    each ``wgmma`` instantiation, forward and backward (six), and
+    HMMA…TF32 in each split-TF32 instantiation (eight: dK/dV and dQ, D=8
+    and 16, causal and full); raises unless each has some."""
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
-    counts = {}
+    hgmma, hmma = {}, {}
     for name in FLASH_SOURCES:
         sass = subprocess.run(
             [cuobjdump, "-sass", str(_build.library_path(name))],
             capture_output=True, text=True, timeout=300, check=True).stdout
         for part in sass.split("Function : ")[1:]:
-            found = re.search(r"\S*(flash_\w+)_wgmma_kernelILb([01])E",
-                              part.splitlines()[0])
+            head = part.splitlines()[0]
+            found = re.search(r"\S*(flash_\w+)_wgmma_kernelILb([01])E", head)
+            split = re.search(r"\S*(flash_\w+)_mma_kernelILi(\d+)ELb([01])E",
+                              head)
             if found:
                 entry = "causal" if found.group(2) == "1" else "full"
-                counts[f"{found.group(1)} {entry}"] = part.count("HGMMA")
-    if len(counts) != 6 or not all(counts.values()):
-        raise AssertionError(f"HGMMA in the tensor-core kernels: {counts}")
-    return counts
+                hgmma[f"{found.group(1)} {entry}"] = part.count("HGMMA")
+            elif split:
+                entry = "causal" if split.group(3) == "1" else "full"
+                hmma[f"{split.group(1)} D={split.group(2)} {entry}"] = len(
+                    re.findall(r"HMMA\S*TF32", part))
+    if len(hgmma) != 6 or not all(hgmma.values()):
+        raise AssertionError(f"HGMMA in the tensor-core kernels: {hgmma}")
+    if len(hmma) != 8 or not all(hmma.values()):
+        raise AssertionError(f"HMMA.TF32 in the split-TF32 kernels: {hmma}")
+    return {"hgmma_per_wgmma_kernel": hgmma,
+            "hmma_tf32_per_mma_kernel": hmma}
 
 
 def check_fit(tag: str, kernel_out, plain_out, steps: int) -> float:
@@ -747,13 +771,15 @@ def phase_attention_kernel() -> dict:
     errs = {"causal": 0.0, "full": 0.0}
     wgmma_errs = {"o": 0.0, "o_row_rel": 0.0, "lse": 0.0}
     cases = []
-    for dtype, B, T, H, D, causal, block in ATTN_CASES + WGMMA_FWD_CASES:
+    for (dtype, B, T, H, D, causal, block), meant in (
+            [(case, None) for case in ATTN_CASES]
+            + [(case, "wgmma") for case in WGMMA_FWD_CASES]):
         q, k, v = _qkv(B, T, H, D, dtype, seed=T + D)
         entry = "causal" if causal else "full"
-        design = flash_design(dtype, D)
+        design = flash_design(dtype, D, "forward")
         tag = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D} {entry} {design}"
-        if (design == "wgmma") != (dtype == torch.bfloat16 and D == 128):
-            raise AssertionError(f"{tag}: not the expected design")
+        if meant and design != meant:
+            raise AssertionError(f"{tag}: a case of the {meant} design")
         before = flash_attention.launches[entry]
         out = flash_attention_fwd(q, k, v, causal, block, block)
         torch.cuda.synchronize()
@@ -873,20 +899,28 @@ def phase_sensorformer_path(card: str) -> dict:
 def attention_bound(B, T, H, D, causal, dtype, flops_per_pair_per_d=4,
                     tensors=4, row_bytes=4) -> dict:
     """Least time for one attention call on an H100: its flops per live
-    (query, key) pair (``flops_per_pair_per_d``·D) at the inputs' peak,
+    (query, key) pair (``flops_per_pair_per_d``·D) on the tensor cores,
     against the bytes it must move: ``tensors`` [B, T, H, D] tensors and
-    ``row_bytes`` of f32 per row, each read or written once.  The forward
-    is 4·D flops, q, k, v, o and the lse (the defaults)."""
+    ``row_bytes`` of f32 per row, each read or written once.  bf16 runs at
+    the bf16 peak; float32 as split TF32, three tf32 products a product,
+    at the TF32 peak.  Beside it, not in it: the same flops at the fp32
+    FMA rate (``fp32_fma_floor_ms``) and one ex2 per live pair
+    (``ex2_floor_ms``).  The forward is 4·D flops, q, k, v, o and the lse
+    (the defaults)."""
     pairs = T * (T + 1) // 2 if causal else T * T
     flops = flops_per_pair_per_d * D * pairs * B * H
     elt = torch.tensor([], dtype=dtype).element_size()
     bytes_moved = tensors * B * H * T * D * elt + row_bytes * B * H * T
-    peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-    ops_ms, bytes_ms = 1e3 * flops / peak, 1e3 * bytes_moved / HBM_BYTES_S
+    if dtype == torch.float32:
+        ops_ms = 1e3 * TF32_TERMS * flops / TF32_FLOPS
+    else:
+        ops_ms = 1e3 * flops / BF16_FLOPS
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_S
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bound_flops": flops, "bound_bytes": bytes_moved,
-            "fp32_fma_floor_ms": 1e3 * flops / FP32_FLOPS}
+            "fp32_fma_floor_ms": 1e3 * flops / FP32_FLOPS,
+            "ex2_floor_ms": 1e3 * pairs * B * H / EX2_PER_S}
 
 
 TIMING_SHAPES = {  # name: (dtype, B, T, H, D, plain block, reps)
@@ -922,7 +956,7 @@ def phase_attention_timing(card: str) -> dict:
                     return scaled_dot_product_attention(qh, kh, vh,
                                                         is_causal=causal)
 
-            design = flash_design(dtype, D)
+            design = flash_design(dtype, D, "forward")
             err = check_attention(f"{shape} {entry}", kernel(), plain(),
                                   design, block)
             library()
@@ -993,22 +1027,31 @@ WGMMA_BWD_CASES = [
 ]
 #: the longer of those cases again on grid inputs (GRID_NOTE)
 WGMMA_BWD_GRID_CASES = [case for case in WGMMA_BWD_CASES if case[2] >= 1000]
+#: the split-TF32 design's cases (f32, D=8 and 16; the plain version at
+#: blocks 128 when causal, at the whole T when not, which a non-causal
+#: call needs to divide T): dtype, B, T, H, D, causal, block
+MMA_BWD_CASES = [(torch.float32, B, T, H, D, causal, 128 if causal else T)
+                 for D in (8, 16) for causal in (True, False)
+                 for T in (1, 15, 16, 17, 63, 64, 65, 1000, 4096)
+                 for B, H in ((1, 1), (2, 3))]
 
 
 def phase_attention_backward_kernel() -> dict:
     errs = {}
     cases, flips = [], []
-    for (dtype, B, T, H, D, causal, block), grid in (
-            [(case, False) for case in ATTN_CASES + WGMMA_BWD_CASES]
-            + [(case, True) for case in WGMMA_BWD_GRID_CASES]):
+    for (dtype, B, T, H, D, causal, block), grid, meant in (
+            [(case, False, None) for case in ATTN_CASES]
+            + [(case, False, "mma_tf32x3") for case in MMA_BWD_CASES]
+            + [(case, False, "wgmma") for case in WGMMA_BWD_CASES]
+            + [(case, True, "wgmma") for case in WGMMA_BWD_GRID_CASES]):
         q, k, v = _qkv(B, T, H, D, dtype, seed=T + D, grid=grid)
         do = _qkv(B, T, H, D, dtype, seed=T + D + 1, grid=grid)[0]
         entry = "causal" if causal else "full"
-        design = flash_design(dtype, D)
+        design = flash_design(dtype, D, "backward")
         tag = (f"backward {str(dtype)[6:]} B={B} T={T} H={H} D={D} {entry} "
                f"{design}{' grid' if grid else ''}")
-        if (design == "wgmma") != (dtype == torch.bfloat16 and D == 128):
-            raise AssertionError(f"{tag}: not the expected design")
+        if meant and design != meant:
+            raise AssertionError(f"{tag}: a case of the {meant} design")
         o, lse = flash_attention_fwd(q, k, v, causal, block, block)
         before = dict(flash_attention.launches)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal, block, block)
@@ -1254,7 +1297,7 @@ def phase_attention_backward_timing(card: str) -> dict:
             dkv_again, dq_again = cuda_ms(dkv, reps), cuda_ms(dq, reps)
             parts = {part: attention_bound(B, T, H, D, causal, dtype, *spec)
                      for part, spec in BWD_PARTS.items()}
-            design = flash_design(dtype, D)
+            design = flash_design(dtype, D, "backward")
 
             def kernel_line(kind, times):
                 return {"design": design, "ms": times,
@@ -1276,7 +1319,7 @@ def phase_attention_backward_timing(card: str) -> dict:
                 # tokens (B·T) over forward + backward seconds: at B=1,
                 # bench.py's flash_attention_fwd_bwd_tokens_per_sec
                 "forward_backward": {
-                    "forward_design": flash_design(dtype, D),
+                    "forward_design": flash_design(dtype, D, "forward"),
                     "kernel_launches": path_launches,
                     "port_ms": port_ms, "library_ms": library_ms,
                     "flash_attention_fwd_bwd_tokens_per_sec":
@@ -1316,7 +1359,6 @@ def attention_entry(name, replaces, entry, paths, err, timing) -> dict:
                          "plain_ms": long["plain_ms"],
                          "bound_ms": long["bound_ms"],
                          "bound_by": long["bound_by"],
-                         "fp32_fma_floor_ms": long["fp32_fma_floor_ms"],
                          "library_ms": long["library_ms"]}}
 
 
@@ -1346,7 +1388,6 @@ def backward_entry(name, replaces, kind, entry, paths, errs,
                          "plain_ms": long["backward"]["plain_ms"],
                          "bound_ms": long[kind]["bound_ms"],
                          "bound_by": long[kind]["bound_by"],
-                         "fp32_fma_floor_ms": long[kind]["fp32_fma_floor_ms"],
                          "library_ms": long[kind]["library_ms"]}}
 
 

@@ -15,6 +15,10 @@ directory keeps two processes from building one source together
 (different sources build in parallel); one left behind by a killed build
 must be deleted by hand (the error names it).  Nothing here runs at
 import.
+
+For the timing scripts, ``build_variant`` builds a copy of ``csrc`` with
+text edits under ``build/variants/<tag>/``, and ``ptxas_kernels`` reads
+each kernel's registers and spills from a compiler log.
 """
 
 from __future__ import annotations
@@ -22,11 +26,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
@@ -121,3 +126,53 @@ def load(name: str) -> ctypes.CDLL:
             build(name)
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def build_variant(name: str, tag: str,
+                  edits: Iterable[Tuple[str, str, str]]) -> Tuple[Path, str]:
+    """Build ``csrc/<name>.cu`` from a copy of ``csrc`` under
+    ``build/variants/<tag>/`` in which each ``(file, old, new)`` edit
+    replaces every ``old`` in ``file`` by ``new``.  Returns the library's
+    path and the compiler log; raises RuntimeError on an edit whose
+    ``old`` is not in its file or on a failed build.  The port itself
+    loads only what ``build`` makes."""
+    where = BUILD / "variants" / tag
+    shutil.rmtree(where, ignore_errors=True)
+    shutil.copytree(CSRC, where)
+    for file, old, new in edits:
+        text = (where / file).read_text()
+        if old not in text:
+            raise RuntimeError(f"variant {tag}: {old!r} not in {file}")
+        (where / file).write_text(text.replace(old, new))
+    lib = where / f"lib{name}.so"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(where / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"variant {tag}: nvcc exit {proc.returncode}\n"
+                           f"{proc.stdout}")
+    return lib, proc.stdout
+
+
+def ptxas_kernels(log: str, name_of: Callable[[str], Optional[str]]
+                  ) -> Dict[str, Dict[str, int]]:
+    """Registers and spilled bytes of each kernel in an ``-Xptxas -v``
+    log: ``{name: {"registers", "spill_stores", "spill_loads"}}``, where
+    ``name_of`` gives a kernel's name from its mangled symbol, or None to
+    leave it out."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = name_of(found.group(1))
+            if name is not None:
+                out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            name = None
+    return out

@@ -22,8 +22,9 @@ log-sum-exp the forward emits is ``[B, H, T]`` float32.
   raise); CPU tensors take the plain versions.  ``flash_bwd_dkv`` and
   ``flash_bwd_dq`` launch one backward kernel each on the folded
   ``[B·H, T, D]`` tensors ``flash_bwd_inputs`` makes; ``flash_design``
-  says which of the two designs (tensor-core ``wgmma`` for bfloat16 at
-  D = 128, fp32 ``fma`` otherwise) a call takes, in both directions.
+  says which design a call takes in each direction (tensor-core
+  ``wgmma`` for bfloat16 at D = 128; split-TF32 ``mma_tf32x3`` for the
+  float32 backward at D = 8, 16; fp32 ``fma`` otherwise).
 - ``flash_attention``: an ``autograd.Function`` that saves
   ``(q, k, v, o, lse)`` and whose backward is ``flash_attention_bwd``.
 """
@@ -265,8 +266,9 @@ def _check_cuda(what: str, t) -> None:
 
 def _aligned(ts):
     """``ts`` with each tensor that does not start on 16 bytes replaced by
-    an aligned copy: the tensor-core design reads by TMA, which needs
-    every tensor to start on 16 bytes, and a view may not."""
+    an aligned copy: the tensor-core designs read by TMA or 16-byte
+    ``cp.async``, which need every tensor to start on 16 bytes, and a
+    view may not."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
@@ -274,15 +276,35 @@ _FWD_ENTRIES = [("iotml_flash_fwd", 5)]
 _BWD_ENTRIES = [("iotml_flash_bwd_dkv", 8), ("iotml_flash_bwd_dq", 7)]
 
 
-def flash_design(dtype: torch.dtype, head_dim: int) -> str:
-    """Which design the flash kernels take, forward and backward, for
-    ``dtype`` and ``head_dim``: ``"wgmma"`` (tensor cores, TMA: bfloat16
-    at D = 128, the long-context shape) or ``"fma"`` (fp32 FMA: float32,
-    and bfloat16 at D = 8, 16).  ``csrc/flash_tiles.cuh``'s
-    ``tensor_core_design`` is the same rule for both sources
-    (``iotml_flash_fwd_design`` and ``iotml_flash_bwd_design`` report
-    it)."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "fma"
+#: what ``iotml_flash_bwd_design`` returns, by code
+BWD_DESIGNS = ("fma", "wgmma", "mma_tf32x3")
+
+
+def flash_design(dtype: torch.dtype, head_dim: int,
+                 direction: str) -> str:
+    """Which design the flash kernels of ``direction`` ("forward" or
+    "backward") take for ``dtype`` and ``head_dim``:
+
+    - ``"wgmma"`` (bf16 tensor cores, TMA): bfloat16 at D = 128, the
+      long-context shape, both directions;
+    - ``"mma_tf32x3"`` (split-TF32 tensor cores, ``mma.sync``, three
+      tf32 products per product): float32 at D = 8 and 16, backward only;
+    - ``"fma"`` (fp32 FMA): everything else (the float32 forward,
+      float32 at D = 128, bfloat16 at D = 8, 16).
+
+    ``csrc/flash_tiles.cuh`` states the same rules (``tensor_core_design``
+    for the forward, ``bwd_design`` for the backward), and the libraries
+    report them (``iotml_flash_fwd_design``, ``iotml_flash_bwd_design``).
+    """
+    if direction not in ("forward", "backward"):
+        raise ValueError(f"direction must be 'forward' or 'backward', got "
+                         f"{direction!r}")
+    if dtype == torch.bfloat16 and head_dim == 128:
+        return "wgmma"
+    if direction == "backward" and dtype == torch.float32 \
+            and head_dim in (8, 16):
+        return "mma_tf32x3"
+    return "fma"
 
 
 def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,

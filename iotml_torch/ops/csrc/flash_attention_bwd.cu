@@ -4,12 +4,14 @@
 //
 // Replaces the TPU kernels iotml/ops/attention.py::_flash_bwd_dkv_kernel
 // (:402, dense grid) and ::_flash_bwd_dkv_kernel_tri (:482, causal
-// triangle) with flash_bwd_dkv_kernel (FMA) and
-// flash_bwd_dkv_wgmma_kernel (tensor cores), and ::_flash_bwd_dq_kernel
-// (:447) and ::_flash_bwd_dq_kernel_tri (:518) with flash_bwd_dq_kernel
-// and flash_bwd_dq_wgmma_kernel; each has a causal and a full entry.  It computes what they compute
-// (_bwd_common, :376), with their dtype policy, and is not carried over
-// block by block.  The plain PyTorch version beside the wrapper
+// triangle) with flash_bwd_dkv_kernel (FMA), flash_bwd_dkv_wgmma_kernel
+// (bf16 tensor cores) and flash_bwd_dkv_mma_kernel (split-TF32 tensor
+// cores), and ::_flash_bwd_dq_kernel (:447) and ::_flash_bwd_dq_kernel_tri
+// (:518) with flash_bwd_dq_kernel, flash_bwd_dq_wgmma_kernel and
+// flash_bwd_dq_mma_kernel; each has a causal and a full entry.  It
+// computes what they compute (_bwd_common, :376), with their dtype policy,
+// and is not carried over block by block.  The plain PyTorch version
+// beside the wrapper
 // (iotml_torch/ops/attention.py::flash_attention_backward_reference)
 // repeats the arithmetic.
 //
@@ -25,13 +27,17 @@
 // the shapes the port runs (SensorFormer: T = 4096, D = 16; long context:
 // T = 65,536, D = 128) operations bound it, not bytes.  At the long causal
 // shape (bf16, B = 1, H = 2) that is 4.295e9 live pairs: 4.447 ms for
-// dK/dV and 3.335 ms for dQ at the tensor cores' 989 TFLOP/s.
+// dK/dV and 3.335 ms for dQ at the tensor cores' 989 TFLOP/s.  In float32
+// the split-TF32 products cost three tf32 products each: at the
+// SensorFormer layer (B*H = 400, T = 4096, causal) 2.604 ms for dK/dV and
+// 1.953 ms for dQ at 495 TFLOP/s / 3 (the fp32 FMA floor: 6.412 and 4.809).
 //
-// Two designs, chosen by (dtype, D) in the entry points below
-// (tensor_core_design in flash_tiles.cuh, the forward's rule too;
-// iotml_flash_bwd_design reports it):
-// - bf16 at D = 128: the tensor-core kernels (namespace tc, below);
-// - float32 (D = 8, 16, 128) and bf16 at D = 8, 16: the FMA kernels.
+// Three designs, chosen by (dtype, D) in the entry points below
+// (bwd_design in flash_tiles.cuh; iotml_flash_bwd_design reports it):
+// - bf16 at D = 128: the wgmma kernels (namespace tc, below);
+// - float32 at D = 8, 16: the split-TF32 mma.sync kernels (namespace
+//   tf32x3, below);
+// - float32 at D = 128 and bf16 at D = 8, 16: the FMA kernels.
 //
 // The FMA kernels.  The products run as fp32 FMA on the CUDA cores
 // (67 TFLOP/s on an H100 SXM).  Blocks of 128 threads (16 row groups x
@@ -92,6 +98,48 @@
 // warpgroup holds dK and dV (128 f32 registers a thread) plus S^T and
 // dP^T (64): 256 threads a block, one block an SM.
 //
+// The split-TF32 kernels (float32, D = 8 and 16, the SensorFormer layer)
+// replace the FMA kernels there.  What held those back, and what these do
+// about it:
+// - the shared-memory pipe: the FMA kernels issued about one shared load
+//   for every 1.7 FMAs (S^T and dP^T tiles, and the round trip of P^T and
+//   dS^T), against an SM's one warp-wide shared access a clock and four
+//   warp FMAs.  Here every product is an m16n8k8 tf32 mma.sync
+//   (mma_tf32.cuh), and one 128-bit shared load feeds six of them (three
+//   terms, two m16 tiles).
+// - TF32's 11 bits: each f32 operand is split as hi + lo, and each
+//   product is a_lo b_hi + a_hi b_lo + a_hi b_hi (three mmas), which keeps
+//   it to ~2^-21 relative: within the f32 grads' rtol 1e-4
+//   (iotml_torch/ops/tf32x3.py models it on the CPU).  wgmma takes tf32
+//   operands only K-major, and three of the products read an MN-major
+//   operand, so these use mma.sync, whose fragments load in any layout.
+// - the tensor cores' own f32 accumulation aligns and truncates: each
+//   step's sums start at 0 in registers and are added to the running
+//   sums with IEEE adds, so truncation reaches one step's sum only.
+// - P^T and dS^T: they stay in registers.  The S^T / dP^T accumulator is
+//   the next product's A fragment with no shuffle (mma_tf32.cuh: the
+//   reduction index is read in the order the fragment holds it).
+// - synchronous staging (stage(): a div/mod per element between two
+//   barriers): each thread copies its share of the next step's tiles (q,
+//   dO, lse, delta for dK/dV; K, V for dQ) by cp.async, 16-byte chunks,
+//   into a raw stage while the current step runs, then splits its own
+//   chunks (no barrier needed: it copied them) into hi and lo in one of
+//   two split buffers, in the two orders the B fragments read (one
+//   128-bit load brings b0, b1, hi and lo); one barrier a step.  The
+//   layouts are permuted so that the fragment reads and the split's
+//   stores fall on distinct banks.
+// - shared-memory reads per mma: each warp holds two m16 tiles (32 rows),
+//   so every B fragment it reads feeds two mmas (kMT; one tile a warp took
+//   8.5 / 6.7 ms against 7.8 / 6.2 at the SensorFormer layer,
+//   scripts/bwd_tf32_variants.py).
+// Shape: 128 threads, four warps of 32 rows; two blocks an SM (about 240
+// registers a thread in dK/dV).  dK/dV: a block holds 128 key rows (K and
+// V as hi/lo A fragments in registers) and steps over q tiles of 64; dQ:
+// a block holds 128 query rows (Q, dO, lse, delta in registers) and steps
+// over key tiles of 64.  A warp works through a step 8 columns at a time:
+// S and dP of that slice (2 x 3 x D/8 mmas a tile), p and ds, then 3 x
+// D/8 mmas a tile into each sum.  What stays is listed below.
+//
 // Exactness, as the TPU kernels have it: scores are f32 sums of
 // input-dtype products (exact in f32 for bf16), scaled after Q K^T;
 // p = exp(s - lse) only where the pair is live (kj < T, qi < T and, when
@@ -110,6 +158,7 @@
 
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -885,7 +934,561 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace tc
 
-using flash_tiles::tensor_core_design;
+// ------------------------------------------------------------------------
+// The split-TF32 kernels: float32, D = 8 and 16
+// ------------------------------------------------------------------------
+namespace tf32x3 {
+
+using mma_tf32::BFrag;
+using mma_tf32::mma3;
+
+constexpr int kThreads = 128;  // four warps
+constexpr int kMT = 2;          // m16 tiles a warp holds
+constexpr int kWarpRows = 16 * kMT;
+// rows a block holds: keys (dK/dV), q (dQ)
+constexpr int kHeld = kThreads / 32 * kWarpRows;
+constexpr int kStep = 64;  // rows a step streams: q (dK/dV), keys (dQ)
+constexpr int kMinBlocks = 2;  // blocks an SM holds (registers <= 255)
+
+// A block's shared memory, in floats; kDkv: the dK/dV kernel's (q, dO,
+// lse, delta), else the dQ kernel's (K, V).  The raw stage: the two
+// streamed [kStep][D] tiles as copied and, with kDkv, their lse and delta
+// rows; the next step's copies land there while a step runs.  Two split
+// buffers (a step reads one while the next is split into the other), each
+// holding every streamed tile split into hi and lo twice, in the two
+// orders the B fragments read them, as float4s that one 128-bit load
+// brings in whole (b0 and b1, hi and lo):
+// - by row, "layout A" (products summing over d: S, dP): float4 (r, s)
+//   of row r holds d = 8 (s / 4) + s % 4 and that d + 4, hi then lo;
+// - by row pair, "layout B" (products summing over the rows: dV, dK, dQ):
+//   float4 (p, n) holds rows 2p and 2p + 1 of column n, hi then lo;
+// then the lse and delta rows.  Within a row (A) or row pair (B) the
+// float4s are permuted (layout_a, layout_b) so that a warp's fragment
+// reads and the split's stores each fall on distinct banks.  Only the
+// tiles that a B product reads get layout B (dK/dV: both; dQ: K).  The
+// raw stage is unit-major: chunk k of thread u's unit at float4 k * kUnits
+// + u, so the split's reads are conflict-free too.
+template <int D, bool kDkv>
+struct Smem {
+  static constexpr int kRaw = 2 * kStep * D + (kDkv ? 2 * kStep : 0);
+  static constexpr int kLayout = 2 * kStep * D;  // one tile, hi and lo
+  static constexpr int kBuf =
+      (kDkv ? 4 : 3) * kLayout + (kDkv ? 2 * kStep : 0);
+  static constexpr int kBuf0 = kRaw;
+  static constexpr int kFloats = kBuf0 + 2 * kBuf;
+  static constexpr int kBytes = kFloats * 4;
+  // a thread's unit of copy and split: rows 2p, 2p + 1 by 8 columns
+  static constexpr int kUnitsPerTile = kStep / 2 * D / 8;
+  static constexpr int kUnits = 2 * kUnitsPerTile;
+};
+
+// float4 offsets of the two layouts within one tile's layout block.  A
+// 128-byte row of 8 float4s (D = 16) is one pass over the 32 banks.
+// Layout A: a read takes rows g (lane / 4) by slot t (lane % 4), a split
+// store rows 2p + h by slot 4 cg + t (lanes (p, cg)); slot s ^ f(r) with
+// f(r) = (r / 2) % 4 + 4 (r % 2) keeps 8 lanes on 8 float4s in both.  At
+// D = 8 two rows make 128 bytes and the reads need no permutation.
+template <int D>
+__device__ __forceinline__ int layout_a(int r, int s) {
+  return r * (D / 2) +
+         (D == 16 ? s ^ (((r >> 1) & 3) | ((r & 1) << 2)) : s);
+}
+// Layout B: a read takes row pair 4j + t by column 8 nn + g, a split
+// store row pairs p by columns 8 cg + i; column n ^ (2 (p % 4) ^ n / 8)
+// keeps both on distinct float4s.
+template <int D>
+__device__ __forceinline__ int layout_b(int p, int n) {
+  return p * D + (n ^ ((2 * (p & 3)) ^ ((n >> 3) & 1)));
+}
+
+// The B fragment at float4 `at` of a layout
+__device__ __forceinline__ BFrag frag_at(const float* layout, int at) {
+  const uint4 f = reinterpret_cast<const uint4*>(layout)[at];
+  return {f.x, f.y, f.z, f.w};
+}
+
+// Thread x's units (with kDkv, lse and delta rows too) of step rows
+// [r0, r0 + kStep) of the two [T][D] tensors a and b into the raw stage
+// by cp.async: 16-byte chunks, zeros past T.  One group, committed.
+template <int D, bool kDkv>
+__device__ __forceinline__ void load_step(uint32_t raw, const float* a,
+                                          const float* b, const float* lse,
+                                          const float* delta, int r0, int T,
+                                          bool any) {
+  using S = Smem<D, kDkv>;
+  for (int u = threadIdx.x; any && u < S::kUnits; u += kThreads) {
+    const int tensor = u / S::kUnitsPerTile, w = u % S::kUnitsPerTile;
+    const int p = w / (D / 8), c8 = 8 * (w % (D / 8));
+    const float* src = tensor ? b : a;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * p + h;
+      const bool in = r0 + r < T;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        mma_tf32::cp_async16(
+            raw + 16 * ((2 * h + c) * S::kUnits + u),
+            src + (in ? (size_t)(r0 + r) * D + c8 + 4 * c : 0), in);
+    }
+  }
+  for (int u = threadIdx.x; kDkv && any && u < 2 * kStep; u += kThreads) {
+    const int x = u % kStep;
+    const bool in = r0 + x < T;
+    mma_tf32::cp_async4(raw + 4 * (2 * kStep * D + u),
+                        (u < kStep ? lse : delta) + (in ? r0 + x : 0), in);
+  }
+  mma_tf32::cp_async_commit();
+}
+
+// Thread x's units of the raw stage (landed: it copied them) split into hi
+// and lo in both layouts of split buffer `buf`: [a: A, B][b: A, B][lse]
+// [delta].
+template <int D, bool kDkv>
+__device__ __forceinline__ void split_step(const float* raw, float* buf) {
+  using S = Smem<D, kDkv>;
+  for (int u = threadIdx.x; u < S::kUnits; u += kThreads) {
+    const int tensor = u / S::kUnitsPerTile, w = u % S::kUnitsPerTile;
+    const int p = w / (D / 8), cg = w % (D / 8);
+    float hi[2][8], lo[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 8; c += 4) {
+        float4 fh, fl;
+        mma_tf32::split4(reinterpret_cast<const float4*>(
+                             raw)[(2 * h + c / 4) * S::kUnits + u],
+                         fh, fl);
+        hi[h][c] = fh.x; hi[h][c + 1] = fh.y;
+        hi[h][c + 2] = fh.z; hi[h][c + 3] = fh.w;
+        lo[h][c] = fl.x; lo[h][c + 1] = fl.y;
+        lo[h][c + 2] = fl.z; lo[h][c + 3] = fl.w;
+      }
+    // [a: A, B][b: A(, B)]
+    float4* la = reinterpret_cast<float4*>(buf + 2 * tensor * S::kLayout);
+    float4* lb = la + S::kLayout / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        la[layout_a<D>(2 * p + h, 4 * cg + t)] =
+            make_float4(hi[h][t], hi[h][t + 4], lo[h][t], lo[h][t + 4]);
+    if (kDkv || tensor == 0)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        lb[layout_b<D>(p, 8 * cg + i)] =
+            make_float4(hi[0][i], hi[1][i], lo[0][i], lo[1][i]);
+  }
+  for (int u = threadIdx.x; kDkv && u < 2 * kStep; u += kThreads)
+    buf[4 * S::kLayout + u] = raw[2 * kStep * D + u];
+}
+
+// The A fragments (hi, lo) of a warp's held rows: kMT m16 tiles from r0
+// of a [T][D] tensor, for each 8-wide slice of d; zeros past T.
+template <int D>
+__device__ __forceinline__ void held_rows(uint32_t (&hi)[kMT][D / 8][4],
+                                          uint32_t (&lo)[kMT][D / 8][4],
+                                          const float* src, int r0, int T) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + 16 * m + g + 8 * (e % 2);
+        const int d = 8 * kk + t + 4 * (e / 2);
+        mma_tf32::split(r < T ? src[(size_t)r * D + d] : 0.f, hi[m][kk][e],
+                        lo[m][kk][e]);
+      }
+}
+
+// p (in place of s) and ds (in place of dp) of one [16 x 8] fragment:
+// element e at held row g + 8 (e / 2) and step column 2t + (e % 2).
+// live(e) says whether the pair is live (kMask only); lse_of(e) and
+// delta_of(e) give the query row's lse and delta.
+template <bool kMask, typename Live, typename Lse, typename Delta>
+__device__ __forceinline__ void p_and_ds(float (&s)[4], float (&dp)[4],
+                                         float scale, Live live, Lse lse_of,
+                                         Delta delta_of) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    // rounded as the plain version rounds: s * scale, then - lse
+    const float arg = __fmul_rn(s[e], scale) - lse_of(e);
+    float p;
+    if (kMask) {
+      const bool in = live(e);
+      p = in ? expf(in ? arg : 0.f) : 0.f;
+    } else {
+      p = expf(arg);
+    }
+    s[e] = p;
+    dp[e] = p * (dp[e] - delta_of(e)) * scale;
+  }
+}
+
+// A C fragment as the A fragment (hi, lo) of a product summing over its
+// columns: {c0, c2, c1, c3} (mma_tf32.cuh)
+__device__ __forceinline__ void as_a(const float (&c)[4], uint32_t (&hi)[4],
+                                     uint32_t (&lo)[4]) {
+  mma_tf32::split(c[0], hi[0], lo[0]);
+  mma_tf32::split(c[2], hi[1], lo[1]);
+  mma_tf32::split(c[1], hi[2], lo[2]);
+  mma_tf32::split(c[3], hi[3], lo[3]);
+}
+
+// acc += step, element by element (IEEE adds)
+template <int D>
+__device__ __forceinline__ void add_step(float (&acc)[kMT][D / 8][4],
+                                         const float (&step)[kMT][D / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int nn = 0; nn < D / 8; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nn][e] += step[m][nn][e];
+}
+
+// Rows [r0, r0 + 16 kMT) of a [T][D] output from a warp's kMT x D/8
+// accumulator fragments (rows g, g + 8 of each m16 tile, columns 2t, 2t +
+// 1 of each n8 tile); rows past T are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out,
+                                           const float (&acc)[kMT][D / 8][4],
+                                           int r0, int T) {
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 16 * m + g + 8 * h;
+      if (r >= T) continue;
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * nn + 2 * t) =
+            make_float2(acc[m][nn][2 * h], acc[m][nn][2 * h + 1]);
+    }
+}
+
+// One q step of the dK/dV kernel for one warp: its 16 kMT key rows (from
+// ka) against q rows [q0, q0 + kStep) of split buffer `buf`; each B
+// fragment feeds the warp's kMT m16 tiles.  The step's dK and dV sums
+// start at 0 in registers and are added to the running sums with IEEE
+// adds, so the tensor cores' own accumulation covers one step.
+template <int D, bool kCausal, bool kMask>
+__device__ __forceinline__ void dkv_step(
+    float (&dk)[kMT][D / 8][4], float (&dv)[kMT][D / 8][4],
+    const uint32_t (&k_hi)[kMT][D / 8][4],
+    const uint32_t (&k_lo)[kMT][D / 8][4],
+    const uint32_t (&v_hi)[kMT][D / 8][4],
+    const uint32_t (&v_lo)[kMT][D / 8][4], const float* buf, int ka, int q0,
+    int T, float scale) {
+  using S = Smem<D, true>;
+  constexpr int NT = D / 8;
+  const float* q_a = buf;
+  const float* q_b = buf + S::kLayout;
+  const float* do_a = buf + 2 * S::kLayout;
+  const float* do_b = buf + 3 * S::kLayout;
+  const float* lse = buf + 4 * S::kLayout;
+  const float* delta = lse + kStep;
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  float dk_step[kMT][NT][4] = {}, dv_step[kMT][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kStep / 8; ++j) {
+    // S^T = K Q^T and dP^T = V dO^T for q columns 8j..8j+7
+    float st[kMT][4] = {}, dpt[kMT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const int at = layout_a<D>(8 * j + g, 4 * kk + t);
+      const BFrag qf = frag_at(q_a, at), dof = frag_at(do_a, at);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        mma3(st[m], k_hi[m][kk], k_lo[m][kk], qf);
+        mma3(dpt[m], v_hi[m][kk], v_lo[m][kk], dof);
+      }
+    }
+    const int c = 8 * j + 2 * t;  // the q column of elements 0 and 2
+    const float2 lse_c = *reinterpret_cast<const float2*>(lse + c);
+    const float2 delta_c = *reinterpret_cast<const float2*>(delta + c);
+    uint32_t pa_hi[kMT][4], pa_lo[kMT][4], da_hi[kMT][4], da_lo[kMT][4];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      p_and_ds<kMask>(
+          st[m], dpt[m], scale,
+          [&](int e) {
+            const int qi = q0 + c + e % 2;
+            const int kj = ka + 16 * m + g + 8 * (e / 2);
+            return qi < T && kj < T && (!kCausal || qi >= kj);
+          },
+          [&](int e) { return e % 2 ? lse_c.y : lse_c.x; },
+          [&](int e) { return e % 2 ? delta_c.y : delta_c.x; });
+      as_a(st[m], pa_hi[m], pa_lo[m]);
+      as_a(dpt[m], da_hi[m], da_lo[m]);
+    }
+    // dV += P^T dO, dK += dS^T Q over these 8 q rows (row pair 4j + t
+    // holds rows c and c + 1)
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+      const int at = layout_b<D>(4 * j + t, 8 * nn + g);
+      const BFrag dof = frag_at(do_b, at), qf = frag_at(q_b, at);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        mma3(dv_step[m][nn], pa_hi[m], pa_lo[m], dof);
+        mma3(dk_step[m][nn], da_hi[m], da_lo[m], qf);
+      }
+    }
+  }
+  add_step<D>(dk, dk_step);
+  add_step<D>(dv, dv_step);
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dkv_mma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int BH, int T, float scale) {
+  using S = Smem<D, true>;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw0 = hopper::smem_u32(smem);
+
+  // every head's key tile 0 (the most causal work) first, then tile 1, ...
+  const int bh = blockIdx.x % BH;
+  const int k0 = (blockIdx.x / BH) * kHeld;
+  // a causal call starts at the q tile holding key row k0
+  const int q_begin = kCausal ? (k0 / kStep) * kStep : 0;
+  const int n_steps = (T - q_begin + kStep - 1) / kStep;
+  const size_t head = (size_t)bh * T * D;
+  const float* qh = q + head;
+  const float* doh = dout + head;
+  const float* lseh = lse + (size_t)bh * T;
+  const float* deltah = delta + (size_t)bh * T;
+
+  auto load = [&](int i) {
+    load_step<D, true>(raw0, qh, doh, lseh, deltah, q_begin + i * kStep, T,
+                       i < n_steps);
+  };
+  load(0);
+
+  const int warp = threadIdx.x / 32;
+  const int ka = k0 + kWarpRows * warp;  // the warp's first key row
+  uint32_t k_hi[kMT][NT][4], k_lo[kMT][NT][4], v_hi[kMT][NT][4],
+      v_lo[kMT][NT][4];
+  held_rows<D>(k_hi, k_lo, k + head, ka, T);
+  held_rows<D>(v_hi, v_lo, v + head, ka, T);
+  float dk_acc[kMT][NT][4] = {}, dv_acc[kMT][NT][4] = {};
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int q0 = q_begin + i * kStep;
+    float* buf = smem + S::kBuf0 + (i % 2) * S::kBuf;
+    mma_tf32::cp_async_wait<0>();
+    split_step<D, true>(smem, buf);
+    // buf is whole, and every warp is past step i - 1, so buffer
+    // (i + 1) % 2 may be rewritten; the raw stage is free (each thread
+    // split its own copies), and step i + 1's copies land there while
+    // step i runs
+    __syncthreads();
+    load(i + 1);
+    // no live pair: keys past T, or (causal) every q row before every key
+    const bool dead = ka >= T || (kCausal && q0 + kStep <= ka);
+    if (!dead) {
+      const bool edge = (kCausal && q0 < ka + kWarpRows) || q0 + kStep > T ||
+                        ka + kWarpRows > T;
+      if (edge)
+        dkv_step<D, kCausal, true>(dk_acc, dv_acc, k_hi, k_lo, v_hi, v_lo,
+                                   buf, ka, q0, T, scale);
+      else
+        dkv_step<D, kCausal, false>(dk_acc, dv_acc, k_hi, k_lo, v_hi, v_lo,
+                                    buf, ka, q0, T, scale);
+    }
+  }
+
+  // every key row the block owns is written, rows no q tile reached too
+  store_rows<D>(dk + head, dk_acc, ka, T);
+  store_rows<D>(dv + head, dv_acc, ka, T);
+}
+
+// One key step of the dQ kernel for one warp: its 16 kMT query rows (from
+// qa) against keys [k0, k0 + kStep) of split buffer `buf`; lse and delta
+// of the thread's rows (qa + 16 m + g, + 8) held in registers.  The
+// step's dQ sum starts at 0, as in dkv_step.
+template <int D, bool kCausal, bool kMask>
+__device__ __forceinline__ void dq_step(
+    float (&dq)[kMT][D / 8][4], const uint32_t (&q_hi)[kMT][D / 8][4],
+    const uint32_t (&q_lo)[kMT][D / 8][4],
+    const uint32_t (&do_hi)[kMT][D / 8][4],
+    const uint32_t (&do_lo)[kMT][D / 8][4], const float (&lse)[kMT][2],
+    const float (&delta)[kMT][2], const float* buf, int qa, int k0, int T,
+    float scale) {
+  using S = Smem<D, false>;
+  constexpr int NT = D / 8;
+  const float* k_a = buf;
+  const float* k_b = buf + S::kLayout;
+  const float* v_a = buf + 2 * S::kLayout;
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  float dq_step[kMT][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kStep / 8; ++j) {
+    // S = Q K^T and dP = dO V^T for keys 8j..8j+7
+    float s[kMT][4] = {}, dp[kMT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const int at = layout_a<D>(8 * j + g, 4 * kk + t);
+      const BFrag kf = frag_at(k_a, at), vf = frag_at(v_a, at);
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        mma3(s[m], q_hi[m][kk], q_lo[m][kk], kf);
+        mma3(dp[m], do_hi[m][kk], do_lo[m][kk], vf);
+      }
+    }
+    const int c = 8 * j + 2 * t;  // the key column of elements 0 and 2
+    uint32_t da_hi[kMT][4], da_lo[kMT][4];
+#pragma unroll
+    for (int m = 0; m < kMT; ++m) {
+      p_and_ds<kMask>(
+          s[m], dp[m], scale,
+          [&](int e) {
+            const int qi = qa + 16 * m + g + 8 * (e / 2);
+            const int kj = k0 + c + e % 2;
+            return qi < T && kj < T && (!kCausal || qi >= kj);
+          },
+          [&](int e) { return lse[m][e / 2]; },
+          [&](int e) { return delta[m][e / 2]; });
+      as_a(dp[m], da_hi[m], da_lo[m]);
+    }
+    // dQ += dS K over these 8 keys (row pair 4j + t holds keys c, c + 1)
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+      const BFrag kf = frag_at(k_b, layout_b<D>(4 * j + t, 8 * nn + g));
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+        mma3(dq_step[m][nn], da_hi[m], da_lo[m], kf);
+    }
+  }
+  add_step<D>(dq, dq_step);
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_bwd_dq_mma_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int BH, int T, float scale) {
+  using S = Smem<D, false>;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw0 = hopper::smem_u32(smem);
+
+  // every head's last query tile (the most causal work) first
+  const int nq = (T + kHeld - 1) / kHeld;
+  const int bh = blockIdx.x % BH;
+  const int tile = blockIdx.x / BH;
+  const int q0 = (kCausal ? nq - 1 - tile : tile) * kHeld;
+  // keys [0, kv_end): the causal entry stops at the block's last row
+  const int kv_end = kCausal ? min(q0 + kHeld, T) : T;
+  const int n_steps = (kv_end + kStep - 1) / kStep;
+  const size_t head = (size_t)bh * T * D;
+  const float* kh = k + head;
+  const float* vh = v + head;
+
+  auto load = [&](int i) {
+    load_step<D, false>(raw0, kh, vh, nullptr, nullptr, i * kStep, T,
+                        i < n_steps);
+  };
+  load(0);
+
+  const int warp = threadIdx.x / 32;
+  const int g = threadIdx.x % 32 / 4;
+  const int qa = q0 + kWarpRows * warp;  // the warp's first query row
+  uint32_t q_hi[kMT][NT][4], q_lo[kMT][NT][4], do_hi[kMT][NT][4],
+      do_lo[kMT][NT][4];
+  held_rows<D>(q_hi, q_lo, q + head, qa, T);
+  held_rows<D>(do_hi, do_lo, dout + head, qa, T);
+  float lse_r[kMT][2], delta_r[kMT][2];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = qa + 16 * m + g + 8 * h;
+      lse_r[m][h] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+      delta_r[m][h] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+    }
+  float dq_acc[kMT][NT][4] = {};
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int k0 = i * kStep;
+    float* buf = smem + S::kBuf0 + (i % 2) * S::kBuf;
+    mma_tf32::cp_async_wait<0>();
+    split_step<D, false>(smem, buf);
+    __syncthreads();  // as in the dK/dV kernel
+    load(i + 1);
+    // no live pair: query rows past T, or (causal) every key after every
+    // query row
+    const bool dead = qa >= T || (kCausal && k0 > qa + kWarpRows - 1);
+    if (!dead) {
+      const bool edge = (kCausal && k0 + kStep - 1 > qa) || k0 + kStep > T ||
+                        qa + kWarpRows > T;
+      if (edge)
+        dq_step<D, kCausal, true>(dq_acc, q_hi, q_lo, do_hi, do_lo, lse_r,
+                                  delta_r, buf, qa, k0, T, scale);
+      else
+        dq_step<D, kCausal, false>(dq_acc, q_hi, q_lo, do_hi, do_lo, lse_r,
+                                   delta_r, buf, qa, k0, T, scale);
+    }
+  }
+
+  store_rows<D>(dq + head, dq_acc, qa, T);
+}
+
+// cp.async copies 16-byte chunks: every [T][D] tensor starts on 16 bytes
+inline bool misaligned4(const void* q, const void* k, const void* v,
+                        const void* dout) {
+  return flash_tiles::misaligned(q) || flash_tiles::misaligned(k) ||
+         flash_tiles::misaligned(v) || flash_tiles::misaligned(dout);
+}
+
+template <int D, bool kCausal>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dk, void* dv,
+               int bh, int T, float scale, cudaStream_t stream) {
+  if (misaligned4(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  auto kernel = flash_bwd_dkv_mma_kernel<D, kCausal>;
+  constexpr int smem = Smem<D, true>::kBytes;
+  if (int err = configure(kernel, smem)) return err;
+  const int tiles = (T + kHeld - 1) / kHeld;
+  kernel<<<tiles * bh, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), bh, T, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool kCausal>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int bh, int T,
+              float scale, cudaStream_t stream) {
+  if (misaligned4(q, k, v, dout)) return (int)cudaErrorMisalignedAddress;
+  auto kernel = flash_bwd_dq_mma_kernel<D, kCausal>;
+  constexpr int smem = Smem<D, false>::kBytes;
+  if (int err = configure(kernel, smem)) return err;
+  const int tiles = (T + kHeld - 1) / kHeld;
+  kernel<<<tiles * bh, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), bh, T, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32x3
+
+using flash_tiles::bwd_design;
 
 template <typename T> struct Type { using type = T; };
 template <int D, bool C> struct Variant {
@@ -899,28 +1502,37 @@ int pick_causal(int causal, F f) {
                 : f(Type<Elt>{}, Variant<D, false>{});
 }
 
+// The FMA kernels' (dtype, d): float32 at D = 128, bfloat16 at D = 8, 16
+// (float32 at D = 8, 16 and bfloat16 at D = 128 take the other designs)
 template <typename Elt, typename F>
 int pick_dim(int d, int causal, F f) {
-  switch (d) {
-    case 8: return pick_causal<Elt, 8>(causal, f);
-    case 16: return pick_causal<Elt, 16>(causal, f);
-    case 128:
-      // bf16 at D = 128 runs the tensor-core kernels, not these
-      if constexpr (std::is_same<Elt, float>::value)
-        return pick_causal<Elt, 128>(causal, f);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<Elt, float>::value) {
+    if (d == 128) return pick_causal<Elt, 128>(causal, f);
+  } else {
+    if (d == 8) return pick_causal<Elt, 8>(causal, f);
+    if (d == 16) return pick_causal<Elt, 16>(causal, f);
   }
+  return (int)cudaErrorInvalidValue;
 }
 
-// The design (dtype, d) takes: tc(causal) for the tensor-core kernels,
-// else fma(Type<Elt>, Variant<D, causal>) for the runtime dtype
-// (0 float32, 1 bfloat16), head dim (8, 16, 128) and causal flag: 10 FMA
-// instantiations and 2 tensor-core ones a kernel.
-template <typename Fma, typename Tc>
-int dispatch(int bh, int T, int dtype, int d, int causal, Fma fma, Tc tc) {
+// The design bwd_design picks for (dtype, d): tc(causal) for the wgmma
+// kernels, mma(Type<float>, Variant<D, causal>) for the split-TF32 ones,
+// else fma(Type<Elt>, Variant<D, causal>) for the runtime dtype (0
+// float32, 1 bfloat16), head dim (8, 16, 128) and causal flag: 6 FMA,
+// 4 split-TF32 and 2 wgmma instantiations a kernel.
+template <typename Fma, typename Tc, typename Mma>
+int dispatch(int bh, int T, int dtype, int d, int causal, Fma fma, Tc tc,
+             Mma mma) {
   if (bh < 1 || bh > 65535 || T < 1) return (int)cudaErrorInvalidValue;
-  if (tensor_core_design(dtype, d)) return tc(causal != 0);
+  switch (bwd_design(dtype, d)) {
+    case flash_tiles::kBwdWgmma:
+      return tc(causal != 0);
+    case flash_tiles::kBwdMmaTf32x3:
+      return d == 8 ? pick_causal<float, 8>(causal, mma)
+                    : pick_causal<float, 16>(causal, mma);
+    default:
+      break;
+  }
   switch (dtype) {
     case 0: return pick_dim<float>(d, causal, fma);
     case 1: return pick_dim<__nv_bfloat16>(d, causal, fma);
@@ -951,6 +1563,11 @@ extern "C" int iotml_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                         T, scale, s)
                  : tc::launch_dkv<false>(q, k, v, dout, lse, delta, dk, dv,
                                          bh, T, scale, s);
+      },
+      [&](auto, auto var) {
+        using V = decltype(var);
+        return tf32x3::launch_dkv<V::kD, V::kCausal>(
+            q, k, v, dout, lse, delta, dk, dv, bh, T, scale, s);
       });
 }
 
@@ -974,25 +1591,40 @@ extern "C" int iotml_flash_bwd_dq(const void* q, const void* k, const void* v,
                                        scale, s)
                  : tc::launch_dq<false>(q, k, v, dout, lse, delta, dq, bh, T,
                                         scale, s);
+      },
+      [&](auto, auto var) {
+        using V = decltype(var);
+        return tf32x3::launch_dq<V::kD, V::kCausal>(q, k, v, dout, lse, delta,
+                                                    dq, bh, T, scale, s);
       });
 }
 
-// 1 where (d, dtype) runs the tensor-core kernels, 0 the FMA ones, -1
-// for what the kernels are not built for.
+// The design (d, dtype) runs: 0 the FMA kernels, 1 the wgmma ones, 2 the
+// split-TF32 ones (flash_tiles::bwd_design); -1 for what the kernels are
+// not built for.
 extern "C" int iotml_flash_bwd_design(int d, int dtype) {
   if ((d != 8 && d != 16 && d != 128) || (dtype != 0 && dtype != 1))
     return -1;
-  return tensor_core_design(dtype, d) ? 1 : 0;
+  return bwd_design(dtype, d);
 }
 
 // Dynamic shared memory of one block, in bytes: kind 0 the dK/dV kernel,
 // 1 the dQ kernel, at head dim d and dtype (0 float32, 1 bfloat16); -1
 // for what the kernels are not built for.
 extern "C" int iotml_flash_bwd_smem(int d, int kind, int dtype) {
-  const int design = iotml_flash_bwd_design(d, dtype);
-  if (design < 0) return -1;
-  if (design == 1)
-    return (int)(kind == 0 ? tc::DkvSmem::kBytes : tc::DqSmem::kBytes);
-  return (kind == 0 ? dkv_smem_floats(d) : dq_smem_floats(d)) *
-         (int)sizeof(float);
+  switch (iotml_flash_bwd_design(d, dtype)) {
+    case flash_tiles::kBwdWgmma:
+      return (int)(kind == 0 ? tc::DkvSmem::kBytes : tc::DqSmem::kBytes);
+    case flash_tiles::kBwdMmaTf32x3:
+      if (d == 8)
+        return kind == 0 ? tf32x3::Smem<8, true>::kBytes
+                         : tf32x3::Smem<8, false>::kBytes;
+      return kind == 0 ? tf32x3::Smem<16, true>::kBytes
+                       : tf32x3::Smem<16, false>::kBytes;
+    case flash_tiles::kBwdFma:
+      return (kind == 0 ? dkv_smem_floats(d) : dq_smem_floats(d)) *
+             (int)sizeof(float);
+    default:
+      return -1;
+  }
 }

@@ -1,8 +1,8 @@
 // Tile helpers shared by the flash-attention forward and backward
 // tensor-core kernels (bf16, D = 128), on hopper.cuh's building blocks:
-// the design rule, tile sizes, TMA row loads, the two wgmma products
-// (scores S = A B^T and accumulate acc += A B) and the accumulator's
-// element-to-(row, column) map.
+// the design rules of both directions, tile sizes, TMA row loads, the two
+// wgmma products (scores S = A B^T and accumulate acc += A B) and the
+// accumulator's element-to-(row, column) map.
 //
 // No PyTorch headers: the file builds with plain nvcc in seconds.
 
@@ -14,11 +14,22 @@
 
 namespace flash_tiles {
 
-// The design rule of both directions: dtype 1 (bfloat16) at D = 128 takes
-// the tensor-core kernels; every other (dtype, d) the FMA ones.
-// iotml_torch/ops/attention.py::flash_design states the same rule.
+// The design rules, one for each direction;
+// iotml_torch/ops/attention.py::flash_design states the same rules.
+// Forward: dtype 1 (bfloat16) at D = 128 takes the tensor-core (wgmma)
+// kernel; every other (dtype, d) the FMA one.
 __host__ __device__ constexpr bool tensor_core_design(int dtype, int d) {
   return dtype == 1 && d == 128;
+}
+
+// Backward: bfloat16 at D = 128 the wgmma kernels, dtype 0 (float32) at
+// D = 8 and 16 the split-TF32 mma.sync kernels, every other (dtype, d)
+// the FMA ones.
+enum BwdDesign : int { kBwdFma = 0, kBwdWgmma = 1, kBwdMmaTf32x3 = 2 };
+__host__ __device__ constexpr int bwd_design(int dtype, int d) {
+  return tensor_core_design(dtype, d)        ? kBwdWgmma
+         : dtype == 0 && (d == 8 || d == 16) ? kBwdMmaTf32x3
+                                             : kBwdFma;
 }
 
 constexpr int kD = 128;

@@ -6,8 +6,9 @@
 Run from the repository root on a machine with an H100 and ``nvcc``.
 Builds ``iotml_torch/ops/csrc/flash_attention.cu`` once per depth, with
 its ``constexpr int kStages`` set to the depth in a copy of the source
-and headers under ``iotml_torch/ops/build/ring<n>/`` (one ``nvcc`` each,
-started together), and fails on a ptxas spill.  Then, at the
+and headers under ``iotml_torch/ops/build/variants/ring<n>/``
+(``_build.build_variant``; one ``nvcc`` each, started together), and
+fails on a ptxas spill.  Then, at the
 long-context shape (bf16, B=1, T=65,536, H=2, D=128, seeded normal
 inputs as ``chip_smoke.py`` times them), causal and full: every depth
 must give the same o and lse bit for bit (the depth moves when tiles
@@ -24,7 +25,6 @@ import ctypes
 import json
 import math
 import re
-import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -42,37 +42,27 @@ B, T, H, D = 1, 65536, 2, 128
 STAGES = re.compile(r"constexpr int kStages = \d+;")
 
 
+def _wgmma_entry(mangled: str):
+    found = re.match(r"\S*flash_fwd_wgmma_kernelILb([01])E", mangled)
+    if found:
+        return "causal" if found.group(1) == "1" else "full"
+    return None
+
+
 def build(stages: int) -> tuple:
     """The library at ``stages``, and the registers of its two tensor-core
     entries; raises on a failed build or a spill."""
-    where = _build.BUILD / f"ring{stages}"
-    where.mkdir(parents=True, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        shutil.copy(header, where / header.name)
-    code, found = STAGES.subn(f"constexpr int kStages = {stages};",
-                              (_build.CSRC / "flash_attention.cu").read_text())
-    if found != 1:
+    found = STAGES.findall((_build.CSRC / "flash_attention.cu").read_text())
+    if len(found) != 1:
         raise RuntimeError("flash_attention.cu: no single kStages to set")
-    (where / "flash_attention.cu").write_text(code)
-    out = where / "libflash_attention.so"
-    proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-         str(where / "flash_attention.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"ring {stages}: nvcc failed\n{proc.stdout}")
-    if re.search(r"[1-9]\d* bytes spill", proc.stdout):
-        raise RuntimeError(f"ring {stages}: ptxas spills\n{proc.stdout}")
-    registers, entry = {}, None
-    for line in proc.stdout.splitlines():
-        found = re.search(r"Function properties for \S*flash_fwd_wgmma_"
-                          r"kernelILb([01])E", line)
-        if found:
-            entry = "causal" if found.group(1) == "1" else "full"
-        elif entry and "Used" in line:
-            registers[entry] = int(re.search(r"Used (\d+) registers",
-                                             line).group(1))
-            entry = None
+    out, log = _build.build_variant(
+        "flash_attention", f"ring{stages}",
+        [("flash_attention.cu", found[0],
+          f"constexpr int kStages = {stages};")])
+    if re.search(r"[1-9]\d* bytes spill", log):
+        raise RuntimeError(f"ring {stages}: ptxas spills\n{log}")
+    registers = {entry: v["registers"] for entry, v in
+                 _build.ptxas_kernels(log, _wgmma_entry).items()}
     lib = ctypes.CDLL(str(out))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.iotml_flash_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float,

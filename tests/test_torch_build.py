@@ -90,6 +90,73 @@ def test_build_log_rebuilds_a_library_without_its_log(fake_nvcc):
         ["kern.log", target.name, target.with_suffix(".log").name])
 
 
+def test_build_variant_builds_an_edited_copy(fake_nvcc, csrc):
+    """A variant is built from an edited copy of csrc under
+    build/variants/<tag>/; csrc itself is not touched, and an edit whose
+    text is not in its file raises before any build."""
+    build, calls = fake_nvcc
+    lib, log = _build.build_variant("kern", "v2",
+                                    [("blocks.cuh", "// v1", "// v2")])
+    where = build / "variants" / "v2"
+    assert lib == where / "libkern.so" and calls == [lib]
+    assert log == "ptxas info: Used 1 registers\n"
+    assert (where / "blocks.cuh").read_text() == "// v2\n"
+    assert (where / "kern.cu").read_text() == '#include "blocks.cuh"\n'
+    assert (csrc / "blocks.cuh").read_text() == "// v1\n"
+    with pytest.raises(RuntimeError, match="not in blocks.cuh"):
+        _build.build_variant("kern", "v3", [("blocks.cuh", "// v9", "")])
+    assert calls == [lib]
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z5aKernILi8EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z5aKernILi8EEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_Z5aKernILi16EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z5aKernILi16EEvPf
+    24 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherPf' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherPf
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_kernels_reads_registers_and_spills():
+    """Each named kernel's registers and spilled bytes; kernels the
+    namer leaves out, and functions with no register line, are not
+    reported."""
+    def name_of(mangled):
+        found = re.match(r"_Z5aKernILi(\d+)E", mangled)
+        return f"D={found.group(1)}" if found else None
+
+    assert _build.ptxas_kernels(PTXAS_LOG, name_of) == {
+        "D=8": {"registers": 96, "spill_stores": 0, "spill_loads": 0},
+        "D=16": {"registers": 255, "spill_stores": 12, "spill_loads": 8}}
+    assert _build.ptxas_kernels(PTXAS_LOG, lambda mangled: None) == {}
+
+
+def test_backward_variant_edits_match_the_sources():
+    """Every text edit of scripts/bwd_tf32_variants.py is in the file it
+    edits, so each variant builds what it says."""
+    import importlib.util
+
+    script = _build.CSRC.parents[2] / "scripts" / "bwd_tf32_variants.py"
+    spec = importlib.util.spec_from_file_location("bwd_tf32_variants",
+                                                  script)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    edits = [edit for _, e in variants.VARIANTS.values() for edit in e]
+    assert edits
+    for file, old, new in edits:
+        assert old in (_build.CSRC / file).read_text(), (file, old)
+        assert new != old
+
+
 FLASH_SOURCES = ("flash_attention", "flash_attention_bwd")
 
 
@@ -110,37 +177,107 @@ def test_backward_library_name_follows_hopper_cuh(source, header, tmp_path,
     assert _build.library_path(source) != before
 
 
-@pytest.mark.parametrize("dtype,head_dim,design", [
-    (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 16, "fma"),
-    (torch.bfloat16, 8, "fma"),
-    (torch.float32, 128, "fma"),
-    (torch.float32, 16, "fma"),
-    (torch.float32, 8, "fma"),
-])
-def test_flash_design(dtype, head_dim, design):
-    assert flash_design(dtype, head_dim) == design
+def test_backward_library_name_follows_mma_tf32_cuh(tmp_path, monkeypatch):
+    """The backward source includes mma_tf32.cuh (the split-TF32 building
+    blocks): a copy of csrc with it edited names another backward
+    library."""
+    for src in _build.CSRC.iterdir():
+        if src.is_file():
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    code = (tmp_path / "flash_attention_bwd.cu").read_text()
+    assert '#include "mma_tf32.cuh"' in code
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("flash_attention_bwd")
+    with open(tmp_path / "mma_tf32.cuh", "a") as edited:
+        edited.write("// edited\n")
+    assert _build.library_path("flash_attention_bwd") != before
+
+
+#: (dtype, head dim, forward design, backward design)
+DESIGNS = [(torch.bfloat16, 128, "wgmma", "wgmma"),
+           (torch.bfloat16, 16, "fma", "fma"),
+           (torch.bfloat16, 8, "fma", "fma"),
+           (torch.float32, 128, "fma", "fma"),
+           (torch.float32, 16, "fma", "mma_tf32x3"),
+           (torch.float32, 8, "fma", "mma_tf32x3")]
+
+
+@pytest.mark.parametrize("dtype,head_dim,design,direction", [
+    *[pytest.param(dt, d, fwd, "forward", id=f"dtype{i}-{d}-{fwd}")
+      for i, (dt, d, fwd, _) in enumerate(DESIGNS)],
+    *[pytest.param(dt, d, bwd, "backward",
+                   id=f"backward-dtype{i}-{d}-{bwd}")
+      for i, (dt, d, _, bwd) in enumerate(DESIGNS)]])
+def test_flash_design(dtype, head_dim, design, direction):
+    assert flash_design(dtype, head_dim, direction) == design
+
+
+def test_flash_design_needs_a_direction():
+    with pytest.raises(ValueError):
+        flash_design(torch.float32, 16, "both")
+
+
+def _header_rules():
+    """The forward and backward rules as flash_tiles.cuh writes them,
+    as functions of (dtype code, d) giving a design name."""
+    header = (_build.CSRC / "flash_tiles.cuh").read_text()
+    fwd = re.search(r"bool tensor_core_design\(int dtype, int d\) \{\s*"
+                    r"return dtype == (\d+) && d == (\d+);\s*\}", header)
+    assert fwd, "tensor_core_design not found in flash_tiles.cuh"
+    bwd = re.search(
+        r"int bwd_design\(int dtype, int d\) \{\s*"
+        r"return tensor_core_design\(dtype, d\)\s*\? kBwdWgmma\s*"
+        r": dtype == (\d+) && \(d == (\d+) \|\| d == (\d+)\) "
+        r"\? kBwdMmaTf32x3\s*: kBwdFma;\s*\}", header)
+    assert bwd, "bwd_design not found in flash_tiles.cuh"
+    names = re.search(r"enum BwdDesign : int \{ kBwdFma = 0, kBwdWgmma = 1, "
+                      r"kBwdMmaTf32x3 = 2 \};", header)
+    assert names, "the backward design codes changed"
+
+    def forward(code, d):
+        tc = code == int(fwd.group(1)) and d == int(fwd.group(2))
+        return "wgmma" if tc else "fma"
+
+    def backward(code, d):
+        if forward(code, d) == "wgmma":
+            return "wgmma"
+        split = code == int(bwd.group(1)) and d in (int(bwd.group(2)),
+                                                    int(bwd.group(3)))
+        return "mma_tf32x3" if split else "fma"
+
+    return {"forward": forward, "backward": backward}
 
 
 @pytest.mark.parametrize("source", FLASH_SOURCES)
 def test_sources_state_the_design_rule_of_flash_design(source):
-    """The rule is written once, as ``tensor_core_design`` in
-    flash_tiles.cuh; each source dispatches by it and states no rule of
-    its own, and the rule picks what ``flash_design`` says for every
-    dtype code (0 float32, 1 bfloat16) and head dim."""
-    header = (_build.CSRC / "flash_tiles.cuh").read_text()
-    rule = re.search(r"bool tensor_core_design\(int dtype, int d\) \{\s*"
-                     r"return dtype == (\d+) && d == (\d+);\s*\}", header)
-    assert rule, "tensor_core_design not found in flash_tiles.cuh"
+    """Each rule is written once in flash_tiles.cuh
+    (``tensor_core_design`` for the forward, ``bwd_design``, on top of it,
+    for the backward); each source dispatches by its rule and states no
+    rule of its own, and the rule picks what ``flash_design`` says for
+    every dtype code (0 float32, 1 bfloat16) and head dim."""
+    direction = {"flash_attention": "forward",
+                 "flash_attention_bwd": "backward"}[source]
+    rules = _header_rules()
     code = (_build.CSRC / f"{source}.cu").read_text()
     assert '#include "flash_tiles.cuh"' in code
-    assert "tensor_core_design(dtype, d)" in code
+    call = {"forward": "tensor_core_design(dtype, d)",
+            "backward": "bwd_design(dtype, d)"}[direction]
+    assert call in code
     assert "bool tensor_core_design" not in code
+    assert "int bwd_design" not in code
     dtypes = {0: torch.float32, 1: torch.bfloat16}
     for dtype_code, dtype in dtypes.items():
         for d in (8, 16, 128):
-            tc = dtype_code == int(rule.group(1)) and d == int(rule.group(2))
-            assert flash_design(dtype, d) == ("wgmma" if tc else "fma")
+            assert flash_design(dtype, d, direction) == \
+                rules[direction](dtype_code, d)
+
+
+def test_python_names_the_backward_design_codes():
+    """``BWD_DESIGNS`` reads ``iotml_flash_bwd_design``'s codes in the
+    order the header's enum gives them."""
+    from iotml_torch.ops.attention import BWD_DESIGNS
+
+    assert BWD_DESIGNS == ("fma", "wgmma", "mma_tf32x3")
 
 
 def test_forward_ring_depth_is_the_one_constant_the_timing_script_sets():

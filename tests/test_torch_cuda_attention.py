@@ -29,7 +29,8 @@ sums are exact in any order, and no flip is allowed; a training step's
 loss rtol 1e-5 and grads rtol 1e-4 / atol 1e-6
 (tests/test_torch_seq_parallel.py).  The bf16 D=128 cases run the
 tensor-core design in both directions (``flash_design`` says "wgmma");
-the others the FMA one.  The tensor-core cases hold the kernels against
+the f32 backward at D = 8 and 16 the split-TF32 one ("mma_tf32x3"); the
+others the FMA one.  The tensor-core cases hold the kernels against
 the plain versions at the kernels' own 64-row tiles (blocks 64), so that
 P is rounded at the same running max.
 """
@@ -90,7 +91,7 @@ def test_kernel_matches_plain_version(dtype, B, T, H, D, causal, block,
                                                       block, block)
     assert o.shape == q.shape and o.dtype == dtype
     assert lse.shape == (B, H, T) and lse.dtype == torch.float32
-    if attn.flash_design(dtype, D) == "wgmma":
+    if attn.flash_design(dtype, D, "forward") == "wgmma":
         fp.check_wgmma_forward("forward", o, lse, want_o, want_lse, block)
     else:
         o_tol = F32_TOL if dtype == torch.float32 else BF16_O_TOL
@@ -173,6 +174,11 @@ def test_backward_on_the_card_launches_both_kernels(cuda_device):
     (torch.bfloat16, 1, 200, 2, 128, True, 128),
     (torch.bfloat16, 1, 256, 2, 128, False, 128),
     (torch.bfloat16, 2, 72, 2, 16, True, 16),
+    # the split-TF32 design (f32, D = 8 and 16) at ragged T; a non-causal
+    # call's plain version takes the whole T as its block
+    *[(torch.float32, 2, T, 3, D, causal, 128 if causal else T)
+      for D in (8, 16) for T in (1, 17, 65, 1000)
+      for causal in (True, False)],
 ])
 def test_backward_kernels_match_plain_version(dtype, B, T, H, D, causal,
                                               block, cuda_device):
@@ -201,10 +207,43 @@ def test_backward_kernels_match_plain_version(dtype, B, T, H, D, causal,
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+@pytest.mark.cuda
+def test_f32_backward_designs_on_the_card(cuda_device):
+    """f32 at D = 8 and 16 takes the split-TF32 backward (the library
+    reports it, and a call launches it, both kernels, at rtol 1e-4 / atol
+    1e-5 against the plain version); f32 at D = 128 keeps the FMA
+    backward; the f32 forward keeps the FMA design at every head dim."""
+    lib = attn._library("flash_attention_bwd", attn._BWD_ENTRIES)
+    fwd = attn._library("flash_attention", attn._FWD_ENTRIES)
+    for D, bwd in ((8, "mma_tf32x3"), (16, "mma_tf32x3"), (128, "fma")):
+        assert attn.flash_design(torch.float32, D, "backward") == bwd
+        assert attn.BWD_DESIGNS[lib.iotml_flash_bwd_design(D, 0)] == bwd
+        assert attn.flash_design(torch.float32, D, "forward") == "fma"
+        assert fwd.iotml_flash_fwd_design(D, 0) == 0
+    q, k, v, do = _qkv(2, 300, 2, 16, torch.float32, cuda_device, seed=4) + \
+        _qkv(2, 300, 2, 16, torch.float32, cuda_device, seed=5)[:1]
+    o, lse = attn.flash_attention_fwd(q, k, v, True, 128, 128)
+    want_o, want_lse = attn.flash_attention_reference(q, k, v, True, 128,
+                                                      128)
+    torch.testing.assert_close(o, want_o, **F32_TOL)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    before = dict(attn.flash_attention.launches)
+    got = attn.flash_attention_bwd(q, k, v, o, lse, do, True, 128, 128)
+    torch.cuda.synchronize()
+    after = attn.flash_attention.launches
+    assert {key: after[key] - before[key] for key in BWD_KEYS} == {
+        "bwd_dkv_causal": 1, "bwd_dq_causal": 1, "bwd_dkv_full": 0,
+        "bwd_dq_full": 0}
+    want = attn.flash_attention_backward_reference(q, k, v, o, lse, do, True,
+                                                   128, 128)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **GRAD_TOL[torch.float32])
+
+
 def _check_wgmma_forward(B, T, H, causal, block, device):
     """bf16 D=128 (the tensor-core design): the forward's O and LSE
     against the plain version at ``block``, and a bit repeat."""
-    assert attn.flash_design(torch.bfloat16, 128) == "wgmma"
+    assert attn.flash_design(torch.bfloat16, 128, "forward") == "wgmma"
     q, k, v = _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H)
     entry = "causal" if causal else "full"
     before = dict(attn.flash_attention.launches)
@@ -267,7 +306,7 @@ def _check_wgmma_backward(B, T, H, causal, device, grid=False):
     """bf16 D=128 (the tensor-core design): the kernels' grads against the
     plain backward at its own tiles (blocks 64), and a bit repeat; on
     ``grid`` inputs no rounding flip is allowed."""
-    assert attn.flash_design(torch.bfloat16, 128) == "wgmma"
+    assert attn.flash_design(torch.bfloat16, 128, "backward") == "wgmma"
     q, k, v, do = _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H,
                        grid=grid) + \
         _qkv(B, T, H, 128, torch.bfloat16, device, seed=T + H + 1,
@@ -319,7 +358,7 @@ def test_wgmma_backward_on_grid_inputs_has_no_rounding_flip(B, T, H, causal,
 def test_wgmma_backward_only_k_needs_a_grad(cuda_device):
     """bf16 D=128 through autograd with only k requiring a grad: the dK/dV
     kernel runs, the dQ kernel does not, and dk is the plain version's."""
-    assert attn.flash_design(torch.bfloat16, 128) == "wgmma"
+    assert attn.flash_design(torch.bfloat16, 128, "backward") == "wgmma"
     q, k, v, do = _qkv(1, 300, 2, 128, torch.bfloat16, cuda_device) + \
         _qkv(1, 300, 2, 128, torch.bfloat16, cuda_device, seed=1)[:1]
     kk = k.clone().requires_grad_()
