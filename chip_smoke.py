@@ -13,17 +13,19 @@ non-zero exit and no result line:
                 ``nvcc`` each, started together (seconds per source;
                 ptxas registers and spills per instantiation, a spill in
                 a flash kernel or a rows fit kernel fails the run, and so
-                does a missing split-TF32 instantiation; the fit kernel's
+                does a missing split-TF32 instantiation, forward (four) or
+                backward (eight); the fit kernel's
                 shared memory per design at B=100; the flash kernels'
                 shared memory per block, dtype and head dim; HGMMA
                 instructions in the SASS of each ``wgmma`` instantiation,
-                forward and backward, and HMMA…TF32 in each split-TF32
-                one, none fails the run; the fit kernel's design over a
+                forward and backward, and HMMA…TF32 in each of the twelve
+                split-TF32 ones, none fails the run; the fit kernel's
+                design over a
                 grid of shapes, the library's ``iotml_fused_fit_design``
                 and ``fit_design``'s, and the design of each dtype and
                 head dim in both attention directions, the libraries'
-                and ``flash_design``'s; each pair must agree, and the
-                backward must take all three designs).
+                and ``flash_design``'s; each pair must agree, and each
+                direction must take all three designs).
 3. kernel     — the fused-fit kernel against its plain PyTorch version on
                 the card: the rows design at B=100, F=18 and F=30, 0/1
                 and fractional masks, and at B=256 (its largest), F=30;
@@ -50,9 +52,16 @@ non-zero exit and no result line:
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
-                T=1000, non-causal T=1024); then the tensor-core design's
-                cases (bf16 D=128, the plain version at blocks 64, the
-                kernel's key tile: causal T = 1, 63, 64, 65, 127, 128,
+                T=1000, non-causal T=1024); then the split-TF32 design's
+                cases (f32 D=8 and 16, causal and full, T = 1, 15, 16,
+                17, 63, 64, 65, 127, 128, 129, 1000 and 4096 at B·H = 1
+                and 6, the plain version at blocks 128 when causal and at
+                block T when full), each checked to take the
+                ``mma_tf32x3`` design, O and LSE at rtol = atol = 2e-5,
+                their largest O and LSE errors apart; then the
+                tensor-core design's cases (bf16 D=128, the plain
+                version at blocks 64, the kernel's key tile: causal
+                T = 1, 63, 64, 65, 127, 128,
                 129, 1000, 4096 at B·H = 1 and 6, non-causal T = 64 and
                 1024 at B·H = 6, and non-causal T = 1,040 with the
                 caller's block 16, a ragged key tile), each checked to
@@ -151,7 +160,7 @@ from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import _build, fused_train
-from iotml_torch.ops.attention import (BWD_DESIGNS, attention_reference,
+from iotml_torch.ops.attention import (FLASH_DESIGNS, attention_reference,
                                        flash_attention,
                                        flash_attention_backward_reference,
                                        flash_attention_bwd,
@@ -174,9 +183,10 @@ from iotml_torch.train.optim import Adam
 METRIC_TOL = dict(rtol=2e-4, atol=1e-6)
 STATE_TOL = dict(rtol=5e-3, atol=2e-5)
 RESUME_TOL = dict(rtol=1e-4, atol=1e-7)
-#: flash forward against its plain version, FMA design: f32 is the JAX
-#: suite's flash forward bound (tests/test_attention.py:56-57); bf16 allows
-#: for P being rounded at the running max of tiles that differ in size.
+#: flash forward against its plain version, FMA and split-TF32 designs:
+#: f32 is the JAX suite's flash forward bound (tests/test_attention.py:
+#: 56-57); bf16 allows for P being rounded at the running max of tiles
+#: that differ in size.
 #: The ``wgmma`` design is held by ``flash_parity.check_wgmma_forward``
 #: (each O row within 1e-2 of its norm; O rtol 2e-2 / atol 1e-3 against
 #: the plain version at the kernel's key tile, blocks 64).
@@ -269,7 +279,7 @@ def _flash_kernel(mangled: str):
     ``flash_fwd_kernel``, ``flash_bwd_dkv_kernel`` and
     ``flash_bwd_dq_kernel`` by dtype and head dim, the tensor-core
     ``flash_{fwd,bwd_dkv,bwd_dq}_wgmma_kernel`` and the split-TF32
-    ``flash_bwd_{dkv,dq}_mma_kernel``."""
+    ``flash_{fwd,bwd_dkv,bwd_dq}_mma_kernel``."""
     found = re.match(r"\S*(flash_\w+)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb"
                      r"([01])E", mangled)
     wgmma = re.match(r"\S*(flash_\w+)_wgmma_kernelILb([01])E", mangled)
@@ -309,12 +319,14 @@ def phase_build() -> None:
             spilled = [k for k, v in ptxas.items()
                        if v.get("spill_stores") or v.get("spill_loads")]
             split = sorted(k for k in ptxas if k.endswith("mma_tf32x3"))
-            if name == "flash_attention_bwd" and split != sorted(
-                    f"flash_bwd_{kind} f32 D={d} {entry} mma_tf32x3"
-                    for kind in ("dkv", "dq") for d in (8, 16)
+            kinds = {"flash_attention": ("fwd",),
+                     "flash_attention_bwd": ("bwd_dkv", "bwd_dq")}[name]
+            if split != sorted(
+                    f"flash_{kind} f32 D={d} {entry} mma_tf32x3"
+                    for kind in kinds for d in (8, 16)
                     for entry in ("causal", "full")):
                 raise AssertionError(f"split-TF32 kernels in the ptxas "
-                                     f"log: {split}")
+                                     f"log of {name}: {split}")
         else:
             sources[name]["ptxas"] = ptxas = _build.ptxas_kernels(
                 log, _fit_kernel)
@@ -371,38 +383,36 @@ def check_fit_designs() -> dict:
 def check_designs() -> dict:
     """The design of each dtype and head dim in both directions: what each
     built library dispatches to (``iotml_flash_fwd_design``,
-    ``iotml_flash_bwd_design``) must be what ``flash_design`` says (which
-    designs those are, the CPU tests hold); the backward takes all three
-    designs."""
-    libs = {"forward": (
-        _build.load("flash_attention").iotml_flash_fwd_design,
-        ("fma", "wgmma")),
-        "backward": (
-        _build.load("flash_attention_bwd").iotml_flash_bwd_design,
-        BWD_DESIGNS)}
+    ``iotml_flash_bwd_design``, codes named by ``FLASH_DESIGNS``) must be
+    what ``flash_design`` says (which designs those are, the CPU tests
+    hold); each direction takes all three designs."""
+    libs = {"forward": _build.load("flash_attention").iotml_flash_fwd_design,
+            "backward":
+            _build.load("flash_attention_bwd").iotml_flash_bwd_design}
     designs = {}
     for code, dtype in enumerate(FLASH_DTYPES):
         for d in (8, 16, 128):
-            for direction, (lib_design, names) in libs.items():
-                built = names[lib_design(d, code)]
+            for direction, lib_design in libs.items():
+                built = FLASH_DESIGNS[lib_design(d, code)]
                 said = flash_design(dtype, d, direction)
                 if built != said:
                     raise AssertionError(
                         f"{direction} {dtype} D={d}: library {built}, "
                         f"flash_design {said}")
                 designs[f"{direction} {str(dtype)[6:]} D={d}"] = said
-    if set(v for k, v in designs.items() if k.startswith("backward")) != \
-            set(BWD_DESIGNS):
-        raise AssertionError(f"the backward does not take all three "
-                             f"designs: {designs}")
+    for direction in libs:
+        if set(v for k, v in designs.items() if k.startswith(direction)) \
+                != set(FLASH_DESIGNS):
+            raise AssertionError(f"the {direction} does not take all three "
+                                 f"designs: {designs}")
     return designs
 
 
 def check_tensor_core_sass() -> dict:
     """Tensor-core instructions in the SASS (``cuobjdump -sass``): HGMMA in
     each ``wgmma`` instantiation, forward and backward (six), and
-    HMMA…TF32 in each split-TF32 instantiation (eight: dK/dV and dQ, D=8
-    and 16, causal and full); raises unless each has some."""
+    HMMA…TF32 in each split-TF32 instantiation (twelve: the forward, dK/dV
+    and dQ, D=8 and 16, causal and full); raises unless each has some."""
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
     hgmma, hmma = {}, {}
     for name in FLASH_SOURCES:
@@ -423,7 +433,7 @@ def check_tensor_core_sass() -> dict:
                     re.findall(r"HMMA\S*TF32", part))
     if len(hgmma) != 6 or not all(hgmma.values()):
         raise AssertionError(f"HGMMA in the tensor-core kernels: {hgmma}")
-    if len(hmma) != 8 or not all(hmma.values()):
+    if len(hmma) != 12 or not all(hmma.values()):
         raise AssertionError(f"HMMA.TF32 in the split-TF32 kernels: {hmma}")
     return {"hgmma_per_wgmma_kernel": hgmma,
             "hmma_tf32_per_mma_kernel": hmma}
@@ -767,12 +777,24 @@ WGMMA_FWD_CASES = [
 ]
 
 
+#: the split-TF32 forward's cases (f32, D=8 and 16; the plain version at
+#: blocks 128 when causal, at the whole T when not, which a non-causal call
+#: needs to divide T): dtype, B, T, H, D, causal, block
+MMA_FWD_CASES = [(torch.float32, B, T, H, D, causal, 128 if causal else T)
+                 for D in (8, 16) for causal in (True, False)
+                 for T in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000,
+                           4096)
+                 for B, H in ((1, 1), (2, 3))]
+
+
 def phase_attention_kernel() -> dict:
     errs = {"causal": 0.0, "full": 0.0}
     wgmma_errs = {"o": 0.0, "o_row_rel": 0.0, "lse": 0.0}
+    mma_errs = {"o": 0.0, "lse": 0.0}
     cases = []
     for (dtype, B, T, H, D, causal, block), meant in (
             [(case, None) for case in ATTN_CASES]
+            + [(case, "mma_tf32x3") for case in MMA_FWD_CASES]
             + [(case, "wgmma") for case in WGMMA_FWD_CASES]):
         q, k, v = _qkv(B, T, H, D, dtype, seed=T + D)
         entry = "causal" if causal else "full"
@@ -795,6 +817,9 @@ def phase_attention_kernel() -> dict:
         if design == "wgmma":
             wgmma_errs = {key: max(wgmma_errs[key], err[key])
                           for key in wgmma_errs}
+        elif design == "mma_tf32x3":
+            mma_errs = {key: max(mma_errs[key], err[key])
+                        for key in mma_errs}
         cases.append({"case": tag, "block": block, "max_abs_err": err})
     q, k, v = _qkv(1, 40, 2, 8, torch.float32, seed=0)
     before = dict(flash_attention.launches)
@@ -808,6 +833,8 @@ def phase_attention_kernel() -> dict:
         raise AssertionError("a refused call counted a launch")
     emit({"phase": "attention_kernel", "cases": cases,
           "wgmma_max_abs_err": wgmma_errs,
+          "mma_tf32x3_cases": len(MMA_FWD_CASES),
+          "mma_tf32x3_max_abs_err": mma_errs,
           "tolerance": {"f32": "O, LSE rtol=atol=2e-5",
                         "bf16 fma": "O rtol=atol=2e-2 in f32, LSE atol 1e-3",
                         "bf16 wgmma": "each O row's error within 1e-2 of "

@@ -23,8 +23,8 @@ log-sum-exp the forward emits is ``[B, H, T]`` float32.
   ``flash_bwd_dq`` launch one backward kernel each on the folded
   ``[B·H, T, D]`` tensors ``flash_bwd_inputs`` makes; ``flash_design``
   says which design a call takes in each direction (tensor-core
-  ``wgmma`` for bfloat16 at D = 128; split-TF32 ``mma_tf32x3`` for the
-  float32 backward at D = 8, 16; fp32 ``fma`` otherwise).
+  ``wgmma`` for bfloat16 at D = 128; split-TF32 ``mma_tf32x3`` for
+  float32 at D = 8, 16; fp32 ``fma`` otherwise).
 - ``flash_attention``: an ``autograd.Function`` that saves
   ``(q, k, v, o, lse)`` and whose backward is ``flash_attention_bwd``.
 """
@@ -210,10 +210,10 @@ def flash_attention_backward_reference(q, k, v, o, lse, do,
     return tuple(t.to(dtype).permute(0, 2, 1, 3) for t in (dq, dk, dv))
 
 
-def _library(name: str, entries):
-    from . import _build
-
-    lib = _build.load(name)
+def _bind(lib: ctypes.CDLL, entries) -> ctypes.CDLL:
+    """``lib`` with the argument and return types of each flash entry in
+    ``entries`` (``(name, pointers)``): the pointers, five ints, the scale
+    and the stream, returning a CUDA error code."""
     for entry, n_ptr in entries:
         fn = getattr(lib, entry)
         if fn.argtypes is None:
@@ -221,6 +221,12 @@ def _library(name: str, entries):
             fn.argtypes = [ptr] * n_ptr + [i32] * 5 + [ctypes.c_float, ptr]
             fn.restype = ctypes.c_int
     return lib
+
+
+def _library(name: str, entries):
+    from . import _build
+
+    return _bind(_build.load(name), entries)
 
 
 def _check_inputs(what: str, ts, T: int, causal: bool, block_q: int,
@@ -266,9 +272,9 @@ def _check_cuda(what: str, t) -> None:
 
 def _aligned(ts):
     """``ts`` with each tensor that does not start on 16 bytes replaced by
-    an aligned copy: the tensor-core designs read by TMA or 16-byte
-    ``cp.async``, which need every tensor to start on 16 bytes, and a
-    view may not."""
+    an aligned copy: the tensor-core designs (both directions) read by
+    TMA or 16-byte ``cp.async``, which need every tensor to start on 16
+    bytes, and a view may not."""
     return tuple(t if t.data_ptr() % 16 == 0 else t.clone() for t in ts)
 
 
@@ -276,33 +282,35 @@ _FWD_ENTRIES = [("iotml_flash_fwd", 5)]
 _BWD_ENTRIES = [("iotml_flash_bwd_dkv", 8), ("iotml_flash_bwd_dq", 7)]
 
 
-#: what ``iotml_flash_bwd_design`` returns, by code
-BWD_DESIGNS = ("fma", "wgmma", "mma_tf32x3")
+#: the flash designs by code, as ``iotml_flash_fwd_design`` and
+#: ``iotml_flash_bwd_design`` return them (``csrc/flash_tiles.cuh``'s enum)
+FLASH_DESIGNS = ("fma", "wgmma", "mma_tf32x3")
 
 
 def flash_design(dtype: torch.dtype, head_dim: int,
                  direction: str) -> str:
     """Which design the flash kernels of ``direction`` ("forward" or
-    "backward") take for ``dtype`` and ``head_dim``:
+    "backward") take for ``dtype`` and ``head_dim``; both directions
+    follow one rule:
 
     - ``"wgmma"`` (bf16 tensor cores, TMA): bfloat16 at D = 128, the
-      long-context shape, both directions;
+      long-context shape;
     - ``"mma_tf32x3"`` (split-TF32 tensor cores, ``mma.sync``, three
-      tf32 products per product): float32 at D = 8 and 16, backward only;
-    - ``"fma"`` (fp32 FMA): everything else (the float32 forward,
-      float32 at D = 128, bfloat16 at D = 8, 16).
+      tf32 products per product): float32 at D = 8 and 16, the
+      SensorFormer layer;
+    - ``"fma"`` (fp32 FMA): everything else (float32 at D = 128,
+      bfloat16 at D = 8, 16).
 
-    ``csrc/flash_tiles.cuh`` states the same rules (``tensor_core_design``
-    for the forward, ``bwd_design`` for the backward), and the libraries
-    report them (``iotml_flash_fwd_design``, ``iotml_flash_bwd_design``).
+    ``csrc/flash_tiles.cuh`` states the same rules (``fwd_design``,
+    ``bwd_design``), and the libraries report them
+    (``iotml_flash_fwd_design``, ``iotml_flash_bwd_design``).
     """
     if direction not in ("forward", "backward"):
         raise ValueError(f"direction must be 'forward' or 'backward', got "
                          f"{direction!r}")
     if dtype == torch.bfloat16 and head_dim == 128:
         return "wgmma"
-    if direction == "backward" and dtype == torch.float32 \
-            and head_dim in (8, 16):
+    if dtype == torch.float32 and head_dim in (8, 16):
         return "mma_tf32x3"
     return "fma"
 
@@ -318,7 +326,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True, block_q: int = 128,
     non-causal ragged check; the kernel tiles with its own sizes (f32
     results agree to rounding; bf16 ones to the rounding of P, which
     depends on the running max at each tile: the ``wgmma`` design's key
-    tile is 64 rows).
+    tile is 64 rows).  A failed build or launch raises; nothing falls
+    back to another design.
     """
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, block_q, block_k)

@@ -18,13 +18,18 @@
 // (SensorFormer: T = 4096, D = 16; long context: T = 65,536, D = 128)
 // operations bound it, not bytes.  At the long causal shape (bf16, B = 1,
 // H = 2) that is 2.199e12 flops: 2.224 ms at the tensor cores' 989
-// TFLOP/s, 4.447 ms without the mask.
+// TFLOP/s, 4.447 ms without the mask.  In float32 the split-TF32 products
+// cost three tf32 products each: at the SensorFormer layer (B*H = 400,
+// T = 4096, causal) 1.302 ms at 495 TFLOP/s / 3 (the fp32 FMA floor:
+// 3.206 ms); its one ex2 a live pair floors it at 0.80 ms on the SFU
+// alone.
 //
-// Two designs, chosen by (dtype, D) in iotml_flash_fwd below
-// (tensor_core_design in flash_tiles.cuh, the backward's rule too;
-// iotml_flash_fwd_design reports it):
+// Three designs, chosen by (dtype, D) in iotml_flash_fwd below
+// (fwd_design in flash_tiles.cuh; iotml_flash_fwd_design reports it):
 // - bf16 at D = 128: the tensor-core kernel (namespace tc, below);
-// - float32 (D = 8, 16, 128) and bf16 at D = 8, 16: the FMA kernel.
+// - float32 at D = 8, 16: the split-TF32 mma.sync kernel (namespace
+//   tf32x3, below);
+// - float32 at D = 128 and bf16 at D = 8, 16: the FMA kernel.
 //
 // The FMA kernel does its products with fp32 FMA on the CUDA cores
 // (67 TFLOP/s on an H100 SXM).  One block of 128 threads owns 64 query
@@ -71,6 +76,37 @@
 // key in.  A thread holds O (64 f32 registers), two S (32 each) and P
 // (16): 256 threads a block, one block an SM.
 //
+// The split-TF32 kernel (float32, D = 8 and 16, the SensorFormer layer)
+// replaces the FMA kernel there, on the backward's blocks (mma_tf32.cuh).
+// What held the FMA kernel back, and what this one does about it:
+// - products on the CUDA cores, fed by scalar shared loads: here S = Q K^T
+//   and O += P V are m16n8k8 tf32 mma.sync, each f32 operand split as
+//   hi + lo and each product a_lo b_hi + a_hi b_lo + a_hi b_hi (three
+//   mmas, ~2^-21 relative: within O's and the LSE's 2e-5); one 128-bit
+//   shared load brings a B fragment's b0, b1, hi and lo, and feeds the
+//   warp's two m16 tiles (six mmas).
+// - P through shared memory behind a barrier: the online softmax runs in
+//   registers on S's C fragment (a row's 64 keys lie in the 4 lanes of a
+//   quad: two shuffles for the max, two for the sum), and the C fragment
+//   is P V's A fragment with no shuffle (mma_tf32.cuh).  l sums p in f32
+//   before p is split.
+// - the tensor cores' truncating f32 accumulation: S and each step's P V
+//   sum start at 0 in registers; o = o * corr + sum by IEEE ops.
+// - the accurate expf's cost beside the mmas: p = exp2f((s - m) log2 e),
+//   one ex2 and a multiply, within O's 2e-5 by far (fwd_step).
+// - synchronous staging (a div/mod per element between two barriers):
+//   each thread copies its share of the next step's K and V by cp.async,
+//   16-byte chunks, into a raw stage while the current step runs, then
+//   splits its own chunks into hi and lo in one of two split buffers (K
+//   in the order S reads it, V in the order P V reads it); one barrier a
+//   step.
+// Shape: 128 threads, four warps of two m16 tiles (32 query rows; Q as
+// hi/lo A fragments in registers), 128 query rows a block, key steps of
+// 64, two blocks an SM.  What stays: the heaviest query tiles first, the
+// causal stop at the block's last row, masks only in steps that straddle
+// the diagonal or the ragged end (cp.async fills keys past T with zeros),
+// and a warp skips the steps it has no live key in.
+//
 // Exactness, as the TPU kernels have it: scores are f32 sums of
 // input-dtype products (exact in f32 for bf16), scaled after Q K^T;
 // masked scores are NEG_INF = -1e30, not -inf; alive = m_new > NEG_INF/2
@@ -78,10 +114,11 @@
 // before P V, with f32 accumulation; o = acc / (l == 0 ? 1 : l) and
 // lse = l == 0 ? NEG_INF : m + log(l).  Sums run in a fixed order with no
 // atomics, so runs repeat bit for bit.  Build without --use_fast_math:
-// expf, logf and the division must be the accurate ones.  The
-// tensor-core kernel keeps all of it: the scale is applied with
+// expf, logf and the division must be the accurate ones (the split-TF32
+// kernel's p is the one exp2f, above).  The
+// tensor-core kernels keep all of it: the scale is applied with
 // __fmul_rn, so it cannot fuse into the subtraction of m; l sums p
-// before p is rounded to bf16 in the A fragment.
+// before p is rounded to bf16 (or split) in the A fragment.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,6 +127,7 @@
 
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -281,20 +319,22 @@ int launch_entry(int causal, const void* q, const void* k, const void* v,
                 : launch<Elt, D, false>(q, k, v, o, lse, bh, T, scale, stream);
 }
 
+// The FMA kernel's (dtype, d): float32 at D = 128, bfloat16 at D = 8, 16
+// (float32 at D = 8, 16 and bfloat16 at D = 128 take the other designs)
 template <typename Elt>
 int launch_dim(int d, int causal, const void* q, const void* k, const void* v,
                void* o, float* lse, int bh, int T, float scale,
                cudaStream_t stream) {
-  switch (d) {
-    case 8: return launch_entry<Elt, 8>(causal, q, k, v, o, lse, bh, T, scale, stream);
-    case 16: return launch_entry<Elt, 16>(causal, q, k, v, o, lse, bh, T, scale, stream);
-    case 128:
-      // bf16 at D = 128 runs the tensor-core kernel, not this one
-      if constexpr (std::is_same<Elt, float>::value)
-        return launch_entry<Elt, 128>(causal, q, k, v, o, lse, bh, T, scale, stream);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<Elt, float>::value) {
+    if (d == 128)
+      return launch_entry<Elt, 128>(causal, q, k, v, o, lse, bh, T, scale, stream);
+  } else {
+    if (d == 8)
+      return launch_entry<Elt, 8>(causal, q, k, v, o, lse, bh, T, scale, stream);
+    if (d == 16)
+      return launch_entry<Elt, 16>(causal, q, k, v, o, lse, bh, T, scale, stream);
   }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------------
@@ -585,7 +625,274 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace tc
 
-using flash_tiles::tensor_core_design;
+// ------------------------------------------------------------------------
+// The split-TF32 kernel: float32, D = 8 and 16
+// ------------------------------------------------------------------------
+namespace tf32x3 {
+
+using mma_tf32::as_a;
+using mma_tf32::BFrag;
+using mma_tf32::frag_at;
+using mma_tf32::layout_a;
+using mma_tf32::layout_b;
+using mma_tf32::mma3;
+
+constexpr int kThreads = 128;  // four warps
+constexpr int kMT = 2;         // m16 query tiles a warp holds
+constexpr int kWarpRows = 16 * kMT;
+constexpr int kBQ = kThreads / 32 * kWarpRows;  // query rows a block holds
+constexpr int kStep = 64;      // key rows a step streams
+constexpr int kMinBlocks = 2;  // blocks an SM holds (registers <= 255)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The streamed K and V tiles (mma_tf32.cuh): K in layout A (S = Q K^T sums
+// over d), V in layout B (O += P V sums over the keys).
+template <int D>
+using Stream = mma_tf32::Stream<D, kStep, kThreads, true, false, false, true>;
+
+// A block's shared memory, in floats: the raw stage (the next step's K and
+// V land there while a step runs), then two split buffers (a step reads
+// one while the next is split into the other).
+template <int D>
+struct Smem {
+  static constexpr int kBuf0 = Stream<D>::kRaw;
+  static constexpr int kBuf = Stream<D>::kBuf;
+  static constexpr int kBytes = 4 * (kBuf0 + 2 * kBuf);
+};
+
+// One key step for one warp: its kMT m16 query tiles (rows from qa, Q as
+// hi/lo A fragments) against keys [k0, k0 + kStep) of split buffer `buf`.
+// S = Q K^T lands in fresh registers, 8 keys a slice (element e of slice j
+// of tile i: query row qa + 16 i + g + 8 (e / 2), key k0 + 8 j + 2 t + e %
+// 2).  The online softmax runs there: a row's 64 keys lie in the 4 lanes of
+// a quad.  P, split into hi and lo, is the A fragment of P V; the step's
+// P V sum starts at 0 in registers and joins o as o * corr + sum, by IEEE
+// ops, so the tensor cores' own accumulation covers one step.  kMask: the
+// step straddles the diagonal or the ragged end, so pairs are tested one
+// by one.
+template <int D, bool kCausal, bool kMask>
+__device__ __forceinline__ void fwd_step(float (&o)[kMT][D / 8][4],
+                                         float (&m)[kMT][2],
+                                         float (&l)[kMT][2],
+                                         const uint32_t (&q_hi)[kMT][D / 8][4],
+                                         const uint32_t (&q_lo)[kMT][D / 8][4],
+                                         const float* buf, int qa, int k0,
+                                         int T, float scale) {
+  constexpr int NT = D / 8;
+  constexpr int kJ = kStep / 8;
+  const float* k_a = buf;
+  const float* v_b = buf + Stream<D>::kLayout;
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+
+  float s[kMT][kJ][4];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const BFrag kf = frag_at(k_a, layout_a<D>(8 * j + g, 4 * kk + t));
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) mma3(s[i][j], q_hi[i][kk], q_lo[i][kk], kf);
+    }
+  }
+
+  float corr[kMT][2];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i) {
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // rounded as the plain version rounds: s * scale, then - m
+        const float x = __fmul_rn(s[i][j][e], scale);
+        if (kMask) {
+          const int qi = qa + 16 * i + g + 8 * (e / 2);
+          const int kj = k0 + 8 * j + 2 * t + e % 2;
+          s[i][j][e] = kj < T && (!kCausal || qi >= kj) ? x : kNegInf;
+        } else {
+          s[i][j][e] = x;
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the row's 16 values here as a tree, then the quad's other lanes
+      float tree[kJ];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        tree[j] = fmaxf(s[i][j][2 * h], s[i][j][2 * h + 1]);
+#pragma unroll
+      for (int w = kJ / 2; w >= 1; w /= 2)
+#pragma unroll
+        for (int j = 0; j < w; ++j) tree[j] = fmaxf(tree[j], tree[j + w]);
+      float mx = fmaxf(m[i][h], tree[0]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const bool alive = mx > kNegInf / 2;
+      const float c = expf(m[i][h] - mx);
+      corr[i][h] = alive ? c : 0.f;
+      // every exp is computed and then selected, so that the compiler has
+      // no reason to branch around it.  p = 2^((s - m) log2 e): the
+      // product's rounding moves p by |s - m| 2^-24 relative (6e-7 at
+      // s - m = -10), far inside O's 2e-5, and exp2f beside it costs less
+      // than the accurate expf (scripts/fwd_tf32_variants.py, PERF.md)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const float p = exp2f((s[i][j][e] - mx) * kLog2e);
+          s[i][j][e] = alive ? p : 0.f;
+        }
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) tree[j] = s[i][j][2 * h] + s[i][j][2 * h + 1];
+#pragma unroll
+      for (int w = kJ / 2; w >= 1; w /= 2)
+#pragma unroll
+        for (int j = 0; j < w; ++j) tree[j] += tree[j + w];
+      float sum = tree[0];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      // l sums p in f32 before p is split
+      l[i][h] = __fmul_rn(l[i][h], corr[i][h]) + sum;
+      m[i][h] = mx;
+    }
+  }
+
+  // O += P V over this step's keys, 8 a slice (row pair 4j + t holds keys
+  // 8j + 2t and + 1, the keys of A slots t and t + 4)
+  float o_step[kMT][NT][4] = {};
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    uint32_t pa_hi[kMT][4], pa_lo[kMT][4];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) as_a(s[i][j], pa_hi[i], pa_lo[i]);
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn) {
+      const BFrag vf = frag_at(v_b, layout_b<D>(4 * j + t, 8 * nn + g));
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        mma3(o_step[i][nn], pa_hi[i], pa_lo[i], vf);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int nn = 0; nn < NT; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[i][nn][e] = __fmul_rn(o[i][nn][e], corr[i][e / 2]) + o_step[i][nn][e];
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flash_fwd_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int BH, int T, float scale) {
+  using S = Smem<D>;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t raw0 = hopper::smem_u32(smem);
+
+  // every head's last query tile (the most causal work) first
+  const int nq = (T + kBQ - 1) / kBQ;
+  const int bh = blockIdx.x % BH;
+  const int tile = blockIdx.x / BH;
+  const int q0 = (kCausal ? nq - 1 - tile : tile) * kBQ;
+  // keys [0, kv_end): the causal entry stops at the block's last row
+  const int kv_end = kCausal ? min(q0 + kBQ, T) : T;
+  const int n_steps = (kv_end + kStep - 1) / kStep;
+  const size_t head = (size_t)bh * T * D;
+
+  auto load = [&](int i) {
+    Stream<D>::load(raw0, k + head, v + head, i * kStep, T, i < n_steps);
+    mma_tf32::cp_async_commit();
+  };
+  load(0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qa = q0 + kWarpRows * warp;  // the warp's first query row
+  uint32_t q_hi[kMT][NT][4], q_lo[kMT][NT][4];
+  mma_tf32::held_rows(q_hi, q_lo, q + head, qa, T);
+  float o_acc[kMT][NT][4] = {}, m[kMT][2], l[kMT][2];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[i][h] = kNegInf;
+      l[i][h] = 0.f;
+    }
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int k0 = i * kStep;
+    float* buf = smem + S::kBuf0 + (i % 2) * S::kBuf;
+    mma_tf32::cp_async_wait<0>();
+    Stream<D>::split(smem, buf);
+    // buf is whole, and every warp is past step i - 1, so buffer
+    // (i + 1) % 2 may be rewritten; the raw stage is free (each thread
+    // split its own copies), and step i + 1's copies land there while
+    // step i runs
+    __syncthreads();
+    load(i + 1);
+    // no live pair: query rows past T, or (causal) every key after every
+    // query row
+    const bool dead = qa >= T || (kCausal && k0 > qa + kWarpRows - 1);
+    if (!dead) {
+      const bool edge = (kCausal && k0 + kStep - 1 > qa) || k0 + kStep > T;
+      if (edge)
+        fwd_step<D, kCausal, true>(o_acc, m, l, q_hi, q_lo, buf, qa, k0, T,
+                                   scale);
+      else
+        fwd_step<D, kCausal, false>(o_acc, m, l, q_hi, q_lo, buf, qa, k0, T,
+                                    scale);
+    }
+  }
+
+  // o = acc / l and lse = m + log(l); rows past T are not written
+  const int g = lane / 4;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float safe_l = l[i][h] == 0.f ? 1.f : l[i][h];
+#pragma unroll
+      for (int nn = 0; nn < NT; ++nn) {
+        o_acc[i][nn][2 * h] /= safe_l;
+        o_acc[i][nn][2 * h + 1] /= safe_l;
+      }
+      const int qi = qa + 16 * i + g + 8 * h;
+      if (qi < T && lane % 4 == 0)
+        lse[(size_t)bh * T + qi] =
+            l[i][h] == 0.f ? kNegInf : m[i][h] + logf(safe_l);
+    }
+  mma_tf32::store_rows(o + head, o_acc, qa, T);
+}
+
+template <int D>
+int launch(int causal, const void* q, const void* k, const void* v, void* o,
+           float* lse, int bh, int T, float scale, cudaStream_t stream) {
+  // cp.async copies 16-byte chunks: every [T][D] tensor starts on 16 bytes
+  if (flash_tiles::misaligned(q) || flash_tiles::misaligned(k) ||
+      flash_tiles::misaligned(v))
+    return (int)cudaErrorMisalignedAddress;
+  auto kernel = causal ? flash_fwd_mma_kernel<D, true>
+                       : flash_fwd_mma_kernel<D, false>;
+  constexpr int smem = Smem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (T + kBQ - 1) / kBQ;
+  kernel<<<tiles * bh, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, bh, T,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32x3
+
+using flash_tiles::fwd_design;
 
 }  // namespace
 
@@ -597,9 +904,18 @@ extern "C" int iotml_flash_fwd(const void* q, const void* k, const void* v,
                                void* stream) {
   if (bh < 1 || bh > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_core_design(dtype, d))
-    return causal ? tc::launch<true>(q, k, v, o, lse, bh, T, scale, s)
-                  : tc::launch<false>(q, k, v, o, lse, bh, T, scale, s);
+  switch (fwd_design(dtype, d)) {
+    case flash_tiles::kWgmma:
+      return causal ? tc::launch<true>(q, k, v, o, lse, bh, T, scale, s)
+                    : tc::launch<false>(q, k, v, o, lse, bh, T, scale, s);
+    case flash_tiles::kMmaTf32x3:
+      return d == 8
+                 ? tf32x3::launch<8>(causal, q, k, v, o, lse, bh, T, scale, s)
+                 : tf32x3::launch<16>(causal, q, k, v, o, lse, bh, T, scale,
+                                      s);
+    default:
+      break;
+  }
   switch (dtype) {
     case 0: return launch_dim<float>(d, causal, q, k, v, o, lse, bh, T, scale, s);
     case 1: return launch_dim<__nv_bfloat16>(d, causal, q, k, v, o, lse, bh, T, scale, s);
@@ -607,19 +923,26 @@ extern "C" int iotml_flash_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// 1 where (d, dtype) runs the tensor-core kernel, 0 the FMA one, -1 for
-// what the kernels are not built for.
+// The design (d, dtype) runs: 0 the FMA kernel, 1 the wgmma one, 2 the
+// split-TF32 one (flash_tiles::fwd_design); -1 for what the kernels are
+// not built for.
 extern "C" int iotml_flash_fwd_design(int d, int dtype) {
   if ((d != 8 && d != 16 && d != 128) || (dtype != 0 && dtype != 1))
     return -1;
-  return tensor_core_design(dtype, d) ? 1 : 0;
+  return fwd_design(dtype, d);
 }
 
 // Dynamic shared memory of one block, in bytes, at head dim d and dtype
 // (0 float32, 1 bfloat16); -1 for what the kernels are not built for.
 extern "C" int iotml_flash_fwd_smem(int d, int dtype) {
-  const int design = iotml_flash_fwd_design(d, dtype);
-  if (design < 0) return -1;
-  if (design == 1) return (int)tc::Smem::kBytes;
-  return smem_floats(d) * (int)sizeof(float);
+  switch (iotml_flash_fwd_design(d, dtype)) {
+    case flash_tiles::kWgmma:
+      return (int)tc::Smem::kBytes;
+    case flash_tiles::kMmaTf32x3:
+      return d == 8 ? tf32x3::Smem<8>::kBytes : tf32x3::Smem<16>::kBytes;
+    case flash_tiles::kFma:
+      return smem_floats(d) * (int)sizeof(float);
+    default:
+      return -1;
+  }
 }

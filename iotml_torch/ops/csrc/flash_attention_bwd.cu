@@ -939,8 +939,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 // ------------------------------------------------------------------------
 namespace tf32x3 {
 
+using mma_tf32::as_a;
 using mma_tf32::BFrag;
+using mma_tf32::frag_at;
+using mma_tf32::held_rows;
+using mma_tf32::layout_a;
+using mma_tf32::layout_b;
 using mma_tf32::mma3;
+using mma_tf32::store_rows;
 
 constexpr int kThreads = 128;  // four warps
 constexpr int kMT = 2;          // m16 tiles a warp holds
@@ -950,62 +956,29 @@ constexpr int kHeld = kThreads / 32 * kWarpRows;
 constexpr int kStep = 64;  // rows a step streams: q (dK/dV), keys (dQ)
 constexpr int kMinBlocks = 2;  // blocks an SM holds (registers <= 255)
 
+// The two streamed tiles (mma_tf32.cuh): kDkv, the dK/dV kernel's q and
+// dO, each in both layouts (S^T, dP^T read layout A; dV, dK layout B);
+// else the dQ kernel's K (A for S, B for dQ) and V (A for dP).
+template <int D, bool kDkv>
+using Stream = mma_tf32::Stream<D, kStep, kThreads, true, true, true, kDkv>;
+
 // A block's shared memory, in floats; kDkv: the dK/dV kernel's (q, dO,
 // lse, delta), else the dQ kernel's (K, V).  The raw stage: the two
-// streamed [kStep][D] tiles as copied and, with kDkv, their lse and delta
-// rows; the next step's copies land there while a step runs.  Two split
-// buffers (a step reads one while the next is split into the other), each
-// holding every streamed tile split into hi and lo twice, in the two
-// orders the B fragments read them, as float4s that one 128-bit load
-// brings in whole (b0 and b1, hi and lo):
-// - by row, "layout A" (products summing over d: S, dP): float4 (r, s)
-//   of row r holds d = 8 (s / 4) + s % 4 and that d + 4, hi then lo;
-// - by row pair, "layout B" (products summing over the rows: dV, dK, dQ):
-//   float4 (p, n) holds rows 2p and 2p + 1 of column n, hi then lo;
-// then the lse and delta rows.  Within a row (A) or row pair (B) the
-// float4s are permuted (layout_a, layout_b) so that a warp's fragment
-// reads and the split's stores each fall on distinct banks.  Only the
-// tiles that a B product reads get layout B (dK/dV: both; dQ: K).  The
-// raw stage is unit-major: chunk k of thread u's unit at float4 k * kUnits
-// + u, so the split's reads are conflict-free too.
+// streamed tiles as copied and, with kDkv, their lse and delta rows; the
+// next step's copies land there while a step runs.  Two split buffers (a
+// step reads one while the next is split into the other), each holding
+// the streamed tiles' layouts (Stream) and then, with kDkv, the lse and
+// delta rows.
 template <int D, bool kDkv>
 struct Smem {
-  static constexpr int kRaw = 2 * kStep * D + (kDkv ? 2 * kStep : 0);
-  static constexpr int kLayout = 2 * kStep * D;  // one tile, hi and lo
-  static constexpr int kBuf =
-      (kDkv ? 4 : 3) * kLayout + (kDkv ? 2 * kStep : 0);
+  using St = Stream<D, kDkv>;
+  static constexpr int kRaw = St::kRaw + (kDkv ? 2 * kStep : 0);
+  static constexpr int kLayout = St::kLayout;
+  static constexpr int kBuf = St::kBuf + (kDkv ? 2 * kStep : 0);
   static constexpr int kBuf0 = kRaw;
   static constexpr int kFloats = kBuf0 + 2 * kBuf;
   static constexpr int kBytes = kFloats * 4;
-  // a thread's unit of copy and split: rows 2p, 2p + 1 by 8 columns
-  static constexpr int kUnitsPerTile = kStep / 2 * D / 8;
-  static constexpr int kUnits = 2 * kUnitsPerTile;
 };
-
-// float4 offsets of the two layouts within one tile's layout block.  A
-// 128-byte row of 8 float4s (D = 16) is one pass over the 32 banks.
-// Layout A: a read takes rows g (lane / 4) by slot t (lane % 4), a split
-// store rows 2p + h by slot 4 cg + t (lanes (p, cg)); slot s ^ f(r) with
-// f(r) = (r / 2) % 4 + 4 (r % 2) keeps 8 lanes on 8 float4s in both.  At
-// D = 8 two rows make 128 bytes and the reads need no permutation.
-template <int D>
-__device__ __forceinline__ int layout_a(int r, int s) {
-  return r * (D / 2) +
-         (D == 16 ? s ^ (((r >> 1) & 3) | ((r & 1) << 2)) : s);
-}
-// Layout B: a read takes row pair 4j + t by column 8 nn + g, a split
-// store row pairs p by columns 8 cg + i; column n ^ (2 (p % 4) ^ n / 8)
-// keeps both on distinct float4s.
-template <int D>
-__device__ __forceinline__ int layout_b(int p, int n) {
-  return p * D + (n ^ ((2 * (p & 3)) ^ ((n >> 3) & 1)));
-}
-
-// The B fragment at float4 `at` of a layout
-__device__ __forceinline__ BFrag frag_at(const float* layout, int at) {
-  const uint4 f = reinterpret_cast<const uint4*>(layout)[at];
-  return {f.x, f.y, f.z, f.w};
-}
 
 // Thread x's units (with kDkv, lse and delta rows too) of step rows
 // [r0, r0 + kStep) of the two [T][D] tensors a and b into the raw stage
@@ -1015,22 +988,7 @@ __device__ __forceinline__ void load_step(uint32_t raw, const float* a,
                                           const float* b, const float* lse,
                                           const float* delta, int r0, int T,
                                           bool any) {
-  using S = Smem<D, kDkv>;
-  for (int u = threadIdx.x; any && u < S::kUnits; u += kThreads) {
-    const int tensor = u / S::kUnitsPerTile, w = u % S::kUnitsPerTile;
-    const int p = w / (D / 8), c8 = 8 * (w % (D / 8));
-    const float* src = tensor ? b : a;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 2 * p + h;
-      const bool in = r0 + r < T;
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        mma_tf32::cp_async16(
-            raw + 16 * ((2 * h + c) * S::kUnits + u),
-            src + (in ? (size_t)(r0 + r) * D + c8 + 4 * c : 0), in);
-    }
-  }
+  Stream<D, kDkv>::load(raw, a, b, r0, T, any);
   for (int u = threadIdx.x; kDkv && any && u < 2 * kStep; u += kThreads) {
     const int x = u % kStep;
     const bool in = r0 + x < T;
@@ -1041,65 +999,14 @@ __device__ __forceinline__ void load_step(uint32_t raw, const float* a,
 }
 
 // Thread x's units of the raw stage (landed: it copied them) split into hi
-// and lo in both layouts of split buffer `buf`: [a: A, B][b: A, B][lse]
-// [delta].
+// and lo in the layouts of split buffer `buf`: [a: A, B][b: A, B] (dQ: no
+// b B), then (kDkv) the lse and delta rows.
 template <int D, bool kDkv>
 __device__ __forceinline__ void split_step(const float* raw, float* buf) {
   using S = Smem<D, kDkv>;
-  for (int u = threadIdx.x; u < S::kUnits; u += kThreads) {
-    const int tensor = u / S::kUnitsPerTile, w = u % S::kUnitsPerTile;
-    const int p = w / (D / 8), cg = w % (D / 8);
-    float hi[2][8], lo[2][8];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 8; c += 4) {
-        float4 fh, fl;
-        mma_tf32::split4(reinterpret_cast<const float4*>(
-                             raw)[(2 * h + c / 4) * S::kUnits + u],
-                         fh, fl);
-        hi[h][c] = fh.x; hi[h][c + 1] = fh.y;
-        hi[h][c + 2] = fh.z; hi[h][c + 3] = fh.w;
-        lo[h][c] = fl.x; lo[h][c + 1] = fl.y;
-        lo[h][c + 2] = fl.z; lo[h][c + 3] = fl.w;
-      }
-    // [a: A, B][b: A(, B)]
-    float4* la = reinterpret_cast<float4*>(buf + 2 * tensor * S::kLayout);
-    float4* lb = la + S::kLayout / 4;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        la[layout_a<D>(2 * p + h, 4 * cg + t)] =
-            make_float4(hi[h][t], hi[h][t + 4], lo[h][t], lo[h][t + 4]);
-    if (kDkv || tensor == 0)
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        lb[layout_b<D>(p, 8 * cg + i)] =
-            make_float4(hi[0][i], hi[1][i], lo[0][i], lo[1][i]);
-  }
+  Stream<D, kDkv>::split(raw, buf);
   for (int u = threadIdx.x; kDkv && u < 2 * kStep; u += kThreads)
     buf[4 * S::kLayout + u] = raw[2 * kStep * D + u];
-}
-
-// The A fragments (hi, lo) of a warp's held rows: kMT m16 tiles from r0
-// of a [T][D] tensor, for each 8-wide slice of d; zeros past T.
-template <int D>
-__device__ __forceinline__ void held_rows(uint32_t (&hi)[kMT][D / 8][4],
-                                          uint32_t (&lo)[kMT][D / 8][4],
-                                          const float* src, int r0, int T) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-#pragma unroll
-  for (int m = 0; m < kMT; ++m)
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + 16 * m + g + 8 * (e % 2);
-        const int d = 8 * kk + t + 4 * (e / 2);
-        mma_tf32::split(r < T ? src[(size_t)r * D + d] : 0.f, hi[m][kk][e],
-                        lo[m][kk][e]);
-      }
 }
 
 // p (in place of s) and ds (in place of dp) of one [16 x 8] fragment:
@@ -1126,16 +1033,6 @@ __device__ __forceinline__ void p_and_ds(float (&s)[4], float (&dp)[4],
   }
 }
 
-// A C fragment as the A fragment (hi, lo) of a product summing over its
-// columns: {c0, c2, c1, c3} (mma_tf32.cuh)
-__device__ __forceinline__ void as_a(const float (&c)[4], uint32_t (&hi)[4],
-                                     uint32_t (&lo)[4]) {
-  mma_tf32::split(c[0], hi[0], lo[0]);
-  mma_tf32::split(c[2], hi[1], lo[1]);
-  mma_tf32::split(c[1], hi[2], lo[2]);
-  mma_tf32::split(c[3], hi[3], lo[3]);
-}
-
 // acc += step, element by element (IEEE adds)
 template <int D>
 __device__ __forceinline__ void add_step(float (&acc)[kMT][D / 8][4],
@@ -1146,27 +1043,6 @@ __device__ __forceinline__ void add_step(float (&acc)[kMT][D / 8][4],
     for (int nn = 0; nn < D / 8; ++nn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][nn][e] += step[m][nn][e];
-}
-
-// Rows [r0, r0 + 16 kMT) of a [T][D] output from a warp's kMT x D/8
-// accumulator fragments (rows g, g + 8 of each m16 tile, columns 2t, 2t +
-// 1 of each n8 tile); rows past T are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(float* out,
-                                           const float (&acc)[kMT][D / 8][4],
-                                           int r0, int T) {
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-#pragma unroll
-  for (int m = 0; m < kMT; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 16 * m + g + 8 * h;
-      if (r >= T) continue;
-#pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn)
-        *reinterpret_cast<float2*>(out + (size_t)r * D + 8 * nn + 2 * t) =
-            make_float2(acc[m][nn][2 * h], acc[m][nn][2 * h + 1]);
-    }
 }
 
 // One q step of the dK/dV kernel for one warp: its 16 kMT key rows (from
@@ -1278,8 +1154,8 @@ flash_bwd_dkv_mma_kernel(const float* __restrict__ q,
   const int ka = k0 + kWarpRows * warp;  // the warp's first key row
   uint32_t k_hi[kMT][NT][4], k_lo[kMT][NT][4], v_hi[kMT][NT][4],
       v_lo[kMT][NT][4];
-  held_rows<D>(k_hi, k_lo, k + head, ka, T);
-  held_rows<D>(v_hi, v_lo, v + head, ka, T);
+  held_rows(k_hi, k_lo, k + head, ka, T);
+  held_rows(v_hi, v_lo, v + head, ka, T);
   float dk_acc[kMT][NT][4] = {}, dv_acc[kMT][NT][4] = {};
 
   for (int i = 0; i < n_steps; ++i) {
@@ -1308,8 +1184,8 @@ flash_bwd_dkv_mma_kernel(const float* __restrict__ q,
   }
 
   // every key row the block owns is written, rows no q tile reached too
-  store_rows<D>(dk + head, dk_acc, ka, T);
-  store_rows<D>(dv + head, dv_acc, ka, T);
+  store_rows(dk + head, dk_acc, ka, T);
+  store_rows(dv + head, dv_acc, ka, T);
 }
 
 // One key step of the dQ kernel for one warp: its 16 kMT query rows (from
@@ -1409,8 +1285,8 @@ flash_bwd_dq_mma_kernel(const float* __restrict__ q,
   const int qa = q0 + kWarpRows * warp;  // the warp's first query row
   uint32_t q_hi[kMT][NT][4], q_lo[kMT][NT][4], do_hi[kMT][NT][4],
       do_lo[kMT][NT][4];
-  held_rows<D>(q_hi, q_lo, q + head, qa, T);
-  held_rows<D>(do_hi, do_lo, dout + head, qa, T);
+  held_rows(q_hi, q_lo, q + head, qa, T);
+  held_rows(do_hi, do_lo, dout + head, qa, T);
   float lse_r[kMT][2], delta_r[kMT][2];
 #pragma unroll
   for (int m = 0; m < kMT; ++m)
@@ -1444,7 +1320,7 @@ flash_bwd_dq_mma_kernel(const float* __restrict__ q,
     }
   }
 
-  store_rows<D>(dq + head, dq_acc, qa, T);
+  store_rows(dq + head, dq_acc, qa, T);
 }
 
 // cp.async copies 16-byte chunks: every [T][D] tensor starts on 16 bytes
@@ -1525,9 +1401,9 @@ int dispatch(int bh, int T, int dtype, int d, int causal, Fma fma, Tc tc,
              Mma mma) {
   if (bh < 1 || bh > 65535 || T < 1) return (int)cudaErrorInvalidValue;
   switch (bwd_design(dtype, d)) {
-    case flash_tiles::kBwdWgmma:
+    case flash_tiles::kWgmma:
       return tc(causal != 0);
-    case flash_tiles::kBwdMmaTf32x3:
+    case flash_tiles::kMmaTf32x3:
       return d == 8 ? pick_causal<float, 8>(causal, mma)
                     : pick_causal<float, 16>(causal, mma);
     default:
@@ -1613,15 +1489,15 @@ extern "C" int iotml_flash_bwd_design(int d, int dtype) {
 // for what the kernels are not built for.
 extern "C" int iotml_flash_bwd_smem(int d, int kind, int dtype) {
   switch (iotml_flash_bwd_design(d, dtype)) {
-    case flash_tiles::kBwdWgmma:
+    case flash_tiles::kWgmma:
       return (int)(kind == 0 ? tc::DkvSmem::kBytes : tc::DqSmem::kBytes);
-    case flash_tiles::kBwdMmaTf32x3:
+    case flash_tiles::kMmaTf32x3:
       if (d == 8)
         return kind == 0 ? tf32x3::Smem<8, true>::kBytes
                          : tf32x3::Smem<8, false>::kBytes;
       return kind == 0 ? tf32x3::Smem<16, true>::kBytes
                        : tf32x3::Smem<16, false>::kBytes;
-    case flash_tiles::kBwdFma:
+    case flash_tiles::kFma:
       return (kind == 0 ? dkv_smem_floats(d) : dq_smem_floats(d)) *
              (int)sizeof(float);
     default:

@@ -14,22 +14,24 @@
 
 namespace flash_tiles {
 
-// The design rules, one for each direction;
-// iotml_torch/ops/attention.py::flash_design states the same rules.
+// The design rules, one for each direction, on one set of codes;
+// iotml_torch/ops/attention.py::flash_design states the same rules, and
+// FLASH_DESIGNS there names the codes in this order.
+enum Design : int { kFma = 0, kWgmma = 1, kMmaTf32x3 = 2 };
+
 // Forward: dtype 1 (bfloat16) at D = 128 takes the tensor-core (wgmma)
-// kernel; every other (dtype, d) the FMA one.
-__host__ __device__ constexpr bool tensor_core_design(int dtype, int d) {
-  return dtype == 1 && d == 128;
+// kernel, dtype 0 (float32) at D = 8 and 16 the split-TF32 mma.sync
+// kernel, every other (dtype, d) the FMA one.
+__host__ __device__ constexpr int fwd_design(int dtype, int d) {
+  return dtype == 1 && d == 128 ? kWgmma
+         : dtype == 0 && (d == 8 || d == 16) ? kMmaTf32x3
+         : kFma;
 }
 
-// Backward: bfloat16 at D = 128 the wgmma kernels, dtype 0 (float32) at
-// D = 8 and 16 the split-TF32 mma.sync kernels, every other (dtype, d)
-// the FMA ones.
-enum BwdDesign : int { kBwdFma = 0, kBwdWgmma = 1, kBwdMmaTf32x3 = 2 };
+// Backward: the forward's designs at the same (dtype, d): the wgmma
+// kernels, the split-TF32 ones, the FMA ones.
 __host__ __device__ constexpr int bwd_design(int dtype, int d) {
-  return tensor_core_design(dtype, d)        ? kBwdWgmma
-         : dtype == 0 && (d == 8 || d == 16) ? kBwdMmaTf32x3
-                                             : kBwdFma;
+  return fwd_design(dtype, d);
 }
 
 constexpr int kD = 128;

@@ -1,6 +1,7 @@
 """A plain-PyTorch model of the split-TF32 ("3xTF32") arithmetic that the
-float32 backward kernels at D = 8 and 16 run on the tensor cores
-(``csrc/flash_attention_bwd.cu``, namespace ``tf32x3``).
+float32 flash kernels at D = 8 and 16, forward and backward, run on the
+tensor cores (namespace ``tf32x3`` of ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_bwd.cu``).
 
 - ``tf32_round``: PTX ``cvt.rn.tf32.f32``, what the kernels use, by
   integer arithmetic on the float32 bits: round to nearest, ties to
@@ -11,6 +12,9 @@ float32 backward kernels at D = 8 and 16 run on the tensor cores
 - ``split_matmul``: a @ b from ``terms`` tf32 products, each exact in
   float32 (11 × 11 significant bits), summed in float32: 1 is one-pass
   TF32, 3 adds hi·lo and lo·hi (the kernels).
+- ``flash_attention_forward_split``: the plain forward
+  (``flash_attention_reference``) with both products (Q·Kᵀ and P·V) a
+  ``split_matmul``.
 - ``flash_attention_backward_split``: the plain backward
   (``flash_attention_backward_reference``) with every product (Q·Kᵀ,
   dO·Vᵀ, Pᵀ·dO, dSᵀ·Q, dS·K) a ``split_matmul``.
@@ -20,7 +24,8 @@ accumulation (it aligns and truncates inside one ``mma``); the kernels
 keep each tile's sum in fresh registers and add it to the running sum
 with IEEE adds, so that truncation reaches no more than one tile's sum.
 The model is for the CPU tests: it shows that three terms hold the f32
-backward's tolerance and one does not.  No kernel uses it.
+forward's and backward's tolerances and one does not.  No kernel uses
+it.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from .attention import _check_blocks
+from .attention import NEG_INF, _check_blocks
 
 _LOW = 0x1FFF        # the 13 mantissa bits tf32 drops
 _HALF = 0x1000       # half of the last kept bit
@@ -75,6 +80,47 @@ def split_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3
     if terms == 1:
         return a_hi @ b_hi
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def flash_attention_forward_split(q, k, v, causal: bool = True,
+                                  block_q: int = 128, block_k: int = 128,
+                                  terms: int = 3
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_reference`` (float32 only) with Q·Kᵀ and P·V each
+    a ``split_matmul`` of ``terms`` terms: (o [B, T, H, D], lse [B, H,
+    T])."""
+    if q.dtype != torch.float32:
+        raise ValueError("the split-TF32 model is for float32 inputs")
+    B, T, H, D = q.shape
+    _check_blocks(T, causal, block_q, block_k)
+    scale = 1.0 / math.sqrt(D)
+    qf, kf, vf = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    acc = torch.zeros((B, H, T, D), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, T), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
+    pos = torch.arange(T, device=q.device)
+    for k0 in range(0, T, block_k):
+        k1 = min(k0 + block_k, T)
+        r0 = (k0 // block_q) * block_q if causal else 0
+        s = split_matmul(qf[:, :, r0:], kf[:, :, k0:k1].transpose(-1, -2),
+                         terms) * scale
+        if causal:
+            live = pos[r0:, None] >= pos[None, k0:k1]
+            s = torch.where(live, s, NEG_INF)
+        m_old = m[:, :, r0:]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        alive = m_new > NEG_INF / 2
+        corr = torch.where(alive, torch.exp(m_old - m_new), 0.0)
+        p = torch.where(alive[..., None], torch.exp(s - m_new[..., None]), 0.0)
+        l[:, :, r0:] = l[:, :, r0:] * corr + p.sum(dim=-1)
+        acc[:, :, r0:] = acc[:, :, r0:] * corr[..., None] + split_matmul(
+            p, vf[:, :, k0:k1], terms)
+        m[:, :, r0:] = m_new
+    empty = l == 0.0
+    safe_l = torch.where(empty, 1.0, l)
+    o = (acc / safe_l[..., None]).permute(0, 2, 1, 3)
+    lse = torch.where(empty, NEG_INF, m + torch.log(safe_l))
+    return o, lse
 
 
 def flash_attention_backward_split(q, k, v, o, lse, do, causal: bool = True,

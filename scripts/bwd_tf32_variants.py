@@ -98,13 +98,7 @@ def build(name: str):
                if v.get("spill_stores") or v.get("spill_loads")]
     if spilled and exact:
         raise AssertionError(f"{name}: ptxas spills in {spilled}")
-    handle = ctypes.CDLL(str(lib))
-    for entry, n_ptr in attn._BWD_ENTRIES:
-        fn = getattr(handle, entry)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + \
-            [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return handle, regs
+    return attn._bind(ctypes.CDLL(str(lib)), attn._BWD_ENTRIES), regs
 
 
 def launch(lib, kind: str, folded, causal: bool):

@@ -37,6 +37,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from iotml_torch.ops import _build  # noqa: E402
+from iotml_torch.ops import attention as attn  # noqa: E402
 
 B, T, H, D = 1, 65536, 2, 128
 STAGES = re.compile(r"constexpr int kStages = \d+;")
@@ -63,11 +64,7 @@ def build(stages: int) -> tuple:
         raise RuntimeError(f"ring {stages}: ptxas spills\n{log}")
     registers = {entry: v["registers"] for entry, v in
                  _build.ptxas_kernels(log, _wgmma_entry).items()}
-    lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.iotml_flash_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float,
-                                                            ptr]
-    lib.iotml_flash_fwd.restype = i32
+    lib = attn._bind(ctypes.CDLL(str(out)), attn._FWD_ENTRIES)
     return lib, registers
 
 

@@ -140,20 +140,35 @@ def test_ptxas_kernels_reads_registers_and_spills():
     assert _build.ptxas_kernels(PTXAS_LOG, lambda mangled: None) == {}
 
 
+def _variant_edits(script_name):
+    """The text edits of the VARIANTS of scripts/<script_name>."""
+    import importlib.util
+
+    script = _build.CSRC.parents[2] / "scripts" / script_name
+    spec = importlib.util.spec_from_file_location(script.stem, script)
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    return [edit for _, e in variants.VARIANTS.values() for edit in e]
+
+
 def test_backward_variant_edits_match_the_sources():
     """Every text edit of scripts/bwd_tf32_variants.py is in the file it
     edits, so each variant builds what it says."""
-    import importlib.util
-
-    script = _build.CSRC.parents[2] / "scripts" / "bwd_tf32_variants.py"
-    spec = importlib.util.spec_from_file_location("bwd_tf32_variants",
-                                                  script)
-    variants = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(variants)
-    edits = [edit for _, e in variants.VARIANTS.values() for edit in e]
+    edits = _variant_edits("bwd_tf32_variants.py")
     assert edits
     for file, old, new in edits:
         assert old in (_build.CSRC / file).read_text(), (file, old)
+        assert new != old
+
+
+def test_forward_variant_edits_match_the_sources():
+    """Every text edit of scripts/fwd_tf32_variants.py is in the file it
+    edits exactly once, so each variant changes what it says and nothing
+    else."""
+    edits = _variant_edits("fwd_tf32_variants.py")
+    assert edits
+    for file, old, new in edits:
+        assert (_build.CSRC / file).read_text().count(old) == 1, (file, old)
         assert new != old
 
 
@@ -177,20 +192,35 @@ def test_backward_library_name_follows_hopper_cuh(source, header, tmp_path,
     assert _build.library_path(source) != before
 
 
+def _names_another_library(source, header, tmp_path, monkeypatch) -> bool:
+    """Whether a copy of csrc with ``header`` edited names another library
+    for ``source`` (which must include it)."""
+    for src in _build.CSRC.iterdir():
+        if src.is_file():
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    code = (tmp_path / f"{source}.cu").read_text()
+    assert f'#include "{header}"' in code
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path(source)
+    with open(tmp_path / header, "a") as edited:
+        edited.write("// edited\n")
+    return _build.library_path(source) != before
+
+
 def test_backward_library_name_follows_mma_tf32_cuh(tmp_path, monkeypatch):
     """The backward source includes mma_tf32.cuh (the split-TF32 building
     blocks): a copy of csrc with it edited names another backward
     library."""
-    for src in _build.CSRC.iterdir():
-        if src.is_file():
-            (tmp_path / src.name).write_bytes(src.read_bytes())
-    code = (tmp_path / "flash_attention_bwd.cu").read_text()
-    assert '#include "mma_tf32.cuh"' in code
-    monkeypatch.setattr(_build, "CSRC", tmp_path)
-    before = _build.library_path("flash_attention_bwd")
-    with open(tmp_path / "mma_tf32.cuh", "a") as edited:
-        edited.write("// edited\n")
-    assert _build.library_path("flash_attention_bwd") != before
+    assert _names_another_library("flash_attention_bwd", "mma_tf32.cuh",
+                                  tmp_path, monkeypatch)
+
+
+def test_forward_library_name_follows_mma_tf32_cuh(tmp_path, monkeypatch):
+    """The forward source includes mma_tf32.cuh too (its split-TF32
+    kernel shares the backward's blocks): a copy of csrc with it edited
+    names another forward library."""
+    assert _names_another_library("flash_attention", "mma_tf32.cuh",
+                                  tmp_path, monkeypatch)
 
 
 #: (dtype, head dim, forward design, backward design)
@@ -198,8 +228,8 @@ DESIGNS = [(torch.bfloat16, 128, "wgmma", "wgmma"),
            (torch.bfloat16, 16, "fma", "fma"),
            (torch.bfloat16, 8, "fma", "fma"),
            (torch.float32, 128, "fma", "fma"),
-           (torch.float32, 16, "fma", "mma_tf32x3"),
-           (torch.float32, 8, "fma", "mma_tf32x3")]
+           (torch.float32, 16, "mma_tf32x3", "mma_tf32x3"),
+           (torch.float32, 8, "mma_tf32x3", "mma_tf32x3")]
 
 
 @pytest.mark.parametrize("dtype,head_dim,design,direction", [
@@ -217,54 +247,65 @@ def test_flash_design_needs_a_direction():
         flash_design(torch.float32, 16, "both")
 
 
+#: the header enum's names and what flash_design calls them
+ENUM_NAMES = {"kFma": "fma", "kWgmma": "wgmma", "kMmaTf32x3": "mma_tf32x3"}
+
+
+def _header_enum():
+    """flash_tiles.cuh's design codes: [(name, code)] in the enum's
+    order."""
+    header = (_build.CSRC / "flash_tiles.cuh").read_text()
+    enum = re.search(r"enum Design : int \{([^}]*)\};", header)
+    assert enum, "the design enum not found in flash_tiles.cuh"
+    return [(name, int(code)) for name, code in
+            re.findall(r"(\w+) = (\d+)", enum.group(1))]
+
+
 def _header_rules():
     """The forward and backward rules as flash_tiles.cuh writes them,
     as functions of (dtype code, d) giving a design name."""
     header = (_build.CSRC / "flash_tiles.cuh").read_text()
-    fwd = re.search(r"bool tensor_core_design\(int dtype, int d\) \{\s*"
-                    r"return dtype == (\d+) && d == (\d+);\s*\}", header)
-    assert fwd, "tensor_core_design not found in flash_tiles.cuh"
-    bwd = re.search(
-        r"int bwd_design\(int dtype, int d\) \{\s*"
-        r"return tensor_core_design\(dtype, d\)\s*\? kBwdWgmma\s*"
+    fwd = re.search(
+        r"int fwd_design\(int dtype, int d\) \{\s*"
+        r"return dtype == (\d+) && d == (\d+) \? (\w+)\s*"
         r": dtype == (\d+) && \(d == (\d+) \|\| d == (\d+)\) "
-        r"\? kBwdMmaTf32x3\s*: kBwdFma;\s*\}", header)
+        r"\? (\w+)\s*: (\w+);\s*\}", header)
+    assert fwd, "fwd_design not found in flash_tiles.cuh"
+    bwd = re.search(r"int bwd_design\(int dtype, int d\) \{\s*"
+                    r"return fwd_design\(dtype, d\);\s*\}", header)
     assert bwd, "bwd_design not found in flash_tiles.cuh"
-    names = re.search(r"enum BwdDesign : int \{ kBwdFma = 0, kBwdWgmma = 1, "
-                      r"kBwdMmaTf32x3 = 2 \};", header)
-    assert names, "the backward design codes changed"
+    names = dict(_header_enum())
+    assert {fwd.group(3), fwd.group(7), fwd.group(8)} <= set(names)
 
     def forward(code, d):
-        tc = code == int(fwd.group(1)) and d == int(fwd.group(2))
-        return "wgmma" if tc else "fma"
+        if code == int(fwd.group(1)) and d == int(fwd.group(2)):
+            return ENUM_NAMES[fwd.group(3)]
+        if code == int(fwd.group(4)) and d in (int(fwd.group(5)),
+                                               int(fwd.group(6))):
+            return ENUM_NAMES[fwd.group(7)]
+        return ENUM_NAMES[fwd.group(8)]
 
-    def backward(code, d):
-        if forward(code, d) == "wgmma":
-            return "wgmma"
-        split = code == int(bwd.group(1)) and d in (int(bwd.group(2)),
-                                                    int(bwd.group(3)))
-        return "mma_tf32x3" if split else "fma"
-
-    return {"forward": forward, "backward": backward}
+    return {"forward": forward, "backward": forward}
 
 
 @pytest.mark.parametrize("source", FLASH_SOURCES)
 def test_sources_state_the_design_rule_of_flash_design(source):
-    """Each rule is written once in flash_tiles.cuh
-    (``tensor_core_design`` for the forward, ``bwd_design``, on top of it,
-    for the backward); each source dispatches by its rule and states no
-    rule of its own, and the rule picks what ``flash_design`` says for
-    every dtype code (0 float32, 1 bfloat16) and head dim."""
+    """Each rule is written once in flash_tiles.cuh (``fwd_design`` for
+    the forward, ``bwd_design``, on top of it, for the backward); each
+    source dispatches by its rule and states no rule of its own, and the
+    rule picks what ``flash_design`` says for every dtype code (0
+    float32, 1 bfloat16) and head dim."""
     direction = {"flash_attention": "forward",
                  "flash_attention_bwd": "backward"}[source]
     rules = _header_rules()
     code = (_build.CSRC / f"{source}.cu").read_text()
     assert '#include "flash_tiles.cuh"' in code
-    call = {"forward": "tensor_core_design(dtype, d)",
+    call = {"forward": "fwd_design(dtype, d)",
             "backward": "bwd_design(dtype, d)"}[direction]
     assert call in code
-    assert "bool tensor_core_design" not in code
+    assert "int fwd_design" not in code
     assert "int bwd_design" not in code
+    assert "enum Design" not in code
     dtypes = {0: torch.float32, 1: torch.bfloat16}
     for dtype_code, dtype in dtypes.items():
         for d in (8, 16, 128):
@@ -273,11 +314,26 @@ def test_sources_state_the_design_rule_of_flash_design(source):
 
 
 def test_python_names_the_backward_design_codes():
-    """``BWD_DESIGNS`` reads ``iotml_flash_bwd_design``'s codes in the
-    order the header's enum gives them."""
-    from iotml_torch.ops.attention import BWD_DESIGNS
+    """``FLASH_DESIGNS`` reads ``iotml_flash_bwd_design``'s codes (and
+    ``iotml_flash_fwd_design``'s: one enum) in the order the header's
+    enum gives them."""
+    from iotml_torch.ops.attention import FLASH_DESIGNS
 
-    assert BWD_DESIGNS == ("fma", "wgmma", "mma_tf32x3")
+    assert FLASH_DESIGNS == ("fma", "wgmma", "mma_tf32x3")
+
+
+def test_python_names_the_forward_design_codes_in_the_enum_order():
+    """The forward's codes are the header enum's, 0, 1, 2 in order, and
+    ``FLASH_DESIGNS`` names them in that order; every name is one that
+    ``flash_design`` gives in the forward."""
+    from iotml_torch.ops.attention import FLASH_DESIGNS
+
+    enum = _header_enum()
+    assert [code for _, code in enum] == list(range(len(enum)))
+    assert tuple(ENUM_NAMES[name] for name, _ in enum) == FLASH_DESIGNS
+    said = {flash_design(dtype, d, "forward")
+            for dtype in (torch.float32, torch.bfloat16) for d in (8, 16, 128)}
+    assert said == set(FLASH_DESIGNS)
 
 
 def test_forward_ring_depth_is_the_one_constant_the_timing_script_sets():

@@ -29,8 +29,8 @@ sums are exact in any order, and no flip is allowed; a training step's
 loss rtol 1e-5 and grads rtol 1e-4 / atol 1e-6
 (tests/test_torch_seq_parallel.py).  The bf16 D=128 cases run the
 tensor-core design in both directions (``flash_design`` says "wgmma");
-the f32 backward at D = 8 and 16 the split-TF32 one ("mma_tf32x3"); the
-others the FMA one.  The tensor-core cases hold the kernels against
+f32 at D = 8 and 16 the split-TF32 one ("mma_tf32x3"), both directions;
+the others the FMA one.  The tensor-core cases hold the kernels against
 the plain versions at the kernels' own 64-row tiles (blocks 64), so that
 P is rounded at the same running max.
 """
@@ -209,17 +209,17 @@ def test_backward_kernels_match_plain_version(dtype, B, T, H, D, causal,
 
 @pytest.mark.cuda
 def test_f32_backward_designs_on_the_card(cuda_device):
-    """f32 at D = 8 and 16 takes the split-TF32 backward (the library
-    reports it, and a call launches it, both kernels, at rtol 1e-4 / atol
-    1e-5 against the plain version); f32 at D = 128 keeps the FMA
-    backward; the f32 forward keeps the FMA design at every head dim."""
+    """f32 at D = 8 and 16 takes the split-TF32 design in both directions
+    (the libraries report it, and a call launches the backward's two
+    kernels, at rtol 1e-4 / atol 1e-5 against the plain version); f32 at
+    D = 128 keeps the FMA design in both."""
     lib = attn._library("flash_attention_bwd", attn._BWD_ENTRIES)
     fwd = attn._library("flash_attention", attn._FWD_ENTRIES)
-    for D, bwd in ((8, "mma_tf32x3"), (16, "mma_tf32x3"), (128, "fma")):
-        assert attn.flash_design(torch.float32, D, "backward") == bwd
-        assert attn.BWD_DESIGNS[lib.iotml_flash_bwd_design(D, 0)] == bwd
-        assert attn.flash_design(torch.float32, D, "forward") == "fma"
-        assert fwd.iotml_flash_fwd_design(D, 0) == 0
+    for D, design in ((8, "mma_tf32x3"), (16, "mma_tf32x3"), (128, "fma")):
+        for direction, report in (("backward", lib.iotml_flash_bwd_design),
+                                  ("forward", fwd.iotml_flash_fwd_design)):
+            assert attn.flash_design(torch.float32, D, direction) == design
+            assert attn.FLASH_DESIGNS[report(D, 0)] == design
     q, k, v, do = _qkv(2, 300, 2, 16, torch.float32, cuda_device, seed=4) + \
         _qkv(2, 300, 2, 16, torch.float32, cuda_device, seed=5)[:1]
     o, lse = attn.flash_attention_fwd(q, k, v, True, 128, 128)
@@ -238,6 +238,72 @@ def test_f32_backward_designs_on_the_card(cuda_device):
                                                    128, 128)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **GRAD_TOL[torch.float32])
+
+
+#: the split-TF32 forward's cases (f32, D = 8 and 16), as chip_smoke.py's
+#: MMA_FWD_CASES: T, B, H, D, causal; the plain version at blocks 128
+#: when causal and at the whole T when not
+MMA_FWD_CASES = [(T, B, H, D, causal)
+                 for D in (8, 16) for causal in (True, False)
+                 for T in (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000,
+                           4096)
+                 for B, H in ((1, 1), (2, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "T,B,H,D,causal", MMA_FWD_CASES,
+    ids=[f"T{T}-BH{B * H}-D{D}-{'causal' if c else 'full'}"
+         for T, B, H, D, c in MMA_FWD_CASES])
+def test_mma_forward_matches_plain_version(T, B, H, D, causal, cuda_device):
+    """f32 at D = 8 and 16 (the split-TF32 design): O and LSE within
+    rtol = atol = 2e-5 of the plain version, and a second launch repeats
+    the first bit for bit."""
+    assert attn.flash_design(torch.float32, D, "forward") == "mma_tf32x3"
+    q, k, v = _qkv(B, T, H, D, torch.float32, cuda_device, seed=T + D)
+    block = 128 if causal else T
+    entry = "causal" if causal else "full"
+    before = dict(attn.flash_attention.launches)
+    o, lse = attn.flash_attention_fwd(q, k, v, causal, block, block)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches[entry] == before[entry] + 1
+    want_o, want_lse = attn.flash_attention_reference(q, k, v, causal,
+                                                      block, block)
+    assert o.shape == q.shape and o.dtype == torch.float32
+    assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    torch.testing.assert_close(o, want_o, **F32_TOL)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    o2, lse2 = attn.flash_attention_fwd(q, k, v, causal, block, block)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+def test_mma_forward_realigns_a_misaligned_view(cuda_device):
+    """f32 D = 16 q, k, v views that start 4 bytes past an allocation
+    (with H = 1 the fold keeps the view): the wrapper hands the split-TF32
+    kernel aligned copies (its cp.async copies 16-byte chunks) and answers
+    as for aligned tensors; the library itself refuses the misaligned
+    pointer (cudaErrorMisalignedAddress, 716) without launching."""
+    B, T, H, D = 2, 200, 1, 16
+    q, k, v = _qkv(B, T, H, D, torch.float32, cuda_device, seed=6)
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        views.append(buf[1:].view(t.shape).copy_(t))
+    assert all(t.data_ptr() % 16 for t in views)
+    o, lse = attn.flash_attention_fwd(*views, True, 128, 128)
+    want_o, want_lse = attn.flash_attention_reference(q, k, v, True, 128,
+                                                      128)
+    torch.testing.assert_close(o, want_o, **F32_TOL)
+    torch.testing.assert_close(lse, want_lse, **F32_TOL)
+    lib = attn._library("flash_attention", attn._FWD_ENTRIES)
+    out = torch.empty_like(q)
+    out_lse = torch.empty((B * H, T), device=cuda_device)
+    err = lib.iotml_flash_fwd(
+        views[0].data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        out_lse.data_ptr(), B * H, T, D, 0, 1, D ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 716
 
 
 def _check_wgmma_forward(B, T, H, causal, block, device):

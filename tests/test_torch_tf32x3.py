@@ -1,12 +1,16 @@
-"""The split-TF32 arithmetic of the float32 backward kernels at D = 8 and
-16, modelled on the CPU (``iotml_torch/ops/tf32x3.py``): the rounding
-``cvt.rn.tf32.f32`` does (the kernels'), beside ``cvt.rna.tf32.f32``'s
-(ties away, modelled here only), and the backward's five products each
-as three tf32 products, held against the JAX package's Pallas backward
-in interpret mode at the f32 flash-grad bound, rtol 1e-4 / atol 1e-5
-(tests/test_attention.py:70-71).  One-pass TF32 must fail that bound, so
-the bound is shown to see TF32's error.  The kernels themselves are held
-on the card (tests/test_torch_cuda_attention.py, ``chip_smoke.py``).
+"""The split-TF32 arithmetic of the float32 flash kernels at D = 8 and
+16, forward and backward, modelled on the CPU
+(``iotml_torch/ops/tf32x3.py``): the rounding ``cvt.rn.tf32.f32`` does
+(the kernels'), beside ``cvt.rna.tf32.f32``'s (ties away, modelled here
+only); the forward's two products each as three tf32 products, held
+against the JAX package's Pallas forward in interpret mode at the f32
+flash forward bound, O and LSE rtol = atol = 2e-5
+(tests/test_attention.py:56-57); and the backward's five products, held
+against its Pallas backward at the f32 flash-grad bound, rtol 1e-4 /
+atol 1e-5 (tests/test_attention.py:70-71).  One-pass TF32 must fail each
+bound, so the bound is shown to see TF32's error.  The kernels themselves
+are held on the card (tests/test_torch_cuda_attention.py,
+``chip_smoke.py``).
 """
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ from iotml.ops import attention as j_attn
 from iotml_torch.ops import tf32x3
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
+FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
 def _f32(bits):
@@ -185,11 +190,62 @@ def test_one_pass_tf32_fails_the_f32_grad_bound(T, D, causal, block):
     assert _outside(got, want) > 0
 
 
+#: the forward's cases (B=2, H=2): ragged and whole-block causal T, full
+#: T a multiple of the block
+FWD_CASES = [(T, D, causal, block) for D in (8, 16)
+             for T, causal, block in ((17, True, 16), (64, True, 32),
+                                      (65, True, 32), (128, True, 64),
+                                      (48, False, 16), (64, False, 32))]
+
+
+def _jax_forward_case(T, D, causal, block):
+    rng = np.random.default_rng(100 + T + D + causal)
+    q, k, v = (rng.normal(size=(2, T, 2, D)).astype(np.float32)
+               for _ in range(3))
+    out, lse = j_attn._flash_forward(*map(jnp.asarray, (q, k, v)), causal,
+                                     block, block, True)
+    return ([torch.from_numpy(a) for a in (q, k, v)],
+            (np.asarray(out), np.asarray(lse)))
+
+
+def _forward_outside(got, want) -> int:
+    """How many elements of (o, lse) fall outside FWD_TOL."""
+    return sum(int((np.abs(g.numpy() - w) > FWD_TOL["atol"]
+                    + FWD_TOL["rtol"] * np.abs(w)).sum())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("T,D,causal,block", FWD_CASES)
+def test_three_term_split_holds_the_f32_forward_bound(T, D, causal, block):
+    """The forward with Q·Kᵀ and P·V in three tf32 terms, rounded as the
+    kernel rounds, holds O and LSE at 2e-5 of JAX's Pallas forward."""
+    (q, k, v), (want_o, want_lse) = _jax_forward_case(T, D, causal, block)
+    o, lse = tf32x3.flash_attention_forward_split(q, k, v, causal, block,
+                                                  block, terms=3)
+    assert o.shape == (2, T, 2, D) and o.dtype == torch.float32
+    assert lse.shape == (2, 2, T) and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.numpy(), want_o, err_msg="O", **FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, err_msg="LSE",
+                               **FWD_TOL)
+
+
+@pytest.mark.parametrize("T,D,causal,block", FWD_CASES)
+def test_one_pass_tf32_fails_the_f32_forward_bound(T, D, causal, block):
+    """The same check with one tf32 product per product fails: the
+    forward's bound sees TF32's 2^-11 rounding."""
+    (q, k, v), want = _jax_forward_case(T, D, causal, block)
+    got = tf32x3.flash_attention_forward_split(q, k, v, causal, block,
+                                               block, terms=1)
+    assert _forward_outside(got, want) > 0
+
+
 def test_split_model_refuses_bfloat16():
     x = torch.zeros((1, 8, 1, 8), dtype=torch.bfloat16)
     lse = torch.zeros((1, 1, 8))
     with pytest.raises(ValueError):
         tf32x3.flash_attention_backward_split(x, x, x, x, lse, x)
+    with pytest.raises(ValueError):
+        tf32x3.flash_attention_forward_split(x, x, x)
     with pytest.raises(ValueError):
         tf32x3.tf32_round(x)
     with pytest.raises(ValueError):
