@@ -10,7 +10,9 @@ non-zero exit and no result line:
 1. device     — card name, count, ``nvidia-smi`` name and power limit;
                 TF32 switched off for matmul and cuDNN.
 2. build      — the three CUDA sources built from the checkout, one
-                ``nvcc`` each, started together (seconds per source;
+                ``nvcc`` each, and the native stream engine (one ``g++``
+                of ``iotml_torch/cpp``), started together (seconds per
+                source;
                 ptxas registers and spills per instantiation, a spill in
                 a flash kernel or a rows fit kernel fails the run, and so
                 does a missing split-TF32 instantiation, forward (four) or
@@ -37,8 +39,31 @@ non-zero exit and no result line:
                 fleet for 300 ticks (30,000 rows), train on 100 batches
                 of 100 normal rows for 20 epochs (``fit_compiled``, one
                 kernel launch, through the rows design), then score
-                batches 100..199 (10,000 rows) with threshold 5.
-5. timing     — each design held against the plain version over the
+                batches 100..199 (10,000 rows) with threshold 5, the
+                payloads formatted by the native engine.
+5. cli_path   — the same job through its own CLI,
+                ``iotml_torch.cli.cardata.main``: ``train`` on
+                ``emulator:30000`` (the in-process broker, Avro published
+                and decoded by the native engine) to a temporary artifact
+                root, then ``predict``.  Train launches the fit kernel
+                exactly once, through the rows design (counts set to 0
+                just before, read just after), losses finite and falling;
+                the stored checkpoint restores to the trained state
+                exactly and carries the committed cursor; predict writes
+                10,000 payloads to ``model-predictions``, the first 100
+                within atol 2e-6 of a CPU recompute from the restored
+                params and all 10,000 within 1e-5 (index order), every
+                payload the engine's string, byte-identical to
+                ``np.array2string`` of the scored rows; the engine
+                carried every decode, its decode of predict's 20,000
+                messages equal to the pure codec's (``ops.avro``)
+                exactly, and it formatted exactly the rows its fast path
+                takes (``fastfmt.fast_rows``).  Train and
+                predict seconds, ``fit_seconds``, decode and format
+                seconds, scored rows/s, and ``format_rows`` against
+                per-row ``np.array2string`` and the per-element plain
+                version on those 10,000 rows.
+6. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -48,7 +73,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-6. attention_kernel — the flash-attention kernel against its plain
+7. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -71,13 +96,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-7. sensorformer_path — SensorFormer at full width (its defaults) scores
+8. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-8. attention_timing — kernel, plain version, bound and the library
+9. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -88,7 +113,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-9. attention_backward_kernel — the dK/dV and dQ kernels against the
+10. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -107,18 +132,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-10. sensorformer_train — the slice's main path: ``make_sp_train_step``
+11. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 7; each step launches exactly
+                fleet histories of phase 8; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-11. attention_backward_timing — each backward kernel, the plain
+12. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 8, beside the bound, the fp32 FMA floor
+                shapes of phase 9, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -129,22 +154,27 @@ non-zero exit and no result line:
                 tensor-core one at bf16 D=128); one such call runs with
                 every launch count set to 0 just before it and read just
                 after (exactly one forward, one dK/dV and one dQ launch).
-Then the kernels line (the fit's design and launches by design on the
-main path; each attention entry's design at the layer call and the
+Then the kernels line (the fit's design, and its launches by design on
+the main path and by path, the main path and the CLI path, summed in
+``launches``; each attention entry's design at the layer call and the
 long-context call; ``launches`` sums the counts read on the paths that
-run the entry: the SensorFormer forward (phase 7), the training steps
-(phase 10) and the long-context forward + backward (phase 11), each also
+run the entry: the SensorFormer forward (phase 8), the training steps
+(phase 11) and the long-context forward + backward (phase 12), each also
 given by path), the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -152,7 +182,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from iotml_torch.cli import _app as cli_app
+from iotml_torch.cli import cardata
 from iotml_torch.core.normalize import CAR_NORMALIZER
+from iotml_torch.core.schema import KSQL_CAR_SCHEMA
 from iotml_torch.data.dataset import RowSource, SensorBatches
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
@@ -169,13 +202,21 @@ from iotml_torch.ops.attention import (FLASH_DESIGNS, attention_reference,
                                        flash_bwd_dkv, flash_bwd_dq,
                                        flash_bwd_inputs, flash_design,
                                        flash_smem)
+from iotml_torch.ops.avro import AvroCodec
 from iotml_torch.ops.flash_parity import (bwd_rounding_flips,
                                           check_rejects_scaled_o,
                                           check_wgmma_forward)
+from iotml_torch.ops.framing import strip_frame
 from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
+from iotml_torch.serve import fastfmt
+from iotml_torch.serve import scorer as scorer_module
 from iotml_torch.serve.scorer import StreamScorer
+from iotml_torch.stream import native
+from iotml_torch.stream.consumer import StreamConsumer
 from iotml_torch.stream.producer import OutputSequence
+from iotml_torch.train.artifacts import ArtifactStore
+from iotml_torch.train.checkpoint import CheckpointManager
 from iotml_torch.train.loop import Trainer, TrainState, make_scanned_fit
 from iotml_torch.train.optim import Adam
 
@@ -298,17 +339,28 @@ def _flash_kernel(mangled: str):
 
 
 def phase_build() -> None:
-    """Build the three sources together, one nvcc each."""
+    """Build the three CUDA sources and the native stream engine
+    together, one compiler each."""
     def timed(name):
         t0 = time.perf_counter()
         built = not _build.library_path(name).exists()
         log = _build.build_log(name)
         return name, log, built, time.perf_counter() - t0
 
+    def engine():
+        t0 = time.perf_counter()
+        path = native.library_path()
+        fresh = not path.exists()
+        native.load()  # built and loaded here, outside every timed path
+        return {"library": path.name, "built": fresh,
+                "seconds": time.perf_counter() - t0}
+
     t0 = time.perf_counter()
     names = ("fused_train", "flash_attention", "flash_attention_bwd")
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+        native_build = pool.submit(engine)
         built = list(pool.map(timed, names))
+        native_engine = native_build.result()
     wall = time.perf_counter() - t0
     sources = {}
     for name, log, fresh, seconds in built:
@@ -346,6 +398,7 @@ def phase_build() -> None:
         kind, d, dtype) for kind in ("fwd", "dkv", "dq")
         for dtype in FLASH_DTYPES for d in (8, 16, 128)}
     emit({"phase": "build", "seconds": wall, "sources": sources,
+          "native_engine": native_engine,
           "smem_need_optin_bytes_at_B100": smem,
           "flash_smem_bytes_per_block": flash_smem_bytes,
           "fit_design": check_fit_designs(),
@@ -529,6 +582,38 @@ def phase_kernel() -> float:
     return max(errs.values())
 
 
+@contextlib.contextmanager
+def _recording(owner, name: str):
+    """Wrap ``owner.name`` (a module's function or a class's method) so
+    each call's (args, keywords, result) is recorded."""
+    real = getattr(owner, name)
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append((args, kw, real(*args, **kw)))
+        return calls[-1][2]
+
+    setattr(owner, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def _check_engine_formatted(formats, n_rows: int, formatted: int,
+                            where: str) -> np.ndarray:
+    """The rows the scorer formatted, after checking that the engine
+    formatted every one of them that its fast path takes (the plain
+    version's ``fast_rows`` rule), and numpy only the others."""
+    rows = np.concatenate([args[0] for args, _, _ in formats])
+    want = int(fastfmt.fast_rows(rows).sum())
+    if rows.shape[0] != n_rows or formatted != want or want == 0:
+        raise AssertionError(f"{where}: the native engine formatted "
+                             f"{formatted} of {rows.shape[0]} payload rows; "
+                             f"its fast path takes {want} of them")
+    return rows
+
+
 def phase_main_path(card: str) -> dict:
     gen = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01))
     source = RowSource.from_fleet(gen, n_ticks=300)
@@ -554,9 +639,13 @@ def phase_main_path(card: str) -> dict:
     out = OutputSequence()
     scorer = StreamScorer(CAR_AUTOENCODER, trainer.state.params,
                           score_batches, out, threshold=5.0)
-    t0 = time.perf_counter()
-    n = scorer.score_available()
-    score_s = time.perf_counter() - t0
+    native.reset_stats()
+    with _recording(scorer_module, "format_rows") as formats:
+        t0 = time.perf_counter()
+        n = scorer.score_available()
+        score_s = time.perf_counter() - t0
+    formatted = native.stats["format_rows"]
+    _check_engine_formatted(formats, n, formatted, "main_path")
     launches = fused_train.fused_fit.launches
     by_design = dict(fused_train.fused_fit.launches_by_design)
     if launches != 1 or by_design["rows"] != 1:
@@ -596,10 +685,201 @@ def phase_main_path(card: str) -> dict:
             "score_rows_per_s": n / score_s,
             "score_host_pipeline_s": scorer.seconds["host_pipeline"],
             "score_device_compute_s": scorer.seconds["device_compute"],
+            "score_format_s": native.stats["format_s"],
+            "native_format_rows": formatted,
             "quality": scorer.quality}
     emit(info)
     return {"launches": launches, "launches_by_design": by_design,
             "batches": train_batches, "source": source}
+
+
+CLI_TOPIC, CLI_GROUP = "SENSOR_DATA_S_AVRO", "cardata-autoencoder"
+#: the CLI's payloads against a CPU recompute from the restored params:
+#: the first 100 rows at main_path's bound, every row at a bound that
+#: still tells each row from its neighbours (index order)
+CLI_TOL_FIRST = dict(rtol=0.0, atol=2e-6)
+CLI_TOL_ALL = dict(rtol=0.0, atol=1e-5)
+
+
+def _run_cli(mode: str, root: str) -> dict:
+    """One ``cardata.main`` call on the card: its stdout, stats line,
+    seconds and the broker it made."""
+    argv = ["emulator:30000", CLI_TOPIC, "0", "model-predictions", mode,
+            "m1", root]
+    out = io.StringIO()
+    with _recording(cli_app, "_broker_for") as brokers, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = cardata.main(argv)  # device=None: the card
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cardata {mode} returned {rc}:\n{text}")
+    stats = [line for line in text.splitlines()
+             if line.startswith("stats: ")]
+    return {"seconds": seconds, "broker": brokers[0][2],
+            "stats": json.loads(stats[-1][len("stats: "):])}
+
+
+def phase_cli_path(card: str) -> dict:
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        return _cli_path(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _cli_path(card: str, root: str) -> dict:
+    fused_train.fused_fit.launches = 0
+    fused_train.fused_fit.launches_by_design = dict.fromkeys(
+        fused_train.DESIGNS, 0)
+    native.reset_stats()
+    with _recording(cli_app, "Trainer") as trainers:
+        train = _run_cli("train", root)
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    train_native = dict(native.stats)
+    if launches != 1 or by_design["rows"] != 1:
+        raise AssertionError(f"cardata train launched the fit kernel "
+                             f"{launches}x ({by_design}), not once through "
+                             f"the rows design")
+    losses = train["stats"]["loss"]
+    if len(losses) != 20 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"cardata train did not converge: {losses}")
+    if train["stats"]["records"] != 10_000 or \
+            train_native["decode_rows"] < 10_000:
+        raise AssertionError(f"cardata train: {train['stats']}, native "
+                             f"{train_native}")
+
+    # the stored checkpoint is the trained state, bit for bit, and carries
+    # the cursor the group committed after it was stored
+    state = trainers[0][2].state
+    ckpt = CheckpointManager.load_dir(ArtifactStore(root).download_tree(
+        "m1", str(Path(root) / "restored")))
+    committed = train["broker"].committed(CLI_GROUP, CLI_TOPIC, 0)
+    for tree, want in (("params", state.params), ("mu", state.opt_state.mu),
+                       ("nu", state.opt_state.nu)):
+        got = ckpt["params"] if tree == "params" \
+            else getattr(ckpt["opt_state"], tree)
+        for k in PARAM_NAMES:
+            if not torch.equal(got[k], want[k].cpu()):
+                raise AssertionError(f"checkpoint {tree}/{k} differs from "
+                                     f"the trained state")
+    if (ckpt["step"], ckpt["opt_state"].count) != (2000, 2000) or \
+            ckpt["cursors"] != [(CLI_TOPIC, 0, committed)]:
+        raise AssertionError(f"checkpoint step/count/cursors "
+                             f"{ckpt['step']}, {ckpt['opt_state'].count}, "
+                             f"{ckpt['cursors']}; committed {committed}")
+
+    native.reset_stats()
+    with _recording(scorer_module, "format_rows") as formats, \
+            _recording(native.NativeCodec, "decode_batch") as decodes:
+        predict = _run_cli("predict", root)
+    predict_native = dict(native.stats)
+    broker = predict["broker"]
+    end = broker.end_offset("model-predictions", 0)
+    payloads = [m.value.decode()
+                for m in broker.fetch("model-predictions", 0, 0, end + 1)]
+    if end != 10_000 or len(payloads) != 10_000 \
+            or predict["stats"]["rows"] != 10_000:
+        raise AssertionError(f"model-predictions ends at {end} "
+                             f"({len(payloads)} payloads)")
+    # every payload is the engine's string for a scored row, and that
+    # string is np.array2string of the row, byte for byte
+    rows = _check_engine_formatted(formats, 10_000,
+                                   predict_native["format_rows"], "cli_path")
+    engine_msgs = [m for _, _, msgs in formats for m in msgs]
+    if engine_msgs != payloads:
+        raise AssertionError("the topic's payloads are not the formatter's "
+                             "strings in order")
+    mismatched = sum(a != np.array2string(r)
+                     for a, r in zip(engine_msgs, rows))
+    if mismatched:
+        raise AssertionError(f"{mismatched} payloads differ from "
+                             f"np.array2string")
+    if predict_native["decode_rows"] != 20_000:
+        raise AssertionError(f"native engine on predict: {predict_native}")
+    # what the engine decoded on predict, exactly the pure codec's columns
+    # for the same messages
+    pure = AvroCodec(KSQL_CAR_SCHEMA)
+    for (codec, msgs), kw, (num, lab) in decodes:
+        if kw.get("strip") != 5:
+            raise AssertionError(f"predict decoded with {kw}, not strip=5")
+        cols = pure.decode_batch([strip_frame(m) for m in msgs])
+        label = [f.name for f in codec.schema.fields
+                 if f.avro_type == "string"].index(
+                     KSQL_CAR_SCHEMA.label_field)
+        if not np.array_equal(num, pure.sensor_matrix(cols)) or \
+                [v.decode() for v in lab[:, label]] != \
+                list(cols[KSQL_CAR_SCHEMA.label_field]):
+            raise AssertionError("the native decode of predict's messages "
+                                 "differs from the pure codec's")
+    decoded = sum(len(args[1]) for args, _, _ in decodes)
+
+    # the payloads against the restored params recomputed on the CPU
+    check = SensorBatches(
+        StreamConsumer(predict["broker"], [f"{CLI_TOPIC}:0:0"]),
+        batch_size=100, skip=100, take=100)
+    x = torch.from_numpy(np.concatenate([b.x for b in check]))
+    with torch.no_grad():
+        want = torch.func.functional_call(
+            CAR_AUTOENCODER.build("cpu"), ckpt["params"], (x,)).numpy()
+    got = np.array([np.array(p.strip("[]").split(), np.float64)
+                    for p in payloads])
+    err_first = float(np.abs(got[:100] - want[:100]).max())
+    err_all = float(np.abs(got - want).max())
+    if got.shape != (10_000, 18) or not np.isfinite(got).all() \
+            or not np.allclose(got[:100], want[:100], **CLI_TOL_FIRST) \
+            or not np.allclose(got, want, **CLI_TOL_ALL):
+        raise AssertionError(f"payloads disagree with a CPU recompute: "
+                             f"first 100 max {err_first}, all max {err_all}")
+
+    # format_rows against numpy and the plain version on these rows
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn(rows)
+        return time.perf_counter() - t0, out
+
+    fmt_s, fmt_out = timed(fastfmt.format_rows)
+    np_s, np_out = timed(lambda r: [np.array2string(v) for v in r])
+    plain_s, plain_out = timed(fastfmt.format_rows_plain)
+    if not fmt_out == np_out == plain_out:
+        raise AssertionError("format_rows, its plain version and numpy "
+                             "disagree")
+    info = {"phase": "cli_path", "card": card,
+            "train_seconds": train["seconds"],
+            "predict_seconds": predict["seconds"],
+            "fit_seconds": train["stats"]["fit_seconds"],
+            "fit_host_pipeline_s": train["stats"]["host_pipeline_s"],
+            "fit_device_compute_s": train["stats"]["device_compute_s"],
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "kernel_launches": launches,
+            "kernel_launches_by_design": by_design,
+            "train_decode_rows": train_native["decode_rows"],
+            "train_decode_s": train_native["decode_s"],
+            "publish_encode_rows": train_native["encode_rows"],
+            "publish_encode_s": train_native["encode_s"],
+            "committed_offset": committed,
+            "rows_scored": predict["stats"]["rows"],
+            "score_seconds": predict["stats"]["score_seconds"],
+            "score_rows_per_s": predict["stats"]["rows"]
+            / predict["stats"]["score_seconds"],
+            "score_host_pipeline_s": predict["stats"]["host_pipeline_s"],
+            "score_device_compute_s": predict["stats"]["device_compute_s"],
+            "predict_decode_rows": predict_native["decode_rows"],
+            "predict_decode_rows_held_to_pure_codec": decoded,
+            "predict_decode_s": predict_native["decode_s"],
+            "format_rows_native": predict_native["format_rows"],
+            "format_s": predict_native["format_s"],
+            "max_abs_err_first_100": err_first,
+            "max_abs_err_all": err_all,
+            "format_10k_ms": {"format_rows": fmt_s * 1e3,
+                              "np_array2string": np_s * 1e3,
+                              "format_rows_plain": plain_s * 1e3}}
+    emit(info)
+    return {"launches": launches, "launches_by_design": by_design}
 
 
 def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
@@ -1424,6 +1704,7 @@ def main() -> int:
     phase_build()
     err = phase_kernel()
     main_info = phase_main_path(card)
+    cli_info = phase_cli_path(card)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
     attn_err = phase_attention_kernel()
     sf_info = phase_sensorformer_path(card)
@@ -1442,8 +1723,13 @@ def main() -> int:
         "name": "fused_fit", "route": "cuda",
         "source": "iotml_torch/ops/csrc/fused_train.cu",
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
-        "launches": main_info["launches"],
-        "launches_by_design": main_info["launches_by_design"],
+        "launches": main_info["launches"] + cli_info["launches"],
+        "launches_by_path": {"main_path": main_info["launches"],
+                             "cli_path": cli_info["launches"]},
+        "launches_by_design": {
+            d: main_info["launches_by_design"][d]
+            + cli_info["launches_by_design"][d]
+            for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values()),
         "ms": min(timing["kernel_ms"][design]),

@@ -5,13 +5,26 @@ and the reference's normalization range, and the two record schemas
 derived from it: the producer schema (lower_snake_case) and the
 KSQL-derived schema the ML layer consumes (UPPER_CASE, nullable, plus
 the ``FAILURE_OCCURRED`` label).  The Avro JSON, the evolved writer
-schemas and the CSV layout stay with the data-plane slice.
+schemas and the CSV layout are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import numpy as np
+
+#: numpy dtype of each Avro primitive's decoded column
+_AVRO_NP = {
+    "float": np.float32,
+    "double": np.float64,
+    "int": np.int32,
+    "long": np.int64,
+    "boolean": np.bool_,
+    "string": object,
+    "bytes": object,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +40,10 @@ class Field:
     nullable: bool = False
     doc: str = ""
     norm: Optional[tuple] = None
+
+    @property
+    def np_dtype(self):
+        return _AVRO_NP[self.avro_type]
 
 
 @dataclasses.dataclass(frozen=True)

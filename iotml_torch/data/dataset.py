@@ -5,10 +5,16 @@ filter(label == "false") → batch(100) → take(100).  This module keeps
 its batching semantics exactly — normalization host-side in float64,
 filtering before batching, a zero-padded tail with a validity count,
 skip/take counted in post-filter batches, ``first_index`` for ordered
-write-back — over an in-memory ``RowSource`` instead of a broker
-consumer.  The broker, Avro and consumer plane come in a later slice;
-the rows a ``RowSource`` holds are the decoded sensor matrix that plane
-would hand over.
+write-back — over either of two sources:
+
+- a ``StreamConsumer`` on a broker topic of Confluent-framed Avro: each
+  poll is stripped of its 5-byte frames and decoded in one call of the
+  native engine (``stream.native.NativeCodec``), the JAX package's
+  message-list leg;
+- an in-memory ``RowSource`` of already-decoded sensor rows.
+
+The windowed (LSTM) path, the columnar frame-decoder ring and the
+schema-resolving decode are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +25,12 @@ from typing import Iterator, Optional
 import numpy as np
 
 from ..core.normalize import CAR_NORMALIZER, Normalizer
-from ..core.schema import CAR_SCHEMA
+from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
+from ..stream.consumer import StreamConsumer
+from ..stream.native import NativeCodec
+
+#: most messages one consumer poll fetches (the JAX ``poll_chunk`` default)
+POLL_CHUNK = 4096
 
 
 @dataclasses.dataclass
@@ -94,7 +105,8 @@ class RowSource:
 
 
 class SensorBatches:
-    """Iterable of fixed-shape sensor batches off a ``RowSource``.
+    """Iterable of fixed-shape sensor batches off a ``StreamConsumer`` or a
+    ``RowSource``.
 
     Args mirror the reference pipeline:
       batch_size: rows per batch (reference: 100).
@@ -106,13 +118,14 @@ class SensorBatches:
       keep_labels: carry each row's label on ``Batch.labels``.
       cache: decode once and replay batches from host memory on later
         epochs (identical over an immutable slice).
+      schema: the Avro record schema of a consumer's messages.
 
     The cursor persists across ``iter()`` calls, like a consumer's: a
     scorer re-entering the iterator continues where it stopped, and
     ``reset()`` (called between ``epochs``) rewinds to the start.
     """
 
-    def __init__(self, source: RowSource,
+    def __init__(self, source,
                  normalizer: Normalizer = CAR_NORMALIZER,
                  batch_size: int = 100,
                  take: Optional[int] = None,
@@ -120,8 +133,8 @@ class SensorBatches:
                  only_normal: bool = False,
                  pad_tail: bool = True,
                  keep_labels: bool = False,
-                 cache: bool = False):
-        self.source = source
+                 cache: bool = False,
+                 schema: RecordSchema = KSQL_CAR_SCHEMA):
         self.normalizer = normalizer
         self.batch_size = batch_size
         self.take = take
@@ -131,7 +144,23 @@ class SensorBatches:
         self.keep_labels = keep_labels
         self.cache = cache
         self._cached = None
-        self.position = 0  # the read cursor into `source`
+        self.consumer: Optional[StreamConsumer] = None
+        self.source: Optional[RowSource] = None
+        if isinstance(source, StreamConsumer):
+            self.consumer = source
+            self.schema = schema
+            self._native = NativeCodec(schema)
+            # the label's column among the schema's string fields
+            strings = [f.name for f in schema.fields
+                       if f.avro_type == "string"]
+            self._label_col = strings.index(schema.label_field) \
+                if schema.label_field in strings else None
+        elif isinstance(source, RowSource):
+            self.source = source
+        else:
+            raise TypeError(f"SensorBatches reads a StreamConsumer or a "
+                            f"RowSource, not {type(source).__name__}")
+        self.position = 0  # the read cursor into a RowSource
         # skip applies once to the stream head, not once per drain
         self._skipped = 0
         # rows still wanted by the current bounded iteration (None =
@@ -139,16 +168,39 @@ class SensorBatches:
         # cursor over rows the caller never sees
         self._need_rows: Optional[int] = None
 
-    def _filtered_chunks(self):
-        """Yield (xs [n, F] float32 normalized, labels [n]) per read: the
-        rows a bounded iteration still needs, else the rest of the log."""
+    def _decode_msgs(self, msgs):
+        """(float64 sensor rows, labels) of one poll: frames stripped and
+        Avro decoded in one native call."""
+        num, lab = self._native.decode_batch([m.value for m in msgs],
+                                             strip=5)
+        labels = lab[:, self._label_col].astype("U") \
+            if self._label_col is not None \
+            else np.full((len(msgs),), "", object)
+        return num, labels
+
+    def _decoded_chunks(self):
+        """Yield (float64 sensor rows, labels) per read: the rows a
+        bounded iteration still needs, else the rest of the stream."""
         while True:
+            if self.consumer is not None:
+                limit = POLL_CHUNK if self._need_rows is None \
+                    else max(1, min(POLL_CHUNK, self._need_rows))
+                msgs = self.consumer.poll(limit)
+                if not msgs:
+                    return
+                yield self._decode_msgs(msgs)
+                continue
             limit = len(self.source) - self.position \
                 if self._need_rows is None else self._need_rows
             num, labels = self.source.read(self.position, limit)
             if not len(num):
                 return
             self.position += len(num)
+            yield num, labels
+
+    def _filtered_chunks(self):
+        """Yield (xs [n, F] float32 normalized, labels [n]) per read."""
+        for num, labels in self._decoded_chunks():
             xs = self.normalizer.np(num)
             if self.only_normal:
                 keep = labels == "false"
@@ -232,6 +284,8 @@ class SensorBatches:
 
     def reset(self):
         """Rewind for the next epoch (the reference re-reads the topic)."""
+        if self.consumer is not None:
+            self.consumer.seek_to_start()
         self.position = 0
         self._skipped = 0
 

@@ -3,8 +3,10 @@
 A vectorized numpy fleet with per-car latent state and three failure
 modes that perturb the relevant sensors and set the label.  It makes the
 same numpy draws in the same order as the JAX package's generator, so
-the same scenario yields the same columns bit for bit.  Avro encoding
-and broker publishing stay with the data-plane slice.
+the same scenario yields the same columns bit for bit, and ``publish``
+appends the same Confluent-framed Avro records (key, value, timestamp,
+partition) to a broker topic, encoded by the native engine.  JSON
+payloads and the CSV fixture writer are not ported.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.schema import CAR_SCHEMA
+from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
+from ..stream.native import NativeCodec
 
 
 @dataclasses.dataclass
@@ -30,6 +33,10 @@ class FleetScenario:
     #: uniform-random tick in this range; None = from birth
     failure_onset_ticks: Optional[tuple] = None
     seed: int = 7
+
+    def car_id(self, i: int) -> str:
+        """Car ``i``'s id, the message key its records carry."""
+        return f"electric-vehicle-{i:05d}"
 
 
 class FleetGenerator:
@@ -125,3 +132,28 @@ class FleetGenerator:
         """[n, 18] float64 matrix in schema order (pre-normalization)."""
         return np.stack([cols[f.name].astype(np.float64)
                          for f in CAR_SCHEMA.fields], axis=1)
+
+    def publish(self, broker, topic: str, n_ticks: int = 1,
+                schema: RecordSchema = KSQL_CAR_SCHEMA,
+                partitions: int = 1) -> int:
+        """Append ``n_ticks`` ticks of every car as Confluent-framed Avro
+        records in ``schema`` to a broker topic; returns the record count.  Each record is keyed by
+        its car id and stamped with the tick's time in ms; with several
+        partitions the key picks the partition."""
+        broker.create_topic(topic, partitions=partitions)
+        codec = NativeCodec(schema)
+        count = 0
+        for _ in range(n_ticks):
+            cols = self.step_columns()
+            ts = int(self.t * 1000)
+            labels = cols["failure_occurred"].astype("S16")[:, None] \
+                if schema.label_field else None
+            msgs = codec.encode_batch(self.sensor_matrix(cols), labels,
+                                      schema_id=1)
+            for car, payload in zip(cols["car"], msgs):
+                broker.produce(topic, payload,
+                               key=self.scenario.car_id(int(car)).encode(),
+                               partition=None if partitions > 1 else 0,
+                               timestamp_ms=ts)
+            count += len(msgs)
+        return count

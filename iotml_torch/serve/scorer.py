@@ -3,14 +3,16 @@
 One long-lived scorer drains whatever the stream holds, scores it in
 super-batches (one device forward each), and writes each row's
 prediction back through the ordered ``OutputSequence``.  Each payload is
-``np.array2string`` of the output row, like the reference's callback;
-with a threshold set, ``|anomaly|err`` or ``|normal|err`` follows.
+``np.array2string`` of the output row, like the reference's callback,
+formatted a super-batch at a time by the native engine
+(``fastfmt.format_rows``, byte-identical); with a threshold set,
+``|anomaly|err`` or ``|normal|err`` follows.
 
-This slice keeps the scoring contract: super-batches, suspend and
-resume under ``max_rows``, threshold verdicts, live quality counts and
-per-label error histograms.  Offset commits, watermarks, tracing, chaos
-points, per-car health and the feature-store join belong to the broker
-plane and come with it.
+The scoring contract is kept: super-batches, suspend and resume under
+``max_rows``, threshold verdicts, live quality counts, per-label error
+histograms, and over a ``StreamConsumer`` one offset commit per
+completed drain.  Watermarks, tracing, chaos points, per-car health, the
+feature-store join and ``run_forever`` are not ported.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from ..data.dataset import SensorBatches
 from ..models.autoencoder import AutoencoderSpec
 from ..stream.producer import OutputSequence
 from ..utils.device import DeviceLike, resolve_device
+from .fastfmt import format_rows
 
 
 def format_prediction(row: np.ndarray) -> str:
-    """Reference-parity payload: np.array2string of the output vector."""
+    """Reference-parity payload of one row: np.array2string of the output
+    vector (``format_rows`` formats a block of rows the same)."""
     return np.array2string(row)
 
 
@@ -113,7 +117,11 @@ class StreamScorer:
         Each super-batch of up to ``max_super_batches`` batches is one
         device forward.  ``max_rows`` bounds one call: a call that stops
         with data left keeps its iterator suspended, and the next call
-        resumes exactly where it stopped."""
+        resumes exactly where it stopped.  Over a consumer, offsets
+        commit once per COMPLETED drain, after every polled row was
+        scored: the cursor runs ahead of the scored rows inside the
+        batcher, so a commit at a ``max_rows`` cut would lose rows on a
+        crash-resume (at-least-once, never a skip)."""
         start = self.scored
         if self._resume is not None:
             it, it_base = self._resume
@@ -132,6 +140,8 @@ class StreamScorer:
             if max_rows is not None and self.scored - start >= max_rows:
                 self._resume = (it, it_base)
                 break
+        if self._resume is None and self.batches.consumer is not None:
+            self.batches.consumer.commit()
         return self.scored - start
 
     def _score_super_batch(self, bs, base: int) -> None:
@@ -150,6 +160,9 @@ class StreamScorer:
         self.seconds["device_compute"] += time.perf_counter() - t0
         preds = preds.reshape(S_pad, B, F)[:S]
         errs = row_errors(preds, xs, self.verdict_mask)  # [S, B]
+        # one formatting call over every valid row of the super-batch
+        msgs = iter(format_rows(np.concatenate(
+            [preds[k, : b.n_valid] for k, b in enumerate(bs)])))
         for k, b in enumerate(bs):
             err = errs[k]
             if self.threshold is not None and b.labels is not None \
@@ -166,7 +179,7 @@ class StreamScorer:
                         self.err_hist[lab] += np.bincount(
                             buckets[sel], minlength=len(ERR_BUCKETS) + 1)
             for i in range(b.n_valid):
-                msg = format_prediction(preds[k, i])
+                msg = next(msgs)
                 if self.threshold is not None:
                     verdict = "anomaly" if err[i] > self.threshold else "normal"
                     msg = f"{msg}|{verdict}|{err[i]:.6f}"

@@ -1,0 +1,244 @@
+"""ctypes bindings for the port's C++ stream engine (``iotml.stream.native``).
+
+Two sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
+build into one library:
+
+- ``avro_engine.cc``: one call decodes a whole poll of Confluent-framed
+  Avro messages into columnar numpy buffers, and encodes the other way
+  (``NativeCodec``);
+- ``fmt_engine.cc``: one call formats a drain's prediction rows
+  byte-identical to ``np.array2string`` (``serve.fastfmt``).
+
+The library is built with g++ at first use, never at import:
+
+    g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall
+        -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc fmt_engine.cc
+
+``<hash>`` covers the sources, the header, the flags, the compiler's
+version and what ``-march=native`` means on this host, so an edited
+source builds anew, and neither a stale library nor one built for
+another CPU is ever loaded.  Each build
+writes a name unique to its process and ``os.replace``s it into place,
+so processes that build at once cannot tear each other's library.
+There is no silent fallback: a failed build raises with the compiler's
+output, and the pure codec (``ops.avro``) and the per-element formatter
+(``fastfmt.format_rows_plain``) run only when called by name.
+
+``stats`` counts the rows each engine call carried and the seconds it
+took; ``reset_stats()`` sets them to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from ..core.schema import RecordSchema
+
+CPP = Path(__file__).resolve().parent.parent / "cpp"
+SOURCES = ("avro_engine.cc", "fmt_engine.cc")
+HEADERS = ("utf8_check.h",)
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+             "-Wall")
+
+_TYPE_CODE = {"float": 0, "double": 1, "int": 2, "long": 3, "string": 4,
+              "boolean": 5}
+LABEL_STRIDE = 16  # fits "true"/"false"/"" labels with headroom
+
+_i64, _i8, _u8 = ctypes.c_int64, ctypes.c_int8, ctypes.c_uint8
+_P = ctypes.POINTER
+#: every entry point's (restype, argtypes)
+_SIGNATURES = {
+    "iotml_decode_batch": (_i64, [
+        ctypes.c_char_p, _P(_i64), _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_double), ctypes.c_char_p, _i64]),
+    "iotml_encode_batch": (_i64, [
+        _P(ctypes.c_double), ctypes.c_char_p, _i64, _i64, _P(_i8), _P(_u8),
+        _i64, _i64, _P(_u8), _i64, _P(_i64)]),
+    "iotml_format_rows_f32": (_i64, [
+        _P(ctypes.c_float), _i64, _i64, ctypes.c_char_p, _i64, _P(_i64),
+        _P(_u8)]),
+    "iotml_format_rows_f64": (_i64, [
+        _P(ctypes.c_double), _i64, _i64, ctypes.c_char_p, _i64, _P(_i64),
+        _P(_u8)]),
+}
+
+#: rows carried by the engine and seconds spent in it, per entry
+stats = {"decode_rows": 0, "decode_s": 0.0, "encode_rows": 0,
+         "encode_s": 0.0, "format_rows": 0, "format_s": 0.0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_stats() -> None:
+    for k in stats:
+        stats[k] = 0 if k.endswith("_rows") else 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def _target_machine() -> bytes:
+    """What ``-march=native`` resolves to on this host, and the compiler
+    version: a library built for another CPU must never be loaded."""
+    out = b""
+    for query in (["-dumpfullversion"], ["-march=native", "-Q",
+                                         "--help=target"]):
+        try:
+            proc = subprocess.run(["g++", *query], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, timeout=60)
+        except FileNotFoundError as e:
+            raise RuntimeError(f"the native stream engine needs g++: {e}") \
+                from None
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ {' '.join(query)} failed (exit "
+                               f"{proc.returncode}):\n"
+                               f"{proc.stdout.decode(errors='replace')}")
+        out += proc.stdout
+    return out
+
+
+def library_path(src_dir: Path = CPP) -> Path:
+    """Where the library of ``src_dir``'s sources goes: named by the hash
+    of the sources, the header, the compiler flags and the target machine
+    (``_target_machine``)."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    digest.update(_target_machine())
+    for name in SOURCES + HEADERS:
+        digest.update(name.encode())
+        digest.update((src_dir / name).read_bytes())
+    return src_dir / "build" / \
+        f"libiotml_torch_stream-{digest.hexdigest()[:16]}.so"
+
+
+def build(src_dir: Path = CPP) -> Path:
+    """Compile the engine unless its library exists; returns its path.
+    Raises RuntimeError with the compiler's output on a failed build."""
+    target = library_path(src_dir)
+    if target.exists():
+        return target
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.tmp{os.getpid()}")
+    try:
+        proc = subprocess.run(
+            ["g++", *CXX_FLAGS, "-o", str(tmp),
+             *(str(src_dir / s) for s in SOURCES)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=300)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"the native stream engine needs g++: {e}") \
+            from None
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"native stream engine build failed (g++ exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target
+
+
+def load() -> ctypes.CDLL:
+    """The engine library, built at first use; raises if it cannot be
+    built or loaded."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _lib = lib
+    return _lib
+
+
+def _offsets(messages: List[bytes]) -> np.ndarray:
+    offsets = np.zeros((len(messages) + 1,), np.int64)
+    np.cumsum([len(m) for m in messages], out=offsets[1:])
+    return offsets
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(_P(ctype))
+
+
+class NativeCodec:
+    """Schema-compiled batch codec over the C++ engine."""
+
+    def __init__(self, schema: RecordSchema):
+        self.schema = schema
+        self.types = np.array([_TYPE_CODE[f.avro_type]
+                               for f in schema.fields], np.int8)
+        self.nullable = np.array([1 if f.nullable else 0
+                                  for f in schema.fields], np.uint8)
+        self.n_fields = len(schema.fields)
+        self.n_strings = int((self.types == _TYPE_CODE["string"]).sum())
+        self.n_numeric = self.n_fields - self.n_strings
+        self._lib = load()
+
+    def decode_batch(self, messages: List[bytes], strip: int = 0,
+                     stride: int = LABEL_STRIDE
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """→ (numeric [n, n_numeric] float64, labels [n, n_strings]).
+
+        Numeric columns are the schema's non-string fields in order — for
+        the car schemas that is exactly the 18-sensor matrix.  ``strip``
+        bytes are skipped at each message head (5: the Confluent frame).
+        Nulls decode as 0.0 and "".  A malformed message raises
+        ValueError naming its row."""
+        n = len(messages)
+        if n == 0:
+            return (np.zeros((0, self.n_numeric)),
+                    np.zeros((0, self.n_strings), f"S{stride}"))
+        t0 = time.perf_counter()
+        blob = b"".join(messages)
+        offsets = _offsets(messages)
+        numeric = np.empty((n, self.n_numeric), np.float64)
+        labels = np.zeros((n, max(self.n_strings, 1)), f"S{stride}")
+        rc = self._lib.iotml_decode_batch(
+            blob, _ptr(offsets, _i64), n, _ptr(self.types, _i8),
+            _ptr(self.nullable, _u8), self.n_fields, strip,
+            _ptr(numeric, ctypes.c_double),
+            labels.ctypes.data_as(ctypes.c_char_p), stride)
+        if rc != n:
+            raise ValueError(f"malformed Avro message at row {-rc - 1}")
+        stats["decode_rows"] += n
+        stats["decode_s"] += time.perf_counter() - t0
+        return numeric, labels[:, : self.n_strings]
+
+    def encode_batch(self, numeric: np.ndarray, labels: Optional[np.ndarray],
+                     schema_id: int = -1,
+                     stride: int = LABEL_STRIDE) -> List[bytes]:
+        """Columnar rows → list of Avro messages, with the Confluent frame
+        of ``schema_id`` when it is >= 0.  ``labels`` is [n, n_strings]
+        bytes (None: empty strings)."""
+        t0 = time.perf_counter()
+        numeric = np.ascontiguousarray(numeric, np.float64)
+        n = numeric.shape[0]
+        if numeric.ndim != 2 or numeric.shape[1] != self.n_numeric:
+            raise ValueError(f"numeric must be [n, {self.n_numeric}], got "
+                             f"{numeric.shape}")
+        if labels is None:
+            labels = np.zeros((n, self.n_strings), f"S{stride}")
+        labels = np.ascontiguousarray(labels.astype(f"S{stride}"))
+        if labels.shape != (n, self.n_strings):
+            raise ValueError(f"labels must be [{n}, {self.n_strings}], got "
+                             f"{labels.shape}")
+        cap = n * (5 + self.n_fields * 20 + self.n_strings * stride) + 64
+        out = np.empty((cap,), np.uint8)
+        offsets = np.zeros((n + 1,), np.int64)
+        total = self._lib.iotml_encode_batch(
+            _ptr(numeric, ctypes.c_double),
+            labels.ctypes.data_as(ctypes.c_char_p), stride, n,
+            _ptr(self.types, _i8), _ptr(self.nullable, _u8), self.n_fields,
+            schema_id, _ptr(out, _u8), cap, _ptr(offsets, _i64))
+        if total < 0:
+            raise ValueError("native encode overflowed its buffer")
+        raw = out[:total].tobytes()
+        msgs = [raw[offsets[i]:offsets[i + 1]] for i in range(n)]
+        stats["encode_rows"] += n
+        stats["encode_s"] += time.perf_counter() - t0
+        return msgs
