@@ -63,7 +63,35 @@ non-zero exit and no result line:
                 seconds, scored rows/s, and ``format_rows`` against
                 per-row ``np.array2string`` and the per-element plain
                 version on those 10,000 rows.
-6. timing     — each design held against the plain version over the
+6. serve_path — the long-lived scorer as deployed,
+                ``iotml_torch.cli.serve.main``, on the card at full width
+                (18 → 14 → 7 → 7 → 18, batch 100) from the cli_path
+                checkpoint, over one ``emulator:30000`` broker shared by
+                its calls: ``committed`` with threshold 5 scores all
+                30,000 records, each payload with a ``|normal|`` or
+                ``|anomaly|`` suffix, the first 100 within atol 2e-6 of a
+                CPU recompute from the restored params and all 30,000
+                within 1e-5 (index order), the committed cursor at the
+                end offset; after 500 more records a second call scores
+                exactly those 500.  A second process serves the same job
+                from the command line's entry (``emulator:30000``, offset
+                0) with its cold first forward.  Then a group drill: two
+                ``GroupConsumer``s under card ``StreamScorer``s on a fake
+                clock over a 10-partition topic of 30,000 records, both
+                drain and commit the first half; one drains the second
+                half of its share, crashes before committing, and after
+                the session timeout the survivor takes its partitions:
+                every offset scored at least once, every committed cursor
+                at its end offset, duplicates only inside the crashed
+                member's uncommitted drain (their payloads within atol
+                1e-5 of the survivor's).  No kernel launches on this path
+                (counts set to 0 before, read after).  Timings: each
+                scorer's first super-batch forward apart, the drain's
+                rows/s with and without it, host pipeline, device and
+                formatting and write-back seconds, the resume round's
+                seconds, and
+                ``needs_resolution`` over the 30,000 records.
+7. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -73,7 +101,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-7. attention_kernel — the flash-attention kernel against its plain
+8. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -96,13 +124,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-8. sensorformer_path — SensorFormer at full width (its defaults) scores
+9. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-9. attention_timing — kernel, plain version, bound and the library
+10. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -113,7 +141,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-10. attention_backward_kernel — the dK/dV and dQ kernels against the
+11. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -132,18 +160,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-11. sensorformer_train — the slice's main path: ``make_sp_train_step``
+12. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 8; each step launches exactly
+                fleet histories of phase 9; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-12. attention_backward_timing — each backward kernel, the plain
+13. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 9, beside the bound, the fp32 FMA floor
+                shapes of phase 10, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -155,12 +183,12 @@ non-zero exit and no result line:
                 every launch count set to 0 just before it and read just
                 after (exactly one forward, one dK/dV and one dQ launch).
 Then the kernels line (the fit's design, and its launches by design on
-the main path and by path, the main path and the CLI path, summed in
-``launches``; each attention entry's design at the layer call and the
+the main path and by path, the main path, the CLI path and the serve
+path (none), summed in ``launches``; each attention entry's design at the layer call and the
 long-context call; ``launches`` sums the counts read on the paths that
-run the entry: the SensorFormer forward (phase 8), the training steps
-(phase 11) and the long-context forward + backward (phase 12), each also
-given by path), the ``nvidia-smi`` line, and the result line
+run the entry: the SensorFormer forward (phase 9), the training steps
+(phase 12), the long-context forward + backward (phase 13) and the serve
+path (none), each also given by path), the ``nvidia-smi`` line, and the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -184,6 +212,7 @@ import torch
 
 from iotml_torch.cli import _app as cli_app
 from iotml_torch.cli import cardata
+from iotml_torch.cli import serve as serve_cli
 from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.core.schema import KSQL_CAR_SCHEMA
 from iotml_torch.data.dataset import RowSource, SensorBatches
@@ -202,7 +231,7 @@ from iotml_torch.ops.attention import (FLASH_DESIGNS, attention_reference,
                                        flash_bwd_dkv, flash_bwd_dq,
                                        flash_bwd_inputs, flash_design,
                                        flash_smem)
-from iotml_torch.ops.avro import AvroCodec
+from iotml_torch.ops.avro import AvroCodec, needs_resolution
 from iotml_torch.ops.flash_parity import (bwd_rounding_flips,
                                           check_rejects_scaled_o,
                                           check_wgmma_forward)
@@ -213,7 +242,9 @@ from iotml_torch.serve import fastfmt
 from iotml_torch.serve import scorer as scorer_module
 from iotml_torch.serve.scorer import StreamScorer
 from iotml_torch.stream import native
+from iotml_torch.stream.broker import Broker
 from iotml_torch.stream.consumer import StreamConsumer
+from iotml_torch.stream.group import GroupConsumer, GroupCoordinator
 from iotml_torch.stream.producer import OutputSequence
 from iotml_torch.train.artifacts import ArtifactStore
 from iotml_torch.train.checkpoint import CheckpointManager
@@ -722,15 +753,9 @@ def _run_cli(mode: str, root: str) -> dict:
             "stats": json.loads(stats[-1][len("stats: "):])}
 
 
-def phase_cli_path(card: str) -> dict:
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    try:
-        return _cli_path(card, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _cli_path(card: str, root: str) -> dict:
+def phase_cli_path(card: str, root: str) -> dict:
+    """cardata train then predict; the checkpoint stays in ``root`` for
+    serve_path."""
     fused_train.fused_fit.launches = 0
     fused_train.fused_fit.launches_by_design = dict.fromkeys(
         fused_train.DESIGNS, 0)
@@ -880,6 +905,288 @@ def _cli_path(card: str, root: str) -> dict:
                               "format_rows_plain": plain_s * 1e3}}
     emit(info)
     return {"launches": launches, "launches_by_design": by_design}
+
+
+SERVE_TOPIC = "SENSOR_DATA_S_AVRO"
+
+
+@contextlib.contextmanager
+def _shared_broker(broker):
+    """Every ``_broker_for`` call in the block hands back ``broker``: the
+    emulator is made anew per call, and a resume needs one log."""
+    real = cli_app._broker_for
+    cli_app._broker_for = lambda *a: broker
+    try:
+        yield
+    finally:
+        cli_app._broker_for = real
+
+
+def _run_serve(argv, max_rounds: int) -> dict:
+    """One ``serve.main`` call on the card: seconds and its stats line."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = serve_cli.main(argv, max_rounds=max_rounds)  # the card
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"serve returned {rc}:\n{text}")
+    stats = [line for line in text.splitlines()
+             if line.startswith("stats: ")]
+    return {"seconds": seconds,
+            "stats": json.loads(stats[-1][len("stats: "):])}
+
+
+def _payload_parts(payloads):
+    """(rows [n, 18], verdicts, errors) of ``row|verdict|err`` payloads."""
+    rows, verdicts, errs = [], [], []
+    for p in payloads:
+        row, verdict, err = p.split("|")
+        rows.append(np.array(row.strip("[]").split(), np.float64))
+        verdicts.append(verdict)
+        errs.append(float(err))
+    return np.array(rows), verdicts, np.array(errs)
+
+
+def _recompute(broker, params, topic=SERVE_TOPIC, start=0, n=None):
+    """The CPU forward of the topic's partition-0 rows from ``start``."""
+    batches = SensorBatches(StreamConsumer(broker, [f"{topic}:0:{start}"]),
+                            batch_size=100)
+    x = torch.from_numpy(np.concatenate([b.x[:b.n_valid] for b in batches]))
+    with torch.no_grad():
+        return torch.func.functional_call(CAR_AUTOENCODER.build("cpu"),
+                                          params, (x,)).numpy(), x.numpy()
+
+
+def _check_serve_payloads(payloads, want, x, threshold, where) -> tuple:
+    rows, verdicts, errs = _payload_parts(payloads)
+    if rows.shape != want.shape or not np.isfinite(rows).all():
+        raise AssertionError(f"{where}: payload rows {rows.shape}, want "
+                             f"{want.shape}")
+    err_first = float(np.abs(rows[:100] - want[:100]).max())
+    err_all = float(np.abs(rows - want).max())
+    if not np.allclose(rows[:100], want[:100], **CLI_TOL_FIRST) \
+            or not np.allclose(rows, want, **CLI_TOL_ALL):
+        raise AssertionError(f"{where}: payloads disagree with a CPU "
+                             f"recompute: first 100 max {err_first}, all "
+                             f"max {err_all}")
+    want_err = np.square(want - x).mean(axis=1)
+    # a printed error within a printed digit of the threshold may sit on
+    # either side of it
+    flipped = [v != ("anomaly" if e > threshold else "normal")
+               for v, e in zip(verdicts, errs) if abs(e - threshold) > 1e-6]
+    if any(flipped) or set(verdicts) - {"normal", "anomaly"} or \
+            not np.allclose(errs, want_err, rtol=0, atol=2e-6):
+        raise AssertionError(f"{where}: verdict suffixes disagree with the "
+                             f"errors ({sum(flipped)} flipped, max err "
+                             f"diff {np.abs(errs - want_err).max()})")
+    return err_first, err_all, verdicts.count("anomaly")
+
+
+def phase_serve_path(card: str, root: str) -> dict:
+    fused_train.fused_fit.launches = 0
+    reset_launches()
+    ckpt = CheckpointManager.load_dir(ArtifactStore(root).download_tree(
+        "m1", str(Path(root) / "serve_restored")))
+    broker = cli_app._broker_for("emulator:30000", SERVE_TOPIC)
+    argv = ["emulator:30000", SERVE_TOPIC, "committed", "model-predictions",
+            "m1", root, "--serve.poll_interval_s=0", "--serve.threshold=5"]
+    native.reset_stats()
+    with _shared_broker(broker):
+        first = _run_serve(argv, max_rounds=2)
+        end = broker.end_offset("model-predictions", 0)
+        committed = broker.committed(serve_cli.GROUP, SERVE_TOPIC, 0)
+        if (end, committed, first["stats"]["rows"]) != (30_000,) * 3:
+            raise AssertionError(f"committed serve: {end} payloads, cursor "
+                                 f"{committed}, stats {first['stats']}")
+        payloads = [m.value.decode() for m in
+                    broker.fetch("model-predictions", 0, 0, end)]
+        want, x = _recompute(broker, ckpt["params"])
+        err_first, err_all, anomalies = _check_serve_payloads(
+            payloads, want, x, 5.0, "serve committed")
+        values = [m.value for m in broker.fetch(SERVE_TOPIC, 0, 0, 30_000)]
+        t0 = time.perf_counter()
+        evolved = any(needs_resolution(v) for v in values)
+        resolution_s = time.perf_counter() - t0
+        if evolved:
+            raise AssertionError("a v1 record took the resolving decode")
+        # 500 more records: the resumed call scores exactly those
+        FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01)) \
+            .publish(broker, SERVE_TOPIC, n_ticks=5)
+        resume = _run_serve(argv, max_rounds=2)
+        end = broker.end_offset("model-predictions", 0)
+        committed = broker.committed(serve_cli.GROUP, SERVE_TOPIC, 0)
+        if (end, committed, resume["stats"]["rows"]) != \
+                (30_500, 30_500, 500):
+            raise AssertionError(f"resumed serve: {end} payloads, cursor "
+                                 f"{committed}, stats {resume['stats']}")
+        want, x = _recompute(broker, ckpt["params"], start=30_000)
+        _check_serve_payloads([m.value.decode() for m in broker.fetch(
+            "model-predictions", 0, 30_000, 500)], want, x, 5.0,
+            "serve resume")
+    cold = _cold_process_serve(root)
+    drill = _group_drill(ckpt["params"])
+    launches = {"fused_fit": fused_train.fused_fit.launches,
+                **flash_attention.launches}
+    if any(launches.values()):
+        raise AssertionError(f"the serve path launched kernels: {launches}")
+    st = first["stats"]
+    info = {"phase": "serve_path", "card": card,
+            "rows_scored": st["rows"], "rounds": st["rounds"],
+            "rewinds": st["rewinds"], "anomalies": anomalies,
+            "committed_offset": 30_000,
+            "serve_seconds": st["serve_seconds"],
+            "first_forward_s": st["first_forward_s"],
+            "drain_rows_per_s": st["rows"] / st["serve_seconds"],
+            "drain_rows_per_s_after_first_forward":
+                st["rows"] / (st["serve_seconds"] - st["first_forward_s"]),
+            "host_pipeline_s": st["host_pipeline_s"],
+            "device_compute_s": st["device_compute_s"],
+            "write_back_s": st["write_back_s"],
+            "decode_rows": st["decode_rows"], "decode_s": st["decode_s"],
+            "format_rows_native": st["format_rows"],
+            "format_s": st["format_s"],
+            "call_seconds": first["seconds"],
+            "resume_rows": resume["stats"]["rows"],
+            "resume_seconds": resume["stats"]["serve_seconds"],
+            "resume_first_forward_s": resume["stats"]["first_forward_s"],
+            "resolution_check_s_30k": resolution_s,
+            "resolution_check_share_of_drain":
+                resolution_s / st["serve_seconds"],
+            "max_abs_err_first_100": err_first,
+            "max_abs_err_all": err_all,
+            "cold_process": cold, "group_drill": drill,
+            "kernel_launches": launches}
+    emit(info)
+    return {"launches": launches}
+
+
+def _cold_process_serve(root: str) -> dict:
+    """The same job in a process of its own, as the deployment starts it:
+    its first forward is the cold one."""
+    code = ("import sys; from iotml_torch.cli import serve; sys.exit("
+            f"serve.main(['emulator:30000', '{SERVE_TOPIC}', '0', "
+            f"'model-predictions', 'm1', {root!r}, "
+            "'--serve.poll_interval_s=0', '--serve.threshold=5'], "
+            "max_rounds=2))")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(Path(__file__)
+                                                         .resolve().parent))
+    seconds = time.perf_counter() - t0
+    stats = [line for line in run.stdout.splitlines()
+             if line.startswith("stats: ")]
+    if run.returncode != 0 or not stats:
+        raise AssertionError(f"serve in a second process returned "
+                             f"{run.returncode}:\n{run.stdout}\n{run.stderr}")
+    st = json.loads(stats[-1][len("stats: "):])
+    if st["rows"] != 30_000:
+        raise AssertionError(f"serve in a second process: {st}")
+    return {"process_seconds": seconds, "rows": st["rows"],
+            "serve_seconds": st["serve_seconds"],
+            "first_forward_s": st["first_forward_s"],
+            "host_pipeline_s": st["host_pipeline_s"],
+            "device_compute_s": st["device_compute_s"],
+            "write_back_s": st["write_back_s"],
+            "format_s": st["format_s"],
+            "drain_rows_per_s": st["rows"] / st["serve_seconds"]}
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _member(coord, broker, params, member_id):
+    """A group member under a card scorer; its consumer records every
+    delivered (partition, offset) in order."""
+    consumer = GroupConsumer(coord, [SERVE_TOPIC], member_id=member_id)
+    delivered = []
+    poll = consumer.poll
+
+    def recording_poll(max_messages=1024):
+        msgs = poll(max_messages)
+        delivered.extend((m.partition, m.offset) for m in msgs)
+        return msgs
+
+    consumer.poll = recording_poll
+    out = OutputSequence()
+    scorer = StreamScorer(CAR_AUTOENCODER, params,
+                          SensorBatches(consumer, batch_size=100), out,
+                          threshold=5.0)  # device=None: the card
+    return consumer, scorer, out, delivered
+
+
+def _group_drill(params) -> dict:
+    broker = Broker()
+    gen = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01))
+    gen.publish(broker, SERVE_TOPIC, n_ticks=150, partitions=10)
+    clock = FakeClock()
+    coord = GroupCoordinator(broker, serve_cli.GROUP, session_timeout_s=5.0,
+                             clock=clock)
+    ca, sa, out_a, got_a = _member(coord, broker, params, "serve-a")
+    cb, sb, out_b, got_b = _member(coord, broker, params, "serve-b")
+    t0 = time.perf_counter()
+    first_half = sa.score_available() + sb.score_available()
+    gen.publish(broker, SERVE_TOPIC, n_ticks=150, partitions=10)
+    # b drains its share of the second half and crashes before its commit
+    before_crash = len(got_b)
+    real_commit = cb.commit
+    cb.commit = lambda: False
+    crashed_rows = sb.score_available()
+    cb.commit = real_commit
+    uncommitted = set(got_b[before_crash:])
+    clock.t += 6.0  # past the session timeout: b is expired at a's poll
+    survivor_rows = sa.score_available()
+    drill_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ends = {p: broker.end_offset(SERVE_TOPIC, p) for p in range(10)}
+    total = sum(ends.values())
+    committed = {p: broker.committed(serve_cli.GROUP, SERVE_TOPIC, p)
+                 for p in range(10)}
+    every = {(p, o) for p, end in ends.items() for o in range(end)}
+    counts = {}
+    for tp in got_a + got_b:
+        counts[tp] = counts.get(tp, 0) + 1
+    dupes = {tp for tp, n in counts.items() if n > 1}
+    if total != 30_000 or set(counts) != every or committed != ends \
+            or not dupes <= uncommitted or not uncommitted \
+            or ca.assignment != [(SERVE_TOPIC, p) for p in range(10)] \
+            or ca.rebalances < 2:
+        raise AssertionError(
+            f"group drill: {total} records, {len(set(counts))} scored, "
+            f"committed {committed} vs ends {ends}, {len(dupes)} duplicates "
+            f"({len(dupes - uncommitted)} outside the crashed drain of "
+            f"{len(uncommitted)}), survivor owns {ca.assignment} after "
+            f"{ca.rebalances} rebalances")
+    # each scorer wrote one payload per delivered record, in order; the
+    # duplicates' payloads agree between the crashed member and the survivor
+    pa = {tp: msg for tp, (_, msg) in zip(got_a, out_a.published)}
+    pb = {tp: msg for tp, (_, msg) in zip(got_b, out_b.published)}
+    if len(out_a.published) != len(got_a) or \
+            len(out_b.published) != len(got_b):
+        raise AssertionError("group drill: payloads and deliveries differ "
+                             "in number")
+    dup_err = 0.0
+    if dupes:
+        a_rows, _, _ = _payload_parts([pa[tp].decode() for tp in sorted(dupes)])
+        b_rows, _, _ = _payload_parts([pb[tp].decode() for tp in sorted(dupes)])
+        dup_err = float(np.abs(a_rows - b_rows).max())
+        if dup_err > CLI_TOL_ALL["atol"]:
+            raise AssertionError(f"group drill: duplicate payloads differ "
+                                 f"by {dup_err}")
+    return {"records": total, "partitions": 10,
+            "first_half_rows": first_half, "crashed_rows": crashed_rows,
+            "uncommitted": len(uncommitted), "survivor_rows": survivor_rows,
+            "duplicates": len(dupes), "duplicate_max_abs_diff": dup_err,
+            "survivor_rebalances": ca.rebalances,
+            "generation": coord.generation, "seconds": drill_s,
+            "first_forward_s": [sa.first_forward_s, sb.first_forward_s]}
 
 
 def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
@@ -1704,7 +2011,12 @@ def main() -> int:
     phase_build()
     err = phase_kernel()
     main_info = phase_main_path(card)
-    cli_info = phase_cli_path(card)
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_info = phase_cli_path(card, root)
+        serve_info = phase_serve_path(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
     attn_err = phase_attention_kernel()
     sf_info = phase_sensorformer_path(card)
@@ -1717,15 +2029,20 @@ def main() -> int:
     paths = {"sensorformer_path": sf_info["kernel_launches"],
              "sensorformer_train": train_info["kernel_launches"],
              "long_context": {key: sum(p[key] for p in long_paths)
-                              for key in flash_attention.launches}}
+                              for key in flash_attention.launches},
+             "serve_path": {key: serve_info["launches"][key]
+                            for key in flash_attention.launches}}
     design = timing["design"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
         "source": "iotml_torch/ops/csrc/fused_train.cu",
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
-        "launches": main_info["launches"] + cli_info["launches"],
+        "launches": main_info["launches"] + cli_info["launches"]
+        + serve_info["launches"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
-                             "cli_path": cli_info["launches"]},
+                             "cli_path": cli_info["launches"],
+                             "serve_path":
+                                 serve_info["launches"]["fused_fit"]},
         "launches_by_design": {
             d: main_info["launches_by_design"][d]
             + cli_info["launches_by_design"][d]

@@ -1,12 +1,13 @@
 """Typed configuration (``iotml.config``'s resolver, cut to its ``train``
-section).
+and ``serve`` sections).
 
 One dataclass tree with one resolution order:
 
     defaults  <  config file (JSON)  <  environment  <  CLI flags
 
-Environment keys: ``IOTML_TRAIN_<FIELD>`` (e.g. ``IOTML_TRAIN_EPOCHS``).
-CLI flags: ``--train.<field>=<value>`` (or ``--train.<field> <value>``).
+Environment keys: ``IOTML_<SECTION>_<FIELD>`` (e.g. ``IOTML_TRAIN_EPOCHS``,
+``IOTML_SERVE_THRESHOLD``).  CLI flags: ``--<section>.<field>=<value>``
+(or ``--<section>.<field> <value>``).
 Values are coerced to the field's type, so a typo'd value fails at load
 time.  An unknown section or field raises ValueError, as in the JAX
 package; a section the JAX package has and the port does not yet raises
@@ -34,15 +35,27 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class ServeConfig:
+    """The long-lived scorer's knobs (``cli/serve.py``)."""
+
+    skip_batches: int = 100
+    take_batches: int = 100
+    poll_interval_s: float = 0.5
+    checkpoint_every_batches: int = 50
+    threshold: float = 0.0   # >0: append anomaly verdicts (notebook thr 5)
+
+
+@dataclasses.dataclass
 class Config:
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
 
 #: the JAX package's other sections, and the ROADMAP item that ports each
 UNPORTED_SECTIONS = {
     "mesh": "A10 (multi-GPU data parallel)",
     "broker": "A6 (the CLIs: the Kafka wire client)",
-    "stream": "A6 (the CLIs)", "serve": "A6 (the CLIs)",
+    "stream": "A6 (the CLIs)",
     "artifacts": "A6 (the CLIs)", "scenario": "A6 (the CLIs)",
     "store": "A13 (the rest of the tooling)",
     "tier": "A13 (the rest of the tooling)",

@@ -4,8 +4,8 @@ One table of 18 sensor fields, with each field's producer-schema type
 and the reference's normalization range, and the two record schemas
 derived from it: the producer schema (lower_snake_case) and the
 KSQL-derived schema the ML layer consumes (UPPER_CASE, nullable, plus
-the ``FAILURE_OCCURRED`` label).  The Avro JSON, the evolved writer
-schemas and the CSV layout are not ported.
+the ``FAILURE_OCCURRED`` label), and the evolved writer schema v2 with
+its frame id.  The Avro JSON and the CSV layout are not ported.
 """
 
 from __future__ import annotations
@@ -134,3 +134,35 @@ KSQL_CAR_SCHEMA = RecordSchema(
     ),
     label_field="FAILURE_OCCURRED",
 )
+
+# Writer-schema v2: the evolution a live fleet produces mid-upgrade — a
+# new optional field (REGION) with a null default, emitted BEFORE the
+# label KSQL appends last.  A v1 reader decoding v2 bytes positionally
+# would read REGION's union branch as the label; ``ops.avro
+# .ResolvingCodec`` resolves by name instead.  v2 is a WRITER schema:
+# the ML layer reads through the v1 projection, so REGION never reaches
+# the model input.
+KSQL_CAR_SCHEMA_V2 = RecordSchema(
+    name="KsqlDataSourceSchema",
+    namespace="io.confluent.ksql.avro_schemas",
+    fields=tuple(
+        list(KSQL_CAR_SCHEMA.fields[:-1])
+        + [Field("REGION", "string", nullable=True,
+                 doc="fleet cohort region (added in writer schema v2)"),
+           Field("FAILURE_OCCURRED", "string", nullable=True)]
+    ),
+    label_field="FAILURE_OCCURRED",
+    meta_fields=("REGION",),
+)
+
+#: the evolved writer's frame id, in the band the schema registry never
+#: allocates into (registry ids start at 1)
+CAR_SCHEMA_V2_ID = 1002
+
+#: Confluent-frame schema id → writer schema, for readers resolving a
+#: mixed-version topic
+WRITER_SCHEMAS = {1: KSQL_CAR_SCHEMA, CAR_SCHEMA_V2_ID: KSQL_CAR_SCHEMA_V2}
+
+#: writer version → (schema, frame id)
+WRITER_VERSIONS = {1: (KSQL_CAR_SCHEMA, 1),
+                   2: (KSQL_CAR_SCHEMA_V2, CAR_SCHEMA_V2_ID)}

@@ -7,14 +7,17 @@ filtering before batching, a zero-padded tail with a validity count,
 skip/take counted in post-filter batches, ``first_index`` for ordered
 write-back — over either of two sources:
 
-- a ``StreamConsumer`` on a broker topic of Confluent-framed Avro: each
-  poll is stripped of its 5-byte frames and decoded in one call of the
-  native engine (``stream.native.NativeCodec``), the JAX package's
-  message-list leg;
+- a ``StreamConsumer`` or a ``GroupConsumer`` on a broker topic of
+  Confluent-framed Avro: each poll is stripped of its 5-byte frames and
+  decoded in one call of the native engine
+  (``stream.native.NativeCodec``), the JAX package's message-list leg; a
+  poll that holds any frame of an evolved writer schema is decoded by
+  name through ``ops.avro.ResolvingCodec`` instead, since the
+  positional decode would misread it;
 - an in-memory ``RowSource`` of already-decoded sensor rows.
 
-The windowed (LSTM) path, the columnar frame-decoder ring and the
-schema-resolving decode are not ported.
+The windowed (LSTM) path, the columnar frame-decoder ring, keys and the
+canary filter are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import numpy as np
 
 from ..core.normalize import CAR_NORMALIZER, Normalizer
 from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
+from ..ops.avro import ResolvingCodec, needs_resolution
 from ..stream.consumer import StreamConsumer
+from ..stream.group import GroupConsumer
 from ..stream.native import NativeCodec
 
 #: most messages one consumer poll fetches (the JAX ``poll_chunk`` default)
@@ -144,12 +149,13 @@ class SensorBatches:
         self.keep_labels = keep_labels
         self.cache = cache
         self._cached = None
-        self.consumer: Optional[StreamConsumer] = None
+        self.consumer = None  # a StreamConsumer or a GroupConsumer
         self.source: Optional[RowSource] = None
-        if isinstance(source, StreamConsumer):
+        if isinstance(source, (StreamConsumer, GroupConsumer)):
             self.consumer = source
             self.schema = schema
             self._native = NativeCodec(schema)
+            self._resolving: Optional[ResolvingCodec] = None
             # the label's column among the schema's string fields
             strings = [f.name for f in schema.fields
                        if f.avro_type == "string"]
@@ -158,8 +164,9 @@ class SensorBatches:
         elif isinstance(source, RowSource):
             self.source = source
         else:
-            raise TypeError(f"SensorBatches reads a StreamConsumer or a "
-                            f"RowSource, not {type(source).__name__}")
+            raise TypeError(f"SensorBatches reads a StreamConsumer, a "
+                            f"GroupConsumer or a RowSource, not "
+                            f"{type(source).__name__}")
         self.position = 0  # the read cursor into a RowSource
         # skip applies once to the stream head, not once per drain
         self._skipped = 0
@@ -170,9 +177,18 @@ class SensorBatches:
 
     def _decode_msgs(self, msgs):
         """(float64 sensor rows, labels) of one poll: frames stripped and
-        Avro decoded in one native call."""
-        num, lab = self._native.decode_batch([m.value for m in msgs],
-                                             strip=5)
+        Avro decoded in one native call, or, where any frame names an
+        evolved writer schema, the whole poll decoded by name."""
+        values = [m.value for m in msgs]
+        if any(needs_resolution(v) for v in values):
+            if self._resolving is None:
+                self._resolving = ResolvingCodec(self.schema)
+            cols = self._resolving.decode_batch_framed(values)
+            label = self.schema.label_field
+            labels = cols[label].astype("U") if label \
+                else np.full((len(msgs),), "", object)
+            return self._resolving.codec.sensor_matrix(cols), labels
+        num, lab = self._native.decode_batch(values, strip=5)
         labels = lab[:, self._label_col].astype("U") \
             if self._label_col is not None \
             else np.full((len(msgs),), "", object)

@@ -125,7 +125,7 @@ class SensorFormer(nn.Module):
         if attn_mode == "ring":
             raise NotImplementedError(
                 "attn_mode='ring' (sequence-parallel ring attention) comes "
-                "with the port's multi-GPU slice")
+                "with the port's multi-GPU slice (ROADMAP A11)")
         if attn_mode not in ATTN_MODES:
             raise ValueError(f"unknown attn_mode {attn_mode}")
         if d_model % num_heads:

@@ -10,7 +10,10 @@ reached only by an explicit call.
 Supported schema features are exactly what the car/KSQL schemas need:
 primitives float/double/int/long/boolean/string/bytes and the nullable
 2-branch union ``["null", T]`` with the Avro spec's zigzag-varint framing.
-Schema resolution (an evolved writer read by name) is not ported.
+``ResolvingCodec`` reads a mixed-version topic: each framed message is
+decoded with its writer's schema and projected onto the reader's by
+field name (``needs_resolution`` is the per-message header test that
+routes a chunk there).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from typing import List, Sequence
 
 import numpy as np
 
-from ..core.schema import RecordSchema, Field
+from ..core.schema import WRITER_SCHEMAS, Field, RecordSchema
+from .framing import unframe
 
 _F32 = struct.Struct("<f")
 _F64 = struct.Struct("<d")
@@ -158,3 +162,81 @@ class AvroCodec:
         in-graph (cardata-v3.py:150-168)."""
         names = [f.name for f in self.schema.sensor_fields]
         return np.stack([cols[n].astype(dtype) for n in names], axis=1)
+
+
+# ------------------------------------------------------ schema evolution
+#: the Confluent frame header every pre-evolution payload carries
+#: (magic 0 + schema id 1)
+_V1_HEADER = b"\x00\x00\x00\x00\x01"
+
+
+def needs_resolution(value: bytes) -> bool:
+    """True for a well-formed Confluent frame whose writer id is a KNOWN
+    non-default schema; unknown ids and non-Confluent payloads return
+    False, so their failure mode does not change."""
+    if len(value) < 5 or value[:5] == _V1_HEADER or value[0] != 0:
+        return False
+    return int.from_bytes(value[1:5], "big") in WRITER_SCHEMAS
+
+
+def resolve_record(rec: dict, reader: RecordSchema) -> dict:
+    """Avro schema resolution by name: reader fields take the writer's
+    value; writer-only fields are dropped; a nullable reader field the
+    writer lacks becomes null, and a required one raises (an
+    incompatible evolution)."""
+    out = {}
+    for f in reader.fields:
+        if f.name in rec:
+            out[f.name] = rec[f.name]
+        elif f.nullable:
+            out[f.name] = None
+        else:
+            raise ValueError(
+                f"incompatible schema evolution: required reader field "
+                f"{f.name!r} missing from writer record")
+    return out
+
+
+class ResolvingCodec:
+    """Schema-id-dispatching decoder for mixed-version topics: every
+    framed message is decoded with the codec of the writer its frame
+    names, then projected onto the fixed reader schema."""
+
+    def __init__(self, reader: RecordSchema):
+        self.reader = reader
+        self.codec = AvroCodec(reader)
+        self.writers = {sid: (schema, AvroCodec(schema))
+                        for sid, schema in WRITER_SCHEMAS.items()}
+
+    def decode_framed(self, message: bytes) -> dict:
+        """One framed message → a record in the reader's fields."""
+        sid, payload = unframe(message)
+        entry = self.writers.get(sid)
+        if entry is None:
+            raise ValueError(f"unknown writer schema id {sid}")
+        schema, codec = entry
+        rec = codec.decode(payload)
+        if schema is self.reader:
+            return rec
+        return resolve_record(rec, self.reader)
+
+    def decode_batch_framed(self, messages: List[bytes],
+                            null_fill=0.0) -> dict:
+        """Mixed-version batch → reader-schema columns (the
+        ``AvroCodec.decode_batch`` contract, resolution included)."""
+        n = len(messages)
+        cols = {}
+        for f in self.reader.fields:
+            if f.avro_type in ("string", "bytes"):
+                cols[f.name] = np.empty((n,), object)
+            else:
+                cols[f.name] = np.zeros((n,), f.np_dtype)
+        for i, msg in enumerate(messages):
+            rec = self.decode_framed(msg)
+            for f in self.reader.fields:
+                v = rec[f.name]
+                if v is None:
+                    v = "" if f.avro_type in ("string", "bytes") \
+                        else null_fill
+                cols[f.name][i] = v
+        return cols

@@ -8,7 +8,7 @@ next-step MSE of ``sp_next_step_loss_reference`` — targets ``x[:, 1:]``,
 the final step masked — and ``make_sp_train_step`` is the gradient of
 that loss followed by Adam.  A mesh of more than one device raises
 NotImplementedError until ring attention and the cross-rank shift are
-ported (ROADMAP queue A, item 9).
+ported (ROADMAP A11, multi-GPU SensorFormer).
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ def make_sp_train_step(model, optimizer, mesh=None
         raise NotImplementedError(
             "make_sp_train_step runs on one device: sequence-parallel "
             "training across devices needs ring attention and the "
-            "cross-rank next-step shift (ROADMAP queue A, item 9)")
+            "cross-rank next-step shift (ROADMAP A11)")
     device = next(model.parameters()).device
 
     def init() -> TrainState:

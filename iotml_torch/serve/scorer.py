@@ -10,9 +10,11 @@ formatted a super-batch at a time by the native engine
 
 The scoring contract is kept: super-batches, suspend and resume under
 ``max_rows``, threshold verdicts, live quality counts, per-label error
-histograms, and over a ``StreamConsumer`` one offset commit per
-completed drain.  Watermarks, tracing, chaos points, per-car health, the
-feature-store join and ``run_forever`` are not ported.
+histograms, over a consumer one offset commit per completed drain, and
+``run_forever``, the long-lived loop that rewinds to the committed
+offsets and backs off when the broker connection fails.  Watermarks,
+tracing, chaos points, per-car health and the feature-store join are not
+ported.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from ..data.dataset import SensorBatches
 from ..models.autoencoder import AutoencoderSpec
 from ..stream.producer import OutputSequence
+from ..utils.backoff import ExpBackoff
 from ..utils.device import DeviceLike, resolve_device
 from .fastfmt import format_rows
 
@@ -100,16 +103,30 @@ class StreamScorer:
         #: per-label reconstruction-error histograms (log buckets)
         self.err_hist = {"true": np.zeros(len(ERR_BUCKETS) + 1, np.int64),
                          "false": np.zeros(len(ERR_BUCKETS) + 1, np.int64)}
-        #: wall seconds per leg: read + batch, and transfer + forward + copy back
-        self.seconds = {"host_pipeline": 0.0, "device_compute": 0.0}
+        #: wall seconds per leg: read + batch, transfer + forward + copy
+        #: back, and the ordered flush to the output (write_back)
+        self.seconds = {"host_pipeline": 0.0, "device_compute": 0.0,
+                        "write_back": 0.0}
+        #: device_compute of the first super-batch alone: a cold process
+        #: pays its first forward's setup there
+        self.first_forward_s: Optional[float] = None
+        #: run_forever's rounds, and its rewinds to the committed offsets
+        #: after a ConnectionError
+        self.rounds = 0
+        self.rewinds = 0
+        #: registry version of the loaded weights (None = not stamped)
+        self.model_version: Optional[int] = None
         self.set_params(params)
 
-    def set_params(self, params) -> None:
+    def set_params(self, params, version: Optional[int] = None) -> None:
         """Swap the model weights in place; takes effect at the next
-        super-batch and cannot drop or reorder output."""
+        super-batch and cannot drop or reorder output.  ``version``
+        stamps ``model_version``."""
         self.model.load_state_dict(
             {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
              else v for k, v in params.items()})
+        if version is not None:
+            self.model_version = version
 
     def score_available(self, max_rows: Optional[int] = None) -> int:
         """Drain whatever the stream holds; returns rows scored.
@@ -136,7 +153,9 @@ class StreamScorer:
             if not bs:
                 break
             self._score_super_batch(bs, it_base)
+            t0 = time.perf_counter()
             self.out.flush()
+            self.seconds["write_back"] += time.perf_counter() - t0
             if max_rows is not None and self.scored - start >= max_rows:
                 self._resume = (it, it_base)
                 break
@@ -157,7 +176,10 @@ class StreamScorer:
             x_dev = torch.from_numpy(xs_in.reshape(S_pad * B, F)).to(
                 self.device)
             preds = self.model(x_dev).cpu().numpy()
-        self.seconds["device_compute"] += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self.seconds["device_compute"] += seconds
+        if self.first_forward_s is None:
+            self.first_forward_s = seconds
         preds = preds.reshape(S_pad, B, F)[:S]
         errs = row_errors(preds, xs, self.verdict_mask)  # [S, B]
         # one formatting call over every valid row of the super-batch
@@ -185,3 +207,31 @@ class StreamScorer:
                     msg = f"{msg}|{verdict}|{err[i]:.6f}"
                 self.out.setitem(base + b.first_index + i, msg)
             self.scored += b.n_valid
+
+    def run_forever(self, poll_interval_s: float = 0.2,
+                    max_rounds: Optional[int] = None) -> None:
+        """The long-lived loop: drain, sleep ``poll_interval_s`` after an
+        idle round, repeat (``max_rounds`` bounds it; None runs forever).
+
+        A ``ConnectionError`` out of a drain rewinds the input to the
+        committed offsets and re-drains after a backoff that grows from
+        ``max(poll_interval_s, 0.01)`` to ``max(2.0, base)`` and resets
+        after a clean round.  Rows of the failed drain that were already
+        written are written again at new indices (at-least-once, as a
+        crash-restart is)."""
+        base = max(poll_interval_s, 0.01)  # 0 busy-polls; failures still
+        # must not busy-spin
+        backoff = ExpBackoff(base_s=base, cap_s=max(2.0, base))
+        start = self.rounds
+        while max_rounds is None or self.rounds - start < max_rounds:
+            self.rounds += 1
+            try:
+                n = self.score_available()
+            except ConnectionError:
+                self.batches.consumer.rewind_to_committed()
+                self.rewinds += 1
+                time.sleep(backoff.next_delay())
+                continue
+            backoff.reset()
+            if n == 0:
+                time.sleep(poll_interval_s)

@@ -3,15 +3,16 @@
 The reference's data plane is a Confluent deployment (topics
 ``sensor-data`` / ``model-predictions``, reference
 ``01_installConfluentPlatform.sh:180-183``).  This is its in-process
-equivalent: a partitioned, offset-addressed append-only log with a
-message-count retention bound and consumer-group offset storage, so the port's
-train and score jobs run against it unchanged.  Keyed records go to
-``crc32(key) % partitions``, unkeyed ones round-robin, as in the JAX
-package.
+equivalent: a partitioned, offset-addressed append-only log with
+retention by message count, by bytes and by record age, and
+consumer-group offset storage (one commit or fetch of many partitions
+under one lock), so the port's train and score jobs run against it
+unchanged.  Keyed records go to ``crc32(key) % partitions``, unkeyed ones
+round-robin, as in the JAX package.
 
 One lock guards all mutation and ``fetch``.  The durable segmented store,
-raw frame batches, retention by bytes or by age, compaction, tiering,
-topic ownership and chaos points are not ported.
+raw frame batches, compaction, tiering, topic ownership and chaos points
+are not ported.
 """
 
 from __future__ import annotations
@@ -55,25 +56,37 @@ class Message(NamedTuple):
 
 @dataclasses.dataclass
 class TopicSpec:
-    """A topic's partition count and its retention bound in messages per
-    partition (None or 0 = unbounded)."""
+    """A topic's partition count and its retention bounds per partition:
+    messages, payload bytes (value + key), and age in ms behind the
+    newest record's timestamp (None or 0 = unbounded)."""
 
     name: str
     partitions: int = 1
     retention_messages: Optional[int] = None
+    retention_bytes: Optional[int] = None
+    retention_ms: Optional[int] = None
+
+
+def _size(key, value) -> int:
+    return (len(value) if value else 0) + (len(key) if key else 0)
 
 
 class _Partition:
     """One partition: the list-backed log."""
 
-    __slots__ = ("log", "base_offset")
+    __slots__ = ("log", "base_offset", "bytes", "max_ts")
 
     def __init__(self):
         self.log: List[tuple] = []  # (key, value, ts)
         self.base_offset = 0  # offset of log[0] after retention trimming
+        self.bytes = 0  # payload bytes retained (retention_bytes)
+        self.max_ts = 0  # newest record ts seen (retention_ms anchor)
 
     def append(self, key, value, ts) -> int:
         self.log.append((key, value, ts))
+        self.bytes += _size(key, value)
+        if ts > self.max_ts:
+            self.max_ts = ts
         return self.base_offset + len(self.log) - 1
 
     def end(self) -> int:
@@ -85,11 +98,35 @@ class _Partition:
         return [(offset + i, key, value, ts) for i, (key, value, ts)
                 in enumerate(self.log[idx:idx + max_messages])]
 
+    def drop_head(self, count: int) -> None:
+        for key, value, _ts in self.log[:count]:
+            self.bytes -= _size(key, value)
+        del self.log[:count]
+        self.base_offset += count
+
     def enforce_retention(self, spec: TopicSpec) -> None:
-        drop = len(self.log) - (spec.retention_messages or len(self.log))
-        if drop > 0:
-            del self.log[:drop]
-            self.base_offset += drop
+        """Trim the head to the spec's bounds, as the JAX package's
+        in-memory partition does: by count; by bytes, always keeping the
+        newest record; by age against the newest timestamp (untimestamped
+        records never age out), keeping the newest record too."""
+        if spec.retention_messages and len(self.log) > spec.retention_messages:
+            self.drop_head(len(self.log) - spec.retention_messages)
+        if spec.retention_bytes:
+            drop = freed = 0
+            while self.bytes - freed > spec.retention_bytes and \
+                    drop < len(self.log) - 1:
+                key, value, _ts = self.log[drop]
+                freed += _size(key, value)
+                drop += 1
+            if drop:
+                self.drop_head(drop)
+        if spec.retention_ms:
+            cutoff = self.max_ts - spec.retention_ms
+            drop = 0
+            while drop < len(self.log) - 1 and self.log[drop][2] < cutoff:
+                drop += 1
+            if drop and self.log[drop - 1][2] < cutoff:
+                self.drop_head(drop)
 
 
 class Broker:
@@ -105,18 +142,24 @@ class Broker:
 
     # ------------------------------------------------------------- topics
     def create_topic(self, name: str, partitions: int = 1,
-                     retention_messages: Optional[int] = None) -> TopicSpec:
+                     retention_messages: Optional[int] = None,
+                     retention_bytes: Optional[int] = None,
+                     retention_ms: Optional[int] = None) -> TopicSpec:
         """Create a topic (idempotent: an existing topic is returned as
         it is).  A negative retention bound raises ValueError."""
-        if retention_messages is not None and retention_messages < 0:
-            # a negative cap would delete every produced record while
-            # producers believe writes succeed
-            raise ValueError(f"retention_messages must be >= 0 or None, "
-                             f"got {retention_messages}")
+        for what, bound in (("retention_messages", retention_messages),
+                            ("retention_bytes", retention_bytes),
+                            ("retention_ms", retention_ms)):
+            if bound is not None and bound < 0:
+                # a negative cap would delete every produced record
+                # while producers believe writes succeed
+                raise ValueError(f"{what} must be >= 0 or None, got "
+                                 f"{bound}")
         with self._lock:
             if name in self._topics:
                 return self._topics[name]
-            spec = TopicSpec(name, partitions, retention_messages)
+            spec = TopicSpec(name, partitions, retention_messages,
+                             retention_bytes, retention_ms)
             self._topics[name] = spec
             self._parts[name] = [_Partition() for _ in range(partitions)]
             self._rr[name] = 0
@@ -188,7 +231,25 @@ class Broker:
         with self._lock:
             self._group_offsets[(group, topic, partition)] = next_offset
 
+    def commit_many(self, group: str, topic: str, entries) -> None:
+        """Commit [(partition, next_offset), ...] of one topic under one
+        lock acquisition (``StreamConsumer.commit``'s path)."""
+        with self._lock:
+            for p, off in entries:
+                self._group_offsets[(group, topic, p)] = off
+
     def committed(self, group: str, topic: str,
                   partition: int) -> Optional[int]:
         with self._lock:
             return self._group_offsets.get((group, topic, partition))
+
+    def committed_many(self, group: str, pairs) -> Dict[tuple, int]:
+        """Committed offsets of [(topic, partition), ...] under one lock
+        acquisition; pairs with nothing committed are left out."""
+        out = {}
+        with self._lock:
+            for t, p in pairs:
+                off = self._group_offsets.get((group, t, p))
+                if off is not None:
+                    out[(t, p)] = off
+        return out

@@ -5,8 +5,8 @@ group=..., eof=True)`` (cardata-v3.py:46-47): an absolute-offset cursor over
 one partition, EOF when the log end is reached, re-readable from the same
 offset every epoch.  ``StreamConsumer`` keeps those semantics over the
 port's ``Broker`` and adds multi-partition specs, committed-offset resume
-and ``seek``.  Tracing, watermarks and the fused and columnar polls are
-not ported.
+and ``seek``.  Tracing, watermarks, lag gauges and the fused and
+columnar polls are not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +38,9 @@ class StreamConsumer:
            again as data arrives.
 
     ``autoresets`` counts cursors moved to the earliest retained offset
-    after retention trimmed past them.
+    after retention trimmed past them.  A poll never raises for trimmed
+    history: a cursor that retention outruns on every reset is parked at
+    the earliest offset and the chase goes on at the next poll.
     """
 
     def __init__(self, broker: Broker, specs: Sequence[str],
@@ -74,13 +76,18 @@ class StreamConsumer:
     def _fetch_autoreset(self, topic: str, part: int, off: int,
                          max_messages: int) -> tuple:
         """One fetch; a cursor below the retained base auto-resets to
-        EARLIEST and fetches again.  Returns (batch, effective_offset)."""
-        try:
-            return self.broker.fetch(topic, part, off, max_messages), off
-        except OffsetOutOfRangeError as e:
-            self.autoresets += 1
-            return self.broker.fetch(topic, part, e.earliest,
-                                     max_messages), e.earliest
+        EARLIEST (``auto.offset.reset=earliest``) and fetches again, up to
+        four times, since retention may trim again between the calls.
+        Outrun every time, it returns an empty batch with the cursor
+        parked at the last earliest offset.  Returns (batch,
+        effective_offset)."""
+        for _ in range(4):
+            try:
+                return self.broker.fetch(topic, part, off, max_messages), off
+            except OffsetOutOfRangeError as e:
+                off = max(e.earliest, self.broker.begin_offset(topic, part))
+                self.autoresets += 1
+        return [], off
 
     # --------------------------------------------------------------- read
     def poll(self, max_messages: int = 1024) -> List[Message]:
@@ -132,5 +139,9 @@ class StreamConsumer:
         return [tuple(c) for c in self._cursors]
 
     def commit(self) -> None:
+        """Commit every cursor, one ``Broker.commit_many`` per topic."""
+        by_topic: dict = {}
         for t, p, off in self._cursors:
-            self.broker.commit(self.group, t, p, off)
+            by_topic.setdefault(t, []).append((p, off))
+        for t, entries in by_topic.items():
+            self.broker.commit_many(self.group, t, entries)

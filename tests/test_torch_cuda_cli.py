@@ -1,5 +1,6 @@
-"""Card-only checks of the port's cardata CLI: train and predict on
-``cuda`` through ``iotml_torch.cli.cardata.main``, as a user runs it.
+"""Card-only checks of the port's CLIs: train and predict on ``cuda``
+through ``iotml_torch.cli.cardata.main``, and the long-lived scorer
+``iotml_torch.cli.serve.main`` on the card, as a user runs them.
 Every test is marked ``cuda`` and skips without a card.
 
 The machine with the card has no JAX, so this file imports only torch,
@@ -18,6 +19,8 @@ import torch
 
 from iotml_torch.cli import _app
 from iotml_torch.cli import cardata
+from iotml_torch.cli import serve
+from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.ops import fused_train
 from iotml_torch.serve import fastfmt
 from iotml_torch.serve import scorer
@@ -99,3 +102,44 @@ def test_cli_train_predict_on_the_card(cuda_device, tmp_path, monkeypatch):
 ])
 def test_cli_argument_errors_on_the_card(cuda_device, argv):
     assert cardata.main(argv) == 1
+
+
+@pytest.mark.cuda
+def test_serve_committed_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """``serve ... committed`` scores the whole stream on the card with
+    threshold verdicts, resumes with only the new records, and its
+    payloads equal a CPU serve of the same log."""
+    root = str(tmp_path / "store")
+    rc, _ = _run(monkeypatch, ["emulator:30000", *ARGS, "train", "m1", root])
+    assert rc == 0
+    logs = {}
+    make_broker = _app._broker_for
+    for device in ("cuda", "cpu"):
+        broker = make_broker("emulator:30000", ARGS[0])
+        monkeypatch.setattr(_app, "_broker_for", lambda *a, b=broker: b)
+        argv = ["emulator:30000", ARGS[0], "committed", ARGS[2], "m1", root,
+                "--serve.poll_interval_s=0", "--serve.threshold=5"]
+        kw = {} if device == "cuda" else {"device": "cpu"}
+        assert serve.main(argv, max_rounds=2, **kw) == 0
+        assert broker.end_offset("model-predictions", 0) == 30_000
+        assert broker.committed(serve.GROUP, ARGS[0], 0) == 30_000
+        # 500 more records: only they are scored
+        FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01)) \
+            .publish(broker, ARGS[0], n_ticks=5)
+        assert serve.main(argv, max_rounds=2, **kw) == 0
+        assert broker.end_offset("model-predictions", 0) == 30_500
+        end = broker.end_offset("model-predictions", 0)
+        logs[device] = [m.value.decode() for m in
+                        broker.fetch("model-predictions", 0, 0, end)]
+    assert all(p.split("|")[1] in ("normal", "anomaly")
+               for p in logs["cuda"])
+    for g, w in zip(logs["cuda"], logs["cpu"]):
+        np.testing.assert_allclose(
+            np.array(g.split("|")[0].strip("[]").split(), float),
+            np.array(w.split("|")[0].strip("[]").split(), float),
+            rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_serve_argument_errors_on_the_card(cuda_device):
+    assert serve.main(["too", "few"]) == 1

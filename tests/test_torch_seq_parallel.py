@@ -226,7 +226,7 @@ def test_adam_state_round_trips_with_optax():
 
 def test_multi_device_mesh_raises_not_implemented():
     model = SensorFormer(**_cfg(1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         t_sp.make_sp_train_step(model, Adam(), mesh=["cpu", "cpu"])
     init, step, put_x = t_sp.make_sp_train_step(model, Adam(),
                                                 mesh=["cpu"])
