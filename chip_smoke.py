@@ -91,7 +91,26 @@ non-zero exit and no result line:
                 formatting and write-back seconds, the resume round's
                 seconds, and
                 ``needs_resolution`` over the 30,000 records.
-7. timing     — each design held against the plain version over the
+7. wire_path  — the same jobs over the Kafka wire protocol, as the deploy
+                manifests run them: the port's ``KafkaWireServer`` on
+                127.0.0.1:0 with SASL/PLAIN credentials over an in-memory
+                broker seeded with ``emulator:30000``'s records;
+                ``cardata`` train and predict with cli_path's argv apart
+                from ``<servers>`` and the ``--broker.sasl_*`` flags (one
+                fit launch, through rows; the stored params, moments and
+                cursors equal cli_path's bit for bit; the 10,000
+                payloads equal cli_path's byte for byte); ``serve ...
+                committed`` over 30,000 records (serve_path's tolerances
+                against a CPU recompute, the cursor at the end); two
+                ``serve ... group`` members in threads, each with its own
+                client, over 10 partitions of 30,000 records (every
+                partition committed at its end, n ≤ scored ≤ 2n).  The
+                write-back sends one PRODUCE request a non-empty flush.
+                Train and predict seconds, the predict and serve drains'
+                rows/s, the rows fetched and decoded beside those polled,
+                the message-set codec's seconds and the client's requests
+                by API.
+8. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -101,7 +120,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-8. attention_kernel — the flash-attention kernel against its plain
+9. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -124,13 +143,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-9. sensorformer_path — SensorFormer at full width (its defaults) scores
+10. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-10. attention_timing — kernel, plain version, bound and the library
+11. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -141,7 +160,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-11. attention_backward_kernel — the dK/dV and dQ kernels against the
+12. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -160,18 +179,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-12. sensorformer_train — the slice's main path: ``make_sp_train_step``
+13. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 9; each step launches exactly
+                fleet histories of phase 10; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-13. attention_backward_timing — each backward kernel, the plain
+14. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 10, beside the bound, the fp32 FMA floor
+                shapes of phase 11, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -183,13 +202,14 @@ non-zero exit and no result line:
                 every launch count set to 0 just before it and read just
                 after (exactly one forward, one dK/dV and one dQ launch).
 Then the kernels line (the fit's design, and its launches by design on
-the main path and by path, the main path, the CLI path and the serve
-path (none), summed in ``launches``; each attention entry's design at the layer call and the
-long-context call; ``launches`` sums the counts read on the paths that
-run the entry: the SensorFormer forward (phase 9), the training steps
-(phase 12), the long-context forward + backward (phase 13) and the serve
-path (none), each also given by path), the ``nvidia-smi`` line, and the result line
-``{"ok": true, "device": {...}}``.
+the main path and by path, the main path, the CLI path, the serve path
+(none) and the wire path, summed in ``launches``; each attention entry's
+design at the layer call and the long-context call; ``launches`` sums the
+counts read on the paths that run the entry: the SensorFormer forward
+(phase 10), the training steps (phase 13), the long-context forward +
+backward (phase 14) and the serve path (none), each also given by path),
+the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -203,6 +223,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -245,6 +266,7 @@ from iotml_torch.stream import native
 from iotml_torch.stream.broker import Broker
 from iotml_torch.stream.consumer import StreamConsumer
 from iotml_torch.stream.group import GroupConsumer, GroupCoordinator
+from iotml_torch.stream.kafka_wire import KafkaWireBroker, KafkaWireServer
 from iotml_torch.stream.producer import OutputSequence
 from iotml_torch.train.artifacts import ArtifactStore
 from iotml_torch.train.checkpoint import CheckpointManager
@@ -732,11 +754,12 @@ CLI_TOL_FIRST = dict(rtol=0.0, atol=2e-6)
 CLI_TOL_ALL = dict(rtol=0.0, atol=1e-5)
 
 
-def _run_cli(mode: str, root: str) -> dict:
+def _run_cli(mode: str, root: str, servers: str = "emulator:30000",
+             flags=()) -> dict:
     """One ``cardata.main`` call on the card: its stdout, stats line,
     seconds and the broker it made."""
-    argv = ["emulator:30000", CLI_TOPIC, "0", "model-predictions", mode,
-            "m1", root]
+    argv = [servers, CLI_TOPIC, "0", "model-predictions", mode, "m1", root,
+            *flags]
     out = io.StringIO()
     with _recording(cli_app, "_broker_for") as brokers, \
             contextlib.redirect_stdout(out):
@@ -904,7 +927,8 @@ def phase_cli_path(card: str, root: str) -> dict:
                               "np_array2string": np_s * 1e3,
                               "format_rows_plain": plain_s * 1e3}}
     emit(info)
-    return {"launches": launches, "launches_by_design": by_design}
+    return {"launches": launches, "launches_by_design": by_design,
+            "payloads": payloads}
 
 
 SERVE_TOPIC = "SENSOR_DATA_S_AVRO"
@@ -1187,6 +1211,226 @@ def _group_drill(params) -> dict:
             "survivor_rebalances": ca.rebalances,
             "generation": coord.generation, "seconds": drill_s,
             "first_forward_s": [sa.first_forward_s, sb.first_forward_s]}
+
+
+WIRE_CREDS = ("smoke", "smoke-secret")
+#: Kafka API key → name, for the requests-by-API counts
+WIRE_API_NAMES = {0: "produce", 1: "fetch", 2: "list_offsets", 3: "metadata",
+                  8: "offset_commit", 9: "offset_fetch",
+                  10: "find_coordinator", 11: "join_group", 12: "heartbeat",
+                  13: "leave_group", 14: "sync_group", 17: "sasl_handshake",
+                  18: "api_versions", 19: "create_topics"}
+
+
+@contextlib.contextmanager
+def _wire_requests():
+    """Count the wire client's requests by API name (``_request`` is the
+    one door every request after the SASL handshake goes through), and
+    the non-empty ``OutputSequence`` flushes."""
+    counts, flushes = {}, [0]
+    real_request, real_flush = KafkaWireBroker._request, OutputSequence.flush
+
+    def request(self, api_key, *a):
+        name = WIRE_API_NAMES.get(api_key, str(api_key))
+        counts[name] = counts.get(name, 0) + 1
+        return real_request(self, api_key, *a)
+
+    def flush(self, *a, **kw):
+        n = real_flush(self, *a, **kw)
+        flushes[0] += n > 0
+        return n
+
+    KafkaWireBroker._request, OutputSequence.flush = request, flush
+    try:
+        yield counts, flushes
+    finally:
+        KafkaWireBroker._request, OutputSequence.flush = \
+            real_request, real_flush
+
+
+WIRE_FLAGS = (f"--broker.sasl_username={WIRE_CREDS[0]}",
+              f"--broker.sasl_password={WIRE_CREDS[1]}")
+
+
+@contextlib.contextmanager
+def _wire_server(broker):
+    """The port's wire server over ``broker`` on 127.0.0.1:0, SASL/PLAIN
+    required; yields its ``host:port``."""
+    with KafkaWireServer(broker, credentials=WIRE_CREDS) as srv:
+        yield f"127.0.0.1:{srv.port}"
+
+
+def _check_one_produce_per_flush(counts, flushes, where) -> None:
+    if counts.get("produce", 0) != flushes[0] or not flushes[0]:
+        raise AssertionError(f"{where}: {counts.get('produce', 0)} PRODUCE "
+                             f"requests for {flushes[0]} non-empty flushes")
+
+
+def _wire_group(params_root: str) -> dict:
+    """Two ``serve ... group`` members, threads of this process, each
+    with its own wire client, over 10 partitions of 30,000 records."""
+    backing = Broker()
+    n = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01)) \
+        .publish(backing, SERVE_TOPIC, n_ticks=300, partitions=10)
+    backing.create_topic("model-predictions")
+    with _wire_server(backing) as servers:
+        argv = [servers, SERVE_TOPIC, "group", "model-predictions", "m1",
+                params_root, "--serve.poll_interval_s=0.05",
+                "--serve.threshold=5", *WIRE_FLAGS]
+        rcs = [None, None]
+
+        def member(i):
+            rcs[i] = serve_cli.main(list(argv), max_rounds=8)
+
+        out = io.StringIO()  # both members print here: one stats line each
+        with contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=member, args=(i,))
+                       for i in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or rcs != [0, 0]:
+            raise AssertionError(f"group members returned {rcs}:\n"
+                                 f"{out.getvalue()}")
+    ends = {p: backing.end_offset(SERVE_TOPIC, p) for p in range(10)}
+    committed = {p: backing.committed(serve_cli.GROUP, SERVE_TOPIC, p)
+                 for p in range(10)}
+    scored = backing.end_offset("model-predictions", 0)
+    rows = [json.loads(line[len("stats: "):])["rows"]
+            for line in out.getvalue().splitlines()
+            if line.startswith("stats: ")]
+    if committed != ends or not n <= scored <= 2 * n or sum(rows) != scored \
+            or n != 30_000:
+        raise AssertionError(f"wire group: committed {committed} vs ends "
+                             f"{ends}; {scored} scored of {n} (members "
+                             f"{rows})")
+    return {"records": n, "partitions": 10, "scored": scored,
+            "member_rows": rows, "seconds": seconds}
+
+
+def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
+    """cardata train + predict, serve committed and a two-member serve
+    group, over the port's Kafka wire server with SASL/PLAIN."""
+    fused_train.fused_fit.launches = 0
+    fused_train.fused_fit.launches_by_design = dict.fromkeys(
+        fused_train.DESIGNS, 0)
+    reset_launches()
+    wire_root = str(Path(root) / "wire")
+    backing = cli_app._broker_for("emulator:30000", CLI_TOPIC)
+    native.reset_stats()
+    with _wire_server(backing) as servers, _wire_requests() as (cli_req,
+                                                                cli_fl):
+        train = _run_cli("train", wire_root, servers, WIRE_FLAGS)
+        launches = fused_train.fused_fit.launches
+        by_design = dict(fused_train.fused_fit.launches_by_design)
+        train_native = dict(native.stats)
+        native.reset_stats()
+        predict = _run_cli("predict", wire_root, servers, WIRE_FLAGS)
+        predict_native = dict(native.stats)
+    if {train["stats"]["broker"], predict["stats"]["broker"]} != {"wire"}:
+        raise AssertionError("cardata over host:port did not run on the "
+                             "wire client")
+    if launches != 1 or by_design["rows"] != 1:
+        raise AssertionError(f"cardata train over the wire launched the fit "
+                             f"kernel {launches}x ({by_design}), not once "
+                             f"through the rows design")
+    # the stored state equals cli_path's bit for bit: same records, same
+    # seed, and the fit kernel repeats bit for bit (phase 3)
+    got, want = (CheckpointManager.load_dir(ArtifactStore(r).download_tree(
+        "m1", str(Path(root) / f"wire_check_{i}")))
+        for i, r in enumerate((wire_root, root)))
+    for tree in ("params", "mu", "nu"):
+        a = got["params"] if tree == "params" \
+            else getattr(got["opt_state"], tree)
+        b = want["params"] if tree == "params" \
+            else getattr(want["opt_state"], tree)
+        for k in PARAM_NAMES:
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError(f"wire checkpoint {tree}/{k} differs "
+                                     f"from cli_path's")
+    if got["cursors"] != want["cursors"]:
+        raise AssertionError(f"wire cursors {got['cursors']} vs "
+                             f"{want['cursors']}")
+    end = backing.end_offset("model-predictions", 0)
+    payloads = [m.value.decode() for m in
+                backing.fetch("model-predictions", 0, 0, end + 1)]
+    if payloads != cli_info["payloads"]:
+        raise AssertionError(f"{end} wire payloads differ from cli_path's "
+                             f"{len(cli_info['payloads'])}")
+    _check_one_produce_per_flush(cli_req, cli_fl, "cardata predict")
+
+    # serve committed over a fresh log of the same 30,000 records
+    serve_log = cli_app._broker_for("emulator:30000", SERVE_TOPIC)
+    native.reset_stats()
+    with _wire_server(serve_log) as servers, _wire_requests() as (srv_req,
+                                                                  srv_fl):
+        srv = _run_serve([servers, SERVE_TOPIC, "committed",
+                          "model-predictions", "m1", wire_root,
+                          "--serve.poll_interval_s=0", "--serve.threshold=5",
+                          *WIRE_FLAGS],
+                         max_rounds=2)
+    serve_native = dict(native.stats)
+    st = srv["stats"]
+    end = serve_log.end_offset("model-predictions", 0)
+    committed = serve_log.committed(serve_cli.GROUP, SERVE_TOPIC, 0)
+    if (end, committed, st["rows"], st["broker"]) != \
+            (30_000, 30_000, 30_000, "wire"):
+        raise AssertionError(f"wire serve: {end} payloads, cursor "
+                             f"{committed}, stats {st}")
+    want_rows, x = _recompute(serve_log, got["params"])
+    err_first, err_all, anomalies = _check_serve_payloads(
+        [m.value.decode() for m in
+         serve_log.fetch("model-predictions", 0, 0, end)],
+        want_rows, x, 5.0, "wire serve committed")
+    _check_one_produce_per_flush(srv_req, srv_fl, "serve committed")
+    group = _wire_group(wire_root)
+    launch_counts_now = {"fused_fit": fused_train.fused_fit.launches,
+                         **flash_attention.launches}
+    if launch_counts_now["fused_fit"] != 1 or \
+            any(v for k, v in launch_counts_now.items() if k != "fused_fit"):
+        raise AssertionError(f"the wire path launched {launch_counts_now}")
+    pst = predict["stats"]
+    # every record a fetch carried was decoded by the client; the server
+    # encoded those, plus decoded the write-back's produce sets
+    fetched = {"predict": predict_native["msgset_encode_rows"] - 10_000,
+               "serve": serve_native["msgset_encode_rows"] - 30_000}
+    info = {"phase": "wire_path", "card": card,
+            "train_seconds": train["seconds"],
+            "predict_seconds": predict["seconds"],
+            "fit_seconds": train["stats"]["fit_seconds"],
+            "kernel_launches": launches,
+            "kernel_launches_by_design": by_design,
+            "train_decode_rows": train_native["decode_rows"],
+            "train_fetched_rows": train_native["msgset_encode_rows"],
+            "rows_scored": pst["rows"],
+            "predict_score_seconds": pst["score_seconds"],
+            "predict_drain_rows_per_s": pst["rows"] / pst["score_seconds"],
+            "predict_rows_polled": predict_native["decode_rows"],
+            "predict_rows_fetched_and_decoded": fetched["predict"],
+            "predict_msgset_decode_s": predict_native["msgset_decode_s"],
+            "predict_msgset_encode_s": predict_native["msgset_encode_s"],
+            "serve_rows": st["rows"], "serve_seconds": st["serve_seconds"],
+            "serve_drain_rows_per_s": st["rows"] / st["serve_seconds"],
+            "serve_first_forward_s": st["first_forward_s"],
+            "serve_host_pipeline_s": st["host_pipeline_s"],
+            "serve_write_back_s": st["write_back_s"],
+            "serve_rows_fetched_and_decoded": fetched["serve"],
+            "serve_msgset_decode_s": serve_native["msgset_decode_s"],
+            "serve_msgset_encode_s": serve_native["msgset_encode_s"],
+            "serve_anomalies": anomalies,
+            "serve_max_abs_err_first_100": err_first,
+            "serve_max_abs_err_all": err_all,
+            "requests_by_api": {"cardata": cli_req, "serve_committed":
+                                srv_req},
+            "flushes": {"cardata": cli_fl[0], "serve_committed": srv_fl[0]},
+            "group": group, "payloads_equal_cli_path": True,
+            "checkpoint_equal_cli_path": True}
+    emit(info)
+    return {"launches": launches, "launches_by_design": by_design}
 
 
 def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
@@ -2015,6 +2259,7 @@ def main() -> int:
     try:
         cli_info = phase_cli_path(card, root)
         serve_info = phase_serve_path(card, root)
+        wire_info = phase_wire_path(card, root, cli_info)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -2038,14 +2283,16 @@ def main() -> int:
         "source": "iotml_torch/ops/csrc/fused_train.cu",
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
         "launches": main_info["launches"] + cli_info["launches"]
-        + serve_info["launches"]["fused_fit"],
+        + serve_info["launches"]["fused_fit"] + wire_info["launches"],
         "launches_by_path": {"main_path": main_info["launches"],
                              "cli_path": cli_info["launches"],
                              "serve_path":
-                                 serve_info["launches"]["fused_fit"]},
+                                 serve_info["launches"]["fused_fit"],
+                             "wire_path": wire_info["launches"]},
         "launches_by_design": {
             d: main_info["launches_by_design"][d]
             + cli_info["launches_by_design"][d]
+            + wire_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values()),

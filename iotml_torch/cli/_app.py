@@ -8,30 +8,37 @@ predictions back.  ``run_streaming_app`` is that program once;
 ``cli.cardata`` supplies the model and knobs.  ``--train.*`` flags and
 ``IOTML_TRAIN_*`` env vars override the train knobs (``config``).
 
-``<servers>`` is ``emulator[:n_records]``: an in-process broker seeded
-with generated fleet data, exactly as the JAX CLI seeds its own.  The
+``<servers>`` is ``emulator[:n_records]``, an in-process broker seeded
+with generated fleet data exactly as the JAX CLI seeds its own, or
+``host:port[,...]``, a Kafka cluster or ``stream.kafka_wire``'s server
+spoken to over the wire protocol, with the SASL/PLAIN credentials of the
+``broker`` config section (``IOTML_BROKER_SASL_USERNAME`` /
+``IOTML_BROKER_SASL_PASSWORD``, as the deploy manifests set them).  The
 parts the port does not have yet raise NotImplementedError naming their
-ROADMAP item: ``host:port`` servers (the Kafka wire client), ``.h5``
-model files (Keras interop), a multi-device mesh and a multi-host job.
+ROADMAP item: ``.h5`` model files (Keras interop), a multi-device mesh
+and a multi-host job.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
 import sys
 import tempfile
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
-from ..config import load_config
+from ..config import Config, load_config
 from ..data.dataset import SensorBatches
 from ..gen.simulator import FleetGenerator, FleetScenario
 from ..serve.scorer import StreamScorer
 from ..stream import native
 from ..stream.broker import Broker
 from ..stream.consumer import StreamConsumer
+from ..stream.group import GroupCoordinator
+from ..stream.kafka_wire import KafkaWireBroker, RemoteGroupCoordinator
 from ..stream.producer import OutputSequence
 from ..train.artifacts import ArtifactStore
 from ..train.checkpoint import CheckpointManager
@@ -39,9 +46,12 @@ from ..train.loop import Trainer
 from ..utils.device import DeviceLike
 
 
-def _broker_for(servers: str, topic: str) -> Broker:
+def _broker_for(servers: str, topic: str, cfg=None):
     """Resolve <servers>: 'emulator[:n]' seeds an in-process broker with
-    ``n // 100`` ticks of a 100-car fleet (30,000 records by default)."""
+    ``n // 100`` ticks of a 100-car fleet (30,000 records by default);
+    'host:port[,...]' connects the wire client with ``cfg.broker``'s
+    SASL/PLAIN credentials (none when the username is empty; ``cfg``
+    None is the defaults)."""
     if servers.startswith("emulator"):
         n = int(servers.split(":", 1)[1]) if ":" in servers else 30_000
         broker = Broker()
@@ -49,9 +59,48 @@ def _broker_for(servers: str, topic: str) -> Broker:
         gen.publish(broker, topic, n_ticks=max(1, n // 100))
         broker.create_topic("model-predictions")
         return broker
-    raise NotImplementedError(
-        f"servers {servers!r}: the Kafka wire client is not ported yet "
-        f"(ROADMAP A6); use emulator[:n_records]")
+    creds = (cfg or Config()).broker
+    return KafkaWireBroker(servers,
+                           sasl_username=creds.sasl_username or None,
+                           sasl_password=creds.sasl_password or None)
+
+
+class Connection(NamedTuple):
+    """What ``connected`` yields: the one place that tells the wire client
+    from the in-process broker."""
+
+    broker: object
+    #: 'wire' or 'emulator' (the CLIs' stats lines carry it)
+    kind: str
+    #: group id → the group's coordinator: over the wire the group lives
+    #: in the server, shared by the replicas' processes; in-process it
+    #: lives here
+    coordinator: Callable[[str], object]
+
+
+@contextlib.contextmanager
+def connected(servers: str, topic: str, cfg):
+    """``_broker_for``'s broker for the block, as a ``Connection``; a wire
+    client's socket is closed at its end."""
+    broker = _broker_for(servers, topic, cfg)
+    wire = isinstance(broker, KafkaWireBroker)
+    coordinator = RemoteGroupCoordinator if wire else GroupCoordinator
+    try:
+        yield Connection(broker, "wire" if wire else "emulator",
+                         lambda group: coordinator(broker, group))
+    finally:
+        if wire:
+            broker.close()
+
+
+def topic_partitions(broker, topic: str) -> range:
+    """Every partition of ``topic``; partition 0 alone while the topic
+    does not exist yet (a server's consumers may start before its
+    producers)."""
+    try:
+        return range(broker.topic(topic).partitions)
+    except KeyError:
+        return range(1)
 
 
 def _stats_delta(before: dict, *keys: str) -> dict:
@@ -110,80 +159,82 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
     if "train.take_batches" in applied:
         take_batches = cfg.train.take_batches
 
-    broker = _broker_for(servers, topic)
-    store = ArtifactStore(artifact_root)
+    with connected(servers, topic, cfg) as conn:
+        broker = conn.broker
+        store = ArtifactStore(artifact_root)
 
-    # one host consumes every partition; `committed` resumes from the
-    # group's offset cursor
-    parts = range(broker.topic(topic).partitions)
-    if offset == "committed":
-        consumer = StreamConsumer.from_committed(broker, topic, parts,
-                                                 group=group)
-    else:
-        consumer = StreamConsumer(broker,
-                                  [f"{topic}:{p}:{offset}" for p in parts],
-                                  group=group)
-    model = make_model()
-    before = dict(native.stats)
+        # one host consumes every partition; `committed` resumes from the
+        # group's offset cursor
+        parts = topic_partitions(broker, topic)
+        if offset == "committed":
+            consumer = StreamConsumer.from_committed(broker, topic, parts,
+                                                     group=group)
+        else:
+            consumer = StreamConsumer(broker,
+                                      [f"{topic}:{p}:{offset}" for p in parts],
+                                      group=group)
+        model = make_model()
+        before = dict(native.stats)
 
-    if mode == "train":
-        trainer = Trainer(model, learning_rate=cfg.train.learning_rate,
-                          device=device)
-        batches = SensorBatches(consumer, batch_size=batch_size,
-                                take=take_batches,
-                                only_normal=cfg.train.only_normal)
-        history = trainer.fit_compiled(batches, epochs=epochs)
-        if not history["loss"]:
-            print(f"No records on {topic} from offset {offset}; nothing "
-                  f"trained, nothing stored")
+        if mode == "train":
+            trainer = Trainer(model, learning_rate=cfg.train.learning_rate,
+                              device=device)
+            batches = SensorBatches(consumer, batch_size=batch_size,
+                                    take=take_batches,
+                                    only_normal=cfg.train.only_normal)
+            history = trainer.fit_compiled(batches, epochs=epochs)
+            if not history["loss"]:
+                print(f"No records on {topic} from offset {offset}; nothing "
+                      f"trained, nothing stored")
+                return 0
+            print(f"Training complete, final loss {history['loss'][-1]:.6f}")
+            ckpt_dir = tempfile.mkdtemp(prefix=f"iotml_torch_{prog}_ckpt_")
+            try:
+                path = CheckpointManager(ckpt_dir).save(
+                    trainer.state, cursors=consumer.positions())
+                store.upload_tree(path, model_file)
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+            # commit AFTER the checkpoint is durable: the group cursor is the
+            # resume point the '<offset>=committed' rerun contract promises
+            consumer.commit()
+            print("Model stored successfully", model_file)
+            print("stats:", json.dumps({
+                "mode": "train", "broker": conn.kind,
+                "records": history["records"][0],
+                "loss": history["loss"],
+                "fit_seconds": history["host_pipeline_s"]
+                + history["device_compute_s"],
+                "host_pipeline_s": history["host_pipeline_s"],
+                "device_compute_s": history["device_compute_s"],
+                **_stats_delta(before, "decode_rows", "decode_s")}))
             return 0
-        print(f"Training complete, final loss {history['loss'][-1]:.6f}")
-        ckpt_dir = tempfile.mkdtemp(prefix=f"iotml_torch_{prog}_ckpt_")
-        try:
-            path = CheckpointManager(ckpt_dir).save(
-                trainer.state, cursors=consumer.positions())
-            store.upload_tree(path, model_file)
-        finally:
-            shutil.rmtree(ckpt_dir, ignore_errors=True)
-        # commit AFTER the checkpoint is durable: the group cursor is the
-        # resume point the '<offset>=committed' rerun contract promises
-        consumer.commit()
-        print("Model stored successfully", model_file)
-        print("stats:", json.dumps({
-            "mode": "train", "records": history["records"][0],
-            "loss": history["loss"],
-            "fit_seconds": history["host_pipeline_s"]
-            + history["device_compute_s"],
-            "host_pipeline_s": history["host_pipeline_s"],
-            "device_compute_s": history["device_compute_s"],
-            **_stats_delta(before, "decode_rows", "decode_s")}))
-        return 0
 
-    print("Downloading model", model_file)
-    restore_dir = tempfile.mkdtemp(prefix=f"iotml_torch_{prog}_restore_")
-    try:
-        local = store.download_tree(model_file,
-                                    os.path.join(restore_dir, "ckpt"))
-        payload = CheckpointManager.load_dir(local)
-    finally:
-        shutil.rmtree(restore_dir, ignore_errors=True)
-    print("Loading model")
-    batches = SensorBatches(consumer, batch_size=batch_size,
-                            skip=predict_skip, take=predict_take)
-    out = OutputSequence(broker, result_topic, partition=0)
-    scorer = StreamScorer(model, payload["params"], batches, out,
-                          device=device)
-    t0 = time.perf_counter()
-    n = scorer.score_available()
-    score_s = time.perf_counter() - t0
-    print(f"predict complete: {n} records → {result_topic} "
-          f"(end offset {broker.end_offset(result_topic, 0)})")
-    print("stats:", json.dumps({
-        "mode": "predict", "rows": n,
-        "end_offset": broker.end_offset(result_topic, 0),
-        "score_seconds": score_s,
-        "host_pipeline_s": scorer.seconds["host_pipeline"],
-        "device_compute_s": scorer.seconds["device_compute"],
-        **_stats_delta(before, "decode_rows", "decode_s", "format_rows",
-                       "format_s")}))
-    return 0
+        print("Downloading model", model_file)
+        restore_dir = tempfile.mkdtemp(prefix=f"iotml_torch_{prog}_restore_")
+        try:
+            local = store.download_tree(model_file,
+                                        os.path.join(restore_dir, "ckpt"))
+            payload = CheckpointManager.load_dir(local)
+        finally:
+            shutil.rmtree(restore_dir, ignore_errors=True)
+        print("Loading model")
+        batches = SensorBatches(consumer, batch_size=batch_size,
+                                skip=predict_skip, take=predict_take)
+        out = OutputSequence(broker, result_topic, partition=0)
+        scorer = StreamScorer(model, payload["params"], batches, out,
+                              device=device)
+        t0 = time.perf_counter()
+        n = scorer.score_available()
+        score_s = time.perf_counter() - t0
+        print(f"predict complete: {n} records → {result_topic} "
+              f"(end offset {broker.end_offset(result_topic, 0)})")
+        print("stats:", json.dumps({
+            "mode": "predict", "broker": conn.kind, "rows": n,
+            "end_offset": broker.end_offset(result_topic, 0),
+            "score_seconds": score_s,
+            "host_pipeline_s": scorer.seconds["host_pipeline"],
+            "device_compute_s": scorer.seconds["device_compute"],
+            **_stats_delta(before, "decode_rows", "decode_s", "format_rows",
+                           "format_s")}))
+        return 0

@@ -1,18 +1,19 @@
-"""Typed configuration (``iotml.config``'s resolver, cut to its ``train``
-and ``serve`` sections).
+"""Typed configuration (``iotml.config``'s resolver, cut to its ``broker``,
+``train`` and ``serve`` sections).
 
 One dataclass tree with one resolution order:
 
     defaults  <  config file (JSON)  <  environment  <  CLI flags
 
 Environment keys: ``IOTML_<SECTION>_<FIELD>`` (e.g. ``IOTML_TRAIN_EPOCHS``,
-``IOTML_SERVE_THRESHOLD``).  CLI flags: ``--<section>.<field>=<value>``
+``IOTML_BROKER_SASL_USERNAME``).  CLI flags: ``--<section>.<field>=<value>``
 (or ``--<section>.<field> <value>``).
 Values are coerced to the field's type, so a typo'd value fails at load
 time.  An unknown section or field raises ValueError, as in the JAX
-package; a section the JAX package has and the port does not yet raises
-NotImplementedError naming the ROADMAP item, so a setting is never
-dropped quietly.
+package, and so does a key the JAX package parses and never reads
+(``UNREAD_KEYS``); a section the JAX package has and the port does not
+yet raises NotImplementedError naming the ROADMAP item, so a setting is
+never dropped quietly.
 """
 
 from __future__ import annotations
@@ -21,6 +22,17 @@ import dataclasses
 import json
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass
+class BrokerConfig:
+    """Stream-broker connection (the reference's Kafka client config):
+    the SASL/PLAIN credentials the wire client sends to a ``host:port``
+    server (the deploy manifests set ``IOTML_BROKER_SASL_USERNAME`` and
+    ``IOTML_BROKER_SASL_PASSWORD``)."""
+
+    sasl_username: str = ""       # reference: hard-coded 'test'
+    sasl_password: str = ""
 
 
 @dataclasses.dataclass
@@ -47,6 +59,7 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class Config:
+    broker: BrokerConfig = dataclasses.field(default_factory=BrokerConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
@@ -54,13 +67,22 @@ class Config:
 #: the JAX package's other sections, and the ROADMAP item that ports each
 UNPORTED_SECTIONS = {
     "mesh": "A10 (multi-GPU data parallel)",
-    "broker": "A6 (the CLIs: the Kafka wire client)",
     "stream": "A6 (the CLIs)",
     "artifacts": "A6 (the CLIs)", "scenario": "A6 (the CLIs)",
     "store": "A13 (the rest of the tooling)",
     "tier": "A13 (the rest of the tooling)",
     "mlops": "A5 (persistence)", "online": "A8 (online learning)",
     "slo": "A13 (the rest of the tooling)",
+}
+
+#: keys the JAX package parses and never reads; the port refuses them, so
+#: a setting that would do nothing is never accepted quietly
+UNREAD_KEYS = {
+    "broker.servers": "the positional <servers> argument names the broker",
+    "broker.partitions": "the CLIs create no topics: the broker's owner "
+                         "sets their partitions",
+    "broker.retention_messages": "the CLIs create no topics: the broker's "
+                                 "owner sets their retention",
 }
 
 #: IOTML_-prefixed process knobs of the JAX package that are not config
@@ -106,6 +128,9 @@ def _apply(cfg: Config, dotted: str, value: Any, applied: set) -> None:
         raise NotImplementedError(
             f"config key {dotted!r}: the {section!r} section is not ported "
             f"yet (ROADMAP {UNPORTED_SECTIONS[section]})")
+    if dotted in UNREAD_KEYS:
+        raise ValueError(f"config key {dotted!r} is not read: "
+                         f"{UNREAD_KEYS[dotted]}")
     if not hasattr(cfg, section):
         raise ValueError(f"unknown config section {section!r} "
                          f"(have: {[f.name for f in dataclasses.fields(cfg)]})")

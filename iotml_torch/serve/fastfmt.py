@@ -157,6 +157,5 @@ def format_rows(rows: np.ndarray) -> List[str]:
     msgs = [raw[offsets[i]:offsets[i + 1]].decode()
             if not fallback[i] else np.array2string(rows[i])
             for i in range(n)]
-    native.stats["format_rows"] += n - int(fallback.sum())
-    native.stats["format_s"] += time.perf_counter() - t0
+    native.tally("format", n - int(fallback.sum()), t0)
     return msgs

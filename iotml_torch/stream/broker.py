@@ -10,9 +10,11 @@ under one lock), so the port's train and score jobs run against it
 unchanged.  Keyed records go to ``crc32(key) % partitions``, unkeyed ones
 round-robin, as in the JAX package.
 
-One lock guards all mutation and ``fetch``.  The durable segmented store,
-raw frame batches, compaction, tiering, topic ownership and chaos points
-are not ported.
+One lock guards all mutation and ``fetch``; every append goes through
+``produce_many``, which takes it once for a whole batch (the wire
+server's produce path and the ordered write-back).  The durable segmented
+store, raw frame batches, compaction, tiering, topic ownership, record
+headers and chaos points are not ported.
 """
 
 from __future__ import annotations
@@ -91,6 +93,12 @@ class _Partition:
 
     def end(self) -> int:
         return self.base_offset + len(self.log)
+
+    def offset_for_timestamp(self, ts_ms: int) -> int:
+        for i, (_k, _v, ts) in enumerate(self.log):
+            if ts >= ts_ms:
+                return self.base_offset + i
+        return self.end()
 
     def read(self, offset: int, max_messages: int) -> List[tuple]:
         """[(offset, key, value, ts)] from `offset`."""
@@ -187,23 +195,40 @@ class Broker:
                 timestamp_ms: int = 0) -> int:
         """Append one record; returns its offset.  A missing topic is
         created with one partition (Kafka's auto.create)."""
+        return self.produce_many(topic, [(key, value, timestamp_ms)],
+                                 partition=partition)
+
+    def produce_many(self, topic: str, entries,
+                     partition: Optional[int] = None) -> int:
+        """Append [(key, value, timestamp_ms[, headers]), ...] under ONE
+        lock acquisition; returns the offset of the last record appended
+        (-1 for none).  Keyed records go to ``crc32(key) % partitions``,
+        unkeyed ones round-robin; retention is enforced once per touched
+        partition, which trims to what a trim after every record leaves;
+        headers are dropped (not ported)."""
+        entries = list(entries)
         if topic not in self._topics:
             self.create_topic(topic)
+        last_off = -1
         with self._lock:
-            p = self._partition_for(topic, key) if partition is None \
-                else partition
-            part = self._parts[topic][p]
-            off = part.append(key, value, timestamp_ms)
-            part.enforce_retention(self._topics[topic])
-            return off
+            parts = self._parts[topic]
+            touched = set()
+            for entry in entries:
+                key, value, ts = entry[0], entry[1], entry[2]
+                p = self._partition_for(topic, key) if partition is None \
+                    else partition
+                last_off = parts[p].append(key, value, ts)
+                touched.add(p)
+            for p in touched:
+                # untouched partitions cannot have grown past their caps
+                parts[p].enforce_retention(self._topics[topic])
+        return last_off
 
     def produce_batch(self, topic: str, values, key=None,
                       partition=None) -> int:
         """Append many records; returns the offset of the last one."""
-        off = -1
-        for v in values:
-            off = self.produce(topic, v, key=key, partition=partition)
-        return off
+        return self.produce_many(topic, [(key, v, 0) for v in values],
+                                 partition=partition)
 
     # -------------------------------------------------------------- fetch
     def end_offset(self, topic: str, partition: int = 0) -> int:
@@ -211,6 +236,14 @@ class Broker:
 
     def begin_offset(self, topic: str, partition: int = 0) -> int:
         return self._parts[topic][partition].base_offset
+
+    def offset_for_timestamp(self, topic: str, partition: int,
+                             timestamp_ms: int) -> int:
+        """Earliest offset whose record timestamp is >= ``timestamp_ms``
+        (the end offset when there is none): ListOffsets by timestamp."""
+        part = self._parts[topic][partition]
+        with self._lock:
+            return part.offset_for_timestamp(timestamp_ms)
 
     def fetch(self, topic: str, partition: int, offset: int,
               max_messages: int = 1024) -> List[Message]:

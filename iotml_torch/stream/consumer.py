@@ -4,9 +4,12 @@ The reference consumes with ``kafka_io.KafkaDataset(["topic:partition:offset"],
 group=..., eof=True)`` (cardata-v3.py:46-47): an absolute-offset cursor over
 one partition, EOF when the log end is reached, re-readable from the same
 offset every epoch.  ``StreamConsumer`` keeps those semantics over the
-port's ``Broker`` and adds multi-partition specs, committed-offset resume
-and ``seek``.  Tracing, watermarks, lag gauges and the fused and
-columnar polls are not ported.
+port's ``Broker`` or, unchanged, over the wire client
+(``kafka_wire.KafkaWireBroker``, whose fetch raises the same
+``OffsetOutOfRangeError`` with the earliest offset the server retains),
+and adds multi-partition specs, committed-offset resume and ``seek``.
+Tracing, watermarks, lag gauges and the fused and columnar polls are not
+ported.
 """
 
 from __future__ import annotations

@@ -19,8 +19,12 @@ coordinator and heals when a member joins, leaves or crashes:
   polling: after the session timeout the survivors take its partitions
   at the last commit (at-least-once, Kafka's contract).
 
-The wire coordinator (``RemoteGroupCoordinator``) and the group
-consumer's fused and columnar polls are not ported.
+Across processes the coordinator lives in the wire server
+(``stream.kafka_wire.KafkaWireServer.group_coordinator``) and
+``GroupConsumer`` reaches it through ``kafka_wire.RemoteGroupCoordinator``,
+the same duck-type over JoinGroup / SyncGroup / Heartbeat / LeaveGroup /
+OffsetCommit.  The group consumer's fused and columnar polls are not
+ported.
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
 """ctypes bindings for the port's C++ stream engine (``iotml.stream.native``).
 
-Two sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
+Three sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
 build into one library:
 
 - ``avro_engine.cc``: one call decodes a whole poll of Confluent-framed
   Avro messages into columnar numpy buffers, and encodes the other way
   (``NativeCodec``);
 - ``fmt_engine.cc``: one call formats a drain's prediction rows
-  byte-identical to ``np.array2string`` (``serve.fastfmt``).
+  byte-identical to ``np.array2string`` (``serve.fastfmt``);
+- ``msgset_engine.cc``: one call encodes or decodes a Kafka MessageSet v1
+  (``msgset_encode``, ``msgset_decode``: the wire client's produce
+  requests and fetch responses, the wire server's the other way round).
 
 The library is built with g++ at first use, never at import:
 
     g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall
-        -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc fmt_engine.cc
+        -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc \
+        fmt_engine.cc msgset_engine.cc
 
 ``<hash>`` covers the sources, the header, the flags, the compiler's
 version and what ``-march=native`` means on this host, so an edited
@@ -21,11 +25,14 @@ another CPU is ever loaded.  Each build
 writes a name unique to its process and ``os.replace``s it into place,
 so processes that build at once cannot tear each other's library.
 There is no silent fallback: a failed build raises with the compiler's
-output, and the pure codec (``ops.avro``) and the per-element formatter
-(``fastfmt.format_rows_plain``) run only when called by name.
+output, and the pure codecs (``ops.avro``, ``kafka_wire``'s
+``_encode_message_set_py`` / ``_decode_message_set_py``) and the
+per-element formatter (``fastfmt.format_rows_plain``) run only when
+called by name.
 
 ``stats`` counts the rows each engine call carried and the seconds it
-took; ``reset_stats()`` sets them to 0.
+took (the wire server's handler threads count into it too, under a
+lock); ``reset_stats()`` sets them to 0.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -44,7 +52,7 @@ import numpy as np
 from ..core.schema import RecordSchema
 
 CPP = Path(__file__).resolve().parent.parent / "cpp"
-SOURCES = ("avro_engine.cc", "fmt_engine.cc")
+SOURCES = ("avro_engine.cc", "fmt_engine.cc", "msgset_engine.cc")
 HEADERS = ("utf8_check.h",)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-Wall")
@@ -69,18 +77,37 @@ _SIGNATURES = {
     "iotml_format_rows_f64": (_i64, [
         _P(ctypes.c_double), _i64, _i64, ctypes.c_char_p, _i64, _P(_i64),
         _P(_u8)]),
+    "iotml_msgset_encode": (_i64, [
+        ctypes.c_char_p, _P(_i64), _P(_u8), ctypes.c_char_p, _P(_i64),
+        _P(_u8), _P(_i64), _P(_i64), _i64, _P(_u8), _i64]),
+    "iotml_msgset_decode": (_i64, [
+        ctypes.c_char_p, _i64, _i64, _P(_i64), _P(_i64), _P(_i64), _P(_u8),
+        _P(_u8), _i64, _P(_i64), _P(_u8), _P(_u8), _i64]),
 }
 
 #: rows carried by the engine and seconds spent in it, per entry
 stats = {"decode_rows": 0, "decode_s": 0.0, "encode_rows": 0,
-         "encode_s": 0.0, "format_rows": 0, "format_s": 0.0}
+         "encode_s": 0.0, "format_rows": 0, "format_s": 0.0,
+         "msgset_encode_rows": 0, "msgset_encode_s": 0.0,
+         "msgset_decode_rows": 0, "msgset_decode_s": 0.0}
+_stats_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_stats() -> None:
-    for k in stats:
-        stats[k] = 0 if k.endswith("_rows") else 0.0
+    with _stats_lock:
+        for k in stats:
+            stats[k] = 0 if k.endswith("_rows") else 0.0
+
+
+def tally(kind: str, rows: int, t0: float) -> None:
+    """Add one engine call of ``kind`` (rows carried, started at ``t0``
+    on ``time.perf_counter``) to ``stats``."""
+    seconds = time.perf_counter() - t0
+    with _stats_lock:
+        stats[f"{kind}_rows"] += rows
+        stats[f"{kind}_s"] += seconds
 
 
 @functools.lru_cache(maxsize=None)
@@ -205,8 +232,7 @@ class NativeCodec:
             labels.ctypes.data_as(ctypes.c_char_p), stride)
         if rc != n:
             raise ValueError(f"malformed Avro message at row {-rc - 1}")
-        stats["decode_rows"] += n
-        stats["decode_s"] += time.perf_counter() - t0
+        tally("decode", n, t0)
         return numeric, labels[:, : self.n_strings]
 
     def encode_batch(self, numeric: np.ndarray, labels: Optional[np.ndarray],
@@ -239,6 +265,80 @@ class NativeCodec:
             raise ValueError("native encode overflowed its buffer")
         raw = out[:total].tobytes()
         msgs = [raw[offsets[i]:offsets[i + 1]] for i in range(n)]
-        stats["encode_rows"] += n
-        stats["encode_s"] += time.perf_counter() - t0
+        tally("encode", n, t0)
         return msgs
+
+
+def _column(blobs) -> Tuple[bytes, np.ndarray]:
+    """(joined bytes, offsets [n + 1]) of a list of bytes (None as b"")."""
+    offsets = np.zeros((len(blobs) + 1,), np.int64)
+    np.cumsum([len(b) if b else 0 for b in blobs], out=offsets[1:])
+    return b"".join(b for b in blobs if b), offsets
+
+
+def msgset_encode(entries) -> bytes:
+    """[(offset, key, value, timestamp_ms)] → MessageSet v1 bytes in one
+    engine call.  Null keys and null values (tombstones) are encoded as
+    the wire's null BYTES."""
+    t0 = time.perf_counter()
+    n = len(entries)
+    offs = np.fromiter((e[0] for e in entries), np.int64, n)
+    ts = np.fromiter((e[3] for e in entries), np.int64, n)
+    values, voff = _column([e[2] for e in entries])
+    vnull = np.fromiter((e[2] is None for e in entries), np.uint8, n)
+    if any(e[1] is not None for e in entries):
+        keys, koff = _column([e[1] for e in entries])
+        knull = np.fromiter((e[1] is None for e in entries), np.uint8, n)
+        kargs = (keys, _ptr(koff, _i64), _ptr(knull, _u8))
+    else:  # every key null: the engine takes NULL columns
+        keys, kargs = b"", (None, None, None)
+    # 34 bytes of framing an entry: offset, size, crc, magic, attributes,
+    # timestamp and the two lengths
+    cap = 34 * n + len(values) + len(keys)
+    lib = load()
+    while True:
+        out = np.empty((max(cap, 1),), np.uint8)
+        rc = lib.iotml_msgset_encode(
+            values, _ptr(voff, _i64),
+            _ptr(vnull, _u8) if vnull.any() else None, *kargs,
+            _ptr(ts, _i64), _ptr(offs, _i64), n, _ptr(out, _u8), cap)
+        if rc >= 0:
+            break
+        cap = -rc  # the ABI's "call again with this many bytes"
+    tally("msgset_encode", n, t0)
+    return out[:rc].tobytes()
+
+
+def msgset_decode(buf: bytes) -> List[tuple]:
+    """MessageSet v1 bytes → [(offset, key, value, timestamp_ms)] in one
+    engine call; a truncated trailing entry is dropped.  A CRC mismatch
+    or malformed framing raises ValueError (``kafka_wire`` turns it into
+    the pure decoder's own error)."""
+    t0 = time.perf_counter()
+    size = len(buf)
+    max_n = size // 26 + 1  # 26 bytes: no v1 entry is shorter
+    offs = np.zeros((max_n,), np.int64)
+    ts = np.zeros((max_n,), np.int64)
+    koff = np.zeros((max_n + 1,), np.int64)
+    knull = np.zeros((max_n,), np.uint8)
+    voff = np.zeros((max_n + 1,), np.int64)
+    vnull = np.zeros((max_n,), np.uint8)
+    keys = np.empty((max(size, 1),), np.uint8)
+    values = np.empty((max(size, 1),), np.uint8)
+    rc = load().iotml_msgset_decode(
+        buf, size, max_n, _ptr(offs, _i64), _ptr(ts, _i64), _ptr(koff, _i64),
+        _ptr(knull, _u8), _ptr(keys, _u8), size, _ptr(voff, _i64),
+        _ptr(vnull, _u8), _ptr(values, _u8), size)
+    if rc < 0:
+        raise ValueError(f"the message-set engine refused the buffer "
+                         f"(code {rc})")
+    kraw = keys[:koff[rc]].tobytes()
+    vraw = values[:voff[rc]].tobytes()
+    ko, vo = koff.tolist(), voff.tolist()
+    kn, vn = knull[:rc].tolist(), vnull[:rc].tolist()
+    out = [(o, None if kn[i] else kraw[ko[i]:ko[i + 1]],
+            None if vn[i] else vraw[vo[i]:vo[i + 1]], t)
+           for i, (o, t) in enumerate(zip(offs[:rc].tolist(),
+                                          ts[:rc].tolist()))]
+    tally("msgset_decode", rc, t0)
+    return out

@@ -6,9 +6,10 @@ complete, and ``flush()`` publishes them in index order, so the output
 preserves input order even when batches finish out of order; a missing
 index raises instead of shipping misaligned predictions.
 
-``OutputSequence(broker, topic, partition)`` publishes to a topic of the
-port's ``Broker``; ``OutputSequence()`` publishes into the in-memory
-``published`` list.
+``OutputSequence(broker, topic, partition)`` publishes to a broker topic
+with one ``produce_many`` per flush: over the wire that is one Produce
+request, where a produce per message would be a round trip each.
+``OutputSequence()`` publishes into the in-memory ``published`` list.
 """
 
 from __future__ import annotations
@@ -58,8 +59,9 @@ class OutputSequence:
         if self.broker is None:
             self.published.extend((i, self._buf[i]) for i in idxs)
         else:
-            for i in idxs:
-                self.broker.produce(self.topic, self._buf[i],
-                                    partition=self.partition)
+            # one batched call, in index order
+            self.broker.produce_many(
+                self.topic, [(None, self._buf[i], 0) for i in idxs],
+                partition=self.partition)
         self._buf.clear()
         return len(idxs)

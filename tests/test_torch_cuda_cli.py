@@ -1,6 +1,8 @@
 """Card-only checks of the port's CLIs: train and predict on ``cuda``
 through ``iotml_torch.cli.cardata.main``, and the long-lived scorer
-``iotml_torch.cli.serve.main`` on the card, as a user runs them.
+``iotml_torch.cli.serve.main`` on the card, as a user runs them, on
+``emulator`` and over the port's Kafka wire server (``host:port`` with
+SASL/PLAIN, as the deploy manifests run them).
 Every test is marked ``cuda`` and skips without a card.
 
 The machine with the card has no JAX, so this file imports only torch,
@@ -25,6 +27,7 @@ from iotml_torch.ops import fused_train
 from iotml_torch.serve import fastfmt
 from iotml_torch.serve import scorer
 from iotml_torch.stream import native
+from iotml_torch.stream.kafka_wire import KafkaWireServer
 
 ARGS = ["SENSOR_DATA_S_AVRO", "0", "model-predictions"]
 
@@ -143,3 +146,41 @@ def test_serve_committed_on_the_card(cuda_device, tmp_path, monkeypatch):
 @pytest.mark.cuda
 def test_serve_argument_errors_on_the_card(cuda_device):
     assert serve.main(["too", "few"]) == 1
+
+
+@pytest.mark.cuda
+def test_cli_over_the_wire_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """cardata train + predict and serve committed on ``127.0.0.1:<port>``
+    with SASL credentials from the environment: one fit launch through
+    the rows design, and payloads byte-identical to the same jobs on
+    ``emulator`` on the card."""
+    monkeypatch.setenv("IOTML_BROKER_SASL_USERNAME", "svc")
+    monkeypatch.setenv("IOTML_BROKER_SASL_PASSWORD", "pw")
+    backing = _app._broker_for("emulator:30000", ARGS[0])
+    wire_root, emu_root = str(tmp_path / "wire"), str(tmp_path / "emu")
+    with KafkaWireServer(backing, credentials=("svc", "pw")) as srv:
+        servers = f"127.0.0.1:{srv.port}"
+        fused_train.fused_fit.launches = 0
+        fused_train.fused_fit.launches_by_design = dict.fromkeys(
+            fused_train.DESIGNS, 0)
+        assert cardata.main([servers, *ARGS, "train", "m1", wire_root]) == 0
+        assert fused_train.fused_fit.launches == 1
+        assert fused_train.fused_fit.launches_by_design["rows"] == 1
+        assert cardata.main([servers, *ARGS, "predict", "m1", wire_root]) \
+            == 0
+    for mode in ("train", "predict"):
+        rc, emu = _run(monkeypatch, ["emulator:30000", *ARGS, mode, "m1",
+                                     emu_root])
+        assert rc == 0
+    end = backing.end_offset("model-predictions", 0)
+    assert end == 10_000
+    assert [m.value for m in backing.fetch("model-predictions", 0, 0, end)] \
+        == [m.value for m in emu.fetch("model-predictions", 0, 0, end)]
+
+    log = _app._broker_for("emulator:30000", ARGS[0])
+    with KafkaWireServer(log, credentials=("svc", "pw")) as srv:
+        argv = [f"127.0.0.1:{srv.port}", ARGS[0], "committed", ARGS[2], "m1",
+                wire_root, "--serve.poll_interval_s=0", "--serve.threshold=5"]
+        assert serve.main(argv, max_rounds=2) == 0
+    assert log.end_offset("model-predictions", 0) == 30_000
+    assert log.committed(serve.GROUP, ARGS[0], 0) == 30_000

@@ -33,6 +33,11 @@ def test_the_guard_sees_every_kind_of_import():
             if m in FORBIDDEN] == ["jax", "iotml", "orbax"]
 
 
+def test_the_wire_layer_is_covered():
+    assert {"iotml_torch/stream/kafka_wire.py",
+            "iotml_torch/utils/net.py"} <= set(FILES)
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

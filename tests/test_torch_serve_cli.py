@@ -246,10 +246,15 @@ def test_module_entry_prints_usage_and_returns_1():
 
 
 def test_unported_servers_and_sections_raise_naming_roadmap(tmp_path):
-    argv = ["localhost:9092", TOPIC, "committed", "model-predictions", "m1",
+    # host:port is ported: with nothing listening both packages raise the
+    # same connection error
+    argv = ["127.0.0.1:1", TOPIC, "committed", "model-predictions", "m1",
             str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(OSError) as t_err:
         t_serve.main(argv, device="cpu")
+    with pytest.raises(OSError) as j_err:
+        j_serve.main(argv)
+    assert type(t_err.value) is type(j_err.value) is ConnectionRefusedError
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         t_serve.main(["emulator", *argv[1:], "--stream.topic=x"],
                      device="cpu")
