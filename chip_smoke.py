@@ -110,7 +110,32 @@ non-zero exit and no result line:
                 rows/s, the rows fetched and decoded beside those polled,
                 the message-set codec's seconds and the client's requests
                 by API.
-8. timing     — each design held against the plain version over the
+8. live_path  — the continuous services over the native Kafka client,
+                on the port's ``KafkaWireServer`` (127.0.0.1:0, SASL/PLAIN)
+                over ``emulator:30000``'s records: ``ContinuousTrainer`` on
+                the card, a round of 20 × 100 normal rows at a time until
+                the log holds no full round, each round exactly one fit
+                launch through rows (counts read around it), its losses,
+                accuracies, params and moments held against
+                ``fused_fit_reference`` from the same start state and
+                batches at the fit bounds; the pointer on the last round,
+                committed cursors equal to positions.  ``LiveScorer`` from
+                that pointer scores all 30,000 records with car health:
+                payloads against a CPU recompute (first 100 at atol 2e-6,
+                all at 1e-5), quality counts summing to 30,000, car-health
+                records against a CPU ``CarHealthDetector`` fed the
+                recomputed errors (states and sources equal, EMAs at rtol
+                1e-5, wall-clock times aside); a second scorer without car
+                health writes the same bytes.  Then ``python -m
+                iotml_torch.cli.live train`` and ``score`` as two OS
+                processes with ``--stats``, stopped by a STOP line once
+                every record is scored and no round is left: at least 3
+                rounds, 30,000 scored, at least one swap, both exit 0, no
+                library rebuilt by a child.  Seconds a round and their
+                split, rounds/s, records trained/s, the drain's rows/s
+                with and without car health, ``fetch_decode`` rows and
+                seconds beside the server's encoded rows.
+9. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -120,7 +145,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-9. attention_kernel — the flash-attention kernel against its plain
+10. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -143,13 +168,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-10. sensorformer_path — SensorFormer at full width (its defaults) scores
+11. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-11. attention_timing — kernel, plain version, bound and the library
+12. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -160,7 +185,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-12. attention_backward_kernel — the dK/dV and dQ kernels against the
+13. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -179,18 +204,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-13. sensorformer_train — the slice's main path: ``make_sp_train_step``
+14. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 10; each step launches exactly
+                fleet histories of phase 11; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-14. attention_backward_timing — each backward kernel, the plain
+15. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 11, beside the bound, the fp32 FMA floor
+                shapes of phase 12, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -203,11 +228,12 @@ non-zero exit and no result line:
                 after (exactly one forward, one dK/dV and one dQ launch).
 Then the kernels line (the fit's design, and its launches by design on
 the main path and by path, the main path, the CLI path, the serve path
-(none) and the wire path, summed in ``launches``; each attention entry's
+(none), the wire path and the live path (one a round), summed in
+``launches``; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 10), the training steps (phase 13), the long-context forward +
-backward (phase 14) and the serve path (none), each also given by path),
+(phase 11), the training steps (phase 14), the long-context forward +
+backward (phase 15) and the serve path (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 """
@@ -261,15 +287,19 @@ from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
 from iotml_torch.serve import fastfmt
 from iotml_torch.serve import scorer as scorer_module
+from iotml_torch.serve.carhealth import CarHealthDetector
+from iotml_torch.serve.live import LiveScorer
 from iotml_torch.serve.scorer import StreamScorer
 from iotml_torch.stream import native
 from iotml_torch.stream.broker import Broker
 from iotml_torch.stream.consumer import StreamConsumer
 from iotml_torch.stream.group import GroupConsumer, GroupCoordinator
 from iotml_torch.stream.kafka_wire import KafkaWireBroker, KafkaWireServer
+from iotml_torch.stream.native_kafka import NativeKafkaBroker
 from iotml_torch.stream.producer import OutputSequence
 from iotml_torch.train.artifacts import ArtifactStore
 from iotml_torch.train.checkpoint import CheckpointManager
+from iotml_torch.train.live import ContinuousTrainer
 from iotml_torch.train.loop import Trainer, TrainState, make_scanned_fit
 from iotml_torch.train.optim import Adam
 
@@ -1433,6 +1463,343 @@ def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
     return {"launches": launches, "launches_by_design": by_design}
 
 
+LIVE_TRAIN_GROUP, LIVE_SCORE_GROUP = "cardata-live-train", "cardata-live-score"
+#: the live services' model name and their CLI's SASL flag
+LIVE_MODEL = "cardata-live"
+LIVE_SASL = ("--sasl", ":".join(WIRE_CREDS))
+#: new records a default round (20 x 100) waits for
+LIVE_MIN_AVAILABLE = int(20 * 100 * 1.1) + 1
+#: the live path's log: emulator:30000's records
+LIVE_RECORDS = 30_000
+#: how the live CLI starts as a process
+LIVE_CMD = [sys.executable, "-m", "iotml_torch.cli.live"]
+
+
+def _live_clients(servers: str, n: int):
+    """``n`` native Kafka clients of ``servers`` with the smoke's SASL
+    credentials (a client a service, as one process each holds one)."""
+    return [NativeKafkaBroker(servers, sasl_username=WIRE_CREDS[0],
+                              sasl_password=WIRE_CREDS[1]) for _ in range(n)]
+
+
+def _clone_state(state: TrainState) -> TrainState:
+    opt = state.opt_state
+    return TrainState(step=state.step,
+                      params={k: v.clone() for k, v in state.params.items()},
+                      opt_state=type(opt)(
+                          count=opt.count,
+                          mu={k: v.clone() for k, v in opt.mu.items()},
+                          nu={k: v.clone() for k, v in opt.nu.items()}))
+
+
+def _live_trainer(broker, root: str) -> dict:
+    """``ContinuousTrainer`` on the card over ``broker`` until the log
+    holds no full round; each round's fit is recorded (its batches, the
+    state it started from, its launches) and then held against the plain
+    version."""
+    trainer = ContinuousTrainer(broker, SERVE_TOPIC, ArtifactStore(root),
+                                group=LIVE_TRAIN_GROUP)  # the card
+    trainer.trainer._ensure_state()
+    fit = trainer.trainer.fit_compiled
+    rounds, listing = [], [0.0]
+
+    def recorded_fit(batches, epochs=1):
+        t0 = time.perf_counter()
+        bs = list(next(batches.epochs(1)))  # the poll, decode and batching
+        listing[0] += time.perf_counter() - t0
+        before = _clone_state(trainer.trainer.state)
+        launched = (fused_train.fused_fit.launches,
+                    fused_train.fused_fit.launches_by_design["rows"])
+        history = fit(bs, epochs)
+        rounds.append({"batches": bs, "before": before, "history": history,
+                       "launches": fused_train.fused_fit.launches
+                       - launched[0],
+                       "rows": fused_train.fused_fit.launches_by_design[
+                           "rows"] - launched[1],
+                       "after": _clone_state(trainer.trainer.state)})
+        return history
+
+    trainer.trainer.fit_compiled = recorded_fit
+    stats = []
+    t0 = time.perf_counter()
+    trainer.run(stop=lambda: trainer.available() < trainer.min_available,
+                on_round=stats.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    errs = []
+    for k, r in enumerate(rounds, 1):
+        if (r["launches"], r["rows"]) != (1, 1):
+            raise AssertionError(f"live round {k} launched the fit kernel "
+                                 f"{r['launches']}x ({r['rows']} rows)")
+        xs = torch.from_numpy(np.stack([b.x for b in r["batches"]])).cuda()
+        masks = torch.from_numpy(
+            np.stack([b.mask for b in r["batches"]])).cuda()
+        kernel_out = (r["after"], torch.tensor(r["history"]["loss"]),
+                      torch.tensor(r["history"]["accuracy"]))
+        p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+            r["before"], xs, masks, 1)
+        errs.append(check_fit(f"live round {k}", kernel_out,
+                              (p_state, p_loss.cpu(), p_acc.cpu()),
+                              r["before"].step + len(r["batches"])))
+    return {"trainer": trainer, "stats": stats, "seconds": seconds,
+            "listing_s": listing[0], "max_abs_err": max(errs),
+            "launches": sum(r["launches"] for r in rounds),
+            "rows_launches": sum(r["rows"] for r in rounds)}
+
+
+def _live_score(broker, store_root: str, result_topic: str, group: str,
+                carhealth: bool) -> dict:
+    """One ``LiveScorer`` on the card from the store's pointer: one drain
+    over the whole log, timed."""
+    broker.create_topic(result_topic)
+    scorer = LiveScorer(broker, SERVE_TOPIC, result_topic,
+                        ArtifactStore(store_root), group=group,
+                        carhealth_topic="car-health" if carhealth else None)
+    artifact = scorer.wait_for_model(timeout_s=30)
+    native.reset_stats()
+    t0 = time.perf_counter()
+    n = scorer.run(max_drains=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"scorer": scorer, "artifact": artifact, "rows": n,
+            "seconds": seconds, "native": dict(native.stats)}
+
+
+def _check_live_carhealth(backing, scorer, want, x) -> dict:
+    """The car-health records the card's scorer wrote against a CPU
+    ``CarHealthDetector`` fed the CPU recompute's errors batch by batch:
+    keys, states and sources equal, EMAs within rtol 1e-5 (errors of two
+    float32 forwards), transitions' wall-clock ``t`` aside."""
+    cpu = CarHealthDetector(
+        feature_names=[f.name for f in KSQL_CAR_SCHEMA.sensor_fields])
+    keys = np.concatenate([b.keys[:b.n_valid] for b in SensorBatches(
+        StreamConsumer(backing, [f"{SERVE_TOPIC}:0:0"]), batch_size=100,
+        keep_keys=True)])
+    errs = np.square(want - x).mean(axis=1)
+    for lo in range(0, len(errs), 100):
+        cpu.update(keys[lo:lo + 100], errs[lo:lo + 100])
+    card = scorer.scorer.carhealth
+    got = []
+    for m in backing.fetch("car-health", 0, 0,
+                           backing.end_offset("car-health", 0) + 1):
+        rec = json.loads(m.value)
+        got.append((m.key, rec["state"], rec["source"], rec["ema"]))
+    cpu_recs = [(k, s, src, round(e, 6)) for _, k, s, e, src
+                in cpu.transitions]
+    ema_err = max(abs(card.ema[k] - e) / max(abs(e), 1e-12)
+                  for k, e in cpu.ema.items())
+    if [r[:3] for r in got] != [r[:3] for r in cpu_recs] or \
+            not np.allclose([r[3] for r in got], [r[3] for r in cpu_recs],
+                            rtol=1e-5, atol=1e-6) or \
+            card.count != cpu.count or set(card.alerted) != set(cpu.alerted) \
+            or ema_err > 1e-5 or len(cpu.ema) != 100:
+        raise AssertionError(f"car health on the card vs the CPU: {got} vs "
+                             f"{cpu_recs}; EMA rel err {ema_err}")
+    return {"transitions": len(got), "cars_alerted": len(card.alerted),
+            "cars_seen": len(card.ema), "ema_max_rel_err": ema_err}
+
+
+def _build_files() -> dict:
+    """Every built library and log, with its size and mtime: a child
+    process that rebuilt one would change it."""
+    out = {}
+    for d in (Path(native.CPP) / "build", _build.BUILD):
+        for p in sorted(d.glob("*")):
+            if p.is_file() and not p.name.endswith(".lock"):
+                st = p.stat()
+                out[str(p)] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
+def _live_processes(root: str) -> dict:
+    """``python -m iotml_torch.cli.live train`` and ``score`` as two OS
+    processes on the card over a wire server in this process (SASL), as
+    tests/test_live.py runs them: STOP on stdin once every record is
+    scored and the trainer's log holds no full round."""
+    backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
+    built = _build_files()
+    procs = {}
+    with _wire_server(backing) as servers:
+        argv = {"train": ["train", servers, SERVE_TOPIC, root, *LIVE_SASL,
+                          "--stats", "--max-seconds", "600"],
+                "score": ["score", servers, SERVE_TOPIC, "model-predictions",
+                          root, *LIVE_SASL, "--stats", "--max-seconds",
+                          "600"]}
+        t0 = time.perf_counter()
+        try:
+            for name, args in argv.items():
+                procs[name] = subprocess.Popen(
+                    [*LIVE_CMD, *args],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                # every record scored, and no full round left to train
+                trained = backing.committed(LIVE_TRAIN_GROUP, SERVE_TOPIC, 0)
+                if backing.end_offset("model-predictions", 0) >= LIVE_RECORDS \
+                        and trained is not None \
+                        and LIVE_RECORDS - trained < LIVE_MIN_AVAILABLE:
+                    break
+                if any(p.poll() is not None for p in procs.values()):
+                    break
+                time.sleep(0.2)
+            seconds = time.perf_counter() - t0
+            outs = {}
+            for name, p in procs.items():
+                if p.poll() is None:
+                    p.stdin.write("STOP\n")
+                    p.stdin.flush()
+                outs[name] = p.communicate(timeout=120)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"live {name} exited {p.returncode}:\n"
+                                 f"{outs[name][0]}\n{outs[name][1]}")
+    lines = {name: [json.loads(line) for line in out.splitlines()
+                    if line.startswith("{")]
+             for name, (out, _) in outs.items()}
+    rounds, drains = lines["train"], lines["score"]
+    scored = backing.end_offset("model-predictions", 0)
+    if not rounds or rounds[-1]["round"] < 3 or not drains or \
+            drains[-1]["scored"] != LIVE_RECORDS or scored != LIVE_RECORDS or \
+            drains[-1]["model_updates"] < 1:
+        raise AssertionError(f"live processes: rounds {rounds[-1:]}, "
+                             f"drains {drains[-1:]}, {scored} predictions")
+    if _build_files() != built:
+        raise AssertionError("a live child process rebuilt a library")
+    return {"rounds": rounds[-1]["round"],
+            "records_trained": rounds[-1]["records_cum"],
+            "scored": drains[-1]["scored"],
+            "model_updates": drains[-1]["model_updates"],
+            "artifact": drains[-1]["artifact"],
+            "seconds_to_done": seconds, "no_rebuild": True}
+
+
+def phase_live_path(card: str, root: str) -> dict:
+    """The continuous services over the native client: the trainer and
+    the scorer in this process, then both CLIs as OS processes."""
+    fused_train.fused_fit.launches = 0
+    fused_train.fused_fit.launches_by_design = dict.fromkeys(
+        fused_train.DESIGNS, 0)
+    reset_launches()
+    backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
+    store_root = str(Path(root) / "live")
+    with _wire_server(backing) as servers:
+        clients = _live_clients(servers, 3)
+        try:
+            native.reset_stats()
+            tr = _live_trainer(clients[0], store_root)
+            train_native = dict(native.stats)
+            launches = fused_train.fused_fit.launches
+            by_design = dict(fused_train.fused_fit.launches_by_design)
+            trainer = tr["trainer"]
+            last = f"{LIVE_MODEL}.r{trainer.rounds}"
+            if trainer.store.get_text(f"{LIVE_MODEL}.latest") != last or \
+                    trainer.rounds < 3:
+                raise AssertionError(f"live trainer: {trainer.rounds} "
+                                     f"rounds, pointer "
+                                     f"{trainer.store.get_text(LIVE_MODEL + '.latest')}")
+            positions = trainer.consumer.positions()
+            committed = [(t, p, backing.committed(LIVE_TRAIN_GROUP, t, p))
+                         for t, p, _ in positions]
+            if committed != positions:
+                raise AssertionError(f"live trainer committed {committed}, "
+                                     f"positions {positions}")
+            health = _live_score(clients[1], store_root, "model-predictions",
+                                 LIVE_SCORE_GROUP, carhealth=True)
+            plain = _live_score(clients[2], store_root,
+                                "model-predictions-no-health",
+                                LIVE_SCORE_GROUP + "-no-health",
+                                carhealth=False)
+        finally:
+            for c in clients:
+                c.close()
+    launch_counts_now = {"fused_fit": fused_train.fused_fit.launches,
+                         **flash_attention.launches}
+    if launch_counts_now["fused_fit"] != launches or \
+            any(v for k, v in launch_counts_now.items() if k != "fused_fit"):
+        raise AssertionError(f"the live path launched {launch_counts_now}")
+    if launches != trainer.rounds or by_design["rows"] != launches:
+        raise AssertionError(f"live trainer: {launches} fit launches "
+                             f"({by_design}) for {trainer.rounds} rounds")
+    if health["artifact"] != last or health["rows"] != LIVE_RECORDS or \
+            plain["rows"] != LIVE_RECORDS:
+        raise AssertionError(f"live scorers: {health['artifact']}, "
+                             f"{health['rows']} and {plain['rows']} rows")
+    sc = health["scorer"]
+    if sum(sc.scorer.quality.values()) != LIVE_RECORDS:
+        raise AssertionError(f"live quality counts {sc.scorer.quality}")
+    params = CheckpointManager.load_dir(ArtifactStore(store_root)
+                                        .download_tree(last, str(
+                                            Path(root) / "live_check")))
+    want, x = _recompute(backing, params["params"])
+    payloads = [m.value.decode() for m in
+                backing.fetch("model-predictions", 0, 0, LIVE_RECORDS)]
+    err_first, err_all, anomalies = _check_serve_payloads(
+        payloads, want, x, 5.0, "live scorer")
+    if [m.value.decode() for m in backing.fetch(
+            "model-predictions-no-health", 0, 0, LIVE_RECORDS)] != payloads:
+        raise AssertionError("the live scorer without car health wrote "
+                             "other payloads")
+    carhealth = _check_live_carhealth(backing, sc, want, x)
+    processes = _live_processes(str(Path(root) / "live_cli"))
+    stats = tr["stats"]
+    n_rounds = len(stats)
+    split = {"host_pipeline_s": (tr["listing_s"]
+                                 + trainer.seconds["host_pipeline"])
+             / n_rounds,
+             "device_compute_s": trainer.seconds["device_compute"]
+             / n_rounds,
+             "publish_s": trainer.seconds["publish"] / n_rounds,
+             "commit_s": trainer.seconds["commit"] / n_rounds}
+    round_s = [s["seconds"] for s in stats]
+    info = {"phase": "live_path", "card": card,
+            "rounds": n_rounds, "records_trained": trainer.records_trained,
+            "losses": [s["loss"] for s in stats],
+            "kernel_launches": launches,
+            "kernel_launches_by_design": by_design,
+            "fit_max_abs_err": tr["max_abs_err"],
+            "round_seconds": round_s,
+            "round_seconds_mean": sum(round_s) / n_rounds,
+            "round_split_mean": split,
+            "rounds_per_s": n_rounds / sum(round_s),
+            "records_trained_per_s": trainer.records_trained / sum(round_s),
+            "train_seconds": tr["seconds"],
+            "train_fetch_decode_rows": train_native["fetch_decode_rows"],
+            "train_fetch_decode_s": train_native["fetch_decode_s"],
+            # the server's fetch answers (up to 4,096 records each), in
+            # this process
+            "train_server_encoded_rows": train_native["msgset_encode_rows"],
+            "train_server_encode_s": train_native["msgset_encode_s"],
+            "pointer": last, "committed_equal_positions": True,
+            "score_rows": health["rows"],
+            "score_seconds": health["seconds"],
+            "score_rows_per_s": health["rows"] / health["seconds"],
+            "score_no_health_seconds": plain["seconds"],
+            "score_no_health_rows_per_s": plain["rows"] / plain["seconds"],
+            "score_fetch_decode_rows": health["native"]["fetch_decode_rows"],
+            "score_fetch_decode_s": health["native"]["fetch_decode_s"],
+            "score_server_encoded_rows":
+                health["native"]["msgset_encode_rows"],
+            "score_server_encode_s": health["native"]["msgset_encode_s"],
+            "score_server_decode_s": health["native"]["msgset_decode_s"],
+            "score_format_s": health["native"]["format_s"],
+            "score_host_pipeline_s": sc.scorer.seconds["host_pipeline"],
+            "score_device_s": sc.scorer.seconds["device_compute"],
+            "score_write_back_s": sc.scorer.seconds["write_back"],
+            "score_quality": sc.scorer.quality,
+            "score_anomalies": anomalies,
+            "score_max_abs_err_first_100": err_first,
+            "score_max_abs_err_all": err_all,
+            "carhealth": carhealth, "processes": processes}
+    emit(info)
+    return {"launches": launches, "launches_by_design": by_design}
+
+
 def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
     """Least time for the fit on an H100: the larger of fp32 work over
     the fp32 peak and bytes (slice + state in, state + history out) over
@@ -2260,6 +2627,7 @@ def main() -> int:
         cli_info = phase_cli_path(card, root)
         serve_info = phase_serve_path(card, root)
         wire_info = phase_wire_path(card, root, cli_info)
+        live_info = phase_live_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -2283,16 +2651,19 @@ def main() -> int:
         "source": "iotml_torch/ops/csrc/fused_train.cu",
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
         "launches": main_info["launches"] + cli_info["launches"]
-        + serve_info["launches"]["fused_fit"] + wire_info["launches"],
+        + serve_info["launches"]["fused_fit"] + wire_info["launches"]
+        + live_info["launches"],
         "launches_by_path": {"main_path": main_info["launches"],
                              "cli_path": cli_info["launches"],
                              "serve_path":
                                  serve_info["launches"]["fused_fit"],
-                             "wire_path": wire_info["launches"]},
+                             "wire_path": wire_info["launches"],
+                             "live_path": live_info["launches"]},
         "launches_by_design": {
             d: main_info["launches_by_design"][d]
             + cli_info["launches_by_design"][d]
             + wire_info["launches_by_design"][d]
+            + live_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values()),

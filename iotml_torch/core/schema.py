@@ -155,8 +155,11 @@ KSQL_CAR_SCHEMA_V2 = RecordSchema(
     meta_fields=("REGION",),
 )
 
-#: the evolved writer's frame id, in the band the schema registry never
-#: allocates into (registry ids start at 1)
+#: ids at and above this are the band of framework-pinned evolved writer
+#: schemas, which a schema registry never allocates into (its ids start at
+#: 1): the native client's fused decode stops at a frame in this band
+RESERVED_ID_BASE = 1000
+#: the evolved writer's frame id, in that band
 CAR_SCHEMA_V2_ID = 1002
 
 #: Confluent-frame schema id → writer schema, for readers resolving a

@@ -13,11 +13,18 @@ write-back — over either of two sources:
   (``stream.native.NativeCodec``), the JAX package's message-list leg; a
   poll that holds any frame of an evolved writer schema is decoded by
   name through ``ops.avro.ResolvingCodec`` instead, since the
-  positional decode would misread it;
+  positional decode would misread it.  Over a broker with a fused
+  ``fetch_decode`` (the native client, ``stream.native_kafka``) a
+  ``StreamConsumer`` polls through ``poll_decoded`` instead: fetch,
+  strip and decode in one native call a partition.  At an evolved
+  writer's frame it takes exactly one chunk through the message-list
+  leg, then resumes;
 - an in-memory ``RowSource`` of already-decoded sensor rows.
 
-The windowed (LSTM) path, the columnar frame-decoder ring, keys and the
-canary filter are not ported.
+``keep_keys`` puts each record's message key (the car id) on
+``Batch.keys``, cut at ``native.KEY_STRIDE - 1`` bytes on either leg.
+The windowed (LSTM) path, the columnar frame-decoder ring and the canary
+filter are not ported.
 """
 
 from __future__ import annotations
@@ -30,9 +37,10 @@ import numpy as np
 from ..core.normalize import CAR_NORMALIZER, Normalizer
 from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
 from ..ops.avro import ResolvingCodec, needs_resolution
+from ..stream.broker import SchemaIdMismatchError
 from ..stream.consumer import StreamConsumer
 from ..stream.group import GroupConsumer
-from ..stream.native import NativeCodec
+from ..stream.native import KEY_STRIDE, NativeCodec
 
 #: most messages one consumer poll fetches (the JAX ``poll_chunk`` default)
 POLL_CHUNK = 4096
@@ -51,6 +59,7 @@ class Batch:
     first_index: int
     labels: Optional[np.ndarray] = None  # object array of strings, if kept
     y: Optional[np.ndarray] = None  # supervised target
+    keys: Optional[np.ndarray] = None  # [B] S-bytes message keys, if kept
 
     @property
     def mask(self) -> np.ndarray:
@@ -121,6 +130,8 @@ class SensorBatches:
         filter); False keeps everything (the predict path).
       pad_tail: zero-pad the final ragged batch (True) or drop it.
       keep_labels: carry each row's label on ``Batch.labels``.
+      keep_keys: carry each row's message key on ``Batch.keys`` (a
+        consumer's stream only).
       cache: decode once and replay batches from host memory on later
         epochs (identical over an immutable slice).
       schema: the Avro record schema of a consumer's messages.
@@ -138,6 +149,7 @@ class SensorBatches:
                  only_normal: bool = False,
                  pad_tail: bool = True,
                  keep_labels: bool = False,
+                 keep_keys: bool = False,
                  cache: bool = False,
                  schema: RecordSchema = KSQL_CAR_SCHEMA):
         self.normalizer = normalizer
@@ -147,6 +159,7 @@ class SensorBatches:
         self.only_normal = only_normal
         self.pad_tail = pad_tail
         self.keep_labels = keep_labels
+        self.keep_keys = keep_keys
         self.cache = cache
         self._cached = None
         self.consumer = None  # a StreamConsumer or a GroupConsumer
@@ -162,6 +175,9 @@ class SensorBatches:
             self._label_col = strings.index(schema.label_field) \
                 if schema.label_field in strings else None
         elif isinstance(source, RowSource):
+            if keep_keys:
+                raise ValueError("keep_keys needs a consumer: a RowSource's "
+                                 "rows have no message keys")
             self.source = source
         else:
             raise TypeError(f"SensorBatches reads a StreamConsumer, a "
@@ -175,11 +191,22 @@ class SensorBatches:
         # cursor over rows the caller never sees
         self._need_rows: Optional[int] = None
 
+    def _native_labels(self, lab: np.ndarray, n: int) -> np.ndarray:
+        """The label column of the native decoder's fixed-stride bytes."""
+        return lab[:, self._label_col].astype("U") \
+            if self._label_col is not None \
+            else np.full((n,), "", object)
+
     def _decode_msgs(self, msgs):
-        """(float64 sensor rows, labels) of one poll: frames stripped and
-        Avro decoded in one native call, or, where any frame names an
-        evolved writer schema, the whole poll decoded by name."""
+        """(float64 sensor rows, labels, keys or None) of one poll: frames
+        stripped and Avro decoded in one native call, or, where any frame
+        names an evolved writer schema, the whole poll decoded by name.
+        Keys are cut at ``KEY_STRIDE - 1`` bytes, as the fused leg cuts
+        them."""
         values = [m.value for m in msgs]
+        keys = np.asarray([m.key or b"" for m in msgs],
+                          f"S{KEY_STRIDE - 1}").astype(f"S{KEY_STRIDE}") \
+            if self.keep_keys else None
         if any(needs_resolution(v) for v in values):
             if self._resolving is None:
                 self._resolving = ResolvingCodec(self.schema)
@@ -187,20 +214,43 @@ class SensorBatches:
             label = self.schema.label_field
             labels = cols[label].astype("U") if label \
                 else np.full((len(msgs),), "", object)
-            return self._resolving.codec.sensor_matrix(cols), labels
+            return self._resolving.codec.sensor_matrix(cols), labels, keys
         num, lab = self._native.decode_batch(values, strip=5)
-        labels = lab[:, self._label_col].astype("U") \
-            if self._label_col is not None \
-            else np.full((len(msgs),), "", object)
-        return num, labels
+        return num, self._native_labels(lab, len(msgs)), keys
+
+    def _fused(self) -> bool:
+        """Whether the consumer polls through the broker's fused
+        fetch-and-decode."""
+        attr = "fetch_decode_keys" if self.keep_keys else "fetch_decode"
+        return isinstance(self.consumer, StreamConsumer) and \
+            getattr(self.consumer.broker, attr, None) is not None
 
     def _decoded_chunks(self):
-        """Yield (float64 sensor rows, labels) per read: the rows a
-        bounded iteration still needs, else the rest of the stream."""
+        """Yield (float64 sensor rows, labels, keys or None) per read: the
+        rows a bounded iteration still needs, else the rest of the
+        stream."""
+        fused = self._fused()
         while True:
             if self.consumer is not None:
                 limit = POLL_CHUNK if self._need_rows is None \
                     else max(1, min(POLL_CHUNK, self._need_rows))
+                if fused:
+                    try:
+                        res = self.consumer.poll_decoded(
+                            self._native, strip=5, max_messages=limit,
+                            with_keys=self.keep_keys)
+                    except SchemaIdMismatchError:
+                        # an evolved writer's frame at the cursor: one
+                        # chunk by the message-list leg, then fused again
+                        msgs = self.consumer.poll(limit)
+                        if msgs:
+                            yield self._decode_msgs(msgs)
+                        continue
+                    if not len(res[0]):
+                        return
+                    yield (res[0], self._native_labels(res[1], len(res[0])),
+                           res[2] if self.keep_keys else None)
+                    continue
                 msgs = self.consumer.poll(limit)
                 if not msgs:
                     return
@@ -212,21 +262,24 @@ class SensorBatches:
             if not len(num):
                 return
             self.position += len(num)
-            yield num, labels
+            yield num, labels, None
 
     def _filtered_chunks(self):
-        """Yield (xs [n, F] float32 normalized, labels [n]) per read."""
-        for num, labels in self._decoded_chunks():
+        """Yield (xs [n, F] float32 normalized, labels [n], keys [n] or
+        None) per read."""
+        for num, labels, keys in self._decoded_chunks():
             xs = self.normalizer.np(num)
             if self.only_normal:
                 keep = labels == "false"
                 xs, labels = xs[keep], labels[keep]
+                if keys is not None:
+                    keys = keys[keep]
             if len(xs):
-                yield xs, labels
+                yield xs, labels, keys
 
     def __iter__(self) -> Iterator[Batch]:
         B = self.batch_size
-        parts: list = []  # pending (xs, labels) chunks
+        parts: list = []  # pending (xs, labels, keys) chunks
         have = 0
         emitted = 0
         # index counts post-skip rows only, like the reference's
@@ -238,13 +291,15 @@ class SensorBatches:
             if len(parts) > 1:
                 xs = np.concatenate([p[0] for p in parts])
                 labels = np.concatenate([p[1] for p in parts])
+                keys = np.concatenate([p[2] for p in parts]) \
+                    if self.keep_keys else None
             else:
-                xs, labels = parts[0]
+                xs, labels, keys = parts[0]
             parts = []
             have = 0
-            return xs, labels
+            return xs, labels, keys
 
-        def emit(xs, labels, lo):
+        def emit(xs, labels, keys, lo):
             n_valid = min(B, len(xs) - lo)
             x = xs[lo:lo + n_valid].astype(np.float32, copy=True)
             if n_valid < B:
@@ -255,7 +310,12 @@ class SensorBatches:
                 lab = np.empty((B,), object)
                 lab[:n_valid] = labels[lo:lo + n_valid]
                 lab[n_valid:] = ""
-            return Batch(x, n_valid, 0, lab)  # first_index set by caller
+            ks = None
+            if keys is not None:
+                ks = np.zeros((B,), keys.dtype)
+                ks[:n_valid] = keys[lo:lo + n_valid]
+            # first_index set by the caller
+            return Batch(x, n_valid, 0, lab, keys=ks)
 
         chunks = self._filtered_chunks()
         try:
@@ -272,13 +332,13 @@ class SensorBatches:
                 have += len(chunk[0])
                 if have < B:
                     continue
-                xs, labels = assemble()
+                xs, labels, keys = assemble()
                 lo = 0
                 while len(xs) - lo >= B:
                     if self._skipped < self.skip:
                         self._skipped += 1
                     else:
-                        b = emit(xs, labels, lo)
+                        b = emit(xs, labels, keys, lo)
                         b.first_index = index
                         yield b
                         emitted += 1
@@ -287,12 +347,13 @@ class SensorBatches:
                             return
                     lo += B
                 if lo < len(xs):
-                    parts = [(xs[lo:], labels[lo:])]
+                    parts = [(xs[lo:], labels[lo:],
+                              keys[lo:] if keys is not None else None)]
                     have = len(xs) - lo
             if have and self.pad_tail and self._skipped >= self.skip and \
                     (not self.take or emitted < self.take):
-                xs, labels = assemble()
-                b = emit(xs, labels, 0)
+                xs, labels, keys = assemble()
+                b = emit(xs, labels, keys, 0)
                 b.first_index = index
                 yield b
         finally:

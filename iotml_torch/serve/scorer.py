@@ -12,9 +12,11 @@ The scoring contract is kept: super-batches, suspend and resume under
 ``max_rows``, threshold verdicts, live quality counts, per-label error
 histograms, over a consumer one offset commit per completed drain, and
 ``run_forever``, the long-lived loop that rewinds to the committed
-offsets and backs off when the broker connection fails.  Watermarks,
-tracing, chaos points, per-car health and the feature-store join are not
-ported.
+offsets and backs off when the broker connection fails.  With a
+``carhealth`` detector (``serve.carhealth``) each scored batch's keys and
+errors feed it, and its alert transitions go to ``carhealth_topic`` on
+the output broker.  Watermarks, tracing, chaos points and the
+feature-store join are not ported.
 """
 
 from __future__ import annotations
@@ -76,7 +78,13 @@ class StreamScorer:
       threshold: optional reconstruction-error threshold; rows then get
         an anomaly verdict appended.
       verdict_mask: optional boolean [F] restricting the per-row error
-        mean (verdicts, quality histograms) to a feature subset.
+        mean (verdicts, quality histograms, the car EMAs) to a feature
+        subset.
+      carhealth: optional ``CarHealthDetector``, fed each batch's (keys,
+        per-row errors) when the batches keep keys, and the per-feature
+        errors and values when its feature heads are on.
+      carhealth_topic: where its alert transitions are published (one
+        ``produce_many`` a batch with transitions), on ``out``'s broker.
       device: where the forward runs (``cuda`` unless given).
     """
 
@@ -85,7 +93,9 @@ class StreamScorer:
 
     def __init__(self, model: AutoencoderSpec, params, batches: SensorBatches,
                  out: OutputSequence, threshold: Optional[float] = None,
-                 verdict_mask=None, device: DeviceLike = None):
+                 verdict_mask=None, carhealth=None,
+                 carhealth_topic: Optional[str] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model.build(self.device).eval()
         self.batches = batches
@@ -93,6 +103,8 @@ class StreamScorer:
         self.threshold = threshold
         self.verdict_mask = (np.asarray(verdict_mask, bool)
                              if verdict_mask is not None else None)
+        self.carhealth = carhealth
+        self.carhealth_topic = carhealth_topic
         self.scored = 0
         #: suspended (iterator, index_base) of a max_rows-truncated drain
         self._resume = None
@@ -116,17 +128,26 @@ class StreamScorer:
         self.rewinds = 0
         #: registry version of the loaded weights (None = not stamped)
         self.model_version: Optional[int] = None
-        self.set_params(params)
+        #: the weights are loaded (None params: not yet, as a scorer that
+        #: waits for its first model starts)
+        self.params_loaded = False
+        if params is not None:
+            self.set_params(params)
 
     def set_params(self, params, version: Optional[int] = None) -> None:
-        """Swap the model weights in place; takes effect at the next
-        super-batch and cannot drop or reorder output.  ``version``
-        stamps ``model_version``."""
+        """Swap the model weights in place, one copy to the device; takes
+        effect at the next super-batch and cannot drop or reorder output
+        (the ``OutputSequence`` index stream is untouched).  ``version``
+        stamps ``model_version``; a car-health detector is told, since new
+        weights shift every car's error together."""
         self.model.load_state_dict(
             {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
              else v for k, v in params.items()})
+        self.params_loaded = True
         if version is not None:
             self.model_version = version
+        if self.carhealth is not None:
+            self.carhealth.notify_model_swap()
 
     def score_available(self, max_rows: Optional[int] = None) -> int:
         """Drain whatever the stream holds; returns rows scored.
@@ -182,6 +203,9 @@ class StreamScorer:
             self.first_forward_s = seconds
         preds = preds.reshape(S_pad, B, F)[:S]
         errs = row_errors(preds, xs, self.verdict_mask)  # [S, B]
+        # per-feature errors and values for the detector's feature heads
+        heads = self.carhealth is not None and self.carhealth.feature_heads
+        sq = np.square(preds - xs) if heads else None
         # one formatting call over every valid row of the super-batch
         msgs = iter(format_rows(np.concatenate(
             [preds[k, : b.n_valid] for k, b in enumerate(bs)])))
@@ -200,6 +224,16 @@ class StreamScorer:
                     if np.any(sel):
                         self.err_hist[lab] += np.bincount(
                             buckets[sel], minlength=len(ERR_BUCKETS) + 1)
+            if self.carhealth is not None and b.keys is not None \
+                    and b.n_valid:
+                n = b.n_valid
+                trans = self.carhealth.update(
+                    b.keys[:n], err[:n],
+                    ferrs=sq[k][:n] if heads else None,
+                    fvals=xs[k][:n] if heads else None)
+                if trans and self.carhealth_topic is not None:
+                    self.carhealth.publish_transitions(
+                        self.out.broker, self.carhealth_topic, trans)
             for i in range(b.n_valid):
                 msg = next(msgs)
                 if self.threshold is not None:

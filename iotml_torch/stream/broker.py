@@ -45,6 +45,27 @@ class OffsetOutOfRangeError(LookupError):
         self.earliest = earliest
 
 
+class SchemaIdMismatchError(ValueError):
+    """A fused decode found a Confluent writer-schema id outside the
+    reader's pinned band at the current cursor.
+
+    The runtime guard behind the positional fast path: instead of
+    stripping 5 bytes and mis-reading an evolved (v2) writer's record,
+    the native client stops at the foreign frame and raises this; the
+    consumer re-reads that chunk through the name-resolving path
+    (``ops.avro.ResolvingCodec``) and then resumes the fast path.
+    Nothing is consumed past the mismatch."""
+
+    def __init__(self, topic: str, partition: int, offset: int):
+        super().__init__(
+            f"non-pinned Confluent schema id at {topic}:{partition}"
+            f"@{offset}: evolved writer on a pinned topic — resolve by "
+            f"name in Python (chunk fallback), never strip blindly")
+        self.topic = topic
+        self.partition = partition
+        self.offset = offset
+
+
 class Message(NamedTuple):
     """One record as fetched from a partition log."""
 

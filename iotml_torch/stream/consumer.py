@@ -8,15 +8,20 @@ port's ``Broker`` or, unchanged, over the wire client
 (``kafka_wire.KafkaWireBroker``, whose fetch raises the same
 ``OffsetOutOfRangeError`` with the earliest offset the server retains),
 and adds multi-partition specs, committed-offset resume and ``seek``.
-Tracing, watermarks, lag gauges and the fused and columnar polls are not
-ported.
+``poll_decoded`` is the fused poll over a broker with ``fetch_decode``
+(the native client, ``stream.native_kafka``).  Tracing, watermarks, lag
+gauges and the columnar ring poll are not ported.
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence
 
-from .broker import Broker, Message, OffsetOutOfRangeError
+import numpy as np
+
+from .broker import (Broker, Message, OffsetOutOfRangeError,
+                     SchemaIdMismatchError)
+from .native import LABEL_STRIDE
 
 
 def parse_spec(spec: str) -> tuple:
@@ -110,6 +115,59 @@ class StreamConsumer:
                 out.extend(batch)
                 attempts = 0  # progress: give the others another turn
         return out
+
+    def poll_decoded(self, codec, strip: int = 5, max_messages: int = 4096,
+                     with_keys: bool = False):
+        """Fused poll: fetch, framing strip and Avro decode in one native
+        call a partition (the broker's ``fetch_decode``, or
+        ``fetch_decode_keys`` with ``with_keys``), round-robin as
+        ``poll``.  Returns (numeric [n, F] float64, labels [n, S] bytes),
+        with keys [n] bytes third under ``with_keys``, or None when the
+        broker has no such call; n == 0 is the end of the poll, as an
+        empty ``poll()`` is.  A trimmed cursor resets to the earliest
+        retained offset.  At an evolved writer's frame
+        (``SchemaIdMismatchError``) it returns what decoded before it,
+        or raises when nothing did, with the cursor on that frame."""
+        fd = getattr(self.broker,
+                     "fetch_decode_keys" if with_keys else "fetch_decode",
+                     None)
+        if fd is None:
+            return None
+        nums, labs, keys = [], [], []
+        got = 0
+        n = len(self._cursors)
+        attempts = 0
+        while got < max_messages and attempts < n:
+            cur = self._cursors[self._rr % n]
+            self._rr += 1
+            attempts += 1
+            topic, part, off = cur
+            try:
+                res = fd(topic, part, off, codec, strip=strip,
+                         max_rows=max_messages - got)
+            except OffsetOutOfRangeError as e:
+                cur[2] = max(e.earliest, self.broker.begin_offset(topic, part))
+                self.autoresets += 1
+                continue
+            except SchemaIdMismatchError:
+                if got:
+                    break
+                raise
+            numeric = res[0]
+            if len(numeric):
+                cur[2] = res[-1]
+                nums.append(numeric)
+                labs.append(res[1])
+                if with_keys:
+                    keys.append(res[2])
+                got += len(numeric)
+                attempts = 0
+        if not nums:
+            empty = (np.zeros((0, codec.n_numeric)),
+                     np.zeros((0, codec.n_strings), f"S{LABEL_STRIDE}"))
+            return empty + (np.zeros((0,), "S1"),) if with_keys else empty
+        out = (np.concatenate(nums), np.concatenate(labs))
+        return out + (np.concatenate(keys),) if with_keys else out
 
     def at_end(self) -> bool:
         return all(off >= self.broker.end_offset(t, p)

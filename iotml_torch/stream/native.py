@@ -1,6 +1,6 @@
 """ctypes bindings for the port's C++ stream engine (``iotml.stream.native``).
 
-Three sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
+Four sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
 build into one library:
 
 - ``avro_engine.cc``: one call decodes a whole poll of Confluent-framed
@@ -10,13 +10,17 @@ build into one library:
   byte-identical to ``np.array2string`` (``serve.fastfmt``);
 - ``msgset_engine.cc``: one call encodes or decodes a Kafka MessageSet v1
   (``msgset_encode``, ``msgset_decode``: the wire client's produce
-  requests and fetch responses, the wire server's the other way round).
+  requests and fetch responses, the wire server's the other way round);
+- ``kafka_client.cc``: the native Kafka wire client and its fused
+  fetch-and-decode (``stream.native_kafka.NativeKafkaBroker``), whose
+  message sets go through ``msgset_engine.cc`` and whose decode is
+  ``avro_engine.cc``'s.
 
 The library is built with g++ at first use, never at import:
 
     g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall
         -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc \
-        fmt_engine.cc msgset_engine.cc
+        fmt_engine.cc msgset_engine.cc kafka_client.cc
 
 ``<hash>`` covers the sources, the header, the flags, the compiler's
 version and what ``-march=native`` means on this host, so an edited
@@ -52,7 +56,8 @@ import numpy as np
 from ..core.schema import RecordSchema
 
 CPP = Path(__file__).resolve().parent.parent / "cpp"
-SOURCES = ("avro_engine.cc", "fmt_engine.cc", "msgset_engine.cc")
+SOURCES = ("avro_engine.cc", "fmt_engine.cc", "msgset_engine.cc",
+           "kafka_client.cc")
 HEADERS = ("utf8_check.h",)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-Wall")
@@ -60,8 +65,12 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
 _TYPE_CODE = {"float": 0, "double": 1, "int": 2, "long": 3, "string": 4,
               "boolean": 5}
 LABEL_STRIDE = 16  # fits "true"/"false"/"" labels with headroom
+#: bytes a row for message keys in the fused decode (MQTT-topic car keys
+#: fit with room; longer keys are cut at KEY_STRIDE - 1 bytes)
+KEY_STRIDE = 64
 
 _i64, _i8, _u8 = ctypes.c_int64, ctypes.c_int8, ctypes.c_uint8
+_i32, _vp, _str = ctypes.c_int32, ctypes.c_void_p, ctypes.c_char_p
 _P = ctypes.POINTER
 #: every entry point's (restype, argtypes)
 _SIGNATURES = {
@@ -83,13 +92,43 @@ _SIGNATURES = {
     "iotml_msgset_decode": (_i64, [
         ctypes.c_char_p, _i64, _i64, _P(_i64), _P(_i64), _P(_i64), _P(_u8),
         _P(_u8), _i64, _P(_i64), _P(_u8), _P(_u8), _i64]),
+    # the Kafka client (kafka_client.cc): without these ctypes would pass
+    # handles and int64s as 32-bit ints
+    "iotml_kafka_connect": (_vp, [_str, _i32, _str, _str, _str,
+                                  ctypes.c_double]),
+    "iotml_kafka_close": (None, [_vp]),
+    "iotml_kafka_set_pinned_id_limit": (None, [_vp, _i64]),
+    "iotml_kafka_metadata": (_i64, [_vp, _str]),
+    "iotml_kafka_create_topic": (_i64, [_vp, _str, _i32, _str]),
+    "iotml_kafka_list_offset": (_i64, [_vp, _str, _i32, _i64]),
+    "iotml_kafka_produce": (_i64, [
+        _vp, _str, _i32, _str, _P(_i64), _P(_u8), _str, _P(_i64), _P(_u8),
+        _P(_i64), _i64]),
+    "iotml_kafka_produce_raw": (_i64, [_vp, _str, _i32, _P(_u8), _i64]),
+    "iotml_kafka_fetch": (_i64, [_vp, _str, _i32, _i64, _i64]),
+    "iotml_kafka_staged_bytes": (_i64, [_vp, _P(_i64), _P(_i64)]),
+    "iotml_kafka_staged_value_nulls": (_i64, [_vp, _P(_u8)]),
+    "iotml_kafka_high_watermark": (_i64, [_vp]),
+    "iotml_kafka_take": (_i64, [
+        _vp, _str, _P(_i64), _str, _P(_i64), _P(_u8), _P(_i64), _P(_i64)]),
+    "iotml_kafka_fetch_decode": (_i64, [
+        _vp, _str, _i32, _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_double), _str, _i64, _i64, _P(_i64)]),
+    "iotml_kafka_fetch_decode_keys": (_i64, [
+        _vp, _str, _i32, _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_double), _str, _i64, _str, _i64, _i64, _P(_i64)]),
+    "iotml_kafka_commit": (_i64, [_vp, _str, _str, _i32, _i64]),
+    "iotml_kafka_commit_many": (_i64, [
+        _vp, _str, _str, _P(_i32), _P(_i64), _i64]),
+    "iotml_kafka_committed": (_i64, [_vp, _str, _str, _i32]),
 }
 
 #: rows carried by the engine and seconds spent in it, per entry
 stats = {"decode_rows": 0, "decode_s": 0.0, "encode_rows": 0,
          "encode_s": 0.0, "format_rows": 0, "format_s": 0.0,
          "msgset_encode_rows": 0, "msgset_encode_s": 0.0,
-         "msgset_decode_rows": 0, "msgset_decode_s": 0.0}
+         "msgset_decode_rows": 0, "msgset_decode_s": 0.0,
+         "fetch_decode_rows": 0, "fetch_decode_s": 0.0}
 _stats_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,7 +6,8 @@ the predict deployment downloads it fresh on start (cardata-v3.py:229-232,
 :255-261).  ``ArtifactStore`` is that handoff: a local-directory backend,
 and a GCS backend for ``gs://`` roots when ``google-cloud-storage`` is
 installed (imported only then).  Objects are opaque blobs keyed by name;
-a checkpoint directory moves as one zip blob.
+a checkpoint directory moves as one zip blob, and ``put_text`` /
+``get_text`` keep small pointer blobs (a model name).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
+from typing import Optional
 
 from ..store.segment import fsync_dir
 
@@ -71,6 +73,43 @@ class ArtifactStore:
         if self._gcs:
             return self._blob(name).exists()
         return os.path.exists(os.path.join(self.root, name))
+
+    # ----------------------------------------------------- pointer blobs
+    # The continuous train → serve handoff (``train.live`` /
+    # ``serve.live``) flips a small "latest" pointer after each immutable
+    # versioned model upload; a scorer polls it and hot-swaps.
+    def put_text(self, name: str, text: str) -> None:
+        """Write a text blob ATOMICALLY, as ``upload`` writes: a reader
+        sees the old text or the new, never a torn one."""
+        if self._gcs:
+            self._blob(name).upload_from_string(text)  # atomic by contract
+            return
+        dst = os.path.join(self.root, name)
+        dirname = os.path.dirname(dst) or "."
+        os.makedirs(dirname, exist_ok=True)
+        tmp = dst + f".tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as fh:
+                fh.write(text)
+                fh.flush()
+                os.fsync(fh.fileno())
+            os.replace(tmp, dst)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        fsync_dir(dirname)
+
+    def get_text(self, name: str) -> Optional[str]:
+        """A text blob, or None while it does not exist."""
+        if self._gcs:
+            blob = self._blob(name)
+            return blob.download_as_bytes().decode() if blob.exists() \
+                else None
+        try:
+            with open(os.path.join(self.root, name)) as fh:
+                return fh.read()
+        except FileNotFoundError:
+            return None
 
     def upload_tree(self, local_dir: str, name: str) -> str:
         """Ship a directory (a checkpoint step) as the zip blob

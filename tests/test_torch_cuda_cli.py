@@ -2,7 +2,8 @@
 through ``iotml_torch.cli.cardata.main``, and the long-lived scorer
 ``iotml_torch.cli.serve.main`` on the card, as a user runs them, on
 ``emulator`` and over the port's Kafka wire server (``host:port`` with
-SASL/PLAIN, as the deploy manifests run them).
+SASL/PLAIN, as the deploy manifests run them), and the live train and
+score services (``iotml_torch.cli.live``) as two processes.
 Every test is marked ``cuda`` and skips without a card.
 
 The machine with the card has no JAX, so this file imports only torch,
@@ -14,6 +15,12 @@ Tolerance: payloads parsed as floats within atol 1e-6 of the same job's
 CPU run (float32 forwards whose sums run in another order on each
 device); counts, offsets and return codes equal.
 """
+
+import json
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -184,3 +191,47 @@ def test_cli_over_the_wire_on_the_card(cuda_device, tmp_path, monkeypatch):
         assert serve.main(argv, max_rounds=2) == 0
     assert log.end_offset("model-predictions", 0) == 30_000
     assert log.committed(serve.GROUP, ARGS[0], 0) == 30_000
+
+
+@pytest.mark.cuda
+def test_live_services_as_two_processes_on_the_card(cuda_device, tmp_path):
+    """``python -m iotml_torch.cli.live train`` and ``score`` as two OS
+    processes on the card over ``127.0.0.1:<port>`` with SASL/PLAIN,
+    through the native client: at least 3 rounds published, every record
+    scored, at least one hot swap, both exit 0 on a STOP line."""
+    backing = _app._broker_for("emulator:10000", ARGS[0])
+    root = str(tmp_path / "live")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with KafkaWireServer(backing, credentials=("svc", "pw")) as srv:
+        addr = f"127.0.0.1:{srv.port}"
+        common = ["--sasl", "svc:pw", "--stats", "--max-seconds", "300"]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "iotml_torch.cli.live", *argv, *common],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=repo)
+            for argv in (["train", addr, ARGS[0], root],
+                         ["score", addr, ARGS[0], ARGS[2], root])]
+        try:
+            deadline = time.time() + 240
+            while time.time() < deadline and \
+                    backing.end_offset("model-predictions", 0) < 10_000:
+                time.sleep(0.2)
+            while time.time() < deadline and (backing.committed(
+                    "cardata-live-train", ARGS[0], 0) or 0) < 6000:
+                time.sleep(0.2)
+            outs = []
+            for p in procs:
+                p.stdin.write("STOP\n")
+                p.stdin.flush()
+                outs.append(p.communicate(timeout=60)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    rounds, drains = ([json.loads(line) for line in out.splitlines()
+                       if line.startswith("{")] for out in outs)
+    assert rounds[-1]["round"] >= 3
+    assert drains[-1]["scored"] == 10_000
+    assert drains[-1]["model_updates"] >= 1
+    assert backing.end_offset("model-predictions", 0) == 10_000

@@ -38,6 +38,12 @@ def test_the_wire_layer_is_covered():
             "iotml_torch/utils/net.py"} <= set(FILES)
 
 
+def test_the_live_services_are_covered():
+    assert {"iotml_torch/stream/native_kafka.py", "iotml_torch/cli/live.py",
+            "iotml_torch/train/live.py", "iotml_torch/serve/live.py",
+            "iotml_torch/serve/carhealth.py"} <= set(FILES)
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
