@@ -135,7 +135,34 @@ non-zero exit and no result line:
                 split, rounds/s, records trained/s, the drain's rows/s
                 with and without car health, ``fetch_decode`` rows and
                 seconds beside the server's encoded rows.
-9. timing     — each design held against the plain version over the
+9. creditcard_path — the creditcard fraud job through
+                ``iotml_torch.cli.creditcard.run`` on the card at the Kaggle
+                file's row count (``synth:284807``; epochs 5, batch 32,
+                threshold 5, the CLI's own): exactly one fit launch, through
+                the rows design at (F, E, H) = (30, 14, 7), B = 32, over
+                ~42,300 steps; the losses falling; the kernel held against
+                the plain version from the same start state on the first
+                500 of the same batches (the fit bounds); the card's
+                scores within rtol 1e-5 of a CPU recompute from the card's
+                params, and the report's AUC and AP within
+                ``ranking_tolerance`` of the CPU's (the pairs whose scores
+                lie within that tolerance of each other, the only ones
+                that can swap); AUC > 0.9.  CSV, produce, batching, fit,
+                kernel and scoring seconds, ``reconstruction_errors``
+                rows/s.
+10. lstm_path — the supervised LSTM through ``iotml_torch.cli.lstm.main``
+                on ``emulator:30000`` (18 features, 32/16/16/32 units, 15
+                batches of 64 windows × 5 epochs, then 3 batches
+                predicted): the card's losses and checkpointed params
+                against the same train on the CPU (the fit bounds); the
+                192 payloads, in index order, within atol 1e-5 of a CPU
+                recompute from the restored checkpoint; no kernel launch.
+11. mnist_path — ``iotml_torch.cli.mnist_smoke.run(["--n", "60000"])``
+                on the card: ingestion intact, both models' losses
+                falling; the classifier's first 50 steps against a CPU run
+                from the same init (loss and accuracy rtol 1e-4, params at
+                the fit bounds); no kernel launch.
+12. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -145,7 +172,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-10. attention_kernel — the flash-attention kernel against its plain
+13. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -168,13 +195,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-11. sensorformer_path — SensorFormer at full width (its defaults) scores
+14. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-12. attention_timing — kernel, plain version, bound and the library
+15. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -185,7 +212,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-13. attention_backward_kernel — the dK/dV and dQ kernels against the
+16. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -204,18 +231,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-14. sensorformer_train — the slice's main path: ``make_sp_train_step``
+17. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 11; each step launches exactly
+                fleet histories of phase 14; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-15. attention_backward_timing — each backward kernel, the plain
+18. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 12, beside the bound, the fp32 FMA floor
+                shapes of phase 15, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -228,12 +255,14 @@ non-zero exit and no result line:
                 after (exactly one forward, one dK/dV and one dQ launch).
 Then the kernels line (the fit's design, and its launches by design on
 the main path and by path, the main path, the CLI path, the serve path
-(none), the wire path and the live path (one a round), summed in
-``launches``; each attention entry's
+(none), the wire path, the live path (one a round), the creditcard path
+(one), the LSTM and MNIST paths (none), summed in ``launches``; the
+creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 11), the training steps (phase 14), the long-context forward +
-backward (phase 15) and the serve path (none), each also given by path),
+(phase 14), the training steps (phase 17), the long-context forward +
+backward (phase 18) and the serve, creditcard, LSTM and MNIST paths
+(none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 """
@@ -253,20 +282,28 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from iotml_torch.cli import _app as cli_app
 from iotml_torch.cli import cardata
+from iotml_torch.cli import creditcard as creditcard_cli
+from iotml_torch.cli import lstm as lstm_cli
+from iotml_torch.cli import mnist_smoke as mnist_cli
 from iotml_torch.cli import serve as serve_cli
 from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.core.schema import KSQL_CAR_SCHEMA
 from iotml_torch.data.dataset import RowSource, SensorBatches
+from iotml_torch.data.mnist_stream import synth_mnist
+from iotml_torch.evaluate import anomaly
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
                                             CREDITCARD_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
+from iotml_torch.models.lstm import LSTMSpec
+from iotml_torch.models.mnist import MNISTClassifier
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops import _build, fused_train
 from iotml_torch.ops.attention import (FLASH_DESIGNS, attention_reference,
@@ -665,16 +702,29 @@ def phase_kernel() -> float:
     return max(errs.values())
 
 
+class Call(NamedTuple):
+    """One recorded call: its arguments, result and wall seconds (the
+    wrapped functions end in a device-to-host copy, so the seconds hold
+    their device work)."""
+
+    args: tuple
+    kw: dict
+    result: object
+    seconds: float
+
+
 @contextlib.contextmanager
 def _recording(owner, name: str):
     """Wrap ``owner.name`` (a module's function or a class's method) so
-    each call's (args, keywords, result) is recorded."""
+    each call is recorded as a ``Call``."""
     real = getattr(owner, name)
     calls = []
 
     def spy(*args, **kw):
-        calls.append((args, kw, real(*args, **kw)))
-        return calls[-1][2]
+        t0 = time.perf_counter()
+        result = real(*args, **kw)
+        calls.append(Call(args, kw, result, time.perf_counter() - t0))
+        return result
 
     setattr(owner, name, spy)
     try:
@@ -688,7 +738,7 @@ def _check_engine_formatted(formats, n_rows: int, formatted: int,
     """The rows the scorer formatted, after checking that the engine
     formatted every one of them that its fast path takes (the plain
     version's ``fast_rows`` rule), and numpy only the others."""
-    rows = np.concatenate([args[0] for args, _, _ in formats])
+    rows = np.concatenate([call.args[0] for call in formats])
     want = int(fastfmt.fast_rows(rows).sum())
     if rows.shape[0] != n_rows or formatted != want or want == 0:
         raise AssertionError(f"{where}: the native engine formatted "
@@ -703,9 +753,7 @@ def phase_main_path(card: str) -> dict:
     train_batches = SensorBatches(source, batch_size=100, take=100,
                                   only_normal=True)
     trainer = Trainer(CAR_AUTOENCODER)  # device=None: the card
-    fused_train.fused_fit.launches = 0
-    fused_train.fused_fit.launches_by_design = dict.fromkeys(
-        fused_train.DESIGNS, 0)
+    reset_fit_launches()
     t0 = time.perf_counter()
     hist = trainer.fit_compiled(train_batches, epochs=20)
     torch.cuda.synchronize()
@@ -802,16 +850,14 @@ def _run_cli(mode: str, root: str, servers: str = "emulator:30000",
         raise AssertionError(f"cardata {mode} returned {rc}:\n{text}")
     stats = [line for line in text.splitlines()
              if line.startswith("stats: ")]
-    return {"seconds": seconds, "broker": brokers[0][2],
+    return {"seconds": seconds, "broker": brokers[0].result,
             "stats": json.loads(stats[-1][len("stats: "):])}
 
 
 def phase_cli_path(card: str, root: str) -> dict:
     """cardata train then predict; the checkpoint stays in ``root`` for
     serve_path."""
-    fused_train.fused_fit.launches = 0
-    fused_train.fused_fit.launches_by_design = dict.fromkeys(
-        fused_train.DESIGNS, 0)
+    reset_fit_launches()
     native.reset_stats()
     with _recording(cli_app, "Trainer") as trainers:
         train = _run_cli("train", root)
@@ -833,7 +879,7 @@ def phase_cli_path(card: str, root: str) -> dict:
 
     # the stored checkpoint is the trained state, bit for bit, and carries
     # the cursor the group committed after it was stored
-    state = trainers[0][2].state
+    state = trainers[0].result.state
     ckpt = CheckpointManager.load_dir(ArtifactStore(root).download_tree(
         "m1", str(Path(root) / "restored")))
     committed = train["broker"].committed(CLI_GROUP, CLI_TOPIC, 0)
@@ -868,7 +914,7 @@ def phase_cli_path(card: str, root: str) -> dict:
     # string is np.array2string of the row, byte for byte
     rows = _check_engine_formatted(formats, 10_000,
                                    predict_native["format_rows"], "cli_path")
-    engine_msgs = [m for _, _, msgs in formats for m in msgs]
+    engine_msgs = [m for call in formats for m in call.result]
     if engine_msgs != payloads:
         raise AssertionError("the topic's payloads are not the formatter's "
                              "strings in order")
@@ -882,7 +928,7 @@ def phase_cli_path(card: str, root: str) -> dict:
     # what the engine decoded on predict, exactly the pure codec's columns
     # for the same messages
     pure = AvroCodec(KSQL_CAR_SCHEMA)
-    for (codec, msgs), kw, (num, lab) in decodes:
+    for (codec, msgs), kw, (num, lab), _ in decodes:
         if kw.get("strip") != 5:
             raise AssertionError(f"predict decoded with {kw}, not strip=5")
         cols = pure.decode_batch([strip_frame(m) for m in msgs])
@@ -894,7 +940,7 @@ def phase_cli_path(card: str, root: str) -> dict:
                 list(cols[KSQL_CAR_SCHEMA.label_field]):
             raise AssertionError("the native decode of predict's messages "
                                  "differs from the pure codec's")
-    decoded = sum(len(args[1]) for args, _, _ in decodes)
+    decoded = sum(len(call.args[1]) for call in decodes)
 
     # the payloads against the restored params recomputed on the CPU
     check = SensorBatches(
@@ -1040,7 +1086,7 @@ def _check_serve_payloads(payloads, want, x, threshold, where) -> tuple:
 
 
 def phase_serve_path(card: str, root: str) -> dict:
-    fused_train.fused_fit.launches = 0
+    reset_fit_launches()
     reset_launches()
     ckpt = CheckpointManager.load_dir(ArtifactStore(root).download_tree(
         "m1", str(Path(root) / "serve_restored")))
@@ -1345,9 +1391,7 @@ def _wire_group(params_root: str) -> dict:
 def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
     """cardata train + predict, serve committed and a two-member serve
     group, over the port's Kafka wire server with SASL/PLAIN."""
-    fused_train.fused_fit.launches = 0
-    fused_train.fused_fit.launches_by_design = dict.fromkeys(
-        fused_train.DESIGNS, 0)
+    reset_fit_launches()
     reset_launches()
     wire_root = str(Path(root) / "wire")
     backing = cli_app._broker_for("emulator:30000", CLI_TOPIC)
@@ -1418,8 +1462,7 @@ def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
         want_rows, x, 5.0, "wire serve committed")
     _check_one_produce_per_flush(srv_req, srv_fl, "serve committed")
     group = _wire_group(wire_root)
-    launch_counts_now = {"fused_fit": fused_train.fused_fit.launches,
-                         **flash_attention.launches}
+    launch_counts_now = path_launches()
     if launch_counts_now["fused_fit"] != 1 or \
             any(v for k, v in launch_counts_now.items() if k != "fused_fit"):
         raise AssertionError(f"the wire path launched {launch_counts_now}")
@@ -1682,9 +1725,7 @@ def _live_processes(root: str) -> dict:
 def phase_live_path(card: str, root: str) -> dict:
     """The continuous services over the native client: the trainer and
     the scorer in this process, then both CLIs as OS processes."""
-    fused_train.fused_fit.launches = 0
-    fused_train.fused_fit.launches_by_design = dict.fromkeys(
-        fused_train.DESIGNS, 0)
+    reset_fit_launches()
     reset_launches()
     backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
     store_root = str(Path(root) / "live")
@@ -1718,8 +1759,7 @@ def phase_live_path(card: str, root: str) -> dict:
         finally:
             for c in clients:
                 c.close()
-    launch_counts_now = {"fused_fit": fused_train.fused_fit.launches,
-                         **flash_attention.launches}
+    launch_counts_now = path_launches()
     if launch_counts_now["fused_fit"] != launches or \
             any(v for k, v in launch_counts_now.items() if k != "fused_fit"):
         raise AssertionError(f"the live path launched {launch_counts_now}")
@@ -1798,6 +1838,344 @@ def phase_live_path(card: str, root: str) -> dict:
             "carhealth": carhealth, "processes": processes}
     emit(info)
     return {"launches": launches, "launches_by_design": by_design}
+
+
+#: the Kaggle creditcard file's row count, which the synthetic file takes
+CC_ROWS = 284_807
+#: steps of the creditcard fit held against the plain version (the plain
+#: version takes ~2 ms a step on the card: not all ~42,300)
+CC_PREFIX_STEPS = 500
+#: card scores against a CPU recompute from the same params
+CC_SCORE_TOL = dict(rtol=1e-5, atol=0.0)
+
+
+@contextlib.contextmanager
+def _initial_states():
+    """The state each ``Trainer`` starts its fit from, as it creates it."""
+    real = Trainer._ensure_state
+    states = []
+
+    def ensure(self):
+        fresh = self.state is None
+        real(self)
+        if fresh:
+            states.append(self.state)
+
+    Trainer._ensure_state = ensure
+    try:
+        yield states
+    finally:
+        Trainer._ensure_state = real
+
+
+def ranking_tolerance(scores: np.ndarray, labels: np.ndarray,
+                      rtol: float) -> dict:
+    """How far AUC and AP may move when every score may move by ``rtol``
+    of itself, so that two scores can swap or tie only when they lie
+    within ``rtol·(|a| + |b|)`` of each other (the band):
+    - AUC counts (anomaly, normal) pairs in order; each pair in a band
+      moves it by at most 1 / (P·N);
+    - AP is the mean over anomalies of k / r (anomalies, items at or
+      above it): an item in an anomaly's band moves k or r by one, so
+      that anomaly's term moves by at most (items in its band) / (r at
+      its smallest: 1 + the items above its band); items outside every
+      band keep their order against it."""
+    s = np.asarray(scores, np.float64)
+    lab = np.asarray(labels).astype(bool)
+    anom, normal = s[lab], np.sort(s[~lab])
+    all_sorted = np.sort(s)
+    band = rtol * 2 * np.abs(anom) * 1.0001
+    lo, hi = anom - band, anom + band
+    pairs = (np.searchsorted(normal, hi, "right")
+             - np.searchsorted(normal, lo, "left"))
+    near = (np.searchsorted(all_sorted, hi, "right")
+            - np.searchsorted(all_sorted, lo, "left")) - 1
+    r_min = 1 + len(s) - np.searchsorted(all_sorted, hi, "right")
+    P, N = len(anom), len(normal)
+    return {"auc_tol": float(pairs.sum()) / max(P * N, 1) + 1e-12,
+            "ap_tol": float(np.minimum(1.0, near / r_min).sum()) / max(P, 1)
+            + 1e-12,
+            "ambiguous_pairs": int(pairs.sum()),
+            "anomalies_with_a_neighbour": int((near > 0).sum())}
+
+
+def phase_creditcard_path(card: str) -> dict:
+    """The creditcard job through ``creditcard.run`` on the card at the
+    Kaggle file's row count: one fit launch through rows, a prefix held
+    against the plain version, the report against a CPU recompute."""
+    reset_fit_launches()
+    reset_launches()
+    out = io.StringIO()
+    with _recording(creditcard_cli, "synth_creditcard_csv") as synth, \
+            _recording(creditcard_cli, "produce_csv_lines") as produced, \
+            _recording(Trainer, "fit_compiled") as fits, \
+            _initial_states() as starts, \
+            _recording(Trainer, "_to_device") as moved, \
+            _recording(anomaly, "reconstruction_errors") as scored, \
+            _recording(creditcard_cli, "evaluate_detector") as evals, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        result = creditcard_cli.run([f"synth:{CC_ROWS}"])  # the card
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = path_launches()
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if counts != {**expected_launches(), "fused_fit": 1} or \
+            by_design["rows"] != 1:
+        raise AssertionError(f"creditcard: launches {counts} ({by_design}), "
+                             f"not one fit launch through rows")
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    if printed != json.loads(json.dumps(result)) or \
+            result["records"] != CC_ROWS:
+        raise AssertionError(f"creditcard printed {printed}")
+    history = fits[0].result
+    losses = history["loss"]
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"creditcard fit did not converge: {losses}")
+
+    # the launch: its inputs, then the kernel against the plain version
+    # from the same state on the first CC_PREFIX_STEPS batches (these
+    # launches are comparisons, made after the path's counts were read)
+    # fit_compiled moves the stacked batches, then the masks, to the card
+    state, epochs = starts[0], fits[0].kw["epochs"]
+    xs, masks = moved[0].result, moved[1].result
+    S, B, F = xs.shape
+    design = fused_train.fit_design(B, F, CREDITCARD_AUTOENCODER.encoding_dim,
+                                    CREDITCARD_AUTOENCODER.hidden_dim)
+    if (B, F, epochs, design) != (32, 30, 5, "rows"):
+        raise AssertionError(f"creditcard fit at B={B}, F={F}, {epochs} "
+                             f"epochs, design {design}")
+    k = CC_PREFIX_STEPS
+    prefix_err = check_fit(
+        "creditcard prefix",
+        fused_train.fused_fit(state, xs[:k], masks[:k], 1),
+        fused_train.fused_fit_reference(state, xs[:k], masks[:k], 1), k)
+    kernel_ms = [cuda_ms(lambda: fused_train.fused_fit(state, xs, masks,
+                                                        epochs), 1)
+                 for _ in range(2)]
+    plain_prefix_ms = cuda_ms(lambda: fused_train.fused_fit_reference(
+        state, xs[:k], masks[:k], 1), 1)
+
+    # the scores against a CPU recompute, and the report from them
+    ev = evals[0]
+    _, params, x, labels = ev.args[:4]
+    card_scores = scored[0].result
+    params_cpu = {key: v.detach().cpu() for key, v in params.items()}
+    t0 = time.perf_counter()
+    cpu_scores = anomaly.reconstruction_errors(CREDITCARD_AUTOENCODER,
+                                               params_cpu, x, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    score_err = check_close("creditcard scores", torch.from_numpy(card_scores),
+                            torch.from_numpy(cpu_scores), **CC_SCORE_TOL)
+    want = anomaly.evaluate_detector(None, None, x, labels, threshold=5.0,
+                                     scores=cpu_scores)
+    report = result["report"]
+    tol = ranking_tolerance(cpu_scores, labels, CC_SCORE_TOL["rtol"])
+    if abs(report["roc_auc"] - want.roc_auc) > tol["auc_tol"] or \
+            abs(report["avg_precision"] - want.avg_precision) > tol["ap_tol"] \
+            or report["n"] != CC_ROWS or not report["roc_auc"] > 0.9:
+        raise AssertionError(f"creditcard report {report} vs CPU "
+                             f"{want.as_dict()} (tolerance {tol})")
+    warm = _recording(anomaly, "reconstruction_errors")
+    with warm as again:
+        anomaly.reconstruction_errors(CREDITCARD_AUTOENCODER, params, x)
+    bound = fit_bound(S, B, F, CREDITCARD_AUTOENCODER.encoding_dim,
+                      CREDITCARD_AUTOENCODER.hidden_dim, epochs)
+    info = {"phase": "creditcard_path", "card": card, "records": CC_ROWS,
+            "trained_rows": history["records"][0], "shape": [S, B, F],
+            "epochs": epochs, "steps": epochs * S, "design": design,
+            "kernel_launches": 1, "kernel_launches_by_design": by_design,
+            "losses": losses, "seconds": seconds,
+            "csv_seconds": synth[0].seconds,
+            "produce_seconds": produced[0].seconds,
+            # the training pass of the batcher (poll, CSV decode, scaler,
+            # filter, batch), then transfer + kernel + the one sync
+            "batching_seconds": history["host_pipeline_s"],
+            "fit_seconds": fits[0].seconds,
+            "fit_device_seconds": history["device_compute_s"],
+            "kernel_ms": kernel_ms,
+            "us_per_step": 1e3 * min(kernel_ms) / (epochs * S),
+            "plain_ms_prefix": plain_prefix_ms, "prefix_steps": k,
+            "plain_ms_per_step": plain_prefix_ms / k,
+            "prefix_max_abs_err": prefix_err,
+            **{key: bound[key] for key in ("bound_ms", "bound_by",
+                                           "one_sm_bound_ms")},
+            # the second pass of the batcher and the evaluation
+            "eval_seconds": seconds - synth[0].seconds
+            - produced[0].seconds - fits[0].seconds,
+            "scoring_seconds": scored[0].seconds,
+            "report_seconds": evals[0].seconds,
+            "reconstruction_errors_rows_per_s": CC_ROWS / scored[0].seconds,
+            "reconstruction_errors_warm_rows_per_s":
+                CC_ROWS / again[0].seconds,
+            "cpu_recompute_seconds": cpu_s,
+            "score_max_abs_err": score_err,
+            "report": report, "cpu_auc": want.roc_auc,
+            "cpu_ap": want.avg_precision, "ranking_tolerance": tol}
+    emit(info)
+    return {"launches": 1, "launches_by_design": by_design,
+            "kernel_ms": min(kernel_ms), "plain_ms_per_step":
+                plain_prefix_ms / k, "steps": epochs * S,
+            "max_abs_err": prefix_err, "counts": counts, "shape": [S, B, F],
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+LSTM_MODEL = "lstm1"
+#: the LSTM CLI's take (15 batches of 64 windows) and predict slice
+LSTM_TRAIN_STEPS = 15 * 5
+LSTM_PAYLOADS = 3 * 64
+
+
+def _run_lstm(mode: str, root: str, device=None) -> dict:
+    argv = [f"emulator:{LIVE_RECORDS}", CLI_TOPIC, "0", "model-predictions",
+            mode, LSTM_MODEL, root]
+    out = io.StringIO()
+    with _recording(cli_app, "_broker_for") as brokers, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = lstm_cli.main(argv, device=device)
+        if device is None:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"lstm {mode} returned {rc}:\n{text}")
+    stats = [line for line in text.splitlines() if line.startswith("stats: ")]
+    return {"seconds": seconds, "broker": brokers[0].result,
+            "stats": json.loads(stats[-1][len("stats: "):])}
+
+
+def _restored(root: str, where: str) -> dict:
+    return CheckpointManager.load_dir(ArtifactStore(root).download_tree(
+        LSTM_MODEL, str(Path(root) / where)))
+
+
+def phase_lstm_path(card: str, root: str) -> dict:
+    """The LSTM CLI's train then predict on the card, held against the
+    same train on the CPU and a CPU recompute of the payloads."""
+    card_root, cpu_root = str(Path(root) / "lstm"), str(Path(root) / "lstm_cpu")
+    reset_fit_launches()
+    reset_launches()
+    train = _run_lstm("train", card_root)
+    predict = _run_lstm("predict", card_root)
+    counts = path_launches()
+    if any(counts.values()):
+        raise AssertionError(f"the LSTM path launched {counts}")
+    cpu_train = _run_lstm("train", cpu_root, device="cpu")
+    losses, cpu_losses = train["stats"]["loss"], cpu_train["stats"]["loss"]
+    if len(losses) != 5 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"lstm train did not converge: {losses}")
+    err = check_close("lstm losses", torch.tensor(losses),
+                      torch.tensor(cpu_losses), **METRIC_TOL)
+    card_ckpt = _restored(card_root, "check")
+    cpu_ckpt = _restored(cpu_root, "check")
+    if card_ckpt["step"] != LSTM_TRAIN_STEPS or \
+            card_ckpt["cursors"] != cpu_ckpt["cursors"]:
+        raise AssertionError(f"lstm checkpoint step {card_ckpt['step']}, "
+                             f"cursors {card_ckpt['cursors']} vs "
+                             f"{cpu_ckpt['cursors']}")
+    for key, v in card_ckpt["params"].items():
+        err = max(err, check_close(f"lstm params {key}", v,
+                                   cpu_ckpt["params"][key], **STATE_TOL))
+
+    broker = predict["broker"]
+    payloads = [m.value.decode() for m in broker.fetch(
+        "model-predictions", 0, 0, broker.end_offset("model-predictions", 0))]
+    fresh = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", CLI_TOPIC)
+    batches = SensorBatches(StreamConsumer(fresh, [f"{CLI_TOPIC}:0:0"]),
+                            batch_size=64, window=1, skip=15, take=3)
+    module = LSTMSpec().build("cpu")
+    module.load_state_dict(card_ckpt["params"])
+    with torch.no_grad():
+        want = np.concatenate([module(torch.from_numpy(b.x)).numpy()
+                               [:b.n_valid] for b in batches])
+    rows = np.array([p.replace("[", " ").replace("]", " ").split()
+                     for p in payloads], np.float64)
+    if len(payloads) != LSTM_PAYLOADS or rows.shape != (LSTM_PAYLOADS, 18) \
+            or not all(p.startswith("[[") for p in payloads) \
+            or not np.allclose(rows, want.reshape(len(want), -1),
+                               **CLI_TOL_ALL):
+        raise AssertionError(f"lstm predict: {len(payloads)} payloads, "
+                             f"shape {rows.shape}, vs a CPU recompute")
+    info = {"phase": "lstm_path", "card": card,
+            "losses": losses, "cpu_losses": cpu_losses,
+            "fit_max_abs_err": err, "steps": LSTM_TRAIN_STEPS,
+            "train_seconds": train["seconds"],
+            "fit_seconds": train["stats"]["fit_seconds"],
+            "fit_device_seconds": train["stats"]["device_compute_s"],
+            "ms_per_step": 1e3 * train["stats"]["device_compute_s"]
+            / LSTM_TRAIN_STEPS,
+            "cpu_fit_seconds": cpu_train["stats"]["fit_seconds"],
+            "predict_seconds": predict["seconds"],
+            "payloads": len(payloads),
+            "payload_max_abs_err": float(np.abs(
+                rows - want.reshape(len(want), -1)).max()),
+            "score_seconds": predict["stats"]["score_seconds"],
+            "kernel_launches": counts}
+    emit(info)
+    return {"counts": counts}
+
+
+MNIST_N = 60_000
+#: classifier steps held against a CPU run from the same init
+MNIST_CHECK_STEPS = 50
+
+
+def phase_mnist_path(card: str) -> dict:
+    """The MNIST ingestion smoke through ``mnist_smoke.run`` on the card
+    at MNIST's training-set size, and the classifier's first steps held
+    against the CPU."""
+    reset_fit_launches()
+    reset_launches()
+    out = io.StringIO()
+    with _recording(mnist_cli, "classifier_fit") as fits, \
+            _recording(mnist_cli, "produce_mnist") as produced, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        result = mnist_cli.run(["--n", str(MNIST_N)])  # the card
+        seconds = time.perf_counter() - t0
+    counts = path_launches()
+    if any(counts.values()):
+        raise AssertionError(f"the MNIST path launched {counts}")
+    if not result["ingestion_intact"] or not \
+            result["produced"] == result["streamed_records"] == MNIST_N:
+        raise AssertionError(f"mnist ingestion: {result}")
+    for path in ("streamed", "control"):
+        loss = result[path]["loss"]
+        if len(loss) != 2 or not all(math.isfinite(v) for v in loss) \
+                or not loss[-1] < loss[0]:
+            raise AssertionError(f"mnist {path} did not learn: {loss}")
+    images, labels = synth_mnist(MNIST_N)
+    n = MNIST_CHECK_STEPS * 32
+    x, y = images[:n].astype(np.float32), labels[:n]
+    card_fit = mnist_cli.classifier_fit(MNISTClassifier(), x, y, 32, 1)
+    cpu_fit = mnist_cli.classifier_fit(MNISTClassifier(device="cpu"), x, y,
+                                       32, 1)
+    err = max(check_close("mnist loss", torch.tensor(card_fit["loss"]),
+                          torch.tensor(cpu_fit["loss"]), rtol=1e-4, atol=0.0),
+              check_close("mnist accuracy", torch.tensor(card_fit["accuracy"]),
+                          torch.tensor(cpu_fit["accuracy"]), rtol=1e-4,
+                          atol=0.0))
+    for key, v in card_fit["params"].items():
+        err = max(err, check_close(f"mnist params {key}", v,
+                                   cpu_fit["params"][key], **STATE_TOL))
+    steps = 2 * (MNIST_N // 32)
+    info = {"phase": "mnist_path", "card": card, "n": MNIST_N,
+            "ingestion_intact": True, "streamed": result["streamed"],
+            "control": result["control"], "seconds": seconds,
+            "produce_seconds": produced[0].seconds,
+            "fit_seconds": {"streamed": fits[0].seconds,
+                            "control": fits[1].seconds},
+            "ms_per_step": {"streamed": 1e3 * fits[0].seconds / steps,
+                            "control": 1e3 * fits[1].seconds / steps},
+            "ingest_seconds": seconds - fits[0].seconds
+            - fits[1].seconds,
+            "check_steps": MNIST_CHECK_STEPS, "check_max_abs_err": err,
+            "kernel_launches": counts}
+    emit(info)
+    return {"counts": counts}
 
 
 def fit_bound(S: int, B: int, F: int, E: int, H: int, epochs: int) -> dict:
@@ -2047,6 +2425,18 @@ def phase_attention_kernel() -> dict:
 def reset_launches() -> None:
     for key in flash_attention.launches:
         flash_attention.launches[key] = 0
+
+
+def reset_fit_launches() -> None:
+    fused_train.fused_fit.launches = 0
+    fused_train.fused_fit.launches_by_design = dict.fromkeys(
+        fused_train.DESIGNS, 0)
+
+
+def path_launches() -> dict:
+    """Every kernel's launch count, as the wrappers count them."""
+    return {"fused_fit": fused_train.fused_fit.launches,
+            **flash_attention.launches}
 
 
 def expected_launches(**counts) -> dict:
@@ -2628,6 +3018,9 @@ def main() -> int:
         serve_info = phase_serve_path(card, root)
         wire_info = phase_wire_path(card, root, cli_info)
         live_info = phase_live_path(card, root)
+        cc_info = phase_creditcard_path(card)
+        lstm_info = phase_lstm_path(card, root)
+        mnist_info = phase_mnist_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -2644,6 +3037,12 @@ def main() -> int:
              "long_context": {key: sum(p[key] for p in long_paths)
                               for key in flash_attention.launches},
              "serve_path": {key: serve_info["launches"][key]
+                            for key in flash_attention.launches},
+             "creditcard_path": {key: cc_info["counts"][key]
+                                 for key in flash_attention.launches},
+             "lstm_path": {key: lstm_info["counts"][key]
+                           for key in flash_attention.launches},
+             "mnist_path": {key: mnist_info["counts"][key]
                             for key in flash_attention.launches}}
     design = timing["design"]
     emit({"kernels": [{
@@ -2652,26 +3051,39 @@ def main() -> int:
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
         "launches": main_info["launches"] + cli_info["launches"]
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
-        + live_info["launches"],
+        + live_info["launches"] + cc_info["launches"]
+        + lstm_info["counts"]["fused_fit"]
+        + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
                              "cli_path": cli_info["launches"],
                              "serve_path":
                                  serve_info["launches"]["fused_fit"],
                              "wire_path": wire_info["launches"],
-                             "live_path": live_info["launches"]},
+                             "live_path": live_info["launches"],
+                             "creditcard_path": cc_info["launches"],
+                             "lstm_path": lstm_info["counts"]["fused_fit"],
+                             "mnist_path":
+                                 mnist_info["counts"]["fused_fit"]},
         "launches_by_design": {
             d: main_info["launches_by_design"][d]
             + cli_info["launches_by_design"][d]
             + wire_info["launches_by_design"][d]
             + live_info["launches_by_design"][d]
+            + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
-                           *timing["batch_256"]["max_abs_err"].values()),
+                           *timing["batch_256"]["max_abs_err"].values(),
+                           cc_info["max_abs_err"]),
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": None, "step_loop_ms": timing["step_loop_ms"]},
+        "library_ms": None, "step_loop_ms": timing["step_loop_ms"],
+        "creditcard": {"design": "rows", "shape": cc_info["shape"],
+                       "steps": cc_info["steps"], "ms": cc_info["kernel_ms"],
+                       "plain_ms_per_step": cc_info["plain_ms_per_step"],
+                       "bound_ms": cc_info["bound_ms"],
+                       "bound_by": cc_info["bound_by"]}},
         attention_entry("flash_fwd_causal", "iotml/ops/attention.py:215",
                         "causal", paths, attn_err, attn_timing),
         attention_entry("flash_fwd_full", "iotml/ops/attention.py:149",

@@ -1,1 +1,2 @@
-"""Reference-contract CLIs (``iotml.cli``): ``cardata`` so far."""
+"""Reference-contract CLIs (``iotml.cli``): ``cardata``, ``serve``,
+``live``, ``creditcard``, ``lstm`` and ``mnist_smoke``."""

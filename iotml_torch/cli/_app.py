@@ -1,11 +1,13 @@
 """Shared scaffolding for the reference-contract streaming CLIs
 (``iotml.cli._app``'s twin).
 
-The reference ML app (``cardata-v3.py``) is a program with positional
-args, a train mode that fits on a stream slice and uploads the
-checkpoint, and a predict mode that restores it and writes ordered
-predictions back.  ``run_streaming_app`` is that program once;
-``cli.cardata`` supplies the model and knobs.  ``--train.*`` flags and
+Both reference ML apps (``cardata-v3.py``, LSTM ``cardata-v2.py``) are
+the same program with a different model: positional args, a train mode
+that fits on a stream slice and uploads the checkpoint, and a predict
+mode that restores it and writes ordered predictions back.
+``run_streaming_app`` is that program once; ``cli.cardata`` and
+``cli.lstm`` supply the model and knobs (the LSTM's: supervised, over
+windows of the stream).  ``--train.*`` flags and
 ``IOTML_TRAIN_*`` env vars override the train knobs (``config``).
 
 ``<servers>`` is ``emulator[:n_records]``, an in-process broker seeded
@@ -15,8 +17,9 @@ spoken to over the wire protocol, with the SASL/PLAIN credentials of the
 ``broker`` config section (``IOTML_BROKER_SASL_USERNAME`` /
 ``IOTML_BROKER_SASL_PASSWORD``, as the deploy manifests set them).  The
 parts the port does not have yet raise NotImplementedError naming their
-ROADMAP item: ``.h5`` model files (Keras interop), a multi-device mesh
-and a multi-host job.
+ROADMAP item: ``.h5`` model files for the autoencoder (Keras interop), a
+multi-device mesh and a multi-host job.  An app without h5 interop (the
+LSTM) refuses an ``.h5`` name with the JAX CLI's message and exit 1.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import shutil
 import sys
 import tempfile
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from ..config import Config, load_config
 from ..data.dataset import SensorBatches
@@ -110,13 +113,19 @@ def _stats_delta(before: dict, *keys: str) -> dict:
 def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
                       group: str, epochs: int, batch_size: int,
                       take_batches: int, predict_skip: int,
-                      predict_take: int, device: DeviceLike = None) -> int:
+                      predict_take: int, supervised: bool = False,
+                      window: Optional[int] = None,
+                      h5_interop: bool = False,
+                      device: DeviceLike = None) -> int:
     """Run one train or predict job; returns the process exit code (1 on
-    an argument error).  ``device`` is where the model runs (``cuda``
-    unless given).  Each mode ends with a ``stats: {...}`` JSON line:
-    losses and fit seconds (train), rows and scoring seconds (predict),
-    and the rows and seconds of the native engine's decode and format
-    calls."""
+    an argument error).  ``supervised`` and ``window`` are the LSTM's:
+    fit ``model(x)`` to the next row, over [B, window, F] windows.
+    ``h5_interop`` says whether the JAX app takes ``.h5`` model files (the
+    autoencoder's: not ported yet, it raises; the LSTM's: exit 1).
+    ``device`` is where the model runs (``cuda`` unless given).  Each
+    mode ends with a ``stats: {...}`` JSON line: losses and fit seconds
+    (train), rows and scoring seconds (predict), and the rows and seconds
+    of the native engine's decode and format calls."""
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
         cfg, argv = load_config(argv)
@@ -131,6 +140,13 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
     mode = mode.strip().lower()
     if mode not in ("train", "predict"):
         print(f"Mode is invalid, must be either 'train' or 'predict': {mode}")
+        return 1
+    if model_file.endswith(".h5") and not h5_interop:
+        # fail BEFORE training, not after: the Keras-h5 exporter maps the
+        # 4-Dense autoencoder stack only
+        print(f"{prog}: '.h5' model files (Keras interop) are supported "
+              f"for the autoencoder CLI only; use a plain name for an "
+              f"orbax checkpoint")
         return 1
     if model_file.endswith(".h5"):
         # refused BEFORE training, so no training run ends in a failed
@@ -178,10 +194,11 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
 
         if mode == "train":
             trainer = Trainer(model, learning_rate=cfg.train.learning_rate,
-                              device=device)
+                              supervised=supervised, device=device)
             batches = SensorBatches(consumer, batch_size=batch_size,
-                                    take=take_batches,
-                                    only_normal=cfg.train.only_normal)
+                                    take=take_batches, window=window,
+                                    only_normal=not supervised
+                                    and cfg.train.only_normal)
             history = trainer.fit_compiled(batches, epochs=epochs)
             if not history["loss"]:
                 print(f"No records on {topic} from offset {offset}; nothing "
@@ -220,7 +237,8 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
             shutil.rmtree(restore_dir, ignore_errors=True)
         print("Loading model")
         batches = SensorBatches(consumer, batch_size=batch_size,
-                                skip=predict_skip, take=predict_take)
+                                window=window, skip=predict_skip,
+                                take=predict_take)
         out = OutputSequence(broker, result_topic, partition=0)
         scorer = StreamScorer(model, payload["params"], batches, out,
                               device=device)

@@ -42,7 +42,7 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         argv, prog="cardata", usage=USAGE, make_model=lambda: CAR_AUTOENCODER,
         group="cardata-autoencoder", epochs=NB_EPOCH, batch_size=BATCH_SIZE,
         take_batches=TAKE_BATCHES, predict_skip=PREDICT_SKIP,
-        predict_take=TAKE_BATCHES, device=device)
+        predict_take=TAKE_BATCHES, h5_interop=True, device=device)
 
 
 if __name__ == "__main__":

@@ -23,8 +23,9 @@ write-back — over either of two sources:
 
 ``keep_keys`` puts each record's message key (the car id) on
 ``Batch.keys``, cut at ``native.KEY_STRIDE - 1`` bytes on either leg.
-The windowed (LSTM) path, the columnar frame-decoder ring and the canary
-filter are not ported.
+``window=T`` emits [B, T, F] sliding windows with next-step targets (the
+LSTM path).  The columnar frame-decoder ring and the canary filter are
+not ported.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import dataclasses
 from typing import Iterator, Optional
 
 import numpy as np
+from numpy.lib.stride_tricks import sliding_window_view
 
 from ..core.normalize import CAR_NORMALIZER, Normalizer
 from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
@@ -58,7 +60,7 @@ class Batch:
     n_valid: int
     first_index: int
     labels: Optional[np.ndarray] = None  # object array of strings, if kept
-    y: Optional[np.ndarray] = None  # supervised target
+    y: Optional[np.ndarray] = None  # supervised target (windowed path)
     keys: Optional[np.ndarray] = None  # [B] S-bytes message keys, if kept
 
     @property
@@ -132,6 +134,10 @@ class SensorBatches:
       keep_labels: carry each row's label on ``Batch.labels``.
       keep_keys: carry each row's message key on ``Batch.keys`` (a
         consumer's stream only).
+      window: if set, emit [B, window, F] sliding windows with next-step
+        targets y [B, 1, F] (the LSTM path: window(look_back, shift=1)
+        zipped with skip(look_back), reference LSTM cardata-v1.py:184-190);
+        skip and take then count batches of windows.
       cache: decode once and replay batches from host memory on later
         epochs (identical over an immutable slice).
       schema: the Avro record schema of a consumer's messages.
@@ -147,6 +153,7 @@ class SensorBatches:
                  take: Optional[int] = None,
                  skip: int = 0,
                  only_normal: bool = False,
+                 window: Optional[int] = None,
                  pad_tail: bool = True,
                  keep_labels: bool = False,
                  keep_keys: bool = False,
@@ -157,6 +164,7 @@ class SensorBatches:
         self.take = take
         self.skip = skip
         self.only_normal = only_normal
+        self.window = window
         self.pad_tail = pad_tail
         self.keep_labels = keep_labels
         self.keep_keys = keep_keys
@@ -278,6 +286,9 @@ class SensorBatches:
                 yield xs, labels, keys
 
     def __iter__(self) -> Iterator[Batch]:
+        if self.window:
+            yield from self._windowed_iter()
+            return
         B = self.batch_size
         parts: list = []  # pending (xs, labels, keys) chunks
         have = 0
@@ -354,6 +365,90 @@ class SensorBatches:
                     (not self.take or emitted < self.take):
                 xs, labels, keys = assemble()
                 b = emit(xs, labels, keys, 0)
+                b.first_index = index
+                yield b
+        finally:
+            self._need_rows = None
+
+    def _windowed_iter(self) -> Iterator[Batch]:
+        """Sliding windows x=[B,T,F] with next-step targets y=[B,1,F]: the
+        window starting at row i is paired with row i+T.  Windows come
+        from a strided view of each chunk, transposed to [n, T, F] in one
+        copy; the last T rows carry across chunk joints."""
+        T = self.window
+        B = self.batch_size
+        carry = None          # last T rows: windows spanning chunk joints
+        pend_x: list = []     # [n, T, F] window chunks awaiting batching
+        pend_y: list = []     # [n, 1, F]
+        have = 0
+        emitted = 0
+        index = 0
+
+        def emit(wx, wy, lo):
+            n_valid = min(B, len(wx) - lo)
+            x = np.zeros((B, T, wx.shape[2]), np.float32)
+            y = np.zeros((B, 1, wx.shape[2]), np.float32)
+            x[:n_valid] = wx[lo:lo + n_valid]
+            y[:n_valid] = wy[lo:lo + n_valid]
+            return Batch(x, n_valid, 0, y=y)
+
+        chunks = self._filtered_chunks()
+        try:
+            while True:
+                if self.take:
+                    needed = (self.take - emitted
+                              + max(self.skip - self._skipped, 0))
+                    # rows already carried count toward the T rows of
+                    # lookahead a window needs
+                    covered = 0 if carry is None else len(carry)
+                    self._need_rows = needed * B - have + max(T - covered,
+                                                              0)
+                try:
+                    xs, _labels, _keys = next(chunks)
+                except StopIteration:
+                    break
+                buf = xs.astype(np.float32, copy=False)
+                if carry is not None and len(carry):
+                    buf = np.concatenate([carry, buf])
+                n_w = len(buf) - T  # windows with a next-step target
+                if n_w <= 0:
+                    carry = buf
+                    continue
+                wins = np.ascontiguousarray(
+                    sliding_window_view(buf, T, axis=0)[:n_w]
+                    .transpose(0, 2, 1))
+                ys = buf[T: T + n_w][:, None, :]
+                carry = buf[n_w:]
+                pend_x.append(wins)
+                pend_y.append(ys)
+                have += n_w
+                if have < B:
+                    continue
+                wx = np.concatenate(pend_x) if len(pend_x) > 1 else pend_x[0]
+                wy = np.concatenate(pend_y) if len(pend_y) > 1 else pend_y[0]
+                pend_x, pend_y = [], []
+                have = 0
+                lo = 0
+                while len(wx) - lo >= B:
+                    if self._skipped < self.skip:
+                        self._skipped += 1
+                    else:
+                        b = emit(wx, wy, lo)
+                        b.first_index = index
+                        yield b
+                        emitted += 1
+                        index += B
+                        if self.take and emitted >= self.take:
+                            return
+                    lo += B
+                if lo < len(wx):
+                    pend_x, pend_y = [wx[lo:]], [wy[lo:]]
+                    have = len(wx) - lo
+            if have and self.pad_tail and self._skipped >= self.skip and \
+                    (not self.take or emitted < self.take):
+                wx = np.concatenate(pend_x) if len(pend_x) > 1 else pend_x[0]
+                wy = np.concatenate(pend_y) if len(pend_y) > 1 else pend_y[0]
+                b = emit(wx, wy, 0)
                 b.first_index = index
                 yield b
         finally:

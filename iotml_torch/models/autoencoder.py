@@ -21,7 +21,6 @@ it on a device.  Submodule names match the flax param tree
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import torch
@@ -29,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.device import DeviceLike, resolve_device
+from . import initializers as init
 
 #: layer names in forward order (the flax param-tree keys)
 LAYERS = ("encoder0", "encoder1", "decoder0", "decoder1")
@@ -69,13 +69,9 @@ class DenseAutoencoder(nn.Module):
                 (spec.hidden_dim, spec.hidden_dim),
                 (spec.hidden_dim, spec.input_dim))
         for name, (fan_in, fan_out) in zip(LAYERS, dims):
-            layer = nn.Linear(fan_in, fan_out, device="meta")
-            limit = math.sqrt(6.0 / (fan_in + fan_out))
-            w = torch.empty(fan_out, fan_in).uniform_(-limit, limit,
-                                                      generator=gen)
-            layer.weight = nn.Parameter(w.to(device))
-            layer.bias = nn.Parameter(torch.zeros(fan_out, device=device))
-            setattr(self, name, layer)
+            setattr(self, name, init.linear(
+                fan_in, fan_out, init.glorot_uniform(fan_out, fan_in, gen),
+                bias=True, device=device))
 
     def forward(self, x: torch.Tensor, with_penalty: bool = False):
         h = torch.tanh(self.encoder0(x))

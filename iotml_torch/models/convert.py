@@ -13,6 +13,13 @@ the port's ``weight``; ``attn.qkv`` is ``DenseGeneral((3, H, D))`` with
 kernel [d, 3, H, D] and bias [3, H, D] (``nn.Linear(d, 3HD)``, weight =
 ``kernel.reshape(d, 3HD).T``); ``attn.out`` is ``DenseGeneral(d,
 axis=(-2, -1))`` with kernel [H, D, d] (``nn.Linear(HD, d)``).
+
+A flax ``LSTMSeq2Seq`` tree (flax 0.12) holds its four cells in creation
+order as ``OptimizedLSTMCell_0`` … ``_3`` (enc0, enc1, dec0, dec1), each
+``{ii, if, ig, io: {kernel [in, u]}, hi, hf, hg, ho: {kernel [u, u],
+bias [u]}}``, and ``head: {kernel [32, F], bias [F]}``; a tree keyed
+``enc0`` … ``dec1`` (``{name: {"cell": ...}}``) reads the same.  The MNIST
+models are ``Dense_0`` and ``Dense_1``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from ..train.optim import AdamState
 from .autoencoder import LAYERS
+from .lstm import GATES
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -155,3 +163,80 @@ def sensorformer_adam_to_optax(state: AdamState, num_heads: int
     return (np.asarray(state.count, np.int32),
             sensorformer_params_to_jax(state.mu, num_heads),
             sensorformer_params_to_jax(state.nu, num_heads))
+
+
+#: the LSTM's cells in flax's creation order
+LSTM_CELLS = ("enc0", "enc1", "dec0", "dec1")
+
+
+def _lstm_cell_tree(tree, i: int, name: str) -> dict:
+    if name in tree:
+        return tree[name]["cell"]
+    return tree[f"OptimizedLSTMCell_{i}"]
+
+
+def lstm_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax ``LSTMSeq2Seq`` param tree (numpy leaves) → state_dict of CPU
+    float32 tensors for ``iotml_torch.models.lstm.LSTMSeq2Seq``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, name in enumerate(LSTM_CELLS):
+        cell = _lstm_cell_tree(tree, i, name)
+        for g in GATES:
+            out[f"{name}.i{g}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(_f32(cell[f"i{g}"]["kernel"]).T))
+            _dense_from_jax(out, f"{name}.h{g}", cell[f"h{g}"])
+    _dense_from_jax(out, "head", tree["head"])
+    return out
+
+
+def lstm_params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """LSTM state_dict (any device) → flax param tree of numpy float32
+    arrays, in the layout flax 0.12 builds (``OptimizedLSTMCell_i``)."""
+    def kernel(name):
+        return np.ascontiguousarray(_host(state[f"{name}.weight"]).T)
+
+    tree = {"head": {"kernel": kernel("head"),
+                     "bias": _host(state["head.bias"]).copy()}}
+    for i, name in enumerate(LSTM_CELLS):
+        cell = {}
+        for g in GATES:
+            cell[f"i{g}"] = {"kernel": kernel(f"{name}.i{g}")}
+            cell[f"h{g}"] = {"kernel": kernel(f"{name}.h{g}"),
+                             "bias": _host(state[f"{name}.h{g}.bias"]).copy()}
+        tree[f"OptimizedLSTMCell_{i}"] = cell
+    return tree
+
+
+def lstm_adam_from_optax(count, mu, nu) -> AdamState:
+    """optax ``ScaleByAdamState`` fields over a flax ``LSTMSeq2Seq`` param
+    tree → the port's ``AdamState``."""
+    return AdamState(count=int(np.asarray(count)),
+                     mu=lstm_params_from_jax(mu), nu=lstm_params_from_jax(nu))
+
+
+def lstm_adam_to_optax(state: AdamState) -> Tuple[np.ndarray, dict, dict]:
+    """The port's LSTM ``AdamState`` → (int32 count, mu tree, nu tree)."""
+    return (np.asarray(state.count, np.int32),
+            lstm_params_to_jax(state.mu), lstm_params_to_jax(state.nu))
+
+
+#: the MNIST models' layers (flax's auto names)
+MNIST_LAYERS = ("Dense_0", "Dense_1")
+
+
+def mnist_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax ``MNISTClassifier`` / ``MNISTBaseline`` tree → state_dict of
+    CPU float32 tensors."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in MNIST_LAYERS:
+        _dense_from_jax(out, name, tree[name])
+    return out
+
+
+def mnist_params_to_jax(state: Dict[str, torch.Tensor]) -> dict:
+    """MNIST state_dict (any device) → flax param tree of numpy float32
+    arrays."""
+    return {name: {"kernel": np.ascontiguousarray(
+                       _host(state[f"{name}.weight"]).T),
+                   "bias": _host(state[f"{name}.bias"]).copy()}
+            for name in MNIST_LAYERS}

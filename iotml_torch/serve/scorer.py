@@ -6,7 +6,11 @@ prediction back through the ordered ``OutputSequence``.  Each payload is
 ``np.array2string`` of the output row, like the reference's callback,
 formatted a super-batch at a time by the native engine
 (``fastfmt.format_rows``, byte-identical); with a threshold set,
-``|anomaly|err`` or ``|normal|err`` follows.
+``|anomaly|err`` or ``|normal|err`` follows.  Windowed batches (the
+LSTM's [B, T, F] rows) are scored the same way: the error is the mean
+over every non-batch axis of (prediction − input window)², as the JAX
+package computes it, and each [look_back, F] payload is
+``np.array2string`` of that block.
 
 The scoring contract is kept: super-batches, suspend and resume under
 ``max_rows``, threshold verdicts, live quality counts, per-label error
@@ -59,19 +63,21 @@ def hist_auc(anom: np.ndarray, normal: np.ndarray) -> Optional[float]:
 
 def row_errors(preds: np.ndarray, xs: np.ndarray,
                verdict_mask: Optional[np.ndarray] = None) -> np.ndarray:
-    """Per-row reconstruction MSE of [S, B, F] predictions, over the
-    ``verdict_mask`` features when given."""
+    """Per-row error of [S, B, ...] predictions against their inputs:
+    the mean of squares over every non-batch axis, over the
+    ``verdict_mask`` features when given ([S, B, F] rows only)."""
     sq = np.square(preds - xs)
-    if verdict_mask is not None:
+    if verdict_mask is not None and sq.ndim == 3:
         return sq[:, :, verdict_mask].mean(axis=2)
-    return sq.mean(axis=2)
+    return sq.mean(axis=tuple(range(2, sq.ndim)))
 
 
 class StreamScorer:
     """Score a batch stream; write ordered predictions back.
 
     Args:
-      model/params: ``AutoencoderSpec`` + a state_dict (tensors or numpy).
+      model/params: ``AutoencoderSpec`` (or ``LSTMSpec``, over windowed
+        batches) + a state_dict (tensors or numpy).
       batches: SensorBatches over the input rows (only_normal=False: the
         predict path scores everything).
       out: OutputSequence for the predictions.
@@ -185,30 +191,36 @@ class StreamScorer:
         return self.scored - start
 
     def _score_super_batch(self, bs, base: int) -> None:
-        xs = np.stack([b.x for b in bs])  # [S, B, F]
-        S, B, F = xs.shape
+        xs = np.stack([b.x for b in bs])  # [S, B, F] (or [S, B, T, F])
+        S, B = xs.shape[:2]
+        row_shape = xs.shape[2:]
         # pad the batch count to a power of two: drains vary in size, and
         # a few fixed shapes keep the forward's launch configs reusable
         S_pad = 1 << max(0, (S - 1).bit_length())
         xs_in = xs if S_pad == S else np.concatenate(
-            [xs, np.zeros((S_pad - S, B, F), xs.dtype)])
+            [xs, np.zeros((S_pad - S, B) + row_shape, xs.dtype)])
         t0 = time.perf_counter()
         with torch.no_grad():
-            x_dev = torch.from_numpy(xs_in.reshape(S_pad * B, F)).to(
-                self.device)
+            x_dev = torch.from_numpy(
+                xs_in.reshape((S_pad * B,) + row_shape)).to(self.device)
             preds = self.model(x_dev).cpu().numpy()
         seconds = time.perf_counter() - t0
         self.seconds["device_compute"] += seconds
         if self.first_forward_s is None:
             self.first_forward_s = seconds
-        preds = preds.reshape(S_pad, B, F)[:S]
+        preds = preds.reshape((S_pad, B) + preds.shape[1:])[:S]
         errs = row_errors(preds, xs, self.verdict_mask)  # [S, B]
         # per-feature errors and values for the detector's feature heads
-        heads = self.carhealth is not None and self.carhealth.feature_heads
+        # ([S, B, F] rows only: a window has no single per-feature value)
+        heads = self.carhealth is not None and \
+            self.carhealth.feature_heads and xs.ndim == 3
         sq = np.square(preds - xs) if heads else None
-        # one formatting call over every valid row of the super-batch
-        msgs = iter(format_rows(np.concatenate(
-            [preds[k, : b.n_valid] for k, b in enumerate(bs)])))
+        # one formatting call over every valid row of the super-batch;
+        # windowed rows are [look_back, F] blocks, which numpy formats
+        valid = np.concatenate([preds[k, : b.n_valid]
+                                for k, b in enumerate(bs)])
+        msgs = iter(format_rows(valid) if valid.ndim == 2
+                    else [format_prediction(r) for r in valid])
         for k, b in enumerate(bs):
             err = errs[k]
             if self.threshold is not None and b.labels is not None \

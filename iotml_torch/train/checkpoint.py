@@ -6,7 +6,8 @@ the step count and the ``(topic, partition, next_offset)`` cursors from
 ``StreamConsumer.positions()``, so a restarted job resumes both model
 and stream.  The JAX package writes an orbax pytree; the port writes
 ``step_<n>/arrays.npz`` (float32 arrays under ``params/``, ``mu/`` and
-``nu/`` + the state_dict key) and ``step_<n>/manifest.json`` (step,
+``nu/`` + the state_dict key, the autoencoder's or the LSTM's dotted
+names alike) and ``step_<n>/manifest.json`` (step,
 Adam count, cursors), which numpy and the standard library read.
 
 Crash safety: a save stages into a hidden ``.tmp_step_<n>`` directory,

@@ -12,7 +12,11 @@ Here:
 - ``Trainer.fit`` is the Keras-shaped per-step loop; ``fit_compiled``
   stacks the slice once, moves it to the device once, and runs every
   epoch × batch either in the fused kernel (``ops.fused_train``) or in
-  the autograd step loop over device-resident batches.
+  the autograd step loop over device-resident batches;
+- ``supervised=True`` (the LSTM) fits ``model(x)`` to the batches' ``y``
+  with no activity penalty; the fused kernel is the autoencoder's alone,
+  so such a fit always takes the step loop, as the JAX package's takes
+  its scanned fit.
 """
 
 from __future__ import annotations
@@ -24,7 +28,6 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.autoencoder import AutoencoderSpec, DenseAutoencoder
 from ..ops import fused_train
 from ..utils.device import DeviceLike, resolve_device
 from .optim import Adam, AdamState
@@ -39,7 +42,7 @@ class TrainState:
     opt_state: AdamState
 
     @classmethod
-    def create(cls, model: DenseAutoencoder, tx) -> "TrainState":
+    def create(cls, model: torch.nn.Module, tx) -> "TrainState":
         """Start from the module's current weights (copied)."""
         params = {k: v.detach().clone() for k, v in model.state_dict().items()}
         return cls(step=0, params=params, opt_state=tx.init(params))
@@ -61,7 +64,7 @@ def _keras_accuracy(pred, target, mask):
                                            1.0)
 
 
-def make_loss_fn(model: DenseAutoencoder, supervised: bool = False):
+def make_loss_fn(model: torch.nn.Module, supervised: bool = False):
     """Loss closure.  Autoencoder mode targets the input itself;
     supervised mode uses (x, y)."""
 
@@ -79,7 +82,7 @@ def make_loss_fn(model: DenseAutoencoder, supervised: bool = False):
     return loss_fn
 
 
-def make_raw_train_step(model: DenseAutoencoder, tx,
+def make_raw_train_step(model: torch.nn.Module, tx,
                         supervised: bool = False) -> Callable:
     """One autograd step: (state, x, y, mask) → (state, metrics).
     Metrics stay on the device (no host sync)."""
@@ -102,7 +105,7 @@ def make_raw_train_step(model: DenseAutoencoder, tx,
     return step
 
 
-def make_scanned_fit(model: DenseAutoencoder, tx, supervised: bool = False):
+def make_scanned_fit(model: torch.nn.Module, tx, supervised: bool = False):
     """The whole fit as the autograd step loop over device-resident
     batches: epochs (outer) × batches (inner), per-epoch mean loss and
     accuracy left on the device — ``make_scanned_fit``'s counterpart."""
@@ -123,8 +126,10 @@ def make_scanned_fit(model: DenseAutoencoder, tx, supervised: bool = False):
     return fit
 
 
-def make_eval_step(model: DenseAutoencoder) -> Callable:
-    """(params, x) → model output, without autograd."""
+def make_eval_step(model: torch.nn.Module, supervised: bool = False
+                   ) -> Callable:
+    """(params, x) → model output, without autograd (the same in both
+    modes)."""
 
     def step(params, x):
         with torch.no_grad():
@@ -136,12 +141,12 @@ def make_eval_step(model: DenseAutoencoder) -> Callable:
 class Trainer:
     """model.fit for streams: epochs × batches with history, like Keras.
 
-    ``model`` is an ``AutoencoderSpec``; the module is built on
-    ``device`` (``cuda`` unless given) with weights from a CPU generator
-    seeded with ``seed``.
+    ``model`` is an ``AutoencoderSpec`` or an ``LSTMSpec``; the module is
+    built on ``device`` (``cuda`` unless given) with weights from a CPU
+    generator seeded with ``seed``.
     """
 
-    def __init__(self, model: AutoencoderSpec, seed: int = 0,
+    def __init__(self, model, seed: int = 0,
                  learning_rate: float = 1e-3, supervised: bool = False,
                  tx=None, device: DeviceLike = None):
         self.device = resolve_device(device)
@@ -270,7 +275,7 @@ class Trainer:
     def predict(self, batches, callbacks=(), params=None):
         """Batched inference; calls callbacks with (batch, outputs) for
         ordered write-back.  ``params`` overrides the trained state."""
-        ev = make_eval_step(self.model)
+        ev = make_eval_step(self.model, self.supervised)
         params = params if params is not None else self.state.params
         outs = []
         for b in batches:

@@ -2,8 +2,9 @@
 through ``iotml_torch.cli.cardata.main``, and the long-lived scorer
 ``iotml_torch.cli.serve.main`` on the card, as a user runs them, on
 ``emulator`` and over the port's Kafka wire server (``host:port`` with
-SASL/PLAIN, as the deploy manifests run them), and the live train and
-score services (``iotml_torch.cli.live``) as two processes.
+SASL/PLAIN, as the deploy manifests run them), the live train and
+score services (``iotml_torch.cli.live``) as two processes, and the
+creditcard job, the LSTM CLI and the MNIST smoke against their CPU runs.
 Every test is marked ``cuda`` and skips without a card.
 
 The machine with the card has no JAX, so this file imports only torch,
@@ -16,6 +17,8 @@ CPU run (float32 forwards whose sums run in another order on each
 device); counts, offsets and return codes equal.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -235,3 +238,102 @@ def test_live_services_as_two_processes_on_the_card(cuda_device, tmp_path):
     assert drains[-1]["scored"] == 10_000
     assert drains[-1]["model_updates"] >= 1
     assert backing.end_offset("model-predictions", 0) == 10_000
+
+
+@pytest.mark.cuda
+def test_creditcard_job_on_the_card(cuda_device, monkeypatch):
+    """The creditcard job on the card: one fit launch through the rows
+    design at (30, 14, 7), B = 32; its params within the fit bounds
+    (rtol 5e-3 / atol 2e-5) and final loss within rtol 2e-4 / atol 1e-6
+    of the same job on the CPU; AUC > 0.9 on both, within 1e-3 of each
+    other (scores from params a fit bound apart)."""
+    from iotml_torch.cli import creditcard
+
+    trainers = []
+
+    class Recorded(creditcard.Trainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            trainers.append(self)
+
+    monkeypatch.setattr(creditcard, "Trainer", Recorded)
+    fused_train.fused_fit.launches = 0
+    fused_train.fused_fit.launches_by_design = dict.fromkeys(
+        fused_train.DESIGNS, 0)
+    card = creditcard.run(["synth:3000"])
+    assert fused_train.fused_fit.launches == 1
+    assert fused_train.fused_fit.launches_by_design["rows"] == 1
+    cpu = creditcard.run(["synth:3000"], device="cpu")
+    np.testing.assert_allclose(card["final_loss"], cpu["final_loss"],
+                               rtol=2e-4, atol=1e-6)
+    for k, v in trainers[0].state.params.items():
+        np.testing.assert_allclose(v.cpu().numpy(),
+                                   trainers[1].state.params[k].numpy(),
+                                   rtol=5e-3, atol=2e-5, err_msg=k)
+    assert card["report"]["n"] == cpu["report"]["n"] == 3000
+    assert card["report"]["roc_auc"] > 0.9
+    assert abs(card["report"]["roc_auc"] - cpu["report"]["roc_auc"]) < 1e-3
+
+
+@pytest.mark.cuda
+def test_lstm_cli_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """The LSTM CLI trains on the card (no kernel launch) within the fit
+    bounds of the CPU's train, and the card's predict from the CPU's
+    checkpoint writes the CPU predict's payloads (atol 1e-6)."""
+    from iotml_torch.cli import lstm
+
+    fused_train.fused_fit.launches = 0
+    roots = {d: str(tmp_path / d) for d in ("cuda", "cpu")}
+    losses = {}
+    for d, root in roots.items():
+        kw = {} if d == "cuda" else {"device": "cpu"}
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, _ = _run_main(monkeypatch, lstm.main,
+                              ["emulator:4000", *ARGS, "train", "l1", root],
+                              **kw)
+        assert rc == 0
+        stats = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("stats: ")]
+        losses[d] = json.loads(stats[-1][len("stats: "):])["loss"]
+    assert fused_train.fused_fit.launches == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=2e-4,
+                               atol=1e-6)
+    payloads = {}
+    for d in ("cuda", "cpu"):
+        kw = {} if d == "cuda" else {"device": "cpu"}
+        rc, broker = _run_main(monkeypatch, lstm.main,
+                               ["emulator:4000", *ARGS, "predict", "l1",
+                                roots["cpu"]], **kw)
+        assert rc == 0
+        payloads[d] = [np.array(m.value.decode().replace("[", " ")
+                                .replace("]", " ").split(), float)
+                       for m in broker.fetch("model-predictions", 0, 0,
+                                             1 << 20)]
+    assert len(payloads["cuda"]) == len(payloads["cpu"]) == 192
+    for g, w in zip(payloads["cuda"], payloads["cpu"]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6)
+
+
+def _run_main(monkeypatch, main, argv, **kw):
+    brokers = []
+    real = _app._broker_for
+    monkeypatch.setattr(_app, "_broker_for",
+                        lambda *a: brokers.append(real(*a)) or brokers[-1])
+    return main(argv, **kw), brokers[0]
+
+
+@pytest.mark.cuda
+def test_mnist_smoke_on_the_card(cuda_device):
+    """The MNIST smoke on the card: ingestion intact, and both models'
+    losses and accuracies within rtol 1e-4 of the CPU's run (the same
+    seeded init on both)."""
+    from iotml_torch.cli import mnist_smoke
+
+    card = mnist_smoke.run(["--n", "640"])
+    cpu = mnist_smoke.run(["--n", "640"], device="cpu")
+    assert card["ingestion_intact"] is cpu["ingestion_intact"] is True
+    for path in ("streamed", "control"):
+        for metric in ("loss", "accuracy"):
+            np.testing.assert_allclose(card[path][metric], cpu[path][metric],
+                                       rtol=1e-4, atol=0)

@@ -44,6 +44,15 @@ def test_the_live_services_are_covered():
             "iotml_torch/serve/carhealth.py"} <= set(FILES)
 
 
+def test_the_creditcard_lstm_and_mnist_jobs_are_covered():
+    assert {"iotml_torch/evaluate/anomaly.py",
+            "iotml_torch/evaluate/report.py",
+            "iotml_torch/data/creditcard.py", "iotml_torch/cli/creditcard.py",
+            "iotml_torch/models/lstm.py", "iotml_torch/cli/lstm.py",
+            "iotml_torch/models/mnist.py", "iotml_torch/data/mnist_stream.py",
+            "iotml_torch/cli/mnist_smoke.py"} <= set(FILES)
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
