@@ -162,7 +162,48 @@ non-zero exit and no result line:
                 falling; the classifier's first 50 steps against a CPU run
                 from the same init (loss and accuracy rtol 1e-4, params at
                 the fit bounds); no kernel launch.
-12. timing     — each design held against the plain version over the
+12. lifecycle_path — the model lifecycle (ROADMAP A5) on the card at
+                full width: ``cardata`` train to ``model1.h5`` on
+                ``emulator:30000`` (one fit launch, through rows), the
+                stored file opened by the port's HDF5 reader
+                (``utils.hdf5``: its attributes the exporter's strings
+                byte for byte, its datasets the trained params bit for
+                bit), then predict from it (10,000 payloads against a
+                CPU recompute from the trained params, cli_path's
+                bounds; the imported params bit-equal to them); h5
+                encode and decode ms and the file's bytes.
+                Then the live services in registry mode over the native
+                client on the port's wire server: an uninterrupted
+                ``ContinuousTrainer`` (an ``AsyncCheckpointer`` writer
+                thread, every round a committed version) until the log
+                holds no full round (at least 6 rounds of 20 × 100, one
+                fit launch through rows each); the same run again in a
+                second registry and group, crashed after round 3 (the
+                writer stopped before round 3, so round 3's snapshot is
+                lost), ``recover()``, and a new trainer that resumes v2's
+                ``state.npz`` (step, count and cursors the manifest's)
+                and re-trains round 3 on; after
+                every round the group's committed offsets at or below
+                the newest durable manifest's; the final state within
+                rtol 1e-4 / atol 1e-7 of the uninterrupted run's, the
+                final offsets equal and committed; a registry-following
+                ``LiveScorer`` draining 1,000 rows between rounds ends on
+                the tip with all 30,000 records scored once, the rows
+                after its last swap against a CPU recompute from the
+                final trained params (serve_path's bounds; the tip's
+                imported model.h5 bit-equal to them); ``restore_trainer``
+                from the tip
+                equal to the final state.  Then an ``ABRollout`` of the
+                tip against the tip + N(0, 1) noise (seed 7) with
+                ``deploy_candidate`` and ``RolloutGate(min_records=300,
+                epsilon=0.02)``: the verdict ``rollback``, serving back
+                on the tip, the serving scorer swapped to the candidate
+                and back, both sides' 30,000 rows on their topics.  No
+                launch in restore, watcher or rollout.  Snapshot ms,
+                write ms (serialize, fsync), seconds a round beside
+                live_path's, resume and restore seconds, promote-to-swap
+                and rollback-to-swap seconds, the A/B rows/s.
+13. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -172,7 +213,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-13. attention_kernel — the flash-attention kernel against its plain
+14. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -195,13 +236,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-14. sensorformer_path — SensorFormer at full width (its defaults) scores
+15. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-15. attention_timing — kernel, plain version, bound and the library
+16. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -212,7 +253,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-16. attention_backward_kernel — the dK/dV and dQ kernels against the
+17. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -231,18 +272,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-17. sensorformer_train — the slice's main path: ``make_sp_train_step``
+18. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 14; each step launches exactly
+                fleet histories of phase 15; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-18. attention_backward_timing — each backward kernel, the plain
+19. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 15, beside the bound, the fp32 FMA floor
+                shapes of phase 16, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -255,13 +296,14 @@ non-zero exit and no result line:
                 after (exactly one forward, one dK/dV and one dQ launch).
 Then the kernels line (the fit's design, and its launches by design on
 the main path and by path, the main path, the CLI path, the serve path
-(none), the wire path, the live path (one a round), the creditcard path
+(none), the wire path, the live path (one a round), the lifecycle path
+(one for the CLI train and one a registry round), the creditcard path
 (one), the LSTM and MNIST paths (none), summed in ``launches``; the
 creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 14), the training steps (phase 17), the long-context forward +
-backward (phase 18) and the serve, creditcard, LSTM and MNIST paths
+(phase 15), the training steps (phase 18), the long-context forward +
+backward (phase 19) and the serve, creditcard, LSTM and MNIST paths
 (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -299,9 +341,16 @@ from iotml_torch.data.dataset import RowSource, SensorBatches
 from iotml_torch.data.mnist_stream import synth_mnist
 from iotml_torch.evaluate import anomaly
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
+from iotml_torch.mlops import (ABRollout, AsyncCheckpointer, ModelRegistry,
+                               RolloutGate, restore_trainer)
+from iotml_torch.mlops.checkpoint import (params_from_h5_bytes,
+                                          params_to_h5_bytes)
+from iotml_torch.models import h5_export
 from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
                                             CREDITCARD_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
+from iotml_torch.models.convert import params_to_jax
+from iotml_torch.models.h5_import import autoencoder_params_from_h5
 from iotml_torch.models.lstm import LSTMSpec
 from iotml_torch.models.mnist import MNISTClassifier
 from iotml_torch.models.transformer import SensorFormer
@@ -339,6 +388,7 @@ from iotml_torch.train.checkpoint import CheckpointManager
 from iotml_torch.train.live import ContinuousTrainer
 from iotml_torch.train.loop import Trainer, TrainState, make_scanned_fit
 from iotml_torch.train.optim import Adam
+from iotml_torch.utils import hdf5
 
 #: the JAX suite's own fused-vs-scanned bounds (tests/test_fused_train.py)
 METRIC_TOL = dict(rtol=2e-4, atol=1e-6)
@@ -833,10 +883,10 @@ CLI_TOL_ALL = dict(rtol=0.0, atol=1e-5)
 
 
 def _run_cli(mode: str, root: str, servers: str = "emulator:30000",
-             flags=()) -> dict:
+             flags=(), model: str = "m1") -> dict:
     """One ``cardata.main`` call on the card: its stdout, stats line,
     seconds and the broker it made."""
-    argv = [servers, CLI_TOPIC, "0", "model-predictions", mode, "m1", root,
+    argv = [servers, CLI_TOPIC, "0", "model-predictions", mode, model, root,
             *flags]
     out = io.StringIO()
     with _recording(cli_app, "_broker_for") as brokers, \
@@ -1507,8 +1557,9 @@ def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
 
 
 LIVE_TRAIN_GROUP, LIVE_SCORE_GROUP = "cardata-live-train", "cardata-live-score"
-#: the live services' model name and their CLI's SASL flag
-LIVE_MODEL = "cardata-live"
+#: the live services' model name (their default, Keras h5) and their
+#: CLI's SASL flag
+LIVE_MODEL = "cardata-live.h5"
 LIVE_SASL = ("--sasl", ":".join(WIRE_CREDS))
 #: new records a default round (20 x 100) waits for
 LIVE_MIN_AVAILABLE = int(20 * 100 * 1.1) + 1
@@ -1773,10 +1824,9 @@ def phase_live_path(card: str, root: str) -> dict:
     sc = health["scorer"]
     if sum(sc.scorer.quality.values()) != LIVE_RECORDS:
         raise AssertionError(f"live quality counts {sc.scorer.quality}")
-    params = CheckpointManager.load_dir(ArtifactStore(store_root)
-                                        .download_tree(last, str(
-                                            Path(root) / "live_check")))
-    want, x = _recompute(backing, params["params"])
+    params = autoencoder_params_from_h5(ArtifactStore(store_root).download(
+        last, str(Path(root) / "live_check.h5")))
+    want, x = _recompute(backing, params)
     payloads = [m.value.decode() for m in
                 backing.fetch("model-predictions", 0, 0, LIVE_RECORDS)]
     err_first, err_all, anomalies = _check_serve_payloads(
@@ -1837,7 +1887,423 @@ def phase_live_path(card: str, root: str) -> dict:
             "score_max_abs_err_all": err_all,
             "carhealth": carhealth, "processes": processes}
     emit(info)
-    return {"launches": launches, "launches_by_design": by_design}
+    return {"launches": launches, "launches_by_design": by_design,
+            "round_seconds_mean": info["round_seconds_mean"]}
+
+
+#: the lifecycle path's groups, its crash point and its least rounds
+LC_GROUP, LC_REF_GROUP = "lifecycle-train", "lifecycle-reference"
+LC_SCORE_GROUP = "lifecycle-score"
+LC_CRASH_AFTER = 3
+LC_MIN_ROUNDS = 6
+#: rows the registry-following scorer drains after each training round
+LC_DRAIN_ROWS = 1000
+#: the A/B gate as the rollback drill sets it (iotml/mlops/drill.py)
+LC_GATE = dict(min_records=300, epsilon=0.02)
+#: Keras names of the autoencoder's layers in the h5 file
+LC_KERAS = ("dense", "dense_1", "dense_2", "dense_3")
+
+
+def _median_ms(fn, reps: int = 20) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _check_keras_file(path: str, params) -> None:
+    """The stored file, opened by the port's reader: its attributes the
+    strings the exporter builds, byte for byte; its datasets the trained
+    params, bit for bit."""
+    f = hdf5.File(path)
+    want = {"backend": b"tensorflow", "keras_version": b"2.2.4-tf",
+            "model_config": h5_export._model_config(
+                18, [14, 7, 7, 18], CAR_AUTOENCODER.activity_l1,
+                "reference").encode(),
+            "training_config": h5_export._TRAINING_CONFIG.encode()}
+    for key, value in want.items():
+        if f.attrs[key] != value:
+            raise AssertionError(f"h5 attribute {key!r} differs from the "
+                                 f"exporter's string")
+    mw = f["model_weights"]
+    if list(mw.attrs["layer_names"]) != [b"input_1", *(
+            n.encode() for n in LC_KERAS)] or \
+            mw.attrs["layer_names"].dtype != np.dtype("S7") or \
+            mw["input_1"].attrs["weight_names"].shape != (0,):
+        raise AssertionError("h5 layer_names / input_1 weight_names differ")
+    tree = params_to_jax(params)
+    for layer, kname in zip(("encoder0", "encoder1", "decoder0", "decoder1"),
+                            LC_KERAS):
+        if list(mw[kname].attrs["weight_names"]) != [
+                f"{kname}/kernel:0".encode(), f"{kname}/bias:0".encode()]:
+            raise AssertionError(f"h5 weight_names of {kname} differ")
+        for leaf in ("kernel", "bias"):
+            got = np.asarray(mw[f"{kname}/{kname}/{leaf}:0"])
+            if got.dtype != np.float32 or \
+                    got.tobytes() != tree[layer][leaf].tobytes():
+                raise AssertionError(f"h5 {kname}/{leaf} differs from the "
+                                     f"trained params")
+
+
+def _check_imported(got: dict, want: dict, where: str) -> None:
+    """The importer's params bit-equal to the params that were exported
+    (CPU tensors both)."""
+    if set(got) != set(want) or any(
+            got[k].dtype != want[k].dtype or got[k].shape != want[k].shape
+            or got[k].numpy().tobytes() != want[k].numpy().tobytes()
+            for k in want):
+        raise AssertionError(f"{where}: the imported params differ from "
+                             f"the exported ones")
+
+
+def _lc_h5_cli(root: str) -> dict:
+    """cardata train to ``model1.h5`` (one fit launch, through rows), the
+    file checked, then predict from it against a CPU recompute."""
+    reset_fit_launches()
+    with _recording(cli_app, "Trainer") as trainers:
+        train = _run_cli("train", root, model="model1.h5")
+    launches = fused_train.fused_fit.launches
+    if launches != 1 or fused_train.fused_fit.launches_by_design["rows"] != 1:
+        raise AssertionError(f"cardata train model1.h5 launched the fit "
+                             f"kernel {launches}x, not once through rows")
+    state = trainers[0].result.state
+    path = str(Path(root) / "model1.h5")
+    _check_keras_file(path, state.params)
+    with open(path, "rb") as fh:
+        blob = fh.read()
+    host = {k: v.cpu() for k, v in state.params.items()}
+    _check_imported(params_from_h5_bytes(blob), host, "model1.h5")
+    encode_ms = _median_ms(lambda: params_to_h5_bytes(host))
+    decode_ms = _median_ms(lambda: params_from_h5_bytes(blob))
+    predict = _run_cli("predict", root, model="model1.h5")
+    if fused_train.fused_fit.launches != 1:
+        raise AssertionError("cardata predict launched the fit kernel")
+    broker = predict["broker"]
+    end = broker.end_offset("model-predictions", 0)
+    payloads = [m.value.decode()
+                for m in broker.fetch("model-predictions", 0, 0, end + 1)]
+    check = SensorBatches(StreamConsumer(broker, [f"{CLI_TOPIC}:0:0"]),
+                          batch_size=100, skip=100, take=100)
+    x = torch.from_numpy(np.concatenate([b.x for b in check]))
+    with torch.no_grad():
+        want = torch.func.functional_call(
+            CAR_AUTOENCODER.build("cpu"), host, (x,)).numpy()
+    got = np.array([np.array(p.strip("[]").split(), np.float64)
+                    for p in payloads])
+    err_first = float(np.abs(got[:100] - want[:100]).max())
+    err_all = float(np.abs(got - want).max())
+    if got.shape != (10_000, 18) or not np.isfinite(got).all() \
+            or not np.allclose(got[:100], want[:100], **CLI_TOL_FIRST) \
+            or not np.allclose(got, want, **CLI_TOL_ALL):
+        raise AssertionError(f"h5 predict payloads disagree with a CPU "
+                             f"recompute: first 100 max {err_first}, all "
+                             f"max {err_all}")
+    return {"launches": launches, "h5_bytes": len(blob),
+            "h5_encode_ms": encode_ms, "h5_decode_ms": decode_ms,
+            "train_seconds": train["seconds"],
+            "predict_seconds": predict["seconds"],
+            "predict_rows": len(payloads),
+            "max_abs_err_first_100": err_first, "max_abs_err_all": err_all}
+
+
+def _lc_trainer(client, root: str, group: str) -> ContinuousTrainer:
+    """A registry-mode trainer on the card: every round snapshotted and
+    published (cadence 0), serving promoted at each commit."""
+    registry = ModelRegistry(root)
+    registry.recover()
+    return ContinuousTrainer(client, SERVE_TOPIC, None, group=group,
+                             checkpointer=AsyncCheckpointer(registry))
+
+
+def _lc_commit_trails(backing, trainer) -> None:
+    """Committed offsets at or below the newest durable manifest's (the
+    committed ones read first: a manifest read after them is at least as
+    new as any whose commit they show)."""
+    committed = {(SERVE_TOPIC, p): backing.committed(trainer.group,
+                                                     SERVE_TOPIC, p)
+                 for p in range(backing.topic(SERVE_TOPIC).partitions)}
+    latest = trainer.registry.latest()
+    newest = {} if latest is None else {
+        (t, p): o for t, p, o in trainer.registry.manifest(latest).offsets}
+    for key, off in committed.items():
+        if off is not None and off > newest.get(key, 0):
+            raise AssertionError(f"committed {key} = {off} past the newest "
+                                 f"durable manifest's {newest.get(key)}")
+
+
+def _lc_rounds(trainer, backing, max_rounds=None, scorer=None) -> list:
+    """Rounds until the log holds no full round (or ``max_rounds``): one
+    fit launch through rows each, the commit checked to trail durability;
+    ``scorer`` (a registry-following LiveScorer) swaps and drains
+    ``LC_DRAIN_ROWS`` rows between rounds."""
+    stats = []
+    while trainer.available() >= trainer.min_available and \
+            (max_rounds is None or len(stats) < max_rounds):
+        launched = (fused_train.fused_fit.launches,
+                    fused_train.fused_fit.launches_by_design["rows"])
+        s = trainer.train_round()
+        if (fused_train.fused_fit.launches - launched[0],
+                fused_train.fused_fit.launches_by_design["rows"]
+                - launched[1]) != (1, 1):
+            raise AssertionError("a registry round did not launch the fit "
+                                 "kernel exactly once through rows")
+        stats.append(s)
+        _lc_commit_trails(backing, trainer)
+        if scorer is not None:
+            scorer.maybe_swap()
+            scorer.scorer.score_available(max_rows=LC_DRAIN_ROWS)
+    return stats
+
+
+def _lc_swap(svc, timeout_s: float = 30.0) -> None:
+    """Poll the scorer's channel until it swaps (the serving flip just
+    made must land)."""
+    deadline = time.monotonic() + timeout_s
+    while not svc.maybe_swap():
+        if time.monotonic() > deadline:
+            raise AssertionError("the serving scorer never swapped")
+
+
+def _lc_states_close(tag: str, got: TrainState, want: TrainState) -> float:
+    errs = []
+    for tree in ("params", "mu", "nu"):
+        a = got.params if tree == "params" else getattr(got.opt_state, tree)
+        b = want.params if tree == "params" else getattr(want.opt_state,
+                                                         tree)
+        for k in PARAM_NAMES:
+            errs.append(check_close(f"{tag} {tree}/{k}", a[k], b[k],
+                                    **RESUME_TOL))
+    if (got.step, got.opt_state.count) != (want.step, want.opt_state.count):
+        raise AssertionError(f"{tag}: step/count {got.step}/"
+                             f"{got.opt_state.count}, want {want.step}/"
+                             f"{want.opt_state.count}")
+    return max(errs)
+
+
+def phase_lifecycle_path(card: str, root: str, live_info: dict) -> dict:
+    """The model lifecycle on the card: the cardata CLI through Keras h5;
+    the live services in registry mode with a crash and a resume, against
+    an uninterrupted run; an A/B rollback of a degraded candidate."""
+    reset_launches()
+    cli = _lc_h5_cli(str(Path(root) / "lifecycle_cli"))
+    reset_fit_launches()
+    backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
+    n_parts = backing.topic(SERVE_TOPIC).partitions
+    ref_root, reg_root = (str(Path(root) / "lifecycle" / d)
+                          for d in ("reference", "registry"))
+    with _wire_server(backing) as servers:
+        clients = _live_clients(servers, 6)
+        try:
+            # the uninterrupted run of the same rounds
+            ref = _lc_trainer(clients[0], ref_root, LC_REF_GROUP)
+            ref.checkpointer.start()
+            ref_stats = _lc_rounds(ref, backing)
+            torch.cuda.synchronize()
+            ref.close()
+            if len(ref_stats) < LC_MIN_ROUNDS:
+                raise AssertionError(f"the reference run trained "
+                                     f"{len(ref_stats)} rounds")
+            ref_state = _clone_state(ref.trainer.state)
+            ck = ref.checkpointer
+            snapshot_ms = ck.seconds["snapshot"] / len(ref_stats) * 1e3
+            write_ms = (ck.seconds["serialize"] + ck.seconds["fsync"]) \
+                / ck.written * 1e3
+            # the scorer follows the serving channel while the trainer
+            # runs, draining between rounds
+            svc = LiveScorer(clients[1], SERVE_TOPIC, "lifecycle-predictions",
+                             None, registry=ModelRegistry(reg_root),
+                             group=LC_SCORE_GROUP, carhealth_topic=None)
+            swaps = []
+            real_set = svc.scorer.set_params
+
+            def set_params(params, version=None):
+                real_set(params, version=version)
+                swaps.append((version, svc.scorer.scored))
+
+            svc.scorer.set_params = set_params
+            # super-batches of LC_DRAIN_ROWS, so a drain between rounds
+            # stops there and the swaps land mid-stream
+            svc.scorer.max_super_batches = LC_DRAIN_ROWS // 100
+            first = _lc_trainer(clients[2], reg_root, LC_GROUP)
+            first.checkpointer.start()
+            first_stats = _lc_rounds(first, backing,
+                                     max_rounds=LC_CRASH_AFTER - 1,
+                                     scorer=svc)
+            # the writer stops before the last round, so that round's
+            # snapshot is never written: the crash loses it, and the
+            # resume re-trains a round the committed offsets had not
+            # passed
+            first.checkpointer.stop(flush=True)
+            first_stats += _lc_rounds(first, backing, max_rounds=1,
+                                      scorer=svc)
+            lost = first.checkpointer.pending()
+            if len(first_stats) != LC_CRASH_AFTER or lost != 1:
+                raise AssertionError(f"the crashed run trained "
+                                     f"{len(first_stats)} rounds and left "
+                                     f"{lost} snapshots unwritten")
+            clients[2].close()
+            registry = ModelRegistry(reg_root)
+            swept = registry.recover()
+            tip = registry.manifest(registry.latest())
+            t0 = time.perf_counter()
+            second = _lc_trainer(clients[3], reg_root, LC_GROUP)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            positions = second.consumer.positions()
+            if tip.version != LC_CRASH_AFTER - 1 or \
+                    second.restored_version != tip.version or \
+                    second.trainer.state.step != tip.step or \
+                    second.trainer.state.opt_state.count != tip.step or \
+                    positions != tip.offsets:
+                raise AssertionError(
+                    f"the resumed trainer: version "
+                    f"{second.restored_version}, step "
+                    f"{second.trainer.state.step}, positions {positions}; "
+                    f"the tip: v{tip.version}, step {tip.step}, offsets "
+                    f"{tip.offsets}")
+            second.checkpointer.start()
+            second_stats = _lc_rounds(second, backing, scorer=svc)
+            torch.cuda.synchronize()
+            second.close()
+            err = _lc_states_close("resumed vs uninterrupted",
+                                   second.trainer.state, ref_state)
+            final = registry.manifest(registry.latest())
+            ref_final = ref.registry.manifest(ref.registry.latest())
+            if final.offsets != ref_final.offsets or \
+                    [backing.committed(LC_GROUP, t, p)
+                     for t, p, _ in final.offsets] != \
+                    [o for _, _, o in final.offsets]:
+                raise AssertionError(f"final offsets {final.offsets}, the "
+                                     f"reference's {ref_final.offsets}")
+            # the scorer ends on the tip, every record scored once
+            svc.maybe_swap()
+            while svc.scorer.score_available(max_rows=50_000):
+                pass
+            torch.cuda.synchronize()
+            serving = registry.channel("serving")
+            if svc.scorer.model_version != final.version or \
+                    serving != final.version or \
+                    svc.scorer.scored != LIVE_RECORDS or \
+                    backing.end_offset("lifecycle-predictions", 0) != \
+                    LIVE_RECORDS or \
+                    sum(backing.committed(LC_SCORE_GROUP, SERVE_TOPIC, p)
+                        for p in range(n_parts)) != LIVE_RECORDS:
+                raise AssertionError(
+                    f"the registry scorer: version "
+                    f"{svc.scorer.model_version} (tip {final.version}, "
+                    f"serving {serving}), {svc.scorer.scored} scored")
+            tail = swaps[-1][1]
+            tip_params = {k: v.cpu() for k, v in
+                          second.trainer.state.params.items()}
+            _check_imported(params_from_h5_bytes(registry.load_bytes(
+                final.version, "model.h5")), tip_params,
+                f"registry v{final.version} model.h5")
+            payloads = [m.value.decode() for m in backing.fetch(
+                "lifecycle-predictions", 0, tail, LIVE_RECORDS)]
+            want, x = _recompute(backing, tip_params, start=tail)
+            s_first, s_all, _ = _check_serve_payloads(
+                payloads, want, x, 5.0, "lifecycle scorer")
+            fit_launches = fused_train.fused_fit.launches
+            fit_rows = fused_train.fused_fit.launches_by_design["rows"]
+
+            # restore_trainer alone, from the tip
+            probe = Trainer(CAR_AUTOENCODER)
+            probe._ensure_state()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored = restore_trainer(probe, registry)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            _lc_states_close("restore_trainer vs the final state",
+                             probe.state, second.trainer.state)
+            # the A/B rollback: the tip against tip + N(0, 1) noise
+            noise = np.random.RandomState(7)
+            bad = {k: v + torch.from_numpy(noise.normal(
+                0, 1.0, tuple(v.shape)).astype(np.float32))
+                for k, v in tip_params.items()}
+            cand = registry.publish({"model.h5": params_to_h5_bytes(bad)},
+                                    metrics={"degraded": 1.0}).version
+            ab = ABRollout(clients[4], SERVE_TOPIC, registry, final.version,
+                           cand, gate=RolloutGate(**LC_GATE), threshold=5.0,
+                           deploy_candidate=True, from_start=True,
+                           group_prefix="lifecycle-ab")
+            t_deployed = time.perf_counter()
+            _lc_swap(svc)
+            promote_to_swap_s = time.perf_counter() - t_deployed
+            if svc.scorer.model_version != cand:
+                raise AssertionError("the serving scorer did not take the "
+                                     "deployed candidate")
+            t0 = time.perf_counter()
+            while ab.step(max_rows=5_000):
+                pass
+            torch.cuda.synchronize()
+            ab_s = time.perf_counter() - t0
+            t_rolled = time.perf_counter()
+            _lc_swap(svc)
+            rollback_to_swap_s = time.perf_counter() - t_rolled
+            scored = {side: sc.scored for side, sc in ab.sides.items()}
+            ends = {v: backing.end_offset(f"model-predictions.v{v}", 0)
+                    for v in (final.version, cand)}
+            if ab.decision != "rollback" or \
+                    registry.channel("serving") != final.version or \
+                    svc.scorer.model_version != final.version or \
+                    set(scored.values()) != {LIVE_RECORDS} or \
+                    set(ends.values()) != {LIVE_RECORDS}:
+                raise AssertionError(f"A/B: decision {ab.decision}, serving "
+                                     f"{registry.channel('serving')}, "
+                                     f"scored {scored}, topics {ends}")
+        finally:
+            for c in clients:
+                c.close()
+    counts = path_launches()
+    if counts["fused_fit"] != fit_launches or \
+            any(v for k, v in counts.items() if k != "fused_fit"):
+        raise AssertionError(f"restore, watcher and rollout launched "
+                             f"{counts}")
+    n_rounds = len(ref_stats)
+    if fit_launches != n_rounds + len(first_stats) + len(second_stats) \
+            or fit_rows != fit_launches:
+        raise AssertionError(f"{fit_launches} fit launches for "
+                             f"{n_rounds} + {len(first_stats)} + "
+                             f"{len(second_stats)} rounds")
+    round_s = [s["seconds"] for s in ref_stats]
+    info = {"phase": "lifecycle_path", "card": card, "h5_cli": cli,
+            "rounds": n_rounds, "crash_after_round": LC_CRASH_AFTER,
+            "snapshots_lost_in_crash": lost, "torn_swept": swept,
+            "resumed_from_version": tip.version,
+            "resumed_rounds": len(second_stats),
+            "final_version": final.version,
+            "resume_max_abs_err": err,
+            "losses": [s["loss"] for s in ref_stats],
+            "round_seconds_mean": sum(round_s) / n_rounds,
+            "live_path_round_seconds_mean": live_info["round_seconds_mean"],
+            "snapshot_ms": snapshot_ms, "write_ms": write_ms,
+            "write_ms_split": {"serialize": ck.seconds["serialize"]
+                               / ck.written * 1e3,
+                               "fsync": ck.seconds["fsync"] / ck.written
+                               * 1e3},
+            "resume_s": resume_s, "restore_trainer_s": restore_s,
+            "restore_step": restored.step,
+            "promote_to_swap_s": promote_to_swap_s,
+            "rollback_to_swap_s": rollback_to_swap_s,
+            "scorer_swaps": len(swaps), "scorer_tail_rows":
+                LIVE_RECORDS - tail,
+            "scorer_max_abs_err_first_100": s_first,
+            "scorer_max_abs_err_all": s_all,
+            "ab": {"decision": ab.decision, "rows": sum(scored.values()),
+                   "seconds": ab_s,
+                   "rows_per_s": sum(scored.values()) / ab_s,
+                   "decided_at_s": ab.decided_at_s,
+                   "baseline": ab.quality("baseline"),
+                   "candidate": ab.quality("candidate")},
+            "kernel_launches": fit_launches + cli["launches"]}
+    emit(info)
+    return {"launches": fit_launches + cli["launches"],
+            "launches_by_design": {
+                d: (fit_launches + cli["launches"] if d == "rows" else 0)
+                for d in fused_train.DESIGNS}}
 
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
@@ -3021,6 +3487,7 @@ def main() -> int:
         cc_info = phase_creditcard_path(card)
         lstm_info = phase_lstm_path(card, root)
         mnist_info = phase_mnist_path(card)
+        lc_info = phase_lifecycle_path(card, root, live_info)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -3051,7 +3518,7 @@ def main() -> int:
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
         "launches": main_info["launches"] + cli_info["launches"]
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
-        + live_info["launches"] + cc_info["launches"]
+        + live_info["launches"] + lc_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -3060,6 +3527,7 @@ def main() -> int:
                                  serve_info["launches"]["fused_fit"],
                              "wire_path": wire_info["launches"],
                              "live_path": live_info["launches"],
+                             "lifecycle_path": lc_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -3069,6 +3537,7 @@ def main() -> int:
             + cli_info["launches_by_design"][d]
             + wire_info["launches_by_design"][d]
             + live_info["launches_by_design"][d]
+            + lc_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),

@@ -15,11 +15,16 @@ with generated fleet data exactly as the JAX CLI seeds its own, or
 ``host:port[,...]``, a Kafka cluster or ``stream.kafka_wire``'s server
 spoken to over the wire protocol, with the SASL/PLAIN credentials of the
 ``broker`` config section (``IOTML_BROKER_SASL_USERNAME`` /
-``IOTML_BROKER_SASL_PASSWORD``, as the deploy manifests set them).  The
-parts the port does not have yet raise NotImplementedError naming their
-ROADMAP item: ``.h5`` model files for the autoencoder (Keras interop), a
-multi-device mesh and a multi-host job.  An app without h5 interop (the
-LSTM) refuses an ``.h5`` name with the JAX CLI's message and exit 1.
+``IOTML_BROKER_SASL_PASSWORD``, as the deploy manifests set them).
+
+A model file whose name ends in ``.h5`` moves as a Keras h5 blob, as the
+reference's does (cardata-v3.py:227-231): train exports the params
+(``models.h5_export``, through ``utils.hdf5``) and uploads them, predict
+downloads and imports them; any other name moves the port's checkpoint.
+An app without h5 interop (the LSTM) refuses an ``.h5`` name with the JAX
+CLI's message and exit 1.  The parts the port does not have yet raise
+NotImplementedError naming their ROADMAP item: a multi-device mesh and a
+multi-host job.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from typing import Callable, NamedTuple, Optional
 from ..config import Config, load_config
 from ..data.dataset import SensorBatches
 from ..gen.simulator import FleetGenerator, FleetScenario
+from ..models.h5_export import autoencoder_params_to_h5
+from ..models.h5_import import autoencoder_params_from_h5
 from ..serve.scorer import StreamScorer
 from ..stream import native
 from ..stream.broker import Broker
@@ -120,8 +127,8 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
     """Run one train or predict job; returns the process exit code (1 on
     an argument error).  ``supervised`` and ``window`` are the LSTM's:
     fit ``model(x)`` to the next row, over [B, window, F] windows.
-    ``h5_interop`` says whether the JAX app takes ``.h5`` model files (the
-    autoencoder's: not ported yet, it raises; the LSTM's: exit 1).
+    ``h5_interop`` says whether the app takes ``.h5`` model files (the
+    autoencoder's does; the LSTM's exits 1).
     ``device`` is where the model runs (``cuda`` unless given).  Each
     mode ends with a ``stats: {...}`` JSON line: losses and fit seconds
     (train), rows and scoring seconds (predict), and the rows and seconds
@@ -148,12 +155,6 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
               f"for the autoencoder CLI only; use a plain name for an "
               f"orbax checkpoint")
         return 1
-    if model_file.endswith(".h5"):
-        # refused BEFORE training, so no training run ends in a failed
-        # export
-        raise NotImplementedError(
-            f"{prog}: '.h5' model files (Keras interop) are not ported yet "
-            f"(ROADMAP A5); use a plain name for a checkpoint")
     offset = offset.strip().lower()
     if offset != "committed":
         offset = int(offset)
@@ -207,9 +208,16 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
             print(f"Training complete, final loss {history['loss'][-1]:.6f}")
             ckpt_dir = tempfile.mkdtemp(prefix=f"iotml_torch_{prog}_ckpt_")
             try:
-                path = CheckpointManager(ckpt_dir).save(
-                    trainer.state, cursors=consumer.positions())
-                store.upload_tree(path, model_file)
+                if model_file.endswith(".h5"):
+                    # the reference's artifact format: a consumer still on
+                    # the reference stack can load models trained here
+                    local_h5 = os.path.join(ckpt_dir, "model.h5")
+                    autoencoder_params_to_h5(trainer.state.params, local_h5)
+                    store.upload(local_h5, model_file)
+                else:
+                    path = CheckpointManager(ckpt_dir).save(
+                        trainer.state, cursors=consumer.positions())
+                    store.upload_tree(path, model_file)
             finally:
                 shutil.rmtree(ckpt_dir, ignore_errors=True)
             # commit AFTER the checkpoint is durable: the group cursor is the
@@ -230,9 +238,13 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
         print("Downloading model", model_file)
         restore_dir = tempfile.mkdtemp(prefix=f"iotml_torch_{prog}_restore_")
         try:
-            local = store.download_tree(model_file,
-                                        os.path.join(restore_dir, "ckpt"))
-            payload = CheckpointManager.load_dir(local)
+            local = os.path.join(restore_dir, "ckpt")
+            if model_file.endswith(".h5"):
+                payload = {"params": autoencoder_params_from_h5(
+                    store.download(model_file, local))}
+            else:
+                payload = CheckpointManager.load_dir(
+                    store.download_tree(model_file, local))
         finally:
             shutil.rmtree(restore_dir, ignore_errors=True)
         print("Loading model")

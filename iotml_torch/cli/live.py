@@ -10,7 +10,13 @@ One process each, as ``deploy/model-training.yaml`` and
 round (one launch of the fit kernel) and publishes it; the scorer waits
 for the first model, then scores the stream, hot-swaps each new round
 between super-batches and writes predictions and car-health alert
-transitions back.  Both connect through the native Kafka client
+transitions back.  With ``--registry DIR`` the trainer publishes every
+round as a committed, offsets-stamped registry version (an async
+checkpointer, ``--checkpoint-interval-s`` its cadence) and resumes from
+the registry's newest version; the scorer follows the registry's serving
+channel.  The ``mlops`` config section (``IOTML_MLOPS_*``) sets the
+queue depth, retention, optimizer archival, promote-on-publish and the
+scorer's channel poll.  Both connect through the native Kafka client
 (``stream.native_kafka.NativeKafkaBroker``), whose fetch and decode are
 one C++ call; ``--sasl USER:PASS`` authenticates with SASL/PLAIN.
 ``--stats`` prints one JSON line a round or drain; both exit 0 when
@@ -19,13 +25,14 @@ run on ``cuda``; ``main(argv, device="cpu")`` runs them on the CPU from
 Python.
 
 Differences from the JAX package's CLI:
-- ``--model-name`` defaults to ``cardata-live``, and each round is the
-  port's checkpoint (npz + JSON), which ``iotml_torch.cli.serve`` can
-  serve too; a name ending in ``.h5`` raises NotImplementedError naming
-  ROADMAP A5 before anything trains.
+- ``--model-name`` defaults to ``cardata-live.h5`` as there, and rounds
+  are Keras h5; a name not ending in ``.h5`` stores the port's checkpoint
+  (npz + JSON) instead, which ``iotml_torch.cli.serve`` can serve too.
+- ``IOTML_MLOPS_REGISTRY_DIR`` (the config's ``mlops.registry_dir``)
+  stands in for ``--registry`` when the flag is not given, as the config
+  section documents it.
 - A flag the port has not got raises NotImplementedError naming its
-  ROADMAP item when given: ``--registry`` and ``--checkpoint-interval-s``
-  (A5), ``--mesh-data`` and ``--device-normalize`` (A10),
+  ROADMAP item when given: ``--mesh-data`` and ``--device-normalize`` (A10),
   ``--prefetch-depth`` (A7), ``--decode-ring-buffers`` and
   ``--raw-batch-bytes`` (A3, item 13), ``--raw-produce``,
   ``--produce-batch-bytes`` and ``--metrics-port`` (A13).
@@ -46,8 +53,7 @@ import time
 from ..utils.device import DeviceLike, resolve_device
 
 #: unported flags → the ROADMAP item that ports them
-UNPORTED = {"registry": "A5", "checkpoint_interval_s": "A5",
-            "mesh_data": "A10", "device_normalize": "A10",
+UNPORTED = {"mesh_data": "A10", "device_normalize": "A10",
             "prefetch_depth": "A7", "decode_ring_buffers": "A3, item 13",
             "raw_batch_bytes": "A3, item 13", "raw_produce": "A13",
             "produce_batch_bytes": "A13", "metrics_port": "A13"}
@@ -91,8 +97,10 @@ def _parser() -> argparse.ArgumentParser:
                     help="cold start: begin at the first record at or "
                          "after this timestamp where the broker can seek "
                          "by time; a committed cursor still wins")
-    tr.add_argument("--checkpoint-interval-s", type=float, default=None,
-                    help="registry checkpoint cadence (not ported: A5)")
+    tr.add_argument("--checkpoint-interval-s", type=float, default=0.5,
+                    help="async-checkpoint cadence with --registry: "
+                         "snapshots arriving faster are coalesced "
+                         "(newest wins); 0 archives every round")
 
     sc = sub.add_parser("score", help="continuous scorer with hot-swap")
     sc.add_argument("servers")
@@ -111,7 +119,7 @@ def _parser() -> argparse.ArgumentParser:
     sc.add_argument("--wait-model-seconds", type=float, default=120.0)
 
     for p in (tr, sc):
-        p.add_argument("--model-name", default="cardata-live")
+        p.add_argument("--model-name", default="cardata-live.h5")
         p.add_argument("--normalize", choices=("parity", "full"),
                        default="parity",
                        help="parity = the reference's normalization; full "
@@ -125,7 +133,10 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--wait-topic-seconds", type=float, default=60.0,
                        help="wait this long for the input topic to appear")
         p.add_argument("--registry", default=None, metavar="DIR",
-                       help="versioned model registry (not ported: A5)")
+                       help="versioned model registry root: train "
+                            "publishes async checkpoints stamped with "
+                            "stream offsets; score follows the serving "
+                            "channel")
         p.add_argument("--prefetch-depth", type=int, default=None,
                        help="not ported (A7)")
         p.add_argument("--decode-ring-buffers", type=int, default=None,
@@ -155,19 +166,23 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
             flag = "--" + name.replace("_", "-")
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
-    if args.model_name.endswith(".h5"):
-        raise NotImplementedError(
-            "'.h5' model files (Keras interop) are not ported yet (ROADMAP "
-            "A5); use a plain name for a checkpoint")
     car_th = None
     if args.cmd == "score":
         car_th = args.car_threshold if args.car_threshold == "auto" \
             else float(args.car_threshold)
     device = resolve_device(device)  # no card and no device: raise now
 
+    from ..config import load_config
     from ..core.normalize import CAR_NORMALIZER, FULL_NORMALIZER
+    from ..mlops import AsyncCheckpointer, ModelRegistry
     from ..stream.native_kafka import NativeKafkaBroker
     from ..train.artifacts import ArtifactStore
+
+    # the env-resolved mlops policy (IOTML_MLOPS_*): queue depth,
+    # promote-on-publish, optimizer archival, retention, the scorer's
+    # channel poll; the CLI flag owns the cadence
+    mcfg = load_config([])[0].mlops
+    registry_root = args.registry or mcfg.registry_dir
 
     user, pw = args.sasl.split(":", 1) if args.sasl else (None, None)
     broker = NativeKafkaBroker(args.servers, sasl_username=user,
@@ -190,20 +205,37 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         normalizer = (FULL_NORMALIZER if args.normalize == "full"
                       else CAR_NORMALIZER)
         store = ArtifactStore(args.artifact_root)
+        registry = checkpointer = None
+        if registry_root:
+            registry = ModelRegistry(registry_root)
         if args.cmd == "train":
             from ..train.live import ContinuousTrainer
 
+            if registry is not None:
+                registry.recover()  # sweep torn publishes of a prior kill
+                checkpointer = AsyncCheckpointer(
+                    registry, queue_depth=mcfg.queue_depth,
+                    save_opt_state=mcfg.save_opt_state,
+                    auto_promote=mcfg.auto_promote,
+                    keep_versions=mcfg.keep_versions,
+                    min_interval_s=args.checkpoint_interval_s)
             svc = ContinuousTrainer(
                 broker, args.topic, store, model_name=args.model_name,
                 group=args.group, batch_size=args.batch_size,
                 take_batches=args.take_batches,
                 epochs_per_round=args.epochs_per_round,
                 normalizer=normalizer,
-                backfill_since_ms=args.backfill_since_ms, device=device)
+                backfill_since_ms=args.backfill_since_ms,
+                registry=registry, checkpointer=checkpointer, device=device)
             print(f"live train: {args.topic} rounds of "
                   f"{args.take_batches}x{args.batch_size} -> "
-                  f"{args.artifact_root}/{args.model_name}", flush=True)
-            rounds = svc.run(stop=stop, on_round=emit)
+                  f"{args.artifact_root}/{args.model_name}"
+                  + (f" + registry {registry_root}" if registry else ""),
+                  flush=True)
+            try:
+                rounds = svc.run(stop=stop, on_round=emit)
+            finally:
+                svc.close()  # flush pending checkpoints, stop the writer
             print(f"live train done: {rounds} rounds, "
                   f"{svc.records_trained} records, last loss "
                   f"{svc.last_loss}", flush=True)
@@ -215,6 +247,7 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
                          threshold=args.threshold, car_threshold=car_th,
                          car_feature_heads=args.car_feature_heads,
                          batch_size=args.batch_size, normalizer=normalizer,
+                         registry=registry, watch_poll_s=mcfg.watch_poll_s,
                          device=device)
         artifact = svc.wait_for_model(args.wait_model_seconds)
         print(f"live score: model {artifact} loaded; "

@@ -1,5 +1,5 @@
 """Typed configuration (``iotml.config``'s resolver, cut to its ``broker``,
-``train`` and ``serve`` sections).
+``train``, ``serve`` and ``mlops`` sections).
 
 One dataclass tree with one resolution order:
 
@@ -58,10 +58,29 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class MlopsConfig:
+    """Model lifecycle (``mlops``): versioned registry + async
+    checkpointing + rollout.
+
+    ``registry_dir`` empty (the default) keeps the artifact-store pointer
+    flow; set it (``IOTML_MLOPS_REGISTRY_DIR``) or pass ``--registry`` to
+    the live CLI to publish every training round as a committed,
+    offsets-stamped registry version that scorers hot-swap to."""
+
+    registry_dir: str = ""        # empty = no registry
+    queue_depth: int = 2          # pending snapshots before drop-oldest
+    auto_promote: bool = True     # serving follows every publish
+    watch_poll_s: float = 0.25    # scorer-side channel poll cadence
+    save_opt_state: bool = True   # archive optimizer moments per version
+    keep_versions: int = 16       # prune beyond newest N (0 = keep all)
+
+
+@dataclasses.dataclass
 class Config:
     broker: BrokerConfig = dataclasses.field(default_factory=BrokerConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    mlops: MlopsConfig = dataclasses.field(default_factory=MlopsConfig)
 
 
 #: the JAX package's other sections, and the ROADMAP item that ports each
@@ -71,7 +90,7 @@ UNPORTED_SECTIONS = {
     "artifacts": "A6 (the CLIs)", "scenario": "A6 (the CLIs)",
     "store": "A13 (the rest of the tooling)",
     "tier": "A13 (the rest of the tooling)",
-    "mlops": "A5 (persistence)", "online": "A8 (online learning)",
+    "online": "A8 (online learning)",
     "slo": "A13 (the rest of the tooling)",
 }
 

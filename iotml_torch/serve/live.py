@@ -1,13 +1,17 @@
-"""Long-lived scorer with live model hot-swap off the artifact store
-(``iotml.serve.live``'s twin).
+"""Long-lived scorer with live model hot-swap off the artifact store or
+the model registry (``iotml.serve.live``'s twin).
 
 The reference's predict Deployment downloads a fixed model at pod start
 and scores until it is restarted.  ``LiveScorer`` is that loop without
 the restart: it polls the ``{model_name}.latest`` pointer that a
 ``train.live.ContinuousTrainer`` flips after every round, downloads the
-new immutable checkpoint and swaps the weights between super-batches;
-predictions keep flowing, in order, across the swap
-(``StreamScorer.set_params``).
+new immutable blob (Keras h5 for an ``.h5`` name, else the port's
+checkpoint) and swaps the weights between super-batches; predictions
+keep flowing, in order, across the swap (``StreamScorer.set_params``).
+With a ``registry`` it follows the registry's ``serving`` channel
+instead, through a ``mlops.RegistryWatcher`` polled inline from this
+loop (at most every ``watch_poll_s``), so promote and rollback flips
+land between super-batches.
 
 Detection quality rides along: batches keep the stream's
 ``failure_occurred`` labels, so the threshold verdicts are counted live
@@ -18,8 +22,8 @@ transitions go to that topic.  Under a normalizer other than the
 reference's, the verdicts average the reference's features only
 (``CAR_NORMALIZER.mask``), the set the threshold was calibrated on.
 
-The versioned registry's serving channel is not ported (ROADMAP A5), nor
-the metrics registry's swap counter and precision/recall gauges (A13).
+The metrics registry's swap counter and precision/recall gauges are not
+ported (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from typing import Callable, Optional
 from ..core.normalize import CAR_NORMALIZER
 from ..core.schema import KSQL_CAR_SCHEMA
 from ..data.dataset import SensorBatches
+from ..mlops.rollout import RegistryWatcher
 from ..models.autoencoder import CAR_AUTOENCODER
+from ..models.h5_import import autoencoder_params_from_h5
 from ..stream.consumer import StreamConsumer
 from ..stream.producer import OutputSequence
 from ..train.artifacts import ArtifactStore
@@ -44,26 +50,32 @@ from .scorer import StreamScorer
 
 
 class LiveScorer:
-    """Continuous scoring with pointer-driven weight hot-swap.
+    """Continuous scoring with pointer- or registry-driven weight
+    hot-swap.
 
-    ``device`` is where the forward runs (``cuda`` unless given)."""
+    ``registry`` (a ``ModelRegistry``) follows its serving channel,
+    polled at most every ``watch_poll_s``; ``device`` is where the
+    forward runs (``cuda`` unless given)."""
 
     def __init__(self, broker, topic: str, result_topic: str,
-                 store: ArtifactStore, model_name: str = "cardata-live",
+                 store: Optional[ArtifactStore],
+                 model_name: str = "cardata-live.h5",
                  threshold: Optional[float] = 5.0,
                  group: str = "cardata-live-score", batch_size: int = 100,
                  carhealth_topic: Optional[str] = "car-health",
                  car_threshold=0.38, car_feature_heads: bool = False,
-                 normalizer=None, registry=None,
+                 normalizer=None, registry=None, watch_poll_s: float = 0.0,
                  device: DeviceLike = None):
-        if registry is not None:
-            raise NotImplementedError(
-                "the versioned model registry is not ported yet (ROADMAP "
-                "A5); follow the store's pointer")
-        if store is None:
-            raise ValueError("need an ArtifactStore pointer to follow")
+        if store is None and registry is None:
+            raise ValueError("need an ArtifactStore pointer or a "
+                             "ModelRegistry to follow")
         self.broker = broker
         self.store = store
+        self.registry = registry
+        self.watch_poll_s = watch_poll_s
+        self._watcher = None if registry is None else \
+            RegistryWatcher(registry)
+        self._last_watch = float("-inf")
         self.model_name = model_name
         parts = range(broker.topic(topic).partitions)
         consumer = StreamConsumer.from_committed(broker, topic, parts,
@@ -91,6 +103,8 @@ class LiveScorer:
                                    carhealth=carhealth,
                                    carhealth_topic=carhealth_topic,
                                    device=device)
+        if self._watcher is not None:
+            self._watcher.attach(self.scorer)
         self._current_artifact: Optional[str] = None
         self.model_updates = 0
 
@@ -98,16 +112,33 @@ class LiveScorer:
     def _load(self, artifact: str) -> None:
         restore_dir = tempfile.mkdtemp(prefix="iotml_torch_swap_")
         try:
-            payload = CheckpointManager.load_dir(self.store.download_tree(
-                artifact, os.path.join(restore_dir, "ckpt")))
+            local = os.path.join(restore_dir, "ckpt")
+            if self.model_name.endswith(".h5"):
+                params = autoencoder_params_from_h5(
+                    self.store.download(artifact, local))
+            else:
+                params = CheckpointManager.load_dir(
+                    self.store.download_tree(artifact, local))["params"]
         finally:
             shutil.rmtree(restore_dir, ignore_errors=True)
-        self.scorer.set_params(payload["params"])
+        self.scorer.set_params(params)
         self._current_artifact = artifact
         self.model_updates += 1
 
     def maybe_swap(self) -> bool:
-        """Poll the pointer; load and swap when it names a new round."""
+        """Poll the pointer (or the registry's serving channel); load and
+        swap when it names a new model."""
+        if self._watcher is not None:
+            now = time.monotonic()
+            if now - self._last_watch < self.watch_poll_s:
+                return False
+            self._last_watch = now
+            if not self._watcher.poll_once():
+                return False
+            self._current_artifact = \
+                f"registry:v{self._watcher.current_version}"
+            self.model_updates += 1
+            return True
         latest = self.store.get_text(f"{self.model_name}.latest")
         if latest is None or latest == self._current_artifact:
             return False
@@ -122,8 +153,9 @@ class LiveScorer:
             if self.maybe_swap():
                 return self._current_artifact
             time.sleep(0.05)
-        raise TimeoutError(f"no artifact at {self.model_name}.latest "
-                           f"after {timeout_s}s")
+        where = f"{self.model_name}.latest" if self._watcher is None \
+            else f"the serving channel of {self.registry.root}"
+        raise TimeoutError(f"no artifact at {where} after {timeout_s}s")
 
     # ------------------------------------------------------------- serve
     def run(self, stop: Optional[Callable[[], bool]] = None,

@@ -103,7 +103,12 @@ class StreamScorer:
                  carhealth_topic: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        #: the forward's module; its own weights are never read: every
+        #: forward takes ``self.params``
         self.model = model.build(self.device).eval()
+        #: the serving weights, a dict of device tensors that
+        #: ``set_params`` replaces whole
+        self.params = dict(self.model.state_dict())
         self.batches = batches
         self.out = out
         self.threshold = threshold
@@ -141,14 +146,29 @@ class StreamScorer:
             self.set_params(params)
 
     def set_params(self, params, version: Optional[int] = None) -> None:
-        """Swap the model weights in place, one copy to the device; takes
-        effect at the next super-batch and cannot drop or reorder output
-        (the ``OutputSequence`` index stream is untouched).  ``version``
-        stamps ``model_version``; a car-health detector is told, since new
-        weights shift every car's error together."""
-        self.model.load_state_dict(
-            {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
-             else v for k, v in params.items()})
+        """Swap the model weights: a new dict of device tensors (one copy
+        each) replaces ``self.params`` in a single reference swap, so a
+        super-batch in flight on another thread finishes on the old
+        weights and the next one runs on the new; no output is dropped or
+        reordered (the ``OutputSequence`` index stream is untouched).
+        ``version`` stamps ``model_version``; a car-health detector is
+        told, since new weights shift every car's error together."""
+        if set(params) != set(self.params):
+            raise ValueError(f"params keys {sorted(params)} are not the "
+                             f"model's {sorted(self.params)}")
+        new = {}
+        for k, ref in self.params.items():
+            v = params[k]
+            v = v.detach() if torch.is_tensor(v) \
+                else torch.as_tensor(np.asarray(v))
+            if tuple(v.shape) != tuple(ref.shape):
+                raise ValueError(f"params[{k!r}] has shape "
+                                 f"{tuple(v.shape)}, the model "
+                                 f"{tuple(ref.shape)}")
+            # a copy: the caller's tensor may be a buffer a later fit
+            # overwrites
+            new[k] = v.to(self.device, ref.dtype, copy=True)
+        self.params = new
         self.params_loaded = True
         if version is not None:
             self.model_version = version
@@ -203,7 +223,8 @@ class StreamScorer:
         with torch.no_grad():
             x_dev = torch.from_numpy(
                 xs_in.reshape((S_pad * B,) + row_shape)).to(self.device)
-            preds = self.model(x_dev).cpu().numpy()
+            preds = torch.func.functional_call(
+                self.model, self.params, (x_dev,)).cpu().numpy()
         seconds = time.perf_counter() - t0
         self.seconds["device_compute"] += seconds
         if self.first_forward_s is None:

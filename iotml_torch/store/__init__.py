@@ -1,1 +1,2 @@
-"""Storage helpers (``iotml.store``): only ``segment.fsync_dir`` is ported."""
+"""Storage helpers (``iotml.store``): only ``segment.atomic_write`` and
+``segment.fsync_dir`` are ported."""

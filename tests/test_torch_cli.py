@@ -155,7 +155,6 @@ def test_argument_errors_return_1_like_jax(argv):
 
 @pytest.mark.parametrize("change,env,item", [
     ({7: "--stream.topic=x"}, {}, "A6"),        # the stream config section
-    ({5: "model1.h5"}, {}, "A5"),               # Keras h5 interop
     ({7: "--mesh.data=4"}, {}, "A10"),          # a device mesh
     ({}, {"IOTML_MESH_DATA": "2"}, "A10"),
     ({}, {"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"}, "A10"),

@@ -100,13 +100,13 @@ def _trainers(t_broker, j_broker, root, **kw):
 
 
 def _published(tt, jt, k):
-    """Round k's params: the port's checkpoint and JAX's h5, converted."""
+    """Round k's params: both packages' h5 blobs, each read by the JAX
+    package's importer, converted."""
     with tempfile.TemporaryDirectory() as tmp:
-        got = CheckpointManager.load_dir(tt.store.download_tree(
-            f"cardata-live.r{k}", os.path.join(tmp, "ckpt")))["params"]
-        local = jt.store.download(f"cardata-live.h5.r{k}",
-                                  os.path.join(tmp, "m.h5"))
-        want = params_from_jax(autoencoder_params_from_h5(local))
+        got, want = (params_from_jax(autoencoder_params_from_h5(
+            tr.store.download(f"cardata-live.h5.r{k}",
+                              os.path.join(tmp, f"{i}.h5"))))
+            for i, tr in enumerate((tt, jt)))
     return got, want
 
 
@@ -129,7 +129,7 @@ def test_rounds_pointer_and_resume_match_jax(tmp_path):
     for key in ("round", "records", "records_cum"):
         assert [s[key] for s in t_stats] == [s[key] for s in j_stats]
     assert [s["artifact"] for s in t_stats] == \
-        ["cardata-live.r1", "cardata-live.r2"]
+        ["cardata-live.h5.r1", "cardata-live.h5.r2"]
     assert (tt.rounds, tt.records_trained) == (jt.rounds, jt.records_trained) \
         == (2, 2000)
     for k in (1, 2):
@@ -137,7 +137,8 @@ def test_rounds_pointer_and_resume_match_jax(tmp_path):
         for name in PARAM_NAMES:
             np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
                                        err_msg=f"r{k} {name}", **PARAM_TOL)
-    assert tt.store.get_text("cardata-live.latest") == "cardata-live.r2"
+    assert tt.store.get_text("cardata-live.h5.latest") == \
+        "cardata-live.h5.r2"
     # the commit trails the publish: a new trainer resumes past the slice
     assert _committed(tb, "t-live") == _committed(jb, "t-live")
     assert tt.consumer.positions() == jt.consumer.positions()
@@ -153,7 +154,7 @@ def test_trainer_waits_for_min_available(tmp_path):
     tt, jt = _trainers(tb, jb, tmp_path, take_batches=10, group="t-wait")
     assert tt.run(stop=lambda: True) == jt.run(stop=lambda: True) == 0
     assert tt.rounds == jt.rounds == 0
-    assert tt.store.get_text("cardata-live.latest") is None
+    assert tt.store.get_text("cardata-live.h5.latest") is None
     assert jt.store.get_text("cardata-live.h5.latest") is None
 
 
@@ -348,8 +349,7 @@ def test_live_scorer_hotswap_from_store(tmp_path):
             sc.wait_for_model(timeout_s=0.2)  # nothing published yet
     tt.run(max_rounds=1)
     jt.run(max_rounds=1)
-    assert ts.wait_for_model() == "cardata-live.r1"
-    assert js.wait_for_model() == "cardata-live.h5.r1"
+    assert ts.wait_for_model() == js.wait_for_model() == "cardata-live.h5.r1"
     assert ts.model_updates == js.model_updates == 1
     assert ts.scorer.score_available() == js.scorer.score_available() == 3000
     assert ts.scorer.quality == js.scorer.quality
@@ -358,7 +358,7 @@ def test_live_scorer_hotswap_from_store(tmp_path):
     jt.run(max_rounds=1)
     assert ts.maybe_swap() and js.maybe_swap()
     assert ts.model_updates == js.model_updates == 2
-    assert ts._current_artifact == "cardata-live.r2"
+    assert ts._current_artifact == "cardata-live.h5.r2"
     assert not ts.maybe_swap() and not js.maybe_swap()
     t_stats, j_stats = ts.stats(), js.stats()
     assert set(t_stats) == set(j_stats)
@@ -369,19 +369,38 @@ def test_live_scorer_hotswap_from_store(tmp_path):
 
 
 def _same_model(tt_store, jt_store, jp):
-    """Round 1 of both stores holds the same params: the JAX h5 and the
-    port's checkpoint of its converted params."""
+    """Round 1 of both stores holds the same params: the JAX package's h5,
+    which the port reads too."""
     with tempfile.TemporaryDirectory() as tmp:
         h5 = os.path.join(tmp, "m.h5")
         autoencoder_params_to_h5(jax.tree.map(np.asarray, jp), h5)
-        jt_store.upload(h5, "cardata-live.h5.r1")
-        jt_store.put_text("cardata-live.h5.latest", "cardata-live.h5.r1")
-        from iotml_torch.train.optim import Adam
-        params = params_from_jax(autoencoder_params_from_h5(h5))
-        state = TrainState(0, params, Adam(1e-3).init(params))
-        path = CheckpointManager(os.path.join(tmp, "c")).save(state)
-        tt_store.upload_tree(path, "cardata-live.r1")
-        tt_store.put_text("cardata-live.latest", "cardata-live.r1")
+        for store in (tt_store, jt_store):
+            store.upload(h5, "cardata-live.h5.r1")
+            store.put_text("cardata-live.h5.latest", "cardata-live.h5.r1")
+
+
+def test_plain_model_name_rounds_store_the_port_checkpoint(tmp_path):
+    """A name without ``.h5`` keeps the port's checkpoint (npz + JSON)
+    for each round, which ``cli.serve`` serves too; the scorer follows it
+    the same."""
+    tb, _ = _seed(2400)
+    tt = ContinuousTrainer(tb, TOPIC, ArtifactStore(str(tmp_path)),
+                           model_name="cardata-live", take_batches=10,
+                           group="plain", device="cpu")
+    assert tt.run(max_rounds=1) == 1
+    assert tt.store.get_text("cardata-live.latest") == "cardata-live.r1"
+    ckpt = CheckpointManager.load_dir(tt.store.download_tree(
+        "cardata-live.r1", str(tmp_path / "restore")))
+    assert ckpt["step"] == ckpt["opt_state"].count == 10
+    assert ckpt["cursors"] == tt.consumer.positions()
+    for k in PARAM_NAMES:
+        assert ckpt["params"][k].numpy().tobytes() == \
+            tt.trainer.state.params[k].numpy().tobytes()
+    ts = LiveScorer(tb, TOPIC, "model-predictions", tt.store,
+                    model_name="cardata-live", carhealth_topic=None,
+                    device="cpu")
+    assert ts.wait_for_model(5.0) == "cardata-live.r1"
+    assert ts.scorer.score_available() == 2400
 
 
 @pytest.mark.parametrize("full", [False, True])
