@@ -203,7 +203,36 @@ non-zero exit and no result line:
                 write ms (serialize, fsync), seconds a round beside
                 live_path's, resume and restore seconds, promote-to-swap
                 and rollback-to-swap seconds, the A/B rows/s.
-13. timing     — each design held against the plain version over the
+13. online_path — online learning (ROADMAP A8) on the card: ``python -m
+                iotml_torch.online drill --seed 7 --json`` (12,000 records,
+                50 cars, window 50) through its entry point on the card,
+                then on the CPU in the same run; the two must agree on
+                every invariant's name and outcome, the detection delay,
+                the published and scored counts, the adaptations (update,
+                signal, action), the published versions and the
+                hot-swaps, and on the histogram AUCs within 0.01 — the
+                verdict itself may be FAIL where both fail, as JAX's
+                does at seed 7 (``adaptation_converged``); the drill
+                launches B1 once for its pre-train plus each refit's
+                launches.  Then an ``OnlineLearner`` with
+                ``AdaptationPolicy(action="refit")`` on
+                tests/test_online.py:344's regional-drift stream at window
+                100 (50 cars): at least one refit; each refit launches B1
+                exactly ``refit_launches(windows)`` times (the counts set
+                to 0 just before, read just after) and its params, moments
+                and ``last_loss`` match a plain step-loop refit from the
+                same state on the card (params rtol 5e-3 / atol 2e-5,
+                loss rtol 2e-4 / atol 1e-6).  Then ``python -m
+                iotml_torch.online run`` as a process over the port's wire
+                server (127.0.0.1:0, LIVE_RECORDS records) with
+                ``--registry``: at least one version, the committed offsets
+                at or below the newest manifest's, no library rebuilt.
+                Windows/s and ms a window by group size, ms a refit,
+                publishes, ``offsets_lag`` and swaps; the learner's
+                catch-up records/s (groups of 8 windows of 100, native
+                client) beside ``ContinuousTrainer``'s over the same
+                backlog, and their ratio (printed, not gated).
+14. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -213,7 +242,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-14. attention_kernel — the flash-attention kernel against its plain
+15. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -236,13 +265,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-15. sensorformer_path — SensorFormer at full width (its defaults) scores
+16. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-16. attention_timing — kernel, plain version, bound and the library
+17. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -253,7 +282,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-17. attention_backward_kernel — the dK/dV and dQ kernels against the
+18. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -272,18 +301,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-18. sensorformer_train — the slice's main path: ``make_sp_train_step``
+19. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 15; each step launches exactly
+                fleet histories of phase 16; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-19. attention_backward_timing — each backward kernel, the plain
+20. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 16, beside the bound, the fp32 FMA floor
+                shapes of phase 17, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -297,14 +326,15 @@ non-zero exit and no result line:
 Then the kernels line (the fit's design, and its launches by design on
 the main path and by path, the main path, the CLI path, the serve path
 (none), the wire path, the live path (one a round), the lifecycle path
-(one for the CLI train and one a registry round), the creditcard path
+(one for the CLI train and one a registry round), the online path (the
+drill's pre-train and every refit's), the creditcard path
 (one), the LSTM and MNIST paths (none), summed in ``launches``; the
 creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 15), the training steps (phase 18), the long-context forward +
-backward (phase 19) and the serve, creditcard, LSTM and MNIST paths
-(none), each also given by path),
+(phase 16), the training steps (phase 19), the long-context forward +
+backward (phase 20) and the serve, creditcard, LSTM, MNIST and online
+paths (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
 """
@@ -340,6 +370,8 @@ from iotml_torch.core.schema import KSQL_CAR_SCHEMA
 from iotml_torch.data.dataset import RowSource, SensorBatches
 from iotml_torch.data.mnist_stream import synth_mnist
 from iotml_torch.evaluate import anomaly
+from iotml_torch.gen.scenarios import AdversarialFleet
+from iotml_torch.gen.scenarios import condition as scenario_condition
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.mlops import (ABRollout, AsyncCheckpointer, ModelRegistry,
                                RolloutGate, restore_trainer)
@@ -354,6 +386,9 @@ from iotml_torch.models.h5_import import autoencoder_params_from_h5
 from iotml_torch.models.lstm import LSTMSpec
 from iotml_torch.models.mnist import MNISTClassifier
 from iotml_torch.models.transformer import SensorFormer
+from iotml_torch.online import __main__ as online_cli
+from iotml_torch.online import drill as online_drill
+from iotml_torch.online.learner import AdaptationPolicy, OnlineLearner
 from iotml_torch.ops import _build, fused_train
 from iotml_torch.ops.attention import (FLASH_DESIGNS, attention_reference,
                                        flash_attention,
@@ -2306,6 +2341,369 @@ def phase_lifecycle_path(card: str, root: str, live_info: dict) -> dict:
                 for d in fused_train.DESIGNS}}
 
 
+#: the online drill at its defaults, as deploy/smoke.sh runs JAX's
+ONLINE_DRILL_ARGV = ["drill", "--seed", "7", "--json"]
+#: the card drill's histogram AUCs against the CPU drill's
+ONLINE_AUC_TOL = 0.01
+#: the refit check: tests/test_online.py:344's regional-drift stream (80
+#: ticks, then 120 with the drift) at the config's window of 100, with 50
+#: cars, so the detector's burn-in passes before the drift
+ONLINE_WINDOW = 100
+ONLINE_REFIT_CARS = 50
+ONLINE_GROUP = "cardata-online"
+#: `python -m iotml_torch.online run` as a process, over LIVE_RECORDS
+ONLINE_CMD = [sys.executable, "-m", "iotml_torch.online"]
+ONLINE_RUN_SECONDS = 10
+
+
+@contextlib.contextmanager
+def _swapped(owner, name: str, value):
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _check_all_rows(where: str) -> None:
+    """Every fit launch since the counts were set to 0 went through the
+    rows design (B = 50 or 100 at (18, 14, 7))."""
+    fit = fused_train.fused_fit
+    if fit.launches_by_design["rows"] != fit.launches:
+        raise AssertionError(f"{where}: fit launches by design "
+                             f"{fit.launches_by_design}")
+
+
+def _online_learner_class(made: list, check: bool):
+    """An ``OnlineLearner`` that lists itself in ``made`` and logs each
+    refit: its windows, its fused-fit launches (the counts set to 0 just
+    before and read just after, then added back to the running counts)
+    and seconds.  With ``check``, each refit is held against a plain
+    step-loop refit of the same windows from the same state on the card
+    (updates are functional: the start state is never overwritten)."""
+
+    class Recorded(OnlineLearner):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.refit_log = []
+            #: (K, seconds) of every training call, in order
+            self.calls = []
+            made.append(self)
+
+        def _update(self, b):
+            t0 = time.perf_counter()
+            loss = super()._update(b)
+            self.calls.append((1, time.perf_counter() - t0))
+            return loss
+
+        def _update_group(self, bs):
+            t0 = time.perf_counter()
+            losses = super()._update_group(bs)
+            self.calls.append((len(bs), time.perf_counter() - t0))
+            return losses
+
+        def _refit(self):
+            wins, start = list(self.buffer), self.trainer.state
+            prior = fused_train.fused_fit.launches
+            prior_design = dict(fused_train.fused_fit.launches_by_design)
+            reset_fit_launches()
+            t0 = time.perf_counter()
+            super()._refit()
+            seconds = time.perf_counter() - t0
+            n = fused_train.fused_fit.launches
+            fused_train.fused_fit.launches = prior + n
+            for d, c in fused_train.fused_fit.launches_by_design.items():
+                fused_train.fused_fit.launches_by_design[d] = \
+                    prior_design[d] + c
+            if n != self.refit_launches(len(wins)):
+                raise AssertionError(
+                    f"a refit over {len(wins)} windows launched the fit "
+                    f"{n} times, not {self.refit_launches(len(wins))}")
+            entry = {"windows": len(wins), "launches": n,
+                     "seconds": seconds}
+            if check:
+                entry.update(self._check_refit(start, wins))
+            self.refit_log.append(entry)
+
+        def _check_refit(self, start, wins) -> dict:
+            tr, st = self.trainer, start
+            for _ in range(self.policy.refit_epochs):
+                for x, m, _n in wins:
+                    st, metrics = tr._step(st, x, x, m)
+            got = tr.state
+            if (got.step, got.opt_state.count, got.opt_state.inner.count) \
+                    != (st.step, st.opt_state.count, st.opt_state.inner.count):
+                raise AssertionError("refit counts differ from the step loop")
+            err = check_close("refit last_loss",
+                              torch.tensor([self.last_loss]),
+                              torch.tensor([float(metrics["loss"])]),
+                              **METRIC_TOL)
+            for k in PARAM_NAMES:
+                err = max(err, check_close(f"refit params {k}",
+                                           got.params[k], st.params[k],
+                                           **STATE_TOL))
+                for tree in ("mu", "nu"):
+                    err = max(err, check_close(
+                        f"refit {tree} {k}",
+                        getattr(got.opt_state.inner, tree)[k],
+                        getattr(st.opt_state.inner, tree)[k], **STATE_TOL))
+            return {"max_abs_err": err}
+
+    return Recorded
+
+
+def _online_drill(device) -> dict:
+    """``python -m iotml_torch.online drill --seed 7 --json`` through its
+    entry point on ``device`` (None: the card, as a user calls it)."""
+    made = []
+    out = io.StringIO()
+    with _swapped(online_drill, "OnlineLearner",
+                  _online_learner_class(made, check=False)), \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = online_cli.main(ONLINE_DRILL_ARGV, device=device)
+        seconds = time.perf_counter() - t0
+    report = json.loads(out.getvalue())
+    if rc != (0 if report["ok"] else 1) or len(made) != 1:
+        raise AssertionError(f"drill exit {rc} against verdict "
+                             f"{report['ok']}; {len(made)} learners")
+    learner = made[0]
+    details = {i["name"]: i["detail"] for i in report["invariants"]}
+    swaps = re.search(r"after (\d+) hot-swaps",
+                      details["fleet_hot_swapped"])
+    return {"report": report, "learner": learner, "seconds": seconds,
+            "outcomes": {
+                "invariants": [(i["name"], i["ok"])
+                               for i in report["invariants"]],
+                "ok": report["ok"],
+                "detect_records": report["slos"]["detect_records"],
+                "published": report["published"],
+                "scored": report["scored"],
+                "adaptations": [tuple(a) for a in learner.adaptations],
+                "versions": len(learner.published_versions),
+                "hot_swaps": int(swaps.group(1)) if swaps else None}}
+
+
+def _windows_timing(learner) -> dict:
+    """Training calls of ``learner`` (transfer, K steps, the loss sync)
+    by group size K (1 = a single window): the median ms a window over
+    the warm calls, the first call of the process's first size apart
+    (it pays the card's cold start), and windows/s over all calls."""
+    first_k, first_s = learner.calls[0]
+    by_k = {}
+    for k, sec in learner.calls[1:]:
+        by_k.setdefault(k, []).append(sec)
+    windows = sum(k for k, _s in learner.calls)
+    seconds = sum(sec for _k, sec in learner.calls)
+    return {"windows_per_s": windows / seconds,
+            "ms_per_window": {str(k): 1e3 * float(np.median(v)) / k
+                              for k, v in sorted(by_k.items())},
+            "calls": {str(k): len(v) for k, v in sorted(by_k.items())},
+            "first_call": {"k": first_k, "ms": 1e3 * first_s}}
+
+
+def _step_profile(learner) -> dict:
+    """One training step of ``learner`` on its newest buffered window
+    under ``torch.profiler``: the CUDA kernels it launched, their summed
+    device time and the step's wall time (transfer-free: the window is
+    already on the card; ends in the loss sync)."""
+    x, m, _n = learner.buffer[-1]
+    tr = learner.trainer
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        _state, metrics = tr._step(tr.state, x, x, m)
+        float(metrics["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"cuda_kernels": len(kernels), "device_ms": device_ms,
+            "wall_ms_profiled": wall_ms,
+            "device_busy_share": device_ms / wall_ms if kernels else None}
+
+
+def _online_run_process(root: str) -> dict:
+    """``python -m iotml_torch.online run`` as an OS process on the card
+    over the port's wire server (127.0.0.1:0) holding LIVE_RECORDS
+    records, with ``--registry``: it must publish, and the group's
+    committed offsets must trail the newest manifest."""
+    backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
+    reg_root = str(Path(root) / "online_run_registry")
+    built = _build_files()
+    with KafkaWireServer(backing) as srv:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [*ONLINE_CMD, "run", "--servers", f"127.0.0.1:{srv.port}",
+             "--registry", reg_root, "--max-seconds",
+             str(ONLINE_RUN_SECONDS)],
+            capture_output=True, text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"online run exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    lines = [json.loads(s) for s in proc.stdout.splitlines()
+             if s.startswith("{")]
+    final = lines[-1]
+    reg = ModelRegistry(reg_root)
+    latest = reg.latest()
+    if latest is None or final["updates"] < 1:
+        raise AssertionError(f"online run published nothing: {final}")
+    stamped = {p: off for _t, p, off in reg.manifest(latest).offsets}
+    committed = {p: backing.committed(ONLINE_GROUP, SERVE_TOPIC, p)
+                 for p in stamped}
+    if any(c is None or c > stamped[p] for p, c in committed.items()):
+        raise AssertionError(f"online run committed {committed} past the "
+                             f"newest manifest {stamped}")
+    if _build_files() != built:
+        raise AssertionError("the online run process rebuilt a library")
+    return {"rc": 0, "seconds": seconds, "update_lines": len(lines) - 1,
+            "updates": final["updates"],
+            "records_trained": final["records_trained"],
+            "adaptations": final["adaptations"],
+            "versions": len(reg.versions()), "newest": latest,
+            "manifest_offsets": stamped, "committed": committed,
+            "no_rebuild": True}
+
+
+def _online_catch_up(root: str) -> dict:
+    """Records/s over the same LIVE_RECORDS backlog, in this process on
+    the card, over the native client on the wire server: the learner in
+    catch-up (groups of ``fuse`` = 8 windows of 100) against
+    ``ContinuousTrainer``'s micro-batch rounds (20 × 100, one fit launch
+    each; their launches are the baseline's, not the online path's)."""
+    backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
+    with KafkaWireServer(backing) as srv:
+        servers = f"127.0.0.1:{srv.port}"
+        made = []
+        learner = _online_learner_class(made, check=False)(
+            NativeKafkaBroker(servers), SERVE_TOPIC,
+            registry=ModelRegistry(str(Path(root) / "online_catch_up")),
+            window=ONLINE_WINDOW)
+        reset_fit_launches()
+        t0 = time.perf_counter()
+        windows = learner.process_available()
+        online_s = time.perf_counter() - t0
+        launches = fused_train.fused_fit.launches
+        _check_all_rows("the catch-up drain")
+        profile = _step_profile(learner)
+        learner.close()
+        trainer = ContinuousTrainer(
+            NativeKafkaBroker(servers), SERVE_TOPIC, None,
+            registry=ModelRegistry(str(Path(root) / "online_baseline")),
+            group="online-baseline")
+        t0 = time.perf_counter()
+        while trainer.available() >= trainer.min_available:
+            trainer.train_round()
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        trainer.close()
+    online_rps = learner.records_trained / online_s
+    batch_rps = trainer.records_trained / batch_s
+    return {"launches": launches,
+            "online": {"windows": windows,
+                       "records": learner.records_trained,
+                       "seconds": online_s, "records_per_s": online_rps,
+                       "host_pipeline_s": learner.seconds["host_pipeline"],
+                       "publish_s": learner.seconds["publish"],
+                       "device_compute_s": learner.seconds["device_compute"],
+                       "step_profile": profile,
+                       **_windows_timing(learner)},
+            "micro_batch": {"rounds": trainer.rounds,
+                            "records": trainer.records_trained,
+                            "seconds": batch_s, "records_per_s": batch_rps},
+            "online_over_micro_batch": online_rps / batch_rps}
+
+
+def phase_online_path(card: str, root: str) -> dict:
+    """Online learning (ROADMAP A8) on the card: the drift-adapt-swap
+    drill at its defaults on the card and on the CPU, which must agree;
+    refits on B1 held against the step loop; ``python -m
+    iotml_torch.online run`` as a process; catch-up records/s beside the
+    micro-batch trainer's."""
+    reset_launches()
+    reset_fit_launches()
+    card_drill = _online_drill(None)
+    drill_launches = fused_train.fused_fit.launches
+    _check_all_rows("the drill")
+    learner = card_drill["learner"]
+    refit_launches = sum(r["launches"] for r in learner.refit_log)
+    if drill_launches != 1 + refit_launches:
+        raise AssertionError(f"the drill launched the fit {drill_launches} "
+                             f"times: 1 pre-train + {refit_launches} refit")
+    cpu_drill = _online_drill("cpu")
+    got, want = card_drill["outcomes"], cpu_drill["outcomes"]
+    if got != want:
+        raise AssertionError(f"the card's drill {got} differs from the "
+                             f"CPU's {want}")
+    aucs = {}
+    for key in ("auc_pre", "auc_during", "auc_post"):
+        a = card_drill["report"]["slos"][key]
+        b = cpu_drill["report"]["slos"][key]
+        if (a is None) != (b is None) or \
+                (a is not None and abs(a - b) > ONLINE_AUC_TOL):
+            raise AssertionError(f"drill {key}: card {a}, CPU {b}")
+        aucs[key] = {"card": a, "cpu": b}
+    verdicts = {"card": "PASS" if card_drill["report"]["ok"] else "FAIL",
+                "cpu": "PASS" if cpu_drill["report"]["ok"] else "FAIL"}
+    # refits on the card, each held against the plain step loop
+    made = []
+    lrn = _online_learner_class(made, check=True)(
+        Broker(), "T", window=ONLINE_WINDOW, publish_every=10**9,
+        policy=AdaptationPolicy(action="refit"))
+    fleet = AdversarialFleet(
+        FleetScenario(num_cars=ONLINE_REFIT_CARS, failure_rate=0.0,
+                      seed=7), scenario_condition("regional-drift",
+                                                  drift_tick=80))
+    reset_fit_launches()
+    for ticks in (80, 120):
+        fleet.publish_stream(lrn.broker, "T", n_ticks=ticks)
+        lrn.process_available()
+    check_launches = fused_train.fused_fit.launches
+    _check_all_rows("the refit check")
+    if not lrn.refit_log or check_launches != sum(
+            r["launches"] for r in lrn.refit_log):
+        raise AssertionError(f"refit check: adaptations {lrn.adaptations}, "
+                             f"{check_launches} launches for "
+                             f"{lrn.refit_log}")
+    run = _online_run_process(root)
+    catch_up = _online_catch_up(root)
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"the online path launched {attention}")
+    refits = learner.refit_log + lrn.refit_log
+    launches = drill_launches + check_launches + catch_up["launches"]
+    info = {"phase": "online_path", "card": card,
+            "drill": {"verdict": verdicts, "outcomes": got, "auc": aucs,
+                      "slos": card_drill["report"]["slos"],
+                      "seconds": {"card": card_drill["seconds"],
+                                  "cpu": cpu_drill["seconds"]},
+                      "b1_launches": {"pretrain": 1,
+                                      "refits": refit_launches},
+                      "publishes": len(learner.published_versions),
+                      "offsets_lag": learner.checkpointer.offsets_lag,
+                      "hot_swaps": got["hot_swaps"],
+                      "refit_ms": [1e3 * r["seconds"]
+                                   for r in learner.refit_log],
+                      **_windows_timing(learner)},
+            "refit_check": {"adaptations": lrn.adaptations,
+                            "refits": lrn.refit_log,
+                            "launches": check_launches,
+                            "tolerance": {"params, moments": STATE_TOL,
+                                          "last_loss": METRIC_TOL}},
+            "ms_per_refit": (1e3 * sum(r["seconds"] for r in refits)
+                             / len(refits)),
+            "run": run, "catch_up": catch_up,
+            "kernel_launches": launches}
+    emit(info)
+    return {"launches": launches, "counts": attention,
+            "launches_by_design": {d: (launches if d == "rows" else 0)
+                                   for d in fused_train.DESIGNS}}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -3488,6 +3886,7 @@ def main() -> int:
         lstm_info = phase_lstm_path(card, root)
         mnist_info = phase_mnist_path(card)
         lc_info = phase_lifecycle_path(card, root, live_info)
+        online_info = phase_online_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -3510,7 +3909,8 @@ def main() -> int:
              "lstm_path": {key: lstm_info["counts"][key]
                            for key in flash_attention.launches},
              "mnist_path": {key: mnist_info["counts"][key]
-                            for key in flash_attention.launches}}
+                            for key in flash_attention.launches},
+             "online_path": online_info["counts"]}
     design = timing["design"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
@@ -3518,7 +3918,8 @@ def main() -> int:
         "replaces": "iotml/ops/fused_train.py:64", "design": design,
         "launches": main_info["launches"] + cli_info["launches"]
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
-        + live_info["launches"] + lc_info["launches"] + cc_info["launches"]
+        + live_info["launches"] + lc_info["launches"]
+        + online_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -3528,6 +3929,7 @@ def main() -> int:
                              "wire_path": wire_info["launches"],
                              "live_path": live_info["launches"],
                              "lifecycle_path": lc_info["launches"],
+                             "online_path": online_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -3538,6 +3940,7 @@ def main() -> int:
             + wire_info["launches_by_design"][d]
             + live_info["launches_by_design"][d]
             + lc_info["launches_by_design"][d]
+            + online_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),

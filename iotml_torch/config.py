@@ -1,5 +1,5 @@
 """Typed configuration (``iotml.config``'s resolver, cut to its ``broker``,
-``train``, ``serve`` and ``mlops`` sections).
+``train``, ``serve``, ``mlops`` and ``online`` sections).
 
 One dataclass tree with one resolution order:
 
@@ -76,11 +76,36 @@ class MlopsConfig:
 
 
 @dataclasses.dataclass
+class OnlineConfig:
+    """True online learning (``online``): per-window incremental updates
+    with drift-triggered adaptation.
+
+    The learner itself is constructed explicitly (``python -m
+    iotml_torch.online run`` or the drill); these knobs set its detector
+    thresholds and adaptation policy.  Detector deltas are unit-free
+    (the monitor normalizes the error signal by its own stable
+    baseline)."""
+
+    window: int = 100            # records per incremental SGD update
+    detector: str = "both"       # ph | adwin | both
+    ph_delta: float = 0.15       # Page-Hinkley drift allowance
+    ph_threshold: float = 2.5    # Page-Hinkley trip level (lambda)
+    adwin_delta: float = 0.002   # ADWIN cut confidence
+    adapt: str = "auto"          # boost | refit | reset | auto
+    lr_boost: float = 5.0        # LR multiplier while adapting
+    boost_updates: int = 80      # windows the boost stays active
+    refit_epochs: int = 2        # replay-buffer passes on "refit"
+    publish_every: int = 20      # windows between steady-state publishes
+    buffer_batches: int = 32     # replay-buffer depth (windows)
+
+
+@dataclasses.dataclass
 class Config:
     broker: BrokerConfig = dataclasses.field(default_factory=BrokerConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     mlops: MlopsConfig = dataclasses.field(default_factory=MlopsConfig)
+    online: OnlineConfig = dataclasses.field(default_factory=OnlineConfig)
 
 
 #: the JAX package's other sections, and the ROADMAP item that ports each
@@ -90,7 +115,6 @@ UNPORTED_SECTIONS = {
     "artifacts": "A6 (the CLIs)", "scenario": "A6 (the CLIs)",
     "store": "A13 (the rest of the tooling)",
     "tier": "A13 (the rest of the tooling)",
-    "online": "A8 (online learning)",
     "slo": "A13 (the rest of the tooling)",
 }
 

@@ -44,7 +44,8 @@ from ..stream.consumer import StreamConsumer
 from ..stream.group import GroupConsumer
 from ..stream.native import KEY_STRIDE, NativeCodec
 
-#: most messages one consumer poll fetches (the JAX ``poll_chunk`` default)
+#: most messages one consumer poll fetches by default (the JAX
+#: ``poll_chunk`` default)
 POLL_CHUNK = 4096
 
 
@@ -158,7 +159,8 @@ class SensorBatches:
                  keep_labels: bool = False,
                  keep_keys: bool = False,
                  cache: bool = False,
-                 schema: RecordSchema = KSQL_CAR_SCHEMA):
+                 schema: RecordSchema = KSQL_CAR_SCHEMA,
+                 poll_chunk: int = POLL_CHUNK):
         self.normalizer = normalizer
         self.batch_size = batch_size
         self.take = take
@@ -169,6 +171,7 @@ class SensorBatches:
         self.keep_labels = keep_labels
         self.keep_keys = keep_keys
         self.cache = cache
+        self.poll_chunk = poll_chunk
         self._cached = None
         self.consumer = None  # a StreamConsumer or a GroupConsumer
         self.source: Optional[RowSource] = None
@@ -240,8 +243,8 @@ class SensorBatches:
         fused = self._fused()
         while True:
             if self.consumer is not None:
-                limit = POLL_CHUNK if self._need_rows is None \
-                    else max(1, min(POLL_CHUNK, self._need_rows))
+                limit = self.poll_chunk if self._need_rows is None \
+                    else max(1, min(self.poll_chunk, self._need_rows))
                 if fused:
                     try:
                         res = self.consumer.poll_decoded(

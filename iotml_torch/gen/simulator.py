@@ -133,6 +133,18 @@ class FleetGenerator:
         return np.stack([cols[f.name].astype(np.float64)
                          for f in CAR_SCHEMA.fields], axis=1)
 
+    def row_record(self, cols: dict, i: int, schema: RecordSchema) -> dict:
+        """Row i of a step's columns as a dict record in ``schema``'s
+        naming (the per-record leg ``gen.scenarios`` encodes)."""
+        rec = {}
+        for f_ref, f_out in zip(CAR_SCHEMA.fields, schema.sensor_fields):
+            v = cols[f_ref.name][i]
+            rec[f_out.name] = int(v) if f_out.avro_type in ("int", "long") \
+                else float(v)
+        if schema.label_field:
+            rec[schema.label_field] = str(cols["failure_occurred"][i])
+        return rec
+
     def publish(self, broker, topic: str, n_ticks: int = 1,
                 schema: RecordSchema = KSQL_CAR_SCHEMA,
                 partitions: int = 1) -> int:

@@ -25,14 +25,25 @@ degrades checkpoint FREQUENCY, never training throughput.
 ``state.npz`` is the JAX package's positional layout, so each package
 resumes the other's: ``p_0..p_7`` are the params in flax's sorted leaf
 order (``decoder0/bias``, ``decoder0/kernel``, ``decoder1/bias``, …,
-``encoder1/kernel``; kernels [in, out]), ``o_0..o_16`` the plain
-``optax.adam`` state (``count``, then ``mu`` and ``nu`` in the same
-order), ``step`` the train step.
+``encoder1/kernel``; kernels [in, out]), ``o_*`` the optimizer state
+and ``step`` the train step.  The optimizer state has one of two
+layouts, picked by the state's optimizer:
+
+- the plain ``optax.adam`` (``AdamState``), 17 leaves: ``count``, then
+  ``mu`` and ``nu`` in the params' order;
+- the online learner's ``inject_hyperparams(optax.adam)``
+  (``InjectableAdamState``), 23 leaves: ``count``, the float32
+  ``b1``, ``b2``, ``eps``, ``eps_root`` and ``learning_rate``, the
+  inner ``count``, then ``mu`` and ``nu``.
+
+A blob of one layout does not restore onto a template of the other
+(``ValueError``); ``restore_trainer`` then loads the weights alone.
 
 Not ported: the ``ckpt.write`` chaos point (ROADMAP A3), the metrics
 registry's timings and gauges (A13: the phases are kept as plain
-``seconds``) and the supervised writer loop (A14: ``start()`` runs a
-plain daemon thread).
+``seconds``, and the offsets lag the gauge would show as
+``offsets_lag``) and the supervised writer loop (A14: ``start()`` runs
+a plain daemon thread).
 """
 
 from __future__ import annotations
@@ -50,9 +61,10 @@ from ..models.autoencoder import LAYERS
 from ..models.h5_export import autoencoder_params_to_h5
 from ..models.h5_import import autoencoder_params_from_h5
 from ..models.convert import (adam_from_optax, adam_to_optax,
+                              inject_adam_from_optax, inject_adam_to_optax,
                               params_from_jax, params_to_jax)
 from ..train.loop import TrainState
-from ..train.optim import AdamState
+from ..train.optim import HYPERPARAMS, AdamState, InjectableAdamState
 from .registry import ModelRegistry
 
 
@@ -70,12 +82,18 @@ def _unleaves(leaves: Sequence[np.ndarray], like: dict) -> dict:
             for layer in sorted(like)}
 
 
-def state_to_npz_bytes(params, opt_state: AdamState, step: int) -> bytes:
-    """(params state_dict, ``AdamState``, step) → one .npz blob in the JAX
-    package's positional leaf order (``p_<i>`` / ``o_<i>`` / ``step``)."""
+def state_to_npz_bytes(params, opt_state, step: int) -> bytes:
+    """(params state_dict, ``AdamState`` or ``InjectableAdamState``,
+    step) → one .npz blob in the JAX package's positional leaf order
+    (``p_<i>`` / ``o_<i>`` / ``step``)."""
     p_leaves = _leaves(params_to_jax(params))
-    count, mu, nu = adam_to_optax(opt_state)
-    o_leaves = [count] + _leaves(mu) + _leaves(nu)
+    if isinstance(opt_state, InjectableAdamState):
+        count, hp, (inner_count, mu, nu) = inject_adam_to_optax(opt_state)
+        head = [count] + [hp[k] for k in HYPERPARAMS] + [inner_count]
+    else:
+        count, mu, nu = adam_to_optax(opt_state)
+        head = [count]
+    o_leaves = head + _leaves(mu) + _leaves(nu)
     arrays = {f"p_{i}": a for i, a in enumerate(p_leaves)}
     arrays.update({f"o_{i}": a for i, a in enumerate(o_leaves)})
     arrays["step"] = np.asarray(int(step))
@@ -84,12 +102,30 @@ def state_to_npz_bytes(params, opt_state: AdamState, step: int) -> bytes:
     return buf.getvalue()
 
 
+def _read_leaves(arrays: dict, prefix: str, shapes) -> List[np.ndarray]:
+    """``arrays[prefix<i>]`` for each wanted shape, checked in order: the
+    first leaf whose shape differs (or that the blob lacks) raises."""
+    out = []
+    for i, want in enumerate(shapes):
+        got = arrays.get(f"{prefix}{i}")
+        if got is None or tuple(got.shape) != tuple(want):
+            raise ValueError(
+                f"checkpoint leaf shape "
+                f"{None if got is None else tuple(got.shape)} of "
+                f"{prefix}{i} does not match template {tuple(want)} — "
+                f"wrong model architecture or optimizer for this "
+                f"checkpoint")
+        out.append(got)
+    return out
+
+
 def state_from_npz_bytes(data: bytes, template_state):
     """Rebuild a ``TrainState`` from ``state_to_npz_bytes`` output (the
-    port's or the JAX package's) onto a template with the same model,
-    shape-checked leaf by leaf; the tensors land on the template's
-    device.  A blob of another optimizer layout (the 23-leaf injectable
-    Adam) fails the shape check with ``ValueError``, as in JAX."""
+    port's or the JAX package's) onto a template with the same model and
+    optimizer, shape-checked leaf by leaf; the tensors land on the
+    template's device.  A blob of the other optimizer layout (17 leaves
+    onto an injectable template, or 23 onto a plain one) fails the
+    check with ``ValueError``."""
     with np.load(io.BytesIO(data)) as z:
         arrays = {k: z[k] for k in z.files}
     # the template's flax-layout shapes (kernels [in, out]), read off the
@@ -100,24 +136,30 @@ def state_from_npz_bytes(data: bytes, template_state):
                           f"{layer}.weight"].shape[::-1])}
               for layer in LAYERS}
     p_shapes = _leaves(p_tmpl)
-    o_shapes = [()] + p_shapes * 2
-    p_leaves = [arrays[f"p_{i}"] for i in range(len(p_shapes))]
-    o_leaves = [arrays[f"o_{i}"] for i in range(len(o_shapes))]
-    for got, want in zip(p_leaves + o_leaves, p_shapes + o_shapes):
-        if tuple(got.shape) != tuple(want):
-            raise ValueError(
-                f"checkpoint leaf shape {tuple(got.shape)} does not "
-                f"match template {tuple(want)} — wrong model "
-                f"architecture for this checkpoint")
+    inject = isinstance(template_state.opt_state, InjectableAdamState)
+    n_head = 2 + len(HYPERPARAMS) if inject else 1
+    p_leaves = _read_leaves(arrays, "p_", p_shapes)
+    o_leaves = _read_leaves(arrays, "o_", [()] * n_head + p_shapes * 2)
     n = len(p_shapes)
-    opt = adam_from_optax(o_leaves[0], _unleaves(o_leaves[1:1 + n], p_tmpl),
-                          _unleaves(o_leaves[1 + n:], p_tmpl))
+    mu = _unleaves(o_leaves[n_head:n_head + n], p_tmpl)
+    nu = _unleaves(o_leaves[n_head + n:], p_tmpl)
     device = next(iter(template_state.params.values())).device
+    if inject:
+        opt = inject_adam_from_optax(
+            o_leaves[0], dict(zip(HYPERPARAMS, o_leaves[1:n_head - 1])),
+            (o_leaves[n_head - 1], mu, nu))
+        opt.inner = _adam_to(opt.inner, device)
+    else:
+        opt = _adam_to(adam_from_optax(o_leaves[0], mu, nu), device)
     return TrainState(
         step=int(arrays["step"]),
         params=_to(params_from_jax(_unleaves(p_leaves, p_tmpl)), device),
-        opt_state=AdamState(count=opt.count, mu=_to(opt.mu, device),
-                            nu=_to(opt.nu, device)))
+        opt_state=opt)
+
+
+def _adam_to(opt: AdamState, device) -> AdamState:
+    return AdamState(count=opt.count, mu=_to(opt.mu, device),
+                     nu=_to(opt.nu, device))
 
 
 def _to(params: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
@@ -136,13 +178,16 @@ def params_from_h5_bytes(data: bytes) -> Dict[str, torch.Tensor]:
     return autoencoder_params_from_h5(data)
 
 
-def host_state(state) -> Tuple[Dict[str, torch.Tensor], AdamState]:
-    """(params, ``AdamState``) of ``state`` as CPU tensors, in ONE
+def host_state(state) -> Tuple[Dict[str, torch.Tensor], object]:
+    """(params, optimizer state) of ``state`` as CPU tensors, in ONE
     device-to-host copy into a buffer of their own: views of it, never of
-    a device buffer that a later fit overwrites."""
+    a device buffer that a later fit overwrites.  An
+    ``InjectableAdamState`` keeps its counts and (host) hyperparameters
+    around the copied moments."""
     names = list(state.params)
     opt = state.opt_state
-    parts = [tree[k] for tree in (state.params, opt.mu, opt.nu)
+    adam = opt.inner if isinstance(opt, InjectableAdamState) else opt
+    parts = [tree[k] for tree in (state.params, adam.mu, adam.nu)
              for k in names]
     flat = torch.cat([t.detach().reshape(-1) for t in parts]).to("cpu")
     views, off = [], 0
@@ -151,20 +196,29 @@ def host_state(state) -> Tuple[Dict[str, torch.Tensor], AdamState]:
         off += t.numel()
     n = len(names)
     params = dict(zip(names, views[:n]))
-    return params, AdamState(count=int(opt.count),
-                             mu=dict(zip(names, views[n:2 * n])),
-                             nu=dict(zip(names, views[2 * n:])))
+    moments = AdamState(count=int(adam.count),
+                        mu=dict(zip(names, views[n:2 * n])),
+                        nu=dict(zip(names, views[2 * n:])))
+    if adam is opt:
+        return params, moments
+    return params, InjectableAdamState(
+        count=int(opt.count),
+        hyperparams={k: v.clone() for k, v in opt.hyperparams.items()},
+        inner=moments)
 
 
 class _Snapshot:
-    __slots__ = ("params", "opt_state", "step", "offsets", "metrics")
+    __slots__ = ("params", "opt_state", "step", "offsets", "metrics",
+                 "end_offsets")
 
-    def __init__(self, params, opt_state, step, offsets, metrics):
+    def __init__(self, params, opt_state, step, offsets, metrics,
+                 end_offsets):
         self.params = params
         self.opt_state = opt_state
         self.step = step
         self.offsets = offsets
         self.metrics = metrics
+        self.end_offsets = end_offsets
 
 
 class AsyncCheckpointer:
@@ -220,6 +274,10 @@ class AsyncCheckpointer:
         self.dropped = 0
         self.last_error: Optional[str] = None
         self.last_version: Optional[int] = None
+        #: records between the newest written version's cursors and the
+        #: log end captured with its snapshot (``end_offsets``), summed
+        #: over partitions; None until such a version is written
+        self.offsets_lag: Optional[int] = None
         #: cumulative wall seconds per phase: the device-to-host snapshot
         #: (train thread), serialize (h5 + npz) and fsync (the registry
         #: publish), both on the writer
@@ -228,14 +286,17 @@ class AsyncCheckpointer:
     # ------------------------------------------------- train-thread side
     def snapshot(self, state, cursors: Sequence[Tuple[str, int, int]],
                  metrics: Optional[Dict[str, float]] = None,
+                 end_offsets: Optional[Dict[Tuple[str, int], int]] = None,
                  force: bool = False) -> None:
         """Capture (device→host) and enqueue; returns immediately.
 
         ``cursors`` are the consumer positions AT THIS INSTANT — they
         ride the snapshot into the manifest, so the committed version
         names exactly the data this state was trained through.
-        ``force`` bypasses the cadence throttle (shutdown wants the
-        newest state archived)."""
+        ``end_offsets`` (optional ``(topic, part) → end``) lets the
+        writer compute ``offsets_lag`` without touching the broker from
+        the writer thread.  ``force`` bypasses the cadence throttle
+        (shutdown wants the newest state archived)."""
         if not self.would_accept(force):
             self.coalesced += 1
             return
@@ -244,7 +305,7 @@ class AsyncCheckpointer:
         params, opt_state = host_state(state)
         snap = _Snapshot(params, opt_state if self.save_opt_state else None,
                          int(state.step), [tuple(c) for c in cursors],
-                         dict(metrics or {}))
+                         dict(metrics or {}), dict(end_offsets or {}))
         self.seconds["snapshot"] += time.perf_counter() - t0
         with self._lock:
             while len(self._queue) >= self.queue_depth:
@@ -306,6 +367,10 @@ class AsyncCheckpointer:
             # re-commits forward
             self.last_error = f"{type(e).__name__}: {e}"
             raise
+        if snap.end_offsets:
+            self.offsets_lag = sum(
+                max(0, snap.end_offsets.get((t, p), o) - o)
+                for t, p, o in snap.offsets)
         if self.keep_versions > 0:
             self.registry.prune(self.keep_versions)
         with self._lock:

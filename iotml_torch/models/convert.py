@@ -5,7 +5,9 @@ is ``{layer: {"kernel": [in, out], "bias": [out]}}``; the port's
 state_dict is ``{"layer.weight": [out, in], "layer.bias": [out]}``.
 Both directions are exact (a transpose and a copy).  Adam state crosses
 the same way, so a JAX ``TrainState`` (params + optax ``count, mu, nu``)
-carries over whole.
+carries over whole, and so does one of the online learner's
+``inject_hyperparams(optax.adam)`` (``count``, ``hyperparams`` and the
+inner ``count, mu, nu``).
 
 A flax ``SensorFormer`` tree maps the same way, plus: ``pos`` is
 ``{"embedding": [max_len, d]}`` (``pos.weight``); LayerNorm ``scale`` is
@@ -29,7 +31,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..train.optim import AdamState
+from ..train.optim import HYPERPARAMS, AdamState, InjectableAdamState
 from .autoencoder import LAYERS
 from .lstm import GATES
 
@@ -64,6 +66,28 @@ def adam_to_optax(state: AdamState) -> Tuple[np.ndarray, dict, dict]:
     """The port's ``AdamState`` → (int32 count, mu tree, nu tree)."""
     return (np.asarray(state.count, np.int32),
             params_to_jax(state.mu), params_to_jax(state.nu))
+
+
+def inject_adam_from_optax(count, hyperparams, inner) -> InjectableAdamState:
+    """optax ``InjectHyperparamsState`` fields over ``optax.adam`` — its
+    ``count``, ``hyperparams`` dict and inner ``ScaleByAdamState`` (or
+    its ``(count, mu, nu)``) — → the port's ``InjectableAdamState``."""
+    inner_count, mu, nu = inner
+    return InjectableAdamState(
+        count=int(np.asarray(count)),
+        hyperparams={k: torch.tensor(np.float32(hyperparams[k]))
+                     for k in HYPERPARAMS},
+        inner=adam_from_optax(inner_count, mu, nu))
+
+
+def inject_adam_to_optax(state: InjectableAdamState):
+    """The port's ``InjectableAdamState`` → (int32 count, {name: float32
+    scalar}, (int32 count, mu tree, nu tree)), the fields of optax's
+    ``InjectHyperparamsState`` and of its inner ``ScaleByAdamState``."""
+    return (np.asarray(state.count, np.int32),
+            {k: np.asarray(state.hyperparams[k].item(), np.float32)
+             for k in HYPERPARAMS},
+            adam_to_optax(state.inner))
 
 
 def _f32(a) -> np.ndarray:

@@ -1,3 +1,4 @@
-"""Supervision (``iotml.supervise``): only ``topology.Topology`` is ported,
-the cell the model registry publishes its serving flips through.  The
-supervisor and its thread registry are ROADMAP A14."""
+"""Supervision (``iotml.supervise``): ported are ``topology.Topology``,
+the cell the model registry publishes its serving flips through, and
+``drill.DrillReport``, the online drill's report.  The supervisor, its
+thread registry and the live drills are ROADMAP A14."""

@@ -21,6 +21,7 @@ Here:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Callable, Dict, Optional
@@ -124,6 +125,45 @@ def make_scanned_fit(model: torch.nn.Module, tx, supervised: bool = False):
         return state, (torch.stack(losses), torch.stack(accs))
 
     return fit
+
+
+def make_scanned_window_steps(model: torch.nn.Module, tx) -> Callable:
+    """K sequential updates over K windows — the online learner's
+    catch-up group (``make_scanned_window_steps``'s counterpart, whose
+    ``lax.scan`` has no Pallas kernel): (state, xs [K, B, F], masks
+    [K, B]) → (state, losses [K]), the K pre-update losses stacked on
+    the device, so they reach the host in one sync a group.  The same
+    steps as K single calls of ``make_raw_train_step``."""
+    raw = make_raw_train_step(model, tx)
+
+    def run(state: TrainState, xs, masks):
+        losses = []
+        for x, m in zip(xs, masks):
+            state, metrics = raw(state, x, x, m)
+            losses.append(metrics["loss"])
+        return state, torch.stack(losses)
+
+    return run
+
+
+#: make_scanned_window_steps closures by (model, optimizer), least
+#: recently used first; bounded, because each holds its model
+_WINDOW_STEPS: collections.OrderedDict = collections.OrderedDict()
+_WINDOW_STEPS_LIMIT = 8
+
+
+def scanned_window_steps_cached(model: torch.nn.Module, tx) -> Callable:
+    """One ``make_scanned_window_steps`` closure per (model, optimizer)
+    pair, as the JAX package keeps one compiled program per pair."""
+    key = (model, tx)
+    fn = _WINDOW_STEPS.get(key)
+    if fn is None:
+        fn = _WINDOW_STEPS[key] = make_scanned_window_steps(model, tx)
+        if len(_WINDOW_STEPS) > _WINDOW_STEPS_LIMIT:
+            _WINDOW_STEPS.popitem(last=False)
+    else:
+        _WINDOW_STEPS.move_to_end(key)
+    return fn
 
 
 def make_eval_step(model: torch.nn.Module, supervised: bool = False

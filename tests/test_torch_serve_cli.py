@@ -368,10 +368,7 @@ def test_run_forever_rewinds_and_backs_off_like_jax(stores, monkeypatch,
         real = consumer.rewind_to_committed
         consumer.rewind_to_committed = lambda: (rewinds.append(1), real())
         # poll chunks of 250 records: a drain spans several fetches
-        if which == "torch":
-            monkeypatch.setattr("iotml_torch.data.dataset.POLL_CHUNK", 250)
-        else:
-            scorer.batches.poll_chunk = 250
+        scorer.batches.poll_chunk = 250
         del sleeps[:]
         scorer.run_forever(poll_interval_s=poll_s, max_rounds=6)
         runs[which] = dict(rewinds=len(rewinds), sleeps=list(sleeps),

@@ -23,7 +23,6 @@ from iotml.ops import framing as j_framing
 from iotml.stream.broker import Broker as JBroker
 from iotml.stream.consumer import StreamConsumer as JStreamConsumer
 from iotml_torch.core import schema as t_schema
-from iotml_torch.data import dataset as t_dataset
 from iotml_torch.data.dataset import SensorBatches
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.ops import avro as t_avro
@@ -375,14 +374,10 @@ def _assert_same_batches(got, want):
     {"batch_size": 30, "take": 7, "poll_chunk": 41, "only_normal": True},
     {"batch_size": 50, "partitions": 3, "keep_labels": True},
 ])
-def test_sensor_batches_over_consumer_match_jax(kw, monkeypatch):
+def test_sensor_batches_over_consumer_match_jax(kw):
     kw = dict(kw)
     tc, jc = _topics(partitions=kw.pop("partitions", 1))
-    # the port's poll size is a module constant, the JAX one an argument
-    monkeypatch.setattr(t_dataset, "POLL_CHUNK",
-                        kw.get("poll_chunk", t_dataset.POLL_CHUNK))
-    t_kw = {k: v for k, v in kw.items() if k != "poll_chunk"}
-    _assert_same_batches(list(SensorBatches(tc, **t_kw)),
+    _assert_same_batches(list(SensorBatches(tc, **kw)),
                          list(JSensorBatches(jc, **kw)))
     assert tc.positions() == jc.positions()
 
