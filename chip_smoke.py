@@ -232,7 +232,34 @@ non-zero exit and no result line:
                 catch-up records/s (groups of 8 windows of 100, native
                 client) beside ``ContinuousTrainer``'s over the same
                 backlog, and their ratio (printed, not gated).
-14. timing     — each design held against the plain version over the
+14. obs_path   — the observability plane (metrics, tracing, watermarks,
+                fault points, profiler) on the card, at the main path's
+                width (30,000 fleet rows, 18 → 14 → 7 → 7 → 18, batch
+                100): (1) the fleet published with birth headers, a
+                ``fit_compiled`` over a consumer (one B1 launch) and a
+                ``StreamScorer`` drain of the 30,000 rows under tracing,
+                the span log's stages (publish, consume, train, score)
+                and e2e closes counted exactly (score closes = rows) with
+                each stage's p50/p99, params and payloads equal to an
+                untraced run's bit for bit; (2) ``cli.live train`` and
+                ``score`` as processes with ``--metrics-port``, scraped
+                over HTTP while they run and at the end:
+                ``live_train_rounds_total``, ``records_trained`` and
+                ``records_scored`` equal to the processes' own ``--stats``,
+                ``/healthz`` with the consume/train/score watermarks and
+                stage liveness; (3) ``obs.profile.trace`` around one fit,
+                one ``ContinuousTrainer`` round and one serve drain, each
+                window's device busy share (the union of device
+                intervals) and top 5 device operations; (4) a
+                ``ChaosEngine`` armed in-process: ``scorer.poll`` raises
+                once (one rewind, every row scored, duplicates counted),
+                ``trainer.poll`` is delayed and ``ckpt.write`` raises once
+                over four registry rounds (one B1 launch each), the final
+                params within rtol 1e-4 / atol 1e-7 of an unfaulted run's,
+                the hit and fire counts equal to a CPU run of the same
+                schedule; (5) the serve drain and the fit timed with
+                tracing off and on, in turns (off, on, on, off, twice).
+15. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -242,7 +269,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-15. attention_kernel — the flash-attention kernel against its plain
+16. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -265,13 +292,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-16. sensorformer_path — SensorFormer at full width (its defaults) scores
+17. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-17. attention_timing — kernel, plain version, bound and the library
+18. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -282,7 +309,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-18. attention_backward_kernel — the dK/dV and dQ kernels against the
+19. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -301,18 +328,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-19. sensorformer_train — the slice's main path: ``make_sp_train_step``
+20. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 16; each step launches exactly
+                fleet histories of phase 17; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-20. attention_backward_timing — each backward kernel, the plain
+21. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 17, beside the bound, the fp32 FMA floor
+                shapes of phase 18, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -327,13 +354,14 @@ Then the kernels line (the fit's design, and its launches by design on
 the main path and by path, the main path, the CLI path, the serve path
 (none), the wire path, the live path (one a round), the lifecycle path
 (one for the CLI train and one a registry round), the online path (the
-drill's pre-train and every refit's), the creditcard path
+drill's pre-train and every refit's), the obs path (two traced fits,
+two captures, eight chaos rounds, eight timed fits), the creditcard path
 (one), the LSTM and MNIST paths (none), summed in ``launches``; the
 creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 16), the training steps (phase 19), the long-context forward +
-backward (phase 20) and the serve, creditcard, LSTM, MNIST and online
+(phase 17), the training steps (phase 20), the long-context forward +
+backward (phase 21) and the serve, creditcard, LSTM, MNIST and online
 paths (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -345,13 +373,16 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
@@ -359,6 +390,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from iotml_torch.chaos import faults as obs_faults
 from iotml_torch.cli import _app as cli_app
 from iotml_torch.cli import cardata
 from iotml_torch.cli import creditcard as creditcard_cli
@@ -386,6 +418,9 @@ from iotml_torch.models.h5_import import autoencoder_params_from_h5
 from iotml_torch.models.lstm import LSTMSpec
 from iotml_torch.models.mnist import MNISTClassifier
 from iotml_torch.models.transformer import SensorFormer
+from iotml_torch.obs import metrics as obs_metrics
+from iotml_torch.obs import profile as obs_profile
+from iotml_torch.obs import tracing as obs_tracing
 from iotml_torch.online import __main__ as online_cli
 from iotml_torch.online import drill as online_drill
 from iotml_torch.online.learner import AdaptationPolicy, OnlineLearner
@@ -2503,27 +2538,22 @@ def _windows_timing(learner) -> dict:
             "first_call": {"k": first_k, "ms": 1e3 * first_s}}
 
 
-def _step_profile(learner) -> dict:
-    """One training step of ``learner`` on its newest buffered window
-    under ``torch.profiler``: the CUDA kernels it launched, their summed
-    device time and the step's wall time (transfer-free: the window is
-    already on the card; ends in the loss sync)."""
+def _step_profile(learner, root: str) -> dict:
+    """One training step of ``learner`` on its newest buffered window in
+    an ``obs.profile`` capture: the device operations it ran, the union
+    of their intervals (device ms) and its share of the window (the step
+    and its loss sync; transfer-free: the window is already on the
+    card)."""
     x, m, _n = learner.buffer[-1]
     tr = learner.trainer
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    with obs_profile.trace(f"{root}/step_profile") as cap:
         _state, metrics = tr._step(tr.state, x, x, m)
         float(metrics["loss"])
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    return {"cuda_kernels": len(kernels), "device_ms": device_ms,
-            "wall_ms_profiled": wall_ms,
-            "device_busy_share": device_ms / wall_ms if kernels else None}
+    s = cap.summary(top=5)
+    return {"cuda_kernels": s["device_ops"], "device_ms": s["device_ms"],
+            "wall_ms_profiled": s["window_ms"],
+            "device_busy_share": s["busy_share"] if s["device_ops"]
+            else None, "top": s["top"]}
 
 
 def _online_run_process(root: str) -> dict:
@@ -2589,7 +2619,7 @@ def _online_catch_up(root: str) -> dict:
         online_s = time.perf_counter() - t0
         launches = fused_train.fused_fit.launches
         _check_all_rows("the catch-up drain")
-        profile = _step_profile(learner)
+        profile = _step_profile(learner, root)
         learner.close()
         trainer = ContinuousTrainer(
             NativeKafkaBroker(servers), SERVE_TOPIC, None,
@@ -2702,6 +2732,467 @@ def phase_online_path(card: str, root: str) -> dict:
     return {"launches": launches, "counts": attention,
             "launches_by_design": {d: (launches if d == "rows" else 0)
                                    for d in fused_train.DESIGNS}}
+
+
+# ------------------------------------------------------------------ obs_path
+OBS_TOPIC = "SENSOR_DATA_S_AVRO"
+#: the fleet rows obs_path publishes with birth headers (main_path's)
+OBS_ROWS = 30_000
+#: the scorer crash, the trainer stall and the lost checkpoint of obs_path
+OBS_CHAOS = [(2, "scorer.poll", "error", {}, 1),
+             (1, "trainer.poll", "delay", {"seconds": 0.01}, 2),
+             (2, "ckpt.write", "error", {"exc": "OSError"}, 1)]
+OBS_CHAOS_ROUNDS = 4
+
+
+def _obs_broker() -> Broker:
+    """main_path's fleet (100 cars, 300 ticks) published into the
+    in-process broker; under tracing every record is born traced."""
+    broker = Broker()
+    FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01)).publish(
+        broker, OBS_TOPIC, n_ticks=OBS_ROWS // 100)
+    return broker
+
+
+def _obs_fit(broker, group: str, device=None):
+    """main_path's fit, over a consumer: 100 batches of 100 normal rows,
+    20 epochs."""
+    batches = SensorBatches(StreamConsumer(broker, [f"{OBS_TOPIC}:0:0"],
+                                           group=group),
+                            batch_size=100, take=100, only_normal=True)
+    trainer = Trainer(CAR_AUTOENCODER, device=device)
+    hist = trainer.fit_compiled(batches, epochs=20)
+    return trainer, hist, batches
+
+
+def _obs_scorer(broker, params, group: str, device=None) -> StreamScorer:
+    out_topic = f"obs-predictions-{group}"
+    broker.create_topic(out_topic)
+    return StreamScorer(
+        CAR_AUTOENCODER, params,
+        SensorBatches(StreamConsumer(broker, [f"{OBS_TOPIC}:0:0"],
+                                     group=group),
+                      batch_size=100, keep_labels=True),
+        OutputSequence(broker, out_topic, partition=0), threshold=5.0,
+        device=device)
+
+
+def _payloads(scorer) -> list:
+    b, topic = scorer.out.broker, scorer.out.topic
+    return [m.value for m in b.fetch(topic, 0, 0, b.end_offset(topic, 0))]
+
+
+def _quantiles(rows, kind: str, key: str) -> dict:
+    by = {}
+    for r in rows:
+        if r["kind"] == kind:
+            by.setdefault(r[key], []).append(r["dur_us"])
+    return {k: {"count": len(v), "p50_ms": float(np.percentile(v, 50)) / 1e3,
+                "p99_ms": float(np.percentile(v, 99)) / 1e3}
+            for k, v in sorted(by.items())}
+
+
+def _obs_traced(root: str) -> dict:
+    """Section 1: the traced fit and drain against an untraced run."""
+    runs = {}
+    dropped = obs_tracing.spans_dropped.value()
+    for traced in (False, True):
+        path = f"{root}/spans.jsonl"
+        obs_tracing.reset()
+        obs_tracing.configure(enabled=traced, sample=1.0,
+                              path=path if traced else "")
+        # the collector holds 65,536 entries a thread (drop-oldest):
+        # flush between the legs, as a scrape would
+        flushed = {"spans": 0, "e2e": 0}
+
+        def flush():
+            for k, v in obs_tracing.flush().items():
+                flushed[k] += v
+
+        broker = _obs_broker()
+        flush()
+        before = fused_train.fused_fit.launches
+        trainer, hist, batches = _obs_fit(broker, "obs-train")
+        launches = fused_train.fused_fit.launches - before
+        if launches != 1:
+            raise AssertionError(f"obs_path's traced={traced} fit launched "
+                                 f"B1 {launches}x")
+        flush()
+        scorer = _obs_scorer(broker, trainer.state.params, "obs-score")
+        # a drain of 30,000 rows records ~90,000 entries: a second thread
+        # drains the collector meanwhile, as a /metrics scrape does
+        done = threading.Event()
+
+        def drainer():
+            while not done.wait(0.02):
+                flush()
+
+        flusher = threading.Thread(target=drainer, daemon=True)
+        flusher.start()
+        try:
+            n = scorer.score_available()
+            torch.cuda.synchronize()
+        finally:
+            done.set()
+            flusher.join()
+        flush()
+        consumed = batches.consumer.positions()[0][2]
+        runs[traced] = {"params": {k: v.cpu() for k, v in
+                                   trainer.state.params.items()},
+                        "loss": hist["loss"], "scored": n,
+                        "payloads": _payloads(scorer),
+                        "consumed": consumed, "flushed": flushed}
+    obs_tracing.configure(enabled=False, path="")
+    off, on = runs[False], runs[True]
+    if obs_tracing.spans_dropped.value() != dropped:
+        raise AssertionError("the collector dropped spans")
+    if off["flushed"] != {"spans": 0, "e2e": 0}:
+        raise AssertionError(f"untraced run recorded {off['flushed']}")
+    for k in PARAM_NAMES:
+        if not torch.equal(off["params"][k], on["params"][k]):
+            raise AssertionError(f"tracing changed the trained {k}")
+    if on["scored"] != OBS_ROWS or off["scored"] != OBS_ROWS or \
+            on["payloads"] != off["payloads"]:
+        raise AssertionError("traced payloads differ from untraced ones")
+    with open(f"{root}/spans.jsonl") as fh:
+        rows = [json.loads(line) for line in fh]
+    stages = _quantiles(rows, "span", "stage")
+    e2e = _quantiles(rows, "e2e", "closer")
+    want = {"devsim_publish": OBS_ROWS,
+            "consume": on["consumed"] + OBS_ROWS,
+            "train": on["consumed"], "score": OBS_ROWS}
+    if {k: v["count"] for k, v in stages.items()} != want or \
+            {k: v["count"] for k, v in e2e.items()} != \
+            {"train": on["consumed"], "score": OBS_ROWS}:
+        raise AssertionError(f"span counts {stages} / {e2e}, want {want}")
+    return {"stages": stages, "e2e": e2e, "rows": OBS_ROWS,
+            "train_rows_consumed": on["consumed"],
+            "payloads_equal_untraced": True, "params_equal_untraced": True}
+
+
+def _free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port: int) -> tuple:
+    base = f"http://127.0.0.1:{port}"
+    with urllib.request.urlopen(f"{base}/metrics", timeout=10) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(f"{base}/healthz", timeout=10) as r:
+        health = json.loads(r.read())
+    return text, health
+
+
+def _metric(text: str, name: str) -> float:
+    """The value of an unlabelled sample in a Prometheus text scrape."""
+    m = re.search(rf"^{re.escape(name)} (\S+)$", text, re.M)
+    if m is None:
+        raise AssertionError(f"{name} missing from the scrape")
+    return float(m.group(1))
+
+
+def _obs_live(root: str) -> dict:
+    """Section 2: both live CLIs as processes with ``--metrics-port``,
+    scraped while they run and at the end.  Each process starts with an
+    empty registry, so its counters are deltas from its start."""
+    backing = cli_app._broker_for(f"emulator:{LIVE_RECORDS}", SERVE_TOPIC)
+    backing.create_topic("obs-live-preds")
+    ports = {"train": _free_port(), "score": _free_port()}
+    env = {**os.environ, "IOTML_TRACE": "1"}  # stage liveness beats
+    procs, scrapes = {}, {"running": {}, "end": {}}
+    with _wire_server(backing) as servers:
+        argv = {"train": ["train", servers, SERVE_TOPIC, f"{root}/obs-live",
+                          *LIVE_SASL, "--stats", "--max-seconds", "600",
+                          "--group", "obs-live-train"],
+                "score": ["score", servers, SERVE_TOPIC, "obs-live-preds",
+                          f"{root}/obs-live", *LIVE_SASL, "--stats",
+                          "--max-seconds", "600", "--group",
+                          "obs-live-score"]}
+        t0 = time.perf_counter()
+        try:
+            for name, args in argv.items():
+                procs[name] = subprocess.Popen(
+                    [*LIVE_CMD, *args, "--metrics-port", str(ports[name])],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, env=env)
+            deadline = time.time() + 300
+            while time.time() < deadline:
+                for name, port in ports.items():
+                    if name not in scrapes["running"]:
+                        with contextlib.suppress(OSError):
+                            scrapes["running"][name] = _scrape(port)
+                trained = backing.committed("obs-live-train", SERVE_TOPIC, 0)
+                if len(scrapes["running"]) == 2 and \
+                        backing.end_offset("obs-live-preds", 0) \
+                        >= LIVE_RECORDS and trained is not None and \
+                        LIVE_RECORDS - trained < LIVE_MIN_AVAILABLE:
+                    break
+                if any(p.poll() is not None for p in procs.values()):
+                    break
+                time.sleep(0.2)
+            time.sleep(1.0)  # the scorer's last stats line and gauges
+            for name, port in ports.items():
+                scrapes["end"][name] = _scrape(port)
+            seconds = time.perf_counter() - t0
+            outs = {}
+            for name, p in procs.items():
+                if p.poll() is None:
+                    p.stdin.write("STOP\n")
+                    p.stdin.flush()
+                outs[name] = p.communicate(timeout=120)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"obs live {name} exited {p.returncode}:\n"
+                                 f"{outs[name][0]}\n{outs[name][1]}")
+    if len(scrapes["running"]) != 2:
+        raise AssertionError("a live process never answered /metrics")
+    lines = {name: [json.loads(line) for line in out.splitlines()
+                    if line.startswith("{")]
+             for name, (out, _) in outs.items()}
+    rounds, drains = lines["train"][-1], lines["score"][-1]
+    t_text, t_health = scrapes["end"]["train"]
+    s_text, s_health = scrapes["end"]["score"]
+    got = {"rounds": _metric(t_text, "live_train_rounds_total"),
+           "records_trained": _metric(t_text, "iotml_records_trained_total"),
+           "records_scored": _metric(s_text, "iotml_records_scored_total")}
+    want = {"rounds": rounds["round"], "records_trained":
+            rounds["records_cum"], "records_scored": drains["scored"]}
+    if got != want or drains["scored"] != LIVE_RECORDS:
+        raise AssertionError(f"scraped {got}, the processes' stats {want}")
+    marks = {}
+    for name, health, stage in (("train", t_health, "train"),
+                                ("score", s_health, "score")):
+        wms = health.get("watermarks", {})
+        for need in ("consume", stage):
+            if not any(k.startswith(f"{need}:{SERVE_TOPIC}:")
+                       for k in wms):
+                raise AssertionError(f"{name} /healthz lacks the {need} "
+                                     f"watermark: {sorted(wms)}")
+        if "consume" not in health.get("stages", {}):
+            raise AssertionError(f"{name} /healthz lacks stage liveness")
+        marks[name] = {"watermarks": sorted(wms),
+                       "stages": sorted(health["stages"])}
+    return {"scraped": got, "stats": want, "healthz": marks,
+            "seconds_to_done": seconds,
+            "scrapes_while_running": sorted(scrapes["running"])}
+
+
+def _obs_captures(root: str, card: str) -> dict:
+    """Section 3: profiler windows around one fit, one live round and one
+    serve drain of 30,000 rows, each with its busy share and top ops."""
+    broker = _obs_broker()
+    gen = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01))
+    source = RowSource.from_fleet(gen, n_ticks=300)
+    out = {}
+    fit = Trainer(CAR_AUTOENCODER)
+    fit._ensure_state()
+    batches = SensorBatches(source, batch_size=100, take=100,
+                            only_normal=True)
+    with obs_profile.trace(f"{root}/prof") as cap:
+        fit.fit_compiled(batches, epochs=20)
+    out["fit_compiled"] = cap.summary(top=5)
+    trainer = ContinuousTrainer(broker, OBS_TOPIC,
+                                ArtifactStore(f"{root}/obs-round"),
+                                group="obs-round")
+    trainer.trainer._ensure_state()
+    with obs_profile.trace(f"{root}/prof") as cap:
+        trainer.train_round()
+    out["live_round"] = cap.summary(top=5)
+    scorer = _obs_scorer(broker, fit.state.params, "obs-prof")
+    with obs_profile.trace(f"{root}/prof") as cap:
+        n = scorer.score_available()
+    if n != OBS_ROWS:
+        raise AssertionError(f"the profiled drain scored {n}")
+    out["serve_drain"] = cap.summary(top=5)
+    for name, s in out.items():
+        # the union of device intervals inside a synchronized window
+        # (1% for the two clocks' skew)
+        if not s["device_ops"] or not s["top"] or \
+                not 0.0 < s["busy_share"] <= 1.01:
+            raise AssertionError(f"capture {name}: {s}")
+        s["card"] = card
+    return out
+
+
+def _obs_chaos_scorer(broker, params, device) -> dict:
+    eng = obs_faults.arm(obs_faults.ChaosEngine(_fault_events()))
+    rewinds = obs_metrics.scorer_rewinds.value()
+    try:
+        scorer = _obs_scorer(broker, params, f"obs-chaos-{device or 'card'}",
+                             device=device)
+        scorer.run_forever(poll_interval_s=0.0, max_rounds=3)
+    finally:
+        obs_faults.disarm()
+    written = scorer.out.broker.end_offset(scorer.out.topic, 0)
+    committed = broker.committed(scorer.batches.consumer.group, OBS_TOPIC, 0)
+    return {"hits": {k: v for k, v in eng.hits.items()
+                     if k == "scorer.poll"},
+            "injected": dict(eng.injected), "scored": scorer.scored,
+            "written": written, "committed": committed,
+            "rewinds": obs_metrics.scorer_rewinds.value() - rewinds}
+
+
+def _fault_events():
+    return [obs_faults.FaultEvent(a, p, act, tuple(kw.items()), r)
+            for a, p, act, kw, r in OBS_CHAOS]
+
+
+def _obs_chaos_trainer(broker, root: str, tag: str, faulted: bool,
+                       device) -> dict:
+    trainer = ContinuousTrainer(broker, OBS_TOPIC, None,
+                                group=f"obs-ck-{tag}",
+                                registry=ModelRegistry(f"{root}/ck-{tag}"),
+                                device=device)
+    eng = obs_faults.arm(obs_faults.ChaosEngine(_fault_events())) \
+        if faulted else None
+    before = fused_train.fused_fit.launches
+    try:
+        for _ in range(OBS_CHAOS_ROUNDS):
+            # one round a call: the writer thread writes and is drained
+            # before the next, so the fault lands on the same write
+            trainer.run(max_rounds=1, poll_interval_s=0.0)
+    finally:
+        obs_faults.disarm()
+        trainer.close()
+    return {"state": trainer.trainer.state,
+            "launches": fused_train.fused_fit.launches - before,
+            "hits": None if eng is None else
+            {k: v for k, v in eng.hits.items()
+             if k in ("trainer.poll", "ckpt.write")},
+            "injected": None if eng is None else
+            {k: v for k, v in eng.injected.items()
+             if not k.startswith("scorer")},
+            "versions": trainer.registry.versions(),
+            "last_error": trainer.checkpointer.last_error,
+            "committed": broker.committed(f"obs-ck-{tag}", OBS_TOPIC, 0)}
+
+
+def _obs_chaos(root: str) -> dict:
+    """Section 4: the fault points in-process, on the card and on the CPU
+    under the same schedule."""
+    broker = _obs_broker()
+    params = fresh_state(CAR_AUTOENCODER, "cuda").params
+    card = _obs_chaos_scorer(broker, params, None)
+    cpu = _obs_chaos_scorer(
+        broker, {k: v.cpu() for k, v in params.items()}, "cpu")
+    dupes = card["written"] - OBS_ROWS
+    if card["rewinds"] != 1 or card["committed"] != OBS_ROWS or \
+            card["scored"] != card["written"] or dupes < 0:
+        raise AssertionError(f"the faulted scorer: {card}")
+    if (card["hits"], card["injected"]) != (cpu["hits"], cpu["injected"]) \
+            or card["written"] != cpu["written"]:
+        raise AssertionError(f"card {card} and CPU {cpu} fired apart")
+    faulted = _obs_chaos_trainer(broker, root, "faulted", True, None)
+    clean = _obs_chaos_trainer(broker, root, "clean", False, None)
+    cpu_t = _obs_chaos_trainer(broker, root, "cpu", True, "cpu")
+    if faulted["launches"] != OBS_CHAOS_ROUNDS or \
+            clean["launches"] != OBS_CHAOS_ROUNDS:
+        raise AssertionError(f"chaos rounds launched B1 "
+                             f"{faulted['launches']} / {clean['launches']}x")
+    if (faulted["hits"], faulted["injected"], faulted["versions"]) != \
+            (cpu_t["hits"], cpu_t["injected"], cpu_t["versions"]):
+        raise AssertionError(f"trainer faults: card {faulted}, CPU {cpu_t}")
+    if faulted["last_error"] is None or \
+            len(faulted["versions"]) != OBS_CHAOS_ROUNDS - 1 or \
+            faulted["committed"] != clean["committed"]:
+        raise AssertionError(f"the lost checkpoint: {faulted}")
+    err = _lc_states_close("obs_path faulted vs clean", faulted["state"],
+                           clean["state"])
+    return {"scorer": {"rewinds": card["rewinds"], "duplicates": dupes,
+                       "scored": card["scored"],
+                       "committed": card["committed"],
+                       "hits": card["hits"], "injected": card["injected"]},
+            "trainer": {"hits": faulted["hits"],
+                        "injected": faulted["injected"],
+                        "versions": faulted["versions"],
+                        "max_abs_err_vs_clean": err,
+                        "tolerance": RESUME_TOL},
+            "launches": faulted["launches"] + clean["launches"]}
+
+
+def _obs_cost() -> dict:
+    """Section 5: the serve drain and main_path's fit with tracing off and
+    on, in turns (off, on, on, off, twice) within this run."""
+    times = {"serve_drain_s": {"off": [], "on": []},
+             "fit_s": {"off": [], "on": []}}
+    gen = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01))
+    source = RowSource.from_fleet(gen, n_ticks=300)
+    params = fresh_state(CAR_AUTOENCODER, "cuda").params
+    obs_tracing.configure(enabled=True)
+    broker = _obs_broker()  # every record born traced
+    launches = 0
+    for k, mode in enumerate(("off", "on", "on", "off") * 2):
+        obs_tracing.reset()
+        obs_tracing.configure(enabled=mode == "on")
+        scorer = _obs_scorer(broker, params, f"obs-cost-{k}")
+        t0 = time.perf_counter()
+        n = scorer.score_available()
+        torch.cuda.synchronize()
+        times["serve_drain_s"][mode].append(time.perf_counter() - t0)
+        trainer = Trainer(CAR_AUTOENCODER)
+        trainer._ensure_state()
+        batches = SensorBatches(source, batch_size=100, take=100,
+                                only_normal=True)
+        before = fused_train.fused_fit.launches
+        t0 = time.perf_counter()
+        trainer.fit_compiled(batches, epochs=20)
+        torch.cuda.synchronize()
+        times["fit_s"][mode].append(time.perf_counter() - t0)
+        launches += fused_train.fused_fit.launches - before
+        if n != OBS_ROWS:
+            raise AssertionError(f"cost drain {k} scored {n}")
+    obs_tracing.configure(enabled=False)
+    obs_tracing.reset()
+    return {**times,
+            "serve_rows_per_s": {m: [OBS_ROWS / s for s in v]
+                                 for m, v in times["serve_drain_s"].items()},
+            "launches": launches}
+
+
+def phase_obs_path(card: str, root: str) -> dict:
+    """The observability plane on the card: a traced fit and drain held
+    byte for byte against an untraced one; the live CLIs' ``/metrics`` and
+    ``/healthz`` against their own stats; profiler captures with busy
+    shares; the fault points with the CPU's fire counts; the cost of
+    tracing, off and on in turns."""
+    reset_launches()
+    reset_fit_launches()
+    try:
+        traced = _obs_traced(root)
+        live = _obs_live(root)
+        before = fused_train.fused_fit.launches
+        captures = _obs_captures(root, card)
+        capture_launches = fused_train.fused_fit.launches - before
+        chaos = _obs_chaos(root)
+        cost = _obs_cost()
+    finally:
+        obs_tracing.configure(enabled=False, path="")
+        obs_tracing.reset()
+        obs_faults.disarm()
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    want = 2 + capture_launches + chaos["launches"] + cost["launches"]
+    if capture_launches != 2 or launches != want or \
+            by_design["rows"] != launches:
+        raise AssertionError(f"obs_path launched B1 {launches}x "
+                             f"({by_design}), want {want} with 2 in the "
+                             f"captures")
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"obs_path launched {attention}")
+    info = {"phase": "obs_path", "card": card, "traced": traced,
+            "live": live, "captures": captures, "chaos": chaos,
+            "cost": cost, "kernel_launches": launches}
+    emit(info)
+    return {"launches": launches, "counts": attention,
+            "launches_by_design": by_design}
 
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
@@ -3887,6 +4378,7 @@ def main() -> int:
         mnist_info = phase_mnist_path(card)
         lc_info = phase_lifecycle_path(card, root, live_info)
         online_info = phase_online_path(card, root)
+        obs_info = phase_obs_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -3910,7 +4402,8 @@ def main() -> int:
                            for key in flash_attention.launches},
              "mnist_path": {key: mnist_info["counts"][key]
                             for key in flash_attention.launches},
-             "online_path": online_info["counts"]}
+             "online_path": online_info["counts"],
+             "obs_path": obs_info["counts"]}
     design = timing["design"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
@@ -3919,7 +4412,8 @@ def main() -> int:
         "launches": main_info["launches"] + cli_info["launches"]
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
         + live_info["launches"] + lc_info["launches"]
-        + online_info["launches"] + cc_info["launches"]
+        + online_info["launches"] + obs_info["launches"]
+        + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -3930,6 +4424,7 @@ def main() -> int:
                              "live_path": live_info["launches"],
                              "lifecycle_path": lc_info["launches"],
                              "online_path": online_info["launches"],
+                             "obs_path": obs_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -3941,6 +4436,7 @@ def main() -> int:
             + live_info["launches_by_design"][d]
             + lc_info["launches_by_design"][d]
             + online_info["launches_by_design"][d]
+            + obs_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),

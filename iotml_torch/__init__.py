@@ -15,7 +15,8 @@ counterpart is easy to find (``iotml_torch/models/autoencoder.py`` ↔
 - ``gen``     car-fleet generator (same numpy draws as ``iotml.gen``)
               and its Avro publish
 - ``data``    consumer or in-memory row source → fixed-shape batches
-              (rows or LSTM windows); creditcard CSV and MNIST topics
+              (rows or LSTM windows); creditcard CSV and MNIST topics;
+              the device prefetcher
 - ``stream``  in-process broker, consumer, consumer-group
               coordinator, ordered write-back, and the native C++
               engines' bindings (``cpp/``: Avro codec, payload
@@ -30,6 +31,11 @@ counterpart is easy to find (``iotml_torch/models/autoencoder.py`` ↔
               forward and backward) and their plain versions; Avro
               codec with schema resolution, and Confluent framing
 - ``serve``   super-batched stream scorer, fast payload formatting
+- ``obs``     the metrics registry and its ``/metrics`` + ``/healthz``
+              server, record tracing, event-time watermarks, profiler
+              captures (``torch.profiler``), ``python -m
+              iotml_torch.obs trace``
+- ``chaos``   the fault points and their engine
 - ``store``   ``fsync_dir``
 - ``parallel`` the one-device sequence-parallel step
 - ``utils``   device policy, bounded exponential backoff

@@ -1,3 +1,3 @@
-"""Chaos (``iotml.chaos``): only the invariant verdicts the online drill
-uses are ported (``runner``); the fault engine, the schedules and the
-scenario runner are ROADMAP A14."""
+"""Chaos (``iotml.chaos``): the fault points and their engine (``faults``)
+and the invariant verdicts the online drill uses (``runner``); the
+scenario schedules and the scenario runner are ROADMAP A14."""

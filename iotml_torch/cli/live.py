@@ -31,11 +31,15 @@ Differences from the JAX package's CLI:
 - ``IOTML_MLOPS_REGISTRY_DIR`` (the config's ``mlops.registry_dir``)
   stands in for ``--registry`` when the flag is not given, as the config
   section documents it.
+- ``--metrics-port N`` serves ``/metrics`` and ``/healthz``
+  (``obs.metrics.start_http_server``; 0, the default, is off; a port
+  that cannot be bound raises) until ``main`` returns.
 - A flag the port has not got raises NotImplementedError naming its
   ROADMAP item when given: ``--mesh-data`` and ``--device-normalize`` (A10),
-  ``--prefetch-depth`` (A7), ``--decode-ring-buffers`` and
-  ``--raw-batch-bytes`` (A3, item 13), ``--raw-produce``,
-  ``--produce-batch-bytes`` and ``--metrics-port`` (A13).
+  ``--prefetch-depth`` (A10: only the mesh paths build a
+  ``data.prefetch.DevicePrefetcher``, in the JAX package too),
+  ``--decode-ring-buffers`` and ``--raw-batch-bytes`` (A3, item 13),
+  ``--raw-produce`` and ``--produce-batch-bytes`` (A13).
 - There is no fallback to the pure-Python client: a native client that
   cannot connect raises (``ConnectionError``, an ``OSError``).
 - The stdin watcher is a plain daemon thread, ``iotml-stdin-watch`` (the
@@ -54,9 +58,9 @@ from ..utils.device import DeviceLike, resolve_device
 
 #: unported flags → the ROADMAP item that ports them
 UNPORTED = {"mesh_data": "A10", "device_normalize": "A10",
-            "prefetch_depth": "A7", "decode_ring_buffers": "A3, item 13",
+            "prefetch_depth": "A10", "decode_ring_buffers": "A3, item 13",
             "raw_batch_bytes": "A3, item 13", "raw_produce": "A13",
-            "produce_batch_bytes": "A13", "metrics_port": "A13"}
+            "produce_batch_bytes": "A13"}
 
 
 def _stopper(max_seconds: float):
@@ -138,7 +142,7 @@ def _parser() -> argparse.ArgumentParser:
                             "stream offsets; score follows the serving "
                             "channel")
         p.add_argument("--prefetch-depth", type=int, default=None,
-                       help="not ported (A7)")
+                       help="not ported (A10)")
         p.add_argument("--decode-ring-buffers", type=int, default=None,
                        help="not ported (A3, item 13)")
         p.add_argument("--raw-batch-bytes", type=int, default=None,
@@ -148,8 +152,9 @@ def _parser() -> argparse.ArgumentParser:
                        help="not ported (A13)")
         p.add_argument("--produce-batch-bytes", type=int, default=None,
                        help="not ported (A13)")
-        p.add_argument("--metrics-port", type=int, default=None,
-                       help="not ported (A13)")
+        p.add_argument("--metrics-port", type=int, default=0,
+                       help="serve /metrics + /healthz on this port "
+                            "(0 = off)")
         p.add_argument("--mesh-data", type=int, default=None,
                        help="not ported (A10)")
         p.add_argument("--device-normalize", default=None,
@@ -184,9 +189,18 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
     mcfg = load_config([])[0].mlops
     registry_root = args.registry or mcfg.registry_dir
 
+    metrics_srv = None
+    if args.metrics_port:
+        from ..obs.metrics import start_http_server
+
+        metrics_srv = start_http_server(args.metrics_port)
     user, pw = args.sasl.split(":", 1) if args.sasl else (None, None)
-    broker = NativeKafkaBroker(args.servers, sasl_username=user,
-                               sasl_password=pw)
+    try:
+        broker = NativeKafkaBroker(args.servers, sasl_username=user,
+                                   sasl_password=pw)
+    except BaseException:
+        _stop_server(metrics_srv)
+        raise
     try:
         stop = _stopper(args.max_seconds)
         # the input topic may be created by an upstream stage: wait for it
@@ -258,6 +272,13 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         return 0
     finally:
         broker.close()
+        _stop_server(metrics_srv)
+
+
+def _stop_server(srv) -> None:
+    if srv is not None:
+        srv.shutdown()
+        srv.server_close()
 
 
 if __name__ == "__main__":

@@ -197,6 +197,9 @@ struct Client {
   // that message, so an evolved writer surfaces as K_ESCHEMA instead of
   // being positionally mis-read.
   int64_t pinned_id_limit = -1;
+  // Event-time bounds (record timestamps, ms) of the rows the last
+  // fetch_decode decoded; -1 when it decoded none.
+  int64_t last_ts_min = -1, last_ts_max = -1;
 };
 
 // Decode one partition's set into the staging area.  Entries below
@@ -668,6 +671,7 @@ int64_t iotml_kafka_fetch_decode_keys(
     int64_t label_stride, char* out_keys, int64_t key_stride,
     int64_t max_rows, int64_t* next_offset) {
   Client* c = static_cast<Client*>(h);
+  c->last_ts_min = c->last_ts_max = -1;
   int64_t n = iotml_kafka_fetch(h, topic, partition, offset, max_rows);
   *next_offset = offset;
   if (n <= 0) return n;
@@ -703,6 +707,12 @@ int64_t iotml_kafka_fetch_decode_keys(
       if (kn > 0) memcpy(krow, s.keys.data() + s.key_off[lo + i], kn);
     }
   }
+  // event-time bounds of the decoded rows, for the consumer's watermark
+  int64_t ts_lo = s.ts[lo], ts_hi = s.ts[lo];
+  for (int64_t i = lo + 1; i < lo + n; ++i) {
+    ts_lo = std::min(ts_lo, s.ts[i]);
+    ts_hi = std::max(ts_hi, s.ts[i]);
+  }
   // the staged value blob and its offsets are the Avro decoder's layout
   int64_t rc = iotml_decode_batch(s.values.data(), s.val_off.data() + lo, n,
                                   types, nullable, n_fields, strip,
@@ -711,7 +721,18 @@ int64_t iotml_kafka_fetch_decode_keys(
   s.clear();
   if (rc < 0) return rc - 2000;
   *next_offset = next;
+  c->last_ts_min = ts_lo;
+  c->last_ts_max = ts_hi;
   return rc;
+}
+
+// The event-time bounds of the last fetch_decode(_keys): out[0] = min,
+// out[1] = max record timestamp (ms), both -1 when it decoded no row.
+int64_t iotml_kafka_last_event_time(void* h, int64_t* out) {
+  const Client* c = static_cast<Client*>(h);
+  out[0] = c->last_ts_min;
+  out[1] = c->last_ts_max;
+  return 0;
 }
 
 // The keyless form: one implementation, keys skipped.

@@ -24,20 +24,28 @@ write-back — over either of two sources:
 ``keep_keys`` puts each record's message key (the car id) on
 ``Batch.keys``, cut at ``native.KEY_STRIDE - 1`` bytes on either leg.
 ``window=T`` emits [B, T, F] sliding windows with next-step targets (the
-LSTM path).  The columnar frame-decoder ring and the canary filter are
-not ported.
+LSTM path).  Every decoded row counts into
+``iotml_records_consumed_total``.  Under tracing the message-list leg
+forks each record's header-carried trace context, marks it ``consume``
+and holds it (bounded, drop-oldest, counted) until the pipeline's closer
+(the train step or the scorer) takes it with ``take_traces``; the fused
+leg carries no headers, as the JAX package's columnar leg does not.  The
+columnar frame-decoder ring and the canary filter are not ported.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Iterator, Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
 from ..core.normalize import CAR_NORMALIZER, Normalizer
 from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
+from ..obs import metrics as obs_metrics
+from ..obs import tracing
 from ..ops.avro import ResolvingCodec, needs_resolution
 from ..stream.broker import SchemaIdMismatchError
 from ..stream.consumer import StreamConsumer
@@ -201,6 +209,14 @@ class SensorBatches:
         # unbounded): reading past what `take` will batch would move the
         # cursor over rows the caller never sees
         self._need_rows: Optional[int] = None
+        # trace contexts FORKED from consumed record headers, marked
+        # `consume` and held for the pipeline's closer: forked, since
+        # every consumer group of a topic reads the same header object;
+        # _seen_traces dedups an epoch's re-read of the same records
+        self._pending_traces: collections.deque = collections.deque(
+            maxlen=65536)
+        self._seen_traces: set = set()
+        self._seen_traces_cap = 65536
 
     def _native_labels(self, lab: np.ndarray, n: int) -> np.ndarray:
         """The label column of the native decoder's fixed-stride bytes."""
@@ -214,6 +230,8 @@ class SensorBatches:
         names an evolved writer schema, the whole poll decoded by name.
         Keys are cut at ``KEY_STRIDE - 1`` bytes, as the fused leg cuts
         them."""
+        if tracing.ENABLED:
+            self._fork_traces(msgs)
         values = [m.value for m in msgs]
         keys = np.asarray([m.key or b"" for m in msgs],
                           f"S{KEY_STRIDE - 1}").astype(f"S{KEY_STRIDE}") \
@@ -228,6 +246,34 @@ class SensorBatches:
             return self._resolving.codec.sensor_matrix(cols), labels, keys
         num, lab = self._native.decode_batch(values, strip=5)
         return num, self._native_labels(lab, len(msgs)), keys
+
+    def _fork_traces(self, msgs) -> None:
+        """Fork and mark ``consume`` each new trace of a poll."""
+        pending, overflowed = self._pending_traces, 0
+        for m in msgs:
+            if m.headers:
+                ctx = tracing.from_headers(m.headers)
+                if ctx is None or ctx.trace_id in self._seen_traces:
+                    continue  # an epoch's re-read: trace once
+                if len(self._seen_traces) < self._seen_traces_cap:
+                    self._seen_traces.add(ctx.trace_id)
+                fork = ctx.fork()
+                fork.mark("consume")
+                if len(pending) == pending.maxlen:
+                    overflowed += 1
+                pending.append(fork)
+        if overflowed:
+            tracing.spans_dropped.inc(overflowed)
+
+    def take_traces(self) -> List["tracing.TraceContext"]:
+        """Hand the traces decoded since the last call to the caller:
+        the pipeline's closer (train step, scorer) closes them."""
+        out: List[tracing.TraceContext] = []
+        while True:
+            try:
+                out.append(self._pending_traces.popleft())
+            except IndexError:
+                return out
 
     def _fused(self) -> bool:
         """Whether the consumer polls through the broker's fused
@@ -280,6 +326,7 @@ class SensorBatches:
         None) per read."""
         for num, labels, keys in self._decoded_chunks():
             xs = self.normalizer.np(num)
+            obs_metrics.records_consumed.inc(len(xs))
             if self.only_normal:
                 keep = labels == "false"
                 xs, labels = xs[keep], labels[keep]

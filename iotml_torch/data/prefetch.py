@@ -1,0 +1,181 @@
+"""Host→device prefetch: overlap the stream decode with the device step
+(``iotml.data.prefetch``'s twin).
+
+A background thread drains the batch iterator (poll, decode, normalize,
+batch: the host leg) into a small queue; the consuming thread stages each
+batch's x, y and mask together onto one explicit device as it dequeues
+it.  On a CUDA device the worker also copies the arrays into pinned host
+tensors, and the consumer issues ``non_blocking`` copies from them on a
+side stream and makes its own stream wait on that one: the transfer
+overlaps the work already queued on the card, and the host does not wait
+for it.  A pageable source is refused, never copied in silence.  On the
+CPU the arrays are wrapped as they are.
+
+The JAX package uses the prefetcher on its mesh paths only
+(``parallel/data_parallel.py``, ``parallel/streaming.py``: ROADMAP A10);
+its single-device ``fit_compiled`` stages a slice in one transfer, as the
+port's does, so no single-card path of the port feeds through it.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..obs import metrics as obs_metrics
+from ..utils.device import DeviceLike, resolve_device
+
+
+class DevicePrefetcher:
+    """Iterate device-resident batches with background staging.
+
+    Args:
+      batches: host batch iterable (``Batch``es).
+      to_device: maps a host batch to device tensors; defaults to x, y
+        (None when the batch has none) and mask on ``device``, returning
+        ((x, y, mask), batch) so callers keep the batch's metadata.
+      depth: queue depth; 2 is double buffering.  None reads
+        ``IOTML_PREFETCH_DEPTH`` (``data.pipeline``, default 2).
+      device: where the batches go (``cuda`` unless given).
+      loop: the ``step_seconds`` / ``prefetch_occupancy`` loop label
+        (train | score | online).
+    """
+
+    _END = object()
+
+    def __init__(self, batches: Iterable, to_device: Optional[Callable] = None,
+                 depth: Optional[int] = None, device: DeviceLike = None,
+                 loop: str = "train"):
+        if depth is None:
+            from .pipeline import prefetch_depth
+
+            depth = prefetch_depth()
+        self.loop = loop
+        if depth < 1:
+            # queue.Queue(maxsize=0) is UNBOUNDED: depth 0 would stage the
+            # whole stream with no backpressure instead of disabling it
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
+        self.batches = batches
+        #: a caller's to_device gets the host batch itself
+        self._custom = to_device is not None
+        self.to_device = to_device or self._default_to_device
+        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._err = None
+        self._closed = False
+        self._consumed = False
+        self._thread = threading.Thread(target=self._work, daemon=True,
+                                        name="iotml-prefetch")
+        self._thread.start()
+
+    @staticmethod
+    def _arrays(batch) -> tuple:
+        y = getattr(batch, "y", None)
+        mask = getattr(batch, "mask", None)
+        return batch.x, y, mask
+
+    def _host(self, batch):
+        """Worker side: on CUDA, the batch's arrays in pinned tensors."""
+        if self._custom:
+            return batch
+        if not self._cuda:
+            return batch, None
+        pinned = tuple(None if a is None else
+                       torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+                       for a in self._arrays(batch))
+        return batch, pinned
+
+    def _default_to_device(self, item):
+        batch, pinned = item
+        if not self._cuda:
+            return tuple(None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)) for a in self._arrays(batch)), batch
+        consumer = torch.cuda.current_stream(self.device)
+        # the side stream must not copy before the consumer's earlier
+        # work on reused memory is ordered
+        self._stream.wait_stream(consumer)
+        out = []
+        with torch.cuda.stream(self._stream):
+            for t in pinned:
+                if t is None:
+                    out.append(None)
+                    continue
+                if not t.is_pinned():
+                    raise RuntimeError("DevicePrefetcher: a non_blocking "
+                                       "copy from pageable memory")
+                d = t.to(self.device, non_blocking=True)
+                # allocated on the side stream, used on the consumer's
+                d.record_stream(consumer)
+                out.append(d)
+        consumer.wait_stream(self._stream)
+        return tuple(out), batch
+
+    def _put(self, item) -> bool:
+        """put that gives up when the consumer closed; never blocks forever."""
+        while not self._closed:
+            try:
+                self.q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _work(self):
+        try:
+            for b in self.batches:
+                if not self._put(self._host(b)):
+                    return  # consumer closed mid-stream
+        except BaseException as e:  # surfaced on the consumer side
+            self._err = e
+        finally:
+            self._put(self._END)
+
+    def close(self):
+        """Release the worker (called when iteration stops, an early
+        break included); safe to call twice."""
+        self._closed = True
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __iter__(self):
+        if self._consumed:
+            raise RuntimeError(
+                "DevicePrefetcher is single-use: the background thread already "
+                "drained its source; build a new one per pass")
+        self._consumed = True
+        depth = self.q.maxsize or 1
+        try:
+            while True:
+                # host_wait is the time the loop starves on the host
+                # pipeline; occupancy is the queue's fill at each dequeue
+                # (~0 with a large host_wait: input-bound; ~1: device-bound)
+                t0 = time.perf_counter()
+                item = self.q.get()
+                obs_metrics.step_seconds.observe(
+                    time.perf_counter() - t0, loop=self.loop,
+                    phase="host_wait")
+                obs_metrics.prefetch_occupancy.set(
+                    min(self.q.qsize() / depth, 1.0), loop=self.loop)
+                if item is self._END:
+                    if self._err is not None:
+                        raise self._err
+                    return
+                yield self.to_device(item)
+        finally:
+            self.close()

@@ -24,8 +24,8 @@ timestamps, partitions) as the JAX package's, byte for byte.
 
 Not ported: the MQTT publish leg (``publish_mqtt`` with its link flaps,
 store-and-forward and backpressure deferral, ROADMAP A15), the chaos
-schedule that runs drift-storm under MQTT flaps (A14), and the trace
-headers of the publish (A13).
+schedule that runs drift-storm under MQTT flaps (A14).  Under tracing
+each published record is born with its trace context in its headers.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import numpy as np
 
 from ..core.schema import (CAR_SCHEMA_V2_ID, KSQL_CAR_SCHEMA,
                            KSQL_CAR_SCHEMA_V2)
+from ..obs import tracing
 from ..ops.avro import AvroCodec
 from ..ops.framing import frame
 from .simulator import FleetGenerator, FleetScenario
@@ -224,11 +225,13 @@ class AdversarialFleet:
                                         CAR_SCHEMA_V2_ID)
                     else:
                         payload = frame(codec_v1.encode(rec), 1)
+                    hdrs = tracing.birth_headers("devsim_publish") \
+                        if tracing.ENABLED else None
                     broker.produce(
                         topic, payload,
                         key=self.scenario.car_id(car).encode(),
                         partition=None if partitions > 1 else 0,
-                        timestamp_ms=ts)
+                        timestamp_ms=ts, headers=hdrs)
                     count += 1
         self.published += count
         return count

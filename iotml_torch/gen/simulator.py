@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA, RecordSchema
+from ..obs import tracing
 from ..stream.native import NativeCodec
 
 
@@ -149,9 +150,11 @@ class FleetGenerator:
                 schema: RecordSchema = KSQL_CAR_SCHEMA,
                 partitions: int = 1) -> int:
         """Append ``n_ticks`` ticks of every car as Confluent-framed Avro
-        records in ``schema`` to a broker topic; returns the record count.  Each record is keyed by
-        its car id and stamped with the tick's time in ms; with several
-        partitions the key picks the partition."""
+        records in ``schema`` to a broker topic; returns the record count.
+        Each record is keyed by its car id and stamped with the tick's
+        time in ms; with several partitions the key picks the partition.
+        Under tracing each record is born with its trace context in its
+        headers (``obs.tracing.birth_headers``)."""
         broker.create_topic(topic, partitions=partitions)
         codec = NativeCodec(schema)
         count = 0
@@ -163,9 +166,12 @@ class FleetGenerator:
             msgs = codec.encode_batch(self.sensor_matrix(cols), labels,
                                       schema_id=1)
             for car, payload in zip(cols["car"], msgs):
+                # trace birth; the disabled path makes no tracing call
+                hdrs = tracing.birth_headers("devsim_publish") \
+                    if tracing.ENABLED else None
                 broker.produce(topic, payload,
                                key=self.scenario.car_id(int(car)).encode(),
                                partition=None if partitions > 1 else 0,
-                               timestamp_ms=ts)
+                               timestamp_ms=ts, headers=hdrs)
             count += len(msgs)
         return count

@@ -16,8 +16,9 @@ rollback-on-regression.
   into their own prediction topics; the detection-quality gate promotes
   the candidate or rolls back.
 
-The live drills (``iotml.mlops.drill``) need the supervisor and are
-ROADMAP A14; the chaos points and metrics are A3 and A13.
+The chaos points ``ckpt.write`` and ``registry.commit`` and the mlops
+metric families are wired as in the JAX package.  The live drills
+(``iotml.mlops.drill``) need the supervisor and are ROADMAP A14.
 """
 
 from .checkpoint import AsyncCheckpointer, restore_trainer

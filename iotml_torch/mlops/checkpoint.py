@@ -39,11 +39,13 @@ layouts, picked by the state's optimizer:
 A blob of one layout does not restore onto a template of the other
 (``ValueError``); ``restore_trainer`` then loads the weights alone.
 
-Not ported: the ``ckpt.write`` chaos point (ROADMAP A3), the metrics
-registry's timings and gauges (A13: the phases are kept as plain
-``seconds``, and the offsets lag the gauge would show as
-``offsets_lag``) and the supervised writer loop (A14: ``start()`` runs
-a plain daemon thread).
+The write passes the chaos point ``ckpt.write`` between serialize and
+the registry publication (a crash there: host state gone, registry
+untouched).  The phases feed ``iotml_checkpoint_seconds{phase}`` beside
+the plain ``seconds``, evictions ``iotml_checkpoint_dropped_total``, and
+``offsets_lag`` the gauge ``iotml_model_offsets_lag{component}``.  Not
+ported: the supervised writer loop (ROADMAP A14: ``start()`` runs a
+plain daemon thread).
 """
 
 from __future__ import annotations
@@ -57,9 +59,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..chaos import faults as chaos
 from ..models.autoencoder import LAYERS
 from ..models.h5_export import autoencoder_params_to_h5
 from ..models.h5_import import autoencoder_params_from_h5
+from ..obs import metrics as obs_metrics
 from ..models.convert import (adam_from_optax, adam_to_optax,
                               inject_adam_from_optax, inject_adam_to_optax,
                               params_from_jax, params_to_jax)
@@ -306,11 +310,14 @@ class AsyncCheckpointer:
         snap = _Snapshot(params, opt_state if self.save_opt_state else None,
                          int(state.step), [tuple(c) for c in cursors],
                          dict(metrics or {}), dict(end_offsets or {}))
-        self.seconds["snapshot"] += time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        self.seconds["snapshot"] += seconds
+        obs_metrics.checkpoint_seconds.observe(seconds, phase="snapshot")
         with self._lock:
             while len(self._queue) >= self.queue_depth:
                 self._queue.popleft()
                 self.dropped += 1
+                obs_metrics.checkpoint_dropped.inc()
             self._queue.append(snap)
             self._idle.clear()
         self._kick.set()
@@ -347,11 +354,19 @@ class AsyncCheckpointer:
                 artifacts["state.npz"] = state_to_npz_bytes(
                     snap.params, snap.opt_state, snap.step)
             t1 = time.perf_counter()
+            self.seconds["serialize"] += t1 - t0
+            obs_metrics.checkpoint_seconds.observe(t1 - t0,
+                                                   phase="serialize")
+            # between serialize and the atomic publication: an injected
+            # crash here is "killed mid-checkpoint", registry untouched
+            chaos.point("ckpt.write")
+            t1 = time.perf_counter()
             manifest = self.registry.publish(
                 artifacts, offsets=snap.offsets, metrics=snap.metrics,
                 step=snap.step)
-            self.seconds["serialize"] += t1 - t0
-            self.seconds["fsync"] += time.perf_counter() - t1
+            t2 = time.perf_counter()
+            self.seconds["fsync"] += t2 - t1
+            obs_metrics.checkpoint_seconds.observe(t2 - t1, phase="fsync")
         except Exception as e:
             self.last_error = f"{type(e).__name__}: {e}"
             raise
@@ -371,6 +386,8 @@ class AsyncCheckpointer:
             self.offsets_lag = sum(
                 max(0, snap.end_offsets.get((t, p), o) - o)
                 for t, p, o in snap.offsets)
+            obs_metrics.model_offsets_lag.set(
+                self.offsets_lag, component=self.registry.component)
         if self.keep_versions > 0:
             self.registry.prune(self.keep_versions)
         with self._lock:

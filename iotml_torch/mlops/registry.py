@@ -27,8 +27,12 @@ the only rollback.  This registry is that handoff made operable:
 
 The directory layout, the file names and the JSON fields are the JAX
 package's, so each package reads, resumes from and follows the other's
-registry.  Not ported: the ``registry.commit`` chaos point (ROADMAP A3)
-and the metrics registry's publish, version and sweep counters (A13).
+registry.  A publish passes the chaos point ``registry.commit`` between
+the artifacts' rename and the manifest write (a crash there is a torn
+publish) and counts into ``iotml_registry_publishes_total``; sweeps and
+prunes count into ``iotml_registry_torn_recovered_total`` and
+``iotml_registry_pruned_total``; a publish or a serving flip sets
+``iotml_model_version{component}``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ import shutil
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..chaos import faults as chaos
+from ..obs import metrics as obs_metrics
 from ..store.segment import atomic_write, fsync_dir
 from ..supervise.topology import Topology
 
@@ -104,8 +110,10 @@ class ModelRegistry:
     publication, like ONE SegmentWriter owns a store dir); readers are
     arbitrary.  All mutation goes through this class."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, component: str = "trainer"):
         self.root = os.path.abspath(root)
+        #: the ``model_version`` gauge's role label for this process
+        self.component = component
         self._versions_dir = os.path.join(self.root, "versions")
         self._channels_dir = os.path.join(self.root, "channels")
         os.makedirs(self._versions_dir, exist_ok=True)
@@ -222,6 +230,8 @@ class ModelRegistry:
             # version being served
             epoch = max(version, self.cell.epoch + 1)
             self.cell.publish(_version_dirname(version), epoch)
+            obs_metrics.model_version.set(version,
+                                          component=self.component)
 
     def promote(self, version: int) -> None:
         """candidate → serving (the rollout gate's accept edge)."""
@@ -293,6 +303,7 @@ class ModelRegistry:
         os.replace(stage, final)
         # a crash HERE leaves a manifest-less version dir: the torn
         # publish readers never serve and recover() sweeps
+        chaos.point("registry.commit")
         manifest = Manifest(version=version, parent=parent,
                             created_ts=time.time(),
                             offsets=[tuple(o) for o in offsets],
@@ -310,6 +321,8 @@ class ModelRegistry:
         fsync_dir(self._versions_dir)
         self._history({"event": "publish", "version": version,
                        "parent": parent, "t": manifest.created_ts})
+        obs_metrics.registry_publishes.inc()
+        obs_metrics.model_version.set(version, component=self.component)
         return manifest
 
     # --------------------------------------------------------- recovery
@@ -331,6 +344,8 @@ class ModelRegistry:
                 shutil.rmtree(os.path.join(self._versions_dir, name),
                               ignore_errors=True)
                 removed += 1
+        if removed:
+            obs_metrics.registry_torn_recovered.inc(removed)
         # a pointer may now name a swept version; channel() already
         # falls back on read, but re-anchor the in-process cell too
         serving = self.channel("serving")
@@ -363,6 +378,7 @@ class ModelRegistry:
             fsync_dir(self._versions_dir)
             self._history({"event": "prune", "removed": removed,
                            "t": time.time()})
+            obs_metrics.registry_pruned.inc(removed)
         return removed
 
     # ------------------------------------------------------ introspection

@@ -22,10 +22,11 @@ event:
   evaluation (the rollback-on-regression shape).
 
 Both sides of an ``ABRollout`` score on ``device`` (``cuda`` unless
-given), as every port scorer does.  Not ported: the metrics registry's
-swap, version and rollout counters (ROADMAP A13), the supervised
-watcher loop and the mlops drills (A14); ``RegistryWatcher.start()``
-runs a plain daemon thread.
+given), as every port scorer does.  A watcher's swap counts into
+``iotml_model_swaps_total`` and sets ``iotml_model_version{component}``;
+a gate decision counts into ``iotml_rollouts_total{outcome}``.  Not
+ported: the supervised watcher loop and the mlops drills (ROADMAP A14);
+``RegistryWatcher.start()`` runs a plain daemon thread.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from typing import Callable, Dict, List, Optional
 
 from ..data.dataset import SensorBatches
 from ..models.autoencoder import CAR_AUTOENCODER
+from ..obs import metrics as obs_metrics
 from ..serve.scorer import StreamScorer, hist_auc
 from ..stream.consumer import StreamConsumer
 from ..stream.producer import OutputSequence
@@ -48,9 +50,11 @@ class RegistryWatcher:
     """Poll a registry channel; hot-swap attached scorers on change."""
 
     def __init__(self, registry: ModelRegistry, scorers=(),
-                 channel: str = "serving", poll_interval_s: float = 0.25):
+                 channel: str = "serving", component: str = "scorer",
+                 poll_interval_s: float = 0.25):
         self.registry = registry
         self.channel = channel
+        self.component = component
         self.poll_interval_s = poll_interval_s
         self.scorers: List = list(scorers)
         self.current_version: Optional[int] = None
@@ -94,6 +98,8 @@ class RegistryWatcher:
                 self._apply(s, params, v)
             self.swaps += 1
         self.last_swap_s = time.perf_counter() - t0
+        obs_metrics.model_swaps.inc()
+        obs_metrics.model_version.set(v, component=self.component)
         return True
 
     def wait_for_model(self, timeout_s: float = 60.0) -> int:
@@ -266,11 +272,13 @@ class ABRollout:
         self.decided_at_s = time.monotonic() - self._t0
         if verdict == "promote":
             self.registry.promote(self.candidate)
+            obs_metrics.rollouts.inc(outcome="promoted")
         else:
             # rollback: serving returns to (or stays at) the baseline.
             # Recorded even when the candidate never served — the
             # history line is the audit trail either way.
             self.registry.rollback(self.baseline)
+            obs_metrics.rollouts.inc(outcome="rolled_back")
 
     def run(self, stop: Optional[Callable[[], bool]] = None,
             timeout_s: float = 60.0,

@@ -36,9 +36,15 @@ On the device:
   stamps, as in the JAX package's step-by-step refit.  On the card a
   kernel that fails to build or launch raises; nothing falls back.
 
-Not ported: the metrics (ROADMAP A13: counts and seconds are plain
-attributes), the ingest→train watermark and the ``online.update`` chaos
-point (A3), and the mesh path (A10).
+Instrumented at the JAX learner's sites: the chaos point
+``online.update`` a window of the drain, ``iotml_online_updates_total``,
+``iotml_records_trained_total``, ``iotml_train_step_seconds`` and
+``iotml_step_seconds{loop=online}`` (``device_compute`` a step or group,
+``host_pipeline`` a drain), the drift and adaptation counters by
+detector and action, ``iotml_online_converged_total``, the
+``iotml_online_learning_rate`` and ``iotml_online_drift_stat`` gauges,
+and the ``train`` watermark at each group boundary; counts and seconds
+stay plain attributes too.  Not ported: the mesh path (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -51,9 +57,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..chaos import faults as chaos
 from ..data.dataset import SensorBatches
 from ..mlops.checkpoint import AsyncCheckpointer, restore_trainer
 from ..models.autoencoder import CAR_AUTOENCODER
+from ..obs import metrics as obs_metrics
+from ..obs import watermark
 from ..ops import fused_train
 from ..stream.consumer import StreamConsumer
 from ..train.live import commit_manifest_offsets
@@ -222,6 +231,7 @@ class OnlineLearner:
         # end offsets against a partially-trained state
         self._publish_pending = False
         self._publish_force = False
+        obs_metrics.online_lr.set(self.base_lr)
 
     # -------------------------------------------------------------- lr
     @property
@@ -239,6 +249,7 @@ class OnlineLearner:
             return
         self.trainer.state = dataclasses.replace(
             st, opt_state=set_learning_rate(st.opt_state, lr))
+        obs_metrics.online_lr.set(float(lr))
 
     # ----------------------------------------------------------- update
     def _update(self, b) -> float:
@@ -250,10 +261,12 @@ class OnlineLearner:
         x, mask = tr._to_device(b.x), tr._to_device(b.mask)
         tr.state, m = tr._step(tr.state, x, x, mask)
         loss = float(m["loss"])
-        self.seconds["device_compute"] += time.perf_counter() - t0
+        self._observe_step(time.perf_counter() - t0)
         self.updates += 1
         self.records_trained += b.n_valid
         self.last_loss = loss
+        obs_metrics.online_updates.inc()
+        obs_metrics.records_trained.inc(b.n_valid)
         self.buffer.append((x, mask, b.n_valid))
         return loss
 
@@ -269,13 +282,23 @@ class OnlineLearner:
         scan = scanned_window_steps_cached(tr.model, self._tx)
         tr.state, losses = scan(tr.state, xs, masks)
         losses = losses.tolist()
-        self.seconds["device_compute"] += time.perf_counter() - t0
+        self._observe_step(time.perf_counter() - t0)
+        n_valid = sum(b.n_valid for b in bs)
         self.updates += len(bs)
-        self.records_trained += sum(b.n_valid for b in bs)
+        self.records_trained += n_valid
         self.last_loss = losses[-1]
+        obs_metrics.online_updates.inc(len(bs))
+        obs_metrics.records_trained.inc(n_valid)
         for x, mask, b in zip(xs, masks, bs):
             self.buffer.append((x, mask, b.n_valid))
         return losses
+
+    def _observe_step(self, seconds: float) -> None:
+        """A step's or a group's transfer + step + loss read-back."""
+        self.seconds["device_compute"] += seconds
+        obs_metrics.train_step_seconds.observe(seconds)
+        obs_metrics.step_seconds.observe(seconds, loop="online",
+                                         phase="device_compute")
 
     def _take_group(self, limit: int) -> list:
         """One budgeted drain: at most ``limit`` windows, polled under
@@ -286,21 +309,32 @@ class OnlineLearner:
         rows, consumed by design as in ContinuousTrainer)."""
         self.batches.take = max(1, limit)
         t0 = time.perf_counter()
-        group = [b for b in iter(self.batches) if b.n_valid]
-        self.seconds["host_pipeline"] += time.perf_counter() - t0
+        group = []
+        for b in iter(self.batches):
+            chaos.point("online.update")
+            if b.n_valid:
+                group.append(b)
+        seconds = time.perf_counter() - t0
+        self.seconds["host_pipeline"] += seconds
+        obs_metrics.step_seconds.observe(seconds, loop="online",
+                                         phase="host_pipeline")
         return group
 
     def _after_update(self, loss: float) -> None:
         """The per-window control body: feed the monitor, adapt on
         drift, publish on cadence / episode end."""
         was_adapting = self.monitor.state == ADAPTING
+        conv_before = self.monitor.converged
         signal = self.monitor.update(loss)
+        obs_metrics.online_drift_stat.set(self.monitor.ph.stat)
         if signal is not None:
             self._adapt(signal)
         elif was_adapting and self.monitor.state != ADAPTING:
             # adaptation episode ended (converged or timed out): restore
             # the base LR and publish the adapted model — THIS is the
             # version the drift story promised the fleet
+            if self.monitor.converged > conv_before:
+                obs_metrics.online_converged.inc()
             self._boost_left = 0
             self.set_lr(self.base_lr)
             self._request_publish(force=True)
@@ -344,6 +378,10 @@ class OnlineLearner:
                 for loss in losses:
                     self._after_update(loss)
                 n += k
+            # group boundary: consumed == trained
+            watermark.observe_taken("train",
+                                    self.consumer.take_event_time(),
+                                    group=self.group)
             if self._publish_pending:
                 force, self._publish_pending = self._publish_force, False
                 self._publish_force = False
@@ -357,6 +395,8 @@ class OnlineLearner:
         action = self.policy.choose(self.monitor.severity(),
                                     len(self.buffer))
         self.adaptations.append((self.updates, signal, action))
+        obs_metrics.online_drifts.inc(detector=signal)
+        obs_metrics.online_adaptations.inc(action=action)
         # window reset is unconditional: pre-drift detector state is
         # meaningless across a regime change (monitor.update already
         # moved to ADAPTING; reset re-arms its post-episode windows)

@@ -3,8 +3,8 @@ predictive-maintenance deliverable.
 
 A copy of the JAX package's detector, numpy only, with the same
 arithmetic, so its state and alerts equal the JAX package's on the same
-inputs; the alert counter and active gauge of the JAX package's metrics
-registry are not ported (ROADMAP A13).
+inputs; alerts count into ``car_health_alerts_total`` and each update
+sets ``car_health_alerts_active``, as there.
 
 The reference exists to detect failing CARS, not merely anomalous rows
 (reference README.md:7,19: "predictive maintenance … detect sensor
@@ -81,6 +81,8 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+
+from ..obs import metrics as obs_metrics
 
 
 class CarHealthDetector:
@@ -186,6 +188,10 @@ class CarHealthDetector:
         self._vsig: Optional[np.ndarray] = None
         self._vtail: Optional[np.ndarray] = None  # p90 |deviation|
         self._vlive: Optional[np.ndarray] = None  # non-categorical mask
+        self._m_alerts = obs_metrics.default_registry.counter(
+            "car_health_alerts_total", "per-car failure alerts raised")
+        self._m_active = obs_metrics.default_registry.gauge(
+            "car_health_alerts_active", "cars currently in ALERT state")
 
     # ------------------------------------------------------------ update
     def update(self, keys: np.ndarray, errs: np.ndarray,
@@ -289,6 +295,7 @@ class CarHealthDetector:
                     self.alert_source[k] = src
                     self.transitions.append((now, k, "ALERT", e, src))
                     out.append((now, k, "ALERT", e, src))
+                    self._m_alerts.inc()
             else:
                 # hysteresis applies to the path that FIRED; a head-alerted
                 # car whose healthy mean EMA happens to sit above
@@ -310,6 +317,7 @@ class CarHealthDetector:
                     del self.alerted[k]
                     self.transitions.append((now, k, "CLEAR", e, src))
                     out.append((now, k, "CLEAR", e, src))
+        self._m_active.set(len(self.alerted))
         return out
 
     def _fold_all(self, store: Dict[bytes, np.ndarray], ckeys: list,

@@ -22,8 +22,9 @@ transitions go to that topic.  Under a normalizer other than the
 reference's, the verdicts average the reference's features only
 (``CAR_NORMALIZER.mask``), the set the threshold was calibrated on.
 
-The metrics registry's swap counter and precision/recall gauges are not
-ported (ROADMAP A13).
+Each swap counts into ``live_model_updates_total``; ``stats()`` sets the
+``live_detection_precision`` / ``_recall`` gauges from the cumulative
+confusion counts, as the JAX scorer's does.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..core.normalize import CAR_NORMALIZER
 from ..core.schema import KSQL_CAR_SCHEMA
 from ..data.dataset import SensorBatches
 from ..mlops.rollout import RegistryWatcher
+from ..obs import metrics as obs_metrics
 from ..models.autoencoder import CAR_AUTOENCODER
 from ..models.h5_import import autoencoder_params_from_h5
 from ..stream.consumer import StreamConsumer
@@ -124,6 +126,7 @@ class LiveScorer:
         self.scorer.set_params(params)
         self._current_artifact = artifact
         self.model_updates += 1
+        obs_metrics.live_model_updates.inc()
 
     def maybe_swap(self) -> bool:
         """Poll the pointer (or the registry's serving channel); load and
@@ -138,6 +141,7 @@ class LiveScorer:
             self._current_artifact = \
                 f"registry:v{self._watcher.current_version}"
             self.model_updates += 1
+            obs_metrics.live_model_updates.inc()
             return True
         latest = self.store.get_text(f"{self.model_name}.latest")
         if latest is None or latest == self._current_artifact:
@@ -196,6 +200,13 @@ class LiveScorer:
         drain is suspended (the cursors then run ahead of the flushed
         predictions)."""
         sc = self.scorer
+        q = sc.quality
+        if q["tp"] + q["fp"]:
+            obs_metrics.live_detection_precision.set(
+                q["tp"] / (q["tp"] + q["fp"]))
+        if q["tp"] + q["fn"]:
+            obs_metrics.live_detection_recall.set(
+                q["tp"] / (q["tp"] + q["fn"]))
         return {
             "t": time.time(),
             "drain_complete": sc._resume is None,

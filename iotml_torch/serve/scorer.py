@@ -19,8 +19,17 @@ histograms, over a consumer one offset commit per completed drain, and
 offsets and backs off when the broker connection fails.  With a
 ``carhealth`` detector (``serve.carhealth``) each scored batch's keys and
 errors feed it, and its alert transitions go to ``carhealth_topic`` on
-the output broker.  Watermarks, tracing, chaos points and the
-feature-store join are not ported.
+the output broker.
+
+Instrumented at the JAX scorer's sites: the chaos point ``scorer.poll``
+at each super-batch boundary (an injected ``ConnectionError`` is what
+``run_forever`` rewinds on), ``iotml_step_seconds{loop=score}`` by phase,
+``iotml_records_scored_total`` and ``iotml_reconstruction_mse`` a
+super-batch (the values JAX's per-batch calls leave at its end),
+``iotml_model_version{component=scorer}`` on a stamped swap,
+``iotml_scorer_rewinds_total``; a completed drain publishes the ``score``
+watermark and, under tracing, closes the batcher's traces with their
+ingest→score span.  The feature-store join is ROADMAP A16.
 """
 
 from __future__ import annotations
@@ -32,8 +41,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..chaos import faults as chaos
 from ..data.dataset import SensorBatches
 from ..models.autoencoder import AutoencoderSpec
+from ..obs import metrics as obs_metrics
+from ..obs import tracing, watermark
 from ..stream.producer import OutputSequence
 from ..utils.backoff import ExpBackoff
 from ..utils.device import DeviceLike, resolve_device
@@ -172,6 +184,7 @@ class StreamScorer:
         self.params_loaded = True
         if version is not None:
             self.model_version = version
+            obs_metrics.model_version.set(version, component="scorer")
         if self.carhealth is not None:
             self.carhealth.notify_model_swap()
 
@@ -194,9 +207,15 @@ class StreamScorer:
             # batch.first_index restarts per iterator; rebase globally
             it, it_base = iter(self.batches), self.scored
         while True:
+            # an injected stall or crash lands at a super-batch boundary,
+            # upstream of the commit (redelivery covers it)
+            chaos.point("scorer.poll")
             t0 = time.perf_counter()
             bs = list(itertools.islice(it, self.max_super_batches))
-            self.seconds["host_pipeline"] += time.perf_counter() - t0
+            seconds = time.perf_counter() - t0
+            self.seconds["host_pipeline"] += seconds
+            obs_metrics.step_seconds.observe(seconds, loop="score",
+                                             phase="host_pipeline")
             if not bs:
                 break
             self._score_super_batch(bs, it_base)
@@ -206,8 +225,19 @@ class StreamScorer:
             if max_rows is not None and self.scored - start >= max_rows:
                 self._resume = (it, it_base)
                 break
-        if self._resume is None and self.batches.consumer is not None:
-            self.batches.consumer.commit()
+        consumer = self.batches.consumer
+        if self._resume is None and consumer is not None:
+            consumer.commit()
+            # a completed drain: everything consumed has been scored
+            take = getattr(consumer, "take_event_time", None)
+            if take is not None:
+                watermark.observe_taken(
+                    "score", take(), group=getattr(consumer, "group", ""))
+        if self._resume is None and tracing.ENABLED:
+            # rows a truncated drain holds in the batcher have not been
+            # scored: their traces wait for the drain's end
+            for ctx in self.batches.take_traces():
+                ctx.close("score")
         return self.scored - start
 
     def _score_super_batch(self, bs, base: int) -> None:
@@ -227,6 +257,8 @@ class StreamScorer:
                 self.model, self.params, (x_dev,)).cpu().numpy()
         seconds = time.perf_counter() - t0
         self.seconds["device_compute"] += seconds
+        obs_metrics.step_seconds.observe(seconds, loop="score",
+                                         phase="device_compute")
         if self.first_forward_s is None:
             self.first_forward_s = seconds
         preds = preds.reshape((S_pad, B) + preds.shape[1:])[:S]
@@ -274,6 +306,14 @@ class StreamScorer:
                     msg = f"{msg}|{verdict}|{err[i]:.6f}"
                 self.out.setitem(base + b.first_index + i, msg)
             self.scored += b.n_valid
+        # once a super-batch, with what JAX's per-batch calls leave: the
+        # rows scored and the last non-empty batch's mean error
+        obs_metrics.records_scored.inc(sum(b.n_valid for b in bs))
+        last = next((k for k in reversed(range(len(bs))) if bs[k].n_valid),
+                    None)
+        if last is not None:
+            obs_metrics.reconstruction_mse.set(
+                float(np.mean(errs[last, : bs[last].n_valid])))
 
     def run_forever(self, poll_interval_s: float = 0.2,
                     max_rounds: Optional[int] = None) -> None:
@@ -297,6 +337,7 @@ class StreamScorer:
             except ConnectionError:
                 self.batches.consumer.rewind_to_committed()
                 self.rewinds += 1
+                obs_metrics.scorer_rewinds.inc()
                 time.sleep(backoff.next_delay())
                 continue
             backoff.reset()

@@ -12,9 +12,12 @@ round-robin, as in the JAX package.
 
 One lock guards all mutation and ``fetch``; every append goes through
 ``produce_many``, which takes it once for a whole batch (the wire
-server's produce path and the ordered write-back).  The durable segmented
-store, raw frame batches, compaction, tiering, topic ownership, record
-headers and chaos points are not ported.
+server's produce path and the ordered write-back).  Records carry
+optional headers (``Message.headers``, the trace context's carrier, as
+the JAX broker's do); ``produce``/``produce_many`` pass the chaos point
+``broker.produce`` once a call and ``fetch`` passes ``broker.fetch``.
+The durable segmented store, raw frame batches, compaction, tiering and
+topic ownership are not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import dataclasses
 import threading
 import zlib
 from typing import Dict, List, NamedTuple, Optional
+
+from ..chaos import faults as chaos
 
 
 class OffsetOutOfRangeError(LookupError):
@@ -75,6 +80,11 @@ class Message(NamedTuple):
     value: bytes
     key: Optional[bytes] = None
     timestamp_ms: int = 0
+    #: optional ((name, value), ...) record headers: the trace context's
+    #: carrier (``obs.tracing``), beside the payload so the Avro bytes are
+    #: untouched.  The wire and native clients drop them (MessageSet v1
+    #: has no header slot).
+    headers: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -100,13 +110,13 @@ class _Partition:
     __slots__ = ("log", "base_offset", "bytes", "max_ts")
 
     def __init__(self):
-        self.log: List[tuple] = []  # (key, value, ts)
+        self.log: List[tuple] = []  # (key, value, ts, headers)
         self.base_offset = 0  # offset of log[0] after retention trimming
         self.bytes = 0  # payload bytes retained (retention_bytes)
         self.max_ts = 0  # newest record ts seen (retention_ms anchor)
 
-    def append(self, key, value, ts) -> int:
-        self.log.append((key, value, ts))
+    def append(self, key, value, ts, headers=None) -> int:
+        self.log.append((key, value, ts, headers))
         self.bytes += _size(key, value)
         if ts > self.max_ts:
             self.max_ts = ts
@@ -116,19 +126,19 @@ class _Partition:
         return self.base_offset + len(self.log)
 
     def offset_for_timestamp(self, ts_ms: int) -> int:
-        for i, (_k, _v, ts) in enumerate(self.log):
+        for i, (_k, _v, ts, _h) in enumerate(self.log):
             if ts >= ts_ms:
                 return self.base_offset + i
         return self.end()
 
     def read(self, offset: int, max_messages: int) -> List[tuple]:
-        """[(offset, key, value, ts)] from `offset`."""
+        """[(offset, key, value, ts, headers)] from `offset`."""
         idx = offset - self.base_offset
-        return [(offset + i, key, value, ts) for i, (key, value, ts)
+        return [(offset + i, key, value, ts, hdrs) for i, (key, value, ts, hdrs)
                 in enumerate(self.log[idx:idx + max_messages])]
 
     def drop_head(self, count: int) -> None:
-        for key, value, _ts in self.log[:count]:
+        for key, value, _ts, _h in self.log[:count]:
             self.bytes -= _size(key, value)
         del self.log[:count]
         self.base_offset += count
@@ -144,7 +154,7 @@ class _Partition:
             drop = freed = 0
             while self.bytes - freed > spec.retention_bytes and \
                     drop < len(self.log) - 1:
-                key, value, _ts = self.log[drop]
+                key, value = self.log[drop][:2]
                 freed += _size(key, value)
                 drop += 1
             if drop:
@@ -213,10 +223,11 @@ class Broker:
     def produce(self, topic: str, value: bytes,
                 key: Optional[bytes] = None,
                 partition: Optional[int] = None,
-                timestamp_ms: int = 0) -> int:
+                timestamp_ms: int = 0,
+                headers: Optional[tuple] = None) -> int:
         """Append one record; returns its offset.  A missing topic is
         created with one partition (Kafka's auto.create)."""
-        return self.produce_many(topic, [(key, value, timestamp_ms)],
+        return self.produce_many(topic, [(key, value, timestamp_ms, headers)],
                                  partition=partition)
 
     def produce_many(self, topic: str, entries,
@@ -225,8 +236,9 @@ class Broker:
         lock acquisition; returns the offset of the last record appended
         (-1 for none).  Keyed records go to ``crc32(key) % partitions``,
         unkeyed ones round-robin; retention is enforced once per touched
-        partition, which trims to what a trim after every record leaves;
-        headers are dropped (not ported)."""
+        partition, which trims to what a trim after every record leaves.
+        The optional 4th element is the record's headers."""
+        chaos.point("broker.produce")
         entries = list(entries)
         if topic not in self._topics:
             self.create_topic(topic)
@@ -238,7 +250,8 @@ class Broker:
                 key, value, ts = entry[0], entry[1], entry[2]
                 p = self._partition_for(topic, key) if partition is None \
                     else partition
-                last_off = parts[p].append(key, value, ts)
+                last_off = parts[p].append(
+                    key, value, ts, entry[3] if len(entry) > 3 else None)
                 touched.add(p)
             for p in touched:
                 # untouched partitions cannot have grown past their caps
@@ -270,14 +283,16 @@ class Broker:
               max_messages: int = 1024) -> List[Message]:
         """Read up to max_messages starting at offset (no blocking).  A
         fetch below the retained base raises OffsetOutOfRangeError."""
+        chaos.point("broker.fetch")  # before the lock: a chaos stall must
+        # park this fetcher, never every thread contending the broker
         part = self._parts[topic][partition]
         with self._lock:
             if offset < part.base_offset:
                 raise OffsetOutOfRangeError(topic, partition, offset,
                                             part.base_offset)
             chunk = part.read(offset, max_messages)
-        return [Message(topic, partition, off, value, key, ts)
-                for off, key, value, ts in chunk]
+        return [Message(topic, partition, off, value, key, ts, hdrs)
+                for off, key, value, ts, hdrs in chunk]
 
     # ------------------------------------------------- consumer-group API
     def commit(self, group: str, topic: str, partition: int,

@@ -9,19 +9,37 @@ port's ``Broker`` or, unchanged, over the wire client
 ``OffsetOutOfRangeError`` with the earliest offset the server retains),
 and adds multi-partition specs, committed-offset resume and ``seek``.
 ``poll_decoded`` is the fused poll over a broker with ``fetch_decode``
-(the native client, ``stream.native_kafka``).  Tracing, watermarks, lag
-gauges and the columnar ring poll are not ported.
+(the native client, ``stream.native_kafka``).
+
+Instrumented as the JAX consumer is: ``poll`` folds each batch's event
+time into the consume watermark and the per-partition ranges that
+``take_event_time`` hands the scorer and the trainers (``poll_decoded``
+too, from the native client's ``last_event_time``; with the watermarks
+off, ``IOTML_WATERMARK=0``, neither computes the bounds), beats the
+``consume`` stage's liveness under tracing, and observes
+``iotml_fetch_batch_size``; auto-resets count into
+``iotml_consumer_autoresets_total``; ``commit`` refreshes
+``iotml_consumer_lag_records`` and times ``iotml_commit_seconds``.  The
+columnar ring poll (``poll_into``) and its raw-batch traces are ROADMAP
+A3, item 13.
 """
 
 from __future__ import annotations
 
+import operator
 from typing import List, Sequence
 
 import numpy as np
 
+from ..obs import metrics as obs_metrics
+from ..obs import tracing, watermark
 from .broker import (Broker, Message, OffsetOutOfRangeError,
                      SchemaIdMismatchError)
 from .native import LABEL_STRIDE
+
+
+#: a ``Message``'s timestamp_ms, read at C speed
+_TIMESTAMP = operator.itemgetter(Message._fields.index("timestamp_ms"))
 
 
 def parse_spec(spec: str) -> tuple:
@@ -60,6 +78,9 @@ class StreamConsumer:
         self._start = [c[2] for c in self._cursors]
         self._rr = 0
         self.autoresets = 0
+        #: per-(topic, partition) [min_ts, max_ts] of records consumed
+        #: since the last take_event_time()
+        self._event_ts: dict = {}
 
     @classmethod
     def from_committed(cls, broker: Broker, topic: str,
@@ -81,6 +102,55 @@ class StreamConsumer:
             off = self.broker.committed(self.group, cur[0], cur[1])
             cur[2] = off if off is not None else self._start[i]
 
+    # ------------------------------------------- event-time watermarks
+    def _note_event_ts(self, topic: str, part: int,
+                       ts_min: int, ts_max: int) -> None:
+        """Fold one consumed batch's event-time bounds into the
+        per-partition ranges and publish the consume-stage watermark
+        (group-labelled: a trainer and a scorer of one partition in one
+        process are two frontiers)."""
+        if ts_max is None or ts_max < 0:
+            return
+        lo = ts_min if ts_min is not None and ts_min >= 0 else ts_max
+        cur = self._event_ts.get((topic, part))
+        if cur is None:
+            self._event_ts[(topic, part)] = [lo, ts_max]
+        else:
+            if lo < cur[0]:
+                cur[0] = lo
+            if ts_max > cur[1]:
+                cur[1] = ts_max
+        watermark.observe("consume", topic, part, lo, ts_max,
+                          group=self.group)
+
+    def take_event_time(self) -> dict:
+        """{(topic, partition): (ts_min, ts_max)} of event time consumed
+        since the last take, cleared on read: a processing stage takes
+        it where consumed has become processed and hands it to
+        ``watermark.observe_taken(stage, ...)``.  With the watermarks
+        off (``IOTML_WATERMARK=0``) a poll folds nothing and this is
+        empty."""
+        out = {k: tuple(v) for k, v in self._event_ts.items()}
+        self._event_ts.clear()
+        return out
+
+    def record_lag(self) -> int:
+        """Refresh ``iotml_consumer_lag_records{group,topic,partition}``
+        from each partition's end offset and return the total lag.
+        Telemetry on the commit path: a broker error here skips the
+        refresh, never fails the drain."""
+        total = 0
+        for topic, part, off in self._cursors:
+            try:
+                hwm = self.broker.end_offset(topic, part)
+            except (KeyError, RuntimeError, OSError):
+                continue
+            lag = max(int(hwm) - int(off), 0)
+            total += lag
+            obs_metrics.consumer_lag_records.set(
+                lag, group=self.group, topic=topic, partition=part)
+        return total
+
     def _fetch_autoreset(self, topic: str, part: int, off: int,
                          max_messages: int) -> tuple:
         """One fetch; a cursor below the retained base auto-resets to
@@ -95,6 +165,7 @@ class StreamConsumer:
             except OffsetOutOfRangeError as e:
                 off = max(e.earliest, self.broker.begin_offset(topic, part))
                 self.autoresets += 1
+                obs_metrics.consumer_autoresets.inc(topic=topic)
         return [], off
 
     # --------------------------------------------------------------- read
@@ -114,6 +185,15 @@ class StreamConsumer:
                 cur[2] = batch[-1].offset + 1
                 out.extend(batch)
                 attempts = 0  # progress: give the others another turn
+                if watermark.ENABLED:
+                    # true min/max: event times are not append-monotone
+                    ts = list(map(_TIMESTAMP, batch))
+                    self._note_event_ts(cur[0], cur[1], min(ts), max(ts))
+                tracing.touch("consume")
+        if out:
+            # only non-empty polls observe: idle polling would flood the
+            # first bucket
+            obs_metrics.fetch_batch_size.observe(len(out))
         return out
 
     def poll_decoded(self, codec, strip: int = 5, max_messages: int = 4096,
@@ -133,6 +213,7 @@ class StreamConsumer:
                      None)
         if fd is None:
             return None
+        event_time = getattr(self.broker, "last_event_time", None)
         nums, labs, keys = [], [], []
         got = 0
         n = len(self._cursors)
@@ -148,6 +229,7 @@ class StreamConsumer:
             except OffsetOutOfRangeError as e:
                 cur[2] = max(e.earliest, self.broker.begin_offset(topic, part))
                 self.autoresets += 1
+                obs_metrics.consumer_autoresets.inc(topic=topic)
                 continue
             except SchemaIdMismatchError:
                 if got:
@@ -162,6 +244,13 @@ class StreamConsumer:
                     keys.append(res[2])
                 got += len(numeric)
                 attempts = 0
+                if event_time is not None and watermark.ENABLED:
+                    # the client's bounds of this decode: the fused leg's
+                    # consume watermark, as the JAX columnar leg's
+                    self._note_event_ts(topic, part, *event_time())
+                tracing.touch("consume")
+        if got:
+            obs_metrics.fetch_batch_size.observe(got)
         if not nums:
             empty = (np.zeros((0, codec.n_numeric)),
                      np.zeros((0, codec.n_strings), f"S{LABEL_STRIDE}"))
@@ -200,9 +289,12 @@ class StreamConsumer:
         return [tuple(c) for c in self._cursors]
 
     def commit(self) -> None:
-        """Commit every cursor, one ``Broker.commit_many`` per topic."""
-        by_topic: dict = {}
-        for t, p, off in self._cursors:
-            by_topic.setdefault(t, []).append((p, off))
-        for t, entries in by_topic.items():
-            self.broker.commit_many(self.group, t, entries)
+        """Commit every cursor, one ``Broker.commit_many`` per topic; the
+        drain boundary refreshes the lag gauge first."""
+        self.record_lag()
+        with obs_metrics.commit_seconds.time():
+            by_topic: dict = {}
+            for t, p, off in self._cursors:
+                by_topic.setdefault(t, []).append((p, off))
+            for t, entries in by_topic.items():
+                self.broker.commit_many(self.group, t, entries)

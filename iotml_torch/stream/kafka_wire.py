@@ -36,7 +36,13 @@ Not ported (ROADMAP): the JAX package's raw columnar extensions RAW_FETCH
 and RAW_PRODUCE (API keys 64, 65) and CLUSTER_ADMIN (66), which this
 server answers with UNSUPPORTED_VERSION as a server without them does;
 leader-epoch fencing and the supervised topology; replica fetches; the
-cluster view; chaos points and tracing.
+cluster view.  The client passes the chaos points ``kafka_wire.send``
+(``error``, ``delay``, ``short_write``: half a frame, then OSError) and
+``kafka_wire.recv`` on every frame.  Records carry no headers on the
+wire; under tracing the server marks the trace that a fetched batch's
+first traced record carries in the in-process broker (a fork of it,
+stage ``wire_fetch``, with the batch's offset range), the hop through
+this server on the span log.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ import threading
 import zlib
 from typing import Dict, List, Optional, Tuple
 
+from ..chaos import faults as chaos
+from ..obs import tracing
 from ..utils.net import parse_bootstrap, recv_exact
 from . import native
 from .broker import Broker, Message, OffsetOutOfRangeError, TopicSpec
@@ -385,9 +393,17 @@ class KafkaWireBroker(ProducePartitionMixin):
             OSError(f"no reachable broker in {self._servers_repr!r}")
 
     def _send_frame(self, payload: bytes) -> None:
-        self._sock.sendall(struct.pack(">i", len(payload)) + payload)
+        act = chaos.point("kafka_wire.send")
+        data = struct.pack(">i", len(payload)) + payload
+        if act is not None and act.kind == "short_write":
+            # a torn frame: the server drops the connection, this
+            # client fails over
+            self._sock.sendall(data[: len(data) // 2])
+            raise OSError("chaos[kafka_wire.send]: short write")
+        self._sock.sendall(data)
 
     def _recv_frame(self) -> bytes:
+        chaos.point("kafka_wire.recv")
         (size,) = struct.unpack(
             ">i", recv_exact(self._sock, 4, "broker closed connection"))
         return recv_exact(self._sock, size, "broker closed connection")
@@ -1092,6 +1108,19 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             t[1], lambda pw, p: pw.i32(p[0]).i16(p[1]).i64(p[2]).i64(-1))))
         w.i32(0)  # throttle
 
+    @staticmethod
+    def _mark_fetch_batch(msgs, topic: str, pid: int) -> None:
+        """The server's hop of a traced batch: a fork of the first
+        header-carried context (the broker's object stays unmarked for
+        its in-process readers), marked once for the whole batch."""
+        for m in msgs:
+            ctx = tracing.from_headers(m.headers)
+            if ctx is not None:
+                tracing.mark_batch(ctx.fork(), "wire_fetch", topic, pid,
+                                   msgs[0].offset, msgs[-1].offset,
+                                   len(msgs))
+                return
+
     def _fetch(self, broker, r, w):
         r.i32()  # replica id: every fetcher is a consumer here
         r.i32()  # max wait
@@ -1117,6 +1146,8 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                     presp.append((pid, ERR_OFFSET_OUT_OF_RANGE,
                                   e.earliest, b""))
                     continue
+                if tracing.ENABLED and msgs:
+                    self._mark_fetch_batch(msgs, tname, pid)
                 hwm = broker.end_offset(tname, pid)
                 # cut at max_bytes, possibly mid-entry: the client drops
                 # a partial trailing entry

@@ -117,6 +117,7 @@ _SIGNATURES = {
     "iotml_kafka_fetch_decode_keys": (_i64, [
         _vp, _str, _i32, _i64, _P(_i8), _P(_u8), _i64, _i64,
         _P(ctypes.c_double), _str, _i64, _str, _i64, _i64, _P(_i64)]),
+    "iotml_kafka_last_event_time": (_i64, [_vp, _P(_i64)]),
     "iotml_kafka_commit": (_i64, [_vp, _str, _str, _i32, _i64]),
     "iotml_kafka_commit_many": (_i64, [
         _vp, _str, _str, _P(_i32), _P(_i64), _i64]),

@@ -12,7 +12,10 @@ Confluent framing strip and columnar Avro decode in one native call,
 returning ``(numeric [n, F] float64, labels [n, S], next_offset)`` with
 no per-message Python object; ``fetch_decode_keys`` adds each message's
 key.  ``StreamConsumer.poll_decoded`` and ``SensorBatches`` take it when
-the broker has it.
+the broker has it.  ``last_event_time()`` gives the calling thread the
+min and max record timestamp of its last fused decode, which the
+consumer folds into its watermark (the JAX package reads them off its
+columnar decoder instead).
 
 A guard stands behind the fused decode's blind 5-byte strip: a frame
 whose writer id lies in the evolved-schema band (``RESERVED_ID_BASE``
@@ -112,6 +115,8 @@ class NativeKafkaBroker(ProducePartitionMixin):
         self._rr: Dict[str, int] = {}
         # RLock: create_topic and produce_many re-enter through topic()
         self._lock = threading.RLock()
+        # per calling thread: (ts_min, ts_max) of its last fused decode
+        self._event_time = threading.local()
 
     # ------------------------------------------------------------ metadata
     def topic(self, name: str) -> TopicSpec:
@@ -308,6 +313,10 @@ class NativeKafkaBroker(ProducePartitionMixin):
                 rc = self._lib.iotml_kafka_fetch_decode(
                     *common, max_rows, ctypes.byref(next_off))
             self._raise_for(rc, topic, partition, offset, "fetch_decode")
+            bounds = np.empty(2, np.int64)
+            self._lib.iotml_kafka_last_event_time(
+                self._h, bounds.ctypes.data_as(_i64p))
+        self._event_time.bounds = (int(bounds[0]), int(bounds[1]))
         native.tally("fetch_decode", rc, t0)
         out = (numeric[:rc], labels[:rc, : codec.n_strings])
         if not with_keys:
@@ -323,6 +332,11 @@ class NativeKafkaBroker(ProducePartitionMixin):
                     stacklevel=3)
             self.keys_maybe_truncated += cut
         return out + (keys, int(next_off.value))
+
+    def last_event_time(self) -> Tuple[int, int]:
+        """(ts_min, ts_max) ms of the rows this thread's last
+        ``fetch_decode(_keys)`` decoded; (-1, -1) for none."""
+        return getattr(self._event_time, "bounds", (-1, -1))
 
     # ------------------------------------------------------------- offsets
     def _list_offset(self, topic: str, partition: int, timestamp: int) -> int:

@@ -30,9 +30,10 @@ Two ways to publish:
   offsets never pass the newest durable manifest's, and a restarted
   trainer resumes the lineage tip's weights, Adam state and cursors.
 
-Not ported: the multi-device mesh (ROADMAP A10), the metrics registry's
-round counters (A13), the train watermark and the chaos point of the
-poll loop (A3).
+Each round counts into ``live_train_rounds_total``, sets
+``live_train_loss`` and publishes the ``train`` watermark from the
+consumer's event-time ranges; the poll loop passes the chaos point
+``trainer.poll``.  Not ported: the multi-device mesh (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -43,10 +44,13 @@ import tempfile
 import time
 from typing import Callable, Optional
 
+from ..chaos import faults as chaos
 from ..data.dataset import SensorBatches
 from ..mlops.checkpoint import AsyncCheckpointer, restore_trainer
 from ..models.autoencoder import CAR_AUTOENCODER
 from ..models.h5_export import autoencoder_params_to_h5
+from ..obs import metrics as obs_metrics
+from ..obs import watermark
 from ..stream.consumer import StreamConsumer
 from ..utils.device import DeviceLike
 from .artifacts import ArtifactStore
@@ -196,6 +200,11 @@ class ContinuousTrainer:
         self.rounds += 1
         self.records_trained += history["records"][-1] * self.epochs_per_round
         self.last_loss = float(history["loss"][-1])
+        obs_metrics.live_train_rounds.inc()
+        obs_metrics.live_train_loss.set(self.last_loss)
+        # the round's slice is trained: the ingest→train watermark
+        watermark.observe_taken("train", self.consumer.take_event_time(),
+                                group=self.group)
         t1 = time.perf_counter()
         if self.checkpointer is not None:
             # capture the state (device->host) and the cursors it was
@@ -252,12 +261,16 @@ class ContinuousTrainer:
             self._last_coalesced = True
             return
         before = self.checkpointer.coalesced
+        cursors = self.consumer.positions()
+        # the log ends now: the writer's offsets lag without a broker call
+        ends = {(t, p): self.broker.end_offset(t, p)
+                for t, p, _off in cursors}
         self.checkpointer.snapshot(
-            self.trainer.state, self.consumer.positions(),
+            self.trainer.state, cursors,
             metrics={"loss": self.last_loss if self.last_loss is not None
                      else float("nan"),
                      "records": float(self.records_trained)},
-            force=force)
+            end_offsets=ends, force=force)
         self._last_coalesced = self.checkpointer.coalesced > before
 
     def _commit_checkpointed(self, manifest) -> None:
@@ -284,6 +297,7 @@ class ContinuousTrainer:
         start = self.rounds
         while (stop is None or not stop()) and \
                 (max_rounds is None or self.rounds - start < max_rounds):
+            chaos.point("trainer.poll")
             if self.available() < self.min_available:
                 time.sleep(poll_interval_s)
                 continue

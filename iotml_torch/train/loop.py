@@ -17,6 +17,13 @@ Here:
   with no activity penalty; the fused kernel is the autoencoder's alone,
   so such a fit always takes the step loop, as the JAX package's takes
   its scanned fit.
+
+Both loops feed the JAX package's metric families at its sites:
+``iotml_records_trained_total``, ``iotml_train_step_seconds`` a step of
+``fit``, and ``iotml_step_seconds{loop=train}`` by phase for
+``fit_compiled`` (``host_pipeline`` and ``device_compute``, the two legs
+its history reports; no sync is added for them).  Under tracing the
+batcher's pending traces close with their ingest→train span.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import tracing
 from ..ops import fused_train
 from ..utils.device import DeviceLike, resolve_device
 from .optim import Adam, AdamState
@@ -230,8 +239,10 @@ class Trainer:
                 self._ensure_state()
                 x = self._to_device(b.x)
                 y = self._to_device(b.y) if b.y is not None else x
-                self.state, m = self._step(self.state, x, y,
-                                           self._to_device(b.mask))
+                with obs_metrics.train_step_seconds.time():
+                    self.state, m = self._step(self.state, x, y,
+                                               self._to_device(b.mask))
+                obs_metrics.records_trained.inc(b.n_valid)
                 tot_loss += float(m["loss"])
                 tot_acc += float(m["accuracy"])
                 n += 1
@@ -239,6 +250,10 @@ class Trainer:
                 for cb in callbacks:
                     cb.on_batch_end(b, m)
             dt = time.perf_counter() - t0
+            if tracing.ENABLED and hasattr(batches, "take_traces"):
+                # every record decoded this epoch went through the step
+                for ctx in batches.take_traces():
+                    ctx.close("train")
             history["loss"].append(tot_loss / max(n, 1))
             history["accuracy"].append(tot_acc / max(n, 1))
             history["records"].append(records)
@@ -271,14 +286,18 @@ class Trainer:
             else iter(batches)
         bs = list(it)
         if not bs:
+            host_s = time.perf_counter() - t0
+            obs_metrics.step_seconds.observe(host_s, loop="train",
+                                             phase="host_pipeline")
             return {"loss": [], "accuracy": [], "records": [], "seconds": [],
-                    "host_pipeline_s": time.perf_counter() - t0,
-                    "device_compute_s": 0.0}
+                    "host_pipeline_s": host_s, "device_compute_s": 0.0}
         xs = np.stack([b.x for b in bs])
         masks = np.stack([b.mask for b in bs])
         records = sum(b.n_valid for b in bs)
         self._ensure_state()
         t_dev = time.perf_counter()
+        obs_metrics.step_seconds.observe(t_dev - t0, loop="train",
+                                         phase="host_pipeline")
 
         activity_l1 = getattr(self.model, "activity_l1", None)
         use_fused = fused != "never" and \
@@ -302,9 +321,17 @@ class Trainer:
                 ys_d = xs_d  # autoencoder mode targets the input itself
             self.state, (losses, accs) = scanned(self.state, xs_d, ys_d,
                                                  masks_d, epochs)
+        obs_metrics.records_trained.inc(records * epochs)
+        if tracing.ENABLED and hasattr(batches, "take_traces"):
+            # the whole fit is one device program: each record's
+            # ingest→train span ends after it was queued
+            for ctx in batches.take_traces():
+                ctx.close("train")
         # ONE sync for both metric vectors
         losses, accs = torch.stack([losses, accs]).cpu().numpy()
         t_end = time.perf_counter()
+        obs_metrics.step_seconds.observe(t_end - t_dev, loop="train",
+                                         phase="device_compute")
         dt = t_end - t0
         return {"loss": losses.tolist(), "accuracy": accs.tolist(),
                 "records": [records] * epochs,

@@ -53,6 +53,33 @@ def test_the_creditcard_lstm_and_mnist_jobs_are_covered():
             "iotml_torch/cli/mnist_smoke.py"} <= set(FILES)
 
 
+OBS_MODULES = ["iotml_torch/obs/metrics.py", "iotml_torch/obs/tracing.py",
+               "iotml_torch/obs/watermark.py", "iotml_torch/obs/profile.py",
+               "iotml_torch/obs/federate.py", "iotml_torch/obs/__main__.py",
+               "iotml_torch/chaos/faults.py", "iotml_torch/data/prefetch.py",
+               "iotml_torch/data/pipeline.py"]
+
+
+def test_the_observability_plane_is_covered():
+    assert set(OBS_MODULES) <= set(FILES)
+
+
+def test_the_observability_plane_loads_no_jax_stack():
+    """Imported in a fresh interpreter, the new modules pull in no module
+    of the JAX stack or the JAX package."""
+    import subprocess
+    import sys
+
+    mods = [p[:-3].replace("/", ".") for p in OBS_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

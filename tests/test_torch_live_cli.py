@@ -169,11 +169,11 @@ def _parsed(main, argv, monkeypatch):
 def test_defaults_match_jax(monkeypatch, argv):
     """Every option both CLIs have defaults alike: ``--model-name``
     ``cardata-live.h5``, ``--checkpoint-interval-s`` 0.5, ``--registry``
-    none, ... (``--metrics-port``, not ported, is None in the port)."""
+    none, ``--metrics-port`` 0 (off), ..."""
     got = _parsed(live.main, argv, monkeypatch)
     want = _parsed(j_live.main, argv, monkeypatch)
-    assert got.pop("metrics_port") is None and want.pop("metrics_port") == 0
     assert got == want
+    assert got["metrics_port"] == 0
     assert got["model_name"] == "cardata-live.h5"
     assert got.get("checkpoint_interval_s", 0.5) == 0.5
 
@@ -198,12 +198,11 @@ def test_argument_errors_exit_as_jax(argv):
 
 
 UNPORTED = [("--mesh-data", "2", "A10"), ("--device-normalize", "1", "A10"),
-            ("--prefetch-depth", "2", "A7"),
+            ("--prefetch-depth", "2", "A10"),
             ("--decode-ring-buffers", "4", "A3, item 13"),
             ("--raw-batch-bytes", "4096", "A3, item 13"),
             ("--raw-produce", "on", "A13"),
-            ("--produce-batch-bytes", "4096", "A13"),
-            ("--metrics-port", "9137", "A13")]
+            ("--produce-batch-bytes", "4096", "A13")]
 
 
 @pytest.mark.parametrize("cmd", ["train", "score"])
@@ -238,3 +237,88 @@ def test_no_card_and_no_device_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         live.main(["train", "127.0.0.1:1", TOPIC, str(tmp_path)])
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("cmd", ["train", "score"])
+def test_metrics_port_serves_metrics_and_healthz(tmp_path, cmd):
+    """The service answers ``/metrics`` and ``/healthz`` on
+    ``--metrics-port`` while it runs, with its own families and
+    watermarks; the server is gone when ``main`` returns."""
+    import urllib.request
+
+    broker = _records(n=3000)
+    root = str(tmp_path)
+    port = _free_port()
+    rcs = {}
+    with KafkaWireServer(broker, credentials=CREDS) as srv:
+        addr = f"127.0.0.1:{srv.port}"
+        sasl = ["--sasl", ":".join(CREDS)]
+        argvs = {"train": ["train", addr, TOPIC, root, "--take-batches",
+                           "10", "--max-seconds", "5", *sasl],
+                 "score": ["score", addr, TOPIC, "model-predictions", root,
+                           "--max-seconds", "7", *sasl]}
+        for c in argvs:
+            if c == cmd:
+                argvs[c] += ["--metrics-port", str(port)]
+
+        def run(c):
+            rcs[c] = live.main(argvs[c], device="cpu")
+
+        threads = [threading.Thread(target=run, args=(c,)) for c in argvs]
+        for t in threads:
+            t.start()
+        want = ("live_train_rounds_total" if cmd == "train"
+                else "iotml_records_scored_total")
+        metrics = health = None
+        deadline = __import__("time").time() + 60
+        while __import__("time").time() < deadline:
+            try:
+                metrics = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5
+                ).read().decode()
+                health = json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/healthz", timeout=5).read())
+            except OSError:
+                metrics = None
+            stage = "train" if cmd == "train" else "score"
+            if metrics and any(k.startswith(f"{stage}:")
+                               for k in health.get("watermarks", {})):
+                break
+            __import__("time").sleep(0.1)
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+    assert rcs == {"train": 0, "score": 0}
+    assert metrics is not None and f"# TYPE {want}" in metrics
+    assert health["status"] == "ok"
+    assert any(k.startswith("consume:") for k in health["watermarks"])
+    with pytest.raises(OSError):
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2)
+
+
+@pytest.mark.parametrize("cmd", ["train", "score"])
+def test_metrics_port_that_cannot_bind_raises(tmp_path, cmd):
+    """A ``--metrics-port`` another socket holds raises EADDRINUSE before
+    the service connects to its broker (here nobody listens)."""
+    import errno
+
+    holder = socket.socket()
+    holder.bind(("0.0.0.0", 0))
+    holder.listen(1)
+    pos = ["127.0.0.1:1", TOPIC, str(tmp_path)] if cmd == "train" else \
+        ["127.0.0.1:1", TOPIC, "out", str(tmp_path)]
+    try:
+        with pytest.raises(OSError) as e:
+            live.main([cmd, *pos, "--metrics-port",
+                       str(holder.getsockname()[1])], device="cpu")
+    finally:
+        holder.close()
+    assert e.value.errno == errno.EADDRINUSE
