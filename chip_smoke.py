@@ -259,7 +259,38 @@ non-zero exit and no result line:
                 the hit and fire counts equal to a CPU run of the same
                 schedule; (5) the serve drain and the fit timed with
                 tracing off and on, in turns (off, on, on, off, twice).
-15. timing     — each design held against the plain version over the
+15. ksql_path  — the reference's KSQL stage (L4) on the card's host
+                feeding B1, set up as the platform does on loopback: the
+                port's in-process broker with a 4-partition
+                ``sensor-data``, a ``SchemaRegistry`` holding the two car
+                subjects behind its REST server, a ``KafkaWireServer``
+                and a ``KsqlServer`` on 127.0.0.1:0,
+                ``restrict_topic("SENSOR_DATA_S_AVRO")`` and a trusted
+                ``SqlEngine`` holding the owner's token (sampling one
+                pass-through batch in 32).  ``REFERENCE_PIPELINE_DDL``
+                POSTed to ``/ksql``; one tick of a 100,000-car fleet as
+                JSON (``json.dumps(gen.row_record(...))``) under the MQTT
+                bridge's keys; ``pump_now`` until a round emits nothing,
+                each leg timed apart (JSON→AVRO, REKEY, CTAS records/s)
+                and the rows its native legs handed to Python counted.
+                SENSOR_DATA_S_AVRO and its REKEY hold 100,000 records,
+                the CTAS table 100,000 keys each counted once, ``SHOW
+                QUERIES`` no error, ``GET /subjects`` the AVRO legs'
+                subjects and every frame the registry's id; the first
+                2,000 records of each leg equal to ``process_plain``'s
+                (the pure Python leg) byte for byte; a wire produce to
+                SENSOR_DATA_S_AVRO refused with error 29, the end offsets
+                unmoved.  Then 100 batches of 100 normal rows from the
+                AVRO leg — equal exactly to the batches of the same rows
+                published straight as Avro — fit for 20 epochs
+                (``fit_compiled``: one B1 launch, through rows) and held
+                against the plain version at the fit bounds; the kernel
+                timed again alone; the scorer over all 100,000 records
+                into ``model-predictions`` with the threshold at the 99th
+                percentile of 512 normal rows' errors (the demo's),
+                payloads against a CPU recompute (first 100 at atol
+                2e-6, all at 1e-5).
+16. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -269,7 +300,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-16. attention_kernel — the flash-attention kernel against its plain
+17. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -292,13 +323,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-17. sensorformer_path — SensorFormer at full width (its defaults) scores
+18. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-18. attention_timing — kernel, plain version, bound and the library
+19. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -309,7 +340,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-19. attention_backward_kernel — the dK/dV and dQ kernels against the
+20. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -328,18 +359,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-20. sensorformer_train — the slice's main path: ``make_sp_train_step``
+21. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 17; each step launches exactly
+                fleet histories of phase 18; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-21. attention_backward_timing — each backward kernel, the plain
+22. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 18, beside the bound, the fp32 FMA floor
+                shapes of phase 19, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -355,13 +386,13 @@ the main path and by path, the main path, the CLI path, the serve path
 (none), the wire path, the live path (one a round), the lifecycle path
 (one for the CLI train and one a registry round), the online path (the
 drill's pre-train and every refit's), the obs path (two traced fits,
-two captures, eight chaos rounds, eight timed fits), the creditcard path
-(one), the LSTM and MNIST paths (none), summed in ``launches``; the
+two captures, eight chaos rounds, eight timed fits), the KSQL path
+(one), the creditcard path (one), the LSTM and MNIST paths (none), summed in ``launches``; the
 creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 17), the training steps (phase 20), the long-context forward +
-backward (phase 21) and the serve, creditcard, LSTM, MNIST and online
+(phase 18), the training steps (phase 21), the long-context forward +
+backward (phase 22) and the serve, creditcard, LSTM, MNIST and online
 paths (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -370,6 +401,7 @@ the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import http.client
 import io
 import json
 import math
@@ -398,7 +430,7 @@ from iotml_torch.cli import lstm as lstm_cli
 from iotml_torch.cli import mnist_smoke as mnist_cli
 from iotml_torch.cli import serve as serve_cli
 from iotml_torch.core.normalize import CAR_NORMALIZER
-from iotml_torch.core.schema import KSQL_CAR_SCHEMA
+from iotml_torch.core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
 from iotml_torch.data.dataset import RowSource, SensorBatches
 from iotml_torch.data.mnist_stream import synth_mnist
 from iotml_torch.evaluate import anomaly
@@ -453,6 +485,10 @@ from iotml_torch.stream.group import GroupConsumer, GroupCoordinator
 from iotml_torch.stream.kafka_wire import KafkaWireBroker, KafkaWireServer
 from iotml_torch.stream.native_kafka import NativeKafkaBroker
 from iotml_torch.stream.producer import OutputSequence
+from iotml_torch.stream.registry import SchemaRegistry, subject_for_topic
+from iotml_torch.stream.registry_server import SchemaRegistryServer
+from iotml_torch.streamproc import KsqlServer, SqlEngine
+from iotml_torch.streamproc.sql import REFERENCE_PIPELINE_DDL
 from iotml_torch.train.artifacts import ArtifactStore
 from iotml_torch.train.checkpoint import CheckpointManager
 from iotml_torch.train.live import ContinuousTrainer
@@ -3195,6 +3231,351 @@ def phase_obs_path(card: str, root: str) -> dict:
             "launches_by_design": by_design}
 
 
+#: the KSQL stage's fleet: one tick of the reference's 100,000 cars
+#: (reference README.md:19), JSON on a 4-partition sensor-data (the demo
+#: platform's partition count), keyed as the MQTT bridge keys it
+KSQL_CARS = 100_000
+KSQL_PARTITIONS = 4
+KSQL_TOPICS = ("SENSOR_DATA_S_AVRO", "SENSOR_DATA_S_AVRO_REKEY",
+               "SENSOR_DATA_EVENTS_PER_5MIN_T")
+#: records of each leg held against the pure Python leg
+KSQL_PLAIN_ROWS = 2_000
+
+
+def _ksql_http(server, method: str, path: str, body=None):
+    conn = http.client.HTTPConnection(server.host, server.port, timeout=60)
+    try:
+        conn.request(method, path,
+                     None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def _bridge_key(scenario, car: int) -> bytes:
+    """The MQTT bridge's record key: the car's MQTT topic."""
+    return f"vehicles/sensor/data/{scenario.car_id(car)}".encode()
+
+
+def _ksql_fleet_json(broker) -> float:
+    """One tick of the fleet as the platform's fleet writes it
+    (``json.dumps(gen.row_record(cols, i, KSQL_CAR_SCHEMA))``), produced
+    to sensor-data under the bridge's keys; returns the seconds."""
+    t0 = time.perf_counter()
+    scenario = FleetScenario(num_cars=KSQL_CARS, failure_rate=0.01)
+    gen = FleetGenerator(scenario)
+    cols = gen.step_columns()
+    ts = int(gen.t * 1000)
+    broker.produce_many("sensor-data", [
+        (_bridge_key(scenario, i),
+         json.dumps(gen.row_record(cols, i, KSQL_CAR_SCHEMA)).encode(), ts)
+        for i in range(KSQL_CARS)])
+    return time.perf_counter() - t0
+
+
+def _ksql_straight_avro() -> Broker:
+    """The same generator rows published straight as framed Avro by the
+    generator's encoder (``FleetGenerator.publish``'s), under the same
+    keys and partitions: what main_path's kind of publishing gives."""
+    scenario = FleetScenario(num_cars=KSQL_CARS, failure_rate=0.01)
+    gen = FleetGenerator(scenario)
+    cols = gen.step_columns()
+    msgs = native.NativeCodec(KSQL_CAR_SCHEMA).encode_batch(
+        gen.sensor_matrix(cols),
+        cols["failure_occurred"].astype("S16")[:, None], schema_id=1)
+    broker = Broker()
+    broker.create_topic("SENSOR_DATA_S_AVRO", partitions=KSQL_PARTITIONS)
+    broker.produce_many("SENSOR_DATA_S_AVRO", [
+        (_bridge_key(scenario, i), m, int(gen.t * 1000))
+        for i, m in enumerate(msgs)])
+    return broker
+
+
+def _ksql_batches(broker, group: str):
+    specs = [f"SENSOR_DATA_S_AVRO:{p}:0" for p in range(KSQL_PARTITIONS)]
+    return list(next(SensorBatches(
+        StreamConsumer(broker, specs, group=group), batch_size=100,
+        take=100, only_normal=True).epochs(1)))
+
+
+def _ksql_timed_legs(engine) -> dict:
+    """Wrap each persistent query's ``process_available`` to add up its
+    seconds and records; returns {sink: [seconds, records]}."""
+    legs = {}
+    for q in engine.queries.values():
+        real = q.task.process_available
+        slot = legs.setdefault(q.sink, [0.0, 0])
+
+        def timed(chunk=4096, real=real, slot=slot):
+            t0 = time.perf_counter()
+            n = real(chunk)
+            slot[0] += time.perf_counter() - t0
+            slot[1] += n
+            return n
+
+        q.task.process_available = timed
+    return legs
+
+
+def _ksql_plain_legs(broker, engine) -> dict:
+    """The first KSQL_PLAIN_ROWS records of each leg (an equal share of
+    each partition) against the port's pure Python leg, called by name
+    (``process_plain``): the AVRO and REKEY values byte for byte in
+    order, the CTAS rows against the table topic's row for each key."""
+    tasks = {q.sink: q.task for q in engine.queries.values()}
+    per = KSQL_PLAIN_ROWS // KSQL_PARTITIONS
+    checked = {}
+    for src, sink in (("sensor-data", "SENSOR_DATA_S_AVRO"),
+                      ("SENSOR_DATA_S_AVRO", "SENSOR_DATA_S_AVRO_REKEY")):
+        n = 0
+        for p in range(KSQL_PARTITIONS):
+            msgs = broker.fetch(src, p, 0, per)
+            plain = tasks[sink].process_plain(msgs)
+            got = [(m.key, m.value, m.timestamp_ms)
+                   for m in broker.fetch(sink, p, 0, per)]
+            if plain != got:
+                bad = next(i for i, (a, b) in enumerate(zip(plain, got))
+                           if a != b) if len(plain) == len(got) else None
+                raise AssertionError(f"ksql_path: {sink} partition {p} "
+                                     f"differs from the Python leg (first "
+                                     f"at {bad}, {len(plain)} vs "
+                                     f"{len(got)} records)")
+            n += len(got)
+        checked[sink] = n
+    table_topic = "SENSOR_DATA_EVENTS_PER_5MIN_T"
+    rows = {m.key: m.value
+            for p in range(KSQL_PARTITIONS)
+            for m in broker.fetch(table_topic, p, 0, KSQL_CARS)}
+    msgs = [m for p in range(KSQL_PARTITIONS)
+            for m in broker.fetch("SENSOR_DATA_S_AVRO_REKEY", p, 0, per)]
+    plain = tasks[table_topic].process_plain(msgs)
+    if len(plain) != len(msgs) or any(rows.get(k) != v for k, v, _ in plain):
+        raise AssertionError("ksql_path: CTAS rows differ from the Python "
+                             "leg's")
+    checked[table_topic] = len(plain)
+    return checked
+
+
+def _ksql_stage() -> dict:
+    """The platform's KSQL stage on loopback: the reference DDL posted
+    over HTTP, the fleet's JSON pumped through every leg, each check of
+    the stage; returns the broker, the registry's id and the timings."""
+    broker = Broker()
+    broker.create_topic("sensor-data", partitions=KSQL_PARTITIONS)
+    broker.create_topic("model-predictions", partitions=KSQL_PARTITIONS)
+    registry = SchemaRegistry()
+    registry.register(subject_for_topic("sensor-data"),
+                      CAR_SCHEMA.avro_json())
+    registry.register(subject_for_topic("SENSOR_DATA_S_AVRO"),
+                      KSQL_CAR_SCHEMA.avro_json())
+    reg_srv = SchemaRegistryServer(registry).start()
+    wire = KafkaWireServer(broker).start()
+    owner = broker.restrict_topic("SENSOR_DATA_S_AVRO")
+    engine = SqlEngine(broker, registry=registry, trusted_passthrough=True,
+                       owner_token=owner, passthrough_sample=32)
+    # the pump thread sleeps an hour between rounds: pump_now drives them
+    ksql = KsqlServer(engine, pump_interval_s=3600.0).start()
+    try:
+        status, ddl = _ksql_http(ksql, "POST", "/ksql",
+                                 {"ksql": REFERENCE_PIPELINE_DDL})
+        if status != 200 or len(ddl) != 4 or any(
+                r.get("commandStatus", {}).get("status") != "SUCCESS"
+                for r in ddl):
+            raise AssertionError(f"ksql_path: the DDL answered {status}: "
+                                 f"{ddl}")
+        publish_s = _ksql_fleet_json(broker)
+        legs = _ksql_timed_legs(engine)
+        native.reset_stats()
+        rounds = []
+        t0 = time.perf_counter()
+        while True:
+            n = ksql.pump_now()
+            rounds.append(n)
+            if n == 0:
+                break
+        pump_s = time.perf_counter() - t0
+        fallback = {k: v for k, v in native.stats.items()
+                    if k.endswith("_fallback_rows")}
+        json_rows = native.stats["json_decode_rows"]
+        counts = {t: sum(broker.end_offset(t, p)
+                         for p in range(broker.topic(t).partitions))
+                  for t in KSQL_TOPICS}
+        if counts["SENSOR_DATA_S_AVRO"] != KSQL_CARS or \
+                counts["SENSOR_DATA_S_AVRO_REKEY"] != KSQL_CARS:
+            raise AssertionError(f"ksql_path: legs hold {counts}")
+        table = engine.table("SENSOR_DATA_EVENTS_PER_5MIN_T")
+        if len(table) != KSQL_CARS or \
+                {v["EVENT_COUNT"] for v in table.values()} != {1}:
+            raise AssertionError(f"ksql_path: the CTAS table holds "
+                                 f"{len(table)} keys")
+        queries = engine.execute("SHOW QUERIES")[0]["queries"]
+        if len(queries) != 3 or any(q["state"] != "RUNNING" or "error" in q
+                                    for q in queries):
+            raise AssertionError(f"ksql_path: SHOW QUERIES {queries}")
+        status, subjects = _ksql_http(reg_srv, "GET", "/subjects")
+        want_subjects = {"SENSOR_DATA_S_AVRO-value",
+                         "SENSOR_DATA_S_AVRO_REKEY-value"}
+        if status != 200 or not want_subjects <= set(subjects):
+            raise AssertionError(f"ksql_path: GET /subjects {subjects}")
+        sid = registry.latest("SENSOR_DATA_S_AVRO-value").schema_id
+        header = b"\x00" + sid.to_bytes(4, "big")
+        frames = {m.value[:5] for p in range(KSQL_PARTITIONS)
+                  for m in broker.fetch("SENSOR_DATA_S_AVRO", p, 0,
+                                        KSQL_CARS)}
+        if frames != {header}:
+            raise AssertionError(f"ksql_path: frame headers {frames}, "
+                                 f"want id {sid}")
+        plain = _ksql_plain_legs(broker, engine)
+        # an external producer on the wire may not write the AVRO leg
+        ends = [broker.end_offset("SENSOR_DATA_S_AVRO", p)
+                for p in range(KSQL_PARTITIONS)]
+        client = KafkaWireBroker(f"127.0.0.1:{wire.port}")
+        try:
+            client.produce("SENSOR_DATA_S_AVRO", b"external",
+                           key=b"vehicles/sensor/data/x")
+            refused = False
+        except PermissionError:
+            refused = True
+        finally:
+            client.close()
+        if not refused or ends != [broker.end_offset("SENSOR_DATA_S_AVRO",
+                                                     p)
+                                   for p in range(KSQL_PARTITIONS)]:
+            raise AssertionError("ksql_path: a wire produce to "
+                                 "SENSOR_DATA_S_AVRO was not refused with "
+                                 "error 29, or moved the end offsets")
+    finally:
+        ksql.stop()
+        reg_srv.stop()
+        wire.shutdown()
+        wire.server_close()
+    rates = {sink: {"records": n, "seconds": s,
+                    "records_per_s": n / s if s else None}
+             for sink, (s, n) in legs.items()}
+    return {"broker": broker, "schema_id": sid, "publish_s": publish_s,
+            "pump_s": pump_s, "pump_rounds": rounds, "legs": rates,
+            "fallback_rows": fallback, "json_decode_rows": json_rows,
+            "plain_checked": plain, "subjects": subjects,
+            "wire_produce_refused": refused}
+
+
+def _recompute_ksql(broker, params):
+    """The CPU forward of SENSOR_DATA_S_AVRO's rows in the scorer's
+    consumer order."""
+    specs = [f"SENSOR_DATA_S_AVRO:{p}:0" for p in range(KSQL_PARTITIONS)]
+    batches = SensorBatches(StreamConsumer(broker, specs), batch_size=100)
+    x = torch.from_numpy(np.concatenate([b.x[:b.n_valid] for b in batches]))
+    with torch.no_grad():
+        return torch.func.functional_call(CAR_AUTOENCODER.build("cpu"),
+                                          params, (x,)).numpy(), x.numpy()
+
+
+def phase_ksql_path(card: str) -> dict:
+    """The reference's KSQL stage on the card's host feeding the B1 fit:
+    JSON on sensor-data → the reference DDL → Avro on SENSOR_DATA_S_AVRO
+    → one fit launch → the scorer into model-predictions."""
+    reset_launches()
+    reset_fit_launches()
+    stage = _ksql_stage()
+    broker = stage["broker"]
+    bs = _ksql_batches(broker, "ksql-fit")
+    straight = _ksql_batches(_ksql_straight_avro(), "ksql-fit")
+    same = len(bs) == len(straight) == 100 and all(
+        np.array_equal(a.x, b.x) and np.array_equal(a.mask, b.mask)
+        for a, b in zip(bs, straight))
+    if not same:
+        raise AssertionError("ksql_path: the KSQL leg's batches differ from "
+                             "the same rows published straight as Avro")
+    trainer = Trainer(CAR_AUTOENCODER)  # the card
+    trainer._ensure_state()
+    before = _clone_state(trainer.state)
+    t0 = time.perf_counter()
+    hist = trainer.fit_compiled(bs, epochs=20)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if launches != 1 or by_design["rows"] != 1:
+        raise AssertionError(f"ksql_path launched the fit kernel "
+                             f"{launches}x ({by_design}), not once through "
+                             f"rows")
+    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+        before, xs, masks, 20)
+    err = check_fit("ksql_path", (trainer.state,
+                                  torch.tensor(hist["loss"]),
+                                  torch.tensor(hist["accuracy"])),
+                    (p_state, p_loss.cpu(), p_acc.cpu()), 100 * 20)
+    kernel_ms = cuda_ms(lambda: fused_train.fused_fit(before, xs, masks, 20),
+                        reps=5)
+
+    # threshold: the 99th percentile of training rows' errors, as the
+    # demo takes it (512 normal rows from the start of the topic)
+    specs = [f"SENSOR_DATA_S_AVRO:{p}:0" for p in range(KSQL_PARTITIONS)]
+    sample = next(iter(SensorBatches(
+        StreamConsumer(broker, specs, group="ksql-threshold"),
+        batch_size=512, only_normal=True)))
+    threshold = float(np.percentile(anomaly.reconstruction_errors(
+        CAR_AUTOENCODER, trainer.state.params,
+        sample.x[:sample.n_valid]), 99.0))
+    scorer = StreamScorer(
+        CAR_AUTOENCODER, trainer.state.params,
+        SensorBatches(StreamConsumer(broker, specs, group="ksql-serve"),
+                      batch_size=100, keep_labels=True),
+        OutputSequence(broker, "model-predictions", partition=0),
+        threshold=threshold)
+    t0 = time.perf_counter()
+    n = scorer.score_available()
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    payloads = [m.value.decode() for m in broker.fetch(
+        "model-predictions", 0, 0, KSQL_CARS + 1)]
+    if n != KSQL_CARS or len(payloads) != KSQL_CARS:
+        raise AssertionError(f"ksql_path scored {n} rows, wrote "
+                             f"{len(payloads)}")
+    cpu_params = {k: v.cpu() for k, v in trainer.state.params.items()}
+    want, x = _recompute_ksql(broker, cpu_params)
+    err_first, err_all, anomalies = _check_serve_payloads(
+        payloads, want, x, threshold, "ksql_path")
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"ksql_path launched {attention}")
+    legs = stage["legs"]
+    info = {"phase": "ksql_path", "card": card, "cars": KSQL_CARS,
+            "partitions": KSQL_PARTITIONS, "schema_id": stage["schema_id"],
+            "subjects": stage["subjects"],
+            "publish_json_s": stage["publish_s"], "pump_s": stage["pump_s"],
+            "pump_rounds": stage["pump_rounds"],
+            "json_to_avro_records_per_s":
+                legs["SENSOR_DATA_S_AVRO"]["records_per_s"],
+            "rekey_records_per_s":
+                legs["SENSOR_DATA_S_AVRO_REKEY"]["records_per_s"],
+            "ctas_records_per_s":
+                legs["SENSOR_DATA_EVENTS_PER_5MIN_T"]["records_per_s"],
+            "legs": legs, "fallback_rows": stage["fallback_rows"],
+            "json_decode_rows": stage["json_decode_rows"],
+            "plain_leg_records_checked": stage["plain_checked"],
+            "wire_produce_refused": stage["wire_produce_refused"],
+            "batches_equal_straight_avro": same,
+            "fit_seconds": fit_s, "fit_ms": 1e3 * fit_s,
+            "kernel_ms": kernel_ms,
+            "host_pipeline_s": hist["host_pipeline_s"],
+            "device_compute_s": hist["device_compute_s"],
+            "loss_first": hist["loss"][0], "loss_last": hist["loss"][-1],
+            "fit_max_abs_err": err, "kernel_launches": launches,
+            "kernel_launches_by_design": by_design,
+            "threshold": threshold, "rows_scored": n,
+            "score_seconds": score_s, "score_rows_per_s": n / score_s,
+            "payload_max_err_first_100": err_first,
+            "payload_max_err_all": err_all, "anomalies": anomalies}
+    emit(info)
+    return {"launches": launches, "launches_by_design": by_design,
+            "max_abs_err": err}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -4379,6 +4760,7 @@ def main() -> int:
         lc_info = phase_lifecycle_path(card, root, live_info)
         online_info = phase_online_path(card, root)
         obs_info = phase_obs_path(card, root)
+        ksql_info = phase_ksql_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -4413,7 +4795,7 @@ def main() -> int:
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
         + live_info["launches"] + lc_info["launches"]
         + online_info["launches"] + obs_info["launches"]
-        + cc_info["launches"]
+        + ksql_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -4425,6 +4807,7 @@ def main() -> int:
                              "lifecycle_path": lc_info["launches"],
                              "online_path": online_info["launches"],
                              "obs_path": obs_info["launches"],
+                             "ksql_path": ksql_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -4437,11 +4820,12 @@ def main() -> int:
             + lc_info["launches_by_design"][d]
             + online_info["launches_by_design"][d]
             + obs_info["launches_by_design"][d]
+            + ksql_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values(),
-                           cc_info["max_abs_err"]),
+                           cc_info["max_abs_err"], ksql_info["max_abs_err"]),
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],

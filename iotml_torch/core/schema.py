@@ -5,12 +5,14 @@ and the reference's normalization range, and the two record schemas
 derived from it: the producer schema (lower_snake_case) and the
 KSQL-derived schema the ML layer consumes (UPPER_CASE, nullable, plus
 the ``FAILURE_OCCURRED`` label), and the evolved writer schema v2 with
-its frame id.  The Avro JSON and the CSV layout are not ported.
+its frame id; and each schema's Avro JSON (what a schema registry
+holds).  The CSV layout is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 import numpy as np
@@ -45,6 +47,16 @@ class Field:
     def np_dtype(self):
         return _AVRO_NP[self.avro_type]
 
+    def avro_json(self) -> dict:
+        """The field's entry in an Avro record schema."""
+        t = [self.avro_type] if not self.nullable else ["null", self.avro_type]
+        out = {"name": self.name, "type": t[0] if len(t) == 1 else t}
+        if self.nullable:
+            out["default"] = None
+        if self.doc:
+            out["doc"] = self.doc
+        return out
+
 
 @dataclasses.dataclass(frozen=True)
 class RecordSchema:
@@ -55,6 +67,25 @@ class RecordSchema:
     fields: tuple  # tuple[Field, ...]
     label_field: Optional[str] = None
     meta_fields: tuple = ()
+
+    def avro_json(self) -> str:
+        """The record's Avro schema JSON, byte-identical to
+        ``iotml.core.schema``'s."""
+        return json.dumps(
+            {
+                "type": "record",
+                "name": self.name,
+                "namespace": self.namespace,
+                "fields": [f.avro_json() for f in self.fields],
+            },
+            indent=2,
+        )
+
+    def field(self, name: str) -> Field:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(name)
 
     @property
     def sensor_fields(self):

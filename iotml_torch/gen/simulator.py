@@ -4,14 +4,17 @@ A vectorized numpy fleet with per-car latent state and three failure
 modes that perturb the relevant sensors and set the label.  It makes the
 same numpy draws in the same order as the JAX package's generator, so
 the same scenario yields the same columns bit for bit, and ``publish``
-appends the same Confluent-framed Avro records (key, value, timestamp,
-partition) to a broker topic, encoded by the native engine.  JSON
-payloads and the CSV fixture writer are not ported.
+appends the same records (key, value, timestamp, partition) to a broker
+topic: Confluent-framed Avro encoded by the native engine (the ML input
+stage), or the raw JSON with producer field names and the label that
+lands on ``sensor-data`` before the KSQL stage.  The CSV fixture writer
+is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional
 
 import numpy as np
@@ -148,23 +151,34 @@ class FleetGenerator:
 
     def publish(self, broker, topic: str, n_ticks: int = 1,
                 schema: RecordSchema = KSQL_CAR_SCHEMA,
-                partitions: int = 1) -> int:
-        """Append ``n_ticks`` ticks of every car as Confluent-framed Avro
-        records in ``schema`` to a broker topic; returns the record count.
-        Each record is keyed by its car id and stamped with the tick's
-        time in ms; with several partitions the key picks the partition.
-        Under tracing each record is born with its trace context in its
-        headers (``obs.tracing.birth_headers``)."""
+                encoding: str = "avro", partitions: int = 1) -> int:
+        """Append ``n_ticks`` ticks of every car to a broker topic; returns
+        the record count.  ``encoding="avro"``: Confluent-framed Avro in
+        ``schema``; ``"json"``: JSON with the producer's field names and
+        the label (``schema`` does not apply).  Each record is keyed by
+        its car id and stamped with the tick's time in ms; with several
+        partitions the key picks the partition.  Under tracing each record
+        is born with its trace context in its headers
+        (``obs.tracing.birth_headers``)."""
+        if encoding not in ("avro", "json"):
+            raise ValueError(f"encoding must be 'avro' or 'json', got "
+                             f"{encoding!r}")
         broker.create_topic(topic, partitions=partitions)
-        codec = NativeCodec(schema)
+        codec = NativeCodec(schema) if encoding == "avro" else None
         count = 0
         for _ in range(n_ticks):
             cols = self.step_columns()
             ts = int(self.t * 1000)
-            labels = cols["failure_occurred"].astype("S16")[:, None] \
-                if schema.label_field else None
-            msgs = codec.encode_batch(self.sensor_matrix(cols), labels,
-                                      schema_id=1)
+            if codec is not None:
+                labels = cols["failure_occurred"].astype("S16")[:, None] \
+                    if schema.label_field else None
+                msgs = codec.encode_batch(self.sensor_matrix(cols), labels,
+                                          schema_id=1)
+            else:
+                msgs = [json.dumps({
+                    **self.row_record(cols, i, CAR_SCHEMA),
+                    "failure_occurred": str(cols["failure_occurred"][i])
+                }).encode() for i in range(len(cols["car"]))]
             for car, payload in zip(cols["car"], msgs):
                 # trace birth; the disabled path makes no tracing call
                 hdrs = tracing.birth_headers("devsim_publish") \
@@ -175,3 +189,4 @@ class FleetGenerator:
                                timestamp_ms=ts, headers=hdrs)
             count += len(msgs)
         return count
+

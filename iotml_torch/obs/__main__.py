@@ -1,18 +1,22 @@
 """``python -m iotml_torch.obs`` — the observability CLI (``iotml.obs``'s
-twin, cut to ``trace``):
+twin, cut to ``trace`` and ``dlq``):
 
     python -m iotml_torch.obs trace SPANS.jsonl [--json] [--top N]
                               [--min-stages N] [--require-e2e]
                               [--require-cross-process N] [--show-trace]
+    python -m iotml_torch.obs dlq --bootstrap HOST:PORT [--topic T]
+                              [--limit N] [--json]
 
 ``trace`` summarizes a span log written by ``iotml_torch.obs.tracing``
 (``IOTML_TRACE=1 IOTML_TRACE_PATH=spans.jsonl``), or by the JAX
 package's (the same JSON lines), into a per-stage latency breakdown and
 names the stage that took the most time.  ``--min-stages``,
 ``--require-e2e`` and ``--require-cross-process`` turn it into an
-assertion (exit 1 on a violation).  ``fleet`` (the metrics federation)
-and ``tsdb`` are ROADMAP A13, ``dlq`` (the dead-letter topics of the
-stream processor) A15: each raises NotImplementedError naming its item.
+assertion (exit 1 on a violation).  ``dlq`` peeks a dead-letter topic
+over the Kafka wire protocol: it decodes the JSON envelopes the stream
+processor's tasks write (``streamproc.dlq``) and shows what poisoned the
+pipeline.  ``fleet`` (the metrics federation) and ``tsdb`` are ROADMAP
+A13: each raises NotImplementedError naming its item.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import sys
 from typing import Dict, List
 
 #: subcommands of the JAX CLI the port has not got → the ROADMAP item
-UNPORTED = {"fleet": "A13", "tsdb": "A13", "dlq": "A15"}
+UNPORTED = {"fleet": "A13", "tsdb": "A13"}
 
 
 def _percentile(sorted_vals: List[int], q: float) -> float:
@@ -222,10 +226,84 @@ def cmd_trace(args) -> int:
     return 1 if failures else 0
 
 
+def cmd_dlq(args) -> int:
+    """Peek a dead-letter topic: decode the JSON envelopes the stream
+    processor's DLQ writes and show what poisoned the pipeline."""
+    from ..stream.broker import OffsetOutOfRangeError
+    from ..stream.kafka_wire import KafkaWireBroker
+    from ..streamproc.dlq import DLQ_SUFFIX, decode_envelope
+
+    topic = args.topic if args.topic.endswith(DLQ_SUFFIX) \
+        else args.topic + DLQ_SUFFIX
+    try:
+        client = KafkaWireBroker(args.bootstrap, client_id="iotml-dlq-peek")
+    except OSError as e:
+        print(f"cannot reach broker {args.bootstrap!r}: {e}",
+              file=sys.stderr)
+        return 2
+    try:
+        try:
+            parts = client.topic(topic).partitions
+        except KeyError:
+            print(f"no dead letters: topic {topic!r} does not exist")
+            return 0
+        rows = []
+        for p in range(parts):
+            off = client.begin_offset(topic, p)
+            end = client.end_offset(topic, p)
+            resets = 0
+            while off < end and len(rows) < args.limit:
+                try:
+                    msgs = client.fetch(topic, p, off, max_messages=256)
+                except OffsetOutOfRangeError as e:  # raced a retention trim
+                    # bounded: a broker that reports earliest=0 on this
+                    # error must not spin the CLI forever
+                    resets += 1
+                    if resets > 3:
+                        break
+                    off = max(e.earliest, client.begin_offset(topic, p))
+                    continue
+                resets = 0
+                if not msgs:
+                    break
+                for m in msgs:
+                    off = m.offset + 1
+                    try:
+                        rows.append(decode_envelope(m.value))
+                    except (ValueError, KeyError, TypeError):
+                        rows.append({"source": topic, "partition": p,
+                                     "offset": m.offset,
+                                     "error": "unparseable DLQ envelope",
+                                     "raw": m.value})
+                    if len(rows) >= args.limit:
+                        break
+    finally:
+        client.close()
+    if args.json:
+        for doc in rows:
+            doc = dict(doc)
+            doc["raw"] = doc.get("raw", b"")[:256].decode(errors="replace")
+            print(json.dumps(doc, sort_keys=True))
+        return 0
+    if not rows:
+        print(f"{topic}: empty")
+        return 0
+    print(f"{topic}: showing {len(rows)} dead letter(s)")
+    for doc in rows:
+        raw = doc.get("raw", b"")[:80]
+        print(f"  {doc.get('source')}:{doc.get('partition')}"
+              f"@{doc.get('offset')} [{doc.get('task') or '-'}] "
+              f"{doc.get('error')}"
+              + (f" trace={doc['trace']}" if doc.get("trace") else ""))
+        print(f"    raw[:80]: {raw!r}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m iotml_torch.obs",
-        description="observability tools (span-log analysis)")
+        description="observability tools (span-log analysis, "
+                    "dead-letter topics)")
     sub = ap.add_subparsers(dest="cmd")
     tp = sub.add_parser(
         "trace", help="summarize a JSONL span log into a per-stage "
@@ -247,6 +325,18 @@ def main(argv=None) -> int:
     tp.add_argument("--show-trace", action="store_true",
                     help="print the breakdown of the trace spanning "
                          "the most processes")
+    dp = sub.add_parser(
+        "dlq", help="peek a dead-letter topic's poisoned-record "
+                    "envelopes over the Kafka wire protocol")
+    dp.add_argument("--bootstrap", required=True,
+                    help="broker address host:port[,host:port...]")
+    dp.add_argument("--topic", default="sensor-data",
+                    help="source topic (the _DLQ suffix is appended "
+                         "unless already present)")
+    dp.add_argument("--limit", type=int, default=20,
+                    help="show at most N dead letters")
+    dp.add_argument("--json", action="store_true",
+                    help="one JSON envelope per line")
     for name, item in UNPORTED.items():
         sub.add_parser(name, help=f"not ported (ROADMAP {item})",
                        add_help=False)
@@ -259,6 +349,8 @@ def main(argv=None) -> int:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.cmd == "trace":
         return cmd_trace(args)
+    if args.cmd == "dlq":
+        return cmd_dlq(args)
     ap.print_help()
     return 2
 

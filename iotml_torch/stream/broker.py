@@ -16,12 +16,17 @@ server's produce path and the ordered write-back).  Records carry
 optional headers (``Message.headers``, the trace context's carrier, as
 the JAX broker's do); ``produce``/``produce_many`` pass the chaos point
 ``broker.produce`` once a call and ``fetch`` passes ``broker.fetch``.
-The durable segmented store, raw frame batches, compaction, tiering and
-topic ownership are not ported.
+Topic ownership is ported: ``restrict_topic(prefix)`` makes every topic
+of that prefix writable only by a thread inside ``producer_grant(token)``
+(the KSQL engine's AVRO leg; other producers get
+``TopicOwnershipError``, the wire server answers them Kafka's
+TOPIC_AUTHORIZATION_FAILED).  The durable segmented store, raw frame
+batches, compaction and tiering are not ported.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import zlib
@@ -50,6 +55,17 @@ class OffsetOutOfRangeError(LookupError):
         self.earliest = earliest
 
 
+class TopicOwnershipError(PermissionError):
+    """Produce to an engine-owned topic without the owner's grant.
+
+    Engine-owned topics (the stream processor's AVRO leg and what derives
+    from it) are written only by the owning engine: that exclusivity is
+    what makes its trusted pass-through sound (the engine skips
+    re-validating bytes only its own validating encoder could have
+    written).  The wire server maps this to Kafka's
+    TOPIC_AUTHORIZATION_FAILED."""
+
+
 class SchemaIdMismatchError(ValueError):
     """A fused decode found a Confluent writer-schema id outside the
     reader's pinned band at the current cursor.
@@ -69,6 +85,14 @@ class SchemaIdMismatchError(ValueError):
         self.topic = topic
         self.partition = partition
         self.offset = offset
+
+
+# Thread-local produce grants: a thread pumping an owning engine enters
+# `producer_grant(token)` and may produce to the topics that token
+# restricts; every other producer is rejected.  Thread-local (not an
+# instance flag) so a grant cannot leak across the wire server's
+# handler threads.
+_grants = threading.local()
 
 
 class Message(NamedTuple):
@@ -178,6 +202,45 @@ class Broker:
         # (group, topic, partition) → next offset
         self._group_offsets: Dict[tuple, int] = {}
         self._rr: Dict[str, int] = {}  # round-robin cursor per topic
+        self._owned: Dict[str, object] = {}  # topic prefix → owner token
+
+    # --------------------------------------------------------- ownership
+    def restrict_topic(self, prefix: str,
+                       token: Optional[object] = None) -> object:
+        """Mark every topic named `prefix`* engine-owned: produces are
+        rejected (TopicOwnershipError) unless the calling thread holds
+        the returned token via `producer_grant`.  Reads, commits and
+        topic creation stay open: the invariant is write exclusivity."""
+        token = token if token is not None else object()
+        with self._lock:
+            self._owned[prefix] = token
+        return token
+
+    @contextlib.contextmanager
+    def producer_grant(self, token: object):
+        """Authorize this thread to produce to the topics `token`
+        restricts for the duration of the block (re-entrant)."""
+        held = getattr(_grants, "tokens", None)
+        if held is None:
+            held = _grants.tokens = []
+        held.append(token)
+        try:
+            yield self
+        finally:
+            held.pop()
+
+    def _check_producer(self, topic: str) -> None:
+        if not self._owned:
+            return
+        with self._lock:  # snapshot: restrict_topic may race a produce
+            owned = list(self._owned.items())
+        for prefix, token in owned:
+            if topic.startswith(prefix) and \
+                    token not in getattr(_grants, "tokens", ()):
+                raise TopicOwnershipError(
+                    f"topic {topic!r} is engine-owned (prefix {prefix!r}): "
+                    f"produce requires the owner's grant "
+                    f"(Broker.producer_grant)")
 
     # ------------------------------------------------------------- topics
     def create_topic(self, name: str, partitions: int = 1,
@@ -237,8 +300,10 @@ class Broker:
         (-1 for none).  Keyed records go to ``crc32(key) % partitions``,
         unkeyed ones round-robin; retention is enforced once per touched
         partition, which trims to what a trim after every record leaves.
-        The optional 4th element is the record's headers."""
+        The optional 4th element is the record's headers.  A topic
+        restricted to an owner needs its grant (TopicOwnershipError)."""
         chaos.point("broker.produce")
+        self._check_producer(topic)
         entries = list(entries)
         if topic not in self._topics:
             self.create_topic(topic)

@@ -77,6 +77,7 @@ ERR_ILLEGAL_GENERATION = 22
 ERR_INVALID_REQUIRED_ACKS = 21
 ERR_UNKNOWN_MEMBER_ID = 25
 ERR_REBALANCE_IN_PROGRESS = 27
+ERR_TOPIC_AUTHORIZATION_FAILED = 29
 ERR_UNSUPPORTED_VERSION = 35
 ERR_TOPIC_EXISTS = 36
 ERR_INVALID_CONFIG = 40
@@ -604,6 +605,11 @@ class KafkaWireBroker(ProducePartitionMixin):
                     raise NotLeaderForPartitionError(topic, p)
                 if err == ERR_UNKNOWN_TOPIC:
                     raise KeyError(topic)
+                if err == ERR_TOPIC_AUTHORIZATION_FAILED:
+                    raise PermissionError(
+                        f"produce to {topic}:{p} refused: the topic is "
+                        f"restricted to its owning engine "
+                        f"(Broker.restrict_topic); nothing appended")
                 if err != ERR_NONE:
                     raise RuntimeError(f"produce to {topic}:{p} failed: {err}")
                 last = max(last, base + len(by_part[p]) - 1)
@@ -1093,9 +1099,16 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                 # one bulk append under one broker lock; the returned
                 # LAST offset anchors the response base (an end_offset
                 # re-read could include a concurrent producer's batch)
-                last = broker.produce_many(
-                    tname, [(key, value, ts) for _, key, value, ts in entries],
-                    partition=pid)
+                try:
+                    last = broker.produce_many(
+                        tname,
+                        [(key, value, ts) for _, key, value, ts in entries],
+                        partition=pid)
+                except PermissionError:
+                    # engine-owned topic (Broker.restrict_topic): an
+                    # external client may not write the AVRO leg
+                    presp.append((pid, ERR_TOPIC_AUTHORIZATION_FAILED, -1))
+                    continue
                 base = last - len(entries) + 1 if entries \
                     else broker.end_offset(tname, pid)
                 presp.append((pid, ERR_NONE, base))

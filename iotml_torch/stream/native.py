@@ -1,11 +1,16 @@
 """ctypes bindings for the port's C++ stream engine (``iotml.stream.native``).
 
-Four sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
+Five sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
 build into one library:
 
 - ``avro_engine.cc``: one call decodes a whole poll of Confluent-framed
-  Avro messages into columnar numpy buffers, and encodes the other way
-  (``NativeCodec``);
+  Avro messages into columnar numpy buffers (with a null bitmap, or in
+  the strict mode that pass-through validation needs), and encodes the
+  other way, with nulls (``NativeCodec``);
+- ``json_engine.cc``: one call parses a whole poll of flat JSON objects
+  into the same columnar layout (``NativeCodec.json_decode_batch``, the
+  KSQL stage's JSON→AVRO leg), flagging each row it cannot reproduce
+  exactly for the Python leg;
 - ``fmt_engine.cc``: one call formats a drain's prediction rows
   byte-identical to ``np.array2string`` (``serve.fastfmt``);
 - ``msgset_engine.cc``: one call encodes or decodes a Kafka MessageSet v1
@@ -20,7 +25,7 @@ The library is built with g++ at first use, never at import:
 
     g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall
         -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc \
-        fmt_engine.cc msgset_engine.cc kafka_client.cc
+        fmt_engine.cc msgset_engine.cc kafka_client.cc json_engine.cc
 
 ``<hash>`` covers the sources, the header, the flags, the compiler's
 version and what ``-march=native`` means on this host, so an edited
@@ -36,7 +41,12 @@ called by name.
 
 ``stats`` counts the rows each engine call carried and the seconds it
 took (the wire server's handler threads count into it too, under a
-lock); ``reset_stats()`` sets them to 0.
+lock), and the rows the stream processor's native legs handed to their
+Python leg for exactness (``*_fallback_rows``: ``json`` rows the JSON
+parser flagged, ``decode`` rows of Avro source batches decoded in
+Python, ``encode`` sink rows encoded in Python, ``rekey`` rows of
+pass-through batches re-encoded in Python, ``count`` rows of COUNT
+batches folded in Python); ``reset_stats()`` sets them to 0.
 """
 
 from __future__ import annotations
@@ -57,7 +67,7 @@ from ..core.schema import RecordSchema
 
 CPP = Path(__file__).resolve().parent.parent / "cpp"
 SOURCES = ("avro_engine.cc", "fmt_engine.cc", "msgset_engine.cc",
-           "kafka_client.cc")
+           "kafka_client.cc", "json_engine.cc")
 HEADERS = ("utf8_check.h",)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-Wall")
@@ -77,9 +87,22 @@ _SIGNATURES = {
     "iotml_decode_batch": (_i64, [
         ctypes.c_char_p, _P(_i64), _i64, _P(_i8), _P(_u8), _i64, _i64,
         _P(ctypes.c_double), ctypes.c_char_p, _i64]),
+    "iotml_decode_batch_nulls": (_i64, [
+        ctypes.c_char_p, _P(_i64), _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_double), ctypes.c_char_p, _i64, _P(_u8)]),
+    "iotml_decode_batch_strict": (_i64, [
+        ctypes.c_char_p, _P(_i64), _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_double), ctypes.c_char_p, _i64]),
     "iotml_encode_batch": (_i64, [
         _P(ctypes.c_double), ctypes.c_char_p, _i64, _i64, _P(_i8), _P(_u8),
         _i64, _i64, _P(_u8), _i64, _P(_i64)]),
+    "iotml_encode_batch_nulls": (_i64, [
+        _P(ctypes.c_double), ctypes.c_char_p, _i64, _i64, _P(_i8), _P(_u8),
+        _i64, _i64, _P(_u8), _i64, _P(_i64), _P(_u8)]),
+    "iotml_json_decode_batch": (_i64, [
+        ctypes.c_char_p, _P(_i64), _i64, ctypes.c_char_p, _P(_i64),
+        _P(_i8), _P(_u8), _i64, _P(ctypes.c_double), _i64,
+        ctypes.c_char_p, _i64, _i64, _P(_u8), _P(_u8)]),
     "iotml_format_rows_f32": (_i64, [
         _P(ctypes.c_float), _i64, _i64, ctypes.c_char_p, _i64, _P(_i64),
         _P(_u8)]),
@@ -129,7 +152,11 @@ stats = {"decode_rows": 0, "decode_s": 0.0, "encode_rows": 0,
          "encode_s": 0.0, "format_rows": 0, "format_s": 0.0,
          "msgset_encode_rows": 0, "msgset_encode_s": 0.0,
          "msgset_decode_rows": 0, "msgset_decode_s": 0.0,
-         "fetch_decode_rows": 0, "fetch_decode_s": 0.0}
+         "fetch_decode_rows": 0, "fetch_decode_s": 0.0,
+         "json_decode_rows": 0, "json_decode_s": 0.0,
+         "json_fallback_rows": 0, "decode_fallback_rows": 0,
+         "encode_fallback_rows": 0, "rekey_fallback_rows": 0,
+         "count_fallback_rows": 0}
 _stats_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
@@ -139,6 +166,13 @@ def reset_stats() -> None:
     with _stats_lock:
         for k in stats:
             stats[k] = 0 if k.endswith("_rows") else 0.0
+
+
+def count_fallback(kind: str, rows: int) -> None:
+    """Add ``rows`` handed from the ``kind`` native leg to its Python
+    leg to ``stats["<kind>_fallback_rows"]``."""
+    with _stats_lock:
+        stats[f"{kind}_fallback_rows"] += rows
 
 
 def tally(kind: str, rows: int, t0: float) -> None:
@@ -244,10 +278,41 @@ class NativeCodec:
         self.n_fields = len(schema.fields)
         self.n_strings = int((self.types == _TYPE_CODE["string"]).sum())
         self.n_numeric = self.n_fields - self.n_strings
+        # the JSON parser's column names: upper-case, in schema order
+        names = [f.name.upper().encode() for f in schema.fields]
+        self._json_names = b"".join(names)
+        self._json_name_offsets = _offsets(names)
         self._lib = load()
 
+    def _decode(self, entry: str, messages: List[bytes], strip: int,
+                stride: int, nulls: bool):
+        n = len(messages)
+        if n == 0:
+            out = (np.zeros((0, self.n_numeric)),
+                   np.zeros((0, self.n_strings), f"S{stride}"))
+            return out + ((np.zeros((0, self.n_fields), np.uint8),)
+                          if nulls else ())
+        t0 = time.perf_counter()
+        blob = b"".join(messages)
+        offsets = _offsets(messages)
+        numeric = np.empty((n, self.n_numeric), np.float64)
+        labels = np.zeros((n, max(self.n_strings, 1)), f"S{stride}")
+        args = [blob, _ptr(offsets, _i64), n, _ptr(self.types, _i8),
+                _ptr(self.nullable, _u8), self.n_fields, strip,
+                _ptr(numeric, ctypes.c_double),
+                labels.ctypes.data_as(ctypes.c_char_p), stride]
+        if nulls:
+            bitmap = np.zeros((n, self.n_fields), np.uint8)
+            args.append(_ptr(bitmap, _u8))
+        rc = getattr(self._lib, entry)(*args)
+        if rc != n:
+            raise ValueError(f"malformed Avro message at row {-rc - 1}")
+        tally("decode", n, t0)
+        out = (numeric, labels[:, : self.n_strings])
+        return out + ((bitmap,) if nulls else ())
+
     def decode_batch(self, messages: List[bytes], strip: int = 0,
-                     stride: int = LABEL_STRIDE
+                     stride: int = LABEL_STRIDE, strict: bool = False
                      ) -> Tuple[np.ndarray, np.ndarray]:
         """→ (numeric [n, n_numeric] float64, labels [n, n_strings]).
 
@@ -255,32 +320,70 @@ class NativeCodec:
         the car schemas that is exactly the 18-sensor matrix.  ``strip``
         bytes are skipped at each message head (5: the Confluent frame).
         Nulls decode as 0.0 and "".  A malformed message raises
-        ValueError naming its row."""
+        ValueError naming its row.  ``strict=True`` also rejects what the
+        pure codec would reject (invalid UTF-8, a union branch outside
+        {0, 1}) or would canonicalize on re-encode (trailing bytes,
+        non-minimal varints): success guarantees that forwarding the
+        original bytes equals decode → re-encode."""
+        return self._decode("iotml_decode_batch_strict" if strict
+                            else "iotml_decode_batch", messages, strip,
+                            stride, nulls=False)
+
+    def decode_batch_nulls(self, messages: List[bytes], strip: int = 0,
+                           stride: int = LABEL_STRIDE):
+        """``decode_batch`` plus the per-field null bitmap [n, n_fields]
+        (uint8): the columns cannot tell a null union from 0.0 or ""."""
+        return self._decode("iotml_decode_batch_nulls", messages, strip,
+                            stride, nulls=True)
+
+    def json_decode_batch(self, messages: List[bytes],
+                          stride: int = LABEL_STRIDE):
+        """Parse flat JSON objects into ``decode_batch``'s layout: →
+        (numeric [n, n_numeric] float64, labels [n, n_strings], nulls
+        [n, n_fields] uint8, fallback [n] uint8).
+
+        Keys match column names case-insensitively (ASCII upper, as the
+        Python leg's ``{k.upper(): v}``).  Missing columns and JSON nulls
+        on nullable columns set the null bitmap.  Rows the parser cannot
+        reproduce exactly (escapes, nested values, NaN/Infinity, hex,
+        type mismatches, ints beyond 2^53, invalid UTF-8, control
+        characters, null on a non-nullable column) are flagged in
+        ``fallback`` with undefined contents: the caller re-decodes those
+        with ``json.loads``."""
         n = len(messages)
         if n == 0:
             return (np.zeros((0, self.n_numeric)),
-                    np.zeros((0, self.n_strings), f"S{stride}"))
+                    np.zeros((0, self.n_strings), f"S{stride}"),
+                    np.zeros((0, self.n_fields), np.uint8),
+                    np.zeros((0,), np.uint8))
         t0 = time.perf_counter()
         blob = b"".join(messages)
         offsets = _offsets(messages)
         numeric = np.empty((n, self.n_numeric), np.float64)
         labels = np.zeros((n, max(self.n_strings, 1)), f"S{stride}")
-        rc = self._lib.iotml_decode_batch(
-            blob, _ptr(offsets, _i64), n, _ptr(self.types, _i8),
-            _ptr(self.nullable, _u8), self.n_fields, strip,
-            _ptr(numeric, ctypes.c_double),
-            labels.ctypes.data_as(ctypes.c_char_p), stride)
-        if rc != n:
-            raise ValueError(f"malformed Avro message at row {-rc - 1}")
-        tally("decode", n, t0)
-        return numeric, labels[:, : self.n_strings]
+        nulls = np.zeros((n, self.n_fields), np.uint8)
+        fallback = np.zeros((n,), np.uint8)
+        rc = self._lib.iotml_json_decode_batch(
+            blob, _ptr(offsets, _i64), n, self._json_names,
+            _ptr(self._json_name_offsets, _i64), _ptr(self.types, _i8),
+            _ptr(self.nullable, _u8), self.n_fields,
+            _ptr(numeric, ctypes.c_double), self.n_numeric,
+            labels.ctypes.data_as(ctypes.c_char_p), self.n_strings, stride,
+            _ptr(nulls, _u8), _ptr(fallback, _u8))
+        if rc < 0:
+            raise ValueError("json batch decode rejected its arguments")
+        tally("json_decode", n, t0)
+        count_fallback("json", n - int(rc))
+        return numeric, labels[:, : self.n_strings], nulls, fallback
 
     def encode_batch(self, numeric: np.ndarray, labels: Optional[np.ndarray],
-                     schema_id: int = -1,
-                     stride: int = LABEL_STRIDE) -> List[bytes]:
+                     schema_id: int = -1, stride: int = LABEL_STRIDE,
+                     nulls: Optional[np.ndarray] = None) -> List[bytes]:
         """Columnar rows → list of Avro messages, with the Confluent frame
         of ``schema_id`` when it is >= 0.  ``labels`` is [n, n_strings]
-        bytes (None: empty strings)."""
+        bytes (None: empty strings).  ``nulls`` ([n, n_fields] uint8)
+        writes the null branch of the nullable union where set; a null on
+        a non-nullable field raises ValueError."""
         t0 = time.perf_counter()
         numeric = np.ascontiguousarray(numeric, np.float64)
         n = numeric.shape[0]
@@ -296,13 +399,23 @@ class NativeCodec:
         cap = n * (5 + self.n_fields * 20 + self.n_strings * stride) + 64
         out = np.empty((cap,), np.uint8)
         offsets = np.zeros((n + 1,), np.int64)
-        total = self._lib.iotml_encode_batch(
-            _ptr(numeric, ctypes.c_double),
-            labels.ctypes.data_as(ctypes.c_char_p), stride, n,
-            _ptr(self.types, _i8), _ptr(self.nullable, _u8), self.n_fields,
-            schema_id, _ptr(out, _u8), cap, _ptr(offsets, _i64))
+        args = [_ptr(numeric, ctypes.c_double),
+                labels.ctypes.data_as(ctypes.c_char_p), stride, n,
+                _ptr(self.types, _i8), _ptr(self.nullable, _u8),
+                self.n_fields, schema_id, _ptr(out, _u8), cap,
+                _ptr(offsets, _i64)]
+        if nulls is not None:
+            nulls = np.ascontiguousarray(nulls, np.uint8)
+            if nulls.shape != (n, self.n_fields):
+                raise ValueError(f"nulls must be [{n}, {self.n_fields}], "
+                                 f"got {nulls.shape}")
+            args.append(_ptr(nulls, _u8))
+            total = self._lib.iotml_encode_batch_nulls(*args)
+        else:
+            total = self._lib.iotml_encode_batch(*args)
         if total < 0:
-            raise ValueError("native encode overflowed its buffer")
+            raise ValueError("native encode rejected the rows (buffer "
+                             "overflow or a null on a non-nullable field)")
         raw = out[:total].tobytes()
         msgs = [raw[offsets[i]:offsets[i + 1]] for i in range(n)]
         tally("encode", n, t0)

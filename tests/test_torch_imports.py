@@ -80,6 +80,33 @@ def test_the_observability_plane_loads_no_jax_stack():
     assert out.stdout.strip() == "[]"
 
 
+KSQL_MODULES = ["iotml_torch/supervise/registry.py", "iotml_torch/utils/rest.py",
+                "iotml_torch/stream/registry.py",
+                "iotml_torch/stream/registry_server.py",
+                "iotml_torch/stream/csv_source.py",
+                "iotml_torch/streamproc/dlq.py",
+                "iotml_torch/streamproc/tasks.py",
+                "iotml_torch/streamproc/sql.py",
+                "iotml_torch/streamproc/server.py",
+                "iotml_torch/streamproc/__init__.py"]
+
+
+def test_the_ksql_stage_is_covered_and_loads_no_jax_stack():
+    import subprocess
+    import sys
+
+    assert set(KSQL_MODULES) <= set(FILES)
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in KSQL_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

@@ -8,7 +8,8 @@ Tolerances:
   car detector's): the same name, help text, type and buckets;
   ``cardinality_violations``: the same list;
 - counters and histogram counts after the same run, taken as deltas
-  (the registries are process-global): equal, for ``fit_compiled``,
+  (the registries are process-global), and the final values of every
+  gauge that moved on either side: equal, for ``fit_compiled``,
   three registry-mode ``ContinuousTrainer`` rounds, a scorer drain and
   an online window group.  Gauges are compared by value: equal, except
   ``live_train_loss`` and ``online_drift_stat`` (functions of the
@@ -193,7 +194,8 @@ def _snapshot(mod):
 
 
 def _changes(mod, before):
-    """Counter and histogram-count deltas, gauge values that moved."""
+    """Counter and histogram-count deltas, gauge values that moved, in
+    one registry (for windows whose keys no other test sets)."""
     after = _snapshot(mod)
     out = {}
     for k, v in after.items():
@@ -203,6 +205,35 @@ def _changes(mod, before):
         kind, name, key = k
         out[(name, key)] = v if kind == "gauge" else v - (old or 0)
     return out
+
+
+def _paired_changes(t_before, j_before):
+    """The port's and JAX's changes since the two snapshots: counter and
+    histogram-count deltas, and for every gauge key that moved in EITHER
+    registry, its current value on each side.
+
+    The registries are process-global, so a gauge an earlier test left at
+    the value this window sets does not move on one side while it moves
+    on the other; comparing final values makes the window independent of
+    what ran before it in the process.  A gauge key that only one side
+    holds stays on that side alone, and fails the comparison."""
+    t_after, j_after = _snapshot(t_metrics), _snapshot(j_metrics)
+    moved = {k for after, before in ((t_after, t_before), (j_after, j_before))
+             for k, v in after.items()
+             if k[0] == "gauge" and before.get(k) != v}
+
+    def side(after, before):
+        out = {}
+        for k, v in after.items():
+            kind, name, key = k
+            if kind == "gauge":
+                if k in moved:
+                    out[(name, key)] = v
+            elif before.get(k) != v:
+                out[(name, key)] = v - (before.get(k) or 0)
+        return out
+
+    return side(t_after, t_before), side(j_after, j_before)
 
 
 #: gauges that are functions of the losses or errors, and their bounds
@@ -264,14 +295,14 @@ def test_fit_compiled_counters_equal_jax():
     th = tt.fit_compiled(tbat, epochs=3)
     jh = jt.fit_compiled(jbat, epochs=3)
     np.testing.assert_allclose(th["loss"], jh["loss"], **LOSS_TOL)
-    got, want = _changes(t_metrics, t0), _changes(j_metrics, j0)
+    got, want = _paired_changes(t0, j0)
     _assert_changes_equal(got, want)
     assert got[("iotml_records_trained_total", ())] == 6000
     assert got[("iotml_step_seconds",
                 (("loop", "train"), ("phase", "device_compute")))] == 1
 
 
-def test_registry_rounds_counters_equal_jax(tmp_path):
+def _registry_rounds(tmp_path, prime=lambda: None):
     tb, jb = _seed(4000)
     kw = dict(take_batches=10, group="obs-live", checkpoint_interval_s=0.0)
     tt = ContinuousTrainer(tb, TOPIC, None, device="cpu",
@@ -280,16 +311,23 @@ def test_registry_rounds_counters_equal_jax(tmp_path):
                             registry=JModelRegistry(str(tmp_path / "j")),
                             **kw)
     _carry(jt.trainer, tt.trainer)
+    prime()
     t0, j0 = _snapshot(t_metrics), _snapshot(j_metrics)
     for tr in (tt, jt):
         for _ in range(3):
             assert tr.train_round()
             tr.checkpointer.write_once()
-    got, want = _changes(t_metrics, t0), _changes(j_metrics, j0)
+    got, want = _paired_changes(t0, j0)
     _assert_changes_equal(got, want)
     assert got[("live_train_rounds_total", ())] == 3
     assert got[("iotml_registry_publishes_total", ())] == 3
-    assert got[("iotml_model_version", (("component", "trainer"),))] == 3
+    version = ("gauge", "iotml_model_version", (("component", "trainer"),))
+    assert _snapshot(t_metrics)[version] == _snapshot(j_metrics)[version] \
+        == 3
+
+
+def test_registry_rounds_counters_equal_jax(tmp_path):
+    _registry_rounds(tmp_path)
 
 
 def test_scorer_drain_counters_equal_jax():
@@ -312,12 +350,12 @@ def test_scorer_drain_counters_equal_jax():
     assert t.score_available() == j.score_available() == 2500
     t.set_params(params_from_jax(jp), version=4)
     j.set_params(jp, version=4)
-    got, want = _changes(t_metrics, t0), _changes(j_metrics, j0)
+    got, want = _paired_changes(t0, j0)
     _assert_changes_equal(got, want)
     assert got[("iotml_records_scored_total", ())] == 2500
 
 
-def test_online_window_group_counters_equal_jax(tmp_path):
+def _online_window_group(prime=lambda: None):
     jb, tb = JBroker(), Broker()
     from iotml.gen.scenarios import AdversarialFleet as JAdversarialFleet
     from iotml.gen.scenarios import condition as j_condition
@@ -338,11 +376,37 @@ def test_online_window_group_counters_equal_jax(tmp_path):
         step=0, params=params_from_jax(
             jax.tree.map(np.asarray, jl.trainer.state.params)),
         opt_state=tl.trainer.state.opt_state)
+    prime()
     t0, j0 = _snapshot(t_metrics), _snapshot(j_metrics)
     assert tl.process_available() == jl.process_available() == 12
-    got, want = _changes(t_metrics, t0), _changes(j_metrics, j0)
+    got, want = _paired_changes(t0, j0)
     _assert_changes_equal(got, want)
     assert got[("iotml_online_updates_total", ())] == 12
+
+
+def test_online_window_group_counters_equal_jax():
+    _online_window_group()
+
+
+def _prime_jax_gauges():
+    """What an earlier test in the same worker may leave behind: JAX's
+    gauges already at the values the windows set (the trainer's model
+    version after three published rounds, the drift statistic after a
+    window group without drift)."""
+    j_metrics.model_version.set(3, component="trainer")
+    j_metrics.online_drift_stat.set(0.0)
+
+
+@pytest.mark.parametrize("window", ["registry_rounds", "online_window"])
+def test_windows_equal_jax_after_jax_gauges_were_primed(tmp_path, window):
+    """JAX's gauges do not move in the window (they already hold their
+    final values) while the port's do: the comparison still holds,
+    because it reads the final values of every gauge that moved on
+    either side."""
+    if window == "registry_rounds":
+        _registry_rounds(tmp_path, prime=_prime_jax_gauges)
+    else:
+        _online_window_group(prime=_prime_jax_gauges)
 
 
 # ----------------------------------------------------------- watermarks

@@ -369,8 +369,7 @@ def test_obs_trace_cli_summarizes_a_jax_span_log(traced):
     assert _run(obs_main, ["trace", path + ".missing"])[0] == 2
 
 
-@pytest.mark.parametrize("cmd,item", [("fleet", "A13"), ("tsdb", "A13"),
-                                      ("dlq", "A15")])
+@pytest.mark.parametrize("cmd,item", [("fleet", "A13"), ("tsdb", "A13")])
 def test_obs_cli_unported_subcommands_name_their_item(cmd, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         obs_main([cmd, "--once"])
