@@ -290,7 +290,36 @@ non-zero exit and no result line:
                 percentile of 512 normal rows' errors (the demo's),
                 payloads against a CPU recompute (first 100 at atol
                 2e-6, all at 1e-5).
-16. timing     — each design held against the plain version over the
+16. demo_path  — the reference's whole story as users run it: (a)
+                ``iotml_torch.cli.demo.main([])`` in-process on the card
+                at its defaults (50 cars at 10 Hz for 8 s over MQTT TCP
+                → bridge → KSQL → fit → checkpoint → artifact store →
+                scorer → report), stdout captured and its JSON summary
+                parsed: the JAX demo test's invariants (records bridged,
+                every one on SENSOR_DATA_S_AVRO and scored, the last
+                loss at most the first), the JAX CLI's summary keys, and
+                exactly one B1 launch, through rows; (b) one tick of the
+                reference's 100,000 cars (its only cut), published from
+                the phase's own thread over 64 ``MqttClient``
+                connections (car i on connection i % 64, QoS 0, as
+                ``start_fleet`` does) into ``Platform(partitions=4)``'s
+                epoll front, bridged into sensor-data (a deadline fails
+                the phase), then the same tick through the native ingest
+                front onto a second broker, then both fronts again with
+                one ``publish_many`` (one sendall) a connection: each
+                front's sensor-data equal to ``_ksql_fleet_json``'s
+                straight publish as a multiset a partition and per key
+                in offset order; the KSQL pump; 100 batches of 100
+                normal rows of SENSOR_DATA_S_AVRO in their keys' order
+                (the interleaving of the 64 connections is not defined;
+                equal to the straight-Avro batches) fit for 20 epochs in
+                one B1 launch, held against the plain version at the
+                fit bounds, and all 100,000 rows scored against a CPU
+                recompute (as ksql_path).  Publish and bridge records/s
+                of each front, the epoll front's paused connections and
+                evictions, pump seconds, fit and kernel ms, scored
+                rows/s.
+17. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -300,7 +329,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-17. attention_kernel — the flash-attention kernel against its plain
+18. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -323,13 +352,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-18. sensorformer_path — SensorFormer at full width (its defaults) scores
+19. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-19. attention_timing — kernel, plain version, bound and the library
+20. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -340,7 +369,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-20. attention_backward_kernel — the dK/dV and dQ kernels against the
+21. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -359,18 +388,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-21. sensorformer_train — the slice's main path: ``make_sp_train_step``
+22. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 18; each step launches exactly
+                fleet histories of phase 19; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-22. attention_backward_timing — each backward kernel, the plain
+23. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 19, beside the bound, the fp32 FMA floor
+                shapes of phase 20, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -387,12 +416,13 @@ the main path and by path, the main path, the CLI path, the serve path
 (one for the CLI train and one a registry round), the online path (the
 drill's pre-train and every refit's), the obs path (two traced fits,
 two captures, eight chaos rounds, eight timed fits), the KSQL path
-(one), the creditcard path (one), the LSTM and MNIST paths (none), summed in ``launches``; the
-creditcard fit's time, steps and bound beside; each attention entry's
+(one), the demo path (two: the demo CLI's and the tick's), the
+creditcard path (one), the LSTM and MNIST paths (none), summed in
+``launches``; the creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 18), the training steps (phase 21), the long-context forward +
-backward (phase 22) and the serve, creditcard, LSTM, MNIST and online
+(phase 19), the training steps (phase 22), the long-context forward +
+backward (phase 23) and the serve, creditcard, LSTM, MNIST and online
 paths (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -400,6 +430,7 @@ the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import http.client
 import io
@@ -426,9 +457,11 @@ from iotml_torch.chaos import faults as obs_faults
 from iotml_torch.cli import _app as cli_app
 from iotml_torch.cli import cardata
 from iotml_torch.cli import creditcard as creditcard_cli
+from iotml_torch.cli import demo as demo_cli
 from iotml_torch.cli import lstm as lstm_cli
 from iotml_torch.cli import mnist_smoke as mnist_cli
 from iotml_torch.cli import serve as serve_cli
+from iotml_torch.cli.up import Platform
 from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
 from iotml_torch.data.dataset import RowSource, SensorBatches
@@ -450,6 +483,11 @@ from iotml_torch.models.h5_import import autoencoder_params_from_h5
 from iotml_torch.models.lstm import LSTMSpec
 from iotml_torch.models.mnist import MNISTClassifier
 from iotml_torch.models.transformer import SensorFormer
+from iotml_torch.mqtt.bridge import KafkaBridge
+from iotml_torch.mqtt.broker import MqttBroker
+from iotml_torch.mqtt.eventserver import MqttEventServer
+from iotml_torch.mqtt.native_ingest import NativeIngestBridge
+from iotml_torch.mqtt.wire import MqttClient
 from iotml_torch.obs import metrics as obs_metrics
 from iotml_torch.obs import profile as obs_profile
 from iotml_torch.obs import tracing as obs_tracing
@@ -3472,6 +3510,81 @@ def _recompute_ksql(broker, params):
                                           params, (x,)).numpy(), x.numpy()
 
 
+def _fit_and_score(broker, bs, where: str) -> dict:
+    """The slice's device work on SENSOR_DATA_S_AVRO's batches ``bs`` (100
+    of 100 normal rows): ``fit_compiled`` for 20 epochs on the card (one
+    B1 launch through rows: the fit counts must be 0 just before) held
+    against ``fused_fit_reference`` at the fit bounds and timed again
+    alone; the threshold at the 99th percentile of 512 normal rows'
+    errors (the demo's); the scorer over all KSQL_CARS rows into
+    ``model-predictions`` against a CPU recompute (first 100 at atol
+    2e-6, all at 1e-5)."""
+    trainer = Trainer(CAR_AUTOENCODER)  # the card
+    trainer._ensure_state()
+    before = _clone_state(trainer.state)
+    t0 = time.perf_counter()
+    hist = trainer.fit_compiled(bs, epochs=20)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if launches != 1 or by_design["rows"] != 1:
+        raise AssertionError(f"{where} launched the fit kernel "
+                             f"{launches}x ({by_design}), not once through "
+                             f"rows")
+    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+        before, xs, masks, 20)
+    err = check_fit(where, (trainer.state, torch.tensor(hist["loss"]),
+                            torch.tensor(hist["accuracy"])),
+                    (p_state, p_loss.cpu(), p_acc.cpu()), 100 * 20)
+    kernel_ms = cuda_ms(lambda: fused_train.fused_fit(before, xs, masks, 20),
+                        reps=5)
+
+    # threshold: the 99th percentile of training rows' errors, as the
+    # demo takes it (512 normal rows from the start of the topic)
+    specs = [f"SENSOR_DATA_S_AVRO:{p}:0" for p in range(KSQL_PARTITIONS)]
+    sample = next(iter(SensorBatches(
+        StreamConsumer(broker, specs, group=f"{where}-threshold"),
+        batch_size=512, only_normal=True)))
+    threshold = float(np.percentile(anomaly.reconstruction_errors(
+        CAR_AUTOENCODER, trainer.state.params,
+        sample.x[:sample.n_valid]), 99.0))
+    scorer = StreamScorer(
+        CAR_AUTOENCODER, trainer.state.params,
+        SensorBatches(StreamConsumer(broker, specs, group=f"{where}-serve"),
+                      batch_size=100, keep_labels=True),
+        OutputSequence(broker, "model-predictions", partition=0),
+        threshold=threshold)
+    t0 = time.perf_counter()
+    n = scorer.score_available()
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    payloads = [m.value.decode() for m in broker.fetch(
+        "model-predictions", 0, 0, KSQL_CARS + 1)]
+    if n != KSQL_CARS or len(payloads) != KSQL_CARS:
+        raise AssertionError(f"{where} scored {n} rows, wrote "
+                             f"{len(payloads)}")
+    cpu_params = {k: v.cpu() for k, v in trainer.state.params.items()}
+    want, x = _recompute_ksql(broker, cpu_params)
+    err_first, err_all, anomalies = _check_serve_payloads(
+        payloads, want, x, threshold, where)
+    info = {"fit_seconds": fit_s, "fit_ms": 1e3 * fit_s,
+            "kernel_ms": kernel_ms,
+            "host_pipeline_s": hist["host_pipeline_s"],
+            "device_compute_s": hist["device_compute_s"],
+            "loss_first": hist["loss"][0], "loss_last": hist["loss"][-1],
+            "fit_max_abs_err": err, "kernel_launches": launches,
+            "kernel_launches_by_design": by_design,
+            "threshold": threshold, "rows_scored": n,
+            "score_seconds": score_s, "score_rows_per_s": n / score_s,
+            "payload_max_err_first_100": err_first,
+            "payload_max_err_all": err_all, "anomalies": anomalies}
+    return {"launches": launches, "launches_by_design": by_design,
+            "max_abs_err": err, "info": info}
+
+
 def phase_ksql_path(card: str) -> dict:
     """The reference's KSQL stage on the card's host feeding the B1 fit:
     JSON on sensor-data → the reference DDL → Avro on SENSOR_DATA_S_AVRO
@@ -3488,58 +3601,7 @@ def phase_ksql_path(card: str) -> dict:
     if not same:
         raise AssertionError("ksql_path: the KSQL leg's batches differ from "
                              "the same rows published straight as Avro")
-    trainer = Trainer(CAR_AUTOENCODER)  # the card
-    trainer._ensure_state()
-    before = _clone_state(trainer.state)
-    t0 = time.perf_counter()
-    hist = trainer.fit_compiled(bs, epochs=20)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = fused_train.fused_fit.launches
-    by_design = dict(fused_train.fused_fit.launches_by_design)
-    if launches != 1 or by_design["rows"] != 1:
-        raise AssertionError(f"ksql_path launched the fit kernel "
-                             f"{launches}x ({by_design}), not once through "
-                             f"rows")
-    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
-    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
-    p_state, p_loss, p_acc = fused_train.fused_fit_reference(
-        before, xs, masks, 20)
-    err = check_fit("ksql_path", (trainer.state,
-                                  torch.tensor(hist["loss"]),
-                                  torch.tensor(hist["accuracy"])),
-                    (p_state, p_loss.cpu(), p_acc.cpu()), 100 * 20)
-    kernel_ms = cuda_ms(lambda: fused_train.fused_fit(before, xs, masks, 20),
-                        reps=5)
-
-    # threshold: the 99th percentile of training rows' errors, as the
-    # demo takes it (512 normal rows from the start of the topic)
-    specs = [f"SENSOR_DATA_S_AVRO:{p}:0" for p in range(KSQL_PARTITIONS)]
-    sample = next(iter(SensorBatches(
-        StreamConsumer(broker, specs, group="ksql-threshold"),
-        batch_size=512, only_normal=True)))
-    threshold = float(np.percentile(anomaly.reconstruction_errors(
-        CAR_AUTOENCODER, trainer.state.params,
-        sample.x[:sample.n_valid]), 99.0))
-    scorer = StreamScorer(
-        CAR_AUTOENCODER, trainer.state.params,
-        SensorBatches(StreamConsumer(broker, specs, group="ksql-serve"),
-                      batch_size=100, keep_labels=True),
-        OutputSequence(broker, "model-predictions", partition=0),
-        threshold=threshold)
-    t0 = time.perf_counter()
-    n = scorer.score_available()
-    torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
-    payloads = [m.value.decode() for m in broker.fetch(
-        "model-predictions", 0, 0, KSQL_CARS + 1)]
-    if n != KSQL_CARS or len(payloads) != KSQL_CARS:
-        raise AssertionError(f"ksql_path scored {n} rows, wrote "
-                             f"{len(payloads)}")
-    cpu_params = {k: v.cpu() for k, v in trainer.state.params.items()}
-    want, x = _recompute_ksql(broker, cpu_params)
-    err_first, err_all, anomalies = _check_serve_payloads(
-        payloads, want, x, threshold, "ksql_path")
+    fs = _fit_and_score(broker, bs, "ksql_path")
     attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
     if any(attention.values()):
         raise AssertionError(f"ksql_path launched {attention}")
@@ -3559,21 +3621,270 @@ def phase_ksql_path(card: str) -> dict:
             "json_decode_rows": stage["json_decode_rows"],
             "plain_leg_records_checked": stage["plain_checked"],
             "wire_produce_refused": stage["wire_produce_refused"],
-            "batches_equal_straight_avro": same,
-            "fit_seconds": fit_s, "fit_ms": 1e3 * fit_s,
-            "kernel_ms": kernel_ms,
-            "host_pipeline_s": hist["host_pipeline_s"],
-            "device_compute_s": hist["device_compute_s"],
-            "loss_first": hist["loss"][0], "loss_last": hist["loss"][-1],
-            "fit_max_abs_err": err, "kernel_launches": launches,
-            "kernel_launches_by_design": by_design,
-            "threshold": threshold, "rows_scored": n,
-            "score_seconds": score_s, "score_rows_per_s": n / score_s,
-            "payload_max_err_first_100": err_first,
-            "payload_max_err_all": err_all, "anomalies": anomalies}
+            "batches_equal_straight_avro": same, **fs["info"]}
     emit(info)
-    return {"launches": launches, "launches_by_design": by_design,
-            "max_abs_err": err}
+    return {k: fs[k] for k in ("launches", "launches_by_design",
+                               "max_abs_err")}
+
+
+#: the connections the platform's fleet opens at most (``start_fleet``)
+DEMO_CONNS = 64
+#: the demo CLI's summary keys (``iotml/cli/demo.py``'s)
+DEMO_KEYS = ("cars", "mqtt_messages_bridged", "ksql_avro_records",
+             "trained_records_per_epoch", "epochs", "loss_first_to_last",
+             "anomaly_threshold", "scored", "anomalies_flagged", "roc_auc",
+             "avg_precision", "eval_report", "wall_seconds")
+
+
+def _demo_cli(card: str) -> dict:
+    """(a) ``python -m iotml_torch.cli.demo`` at its defaults, in-process on
+    the card: the JAX demo test's invariants and one B1 launch, through
+    rows."""
+    reset_launches()
+    reset_fit_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = demo_cli.main([])
+    wall_s = time.perf_counter() - t0
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    text = out.getvalue()
+    if rc != 0 or "{" not in text:
+        raise AssertionError(f"demo_path: the demo returned {rc}: {text}")
+    summary = json.loads(text[text.index("{"):])
+    if tuple(summary) != DEMO_KEYS:
+        raise AssertionError(f"demo_path: summary keys {list(summary)}")
+    bridged = summary["mqtt_messages_bridged"]
+    loss = summary["loss_first_to_last"]
+    if not (bridged > 0 and summary["ksql_avro_records"] == bridged
+            and summary["scored"] == summary["ksql_avro_records"]
+            and loss[1] <= loss[0]):
+        raise AssertionError(f"demo_path: the demo's invariants fail: "
+                             f"{summary}")
+    if launches != 1 or by_design["rows"] != 1:
+        raise AssertionError(f"demo_path: the demo launched the fit kernel "
+                             f"{launches}x ({by_design}), not once through "
+                             f"rows")
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"demo_path launched {attention}")
+    emit({"phase": "demo_path", "part": "demo_cli", "card": card,
+          "argv": [], "wall_seconds": wall_s, "summary": summary,
+          "kernel_launches": launches,
+          "kernel_launches_by_design": by_design})
+    return {"launches": launches, "launches_by_design": by_design}
+
+
+def _demo_tick():
+    """One tick of the reference's fleet as ``Platform.start_fleet``
+    writes it: (client id, MQTT topic, JSON payload) a car."""
+    scenario = FleetScenario(num_cars=KSQL_CARS, failure_rate=0.01)
+    gen = FleetGenerator(scenario)
+    cols = gen.step_columns()
+    return [(scenario.car_id(i), _bridge_key(scenario, i).decode(),
+             json.dumps(gen.row_record(cols, i, KSQL_CAR_SCHEMA)).encode())
+            for i in range(KSQL_CARS)]
+
+
+def _mqtt_publish_tick(port: int, tick, front, forwarded,
+                       batched: bool = False) -> dict:
+    """Publish ``tick`` from this thread over DEMO_CONNS ``MqttClient``
+    connections (car i on connection i % DEMO_CONNS, QoS 0), one
+    ``publish`` a message as ``start_fleet`` does, or with ``batched``
+    one ``publish_many`` (one ``sendall``) a connection; then wait until
+    ``forwarded()`` counts every record, with a deadline that fails the
+    phase.  Returns the seconds and the epoll front's largest paused
+    count seen."""
+    clients = [MqttClient("127.0.0.1", port, tick[i][0])
+               for i in range(DEMO_CONNS)]
+    per_conn = [[(topic, payload) for _cid, topic, payload
+                 in tick[c::DEMO_CONNS]] for c in range(DEMO_CONNS)]
+    paused = 0
+    try:
+        t0 = time.perf_counter()
+        if batched:
+            for c, items in zip(clients, per_conn):
+                c.publish_many(items)
+        else:
+            for i, (_cid, topic, payload) in enumerate(tick):
+                clients[i % DEMO_CONNS].publish(topic, payload, qos=0)
+                if front is not None and i % 1024 == 0:
+                    paused = max(paused, front.paused_count)
+        publish_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        while forwarded() < len(tick):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"demo_path: {forwarded()} of "
+                                     f"{len(tick)} records bridged in 300 s")
+            if front is not None:
+                paused = max(paused, front.paused_count)
+            time.sleep(0.005)
+        forward_s = time.perf_counter() - t0
+    finally:
+        for c in clients:
+            c.disconnect()
+    return {"publish_s": publish_s, "forward_s": forward_s,
+            "publish_records_per_s": len(tick) / publish_s,
+            "bridge_forwards_per_s": len(tick) / forward_s,
+            "max_paused": paused}
+
+
+def _sensor_data(broker) -> list:
+    """sensor-data's records as a multiset a partition, and each key's
+    values in offset order a partition."""
+    out = []
+    for p in range(KSQL_PARTITIONS):
+        msgs = broker.fetch("sensor-data", p, 0,
+                            broker.end_offset("sensor-data", p) + 1)
+        by_key = collections.defaultdict(list)
+        for m in msgs:
+            by_key[m.key].append(m.value)
+        out.append((collections.Counter((m.key, m.value) for m in msgs),
+                    dict(by_key)))
+    return out
+
+
+def _by_key(broker) -> Broker:
+    """SENSOR_DATA_S_AVRO's records on a new broker, each partition's in
+    the order of their keys."""
+    out = Broker()
+    out.create_topic("SENSOR_DATA_S_AVRO", partitions=KSQL_PARTITIONS)
+    for p in range(KSQL_PARTITIONS):
+        msgs = sorted(broker.fetch("SENSOR_DATA_S_AVRO", p, 0, KSQL_CARS + 1),
+                      key=lambda m: m.key)
+        out.produce_many("SENSOR_DATA_S_AVRO",
+                         [(m.key, m.value, m.timestamp_ms) for m in msgs])
+        if out.end_offset("SENSOR_DATA_S_AVRO", p) != len(msgs):
+            raise AssertionError("demo_path: a key changed partition")
+    return out
+
+
+def _bare_front(kind: str, tick, want, batched: bool) -> dict:
+    """The tick through one front alone onto a fresh 4-partition broker:
+    ``epoll`` (``MqttEventServer`` → ``MqttBroker`` → ``KafkaBridge``, the
+    platform's front without the rest) or ``native``
+    (``NativeIngestBridge``); its sensor-data must equal ``want``."""
+    stream = Broker()
+    if kind == "native":
+        front = NativeIngestBridge(stream,
+                                   partitions=KSQL_PARTITIONS).start()
+        port, bridge, stop = front.port, front, front.stop
+    else:
+        stream.create_topic("sensor-data", partitions=KSQL_PARTITIONS)
+        mqtt = MqttBroker()
+        bridge = KafkaBridge(mqtt, stream, partitions=KSQL_PARTITIONS)
+        front = MqttEventServer(mqtt).start()
+        port, stop = front.port, front.stop
+    try:
+        out = _mqtt_publish_tick(port, tick, front if kind == "epoll"
+                                 else None, bridge.forwarded, batched)
+        if kind == "native":
+            out["produce_seconds"] = bridge.produce_seconds
+    finally:
+        stop()
+    if _sensor_data(stream) != want:
+        how = "batched" if batched else "a publish a message"
+        raise AssertionError(f"demo_path: the {kind} front's sensor-data "
+                             f"({how}) differs from the straight publish")
+    return out
+
+
+def _demo_fleet_tick(card: str) -> dict:
+    """(b) One tick of the reference's 100,000 cars over both MQTT fronts:
+    the platform's epoll front (bridge → sensor-data → KSQL → fit →
+    scorer) and the native ingest front onto a second broker; both
+    fronts' sensor-data equal to ``_ksql_fleet_json``'s straight
+    publish."""
+    tick = _demo_tick()
+    straight = Broker()
+    straight.create_topic("sensor-data", partitions=KSQL_PARTITIONS)
+    _ksql_fleet_json(straight)
+    want = _sensor_data(straight)
+    evicted = obs_metrics.default_registry.counter(
+        "mqtt_overload_slow_consumers_evicted_total")
+    evicted0 = evicted.value()
+
+    plat = Platform(partitions=KSQL_PARTITIONS)  # the card
+    # the KSQL pump thread sleeps an hour between rounds: pump_now
+    # drives them after the tick, so the pump is timed alone
+    plat.ksql.pump_interval_s = 3600.0
+    plat.start()
+    try:
+        epoll = _mqtt_publish_tick(plat.mqtt.port, tick, plat.mqtt,
+                                   plat.bridge.forwarded)
+        epoll["evictions"] = evicted.value() - evicted0
+        epoll["paused_now"] = plat.mqtt.paused_count
+        if _sensor_data(plat.broker) != want:
+            raise AssertionError("demo_path: the epoll front's sensor-data "
+                                 "differs from the straight publish")
+        rounds = []
+        t0 = time.perf_counter()
+        while True:
+            n = plat.pump()
+            rounds.append(n)
+            if n == 0:
+                break
+        pump_s = time.perf_counter() - t0
+        avro = sum(plat.broker.end_offset("SENSOR_DATA_S_AVRO", p)
+                   for p in range(KSQL_PARTITIONS))
+        if avro != KSQL_CARS:
+            raise AssertionError(f"demo_path: SENSOR_DATA_S_AVRO holds "
+                                 f"{avro} records")
+        # the 64 connections interleave the cars, so each partition's
+        # order differs from run to run, and on some orders any two
+        # float32 fits drift apart past the fit bounds (PERF.md §7,
+        # scripts/fit_order_sensitivity.py): the fit takes the rows in
+        # their keys' order, the generator's, which makes its check
+        # reproducible and its batches those of the straight publish
+        bs = _ksql_batches(_by_key(plat.broker), "demo-fit")
+        straight = _ksql_batches(_ksql_straight_avro(), "demo-fit")
+        same = len(bs) == len(straight) == 100 and all(
+            np.array_equal(a.x, b.x) and np.array_equal(a.mask, b.mask)
+            for a, b in zip(bs, straight))
+        if not same:
+            raise AssertionError("demo_path: the MQTT path's batches (rows "
+                                 "in key order) differ from the same rows "
+                                 "published straight as Avro")
+        reset_launches()
+        reset_fit_launches()
+        fs = _fit_and_score(plat.broker, bs, "demo_path")
+        attention = {k: v for k, v in path_launches().items()
+                     if k != "fused_fit"}
+        if any(attention.values()):
+            raise AssertionError(f"demo_path launched {attention}")
+    finally:
+        plat.stop()
+
+    nat = _bare_front("native", tick, want, batched=False)
+    # the same tick with one sendall a connection: what the fronts take
+    # when the clients' per-message syscalls are out of the way
+    batched = {kind: _bare_front(kind, tick, want, batched=True)
+               for kind in ("epoll", "native")}
+    emit({"phase": "demo_path", "part": "fleet_tick", "card": card,
+          "cars": KSQL_CARS, "connections": DEMO_CONNS,
+          "partitions": KSQL_PARTITIONS,
+          "sensor_data_equal_straight": ["epoll", "native",
+                                         "epoll_batched", "native_batched"],
+          "epoll_front": epoll, "native_front": nat,
+          "epoll_front_batched": batched["epoll"],
+          "native_front_batched": batched["native"],
+          "batches_in_key_order_equal_straight_avro": same,
+          "ksql_pump_s": pump_s, "pump_rounds": rounds, **fs["info"]})
+    return fs
+
+
+def phase_demo_path(card: str) -> dict:
+    """The reference's whole story on the card, as users run it: (a) the
+    demo CLI at its defaults, (b) one tick of the reference's fleet over
+    both MQTT fronts feeding the KSQL stage, B1 and the scorer."""
+    cli = _demo_cli(card)
+    tick = _demo_fleet_tick(card)
+    return {"launches": cli["launches"] + tick["launches"],
+            "launches_by_design": {
+                d: cli["launches_by_design"][d]
+                + tick["launches_by_design"][d] for d in fused_train.DESIGNS},
+            "max_abs_err": tick["max_abs_err"]}
 
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
@@ -4761,6 +5072,7 @@ def main() -> int:
         online_info = phase_online_path(card, root)
         obs_info = phase_obs_path(card, root)
         ksql_info = phase_ksql_path(card)
+        demo_info = phase_demo_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -4795,7 +5107,8 @@ def main() -> int:
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
         + live_info["launches"] + lc_info["launches"]
         + online_info["launches"] + obs_info["launches"]
-        + ksql_info["launches"] + cc_info["launches"]
+        + ksql_info["launches"] + demo_info["launches"]
+        + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -4808,6 +5121,7 @@ def main() -> int:
                              "online_path": online_info["launches"],
                              "obs_path": obs_info["launches"],
                              "ksql_path": ksql_info["launches"],
+                             "demo_path": demo_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -4821,11 +5135,13 @@ def main() -> int:
             + online_info["launches_by_design"][d]
             + obs_info["launches_by_design"][d]
             + ksql_info["launches_by_design"][d]
+            + demo_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values(),
-                           cc_info["max_abs_err"], ksql_info["max_abs_err"]),
+                           cc_info["max_abs_err"], ksql_info["max_abs_err"],
+                           demo_info["max_abs_err"]),
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],

@@ -1,0 +1,392 @@
+"""One-command platform bring-up (``iotml.cli.up``'s twin, cut to what
+the port has).
+
+The reference provisions its stack with Terraform shelling into
+`01_installConfluentPlatform.sh` (Prometheus operator, ZK/Kafka/SR/Connect/
+KSQL via Helm, topic creation, KSQL DDL) plus `hivemq/setup.sh` (MQTT
+broker + Kafka extension) — hundreds of lines of orchestration before the
+first record can flow (SURVEY §2.6, §3.5).  Here the same platform comes up
+in one process:
+
+    python -m iotml_torch.cli.up [--sasl user:pass] [--fleet N] [--quiet]
+
+brings up and prints endpoints for
+  - the stream broker, served over the real Kafka wire protocol (TCP,
+    optional SASL/PLAIN like the reference's `gcp.yaml:29-32`), with the
+    reference's topics pre-created (`sensor-data`, `model-predictions`,
+    10 partitions — `01_installConfluentPlatform.sh:180-183`)
+  - an MQTT broker behind the epoll front (TCP) bridged into
+    `sensor-data` with the reference's topic mapping
+    `vehicles/sensor/data/#` (`kafka-config.yaml:20-29`)
+  - the Schema Registry REST API (with both car schemas pre-registered)
+  - the KSQL-equivalent REST API, reference DDL pipeline pre-installed,
+    the engine owning `SENSOR_DATA_S_AVRO`
+  - a Prometheus /metrics + /healthz exporter
+  - with `--registry DIR`, a versioned model registry and a watcher on
+    its serving channel
+
+With `--fleet N`, N simulated cars publish continuously over real MQTT.
+Ctrl-C stops everything.  This is also importable:
+`Platform(device="cpu").start()` in the tests.  `Platform` and `main` resolve a device (``cuda`` unless the
+caller passes another; no card and no device given raises) and hand it
+to what a caller attaches to the platform (``Platform.device``).
+
+Left out, each raising NotImplementedError naming its ROADMAP item when
+given (as a constructor argument or a flag): Kafka Connect and the
+car-health twin (`connect_port`, `--connect-port`: A16), the control
+center (`cc_port`, `--cc-port`: A13), the durable and tiered store
+(`store_dir`, `store_policy`, `tier`, `--durable`, `--store-dir`,
+`--tier-uri`: A13), the supervisor (`supervised()`, `--supervise`: A14),
+and the pipeline knobs (`--prefetch-depth`: A10; `--decode-ring-buffers`,
+`--raw-batch-bytes`: A3, item 13; `--raw-produce`,
+`--produce-batch-bytes`: A13).  ``pump()`` drives the KSQL server alone
+until A16 brings Connect.
+"""
+
+from __future__ import annotations
+
+import argparse
+import threading
+import time
+from typing import Optional
+
+from ..utils.device import DeviceLike, resolve_device
+
+#: left-out constructor arguments → the ROADMAP item that ports them
+UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)",
+                 "cc_port": "A13 (the control center)",
+                 "store_dir": "A13 (the durable store)",
+                 "store_policy": "A13 (the durable store)",
+                 "tier": "A13 (tiered storage)"}
+#: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
+UNPORTED_FLAGS = {"connect_port": "A16", "cc_port": "A13",
+                  "durable": "A13", "store_dir": "A13", "tier_uri": "A13",
+                  "supervise": "A14", "prefetch_depth": "A10",
+                  "decode_ring_buffers": "A3, item 13",
+                  "raw_batch_bytes": "A3, item 13", "raw_produce": "A13",
+                  "produce_batch_bytes": "A13"}
+
+
+class Platform:
+    """All ported reference services over one in-process broker."""
+
+    def __init__(self, sasl: Optional[tuple] = None, partitions: int = 10,
+                 kafka_port: int = 0, mqtt_port: int = 0,
+                 registry_port: int = 0, ksql_port: int = 0,
+                 connect_port: Optional[int] = None,
+                 host: str = "127.0.0.1",
+                 retention_messages: Optional[int] = None,
+                 cc_port: Optional[int] = None,
+                 store_dir: Optional[str] = None, store_policy=None,
+                 tier=None,
+                 trusted_passthrough: Optional[bool] = None,
+                 registry_dir: Optional[str] = None,
+                 registry_watch_poll_s: float = 0.25,
+                 device: DeviceLike = None):
+        given = {"connect_port": connect_port, "cc_port": cc_port,
+                 "store_dir": store_dir, "store_policy": store_policy,
+                 "tier": tier}
+        for name, item in UNPORTED_ARGS.items():
+            if given[name] is not None:
+                raise NotImplementedError(
+                    f"Platform({name}=...) is not ported yet (ROADMAP "
+                    f"{item})")
+        #: the device the platform's consumers (trainers, scorers) run on
+        self.device = resolve_device(device)
+        from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
+        from ..mqtt.bridge import KafkaBridge
+        from ..mqtt.broker import MqttBroker
+        from ..mqtt.eventserver import MqttEventServer
+        from ..obs import metrics as obs_metrics
+        from ..stream import Broker, SchemaRegistry, SchemaRegistryServer
+        from ..stream.kafka_wire import KafkaWireServer
+        from ..stream.registry import subject_for_topic
+        from ..streamproc import KsqlServer, SqlEngine
+        from ..streamproc.sql import install_reference_pipeline
+
+        self.broker = Broker()
+        # the reference's two topics, its partition count.  retention
+        # bounds the in-memory log for long-running platforms (the
+        # reference sets retention.ms=100000 — aggressive 100s retention,
+        # 01_installConfluentPlatform.sh:180-183); None keeps everything
+        self.broker.create_topic("sensor-data", partitions=partitions,
+                                 retention_messages=retention_messages)
+        self.broker.create_topic("model-predictions", partitions=partitions,
+                                 retention_messages=retention_messages)
+
+        self.host = host
+        self.kafka = KafkaWireServer(self.broker, host=host, port=kafka_port,
+                                     credentials=sasl)
+        self.registry = SchemaRegistry()
+        self.registry.register(subject_for_topic("sensor-data"),
+                               CAR_SCHEMA.avro_json())
+        self.registry.register(subject_for_topic("SENSOR_DATA_S_AVRO"),
+                               KSQL_CAR_SCHEMA.avro_json())
+        self.registry_server = SchemaRegistryServer(self.registry, host=host,
+                                                    port=registry_port)
+
+        # trusted pass-through: the REKEY leg reads the AVRO leg this same
+        # engine encodes in-process.  The premise (only the engine writes
+        # the AVRO leg) is enforced: the broker marks SENSOR_DATA_S_AVRO*
+        # engine-owned, and a wire producer gets TOPIC_AUTHORIZATION_FAILED.
+        # Trust defaults off when the platform binds a non-loopback
+        # address; on loopback one batch in 32 is still validated.
+        exposed = host not in ("127.0.0.1", "localhost", "::1")
+        if trusted_passthrough is None:
+            trusted_passthrough = not exposed
+        owner = self.broker.restrict_topic("SENSOR_DATA_S_AVRO")
+        self.sql = SqlEngine(self.broker, registry=self.registry,
+                             trusted_passthrough=trusted_passthrough,
+                             owner_token=owner,
+                             passthrough_sample=32)
+        install_reference_pipeline(self.sql)
+        self.ksql = KsqlServer(self.sql, host=host, port=ksql_port)
+
+        self.mqtt_broker = MqttBroker()
+        self.bridge = KafkaBridge(self.mqtt_broker, self.broker,
+                                  partitions=partitions)
+        # the epoll front: fleet-scale connection counts + HiveMQ-style
+        # overload protection (watermark backpressure, slow-consumer
+        # eviction) — same MqttProtocol semantics as the threaded server
+        self.mqtt = MqttEventServer(self.mqtt_broker, host=host,
+                                    port=mqtt_port)
+
+        # model-lifecycle wing (mlops): mount the versioned registry,
+        # sweep torn publishes from a prior kill, and keep a watcher on
+        # the serving channel — scorers attach to it
+        self.registry_dir = registry_dir
+        self.model_registry = None
+        self.registry_watcher = None
+        if registry_dir:
+            from ..mlops import ModelRegistry
+            from ..mlops.rollout import RegistryWatcher
+
+            self.model_registry = ModelRegistry(registry_dir,
+                                                component="platform")
+            self.model_registry.recover()
+            self.registry_watcher = RegistryWatcher(
+                self.model_registry, component="platform",
+                poll_interval_s=registry_watch_poll_s)
+
+        self._obs = obs_metrics
+        self.metrics_server = None
+        self._fleet_stop = threading.Event()
+        self._fleet_thread: Optional[threading.Thread] = None
+        self.started = False
+
+    def start(self, metrics_port: Optional[int] = None) -> "Platform":
+        self.kafka.start()
+        self.registry_server.start()
+        self.ksql.start()
+        self.mqtt.start()
+        if self.registry_watcher is not None:
+            self.registry_watcher.start()
+        if metrics_port is not None:
+            self.metrics_server = self._obs.start_http_server(metrics_port)
+        self.started = True
+        return self
+
+    def endpoints(self) -> dict:
+        out = {}
+        if self.registry_dir:
+            out["registry"] = self.registry_dir
+        out.update({
+            "kafka": f"{self.host}:{self.kafka.port}",
+            "mqtt": f"{self.host}:{self.mqtt.port}",
+            "schema-registry": self.registry_server.url,
+            "ksql": self.ksql.url,
+        })
+        if self.metrics_server is not None:
+            out["metrics"] = "http://127.0.0.1:" + \
+                str(self.metrics_server.server_address[1]) + "/metrics"
+        return out
+
+    # ------------------------------------------------------------- fleet
+    def start_fleet(self, num_cars: int, rate_hz: float = 1.0,
+                    failure_rate: float = 0.01) -> None:
+        """Continuous simulated fleet publishing over real MQTT (the device
+        simulator's role, `scenario.xml` semantics at 1 msg/`rate_hz`)."""
+        from ..core.schema import KSQL_CAR_SCHEMA
+        from ..gen.simulator import FleetGenerator, FleetScenario
+        from ..mqtt.wire import MqttClient
+
+        scenario = FleetScenario(num_cars=num_cars, failure_rate=failure_rate)
+        gen = FleetGenerator(scenario)
+
+        def run():
+            import json as _json
+
+            # socket budget: at most 64 TCP connections; cars beyond that
+            # multiplex round-robin over the open connections (every car
+            # still publishes on its own MQTT topic every tick)
+            n_conns = min(num_cars, 64)
+            # connect to the address the platform actually listens on; a
+            # wildcard bind is reachable via loopback
+            connect_host = "127.0.0.1" if self.host in ("0.0.0.0", "::") \
+                else self.host
+            clients = [
+                MqttClient(connect_host, self.mqtt.port, scenario.car_id(i))
+                for i in range(n_conns)
+            ]
+            try:
+                while not self._fleet_stop.wait(1.0 / rate_hz):
+                    cols = gen.step_columns()
+                    for i in range(num_cars):
+                        rec = gen.row_record(cols, i, KSQL_CAR_SCHEMA)
+                        clients[i % n_conns].publish(
+                            f"vehicles/sensor/data/{scenario.car_id(i)}",
+                            _json.dumps(rec).encode(), qos=0)
+            finally:
+                for c in clients:
+                    try:
+                        c.disconnect()
+                    except OSError:
+                        pass
+
+        from ..supervise.registry import register_thread
+
+        self._fleet_thread = register_thread(threading.Thread(
+            target=run, daemon=True, name="iotml-fleet"))
+        self._fleet_thread.start()
+
+    def stop_fleet(self) -> None:
+        """Stop the simulated fleet and wait for its last publishes to
+        land (join the thread), so callers can pump once afterwards and
+        see a quiescent stream."""
+        self._fleet_stop.set()
+        if self._fleet_thread is not None:
+            self._fleet_thread.join(timeout=10)
+            self._fleet_thread = None
+
+    def pump(self) -> int:
+        """Advance the continuous queries once (deterministic)."""
+        return self.ksql.pump_now()
+
+    def supervised(self, poll_interval_s: Optional[float] = None):
+        raise NotImplementedError("Platform.supervised() is not ported yet "
+                                  "(ROADMAP A14: the supervisor)")
+
+    def stop(self) -> None:
+        self._fleet_stop.set()
+        if self._fleet_thread is not None:
+            self._fleet_thread.join(timeout=3)
+        if self.registry_watcher is not None:
+            self.registry_watcher.stop()
+        for s in (self.ksql, self.registry_server):
+            s.stop()
+        self.kafka.shutdown()
+        self.kafka.server_close()
+        self.mqtt.stop()
+        if self.metrics_server is not None:
+            self.metrics_server.shutdown()
+            self.metrics_server.server_close()
+            self.metrics_server = None
+        self.started = False
+
+
+def main(argv=None, device: DeviceLike = None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m iotml_torch.cli.up",
+        description="Bring up the streaming-ML platform in one process")
+    ap.add_argument("--sasl", metavar="USER:PASS", default=None,
+                    help="require SASL/PLAIN on the Kafka wire port")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="start N simulated cars publishing over MQTT")
+    ap.add_argument("--rate", type=float, default=1.0,
+                    help="fleet publish rate per car (Hz)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="bind address for every server (0.0.0.0 in a pod)")
+    ap.add_argument("--kafka-port", type=int, default=0)
+    ap.add_argument("--mqtt-port", type=int, default=0)
+    ap.add_argument("--registry-port", type=int, default=0)
+    ap.add_argument("--ksql-port", type=int, default=0)
+    ap.add_argument("--connect-port", type=int, default=None,
+                    help="not ported (A16)")
+    ap.add_argument("--cc-port", type=int, default=None,
+                    help="not ported (A13)")
+    ap.add_argument("--metrics-port", type=int, default=9100)
+    ap.add_argument("--retention", type=int, default=0, metavar="N",
+                    help="keep at most N messages per partition "
+                         "(0 = unbounded; the reference retains ~100s). "
+                         "Validated by the broker (negative rejected).")
+    ap.add_argument("--durable", action="store_const", const=True,
+                    default=None, help="not ported (A13)")
+    ap.add_argument("--store-dir", default=None, help="not ported (A13)")
+    ap.add_argument("--tier-uri", default=None, help="not ported (A13)")
+    ap.add_argument("--registry", default=None, metavar="DIR",
+                    help="mount a versioned model registry (mlops): "
+                         "torn publishes swept at boot, the serving "
+                         "channel watched.  Also via "
+                         "IOTML_MLOPS_REGISTRY_DIR.")
+    ap.add_argument("--supervise", action="store_const", const=True,
+                    default=None, help="not ported (A14)")
+    ap.add_argument("--trust-passthrough", dest="trust_passthrough",
+                    action="store_true", default=None,
+                    help="opt back into trusted pass-through on a "
+                         "non-loopback host (default: exposed platforms "
+                         "fully re-validate pass-through batches; "
+                         "loopback trusts with 1-in-32 sampling)")
+    ap.add_argument("--prefetch-depth", type=int, default=None,
+                    help="not ported (A10)")
+    ap.add_argument("--decode-ring-buffers", type=int, default=None,
+                    help="not ported (A3, item 13)")
+    ap.add_argument("--raw-batch-bytes", type=int, default=None,
+                    help="not ported (A3, item 13)")
+    ap.add_argument("--raw-produce", default=None,
+                    choices=("auto", "on", "off"), help="not ported (A13)")
+    ap.add_argument("--produce-batch-bytes", type=int, default=None,
+                    help="not ported (A13)")
+    ap.add_argument("--quiet", action="store_true")
+    args = ap.parse_args(argv)
+    for name, item in UNPORTED_FLAGS.items():
+        if getattr(args, name) is not None:
+            flag = "--" + name.replace("_", "-")
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP {item})")
+
+    from ..config import load_config
+
+    cfg, _ = load_config([])
+    sasl = tuple(args.sasl.split(":", 1)) if args.sasl else None
+    try:
+        plat = Platform(sasl=sasl, host=args.host,
+                        kafka_port=args.kafka_port,
+                        mqtt_port=args.mqtt_port,
+                        retention_messages=args.retention
+                        if args.retention else None,
+                        registry_port=args.registry_port,
+                        ksql_port=args.ksql_port,
+                        trusted_passthrough=args.trust_passthrough,
+                        registry_dir=args.registry
+                        or (cfg.mlops.registry_dir or None),
+                        registry_watch_poll_s=cfg.mlops.watch_poll_s,
+                        device=device)
+    except ValueError as e:  # e.g. negative retention: clean usage error
+        ap.error(str(e))
+    try:
+        plat.start(metrics_port=args.metrics_port)
+        if args.fleet:
+            plat.start_fleet(args.fleet, rate_hz=args.rate)
+        if not args.quiet:
+            print("iotml platform up:")
+            for k, v in plat.endpoints().items():
+                print(f"  {k:16s} {v}")
+            if args.fleet:
+                print(f"  fleet            {args.fleet} cars @ {args.rate} "
+                      f"Hz → mqtt topic vehicles/sensor/data/<car>")
+            print(f"  device           {plat.device}")
+            print("Ctrl-C to stop.", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+    finally:
+        plat.stop()
+    if not args.quiet:
+        print("stopped.")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

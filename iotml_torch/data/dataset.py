@@ -23,6 +23,11 @@ write-back — over either of two sources:
 
 ``keep_keys`` puts each record's message key (the car id) on
 ``Batch.keys``, cut at ``native.KEY_STRIDE - 1`` bytes on either leg.
+``exclude_key_marker`` drops every record whose key holds the marker
+before batching: the canary firewall (``obs.canary.CANARY_KEY_MARKER``),
+so synthetic probes that ride the real ingest path never reach a
+prediction topic.  Either leg then captures the keys for the filter and
+sheds them after it unless ``keep_keys``.
 ``window=T`` emits [B, T, F] sliding windows with next-step targets (the
 LSTM path).  Every decoded row counts into
 ``iotml_records_consumed_total``.  Under tracing the message-list leg
@@ -30,7 +35,7 @@ forks each record's header-carried trace context, marks it ``consume``
 and holds it (bounded, drop-oldest, counted) until the pipeline's closer
 (the train step or the scorer) takes it with ``take_traces``; the fused
 leg carries no headers, as the JAX package's columnar leg does not.  The
-columnar frame-decoder ring and the canary filter are not ported.
+columnar frame-decoder ring is not ported.
 """
 
 from __future__ import annotations
@@ -143,6 +148,8 @@ class SensorBatches:
       keep_labels: carry each row's label on ``Batch.labels``.
       keep_keys: carry each row's message key on ``Batch.keys`` (a
         consumer's stream only).
+      exclude_key_marker: drop every record whose message key contains
+        these bytes before batching (a consumer's stream only).
       window: if set, emit [B, window, F] sliding windows with next-step
         targets y [B, 1, F] (the LSTM path: window(look_back, shift=1)
         zipped with skip(look_back), reference LSTM cardata-v1.py:184-190);
@@ -166,6 +173,7 @@ class SensorBatches:
                  pad_tail: bool = True,
                  keep_labels: bool = False,
                  keep_keys: bool = False,
+                 exclude_key_marker: Optional[bytes] = None,
                  cache: bool = False,
                  schema: RecordSchema = KSQL_CAR_SCHEMA,
                  poll_chunk: int = POLL_CHUNK):
@@ -178,6 +186,9 @@ class SensorBatches:
         self.pad_tail = pad_tail
         self.keep_labels = keep_labels
         self.keep_keys = keep_keys
+        self.exclude_key_marker = exclude_key_marker
+        # the filter needs the keys even when the caller does not
+        self._capture_keys = keep_keys or exclude_key_marker is not None
         self.cache = cache
         self.poll_chunk = poll_chunk
         self._cached = None
@@ -194,9 +205,10 @@ class SensorBatches:
             self._label_col = strings.index(schema.label_field) \
                 if schema.label_field in strings else None
         elif isinstance(source, RowSource):
-            if keep_keys:
-                raise ValueError("keep_keys needs a consumer: a RowSource's "
-                                 "rows have no message keys")
+            if self._capture_keys:
+                raise ValueError("keep_keys and exclude_key_marker need a "
+                                 "consumer: a RowSource's rows have no "
+                                 "message keys")
             self.source = source
         else:
             raise TypeError(f"SensorBatches reads a StreamConsumer, a "
@@ -235,7 +247,7 @@ class SensorBatches:
         values = [m.value for m in msgs]
         keys = np.asarray([m.key or b"" for m in msgs],
                           f"S{KEY_STRIDE - 1}").astype(f"S{KEY_STRIDE}") \
-            if self.keep_keys else None
+            if self._capture_keys else None
         if any(needs_resolution(v) for v in values):
             if self._resolving is None:
                 self._resolving = ResolvingCodec(self.schema)
@@ -278,7 +290,7 @@ class SensorBatches:
     def _fused(self) -> bool:
         """Whether the consumer polls through the broker's fused
         fetch-and-decode."""
-        attr = "fetch_decode_keys" if self.keep_keys else "fetch_decode"
+        attr = "fetch_decode_keys" if self._capture_keys else "fetch_decode"
         return isinstance(self.consumer, StreamConsumer) and \
             getattr(self.consumer.broker, attr, None) is not None
 
@@ -295,7 +307,7 @@ class SensorBatches:
                     try:
                         res = self.consumer.poll_decoded(
                             self._native, strip=5, max_messages=limit,
-                            with_keys=self.keep_keys)
+                            with_keys=self._capture_keys)
                     except SchemaIdMismatchError:
                         # an evolved writer's frame at the cursor: one
                         # chunk by the message-list leg, then fused again
@@ -306,7 +318,7 @@ class SensorBatches:
                     if not len(res[0]):
                         return
                     yield (res[0], self._native_labels(res[1], len(res[0])),
-                           res[2] if self.keep_keys else None)
+                           res[2] if self._capture_keys else None)
                     continue
                 msgs = self.consumer.poll(limit)
                 if not msgs:
@@ -324,9 +336,17 @@ class SensorBatches:
     def _filtered_chunks(self):
         """Yield (xs [n, F] float32 normalized, labels [n], keys [n] or
         None) per read."""
+        marker = self.exclude_key_marker
         for num, labels, keys in self._decoded_chunks():
             xs = self.normalizer.np(num)
             obs_metrics.records_consumed.inc(len(xs))
+            if marker is not None and len(keys):
+                # the canary firewall: reserved-id records never batch
+                keep = np.char.find(keys, marker) == -1
+                if not keep.all():
+                    xs, labels, keys = xs[keep], labels[keep], keys[keep]
+            if marker is not None and not self.keep_keys:
+                keys = None  # captured for the filter only
             if self.only_normal:
                 keep = labels == "false"
                 xs, labels = xs[keep], labels[keep]

@@ -10,7 +10,8 @@ precision-recall, and reconstruction-error threshold plots
 - `report.svg` — a three-panel figure (ROC with AUC, PR with AP,
   reconstruction-error histogram with the decision threshold), the same
   three visuals the notebook renders (matplotlib, imported when a report
-  is written).
+  is written; ``svg=False`` writes the JSON alone, for a machine without
+  matplotlib).
 
 Both land in a directory that can be pushed through `ArtifactStore`
 (local or gs://) right beside the model it describes.  The code is the
@@ -36,9 +37,12 @@ def _downsample(xs: np.ndarray, ys: np.ndarray, max_points: int = 256):
 
 
 def write_report(report: AnomalyReport, scores, labels, out_dir: str,
-                 store=None, name: str = "eval-report") -> dict:
-    """Write report.json + report.svg under out_dir; optionally upload the
-    directory through an ArtifactStore as `name`.  Returns the paths."""
+                 store=None, name: str = "eval-report",
+                 svg: bool = True) -> dict:
+    """Write report.json + report.svg (report.json alone when ``svg`` is
+    False) under out_dir; optionally upload the directory through an
+    ArtifactStore as `name`.  Returns the paths (``"svg"`` None when not
+    rendered)."""
     scores = np.asarray(scores, dtype=np.float64)
     labels = np.asarray(labels).astype(bool)
     os.makedirs(out_dir, exist_ok=True)
@@ -57,9 +61,11 @@ def write_report(report: AnomalyReport, scores, labels, out_dir: str,
     with open(json_path, "w") as f:
         json.dump(payload, f, indent=2)
 
-    svg_path = os.path.join(out_dir, "report.svg")
-    _render_svg(report, scores, labels, fpr_s, tpr_s, rec_s, prec_s,
-                svg_path)
+    svg_path = None
+    if svg:
+        svg_path = os.path.join(out_dir, "report.svg")
+        _render_svg(report, scores, labels, fpr_s, tpr_s, rec_s, prec_s,
+                    svg_path)
 
     uploaded: Optional[str] = None
     if store is not None:

@@ -1,5 +1,4 @@
-"""Adversarial fleet conditions (``iotml.gen.scenarios``'s twin, cut to
-the stream leg).
+"""Adversarial fleet conditions (``iotml.gen.scenarios``'s twin).
 
 ``simulator.FleetGenerator`` reproduces the reference's benign scenario:
 a steady fleet, i.i.d. sensor noise, rare labeled failures.  Real fleets
@@ -7,8 +6,9 @@ are nastier in ways that stress specific subsystems, and each condition
 here targets one:
 
 - **rush-hour**: 10× publish bursts inside a tick window;
-- **flapping-links**: per-car cellular links drop and recover (a knob of
-  the MQTT leg, which is not ported);
+- **flapping-links**: per-car cellular links drop and recover; a car
+  whose link is down stores its readings and forwards them when it is
+  back (the MQTT leg, ``publish_mqtt``);
 - **regional-drift**: cars belong to regional cohorts with skewed sensor
   distributions, and selected cohorts SHIFT distribution at a seeded
   tick (step or ramp) — the benign drift that poisons a frozen anomaly
@@ -22,21 +22,27 @@ Everything is seeded and wall-clock-free: the same (scenario, condition,
 seed) triple publishes the same records (keys, framed values,
 timestamps, partitions) as the JAX package's, byte for byte.
 
-Not ported: the MQTT publish leg (``publish_mqtt`` with its link flaps,
-store-and-forward and backpressure deferral, ROADMAP A15), the chaos
-schedule that runs drift-storm under MQTT flaps (A14).  Under tracing
-each published record is born with its trace context in its headers.
+Two publish legs: ``publish_stream`` writes framed Avro straight onto a
+stream topic, ``publish_mqtt`` writes each car's JSON to an MQTT broker
+with link flaps, store-and-forward, and deferral into a bounded buffer
+while the broker reports ``saturated()``.  Not ported: the chaos
+schedule that runs drift-storm under MQTT flaps (ROADMAP A14).  Under
+tracing each record of the stream leg is born with its trace context in
+its headers (the MQTT leg's are born in ``MqttBroker.publish``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 from typing import Dict, Optional
 
 import numpy as np
 
-from ..core.schema import (CAR_SCHEMA_V2_ID, KSQL_CAR_SCHEMA,
+from ..core.schema import (CAR_SCHEMA, CAR_SCHEMA_V2_ID, KSQL_CAR_SCHEMA,
                            KSQL_CAR_SCHEMA_V2)
+from ..obs import metrics as obs_metrics
 from ..obs import tracing
 from ..ops.avro import AvroCodec
 from ..ops.framing import frame
@@ -141,18 +147,30 @@ class AdversarialFleet:
 
     The base generator's RNG stream is untouched (the same seed produces
     the same underlying fleet with or without a condition); condition
-    draws — the schema choice — come from a separate seeded RNG, so
+    draws — flaps, schema choice — come from a separate seeded RNG, so
     conditions compose deterministically.
     """
 
     def __init__(self, scenario: Optional[FleetScenario] = None,
-                 cond: Optional[FleetCondition] = None):
+                 cond: Optional[FleetCondition] = None,
+                 defer_limit: int = 10_000):
         self.scenario = scenario or FleetScenario()
         self.cond = cond or FLEET_CONDITIONS["baseline"]
         self.gen = FleetGenerator(self.scenario)
         self.rng = np.random.default_rng(self.scenario.seed + 0x5EED)
         n = self.scenario.num_cars
         self.region = np.arange(n) % max(1, self.cond.regions)
+        self.link_up = np.ones(n, bool)
+        #: per-car store-and-forward buffers for down links (bounded)
+        self._car_buffers: Dict[int, collections.deque] = {}
+        #: fleet-side deferral buffer under MQTT backpressure (bounded:
+        #: a fleet cannot hold infinite history either — past the limit
+        #: the OLDEST deferred reading drops, counted)
+        self.deferred: collections.deque = collections.deque(
+            maxlen=max(1, defer_limit))
+        self.deferred_total = 0
+        self.defer_dropped = 0
+        self.flap_buffered_total = 0
         self.published = 0
 
     # -------------------------------------------------------- generation
@@ -236,12 +254,85 @@ class AdversarialFleet:
         self.published += count
         return count
 
+    # -------------------------------------------------------- mqtt (json)
+    def _flap_step(self) -> None:
+        c = self.cond
+        if c.flap_down <= 0:
+            return
+        n = len(self.link_up)
+        go_down = self.rng.random(n) < c.flap_down
+        come_up = self.rng.random(n) < c.flap_up
+        self.link_up = np.where(self.link_up, ~go_down, come_up)
+
+    def _publish_one(self, mqtt, topic: str, payload: bytes,
+                     qos: int) -> bool:
+        """One cooperative publish: defer under backpressure instead of
+        letting the broker's bounded queues drop-oldest."""
+        if mqtt.saturated():
+            if len(self.deferred) == self.deferred.maxlen:
+                self.defer_dropped += 1
+            self.deferred.append((topic, payload, qos))
+            self.deferred_total += 1
+            obs_metrics.fleet_deferred.inc()
+            return False
+        mqtt.publish(topic, payload, qos=qos)
+        self.published += 1
+        return True
+
+    def _drain_deferred(self, mqtt) -> int:
+        n = 0
+        while self.deferred and not mqtt.saturated():
+            topic, payload, qos = self.deferred.popleft()
+            mqtt.publish(topic, payload, qos=qos)
+            self.published += 1
+            n += 1
+        return n
+
     def publish_mqtt(self, mqtt, n_ticks: int = 1, qos: int = 1,
                      topic_prefix: str = "vehicles/sensor/data") -> int:
-        raise NotImplementedError(
-            "the MQTT fleet leg (link flaps, store-and-forward, "
-            "backpressure deferral) is not ported yet (ROADMAP A15)")
+        """Per-car JSON publishes over MQTT (the device fleet leg) with
+        link flapping (store-and-forward) and backpressure deferral.
+        Returns publishes DELIVERED to the broker this call; deferred
+        and link-buffered readings drain on later ticks."""
+        delivered = 0
+        for _ in range(n_ticks):
+            for _ in range(self._tick_reps()):
+                delivered += self._drain_deferred(mqtt)
+                self._flap_step()
+                cols = self.step_columns()
+                n = len(cols["car"])
+                for i in range(n):
+                    car = int(cols["car"][i])
+                    rec = self.gen.row_record(cols, i, CAR_SCHEMA)
+                    rec["failure_occurred"] = \
+                        str(cols["failure_occurred"][i])
+                    if self.cond.regions > 1:
+                        rec["region"] = self.region_name(car)
+                    topic = f"{topic_prefix}/{self.scenario.car_id(car)}"
+                    payload = json.dumps(rec).encode()
+                    if not self.link_up[car]:
+                        # cellular dead spot: the device stores and
+                        # forwards — bounded, oldest dropped (a real
+                        # device's ring buffer)
+                        buf = self._car_buffers.setdefault(
+                            car, collections.deque(maxlen=64))
+                        buf.append((topic, payload))
+                        self.flap_buffered_total += 1
+                        continue
+                    buf = self._car_buffers.get(car)
+                    while buf:
+                        t2, p2 = buf.popleft()
+                        if self._publish_one(mqtt, t2, p2, qos):
+                            delivered += 1
+                    if self._publish_one(mqtt, topic, payload, qos):
+                        delivered += 1
+        return delivered
 
     def describe(self) -> dict:
         return {"condition": self.cond.name, "tick": self.gen.tick,
-                "published": self.published}
+                "published": self.published,
+                "deferred_total": self.deferred_total,
+                "deferred_pending": len(self.deferred),
+                "defer_dropped": self.defer_dropped,
+                "flap_buffered": self.flap_buffered_total,
+                "links_down": int((~self.link_up).sum())}

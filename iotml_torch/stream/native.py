@@ -1,6 +1,6 @@
 """ctypes bindings for the port's C++ stream engine (``iotml.stream.native``).
 
-Five sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
+Six sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
 build into one library:
 
 - ``avro_engine.cc``: one call decodes a whole poll of Confluent-framed
@@ -19,13 +19,17 @@ build into one library:
 - ``kafka_client.cc``: the native Kafka wire client and its fused
   fetch-and-decode (``stream.native_kafka.NativeKafkaBroker``), whose
   message sets go through ``msgset_engine.cc`` and whose decode is
-  ``avro_engine.cc``'s.
+  ``avro_engine.cc``'s;
+- ``mqtt_ingest.cc``: the native MQTT ingest front, an epoll loop and
+  frame parser that acks QoS 0/1 publishes and hands their (topic,
+  payload) pairs to Python in bulk drains (``mqtt.native_ingest``).
 
 The library is built with g++ at first use, never at import:
 
     g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall
         -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc \
-        fmt_engine.cc msgset_engine.cc kafka_client.cc json_engine.cc
+        fmt_engine.cc msgset_engine.cc kafka_client.cc json_engine.cc \
+        mqtt_ingest.cc
 
 ``<hash>`` covers the sources, the header, the flags, the compiler's
 version and what ``-march=native`` means on this host, so an edited
@@ -67,7 +71,7 @@ from ..core.schema import RecordSchema
 
 CPP = Path(__file__).resolve().parent.parent / "cpp"
 SOURCES = ("avro_engine.cc", "fmt_engine.cc", "msgset_engine.cc",
-           "kafka_client.cc", "json_engine.cc")
+           "kafka_client.cc", "json_engine.cc", "mqtt_ingest.cc")
 HEADERS = ("utf8_check.h",)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-Wall")
@@ -145,6 +149,15 @@ _SIGNATURES = {
     "iotml_kafka_commit_many": (_i64, [
         _vp, _str, _str, _P(_i32), _P(_i64), _i64]),
     "iotml_kafka_committed": (_i64, [_vp, _str, _str, _i32]),
+    # the MQTT ingest front (mqtt_ingest.cc)
+    "iotml_mqtt_ingest_create": (_vp, [ctypes.c_uint16]),
+    "iotml_mqtt_ingest_port": (ctypes.c_int, [_vp]),
+    "iotml_mqtt_ingest_conns": (ctypes.c_long, [_vp]),
+    "iotml_mqtt_ingest_poll": (ctypes.c_long, [_vp, ctypes.c_int]),
+    "iotml_mqtt_ingest_drain": (ctypes.c_long, [
+        _vp, _P(_P(_u8)), _P(_P(_i32)), _P(_P(_i32))]),
+    "iotml_mqtt_ingest_clear": (None, [_vp]),
+    "iotml_mqtt_ingest_close": (None, [_vp]),
 }
 
 #: rows carried by the engine and seconds spent in it, per entry

@@ -146,6 +146,25 @@ def test_write_report_files_are_byte_equal(tmp_path, monkeypatch):
     assert paths["port"]["uploaded"] is None
 
 
+def test_write_report_without_svg_writes_the_same_json(tmp_path):
+    """``svg=False`` (a machine without matplotlib) writes report.json
+    alone, byte-equal to JAX's, and uploads it."""
+    from iotml_torch.train.artifacts import ArtifactStore
+
+    scores, labels = _scores(n=700, seed=5)
+    rep = j_eval.evaluate_detector(None, None, None, labels, scores=scores)
+    want = j_report.write_report(rep, scores, labels, str(tmp_path / "j"))
+    got = t_report.write_report(rep, scores, labels, str(tmp_path / "t"),
+                                store=ArtifactStore(str(tmp_path / "s")),
+                                name="r", svg=False)
+    assert got["svg"] is None
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == \
+        ["report.json"]
+    with open(want["json"], "rb") as a, open(got["json"], "rb") as b:
+        assert a.read() == b.read()
+    assert got["uploaded"].endswith("r.zip")
+
+
 def test_downsample_matches_jax():
     xs = np.arange(1000.0)
     for n in (10, 256, 999, 1000):

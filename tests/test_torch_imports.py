@@ -107,6 +107,33 @@ def test_the_ksql_stage_is_covered_and_loads_no_jax_stack():
     assert out.stdout.strip() == "[]"
 
 
+INGEST_MODULES = ["iotml_torch/mqtt/__init__.py",
+                  "iotml_torch/mqtt/topic_tree.py",
+                  "iotml_torch/mqtt/broker.py", "iotml_torch/mqtt/wire.py",
+                  "iotml_torch/mqtt/eventserver.py",
+                  "iotml_torch/mqtt/bridge.py",
+                  "iotml_torch/mqtt/native_ingest.py",
+                  "iotml_torch/mqtt/scenario.py",
+                  "iotml_torch/obs/canary.py", "iotml_torch/cli/devsim.py",
+                  "iotml_torch/cli/up.py", "iotml_torch/cli/demo.py"]
+
+
+def test_the_ingest_front_is_covered_and_loads_no_jax_stack():
+    import subprocess
+    import sys
+
+    assert set(INGEST_MODULES) <= set(FILES)
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in INGEST_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

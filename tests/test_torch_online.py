@@ -9,7 +9,8 @@ Tolerances:
   same order);
 - scenarios: ``step_columns`` exactly equal (values and dtypes) and
   ``publish_stream`` byte-identical (keys, framed values, timestamps,
-  partitions);
+  partitions); ``publish_mqtt`` deliveries, counts and ``describe()``
+  equal, with link flaps and under backpressure;
 - the injectable Adam: params atol 1e-6 after each of ten steps (the
   Adam bounds), hyperparameters and counts equal;
 - window groups and the refit: per-window losses rtol 2e-4 / atol 1e-6,
@@ -33,6 +34,8 @@ from iotml.gen.scenarios import AdversarialFleet as JAdversarialFleet
 from iotml.gen.scenarios import condition as j_condition
 from iotml.gen.simulator import FleetScenario as JFleetScenario
 from iotml.mlops import AsyncCheckpointer as JAsyncCheckpointer
+from iotml.mqtt.broker import MqttBroker as JMqttBroker
+from iotml.mqtt.broker import QueueClient as JQueueClient
 from iotml.mlops import ModelRegistry as JModelRegistry
 from iotml.mlops import restore_trainer as j_restore_trainer
 from iotml.models.autoencoder import CAR_AUTOENCODER as J_AE
@@ -48,6 +51,8 @@ from iotml_torch.config import load_config
 from iotml_torch.gen.scenarios import (FLEET_CONDITIONS, AdversarialFleet,
                                        condition)
 from iotml_torch.gen.simulator import FleetScenario
+from iotml_torch.mqtt.broker import MqttBroker as TMqttBroker
+from iotml_torch.mqtt.broker import QueueClient as TQueueClient
 from iotml_torch.mlops import AsyncCheckpointer, ModelRegistry, restore_trainer
 from iotml_torch.mlops.checkpoint import (host_state, state_from_npz_bytes,
                                           state_to_npz_bytes)
@@ -216,9 +221,7 @@ def test_publish_stream_is_byte_identical_to_jax(name, partitions):
             [(m.key, m.value, m.timestamp_ms) for m in want]
         total += len(got)
     assert total == n
-    jd_ = j.describe()
-    assert t.describe() == {k: jd_[k] for k in ("condition", "tick",
-                                                "published")}
+    assert t.describe() == j.describe()
 
 
 def test_conditions_lookup_override_and_the_mqtt_leg():
@@ -231,8 +234,66 @@ def test_conditions_lookup_override_and_the_mqtt_leg():
     assert FLEET_CONDITIONS["regional-drift"].drift_tick is None
     with pytest.raises(KeyError):
         condition("nope")
-    with pytest.raises(NotImplementedError, match="A15"):
-        AdversarialFleet().publish_mqtt(None)
+    # the MQTT leg is ported: a baseline tick publishes the same JSON
+    t, j = _fleets("baseline", cars=5)
+    tm, jm = TMqttBroker(), JMqttBroker()
+    tq, jq = TQueueClient(tm, "tap"), JQueueClient(jm, "tap")
+    tq.subscribe("#", qos=1)
+    jq.subscribe("#", qos=1)
+    assert t.publish_mqtt(tm) == j.publish_mqtt(jm) == 5
+    assert tq.messages == jq.messages
+
+
+def _mqtt_leg(fleet, mqtt, saturate: bool):
+    """Drive ``publish_mqtt`` for 12 ticks into ``mqtt`` with a tap; with
+    ``saturate`` a persistent subscriber goes offline so its QoS 1 queue
+    crosses the backpressure mark, and it drains between ticks."""
+    tap = []
+    s = mqtt.connect("tap", lambda *a: tap.append(a))
+    mqtt.deliver_pending(s)
+    mqtt.subscribe("tap", "vehicles/#", qos=1)
+    slow = None
+    if saturate:
+        slow = mqtt.connect("slow", lambda *a: None, clean_start=False)
+        mqtt.deliver_pending(slow)
+        mqtt.subscribe("slow", "vehicles/#", qos=1)
+        mqtt.disconnect("slow", slow)
+    out = []
+    for tick in range(12):
+        out.append(fleet.publish_mqtt(mqtt, qos=1))
+        out.append((mqtt.saturated(), fleet.describe()))
+        if saturate and tick % 3 == 2:  # the slow consumer catches up
+            slow = mqtt.connect("slow", lambda *a: None, clean_start=False)
+            mqtt.deliver_pending(slow)
+            mqtt.disconnect("slow", slow)
+    return out, tap
+
+
+@pytest.mark.parametrize("saturate", [False, True],
+                         ids=["free", "backpressure"])
+@pytest.mark.parametrize("name", sorted(_CONDITIONS) + ["flapping-links"])
+def test_publish_mqtt_equal_jax(name, saturate):
+    """The MQTT leg: per-car JSON, link flaps with store-and-forward,
+    deferral while the broker is saturated and drop-oldest past the
+    deferral bound; deliveries, counts and describe() equal JAX's."""
+    kw = _CONDITIONS.get(name, {})
+    fleets = (AdversarialFleet(FleetScenario(num_cars=12, failure_rate=0.1,
+                                             seed=SEED),
+                               condition(name, **kw), defer_limit=40),
+              JAdversarialFleet(JFleetScenario(num_cars=12,
+                                               failure_rate=0.1, seed=SEED),
+                                j_condition(name, **kw), defer_limit=40))
+    got = _mqtt_leg(fleets[0], TMqttBroker(offline_queue_limit=50,
+                                           backpressure_hwm=30), saturate)
+    want = _mqtt_leg(fleets[1], JMqttBroker(offline_queue_limit=50,
+                                            backpressure_hwm=30), saturate)
+    assert got == want
+    last = got[0][-1][1]
+    assert last["published"] == len(got[1])
+    if saturate:
+        assert last["deferred_total"] > 0
+    if name == "flapping-links":
+        assert last["flap_buffered"] > 0
 
 
 # ------------------------------------------------------- injectable Adam
