@@ -2,8 +2,12 @@
 """Drive the PyTorch/CUDA port (``iotml_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --store-fit-orders N
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
+With ``--store-fit-orders N`` it runs the device phase and then only
+``store_fit_orders``: how far the 20-epoch fit of ``store_path``'s rows
+drifts, kernel, plain and float64, over N orders of those rows.
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit and no result line:
 
@@ -319,7 +323,56 @@ non-zero exit and no result line:
                 of each front, the epoll front's paused connections and
                 evictions, pump seconds, fit and kernel ms, scored
                 rows/s.
-17. timing     — each design held against the plain version over the
+17. store_path — the durable commit log under the main path, at the
+                reference topic's size: one retention window (100,000
+                cars at one message per 10 s, scenario.xml:48-49, over
+                10 partitions with retention.ms=100000,
+                01_installConfluentPlatform.sh:180-183: ten ticks,
+                1,000,000 Avro records of ~195 bytes a frame).  (a)
+                Appended tick by tick through the fused ``produce_many``
+                into ``Broker(store_dir=D)`` under the store.* defaults
+                (16 MiB segments, fsync=interval); retention drops
+                nothing; records/s and MB/s, segments a partition, the
+                engine's framing rows; one tick again under fsync=never
+                and fsync=always (one call, and calls of 1,000) in fresh
+                directories.  (b) A child process mounts D and appends
+                tick 11 with fsync=always in calls of 10,000, committing
+                and printing each call's ends; SIGKILLed after 4 acks
+                (a deadline fails the phase); a mount writes a torn
+                frame on partition 3's active segment and is dropped
+                without close(); the remount's seconds; every record
+                served (all acked ones among them) equal to the seeded
+                generator's by regeneration, the truncated-bytes counter
+                grown by the torn frame at least, the group's commits
+                read back; replay records/s.  (c) 100 batches of 100
+                normal rows from offset 0 → ``fit_compiled`` for 20
+                epochs (one B1 launch, rows) held against the plain
+                version at the fit bounds, and bit for bit against the
+                same fit from an in-memory broker holding the same
+                records (the batches exactly equal); 10,000 rows scored
+                into the durable model-predictions (threshold at the
+                99th percentile of 512 normal rows' errors), read back
+                equal after a remount and held against a CPU recompute
+                (first 100 at atol 2e-6, all at 1e-5).  (d)
+                ``ContinuousTrainer(backfill_since_ms=tick 5's ms)``:
+                each partition starts at ``offset_for_timestamp`` and at
+                a linear scan's first record; three rounds, one B1
+                launch each.  (e) The window again on a
+                cleanup_policy="compact" topic with 1 MiB segments and a
+                tombstone for one car in 1,000; every partition rolled;
+                one forced pass leaves exactly the newest record per key
+                at its offset (a dict reference), tombstones inside the
+                grace window kept; seconds a pass, bytes reclaimed.  (f)
+                D remounted with a tier (a local directory) whose hot
+                budget is one segment: one tiering pass uploads and
+                evicts the head; the fit's batches through the remote
+                tier equal (c)'s, one B1 launch equal to (c)'s bit for
+                bit; upload MB/s, remote-read records/s.  (g)
+                ``Platform(store_dir=D2)``: one tick of 20,000 cars over
+                64 MQTT connections into the bridge and KSQL, stopped; a
+                second Platform on D2 re-serves SENSOR_DATA_S_AVRO whole
+                and one B1 launch fits on it.
+18. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -329,7 +382,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-18. attention_kernel — the flash-attention kernel against its plain
+19. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -352,13 +405,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-19. sensorformer_path — SensorFormer at full width (its defaults) scores
+20. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-20. attention_timing — kernel, plain version, bound and the library
+21. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -369,7 +422,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-21. attention_backward_kernel — the dK/dV and dQ kernels against the
+22. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -388,18 +441,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-22. sensorformer_train — the slice's main path: ``make_sp_train_step``
+23. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 19; each step launches exactly
+                fleet histories of phase 20; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-23. attention_backward_timing — each backward kernel, the plain
+24. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 20, beside the bound, the fp32 FMA floor
+                shapes of phase 21, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -416,13 +469,14 @@ the main path and by path, the main path, the CLI path, the serve path
 (one for the CLI train and one a registry round), the online path (the
 drill's pre-train and every refit's), the obs path (two traced fits,
 two captures, eight chaos rounds, eight timed fits), the KSQL path
-(one), the demo path (two: the demo CLI's and the tick's), the
+(one), the demo path (two: the demo CLI's and the tick's), the store
+path (seven, by sub-phase in ``store_path_launches_by_subphase``), the
 creditcard path (one), the LSTM and MNIST paths (none), summed in
 ``launches``; the creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 19), the training steps (phase 22), the long-context forward +
-backward (phase 23) and the serve, creditcard, LSTM, MNIST and online
+(phase 20), the training steps (phase 23), the long-context forward +
+backward (phase 24) and the serve, creditcard, LSTM, MNIST and online
 paths (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -430,13 +484,16 @@ the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import argparse
 import collections
 import contextlib
 import http.client
+import inspect
 import io
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import socket
@@ -446,6 +503,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
@@ -516,6 +574,9 @@ from iotml_torch.serve import scorer as scorer_module
 from iotml_torch.serve.carhealth import CarHealthDetector
 from iotml_torch.serve.live import LiveScorer
 from iotml_torch.serve.scorer import StreamScorer
+from iotml_torch.store import StorePolicy, TierPolicy
+from iotml_torch.store import segment as store_segment
+from iotml_torch.store.log import store_recovery_truncated
 from iotml_torch.stream import native
 from iotml_torch.stream.broker import Broker
 from iotml_torch.stream.consumer import StreamConsumer
@@ -806,11 +867,12 @@ def check_tensor_core_sass() -> dict:
             "hmma_tf32_per_mma_kernel": hmma}
 
 
-def check_fit(tag: str, kernel_out, plain_out, steps: int) -> float:
+def check_fit(tag: str, kernel_out, plain_out, steps: int,
+              parts=("params", "mu", "nu")) -> float:
     """Hold a kernel fit against the plain version's on the same inputs:
-    every epoch's loss and accuracy at METRIC_TOL, the final params, mu
-    and nu at STATE_TOL, and the step count.  Returns the largest absolute
-    difference."""
+    every epoch's loss and accuracy at METRIC_TOL, the final ``parts``
+    (params, mu and nu) at STATE_TOL, and the step count.  Returns the
+    largest absolute difference."""
     (k_state, k_loss, k_acc), (p_state, p_loss, p_acc) = kernel_out, plain_out
     err = max(check_close(f"{tag} losses", k_loss, p_loss, **METRIC_TOL),
               check_close(f"{tag} accs", k_acc, p_acc, **METRIC_TOL))
@@ -818,6 +880,8 @@ def check_fit(tag: str, kernel_out, plain_out, steps: int) -> float:
             ("params", k_state.params, p_state.params),
             ("mu", k_state.opt_state.mu, p_state.opt_state.mu),
             ("nu", k_state.opt_state.nu, p_state.opt_state.nu)):
+        if name not in parts:
+            continue
         for key in PARAM_NAMES:
             err = max(err, check_close(f"{tag} {name} {key}", k_tree[key],
                                        p_tree[key], **STATE_TOL))
@@ -3887,6 +3951,752 @@ def phase_demo_path(card: str) -> dict:
             "max_abs_err": tick["max_abs_err"]}
 
 
+#: the reference's topic: 100,000 cars at one message per 10 s
+#: (scenario.xml:48-49) over 10 partitions with retention.ms=100000
+#: (01_installConfluentPlatform.sh:180-183): ten ticks are one retention
+#: window, 1,000,000 records of ~195 bytes a frame
+STORE_CARS, STORE_TICKS, STORE_PARTS = 100_000, 10, 10
+STORE_RETENTION_MS = 100_000
+STORE_TOPIC = "SENSOR_DATA_S_AVRO"
+#: the crash child's produce_many and the acks it is killed after
+STORE_CRASH_BATCH, STORE_CRASH_ACKS = 10_000, 4
+STORE_GROUP = "store-crash"
+#: the backfill replays from tick 5's timestamp, three rounds
+STORE_BACKFILL_TICK, STORE_BACKFILL_ROUNDS = 5, 3
+#: the compacted topic's segments (so that they seal) and its tombstones:
+#: one car in STORE_TOMBSTONE_EVERY deleted after the last update
+STORE_COMPACT_SEGMENT, STORE_TOMBSTONE_EVERY = 1 << 20, 1_000
+#: the platform's short fleet, one tick of this many cars over MQTT
+STORE_PLATFORM_CARS = 20_000
+
+
+def _store_ticks(n: int):
+    """The reference fleet's first ``n`` ticks, one at a time, as
+    ``FleetGenerator.publish`` writes them: [(car key, Confluent-framed
+    Avro value, the tick's ms)], one message per car per 10 s."""
+    cars = STORE_CARS
+    gen = FleetGenerator(FleetScenario(num_cars=cars, interval_s=10))
+    codec = native.NativeCodec(KSQL_CAR_SCHEMA)
+    keys = [gen.scenario.car_id(i).encode() for i in range(cars)]
+    for _ in range(n):
+        cols = gen.step_columns()
+        msgs = codec.encode_batch(
+            gen.sensor_matrix(cols),
+            cols["failure_occurred"].astype("S16")[:, None], schema_id=1)
+        ts = int(gen.t * 1000)
+        yield [(k, m, ts) for k, m in zip(keys, msgs)]
+
+
+#: the crash child: mounts the store with fsync=always, appends tick
+#: STORE_TICKS + 1 in produce_many batches, commits each batch's ends for
+#: STORE_GROUP and then prints them, one JSON line an ack
+STORE_CHILD = f"""
+import json, sys
+from iotml_torch.core.schema import KSQL_CAR_SCHEMA
+from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
+from iotml_torch.store import StorePolicy
+from iotml_torch.stream import native
+from iotml_torch.stream.broker import Broker
+STORE_CARS = {STORE_CARS}
+{inspect.getsource(_store_ticks)}
+b = Broker(store_dir=sys.argv[1], store_policy=StorePolicy(fsync="always"))
+*_, tick = _store_ticks({STORE_TICKS + 1})
+for i in range(0, len(tick), {STORE_CRASH_BATCH}):
+    b.produce_many({STORE_TOPIC!r}, tick[i:i + {STORE_CRASH_BATCH}])
+    ends = [b.end_offset({STORE_TOPIC!r}, p) for p in range({STORE_PARTS})]
+    b.commit_many({STORE_GROUP!r}, {STORE_TOPIC!r}, list(enumerate(ends)))
+    print(json.dumps(ends), flush=True)
+print("done", flush=True)
+"""
+
+
+def _crash_child(d: str, acks: int, deadline_s: float = 600.0) -> list:
+    """STORE_CHILD on ``d``, SIGKILLed once it has printed ``acks`` ack
+    lines (a deadline fails the phase); returns the lines read."""
+    proc = subprocess.Popen([sys.executable, "-c", STORE_CHILD, d],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(Path(__file__).parent))
+    lines: "queue.Queue" = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    got = []
+    try:
+        deadline = time.monotonic() + deadline_s
+        while len(got) < acks:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(),
+                                             0.001))
+            except queue.Empty:
+                raise AssertionError(f"store_path: the crash child acked "
+                                     f"{len(got)} batches in {deadline_s} "
+                                     f"s") from None
+            if line is None or line.strip() == "done":
+                raise AssertionError(f"store_path: the crash child ended "
+                                     f"after {len(got)} acks: "
+                                     f"{proc.stderr.read()}")
+            got.append(json.loads(line))
+        proc.kill()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        reader.join(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+    if proc.returncode != -9:
+        raise AssertionError(f"store_path: the crash child exited "
+                             f"{proc.returncode}, not by SIGKILL")
+    return got
+
+
+def _store_batches(broker, group: str, topic: str = STORE_TOPIC):
+    """The reference job's 100 batches of 100 normal rows from offset 0 of
+    every partition."""
+    specs = [f"{topic}:{p}:0" for p in range(broker.topic(topic).partitions)]
+    return list(next(SensorBatches(StreamConsumer(broker, specs,
+                                                  group=group),
+                                   batch_size=100, take=100,
+                                   only_normal=True).epochs(1)))
+
+
+def _same_batches(a, b, where: str) -> None:
+    if len(a) != len(b) or not all(
+            np.array_equal(x.x, y.x) and np.array_equal(x.mask, y.mask)
+            for x, y in zip(a, b)):
+        raise AssertionError(f"store_path: {where}'s batches differ")
+
+
+def _one_fit(bs, where: str, design_counts: dict):
+    """``fit_compiled`` over ``bs`` for 20 epochs on the card: exactly
+    one B1 launch, through rows (counted into ``design_counts``)."""
+    trainer = Trainer(CAR_AUTOENCODER)
+    trainer._ensure_state()
+    before = _clone_state(trainer.state)
+    launches = fused_train.fused_fit.launches
+    rows = fused_train.fused_fit.launches_by_design["rows"]
+    t0 = time.perf_counter()
+    hist = trainer.fit_compiled(bs, epochs=20)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if fused_train.fused_fit.launches != launches + 1 or \
+            fused_train.fused_fit.launches_by_design["rows"] != rows + 1:
+        raise AssertionError(f"store_path: {where} launched B1 "
+                             f"{fused_train.fused_fit.launches - launches}"
+                             f"x, not once through rows")
+    design_counts[where] = 1
+    return trainer, before, hist, seconds
+
+
+def _same_fit(a, b, where: str) -> None:
+    """Two fits of exactly equal batches from the same start state: the
+    kernel's outputs equal bit for bit."""
+    (ta, ha), (tb, hb) = a, b
+    if ha["loss"] != hb["loss"] or ha["accuracy"] != hb["accuracy"] or \
+            not all(torch.equal(ta.state.params[k], tb.state.params[k])
+                    for k in PARAM_NAMES):
+        raise AssertionError(f"store_path: {where}'s fit is not bit for "
+                             f"bit the recovered log's")
+
+
+#: the path's 20-epoch params against a float64 run of the plain version
+#: on the same batches: the kernel strays from it no further than the
+#: plain float32 fit does, but for ``extra_outside`` more elements outside
+#: STATE_TOL and a largest difference up to ``max_abs_ratio`` times the
+#: plain fit's (after 20 epochs a few params move by ±lr steps on
+#: noise-level gradients in any float32 order: PERF.md §6)
+FLOAT64_DRIFT = dict(extra_outside=5, max_abs_ratio=2.0)
+
+
+def params_drift(kernel, plain, float64) -> dict:
+    """Elements outside STATE_TOL and the largest absolute difference of
+    three param trees, pairwise: kernel vs plain, kernel vs float64,
+    plain vs float64."""
+    def outside(a, b):
+        n, m = 0, 0.0
+        for key in PARAM_NAMES:
+            got, want = a[key].double().cpu(), b[key].double().cpu()
+            diff = (got - want).abs()
+            n += int((diff > STATE_TOL["atol"]
+                      + STATE_TOL["rtol"] * want.abs()).sum())
+            m = max(m, float(diff.max()))
+        return {"outside": n, "max_abs": m}
+
+    return {"elements": sum(v.numel() for v in kernel.values()),
+            "kernel_vs_plain": outside(kernel, plain),
+            "kernel_vs_float64": outside(kernel, float64),
+            "plain_vs_float64": outside(plain, float64)}
+
+
+def float64_drift_ok(drift: dict) -> bool:
+    """Whether the kernel's params lie within FLOAT64_DRIFT of the float64
+    run, measured by the plain float32 fit's own distance from it."""
+    k, p = drift["kernel_vs_float64"], drift["plain_vs_float64"]
+    return k["outside"] <= p["outside"] + FLOAT64_DRIFT["extra_outside"] \
+        and k["max_abs"] <= FLOAT64_DRIFT["max_abs_ratio"] * max(
+            p["max_abs"], STATE_TOL["atol"])
+
+
+def fit_float64(before: TrainState, xs, masks, epochs: int) -> TrainState:
+    """The plain version's fit with the start state and the rows in
+    float64."""
+    def f64(t):
+        return {k: v.double() for k, v in t.items()}
+
+    opt = before.opt_state
+    state, _loss, _acc = fused_train.fused_fit_reference(
+        TrainState(step=before.step, params=f64(before.params),
+                   opt_state=type(opt)(count=opt.count, mu=f64(opt.mu),
+                                       nu=f64(opt.nu))),
+        xs.double(), masks.double(), epochs)
+    return state
+
+
+def _store_fit_check(trainer, before, hist, xs, masks) -> tuple:
+    """Hold the path's own fit (20 epochs, no second launch) against the
+    plain version on the same batches: every epoch's loss and accuracy at
+    METRIC_TOL, the final Adam moments at STATE_TOL and the step count
+    (``check_fit``), and the final params against a float64 run of the
+    plain version within FLOAT64_DRIFT.  Returns (largest absolute
+    difference checked, the params' drift)."""
+    epochs = 20
+    plain = fused_train.fused_fit_reference(before, xs, masks, epochs)
+    err = check_fit("store_path", (trainer.state, torch.tensor(hist["loss"]),
+                                   torch.tensor(hist["accuracy"])),
+                    plain, before.step + xs.shape[0] * epochs,
+                    parts=("mu", "nu"))
+    drift = params_drift(trainer.state.params, plain[0].params,
+                         fit_float64(before, xs, masks, epochs).params)
+    if not float64_drift_ok(drift):
+        raise AssertionError(f"store_path params: farther from the float64 "
+                             f"fit than the plain version, past "
+                             f"{FLOAT64_DRIFT}: {drift}")
+    return err, drift
+
+
+def store_fit_orders(card: str, orders: int) -> None:
+    """``store_path``'s fit rows (its batches, from a broker holding the
+    topic's first two ticks) in ``orders`` orders: order 0 as served,
+    order k > 0 permuted with seed k.  Each is fit for 20 epochs from
+    ``_one_fit``'s start state by the kernel, the plain version, the plain
+    version in float64, and the plain version with each batch's rows
+    reversed (the same sums in another float32 order); one line an
+    order: whether the kernel passes ``check_fit`` against plain, the
+    final params' and moments' ``params_drift`` and the float64 gate, and
+    the reversed plain fit's params against plain and float64 and through
+    the same gate; then a summary line."""
+    mem = Broker()
+    mem.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
+    for tick in _store_ticks(2):
+        mem.produce_many(STORE_TOPIC, tick)
+    bs = _store_batches(mem, "store-fit")
+    if not all(x.mask.all() for x in bs):
+        raise AssertionError("store_path's batches are not full")
+    rows = np.concatenate([x.x for x in bs])
+    masks = torch.ones(len(bs), len(rows) // len(bs), device="cuda")
+    trainer = Trainer(CAR_AUTOENCODER)
+    trainer._ensure_state()
+    start, epochs = trainer.state, 20
+    failing = dict.fromkeys(("fit_bounds", "float64_gate",
+                             "plain_rows_reversed_float64_gate"), 0)
+    for order in range(orders):
+        x = rows if order == 0 else \
+            rows[np.random.default_rng(order).permutation(len(rows))]
+        xs = torch.from_numpy(x.reshape(*masks.shape, -1)).cuda()
+        kernel = fused_train.fused_fit(start, xs, masks, epochs)
+        plain = fused_train.fused_fit_reference(start, xs, masks, epochs)
+        f64 = fit_float64(start, xs, masks, epochs)
+        try:
+            check_fit(f"order {order}", kernel, plain, xs.shape[0] * epochs)
+            bounds = None
+        except AssertionError as e:
+            bounds = str(e)
+        drift = {"params": params_drift(kernel[0].params, plain[0].params,
+                                        f64.params)}
+        for part in ("mu", "nu"):
+            drift[part] = params_drift(
+                *(getattr(st.opt_state, part)
+                  for st in (kernel[0], plain[0], f64)))
+        gate = float64_drift_ok(drift["params"])
+        reversed_ = params_drift(fused_train.fused_fit_reference(
+            start, xs.flip(1), masks.flip(1), epochs)[0].params,
+            plain[0].params, f64.params)
+        reversed_gate = float64_drift_ok(reversed_)
+        failing["fit_bounds"] += bounds is not None
+        failing["float64_gate"] += not gate
+        failing["plain_rows_reversed_float64_gate"] += not reversed_gate
+        emit({"order": order, "card": card, "passes_fit_bounds":
+              bounds is None, "fit_bounds_failure": bounds,
+              "final_state": drift, "passes_float64_gate": gate,
+              "plain_rows_reversed": {
+                  "vs_plain": reversed_["kernel_vs_plain"],
+                  "vs_float64": reversed_["kernel_vs_float64"],
+                  "passes_float64_gate": reversed_gate}})
+    emit({"summary": True, "card": card, "orders": orders,
+          "epochs": epochs, "failing_orders": failing})
+
+
+def _store_append(root: str) -> dict:
+    """(a) The retention window into ``Broker(store_dir=D)`` through the
+    fused ``produce_many``, a tick at a time (fsync=interval, the store.*
+    defaults); one tick again under fsync=never and fsync=always (one
+    produce_many, and in batches of 1,000) in fresh directories."""
+    d = os.path.join(root, "store")
+    native.reset_stats()
+    b = Broker(store_dir=d)
+    b.create_topic(STORE_TOPIC, partitions=STORE_PARTS,
+                   retention_ms=STORE_RETENTION_MS)
+    gen_s = append_s = 0.0
+    ticks = _store_ticks(STORE_TICKS)
+    first = None
+    for _ in range(STORE_TICKS):
+        t0 = time.perf_counter()
+        tick = next(ticks)
+        t1 = time.perf_counter()
+        b.produce_many(STORE_TOPIC, tick)
+        append_s += time.perf_counter() - t1
+        gen_s += t1 - t0
+        first = first or tick
+    t0 = time.perf_counter()
+    b.flush()
+    flush_s = time.perf_counter() - t0
+    records = STORE_CARS * STORE_TICKS
+    logs = [b.store.log_for(STORE_TOPIC, p) for p in range(STORE_PARTS)]
+    if any(b.begin_offset(STORE_TOPIC, p) for p in range(STORE_PARTS)) or \
+            sum(b.end_offset(STORE_TOPIC, p)
+                for p in range(STORE_PARTS)) != records:
+        raise AssertionError("store_path: retention trimmed the window or "
+                             "records are missing")
+    disk = sum(log.total_bytes() for log in logs)
+    segments = [len(log._segments) for log in logs]
+    framing = {k: native.stats[k] for k in ("frame_encode_rows",
+                                            "frame_encode_s")}
+    if framing["frame_encode_rows"] != records:
+        raise AssertionError(f"store_path: the engine framed "
+                             f"{framing['frame_encode_rows']} of {records}")
+    b.close()
+    policies = {}
+    for tag, fsync, batch in (("never", "never", STORE_CARS),
+                              ("always", "always", STORE_CARS),
+                              ("always_batch_1000", "always", 1_000)):
+        dp = os.path.join(root, f"fsync-{tag}")
+        bp = Broker(store_dir=dp, store_policy=StorePolicy(fsync=fsync))
+        bp.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
+        t0 = time.perf_counter()
+        for i in range(0, len(first), batch):
+            bp.produce_many(STORE_TOPIC, first[i:i + batch])
+        seconds = time.perf_counter() - t0
+        bp.close()
+        shutil.rmtree(dp, ignore_errors=True)
+        policies[tag] = {"seconds": seconds,
+                         "records_per_s": STORE_CARS / seconds,
+                         "produce_many_calls": len(first) // batch}
+    return {"dir": d, "records": records, "generate_s": gen_s,
+            "append_s": append_s, "flush_s": flush_s,
+            "append_records_per_s": records / append_s,
+            "append_mb_per_s": disk / append_s / 1e6, "disk_bytes": disk,
+            "bytes_per_record": disk / records,
+            "segments_per_partition": segments, "framing": framing,
+            "fsync_one_tick": policies}
+
+
+def _store_crash(d: str) -> dict:
+    """(b) A child appends tick 11 with fsync=always and is SIGKILLed
+    after STORE_CRASH_ACKS acks; a mount writes a torn frame onto one
+    partition's active segment and is dropped without close(); the
+    remount's seconds; every record served equal to the generator's
+    (every acked one among them), the group's commits read back."""
+    acks = _crash_child(d, STORE_CRASH_ACKS)
+    crashed = Broker(store_dir=d)
+    kill_tail = crashed.store.recovered_truncated_bytes()
+    torn = crashed.store.log_for(STORE_TOPIC, 3).simulate_torn_write()
+    truncated0 = store_recovery_truncated.value()
+    del crashed  # the chaos runner's kill: no close()
+    t0 = time.perf_counter()
+    b = Broker(store_dir=d)
+    mount_s = time.perf_counter() - t0
+    truncated = store_recovery_truncated.value() - truncated0
+    if truncated < torn:
+        raise AssertionError(f"store_path: recovery truncated {truncated} "
+                             f"bytes, the torn frame was {torn}")
+    t0 = time.perf_counter()
+    want = [[] for _ in range(STORE_PARTS)]
+    for tick in _store_ticks(STORE_TICKS + 1):
+        for e in tick:
+            want[zlib.crc32(e[0]) % STORE_PARTS].append(e)
+    regen_s = time.perf_counter() - t0
+    since = STORE_BACKFILL_TICK * 10_000
+    last, served, replay_s, ends, first_at = acks[-1], 0, 0.0, [], []
+    for p in range(STORE_PARTS):
+        t0 = time.perf_counter()
+        msgs = b.fetch(STORE_TOPIC, p, 0, 10 ** 7)
+        replay_s += time.perf_counter() - t0
+        if not last[p] <= len(msgs) <= len(want[p]):
+            raise AssertionError(f"store_path: partition {p} serves "
+                                 f"{len(msgs)} records, {last[p]} acked")
+        for i, (m, w) in enumerate(zip(msgs, want[p])):
+            if (m.offset, m.key, m.value, m.timestamp_ms) != (i, *w):
+                raise AssertionError(f"store_path: {p}@{i} is not the "
+                                     f"generator's record")
+        ends.append(len(msgs))
+        first_at.append(next((m.offset for m in msgs
+                              if m.timestamp_ms >= since), len(msgs)))
+        served += len(msgs)
+    committed = [b.committed(STORE_GROUP, STORE_TOPIC, p)
+                 for p in range(STORE_PARTS)]
+    if not all(last[p] <= committed[p] <= ends[p]
+               for p in range(STORE_PARTS)):
+        raise AssertionError(f"store_path: committed {committed}, acked "
+                             f"{last}, served {ends}")
+    return {"broker": b, "acks": len(acks),
+            "acked_in_crash_tick": sum(last) - STORE_CARS * STORE_TICKS,
+            "served": served, "written_past_last_ack": served - sum(last),
+            "kill_tail_truncated_bytes": kill_tail, "torn_bytes": torn,
+            "recovery_truncated_bytes": truncated, "mount_s": mount_s,
+            "regenerate_s": regen_s, "replay_s": replay_s,
+            "replay_records_per_s": served / replay_s,
+            "committed": committed, "first_at_backfill": first_at,
+            "backfill_since_ms": since}
+
+
+def _store_fit_and_score(b, d: str, counts: dict) -> dict:
+    """(c) The recovered log's batches → one B1 launch, held against the
+    plain version at the fit bounds and, bit for bit, against the same
+    fit fed from an in-memory broker with the same records; 10,000 rows
+    scored into the durable model-predictions, read back after a
+    remount and held against a CPU recompute."""
+    t0 = time.perf_counter()
+    bs = _store_batches(b, "store-fit")
+    batch_s = time.perf_counter() - t0
+    trainer, before, hist, fit_s = _one_fit(bs, "recovered", counts)
+    xs = torch.from_numpy(np.stack([x.x for x in bs])).cuda()
+    masks = torch.from_numpy(np.stack([x.mask for x in bs])).cuda()
+    err, drift = _store_fit_check(trainer, before, hist, xs, masks)
+    mem = Broker()
+    mem.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
+    for tick in _store_ticks(2):
+        mem.produce_many(STORE_TOPIC, tick)
+    mem_bs = _store_batches(mem, "store-fit")
+    _same_batches(mem_bs, bs, "the in-memory broker")
+    twin, _b, twin_hist, _s = _one_fit(mem_bs, "in_memory", counts)
+    _same_fit((twin, twin_hist), (trainer, hist), "the in-memory broker")
+
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(STORE_PARTS)]
+    sample = next(iter(SensorBatches(
+        StreamConsumer(b, specs, group="store-threshold"), batch_size=512,
+        only_normal=True)))
+    threshold = float(np.percentile(anomaly.reconstruction_errors(
+        CAR_AUTOENCODER, trainer.state.params,
+        sample.x[:sample.n_valid]), 99.0))
+    b.create_topic("model-predictions", partitions=1)
+    scorer = StreamScorer(
+        CAR_AUTOENCODER, trainer.state.params,
+        SensorBatches(StreamConsumer(b, specs, group="store-serve"),
+                      batch_size=100, take=100, keep_labels=True),
+        OutputSequence(b, "model-predictions", partition=0),
+        threshold=threshold)
+    t0 = time.perf_counter()
+    n = scorer.score_available()
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    payloads = [m.value.decode() for m in b.fetch("model-predictions", 0,
+                                                  0, 10 ** 6)]
+    if n != 10_000 or len(payloads) != n:
+        raise AssertionError(f"store_path scored {n}, wrote "
+                             f"{len(payloads)}")
+    rows = np.concatenate([x.x[:x.n_valid] for x in SensorBatches(
+        StreamConsumer(b, specs, group="store-recompute"), batch_size=100,
+        take=100)])
+    with torch.no_grad():
+        want = torch.func.functional_call(
+            CAR_AUTOENCODER.build("cpu"),
+            {k: v.cpu() for k, v in trainer.state.params.items()},
+            (torch.from_numpy(rows),)).numpy()
+    err_first, err_all, anomalies = _check_serve_payloads(
+        payloads, want, rows, threshold, "store_path")
+    b.close()
+    b = Broker(store_dir=d)
+    if [m.value.decode() for m in b.fetch("model-predictions", 0, 0,
+                                          10 ** 6)] != payloads:
+        raise AssertionError("store_path: model-predictions read back "
+                             "after a remount differ")
+    return {"broker": b, "trainer": trainer, "hist": hist, "batches": bs,
+            "max_abs_err": err,
+            "info": {"batch_seconds": batch_s, "fit_seconds": fit_s,
+                     "loss_first": hist["loss"][0],
+                     "loss_last": hist["loss"][-1], "fit_max_abs_err": err,
+                     "fit_final_params_drift": drift,
+                     "in_memory_fit_bit_equal": True, "threshold": threshold,
+                     "rows_scored": n, "score_seconds": score_s,
+                     "score_rows_per_s": n / score_s,
+                     "payload_max_err_first_100": err_first,
+                     "payload_max_err_all": err_all, "anomalies": anomalies,
+                     "payloads_equal_after_remount": True}}
+
+
+def _store_backfill(b, root: str, crash: dict, counts: dict) -> dict:
+    """(d) ContinuousTrainer(backfill_since_ms=tick 5's ms) on the
+    remounted broker: each partition starts at offset_for_timestamp and
+    at the linear scan's first record; each round one B1 launch."""
+    since = crash["backfill_since_ms"]
+    ct = ContinuousTrainer(b, STORE_TOPIC,
+                           ArtifactStore(os.path.join(root, "art")),
+                           group="store-backfill", backfill_since_ms=since)
+    starts = {p: off for _t, p, off in ct.consumer.positions()}
+    for p in range(STORE_PARTS):
+        oft = b.offset_for_timestamp(STORE_TOPIC, p, since)
+        if not starts[p] == oft == crash["first_at_backfill"][p] > 0:
+            raise AssertionError(f"store_path: partition {p} backfills "
+                                 f"from {starts[p]}, offset_for_timestamp "
+                                 f"{oft}, the scan "
+                                 f"{crash['first_at_backfill'][p]}")
+    seconds = []
+    for r in range(STORE_BACKFILL_ROUNDS):
+        launches = fused_train.fused_fit.launches
+        t0 = time.perf_counter()
+        if not ct.train_round():
+            raise AssertionError(f"store_path: backfill round {r} empty")
+        seconds.append(time.perf_counter() - t0)
+        n = fused_train.fused_fit.launches - launches
+        if n != 1:
+            raise AssertionError(f"store_path: backfill round {r} launched "
+                                 f"B1 {n}x")
+    counts["backfill"] = STORE_BACKFILL_ROUNDS
+    return {"since_ms": since, "starts": [starts[p]
+                                          for p in range(STORE_PARTS)],
+            "rounds": STORE_BACKFILL_ROUNDS, "round_seconds": seconds,
+            "records_trained": ct.records_trained}
+
+
+def _store_compaction(root: str) -> dict:
+    """(e) The window again on a cleanup_policy="compact" topic: 100,000
+    car keys × 10 updates on 1 MiB segments, then a tombstone for one car
+    in 1,000; every partition rolled, one forced pass; exactly the newest
+    record per key survives at its original offset (a dict reference),
+    the tombstones inside the grace window among them."""
+    d = os.path.join(root, "compact")
+    b = Broker(store_dir=d, store_policy=StorePolicy(
+        segment_bytes=STORE_COMPACT_SEGMENT))
+    topic = "CAR_STATE"
+    b.create_topic(topic, partitions=STORE_PARTS, cleanup_policy="compact")
+    newest, counters = {}, [0] * STORE_PARTS
+    append_s = 0.0
+
+    def publish(entries):
+        nonlocal append_s
+        for k, v, ts in entries:
+            p = zlib.crc32(k) % STORE_PARTS
+            newest[k] = (counters[p], v, ts)
+            counters[p] += 1
+        t0 = time.perf_counter()
+        b.produce_many(topic, entries)
+        append_s += time.perf_counter() - t0
+
+    tick = None
+    for tick in _store_ticks(STORE_TICKS):
+        publish(tick)
+    dead = [(k, None, tick[0][2] + 1) for k, _v, _t
+            in tick[::STORE_TOMBSTONE_EVERY]]
+    publish(dead)
+    logs = [b.store.log_for(topic, p) for p in range(STORE_PARTS)]
+    for log in logs:
+        log.roll()
+    before = sum(log.total_bytes() for log in logs)
+    segments = sum(len(log._segments) for log in logs)
+    t0 = time.perf_counter()
+    stats = b.run_compaction(force=True)
+    compact_s = time.perf_counter() - t0
+    after = sum(log.total_bytes() for log in logs)
+    got = {}
+    for log in logs:
+        for s in log._segments:
+            for _p, _e, off, key, value, ts, _h in \
+                    store_segment.iter_frames(s.path, 0):
+                if key in got:
+                    raise AssertionError(f"store_path: key {key!r} "
+                                         f"survived compaction twice")
+                got[key] = (off, value, ts)
+    if got != newest:
+        raise AssertionError(f"store_path: compaction left {len(got)} keys, "
+                             f"not the {len(newest)} newest records")
+    tombstones = sum(1 for _o, v, _t in got.values() if v is None)
+    if tombstones != len(dead):
+        raise AssertionError(f"store_path: {tombstones} tombstones kept of "
+                             f"{len(dead)}")
+    reclaimed = sum(s.bytes_reclaimed for s in stats.values())
+    if reclaimed != before - after:
+        raise AssertionError(f"store_path: reclaimed {reclaimed} of "
+                             f"{before - after} bytes")
+    b.close()
+    shutil.rmtree(d, ignore_errors=True)
+    records = STORE_CARS * STORE_TICKS + len(dead)
+    return {"records": records, "keys": len(newest), "tombstones": len(dead),
+            "append_s": append_s, "append_records_per_s": records / append_s,
+            "segments": segments, "bytes_before": before,
+            "bytes_after": after, "bytes_reclaimed": reclaimed,
+            "records_removed": sum(s.records_removed
+                                   for s in stats.values()),
+            "pass_seconds": compact_s,
+            "pass_records_per_s": records / compact_s,
+            "pass_mb_per_s": before / compact_s / 1e6}
+
+
+def _store_tier(b, d: str, root: str, fit, counts: dict) -> dict:
+    """(f) D remounted with a remote tier whose hot budget is one segment:
+    one tiering pass uploads every sealed segment and evicts the head, so
+    the fit's batches come through the remote tier; they equal (c)'s
+    exactly and one B1 launch gives (c)'s fit bit for bit."""
+    b.close()
+    seg_bytes = StorePolicy().segment_bytes
+    bucket = os.path.join(root, "bucket")
+    tb = Broker(store_dir=d, tier=TierPolicy(uri=bucket,
+                                             local_hot_bytes=seg_bytes))
+    try:
+        t0 = time.perf_counter()
+        stats = tb.run_tiering()
+        tier_s = time.perf_counter() - t0
+        logs = [tb.store.log_for(STORE_TOPIC, p) for p in range(STORE_PARTS)]
+        if not all(log.local_base_offset > 0 and log.base_offset == 0
+                   for log in logs):
+            raise AssertionError("store_path: the hot tier still holds the "
+                                 "head, or the log lost it")
+        uploaded = sum(s["bytes"] for s in stats.values())
+        remote = obs_metrics.default_registry.counter(
+            "iotml_tier_remote_records_total")
+        r0 = remote.value()
+        t0 = time.perf_counter()
+        tbs = _store_batches(tb, "store-fit")
+        first_read_s = time.perf_counter() - t0
+        _same_batches(tbs, fit["batches"], "the tiered log")
+        trainer, _b, hist, fit_s = _one_fit(tbs, "tiered", counts)
+        _same_fit((trainer, hist), (fit["trainer"], fit["hist"]),
+                  "the tiered log")
+        # a warm read of partition 0's remote range: the cached segment
+        t0 = time.perf_counter()
+        warm = tb.fetch(STORE_TOPIC, 0, 0, logs[0].local_base_offset)
+        warm_s = time.perf_counter() - t0
+        if len(warm) != logs[0].local_base_offset:
+            raise AssertionError("store_path: the remote range is short")
+        return {"tiering_pass_s": tier_s,
+                "segments_uploaded": sum(s["uploaded"]
+                                         for s in stats.values()),
+                "upload_bytes": uploaded,
+                "upload_mb_per_s": uploaded / tier_s / 1e6,
+                "evicted_bytes": sum(s["evicted"] for s in stats.values()),
+                "local_base_offsets": [log.local_base_offset
+                                       for log in logs],
+                "first_read_s": first_read_s,
+                "remote_records_first_read": remote.value() - r0,
+                "warm_remote_read_records": len(warm),
+                "warm_remote_read_records_per_s": len(warm) / warm_s,
+                "fit_seconds": fit_s, "fit_bit_equal_recovered": True}
+    finally:
+        tb.close()
+
+
+def _store_platform(root: str, counts: dict) -> dict:
+    """(g) Platform(store_dir=D2) on the card: one tick of
+    STORE_PLATFORM_CARS cars over MQTT (64 connections, one publish_many
+    each) into the bridge and KSQL, stopped; a second Platform on D2
+    re-serves SENSOR_DATA_S_AVRO whole and B1 fits on it."""
+    d = os.path.join(root, "platform")
+    scenario = FleetScenario(num_cars=STORE_PLATFORM_CARS, failure_rate=0.01)
+    gen = FleetGenerator(scenario)
+    cols = gen.step_columns()
+    tick = [(scenario.car_id(i), _bridge_key(scenario, i).decode(),
+             json.dumps(gen.row_record(cols, i, KSQL_CAR_SCHEMA)).encode())
+            for i in range(STORE_PLATFORM_CARS)]
+    plat = Platform(store_dir=d)
+    plat.ksql.pump_interval_s = 3600.0  # pump_now alone drives the pump
+    plat.start()
+    try:
+        front = _mqtt_publish_tick(plat.mqtt.port, tick, plat.mqtt,
+                                   plat.bridge.forwarded, batched=True)
+        while plat.pump():
+            pass
+        avro = plat.broker.topic("SENSOR_DATA_S_AVRO").partitions
+        before = [[(m.offset, m.key, m.value, m.timestamp_ms) for m in
+                   plat.broker.fetch("SENSOR_DATA_S_AVRO", p, 0, 10 ** 7)]
+                  for p in range(avro)]
+    finally:
+        plat.stop()
+    if sum(map(len, before)) != STORE_PLATFORM_CARS:
+        raise AssertionError(f"store_path: the platform's KSQL leg holds "
+                             f"{sum(map(len, before))} records")
+    t0 = time.perf_counter()
+    plat = Platform(store_dir=d).start()
+    restart_s = time.perf_counter() - t0
+    try:
+        again = [[(m.offset, m.key, m.value, m.timestamp_ms) for m in
+                  plat.broker.fetch("SENSOR_DATA_S_AVRO", p, 0, 10 ** 7)]
+                 for p in range(avro)]
+        if again != before:
+            raise AssertionError("store_path: the restarted platform does "
+                                 "not re-serve SENSOR_DATA_S_AVRO")
+        bs = _store_batches(plat.broker, "store-platform",
+                            "SENSOR_DATA_S_AVRO")
+        _t, _b, hist, fit_s = _one_fit(bs, "platform", counts)
+        if not np.isfinite(hist["loss"]).all():
+            raise AssertionError("store_path: the platform's fit diverged")
+    finally:
+        plat.stop()
+    return {"cars": STORE_PLATFORM_CARS, "publish": front,
+            "avro_partitions": avro, "restart_s": restart_s,
+            "fit_seconds": fit_s, "loss_first": hist["loss"][0],
+            "loss_last": hist["loss"][-1]}
+
+
+def phase_store_path(card: str) -> dict:
+    """The durable commit log under the main path: (a) append, (b) crash
+    and recovery, (c) B1 and the scorer from the recovered log, (d)
+    backfill, (e) compaction, (f) the tiered log, (g) the durable
+    platform."""
+    reset_launches()
+    reset_fit_launches()
+    root = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    counts: dict = {}
+    b = None
+    try:
+        append = _store_append(root)
+        d = append.pop("dir")
+        crash = _store_crash(d)
+        b = crash.pop("broker")
+        fit = _store_fit_and_score(b, d, counts)
+        b = fit.pop("broker")
+        backfill = _store_backfill(b, root, crash, counts)
+        compaction = _store_compaction(root)
+        tier = _store_tier(b, d, root, fit, counts)
+        b = None
+        platform = _store_platform(root, counts)
+    finally:
+        if b is not None:
+            b.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if launches != sum(counts.values()) or by_design["rows"] != launches:
+        raise AssertionError(f"store_path launched B1 {launches}x "
+                             f"({by_design}), sub-phases say {counts}")
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"store_path launched {attention}")
+    crash.pop("first_at_backfill")
+    emit({"phase": "store_path", "card": card, "cars": STORE_CARS,
+          "ticks": STORE_TICKS, "partitions": STORE_PARTS,
+          "retention_ms": STORE_RETENTION_MS, "append": append,
+          "crash": crash, **fit["info"], "backfill": backfill,
+          "compaction": compaction, "tier": tier, "platform": platform,
+          "kernel_launches": launches, "kernel_launches_by_design": by_design,
+          "kernel_launches_by_subphase": counts})
+    return {"launches": launches, "launches_by_design": by_design,
+            "by_subphase": counts, "max_abs_err": fit["max_abs_err"]}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -5054,8 +5864,14 @@ def backward_entry(name, replaces, kind, entry, paths, errs,
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--store-fit-orders", type=int, metavar="N")
+    args = ap.parse_args()
     dev = phase_device()
     card = dev["nvidia_smi"]
+    if args.store_fit_orders:
+        store_fit_orders(card, args.store_fit_orders)
+        return 0
     phase_build()
     err = phase_kernel()
     main_info = phase_main_path(card)
@@ -5073,6 +5889,7 @@ def main() -> int:
         obs_info = phase_obs_path(card, root)
         ksql_info = phase_ksql_path(card)
         demo_info = phase_demo_path(card)
+        store_info = phase_store_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
@@ -5108,7 +5925,7 @@ def main() -> int:
         + live_info["launches"] + lc_info["launches"]
         + online_info["launches"] + obs_info["launches"]
         + ksql_info["launches"] + demo_info["launches"]
-        + cc_info["launches"]
+        + store_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -5122,6 +5939,7 @@ def main() -> int:
                              "obs_path": obs_info["launches"],
                              "ksql_path": ksql_info["launches"],
                              "demo_path": demo_info["launches"],
+                             "store_path": store_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -5136,12 +5954,15 @@ def main() -> int:
             + obs_info["launches_by_design"][d]
             + ksql_info["launches_by_design"][d]
             + demo_info["launches_by_design"][d]
+            + store_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values(),
                            cc_info["max_abs_err"], ksql_info["max_abs_err"],
-                           demo_info["max_abs_err"]),
+                           demo_info["max_abs_err"],
+                           store_info["max_abs_err"]),
+        "store_path_launches_by_subphase": store_info["by_subphase"],
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],

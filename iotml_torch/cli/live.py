@@ -39,7 +39,8 @@ Differences from the JAX package's CLI:
   ``--prefetch-depth`` (A10: only the mesh paths build a
   ``data.prefetch.DevicePrefetcher``, in the JAX package too),
   ``--decode-ring-buffers`` and ``--raw-batch-bytes`` (A3, item 13),
-  ``--raw-produce`` and ``--produce-batch-bytes`` (A13).
+  ``--raw-produce`` and ``--produce-batch-bytes`` (A3, item 13 with A13's
+  raw wire extensions: the clients' RAW_PRODUCE requests).
 - There is no fallback to the pure-Python client: a native client that
   cannot connect raises (``ConnectionError``, an ``OSError``).
 - The stdin watcher is a plain daemon thread, ``iotml-stdin-watch`` (the
@@ -54,13 +55,14 @@ import sys
 import threading
 import time
 
+from ..data.pipeline import RAW_WIRE_ITEM
 from ..utils.device import DeviceLike, resolve_device
 
 #: unported flags → the ROADMAP item that ports them
 UNPORTED = {"mesh_data": "A10", "device_normalize": "A10",
             "prefetch_depth": "A10", "decode_ring_buffers": "A3, item 13",
-            "raw_batch_bytes": "A3, item 13", "raw_produce": "A13",
-            "produce_batch_bytes": "A13"}
+            "raw_batch_bytes": "A3, item 13", "raw_produce": RAW_WIRE_ITEM,
+            "produce_batch_bytes": RAW_WIRE_ITEM}
 
 
 def _stopper(max_seconds: float):
@@ -149,9 +151,9 @@ def _parser() -> argparse.ArgumentParser:
                        help="not ported (A3, item 13)")
         p.add_argument("--raw-produce", default=None,
                        choices=("auto", "on", "off"),
-                       help="not ported (A13)")
+                       help="not ported (A3, item 13)")
         p.add_argument("--produce-batch-bytes", type=int, default=None,
-                       help="not ported (A13)")
+                       help="not ported (A3, item 13)")
         p.add_argument("--metrics-port", type=int, default=0,
                        help="serve /metrics + /healthz on this port "
                             "(0 = off)")

@@ -24,6 +24,10 @@ brings up and prints endpoints for
   - a Prometheus /metrics + /healthz exporter
   - with `--registry DIR`, a versioned model registry and a watcher on
     its serving channel
+  - with `--durable` / `--store-dir DIR`, the broker on a durable
+    segmented log (`store`): crash recovery, persisted consumer offsets,
+    disk retention, a background compactor; with `--tier-uri URI` also
+    a remote tier (a directory or `gs://…`) and its background uploader
 
 With `--fleet N`, N simulated cars publish continuously over real MQTT.
 Ctrl-C stops everything.  This is also importable:
@@ -31,40 +35,45 @@ Ctrl-C stops everything.  This is also importable:
 caller passes another; no card and no device given raises) and hand it
 to what a caller attaches to the platform (``Platform.device``).
 
+The store directory comes from `--store-dir`, else the config's
+`store.dir` (`IOTML_STORE_DIR`), else with `--durable` `iotml-store` in
+the temporary directory; the fsync, segment and retention policy ride the
+`store.*` section, the tier's budget and cadence the `tier.*` section, as
+in the JAX package; `--tier-uri` without durable mode is a usage error.
+
 Left out, each raising NotImplementedError naming its ROADMAP item when
 given (as a constructor argument or a flag): Kafka Connect and the
 car-health twin (`connect_port`, `--connect-port`: A16), the control
-center (`cc_port`, `--cc-port`: A13), the durable and tiered store
-(`store_dir`, `store_policy`, `tier`, `--durable`, `--store-dir`,
-`--tier-uri`: A13), the supervisor (`supervised()`, `--supervise`: A14),
-and the pipeline knobs (`--prefetch-depth`: A10; `--decode-ring-buffers`,
-`--raw-batch-bytes`: A3, item 13; `--raw-produce`,
-`--produce-batch-bytes`: A13).  ``pump()`` drives the KSQL server alone
-until A16 brings Connect.
+center (`cc_port`, `--cc-port`: A13), the supervisor (`supervised()`,
+`--supervise`: A14), and the pipeline knobs (`--prefetch-depth`: A10;
+`--decode-ring-buffers`, `--raw-batch-bytes`: A3, item 13;
+`--raw-produce`, `--produce-batch-bytes`: A3, item 13 with A13's raw wire
+extensions).  ``pump()`` drives the KSQL server alone until A16 brings
+Connect.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import threading
 import time
 from typing import Optional
 
+from ..data.pipeline import RAW_WIRE_ITEM
 from ..utils.device import DeviceLike, resolve_device
 
 #: left-out constructor arguments → the ROADMAP item that ports them
 UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)",
-                 "cc_port": "A13 (the control center)",
-                 "store_dir": "A13 (the durable store)",
-                 "store_policy": "A13 (the durable store)",
-                 "tier": "A13 (tiered storage)"}
+                 "cc_port": "A13 (the control center)"}
 #: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
 UNPORTED_FLAGS = {"connect_port": "A16", "cc_port": "A13",
-                  "durable": "A13", "store_dir": "A13", "tier_uri": "A13",
                   "supervise": "A14", "prefetch_depth": "A10",
                   "decode_ring_buffers": "A3, item 13",
-                  "raw_batch_bytes": "A3, item 13", "raw_produce": "A13",
-                  "produce_batch_bytes": "A13"}
+                  "raw_batch_bytes": "A3, item 13",
+                  "raw_produce": RAW_WIRE_ITEM,
+                  "produce_batch_bytes": RAW_WIRE_ITEM}
 
 
 class Platform:
@@ -83,9 +92,7 @@ class Platform:
                  registry_dir: Optional[str] = None,
                  registry_watch_poll_s: float = 0.25,
                  device: DeviceLike = None):
-        given = {"connect_port": connect_port, "cc_port": cc_port,
-                 "store_dir": store_dir, "store_policy": store_policy,
-                 "tier": tier}
+        given = {"connect_port": connect_port, "cc_port": cc_port}
         for name, item in UNPORTED_ARGS.items():
             if given[name] is not None:
                 raise NotImplementedError(
@@ -104,11 +111,32 @@ class Platform:
         from ..streamproc import KsqlServer, SqlEngine
         from ..streamproc.sql import install_reference_pipeline
 
-        self.broker = Broker()
+        # durable mode (store): every partition a crash-recoverable
+        # segmented log, consumer offsets persisted, and a restarted
+        # platform re-serves everything it acked
+        self.store_dir = store_dir
+        self.broker = Broker(store_dir=store_dir, store_policy=store_policy,
+                             tier=tier)
+        # a durable broker gets the background dirty-ratio compactor (a
+        # no-op cadence without compact topics), a tiered one the
+        # uploader; built here, started in start() like every other
+        # component thread
+        self.compactor = None
+        self.uploader = None
+        if self.broker.store is not None:
+            from ..store import StoreCompactor, TierUploader
+
+            self.compactor = StoreCompactor(
+                self.broker,
+                interval_s=self.broker.store.policy.compact_interval_s)
+            if tier:
+                self.uploader = TierUploader(self.broker,
+                                             interval_s=tier.interval_s)
         # the reference's two topics, its partition count.  retention
-        # bounds the in-memory log for long-running platforms (the
-        # reference sets retention.ms=100000 — aggressive 100s retention,
+        # bounds the log for long-running platforms (the reference sets
+        # retention.ms=100000 — aggressive 100s retention,
         # 01_installConfluentPlatform.sh:180-183); None keeps everything
+        # in memory and inherits the store.* default when durable
         self.broker.create_topic("sensor-data", partitions=partitions,
                                  retention_messages=retention_messages)
         self.broker.create_topic("model-predictions", partitions=partitions,
@@ -181,13 +209,19 @@ class Platform:
         self.mqtt.start()
         if self.registry_watcher is not None:
             self.registry_watcher.start()
+        if self.compactor is not None:
+            self.compactor.start()
+        if self.uploader is not None:
+            self.uploader.start()
         if metrics_port is not None:
             self.metrics_server = self._obs.start_http_server(metrics_port)
         self.started = True
         return self
 
     def endpoints(self) -> dict:
-        out = {}
+        out = {} if self.store_dir is None else {"store": self.store_dir}
+        if self.uploader is not None:
+            out["tier"] = self.broker.store.tier.uri
         if self.registry_dir:
             out["registry"] = self.registry_dir
         out.update({
@@ -281,6 +315,11 @@ class Platform:
             self.metrics_server.shutdown()
             self.metrics_server.server_close()
             self.metrics_server = None
+        if self.uploader is not None:
+            self.uploader.stop()
+        if self.compactor is not None:
+            self.compactor.stop()
+        self.broker.close()  # durable: fsync + release fds (no-op else)
         self.started = False
 
 
@@ -309,10 +348,23 @@ def main(argv=None, device: DeviceLike = None) -> int:
                     help="keep at most N messages per partition "
                          "(0 = unbounded; the reference retains ~100s). "
                          "Validated by the broker (negative rejected).")
-    ap.add_argument("--durable", action="store_const", const=True,
-                    default=None, help="not ported (A13)")
-    ap.add_argument("--store-dir", default=None, help="not ported (A13)")
-    ap.add_argument("--tier-uri", default=None, help="not ported (A13)")
+    ap.add_argument("--durable", action="store_true",
+                    help="mount the broker on a durable segmented log "
+                         "(store): crash recovery, persisted consumer "
+                         "offsets, disk retention.  Dir from --store-dir "
+                         "/ IOTML_STORE_DIR / iotml-store in the "
+                         "temporary directory; fsync & retention knobs "
+                         "ride the store.* config section.")
+    ap.add_argument("--store-dir", default=None, metavar="DIR",
+                    help="store directory for --durable (also enables "
+                         "durable mode when given)")
+    ap.add_argument("--tier-uri", default=None, metavar="URI",
+                    help="object-store URI (gs://... or a local path) for "
+                         "tiered storage: sealed segments upload to the "
+                         "remote tier and the local dir becomes a hot "
+                         "cache.  Requires durable mode.  Also via "
+                         "IOTML_TIER_URI; budget/lag knobs ride the "
+                         "tier.* config section.")
     ap.add_argument("--registry", default=None, metavar="DIR",
                     help="mount a versioned model registry (mlops): "
                          "torn publishes swept at boot, the serving "
@@ -333,9 +385,10 @@ def main(argv=None, device: DeviceLike = None) -> int:
     ap.add_argument("--raw-batch-bytes", type=int, default=None,
                     help="not ported (A3, item 13)")
     ap.add_argument("--raw-produce", default=None,
-                    choices=("auto", "on", "off"), help="not ported (A13)")
+                    choices=("auto", "on", "off"),
+                    help="not ported (A3, item 13)")
     ap.add_argument("--produce-batch-bytes", type=int, default=None,
-                    help="not ported (A13)")
+                    help="not ported (A3, item 13)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     for name, item in UNPORTED_FLAGS.items():
@@ -345,15 +398,37 @@ def main(argv=None, device: DeviceLike = None) -> int:
                 f"{flag} is not ported yet (ROADMAP {item})")
 
     from ..config import load_config
+    from ..store import StorePolicy, TierPolicy
 
     cfg, _ = load_config([])
     sasl = tuple(args.sasl.split(":", 1)) if args.sasl else None
+    # the store.* section (file < IOTML_STORE_* env) supplies the durable
+    # dir and its policy; the flags win
+    store_dir = args.store_dir or (
+        (cfg.store.dir or os.path.join(tempfile.gettempdir(), "iotml-store"))
+        if args.durable else (cfg.store.dir or None))
+    tier = None
+    if store_dir:
+        tier = TierPolicy.from_config(cfg.tier)
+        if args.tier_uri:
+            tier.uri = args.tier_uri
+        if not tier:
+            tier = None
+    elif args.tier_uri:
+        ap.error("--tier-uri requires durable mode (--durable/--store-dir)")
     try:
         plat = Platform(sasl=sasl, host=args.host,
                         kafka_port=args.kafka_port,
                         mqtt_port=args.mqtt_port,
+                        # 0 (the default) = UNSET, so durable topics
+                        # inherit the store.* retention policy; negatives
+                        # still reach the broker's validation below
                         retention_messages=args.retention
                         if args.retention else None,
+                        store_dir=store_dir,
+                        store_policy=(StorePolicy.from_config(cfg.store)
+                                      if store_dir else None),
+                        tier=tier,
                         registry_port=args.registry_port,
                         ksql_port=args.ksql_port,
                         trusted_passthrough=args.trust_passthrough,

@@ -1,5 +1,5 @@
-"""Typed configuration (``iotml.config``'s resolver, cut to its ``broker``,
-``train``, ``serve``, ``mlops`` and ``online`` sections).
+"""Typed configuration (``iotml.config``'s resolver and its sections but
+``mesh`` and ``slo``).
 
 One dataclass tree with one resolution order:
 
@@ -11,8 +11,10 @@ Environment keys: ``IOTML_<SECTION>_<FIELD>`` (e.g. ``IOTML_TRAIN_EPOCHS``,
 Values are coerced to the field's type, so a typo'd value fails at load
 time.  An unknown section or field raises ValueError, as in the JAX
 package, and so does a key the JAX package parses and never reads
-(``UNREAD_KEYS``); a section the JAX package has and the port does not
-yet raises NotImplementedError naming the ROADMAP item, so a setting is
+(``UNREAD_KEYS``: the whole ``stream``, ``artifacts`` and ``scenario``
+sections among them, kept so ``Config()`` has the JAX package's
+sections); a section the JAX package has and the port does not yet
+raises NotImplementedError naming the ROADMAP item, so a setting is
 never dropped quietly.
 """
 
@@ -36,6 +38,17 @@ class BrokerConfig:
 
 
 @dataclasses.dataclass
+class StreamConfig:
+    """Topics and cursor: the reference CLI's positional arguments (never
+    read: see ``UNREAD_KEYS``)."""
+
+    topic: str = "SENSOR_DATA_S_AVRO"
+    result_topic: str = "model-predictions"
+    offset: int = 0
+    group: str = "cardata-autoencoder"
+
+
+@dataclasses.dataclass
 class TrainConfig:
     """The reference train job's knobs (cardata-v3.py:176-218)."""
 
@@ -55,6 +68,73 @@ class ServeConfig:
     poll_interval_s: float = 0.5
     checkpoint_every_batches: int = 50
     threshold: float = 0.0   # >0: append anomaly verdicts (notebook thr 5)
+
+
+@dataclasses.dataclass
+class ArtifactConfig:
+    """The artifact root and model file (never read: see
+    ``UNREAD_KEYS``)."""
+
+    root: str = "/tmp/iotml-artifacts"   # dir or gs:// bucket
+    model_file: str = "model1"
+
+
+@dataclasses.dataclass
+class ScenarioConfig:
+    """Fleet load generation, the XML scenario dialect typed (never read:
+    see ``UNREAD_KEYS``)."""
+
+    num_cars: int = 25
+    msgs_per_car: int = 40
+    interval_s: float = 5.0
+    ramp_up_s: float = 5.0
+    qos: int = 1
+    failure_rate: float = 0.01
+
+
+@dataclasses.dataclass
+class StoreConfig:
+    """Durable segmented-log storage (``store``).
+
+    ``dir`` empty (the default) keeps the broker in memory; set it
+    (``IOTML_STORE_DIR``), or pass ``--durable`` / ``--store-dir`` to the
+    platform CLI, to mount a crash-recoverable log per partition.
+    Retention here is the store-wide default; a topic's own retention
+    overrides it."""
+
+    dir: str = ""                    # empty = in-memory broker
+    fsync: str = "interval"          # never | interval | always
+    fsync_interval_s: float = 0.05
+    segment_bytes: int = 16 * 1024 * 1024
+    segment_age_s: float = 0.0       # 0 = roll by bytes only
+    retention_bytes: int = 0         # 0 = unbounded
+    retention_ms: int = 0            # 0 = unbounded (reference: 100000)
+    retention_messages: int = 0      # 0 = unbounded (segment-granular)
+    index_interval_bytes: int = 4096
+    # cleanup_policy="compact" topics: the background compactor's
+    # dirty-ratio trigger and the tombstone grace window (Kafka's
+    # min.cleanable.dirty.ratio / delete.retention.ms)
+    compact_min_dirty_ratio: float = 0.5
+    compact_grace_ms: int = 60_000
+    compact_interval_s: float = 5.0  # background compactor cadence
+
+
+@dataclasses.dataclass
+class TierConfig:
+    """Object-store tiered log storage (``store.tiered``).
+
+    ``uri`` empty (the default) keeps the durable log local; set it to a
+    directory or ``gs://bucket/prefix`` (``IOTML_TIER_URI``), or pass
+    ``--tier-uri`` to the platform CLI, and sealed segments offload to
+    the remote tier, reads falling through below the local base.  Only
+    meaningful with a durable store."""
+
+    uri: str = ""                 # empty = no remote tier
+    local_hot_bytes: int = 0      # hot-tier budget/partition; 0 = no evict
+    upload_lag_s: float = 0.0     # min sealed age before upload
+    remote_retention_ms: int = 0  # remote history age cap; 0 = forever
+    cache_segments: int = 4       # RemoteSegmentCache entries/partition
+    interval_s: float = 5.0       # background TierUploader cadence
 
 
 @dataclasses.dataclass
@@ -102,20 +182,38 @@ class OnlineConfig:
 @dataclasses.dataclass
 class Config:
     broker: BrokerConfig = dataclasses.field(default_factory=BrokerConfig)
+    stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    artifacts: ArtifactConfig = dataclasses.field(
+        default_factory=ArtifactConfig)
+    scenario: ScenarioConfig = dataclasses.field(
+        default_factory=ScenarioConfig)
+    store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
+    tier: TierConfig = dataclasses.field(default_factory=TierConfig)
     mlops: MlopsConfig = dataclasses.field(default_factory=MlopsConfig)
     online: OnlineConfig = dataclasses.field(default_factory=OnlineConfig)
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def dumps(self) -> str:
+        return json.dumps(self.as_dict(), indent=2, sort_keys=True)
 
 
 #: the JAX package's other sections, and the ROADMAP item that ports each
 UNPORTED_SECTIONS = {
     "mesh": "A10 (multi-GPU data parallel)",
-    "stream": "A6 (the CLIs)",
-    "artifacts": "A6 (the CLIs)", "scenario": "A6 (the CLIs)",
-    "store": "A13 (the rest of the tooling)",
-    "tier": "A13 (the rest of the tooling)",
     "slo": "A13 (the rest of the tooling)",
+}
+
+_UNREAD_SECTIONS = {
+    StreamConfig: ("stream", "the CLIs take their topics, offset and group "
+                             "as positional arguments"),
+    ArtifactConfig: ("artifacts", "the CLIs take the artifact root and "
+                                  "model file as positional arguments"),
+    ScenarioConfig: ("scenario", "the platform's --fleet/--rate flags and "
+                                 "devsim's scenario files size the fleet"),
 }
 
 #: keys the JAX package parses and never reads; the port refuses them, so
@@ -126,6 +224,9 @@ UNREAD_KEYS = {
                          "sets their partitions",
     "broker.retention_messages": "the CLIs create no topics: the broker's "
                                  "owner sets their retention",
+    **{f"{section}.{f.name}": why
+       for cls, (section, why) in _UNREAD_SECTIONS.items()
+       for f in dataclasses.fields(cls)},
 }
 
 #: IOTML_-prefixed process knobs of the JAX package that are not config

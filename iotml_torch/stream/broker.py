@@ -1,4 +1,4 @@
-"""In-process broker (``iotml.stream.broker``'s in-memory ``Broker``).
+"""In-process broker (``iotml.stream.broker``'s ``Broker``).
 
 The reference's data plane is a Confluent deployment (topics
 ``sensor-data`` / ``model-predictions``, reference
@@ -10,6 +10,22 @@ under one lock), so the port's train and score jobs run against it
 unchanged.  Keyed records go to ``crc32(key) % partitions``, unkeyed ones
 round-robin, as in the JAX package.
 
+Two partition backends behind one ``Broker``:
+
+- **in-memory** (default): a Python list per partition, dies with the
+  process;
+- **durable** (``store_dir=``): a ``store.SegmentedLog`` per partition
+  (a ``store.TieredLog`` with ``tier=``): CRC-framed segments on disk,
+  crash recovery at mount, retention by bytes, age and count, committed
+  consumer offsets persisted in a compacted offsets file, key-based
+  compaction of ``cleanup_policy="compact"`` topics (``run_compaction``)
+  and a remote tier (``run_tiering``).  The store directory is the JAX
+  package's format byte for byte.  ``produce_many`` frames each
+  partition's slice of a batch in one native call and appends it as it
+  is, with one fsync a partition under ``fsync=always`` before the call
+  returns (acked ⇒ durable); traced records (headers) and
+  ``IOTML_RAW_PRODUCE=off`` take the per-record encoder.
+
 One lock guards all mutation and ``fetch``; every append goes through
 ``produce_many``, which takes it once for a whole batch (the wire
 server's produce path and the ordered write-back).  Records carry
@@ -20,8 +36,10 @@ Topic ownership is ported: ``restrict_topic(prefix)`` makes every topic
 of that prefix writable only by a thread inside ``producer_grant(token)``
 (the KSQL engine's AVRO leg; other producers get
 ``TopicOwnershipError``, the wire server answers them Kafka's
-TOPIC_AUTHORIZATION_FAILED).  The durable segmented store, raw frame
-batches, compaction and tiering are not ported.
+TOPIC_AUTHORIZATION_FAILED).  The raw frame-batch legs (``fetch_raw``,
+``produce_raw``) and the replication hooks (``produce_at``,
+``align_base_offset``, ``reset_partition``, ``fetch_tail``) are not
+ported.
 """
 
 from __future__ import annotations
@@ -113,15 +131,24 @@ class Message(NamedTuple):
 
 @dataclasses.dataclass
 class TopicSpec:
-    """A topic's partition count and its retention bounds per partition:
-    messages, payload bytes (value + key), and age in ms behind the
-    newest record's timestamp (None or 0 = unbounded)."""
+    """A topic's partition count, its retention bounds per partition
+    (messages, payload bytes (value + key), age in ms behind the newest
+    record's timestamp) and its cleanup policy.
+
+    Retention None is UNSET: a durable broker's topic inherits the
+    store-wide ``store.*`` default, an in-memory one is unbounded.  0 is
+    EXPLICITLY unlimited (the wire maps Kafka's -1 here), the only way a
+    durable topic opts out of the store default.  ``cleanup_policy``
+    "compact" additionally reclaims records shadowed by a newer record
+    with the same key on a durable broker (``run_compaction``); the
+    in-memory backend keeps it as metadata only."""
 
     name: str
     partitions: int = 1
     retention_messages: Optional[int] = None
     retention_bytes: Optional[int] = None
     retention_ms: Optional[int] = None
+    cleanup_policy: str = "delete"
 
 
 def _size(key, value) -> int:
@@ -139,15 +166,24 @@ class _Partition:
         self.bytes = 0  # payload bytes retained (retention_bytes)
         self.max_ts = 0  # newest record ts seen (retention_ms anchor)
 
-    def append(self, key, value, ts, headers=None) -> int:
+    def append(self, key, value, ts, headers=None, sync: bool = True) -> int:
         self.log.append((key, value, ts, headers))
         self.bytes += _size(key, value)
         if ts > self.max_ts:
             self.max_ts = ts
         return self.base_offset + len(self.log) - 1
 
+    def sync_batch(self) -> None:
+        pass  # durability is the durable backend's concern
+
+    def note_replay(self, n: int) -> None:
+        pass  # iotml_store_* metrics are the durable backend's alone
+
     def end(self) -> int:
         return self.base_offset + len(self.log)
+
+    def base(self) -> int:
+        return self.base_offset
 
     def offset_for_timestamp(self, ts_ms: int) -> int:
         for i, (_k, _v, ts, _h) in enumerate(self.log):
@@ -192,17 +228,108 @@ class _Partition:
                 self.drop_head(drop)
 
 
-class Broker:
-    """Partitioned in-memory commit log with Kafka-shaped semantics."""
+class _DurablePartition:
+    """Durable partition: a ``store.SegmentedLog`` behind the same
+    touch-points as ``_Partition``.  All three retention knobs map to
+    whole-segment deletes (Kafka's own granularity): count, byte and time
+    caps may over-retain up to one segment, never under-retain."""
 
-    def __init__(self):
+    __slots__ = ("slog",)
+
+    def __init__(self, slog):
+        self.slog = slog
+
+    def append(self, key, value, ts, headers=None, sync: bool = True) -> int:
+        return self.slog.append(key, value, ts, headers, sync=sync)
+
+    def append_raw(self, blob, count, first, last, max_ts,
+                   sync: bool = True) -> int:
+        """Append a framed batch as it is: the batch's bytes become the
+        log's bytes, no re-serialisation."""
+        return self.slog.append_raw(blob, count, first, last, max_ts,
+                                    sync=sync)
+
+    def sync_batch(self) -> None:
+        self.slog.sync_batch()
+
+    def note_replay(self, n: int) -> None:
+        from ..store.log import store_replay_records
+
+        store_replay_records.inc(n)
+
+    def end(self) -> int:
+        return self.slog.end_offset
+
+    def base(self) -> int:
+        return self.slog.base_offset
+
+    def read(self, offset: int, max_messages: int) -> List[tuple]:
+        return self.slog.read_from(offset, max_messages)
+
+    def enforce_retention(self, spec: TopicSpec) -> None:
+        pol = self.slog.policy
+        # the topic's bounds override the store-wide defaults when set
+        prev = (pol.retention_bytes, pol.retention_ms,
+                pol.retention_messages)
+        if spec.retention_bytes is not None:
+            pol.retention_bytes = spec.retention_bytes
+        if spec.retention_ms is not None:
+            pol.retention_ms = spec.retention_ms
+        if spec.retention_messages is not None:
+            pol.retention_messages = spec.retention_messages
+        try:
+            self.slog.enforce_retention()
+        finally:
+            (pol.retention_bytes, pol.retention_ms,
+             pol.retention_messages) = prev
+
+    def offset_for_timestamp(self, ts_ms: int) -> int:
+        return self.slog.offset_for_timestamp(ts_ms)
+
+
+class Broker:
+    """Partitioned commit log with Kafka-shaped semantics.
+
+    ``Broker()`` is the in-memory emulator.  ``Broker(store_dir=...)``
+    mounts (and crash-recovers) a durable segmented log per partition:
+    topics from the manifest are re-created before serving, committed
+    consumer offsets load from the compacted offsets file, and every
+    later commit is persisted through it.  ``store_policy`` (a
+    ``store.StorePolicy``) sets fsync, segment and retention defaults;
+    ``tier`` (a ``store.TierPolicy`` with a uri) mounts every partition
+    as a tiered log over that remote tier."""
+
+    def __init__(self, store_dir: Optional[str] = None, store_policy=None,
+                 tier=None):
         self._lock = threading.Lock()
+        # serialize whole compaction and tiering passes (a background
+        # thread vs a forced pass); the data lock covers only the swaps
+        self._compact_pass_lock = threading.Lock()
+        self._tier_pass_lock = threading.Lock()
         self._topics: Dict[str, TopicSpec] = {}
-        self._parts: Dict[str, List[_Partition]] = {}
+        self._parts: Dict[str, List] = {}
         # (group, topic, partition) → next offset
         self._group_offsets: Dict[tuple, int] = {}
         self._rr: Dict[str, int] = {}  # round-robin cursor per topic
         self._owned: Dict[str, object] = {}  # topic prefix → owner token
+        self.store = None
+        if store_dir:
+            from ..store import StoreMount
+
+            self.store = StoreMount(store_dir, policy=store_policy,
+                                    tier=tier)
+            for doc in self.store.topics():
+                self.create_topic(
+                    doc["name"], partitions=doc["partitions"],
+                    retention_messages=doc.get("retention_messages"),
+                    retention_bytes=doc.get("retention_bytes"),
+                    retention_ms=doc.get("retention_ms"),
+                    cleanup_policy=doc.get("cleanup_policy", "delete"))
+            self._group_offsets.update(self.store.offsets.table())
+
+    @property
+    def durable(self) -> bool:
+        return self.store is not None
 
     # --------------------------------------------------------- ownership
     def restrict_topic(self, prefix: str,
@@ -243,12 +370,20 @@ class Broker:
                     f"(Broker.producer_grant)")
 
     # ------------------------------------------------------------- topics
+    def _make_partition(self, topic: str, partition: int):
+        if self.store is not None:
+            return _DurablePartition(self.store.log_for(topic, partition))
+        return _Partition()
+
     def create_topic(self, name: str, partitions: int = 1,
                      retention_messages: Optional[int] = None,
                      retention_bytes: Optional[int] = None,
-                     retention_ms: Optional[int] = None) -> TopicSpec:
+                     retention_ms: Optional[int] = None,
+                     cleanup_policy: str = "delete") -> TopicSpec:
         """Create a topic (idempotent: an existing topic is returned as
-        it is).  A negative retention bound raises ValueError."""
+        it is).  A negative retention bound, or a cleanup policy other
+        than "delete" or "compact", raises ValueError.  0 is kept apart
+        from None (see ``TopicSpec``)."""
         for what, bound in (("retention_messages", retention_messages),
                             ("retention_bytes", retention_bytes),
                             ("retention_ms", retention_ms)):
@@ -257,13 +392,25 @@ class Broker:
                 # while producers believe writes succeed
                 raise ValueError(f"{what} must be >= 0 or None, got "
                                  f"{bound}")
+        if cleanup_policy not in ("delete", "compact"):
+            # compaction composes with retention when both are set, so
+            # "compact,delete" would be no new semantics
+            raise ValueError(f"cleanup_policy must be 'delete' or "
+                             f"'compact', got {cleanup_policy!r}")
         with self._lock:
             if name in self._topics:
                 return self._topics[name]
             spec = TopicSpec(name, partitions, retention_messages,
-                             retention_bytes, retention_ms)
+                             retention_bytes, retention_ms, cleanup_policy)
             self._topics[name] = spec
-            self._parts[name] = [_Partition() for _ in range(partitions)]
+            if self.store is not None:
+                self.store.register_topic(
+                    name, partitions, retention_messages=retention_messages,
+                    retention_bytes=retention_bytes,
+                    retention_ms=retention_ms,
+                    cleanup_policy=cleanup_policy)
+            self._parts[name] = [self._make_partition(name, p)
+                                 for p in range(partitions)]
             self._rr[name] = 0
             return spec
 
@@ -301,27 +448,74 @@ class Broker:
         unkeyed ones round-robin; retention is enforced once per touched
         partition, which trims to what a trim after every record leaves.
         The optional 4th element is the record's headers.  A topic
-        restricted to an owner needs its grant (TopicOwnershipError)."""
+        restricted to an owner needs its grant (TopicOwnershipError).
+
+        Durable: each partition's slice is framed in ONE native call
+        (``ops.framing.frame_entries``, byte-identical to the per-record
+        encoder) and appended as it is; entries with headers, or
+        ``IOTML_RAW_PRODUCE=off``, take the per-record encoder.  Either
+        way a touched partition is fsynced once (``fsync=always``)
+        before this returns, so everything acked is durable."""
         chaos.point("broker.produce")
         self._check_producer(topic)
         entries = list(entries)
         if topic not in self._topics:
             self.create_topic(topic)
         last_off = -1
+        fuse = self.store is not None and self._raw_produce_enabled()
         with self._lock:
             parts = self._parts[topic]
+            spec = self._topics[topic]
+            if fuse and entries and \
+                    not any(len(e) > 3 and e[3] for e in entries):
+                from ..ops.framing import frame_entries
+
+                by_part: Dict[int, list] = {}
+                last_p = partition
+                if partition is None:
+                    for entry in entries:
+                        p = self._partition_for(topic, entry[0])
+                        by_part.setdefault(p, []).append(entry)
+                        last_p = p
+                else:
+                    by_part[partition] = entries
+                ends: Dict[int, int] = {}
+                for p, ents in by_part.items():
+                    part = parts[p]
+                    base = part.end()
+                    blob = frame_entries(ents, base)
+                    part.append_raw(blob, len(ents), base,
+                                    base + len(ents) - 1,
+                                    max(e[2] for e in ents), sync=False)
+                    ends[p] = base + len(ents) - 1
+                    part.sync_batch()
+                    part.enforce_retention(spec)
+                # the offset the FINAL entry landed at, as below
+                return ends[last_p]
             touched = set()
             for entry in entries:
                 key, value, ts = entry[0], entry[1], entry[2]
                 p = self._partition_for(topic, key) if partition is None \
                     else partition
                 last_off = parts[p].append(
-                    key, value, ts, entry[3] if len(entry) > 3 else None)
+                    key, value, ts, entry[3] if len(entry) > 3 else None,
+                    sync=False)
                 touched.add(p)
             for p in touched:
-                # untouched partitions cannot have grown past their caps
-                parts[p].enforce_retention(self._topics[topic])
+                # one fsync a touched partition (fsync=always) before the
+                # ack; untouched partitions cannot have grown past their
+                # caps
+                parts[p].sync_batch()
+                parts[p].enforce_retention(spec)
         return last_off
+
+    @staticmethod
+    def _raw_produce_enabled() -> bool:
+        """IOTML_RAW_PRODUCE: on/auto fuse the durable framing, off takes
+        the per-record encoder (the debug escape hatch)."""
+        from ..data.pipeline import raw_produce_mode
+
+        return raw_produce_mode() != "off"
 
     def produce_batch(self, topic: str, values, key=None,
                       partition=None) -> int:
@@ -329,12 +523,65 @@ class Broker:
         return self.produce_many(topic, [(key, v, 0) for v in values],
                                  partition=partition)
 
+    # --------------------------------------------------------- compaction
+    def run_compaction(self, force: bool = False) -> Dict[tuple, object]:
+        """One compaction pass over every ``cleanup_policy="compact"``
+        topic partition (durable broker only: the in-memory backend has
+        nothing durable to reclaim).  Applies the dirty-ratio gate unless
+        ``force``; returns {(topic, partition): CompactionStats} of the
+        partitions it rewrote.  Whole passes serialize on their own lock;
+        the data lock is taken only around each segment swap, so produce
+        and fetch proceed through a pass."""
+        if self.store is None:
+            return {}
+        out: Dict[tuple, object] = {}
+        pol = self.store.policy
+        with self._compact_pass_lock:
+            with self._lock:
+                compacted = [(name, spec)
+                             for name, spec in self._topics.items()
+                             if spec.cleanup_policy == "compact"]
+            for name, spec in compacted:
+                for p in range(spec.partitions):
+                    slog = self._parts[name][p].slog
+                    if not force and slog.dirty_ratio() < \
+                            pol.compact_min_dirty_ratio:
+                        continue
+                    stats = slog.compact(grace_ms=pol.compact_grace_ms,
+                                         lock=self._lock)
+                    if stats.segments_rewritten:
+                        out[(name, p)] = stats
+        return out
+
+    def run_tiering(self) -> Dict[tuple, dict]:
+        """One tiering pass over every tiered partition (a durable broker
+        mounted with a tier): upload sealed segments to the remote tier,
+        evict the hot tier past its byte budget, enforce remote
+        retention, sweep unreferenced blobs.  Returns {(topic,
+        partition): stats} of the partitions that did anything.  Blob
+        I/O runs outside the data lock; whole passes serialize on their
+        own lock."""
+        if self.store is None:
+            return {}
+        out: Dict[tuple, dict] = {}
+        with self._tier_pass_lock:
+            with self._lock:
+                tiered = [(name, p, part.slog)
+                          for name, parts in self._parts.items()
+                          for p, part in enumerate(parts)
+                          if getattr(part.slog, "remote", None) is not None]
+            for name, p, slog in tiered:
+                stats = slog.tier_sync(lock=self._lock)
+                if any(stats.values()):
+                    out[(name, p)] = stats
+        return out
+
     # -------------------------------------------------------------- fetch
     def end_offset(self, topic: str, partition: int = 0) -> int:
         return self._parts[topic][partition].end()
 
     def begin_offset(self, topic: str, partition: int = 0) -> int:
-        return self._parts[topic][partition].base_offset
+        return self._parts[topic][partition].base()
 
     def offset_for_timestamp(self, topic: str, partition: int,
                              timestamp_ms: int) -> int:
@@ -352,25 +599,63 @@ class Broker:
         # park this fetcher, never every thread contending the broker
         part = self._parts[topic][partition]
         with self._lock:
-            if offset < part.base_offset:
+            base = part.base()
+            if offset < base:
+                raise OffsetOutOfRangeError(topic, partition, offset, base)
+            chunk = part.read(offset, max_messages) \
+                if isinstance(part, _Partition) else None
+        if chunk is None:
+            # durable: disk I/O OUTSIDE the lock (one cold read must not
+            # park every producer and fetcher).  The log reads a
+            # snapshot; the only race is retention passing ``offset``
+            # mid-read, signalled again here.
+            try:
+                chunk = part.read(offset, max_messages)
+            except LookupError:
                 raise OffsetOutOfRangeError(topic, partition, offset,
-                                            part.base_offset)
-            chunk = part.read(offset, max_messages)
+                                            part.base()) from None
         return [Message(topic, partition, off, value, key, ts, hdrs)
                 for off, key, value, ts, hdrs in chunk]
+
+    def read_since(self, topic: str, partition: int, timestamp_ms: int,
+                   max_messages: int = 1024) -> List[Message]:
+        """Replay from the first record at or after ``timestamp_ms``: how
+        ``ContinuousTrainer`` backfills history on a cold start."""
+        offset = self.offset_for_timestamp(topic, partition, timestamp_ms)
+        for _ in range(3):
+            try:
+                msgs = self.fetch(topic, partition, offset, max_messages)
+                break
+            except OffsetOutOfRangeError as e:
+                # raced a retention trim between the lookup and the read:
+                # skip ahead like every other fetch caller
+                offset = e.earliest
+        else:
+            msgs = []
+        if msgs:
+            # iotml_store_replay_records_total: the durable backend only
+            self._parts[topic][partition].note_replay(len(msgs))
+        return msgs
 
     # ------------------------------------------------- consumer-group API
     def commit(self, group: str, topic: str, partition: int,
                next_offset: int) -> None:
         with self._lock:
             self._group_offsets[(group, topic, partition)] = next_offset
+            if self.store is not None:
+                self.store.offsets.commit(group, topic, partition,
+                                          next_offset)
 
     def commit_many(self, group: str, topic: str, entries) -> None:
         """Commit [(partition, next_offset), ...] of one topic under one
-        lock acquisition (``StreamConsumer.commit``'s path)."""
+        lock acquisition (``StreamConsumer.commit``'s path) and, durable,
+        one offsets-file fsync."""
+        entries = list(entries)
         with self._lock:
             for p, off in entries:
                 self._group_offsets[(group, topic, p)] = off
+            if self.store is not None:
+                self.store.offsets.commit_many(group, topic, entries)
 
     def committed(self, group: str, topic: str,
                   partition: int) -> Optional[int]:
@@ -387,3 +672,19 @@ class Broker:
                 if off is not None:
                     out[(t, p)] = off
         return out
+
+    # ---------------------------------------------------------- lifecycle
+    def flush(self) -> None:
+        """Durable broker: fsync every partition log and the offsets file
+        (no-op in memory)."""
+        if self.store is not None:
+            with self._lock:
+                self.store.flush()
+
+    def close(self) -> None:
+        """Release the durable backend's files and its directory lock
+        (the clean restart path; crash recovery handles the unclean one).
+        No-op in memory."""
+        if self.store is not None:
+            with self._lock:
+                self.store.close()

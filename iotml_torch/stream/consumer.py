@@ -276,6 +276,18 @@ class StreamConsumer:
         for cur, off in zip(self._cursors, self._start):
             cur[2] = off
 
+    def seek_to_timestamp(self, timestamp_ms: int) -> None:
+        """Move every cursor to the first record at or after
+        ``timestamp_ms`` (the broker's timestamp index, ListOffsets by
+        timestamp on the wire): the replay entry for training backfill.
+        A broker without ``offset_for_timestamp`` leaves the cursors as
+        they are."""
+        oft = getattr(self.broker, "offset_for_timestamp", None)
+        if oft is None:
+            return
+        for cur in self._cursors:
+            cur[2] = oft(cur[0], cur[1], timestamp_ms)
+
     def seek(self, topic: str, partition: int, offset: int) -> None:
         for cur in self._cursors:
             if cur[0] == topic and cur[1] == partition:

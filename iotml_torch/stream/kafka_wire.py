@@ -1354,7 +1354,7 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                                     **_retention_configs(cfgs))
             except ValueError:
                 # unparseable or negative retention, or a cleanup policy
-                # the in-memory broker does not keep
+                # other than delete / compact
                 resp.append((name, ERR_INVALID_CONFIG))
                 continue
             resp.append((name, ERR_NONE))
@@ -1363,11 +1363,13 @@ class _KafkaConn(socketserver.BaseRequestHandler):
 
 def _retention_configs(cfgs) -> dict:
     """CreateTopics config entries → ``Broker.create_topic`` retention
-    keywords.  Kafka's own names (retention.bytes, retention.ms) and the
-    emulator family's retention.messages; -1 is Kafka's "unlimited".
-    Unknown keys are ignored, as a permissive broker's defaults path
-    does; cleanup.policy must be "delete" (compaction is not ported).
-    A bad value raises ValueError."""
+    and cleanup keywords.  Kafka's own names (retention.bytes,
+    retention.ms, cleanup.policy) and the emulator family's
+    retention.messages; retention -1 is Kafka's "unlimited", mapped to an
+    explicit 0 (which on a durable broker overrides the store-wide
+    default, where None would inherit it).  Unknown keys are ignored, as
+    a permissive broker's defaults path does; ``create_topic`` validates
+    the cleanup policy.  A bad value raises ValueError."""
     fields = {"retention.messages": "retention_messages",
               "retention.bytes": "retention_bytes",
               "retention.ms": "retention_ms"}
@@ -1376,8 +1378,7 @@ def _retention_configs(cfgs) -> dict:
         if v is None:
             continue
         if k == "cleanup.policy":
-            if v != "delete":
-                raise ValueError(f"cleanup.policy {v!r}: only 'delete'")
+            out["cleanup_policy"] = v
         elif k in fields:
             value = int(v)
             out[fields[k]] = 0 if value == -1 else value
@@ -1385,7 +1386,7 @@ def _retention_configs(cfgs) -> dict:
 
 
 class KafkaWireServer(socketserver.ThreadingTCPServer):
-    """TCP Kafka-protocol front for the port's in-memory ``Broker``.
+    """TCP Kafka-protocol front for the port's ``Broker`` (memory or disk).
 
     ``with KafkaWireServer(broker) as s:`` serves on an ephemeral
     localhost port (``s.port``) from a daemon thread.  Pass

@@ -1,6 +1,6 @@
 """ctypes bindings for the port's C++ stream engine (``iotml.stream.native``).
 
-Six sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
+Seven sources in ``iotml_torch/cpp/``, copies of the JAX package's engines,
 build into one library:
 
 - ``avro_engine.cc``: one call decodes a whole poll of Confluent-framed
@@ -22,14 +22,17 @@ build into one library:
   ``avro_engine.cc``'s;
 - ``mqtt_ingest.cc``: the native MQTT ingest front, an epoll loop and
   frame parser that acks QoS 0/1 publishes and hands their (topic,
-  payload) pairs to Python in bulk drains (``mqtt.native_ingest``).
+  payload) pairs to Python in bulk drains (``mqtt.native_ingest``);
+- ``frame_engine.cc``: the store's CRC32C (``crc32c``) and one call that
+  frames a whole batch of records as ready-to-append segment frames
+  (``frames_encode_values``, the durable broker's ``produce_many``).
 
 The library is built with g++ at first use, never at import:
 
     g++ -O3 -march=native -fPIC -shared -std=c++17 -Wall
         -o cpp/build/libiotml_torch_stream-<hash>.so avro_engine.cc \
         fmt_engine.cc msgset_engine.cc kafka_client.cc json_engine.cc \
-        mqtt_ingest.cc
+        mqtt_ingest.cc frame_engine.cc
 
 ``<hash>`` covers the sources, the header, the flags, the compiler's
 version and what ``-march=native`` means on this host, so an edited
@@ -39,9 +42,9 @@ writes a name unique to its process and ``os.replace``s it into place,
 so processes that build at once cannot tear each other's library.
 There is no silent fallback: a failed build raises with the compiler's
 output, and the pure codecs (``ops.avro``, ``kafka_wire``'s
-``_encode_message_set_py`` / ``_decode_message_set_py``) and the
-per-element formatter (``fastfmt.format_rows_plain``) run only when
-called by name.
+``_encode_message_set_py`` / ``_decode_message_set_py``, the store's
+``segment._crc32c_py`` and ``encode_record``) and the per-element
+formatter (``fastfmt.format_rows_plain``) run only when called by name.
 
 ``stats`` counts the rows each engine call carried and the seconds it
 took (the wire server's handler threads count into it too, under a
@@ -71,7 +74,8 @@ from ..core.schema import RecordSchema
 
 CPP = Path(__file__).resolve().parent.parent / "cpp"
 SOURCES = ("avro_engine.cc", "fmt_engine.cc", "msgset_engine.cc",
-           "kafka_client.cc", "json_engine.cc", "mqtt_ingest.cc")
+           "kafka_client.cc", "json_engine.cc", "mqtt_ingest.cc",
+           "frame_engine.cc")
 HEADERS = ("utf8_check.h",)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
              "-Wall")
@@ -158,6 +162,12 @@ _SIGNATURES = {
         _vp, _P(_P(_u8)), _P(_P(_i32)), _P(_P(_i32))]),
     "iotml_mqtt_ingest_clear": (None, [_vp]),
     "iotml_mqtt_ingest_close": (None, [_vp]),
+    # the store-frame writer (frame_engine.cc)
+    "iotml_crc32c": (ctypes.c_uint32, [ctypes.c_char_p, _i64,
+                                       ctypes.c_uint32]),
+    "iotml_frames_encode_values": (_i64, [
+        ctypes.c_char_p, _P(_i64), ctypes.c_char_p, _P(_i64), _P(_u8),
+        _P(_u8), _P(_i64), _i64, _i64, _P(_u8), _i64]),
 }
 
 #: rows carried by the engine and seconds spent in it, per entry
@@ -167,6 +177,7 @@ stats = {"decode_rows": 0, "decode_s": 0.0, "encode_rows": 0,
          "msgset_decode_rows": 0, "msgset_decode_s": 0.0,
          "fetch_decode_rows": 0, "fetch_decode_s": 0.0,
          "json_decode_rows": 0, "json_decode_s": 0.0,
+         "frame_encode_rows": 0, "frame_encode_s": 0.0,
          "json_fallback_rows": 0, "decode_fallback_rows": 0,
          "encode_fallback_rows": 0, "rekey_fallback_rows": 0,
          "count_fallback_rows": 0}
@@ -508,3 +519,45 @@ def msgset_decode(buf: bytes) -> List[tuple]:
                                           ts[:rc].tolist()))]
     tally("msgset_decode", rc, t0)
     return out
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C (Castagnoli) of ``data``, continuing ``crc`` (0 starts a new
+    checksum), in one engine call: ``google_crc32c.extend(crc, data)``."""
+    if not isinstance(data, bytes):
+        data = bytes(data)
+    return load().iotml_crc32c(data, len(data), crc)
+
+
+#: bytes of a store frame besides its key and value: the length prefix,
+#: the head (crc, attrs, offset, timestamp, key length), the value length
+FRAME_OVERHEAD = 4 + 25 + 4
+
+
+def frames_encode_values(entries, base_offset: int = 0) -> bytes:
+    """[(key, value, timestamp_ms)] → contiguous store frames stamped
+    ``base_offset + i``, in one engine call.  A None key frames a null
+    key, a None value a tombstone; byte-identical to
+    ``store.segment.encode_record`` over the same records."""
+    t0 = time.perf_counter()
+    n = len(entries)
+    values, voff = _column([e[1] for e in entries])
+    vnull = np.fromiter((e[1] is None for e in entries), np.uint8, n)
+    ts = np.fromiter((e[2] for e in entries), np.int64, n)
+    if any(e[0] is not None for e in entries):
+        keys, koff = _column([e[0] for e in entries])
+        knull = np.fromiter((e[0] is None for e in entries), np.uint8, n)
+        kargs = (keys, _ptr(koff, _i64), _ptr(knull, _u8))
+    else:  # every key null: the engine takes NULL columns
+        keys, kargs = b"", (None, None, None)
+    cap = FRAME_OVERHEAD * n + len(values) + len(keys)
+    out = np.empty((max(cap, 1),), np.uint8)
+    rc = load().iotml_frames_encode_values(
+        values, _ptr(voff, _i64), *kargs,
+        _ptr(vnull, _u8) if vnull.any() else None, _ptr(ts, _i64), n,
+        int(base_offset), _ptr(out, _u8), cap)
+    if rc < 0:
+        raise ValueError(f"the frame engine overflowed {cap} bytes framing "
+                         f"{n} records")
+    tally("frame_encode", n, t0)
+    return out[:rc].tobytes()

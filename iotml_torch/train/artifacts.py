@@ -6,8 +6,9 @@ the predict deployment downloads it fresh on start (cardata-v3.py:229-232,
 :255-261).  ``ArtifactStore`` is that handoff: a local-directory backend,
 and a GCS backend for ``gs://`` roots when ``google-cloud-storage`` is
 installed (imported only then).  Objects are opaque blobs keyed by name;
-a checkpoint directory moves as one zip blob, and ``put_text`` /
-``get_text`` keep small pointer blobs (a model name).
+a checkpoint directory moves as one zip blob, ``put_text`` /
+``get_text`` keep small pointer blobs (a model name), and ``list`` /
+``delete`` serve the store's remote tier (its sweep and retention).
 """
 
 from __future__ import annotations
@@ -27,7 +28,13 @@ class ArtifactStore:
         self.root = root
         self._gcs = root.startswith("gs://")
         if self._gcs:
-            from google.cloud import storage  # optional dependency
+            try:
+                from google.cloud import storage  # optional dependency
+            except ImportError as e:
+                raise ImportError(
+                    f"artifact root {root!r}: a gs:// root needs the "
+                    f"google-cloud-storage package, which is not "
+                    f"installed") from e
 
             bucket_name, _, self._prefix = root[5:].partition("/")
             self._bucket = storage.Client().get_bucket(bucket_name)
@@ -59,6 +66,44 @@ class ArtifactStore:
                 os.remove(tmp)
         fsync_dir(dirname)
         return dst
+
+    def list(self, prefix: str = "") -> list:
+        """Blob names under ``prefix``, sorted.  Staging tmps (the
+        ``.tmp.<pid>`` uploads in flight) are never listed: a sweeper
+        enumerating the store must see only published blobs."""
+        if self._gcs:
+            full = os.path.join(self._prefix, prefix) if prefix \
+                else self._prefix
+            names = [b.name for b in self._bucket.list_blobs(prefix=full)]
+            if self._prefix:
+                names = [n[len(self._prefix):].lstrip("/") for n in names]
+            return sorted(n for n in names if ".tmp." not in n)
+        base = os.path.join(self.root, prefix) if prefix else self.root
+        out = []
+        if not os.path.isdir(base):
+            return out
+        for dirpath, _dirs, files in os.walk(base):
+            for f in files:
+                rel = os.path.relpath(os.path.join(dirpath, f), self.root)
+                if ".tmp." in rel:
+                    continue
+                out.append(rel.replace(os.sep, "/"))
+        return sorted(out)
+
+    def delete(self, name: str) -> bool:
+        """Remove one blob; False when it did not exist (idempotent: the
+        tier sweeper retries deletions after a crash)."""
+        if self._gcs:
+            blob = self._blob(name)
+            if not blob.exists():
+                return False
+            blob.delete()
+            return True
+        try:
+            os.remove(os.path.join(self.root, name))
+            return True
+        except FileNotFoundError:
+            return False
 
     def download(self, name: str, local_path: str) -> str:
         if self._gcs:

@@ -9,7 +9,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "iotml")
+#: the JAX stack, the JAX package, and google_crc32c (the JAX store's
+#: CRC32C; the port's is its native engine's)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "h5py", "iotml",
+             "google_crc32c")
 FILES = sorted(p.relative_to(ROOT).as_posix()
                for p in (ROOT / "iotml_torch").rglob("*.py")) + \
     ["chip_smoke.py"]
@@ -130,6 +133,46 @@ def test_the_ingest_front_is_covered_and_loads_no_jax_stack():
             f"{FORBIDDEN!r})\nprint(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+STORE_MODULES = ["iotml_torch/store/__init__.py",
+                 "iotml_torch/store/segment.py", "iotml_torch/store/log.py",
+                 "iotml_torch/store/offsets.py",
+                 "iotml_torch/store/mount.py",
+                 "iotml_torch/store/compact.py",
+                 "iotml_torch/store/remote.py",
+                 "iotml_torch/store/tiered.py", "iotml_torch/ops/framing.py",
+                 "iotml_torch/stream/broker.py",
+                 "iotml_torch/train/artifacts.py", "iotml_torch/config.py"]
+
+
+def test_the_durable_store_is_covered_and_loads_no_jax_stack():
+    """The store's modules, imported and driven (a durable broker mounts,
+    frames a batch natively, reads it back) in a fresh interpreter, pull
+    in no module of the JAX stack, the JAX package or google_crc32c."""
+    import subprocess
+    import sys
+
+    assert set(STORE_MODULES) <= set(FILES)
+    assert "iotml_torch/cpp/frame_engine.cc" in {
+        p.relative_to(ROOT).as_posix()
+        for p in (ROOT / "iotml_torch").rglob("*.cc")}
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in STORE_MODULES]
+    code = ("import sys, tempfile\n" +
+            "".join(f"import {m}\n" for m in mods) +
+            "from iotml_torch.stream.broker import Broker\n"
+            "d = tempfile.mkdtemp()\n"
+            "b = Broker(store_dir=d)\n"
+            "b.produce_many('t', [(b'k', b'v', 1), (None, None, 2)])\n"
+            "assert [m.value for m in b.fetch('t', 0, 0)] == [b'v', None]\n"
+            "b.close()\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 

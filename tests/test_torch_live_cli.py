@@ -201,8 +201,9 @@ UNPORTED = [("--mesh-data", "2", "A10"), ("--device-normalize", "1", "A10"),
             ("--prefetch-depth", "2", "A10"),
             ("--decode-ring-buffers", "4", "A3, item 13"),
             ("--raw-batch-bytes", "4096", "A3, item 13"),
-            ("--raw-produce", "on", "A13"),
-            ("--produce-batch-bytes", "4096", "A13")]
+            ("--raw-produce", "on", "A3, item 13 with A13's raw wire"),
+            ("--produce-batch-bytes", "4096",
+             "A3, item 13 with A13's raw wire")]
 
 
 @pytest.mark.parametrize("cmd", ["train", "score"])

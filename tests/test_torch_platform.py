@@ -25,15 +25,20 @@ import collections
 import http.client
 import json
 import socket
+import sys
+import tempfile
 import time
 import types
+from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from iotml.cli import up as j_up
 from iotml.cli.up import Platform as JPlatform
+from iotml.store import StorePolicy as JStorePolicy
 from iotml.data.dataset import SensorBatches as JSensorBatches
 from iotml.evaluate.anomaly import \
     reconstruction_errors as j_reconstruction_errors
@@ -52,6 +57,7 @@ from iotml_torch.models.autoencoder import CAR_AUTOENCODER
 from iotml_torch.models.convert import adam_from_optax, params_from_jax
 from iotml_torch.mqtt.wire import MqttClient
 from iotml_torch.serve.scorer import StreamScorer
+from iotml_torch.store import StorePolicy, TieredLog, TierPolicy
 from iotml_torch.stream.consumer import StreamConsumer
 from iotml_torch.stream.kafka_wire import KafkaWireBroker
 from iotml_torch.stream.producer import OutputSequence
@@ -296,12 +302,90 @@ def test_platform_with_live_fleet_and_registry(tmp_path):
 
 
 @pytest.mark.parametrize("arg,value,item", [
-    ("connect_port", 0, "A16"), ("cc_port", 0, "A13"),
-    ("store_dir", "/nonexistent", "A13"), ("store_policy", object(), "A13"),
-    ("tier", object(), "A13")])
+    ("connect_port", 0, "A16"), ("cc_port", 0, "A13")])
 def test_left_out_arguments_raise(arg, value, item):
     with pytest.raises(NotImplementedError, match=item):
         Platform(device="cpu", **{arg: value})
+
+
+@pytest.mark.parametrize("arg", ["store_dir", "store_policy", "tier"])
+def test_durable_arguments_mount_the_store(tmp_path, arg):
+    """store_dir mounts a durable broker with a compactor; store_policy
+    reaches every log; tier adds the uploader and the tier endpoint.
+    Each background thread runs while started and is gone after stop."""
+    kw = {"store_dir": str(tmp_path / "s")}
+    if arg == "store_policy":
+        kw["store_policy"] = StorePolicy(fsync="always", segment_bytes=4096)
+    if arg == "tier":
+        kw["tier"] = TierPolicy(uri=str(tmp_path / "bucket"),
+                                interval_s=3600.0)
+    p = Platform(partitions=2, device="cpu", **kw).start()
+    try:
+        assert p.broker.durable
+        assert p.endpoints()["store"] == kw["store_dir"]
+        assert p.compactor._thread.is_alive()
+        log = p.broker.store.log_for("sensor-data", 0)
+        if arg == "store_policy":
+            assert (log.policy.fsync, log.policy.segment_bytes) == \
+                ("always", 4096)
+        if arg == "tier":
+            assert isinstance(log, TieredLog)
+            assert p.endpoints()["tier"] == str(tmp_path / "bucket")
+            assert p.uploader._thread.is_alive()
+        else:
+            assert p.uploader is None and "tier" not in p.endpoints()
+        threads = [t for t in (p.compactor._thread,
+                               p.uploader and p.uploader._thread) if t]
+    finally:
+        p.stop()
+    assert not any(t.is_alive() for t in threads)
+    # the directory lock went with stop(): another process may mount it
+    _mount_in_child(kw["store_dir"])
+
+
+def _mount_in_child(store_dir: str) -> None:
+    import subprocess
+    import sys
+
+    code = ("from iotml_torch.stream.broker import Broker\n"
+            f"Broker(store_dir={store_dir!r}).close()\n")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(Path(__file__).resolve().parent.parent))
+    assert run.returncode == 0, run.stderr
+
+
+def test_durable_platform_restart_reserves_records_as_jax(tmp_path):
+    """A Platform over a store dir, records and a commit in, stopped; a
+    second Platform over the same dir serves the same records and the
+    committed offset, as the JAX package's does over its own dir."""
+    got = {}
+    for name, cls, policy in (("port", Platform, StorePolicy),
+                              ("jax", JPlatform, JStorePolicy)):
+        d = str(tmp_path / name)
+        kw = {"device": "cpu"} if name == "port" else {}
+        plat = cls(partitions=2, store_dir=d,
+                   store_policy=policy(fsync="always"), **kw).start()
+        try:
+            plat.broker.create_topic("raw")
+            for i in range(10):
+                plat.broker.produce("raw", str(i).encode(), partition=0,
+                                    timestamp_ms=100 + i)
+            plat.broker.commit("g", "raw", 0, 4)
+        finally:
+            plat.stop()
+        plat = cls(partitions=2, store_dir=d,
+                   store_policy=policy(fsync="always"), **kw).start()
+        try:
+            assert plat.endpoints()["store"] == d
+            assert "sensor-data" in plat.broker.topics()
+            got[name] = ([(m.offset, m.value, m.timestamp_ms) for m in
+                          plat.broker.fetch("raw", 0, 0, 100)],
+                         plat.broker.committed("g", "raw", 0))
+        finally:
+            plat.stop()
+    assert got["port"] == got["jax"]
+    assert len(got["port"][0]) == 10 and got["port"][1] == 4
 
 
 def test_supervised_raises_a14():
@@ -360,17 +444,89 @@ def test_main_serves_until_ctrl_c(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--durable"], "A13"), (["--store-dir", "/x"], "A13"),
-    (["--tier-uri", "gs://b"], "A13"), (["--supervise"], "A14"),
+    (["--supervise"], "A14"),
     (["--connect-port", "0"], "A16"), (["--cc-port", "0"], "A13"),
     (["--decode-ring-buffers", "4"], "A3, item 13"),
     (["--raw-batch-bytes", "1024"], "A3, item 13"),
-    (["--raw-produce", "auto"], "A13"),
-    (["--produce-batch-bytes", "1024"], "A13"),
+    (["--raw-produce", "auto"], "A3, item 13 with A13's raw wire"),
+    (["--produce-batch-bytes", "1024"], "A3, item 13 with A13's raw wire"),
     (["--prefetch-depth", "2"], "A10")])
 def test_left_out_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         up.main(flag + ["--quiet"], device="cpu")
+
+
+def _main_platform(monkeypatch, argv, env=None):
+    """``up.main(argv)`` up to its wait, then Ctrl-C: the platform it
+    built (stopped) and its return code."""
+    seen = {}
+    real = up.Platform
+
+    def platform(*a, **kw):
+        seen["plat"] = real(*a, **kw)
+        seen["kw"] = kw
+        return seen["plat"]
+
+    def sleep(_seconds):
+        seen["endpoints"] = seen["plat"].endpoints()
+        raise KeyboardInterrupt
+
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(up, "Platform", platform)
+    monkeypatch.setattr(up, "time", types.SimpleNamespace(sleep=sleep))
+    rc = up.main(argv + ["--quiet", "--metrics-port", "0"], device="cpu")
+    return rc, seen
+
+
+@pytest.mark.parametrize("flag", ["--durable", "--store-dir", "--tier-uri"])
+def test_durable_flags_resolve_as_jax(tmp_path, monkeypatch, flag):
+    """--durable takes IOTML_STORE_DIR, else iotml-store in the temporary
+    directory; --store-dir wins and alone enables durable mode;
+    --tier-uri mounts the tier over the store; the store.* section's
+    policy reaches the broker (IOTML_STORE_FSYNC)."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    (tmp_path / "tmp").mkdir()
+    env = {"IOTML_STORE_FSYNC": "always"}
+    if flag == "--durable":
+        argv, want = ["--durable"], str(tmp_path / "tmp" / "iotml-store")
+    elif flag == "--store-dir":
+        argv, want = ["--store-dir", str(tmp_path / "flag")], \
+            str(tmp_path / "flag")
+        env["IOTML_STORE_DIR"] = str(tmp_path / "env")
+    else:
+        argv = ["--durable", "--tier-uri", str(tmp_path / "bucket")]
+        want = str(tmp_path / "env")
+        env["IOTML_STORE_DIR"] = want
+    rc, seen = _main_platform(monkeypatch, argv, env)
+    assert rc == 0
+    assert seen["endpoints"]["store"] == want
+    assert seen["kw"]["store_policy"].fsync == "always"
+    assert not seen["plat"].started
+    if flag == "--tier-uri":
+        assert seen["endpoints"]["tier"] == str(tmp_path / "bucket")
+        assert seen["kw"]["tier"].uri == str(tmp_path / "bucket")
+    else:
+        assert seen["kw"]["tier"] is None and "tier" not in seen["endpoints"]
+    _mount_in_child(want)  # stopped: the lock is free
+
+
+def test_tier_uri_without_durable_mode_is_a_usage_error(capsys):
+    for main in (lambda a: up.main(a, device="cpu"), j_up.main):
+        with pytest.raises(SystemExit) as e:
+            main(["--tier-uri", "/x", "--quiet"])
+        assert e.value.code == 2
+        assert "--tier-uri requires durable mode" in capsys.readouterr().err
+
+
+def test_gs_tier_without_google_cloud_storage_says_so(tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "google.cloud.storage", None)
+    monkeypatch.setitem(sys.modules, "google.cloud", None)
+    with pytest.raises(ImportError, match="google-cloud-storage"):
+        up.main(["--store-dir", str(tmp_path / "s"), "--tier-uri",
+                 "gs://bucket/prefix", "--quiet"], device="cpu")
+    # refused before the store was mounted: nothing holds its lock
+    assert not (tmp_path / "s").exists()
 
 
 def test_negative_retention_is_a_usage_error():
