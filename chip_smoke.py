@@ -6,8 +6,9 @@
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 With ``--store-fit-orders N`` it runs the device phase and then only
-``store_fit_orders``: how far the 20-epoch fit of ``store_path``'s rows
-drifts, kernel, plain and float64, over N orders of those rows.
+``store_fit_orders``: the params bound of ``store_path``'s fit from the
+plain version alone on N orders of its rows, then B1 and the reversed
+plain fit on each order against it, failing nothing.
 Each phase prints one JSON line; any failure ends the run with a
 non-zero exit and no result line:
 
@@ -109,11 +110,14 @@ non-zero exit and no result line:
                 ``serve ... group`` members in threads, each with its own
                 client, over 10 partitions of 30,000 records (every
                 partition committed at its end, n ≤ scored ≤ 2n).  The
-                write-back sends one PRODUCE request a non-empty flush.
-                Train and predict seconds, the predict and serve drains'
-                rows/s, the rows fetched and decoded beside those polled,
-                the message-set codec's seconds and the client's requests
-                by API.
+                write-back sends one PRODUCE request a non-empty flush;
+                the consumers read through RAW_FETCH into the columnar
+                ring: the RAW_FETCH and RAW_PRODUCE requests equal the
+                client's own ``fetch_raw`` / ``produce_raw`` calls, and
+                RAW_FETCH is not 0.  Train and predict seconds, the
+                predict and serve drains' rows/s, the frame decoder's and
+                the message-set codec's rows and seconds and the client's
+                requests by API.
 8. live_path  — the continuous services over the native Kafka client,
                 on the port's ``KafkaWireServer`` (127.0.0.1:0, SASL/PLAIN)
                 over ``emulator:30000``'s records: ``ContinuousTrainer`` on
@@ -293,7 +297,11 @@ non-zero exit and no result line:
                 into ``model-predictions`` with the threshold at the 99th
                 percentile of 512 normal rows' errors (the demo's),
                 payloads against a CPU recompute (first 100 at atol
-                2e-6, all at 1e-5).
+                2e-6, all at 1e-5).  The in-memory stage takes no raw
+                produce leg (as JAX's); the same stage again on a
+                durable broker ships every JSON→AVRO record as
+                RAW_PRODUCE batches (counted), and both AVRO legs' topics
+                equal the in-memory stage's record for record.
 16. demo_path  — the reference's whole story as users run it: (a)
                 ``iotml_torch.cli.demo.main([])`` in-process on the card
                 at its defaults (50 cars at 10 Hz for 8 s over MQTT TCP
@@ -309,17 +317,23 @@ non-zero exit and no result line:
                 ``start_fleet`` does) into ``Platform(partitions=4)``'s
                 epoll front, bridged into sensor-data (a deadline fails
                 the phase), then the same tick through the native ingest
-                front onto a second broker, then both fronts again with
-                one ``publish_many`` (one sendall) a connection: each
-                front's sensor-data equal to ``_ksql_fleet_json``'s
-                straight publish as a multiset a partition and per key
-                in offset order; the KSQL pump; 100 batches of 100
-                normal rows of SENSOR_DATA_S_AVRO in their keys' order
-                (the interleaving of the 64 connections is not defined;
-                equal to the straight-Avro batches) fit for 20 epochs in
-                one B1 launch, held against the plain version at the
-                fit bounds, and all 100,000 rows scored against a CPU
-                recompute (as ksql_path).  Publish and bridge records/s
+                front onto a second broker and into a wire client of
+                the port's server (the bridge's raw leg: frames once,
+                RAW_PRODUCE, as JAX's; checked engaged), then both
+                fronts again with one ``publish_many`` (one sendall) a
+                connection: each front's sensor-data equal to
+                ``_ksql_fleet_json``'s straight publish as a multiset a
+                partition and per key in offset order; the KSQL pump;
+                SENSOR_DATA_S_AVRO's rows in their keys' order equal to
+                the straight-Avro batches; 100 batches of 100 normal
+                rows in the fleet's own order (the interleaving of the
+                64 connections) fit for 20 epochs in one B1 launch, its
+                losses, accuracies and moments held against the plain
+                version at the fit bounds and its params against the
+                float64 fit within the float32 order noise of the plain
+                version on 6 orders of those rows (``order_noise_bound``,
+                derived first), and all 100,000 rows scored against a
+                CPU recompute (as ksql_path).  Publish and bridge records/s
                 of each front, the epoll front's paused connections and
                 evictions, pump seconds, fit and kernel ms, scored
                 rows/s.
@@ -345,11 +359,19 @@ non-zero exit and no result line:
                 generator's by regeneration, the truncated-bytes counter
                 grown by the torn frame at least, the group's commits
                 read back; replay records/s.  (c) 100 batches of 100
-                normal rows from offset 0 → ``fit_compiled`` for 20
-                epochs (one B1 launch, rows) held against the plain
-                version at the fit bounds, and bit for bit against the
-                same fit from an in-memory broker holding the same
-                records (the batches exactly equal); 10,000 rows scored
+                normal rows from offset 0, read through the columnar
+                ring (a ``DecodeRing``, ``FrameDecoder`` calls, decoded
+                rows in ``native.stats``, no chunk fallen back) →
+                ``fit_compiled`` for 20 epochs (one B1 launch, rows), its
+                losses, accuracies and moments held against the plain
+                version at the fit bounds and its params against the
+                float64 fit within the params bound derived first from
+                the plain version alone (``order_noise_bound``: the
+                largest drift from float64 of 108 float32 fits, 12 row
+                orders × each batch's rows as given and in 8 shuffles),
+                and bit for bit against the same fit from an in-memory
+                broker holding the same records (the batches exactly
+                equal); 10,000 rows scored, through the ring,
                 into the durable model-predictions (threshold at the
                 99th percentile of 512 normal rows' errors), read back
                 equal after a remount and held against a CPU recompute
@@ -371,8 +393,33 @@ non-zero exit and no result line:
                 ``Platform(store_dir=D2)``: one tick of 20,000 cars over
                 64 MQTT connections into the bridge and KSQL, stopped; a
                 second Platform on D2 re-serves SENSOR_DATA_S_AVRO whole
-                and one B1 launch fits on it.
-18. timing     — each design held against the plain version over the
+                and one B1 launch fits on it.  (h) the ring on the
+                recovered window: once at the default 1 MiB raw fetch
+                (the chunks fallen back to the message-list leg
+                counted), then at 4 MiB every record through
+                ``SensorBatches`` on the ring (no fallback) and through
+                the per-record leg decoding with the pure codec, the same
+                rows, labels and keys in the same order a partition,
+                records/s of each; partition 0 alone through both, its
+                batches equal (values, labels, keys, masks,
+                boundaries); a replay from
+                tick 5 by ``seek_to_timestamp`` + ``poll_into`` equal to
+                each partition's rows past the cut; one tick over
+                RAW_PRODUCE through a ``KafkaWireServer`` on a durable
+                broker from the pure and the native client, segments
+                byte-identical to the classic ``produce_many``'s,
+                records/s; one RAW_FETCH a partition equal to
+                ``fetch_raw``.  Each sub-phase's frame engine rows and
+                seconds (``native.stats``).
+18. fit_orders — after store_path's launch counts are read: its rows in
+                12 orders, B1 and the plain version with each batch's
+                rows reversed fit for 20 epochs on each, both held to
+                store_path's params bound against each order's float64
+                fit (an order outside fails the run); B1 against the
+                plain version at the fit bounds reported.  These B1
+                launches compare the kernel with its plain version and
+                count on no path.
+19. timing     — each design held against the plain version over the
                 whole fit at that shape (all 20 epochs' loss and
                 accuracy, the final params, mu and nu), then each
                 design's time per fit (CUDA events over warm launches,
@@ -382,7 +429,7 @@ non-zero exit and no result line:
                 same flops at one SM's share of the fp32 rate: a fit is
                 one block); the same again at B=256 on the same fleet
                 slice (39 batches, 20 epochs).
-19. attention_kernel — the flash-attention kernel against its plain
+20. attention_kernel — the flash-attention kernel against its plain
                 version on the card, both entry points, O and LSE: f32
                 D=8 (causal T=40 with blocks 16, non-causal T=32), f32
                 D=16 (causal, B=2, H=4, T=4096), bf16 D=128 H=2 (causal
@@ -405,13 +452,13 @@ non-zero exit and no result line:
                 and row by row), which must fail its O scaled by 0.9,
                 whole or in its last row; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-20. sensorformer_path — SensorFormer at full width (its defaults) scores
+21. sensorformer_path — SensorFormer at full width (its defaults) scores
                 100 cars' 4,096-tick fleet histories: one forward with
                 attn_mode="flash" (2 causal kernel launches), held
                 against the same weights with the kernel's plain version
                 (all cars) and dense attention (4 cars); forward ms and
                 scored steps per second.
-21. attention_timing — kernel, plain version, bound and the library
+22. attention_timing — kernel, plain version, bound and the library
                 yardstick (``scaled_dot_product_attention``) at the
                 model's per-layer call (f32, B=100, T=4096, H=4, D=16)
                 and the long-context shape (bf16, B=1, T=65,536, H=2,
@@ -422,7 +469,7 @@ non-zero exit and no result line:
                 memory rate and the flops on the tensor cores: bf16 at
                 its peak, f32 as split TF32 (3 × the flops at the TF32
                 peak); beside it the fp32 FMA floor and the ex2 floor.
-22. attention_backward_kernel — the dK/dV and dQ kernels against the
+23. attention_backward_kernel — the dK/dV and dQ kernels against the
                 plain backward on the card, both entry points, dq, dk and
                 dv: the attention_kernel shapes with a seeded random dO,
                 then the split-TF32 design's cases (f32 D=8 and 16,
@@ -441,18 +488,18 @@ non-zero exit and no result line:
                 (``flash_parity.bwd_rounding_flips``, none on the grid),
                 and each flip is printed; a second launch repeats the
                 first bit for bit; a ragged non-causal call raises.
-23. sensorformer_train — the slice's main path: ``make_sp_train_step``
+24. sensorformer_train — the slice's main path: ``make_sp_train_step``
                 Adam steps (lr 1e-3) of SensorFormer at full width on the
-                fleet histories of phase 20; each step launches exactly
+                fleet histories of phase 21; each step launches exactly
                 ``num_layers`` causal forwards, dK/dV and dQ kernels; step
                 1's loss and every parameter's grad held against the same
                 weights with the plain versions (all cars) and dense
                 attention (4 cars); losses finite and falling; step ms
                 and trained steps per second.
-24. attention_backward_timing — each backward kernel, the plain
+25. attention_backward_timing — each backward kernel, the plain
                 backward, the port's forward + backward and the library's
                 (``scaled_dot_product_attention`` through autograd) at the
-                shapes of phase 21, beside the bound, the fp32 FMA floor
+                shapes of phase 22, beside the bound, the fp32 FMA floor
                 and the ex2 floor; each kernel's design and achieved
                 TFLOP/s (its bound's flops over its time),
                 and ``flash_attention_fwd_bwd_tokens_per_sec`` (T over the
@@ -475,8 +522,8 @@ creditcard path (one), the LSTM and MNIST paths (none), summed in
 ``launches``; the creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
 counts read on the paths that run the entry: the SensorFormer forward
-(phase 20), the training steps (phase 23), the long-context forward +
-backward (phase 24) and the serve, creditcard, LSTM, MNIST and online
+(phase 21), the training steps (phase 24), the long-context forward +
+backward (phase 25) and the serve, creditcard, LSTM, MNIST and online
 paths (none), each also given by path),
 the ``nvidia-smi`` line, and the result line ``{"ok": true, "device":
 {...}}``.
@@ -522,7 +569,8 @@ from iotml_torch.cli import serve as serve_cli
 from iotml_torch.cli.up import Platform
 from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
-from iotml_torch.data.dataset import RowSource, SensorBatches
+from iotml_torch.data import pipeline
+from iotml_torch.data.dataset import Batch, RowSource, SensorBatches
 from iotml_torch.data.mnist_stream import synth_mnist
 from iotml_torch.evaluate import anomaly
 from iotml_torch.gen.scenarios import AdversarialFleet
@@ -566,7 +614,7 @@ from iotml_torch.ops.avro import AvroCodec, needs_resolution
 from iotml_torch.ops.flash_parity import (bwd_rounding_flips,
                                           check_rejects_scaled_o,
                                           check_wgmma_forward)
-from iotml_torch.ops.framing import strip_frame
+from iotml_torch.ops.framing import frame_entries, strip_frame
 from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
 from iotml_torch.serve import fastfmt
@@ -583,7 +631,8 @@ from iotml_torch.stream.consumer import StreamConsumer
 from iotml_torch.stream.group import GroupConsumer, GroupCoordinator
 from iotml_torch.stream.kafka_wire import KafkaWireBroker, KafkaWireServer
 from iotml_torch.stream.native_kafka import NativeKafkaBroker
-from iotml_torch.stream.producer import OutputSequence
+from iotml_torch.stream.producer import (OutputSequence, RawBatchProducer,
+                                         raw_produce_records)
 from iotml_torch.stream.registry import SchemaRegistry, subject_for_topic
 from iotml_torch.stream.registry_server import SchemaRegistryServer
 from iotml_torch.streamproc import KsqlServer, SqlEngine
@@ -1553,21 +1602,33 @@ WIRE_API_NAMES = {0: "produce", 1: "fetch", 2: "list_offsets", 3: "metadata",
                   8: "offset_commit", 9: "offset_fetch",
                   10: "find_coordinator", 11: "join_group", 12: "heartbeat",
                   13: "leave_group", 14: "sync_group", 17: "sasl_handshake",
-                  18: "api_versions", 19: "create_topics"}
+                  18: "api_versions", 19: "create_topics", 64: "raw_fetch",
+                  65: "raw_produce"}
 
 
 @contextlib.contextmanager
 def _wire_requests():
     """Count the wire client's requests by API name (``_request`` is the
-    one door every request after the SASL handshake goes through), and
-    the non-empty ``OutputSequence`` flushes."""
+    one door every request after the SASL handshake goes through), the
+    non-empty ``OutputSequence`` flushes, and the client's own
+    ``fetch_raw`` / ``produce_raw`` calls (``counts["client_fetch_raw"]``,
+    ``counts["client_produce_raw"]``), which the RAW_FETCH / RAW_PRODUCE
+    request counts must equal."""
     counts, flushes = {}, [0]
-    real_request, real_flush = KafkaWireBroker._request, OutputSequence.flush
+    real = {name: getattr(KafkaWireBroker, name)
+            for name in ("_request", "fetch_raw", "produce_raw")}
+    real_flush = OutputSequence.flush
 
     def request(self, api_key, *a):
         name = WIRE_API_NAMES.get(api_key, str(api_key))
         counts[name] = counts.get(name, 0) + 1
-        return real_request(self, api_key, *a)
+        return real["_request"](self, api_key, *a)
+
+    def counted(name):
+        def call(self, *a, **kw):
+            counts[f"client_{name}"] = counts.get(f"client_{name}", 0) + 1
+            return real[name](self, *a, **kw)
+        return call
 
     def flush(self, *a, **kw):
         n = real_flush(self, *a, **kw)
@@ -1575,11 +1636,26 @@ def _wire_requests():
         return n
 
     KafkaWireBroker._request, OutputSequence.flush = request, flush
+    KafkaWireBroker.fetch_raw = counted("fetch_raw")
+    KafkaWireBroker.produce_raw = counted("produce_raw")
     try:
         yield counts, flushes
     finally:
-        KafkaWireBroker._request, OutputSequence.flush = \
-            real_request, real_flush
+        for name, fn in real.items():
+            setattr(KafkaWireBroker, name, fn)
+        OutputSequence.flush = real_flush
+
+
+def _check_raw_requests(counts, where) -> None:
+    """RAW_FETCH and RAW_PRODUCE requests equal the client's own calls,
+    and the consumers read through RAW_FETCH."""
+    for api, call in (("raw_fetch", "fetch_raw"),
+                      ("raw_produce", "produce_raw")):
+        if counts.get(api, 0) != counts.get(f"client_{call}", 0):
+            raise AssertionError(f"{where}: {counts} — raw requests differ "
+                                 f"from the client's calls")
+    if not counts.get("raw_fetch"):
+        raise AssertionError(f"{where}: no RAW_FETCH request: {counts}")
 
 
 WIRE_FLAGS = (f"--broker.sasl_username={WIRE_CREDS[0]}",
@@ -1694,6 +1770,7 @@ def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
         raise AssertionError(f"{end} wire payloads differ from cli_path's "
                              f"{len(cli_info['payloads'])}")
     _check_one_produce_per_flush(cli_req, cli_fl, "cardata predict")
+    _check_raw_requests(cli_req, "cardata over the wire")
 
     # serve committed over a fresh log of the same 30,000 records
     serve_log = cli_app._broker_for("emulator:30000", SERVE_TOPIC)
@@ -1719,6 +1796,7 @@ def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
          serve_log.fetch("model-predictions", 0, 0, end)],
         want_rows, x, 5.0, "wire serve committed")
     _check_one_produce_per_flush(srv_req, srv_fl, "serve committed")
+    _check_raw_requests(srv_req, "serve committed")
     group = _wire_group(wire_root)
     launch_counts_now = path_launches()
     if launch_counts_now["fused_fit"] != 1 or \
@@ -1736,6 +1814,11 @@ def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
             "kernel_launches": launches,
             "kernel_launches_by_design": by_design,
             "train_decode_rows": train_native["decode_rows"],
+            "train_frame_decode_rows": train_native["frame_decode_rows"],
+            "predict_frame_decode_rows": predict_native["frame_decode_rows"],
+            "predict_frame_decode_s": predict_native["frame_decode_s"],
+            "serve_frame_decode_rows": serve_native["frame_decode_rows"],
+            "serve_frame_decode_s": serve_native["frame_decode_s"],
             "train_fetched_rows": train_native["msgset_encode_rows"],
             "rows_scored": pst["rows"],
             "predict_score_seconds": pst["score_seconds"],
@@ -3460,11 +3543,14 @@ def _ksql_plain_legs(broker, engine) -> dict:
     return checked
 
 
-def _ksql_stage() -> dict:
+def _ksql_stage(store_dir=None) -> dict:
     """The platform's KSQL stage on loopback: the reference DDL posted
     over HTTP, the fleet's JSON pumped through every leg, each check of
-    the stage; returns the broker, the registry's id and the timings."""
-    broker = Broker()
+    the stage; returns the broker, the registry's id and the timings.
+    ``store_dir`` puts it on a durable broker, where the JSON→AVRO leg
+    takes its raw produce leg (``SqlSelectTask.process_raw``), as JAX's
+    does: the leg's records a RAW_PRODUCE batch are counted."""
+    broker = Broker(store_dir=store_dir)
     broker.create_topic("sensor-data", partitions=KSQL_PARTITIONS)
     broker.create_topic("model-predictions", partitions=KSQL_PARTITIONS)
     registry = SchemaRegistry()
@@ -3490,6 +3576,7 @@ def _ksql_stage() -> dict:
         publish_s = _ksql_fleet_json(broker)
         legs = _ksql_timed_legs(engine)
         native.reset_stats()
+        raw0 = raw_produce_records.value()
         rounds = []
         t0 = time.perf_counter()
         while True:
@@ -3498,6 +3585,9 @@ def _ksql_stage() -> dict:
             if n == 0:
                 break
         pump_s = time.perf_counter() - t0
+        raw_records = raw_produce_records.value() - raw0
+        frame_encode = {k: native.stats[k] for k in ("frame_encode_rows",
+                                                     "frame_encode_s")}
         fallback = {k: v for k, v in native.stats.items()
                     if k.endswith("_fallback_rows")}
         json_rows = native.stats["json_decode_rows"]
@@ -3560,7 +3650,9 @@ def _ksql_stage() -> dict:
             "pump_s": pump_s, "pump_rounds": rounds, "legs": rates,
             "fallback_rows": fallback, "json_decode_rows": json_rows,
             "plain_checked": plain, "subjects": subjects,
-            "wire_produce_refused": refused}
+            "wire_produce_refused": refused,
+            "raw_produce_records": raw_records,
+            "frame_encode": frame_encode}
 
 
 def _recompute_ksql(broker, params):
@@ -3574,7 +3666,8 @@ def _recompute_ksql(broker, params):
                                           params, (x,)).numpy(), x.numpy()
 
 
-def _fit_and_score(broker, bs, where: str) -> dict:
+def _fit_and_score(broker, bs, where: str,
+                   bound_orders: int = 0) -> dict:
     """The slice's device work on SENSOR_DATA_S_AVRO's batches ``bs`` (100
     of 100 normal rows): ``fit_compiled`` for 20 epochs on the card (one
     B1 launch through rows: the fit counts must be 0 just before) held
@@ -3582,7 +3675,11 @@ def _fit_and_score(broker, bs, where: str) -> dict:
     alone; the threshold at the 99th percentile of 512 normal rows'
     errors (the demo's); the scorer over all KSQL_CARS rows into
     ``model-predictions`` against a CPU recompute (first 100 at atol
-    2e-6, all at 1e-5)."""
+    2e-6, all at 1e-5).  With ``bound_orders`` the params are held
+    instead to the float64 fit of the same rows within the float32 order
+    noise of the plain version on that many orders of them
+    (``order_noise_bound``, derived before the gate); losses,
+    accuracies and moments stay at the fit bounds."""
     trainer = Trainer(CAR_AUTOENCODER)  # the card
     trainer._ensure_state()
     before = _clone_state(trainer.state)
@@ -3600,9 +3697,23 @@ def _fit_and_score(broker, bs, where: str) -> dict:
     masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
     p_state, p_loss, p_acc = fused_train.fused_fit_reference(
         before, xs, masks, 20)
+    bound = drift = None
+    if bound_orders:
+        rows = np.concatenate([b.x for b in bs])
+        bound = order_noise_bound(before, row_orders(rows, bound_orders),
+                                  masks)
     err = check_fit(where, (trainer.state, torch.tensor(hist["loss"]),
                             torch.tensor(hist["accuracy"])),
-                    (p_state, p_loss.cpu(), p_acc.cpu()), 100 * 20)
+                    (p_state, p_loss.cpu(), p_acc.cpu()), 100 * 20,
+                    parts=("mu", "nu") if bound else
+                    ("params", "mu", "nu"))
+    if bound:
+        drift = params_drift(trainer.state.params, p_state.params,
+                             bound["float64"][0])
+        if not within_bound(drift["kernel_vs_float64"], bound):
+            raise AssertionError(f"{where} params: farther from the float64 "
+                                 f"fit than float32 order noise "
+                                 f"{public_bound(bound)}: {drift}")
     kernel_ms = cuda_ms(lambda: fused_train.fused_fit(before, xs, masks, 20),
                         reps=5)
 
@@ -3645,6 +3756,9 @@ def _fit_and_score(broker, bs, where: str) -> dict:
             "score_seconds": score_s, "score_rows_per_s": n / score_s,
             "payload_max_err_first_100": err_first,
             "payload_max_err_all": err_all, "anomalies": anomalies}
+    if bound:
+        info.update(params_bound=public_bound(bound),
+                    fit_final_params_drift=drift)
     return {"launches": launches, "launches_by_design": by_design,
             "max_abs_err": err, "info": info}
 
@@ -3669,6 +3783,10 @@ def phase_ksql_path(card: str) -> dict:
     attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
     if any(attention.values()):
         raise AssertionError(f"ksql_path launched {attention}")
+    if stage["raw_produce_records"]:
+        raise AssertionError("ksql_path: the in-memory stage took a raw "
+                             "produce leg")
+    raw_leg = _ksql_raw_leg(broker)
     legs = stage["legs"]
     info = {"phase": "ksql_path", "card": card, "cars": KSQL_CARS,
             "partitions": KSQL_PARTITIONS, "schema_id": stage["schema_id"],
@@ -3685,10 +3803,50 @@ def phase_ksql_path(card: str) -> dict:
             "json_decode_rows": stage["json_decode_rows"],
             "plain_leg_records_checked": stage["plain_checked"],
             "wire_produce_refused": stage["wire_produce_refused"],
-            "batches_equal_straight_avro": same, **fs["info"]}
+            "batches_equal_straight_avro": same,
+            "durable_raw_leg": raw_leg, **fs["info"]}
     emit(info)
     return {k: fs[k] for k in ("launches", "launches_by_design",
                                "max_abs_err")}
+
+
+def _ksql_topics(broker) -> dict:
+    """The AVRO legs' records: (offset, key, value, ts) a partition."""
+    return {t: [[(m.offset, m.key, m.value, m.timestamp_ms)
+                 for m in broker.fetch(t, p, 0, KSQL_CARS + 1)]
+                for p in range(broker.topic(t).partitions)]
+            for t in ("SENSOR_DATA_S_AVRO", "SENSOR_DATA_S_AVRO_REKEY")}
+
+
+def _ksql_raw_leg(classic) -> dict:
+    """The same stage on a durable broker: its JSON→AVRO leg ships every
+    record as pre-framed RAW_PRODUCE batches (the engine frames once, at
+    conversion), and both AVRO legs' topics equal the classic in-memory
+    stage's record for record (keys, values, timestamps, partitions,
+    offsets)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_ksql_")
+    try:
+        stage = _ksql_stage(store_dir=d)
+        durable = stage["broker"]
+        try:
+            if stage["raw_produce_records"] != KSQL_CARS:
+                raise AssertionError(f"ksql_path: the durable stage's raw "
+                                     f"leg carried "
+                                     f"{stage['raw_produce_records']} of "
+                                     f"{KSQL_CARS} records")
+            if _ksql_topics(durable) != _ksql_topics(classic):
+                raise AssertionError("ksql_path: the raw leg's topics "
+                                     "differ from the classic leg's")
+        finally:
+            durable.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    legs = stage["legs"]
+    return {"raw_produce_records": stage["raw_produce_records"],
+            "frame_encode": stage["frame_encode"],
+            "json_to_avro_records_per_s":
+                legs["SENSOR_DATA_S_AVRO"]["records_per_s"],
+            "pump_s": stage["pump_s"], "topics_equal_classic": True}
 
 
 #: the connections the platform's fleet opens at most (``start_fleet``)
@@ -3827,10 +3985,18 @@ def _by_key(broker) -> Broker:
 def _bare_front(kind: str, tick, want, batched: bool) -> dict:
     """The tick through one front alone onto a fresh 4-partition broker:
     ``epoll`` (``MqttEventServer`` → ``MqttBroker`` → ``KafkaBridge``, the
-    platform's front without the rest) or ``native``
-    (``NativeIngestBridge``); its sensor-data must equal ``want``."""
-    stream = Broker()
-    if kind == "native":
+    platform's front without the rest), ``native`` (``NativeIngestBridge``
+    into the broker) or ``native_wire`` (``NativeIngestBridge`` into a
+    wire client of the port's server over the broker: the remote front,
+    where the bridge takes its raw leg, frames once and RAW_PRODUCE, as
+    JAX's does); its sensor-data must equal ``want``."""
+    stream = backing = Broker()
+    server = None
+    stats0 = dict(native.stats)
+    if kind == "native_wire":
+        server = KafkaWireServer(backing).start()
+        stream = KafkaWireBroker(f"127.0.0.1:{server.port}")
+    if kind.startswith("native"):
         front = NativeIngestBridge(stream,
                                    partitions=KSQL_PARTITIONS).start()
         port, bridge, stop = front.port, front, front.stop
@@ -3843,11 +4009,24 @@ def _bare_front(kind: str, tick, want, batched: bool) -> dict:
     try:
         out = _mqtt_publish_tick(port, tick, front if kind == "epoll"
                                  else None, bridge.forwarded, batched)
-        if kind == "native":
+        if kind.startswith("native"):
             out["produce_seconds"] = bridge.produce_seconds
     finally:
         stop()
-    if _sensor_data(stream) != want:
+        if server is not None:
+            stream.close()
+            server.shutdown()
+            server.server_close()
+    if kind == "native_wire":
+        raw = bridge._raw
+        if raw is None or raw.engaged is not True or not raw.raw_batches:
+            raise AssertionError("demo_path: the native bridge into a wire "
+                                 "client did not take its raw leg")
+        out["raw_produce_batches"] = raw.raw_batches
+        out["native_frame_stats"] = {k: native.stats[k] - stats0[k]
+                                     for k in native.stats
+                                     if k.startswith("frame_")}
+    if _sensor_data(backing) != want:
         how = "batched" if batched else "a publish a message"
         raise AssertionError(f"demo_path: the {kind} front's sensor-data "
                              f"({how}) differs from the straight publish")
@@ -3896,23 +4075,25 @@ def _demo_fleet_tick(card: str) -> dict:
             raise AssertionError(f"demo_path: SENSOR_DATA_S_AVRO holds "
                                  f"{avro} records")
         # the 64 connections interleave the cars, so each partition's
-        # order differs from run to run, and on some orders any two
-        # float32 fits drift apart past the fit bounds (PERF.md §7,
-        # scripts/fit_order_sensitivity.py): the fit takes the rows in
-        # their keys' order, the generator's, which makes its check
-        # reproducible and its batches those of the straight publish
-        bs = _ksql_batches(_by_key(plat.broker), "demo-fit")
+        # order differs from run to run: the rows in their keys' order
+        # must be the straight publish's batches, and the fit takes them
+        # in the fleet's own order, its params held to the float64 fit
+        # within the float32 order noise of the plain version on those
+        # rows (a fixed params bound fails some orders: PERF.md §6)
+        keyed = _ksql_batches(_by_key(plat.broker), "demo-keyed")
         straight = _ksql_batches(_ksql_straight_avro(), "demo-fit")
-        same = len(bs) == len(straight) == 100 and all(
+        same = len(keyed) == len(straight) == 100 and all(
             np.array_equal(a.x, b.x) and np.array_equal(a.mask, b.mask)
-            for a, b in zip(bs, straight))
+            for a, b in zip(keyed, straight))
         if not same:
             raise AssertionError("demo_path: the MQTT path's batches (rows "
                                  "in key order) differ from the same rows "
                                  "published straight as Avro")
+        bs = _ksql_batches(plat.broker, "demo-fit")
         reset_launches()
         reset_fit_launches()
-        fs = _fit_and_score(plat.broker, bs, "demo_path")
+        fs = _fit_and_score(plat.broker, bs, "demo_path",
+                            bound_orders=DEMO_FIT_ORDERS)
         attention = {k: v for k, v in path_launches().items()
                      if k != "fused_fit"}
         if any(attention.values()):
@@ -3921,6 +4102,7 @@ def _demo_fleet_tick(card: str) -> dict:
         plat.stop()
 
     nat = _bare_front("native", tick, want, batched=False)
+    nat_wire = _bare_front("native_wire", tick, want, batched=False)
     # the same tick with one sendall a connection: what the fronts take
     # when the clients' per-message syscalls are out of the way
     batched = {kind: _bare_front(kind, tick, want, batched=True)
@@ -3928,9 +4110,11 @@ def _demo_fleet_tick(card: str) -> dict:
     emit({"phase": "demo_path", "part": "fleet_tick", "card": card,
           "cars": KSQL_CARS, "connections": DEMO_CONNS,
           "partitions": KSQL_PARTITIONS,
-          "sensor_data_equal_straight": ["epoll", "native",
+          "sensor_data_equal_straight": ["epoll", "native", "native_wire",
                                          "epoll_batched", "native_batched"],
           "epoll_front": epoll, "native_front": nat,
+          "native_front_into_wire_client_raw_leg": nat_wire,
+          "fit_rows": "the fleet's own order",
           "epoll_front_batched": batched["epoll"],
           "native_front_batched": batched["native"],
           "batches_in_key_order_equal_straight_avro": same,
@@ -3968,6 +4152,10 @@ STORE_BACKFILL_TICK, STORE_BACKFILL_ROUNDS = 5, 3
 STORE_COMPACT_SEGMENT, STORE_TOMBSTONE_EVERY = 1 << 20, 1_000
 #: the platform's short fleet, one tick of this many cars over MQTT
 STORE_PLATFORM_CARS = 20_000
+#: (h)'s IOTML_RAW_BATCH_BYTES: past two ticks' produce_many batches of a
+#: partition (~1.95 MB each), so that a raw fetch from the sparse-index
+#: entry at or before any cursor reaches past it
+STORE_RING_BATCH_BYTES = 4 << 20
 
 
 def _store_ticks(n: int):
@@ -4065,6 +4253,29 @@ def _store_batches(broker, group: str, topic: str = STORE_TOPIC):
                                    only_normal=True).epochs(1)))
 
 
+@contextlib.contextmanager
+def _ring_read(where: str):
+    """Around reads of a durable broker: yields a dict that, after the
+    block, must show the columnar ring at work: ``FrameDecoder`` calls,
+    rows in ``native.stats["frame_decode_rows"]`` and no chunk fallen
+    back to the message-list leg (no ``StreamConsumer.poll``).  Pass the
+    batchers read in the block as ``seen["batchers"]``: each must hold a
+    ``DecodeRing``."""
+    rows0 = native.stats["frame_decode_rows"]
+    seen = {"batchers": []}
+    with _recording(native.FrameDecoder, "decode_into") as decodes, \
+            _recording(StreamConsumer, "poll") as polls:
+        yield seen
+    seen.update(decode_calls=len(decodes), fallback_chunks=len(polls),
+                frame_decode_rows=native.stats["frame_decode_rows"] - rows0)
+    rings = [isinstance(sb._ring, pipeline.DecodeRing)
+             for sb in seen.pop("batchers")]
+    if not (rings and all(rings)) or not decodes or polls or \
+            seen["frame_decode_rows"] <= 0:
+        raise AssertionError(f"{where}: the columnar ring did not carry the "
+                             f"read: rings {rings}, {seen}")
+
+
 def _same_batches(a, b, where: str) -> None:
     if len(a) != len(b) or not all(
             np.array_equal(x.x, y.x) and np.array_equal(x.mask, y.mask)
@@ -4104,13 +4315,12 @@ def _same_fit(a, b, where: str) -> None:
                              f"bit the recovered log's")
 
 
-#: the path's 20-epoch params against a float64 run of the plain version
-#: on the same batches: the kernel strays from it no further than the
-#: plain float32 fit does, but for ``extra_outside`` more elements outside
-#: STATE_TOL and a largest difference up to ``max_abs_ratio`` times the
-#: plain fit's (after 20 epochs a few params move by ±lr steps on
-#: noise-level gradients in any float32 order: PERF.md §6)
-FLOAT64_DRIFT = dict(extra_outside=5, max_abs_ratio=2.0)
+#: the row orders a fit gate holds (order 0 as served, order k > 0 the
+#: rows permuted with seed k) and, for the params bound, the seeded
+#: shuffles of each batch's rows that join each order's rows as given
+STORE_FIT_ORDERS, DEMO_FIT_ORDERS, BOUND_SHUFFLES = 12, 6, 8
+#: 20-epoch fits: what the path's own fit runs
+FIT_EPOCHS = 20
 
 
 def params_drift(kernel, plain, float64) -> dict:
@@ -4133,15 +4343,6 @@ def params_drift(kernel, plain, float64) -> dict:
             "plain_vs_float64": outside(plain, float64)}
 
 
-def float64_drift_ok(drift: dict) -> bool:
-    """Whether the kernel's params lie within FLOAT64_DRIFT of the float64
-    run, measured by the plain float32 fit's own distance from it."""
-    k, p = drift["kernel_vs_float64"], drift["plain_vs_float64"]
-    return k["outside"] <= p["outside"] + FLOAT64_DRIFT["extra_outside"] \
-        and k["max_abs"] <= FLOAT64_DRIFT["max_abs_ratio"] * max(
-            p["max_abs"], STATE_TOL["atol"])
-
-
 def fit_float64(before: TrainState, xs, masks, epochs: int) -> TrainState:
     """The plain version's fit with the start state and the rows in
     float64."""
@@ -4157,39 +4358,209 @@ def fit_float64(before: TrainState, xs, masks, epochs: int) -> TrainState:
     return state
 
 
-def _store_fit_check(trainer, before, hist, xs, masks) -> tuple:
-    """Hold the path's own fit (20 epochs, no second launch) against the
-    plain version on the same batches: every epoch's loss and accuracy at
+def plain_fits(start: TrainState, xs, masks, epochs: int) -> list:
+    """``fused_fit_reference``'s arithmetic for K row orders at once: ``xs``
+    [K, S, B, F] (float32 or float64), ``masks`` [S, B] shared; returns
+    each order's final params.  Every product and sum is the plain
+    version's, batched over the orders, so each fit is that order's fit
+    in the dtype given, its float32 sums in the batched kernels' order."""
+    K, S, B, F = xs.shape
+    dt = xs.dtype
+    opt = start.opt_state
+    p = [start.params[k].to(dt).expand(K, *start.params[k].shape).clone()
+         for k in PARAM_NAMES]
+    m = [opt.mu[k].to(dt).expand(K, *opt.mu[k].shape).clone()
+         for k in PARAM_NAMES]
+    v = [opt.nu[k].to(dt).expand(K, *opt.nu[k].shape).clone()
+         for k in PARAM_NAMES]
+    # the bias corrections in float32 whatever ``dt``, as the plain
+    # version computes them (and so ``fit_float64``)
+    log_b1 = torch.tensor(math.log(fused_train.B1), dtype=torch.float32,
+                          device=xs.device)
+    log_b2 = torch.tensor(math.log(fused_train.B2), dtype=torch.float32,
+                          device=xs.device)
+    l1, lr = 1e-7, 1e-3
+    for i in range(epochs * S):
+        x = xs[:, i % S]
+        msk = masks[i % S].to(dt).reshape(1, B, 1)
+        w1, b1, w2, b2, w3, b3, w4, b4 = p
+        z1 = x @ w1.transpose(1, 2) + b1[:, None]
+        h1 = torch.tanh(z1)
+        z2 = h1 @ w2.transpose(1, 2) + b2[:, None]
+        h2 = torch.clamp_min(z2, 0.0)
+        z3 = h2 @ w3.transpose(1, 2) + b3[:, None]
+        h3 = torch.tanh(z3)
+        z4 = h3 @ w4.transpose(1, 2) + b4[:, None]
+        out = torch.clamp_min(z4, 0.0)
+        denom = torch.clamp_min(torch.sum(msk) * F, 1.0)
+        diff = out - x
+        dz4 = (2.0 / denom) * diff * msk * (z4 > 0.0)
+        dz3 = (dz4 @ w4) * (1.0 - h3 * h3)
+        dz2 = (dz3 @ w3) * (z2 > 0.0)
+        dh1 = dz2 @ w2 + (l1 / B) * torch.sign(h1)
+        dz1 = dh1 * (1.0 - h1 * h1)
+        grads = (dz1.transpose(1, 2) @ x, dz1.sum(1),
+                 dz2.transpose(1, 2) @ h1, dz2.sum(1),
+                 dz3.transpose(1, 2) @ h2, dz3.sum(1),
+                 dz4.transpose(1, 2) @ h3, dz4.sum(1))
+        t = float(opt.count + i + 1)
+        c1 = 1.0 - torch.exp(t * log_b1)
+        c2 = 1.0 - torch.exp(t * log_b2)
+        for k, g in enumerate(grads):
+            m[k] = fused_train.B1 * m[k] + (1.0 - fused_train.B1) * g
+            v[k] = fused_train.B2 * v[k] + (1.0 - fused_train.B2) * g * g
+            p[k] = p[k] - lr * (m[k] / c1) / (torch.sqrt(v[k] / c2)
+                                               + fused_train.EPS)
+    return [dict(zip(PARAM_NAMES, (t[k] for t in p))) for k in range(K)]
+
+
+def row_orders(rows: np.ndarray, orders: int) -> list:
+    """``orders`` orders of ``rows``: order 0 as given, order k > 0
+    permuted with seed k."""
+    return [rows if k == 0 else
+            rows[np.random.default_rng(k).permutation(len(rows))]
+            for k in range(orders)]
+
+
+def order_noise_bound(start: TrainState, orders: list, masks,
+                      epochs: int = FIT_EPOCHS,
+                      shuffles: int = BOUND_SHUFFLES) -> dict:
+    """The params bound of a fit gate, from the plain version alone: each
+    order's rows (as given, and with each batch's rows in ``shuffles``
+    seeded shuffles) fit in float32 against the same order fit in
+    float64; the bound is the largest count of elements outside
+    STATE_TOL and the largest absolute difference that any of those
+    float32 fits gives: float32 order noise.  Returns the bound, the
+    samples and each order's float64 params."""
+    S, B = masks.shape
+    f64 = plain_fits(start, torch.stack([
+        torch.from_numpy(o.reshape(S, B, -1)) for o in orders])
+        .to(masks.device).double(), masks, epochs)
+    variants, owner = [], []
+    for k, o in enumerate(orders):
+        batches = o.reshape(S, B, -1)
+        for s in range(shuffles + 1):
+            if s:
+                rng = np.random.default_rng(1000 * k + s)
+                batches = np.stack([b[rng.permutation(B)]
+                                    for b in o.reshape(S, B, -1)])
+            variants.append(torch.from_numpy(np.ascontiguousarray(batches)))
+            owner.append(k)
+    t0 = time.perf_counter()
+    fits = plain_fits(start, torch.stack(variants).to(masks.device), masks,
+                      epochs)
+    if masks.is_cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    samples = [params_drift(f, f, f64[k])["plain_vs_float64"]
+               for f, k in zip(fits, owner)]
+    return {"outside": max(d["outside"] for d in samples),
+            "max_abs": max(d["max_abs"] for d in samples),
+            "fits": len(samples), "orders": len(orders),
+            "shuffles_per_order": shuffles, "seconds": seconds,
+            "per_order": [
+                {"outside": max(d["outside"] for d, k2 in zip(samples, owner)
+                                if k2 == k),
+                 "max_abs": max(d["max_abs"] for d, k2 in zip(samples, owner)
+                                if k2 == k)} for k in range(len(orders))],
+            "float64": f64}
+
+
+def within_bound(drift: dict, bound: dict) -> bool:
+    """Whether a fit's params lie no farther from the float64 fit than
+    the bound (``order_noise_bound``) allows, in count and in size."""
+    return drift["outside"] <= bound["outside"] and \
+        drift["max_abs"] <= bound["max_abs"]
+
+
+def public_bound(bound: dict) -> dict:
+    return {k: v for k, v in bound.items() if k != "float64"}
+
+
+def _store_fit_check(trainer, before, hist, xs, masks, bound) -> tuple:
+    """Hold the path's own fit (20 epochs, order 0) against the plain
+    version on the same batches: every epoch's loss and accuracy at
     METRIC_TOL, the final Adam moments at STATE_TOL and the step count
-    (``check_fit``), and the final params against a float64 run of the
-    plain version within FLOAT64_DRIFT.  Returns (largest absolute
-    difference checked, the params' drift)."""
-    epochs = 20
-    plain = fused_train.fused_fit_reference(before, xs, masks, epochs)
+    (``check_fit``); and its params against the float64 fit of the same
+    rows within ``bound``, derived before from the plain version alone.
+    Returns (largest absolute difference checked, the params' drift)."""
+    plain = fused_train.fused_fit_reference(before, xs, masks, FIT_EPOCHS)
     err = check_fit("store_path", (trainer.state, torch.tensor(hist["loss"]),
                                    torch.tensor(hist["accuracy"])),
-                    plain, before.step + xs.shape[0] * epochs,
+                    plain, before.step + xs.shape[0] * FIT_EPOCHS,
                     parts=("mu", "nu"))
     drift = params_drift(trainer.state.params, plain[0].params,
-                         fit_float64(before, xs, masks, epochs).params)
-    if not float64_drift_ok(drift):
+                         bound["float64"][0])
+    if not within_bound(drift["kernel_vs_float64"], bound):
         raise AssertionError(f"store_path params: farther from the float64 "
-                             f"fit than the plain version, past "
-                             f"{FLOAT64_DRIFT}: {drift}")
+                             f"fit than float32 order noise "
+                             f"{public_bound(bound)}: {drift}")
     return err, drift
 
 
-def store_fit_orders(card: str, orders: int) -> None:
-    """``store_path``'s fit rows (its batches, from a broker holding the
-    topic's first two ticks) in ``orders`` orders: order 0 as served,
-    order k > 0 permuted with seed k.  Each is fit for 20 epochs from
-    ``_one_fit``'s start state by the kernel, the plain version, the plain
-    version in float64, and the plain version with each batch's rows
-    reversed (the same sums in another float32 order); one line an
-    order: whether the kernel passes ``check_fit`` against plain, the
-    final params' and moments' ``params_drift`` and the float64 gate, and
-    the reversed plain fit's params against plain and float64 and through
-    the same gate; then a summary line."""
+def fit_orders_gate(card: str, start: TrainState, rows: np.ndarray,
+                    bound: dict, strict: bool) -> dict:
+    """B1 and the plain version with each batch's rows reversed (the same
+    sums in another float32 order), each fit for 20 epochs from
+    ``start`` on the bound's orders of ``rows``, held to ``bound``
+    against each order's float64 fit; B1 also against the plain version
+    at the fit bounds (reported).  One line an order, then a summary;
+    with ``strict`` an order outside the bound fails the run.  These B1
+    launches compare the kernel with its plain version: they run outside
+    every path's count."""
+    S, B = len(rows) // 100, 100
+    dev = start.params[PARAM_NAMES[0]].device
+    masks = torch.ones(S, B, device=dev)
+    failing = {"fit_bounds": [], "kernel_outside_bound": [],
+               "plain_rows_reversed_outside_bound": []}
+    lines = []
+    for order, x in enumerate(row_orders(rows, bound["orders"])):
+        xs = torch.from_numpy(x.reshape(S, B, -1)).to(dev)
+        kernel = fused_train.fused_fit(start, xs, masks, FIT_EPOCHS)
+        plain = fused_train.fused_fit_reference(start, xs, masks, FIT_EPOCHS)
+        try:
+            check_fit(f"order {order}", kernel, plain, S * FIT_EPOCHS)
+            bounds = None
+        except AssertionError as e:
+            bounds = str(e)
+        f64 = bound["float64"][order]
+        drift = params_drift(kernel[0].params, plain[0].params, f64)
+        rev = params_drift(fused_train.fused_fit_reference(
+            start, xs.flip(1), masks.flip(1), FIT_EPOCHS)[0].params,
+            plain[0].params, f64)
+        k_ok = within_bound(drift["kernel_vs_float64"], bound)
+        r_ok = within_bound(rev["kernel_vs_float64"], bound)
+        if bounds is not None:
+            failing["fit_bounds"].append(order)
+        if not k_ok:
+            failing["kernel_outside_bound"].append(order)
+        if not r_ok:
+            failing["plain_rows_reversed_outside_bound"].append(order)
+        line = {"order": order, "card": card,
+                "passes_fit_bounds": bounds is None,
+                "kernel_vs_plain": drift["kernel_vs_plain"],
+                "kernel_vs_float64": drift["kernel_vs_float64"],
+                "plain_vs_float64": drift["plain_vs_float64"],
+                "plain_rows_reversed_vs_float64": rev["kernel_vs_float64"],
+                "noise_of_this_order": bound["per_order"][order],
+                "kernel_within_bound": k_ok,
+                "plain_rows_reversed_within_bound": r_ok}
+        lines.append(line)
+        if not strict:
+            emit({**line, "fit_bounds_failure": bounds})
+    summary = {"card": card, "orders": bound["orders"],
+               "epochs": FIT_EPOCHS, "bound": public_bound(bound),
+               "failing_orders": failing}
+    if strict and (failing["kernel_outside_bound"]
+                   or failing["plain_rows_reversed_outside_bound"]):
+        raise AssertionError(f"store_fit_orders: outside float32 order "
+                             f"noise: {summary}; {lines}")
+    return {**summary, "per_order": lines}
+
+
+def _store_fit_rows() -> np.ndarray:
+    """store_path's fit rows: its batches from a broker holding the
+    topic's first two ticks (all full: 100 of 100 normal rows)."""
     mem = Broker()
     mem.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
     for tick in _store_ticks(2):
@@ -4197,48 +4568,33 @@ def store_fit_orders(card: str, orders: int) -> None:
     bs = _store_batches(mem, "store-fit")
     if not all(x.mask.all() for x in bs):
         raise AssertionError("store_path's batches are not full")
-    rows = np.concatenate([x.x for x in bs])
-    masks = torch.ones(len(bs), len(rows) // len(bs), device="cuda")
+    return np.concatenate([x.x for x in bs])
+
+
+def store_fit_orders(card: str, orders: int) -> None:
+    """``--store-fit-orders N``: the bound from the plain version alone on
+    N orders of store_path's rows, then B1 and the reversed plain fit on
+    every order against it, one line an order and a summary line,
+    failing nothing."""
+    rows = _store_fit_rows()
     trainer = Trainer(CAR_AUTOENCODER)
     trainer._ensure_state()
-    start, epochs = trainer.state, 20
-    failing = dict.fromkeys(("fit_bounds", "float64_gate",
-                             "plain_rows_reversed_float64_gate"), 0)
-    for order in range(orders):
-        x = rows if order == 0 else \
-            rows[np.random.default_rng(order).permutation(len(rows))]
-        xs = torch.from_numpy(x.reshape(*masks.shape, -1)).cuda()
-        kernel = fused_train.fused_fit(start, xs, masks, epochs)
-        plain = fused_train.fused_fit_reference(start, xs, masks, epochs)
-        f64 = fit_float64(start, xs, masks, epochs)
-        try:
-            check_fit(f"order {order}", kernel, plain, xs.shape[0] * epochs)
-            bounds = None
-        except AssertionError as e:
-            bounds = str(e)
-        drift = {"params": params_drift(kernel[0].params, plain[0].params,
-                                        f64.params)}
-        for part in ("mu", "nu"):
-            drift[part] = params_drift(
-                *(getattr(st.opt_state, part)
-                  for st in (kernel[0], plain[0], f64)))
-        gate = float64_drift_ok(drift["params"])
-        reversed_ = params_drift(fused_train.fused_fit_reference(
-            start, xs.flip(1), masks.flip(1), epochs)[0].params,
-            plain[0].params, f64.params)
-        reversed_gate = float64_drift_ok(reversed_)
-        failing["fit_bounds"] += bounds is not None
-        failing["float64_gate"] += not gate
-        failing["plain_rows_reversed_float64_gate"] += not reversed_gate
-        emit({"order": order, "card": card, "passes_fit_bounds":
-              bounds is None, "fit_bounds_failure": bounds,
-              "final_state": drift, "passes_float64_gate": gate,
-              "plain_rows_reversed": {
-                  "vs_plain": reversed_["kernel_vs_plain"],
-                  "vs_float64": reversed_["kernel_vs_float64"],
-                  "passes_float64_gate": reversed_gate}})
-    emit({"summary": True, "card": card, "orders": orders,
-          "epochs": epochs, "failing_orders": failing})
+    masks = torch.ones(len(rows) // 100, 100, device="cuda")
+    bound = order_noise_bound(trainer.state, row_orders(rows, orders),
+                              masks)
+    summary = fit_orders_gate(card, trainer.state, rows, bound, strict=False)
+    summary.pop("per_order")
+    emit({"summary": True, **summary})
+
+
+def phase_fit_orders(card: str, store: dict) -> dict:
+    """After store_path's launches are read: its rows in STORE_FIT_ORDERS
+    orders, B1 and the reversed plain fit held to the bound store_path
+    derived (``fit_orders_gate``, strict)."""
+    out = fit_orders_gate(card, store["fit_start"], store["fit_rows"],
+                          store["bound"], strict=True)
+    emit({"phase": "fit_orders", **out})
+    return out
 
 
 def _store_append(root: str) -> dict:
@@ -4370,13 +4726,24 @@ def _store_fit_and_score(b, d: str, counts: dict) -> dict:
     fit fed from an in-memory broker with the same records; 10,000 rows
     scored into the durable model-predictions, read back after a
     remount and held against a CPU recompute."""
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(STORE_PARTS)]
     t0 = time.perf_counter()
-    bs = _store_batches(b, "store-fit")
+    with _ring_read("store_path's fit") as ring_fit:
+        sb = SensorBatches(StreamConsumer(b, specs, group="store-fit"),
+                           batch_size=100, take=100, only_normal=True)
+        ring_fit["batchers"].append(sb)
+        bs = list(next(sb.epochs(1)))
     batch_s = time.perf_counter() - t0
+    if len(bs) != 100 or not all(x.mask.all() for x in bs):
+        raise AssertionError("store_path's batches are not 100 full ones")
     trainer, before, hist, fit_s = _one_fit(bs, "recovered", counts)
     xs = torch.from_numpy(np.stack([x.x for x in bs])).cuda()
     masks = torch.from_numpy(np.stack([x.mask for x in bs])).cuda()
-    err, drift = _store_fit_check(trainer, before, hist, xs, masks)
+    fit_rows = np.concatenate([x.x for x in bs])
+    # the params bound from the plain version alone, before any gate
+    bound = order_noise_bound(before,
+                              row_orders(fit_rows, STORE_FIT_ORDERS), masks)
+    err, drift = _store_fit_check(trainer, before, hist, xs, masks, bound)
     mem = Broker()
     mem.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
     for tick in _store_ticks(2):
@@ -4386,7 +4753,6 @@ def _store_fit_and_score(b, d: str, counts: dict) -> dict:
     twin, _b, twin_hist, _s = _one_fit(mem_bs, "in_memory", counts)
     _same_fit((twin, twin_hist), (trainer, hist), "the in-memory broker")
 
-    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(STORE_PARTS)]
     sample = next(iter(SensorBatches(
         StreamConsumer(b, specs, group="store-threshold"), batch_size=512,
         only_normal=True)))
@@ -4394,16 +4760,19 @@ def _store_fit_and_score(b, d: str, counts: dict) -> dict:
         CAR_AUTOENCODER, trainer.state.params,
         sample.x[:sample.n_valid]), 99.0))
     b.create_topic("model-predictions", partitions=1)
+    serve_batches = SensorBatches(
+        StreamConsumer(b, specs, group="store-serve"), batch_size=100,
+        take=100, keep_labels=True)
     scorer = StreamScorer(
-        CAR_AUTOENCODER, trainer.state.params,
-        SensorBatches(StreamConsumer(b, specs, group="store-serve"),
-                      batch_size=100, take=100, keep_labels=True),
+        CAR_AUTOENCODER, trainer.state.params, serve_batches,
         OutputSequence(b, "model-predictions", partition=0),
         threshold=threshold)
-    t0 = time.perf_counter()
-    n = scorer.score_available()
-    torch.cuda.synchronize()
-    score_s = time.perf_counter() - t0
+    with _ring_read("store_path's scorer") as ring_score:
+        ring_score["batchers"].append(serve_batches)
+        t0 = time.perf_counter()
+        n = scorer.score_available()
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
     payloads = [m.value.decode() for m in b.fetch("model-predictions", 0,
                                                   0, 10 ** 6)]
     if n != 10_000 or len(payloads) != n:
@@ -4426,11 +4795,14 @@ def _store_fit_and_score(b, d: str, counts: dict) -> dict:
         raise AssertionError("store_path: model-predictions read back "
                              "after a remount differ")
     return {"broker": b, "trainer": trainer, "hist": hist, "batches": bs,
-            "max_abs_err": err,
+            "max_abs_err": err, "fit_start": before, "fit_rows": fit_rows,
+            "bound": bound,
             "info": {"batch_seconds": batch_s, "fit_seconds": fit_s,
+                     "ring_fit": ring_fit, "ring_score": ring_score,
                      "loss_first": hist["loss"][0],
                      "loss_last": hist["loss"][-1], "fit_max_abs_err": err,
                      "fit_final_params_drift": drift,
+                     "params_bound": public_bound(bound),
                      "in_memory_fit_bit_equal": True, "threshold": threshold,
                      "rows_scored": n, "score_seconds": score_s,
                      "score_rows_per_s": n / score_s,
@@ -4471,6 +4843,260 @@ def _store_backfill(b, root: str, crash: dict, counts: dict) -> dict:
                                           for p in range(STORE_PARTS)],
             "rounds": STORE_BACKFILL_ROUNDS, "round_seconds": seconds,
             "records_trained": ct.records_trained}
+
+
+class _PureCodec:
+    """``NativeCodec.decode_batch`` by the pure codec (``ops.avro``): the
+    per-record leg's decoder in (h), the oracle of the ring."""
+
+    def __init__(self, schema):
+        self.schema = schema
+        self.codec = AvroCodec(schema)
+        self.strings = [f.name for f in schema.fields
+                        if f.avro_type == "string"]
+        self.n_strings = len(self.strings)
+        self.n_numeric = len(schema.fields) - self.n_strings
+
+    def decode_batch(self, values, strip: int = 0):
+        cols = self.codec.decode_batch([v[strip:] for v in values])
+        labels = np.zeros((len(values), max(self.n_strings, 1)),
+                          f"S{native.LABEL_STRIDE}")
+        for j, name in enumerate(self.strings):
+            labels[:, j] = [v.encode()[:native.LABEL_STRIDE - 1]
+                            for v in cols[name]]
+        return self.codec.sensor_matrix(cols), labels
+
+
+def _partition_rows(batches):
+    """Rows, labels and keys of ``batches`` (valid rows only), grouped by
+    the partition their key hashes to, in the order read."""
+    x = np.concatenate([b.x[:b.n_valid] for b in batches])
+    keys = np.concatenate([b.keys[:b.n_valid] for b in batches])
+    labels = np.concatenate([np.asarray(b.labels[:b.n_valid], object)
+                             if b.labels is not None
+                             else np.full((b.n_valid,), "", object)
+                             for b in batches])
+    part = np.fromiter((zlib.crc32(k) % STORE_PARTS for k in keys),
+                       np.int64, len(keys))
+    return [(x[part == p], labels[part == p], keys[part == p])
+            for p in range(STORE_PARTS)]
+
+
+def _same_rows(a, b) -> bool:
+    """Whether two reads hold the same rows, labels and keys in the same
+    order a partition."""
+    return all(np.array_equal(xa, xb) and list(la) == list(lb)
+               and np.array_equal(ka, kb)
+               for (xa, la, ka), (xb, lb, kb) in zip(_partition_rows(a),
+                                                      _partition_rows(b)))
+
+
+def _same_batch_list(a, b) -> bool:
+    return len(a) == len(b) and all(
+        (x.n_valid, x.first_index) == (y.n_valid, y.first_index)
+        and np.array_equal(x.x, y.x) and np.array_equal(x.mask, y.mask)
+        and list(x.labels) == list(y.labels)
+        and np.array_equal(x.keys, y.keys) for x, y in zip(a, b))
+
+
+def _log_bytes(d: str, topic: str, partition: int) -> bytes:
+    root = Path(d) / "segments" / topic / str(partition)
+    return b"".join(f.read_bytes() for f in sorted(root.glob("*.log")))
+
+
+def _store_ring(b, root: str, crash: dict) -> dict:
+    """(h) The columnar ring on the recovered window: every record read
+    once through ``SensorBatches`` on the ring and once through the
+    per-record leg with the pure codec (values, labels, keys, masks and
+    batch boundaries equal), each timed; a replay from tick 5's
+    timestamp by ``seek_to_timestamp`` + ``poll_into`` equal to the read's
+    rows past each partition's cut; one tick over RAW_PRODUCE through a
+    ``KafkaWireServer`` on a durable broker from the pure and the native
+    client, each partition's segment bytes equal to the classic
+    ``produce_many``'s; one RAW_FETCH a partition equal to ``fetch_raw``
+    of the same log."""
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(STORE_PARTS)]
+    stats0 = dict(native.stats)
+    # at the default IOTML_RAW_BATCH_BYTES a fetch deeper than 1 MiB into
+    # an appended batch (one sparse-index entry a produce_many a
+    # partition, ~1.95 MB a tick here) holds only frames below the
+    # cursor, and poll_into falls back a chunk to the message-list leg,
+    # as the JAX package's does on the same log: counted, not failed
+    with _recording(StreamConsumer, "poll") as polls:
+        t0 = time.perf_counter()
+        n_default = sum(x.n_valid for x in SensorBatches(
+            StreamConsumer(b, specs, group="ring-default"), batch_size=100))
+        default_s = time.perf_counter() - t0
+    default = {"raw_batch_bytes": pipeline.raw_batch_bytes(),
+               "records": n_default, "fallback_chunks": len(polls),
+               "fallback_records": sum(len(c.result) for c in polls),
+               "seconds": default_s,
+               "records_per_s": n_default / default_s}
+    # the knob past two ticks' batches, so that every fetch reaches past
+    # its cursor: the ring carries every chunk from here on
+    knob = os.environ.get("IOTML_RAW_BATCH_BYTES")
+    pipeline.set_knobs(raw_batch_bytes=STORE_RING_BATCH_BYTES)
+    try:
+        return {"default_knob": default,
+                **_store_ring_reads(b, root, crash, specs, stats0)}
+    finally:
+        if knob is None:
+            os.environ.pop("IOTML_RAW_BATCH_BYTES", None)
+        else:
+            os.environ["IOTML_RAW_BATCH_BYTES"] = knob
+
+
+def _store_ring_reads(b, root, crash, specs, stats0) -> dict:
+    """(h)'s reads, replay and raw produce under STORE_RING_BATCH_BYTES."""
+    with _ring_read("store_path (h)") as ring:
+        sb = SensorBatches(StreamConsumer(b, specs, group="ring-read"),
+                           batch_size=100, keep_labels=True, keep_keys=True)
+        ring["batchers"].append(sb)
+        t0 = time.perf_counter()
+        cols = list(sb)
+        ring_s = time.perf_counter() - t0
+    def per_record(spec_list, group):
+        sb = SensorBatches(StreamConsumer(b, spec_list, group=group),
+                           batch_size=100, keep_labels=True, keep_keys=True)
+        sb._ring, sb._native = False, _PureCodec(KSQL_CAR_SCHEMA)
+        return sb
+
+    t0 = time.perf_counter()
+    recs = list(per_record(specs, "record-read"))
+    rec_s = time.perf_counter() - t0
+    rows = sum(x.n_valid for x in cols)
+    # over 10 cursors the interleaving of partitions follows each leg's
+    # fetches (the ring's are bounded in bytes and by a segment's end),
+    # so the two reads hold the same rows in the same order a partition;
+    # over one cursor their batches are equal outright
+    if rows != crash["served"] or sum(x.n_valid for x in recs) != rows \
+            or not _same_rows(cols, recs):
+        raise AssertionError(f"store_path (h): the ring's {rows} rows "
+                             f"(of {crash['served']}) differ from the "
+                             f"per-record leg's, a partition")
+    interleaved = sum(not _same_batch_list([x], [y])
+                      for x, y in zip(cols, recs))
+    del recs
+    with _ring_read("store_path (h), partition 0") as ring0:
+        sb0 = SensorBatches(StreamConsumer(b, specs[:1], group="ring-p0"),
+                            batch_size=100, keep_labels=True, keep_keys=True)
+        ring0["batchers"].append(sb0)
+        cols0 = list(sb0)
+    if not _same_batch_list(cols0, list(per_record(specs[:1],
+                                                   "record-p0"))):
+        raise AssertionError("store_path (h): partition 0's batches differ "
+                             "between the ring and the per-record leg")
+
+    # replay from tick 5's timestamp: seek_to_timestamp + poll_into
+    consumer = StreamConsumer(b, specs, group="ring-replay")
+    consumer.seek_to_timestamp(crash["backfill_since_ms"])
+    dec = native.NativeCodec(KSQL_CAR_SCHEMA).frame_decoder()
+    cap = 4096
+    x = np.zeros((cap, dec.n_numeric), np.float32)
+    lab = np.zeros((cap, dec.n_strings), f"S{native.LABEL_STRIDE}")
+    keys = np.zeros((cap,), f"S{native.KEY_STRIDE}")
+    got_x, got_k = [], []
+    t0 = time.perf_counter()
+    while True:
+        n, fallback = consumer.poll_into(
+            dec, x, lab, keys, max_rows=cap,
+            max_bytes=pipeline.raw_batch_bytes())
+        if fallback:
+            raise AssertionError("store_path (h): the replay fell back")
+        if not n:
+            break
+        got_x.append(CAR_NORMALIZER.np(x[:n]))
+        got_k.append(keys[:n].copy())
+    replay_s = time.perf_counter() - t0
+    replayed = Batch(np.concatenate(got_x), sum(map(len, got_x)), 0,
+                     keys=np.concatenate(got_k))
+    for p, ((want_x, _wl, _wk), (rx, _rl, _rk)) in enumerate(zip(
+            _partition_rows(cols), _partition_rows([replayed]))):
+        cut = crash["first_at_backfill"][p]
+        if not np.array_equal(rx, want_x[cut:]):
+            raise AssertionError(f"store_path (h): partition {p}'s replay "
+                                 f"from offset {cut} differs from the read")
+    del cols
+
+    # one tick over RAW_PRODUCE, pure and native clients, vs classic
+    tick = next(_store_ticks(1))
+    by_part = [[] for _ in range(STORE_PARTS)]
+    for e in tick:
+        by_part[zlib.crc32(e[0]) % STORE_PARTS].append(e)
+    out = {}
+    dirs = {kind: os.path.join(root, f"raw-{kind}")
+            for kind in ("classic", "pure", "native")}
+    classic = Broker(store_dir=dirs["classic"])
+    classic.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
+    t0 = time.perf_counter()
+    classic.produce_many(STORE_TOPIC, tick)
+    out["classic_produce_many_records_per_s"] = \
+        len(tick) / (time.perf_counter() - t0)
+    classic.close()
+    cap_bytes = pipeline.produce_batch_bytes()
+    for kind in ("pure", "native"):
+        rb = Broker(store_dir=dirs[kind])
+        rb.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
+        server = KafkaWireServer(rb).start()
+        client = (KafkaWireBroker if kind == "pure" else NativeKafkaBroker)(
+            f"127.0.0.1:{server.port}")
+        try:
+            producer = RawBatchProducer(client, STORE_TOPIC, mode="on")
+            requests = 0
+            t0 = time.perf_counter()
+            for p, ents in enumerate(by_part):
+                start = size = 0
+                for i, e in enumerate(ents + [None]):
+                    grow = native.FRAME_OVERHEAD + len(e[0]) + len(e[1]) \
+                        if e is not None else 0
+                    if e is None or (size + grow > cap_bytes and i > start):
+                        chunk = ents[start:i]
+                        producer.produce_frames(p, frame_entries(chunk),
+                                                len(chunk))
+                        requests += 1
+                        start, size = i, 0
+                    size += grow
+            raw_s = time.perf_counter() - t0
+            fetched = [client.fetch_raw(STORE_TOPIC, p, 0)
+                       if kind == "pure" else None
+                       for p in range(STORE_PARTS)]
+        finally:
+            client.close()
+            server.shutdown()
+            server.server_close()
+        if kind == "pure" and any(
+                f is None or f.data != rb.fetch_raw(STORE_TOPIC, p, 0).data
+                for p, f in enumerate(fetched)):
+            raise AssertionError("store_path (h): a RAW_FETCH differs from "
+                                 "fetch_raw of the same log")
+        rb.close()
+        if any(_log_bytes(dirs[kind], STORE_TOPIC, p)
+               != _log_bytes(dirs["classic"], STORE_TOPIC, p)
+               for p in range(STORE_PARTS)):
+            raise AssertionError(f"store_path (h): the {kind} client's "
+                                 f"RAW_PRODUCE segments differ from the "
+                                 f"classic produce_many's")
+        out[f"raw_produce_{kind}"] = {
+            "records": len(tick), "requests": requests, "seconds": raw_s,
+            "records_per_s": len(tick) / raw_s}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    stats = {k: native.stats[k] - stats0[k] for k in native.stats
+             if k.startswith("frame_")}
+    return {"raw_batch_bytes": pipeline.raw_batch_bytes(),
+            "records": rows, "ring": ring, "ring_seconds": ring_s,
+            "ring_records_per_s": rows / ring_s,
+            "per_record_pure_codec_seconds": rec_s,
+            "per_record_pure_codec_records_per_s": rows / rec_s,
+            "rows_equal_a_partition": True,
+            "batches_interleaved_otherwise": interleaved,
+            "batches_of_one_cursor_equal": len(cols0),
+            "replay_since_ms": crash["backfill_since_ms"],
+            "replay_records": replayed.n_valid, "replay_seconds": replay_s,
+            "replay_records_per_s": replayed.n_valid / replay_s,
+            "replay_equal_read": True, **out,
+            "raw_produce_segments_equal_classic": True,
+            "raw_fetch_equal_fetch_raw": True, "native_frame_stats": stats}
 
 
 def _store_compaction(root: str) -> dict:
@@ -4669,6 +5295,7 @@ def phase_store_path(card: str) -> dict:
         fit = _store_fit_and_score(b, d, counts)
         b = fit.pop("broker")
         backfill = _store_backfill(b, root, crash, counts)
+        ring = _store_ring(b, root, crash)
         compaction = _store_compaction(root)
         tier = _store_tier(b, d, root, fit, counts)
         b = None
@@ -4691,10 +5318,12 @@ def phase_store_path(card: str) -> dict:
           "retention_ms": STORE_RETENTION_MS, "append": append,
           "crash": crash, **fit["info"], "backfill": backfill,
           "compaction": compaction, "tier": tier, "platform": platform,
+          "ring": ring,
           "kernel_launches": launches, "kernel_launches_by_design": by_design,
           "kernel_launches_by_subphase": counts})
     return {"launches": launches, "launches_by_design": by_design,
-            "by_subphase": counts, "max_abs_err": fit["max_abs_err"]}
+            "by_subphase": counts, "max_abs_err": fit["max_abs_err"],
+            **{k: fit[k] for k in ("fit_start", "fit_rows", "bound")}}
 
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
@@ -5892,6 +6521,7 @@ def main() -> int:
         store_info = phase_store_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_fit_orders(card, store_info)
     timing = phase_timing(card, main_info["batches"], main_info["source"])
     attn_err = phase_attention_kernel()
     sf_info = phase_sensorformer_path(card)

@@ -37,10 +37,13 @@ Differences from the JAX package's CLI:
 - A flag the port has not got raises NotImplementedError naming its
   ROADMAP item when given: ``--mesh-data`` and ``--device-normalize`` (A10),
   ``--prefetch-depth`` (A10: only the mesh paths build a
-  ``data.prefetch.DevicePrefetcher``, in the JAX package too),
-  ``--decode-ring-buffers`` and ``--raw-batch-bytes`` (A3, item 13),
-  ``--raw-produce`` and ``--produce-batch-bytes`` (A3, item 13 with A13's
-  raw wire extensions: the clients' RAW_PRODUCE requests).
+  ``data.prefetch.DevicePrefetcher``, in the JAX package too).
+- ``--decode-ring-buffers``, ``--raw-batch-bytes``, ``--raw-produce`` and
+  ``--produce-batch-bytes`` set their knobs (``IOTML_DECODE_RING_BUFFERS``,
+  ``IOTML_RAW_BATCH_BYTES``, ``IOTML_RAW_PRODUCE``,
+  ``IOTML_PRODUCE_BATCH_BYTES``) through ``data.pipeline.set_knobs`` for
+  every pipeline the process builds afterwards; an invalid value is a
+  usage error (exit 2).
 - There is no fallback to the pure-Python client: a native client that
   cannot connect raises (``ConnectionError``, an ``OSError``).
 - The stdin watcher is a plain daemon thread, ``iotml-stdin-watch`` (the
@@ -55,14 +58,11 @@ import sys
 import threading
 import time
 
-from ..data.pipeline import RAW_WIRE_ITEM
 from ..utils.device import DeviceLike, resolve_device
 
 #: unported flags → the ROADMAP item that ports them
 UNPORTED = {"mesh_data": "A10", "device_normalize": "A10",
-            "prefetch_depth": "A10", "decode_ring_buffers": "A3, item 13",
-            "raw_batch_bytes": "A3, item 13", "raw_produce": RAW_WIRE_ITEM,
-            "produce_batch_bytes": RAW_WIRE_ITEM}
+            "prefetch_depth": "A10"}
 
 
 def _stopper(max_seconds: float):
@@ -146,14 +146,19 @@ def _parser() -> argparse.ArgumentParser:
         p.add_argument("--prefetch-depth", type=int, default=None,
                        help="not ported (A10)")
         p.add_argument("--decode-ring-buffers", type=int, default=None,
-                       help="not ported (A3, item 13)")
+                       help="reusable columnar decode buffers (sets "
+                            "IOTML_DECODE_RING_BUFFERS; default 4)")
         p.add_argument("--raw-batch-bytes", type=int, default=None,
-                       help="not ported (A3, item 13)")
+                       help="max bytes per raw frame fetch (sets "
+                            "IOTML_RAW_BATCH_BYTES; default 1 MiB)")
         p.add_argument("--raw-produce", default=None,
                        choices=("auto", "on", "off"),
-                       help="not ported (A3, item 13)")
+                       help="raw produce plane (sets IOTML_RAW_PRODUCE; "
+                            "default auto)")
         p.add_argument("--produce-batch-bytes", type=int, default=None,
-                       help="not ported (A3, item 13)")
+                       help="max frame bytes per RAW_PRODUCE request "
+                            "(sets IOTML_PRODUCE_BATCH_BYTES; default "
+                            "1 MiB)")
         p.add_argument("--metrics-port", type=int, default=0,
                        help="serve /metrics + /healthz on this port "
                             "(0 = off)")
@@ -167,12 +172,22 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None, *, device: DeviceLike = None) -> int:
     """Run one service until it is stopped; returns the exit code (1 when
     the input topic never appears; argparse exits 2 on bad arguments)."""
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
     for name, item in UNPORTED.items():
         if getattr(args, name, None) is not None:
             flag = "--" + name.replace("_", "-")
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
+    from ..data.pipeline import set_knobs
+
+    try:
+        set_knobs(decode_ring_buffers=args.decode_ring_buffers,
+                  raw_batch_bytes=args.raw_batch_bytes,
+                  produce_batch_bytes=args.produce_batch_bytes,
+                  raw_produce=args.raw_produce)
+    except ValueError as e:
+        ap.error(str(e))
     car_th = None
     if args.cmd == "score":
         car_th = args.car_threshold if args.car_threshold == "auto" \

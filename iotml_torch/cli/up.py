@@ -45,11 +45,11 @@ Left out, each raising NotImplementedError naming its ROADMAP item when
 given (as a constructor argument or a flag): Kafka Connect and the
 car-health twin (`connect_port`, `--connect-port`: A16), the control
 center (`cc_port`, `--cc-port`: A13), the supervisor (`supervised()`,
-`--supervise`: A14), and the pipeline knobs (`--prefetch-depth`: A10;
-`--decode-ring-buffers`, `--raw-batch-bytes`: A3, item 13;
-`--raw-produce`, `--produce-batch-bytes`: A3, item 13 with A13's raw wire
-extensions).  ``pump()`` drives the KSQL server alone until A16 brings
-Connect.
+`--supervise`: A14), and `--prefetch-depth` (A10).  ``pump()`` drives
+the KSQL server alone until A16 brings Connect.  `--decode-ring-buffers`,
+`--raw-batch-bytes`, `--raw-produce` and `--produce-batch-bytes` set
+their knobs through ``data.pipeline.set_knobs`` before the platform is
+built, as in the JAX package; an invalid value is a usage error.
 """
 
 from __future__ import annotations
@@ -61,7 +61,6 @@ import threading
 import time
 from typing import Optional
 
-from ..data.pipeline import RAW_WIRE_ITEM
 from ..utils.device import DeviceLike, resolve_device
 
 #: left-out constructor arguments → the ROADMAP item that ports them
@@ -69,11 +68,7 @@ UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)",
                  "cc_port": "A13 (the control center)"}
 #: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
 UNPORTED_FLAGS = {"connect_port": "A16", "cc_port": "A13",
-                  "supervise": "A14", "prefetch_depth": "A10",
-                  "decode_ring_buffers": "A3, item 13",
-                  "raw_batch_bytes": "A3, item 13",
-                  "raw_produce": RAW_WIRE_ITEM,
-                  "produce_batch_bytes": RAW_WIRE_ITEM}
+                  "supervise": "A14", "prefetch_depth": "A10"}
 
 
 class Platform:
@@ -381,14 +376,26 @@ def main(argv=None, device: DeviceLike = None) -> int:
     ap.add_argument("--prefetch-depth", type=int, default=None,
                     help="not ported (A10)")
     ap.add_argument("--decode-ring-buffers", type=int, default=None,
-                    help="not ported (A3, item 13)")
+                    metavar="N",
+                    help="reusable columnar decode buffers per pipeline "
+                         "(sets IOTML_DECODE_RING_BUFFERS; default 4, "
+                         "min 2)")
     ap.add_argument("--raw-batch-bytes", type=int, default=None,
-                    help="not ported (A3, item 13)")
+                    metavar="BYTES",
+                    help="max bytes per raw frame fetch on the columnar "
+                         "consume path (sets IOTML_RAW_BATCH_BYTES; "
+                         "default 1 MiB)")
     ap.add_argument("--raw-produce", default=None,
                     choices=("auto", "on", "off"),
-                    help="not ported (A3, item 13)")
+                    help="raw produce plane (sets IOTML_RAW_PRODUCE): "
+                         "auto = RAW_PRODUCE where supported with classic "
+                         "fallback, on = raw required, off = classic "
+                         "everywhere")
     ap.add_argument("--produce-batch-bytes", type=int, default=None,
-                    help="not ported (A3, item 13)")
+                    metavar="BYTES",
+                    help="max frame bytes per RAW_PRODUCE request "
+                         "(sets IOTML_PRODUCE_BATCH_BYTES; default "
+                         "1 MiB)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
     for name, item in UNPORTED_FLAGS.items():
@@ -396,6 +403,15 @@ def main(argv=None, device: DeviceLike = None) -> int:
             flag = "--" + name.replace("_", "-")
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
+    from ..data.pipeline import set_knobs
+
+    try:
+        set_knobs(decode_ring_buffers=args.decode_ring_buffers,
+                  raw_batch_bytes=args.raw_batch_bytes,
+                  produce_batch_bytes=args.produce_batch_bytes,
+                  raw_produce=args.raw_produce)
+    except ValueError as e:
+        ap.error(str(e))
 
     from ..config import load_config
     from ..store import StorePolicy, TierPolicy

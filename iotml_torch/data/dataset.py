@@ -34,8 +34,22 @@ LSTM path).  Every decoded row counts into
 forks each record's header-carried trace context, marks it ``consume``
 and holds it (bounded, drop-oldest, counted) until the pipeline's closer
 (the train step or the scorer) takes it with ``take_traces``; the fused
-leg carries no headers, as the JAX package's columnar leg does not.  The
-columnar frame-decoder ring is not ported.
+leg carries no headers.
+
+Over a durable broker or a wire hop, where the records already exist as
+frame bytes, a consumer reads through the columnar ring first, as the
+JAX package does: ``poll_into`` fetches raw frame batches and
+``stream.native.FrameDecoder`` decodes them into the slots of a
+``data.pipeline.DecodeRing``, no per-record object from disk or socket
+to the normalized block (float32 columns, normalized in float64 as every
+leg is).  At an evolved writer's frame one chunk takes the message-list
+leg, then the ring resumes; a wire server without RAW_FETCH switches the
+ring off for good and the fused or message-list leg goes on from the
+same cursors.  The in-memory broker keeps the per-record legs (the ring
+would re-frame every record), and so does a traced session on an
+in-process durable broker, whose record headers only the message-list
+leg reads; a wire hop stays on the ring, its traces one a raw batch
+(``StreamConsumer.take_batch_traces``).
 """
 
 from __future__ import annotations
@@ -229,6 +243,10 @@ class SensorBatches:
             maxlen=65536)
         self._seen_traces: set = set()
         self._seen_traces_cap = 65536
+        # the columnar ring, built at the first chunk: None untried, a
+        # DecodeRing in use, False off (not applicable, or switched off)
+        self._ring = None
+        self._framedec = None
 
     def _native_labels(self, lab: np.ndarray, n: int) -> np.ndarray:
         """The label column of the native decoder's fixed-stride bytes."""
@@ -241,7 +259,10 @@ class SensorBatches:
         stripped and Avro decoded in one native call, or, where any frame
         names an evolved writer schema, the whole poll decoded by name.
         Keys are cut at ``KEY_STRIDE - 1`` bytes, as the fused leg cuts
-        them."""
+        them.  Tombstones (compaction's delete markers) carry no payload
+        and are skipped, as the columnar decoder skips them."""
+        if any(m.value is None for m in msgs):
+            msgs = [m for m in msgs if m.value is not None]
         if tracing.ENABLED:
             self._fork_traces(msgs)
         values = [m.value for m in msgs]
@@ -287,6 +308,68 @@ class SensorBatches:
             except IndexError:
                 return out
 
+    def _columnar_ready(self) -> bool:
+        """Whether the columnar ring applies: a consumer with
+        ``poll_into`` over a broker with ``fetch_raw`` whose records
+        already exist as frame bytes (a durable broker, or a wire hop),
+        and no traced session on an in-process broker."""
+        if self._ring is False or self.consumer is None:
+            return False
+        broker = self.consumer.broker
+        if getattr(self.consumer, "poll_into", None) is None or \
+                getattr(broker, "fetch_raw", None) is None:
+            return False
+        durable = getattr(broker, "durable", None)
+        if tracing.ENABLED and durable is not None:
+            # record headers, the trace carrier, exist only in the
+            # in-process broker and the ring never reads them
+            return False
+        return durable is None or bool(durable)
+
+    def _columnar_chunks(self):
+        """Raw frame batches → ``FrameDecoder`` → ring slots, yielding
+        (float32 rows, labels, keys or None) views of a slot, which the
+        caller normalizes into a fresh block before the next decode.  At
+        an evolved writer's frame (``poll_into`` reports a fallback) one
+        chunk takes the message-list leg; a broker that loses raw reads
+        turns the ring off (``_ring = False``) and returns."""
+        from . import pipeline
+
+        if self._ring is None:
+            self._ring = pipeline.DecodeRing(
+                max(int(self.poll_chunk), 1), self._native.n_numeric,
+                self._native.n_strings, with_keys=self._capture_keys)
+            self._framedec = self._native.frame_decoder()
+        max_bytes = pipeline.raw_batch_bytes()
+        take_traces = getattr(self.consumer, "take_batch_traces", None)
+        while True:
+            limit = self.poll_chunk if self._need_rows is None \
+                else max(1, min(self.poll_chunk, self._need_rows))
+            slot = self._ring.next_slot()
+            res = self.consumer.poll_into(
+                self._framedec, slot.x, slot.labels, slot.keys,
+                max_rows=min(limit, self._ring.rows), max_bytes=max_bytes)
+            if res is None:
+                self._ring = False  # the server lost RAW_FETCH
+                return
+            n, fallback = res
+            if tracing.ENABLED and take_traces is not None:
+                pending = self._pending_traces
+                for ctx in take_traces():
+                    if len(pending) == pending.maxlen:
+                        tracing.spans_dropped.inc()
+                    pending.append(ctx)
+            if n:
+                yield (slot.x[:n], self._native_labels(slot.labels[:n], n),
+                       slot.keys[:n].copy() if self._capture_keys else None)
+            if fallback:
+                msgs = self.consumer.poll(limit)
+                if msgs:
+                    yield self._decode_msgs(msgs)
+                continue
+            if n == 0:
+                return  # the log end, as an empty poll()
+
     def _fused(self) -> bool:
         """Whether the consumer polls through the broker's fused
         fetch-and-decode."""
@@ -297,7 +380,12 @@ class SensorBatches:
     def _decoded_chunks(self):
         """Yield (float64 sensor rows, labels, keys or None) per read: the
         rows a bounded iteration still needs, else the rest of the
-        stream."""
+        stream.  The columnar ring goes first where it applies, then the
+        fused leg, then the message-list leg."""
+        if self._columnar_ready():
+            yield from self._columnar_chunks()
+            if self._ring is not False:
+                return
         fused = self._fused()
         while True:
             if self.consumer is not None:

@@ -1,56 +1,98 @@
-"""The pipeline's process-level knobs (``iotml.data.pipeline``, cut to the
-prefetch depth and the write-path selector).
+"""The columnar decode ring and the pipeline's process-level knobs
+(``iotml.data.pipeline``, without the mesh knobs).
+
+Raw frame batches (``Broker.fetch_raw``, the wire's RAW_FETCH) are
+decoded by the native ``stream.native.FrameDecoder`` straight into a
+small ring of reusable column buffers (float32 numeric, fixed-stride
+labels and keys), so the steady state allocates nothing a record and
+nothing a chunk beyond the normalized output block.  Decode runs on
+whatever thread drains the batch iterator.
 
 Knobs are environment toggles in ``config.NON_CONFIG``, like
 ``IOTML_TRACE``; a malformed value fails loudly:
 
-  IOTML_PREFETCH_DEPTH  ``DevicePrefetcher`` queue depth (default 2,
-                        double buffering; at least 1)
-  IOTML_RAW_PRODUCE     auto | on | off (default auto): ``off`` makes the
-                        durable broker's ``produce_many`` frame record by
-                        record instead of one native batch call (the JAX
-                        package's debug escape hatch)
+  IOTML_PREFETCH_DEPTH       ``DevicePrefetcher`` queue depth (default 2,
+                             double buffering; at least 1)
+  IOTML_DECODE_RING_BUFFERS  slots in the decode ring (default 4; at
+                             least 2, so the decode of chunk N + 1 never
+                             overwrites a chunk the batcher still views)
+  IOTML_RAW_BATCH_BYTES      most bytes a raw frame fetch asks for
+                             (default 1 MiB: one disk or wire read a
+                             decode call; at least 4096)
+  IOTML_RAW_PRODUCE          auto | on | off (default auto): ``auto``
+                             ships RAW_PRODUCE where the broker has it and
+                             pins back to PRODUCE on UNSUPPORTED_VERSION,
+                             ``on`` requires it (a server without it is
+                             an error), ``off`` takes PRODUCE everywhere
+                             and makes the durable broker's
+                             ``produce_many`` frame record by record
+  IOTML_PRODUCE_BATCH_BYTES  most frame bytes a RAW_PRODUCE request
+                             carries (default 1 MiB; at least 4096):
+                             larger batches split at frame boundaries
 
-The JAX module's other knobs belong to code the port has not got: the
-decode ring (``IOTML_DECODE_RING_BUFFERS``, ``IOTML_RAW_BATCH_BYTES``)
-and the raw produce requests (``IOTML_PRODUCE_BATCH_BYTES``), ROADMAP
-A3, item 13 with A13's raw wire extensions, and the mesh
-(``IOTML_MESH_DATA``, ``IOTML_DEVICE_NORMALIZE``, A10).  ``set_knobs``
-raises naming the item when one of them is given.
+The JAX module's mesh knobs (``IOTML_MESH_DATA``,
+``IOTML_DEVICE_NORMALIZE``) belong to code the port has not got, ROADMAP
+A10; ``set_knobs`` raises naming the item when one of them is given.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
-_PREFETCH_DEFAULT, _PREFETCH_MIN = 2, 1
-#: the ROADMAP item of the raw produce/fetch requests (the next slice)
-RAW_WIRE_ITEM = "A3, item 13 with A13's raw wire extensions"
+import numpy as np
+
+#: name → (default, least allowed)
+_DEFAULTS = {
+    "IOTML_PREFETCH_DEPTH": (2, 1),
+    "IOTML_DECODE_RING_BUFFERS": (4, 2),
+    "IOTML_RAW_BATCH_BYTES": (1 << 20, 4096),
+    "IOTML_PRODUCE_BATCH_BYTES": (1 << 20, 4096),
+}
 
 #: knobs of the JAX module the port has not got → the ROADMAP item
-UNPORTED_KNOBS = {"decode_ring_buffers": "A3, item 13",
-                  "raw_batch_bytes": "A3, item 13",
-                  "produce_batch_bytes": RAW_WIRE_ITEM,
-                  "mesh_data": "A10", "device_normalize": "A10"}
+UNPORTED_KNOBS = {"mesh_data": "A10", "device_normalize": "A10"}
 _RAW_PRODUCE_MODES = ("auto", "on", "off")
+
+
+def _env_int(name: str) -> int:
+    default, lo = _DEFAULTS[name]
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        value = int(raw)
+    except ValueError as e:
+        raise ValueError(f"env {name}={raw!r}: expected an integer "
+                         f"(>= {lo})") from e
+    if value < lo:
+        why = "prefetch depth 0 would be UNBOUNDED, " \
+            if "PREFETCH" in name else ""
+        raise ValueError(f"env {name}={value}: must be >= {lo} ({why}"
+                         f"see data/pipeline.py)")
+    return value
 
 
 def prefetch_depth() -> int:
     """DevicePrefetcher queue depth (IOTML_PREFETCH_DEPTH, default 2)."""
-    raw = os.environ.get("IOTML_PREFETCH_DEPTH")
-    if raw is None or raw == "":
-        return _PREFETCH_DEFAULT
-    try:
-        value = int(raw)
-    except ValueError as e:
-        raise ValueError(f"env IOTML_PREFETCH_DEPTH={raw!r}: expected an "
-                         f"integer (>= {_PREFETCH_MIN})") from e
-    if value < _PREFETCH_MIN:
-        raise ValueError(f"env IOTML_PREFETCH_DEPTH={value}: must be >= "
-                         f"{_PREFETCH_MIN} (prefetch depth 0 would be "
-                         f"UNBOUNDED, see data/pipeline.py)")
-    return value
+    return _env_int("IOTML_PREFETCH_DEPTH")
+
+
+def decode_ring_buffers() -> int:
+    """Decode-ring slot count (IOTML_DECODE_RING_BUFFERS, default 4)."""
+    return _env_int("IOTML_DECODE_RING_BUFFERS")
+
+
+def raw_batch_bytes() -> int:
+    """Most bytes a raw frame fetch asks for (IOTML_RAW_BATCH_BYTES,
+    1 MiB)."""
+    return _env_int("IOTML_RAW_BATCH_BYTES")
+
+
+def produce_batch_bytes() -> int:
+    """Most frame bytes a RAW_PRODUCE request carries
+    (IOTML_PRODUCE_BATCH_BYTES, 1 MiB)."""
+    return _env_int("IOTML_PRODUCE_BATCH_BYTES")
 
 
 def raw_produce_mode() -> str:
@@ -66,14 +108,16 @@ def raw_produce_mode() -> str:
 
 
 def set_knobs(prefetch_depth: Optional[int] = None,
+              decode_ring_buffers: Optional[int] = None,
+              raw_batch_bytes: Optional[int] = None,
+              produce_batch_bytes: Optional[int] = None,
               raw_produce: Optional[str] = None, **unported) -> None:
     """CLI → env bridge: publish the given knobs into this process's
-    environment (validated first; None leaves one as it is), so every
-    pipeline built afterwards reads them."""
+    environment (each validated before any is published; None leaves one
+    as it is), so every pipeline built afterwards reads them."""
     if raw_produce is not None:
         mode = str(raw_produce).strip().lower()
         if mode not in _RAW_PRODUCE_MODES:
-            # validate BEFORE publishing (same contract as below)
             raise ValueError(f"IOTML_RAW_PRODUCE={raw_produce!r}: expected "
                              f"one of {'|'.join(_RAW_PRODUCE_MODES)}")
     for name, value in unported.items():
@@ -83,13 +127,69 @@ def set_knobs(prefetch_depth: Optional[int] = None,
         if value is not None:
             raise NotImplementedError(
                 f"{name} is not ported yet (ROADMAP {UNPORTED_KNOBS[name]})")
-    if prefetch_depth is not None:
-        value = int(prefetch_depth)
-        if value < _PREFETCH_MIN:
+    ints = {}
+    for name, value in (("IOTML_PREFETCH_DEPTH", prefetch_depth),
+                        ("IOTML_DECODE_RING_BUFFERS", decode_ring_buffers),
+                        ("IOTML_RAW_BATCH_BYTES", raw_batch_bytes),
+                        ("IOTML_PRODUCE_BATCH_BYTES", produce_batch_bytes)):
+        if value is None:
+            continue
+        value = int(value)
+        lo = _DEFAULTS[name][1]
+        if value < lo:
             # validate BEFORE publishing: a caught error must not leave
             # an invalid value active process-wide
-            raise ValueError(f"IOTML_PREFETCH_DEPTH={value}: must be >= "
-                             f"{_PREFETCH_MIN}")
-        os.environ["IOTML_PREFETCH_DEPTH"] = str(value)
+            raise ValueError(f"{name}={value}: must be >= {lo}")
+        ints[name] = str(value)
+    os.environ.update(ints)
     if raw_produce is not None:
         os.environ["IOTML_RAW_PRODUCE"] = mode
+
+
+class _Slot:
+    """One reusable set of column buffers (a decode target)."""
+
+    __slots__ = ("x", "labels", "keys")
+
+    def __init__(self, rows: int, n_numeric: int, n_strings: int,
+                 label_stride: int, key_stride: int, with_keys: bool):
+        self.x = np.zeros((rows, n_numeric), np.float32)
+        self.labels = np.zeros((rows, max(n_strings, 1)),
+                               f"S{label_stride}")
+        self.keys = np.zeros((rows,), f"S{key_stride}") if with_keys \
+            else None
+
+
+class DecodeRing:
+    """Round-robin ring of preallocated columnar decode buffers.
+
+    The decoder fills slot i while the batcher may still hold views of
+    the slots before it (the tail carried between chunks keeps at most
+    the last partial chunk alive, and the normalized output is always a
+    fresh block), so with at least 2 slots a decode never overwrites
+    bytes a held view still reads.  The buffers are allocated once for
+    the pipeline's lifetime.
+    """
+
+    def __init__(self, rows: int, n_numeric: int, n_strings: int,
+                 label_stride: int = 16, key_stride: int = 64,
+                 with_keys: bool = False,
+                 n_buffers: Optional[int] = None):
+        n = decode_ring_buffers() if n_buffers is None else int(n_buffers)
+        if n < 2:
+            raise ValueError(f"decode ring needs >= 2 buffers, got {n}")
+        self.rows = int(rows)
+        self._slots: List[_Slot] = [
+            _Slot(self.rows, n_numeric, n_strings, label_stride,
+                  key_stride, with_keys)
+            for _ in range(n)]
+        self._i = 0
+
+    def __len__(self) -> int:
+        return len(self._slots)
+
+    def next_slot(self) -> _Slot:
+        """The next decode target (round-robin reuse)."""
+        slot = self._slots[self._i]
+        self._i = (self._i + 1) % len(self._slots)
+        return slot

@@ -111,10 +111,15 @@ class NativeIngestBridge:
     def __init__(self, stream,
                  mapping: Optional[TopicMapping] = None,
                  partitions: int = 10, port: int = 0):
+        from ..stream.broker import Broker
+
         self.stream = stream
         self.mapping = mapping or TopicMapping.sensor_data()
-        stream.create_topic(self.mapping.stream_topic,
-                            partitions=partitions)
+        spec = stream.create_topic(self.mapping.stream_topic,
+                                   partitions=partitions)
+        # the topic may exist with another count: partition by the real
+        # one, or keyed routing forks across producers
+        partitions = getattr(spec, "partitions", partitions) or partitions
         self.ingest = NativeMqttIngest(port)
         self.port = self.ingest.port
         self._match_cache: dict = {}
@@ -128,6 +133,17 @@ class NativeIngestBridge:
         #: cumulative seconds spent in the stream-produce call (the
         #: bridge leg of the e2e produce breakdown)
         self.produce_seconds = 0.0
+        #: the raw produce leg into a wire client (None: produce_many)
+        self._raw = None
+        self._partitions = partitions
+        self._part_cache: dict = {}  # record key bytes → partition
+        if getattr(stream, "produce_raw", None) is not None and \
+                not isinstance(stream, Broker):
+            from ..stream.producer import RawBatchProducer
+
+            rp = RawBatchProducer(stream, self.mapping.stream_topic)
+            if rp.engaged is not False:
+                self._raw = rp
         self._m_fwd = default_registry.counter(
             "kafka_extension_total_forwarded",
             "MQTT publishes bridged into the stream broker (reference "
@@ -167,16 +183,60 @@ class NativeIngestBridge:
         n = len(entries)
         if entries:
             t0 = time.perf_counter()
-            # bulk append under one broker lock — the per-message
-            # produce loop was this bridge's bottleneck once parsing
-            # went native.  produce_many is the Broker duck-type
-            # contract (emulator, wire client, native client alike),
-            # so a real cluster swap stays a constructor change.
-            self.stream.produce_many(self.mapping.stream_topic, entries)
+            if self._raw is not None and self._raw.engaged is not False:
+                self._produce_raw(entries)
+            else:
+                # bulk append under one broker lock — the per-message
+                # produce loop was this bridge's bottleneck once parsing
+                # went native.  produce_many is the Broker duck-type
+                # contract (emulator, wire client, native client alike),
+                # so a real cluster swap stays a constructor change.
+                self.stream.produce_many(self.mapping.stream_topic,
+                                         entries)
             self.produce_seconds += time.perf_counter() - t0
             self._n_fwd += n
             self._m_fwd.inc(n)
         return n
+
+    def _produce_raw(self, entries) -> None:
+        """Frame a drained batch once and ship it a partition at a time
+        over RAW_PRODUCE, partitioned by key hash as ``produce_many``
+        partitions (per-key order holds across clients; the partition of
+        a key is cached, fleets publish on stable per-car topics).
+        Batches past ``IOTML_PRODUCE_BATCH_BYTES`` split at frame
+        boundaries."""
+        import zlib
+
+        from ..data.pipeline import produce_batch_bytes
+        from ..ops.framing import frame_entries
+
+        cache = self._part_cache
+        npart = self._partitions
+        by_part: dict = {}
+        for e in entries:
+            key = e[0]
+            p = cache.get(key)
+            if p is None:
+                p = zlib.crc32(key) % npart
+                if len(cache) < 1_000_000:
+                    cache[key] = p
+            by_part.setdefault(p, []).append(e)
+        cap = produce_batch_bytes()
+        for p, ents in by_part.items():
+            start = size = 0
+            for i, e in enumerate(ents):
+                # a frame's size ≈ key + value + its fixed head (the slack
+                # the in-memory read_raw budget uses)
+                size += len(e[0]) + len(e[1] or b"") + 64
+                if size >= cap and i > start:
+                    chunk = ents[start:i]
+                    self._raw.produce_frames(p, frame_entries(chunk),
+                                             len(chunk), entries=chunk)
+                    start, size = i, len(e[0]) + len(e[1] or b"") + 64
+            chunk = ents[start:]
+            if chunk:
+                self._raw.produce_frames(p, frame_entries(chunk),
+                                         len(chunk), entries=chunk)
 
     def forwarded(self) -> int:
         return self._n_fwd

@@ -36,10 +36,20 @@ Topic ownership is ported: ``restrict_topic(prefix)`` makes every topic
 of that prefix writable only by a thread inside ``producer_grant(token)``
 (the KSQL engine's AVRO leg; other producers get
 ``TopicOwnershipError``, the wire server answers them Kafka's
-TOPIC_AUTHORIZATION_FAILED).  The raw frame-batch legs (``fetch_raw``,
-``produce_raw``) and the replication hooks (``produce_at``,
-``align_base_offset``, ``reset_partition``, ``fetch_tail``) are not
-ported.
+TOPIC_AUTHORIZATION_FAILED).
+
+The raw frame-batch legs are ported: ``fetch_raw`` hands back a
+``RawFrameBatch`` of store frames (a durable partition's own segment
+bytes, read outside the lock; the in-memory partition re-frames its
+slice through the one codec), and ``produce_raw`` lands a pre-framed
+batch (the RAW_PRODUCE landing: validated whole and offset-stamped by
+the engine, then appended as it is on a durable partition or decoded
+into the list in memory; a corrupt batch raises
+``CorruptMessageError`` before any byte lands, and the chaos point
+``broker.produce_raw`` can ``corrupt`` one).  Not ported (ROADMAP A14):
+the replication hooks (``produce_at``, ``produce_raw_at``,
+``align_base_offset``, ``reset_partition``, ``fetch_tail``) and the
+quorum read ceiling, so ``fetch_raw_tail`` is ``fetch_raw``.
 """
 
 from __future__ import annotations
@@ -71,6 +81,22 @@ class OffsetOutOfRangeError(LookupError):
         self.partition = partition
         self.offset = offset
         self.earliest = earliest
+
+
+class CorruptMessageError(ValueError):
+    """A pre-framed RAW_PRODUCE batch failed CRC/offset validation: the
+    whole batch is rejected before any byte lands (no partial append).
+    The wire server answers Kafka CORRUPT_MESSAGE (2); the producer
+    re-frames and redelivers."""
+
+    def __init__(self, topic: str, partition: int, index: int):
+        super().__init__(
+            f"corrupt pre-framed batch for {topic}:{partition} at frame "
+            f"{index}: whole batch rejected, nothing appended "
+            f"(Kafka CORRUPT_MESSAGE)")
+        self.topic = topic
+        self.partition = partition
+        self.index = index
 
 
 class TopicOwnershipError(PermissionError):
@@ -197,6 +223,41 @@ class _Partition:
         return [(offset + i, key, value, ts, hdrs) for i, (key, value, ts, hdrs)
                 in enumerate(self.log[idx:idx + max_messages])]
 
+    def read_raw(self, offset: int, max_bytes: int) -> Optional[tuple]:
+        """(store frames from ``offset``, ``offset``), or None at the log
+        end: the list has no frames, so its slice is re-framed through
+        the one codec (``ops.framing.encode_frame_batch``), up to
+        ``max_bytes`` counted as value + key + 64 a record."""
+        from ..ops.framing import encode_frame_batch
+
+        idx = offset - self.base_offset
+        if idx >= len(self.log):
+            return None
+        out = []
+        size = 0
+        i = idx
+        while i < len(self.log) and size < max_bytes:
+            key, value, ts, hdrs = self.log[i]
+            out.append((offset + (i - idx), key, value, ts, hdrs))
+            size += _size(key, value) + 64
+            i += 1
+        return encode_frame_batch(out), offset
+
+    def append_raw(self, blob, count, first, last, max_ts,
+                   sync: bool = True) -> int:
+        """Land a validated raw frame batch: the list holds no frames, so
+        each is decoded through the one parser and appended.  Only a
+        gap-free continuation of the log is representable."""
+        from ..ops.framing import iter_frame_entries
+
+        for off, key, value, ts, hdrs in iter_frame_entries(blob):
+            if off != self.end():
+                raise ValueError(
+                    f"in-memory partition cannot represent an offset hole "
+                    f"({off} != end {self.end()})")
+            self.append(key, value, ts, hdrs, sync=False)
+        return first
+
     def drop_head(self, count: int) -> None:
         for key, value, _ts, _h in self.log[:count]:
             self.bytes -= _size(key, value)
@@ -265,6 +326,9 @@ class _DurablePartition:
 
     def read(self, offset: int, max_messages: int) -> List[tuple]:
         return self.slog.read_from(offset, max_messages)
+
+    def read_raw(self, offset: int, max_bytes: int) -> Optional[tuple]:
+        return self.slog.read_raw(offset, max_bytes)
 
     def enforce_retention(self, spec: TopicSpec) -> None:
         pol = self.slog.policy
@@ -523,6 +587,44 @@ class Broker:
         return self.produce_many(topic, [(key, v, 0) for v in values],
                                  partition=partition)
 
+    def produce_raw(self, topic: str, partition: int, frames: bytes) -> int:
+        """Append a PRE-FRAMED batch (contiguous store frames, offsets
+        unstamped): the RAW_PRODUCE landing.  Every frame's CRC is
+        validated and the log offsets are stamped into the heads in one
+        engine call (``ops.framing.restamp_frame_batch``); a durable
+        partition then appends the batch's own bytes, the in-memory one
+        decodes it into its list.  Returns the batch's base offset.  A
+        torn or corrupt batch raises ``CorruptMessageError`` before any
+        byte lands.  Not idempotent: the caller owns redelivery, as with
+        ``produce``."""
+        from ..ops import framing
+
+        act = chaos.point("broker.produce_raw")
+        if act is not None and act.kind == "corrupt":
+            # seeded corruption of the batch in flight: one flipped byte
+            # must reject the whole batch with nothing landed
+            mangled = bytearray(frames)
+            if mangled:
+                mangled[len(mangled) // 2] ^= 0xFF
+            frames = bytes(mangled)
+        self._check_producer(topic)
+        if topic not in self._topics:
+            self.create_topic(topic, partitions=max(partition + 1, 1))
+        part = self._parts[topic][partition]
+        with self._lock:
+            base = part.end()
+            try:
+                stamped, count, max_ts = framing.restamp_frame_batch(
+                    frames, base)
+            except framing.CorruptFrameError as e:
+                raise CorruptMessageError(topic, partition, e.index) from e
+            if count:
+                part.append_raw(stamped, count, base, base + count - 1,
+                                max_ts, sync=False)
+                part.sync_batch()
+                part.enforce_retention(self._topics[topic])
+        return base
+
     # --------------------------------------------------------- compaction
     def run_compaction(self, force: bool = False) -> Dict[tuple, object]:
         """One compaction pass over every ``cleanup_policy="compact"``
@@ -616,6 +718,40 @@ class Broker:
                                             part.base()) from None
         return [Message(topic, partition, off, value, key, ts, hdrs)
                 for off, key, value, ts, hdrs in chunk]
+
+    def fetch_raw(self, topic: str, partition: int, offset: int,
+                  max_bytes: int = 1 << 20):
+        """Up to ~``max_bytes`` of contiguous store frames from ``offset``
+        as a ``RawFrameBatch``: no ``Message`` list, no per-record
+        object.  A durable partition serves its segment's bytes (read
+        outside the lock, like ``fetch``: the batch may start at the
+        sparse-index entry before ``offset`` and end mid-frame); the
+        in-memory one re-frames its slice.  None at the log end;
+        ``OffsetOutOfRangeError`` below the retained base."""
+        from ..ops.framing import RawFrameBatch
+
+        chaos.point("broker.fetch")  # a raw batch is one fetch to chaos
+        part = self._parts[topic][partition]
+        with self._lock:
+            base = part.base()
+            if offset < base:
+                raise OffsetOutOfRangeError(topic, partition, offset, base)
+            res = part.read_raw(offset, max_bytes) \
+                if isinstance(part, _Partition) else False
+        if res is False:
+            try:
+                res = part.read_raw(offset, max_bytes)
+            except LookupError:
+                raise OffsetOutOfRangeError(topic, partition, offset,
+                                            part.base()) from None
+        if res is None:
+            return None
+        data, start = res
+        return RawFrameBatch(topic, partition, start, data)
+
+    #: without replication (ROADMAP A14) there is no quorum ceiling: the
+    #: tail read a follower would use is the consumer's read
+    fetch_raw_tail = fetch_raw
 
     def read_since(self, topic: str, partition: int, timestamp_ms: int,
                    max_messages: int = 1024) -> List[Message]:

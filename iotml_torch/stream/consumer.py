@@ -19,14 +19,24 @@ off, ``IOTML_WATERMARK=0``, neither computes the bounds), beats the
 ``consume`` stage's liveness under tracing, and observes
 ``iotml_fetch_batch_size``; auto-resets count into
 ``iotml_consumer_autoresets_total``; ``commit`` refreshes
-``iotml_consumer_lag_records`` and times ``iotml_commit_seconds``.  The
-columnar ring poll (``poll_into``) and its raw-batch traces are ROADMAP
-A3, item 13.
+``iotml_consumer_lag_records`` and times ``iotml_commit_seconds``.
+
+``poll_into`` is the columnar ring's poll: raw frame batches
+(``fetch_raw``: a durable broker's segment bytes, or RAW_FETCH over the
+wire) decoded by ``stream.native.FrameDecoder`` straight into the
+caller's buffers, no per-record object; its event-time bounds come off
+the decoder's frame walk.  It stops for the caller's per-record leg at
+an evolved writer's frame, jumps a recovery hole, resets a trimmed
+cursor and, against a server without RAW_FETCH, switches itself off for
+good.  Under tracing, a raw batch's first-frame trace context is marked
+``consume`` and held for ``take_batch_traces``.
 """
 
 from __future__ import annotations
 
+import collections
 import operator
+from struct import error as struct_error
 from typing import List, Sequence
 
 import numpy as np
@@ -81,6 +91,12 @@ class StreamConsumer:
         #: per-(topic, partition) [min_ts, max_ts] of records consumed
         #: since the last take_event_time()
         self._event_ts: dict = {}
+        #: trace contexts of raw batches' first frames (poll_into under
+        #: tracing), bounded, drained by the batcher
+        self._batch_traces: collections.deque = collections.deque(
+            maxlen=1024)
+        #: a wire server without RAW_FETCH: poll_into is off for good
+        self._raw_unsupported = False
 
     @classmethod
     def from_committed(cls, broker: Broker, topic: str,
@@ -133,6 +149,17 @@ class StreamConsumer:
         out = {k: tuple(v) for k, v in self._event_ts.items()}
         self._event_ts.clear()
         return out
+
+    def take_batch_traces(self) -> list:
+        """Drain the trace contexts ``poll_into`` took off raw batches'
+        first frames: the batcher queues them for the pipeline's closer
+        (the scorer or the train step), as it does record traces."""
+        out: list = []
+        while True:
+            try:
+                out.append(self._batch_traces.popleft())
+            except IndexError:
+                return out
 
     def record_lag(self) -> int:
         """Refresh ``iotml_consumer_lag_records{group,topic,partition}``
@@ -257,6 +284,117 @@ class StreamConsumer:
             return empty + (np.zeros((0,), "S1"),) if with_keys else empty
         out = (np.concatenate(nums), np.concatenate(labs))
         return out + (np.concatenate(keys),) if with_keys else out
+
+    def poll_into(self, decoder, out_numeric, out_labels, out_keys=None,
+                  max_rows: int = 4096, max_bytes: int = 1 << 20):
+        """Columnar poll over raw frame batches, round-robin as ``poll``:
+        ``fetch_raw`` from each cursor, decoded by ``decoder``
+        (``stream.native.FrameDecoder``) straight into the caller's
+        buffers.  The one decode entry of live consume and
+        timestamp-replay backfill alike (a backfill is this after
+        ``seek_to_timestamp``).
+
+        Returns ``(rows, fallback)``: the rows decoded (the cursors moved
+        past exactly those), and ``fallback=True`` when a cursor is
+        parked on a chunk this path must not decode (an evolved writer's
+        id, or bytes only the per-record leg reads): the caller takes
+        ONE ``poll`` chunk and comes back.  Returns None when the broker
+        has no raw reads.  A trimmed cursor resets to the earliest
+        retained offset and fetches again."""
+        fr = getattr(self.broker, "fetch_raw", None)
+        if fr is None or self._raw_unsupported:
+            return None
+        from .native import FRAMES_STOP_SCHEMA, FRAMES_STOP_TORN
+
+        rows = 0
+        n = len(self._cursors)
+        attempts = 0
+        while rows < max_rows and attempts < n:
+            cur = self._cursors[self._rr % n]
+            self._rr += 1
+            attempts += 1
+            topic, part, off = cur
+            raw = None
+            for _ in range(4):  # _fetch_autoreset's retry envelope
+                try:
+                    raw = fr(topic, part, off, max_bytes=max_bytes)
+                    break
+                except NotImplementedError:
+                    # a wire server without RAW_FETCH: back to the other
+                    # legs for good (rows already decoded stand)
+                    self._raw_unsupported = True
+                    return (rows, False) if rows else None
+                except OffsetOutOfRangeError as e:
+                    # reset to earliest, then fetch again: a retention
+                    # trim must not read as the end of the stream
+                    off = max(e.earliest,
+                              self.broker.begin_offset(topic, part))
+                    cur[2] = off
+                    self.autoresets += 1
+                    obs_metrics.consumer_autoresets.inc(topic=topic)
+            if raw is None:
+                continue
+            got, next_off, flags, _skipped = decoder.decode_into(
+                raw.data, off, out_numeric[rows:], out_labels[rows:],
+                out_keys[rows:] if out_keys is not None else None,
+                cap_rows=max_rows - rows)
+            if got or next_off > off:
+                # progress: rows decoded and/or tombstones skipped; the
+                # event-time bounds fall out of the decoder's walk
+                cur[2] = next_off
+                rows += got
+                attempts = 0
+                if watermark.ENABLED:
+                    self._note_event_ts(topic, part, decoder.last_ts_min,
+                                        decoder.last_ts_max)
+                if tracing.ENABLED:
+                    tracing.touch("consume")
+                    self._extract_batch_trace(raw, topic, part, off,
+                                              next_off, got)
+                continue
+            if flags & FRAMES_STOP_SCHEMA:
+                # an evolved writer at the cursor: the caller resolves
+                # one chunk by name, then comes back
+                return rows, True
+            if flags & FRAMES_STOP_TORN:
+                # parked on bytes the raw scan cannot cross: a recovery
+                # hole (the probe jumps it), a record only the per-record
+                # leg reads (fall back one chunk), or an append in flight
+                # (no data yet).  One bounded one-record probe.
+                probe, eff = self._fetch_autoreset(topic, part, off, 1)
+                cur[2] = eff
+                if probe and probe[0].offset > eff:
+                    cur[2] = probe[0].offset  # hole jumped: raw again
+                    continue
+                if probe:
+                    return rows, True
+        if rows:
+            obs_metrics.fetch_batch_size.observe(rows)
+        return rows, False
+
+    def _extract_batch_trace(self, raw, topic: str, part: int,
+                             first_off: int, next_off: int,
+                             got: int) -> None:
+        """A sampled raw batch carries a trace context in its first
+        frame's headers: one first-frame parse a raw fetch, under
+        tracing only.  The context is marked ``consume`` with the batch's
+        offset range and held for the pipeline's closer.  A batch head
+        served again below ``first_off`` (the sparse-index alignment) is
+        not a new batch and is skipped."""
+        from ..ops.framing import first_frame_headers
+
+        try:
+            hdrs = first_frame_headers(raw.data, at_or_after=first_off)
+        except (ValueError, struct_error):
+            return
+        ctx = tracing.from_headers(hdrs)
+        if ctx is None:
+            return
+        tracing.mark_batch(ctx, "consume", topic, part, first_off,
+                           next_off - 1, got)
+        if len(self._batch_traces) == self._batch_traces.maxlen:
+            tracing.spans_dropped.inc()
+        self._batch_traces.append(ctx)
 
     def at_end(self) -> bool:
         return all(off >= self.broker.end_offset(t, p)

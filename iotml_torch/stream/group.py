@@ -23,8 +23,9 @@ Across processes the coordinator lives in the wire server
 (``stream.kafka_wire.KafkaWireServer.group_coordinator``) and
 ``GroupConsumer`` reaches it through ``kafka_wire.RemoteGroupCoordinator``,
 the same duck-type over JoinGroup / SyncGroup / Heartbeat / LeaveGroup /
-OffsetCommit.  The group consumer's fused and columnar polls are not
-ported.
+OffsetCommit.  ``GroupConsumer.poll_into`` is the columnar ring's poll
+over the assigned partitions (``StreamConsumer.poll_into``); the group
+consumer's fused poll is not ported.
 """
 
 from __future__ import annotations
@@ -358,6 +359,18 @@ class GroupConsumer:
         from the assigned partitions round-robin."""
         self._ensure_membership()
         return self._sc.poll(max_messages)
+
+    def poll_into(self, decoder, out_numeric, out_labels, out_keys=None,
+                  max_rows: int = 4096, max_bytes: int = 1 << 20):
+        """``StreamConsumer.poll_into`` over the assigned partitions, after
+        the heartbeat and membership healing ``poll`` does; None when the
+        broker has no raw reads."""
+        if getattr(self.broker, "fetch_raw", None) is None:
+            return None
+        self._ensure_membership()
+        return self._sc.poll_into(decoder, out_numeric, out_labels,
+                                  out_keys=out_keys, max_rows=max_rows,
+                                  max_bytes=max_bytes)
 
     def at_end(self) -> bool:
         return self._sc.at_end()

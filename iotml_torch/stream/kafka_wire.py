@@ -32,10 +32,20 @@ decoder.  There is no fallback: a set the engine refuses raises the pure
 decoder's own error, and raises all the same when the pure decoder would
 have accepted it.
 
-Not ported (ROADMAP): the JAX package's raw columnar extensions RAW_FETCH
-and RAW_PRODUCE (API keys 64, 65) and CLUSTER_ADMIN (66), which this
-server answers with UNSUPPORTED_VERSION as a server without them does;
-leader-epoch fencing and the supervised topology; replica fetches; the
+The JAX package's raw columnar extensions are ported: RAW_FETCH (API key
+64) answers one partition's store frames as they are (a durable broker's
+segment bytes, ``Broker.fetch_raw``) for the consumer's columnar decoder,
+and RAW_PRODUCE (65) lands a pre-framed batch (``Broker.produce_raw``;
+a corrupt batch answers CORRUPT_MESSAGE with nothing appended).  The
+client's ``fetch_raw`` / ``produce_raw`` raise NotImplementedError
+against a server without them, which answers UNSUPPORTED_VERSION; the
+consumer and ``RawBatchProducer`` then pin back to FETCH and PRODUCE.
+RAW_PRODUCE is not idempotent (never auto-retried), RAW_FETCH is.
+
+Not ported (ROADMAP A14): CLUSTER_ADMIN (66), answered UNSUPPORTED_VERSION
+as a server without it does; the replica leg of RAW_FETCH (a
+``replica_id`` >= 0 is served as a consumer: there is no ISR and no
+quorum ceiling); leader-epoch fencing and the supervised topology; the
 cluster view.  The client passes the chaos points ``kafka_wire.send``
 (``error``, ``delay``, ``short_write``: half a frame, then OSError) and
 ``kafka_wire.recv`` on every frame.  Records carry no headers on the
@@ -59,7 +69,8 @@ from ..chaos import faults as chaos
 from ..obs import tracing
 from ..utils.net import parse_bootstrap, recv_exact
 from . import native
-from .broker import Broker, Message, OffsetOutOfRangeError, TopicSpec
+from .broker import (Broker, CorruptMessageError, Message,
+                     OffsetOutOfRangeError, TopicSpec)
 
 # api keys
 PRODUCE, FETCH, LIST_OFFSETS, METADATA = 0, 1, 2, 3
@@ -67,10 +78,18 @@ OFFSET_COMMIT, OFFSET_FETCH = 8, 9
 FIND_COORDINATOR, JOIN_GROUP, HEARTBEAT, LEAVE_GROUP, SYNC_GROUP = \
     10, 11, 12, 13, 14
 SASL_HANDSHAKE, API_VERSIONS, CREATE_TOPICS = 17, 18, 19
+#: the JAX package's extensions, keys far outside Kafka's range: a fetch
+#: answered with the broker's raw store frames (one buffer for the
+#: consumer's columnar decoder), and its write-path mirror, a produce of
+#: pre-framed frames the broker appends as they are.  Kafka's servers
+#: answer UNSUPPORTED_VERSION and the clients pin back to FETCH/PRODUCE.
+RAW_FETCH = 64
+RAW_PRODUCE = 65
 
 # error codes
 ERR_NONE = 0
 ERR_OFFSET_OUT_OF_RANGE = 1
+ERR_CORRUPT_MESSAGE = 2
 ERR_UNKNOWN_TOPIC = 3
 ERR_NOT_LEADER_FOR_PARTITION = 6
 ERR_ILLEGAL_GENERATION = 22
@@ -88,7 +107,8 @@ _SUPPORTED = {PRODUCE: (2, 2), FETCH: (2, 2), LIST_OFFSETS: (1, 1),
               FIND_COORDINATOR: (0, 0), JOIN_GROUP: (0, 0),
               HEARTBEAT: (0, 0), LEAVE_GROUP: (0, 0), SYNC_GROUP: (0, 0),
               SASL_HANDSHAKE: (0, 0), API_VERSIONS: (0, 0),
-              CREATE_TOPICS: (0, 0)}
+              CREATE_TOPICS: (0, 0), RAW_FETCH: (0, 0),
+              RAW_PRODUCE: (0, 0)}
 
 # APIs the client may retry after a reconnect (see _request): a duplicate
 # of any of these is invisible (a read) or a no-op (a liveness signal).
@@ -96,9 +116,9 @@ _SUPPORTED = {PRODUCE: (2, 2), FETCH: (2, 2), LIST_OFFSETS: (1, 1),
 # changes) may have been APPLIED by the dead server before it died, so a
 # blind retry would apply it twice; those raise ConnectionError and the
 # caller owns redelivery.
-IDEMPOTENT_APIS = frozenset({FETCH, METADATA, LIST_OFFSETS, OFFSET_FETCH,
-                             API_VERSIONS, SASL_HANDSHAKE, HEARTBEAT,
-                             FIND_COORDINATOR})
+IDEMPOTENT_APIS = frozenset({FETCH, RAW_FETCH, METADATA, LIST_OFFSETS,
+                             OFFSET_FETCH, API_VERSIONS, SASL_HANDSHAKE,
+                             HEARTBEAT, FIND_COORDINATOR})
 
 #: a fetch answers at most this many records a partition, then cuts the
 #: set at the request's max_bytes (possibly mid-entry)
@@ -615,6 +635,46 @@ class KafkaWireBroker(ProducePartitionMixin):
                 last = max(last, base + len(by_part[p]) - 1)
         return last
 
+    def produce_raw(self, topic: str, partition: int, frames: bytes) -> int:
+        """RAW_PRODUCE: ship a pre-framed batch the broker validates whole,
+        stamps and appends as it is; returns the batch's base offset.
+        Raises NotImplementedError against a server without the
+        extension (pin back to PRODUCE), ``CorruptMessageError`` when the
+        server rejected the batch (nothing appended), and
+        ConnectionError on a lost connection: never auto-retried, the
+        caller owns redelivery, as with ``produce_many``."""
+        w = _Writer()
+        w.string(topic).i32(partition).bytes_(frames)
+        # the trailing acks and timeout a JAX server reads (acks -1 as
+        # produce_many's); a server without them stops at the frames
+        w.i16(-1).i32(10_000)
+        r = self._request(RAW_PRODUCE, 0, bytes(w.buf))
+        err = r.i16()
+        if err == ERR_UNSUPPORTED_VERSION:
+            raise NotImplementedError(
+                "server lacks the RAW_PRODUCE extension")
+        base = r.i64()
+        r.i32()  # frames appended
+        if err == ERR_CORRUPT_MESSAGE:
+            raise CorruptMessageError(topic, partition, int(base))
+        if err == ERR_NOT_LEADER_FOR_PARTITION:
+            raise NotLeaderForPartitionError(topic, partition)
+        if err == ERR_INVALID_REQUIRED_ACKS:
+            raise ValueError(f"raw produce to {topic}:{partition} refused: "
+                             f"required_acks must be -1, 0 or 1; nothing "
+                             f"appended")
+        if err == ERR_UNKNOWN_TOPIC:
+            raise KeyError(topic)
+        if err == ERR_TOPIC_AUTHORIZATION_FAILED:
+            raise PermissionError(
+                f"raw produce to {topic}:{partition} refused: the topic is "
+                f"restricted to its owning engine (Broker.restrict_topic); "
+                f"nothing appended")
+        if err != ERR_NONE:
+            raise RuntimeError(
+                f"raw produce to {topic}:{partition} failed: {err}")
+        return base
+
     # --------------------------------------------------------------- fetch
     def fetch(self, topic: str, partition: int, offset: int,
               max_messages: int = 1024) -> List[Message]:
@@ -654,6 +714,44 @@ class KafkaWireBroker(ProducePartitionMixin):
                         # a null value is a tombstone: kept as None
                         out.append(Message(tname, pid, off, value, key, ts))
         return out
+
+    def fetch_raw(self, topic: str, partition: int, offset: int,
+                  max_bytes: int = 1 << 20):
+        """RAW_FETCH: the broker's store frames from ``offset``, as they
+        are, in one ``RawFrameBatch`` (the consumer's columnar decoder
+        does all record work on the one buffer).  None at the log end;
+        NotImplementedError against a server without the extension (the
+        consumer then pins back to FETCH for good); OffsetOutOfRangeError
+        below the retained base, with the earliest retained offset."""
+        from ..ops.framing import RawFrameBatch
+
+        w = _Writer()
+        # the trailing replica id a JAX server reads: -1, a consumer
+        w.string(topic).i32(partition).i64(offset).i32(max_bytes).i32(-1)
+        r = self._request(RAW_FETCH, 0, bytes(w.buf))
+        err = r.i16()
+        if err == ERR_UNSUPPORTED_VERSION:
+            # raised, not None: the consumer must switch the columnar path
+            # off, not take it for the log end
+            raise NotImplementedError("server lacks the RAW_FETCH extension")
+        aux = r.i64()  # the batch's start offset; the earliest for error 1
+        blob = r.bytes_()
+        if err == ERR_NONE and r.pos + 8 <= len(r.buf):
+            hwm = r.i64()  # trailing high-water mark (-1: not answered)
+            if hwm >= 0:
+                self._hwm[(topic, partition)] = hwm
+        if err == ERR_OFFSET_OUT_OF_RANGE:
+            raise OffsetOutOfRangeError(topic, partition, offset,
+                                        max(aux, 0))
+        if err == ERR_UNKNOWN_TOPIC:
+            raise KeyError(topic)
+        if err == ERR_NOT_LEADER_FOR_PARTITION:
+            raise NotLeaderForPartitionError(topic, partition)
+        if err != ERR_NONE:
+            raise RuntimeError(f"raw fetch {topic}:{partition}: {err}")
+        if not blob:
+            return None  # the log end
+        return RawFrameBatch(topic, partition, int(aux), blob)
 
     def last_hwm(self, topic: str, partition: int) -> Optional[int]:
         """The newest high-water mark seen for (topic, partition) in a
@@ -1048,7 +1146,8 @@ class _KafkaConn(socketserver.BaseRequestHandler):
          FIND_COORDINATOR: self._find_coordinator,
          JOIN_GROUP: self._join_group, SYNC_GROUP: self._sync_group,
          HEARTBEAT: self._heartbeat, LEAVE_GROUP: self._leave_group,
-         CREATE_TOPICS: self._create_topics}[api_key](broker, r, w)
+         CREATE_TOPICS: self._create_topics, RAW_FETCH: self._raw_fetch,
+         RAW_PRODUCE: self._raw_produce}[api_key](broker, r, w)
 
     def _metadata(self, broker, r, w):
         n = r.i32()
@@ -1173,6 +1272,107 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         w.array(resp, lambda wr, t: (wr.string(t[0]), wr.array(
             t[1], lambda pw, p: pw.i32(p[0]).i16(p[1]).i64(p[2])
             .bytes_(p[3]))))
+
+    @staticmethod
+    def _mark_raw_batch(frames: bytes, stage: str, topic: str, pid: int,
+                        at_or_after: Optional[int] = None) -> None:
+        """The server's hop of a traced raw batch: the context its first
+        frame's headers carry, marked once for the whole batch (one
+        frame parsed; bytes that hold no trace are simply not one)."""
+        from ..ops.framing import first_frame_headers
+
+        try:
+            hdrs = first_frame_headers(frames, at_or_after=at_or_after)
+        except (ValueError, struct.error):
+            return
+        ctx = tracing.from_headers(hdrs)
+        if ctx is not None:
+            tracing.mark_batch(ctx, stage, topic, pid)
+
+    def _raw_fetch(self, broker, r, w):
+        """One partition's store frames as the broker holds them: no
+        message-set re-encode, no per-record work for a durable broker
+        (the in-memory one re-frames its slice).  A replica id is read
+        and served as a consumer (replication is not ported)."""
+        tname, pid = r.string(), r.i32()
+        offset, max_bytes = r.i64(), r.i32()
+        if r.pos + 4 <= len(r.buf):
+            r.i32()  # replica id
+        fetch_raw = getattr(broker, "fetch_raw", None)
+        if not self._valid_part(broker, tname, pid):
+            w.i16(ERR_UNKNOWN_TOPIC).i64(-1).bytes_(None)
+            return
+        if fetch_raw is None:  # a relay broker without raw reads
+            w.i16(ERR_UNSUPPORTED_VERSION)
+            return
+        try:
+            raw = fetch_raw(tname, pid, offset, max_bytes=max(max_bytes,
+                                                              4096))
+        except NotImplementedError:
+            # a relay whose upstream lacks the extension: the same answer
+            # as a server without it, so the client pins back to FETCH
+            w.i16(ERR_UNSUPPORTED_VERSION)
+            return
+        except NotLeaderForPartitionError:
+            w.i16(ERR_NOT_LEADER_FOR_PARTITION).i64(-1).bytes_(None)
+            return
+        except OffsetOutOfRangeError as e:
+            w.i16(ERR_OFFSET_OUT_OF_RANGE).i64(e.earliest).bytes_(None)
+            return
+        if hasattr(broker, "_request"):
+            # a relay answers from the hwm its own fetch just cached, not
+            # with an upstream round trip a fetch
+            hwm = broker.last_hwm(tname, pid)
+            hwm = -1 if hwm is None else hwm
+        else:
+            hwm = broker.end_offset(tname, pid)
+        if raw is None:
+            w.i16(ERR_NONE).i64(offset).bytes_(b"")
+        else:
+            if tracing.ENABLED:
+                self._mark_raw_batch(raw.data, "wire_raw_fetch", tname, pid,
+                                     at_or_after=offset)
+            w.i16(ERR_NONE).i64(raw.start_offset).bytes_(raw.data)
+        w.i64(hwm)  # trailing: the columnar consumer's lag, no extra trip
+
+    def _raw_produce(self, broker, r, w):
+        """A pre-framed batch appended as it is after the broker validated
+        it whole and stamped its offsets; a corrupt one answers
+        CORRUPT_MESSAGE with nothing appended.  Every append is
+        acknowledged at once (there is no replication to wait for)."""
+        tname, pid = r.string(), r.i32()
+        frames = r.bytes_() or b""
+        acks = r.i16() if r.pos + 2 <= len(r.buf) else -1
+        if r.pos + 4 <= len(r.buf):
+            r.i32()  # timeout
+        produce_raw = getattr(broker, "produce_raw", None)
+        if produce_raw is None:  # a relay without raw appends
+            w.i16(ERR_UNSUPPORTED_VERSION)
+            return
+        if acks not in (-1, 0, 1):
+            w.i16(ERR_INVALID_REQUIRED_ACKS).i64(-1).i32(0)
+            return
+        if tname not in broker.topics():
+            broker.create_topic(tname, partitions=max(pid + 1, 1))
+        if not self._valid_part(broker, tname, pid):
+            w.i16(ERR_UNKNOWN_TOPIC).i64(-1).i32(0)
+            return
+        if tracing.ENABLED:
+            self._mark_raw_batch(frames, "wire_raw_produce", tname, pid)
+        try:
+            base = produce_raw(tname, pid, frames)
+        except NotImplementedError:
+            w.i16(ERR_UNSUPPORTED_VERSION)
+        except CorruptMessageError as e:
+            w.i16(ERR_CORRUPT_MESSAGE).i64(e.index).i32(0)
+        except NotLeaderForPartitionError:
+            w.i16(ERR_NOT_LEADER_FOR_PARTITION).i64(-1).i32(0)
+        except PermissionError:
+            # engine-owned topic without the owner's grant
+            w.i16(ERR_TOPIC_AUTHORIZATION_FAILED).i64(-1).i32(0)
+        else:
+            w.i16(ERR_NONE).i64(base).i32(broker.end_offset(tname, pid)
+                                          - base)
 
     def _list_offsets(self, broker, r, w):
         r.i32()  # replica

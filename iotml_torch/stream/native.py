@@ -23,9 +23,15 @@ build into one library:
 - ``mqtt_ingest.cc``: the native MQTT ingest front, an epoll loop and
   frame parser that acks QoS 0/1 publishes and hands their (topic,
   payload) pairs to Python in bulk drains (``mqtt.native_ingest``);
-- ``frame_engine.cc``: the store's CRC32C (``crc32c``) and one call that
-  frames a whole batch of records as ready-to-append segment frames
-  (``frames_encode_values``, the durable broker's ``produce_many``).
+- ``frame_engine.cc``: the store's frame codec: its CRC32C (``crc32c``);
+  one call that frames a whole batch of records as ready-to-append
+  segment frames (``frames_encode_values``, the durable broker's
+  ``produce_many``) or encodes columnar rows straight into them
+  (``NativeCodec.encode_frames``, the KSQL JSON leg's raw produce); one
+  that validates a pre-framed batch whole and stamps its offsets
+  (``frames_restamp``, the RAW_PRODUCE landing) or walks it
+  (``frames_validate``); and the columnar decoder of raw frame batches
+  (``FrameDecoder``, the columnar ring's one decode entry).
 
 The library is built with g++ at first use, never at import:
 
@@ -47,7 +53,9 @@ output, and the pure codecs (``ops.avro``, ``kafka_wire``'s
 formatter (``fastfmt.format_rows_plain``) run only when called by name.
 
 ``stats`` counts the rows each engine call carried and the seconds it
-took (the wire server's handler threads count into it too, under a
+took (``frame_decode`` the rows the columnar decoder wrote, ``frame_encode``
+the frames either framing call wrote, ``frame_restamp`` the frames a
+RAW_PRODUCE landing stamped) (the wire server's handler threads count into it too, under a
 lock), and the rows the stream processor's native legs handed to their
 Python leg for exactness (``*_fallback_rows``: ``json`` rows the JSON
 parser flagged, ``decode`` rows of Avro source batches decoded in
@@ -168,6 +176,22 @@ _SIGNATURES = {
     "iotml_frames_encode_values": (_i64, [
         ctypes.c_char_p, _P(_i64), ctypes.c_char_p, _P(_i64), _P(_u8),
         _P(_u8), _P(_i64), _i64, _i64, _P(_u8), _i64]),
+    "iotml_frames_encode_columnar": (_i64, [
+        _P(ctypes.c_double), ctypes.c_char_p, _i64, _i64, _P(_i8), _P(_u8),
+        _i64, _i64, _P(_u8), _P(_u8), _P(_i64), _i64, _P(_u8), _P(_i64),
+        _i64, _P(_u8), _i64]),
+    "iotml_frames_decode_columnar_ts": (_i64, [
+        ctypes.c_char_p, _i64, _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_float), _vp, _i64, _vp, _i64, _i64, _P(_i64),
+        _P(_i64), _P(_i64), _P(_i64), _P(_i64)]),
+    "iotml_frames_decode_columnar": (_i64, [
+        ctypes.c_char_p, _i64, _i64, _P(_i8), _P(_u8), _i64, _i64,
+        _P(ctypes.c_float), _vp, _i64, _vp, _i64, _i64, _P(_i64),
+        _P(_i64), _P(_i64)]),
+    "iotml_frames_restamp": (_i64, [_vp, _i64, _i64, _P(_i64)]),
+    "iotml_frames_validate": (_i64, [
+        ctypes.c_char_p, _i64, _i64, _i64, _P(_i64), _P(_i64), _P(_i64), _P(_i64),
+        _P(_i64), _P(_i64)]),
 }
 
 #: rows carried by the engine and seconds spent in it, per entry
@@ -178,6 +202,8 @@ stats = {"decode_rows": 0, "decode_s": 0.0, "encode_rows": 0,
          "fetch_decode_rows": 0, "fetch_decode_s": 0.0,
          "json_decode_rows": 0, "json_decode_s": 0.0,
          "frame_encode_rows": 0, "frame_encode_s": 0.0,
+         "frame_decode_rows": 0, "frame_decode_s": 0.0,
+         "frame_restamp_rows": 0, "frame_restamp_s": 0.0,
          "json_fallback_rows": 0, "decode_fallback_rows": 0,
          "encode_fallback_rows": 0, "rekey_fallback_rows": 0,
          "count_fallback_rows": 0}
@@ -445,6 +471,63 @@ class NativeCodec:
         tally("encode", n, t0)
         return msgs
 
+    def encode_frames(self, numeric: np.ndarray,
+                      labels: Optional[np.ndarray],
+                      timestamps: Optional[np.ndarray] = None,
+                      keys=None, schema_id: int = 1,
+                      nulls: Optional[np.ndarray] = None,
+                      base_offset: int = 0,
+                      stride: int = LABEL_STRIDE) -> bytes:
+        """Columnar rows → ONE contiguous raw frame batch, in one engine
+        call: Confluent-framed Avro values (``encode_batch``'s bytes)
+        inside store frames stamped ``base_offset + i``, byte-identical
+        to ``encode_batch`` + ``store.segment.encode_record``.  ``keys``:
+        None (every key null), a list of key bytes (None entries are null
+        keys), or an ``S``-dtype array passed as one fixed-stride block
+        (no per-record object)."""
+        t0 = time.perf_counter()
+        numeric = np.ascontiguousarray(numeric, np.float64)
+        n = numeric.shape[0]
+        if labels is None:
+            labels = np.zeros((n, self.n_strings), f"S{stride}")
+        labels = np.ascontiguousarray(labels.astype(f"S{stride}"))
+        ts = np.zeros((n,), np.int64) if timestamps is None else \
+            np.ascontiguousarray(timestamps, np.int64)
+        kargs = (None, None, 0, None)
+        key_bytes = 0
+        if isinstance(keys, np.ndarray):
+            keys = np.ascontiguousarray(keys)
+            kargs = (_ptr(keys.view(np.uint8), _u8), None,
+                     keys.dtype.itemsize, None)
+            key_bytes = keys.nbytes
+        elif keys is not None:
+            kblob, koff = _column(keys)
+            knull = np.fromiter((k is None for k in keys), np.uint8, n)
+            kargs = (ctypes.cast(ctypes.c_char_p(kblob), _P(_u8)),
+                     _ptr(koff, _i64), 0, _ptr(knull, _u8))
+            key_bytes = len(kblob)
+        cap = n * (FRAME_OVERHEAD + 5 + self.n_fields * 20
+                   + self.n_strings * stride) + key_bytes + 64
+        out = np.empty((cap,), np.uint8)
+        if nulls is not None:
+            nulls = np.ascontiguousarray(nulls, np.uint8)
+        rc = self._lib.iotml_frames_encode_columnar(
+            _ptr(numeric, ctypes.c_double),
+            labels.ctypes.data_as(ctypes.c_char_p), stride, n,
+            _ptr(self.types, _i8), _ptr(self.nullable, _u8), self.n_fields,
+            schema_id, None if nulls is None else _ptr(nulls, _u8), *kargs,
+            _ptr(ts, _i64), int(base_offset), _ptr(out, _u8), cap)
+        if rc < 0:
+            raise ValueError("frame encode rejected the rows (overflow or "
+                             "a null on a non-nullable field)")
+        tally("frame_encode", n, t0)
+        return out[:rc].tobytes()
+
+    def frame_decoder(self, pinned_id_limit: Optional[int] = None
+                      ) -> "FrameDecoder":
+        """The columnar decoder of raw frame batches for this schema."""
+        return FrameDecoder(self, pinned_id_limit=pinned_id_limit)
+
 
 def _column(blobs) -> Tuple[bytes, np.ndarray]:
     """(joined bytes, offsets [n + 1]) of a list of bytes (None as b"")."""
@@ -561,3 +644,123 @@ def frames_encode_values(entries, base_offset: int = 0) -> bytes:
                          f"{n} records")
     tally("frame_encode", n, t0)
     return out[:rc].tobytes()
+
+
+def frames_restamp(buf, base_offset: int) -> Tuple[bytes, int, int]:
+    """Validate a pre-framed batch whole and stamp ``base_offset + i``
+    into its frame heads (CRCs recomputed), in one engine call.  Returns
+    (stamped bytes, frames, newest timestamp), or (b"", -(i + 1), -1)
+    when frame i is torn or corrupt (nothing stamped is returned)."""
+    t0 = time.perf_counter()
+    mutable = ctypes.create_string_buffer(bytes(buf), len(buf))
+    max_ts = ctypes.c_int64(-1)
+    rc = load().iotml_frames_restamp(mutable, len(buf), int(base_offset),
+                                     ctypes.byref(max_ts))
+    if rc < 0:
+        return b"", int(rc), -1
+    tally("frame_restamp", rc, t0)
+    return mutable.raw[:len(buf)], int(rc), int(max_ts.value)
+
+
+def frames_validate(buf: bytes, start_offset: int, strict: bool
+                    ) -> Tuple[int, Tuple[int, ...]]:
+    """CRC and offset-monotonicity walk of a raw frame batch in one
+    engine call: (count or -(i + 1) at a failing frame i, (first, last,
+    start_pos, end_pos, max_ts, contiguous))."""
+    outs = [ctypes.c_int64(0) for _ in range(6)]
+    rc = load().iotml_frames_validate(
+        buf, len(buf), int(start_offset), 1 if strict else 0,
+        *[ctypes.byref(o) for o in outs])
+    return int(rc), tuple(int(o.value) for o in outs)
+
+
+#: flag bits reported by the frame decoder (frame_engine.cc FrameFlags)
+FRAMES_STOP_TORN = 1     # a torn or corrupt frame parked the scan
+FRAMES_STOP_SCHEMA = 2   # a writer id outside the pinned band
+
+
+class FrameDecoder:
+    """Columnar decoder of raw store-frame batches (frame_engine.cc).
+
+    The one decode entry of the columnar ring: live consume
+    (``StreamConsumer.poll_into``) and timestamp-replay backfill both
+    decode here, over the frames a durable segment holds and the wire's
+    RAW_FETCH ships, into CALLER-OWNED float32 / label / key buffers
+    (``data.pipeline.DecodeRing`` slots): no per-record Python object.
+
+    ``pinned_id_limit`` is the exclusive upper bound of the Confluent
+    writer ids that decode positionally (default
+    ``core.schema.RESERVED_ID_BASE``, where the evolved writer schemas
+    live): an evolved writer's frame, or a value that is not Confluent
+    framed, stops the scan with ``FRAMES_STOP_SCHEMA``, and the caller
+    resolves that chunk by name instead of mis-reading it.
+    ``last_ts_min`` / ``last_ts_max`` are the event-time bounds (ms) of
+    the frames the last ``decode_into`` consumed, decoded rows and
+    skipped tombstones alike, -1 when it consumed none.
+    """
+
+    def __init__(self, codec: NativeCodec,
+                 pinned_id_limit: Optional[int] = None):
+        from ..core.schema import RESERVED_ID_BASE
+
+        self.codec = codec
+        self.pinned_id_limit = RESERVED_ID_BASE \
+            if pinned_id_limit is None else int(pinned_id_limit)
+        self._lib = codec._lib
+        self.last_ts_min = -1
+        self.last_ts_max = -1
+
+    @property
+    def n_numeric(self) -> int:
+        return self.codec.n_numeric
+
+    @property
+    def n_strings(self) -> int:
+        return self.codec.n_strings
+
+    def decode_into(self, buf, start_offset: int, out_numeric: np.ndarray,
+                    out_labels: np.ndarray,
+                    out_keys: Optional[np.ndarray] = None,
+                    cap_rows: Optional[int] = None
+                    ) -> Tuple[int, int, int, int]:
+        """Decode raw frame bytes into the caller's column buffers.
+
+        ``buf``: contiguous frames (a segment range, a RAW_FETCH payload,
+        the in-memory broker's re-framed slice); it may start below
+        ``start_offset`` (skipped) and end mid-frame (the batch ends
+        there).  ``out_numeric`` [cap, n_numeric] float32,
+        ``out_labels`` [cap, n_strings] S-stride and ``out_keys`` [cap]
+        S-stride (keys cut at stride - 1 bytes, as the fused leg cuts
+        them), each C-contiguous.  Returns (rows, next_offset, flags,
+        skipped_tombstones)."""
+        codec = self.codec
+        cap = out_numeric.shape[0] if cap_rows is None \
+            else min(int(cap_rows), out_numeric.shape[0])
+        if out_labels.shape[0] < cap or \
+                (out_keys is not None and out_keys.shape[0] < cap):
+            raise ValueError("label/key buffers shorter than cap_rows")
+        if isinstance(buf, (bytearray, memoryview)):
+            buf = bytes(buf)  # the hot paths hand bytes: passed by pointer
+        t0 = time.perf_counter()
+        next_off = ctypes.c_int64(start_offset)
+        flags = ctypes.c_int64(0)
+        skipped = ctypes.c_int64(0)
+        ts_min = ctypes.c_int64(-1)
+        ts_max = ctypes.c_int64(-1)
+        rows = self._lib.iotml_frames_decode_columnar_ts(
+            buf, len(buf), int(start_offset), _ptr(codec.types, _i8),
+            _ptr(codec.nullable, _u8), codec.n_fields,
+            self.pinned_id_limit, _ptr(out_numeric, ctypes.c_float),
+            out_labels.ctypes.data, out_labels.dtype.itemsize,
+            out_keys.ctypes.data if out_keys is not None else None,
+            out_keys.dtype.itemsize if out_keys is not None else 0,
+            cap, ctypes.byref(next_off), ctypes.byref(flags),
+            ctypes.byref(skipped), ctypes.byref(ts_min),
+            ctypes.byref(ts_max))
+        if rows < 0:
+            raise ValueError("frame decoder rejected its arguments")
+        tally("frame_decode", rows, t0)
+        self.last_ts_min = int(ts_min.value)
+        self.last_ts_max = int(ts_max.value)
+        return int(rows), int(next_off.value), int(flags.value), \
+            int(skipped.value)

@@ -26,9 +26,10 @@ name instead of mis-reading it.
 One socket and one staging area a handle: every native call holds the
 client's lock.  A server that cannot be reached, or that refuses the
 SASL/PLAIN credentials, raises ``ConnectionError``; there is no fallback
-to the pure client.  Not ported: ``produce_raw`` has no Python method
-(the raw plane, ROADMAP A13), and record headers are dropped, as the
-wire has no header slot.
+to the pure client.  ``produce_raw`` ships a pre-framed batch over
+RAW_PRODUCE (``iotml_kafka_produce_raw``: the bytes go onto the socket
+as they are), with the pure client's error surface.  Record headers are
+dropped, as the wire has no header slot.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ import numpy as np
 from ..core.schema import RESERVED_ID_BASE
 from ..utils.net import parse_bootstrap
 from . import native
-from .broker import (Message, OffsetOutOfRangeError, SchemaIdMismatchError,
-                     TopicSpec)
+from .broker import (CorruptMessageError, Message, OffsetOutOfRangeError,
+                     SchemaIdMismatchError, TopicSpec)
 from .kafka_wire import NotLeaderForPartitionError, ProducePartitionMixin
 from .native import KEY_STRIDE, LABEL_STRIDE, NativeCodec, _column
 
@@ -203,6 +204,28 @@ class NativeKafkaBroker(ProducePartitionMixin):
                 base = _check(rc, f"produce({topic}:{p})")
                 last = max(last, base + n - 1)
             return last
+
+    def produce_raw(self, topic: str, partition: int, frames: bytes) -> int:
+        """RAW_PRODUCE through the C++ client: the pre-framed batch goes
+        onto the socket as it is; returns its base offset.  Raises
+        NotImplementedError against a server without the extension (pin
+        back to ``produce_many``), ``CorruptMessageError`` when the
+        server rejected the batch (nothing appended), and
+        NotLeaderForPartitionError, as the pure client does."""
+        with self._lock:
+            rc = self._lib.iotml_kafka_produce_raw(
+                self._h, topic.encode(), partition,
+                ctypes.cast(ctypes.c_char_p(frames), _u8p), len(frames))
+        if rc == -1035:
+            raise NotImplementedError(
+                "server lacks the RAW_PRODUCE extension")
+        if rc == -1002:
+            raise CorruptMessageError(topic, partition, -1)
+        if rc == -1006:
+            raise NotLeaderForPartitionError(topic, partition)
+        if rc == -1003:
+            raise KeyError(topic)
+        return _check(rc, f"produce_raw({topic}:{partition})")
 
     # --------------------------------------------------------------- fetch
     def _raise_for(self, rc: int, topic: str, partition: int, offset: int,

@@ -35,7 +35,9 @@ reproduce exactly (escapes, nested values, ints beyond 2^53, nulls,
 non-canonical Avro) take the Python leg, row by row or batch by batch as
 the JAX package does, and are counted in ``stream.native.stats``
 (``*_fallback_rows``).  ``process_plain`` runs a task's all-Python leg by
-name.
+name.  On a durable or wire broker the star copy also has a raw produce
+leg (``SqlSelectTask.process_raw``): parse, Avro encode and frame in
+native calls, shipped over ``Broker.produce_raw`` / RAW_PRODUCE.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import time
 from collections import Counter
 from struct import error as struct_error
 from typing import Callable, Dict, List, Optional, Tuple
@@ -728,6 +731,9 @@ class SqlSelectTask(StreamTask):
         #: batches instead of reaching downstream consumers silently
         self._sample_every = max(int(passthrough_sample), 0)
         self._passthrough_batches = 0
+        #: whether the sink and source partition counts agree, the raw
+        #: produce leg's condition (None: not checked yet, process_raw)
+        self._raw_affine = None
 
     def _project(self, rec: dict) -> Optional[dict]:
         out = {}
@@ -788,10 +794,13 @@ class SqlSelectTask(StreamTask):
             {n: row.get(n) for n, _ in self.sink_meta.columns}),
             self.sink_schema_id) for row in rows]
 
-    def _process_fused_json(self, messages):
-        """JSON→AVRO star copy, native end to end (see __init__)."""
-        num, lab, nulls, fb = self._fused_json.json_decode_batch(
-            [m.value for m in messages], stride=self._label_stride)
+    def _process_fused_json(self, messages, decoded=None):
+        """JSON→AVRO star copy, native end to end (see __init__).
+        ``decoded`` is the chunk's ``json_decode_batch`` when the caller
+        has already parsed it (the raw leg's fallback)."""
+        num, lab, nulls, fb = decoded if decoded is not None else \
+            self._fused_json.json_decode_batch(
+                [m.value for m in messages], stride=self._label_stride)
         ok = fb == 0
         encoded = []
         if ok.any():
@@ -822,6 +831,103 @@ class SqlSelectTask(StreamTask):
                     self.sink_schema_id)
                 out.append((m.key, val, m.timestamp_ms))
         return out
+
+    def process_raw(self, messages):
+        """The raw produce leg of the JSON→AVRO star copy: the native JSON
+        parser fills the columns and ``NativeCodec.encode_frames`` Avro
+        encodes AND frames them in one call, so a record is framed once,
+        at conversion; ``RawBatchProducer`` ships each source partition's
+        group to the same-numbered sink partition.  Sound by partition
+        affinity: the star copy keeps the key, so with equal partition
+        counts the sink's key hash names the source partition, and the
+        topic is byte- and routing-identical to the classic leg's.
+
+        Returns None (the classic leg) without the fused leg, on an
+        in-memory in-process broker (its ``produce_raw`` would decode
+        the frames right back), for a producer pinned classic, or when
+        the partition counts differ; a group with a row the parser
+        flags, or a null key, takes the classic leg by itself.  Groups
+        over ``IOTML_PRODUCE_BATCH_BYTES`` split at frame boundaries."""
+        if self._fused_json is None or self.sink_schema_id is None:
+            return None
+        if isinstance(self.broker, Broker) and self.broker.store is None:
+            return None
+        raw = self.raw_producer()
+        if raw.engaged is False:
+            return None
+        if self._raw_affine is None:
+            try:
+                self._raw_affine = (
+                    self.broker.topic(self.sink_meta.topic).partitions
+                    == self.broker.topic(self.src_meta.topic).partitions)
+            except KeyError:
+                return None
+        if not self._raw_affine:
+            return None
+        from ..data.pipeline import produce_batch_bytes
+        from ..stream.producer import raw_produce_convert_seconds
+
+        def classic_group(group, decoded) -> int:
+            outs = self._process_fused_json(group, decoded)
+            if outs:
+                self.broker.produce_many(self.sink_meta.topic, outs)
+            return len(outs)
+
+        def classic_entries(group, num, lab, nulls):
+            """The classic form of an encoded slice, built only when the
+            producer pins back (a server without RAW_PRODUCE)."""
+            vals = self._native_sink.encode_batch(
+                num, lab if self._sink_strings else None,
+                schema_id=self.sink_schema_id, stride=self._label_stride,
+                nulls=nulls)
+            return [(m.key, v, m.timestamp_ms) for m, v in zip(group, vals)]
+
+        emitted = 0
+        by_part: Dict[int, list] = {}
+        for m in messages:
+            by_part.setdefault(m.partition, []).append(m)
+        for p, group in by_part.items():
+            t0 = time.perf_counter()
+            decoded = self._fused_json.json_decode_batch(
+                [m.value for m in group], stride=self._label_stride)
+            num, lab, nulls, fb = decoded
+            keys = [m.key for m in group]
+            if fb.any() or any(k is None for k in keys):
+                # a row only the Python leg reproduces, or unkeyed rows
+                # (round-robin in the classic partitioner, no affinity)
+                emitted += classic_group(group, decoded)
+                continue
+            ts = np.fromiter((m.timestamp_ms for m in group), np.int64,
+                             len(group))
+            try:
+                blob = self._fused_json.encode_frames(
+                    num, lab, ts, keys=keys, nulls=nulls,
+                    schema_id=self.sink_schema_id, stride=self._label_stride)
+            except ValueError:
+                emitted += classic_group(group, decoded)
+                continue
+            raw_produce_convert_seconds.observe(time.perf_counter() - t0)
+            cap = produce_batch_bytes()
+            if len(blob) <= cap or len(group) <= 1:
+                raw.produce_frames(
+                    p, blob, len(group),
+                    entries=lambda g=group, n=num, la=lab, nu=nulls:
+                    classic_entries(g, n, la, nu))
+            else:
+                # split at frame boundaries by re-encoding row slices
+                per = max(1, int(len(group) * cap / len(blob)))
+                for i in range(0, len(group), per):
+                    sl = slice(i, i + per)
+                    sub = self._fused_json.encode_frames(
+                        num[sl], lab[sl], ts[sl], keys=keys[sl],
+                        nulls=nulls[sl], schema_id=self.sink_schema_id,
+                        stride=self._label_stride)
+                    raw.produce_frames(
+                        p, sub, len(keys[sl]),
+                        entries=lambda g=group[sl], n=num[sl], la=lab[sl],
+                        nu=nulls[sl]: classic_entries(g, n, la, nu))
+            emitted += len(group)
+        return emitted
 
     def _process_rekey(self, messages):
         """AVRO rekey pass-through (see __init__); None → generic path."""

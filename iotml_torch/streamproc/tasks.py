@@ -13,11 +13,12 @@ Here each is a ``StreamTask``: an offset-cursored consumer plus a pure
 ``process(messages) → [(key, value, ts)]`` step appended to an output
 topic.  Tasks are incremental (``process_available()``) and restart from
 their consumer group's commits: KSQL's continuous-query semantics,
-in-process.  The zero-copy RAW_PRODUCE leg (``raw_producer``,
-``process_raw``) belongs to the durable store and its produce plane,
-ROADMAP A13: no broker of the port has ``produce_raw``, so every chunk
-takes ``process`` + ``produce_many``, whose bytes on the topic are the
-same.
+in-process.  A task may also have a raw produce leg (``process_raw``
+over its ``raw_producer``, a ``stream.producer.RawBatchProducer``): the
+chunk's outputs framed once, at conversion, and shipped as pre-framed
+batches (``Broker.produce_raw`` / RAW_PRODUCE), appended as they are.
+Untraced sessions only, since the record headers ride the classic leg;
+the records on the topic are the same either way.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ class StreamTask:
         self.broker = broker
         self.src = src
         self.dst = dst
+        #: the RawBatchProducer of the raw produce leg, built at first use
+        self._raw_producer = None
         broker.create_topic(dst, partitions=partitions)
         if consumer is not None:
             # injected cursor: a GroupConsumer makes the task group-
@@ -63,20 +66,20 @@ class StreamTask:
         raise NotImplementedError
 
     def raw_producer(self):
-        """The task's raw batch producer for its output topic: the
-        zero-copy produce plane of the durable store, ROADMAP A13, not
-        ported."""
-        raise NotImplementedError(
-            "raw batch produce (RawBatchProducer, IOTML_RAW_PRODUCE) is "
-            "ROADMAP A13: no broker of the port has produce_raw")
+        """The task's ``RawBatchProducer`` for its output topic (built at
+        first use), with the fallback ladder of ``IOTML_RAW_PRODUCE``."""
+        if self._raw_producer is None:
+            from ..stream.producer import RawBatchProducer
+
+            self._raw_producer = RawBatchProducer(self.broker, self.dst)
+        return self._raw_producer
 
     def process_raw(self, messages: List[Message]) -> Optional[int]:
-        """The zero-copy produce hook: transform ``messages`` and ship them
-        as pre-framed raw batches, returning the records emitted, or None
-        to take ``process`` + ``produce_many`` for the chunk.  The raw leg
-        is ROADMAP A13 (no broker of the port has ``produce_raw``), so
-        every chunk returns None here; the records on the topic are the
-        same either way."""
+        """The raw produce hook: transform ``messages`` and ship the
+        outputs as pre-framed raw batches, returning the records emitted,
+        or None to take ``process`` + ``produce_many`` for the chunk (the
+        base task has no raw leg).  Consulted on untraced sessions only:
+        trace headers ride the classic per-record leg."""
         return None
 
     def dead_letter(self, message: Message, error) -> None:
@@ -128,8 +131,7 @@ class StreamTask:
                 self.consumer.commit()
                 return n
             if not tracing.ENABLED:
-                # the zero-copy produce leg (ROADMAP A13: None in the
-                # port, every chunk takes the classic path below)
+                # the raw produce leg, for tasks that have one
                 handled = self.process_raw(msgs)
                 if handled is not None:
                     n += handled

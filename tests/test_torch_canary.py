@@ -126,12 +126,14 @@ def _runs(msgs, kw):
     runs["jax_inproc"] = list(JSensorBatches(
         JStreamConsumer(_backing(JBroker, msgs), SPECS), **kw, **marker))
     with jkw.KafkaWireServer(_backing(JBroker, msgs)) as srv:
-        client = JNativeKafkaBroker(f"127.0.0.1:{srv.port}")
-        try:
-            runs["jax_native"] = list(JSensorBatches(
-                JStreamConsumer(client, SPECS), **kw, **marker))
-        finally:
-            client.close()
+        for name, make in (("jax_native", JNativeKafkaBroker),
+                           ("jax_wire", jkw.KafkaWireBroker)):
+            client = make(f"127.0.0.1:{srv.port}")
+            try:
+                runs[name] = list(JSensorBatches(
+                    JStreamConsumer(client, SPECS), **kw, **marker))
+            finally:
+                client.close()
     return runs
 
 
@@ -155,11 +157,12 @@ def _same(got, want, kw, name):
 def test_firewall_equal_jax_on_every_leg(kw, v2_every):
     msgs = _stream(v2_every=v2_every)
     runs = _runs(msgs, kw)
-    # the message-list legs against JAX's, the fused leg against JAX's
-    # fused leg (with evolved frames the two legs order partitions apart,
-    # in both packages)
-    for name in ("inproc", "wire"):
-        _same(runs[name], runs["jax_inproc"], kw, name)
+    # each leg against JAX's: the message-list leg (in process), the
+    # columnar ring over RAW_FETCH (the pure wire client) and the fused
+    # leg (native); with evolved frames the legs order partitions apart,
+    # in both packages
+    _same(runs["inproc"], runs["jax_inproc"], kw, "inproc")
+    _same(runs["wire"], runs["jax_wire"], kw, "wire")
     _same(runs["native"], runs["jax_native"], kw, "native")
     for b in runs["native"]:
         if b.keys is not None:

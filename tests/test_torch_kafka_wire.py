@@ -431,19 +431,34 @@ def test_tombstones_and_headers_over_the_wire(cli, srv_kind):
 @pytest.mark.parametrize("api", ["fetch_raw", "produce_raw",
                                  "cluster_admin"])
 def test_port_server_answers_jax_extensions_unsupported(api):
-    """RAW_FETCH, RAW_PRODUCE and CLUSTER_ADMIN are not in the port's
-    table: its server answers UNSUPPORTED_VERSION, which JAX's client
-    reads as a server without the extension."""
+    """JAX's client against the port's server: RAW_FETCH and RAW_PRODUCE
+    are in its table and round-trip (the frames JAX's client reads are
+    the broker's, a batch it ships lands as the same records); the
+    connection survives each; CLUSTER_ADMIN is not ported (A14) and is
+    answered UNSUPPORTED_VERSION, which JAX's client reads as a server
+    without the extension."""
+    from iotml.ops import framing as j_framing
+
     with serving("port") as (srv, backing):
-        backing.produce("t", b"x")
+        backing.produce("t", b"x", key=b"k", timestamp_ms=7)
         c = client("jax", srv)
-        call = {"fetch_raw": lambda: c.fetch_raw("t", 0, 0),
-                "produce_raw": lambda: c.produce_raw("t", 0, b"\x00" * 8),
-                "cluster_admin": lambda: c.cluster_admin("status")}[api]
-        with pytest.raises(NotImplementedError):
-            call()
+        if api == "fetch_raw":
+            raw = c.fetch_raw("t", 0, 0)
+            assert raw.start_offset == 0 and \
+                raw.data == backing.fetch_raw("t", 0, 0).data
+            assert list(j_framing.iter_frame_entries(raw.data)) == \
+                [(0, b"k", b"x", 7, None)]
+        elif api == "produce_raw":
+            frames = j_framing.frame_entries([(b"k2", b"y", 8),
+                                              (None, None, 9)])
+            assert c.produce_raw("t", 0, frames) == 1
+            assert _msgs(backing.fetch("t", 0, 1)) == \
+                [(0, 1, b"k2", b"y", 8), (0, 2, None, None, 9)]
+        else:
+            with pytest.raises(NotImplementedError):
+                c.cluster_admin("status")
         # the connection survives: a classic fetch still answers
-        assert [m.value for m in c.fetch("t", 0, 0)] == [b"x"]
+        assert [m.value for m in c.fetch("t", 0, 0)][0] == b"x"
         c.close()
         c = client("port", srv)
         assert set(c.api_versions()) == set(tkw._SUPPORTED)
@@ -560,14 +575,18 @@ def test_failover_fetch_is_transparent(srv_kind):
 
 
 def test_idempotent_apis_match_jax():
-    names = ("FETCH", "METADATA", "LIST_OFFSETS", "OFFSET_FETCH",
-             "API_VERSIONS", "SASL_HANDSHAKE", "HEARTBEAT",
+    """The retry table equals JAX's (RAW_FETCH in, RAW_PRODUCE out), and
+    the served table equals JAX's without CLUSTER_ADMIN (A14)."""
+    names = ("FETCH", "RAW_FETCH", "METADATA", "LIST_OFFSETS",
+             "OFFSET_FETCH", "API_VERSIONS", "SASL_HANDSHAKE", "HEARTBEAT",
              "FIND_COORDINATOR")
     assert tkw.IDEMPOTENT_APIS == {getattr(jkw, n) for n in names} == \
-        jkw.IDEMPOTENT_APIS - {jkw.RAW_FETCH}
+        jkw.IDEMPOTENT_APIS
+    assert tkw.RAW_PRODUCE not in tkw.IDEMPOTENT_APIS
+    assert (tkw.RAW_FETCH, tkw.RAW_PRODUCE, tkw.ERR_CORRUPT_MESSAGE) == \
+        (jkw.RAW_FETCH, jkw.RAW_PRODUCE, jkw.ERR_CORRUPT_MESSAGE)
     assert {k: v for k, v in jkw._SUPPORTED.items()
-            if k not in (jkw.RAW_FETCH, jkw.RAW_PRODUCE,
-                         jkw.CLUSTER_ADMIN)} == tkw._SUPPORTED
+            if k != jkw.CLUSTER_ADMIN} == tkw._SUPPORTED
 
 
 # ---------------------------------------------------- retention, over wire

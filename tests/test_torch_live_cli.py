@@ -11,6 +11,7 @@ Tolerance: none; return codes, rounds, counts and topics are exact.
 
 import argparse
 import json
+import os
 import socket
 import threading
 
@@ -197,20 +198,31 @@ def test_argument_errors_exit_as_jax(argv):
     assert codes == [2, 2]
 
 
+#: the left-out flags → their ROADMAP item; the ported knobs' flags →
+#: the environment variable each sets
 UNPORTED = [("--mesh-data", "2", "A10"), ("--device-normalize", "1", "A10"),
             ("--prefetch-depth", "2", "A10"),
-            ("--decode-ring-buffers", "4", "A3, item 13"),
-            ("--raw-batch-bytes", "4096", "A3, item 13"),
-            ("--raw-produce", "on", "A3, item 13 with A13's raw wire"),
-            ("--produce-batch-bytes", "4096",
-             "A3, item 13 with A13's raw wire")]
+            ("--decode-ring-buffers", "4", "IOTML_DECODE_RING_BUFFERS"),
+            ("--raw-batch-bytes", "4096", "IOTML_RAW_BATCH_BYTES"),
+            ("--raw-produce", "on", "IOTML_RAW_PRODUCE"),
+            ("--produce-batch-bytes", "4096", "IOTML_PRODUCE_BATCH_BYTES")]
 
 
 @pytest.mark.parametrize("cmd", ["train", "score"])
 @pytest.mark.parametrize("flag,value,item", UNPORTED)
-def test_unported_flags_name_their_item(cmd, flag, value, item):
+def test_unported_flags_name_their_item(cmd, flag, value, item,
+                                        monkeypatch):
+    """A left-out flag raises naming its item; the four knob flags set
+    their knob for the process before the client connects (here to a
+    port nothing listens on), as JAX's CLI does."""
     pos = ["127.0.0.1:1", TOPIC, "root"] if cmd == "train" else \
         ["127.0.0.1:1", TOPIC, "out", "root"]
+    if item.startswith("IOTML_"):
+        monkeypatch.setenv(item, "")  # restored after the test
+        with pytest.raises(OSError):
+            live.main([cmd, *pos, flag, value], device="cpu")
+        assert os.environ[item] == value
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         live.main([cmd, *pos, flag, value], device="cpu")
 

@@ -24,6 +24,7 @@ Every server binds 127.0.0.1:0; every platform stops in a ``finally``.
 import collections
 import http.client
 import json
+import os
 import socket
 import sys
 import tempfile
@@ -443,15 +444,33 @@ def test_main_serves_until_ctrl_c(capsys, monkeypatch):
     assert not plat.started and plat.metrics_server is None
 
 
+class _Built(Exception):
+    """Raised in place of building the platform."""
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--supervise"], "A14"),
     (["--connect-port", "0"], "A16"), (["--cc-port", "0"], "A13"),
-    (["--decode-ring-buffers", "4"], "A3, item 13"),
-    (["--raw-batch-bytes", "1024"], "A3, item 13"),
-    (["--raw-produce", "auto"], "A3, item 13 with A13's raw wire"),
-    (["--produce-batch-bytes", "1024"], "A3, item 13 with A13's raw wire"),
+    (["--decode-ring-buffers", "4"], "IOTML_DECODE_RING_BUFFERS"),
+    (["--raw-batch-bytes", "4096"], "IOTML_RAW_BATCH_BYTES"),
+    (["--raw-produce", "off"], "IOTML_RAW_PRODUCE"),
+    (["--produce-batch-bytes", "8192"], "IOTML_PRODUCE_BATCH_BYTES"),
     (["--prefetch-depth", "2"], "A10")])
-def test_left_out_flags_raise(flag, item):
+def test_left_out_flags_raise(flag, item, monkeypatch):
+    """The left-out flags raise naming their item; the columnar ring's
+    and the raw produce plane's four flags set their knob in the
+    environment before the platform is built, as JAX's CLI does."""
+    if item.startswith("IOTML_"):
+        monkeypatch.setenv(item, "")  # restored after the test
+
+        def platform(*a, **kw):
+            assert os.environ[item] == flag[1]
+            raise _Built
+
+        monkeypatch.setattr(up, "Platform", platform)
+        with pytest.raises(_Built):
+            up.main(flag + ["--quiet"], device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=item):
         up.main(flag + ["--quiet"], device="cpu")
 

@@ -113,12 +113,27 @@ def test_set_knobs_validates_before_publishing(monkeypatch):
     assert pipeline.prefetch_depth() == 2
     pipeline.set_knobs(prefetch_depth=4)
     assert pipeline.prefetch_depth() == 4
+    assert pipeline.UNPORTED_KNOBS == {"mesh_data": "A10",
+                                       "device_normalize": "A10"}
     for name, item in pipeline.UNPORTED_KNOBS.items():
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             pipeline.set_knobs(**{name: 1})
         pipeline.set_knobs(**{name: None})
     with pytest.raises(TypeError):
         pipeline.set_knobs(nonsense=1)
+    # the ring's and the raw produce plane's knobs are ported: each
+    # validated before any is published
+    for name in ("IOTML_DECODE_RING_BUFFERS", "IOTML_RAW_BATCH_BYTES",
+                 "IOTML_PRODUCE_BATCH_BYTES", "IOTML_RAW_PRODUCE"):
+        monkeypatch.setenv(name, "")
+    with pytest.raises(ValueError):
+        pipeline.set_knobs(decode_ring_buffers=8, raw_batch_bytes=4095)
+    assert pipeline.decode_ring_buffers() == 4
+    pipeline.set_knobs(decode_ring_buffers=8, raw_batch_bytes=65536,
+                       produce_batch_bytes=8192, raw_produce="OFF")
+    assert (pipeline.decode_ring_buffers(), pipeline.raw_batch_bytes(),
+            pipeline.produce_batch_bytes(), pipeline.raw_produce_mode()) \
+        == (8, 65536, 8192, "off")
 
 
 def test_no_card_and_no_device_raises(monkeypatch):

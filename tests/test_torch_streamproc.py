@@ -362,10 +362,18 @@ def test_wire_produce_to_owned_topic_is_error_29(client):
 
 
 def test_raw_produce_leg_names_its_roadmap_item():
-    b = Broker()
-    b.create_topic("sensor-data")
-    task = t_tasks.JsonToAvro(b)
-    assert task.process_raw([]) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        task.raw_producer()
+    """The base task's raw produce hook declines every chunk, and its
+    raw producer is a ``RawBatchProducer`` for the task's output topic,
+    built once, as JAX's task's is."""
+    from iotml_torch.stream.producer import RawBatchProducer
+
+    b, jb = Broker(), JBroker()
+    for broker in (b, jb):
+        broker.create_topic("sensor-data")
+    task, jtask = t_tasks.JsonToAvro(b), j_tasks.JsonToAvro(jb)
+    assert task.process_raw([]) is None is jtask.process_raw([])
+    raw, jraw = task.raw_producer(), jtask.raw_producer()
+    assert isinstance(raw, RawBatchProducer) and task.raw_producer() is raw
+    assert (raw.topic, raw.mode, raw.engaged, raw.broker) == \
+        (jraw.topic, jraw.mode, jraw.engaged, b)
     assert KSQL_CAR_SCHEMA.field("FAILURE_OCCURRED").avro_type == "string"
