@@ -267,6 +267,35 @@ non-zero exit and no result line:
                 the hit and fire counts equal to a CPU run of the same
                 schedule; (5) the serve drain and the fit timed with
                 tracing off and on, in turns (off, on, on, off, twice).
+14b. telemetry_path — the telemetry plane watching B1's live rounds: (a)
+                ``cli.live train`` and ``score`` as processes on the card
+                with ``--metrics-port`` and ``IOTML_OBS_ENDPOINTS`` (each
+                publishes itself into the run's manifest), fed 10 times
+                2,300 records 1.5 s apart; a ``FleetServer`` over the
+                manifest scrapes them every 0.25 s into a ``TsdbAppender``
+                on a durable broker (5 s chunks), in turns attached and
+                not (off, on, on, off, ...), and an ``SloEngine`` over
+                ``iotml_step_seconds{loop="train"}`` and the records-trained
+                counter runs as a supervised unit.  ``iotml_cluster_up``
+                sums to 2; the TSDB's ``rate(...records_trained_total
+                [20s])`` and ``histogram_quantile(0.99, ...)`` of the
+                train loop equal a recompute from the kept texts (relative
+                1e-12); the TSDB's trained and scored counts equal the
+                processes' ``--stats``; each process prints its own B1
+                launches at exit: one a round, all rows, at least 5
+                rounds; no alert fires; after one forced compaction
+                ``_IOTML_TSDB`` holds one record per (series, window).
+                Scrape-and-append ms and records, query and SLO
+                evaluation ms, seconds a round with the plane attached
+                and not.  (b) ``drill_alert_burn`` at its defaults with
+                the scorer on the card: every invariant passes (the fast
+                pair fires in budget, lands on ``_IOTML_ALERTS`` and both
+                ``/healthz``, resolves); time to fire and to resolve.  (c)
+                ``Platform(cc_port=0)`` one fleet tick old:
+                ``/api/status``'s topics equal the broker's begin and end
+                offsets; the generated dashboard has a panel for every
+                family registered by then; a ``ScalarLogger`` writes the
+                live fit's history and its JSONL reads back equal.
 15. ksql_path  — the reference's KSQL stage (L4) on the card's host
                 feeding B1, set up as the platform does on loopback: the
                 port's in-process broker with a 4-partition
@@ -594,9 +623,15 @@ from iotml_torch.mqtt.broker import MqttBroker
 from iotml_torch.mqtt.eventserver import MqttEventServer
 from iotml_torch.mqtt.native_ingest import NativeIngestBridge
 from iotml_torch.mqtt.wire import MqttClient
+from iotml_torch.obs import ScalarLogger
+from iotml_torch.obs import dashboards as obs_dashboards
+from iotml_torch.obs import drill as obs_drill
+from iotml_torch.obs import federate as obs_federate
 from iotml_torch.obs import metrics as obs_metrics
 from iotml_torch.obs import profile as obs_profile
+from iotml_torch.obs import slo as obs_slo
 from iotml_torch.obs import tracing as obs_tracing
+from iotml_torch.obs import tsdb as obs_tsdb
 from iotml_torch.online import __main__ as online_cli
 from iotml_torch.online import drill as online_drill
 from iotml_torch.online.learner import AdaptationPolicy, OnlineLearner
@@ -637,6 +672,7 @@ from iotml_torch.stream.registry import SchemaRegistry, subject_for_topic
 from iotml_torch.stream.registry_server import SchemaRegistryServer
 from iotml_torch.streamproc import KsqlServer, SqlEngine
 from iotml_torch.streamproc.sql import REFERENCE_PIPELINE_DDL
+from iotml_torch.supervise.supervisor import Supervisor
 from iotml_torch.train.artifacts import ArtifactStore
 from iotml_torch.train.checkpoint import CheckpointManager
 from iotml_torch.train.live import ContinuousTrainer
@@ -3414,6 +3450,462 @@ def phase_obs_path(card: str, root: str) -> dict:
     emit(info)
     return {"launches": launches, "counts": attention,
             "launches_by_design": by_design}
+
+
+#: the telemetry path's live run: TELE_FEEDS feeds of 23 fleet ticks (2,300
+#: records: one default round of 20 x 100 normal rows each) into the live
+#: topic, one every TELE_FEED_S seconds, the plane scraping the two
+#: processes (attached) or not in turns
+TELE_FEEDS, TELE_FEED_TICKS, TELE_FEED_S = 10, 23, 1.5
+TELE_MODES = ("off", "on", "on", "off", "off", "on", "on", "off", "off",
+              "on")
+#: the plane's scrape cadence while attached, and its TSDB chunk window
+TELE_SCRAPE_S, TELE_CHUNK_MS = 0.25, 5_000
+TELE_TOPIC, TELE_PREDS = "telemetry-live", "telemetry-preds"
+TELE_PROCS = {"train": "telemetry-train", "score": "telemetry-score"}
+#: the SRE workbook's window pairs compressed to the run's length
+TELE_WINDOWS = (("fast", 10_000, 30_000, 14.4),
+                ("slow", 20_000, 60_000, 6.0))
+#: the rules of the healthy run: the train loop's step latency (good =
+#: under 5 s) and its progress (records lost to an offset auto-reset
+#: against records trained)
+TELE_SLO_RULES = (
+    {"name": "train-step-latency", "objective": 0.99,
+     "indicator": {"kind": "latency", "metric": "iotml_step_seconds",
+                   "threshold_s": 5.0, "matchers": {"loop": "train"}},
+     "windows": TELE_WINDOWS},
+    {"name": "train-progress", "objective": 0.999,
+     "indicator": {"kind": "ratio",
+                   "bad": "iotml_consumer_autoresets_total",
+                   "total": "iotml_records_trained_total",
+                   "matchers": {"process": TELE_PROCS["train"]}},
+     "windows": TELE_WINDOWS})
+#: a live CLI as a process that prints its own B1 launch counts at exit
+TELE_CHILD = (
+    "import atexit, json, sys\n"
+    "from iotml_torch.ops import fused_train as f\n"
+    "atexit.register(lambda: print(json.dumps({'fit_launches': "
+    "f.fused_fit.launches, 'fit_launches_by_design': "
+    "dict(f.fused_fit.launches_by_design)}), flush=True))\n"
+    "from iotml_torch.cli import live\n"
+    "sys.exit(live.main(sys.argv[1:]))\n")
+
+
+class _KeptCollector(obs_federate.FleetCollector):
+    """A fleet collector that keeps every ``/metrics`` text it scraped,
+    beside the stamp its samples went into the TSDB under."""
+
+    def __init__(self, endpoints, manifest):
+        super().__init__(endpoints=endpoints, manifest=manifest)
+        self.kept = []
+        self._texts = {}
+
+    def _get(self, address, path):
+        text = super()._get(address, path)
+        if path == "/metrics" and text is not None:
+            self._texts[address] = text
+        return text
+
+    def collect(self):
+        self._texts = {}
+        snaps = super().collect()
+        for name, s in snaps.items():
+            if s["up"]:
+                self.kept.append((name, int(s["ts"] * 1000),
+                                  self._texts[s["address"]]))
+        return snaps
+
+
+_PROM_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+_PROM_LABEL = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def _plain_samples(text: str, name: str) -> list:
+    """``(labels, value)`` of family sample ``name`` in a Prometheus text,
+    read with two regular expressions (independent of ``federate``)."""
+    out = []
+    for line in text.splitlines():
+        m = _PROM_LINE.match(line)
+        if m and m.group(1) == name:
+            out.append((dict(_PROM_LABEL.findall(m.group(2) or "")),
+                        float(m.group(3))))
+    return out
+
+
+def _plain_series(kept, proc: str, name: str, labels: dict) -> list:
+    """One series' ``(ts_ms, value)`` from the kept texts, as the appender
+    keeps it: ascending stamps, a repeated stamp overwriting."""
+    pts = []
+    for p, ts, text in kept:
+        if p != proc:
+            continue
+        for lab, v in _plain_samples(text, name):
+            if lab == labels:
+                if pts and pts[-1][0] == ts:
+                    pts[-1] = (ts, v)
+                elif not pts or ts > pts[-1][0]:
+                    pts.append((ts, v))
+    return pts
+
+
+def _plain_rate(pts, window_ms: int, at_ms: int) -> float:
+    win = [(t, v) for t, v in pts if at_ms - window_ms <= t <= at_ms]
+    inc = 0.0
+    for (_t0, v0), (_t1, v1) in zip(win, win[1:]):
+        inc += v1 - v0 if v1 >= v0 else v1
+    return inc / ((win[-1][0] - win[0][0]) / 1000.0)
+
+
+def _plain_quantile(q: float, buckets) -> float:
+    """Prometheus interpolation over ``[(edge, cumulative count)]``."""
+    buckets = sorted(buckets)
+    rank = q * buckets[-1][1]
+    prev_edge = prev_count = 0.0
+    for edge, count in buckets:
+        if count >= rank:
+            if edge == math.inf:
+                return prev_edge
+            span = count - prev_count
+            frac = (rank - prev_count) / span if span > 0 else 0.0
+            return prev_edge + (edge - prev_edge) * frac
+        prev_edge, prev_count = edge, count
+    raise AssertionError("no bucket reached the rank")
+
+
+def _tele_recompute(kept, series, at_ms: int) -> dict:
+    """The TSDB's answers for the train process against the same numbers
+    recomputed from the kept texts."""
+    proc = TELE_PROCS["train"]
+    pts = _plain_series(kept, proc, "iotml_records_trained_total", {})
+    got_rate = obs_tsdb.query(
+        series, f'rate(iotml_records_trained_total{{process="{proc}"}}'
+        f'[20s])', at_ms=at_ms)
+    want_rate = _plain_rate(pts, 20_000, at_ms)
+    got_q = obs_tsdb.query(
+        series, f'histogram_quantile(0.99, iotml_step_seconds'
+        f'{{loop="train",process="{proc}"}})', at_ms=at_ms)
+    want_q = {}
+    last = [text for p, _ts, text in kept if p == proc][-1]
+    for phase in ("device_compute", "host_pipeline"):
+        buckets = [(float(lab["le"]), v) for lab, v in
+                   _plain_samples(last, "iotml_step_seconds_bucket")
+                   if lab.get("loop") == "train"
+                   and lab.get("phase") == phase]
+        want_q[phase] = _plain_quantile(0.99, buckets)
+    got_q = {r["labels"]["phase"]: r["value"] for r in got_q}
+    if len(got_rate) != 1 or got_q.keys() != want_q.keys():
+        raise AssertionError(f"TSDB answers {got_rate} / {got_q}")
+    errs = [abs(got_rate[0]["value"] - want_rate) / abs(want_rate)] + \
+        [abs(got_q[k] - want_q[k]) / abs(want_q[k]) for k in want_q]
+    if max(errs) > 1e-12 or want_rate <= 0:
+        raise AssertionError(f"TSDB rate {got_rate[0]['value']} / "
+                             f"quantiles {got_q} against the recompute "
+                             f"{want_rate} / {want_q}")
+    return {"rate_records_trained_per_s": want_rate,
+            "p99_step_seconds": want_q, "max_rel_diff": max(errs),
+            "tolerance_rel": 1e-12, "samples_in_rate": len(pts)}
+
+
+def _tele_live(root: str) -> dict:
+    """(a) The plane over both live CLIs on the card: the scrape into a
+    TSDB on a durable broker, a supervised SLO engine, the checks and the
+    per-round cost with the plane attached and not."""
+    d = Path(root) / "telemetry"
+    d.mkdir(parents=True, exist_ok=True)
+    manifest = str(d / "endpoints.json")
+    backing = Broker()
+    backing.create_topic(TELE_TOPIC)
+    backing.create_topic(TELE_PREDS)
+    gen = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01))
+    tele = Broker(store_dir=str(d / "store"))
+    appender = obs_tsdb.TsdbAppender(tele, chunk_ms=TELE_CHUNK_MS)
+    ports = {k: _free_port() for k in TELE_PROCS}
+    procs, outs = {}, {}
+    sup = fleet = None
+    plane_stop, attached = threading.Event(), threading.Event()
+    scrapes, fired = [], []
+    modes = []
+    with _wire_server(backing) as servers:
+        argv = {"train": ["train", servers, TELE_TOPIC, str(d / "store-m"),
+                          *LIVE_SASL, "--stats", "--max-seconds", "600",
+                          "--group", "telemetry-train"],
+                "score": ["score", servers, TELE_TOPIC, TELE_PREDS,
+                          str(d / "store-m"), *LIVE_SASL, "--stats",
+                          "--max-seconds", "600", "--group",
+                          "telemetry-score"]}
+        try:
+            for name, args in argv.items():
+                env = {**os.environ, "IOTML_OBS_ENDPOINTS": manifest,
+                       "IOTML_PROC": TELE_PROCS[name]}
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", TELE_CHILD, *args,
+                     "--metrics-port", str(ports[name])],
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True, env=env)
+            deadline = time.time() + 180
+            while len(obs_federate.load_manifest(manifest)) < 2:
+                dead = {n: p.communicate() for n, p in procs.items()
+                        if p.poll() is not None}
+                if dead or time.time() > deadline:
+                    raise AssertionError(f"the live processes never "
+                                         f"published their endpoints: "
+                                         f"{dead}")
+                time.sleep(0.1)
+            collector = _KeptCollector(obs_federate.load_manifest(manifest),
+                                       manifest)
+            fleet = obs_federate.FleetServer(collector, port=0,
+                                             broker=tele, tsdb=appender)
+            threading.Thread(target=fleet.srv.serve_forever, daemon=True,
+                             name="telemetry-fleet-http").start()
+            engine = obs_slo.SloEngine(tele, TELE_SLO_RULES, interval_s=0.5)
+            sup = Supervisor(poll_interval_s=0.05, name="telemetry-sup")
+            unit = sup.add_loop("slo-engine", engine.loop,
+                                heartbeat_timeout_s=30.0)
+            sup.start()
+
+            def plane():
+                while not plane_stop.is_set():
+                    if attached.is_set():
+                        n0 = obs_tsdb.tsdb_appends.value()
+                        t0 = time.perf_counter()
+                        fleet.scrape_once()
+                        scrapes.append((time.perf_counter() - t0,
+                                        obs_tsdb.tsdb_appends.value() - n0))
+                    if obs_slo.firing_alerts():
+                        fired.append(obs_slo.firing_alerts())
+                    plane_stop.wait(TELE_SCRAPE_S)
+
+            plane_thread = threading.Thread(target=plane, daemon=True,
+                                            name="telemetry-plane")
+            plane_thread.start()
+            # both processes answer before the first feed (every scrape
+            # goes through the TSDB: the kept texts are what it holds)
+            while sum(1 for s in fleet.scrape_once().values()
+                      if s["up"]) < 2:
+                if time.time() > deadline:
+                    raise AssertionError("the live processes never "
+                                         "answered a scrape")
+                time.sleep(0.2)
+            for mode in TELE_MODES:
+                (attached.set if mode == "on" else attached.clear)()
+                t0 = time.time()
+                gen.publish(backing, TELE_TOPIC, n_ticks=TELE_FEED_TICKS)
+                time.sleep(TELE_FEED_S)
+                modes.append((t0, time.time(), mode))
+            attached.set()
+            end = backing.end_offset(TELE_TOPIC, 0)
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                trained = backing.committed("telemetry-train", TELE_TOPIC, 0)
+                if backing.end_offset(TELE_PREDS, 0) >= end and \
+                        trained is not None and \
+                        end - trained < LIVE_MIN_AVAILABLE:
+                    break
+                time.sleep(0.2)
+            time.sleep(1.0)  # the last round's counters, one more scrape
+            attached.clear()
+            plane_stop.set()
+            plane_thread.join()
+            final = fleet.scrape_once()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{fleet.port}/healthz", timeout=10) as r:
+                fleet_health = json.loads(r.read())
+            merged = collector.render(final)
+            for name, p in procs.items():
+                p.stdin.write("STOP\n")
+                p.stdin.flush()
+                outs[name] = p.communicate(timeout=120)
+        finally:
+            plane_stop.set()
+            if sup is not None:
+                sup.stop()
+            if fleet is not None:
+                fleet.stop()
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"telemetry {name} exited {p.returncode}:"
+                                 f"\n{outs[name][0]}\n{outs[name][1]}")
+    lines = {name: [json.loads(line) for line in out.splitlines()
+                    if line.startswith("{")]
+             for name, (out, _) in outs.items()}
+    launch = {name: [x for x in ls if "fit_launches" in x][-1]
+              for name, ls in lines.items()}
+    rounds = [x for x in lines["train"] if "round" in x]
+    drains = [x for x in lines["score"] if "scored" in x]
+    # checks: the fleet, the TSDB against the texts, the stats, compaction
+    up = sum(v for _l, v in _plain_samples(merged, "iotml_cluster_up"))
+    if up != 2 or fleet_health["up_count"] != 2 or \
+            fleet_health["status"] != "ok":
+        raise AssertionError(f"iotml_cluster_up {up}, fleet {fleet_health}")
+    series = obs_tsdb.read_series(tele)
+    at_ms = max(ts for p, ts, _ in collector.kept
+                if p == TELE_PROCS["train"])
+    recompute = _tele_recompute(collector.kept, series, at_ms)
+    trained = obs_tsdb.query(
+        series, f'iotml_records_trained_total{{process='
+        f'"{TELE_PROCS["train"]}"}}', at_ms=at_ms)
+    scored = obs_tsdb.query(
+        series, f'iotml_records_scored_total{{process='
+        f'"{TELE_PROCS["score"]}"}}', at_ms=at_ms)
+    if len(rounds) < 5 or trained[0]["value"] != rounds[-1]["records_cum"] \
+            or scored[0]["value"] != drains[-1]["scored"]:
+        raise AssertionError(f"{len(rounds)} rounds; TSDB trained "
+                             f"{trained}, scored {scored}; stats "
+                             f"{rounds[-1:]} {drains[-1:]}")
+    if launch["train"]["fit_launches"] != len(rounds) or \
+            launch["train"]["fit_launches_by_design"]["rows"] != \
+            len(rounds) or launch["score"]["fit_launches"] != 0:
+        raise AssertionError(f"B1 launches {launch} for {len(rounds)} "
+                             f"rounds")
+    if fired or obs_slo.read_alerts(tele) or \
+            any(st.firing for st in engine.states.values()) or \
+            unit.restarts:
+        raise AssertionError(f"an alert on the healthy run: {fired}, "
+                             f"{obs_slo.read_alerts(tele)}")
+    timings = {
+        "read_series_ms": _median_ms(lambda: obs_tsdb.read_series(tele), 5),
+        "rate_query_ms": _median_ms(lambda: obs_tsdb.query(
+            series, "rate(iotml_records_trained_total[20s])", at_ms=at_ms),
+            5),
+        "histogram_quantile_ms": _median_ms(lambda: obs_tsdb.query(
+            series, 'histogram_quantile(0.99, iotml_step_seconds'
+            '{loop="train"})', at_ms=at_ms), 5),
+        "slo_evaluation_ms": _median_ms(
+            lambda: engine.evaluate(now_ms=at_ms), 5)}
+    pre = obs_drill._count_records(tele, obs_tsdb.TSDB_TOPIC)
+    keys = len(obs_drill._read_tsdb_keys(tele))
+    tele.store.log_for(obs_tsdb.TSDB_TOPIC, 0).roll()
+    tele.run_compaction(force=True)
+    post = obs_drill._count_records(tele, obs_tsdb.TSDB_TOPIC)
+    if not 0 < post == keys < pre:
+        raise AssertionError(f"_IOTML_TSDB {pre} -> {post} records after "
+                             f"compaction, {keys} (series, window) keys")
+    tele.close()
+    by_mode = {"on": [], "off": []}
+    for r in rounds:
+        for t0, t1, mode in modes:
+            if t0 <= r["t"] - r["seconds"] and r["t"] <= t1:
+                by_mode[mode].append(r["seconds"])
+    on_scrapes = [s for s in scrapes if s[1]]
+    return {"rounds": len(rounds), "fit_launches": launch["train"],
+            "records_trained": rounds[-1]["records_cum"],
+            "scored": drains[-1]["scored"], "cluster_up": up,
+            "recompute": recompute, "kept_texts": len(collector.kept),
+            "tsdb_records_before_compaction": pre,
+            "tsdb_records_after_compaction": post, "tsdb_keys": keys,
+            "scrape_append_ms": [s * 1e3 for s, _n in on_scrapes],
+            "scrape_append_ms_median": float(np.median(
+                [s for s, _n in on_scrapes])) * 1e3,
+            "scrape_append_records": [n for _s, n in on_scrapes],
+            **timings,
+            "round_seconds_plane_on": by_mode["on"],
+            "round_seconds_plane_off": by_mode["off"],
+            "history": {"loss": [r["loss"] for r in rounds],
+                        "seconds": [r["seconds"] for r in rounds]}}
+
+
+def _tele_drill() -> dict:
+    """(b) The alert-burn drill at its defaults, its scorer on the card."""
+    rep = obs_drill.drill_alert_burn()
+    if not rep.ok:
+        raise AssertionError("alert-burn drill:\n" + "\n".join(rep.lines()))
+    names = {i.name for i in rep.invariants}
+    need = {"alert_fired_fast_within_budget", "alert_in_changelog",
+            "alert_in_healthz", "alert_resolved", "resolve_in_changelog",
+            "zero_canaries_scored", "tsdb_bounded_after_compaction"}
+    if not need <= names:
+        raise AssertionError(f"drill invariants {sorted(names)}")
+    return {"ok": True, "slos": rep.slos, "scored": rep.scored,
+            "published": rep.published, "injected": rep.injected,
+            "invariants": {i.name: i.detail for i in rep.invariants}}
+
+
+def _tele_platform(root: str, history: dict) -> dict:
+    """(c) The control center over a platform one fleet tick old, the
+    dashboard over every family, the live fit's history as scalars."""
+    plat = Platform(cc_port=0).start(metrics_port=0)
+    try:
+        plat.start_fleet(20, rate_hz=5.0)
+        time.sleep(0.5)
+        plat.stop_fleet()
+        bridged = plat.drain_ingest()
+        col = obs_federate.FleetCollector(endpoints=[{
+            "name": "platform", "address":
+            f"127.0.0.1:{plat.metrics_server.server_address[1]}"}])
+        if not col.collect()["platform"]["up"]:
+            raise AssertionError("the platform's /metrics did not answer")
+        with urllib.request.urlopen(plat.endpoints()["control-center"]
+                                    + "/api/status", timeout=10) as r:
+            status = json.loads(r.read())
+        want = {}
+        for name in plat.broker.topics():
+            n = plat.broker.topic(name).partitions
+            end = sum(plat.broker.end_offset(name, q) for q in range(n))
+            begin = sum(plat.broker.begin_offset(name, q) for q in range(n))
+            want[name] = {"name": name, "partitions": n,
+                          "messages": end - begin, "end_offset": end}
+        got = {t["name"]: t for t in status["topics"]}
+        if got != want or bridged <= 0 or \
+                want["SENSOR_DATA_S_AVRO"]["messages"] != bridged:
+            raise AssertionError(f"/api/status topics {got}, the broker "
+                                 f"{want}, {bridged} bridged")
+    finally:
+        plat.stop()
+    logger = ScalarLogger(str(Path(root) / "telemetry-scalars"),
+                          use_tensorboard=False)
+    logger.history(history, prefix="live")
+    logger.close()
+    with open(Path(root) / "telemetry-scalars" / "scalars.jsonl") as fh:
+        back = [json.loads(line) for line in fh]
+    read = {"loss": [x["value"] for x in back if x["tag"] == "live/loss"],
+            "seconds": [x["value"] for x in back
+                        if x["tag"] == "live/epoch_seconds"]}
+    if read != history:
+        raise AssertionError(f"scalars read back {read}, wrote {history}")
+    dash = obs_dashboards.generate_dashboard()
+    exprs = " ".join(t["expr"] for p in dash["panels"] for t in p["targets"])
+    families = sorted(obs_metrics.default_registry._metrics)
+    missing = [f for f in families if f not in exprs]
+    if missing or len(dash["panels"]) != len(families):
+        raise AssertionError(f"dashboard lacks {missing}")
+    return {"topics": len(got), "bridged": bridged,
+            "topic_offsets_equal_broker": True,
+            "dashboard_panels": len(dash["panels"]),
+            "families": len(families), "scalars": len(back)}
+
+
+def phase_telemetry_path(card: str, root: str) -> dict:
+    """The telemetry plane watching B1's live rounds on the card: (a) the
+    federated scrape of both live CLIs into ``_IOTML_TSDB`` on a durable
+    broker under a supervised SLO engine, held against a recompute from
+    the kept texts, the processes' stats and their own B1 counts; (b) the
+    alert-burn drill; (c) the control center, dashboards and scalar
+    logs."""
+    reset_launches()
+    reset_fit_launches()
+    t0 = time.perf_counter()
+    live = _tele_live(root)
+    t1 = time.perf_counter()
+    drill = _tele_drill()
+    t2 = time.perf_counter()
+    plat = _tele_platform(root, live["history"])
+    counts = path_launches()
+    if any(counts.values()):
+        raise AssertionError(f"telemetry_path launched {counts} in-process")
+    info = {"phase": "telemetry_path", "card": card, "live": live,
+            "drill": drill, "platform": plat,
+            "seconds": {"live": t1 - t0, "drill": t2 - t1,
+                        "platform": time.perf_counter() - t2},
+            "kernel_launches": live["fit_launches"]}
+    emit(info)
+    return {"launches": live["fit_launches"]["fit_launches"],
+            "launches_by_design": live["fit_launches"]
+            ["fit_launches_by_design"],
+            "counts": {k: v for k, v in counts.items() if k != "fused_fit"}}
 
 
 #: the KSQL stage's fleet: one tick of the reference's 100,000 cars
@@ -6516,6 +7008,7 @@ def main() -> int:
         lc_info = phase_lifecycle_path(card, root, live_info)
         online_info = phase_online_path(card, root)
         obs_info = phase_obs_path(card, root)
+        tele_info = phase_telemetry_path(card, root)
         ksql_info = phase_ksql_path(card)
         demo_info = phase_demo_path(card)
         store_info = phase_store_path(card)
@@ -6544,7 +7037,8 @@ def main() -> int:
              "mnist_path": {key: mnist_info["counts"][key]
                             for key in flash_attention.launches},
              "online_path": online_info["counts"],
-             "obs_path": obs_info["counts"]}
+             "obs_path": obs_info["counts"],
+             "telemetry_path": tele_info["counts"]}
     design = timing["design"]
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
@@ -6554,6 +7048,7 @@ def main() -> int:
         + serve_info["launches"]["fused_fit"] + wire_info["launches"]
         + live_info["launches"] + lc_info["launches"]
         + online_info["launches"] + obs_info["launches"]
+        + tele_info["launches"]
         + ksql_info["launches"] + demo_info["launches"]
         + store_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
@@ -6567,6 +7062,7 @@ def main() -> int:
                              "lifecycle_path": lc_info["launches"],
                              "online_path": online_info["launches"],
                              "obs_path": obs_info["launches"],
+                             "telemetry_path": tele_info["launches"],
                              "ksql_path": ksql_info["launches"],
                              "demo_path": demo_info["launches"],
                              "store_path": store_info["launches"],
@@ -6582,6 +7078,7 @@ def main() -> int:
             + lc_info["launches_by_design"][d]
             + online_info["launches_by_design"][d]
             + obs_info["launches_by_design"][d]
+            + tele_info["launches_by_design"][d]
             + ksql_info["launches_by_design"][d]
             + demo_info["launches_by_design"][d]
             + store_info["launches_by_design"][d]

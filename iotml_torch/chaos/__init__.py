@@ -1,3 +1,4 @@
-"""Chaos (``iotml.chaos``): the fault points and their engine (``faults``)
-and the invariant verdicts the online drill uses (``runner``); the
-scenario schedules and the scenario runner are ROADMAP A14."""
+"""Chaos (``iotml.chaos``): the fault points and their engine (``faults``),
+the seeded fault schedules (``scenarios``, ``python -m iotml_torch.chaos
+schedule``) and the invariant verdicts the drills use (``runner``); the
+scenario runner and its topologies are ROADMAP A14."""

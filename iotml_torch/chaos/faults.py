@@ -17,12 +17,10 @@ intentional-loss ledger (count and, under tracing, the trace id) unless
 the event marks it unaccounted.
 
 Arming: ``arm(ChaosEngine(events))`` in-process, with events of
-``FaultEvent``'s shape.  ``IOTML_CHAOS=1`` asks for a named scenario
-(``IOTML_CHAOS_SCENARIO`` / ``_SEED`` / ``_RECORDS``), which the JAX
-package builds in ``chaos/scenarios.py``; the port has no scenarios yet
-(ROADMAP A14), so ``arm_from_env`` raises NotImplementedError when it is
-set, at import too: a process asked to run under chaos never runs
-without it.
+``FaultEvent``'s shape, or ``IOTML_CHAOS=1`` with ``IOTML_CHAOS_SCENARIO``
+/ ``_SEED`` / ``_RECORDS`` for any process of the port: ``arm_from_env``
+(run at import) builds the named schedule (``scenarios.build``) and arms
+it.
 """
 
 from __future__ import annotations
@@ -315,18 +313,20 @@ def disarm() -> None:
 
 
 def arm_from_env(env: Optional[dict] = None) -> Optional[ChaosEngine]:
-    """No-op unless ``IOTML_CHAOS`` is truthy; then it would arm the
-    named scenario, which the port does not build yet."""
+    """Arm from ``IOTML_CHAOS`` / ``IOTML_CHAOS_{SCENARIO,SEED,RECORDS}``:
+    a no-op unless ``IOTML_CHAOS`` is truthy, so a normal process pays
+    one environment read."""
     env = os.environ if env is None else env
     # only an explicit opt-in arms: IOTML_CHAOS=false/no/off disables
     if env.get("IOTML_CHAOS", "").strip().lower() not in \
             ("1", "true", "yes", "on"):
         return None
-    raise NotImplementedError(
-        f"IOTML_CHAOS scenario "
-        f"{env.get('IOTML_CHAOS_SCENARIO', 'mqtt-flap')!r}: the chaos "
-        f"scenarios are not ported yet (ROADMAP A14); arm a ChaosEngine "
-        f"of FaultEvents in-process instead")
+    from .scenarios import build  # never loaded while disarmed
+
+    schedule = build(env.get("IOTML_CHAOS_SCENARIO", "mqtt-flap"),
+                     seed=int(env.get("IOTML_CHAOS_SEED", "7")),
+                     records=int(env.get("IOTML_CHAOS_RECORDS", "1000")))
+    return arm(ChaosEngine(schedule.events))
 
 
 arm_from_env()

@@ -1,13 +1,19 @@
-"""Invariant verdicts (``iotml.chaos.runner``, cut to what the online
-drill uses): the ``Invariant`` record, the commit-monotonicity check and
-the commit recorder it reads.  The scenario runner, its other invariants
-and the fault engine are ROADMAP A14.
+"""Invariant verdicts (``iotml.chaos.runner``, cut to what the online and
+alert-burn drills use): the topics and group of the drill pipelines, the
+``Invariant`` record, the commit-monotonicity check and the commit
+recorder it reads.  The scenario runner and its other invariants are
+ROADMAP A14.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List
+
+#: the drill pipelines' ML input topic, prediction topic and scorer group
+IN_TOPIC = "SENSOR_DATA_S_AVRO"
+PRED_TOPIC = "model-predictions"
+GROUP = "chaos-scorer"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -72,9 +72,11 @@ def main(argv=None, device: DeviceLike = None) -> int:
         while time.monotonic() < deadline:
             time.sleep(0.25)
             plat.pump()  # L4: KSQL pipeline keeps up with the stream
-        plat.stop_fleet()  # joins the publisher: stream is quiescent now
-        plat.pump()
-        ingested = plat.bridge.forwarded()
+        plat.stop_fleet()
+        # the front may still hold unparsed frames and the KSQL pump runs
+        # on its own thread: train and score only once every published
+        # message has reached the KSQL output and it stopped moving
+        ingested = plat.drain_ingest()
 
         # ---- L5 train: consume the KSQL output topic, one fused fit
         spec = plat.broker.topic("SENSOR_DATA_S_AVRO")

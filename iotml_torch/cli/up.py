@@ -41,12 +41,18 @@ the temporary directory; the fsync, segment and retention policy ride the
 `store.*` section, the tier's budget and cadence the `tier.*` section, as
 in the JAX package; `--tier-uri` without durable mode is a usage error.
 
+`cc_port` / `--cc-port` serve the control center (`obs.control_center`:
+`GET /` and `GET /api/status`, its row `control-center` in
+`endpoints()`); the command line always serves it (port 0 by default,
+as in the JAX package), `Platform` when given a port.
+
 Left out, each raising NotImplementedError naming its ROADMAP item when
 given (as a constructor argument or a flag): Kafka Connect and the
-car-health twin (`connect_port`, `--connect-port`: A16), the control
-center (`cc_port`, `--cc-port`: A13), the supervisor (`supervised()`,
-`--supervise`: A14), and `--prefetch-depth` (A10).  ``pump()`` drives
-the KSQL server alone until A16 brings Connect.  `--decode-ring-buffers`,
+car-health twin (`connect_port`, `--connect-port`: A16), the supervised
+platform (`supervised()`, `--supervise`: A14), and `--prefetch-depth`
+(A10).  ``pump()`` drives the KSQL server alone until A16 brings Connect;
+``drain_ingest()`` waits until every message the simulated fleet sent is
+bridged and the KSQL outputs stop moving.  `--decode-ring-buffers`,
 `--raw-batch-bytes`, `--raw-produce` and `--produce-batch-bytes` set
 their knobs through ``data.pipeline.set_knobs`` before the platform is
 built, as in the JAX package; an invalid value is a usage error.
@@ -64,11 +70,10 @@ from typing import Optional
 from ..utils.device import DeviceLike, resolve_device
 
 #: left-out constructor arguments → the ROADMAP item that ports them
-UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)",
-                 "cc_port": "A13 (the control center)"}
+UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)"}
 #: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
-UNPORTED_FLAGS = {"connect_port": "A16", "cc_port": "A13",
-                  "supervise": "A14", "prefetch_depth": "A10"}
+UNPORTED_FLAGS = {"connect_port": "A16", "supervise": "A14",
+                  "prefetch_depth": "A10"}
 
 
 class Platform:
@@ -87,7 +92,7 @@ class Platform:
                  registry_dir: Optional[str] = None,
                  registry_watch_poll_s: float = 0.25,
                  device: DeviceLike = None):
-        given = {"connect_port": connect_port, "cc_port": cc_port}
+        given = {"connect_port": connect_port}
         for name, item in UNPORTED_ARGS.items():
             if given[name] is not None:
                 raise NotImplementedError(
@@ -191,10 +196,18 @@ class Platform:
                 self.model_registry, component="platform",
                 poll_interval_s=registry_watch_poll_s)
 
+        #: the status UI, when a port was given (0 binds a free one)
+        self.control_center = None
+        if cc_port is not None:
+            from ..obs.control_center import ControlCenter
+
+            self.control_center = ControlCenter(self, host=host, port=cc_port)
         self._obs = obs_metrics
         self.metrics_server = None
         self._fleet_stop = threading.Event()
         self._fleet_thread: Optional[threading.Thread] = None
+        self._fleet_published = 0
+        self._fleet_lock = threading.Lock()
         self.started = False
 
     def start(self, metrics_port: Optional[int] = None) -> "Platform":
@@ -210,6 +223,8 @@ class Platform:
             self.uploader.start()
         if metrics_port is not None:
             self.metrics_server = self._obs.start_http_server(metrics_port)
+        if self.control_center is not None:
+            self.control_center.start()
         self.started = True
         return self
 
@@ -225,6 +240,8 @@ class Platform:
             "schema-registry": self.registry_server.url,
             "ksql": self.ksql.url,
         })
+        if self.control_center is not None:
+            out["control-center"] = self.control_center.url
         if self.metrics_server is not None:
             out["metrics"] = "http://127.0.0.1:" + \
                 str(self.metrics_server.server_address[1]) + "/metrics"
@@ -265,6 +282,8 @@ class Platform:
                         clients[i % n_conns].publish(
                             f"vehicles/sensor/data/{scenario.car_id(i)}",
                             _json.dumps(rec).encode(), qos=0)
+                        with self._fleet_lock:
+                            self._fleet_published += 1
             finally:
                 for c in clients:
                     try:
@@ -279,13 +298,52 @@ class Platform:
         self._fleet_thread.start()
 
     def stop_fleet(self) -> None:
-        """Stop the simulated fleet and wait for its last publishes to
-        land (join the thread), so callers can pump once afterwards and
-        see a quiescent stream."""
+        """Stop the simulated fleet: join its publisher after its last
+        send.  The MQTT front may still hold frames it has not parsed;
+        ``drain_ingest`` waits for them."""
         self._fleet_stop.set()
         if self._fleet_thread is not None:
             self._fleet_thread.join(timeout=10)
             self._fleet_thread = None
+
+    def fleet_published(self) -> int:
+        """Messages the simulated fleet has sent to the MQTT front."""
+        with self._fleet_lock:
+            return self._fleet_published
+
+    def _ksql_ends(self) -> dict:
+        topics = set(self.broker.topics())
+        return {(q.task.dst, p): self.broker.end_offset(q.task.dst, p)
+                for q in list(self.sql.queries.values())
+                if q.task.dst in topics
+                for p in range(self.broker.topic(q.task.dst).partitions)}
+
+    def drain_ingest(self, deadline_s: float = 30.0) -> int:
+        """Wait until the bridge has forwarded every message the fleet
+        published, then pump the continuous queries until their output
+        topics' end offsets stop moving; returns the messages bridged.
+        Past the deadline it raises TimeoutError saying how many messages
+        are missing: it never returns a short stream quietly."""
+        deadline = time.monotonic() + deadline_s
+        want = self.fleet_published()
+        while self.bridge.forwarded() < want:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"ingest drain: {want - self.bridge.forwarded()} of "
+                    f"{want} published messages not bridged after "
+                    f"{deadline_s}s")
+            time.sleep(0.01)
+        ends = None
+        while True:
+            emitted = self.pump()
+            now = self._ksql_ends()
+            if emitted == 0 and now == ends:
+                return self.bridge.forwarded()
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"ingest drain: the KSQL outputs still moved after "
+                    f"{deadline_s}s ({emitted} records in the last pump)")
+            ends = now
 
     def pump(self) -> int:
         """Advance the continuous queries once (deterministic)."""
@@ -301,8 +359,9 @@ class Platform:
             self._fleet_thread.join(timeout=3)
         if self.registry_watcher is not None:
             self.registry_watcher.stop()
-        for s in (self.ksql, self.registry_server):
-            s.stop()
+        for s in (self.ksql, self.registry_server, self.control_center):
+            if s is not None:
+                s.stop()
         self.kafka.shutdown()
         self.kafka.server_close()
         self.mqtt.stop()
@@ -336,8 +395,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
     ap.add_argument("--ksql-port", type=int, default=0)
     ap.add_argument("--connect-port", type=int, default=None,
                     help="not ported (A16)")
-    ap.add_argument("--cc-port", type=int, default=None,
-                    help="not ported (A13)")
+    ap.add_argument("--cc-port", type=int, default=0,
+                    help="control-center UI port (topics/queries/metrics)")
     ap.add_argument("--metrics-port", type=int, default=9100)
     ap.add_argument("--retention", type=int, default=0, metavar="N",
                     help="keep at most N messages per partition "
@@ -451,7 +510,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
                         registry_dir=args.registry
                         or (cfg.mlops.registry_dir or None),
                         registry_watch_poll_s=cfg.mlops.watch_poll_s,
-                        device=device)
+                        cc_port=args.cc_port, device=device)
     except ValueError as e:  # e.g. negative retention: clean usage error
         ap.error(str(e))
     try:

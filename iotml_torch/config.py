@@ -1,5 +1,5 @@
 """Typed configuration (``iotml.config``'s resolver and its sections but
-``mesh`` and ``slo``).
+``mesh``).
 
 One dataclass tree with one resolution order:
 
@@ -180,6 +180,41 @@ class OnlineConfig:
 
 
 @dataclasses.dataclass
+class SloConfig:
+    """Burn-rate SLO engine over the log-native TSDB (``obs.slo``).
+
+    ``rules_path`` empty (the default) materializes the canary-backed
+    starter pair (``obs.canary.default_slo_rules``); set it
+    (``IOTML_SLO_RULES_PATH``) to a JSON file holding a list of
+    declarative rule dicts in the ``SloRule.from_dict`` shape.
+    ``window_scale`` compresses every rule's burn windows by the same
+    factor (a drill runs the 5 m/1 h pair in seconds without changing
+    the alert logic)."""
+
+    rules_path: str = ""         # JSON list of SLO rule dicts
+    window_scale: float = 1.0    # burn-window compression factor
+    interval_s: float = 2.0      # engine evaluation cadence
+    tsdb_chunk_ms: int = 60_000  # TSDB appender chunk window
+
+
+def slo_rules(cfg: SloConfig) -> list:
+    """Materialize the declarative rule dicts an ``SloEngine`` takes:
+    the JSON file when configured, the canary defaults otherwise
+    (``window_scale`` applies to both)."""
+    if not cfg.rules_path:
+        from .obs.canary import default_slo_rules
+        return default_slo_rules(window_scale=cfg.window_scale)
+    with open(cfg.rules_path) as f:
+        docs = json.load(f)
+    if not isinstance(docs, list):
+        raise ValueError(f"{cfg.rules_path}: expected a JSON list of "
+                         f"SLO rule dicts, got {type(docs).__name__}")
+    for doc in docs:
+        doc.setdefault("window_scale", cfg.window_scale)
+    return docs
+
+
+@dataclasses.dataclass
 class Config:
     broker: BrokerConfig = dataclasses.field(default_factory=BrokerConfig)
     stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
@@ -193,6 +228,7 @@ class Config:
     tier: TierConfig = dataclasses.field(default_factory=TierConfig)
     mlops: MlopsConfig = dataclasses.field(default_factory=MlopsConfig)
     online: OnlineConfig = dataclasses.field(default_factory=OnlineConfig)
+    slo: SloConfig = dataclasses.field(default_factory=SloConfig)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -204,7 +240,6 @@ class Config:
 #: the JAX package's other sections, and the ROADMAP item that ports each
 UNPORTED_SECTIONS = {
     "mesh": "A10 (multi-GPU data parallel)",
-    "slo": "A13 (the rest of the tooling)",
 }
 
 _UNREAD_SECTIONS = {

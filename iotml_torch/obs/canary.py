@@ -26,14 +26,14 @@ its records by the ``/canary-`` key marker and closes the loop:
 
 Both are metric families (`iotml_canary_e2e_seconds` buckets for a
 latency SLO; `iotml_canary_probes_total{outcome=}` for the availability
-ratio; ``default_slo_rules`` states the pair).  The SLO engine and the
-TSDB that evaluate them are ROADMAP A13.  Scoring pipelines exclude the
+ratio; ``default_slo_rules`` states the pair, which ``obs.slo`` evaluates
+over ``obs.tsdb``).  Scoring pipelines exclude the
 reserved ids (`SensorBatches(exclude_key_marker=CANARY_KEY_MARKER)`), so
 canary records NEVER reach user-facing prediction topics.
 
-``loop(unit)`` needs only ``unit.should_stop()`` and ``unit.heartbeat()``,
-so it runs under any driver of that shape (the supervisor is ROADMAP
-A14).
+``loop(unit)`` needs only ``unit.should_stop()`` and ``unit.heartbeat()``:
+it runs as a ``supervise.supervisor`` unit, or under any driver of that
+shape.
 """
 
 from __future__ import annotations

@@ -7,11 +7,13 @@ serves on ``/metrics``.  The families of ``default_registry`` carry the
 JAX package's names, help texts and buckets, so one scrape reads the
 same from either package; ``cardinality_violations`` holds labels to the
 same closed vocabulary.  ``/healthz`` reports stage liveness (the trace
-collector), the model versions with their offsets lag, the event-time
-watermarks and consumer lag.  The supervisor and replication blocks of
-the JAX endpoint are ROADMAP A14, the SLO alerts A13, and fleet
-federation A13 too: a server registers its address in-process only
-(``federate.register_local_endpoint``).
+collector), the units of any live supervisor, the model versions with
+their offsets lag, the event-time watermarks, consumer lag and the SLO
+alerts firing in this process; a degraded unit or a firing alert sets
+``status`` to ``degraded``.  The replication blocks of the JAX endpoint
+are ROADMAP A14.  A server publishes its address into the fleet's
+endpoints manifest when ``IOTML_OBS_ENDPOINTS`` names one, and
+in-process otherwise (``federate``).
 """
 
 from __future__ import annotations
@@ -478,7 +480,8 @@ def _labels_key(key: tuple, *names: str) -> str:
 
 def _healthz_doc() -> dict:
     """The ``/healthz`` body: stage liveness from the trace collector,
-    model versions and their offsets lag, watermarks, consumer lag."""
+    supervised units, model versions and their offsets lag, watermarks,
+    consumer lag, firing SLO alerts."""
     from . import tracing  # late: tracing imports this module
 
     stages = tracing.liveness()
@@ -489,6 +492,18 @@ def _healthz_doc() -> dict:
         # the one whose age grows while its upstream stays fresh
         "stages": {s: {"last_span_age_s": age} for s, age in stages.items()},
     }
+    # unit states from any live supervisor; late import with a guard: an
+    # unsupervised process must not pay for (or fail on) the supervisor
+    try:
+        from ..supervise import registry as _sup_registry
+
+        units = _sup_registry.snapshot()
+        if units:
+            doc["supervisor"] = units
+            if any(u.get("state") == "degraded" for u in units.values()):
+                doc["status"] = "degraded"
+    except Exception:  # noqa: BLE001 - the health endpoint stays up
+        pass
     with model_version._lock:
         mv = dict(model_version._vals)
     if mv:
@@ -517,6 +532,16 @@ def _healthz_doc() -> dict:
         doc["consumer_lag_records"] = {
             _labels_key(k, "group", "topic", "partition"): v
             for k, v in sorted(clag_vals.items())}
+    # firing burn-rate alerts from any live SloEngine in this process
+    try:
+        from . import slo as _slo
+
+        firing = _slo.firing_alerts()
+        if firing:
+            doc["alerts"] = firing
+            doc["status"] = "degraded"
+    except Exception:  # noqa: BLE001 - the health endpoint stays up
+        pass
     epoch = failover_epoch.value()
     if epoch:
         doc["failover_epoch"] = epoch
@@ -560,8 +585,19 @@ def start_http_server(port: int = 9100, registry: Registry = default_registry):
     srv.daemon_threads = True
     threading.Thread(target=srv.serve_forever, daemon=True,
                      name=f"iotml-metrics-{srv.server_address[1]}").start()
-    from . import federate, tracing
+    # federation: the endpoint joins the fleet's manifest when
+    # IOTML_OBS_ENDPOINTS names one (and the in-process registry always),
+    # so `python -m iotml_torch.obs fleet` finds every process
+    try:
+        from . import federate, tracing
 
-    federate.register_local_endpoint(
-        tracing.proc_name(), f"127.0.0.1:{srv.server_address[1]}")
+        name = tracing.proc_name()
+        addr = f"127.0.0.1:{srv.server_address[1]}"
+        manifest = federate.manifest_path()
+        if manifest:
+            federate.publish_endpoint(manifest, name, addr)
+        else:
+            federate.register_local_endpoint(name, addr)
+    except Exception:  # noqa: BLE001 - serving must not die on a manifest
+        pass           # hiccup (read-only file system, lock contention)
     return srv

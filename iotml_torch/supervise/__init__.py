@@ -1,6 +1,8 @@
-"""Supervision (``iotml.supervise``): ported are ``topology.Topology``,
-the cell the model registry publishes its serving flips through,
-``drill.DrillReport``, the online drill's report, and ``registry``, the
-process-wide registry of background threads and supervisors that the
-REST and KSQL servers register their threads in.  The supervisor itself
-and the live drills are ROADMAP A14."""
+"""Supervision (``iotml.supervise``): the supervisor (``supervisor``:
+loop and probed units, heartbeats, wedge detection, restarts under
+backoff within a restart-storm budget), ``topology.Topology``, the cell
+the model registry publishes its serving flips through,
+``drill.DrillReport`` with the drill helpers the alert-burn drill uses,
+and ``registry``, the process-wide registry of background threads and
+supervisors.  ``Platform.supervised()`` and the live leader-kill,
+scorer-crash and broker-restart drills are ROADMAP A14."""

@@ -1,14 +1,21 @@
-"""Drill reports (``iotml.supervise.drill``'s ``DrillReport``): one
-drill's counts, SLOs and invariant verdicts, as JSON or text lines.
-The live supervised drills themselves are ROADMAP A14.
+"""Drill reports and helpers (``iotml.supervise.drill``, cut to what the
+online and alert-burn drills use): ``DrillReport``, one drill's counts,
+SLOs and invariant verdicts as JSON or text lines; ``CARS_PER_TICK``;
+``_wait``.  The live leader-kill, scorer-crash and broker-restart drills
+are ROADMAP A14.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
+from ..chaos import scenarios
 from ..chaos.runner import Invariant
+
+#: records per simulated fleet tick (shared with the chaos scenarios)
+CARS_PER_TICK = scenarios.CARS_PER_TICK
 
 
 @dataclasses.dataclass
@@ -51,3 +58,14 @@ class DrillReport:
         out.append(("DRILL PASS" if self.ok else "DRILL FAIL")
                    + f" ({self.drill})")
         return out
+
+
+def _wait(cond, timeout_s: float, interval_s: float = 0.02) -> bool:
+    """Poll ``cond`` until it holds or ``timeout_s`` passes; its last
+    value."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(interval_s)
+    return cond()

@@ -5,10 +5,9 @@ Every background thread the port starts for a server (the REST handlers,
 their accept loop, the KSQL pump) is daemon, named and registered here,
 so the threads are an enumerable surface and a wedged process's stack
 dump names each one.  Registration holds one weak reference per thread
-and never extends a lifetime.  Supervisors register themselves so
-``snapshot()`` can report their units' states; the supervisor itself is
-ROADMAP A14, so in the port the supervisor list is filled only by a
-caller that brings its own object with a ``snapshot()`` method.
+and never extends a lifetime.  Supervisors (``supervisor.Supervisor``)
+register themselves on start, so ``snapshot()`` reports their units'
+states to ``/healthz``.
 """
 
 from __future__ import annotations

@@ -170,12 +170,21 @@ def test_arm_disarm_and_the_injected_counter():
 
 
 def test_arm_from_env_names_a14_for_a_scenario():
+    """``IOTML_CHAOS`` arms the named scenario's schedule (the scenarios
+    are ported; only their runner is ROADMAP A14), and an unknown name
+    raises KeyError as JAX's does, arming nothing."""
     assert faults.arm_from_env({}) is None
     assert faults.arm_from_env({"IOTML_CHAOS": "off"}) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(KeyError, match="broker-blackout"):
         faults.arm_from_env({"IOTML_CHAOS": "1",
                              "IOTML_CHAOS_SCENARIO": "broker-blackout"})
     assert faults.engine() is None
+    try:
+        eng = faults.arm_from_env({"IOTML_CHAOS": "1",
+                                   "IOTML_CHAOS_SCENARIO": "dup-storm"})
+        assert faults.engine() is eng and "mqtt.deliver" in eng._windows
+    finally:
+        faults.disarm()
 
 
 # ---------------------------------------------------- points in the path

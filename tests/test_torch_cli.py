@@ -154,11 +154,9 @@ def test_argument_errors_return_1_like_jax(argv):
 
 
 @pytest.mark.parametrize("change,env,item", [
-    ({7: "--slo.interval_s=1"}, {}, "A13"),     # the slo config section
     ({7: "--mesh.data=4"}, {}, "A10"),          # a device mesh
     ({}, {"IOTML_MESH_DATA": "2"}, "A10"),
     ({}, {"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"}, "A10"),
-    ({}, {"IOTML_SLO_WINDOW_SCALE": "2"}, "A13"),
 ])
 def test_unported_paths_raise_naming_roadmap(tmp_path, monkeypatch, change,
                                              env, item):

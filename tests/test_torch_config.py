@@ -3,12 +3,13 @@ package's (``tests/test_config.py``'s cases on both resolvers).
 
 The ``stream``, ``artifacts`` and ``scenario`` sections are the JAX
 package's dataclasses (fields, types, defaults), so ``Config()`` has its
-sections but ``mesh`` and ``slo`` (ROADMAP A10, A13) and ``dumps()``
-writes the same JSON for every section the two share.  The JAX package
+sections but ``mesh`` (ROADMAP A10) and ``dumps()`` writes the same
+JSON for every section the two share.  The JAX package
 reads none of those three sections' keys, so the port refuses each key
 naming why (the CLIs take topics and paths as positional arguments), as
-it refuses ``broker.servers``.  ``store`` and ``tier`` resolve equal to
-JAX's from file, environment and flags.
+it refuses ``broker.servers``.  ``store``, ``tier`` and ``slo`` resolve
+equal to JAX's from file, environment and flags, and ``slo_rules`` gives
+JAX's rule dicts (the canary defaults, a JSON file, ``window_scale``).
 """
 
 import dataclasses
@@ -43,11 +44,11 @@ def test_config_has_the_jax_sections_but_the_unported():
     want = [f.name for f in dataclasses.fields(j_config.Config)
             if f.name not in t_config.UNPORTED_SECTIONS]
     assert SHARED == want
-    assert set(t_config.UNPORTED_SECTIONS) == {"mesh", "slo"}
+    assert set(t_config.UNPORTED_SECTIONS) == {"mesh"}
 
 
 @pytest.mark.parametrize("section", ["stream", "artifacts", "scenario",
-                                     "store", "tier"])
+                                     "store", "tier", "slo"])
 def test_sections_are_the_jax_dataclasses(section):
     t_cls = type(getattr(t_config.Config(), section))
     j_cls = type(getattr(j_config.Config(), section))
@@ -160,7 +161,7 @@ def test_a_jax_dump_loads_only_without_the_unread_sections(tmp_path):
     with pytest.raises(ValueError):
         t_config.load_config([], env={}, path=path)
     doc = json.loads(j_cfg.dumps())
-    for name in ("broker", "stream", "artifacts", "scenario", "mesh", "slo"):
+    for name in ("broker", "stream", "artifacts", "scenario", "mesh"):
         doc.pop(name)
     doc["train"].pop("model")
     with open(path, "w") as fh:
@@ -168,3 +169,46 @@ def test_a_jax_dump_loads_only_without_the_unread_sections(tmp_path):
     t_cfg, _ = t_config.load_config([], env={}, path=path)
     assert t_cfg.store.retention_ms == 100000 and t_cfg.tier.uri == "/t"
     assert _sections(t_cfg)["store"] == dataclasses.asdict(j_cfg.store)
+
+
+@pytest.mark.parametrize("argv,env", [
+    ([], {}),
+    (["--slo.interval_s=0.5", "--slo.tsdb_chunk_ms", "2000"], {}),
+    ([], {"IOTML_SLO_WINDOW_SCALE": "0.01", "IOTML_SLO_INTERVAL_S": "3"}),
+    (["--slo.window_scale=2"], {"IOTML_SLO_WINDOW_SCALE": "0.5"})])
+def test_the_slo_section_resolves_as_jax(argv, env):
+    t_cfg, t_rest = t_config.load_config(argv + ["x"], env=env)
+    j_cfg, j_rest = j_config.load_config(argv + ["x"], env=env)
+    assert dataclasses.asdict(t_cfg.slo) == dataclasses.asdict(j_cfg.slo)
+    assert t_rest == j_rest == ["x"]
+    assert t_config.slo_rules(t_cfg.slo) == j_config.slo_rules(j_cfg.slo)
+
+
+def test_slo_rules_from_a_file_as_jax(tmp_path):
+    rules = [{"name": "lat", "objective": 0.99,
+              "indicator": {"kind": "latency", "metric": "m_seconds",
+                            "threshold_s": 0.2}},
+             {"name": "avail", "objective": 0.9, "window_scale": 3.0,
+              "indicator": {"kind": "ratio", "bad": "b", "total": "t"}}]
+    path = tmp_path / "rules.json"
+    path.write_text(json.dumps(rules))
+    env = {"IOTML_SLO_RULES_PATH": str(path),
+           "IOTML_SLO_WINDOW_SCALE": "0.25"}
+    t_cfg, _ = t_config.load_config([], env=env)
+    j_cfg, _ = j_config.load_config([], env=env)
+    assert t_config.slo_rules(t_cfg.slo) == j_config.slo_rules(j_cfg.slo)
+    assert [r["window_scale"] for r in t_config.slo_rules(t_cfg.slo)] == \
+        [0.25, 3.0]
+    path.write_text(json.dumps({"not": "a list"}))
+    errs = []
+    for mod, cfg in ((t_config, t_cfg), (j_config, j_cfg)):
+        with pytest.raises(ValueError) as e:
+            mod.slo_rules(cfg.slo)
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+
+
+def test_a_bad_slo_value_fails_as_jax():
+    for mod in (t_config, j_config):
+        with pytest.raises(ValueError, match="slo.interval_s"):
+            mod.load_config(["--slo.interval_s=fast"], env={})

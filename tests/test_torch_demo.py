@@ -9,6 +9,7 @@ the flags' defaults are equal.
 """
 
 import json
+import time
 
 import pytest
 import torch
@@ -95,3 +96,75 @@ def test_without_matplotlib_the_report_is_json_alone(capsys, monkeypatch):
     assert s["scored"] == s["ksql_avro_records"] > 0
     with zipfile.ZipFile(s["eval_report"]) as z:
         assert z.namelist() == ["report.json"]
+
+
+def _avro_records(plat) -> int:
+    return sum(plat.broker.end_offset("SENSOR_DATA_S_AVRO", p)
+               for p in range(plat.broker.topic("SENSOR_DATA_S_AVRO")
+                              .partitions))
+
+
+def _slow_front(seconds: float):
+    """Every MQTT delivery (the front's hand-off to the bridge) delayed."""
+    from iotml_torch.chaos import faults
+
+    return faults.arm(faults.ChaosEngine([faults.FaultEvent(
+        1, "mqtt.deliver", "delay", (("seconds", seconds),),
+        repeat=1_000_000)]))
+
+
+def test_a_slow_front_is_drained_before_the_stream_is_read():
+    """The MQTT front 20 ms a delivery behind a 6-car fleet at 20 Hz: after
+    the publisher's join and one pump (the old path) the KSQL output is
+    still short of what was published; ``drain_ingest`` waits until the
+    bridge has every published message and the KSQL output stops
+    moving."""
+    from iotml_torch.chaos import faults
+    from iotml_torch.cli.up import Platform
+
+    plat = Platform(partitions=4, device="cpu").start()
+    try:
+        _slow_front(0.02)
+        plat.start_fleet(6, rate_hz=20)
+        time.sleep(1.5)
+        plat.stop_fleet()
+        plat.pump()
+        published = plat.fleet_published()
+        assert published > 0
+        assert _avro_records(plat) < published  # the race: a short stream
+        assert plat.drain_ingest(deadline_s=60) == published
+        assert plat.bridge.forwarded() == published == _avro_records(plat)
+        plat.pump()
+        assert _avro_records(plat) == published  # nothing left to move
+    finally:
+        faults.disarm()
+        plat.stop()
+
+
+def test_drain_ingest_raises_naming_what_is_missing():
+    from iotml_torch.cli.up import Platform
+
+    plat = Platform(partitions=4, device="cpu").start()
+    try:
+        plat._fleet_published = 7  # sent, and never reaching the front
+        with pytest.raises(TimeoutError, match="7 of 7 published"):
+            plat.drain_ingest(deadline_s=0.2)
+    finally:
+        plat.stop()
+
+
+def test_the_demo_scores_every_record_behind_a_slow_front(capsys):
+    """The demo with its front 15 ms a delivery behind (a backlog past the
+    fleet's 2 s): the summary still reads scored == ksql_avro_records ==
+    mqtt_messages_bridged, because training and scoring start only after
+    ``drain_ingest``."""
+    from iotml_torch.chaos import faults
+
+    _slow_front(0.015)
+    try:
+        s = _summary(capsys, demo, ARGV, device="cpu")
+    finally:
+        faults.disarm()
+    assert s["mqtt_messages_bridged"] > 0
+    assert s["scored"] == s["ksql_avro_records"] == \
+        s["mqtt_messages_bridged"]

@@ -177,6 +177,60 @@ def test_the_durable_store_is_covered_and_loads_no_jax_stack():
     assert out.stdout.strip() == "[]"
 
 
+TELEMETRY_MODULES = ["iotml_torch/supervise/supervisor.py",
+                     "iotml_torch/supervise/drill.py",
+                     "iotml_torch/obs/tsdb.py", "iotml_torch/obs/slo.py",
+                     "iotml_torch/obs/federate.py",
+                     "iotml_torch/obs/drill.py",
+                     "iotml_torch/obs/dashboards.py",
+                     "iotml_torch/obs/control_center.py",
+                     "iotml_torch/obs/tb.py", "iotml_torch/obs/__main__.py",
+                     "iotml_torch/chaos/scenarios.py",
+                     "iotml_torch/chaos/__main__.py",
+                     "iotml_torch/cli/up.py", "iotml_torch/config.py"]
+
+
+def test_the_telemetry_plane_is_covered_and_loads_no_jax_stack():
+    """The telemetry plane's modules, imported and driven (a supervised
+    SLO engine over a TSDB appended on a durable broker, a fleet scrape,
+    a dashboard, a scenario armed from the environment) in a fresh
+    interpreter, pull in no module of the JAX stack or the JAX
+    package."""
+    import subprocess
+    import sys
+
+    assert set(TELEMETRY_MODULES) <= set(FILES)
+    mods = [p[:-3].replace("/", ".") for p in TELEMETRY_MODULES]
+    code = ("import sys, tempfile, time\n" +
+            "".join(f"import {m}\n" for m in mods) +
+            "from iotml_torch.stream.broker import Broker\n"
+            "from iotml_torch.obs import tsdb, slo, federate, dashboards\n"
+            "from iotml_torch.chaos import faults\n"
+            "from iotml_torch.supervise.supervisor import Supervisor\n"
+            "from iotml_torch.obs.canary import default_slo_rules\n"
+            "b = Broker(store_dir=tempfile.mkdtemp())\n"
+            "a = tsdb.TsdbAppender(b, chunk_ms=1000)\n"
+            "a.append([('m_total', {}, 1.0)], ts_ms=1000)\n"
+            "a.append([('m_total', {}, 3.0)], ts_ms=2000)\n"
+            "assert tsdb.query(tsdb.read_series(b), 'rate(m_total[5s])')\n"
+            "e = slo.SloEngine(b, default_slo_rules(), interval_s=0.01)\n"
+            "s = Supervisor(poll_interval_s=0.01).start()\n"
+            "s.add_loop('slo', e.loop)\n"
+            "time.sleep(0.1)\n"
+            "s.stop()\n"
+            "federate.FleetCollector(endpoints=[]).collect()\n"
+            "dashboards.dashboard_configmap()\n"
+            "faults.arm_from_env({'IOTML_CHAOS': '1'})\n"
+            "faults.disarm()\n"
+            "b.close()\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)

@@ -303,7 +303,7 @@ def test_platform_with_live_fleet_and_registry(tmp_path):
 
 
 @pytest.mark.parametrize("arg,value,item", [
-    ("connect_port", 0, "A16"), ("cc_port", 0, "A13")])
+    ("connect_port", 0, "A16")])
 def test_left_out_arguments_raise(arg, value, item):
     with pytest.raises(NotImplementedError, match=item):
         Platform(device="cpu", **{arg: value})
@@ -450,7 +450,7 @@ class _Built(Exception):
 
 @pytest.mark.parametrize("flag,item", [
     (["--supervise"], "A14"),
-    (["--connect-port", "0"], "A16"), (["--cc-port", "0"], "A13"),
+    (["--connect-port", "0"], "A16"),
     (["--decode-ring-buffers", "4"], "IOTML_DECODE_RING_BUFFERS"),
     (["--raw-batch-bytes", "4096"], "IOTML_RAW_BATCH_BYTES"),
     (["--raw-produce", "off"], "IOTML_RAW_PRODUCE"),

@@ -126,7 +126,10 @@ def test_concurrency_guard_sheds_with_503(mod):
     """Both packages: two keep-alive connections hold both slots, the
     third is shed with a raw 503 (Connection: close) and counted under
     route "(guard)"; a freed slot readmits."""
-    srv = mod.RestServer(name="iotml-rest-shed", max_concurrency=2)
+    # a name of its own for each case: the other case's handler threads
+    # may still be closing when this one counts its own
+    name = "iotml-rest-shed-" + ("port" if mod is t_rest else "jax")
+    srv = mod.RestServer(name=name, max_concurrency=2)
     srv.route("GET", r"/ping", lambda m, body: (200, {"pong": True}))
     srv.start()
     held = []
@@ -139,7 +142,7 @@ def test_concurrency_guard_sheds_with_503(mod):
             held.append(c)
         _await(lambda: srv.active_connections() == 2, "both slots held")
         names = [t.name for t in threading.enumerate()
-                 if t.name.startswith("iotml-rest-shed-h")]
+                 if t.name.startswith(f"{name}-h")]
         assert len(names) == 2
         with pytest.raises(urllib.error.HTTPError) as ei:
             urllib.request.urlopen(f"{srv.url}/ping", timeout=5)

@@ -255,8 +255,8 @@ def test_unported_servers_and_sections_raise_naming_roadmap(tmp_path):
     with pytest.raises(OSError) as j_err:
         j_serve.main(argv)
     assert type(t_err.value) is type(j_err.value) is ConnectionRefusedError
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        t_serve.main(["emulator", *argv[1:], "--slo.interval_s=1"],
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        t_serve.main(["emulator", *argv[1:], "--mesh.data=4"],
                      device="cpu")
 
 
