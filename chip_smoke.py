@@ -287,8 +287,10 @@ non-zero exit and no result line:
                 ``_IOTML_TSDB`` holds one record per (series, window).
                 Scrape-and-append ms and records, query and SLO
                 evaluation ms, seconds a round with the plane attached
-                and not.  (b) ``drill_alert_burn`` at its defaults with
-                the scorer on the card: every invariant passes (the fast
+                and not.  (b) the alert-burn drill at its defaults through
+                its CLI (``python -m iotml_torch.obs tsdb drill --json``)
+                in a process of its own, the scorer on the card: every
+                invariant passes (the fast
                 pair fires in budget, lands on ``_IOTML_ALERTS`` and both
                 ``/healthz``, resolves); time to fire and to resolve.  (c)
                 ``Platform(cc_port=0)`` one fleet tick old:
@@ -440,6 +442,40 @@ non-zero exit and no result line:
                 records/s; one RAW_FETCH a partition equal to
                 ``fetch_raw``.  Each sub-phase's frame engine rows and
                 seconds (``native.stats``).
+17b. replication_path — replicated durability (ROADMAP A14) under the
+                main path, after store_path in the same temporary root, at
+                the reference's RF-3 (01_installConfluentPlatform.sh:
+                180-183): (a) a leader ``KafkaWireServer`` on a durable
+                store and a ``ReplicaSet`` of 2 followers, each on a store
+                directory of its own (min_isr 2, max_lag_s 0.5), the
+                ISR formed on all 10 partitions; (b) one tick of the
+                reference's 100,000 cars, Avro-encoded, shipped to
+                SENSOR_DATA_S_AVRO over RAW_PRODUCE (``RawBatchProducer``)
+                at acks=-1, in chunks of ``IOTML_PRODUCE_BATCH_BYTES``;
+                (c) acks=all and acks=1 records/s, each the median of 3
+                runs in turns, and the overhead; then the cardata CLI's
+                ``train`` against the leader's host:port (one B1 launch);
+                (d) one follower killed abruptly, one acks=all chunk a
+                partition (acked once the ISR re-forms without it), the
+                leader killed with no drain, an ISR follower elected and
+                promoted at epoch 1, published through the ``Topology``;
+                (e) every acked record on the new leader byte for byte at
+                its offset (each partition's log bytes equal the frames
+                of what was acked, and the old leader's), a resurrected
+                old leader answering FENCED (74) to produce, raw produce
+                and commit with nothing appended; (f) the same CLI
+                ``train`` against the new leader: one B1 launch whose
+                checkpoint (params, mu, nu, step, cursors) equals the
+                pre-kill one bit for bit, and its losses and moments
+                against the plain version on the batches rebuilt from
+                the promoted log (``check_fit``); a new follower added
+                over RAW_FETCH, its catch-up seconds and MB/s; (g)
+                ``python -m iotml_torch.replication drill --name
+                double-fault`` and ``python -m iotml_torch.supervise
+                drill --all`` in-process at their defaults (seed 7), both
+                exit 0, the leader-kill trainer's B1 launches counted.
+                Records/s, time-to-promote, the drills' SLOs and B1
+                launches by sub-phase.
 18. fit_orders — after store_path's launch counts are read: its rows in
                 12 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
@@ -3809,19 +3845,34 @@ def _tele_live(root: str) -> dict:
 
 
 def _tele_drill() -> dict:
-    """(b) The alert-burn drill at its defaults, its scorer on the card."""
-    rep = obs_drill.drill_alert_burn()
-    if not rep.ok:
-        raise AssertionError("alert-burn drill:\n" + "\n".join(rep.lines()))
-    names = {i.name for i in rep.invariants}
+    """(b) The alert-burn drill at its defaults through its CLI,
+    ``python -m iotml_torch.obs tsdb drill --json``, in a process of its
+    own, as users run it, its scorer on the card.  In this process, after
+    the earlier phases, its healthy phase paged: its canaries' round trips
+    sit close to their 0.1 s latency SLO, and with the heap and state the
+    earlier phases leave behind more of them crossed it."""
+    out = subprocess.run(
+        [sys.executable, "-m", "iotml_torch.obs", "tsdb", "drill", "--json"],
+        capture_output=True, text=True, timeout=300)
+    try:
+        rep = json.loads(out.stdout[out.stdout.index("{"):])
+    except ValueError:
+        raise AssertionError(f"alert-burn drill exited {out.returncode}: "
+                             f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    inv = {i["name"]: i for i in rep["invariants"]}
+    if out.returncode != 0 or not rep["ok"]:
+        raise AssertionError(
+            "alert-burn drill:\n" + "\n".join(
+                f"{'PASS' if i['ok'] else 'FAIL'}  {n}: {i['detail']}"
+                for n, i in inv.items()))
     need = {"alert_fired_fast_within_budget", "alert_in_changelog",
             "alert_in_healthz", "alert_resolved", "resolve_in_changelog",
             "zero_canaries_scored", "tsdb_bounded_after_compaction"}
-    if not need <= names:
-        raise AssertionError(f"drill invariants {sorted(names)}")
-    return {"ok": True, "slos": rep.slos, "scored": rep.scored,
-            "published": rep.published, "injected": rep.injected,
-            "invariants": {i.name: i.detail for i in rep.invariants}}
+    if not need <= set(inv):
+        raise AssertionError(f"drill invariants {sorted(inv)}")
+    return {"ok": True, "slos": rep["slos"], "scored": rep["scored"],
+            "published": rep["published"], "injected": rep["injected"],
+            "invariants": {n: i["detail"] for n, i in inv.items()}}
 
 
 def _tele_platform(root: str, history: dict) -> dict:
@@ -5818,6 +5869,441 @@ def phase_store_path(card: str) -> dict:
             **{k: fit[k] for k in ("fit_start", "fit_rows", "bound")}}
 
 
+#: replication_path: the reference's RF-3 topics (leader + 2 followers,
+#: 01_installConfluentPlatform.sh:180-183) on the platform's 10 partitions
+REPL_FOLLOWERS, REPL_MIN_ISR, REPL_MAX_LAG_S = 2, 2, 0.5
+REPL_RUNS = 3
+REPL_TIMEOUT_MS = 30_000
+
+
+def _repl_chunks(tick, parts: int) -> list:
+    """A tick as RAW_PRODUCE requests: (partition, frames, entries), each
+    partition's records (by key, as the producer partitions them) cut at
+    ``IOTML_PRODUCE_BATCH_BYTES``."""
+    by_part = [[] for _ in range(parts)]
+    for e in tick:
+        by_part[zlib.crc32(e[0]) % parts].append(e)
+    cap = pipeline.produce_batch_bytes()
+    out = []
+    for p, ents in enumerate(by_part):
+        start = size = 0
+        for i, e in enumerate(ents + [None]):
+            grow = native.FRAME_OVERHEAD + len(e[0]) + len(e[1]) \
+                if e is not None else 0
+            if e is None or (size + grow > cap and i > start):
+                chunk = ents[start:i]
+                out.append((p, frame_entries(chunk), chunk))
+                start, size = i, 0
+            size += grow
+    return out
+
+
+def _repl_publish(addr: str, acks: int, chunks, acked: list) -> float:
+    """Ship ``chunks`` through one raw producer at ``acks``; each acked
+    chunk's (partition, base, entries) joins ``acked``.  Seconds."""
+    client = KafkaWireBroker(addr, acks=acks, client_id="smoke-repl")
+    producer = RawBatchProducer(client, STORE_TOPIC, mode="on")
+    try:
+        t0 = time.perf_counter()
+        for p, frames, ents in chunks:
+            base = producer.produce_frames(p, frames, len(ents))
+            acked.append((p, base, ents))
+        return time.perf_counter() - t0
+    finally:
+        client.close()
+
+
+def _repl_cli_fit(addr: str, root: str, where: str) -> dict:
+    """cardata ``train`` against ``addr`` on the card: one B1 launch, its
+    checkpoint and the group's committed cursors."""
+    before = fused_train.fused_fit.launches
+    rows = fused_train.fused_fit.launches_by_design["rows"]
+    train = _run_cli("train", root, addr)
+    if train["stats"]["broker"] != "wire" or \
+            fused_train.fused_fit.launches != before + 1 or \
+            fused_train.fused_fit.launches_by_design["rows"] != rows + 1:
+        raise AssertionError(f"replication_path ({where}): the CLI fit "
+                             f"launched B1 "
+                             f"{fused_train.fused_fit.launches - before}x "
+                             f"on {train['stats']['broker']}, not once "
+                             f"through rows over the wire")
+    ckpt = CheckpointManager.load_dir(ArtifactStore(root).download_tree(
+        "m1", str(Path(root) / "restored")))
+    return {"stats": train["stats"], "seconds": train["seconds"],
+            "ckpt": ckpt}
+
+
+def _repl_same_ckpt(a: dict, b: dict) -> None:
+    for tree in ("params", "mu", "nu"):
+        ta = a["params"] if tree == "params" \
+            else getattr(a["opt_state"], tree)
+        tb = b["params"] if tree == "params" \
+            else getattr(b["opt_state"], tree)
+        for k in PARAM_NAMES:
+            if not torch.equal(ta[k], tb[k]):
+                raise AssertionError(f"replication_path (f): {tree}/{k} of "
+                                     f"the fit from the promoted replica "
+                                     f"differs from the pre-kill fit")
+    if (a["step"], a["cursors"]) != (b["step"], b["cursors"]):
+        raise AssertionError(f"replication_path (f): step/cursors "
+                             f"{a['step']} {a['cursors']} vs "
+                             f"{b['step']} {b['cursors']}")
+
+
+def _repl_plain_check(addr: str, fit: dict) -> float:
+    """The promoted fit against the plain version: the CLI's batches,
+    rebuilt from offset 0 of the promoted log (they must end at the
+    checkpoint's cursors), from the CLI's start state (seed 0); every
+    epoch's loss and the final Adam moments at the fit bounds, the step
+    count.  Returns the largest absolute difference."""
+    cfg = cli_app.load_config([])[0]
+    trainer = Trainer(CAR_AUTOENCODER, learning_rate=cfg.train.learning_rate)
+    trainer._ensure_state()
+    client = KafkaWireBroker(addr, client_id="smoke-repl-check")
+    try:
+        parts = cli_app.topic_partitions(client, STORE_TOPIC)
+        consumer = StreamConsumer(client, [f"{STORE_TOPIC}:{p}:0"
+                                           for p in parts],
+                                  group="smoke-repl-check")
+        bs = list(SensorBatches(consumer, batch_size=cardata.BATCH_SIZE,
+                                take=cardata.TAKE_BATCHES,
+                                only_normal=cfg.train.only_normal))
+        if [tuple(c) for c in consumer.positions()] != \
+                [tuple(c) for c in fit["ckpt"]["cursors"]]:
+            raise AssertionError("replication_path (f): the rebuilt "
+                                 "batches end elsewhere than the CLI's")
+    finally:
+        client.close()
+    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    plain, losses, _accs = fused_train.fused_fit_reference(
+        trainer.state, xs, masks, cardata.NB_EPOCH,
+        cfg.train.learning_rate, CAR_AUTOENCODER.activity_l1)
+    ck = fit["ckpt"]
+    err = check_close("replication_path losses",
+                      torch.tensor(fit["stats"]["loss"]), losses,
+                      **METRIC_TOL)
+    for tree in ("mu", "nu"):
+        for k in PARAM_NAMES:
+            err = max(err, check_close(
+                f"replication_path {tree} {k}",
+                getattr(ck["opt_state"], tree)[k],
+                getattr(plain.opt_state, tree)[k], **STATE_TOL))
+    steps = xs.shape[0] * cardata.NB_EPOCH
+    if (ck["step"], ck["opt_state"].count) != (steps, steps):
+        raise AssertionError(f"replication_path (f): step/count "
+                             f"{ck['step']}/{ck['opt_state'].count}, not "
+                             f"{steps}")
+    return err
+
+
+def _repl_logs_equal(acked: list, new_dir: str, old_dir: str) -> dict:
+    """(e) Every acked record at its offset, byte for byte: each
+    partition's log on the new leader equals the frames of what was
+    acked there (in offset order, gap-free from 0) and the old leader's
+    log."""
+    by_part: dict = collections.defaultdict(list)
+    for p, base, ents in acked:
+        by_part[p].append((base, ents))
+    records = 0
+    for p, runs in sorted(by_part.items()):
+        runs.sort(key=lambda r: r[0])
+        want, off = [], 0
+        for base, ents in runs:
+            if base != off:
+                raise AssertionError(f"replication_path (e): partition "
+                                     f"{p}'s acks leave a gap at {off}")
+            want.append(frame_entries(ents, base))
+            off += len(ents)
+            records += len(ents)
+        got = _log_bytes(new_dir, STORE_TOPIC, p)
+        if got != b"".join(want):
+            raise AssertionError(f"replication_path (e): partition {p} on "
+                                 f"the new leader differs from its acked "
+                                 f"records")
+        if got != _log_bytes(old_dir, STORE_TOPIC, p):
+            raise AssertionError(f"replication_path (e): partition {p} on "
+                                 f"the new leader differs from the old "
+                                 f"leader's log")
+    return {"acked_records": records, "partitions": len(by_part),
+            "lost": 0, "byte_identical": True}
+
+
+def _repl_fenced(old_leader, epoch: int) -> dict:
+    """(e) The old leader's broker served again at its stale epoch 0: a
+    current-epoch client's produce, raw produce and commit answer FENCED
+    (74), nothing appended or committed."""
+    from iotml_torch.stream.kafka_wire import FencedEpochError
+
+    ends = [old_leader.end_offset(STORE_TOPIC, p)
+            for p in range(STORE_PARTS)]
+    zombie = KafkaWireServer(old_leader, epoch=0).start()
+    fenced = []
+    try:
+        client = KafkaWireBroker(f"127.0.0.1:{zombie.port}", epoch=epoch,
+                                 client_id="smoke-zombie-probe")
+        for what, call in (
+                ("produce", lambda: client.produce_many(
+                    STORE_TOPIC, [(b"k", b"split-brain", 0)], partition=0)),
+                ("produce_raw", lambda: client.produce_raw(
+                    STORE_TOPIC, 0, frame_entries([(b"k", b"raw", 0)]))),
+                ("commit", lambda: client.commit("smoke-zombie",
+                                                 STORE_TOPIC, 0, 1))):
+            try:
+                call()
+            except FencedEpochError:
+                fenced.append(what)
+        client.close()
+    finally:
+        zombie.shutdown()
+        zombie.server_close()
+    if fenced != ["produce", "produce_raw", "commit"] or ends != [
+            old_leader.end_offset(STORE_TOPIC, p)
+            for p in range(STORE_PARTS)] or \
+            old_leader.committed("smoke-zombie", STORE_TOPIC, 0) is not None:
+        raise AssertionError(f"replication_path (e): the resurrected old "
+                             f"leader fenced only {fenced}")
+    return {"fenced": fenced, "error": 74}
+
+
+def _repl_drills() -> dict:
+    """(g) Both drill CLIs in-process at their defaults; B1 launches of
+    each supervise drill (the leader-kill trainer's)."""
+    from iotml_torch.replication.__main__ import main as repl_main
+    from iotml_torch.supervise import drill as sup_drill
+    from iotml_torch.supervise.__main__ import main as sup_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = repl_main(["drill", "--name", "double-fault"])
+    repl_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"replication drill double-fault exited {rc}:"
+                             f"\n{err.getvalue()}")
+    repl = json.loads(out.getvalue())
+    real = dict(sup_drill.DRILLS)
+    launches: dict = {}
+
+    def counted(name, fn):
+        def run(**kw):
+            before = fused_train.fused_fit.launches
+            rows = fused_train.fused_fit.launches_by_design["rows"]
+            report = fn(**kw)
+            n = fused_train.fused_fit.launches - before
+            if fused_train.fused_fit.launches_by_design["rows"] - rows != n:
+                raise AssertionError(f"drill {name}: B1 off the rows "
+                                     f"design")
+            launches[name] = n
+            return report
+        run.__doc__ = fn.__doc__
+        return run
+
+    sup_drill.DRILLS.update({n: counted(n, f) for n, f in real.items()})
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = sup_main(["drill", "--all", "--json"])
+    finally:
+        sup_drill.DRILLS.update(real)
+    sup_s = time.perf_counter() - t0
+    # --json prints one indented document a drill, each opening at a
+    # line's start
+    reports = [json.loads("{" + doc) for doc in
+               out.getvalue().strip().lstrip("{").split("\n{")]
+    if rc != 0:
+        raise AssertionError(f"supervise drill --all exited {rc}: "
+                             f"{[(r['drill'], r['ok']) for r in reports]}")
+    if launches.get("leader-kill", 0) < 1 or any(
+            n for d, n in launches.items() if d != "leader-kill"):
+        raise AssertionError(f"supervise drills' B1 launches {launches}: "
+                             f"the leader-kill trainer fits, nothing else")
+    return {"double_fault": {"ok": repl["ok"], "slos": repl["slos"],
+                             "seconds": repl_s,
+                             "invariants": [i["name"] for i in
+                                            repl["invariants"]]},
+            "supervise": {r["drill"]: {"ok": r["ok"], "slos": r["slos"],
+                                       "restarts": r["restarts"]}
+                          for r in reports},
+            "supervise_seconds": sup_s, "b1_launches_by_drill": launches}
+
+
+def phase_replication_path(card: str, root: str) -> dict:
+    """Replicated durability under the main path: (a) the replica set,
+    (b) the load, (c) acks=all vs acks=1, (d) the double fault, (e) the
+    checks, (f) the fit from the promoted replica, (g) the drills."""
+    from iotml_torch.replication import ReplicaSet
+    from iotml_torch.store.hwm import HwmFile
+    from iotml_torch.supervise.topology import Topology
+
+    reset_launches()
+    reset_fit_launches()
+    t_phase = time.perf_counter()
+    base = Path(root) / "replication"
+    dirs = {"leader": str(base / "leader")}
+    dirs.update({f"follower{i}": str(base / f"follower{i}")
+                 for i in range(REPL_FOLLOWERS + 1)})
+    made = iter(range(REPL_FOLLOWERS + 1))
+
+    def follower_log():
+        return Broker(store_dir=dirs[f"follower{next(made)}"])
+
+    # (a) the replica set
+    leader = Broker(store_dir=dirs["leader"])
+    leader.create_topic(STORE_TOPIC, partitions=STORE_PARTS)
+    lsrv = KafkaWireServer(leader, epoch=0).start()
+    laddr = f"127.0.0.1:{lsrv.port}"
+    topo = Topology(laddr, epoch=0)
+    rs = ReplicaSet(leader_broker=leader, leader_server=lsrv,
+                    n_followers=REPL_FOLLOWERS, min_isr=REPL_MIN_ISR,
+                    max_lag_s=REPL_MAX_LAG_S, topics=[STORE_TOPIC],
+                    topology=topo, follower_local_factory=follower_log,
+                    hwm_file=HwmFile(dirs["leader"]))
+    counts: dict = {}
+    acked: list = []
+    killed = False
+    try:
+        rs.start(sync="thread")
+        t0 = time.perf_counter()
+        if not all(rs.await_isr(1 + REPL_FOLLOWERS, STORE_TOPIC, p,
+                                timeout_s=30) for p in range(STORE_PARTS)):
+            raise AssertionError("replication_path (a): the ISR never "
+                                 "formed")
+        form_s = time.perf_counter() - t0
+
+        # (b) the load and (c) acks=all vs acks=1, in turns
+        t0 = time.perf_counter()
+        chunks = _repl_chunks(next(_store_ticks(1)), STORE_PARTS)
+        encode_s = time.perf_counter() - t0
+        secs = {-1: [], 1: []}
+        for _ in range(REPL_RUNS):
+            for acks in (-1, 1):
+                secs[acks].append(_repl_publish(laddr, acks, chunks, acked))
+        n = sum(len(c[2]) for c in chunks)
+        rates = {"acks_all": [n / s for s in secs[-1]],
+                 "acks_1": [n / s for s in secs[1]]}
+        med = {k: float(np.median(v)) for k, v in rates.items()}
+        if not rs.caught_up(timeout_s=60):
+            raise AssertionError("replication_path (c): followers never "
+                                 "caught up")
+        counts["prekill_cli_fit"] = 1
+        pre = _repl_cli_fit(laddr, str(base / "fit-pre"), "pre-kill")
+
+        # (d) the double fault
+        dead = sorted(rs.followers)[0]
+        rs.kill_follower(dead)
+        t0 = time.perf_counter()
+        reform = [next(c for c in chunks if c[0] == p)
+                  for p in range(STORE_PARTS)]
+        client = KafkaWireBroker(laddr, acks=-1, client_id="smoke-reform")
+        try:
+            for p, frames, ents in reform:
+                b0 = client.produce_raw(STORE_TOPIC, p, frames,
+                                        timeout_ms=REPL_TIMEOUT_MS)
+                acked.append((p, b0, ents))
+        finally:
+            client.close()
+        reform_s = time.perf_counter() - t0
+        isr_at_kill = sorted(rs.state.isr_follower_ids())
+        if dead in isr_at_kill or not isr_at_kill:
+            raise AssertionError(f"replication_path (d): ISR {isr_at_kill} "
+                                 f"after follower {dead} died")
+        t_kill = time.perf_counter()
+        lsrv.kill()
+        killed = True
+        rid, addr = rs.promote(topo.epoch + 1)
+        topo.publish(addr, topo.epoch + 1)
+        promote_s = time.perf_counter() - t_kill
+        if rid not in isr_at_kill:
+            raise AssertionError(f"replication_path (d): promoted {rid}, "
+                                 f"not an ISR member of {isr_at_kill}")
+        new_dir = rs.leader.store.dir
+
+        # (e) the checks
+        logs = _repl_logs_equal(acked, new_dir, dirs["leader"])
+        fence = _repl_fenced(leader, topo.epoch)
+
+        # (f) the fit from the promoted replica, then a new follower
+        counts["promoted_cli_fit"] = 1
+        post = _repl_cli_fit(addr, str(base / "fit-post"), "promoted")
+        _repl_same_ckpt(post["ckpt"], pre["ckpt"])
+        err = _repl_plain_check(addr, post)
+        rs.retire_follower(dead)
+        t0 = time.perf_counter()
+        new_rid = rs.add_follower(store_dir=dirs[f"follower{REPL_FOLLOWERS}"],
+                                  sync="thread")
+        # admitted on EVERY partition: the ISR tracks a partition from
+        # its first fetch, so one caught-up partition alone proves little
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not (
+                new_rid in rs.state.isr_follower_ids() and
+                all(rs.state.isr_size(STORE_TOPIC, p) == 2
+                    for p in range(STORE_PARTS))):
+            time.sleep(0.005)
+        catch_up_s = time.perf_counter() - t0
+        if new_rid not in rs.state.isr_follower_ids(STORE_TOPIC) or any(
+                rs.state.isr_size(STORE_TOPIC, p) != 2
+                for p in range(STORE_PARTS)):
+            raise AssertionError("replication_path (f): the added follower "
+                                 "never joined the ISR")
+        mirrored = rs.followers[new_rid].raw_mirrored
+        log_bytes = sum(len(_log_bytes(new_dir, STORE_TOPIC, p))
+                        for p in range(STORE_PARTS))
+        if mirrored != logs["acked_records"]:
+            raise AssertionError(f"replication_path (f): the added follower "
+                                 f"mirrored {mirrored} records over "
+                                 f"RAW_FETCH, not {logs['acked_records']}")
+    finally:
+        rs.stop()
+        if not killed:
+            lsrv.kill()
+        leader.close()
+    launches_before_drills = fused_train.fused_fit.launches
+
+    # (g) the drills
+    drills = _repl_drills()
+    counts["leader_kill_trainer"] = \
+        drills["b1_launches_by_drill"]["leader-kill"]
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if launches != sum(counts.values()) or by_design["rows"] != launches \
+            or launches_before_drills != 2:
+        raise AssertionError(f"replication_path launched B1 {launches}x "
+                             f"({by_design}), sub-phases say {counts}")
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"replication_path launched {attention}")
+    shutil.rmtree(base, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "replication_path", "card": card, "cars": STORE_CARS,
+          "partitions": STORE_PARTS, "followers": REPL_FOLLOWERS,
+          "min_isr": REPL_MIN_ISR, "max_lag_s": REPL_MAX_LAG_S,
+          "isr_form_s": form_s, "encode_s": encode_s,
+          "requests_a_tick": len(chunks),
+          "acks_all_records_per_s": rates["acks_all"],
+          "acks_1_records_per_s": rates["acks_1"],
+          "acks_all_median_records_per_s": med["acks_all"],
+          "acks_1_median_records_per_s": med["acks_1"],
+          "acks_all_overhead": med["acks_1"] / med["acks_all"] - 1.0,
+          "reform_acks_all_s": reform_s, "isr_at_leader_kill": isr_at_kill,
+          "promoted_replica": rid, "time_to_promote_s": promote_s,
+          **logs, "old_leader": fence,
+          "fit": {"prekill_seconds": pre["seconds"],
+                  "promoted_seconds": post["seconds"],
+                  "records": post["stats"]["records"],
+                  "loss": post["stats"]["loss"][-1],
+                  "bit_equal_prekill": True, "max_abs_err_vs_plain": err},
+          "add_follower": {"catch_up_s": catch_up_s,
+                           "records": mirrored, "bytes": log_bytes,
+                           "mb_per_s": log_bytes / 1e6 / catch_up_s},
+          "drills": drills, "phase_seconds": phase_s,
+          "kernel_launches": launches, "kernel_launches_by_design": by_design,
+          "kernel_launches_by_subphase": counts})
+    return {"launches": launches, "launches_by_design": by_design,
+            "by_subphase": counts, "max_abs_err": err}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -7012,6 +7498,7 @@ def main() -> int:
         ksql_info = phase_ksql_path(card)
         demo_info = phase_demo_path(card)
         store_info = phase_store_path(card)
+        repl_info = phase_replication_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -7050,7 +7537,8 @@ def main() -> int:
         + online_info["launches"] + obs_info["launches"]
         + tele_info["launches"]
         + ksql_info["launches"] + demo_info["launches"]
-        + store_info["launches"] + cc_info["launches"]
+        + store_info["launches"] + repl_info["launches"]
+        + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -7066,6 +7554,7 @@ def main() -> int:
                              "ksql_path": ksql_info["launches"],
                              "demo_path": demo_info["launches"],
                              "store_path": store_info["launches"],
+                             "replication_path": repl_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -7082,14 +7571,17 @@ def main() -> int:
             + ksql_info["launches_by_design"][d]
             + demo_info["launches_by_design"][d]
             + store_info["launches_by_design"][d]
+            + repl_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
                            *timing["batch_256"]["max_abs_err"].values(),
                            cc_info["max_abs_err"], ksql_info["max_abs_err"],
                            demo_info["max_abs_err"],
-                           store_info["max_abs_err"]),
+                           store_info["max_abs_err"],
+                           repl_info["max_abs_err"]),
         "store_path_launches_by_subphase": store_info["by_subphase"],
+        "replication_path_launches_by_subphase": repl_info["by_subphase"],
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],

@@ -9,9 +9,9 @@ same from either package; ``cardinality_violations`` holds labels to the
 same closed vocabulary.  ``/healthz`` reports stage liveness (the trace
 collector), the units of any live supervisor, the model versions with
 their offsets lag, the event-time watermarks, consumer lag and the SLO
-alerts firing in this process; a degraded unit or a firing alert sets
-``status`` to ``degraded``.  The replication blocks of the JAX endpoint
-are ROADMAP A14.  A server publishes its address into the fleet's
+alerts firing in this process, the replica loss window and the
+quorum's ISR widths, under-replicated count and HWM lag; a degraded unit
+or a firing alert sets ``status`` to ``degraded``.  A server publishes its address into the fleet's
 endpoints manifest when ``IOTML_OBS_ENDPOINTS`` names one, and
 in-process otherwise (``federate``).
 """
@@ -512,6 +512,27 @@ def _healthz_doc() -> dict:
         doc["model"] = {dict(k).get("component", ""): {
             "version": int(v), "offsets_lag": lag.get(k)}
             for k, v in mv.items()}
+    # the replica loss window, and the quorum's durability state: ISR
+    # width per partition, the under-replicated count, the tail above
+    # the quorum HWM
+    with replica_lag._lock:
+        lag_vals = dict(replica_lag._vals)
+    if lag_vals:
+        doc["replica_lag_records"] = {
+            dict(k).get("topic", ""): v for k, v in lag_vals.items()}
+    with isr_size._lock:
+        isr_vals = dict(isr_size._vals)
+    if isr_vals:
+        with quorum_hwm_lag._lock:
+            qlag = dict(quorum_hwm_lag._vals)
+        doc["replication"] = {
+            "under_replicated_partitions": int(under_replicated.value()),
+            "isr": {_labels_key(k, "topic", "partition"): int(v)
+                    for k, v in sorted(isr_vals.items())},
+            "quorum_hwm_lag_records": {
+                _labels_key(k, "topic", "partition"): int(v)
+                for k, v in sorted(qlag.items())},
+        }
     with watermark_event_ms._lock:
         wm_vals = dict(watermark_event_ms._vals)
     if wm_vals:

@@ -23,8 +23,8 @@ here are the plain versions, run only when called by name, as
 Entries with headers (traced records) take the per-record codec
 (``encode_frame_batch``), their only encoder, as in the JAX package;
 ``stamp_first_frame`` / ``first_frame_headers`` carry a batch's trace
-context on its first frame.  ``truncate_frame_batch`` (the quorum read
-barrier) is not ported: it serves replication (ROADMAP A14).
+context on its first frame, and ``truncate_frame_batch`` cuts a batch at
+the quorum read barrier of a replicated leader.
 """
 
 from __future__ import annotations
@@ -240,6 +240,25 @@ def validate_frame_batch_py(buf: bytes, start_offset: int = 0,
     return dict(count=count, first=first, last=last, max_ts=max_ts,
                 start_pos=start_pos, end_pos=end_pos,
                 contiguous=count == 0 or last - first + 1 == count)
+
+
+def truncate_frame_batch(buf: bytes, max_offset_exclusive: int) -> bytes:
+    """The prefix of a frame batch whose record offsets all lie below
+    ``max_offset_exclusive``: the quorum read barrier's cut (a consumer's
+    raw fetch must not ship frames past the quorum high-water mark).  It
+    cuts at a frame boundary; a torn or corrupt frame ends the walk, as
+    it ends every reader of the format."""
+    from ..store import segment
+
+    end_pos = 0
+    try:
+        for _pos, end, off, _k, _v, _ts, _h in segment.scan_records(buf):
+            if off >= max_offset_exclusive:
+                break
+            end_pos = end
+    except ValueError:
+        pass  # a corrupt frame: keep the clean prefix below the ceiling
+    return buf[:end_pos]
 
 
 def decode_frames_columnar_py(

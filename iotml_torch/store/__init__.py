@@ -12,11 +12,12 @@ a replay API (``read_from`` / ``read_since``) for training backfill.
 
 Mounted by ``stream.broker.Broker(store_dir=...)``; every knob rides the
 ``store.*`` and ``tier.*`` config sections.  The on-disk format is the
-JAX package's byte for byte.  Its ``hwm`` module (the replication
-high-water-mark file) is not ported.
+JAX package's byte for byte, the replication high-water-mark checkpoint
+(``hwm``) included.
 """
 
 from .compact import CompactionStats, StoreCompactor
+from .hwm import HwmFile, hwm_file_for
 from .log import SegmentedLog, StorePolicy
 from .mount import StoreMount
 from .offsets import OffsetsFile
@@ -28,4 +29,4 @@ __all__ = ["SegmentedLog", "StorePolicy", "StoreMount", "OffsetsFile",
            "SegmentWriter", "atomic_write", "crc32c", "fsync_dir",
            "CompactionStats", "StoreCompactor", "RemoteTier",
            "RemoteSegmentMeta", "TieredLog", "TierPolicy", "TierUploader",
-           "RemoteSegmentCache"]
+           "RemoteSegmentCache", "HwmFile", "hwm_file_for"]

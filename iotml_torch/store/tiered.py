@@ -32,8 +32,8 @@ Two invariants the tests pin:
   local retention and hot eviction refuse to drop a segment the
   manifest does not list byte-for-byte;
 - ``tier_sync(ceiling=)`` tiers out only sealed bytes below the
-  ceiling (the JAX package passes its replication quorum's high-water
-  mark; the port's broker has no replication yet and passes None).
+  ceiling (a replicated leader's broker passes its quorum high-water
+  mark, an unreplicated one None).
 
 Knobs ride the ``tier.*`` config section (``IOTML_TIER_URI``,
 ``IOTML_TIER_LOCAL_HOT_BYTES``, ``IOTML_TIER_UPLOAD_LAG_S``,

@@ -46,10 +46,19 @@ batch (the RAW_PRODUCE landing: validated whole and offset-stamped by
 the engine, then appended as it is on a durable partition or decoded
 into the list in memory; a corrupt batch raises
 ``CorruptMessageError`` before any byte lands, and the chaos point
-``broker.produce_raw`` can ``corrupt`` one).  Not ported (ROADMAP A14):
-the replication hooks (``produce_at``, ``produce_raw_at``,
-``align_base_offset``, ``reset_partition``, ``fetch_tail``) and the
-quorum read ceiling, so ``fetch_raw_tail`` is ``fetch_raw``.
+``broker.produce_raw`` can ``corrupt`` one).
+
+The replication hooks: ``replication`` (a
+``replication.ReplicationState`` when this broker leads replicated
+partitions; None, the default, costs nothing) bounds every consumer
+read, ``fetch`` and ``fetch_raw``, at the quorum high-water mark, while
+``fetch_tail`` and ``fetch_raw_tail`` read past it for the followers.
+A follower lands its mirror through ``produce_at`` (one record at an
+explicit offset, a compacted topic's holes reproduced on disk) and
+``produce_raw_at`` (a fetched frame batch at its own offsets, appended
+as it is), and realigns with ``align_base_offset`` (an empty partition
+started at the leader's earliest retained offset) and
+``reset_partition`` (retention outran replication).
 """
 
 from __future__ import annotations
@@ -251,12 +260,32 @@ class _Partition:
         from ..ops.framing import iter_frame_entries
 
         for off, key, value, ts, hdrs in iter_frame_entries(blob):
-            if off != self.end():
-                raise ValueError(
-                    f"in-memory partition cannot represent an offset hole "
-                    f"({off} != end {self.end()})")
-            self.append(key, value, ts, hdrs, sync=False)
+            self.append_at(off, key, value, ts, hdrs, sync=False)
         return first
+
+    def append_at(self, offset, key, value, ts, headers=None,
+                  sync: bool = True) -> int:
+        """Append at an explicit offset (a follower's mirror of a
+        compacted topic).  The list is dense, so only a gap-free
+        continuation is representable; a true hole needs a durable
+        follower."""
+        if int(offset) != self.end():
+            raise ValueError(
+                f"in-memory partition cannot represent an offset hole "
+                f"({offset} != end {self.end()}); mount a durable follower "
+                f"for compacted-topic mirroring")
+        return self.append(key, value, ts, headers, sync=sync)
+
+    def align_base(self, offset: int) -> None:
+        if self.log:
+            raise ValueError("partition not empty; base is immutable")
+        self.base_offset = max(self.base_offset, int(offset))
+
+    def reset(self, base_offset: int) -> None:
+        self.log.clear()
+        self.bytes = 0
+        self.max_ts = 0
+        self.base_offset = int(base_offset)
 
     def drop_head(self, count: int) -> None:
         for key, value, _ts, _h in self.log[:count]:
@@ -303,10 +332,22 @@ class _DurablePartition:
     def append(self, key, value, ts, headers=None, sync: bool = True) -> int:
         return self.slog.append(key, value, ts, headers, sync=sync)
 
+    def append_at(self, offset, key, value, ts, headers=None,
+                  sync: bool = True) -> int:
+        return self.slog.append_at(offset, key, value, ts, headers,
+                                   sync=sync)
+
+    def align_base(self, offset: int) -> None:
+        self.slog.align_base(offset)
+
+    def reset(self, base_offset: int) -> None:
+        self.slog.reset(base_offset)
+
     def append_raw(self, blob, count, first, last, max_ts,
                    sync: bool = True) -> int:
         """Append a framed batch as it is: the batch's bytes become the
-        log's bytes, no re-serialisation."""
+        log's bytes, no re-serialisation (offset holes reproduce as
+        they are)."""
         return self.slog.append_raw(blob, count, first, last, max_ts,
                                     sync=sync)
 
@@ -370,6 +411,12 @@ class Broker:
         # thread vs a forced pass); the data lock covers only the swaps
         self._compact_pass_lock = threading.Lock()
         self._tier_pass_lock = threading.Lock()
+        #: quorum replication state (``replication.ReplicationState``)
+        #: when this broker leads replicated partitions: ``fetch`` and
+        #: ``fetch_raw`` stop consumers at the quorum HWM, and the wire
+        #: server waits on it for acks=all and feeds it the followers'
+        #: fetch positions.  None: unreplicated, zero cost.
+        self.replication = None
         self._topics: Dict[str, TopicSpec] = {}
         self._parts: Dict[str, List] = {}
         # (group, topic, partition) → next offset
@@ -625,6 +672,56 @@ class Broker:
                 part.enforce_retention(self._topics[topic])
         return base
 
+    def produce_raw_at(self, topic: str, partition: int,
+                       frames: bytes) -> int:
+        """Append a raw frame batch AT its own stamped offsets: a
+        follower's mirror of a RAW_FETCH batch (the leader's offsets are
+        already in the heads).  The batch is validated whole (a torn
+        tail refuses it too), then a durable partition appends its bytes
+        as they are, holes reproduced; the in-memory one decodes it and
+        takes only a gap-free continuation.  Returns the last offset
+        appended (-1 for an empty batch)."""
+        from ..ops import framing
+
+        self._check_producer(topic)
+        if topic not in self._topics:
+            self.create_topic(topic, partitions=max(partition + 1, 1))
+        try:
+            v = framing.validate_frame_batch(frames, strict=True)
+        except framing.CorruptFrameError as e:
+            raise CorruptMessageError(topic, partition, e.index) from e
+        if not v["count"]:
+            return -1
+        part = self._parts[topic][partition]
+        with self._lock:
+            end = part.end()
+            if v["first"] < end:
+                raise ValueError(
+                    f"raw mirror batch for {topic}:{partition} starts at "
+                    f"{v['first']} behind log end {end}: offsets only "
+                    f"move forward")
+            part.append_raw(frames, v["count"], v["first"], v["last"],
+                            v["max_ts"], sync=False)
+            part.sync_batch()
+            part.enforce_retention(self._topics[topic])
+        return v["last"]
+
+    def produce_at(self, topic: str, partition: int, offset: int,
+                   value: Optional[bytes], key: Optional[bytes] = None,
+                   timestamp_ms: int = 0,
+                   headers: Optional[tuple] = None) -> int:
+        """Append one record AT an explicit offset at or after the log
+        end: a follower's per-record mirror of a compacted topic, whose
+        fetched batches carry offset holes.  A durable partition
+        reproduces a forward jump; the in-memory one takes only a
+        gap-free continuation (ValueError otherwise)."""
+        self._check_producer(topic)
+        if topic not in self._topics:
+            self.create_topic(topic)
+        with self._lock:
+            return self._parts[topic][partition].append_at(
+                offset, key, value, timestamp_ms, headers)
+
     # --------------------------------------------------------- compaction
     def run_compaction(self, force: bool = False) -> Dict[tuple, object]:
         """One compaction pass over every ``cleanup_policy="compact"``
@@ -660,9 +757,11 @@ class Broker:
         mounted with a tier): upload sealed segments to the remote tier,
         evict the hot tier past its byte budget, enforce remote
         retention, sweep unreferenced blobs.  Returns {(topic,
-        partition): stats} of the partitions that did anything.  Blob
-        I/O runs outside the data lock; whole passes serialize on their
-        own lock."""
+        partition): stats} of the partitions that did anything.  On a
+        replicated leader only bytes below the quorum HWM tier out (a
+        record a failover could un-write never reaches the remote tier).
+        Blob I/O runs outside the data lock; whole passes serialize on
+        their own lock."""
         if self.store is None:
             return {}
         out: Dict[tuple, dict] = {}
@@ -673,7 +772,10 @@ class Broker:
                           for p, part in enumerate(parts)
                           if getattr(part.slog, "remote", None) is not None]
             for name, p, slog in tiered:
-                stats = slog.tier_sync(lock=self._lock)
+                ceiling = None
+                if self.replication is not None:
+                    ceiling = self.replication.fetch_ceiling(name, p)
+                stats = slog.tier_sync(ceiling=ceiling, lock=self._lock)
                 if any(stats.values()):
                     out[(name, p)] = stats
         return out
@@ -693,10 +795,45 @@ class Broker:
         with self._lock:
             return part.offset_for_timestamp(timestamp_ms)
 
+    def align_base_offset(self, topic: str, partition: int,
+                          offset: int) -> None:
+        """Start an EMPTY partition at ``offset``: a follower of a leader
+        whose head retention already trimmed appends the first copied
+        record at the leader's earliest retained offset, so offsets stay
+        identical across the pair (cursors survive a failover)."""
+        part = self._parts[topic][partition]
+        with self._lock:
+            part.align_base(offset)
+
+    def reset_partition(self, topic: str, partition: int,
+                        base_offset: int) -> None:
+        """Drop a partition's log and restart it at ``base_offset``: a
+        follower realigns so when the leader's retention outran it
+        (appending past the gap at the local end would shift every later
+        offset)."""
+        part = self._parts[topic][partition]
+        with self._lock:
+            part.reset(base_offset)
+
     def fetch(self, topic: str, partition: int, offset: int,
               max_messages: int = 1024) -> List[Message]:
         """Read up to max_messages starting at offset (no blocking).  A
-        fetch below the retained base raises OffsetOutOfRangeError."""
+        fetch below the retained base raises OffsetOutOfRangeError.  On a
+        replicated leader a consumer's read stops at the quorum
+        high-water mark: a record a failover could un-write is never
+        observed (followers read with ``fetch_tail``)."""
+        msgs = self.fetch_tail(topic, partition, offset, max_messages)
+        repl = self.replication
+        if repl is not None and msgs:
+            ceiling = repl.fetch_ceiling(topic, partition)
+            if ceiling is not None and msgs[-1].offset >= ceiling:
+                msgs = [m for m in msgs if m.offset < ceiling]
+        return msgs
+
+    def fetch_tail(self, topic: str, partition: int, offset: int,
+                   max_messages: int = 1024) -> List[Message]:
+        """``fetch`` without the quorum read barrier: the follower's
+        mirror leg."""
         chaos.point("broker.fetch")  # before the lock: a chaos stall must
         # park this fetcher, never every thread contending the broker
         part = self._parts[topic][partition]
@@ -727,7 +864,30 @@ class Broker:
         outside the lock, like ``fetch``: the batch may start at the
         sparse-index entry before ``offset`` and end mid-frame); the
         in-memory one re-frames its slice.  None at the log end;
-        ``OffsetOutOfRangeError`` below the retained base."""
+        ``OffsetOutOfRangeError`` below the retained base.  On a
+        replicated leader the batch is cut at the frame boundary below
+        the quorum HWM."""
+        raw = self.fetch_raw_tail(topic, partition, offset, max_bytes)
+        repl = self.replication
+        if raw is not None and repl is not None:
+            ceiling = repl.fetch_ceiling(topic, partition)
+            if ceiling is not None and \
+                    self._parts[topic][partition].end() > ceiling:
+                # an un-replicated tail exists: the batch may cross it
+                if offset >= ceiling:
+                    return None
+                from ..ops.framing import RawFrameBatch, truncate_frame_batch
+
+                data = truncate_frame_batch(raw.data, ceiling)
+                if not data:
+                    return None
+                raw = RawFrameBatch(topic, partition, raw.start_offset, data)
+        return raw
+
+    def fetch_raw_tail(self, topic: str, partition: int, offset: int,
+                       max_bytes: int = 1 << 20):
+        """``fetch_raw`` without the quorum read barrier: the follower's
+        zero-copy mirror leg."""
         from ..ops.framing import RawFrameBatch
 
         chaos.point("broker.fetch")  # a raw batch is one fetch to chaos
@@ -748,10 +908,6 @@ class Broker:
             return None
         data, start = res
         return RawFrameBatch(topic, partition, start, data)
-
-    #: without replication (ROADMAP A14) there is no quorum ceiling: the
-    #: tail read a follower would use is the consumer's read
-    fetch_raw_tail = fetch_raw
 
     def read_since(self, topic: str, partition: int, timestamp_ms: int,
                    max_messages: int = 1024) -> List[Message]:

@@ -42,11 +42,25 @@ against a server without them, which answers UNSUPPORTED_VERSION; the
 consumer and ``RawBatchProducer`` then pin back to FETCH and PRODUCE.
 RAW_PRODUCE is not idempotent (never auto-retried), RAW_FETCH is.
 
-Not ported (ROADMAP A14): CLUSTER_ADMIN (66), answered UNSUPPORTED_VERSION
-as a server without it does; the replica leg of RAW_FETCH (a
-``replica_id`` >= 0 is served as a consumer: there is no ISR and no
-quorum ceiling); leader-epoch fencing and the supervised topology; the
-cluster view.  The client passes the chaos points ``kafka_wire.send``
+Leader-epoch fencing: a client built with
+``epoch=`` or ``topology=`` stamps its epoch on the header's client id
+(``@e<N>``), and the server answers a produce or commit whose stamped
+epoch differs from its own with FENCED_LEADER_EPOCH (74) before the
+broker is touched (unstamped clients pass unfenced); the client then
+re-resolves its topology and raises ``FencedEpochError``.  The replica
+leg: FETCH and RAW_FETCH carry a replica id, and a fetch with one >= 0
+reaches ``broker.replication.observe_fetch`` and is served past the
+quorum high-water mark, which bounds every consumer's fetch.  Quorum
+acks: ``acks=-1`` on PRODUCE and RAW_PRODUCE against a broker with
+replication waits in ``wait_replicated`` until the batch is below the
+quorum HWM; an ISR below ``min_isr`` answers NOT_ENOUGH_REPLICAS (19)
+with nothing appended, a quorum that does not catch up in time
+REQUEST_TIMED_OUT (7) with the batch appended but unacked, and invalid
+acks INVALID_REQUIRED_ACKS (21).  Not ported (ROADMAP A14, cluster):
+CLUSTER_ADMIN (66), answered UNSUPPORTED_VERSION as a server without it
+does, the cluster view and the reassignment step-down.
+
+The client passes the chaos points ``kafka_wire.send``
 (``error``, ``delay``, ``short_write``: half a frame, then OSError) and
 ``kafka_wire.recv`` on every frame.  Records carry no headers on the
 wire; under tracing the server marks the trace that a fetched batch's
@@ -92,8 +106,10 @@ ERR_OFFSET_OUT_OF_RANGE = 1
 ERR_CORRUPT_MESSAGE = 2
 ERR_UNKNOWN_TOPIC = 3
 ERR_NOT_LEADER_FOR_PARTITION = 6
-ERR_ILLEGAL_GENERATION = 22
+ERR_REQUEST_TIMED_OUT = 7
+ERR_NOT_ENOUGH_REPLICAS = 19
 ERR_INVALID_REQUIRED_ACKS = 21
+ERR_ILLEGAL_GENERATION = 22
 ERR_UNKNOWN_MEMBER_ID = 25
 ERR_REBALANCE_IN_PROGRESS = 27
 ERR_TOPIC_AUTHORIZATION_FAILED = 29
@@ -101,6 +117,7 @@ ERR_UNSUPPORTED_VERSION = 35
 ERR_TOPIC_EXISTS = 36
 ERR_INVALID_CONFIG = 40
 ERR_SASL_AUTH_FAILED = 58
+ERR_FENCED_LEADER_EPOCH = 74  # Kafka's own fencing error code
 
 _SUPPORTED = {PRODUCE: (2, 2), FETCH: (2, 2), LIST_OFFSETS: (1, 1),
               METADATA: (1, 1), OFFSET_COMMIT: (2, 2), OFFSET_FETCH: (1, 1),
@@ -148,10 +165,39 @@ class NotLeaderForPartitionError(ConnectionError):
         self.partition = partition
 
 
-# The JAX package's leader-epoch fencing rides the client id as a
-# trailing `@e<N>` tag; the port stamps none but must read a JAX
-# client's id.
+class NotEnoughReplicasError(ConnectionError):
+    """An ``acks=all`` produce was refused because the in-sync-replica
+    set is below ``min_isr``, or the topic has no ISR configured on a
+    broker that opted into quorum (Kafka error 19).  Nothing was
+    appended, so redelivery is safe; a ConnectionError because the
+    condition passes (an evicted follower re-admits)."""
+
+
+class ProduceTimedOutError(ConnectionError):
+    """An ``acks=all`` produce was appended on the leader but the quorum
+    high-water mark did not reach it within the request timeout (Kafka
+    error 7).  The record is on the leader yet unacked: the caller
+    redelivers (at-least-once); consumers cannot have read it, it sits
+    above the quorum HWM."""
+
+
+class FencedEpochError(ConnectionError):
+    """A produce or commit was refused because the leadership epochs
+    disagree: this client slept through a failover (its epoch is stale)
+    or it reached a resurrected old leader (the server's is).  Either
+    way the log must not split.  The client has re-resolved its topology
+    before raising, so the caller's redelivery reaches the real leader."""
+
+
+# The fencing epoch rides the request header's client id as a trailing
+# `@e<N>` tag: the one header field the classic encoding lets us extend
+# without a new wire type, so standard clients (no tag: unfenced) stay
+# byte-compatible with the server.
 _EPOCH_TAG_RE = re.compile(r"^(.*)@e(\d+)$")
+
+
+def tag_client_id(client_id: str, epoch: Optional[int]) -> str:
+    return client_id if epoch is None else f"{client_id}@e{int(epoch)}"
 
 
 def parse_client_epoch(client_id: Optional[str]) -> Tuple[str, Optional[int]]:
@@ -352,13 +398,27 @@ class KafkaWireBroker(ProducePartitionMixin):
     answers (and accepts the SASL/PLAIN credentials, when given) wins,
     and a request that finds its socket dead reconnects down the list
     (see ``_request``).
+
+    ``topology`` (a ``supervise.Topology``): every (re)connect resolves
+    the active leader and epoch from it instead of the static list, and
+    the epoch is stamped on each request (``epoch`` stamps a fixed one).
+    ``acks`` is the default required acks of the produce paths (-1:
+    the quorum where the topic is replicated, the leader append
+    otherwise).  ``replica_id`` >= 0 makes this client a follower's
+    mirror leg: FETCH and RAW_FETCH carry the id, the leader tracks the
+    fetch position in its ISR and serves past the quorum HWM.
     """
 
     def __init__(self, servers: str, client_id: str = "iotml",
                  sasl_username: Optional[str] = None,
                  sasl_password: Optional[str] = None,
-                 timeout_s: float = 30.0):
+                 timeout_s: float = 30.0, topology=None,
+                 epoch: Optional[int] = None,
+                 acks: Optional[int] = None,
+                 replica_id: int = -1):
         self.client_id = client_id
+        self._acks = -1 if acks is None else int(acks)
+        self._replica_id = int(replica_id)
         self._lock = threading.Lock()
         self._corr = 0
         self._servers = parse_bootstrap(servers)
@@ -366,23 +426,68 @@ class KafkaWireBroker(ProducePartitionMixin):
         self._timeout_s = timeout_s
         self._sasl_creds = ((sasl_username, sasl_password or "")
                             if sasl_username is not None else None)
+        self._topology = topology
+        self._epoch = epoch
         self._sock: Optional[socket.socket] = None
-        self._connect_any()
+        self._connect_any()  # resolves the topology first
         self._meta: Dict[str, int] = {}  # topic → partition count
         self._rr: Dict[str, int] = {}
         # high-water marks off every fetch response: consumer lag at no
         # extra round trip (last_hwm)
         self._hwm: Dict[tuple, int] = {}
 
+    # ------------------------------------------------------ epoch fencing
+    @property
+    def epoch(self) -> Optional[int]:
+        return self._epoch
+
+    def set_epoch(self, epoch: Optional[int]) -> None:
+        """Stamp ``epoch`` on later requests (None: unfenced)."""
+        self._epoch = epoch
+
+    def set_replica_id(self, replica_id: int) -> None:
+        """Make this client a replica's mirror leg: later FETCH and
+        RAW_FETCH requests carry ``replica_id``."""
+        self._replica_id = int(replica_id)
+
+    def _refresh_topology(self) -> None:
+        """Re-resolve (servers, epoch) from the published topology.
+        Caller holds the lock (or is __init__)."""
+        if self._topology is None:
+            return
+        servers, epoch = self._topology.resolve()
+        self._servers_repr = ",".join(servers)
+        self._servers = parse_bootstrap(self._servers_repr)
+        self._epoch = epoch
+
+    def _fenced(self, what: str) -> FencedEpochError:
+        """The fence error, built AFTER re-resolving the topology and
+        reconnecting, so the caller's redelivery talks to the real
+        leader at the current epoch instead of failing the same way
+        forever."""
+        stale = self._epoch
+        with self._lock:
+            try:
+                self._connect_any()  # re-resolves the topology first
+            except OSError:
+                pass  # nobody reachable now: the next request retries
+        return FencedEpochError(
+            f"{what} fenced: leadership epoch mismatch (client was at "
+            f"epoch {stale}, now {self._epoch}); topology re-resolved — "
+            f"the caller owns redelivery")
+
     # ---------------------------------------------------------- transport
     def _connect_any(self) -> None:
         """Connect to the first reachable bootstrap server (+ SASL).
-        Caller holds the lock (or is __init__).
+        Caller holds the lock (or is __init__).  A client with a
+        topology re-reads it first, so after a promotion the first
+        server tried is the new leader.
 
         An explicit SASL rejection raises at once (the credentials are
         wrong everywhere); a server dying mid-handshake is connectivity
         and falls through to the next server.  Either way the socket is
         closed, never leaked."""
+        self._refresh_topology()
         last_err: Optional[Exception] = None
         if self._sock is not None:
             try:
@@ -435,8 +540,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         lock.  Returns (corr, resp bytes)."""
         self._corr += 1
         corr = self._corr
-        self._send_frame(_req_header(api_key, api_version, corr,
-                                     self.client_id) + body)
+        self._send_frame(_req_header(
+            api_key, api_version, corr,
+            tag_client_id(self.client_id, self._epoch)) + body)
         return corr, self._recv_frame()
 
     def _request(self, api_key: int, api_version: int, body: bytes) -> _Reader:
@@ -589,18 +695,28 @@ class KafkaWireBroker(ProducePartitionMixin):
         return n
 
     def produce_many(self, topic: str, entries,
-                     partition: Optional[int] = None) -> int:
+                     partition: Optional[int] = None,
+                     acks: Optional[int] = None,
+                     timeout_ms: int = 10_000) -> int:
         """entries: [(key, value, timestamp_ms[, headers])] → offset of the
-        last one, in ONE Produce request (acks -1).  Record headers are
-        dropped: MessageSet v1 has no header slot."""
+        last one, in ONE Produce request.  Record headers are dropped:
+        MessageSet v1 has no header slot.
+
+        ``acks`` (default: the client's, -1): -1 acks at the quorum
+        high-water mark on replicated topics (the leader append
+        otherwise), 1 at the leader append, 0 answers at once with no
+        delivery guarantee.  A quorum that cannot form raises
+        ``NotEnoughReplicasError`` (nothing appended); one that does not
+        catch up within ``timeout_ms`` raises ``ProduceTimedOutError``
+        (appended, unacked: redeliver)."""
         by_part: Dict[int, list] = {}
         for key, value, ts, *_hdrs in entries:
             p = self._partition_for(topic, key) if partition is None \
                 else partition
             by_part.setdefault(p, []).append((0, key, value, ts))
         w = _Writer()
-        w.i16(-1)  # required acks: all
-        w.i32(10_000)  # timeout ms
+        w.i16(self._acks if acks is None else int(acks))
+        w.i32(int(timeout_ms))
 
         def part_entry(wr, item):
             p, ents = item
@@ -621,8 +737,28 @@ class KafkaWireBroker(ProducePartitionMixin):
         for _, parts in r.array(lambda rd: (rd.string(),
                                             rd.array(part_resp))):
             for p, err, base in parts:
+                if err == ERR_FENCED_LEADER_EPOCH:
+                    # a stale party (this client or a resurrected old
+                    # leader): nothing appended; re-resolve, hand the
+                    # redelivery back
+                    raise self._fenced(f"produce to {topic}:{p}")
                 if err == ERR_NOT_LEADER_FOR_PARTITION:
                     raise NotLeaderForPartitionError(topic, p)
+                if err == ERR_NOT_ENOUGH_REPLICAS:
+                    raise NotEnoughReplicasError(
+                        f"produce to {topic}:{p} refused: ISR below "
+                        f"min_isr (or no ISR configured for acks=all); "
+                        f"nothing appended — redeliver when the quorum "
+                        f"re-forms")
+                if err == ERR_REQUEST_TIMED_OUT:
+                    raise ProduceTimedOutError(
+                        f"produce to {topic}:{p} appended but the "
+                        f"quorum HWM did not reach it in time; unacked "
+                        f"— the caller redelivers (at-least-once)")
+                if err == ERR_INVALID_REQUIRED_ACKS:
+                    raise ValueError(
+                        f"produce to {topic}:{p} refused: required_acks "
+                        f"must be -1, 0 or 1; nothing appended")
                 if err == ERR_UNKNOWN_TOPIC:
                     raise KeyError(topic)
                 if err == ERR_TOPIC_AUTHORIZATION_FAILED:
@@ -635,19 +771,23 @@ class KafkaWireBroker(ProducePartitionMixin):
                 last = max(last, base + len(by_part[p]) - 1)
         return last
 
-    def produce_raw(self, topic: str, partition: int, frames: bytes) -> int:
+    def produce_raw(self, topic: str, partition: int, frames: bytes,
+                    acks: Optional[int] = None,
+                    timeout_ms: int = 10_000) -> int:
         """RAW_PRODUCE: ship a pre-framed batch the broker validates whole,
         stamps and appends as it is; returns the batch's base offset.
         Raises NotImplementedError against a server without the
         extension (pin back to PRODUCE), ``CorruptMessageError`` when the
-        server rejected the batch (nothing appended), and
-        ConnectionError on a lost connection: never auto-retried, the
-        caller owns redelivery, as with ``produce_many``."""
+        server rejected the batch (nothing appended), the quorum errors
+        of ``produce_many`` under ``acks`` -1, and ConnectionError on a
+        lost connection: never auto-retried, the caller owns
+        redelivery, as with ``produce_many``."""
         w = _Writer()
         w.string(topic).i32(partition).bytes_(frames)
-        # the trailing acks and timeout a JAX server reads (acks -1 as
-        # produce_many's); a server without them stops at the frames
-        w.i16(-1).i32(10_000)
+        # the trailing acks and timeout (a server without them stops at
+        # the frames, and absent ones mean -1)
+        w.i16(self._acks if acks is None else int(acks))
+        w.i32(int(timeout_ms))
         r = self._request(RAW_PRODUCE, 0, bytes(w.buf))
         err = r.i16()
         if err == ERR_UNSUPPORTED_VERSION:
@@ -657,8 +797,19 @@ class KafkaWireBroker(ProducePartitionMixin):
         r.i32()  # frames appended
         if err == ERR_CORRUPT_MESSAGE:
             raise CorruptMessageError(topic, partition, int(base))
+        if err == ERR_FENCED_LEADER_EPOCH:
+            raise self._fenced(f"raw produce to {topic}:{partition}")
         if err == ERR_NOT_LEADER_FOR_PARTITION:
             raise NotLeaderForPartitionError(topic, partition)
+        if err == ERR_NOT_ENOUGH_REPLICAS:
+            raise NotEnoughReplicasError(
+                f"raw produce to {topic}:{partition} refused: ISR "
+                f"below min_isr; nothing appended — redeliver when the "
+                f"quorum re-forms")
+        if err == ERR_REQUEST_TIMED_OUT:
+            raise ProduceTimedOutError(
+                f"raw produce to {topic}:{partition} appended but "
+                f"unacked within the timeout — the caller redelivers")
         if err == ERR_INVALID_REQUIRED_ACKS:
             raise ValueError(f"raw produce to {topic}:{partition} refused: "
                              f"required_acks must be -1, 0 or 1; nothing "
@@ -683,7 +834,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         dropped, as in the JAX client.  A fetch below the retained base
         raises OffsetOutOfRangeError with the earliest retained offset."""
         w = _Writer()
-        w.i32(-1).i32(0).i32(1)  # replica id (a consumer), max wait, min bytes
+        # replica id (-1: a consumer; >= 0: a follower's mirror fetch),
+        # max wait 0 ms, min bytes 1
+        w.i32(self._replica_id).i32(0).i32(1)
 
         def part(wr, _):
             wr.i32(partition).i64(offset).i32(FETCH_MAX_BYTES)
@@ -726,8 +879,11 @@ class KafkaWireBroker(ProducePartitionMixin):
         from ..ops.framing import RawFrameBatch
 
         w = _Writer()
-        # the trailing replica id a JAX server reads: -1, a consumer
-        w.string(topic).i32(partition).i64(offset).i32(max_bytes).i32(-1)
+        # the trailing replica id (a server without it stops at
+        # max_bytes): a follower's mirror fetch is observed into the
+        # leader's ISR and served past the quorum HWM
+        w.string(topic).i32(partition).i64(offset).i32(max_bytes)
+        w.i32(self._replica_id)
         r = self._request(RAW_FETCH, 0, bytes(w.buf))
         err = r.i16()
         if err == ERR_UNSUPPORTED_VERSION:
@@ -868,6 +1024,11 @@ class KafkaWireBroker(ProducePartitionMixin):
             return True
         if errs == {ERR_ILLEGAL_GENERATION}:
             return False  # fenced: nothing was written
+        if errs == {ERR_FENCED_LEADER_EPOCH}:
+            # the leadership epoch fence (the whole server relationship
+            # is stale, not one member): nothing written, the caller
+            # re-commits from its cursors against the re-resolved leader
+            raise self._fenced(f"offset commit {sorted(by_topic)}")
         bad = [(t, pid) for t, pid, err in results if err != ERR_NONE]
         raise RuntimeError(
             f"partial offset commit: partitions {bad} refused (outside this "
@@ -1100,9 +1261,9 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                     continue
                 r = _Reader(frame)
                 api_key, api_version, corr = r.i16(), r.i16(), r.i32()
-                # a JAX client may stamp its leader epoch on its id: it
-                # is served unfenced (epoch fencing is not ported)
-                parse_client_epoch(r.string())
+                # the client id's trailing @e<N> tag carries the
+                # client's leadership epoch (absent for standard clients)
+                _cid, client_epoch = parse_client_epoch(r.string())
                 w = _Writer()
                 w.i32(corr)
                 lo_hi = _SUPPORTED.get(api_key)
@@ -1124,6 +1285,8 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                             lambda wr, kv: wr.i16(kv[0]).i16(kv[1][0])
                             .i16(kv[1][1]))
                 else:
+                    # the log-mutating handlers fence on it
+                    self._client_epoch = client_epoch
                     self._dispatch(broker, api_key, r, w)
                 resp = bytes(w.buf)
                 self.request.sendall(struct.pack(">i", len(resp)) + resp)
@@ -1136,6 +1299,18 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         IndexError that kills the connection."""
         return topic in broker.topics() and \
             0 <= pid < broker.topic(topic).partitions
+
+    #: the epoch stamped on the request in hand (None: unstamped)
+    _client_epoch: Optional[int] = None
+
+    def _epoch_mismatch(self) -> bool:
+        """True when the request's stamped epoch differs from the
+        server's: below it, the client slept through a failover; above
+        it, this server is a resurrected old leader.  Either way a
+        log-mutating request is refused, or the log splits.  Unstamped
+        (standard) clients pass unfenced."""
+        return self._client_epoch is not None and \
+            self._client_epoch != self.server.epoch  # type: ignore
 
     # ------------------------------------------------------------ handlers
     def _dispatch(self, broker: Broker, api_key: int, r: _Reader, w: _Writer):
@@ -1174,30 +1349,64 @@ class _KafkaConn(socketserver.BaseRequestHandler):
 
         w.array(names, topic_entry)
 
+    @staticmethod
+    def _produce_error_resp(w: _Writer, tops, err: int) -> None:
+        """A PRODUCE response answering ``err`` for every partition (the
+        invalid-acks and epoch-fence early returns)."""
+        resp = [(tname, [(pid, err, -1) for pid, _ in parts])
+                for tname, parts in tops]
+        w.array(resp, lambda wr, t: (wr.string(t[0]), wr.array(
+            t[1], lambda pw, p: pw.i32(p[0]).i16(p[1]).i64(p[2]).i64(-1))))
+        w.i32(0)  # throttle
+
+    @staticmethod
+    def _quorum_short(repl, topic: str, pid: int) -> bool:
+        """The acks=all refusal before any append: a topic with no ISR
+        configured on a broker that opted into quorum, or an ISR below
+        ``min_isr``.  A broker without replication state keeps Kafka's
+        RF-1 shape (acks=all is acks=1) and never gets here."""
+        return not repl.covers(topic) or \
+            repl.isr_size(topic, pid) < repl.min_isr
+
     def _produce(self, broker, r, w):
+        # 1 acks at the leader append, -1 (acks=all) once the batch is
+        # below the quorum high-water mark, 0 answers with no delivery
+        # guarantee (errors masked: fire-and-forget)
         acks = r.i16()
-        r.i32()  # timeout: every append is acknowledged at once
+        timeout_ms = r.i32()
 
         def part(rd):
             return (rd.i32(), rd.bytes_())
 
         tops = r.array(lambda rd: (rd.string(), rd.array(part)))
+        if acks not in (-1, 0, 1):
+            self._produce_error_resp(w, tops, ERR_INVALID_REQUIRED_ACKS)
+            return
+        if self._epoch_mismatch():
+            # fence BEFORE the broker is touched: a stale-epoch produce
+            # appends nothing anywhere
+            self._produce_error_resp(w, tops, ERR_FENCED_LEADER_EPOCH)
+            return
+        repl = getattr(broker, "replication", None)
+        quorum = acks == -1 and repl is not None
         resp = []
         for tname, parts in tops:
             presp = []
             for pid, record_set in parts:
-                if acks not in (-1, 0, 1):
-                    presp.append((pid, ERR_INVALID_REQUIRED_ACKS, -1))
-                    continue
                 entries = decode_message_set(record_set or b"")
                 if tname not in broker.topics():
                     broker.create_topic(tname, partitions=max(pid + 1, 1))
                 if not self._valid_part(broker, tname, pid):
                     presp.append((pid, ERR_UNKNOWN_TOPIC, -1))
                     continue
+                if quorum and self._quorum_short(repl, tname, pid):
+                    # nothing appended: redelivery is safe
+                    presp.append((pid, ERR_NOT_ENOUGH_REPLICAS, -1))
+                    continue
                 # one bulk append under one broker lock; the returned
-                # LAST offset anchors the response base (an end_offset
-                # re-read could include a concurrent producer's batch)
+                # LAST offset anchors the response base and the quorum
+                # target (an end_offset re-read could include a
+                # concurrent producer's batch)
                 try:
                     last = broker.produce_many(
                         tname,
@@ -1210,6 +1419,14 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                     continue
                 base = last - len(entries) + 1 if entries \
                     else broker.end_offset(tname, pid)
+                if quorum and entries and not repl.wait_replicated(
+                        tname, pid, last + 1,
+                        timeout_s=min(max(timeout_ms, 0) / 1000.0, 30.0)):
+                    # appended, unacked: the caller redelivers (followers
+                    # fetch on their own connections, so this handler's
+                    # wait starves nobody)
+                    presp.append((pid, ERR_REQUEST_TIMED_OUT, base))
+                    continue
                 presp.append((pid, ERR_NONE, base))
             if acks == 0:
                 # fire-and-forget: the appends ran, the answer carries no
@@ -1234,7 +1451,11 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                 return
 
     def _fetch(self, broker, r, w):
-        r.i32()  # replica id: every fetcher is a consumer here
+        # a replica id >= 0 marks a follower's mirror fetch: the leader
+        # observes its position into the ISR and serves past the quorum
+        # HWM (a follower exists to read that tail); consumers (-1) are
+        # bounded by it
+        rid = r.i32()
         r.i32()  # max wait
         r.i32()  # min bytes
 
@@ -1242,6 +1463,7 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             return (rd.i32(), rd.i64(), rd.i32())
 
         tops = r.array(lambda rd: (rd.string(), rd.array(part)))
+        repl = getattr(broker, "replication", None)
         resp = []
         for tname, parts in tops:
             presp = []
@@ -1250,7 +1472,16 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                     presp.append((pid, ERR_UNKNOWN_TOPIC, -1, b""))
                     continue
                 try:
-                    msgs = broker.fetch(tname, pid, offset, FETCH_MAX_RECORDS)
+                    if rid >= 0:
+                        if repl is not None:
+                            repl.observe_fetch(rid, tname, pid, offset)
+                        # a relay broker has no fetch_tail and no
+                        # replication state: its fetch is unbounded
+                        msgs = getattr(broker, "fetch_tail", broker.fetch)(
+                            tname, pid, offset, FETCH_MAX_RECORDS)
+                    else:
+                        msgs = broker.fetch(tname, pid, offset,
+                                            FETCH_MAX_RECORDS)
                 except OffsetOutOfRangeError as e:
                     # Kafka error 1; the hwm slot carries the earliest
                     # retained offset, so the client resets without a
@@ -1261,6 +1492,12 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                 if tracing.ENABLED and msgs:
                     self._mark_fetch_batch(msgs, tname, pid)
                 hwm = broker.end_offset(tname, pid)
+                if rid < 0 and repl is not None:
+                    # a consumer's hwm is its readable frontier, the
+                    # quorum HWM, not the leader's log end
+                    ceil = repl.fetch_ceiling(tname, pid)
+                    if ceil is not None:
+                        hwm = ceil
                 # cut at max_bytes, possibly mid-entry: the client drops
                 # a partial trailing entry
                 ms = encode_message_set(
@@ -1292,14 +1529,20 @@ class _KafkaConn(socketserver.BaseRequestHandler):
     def _raw_fetch(self, broker, r, w):
         """One partition's store frames as the broker holds them: no
         message-set re-encode, no per-record work for a durable broker
-        (the in-memory one re-frames its slice).  A replica id is read
-        and served as a consumer (replication is not ported)."""
+        (the in-memory one re-frames its slice).  A trailing replica id
+        >= 0 is a follower's mirror fetch: observed into the ISR (for a
+        valid partition only) and served past the quorum HWM."""
         tname, pid = r.string(), r.i32()
         offset, max_bytes = r.i64(), r.i32()
-        if r.pos + 4 <= len(r.buf):
-            r.i32()  # replica id
+        rid = r.i32() if r.pos + 4 <= len(r.buf) else -1
+        repl = getattr(broker, "replication", None)
         fetch_raw = getattr(broker, "fetch_raw", None)
-        if not self._valid_part(broker, tname, pid):
+        valid = self._valid_part(broker, tname, pid)
+        if valid and rid >= 0 and fetch_raw is not None:
+            if repl is not None:
+                repl.observe_fetch(rid, tname, pid, offset)
+            fetch_raw = getattr(broker, "fetch_raw_tail", fetch_raw)
+        if not valid:
             w.i16(ERR_UNKNOWN_TOPIC).i64(-1).bytes_(None)
             return
         if fetch_raw is None:  # a relay broker without raw reads
@@ -1324,6 +1567,10 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             # with an upstream round trip a fetch
             hwm = broker.last_hwm(tname, pid)
             hwm = -1 if hwm is None else hwm
+        elif rid < 0 and repl is not None and \
+                repl.fetch_ceiling(tname, pid) is not None:
+            # a consumer's columnar lag is against the quorum HWM
+            hwm = repl.fetch_ceiling(tname, pid)
         else:
             hwm = broker.end_offset(tname, pid)
         if raw is None:
@@ -1338,14 +1585,20 @@ class _KafkaConn(socketserver.BaseRequestHandler):
     def _raw_produce(self, broker, r, w):
         """A pre-framed batch appended as it is after the broker validated
         it whole and stamped its offsets; a corrupt one answers
-        CORRUPT_MESSAGE with nothing appended.  Every append is
-        acknowledged at once (there is no replication to wait for)."""
+        CORRUPT_MESSAGE with nothing appended.  The trailing acks and
+        timeout (absent: -1) follow PRODUCE's: acks=all waits for the
+        quorum HWM, a short ISR refuses before the append."""
         tname, pid = r.string(), r.i32()
         frames = r.bytes_() or b""
         acks = r.i16() if r.pos + 2 <= len(r.buf) else -1
-        if r.pos + 4 <= len(r.buf):
-            r.i32()  # timeout
+        timeout_ms = r.i32() if r.pos + 4 <= len(r.buf) else 10_000
+        repl = getattr(broker, "replication", None)
+        quorum = acks == -1 and repl is not None
         produce_raw = getattr(broker, "produce_raw", None)
+        if self._epoch_mismatch():
+            # fence before the broker is touched, as PRODUCE does
+            w.i16(ERR_FENCED_LEADER_EPOCH).i64(-1).i32(0)
+            return
         if produce_raw is None:  # a relay without raw appends
             w.i16(ERR_UNSUPPORTED_VERSION)
             return
@@ -1357,8 +1610,23 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         if not self._valid_part(broker, tname, pid):
             w.i16(ERR_UNKNOWN_TOPIC).i64(-1).i32(0)
             return
+        if quorum and self._quorum_short(repl, tname, pid):
+            w.i16(ERR_NOT_ENOUGH_REPLICAS).i64(-1).i32(0)
+            return
         if tracing.ENABLED:
             self._mark_raw_batch(frames, "wire_raw_produce", tname, pid)
+        nframes = None
+        if quorum:
+            # the quorum wait targets THIS batch's last offset, not an
+            # end_offset re-read a concurrent producer may have moved:
+            # count the frames before the append (a corrupt batch falls
+            # through to produce_raw's own rejection)
+            from ..ops import framing
+
+            try:
+                nframes = framing.validate_frame_batch(frames)["count"]
+            except framing.CorruptFrameError:
+                nframes = None
         try:
             base = produce_raw(tname, pid, frames)
         except NotImplementedError:
@@ -1371,8 +1639,15 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             # engine-owned topic without the owner's grant
             w.i16(ERR_TOPIC_AUTHORIZATION_FAILED).i64(-1).i32(0)
         else:
-            w.i16(ERR_NONE).i64(base).i32(broker.end_offset(tname, pid)
-                                          - base)
+            count = nframes if nframes is not None else \
+                broker.end_offset(tname, pid) - base
+            if quorum and count and not repl.wait_replicated(
+                    tname, pid, base + count,
+                    timeout_s=min(max(timeout_ms, 0) / 1000.0, 30.0)):
+                # appended, unacked: the producer redelivers
+                w.i16(ERR_REQUEST_TIMED_OUT).i64(base).i32(count)
+            else:
+                w.i16(ERR_NONE).i64(base).i32(count)
 
     def _list_offsets(self, broker, r, w):
         r.i32()  # replica
@@ -1413,7 +1688,13 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             return (rd.i32(), rd.i64(), rd.string())
 
         tops = r.array(lambda rd: (rd.string(), rd.array(part)))
-        if generation >= 0:
+        if self._epoch_mismatch():
+            # a stale-epoch commit: writing it would let a zombie bypass
+            # the promoted log's offset streams
+            resp = [(tname, [(pid, ERR_FENCED_LEADER_EPOCH)
+                             for pid, _, _ in parts])
+                    for tname, parts in tops]
+        elif generation >= 0:
             # a real generation goes through the group coordinator, so a
             # member fenced by a rebalance cannot clobber offsets
             coord = self.server.group_coordinator(group)  # type: ignore
@@ -1599,16 +1880,28 @@ class KafkaWireServer(socketserver.ThreadingTCPServer):
 
     def __init__(self, broker: Broker, host: str = "127.0.0.1",
                  port: int = 0,
-                 credentials: Optional[Tuple[str, str]] = None):
+                 credentials: Optional[Tuple[str, str]] = None,
+                 epoch: int = 0):
         super().__init__((host, port), _KafkaConn)
         self.broker = broker
         self.credentials = credentials
         self.port = self.server_address[1]
+        #: the leadership epoch this server serves at: a promotion bumps
+        #: it (``FollowerReplica.promote``), and a restarted old leader
+        #: comes back at its stale one and fences itself against
+        #: epoch-stamped produce and commit traffic
+        self.epoch = int(epoch)
         self._thread: Optional[threading.Thread] = None
         self._coordinators: dict = {}
         self._coord_lock = threading.Lock()
         self._live_conns: set = set()
         self._conn_lock = threading.Lock()
+
+    def set_epoch(self, epoch: int) -> None:
+        if epoch < self.epoch:
+            raise ValueError(f"epoch must be monotonic: have {self.epoch}, "
+                             f"got {epoch}")
+        self.epoch = int(epoch)
 
     def group_coordinator(self, group_id: str,
                           session_timeout_s: Optional[float] = None):

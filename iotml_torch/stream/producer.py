@@ -72,6 +72,15 @@ class OutputSequence:
     def __setitem__(self, index: int, message):
         self.setitem(index, message)
 
+    def discard(self) -> int:
+        """Drop the buffered, unflushed messages; returns how many.  After
+        a rewind to the committed offsets their rows are scored again, so
+        flushing them too would publish those rows twice more (a flush
+        whose response a dying broker lost may already have landed)."""
+        n = len(self._buf)
+        self._buf.clear()
+        return n
+
     def flush(self, allow_gaps: bool = False) -> int:
         """Publish buffered messages in ascending index order; returns the
         number flushed.  Unless ``allow_gaps``, a gap in the indices

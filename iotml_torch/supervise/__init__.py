@@ -1,8 +1,10 @@
 """Supervision (``iotml.supervise``): the supervisor (``supervisor``:
 loop and probed units, heartbeats, wedge detection, restarts under
-backoff within a restart-storm budget), ``topology.Topology``, the cell
-the model registry publishes its serving flips through,
-``drill.DrillReport`` with the drill helpers the alert-burn drill uses,
-and ``registry``, the process-wide registry of background threads and
-supervisors.  ``Platform.supervised()`` and the live leader-kill,
-scorer-crash and broker-restart drills are ROADMAP A14."""
+backoff within a restart-storm budget), ``topology.Topology`` (the
+published (leader, epoch) cell the wire clients resolve and the model
+registry publishes its serving flips through), ``drill`` (the live
+leader-kill, broker-restart, mqtt-flap and scorer-crash drills,
+``python -m iotml_torch.supervise drill``, and the ``DrillReport`` the
+other drills use), and ``registry``, the process-wide registry of
+background threads and supervisors.  ``Platform.supervised()`` and
+``--supervise`` are ROADMAP A14."""

@@ -107,7 +107,8 @@ class ContinuousTrainer:
                  model_name: str = "cardata-live.h5",
                  group: str = "cardata-live-train",
                  batch_size: int = 100, take_batches: int = 20,
-                 epochs_per_round: int = 1, normalizer=None,
+                 epochs_per_round: int = 1, only_normal: bool = True,
+                 normalizer=None,
                  backfill_since_ms: Optional[int] = None,
                  registry=None, checkpointer=None, warm_start: bool = True,
                  checkpoint_interval_s: float = 0.0, mesh=None,
@@ -166,7 +167,7 @@ class ContinuousTrainer:
                 self.consumer.seek(t, p, off)
         batch_kw = {} if normalizer is None else dict(normalizer=normalizer)
         self.batches = SensorBatches(self.consumer, batch_size=batch_size,
-                                     take=take_batches, only_normal=True,
+                                     take=take_batches, only_normal=only_normal,
                                      **batch_kw)
         self.rounds = 0
         self.records_trained = 0

@@ -5,8 +5,9 @@ Each case of ``tests/test_compact.py`` that covers ported code runs on
 both packages from the same records; the survivors (offsets, keys,
 values, timestamps), the pass statistics, the dirty ratios, the retained
 bases and the compacted segment files must be equal, and the JAX test's
-own assertions hold on the port.  The follower-replica case waits for
-the replication slice (ROADMAP A14).
+own assertions hold on the port.  The follower-replica case
+(``test_replica_mirrors_compacted_topic_with_holes``) is in
+tests/test_torch_replica.py, from a leader of either package.
 """
 
 import os

@@ -231,6 +231,66 @@ def test_the_telemetry_plane_is_covered_and_loads_no_jax_stack():
     assert out.stdout.strip() == "[]"
 
 
+REPLICATION_MODULES = ["iotml_torch/replication/__init__.py",
+                       "iotml_torch/replication/isr.py",
+                       "iotml_torch/replication/manager.py",
+                       "iotml_torch/replication/drill.py",
+                       "iotml_torch/replication/__main__.py",
+                       "iotml_torch/stream/replica.py",
+                       "iotml_torch/store/hwm.py",
+                       "iotml_torch/supervise/topology.py",
+                       "iotml_torch/supervise/drill.py",
+                       "iotml_torch/supervise/__main__.py",
+                       "iotml_torch/stream/kafka_wire.py",
+                       "iotml_torch/stream/broker.py",
+                       "iotml_torch/ops/framing.py"]
+
+
+def test_replication_is_covered_and_loads_no_jax_stack():
+    """The replication modules, imported and driven (a durable leader
+    with one follower, an acks=all produce at the quorum, a consumer
+    fetch at the quorum HWM, a promotion at epoch 1, the HWM file) in a
+    fresh interpreter, pull in no module of the JAX stack or the JAX
+    package."""
+    import subprocess
+    import sys
+
+    assert set(REPLICATION_MODULES) <= set(FILES)
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in REPLICATION_MODULES]
+    code = ("import sys, tempfile, threading, time\n" +
+            "".join(f"import {m}\n" for m in mods) +
+            "from iotml_torch.stream.broker import Broker\n"
+            "from iotml_torch.stream.kafka_wire import (KafkaWireBroker,\n"
+            "    KafkaWireServer)\n"
+            "from iotml_torch.replication import ReplicaSet\n"
+            "from iotml_torch.store.hwm import HwmFile\n"
+            "d = tempfile.mkdtemp()\n"
+            "b = Broker(store_dir=d)\n"
+            "b.create_topic('t')\n"
+            "s = KafkaWireServer(b).start()\n"
+            "rs = ReplicaSet(leader_broker=b, leader_server=s,\n"
+            "    n_followers=1, min_isr=2, topics=['t'],\n"
+            "    hwm_file=HwmFile(d)).start()\n"
+            "assert rs.await_isr(2, 't', 0, timeout_s=30)\n"
+            "c = KafkaWireBroker(f'127.0.0.1:{s.port}')\n"
+            "assert c.produce_many('t', [(b'k', b'v', 1)]) == 0\n"
+            "assert [m.value for m in c.fetch('t', 0, 0)] == [b'v']\n"
+            "s.kill()\n"
+            "rid, addr = rs.promote(1)\n"
+            "p = KafkaWireBroker(addr, epoch=1)\n"
+            "assert [m.value for m in p.fetch('t', 0, 0)] == [b'v']\n"
+            "rs.stop()\n"
+            "b.close()\n"
+            "assert HwmFile(d).load() == {('t', 0): 1}\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 @pytest.mark.parametrize("path", FILES)
 def test_port_module_imports_no_jax_stack(path):
     tree = ast.parse((ROOT / path).read_text(), filename=path)
