@@ -398,7 +398,7 @@ non-zero exit and no result line:
                 version at the fit bounds and its params against the
                 float64 fit within the params bound derived first from
                 the plain version alone (``order_noise_bound``: the
-                largest drift from float64 of 108 float32 fits, 12 row
+                largest drift from float64 of 54 float32 fits, 6 row
                 orders × each batch's rows as given and in 8 shuffles),
                 and bit for bit against the same fit from an in-memory
                 broker holding the same records (the batches exactly
@@ -476,8 +476,44 @@ non-zero exit and no result line:
                 exit 0, the leader-kill trainer's B1 launches counted.
                 Records/s, time-to-promote, the drills' SLOs and B1
                 launches by sub-phase.
+17c. cluster_path — the partitioned cluster (ROADMAP A14) under the main
+                path, after replication_path in the same temporary root,
+                at the reference's deployment (2 topics × 10 partitions
+                × RF 3 on 3 brokers, min_isr 2; SURVEY.md:342,
+                01_installConfluentPlatform.sh:180-183, gcp.yaml:46-54),
+                through the cluster's own command line: (a) ``python -m
+                iotml_torch.cluster up --brokers 3 --partitions 10
+                --replication-factor 3`` as a child on durable stores, its
+                bootstrap line read, the ISR formed (``status`` over
+                CLUSTER_ADMIN); (b) one tick of the reference's 100,000
+                cars as Avro records through ``ClusterClient(bootstrap=)``
+                at acks=all, in requests of one partition's records cut at
+                ``IOTML_PRODUCE_BATCH_BYTES``; (c) the cardata fit, its 100
+                batches of 100 normal rows read by ``SensorBatches`` over a
+                ``StreamConsumer`` on the routed client (RAW_FETCH to each
+                owning shard, the columnar ring), ``fit_compiled`` for 20
+                epochs: one B1 launch through rows, held to the plain
+                version (losses and accuracies, mu and nu, the step count)
+                and its params to the float64 fit within the order-noise
+                bound of 9 float32 fits; (d) while tick 2 is produced in
+                chunks (redelivered on the refusals a move brings) and
+                tailed by a consumer, ``add-broker --shard 1`` then
+                ``drain-broker --shard 2`` as children: both retired, the
+                new node's catch-up over RAW_FETCH; (e) the refit from
+                offset 0 after the moves: its batches byte-equal to (c)'s,
+                then params, mu, nu, losses and step bit-equal; (f) a
+                3-member ``ScorerFleet`` on the card scores both ticks:
+                each (partition, offset) exactly once (the members' fetch
+                and decode calls name them), and each member's first
+                payloads against a CPU recompute (atol 2e-6 the first
+                100, 1e-5 the rest); (g) ``python -m iotml_torch.cluster
+                drill --seed 7`` and ``python -m iotml_torch.replication
+                drill --name reassign`` in-process, both exit 0.
+                Records/s, catch-up and move seconds, the tail's longest
+                stall, the fit seconds, the fleet's rows/s, the drills'
+                SLOs and B1 launches by sub-phase (2).
 18. fit_orders — after store_path's launch counts are read: its rows in
-                12 orders, B1 and the plain version with each batch's
+                6 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
                 store_path's params bound against each order's float64
                 fit (an order outside fails the run); B1 against the
@@ -583,6 +619,8 @@ drill's pre-train and every refit's), the obs path (two traced fits,
 two captures, eight chaos rounds, eight timed fits), the KSQL path
 (one), the demo path (two: the demo CLI's and the tick's), the store
 path (seven, by sub-phase in ``store_path_launches_by_subphase``), the
+replication path (by sub-phase), the cluster path (two: the fit and the
+refit, by sub-phase in ``cluster_path_launches_by_subphase``), the
 creditcard path (one), the LSTM and MNIST paths (none), summed in
 ``launches``; the creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
@@ -608,6 +646,7 @@ import os
 import queue
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -632,6 +671,7 @@ from iotml_torch.cli import lstm as lstm_cli
 from iotml_torch.cli import mnist_smoke as mnist_cli
 from iotml_torch.cli import serve as serve_cli
 from iotml_torch.cli.up import Platform
+from iotml_torch.cluster import ClusterClient, ScorerFleet
 from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
 from iotml_torch.data import pipeline
@@ -685,7 +725,8 @@ from iotml_torch.ops.avro import AvroCodec, needs_resolution
 from iotml_torch.ops.flash_parity import (bwd_rounding_flips,
                                           check_rejects_scaled_o,
                                           check_wgmma_forward)
-from iotml_torch.ops.framing import frame_entries, strip_frame
+from iotml_torch.ops.framing import (frame_entries, iter_frame_entries,
+                                     strip_frame)
 from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
 from iotml_torch.serve import fastfmt
@@ -759,7 +800,16 @@ EX2_PER_S = SMS * 16 * 1.98e9
 TF32_TERMS = 3
 
 
+#: (phase, seconds since the module loaded) at each phase line: where the
+#: whole run's time goes, printed by ``main`` before the kernels line
+PHASE_ENDS: list = []
+_T_LOADED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if isinstance(obj, dict) and "phase" in obj:
+        PHASE_ENDS.append((obj["phase"],
+                           round(time.perf_counter() - _T_LOADED, 1)))
     print(json.dumps(obj), flush=True)
 
 
@@ -3844,16 +3894,43 @@ def _tele_live(root: str) -> dict:
                         "seconds": [r["seconds"] for r in rounds]}}
 
 
+def _wake_lateness(stop: threading.Event, late: list,
+                   period_s: float = 0.01) -> None:
+    """How late a thread that sleeps ``period_s`` at a time wakes: the
+    host's CPU contention, which the drill's canaries feel too."""
+    while not stop.is_set():
+        t = time.perf_counter()
+        time.sleep(period_s)
+        late.append(time.perf_counter() - t - period_s)
+
+
 def _tele_drill() -> dict:
     """(b) The alert-burn drill at its defaults through its CLI,
     ``python -m iotml_torch.obs tsdb drill --json``, in a process of its
     own, as users run it, its scorer on the card.  In this process, after
     the earlier phases, its healthy phase paged: its canaries' round trips
     sit close to their 0.1 s latency SLO, and with the heap and state the
-    earlier phases leave behind more of them crossed it."""
-    out = subprocess.run(
-        [sys.executable, "-m", "iotml_torch.obs", "tsdb", "drill", "--json"],
-        capture_output=True, text=True, timeout=300)
+    earlier phases leave behind more of them crossed it.  On a host whose
+    8 cores 12 to 16 other busy processes share, 10-50% of them cross it
+    and the healthy phase pages: the wake-up lateness measured here while
+    the drill runs, printed with its verdict, tells that case apart."""
+    stop, late = threading.Event(), []
+    sampler = threading.Thread(target=_wake_lateness, args=(stop, late),
+                               daemon=True, name="wake-lateness")
+    sampler.start()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "iotml_torch.obs", "tsdb", "drill",
+             "--json"], capture_output=True, text=True, timeout=300)
+    finally:
+        stop.set()
+        sampler.join()
+    late.sort()
+    lateness = {"samples": len(late),
+                "p50_ms": late[len(late) // 2] * 1e3,
+                "p90_ms": late[int(len(late) * 0.9)] * 1e3,
+                "max_ms": late[-1] * 1e3,
+                "over_20ms": sum(x > 0.02 for x in late)}
     try:
         rep = json.loads(out.stdout[out.stdout.index("{"):])
     except ValueError:
@@ -3864,7 +3941,9 @@ def _tele_drill() -> dict:
         raise AssertionError(
             "alert-burn drill:\n" + "\n".join(
                 f"{'PASS' if i['ok'] else 'FAIL'}  {n}: {i['detail']}"
-                for n, i in inv.items()))
+                for n, i in inv.items())
+            + f"\nwake-up lateness of a 10 ms sleep here meanwhile: "
+            f"{lateness}")
     need = {"alert_fired_fast_within_budget", "alert_in_changelog",
             "alert_in_healthz", "alert_resolved", "resolve_in_changelog",
             "zero_canaries_scored", "tsdb_bounded_after_compaction"}
@@ -3872,7 +3951,8 @@ def _tele_drill() -> dict:
         raise AssertionError(f"drill invariants {sorted(inv)}")
     return {"ok": True, "slos": rep["slos"], "scored": rep["scored"],
             "published": rep["published"], "injected": rep["injected"],
-            "invariants": {n: i["detail"] for n, i in inv.items()}}
+            "invariants": {n: i["detail"] for n, i in inv.items()},
+            "wake_lateness": lateness}
 
 
 def _tele_platform(root: str, history: dict) -> dict:
@@ -4860,8 +4940,11 @@ def _same_fit(a, b, where: str) -> None:
 
 #: the row orders a fit gate holds (order 0 as served, order k > 0 the
 #: rows permuted with seed k) and, for the params bound, the seeded
-#: shuffles of each batch's rows that join each order's rows as given
-STORE_FIT_ORDERS, DEMO_FIT_ORDERS, BOUND_SHUFFLES = 12, 6, 8
+#: shuffles of each batch's rows that join each order's rows as given;
+#: store_path's 6 orders (12 before cluster_path joined the run) keep the
+#: whole run inside its time limit, and ``--store-fit-orders N`` sweeps
+#: more
+STORE_FIT_ORDERS, DEMO_FIT_ORDERS, BOUND_SHUFFLES = 6, 6, 8
 #: 20-epoch fits: what the path's own fit runs
 FIT_EPOCHS = 20
 
@@ -5020,7 +5103,8 @@ def public_bound(bound: dict) -> dict:
     return {k: v for k, v in bound.items() if k != "float64"}
 
 
-def _store_fit_check(trainer, before, hist, xs, masks, bound) -> tuple:
+def _store_fit_check(trainer, before, hist, xs, masks, bound,
+                     tag: str = "store_path") -> tuple:
     """Hold the path's own fit (20 epochs, order 0) against the plain
     version on the same batches: every epoch's loss and accuracy at
     METRIC_TOL, the final Adam moments at STATE_TOL and the step count
@@ -5028,14 +5112,14 @@ def _store_fit_check(trainer, before, hist, xs, masks, bound) -> tuple:
     rows within ``bound``, derived before from the plain version alone.
     Returns (largest absolute difference checked, the params' drift)."""
     plain = fused_train.fused_fit_reference(before, xs, masks, FIT_EPOCHS)
-    err = check_fit("store_path", (trainer.state, torch.tensor(hist["loss"]),
-                                   torch.tensor(hist["accuracy"])),
+    err = check_fit(tag, (trainer.state, torch.tensor(hist["loss"]),
+                          torch.tensor(hist["accuracy"])),
                     plain, before.step + xs.shape[0] * FIT_EPOCHS,
                     parts=("mu", "nu"))
     drift = params_drift(trainer.state.params, plain[0].params,
                          bound["float64"][0])
     if not within_bound(drift["kernel_vs_float64"], bound):
-        raise AssertionError(f"store_path params: farther from the float64 "
+        raise AssertionError(f"{tag} params: farther from the float64 "
                              f"fit than float32 order noise "
                              f"{public_bound(bound)}: {drift}")
     return err, drift
@@ -6304,6 +6388,657 @@ def phase_replication_path(card: str, root: str) -> dict:
             "by_subphase": counts, "max_abs_err": err}
 
 
+#: cluster_path: the reference's deployment, 2 topics x 10 partitions x RF 3
+#: on 3 brokers (SURVEY.md:342; 01_installConfluentPlatform.sh:180-183,
+#: gcp.yaml:46-54), through the cluster's own command line
+CLUSTER_BROKERS, CLUSTER_PARTS, CLUSTER_RF, CLUSTER_MIN_ISR = 3, 10, 3, 2
+CLUSTER_TOPICS = (STORE_TOPIC, "model-predictions")
+CLUSTER_CMD = [sys.executable, "-m", "iotml_torch.cluster"]
+#: records a produce call: tick 1's, and tick 2's with the pause
+#: between its calls until both moves are done (the load spans the moves)
+CLUSTER_TICK_CHUNK, CLUSTER_CHUNK, CLUSTER_PACE_S = 20_000, 2_500, 0.1
+CLUSTER_FLEET = 3
+#: the fleet's first payloads held against a CPU recompute
+CLUSTER_CHECKED_PAYLOADS = 10_000
+
+
+def _cluster_up(store_root: str):
+    """(a) ``python -m iotml_torch.cluster up`` as a child: its bootstrap
+    line, and a reader thread draining its output."""
+    proc = subprocess.Popen(
+        CLUSTER_CMD + ["up", "--brokers", str(CLUSTER_BROKERS),
+                       "--partitions", str(CLUSTER_PARTS),
+                       "--replication-factor", str(CLUSTER_RF),
+                       "--min-isr", str(CLUSTER_MIN_ISR),
+                       "--topics", ",".join(CLUSTER_TOPICS),
+                       "--store-root", store_root],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(Path(__file__).parent))
+    lines: "queue.Queue" = queue.Queue()
+    seen: list = []
+
+    def read():
+        for line in proc.stdout:
+            seen.append(line)
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            continue
+        if line is None:
+            break
+        if line.strip().startswith("bootstrap"):
+            return proc, line.split()[-1], seen
+    proc.kill()
+    proc.wait()
+    raise AssertionError(f"cluster_path (a): `cluster up` printed no "
+                         f"bootstrap line:\n{''.join(seen)}")
+
+
+def _cluster_stop(proc, seen: list) -> None:
+    """SIGINT, as an operator's Ctrl-C: the child stops the cluster and
+    exits 0."""
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("cluster_path: `cluster up` did not stop on "
+                             "SIGINT")
+    if rc != 0:
+        raise AssertionError(f"cluster_path: `cluster up` exited {rc}:\n"
+                             f"{''.join(seen[-40:])}")
+
+
+def _cluster_await_isr(bootstrap: str, want: int, where: str) -> float:
+    """Poll the controller's ``status`` over CLUSTER_ADMIN until every
+    shard's ISR holds ``want`` replicas on each partition it leads (the
+    cluster's METADATA names the leaders)."""
+    client = KafkaWireBroker(bootstrap, client_id="smoke-cluster-status")
+    t0 = time.perf_counter()
+    try:
+        leader = {f"{t}:{p}": node for (t, p), node in
+                  client.cluster_metadata()["leaders"].items()}
+        deadline = time.monotonic() + 60
+        while True:
+            doc = client.cluster_admin("status")
+            short = {(shard, tp): n
+                     for shard, d in doc["shards"].items()
+                     for tp, n in d["isr_size"].items()
+                     if leader.get(tp) == int(shard) and n < want}
+            if not short:
+                return time.perf_counter() - t0
+            if time.monotonic() > deadline:
+                raise AssertionError(f"cluster_path ({where}): ISR below "
+                                     f"{want} at {short}")
+            time.sleep(0.05)
+    finally:
+        client.close()
+
+
+def _cluster_batches(bootstrap: str, group: str, where: str):
+    """The cardata job's 100 batches of 100 normal rows from offset 0 of
+    every partition, read through a ``ClusterClient`` (RAW_FETCH routed to
+    each owning shard, decoded by the columnar ring)."""
+    cfg = cli_app.load_config([])[0]
+    client = ClusterClient(bootstrap=bootstrap, client_id=f"smoke-{group}")
+    try:
+        consumer = StreamConsumer(
+            client, [f"{STORE_TOPIC}:{p}:0" for p in range(CLUSTER_PARTS)],
+            group=group)
+        with _ring_read(f"cluster_path ({where})") as seen:
+            sb = SensorBatches(consumer, batch_size=cardata.BATCH_SIZE,
+                               take=cardata.TAKE_BATCHES,
+                               only_normal=cfg.train.only_normal)
+            seen["batchers"].append(sb)
+            bs = list(next(sb.epochs(1)))
+    finally:
+        client.close()
+    if len(bs) != cardata.TAKE_BATCHES or not all(b.mask.all() for b in bs):
+        raise AssertionError(f"cluster_path ({where}): {len(bs)} batches, "
+                             f"not {cardata.TAKE_BATCHES} full ones")
+    return bs
+
+
+def _cluster_fit(bs, where: str) -> dict:
+    """``fit_compiled`` over ``bs`` for 20 epochs on the card from the
+    trainer's seeded start: exactly one B1 launch, through rows."""
+    trainer = Trainer(CAR_AUTOENCODER)
+    trainer._ensure_state()
+    before = _clone_state(trainer.state)
+    launches = fused_train.fused_fit.launches
+    rows = fused_train.fused_fit.launches_by_design["rows"]
+    t0 = time.perf_counter()
+    hist = trainer.fit_compiled(bs, epochs=FIT_EPOCHS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if fused_train.fused_fit.launches != launches + 1 or \
+            fused_train.fused_fit.launches_by_design["rows"] != rows + 1:
+        raise AssertionError(f"cluster_path ({where}): B1 launched "
+                             f"{fused_train.fused_fit.launches - launches}"
+                             f"x, not once through rows")
+    return {"trainer": trainer, "before": before, "hist": hist,
+            "seconds": seconds}
+
+
+def _cluster_same_fit(a: dict, b: dict) -> None:
+    """(e) The refit equals the first fit bit for bit: every epoch's loss
+    and accuracy, params, mu, nu, step and count."""
+    sa, sb = a["trainer"].state, b["trainer"].state
+    if a["hist"]["loss"] != b["hist"]["loss"] or \
+            a["hist"]["accuracy"] != b["hist"]["accuracy"]:
+        raise AssertionError("cluster_path (e): the refit's losses differ")
+    for tree, ta, tb in (("params", sa.params, sb.params),
+                         ("mu", sa.opt_state.mu, sb.opt_state.mu),
+                         ("nu", sa.opt_state.nu, sb.opt_state.nu)):
+        for k in PARAM_NAMES:
+            if not torch.equal(ta[k], tb[k]):
+                raise AssertionError(f"cluster_path (e): the refit's "
+                                     f"{tree}/{k} differs")
+    if (sa.step, sa.opt_state.count) != (sb.step, sb.opt_state.count):
+        raise AssertionError(f"cluster_path (e): step/count "
+                             f"{sa.step}/{sa.opt_state.count} vs "
+                             f"{sb.step}/{sb.opt_state.count}")
+
+
+def _cluster_produce(client, entries, stats: dict, chunk: int,
+                     deadline_s: float = 60.0):
+    """acks=all produce, ``chunk`` records a call, each call one
+    request a partition (the partition the client routes each key to),
+    with the caller's redelivery: a NOT_LEADER bounce re-routes inside
+    the client; any other ConnectionError (an ISR below min_isr, the
+    quorum reached late or below min_isr, a retired leader's cut
+    connection) redelivers that partition's request until the deadline
+    (at least once: a request appended but unacked lands twice)."""
+    deadline = time.monotonic() + deadline_s
+    for i in range(0, len(entries), chunk):
+        by_part: dict = collections.defaultdict(list)
+        for e in entries[i:i + chunk]:
+            by_part[client._partition_for(STORE_TOPIC, e[0])].append(e)
+        for p, ents in sorted(by_part.items()):
+            _cluster_deliver(client, p, ents, stats, deadline)
+
+
+def _cluster_deliver(client, p: int, ents, stats: dict,
+                     deadline: float) -> None:
+    """One partition's request, redelivered until it is acked."""
+    stats["requests"] = stats.get("requests", 0) + 1
+    while True:
+        try:
+            client.produce_many(STORE_TOPIC, ents, partition=p, acks=-1,
+                                timeout_ms=10_000)
+            stats["acked"][stats["phase"]] += 1
+            return
+        except ConnectionError as e:
+            stats["redeliveries"] += 1
+            stats["errors"].add(type(e).__name__)
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def _cluster_admin_cli(bootstrap: str, verb: str, shard: int) -> dict:
+    """``python -m iotml_torch.cluster <verb> --shard N`` as a child
+    against the running cluster: its report, which must end retired."""
+    t0 = time.perf_counter()
+    r = subprocess.run(CLUSTER_CMD + [verb, "--bootstrap", bootstrap,
+                                      "--shard", str(shard)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=str(Path(__file__).parent))
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"cluster_path (d): {verb} exited "
+                             f"{r.returncode}:\n{r.stdout}\n{r.stderr}")
+    doc = json.loads(r.stdout)
+    if doc.get("state") != "retired":
+        raise AssertionError(f"cluster_path (d): {verb} ended {doc}")
+    doc["cli_seconds"] = seconds
+    return doc
+
+
+def _cluster_moves(bootstrap: str, tick) -> dict:
+    """(d) Tick 2 produced at acks=all by one thread and tailed by a
+    consumer on another while ``add-broker --shard 1`` and then
+    ``drain-broker --shard 2`` run as children."""
+    moves_done = threading.Event()
+    # "phase" names the step each acked request lands in
+    stats = {"redeliveries": 0, "errors": set(), "phase": "before",
+             "acked": collections.Counter()}
+    failed: list = []
+    # the tail starts at tick 1's end on every partition
+    probe = ClusterClient(bootstrap=bootstrap, client_id="smoke-cluster-end")
+    try:
+        start = [probe.end_offset(STORE_TOPIC, p)
+                 for p in range(CLUSTER_PARTS)]
+    finally:
+        probe.close()
+    produced = threading.Event()
+    tail = {"records": 0, "max_stall_s": 0.0, "polls": 0}
+
+    def produce():
+        client = ClusterClient(bootstrap=bootstrap,
+                               client_id="smoke-cluster-tick2")
+        try:
+            for i in range(0, len(tick), CLUSTER_CHUNK):
+                _cluster_produce(client, tick[i:i + CLUSTER_CHUNK], stats,
+                                 CLUSTER_CHUNK)
+                if not moves_done.is_set():
+                    time.sleep(CLUSTER_PACE_S)
+        except BaseException as e:  # re-raised by the phase below
+            failed.append(e)
+        finally:
+            produced.set()
+            client.close()
+
+    def consume():
+        client = ClusterClient(bootstrap=bootstrap,
+                               client_id="smoke-cluster-tail")
+        try:
+            consumer = StreamConsumer(
+                client, [f"{STORE_TOPIC}:{p}:{start[p]}"
+                         for p in range(CLUSTER_PARTS)],
+                group="smoke-cluster-tail")
+            last = time.perf_counter()
+            deadline = time.monotonic() + 120
+            while time.monotonic() < deadline:
+                try:
+                    batch = consumer.poll(4096)
+                except ConnectionError:
+                    batch = []
+                tail["polls"] += 1
+                now = time.perf_counter()
+                if batch:
+                    tail["records"] += len(batch)
+                    tail["max_stall_s"] = max(tail["max_stall_s"],
+                                              now - last)
+                    last = now
+                elif produced.is_set() and tail["records"] >= len(tick):
+                    return
+                else:
+                    time.sleep(0.005)
+            ends = [client.end_offset(STORE_TOPIC, p)
+                    for p in range(CLUSTER_PARTS)]
+            raise AssertionError(f"cluster_path (d): the tail consumer "
+                                 f"read {tail['records']} of {len(tick)}: "
+                                 f"positions {consumer.positions()}, "
+                                 f"starts {start}, ends {ends}")
+        except BaseException as e:
+            failed.append(e)
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=produce, daemon=True),
+               threading.Thread(target=consume, daemon=True)]
+    for t in threads:
+        t.start()
+    try:
+        stats["phase"] = "add_broker"
+        add = _cluster_admin_cli(bootstrap, "add-broker", 1)
+        stats["phase"] = "drain_broker"
+        drain = _cluster_admin_cli(bootstrap, "drain-broker", 2)
+        stats["phase"] = "after"
+    finally:
+        moves_done.set()
+        for t in threads:
+            t.join(timeout=360)
+    if failed:
+        raise failed[0]
+    if add["raw_mirrored"] <= 0:
+        raise AssertionError(f"cluster_path (d): the new replica mirrored "
+                             f"{add['raw_mirrored']} records over RAW_FETCH")
+    if not stats["acked"]["add_broker"]:
+        raise AssertionError(f"cluster_path (d): no tick-2 request was "
+                             f"acked while add-broker ran: "
+                             f"{dict(stats['acked'])}"
+                             f", add-broker {add}, {stats['redeliveries']} "
+                             f"redeliveries {sorted(stats['errors'])}")
+    return {"add_broker": add, "drain_broker": drain,
+            "requests_acked": dict(stats["acked"]),
+            "redeliveries": stats["redeliveries"],
+            "redelivery_errors": sorted(stats["errors"]),
+            "tail_records": tail["records"],
+            "consumer_max_stall_s": tail["max_stall_s"]}
+
+
+def _count_rewinds(fleet) -> collections.Counter:
+    """Each member's rewinds to its committed offsets, by the error that
+    caused them (a refused write-back, a lost connection): the member's
+    drive rewinds on any ConnectionError, and its next drain scores the
+    records again."""
+    rewinds: collections.Counter = collections.Counter()
+    for m in fleet.members:
+        real_drain = m.payload.score_available
+
+        def drain(*a, real_drain=real_drain, **kw):
+            try:
+                return real_drain(*a, **kw)
+            except ConnectionError as e:
+                rewinds[type(e).__name__] += 1
+                raise
+
+        m.payload.score_available = drain
+    return rewinds
+
+
+@contextlib.contextmanager
+def _fleet_identities(fleet):
+    """Each member's decoded records in order, as (partition, offset): the
+    member's fetch_raw calls name the partition, and the frame decoder's
+    calls after each (on the member's thread) the offsets it turned into
+    rows."""
+    owner = {id(m.client): i for i, m in enumerate(fleet.members)}
+    seq = [[] for _ in fleet.members]
+    last = threading.local()
+    real_fetch = ClusterClient.fetch_raw
+    real_decode = native.FrameDecoder.decode_into
+
+    def fetch_raw(self, topic, partition, offset, *a, **kw):
+        last.at = (owner.get(id(self)), partition)
+        return real_fetch(self, topic, partition, offset, *a, **kw)
+
+    def decode_into(self, data, offset, *a, **kw):
+        got, next_off, flags, skipped = real_decode(self, data, offset,
+                                                    *a, **kw)
+        member, part = getattr(last, "at", (None, None))
+        if got:
+            if member is None or got != next_off - offset:
+                raise AssertionError(f"cluster_path (f): {got} rows "
+                                     f"decoded at {offset}..{next_off} "
+                                     f"outside a member's fetch")
+            seq[member].extend((part, o) for o in range(offset, next_off))
+        return got, next_off, flags, skipped
+
+    ClusterClient.fetch_raw = fetch_raw
+    native.FrameDecoder.decode_into = decode_into
+    try:
+        yield seq
+    finally:
+        ClusterClient.fetch_raw = real_fetch
+        native.FrameDecoder.decode_into = real_decode
+
+
+def _cluster_acked_present(bootstrap: str, ticks) -> dict:
+    """(d) After the moves every acked record of both ticks is in the
+    log, in the partition its key routes to; the redeliveries' extra
+    copies are counted, and no record came from anywhere else."""
+    client = ClusterClient(bootstrap=bootstrap, client_id="smoke-cluster-rb")
+    try:
+        want: collections.Counter = collections.Counter()
+        for tick in ticks:
+            want.update((client._partition_for(STORE_TOPIC, k), k, v)
+                        for k, v, _ in tick)
+        got: collections.Counter = collections.Counter()
+        for p in range(CLUSTER_PARTS):
+            off, end = 0, client.end_offset(STORE_TOPIC, p)
+            while off < end:
+                raw = client.fetch_raw(STORE_TOPIC, p, off,
+                                       max_bytes=4 << 20)
+                at = off
+                for o, k, v, _, _ in iter_frame_entries(
+                        b"" if raw is None else raw.data):
+                    if o >= at:
+                        got[(p, k, v)] += 1
+                        at = o + 1
+                if at == off:
+                    raise AssertionError(f"cluster_path (d): partition {p} "
+                                         f"read back stopped at {off}/{end}")
+                off = at
+    finally:
+        client.close()
+    missing, extra = want - got, got - want
+    phantom = set(extra) - set(want)
+    if missing or phantom:
+        raise AssertionError(f"cluster_path (d): {sum(missing.values())} "
+                             f"acked records missing after the moves, "
+                             f"{len(phantom)} records from nowhere")
+    return {"records": sum(want.values()), "log_records": sum(got.values()),
+            "duplicates": sum(extra.values())}
+
+
+def _cluster_log_rows(bootstrap: str) -> dict:
+    """Every partition's rows in offset order, decoded on the host: the
+    CPU recompute's inputs."""
+    client = ClusterClient(bootstrap=bootstrap, client_id="smoke-cluster-x")
+    try:
+        out = {}
+        for p in range(CLUSTER_PARTS):
+            bs = SensorBatches(StreamConsumer(client, [f"{STORE_TOPIC}:{p}:0"],
+                                              group="smoke-cluster-x"),
+                               batch_size=100, only_normal=False)
+            out[p] = np.concatenate([b.x[:b.n_valid] for b in bs])
+        return out
+    finally:
+        client.close()
+
+
+def _cluster_fleet(bootstrap: str, params) -> dict:
+    """(f) A 3-member ``ScorerFleet`` on the card, one thread a member as
+    a deployment runs it (``start``), at the scorer's own flush (an
+    acks=all write-back of up to ``max_super_batches`` batches), scores
+    every record of both ticks: each (partition, offset) exactly once,
+    and each member's first payloads against a CPU recompute from the
+    same params."""
+    probe = ClusterClient(bootstrap=bootstrap, client_id="smoke-cluster-end")
+    try:
+        ends = [probe.end_offset(STORE_TOPIC, p) for p in range(CLUSTER_PARTS)]
+    finally:
+        probe.close()
+    expected = {(p, o) for p in range(CLUSTER_PARTS) for o in range(ends[p])}
+    fleet = ScorerFleet(
+        lambda: ClusterClient(bootstrap=bootstrap,
+                              client_id="smoke-cluster-fleet"),
+        CAR_AUTOENCODER, params, n_members=CLUSTER_FLEET,
+        in_topic=STORE_TOPIC, out_topic=CLUSTER_TOPICS[1],
+        group="smoke-cluster-fleet")
+    rewinds = _count_rewinds(fleet)
+    with _fleet_identities(fleet) as seq:
+        try:
+            t0 = time.perf_counter()
+            fleet.start()
+            deadline = time.monotonic() + 300
+            while fleet.scored() < len(expected):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"cluster_path (f): the fleet "
+                                         f"scored {fleet.scored()} of "
+                                         f"{len(expected)}")
+                time.sleep(0.01)
+            seconds = time.perf_counter() - t0
+        finally:
+            fleet.stop()
+    torch.cuda.synchronize()
+    rounds = sum(m.rounds for m in fleet.members)
+    if rewinds:
+        raise AssertionError(f"cluster_path (f): {sum(rewinds.values())} "
+                             f"write-backs or fetches failed and rewound "
+                             f"({dict(rewinds)})")
+    flat = [ident for member in seq for ident in member]
+    dupes = len(flat) - len(set(flat))
+    missing, extra = expected - set(flat), set(flat) - expected
+    per_member = [m.payload.scored for m in fleet.members]
+    if dupes or missing or extra or fleet.scored() != len(expected) or \
+            per_member != [len(s) for s in seq] or not all(per_member):
+        raise AssertionError(f"cluster_path (f): {len(missing)} records "
+                             f"never scored, {dupes} scored twice, "
+                             f"{len(extra)} phantom; members "
+                             f"{per_member} vs decoded "
+                             f"{[len(s) for s in seq]}")
+    # the first payloads of each member against the CPU forward of the
+    # same records from the log
+    xs = _cluster_log_rows(bootstrap)
+    cpu = {k: v.detach().cpu() for k, v in params.items()}
+    client = ClusterClient(bootstrap=bootstrap, client_id="smoke-cluster-out")
+    n = -(-CLUSTER_CHECKED_PAYLOADS // CLUSTER_FLEET)
+    err_first = err_all = 0.0
+    try:
+        for m in range(CLUSTER_FLEET):
+            msgs = []
+            while len(msgs) < n:
+                got = client.fetch(CLUSTER_TOPICS[1], m, len(msgs), n)
+                if not got:
+                    break
+                msgs.extend(got)
+            # a threshold-less scorer's payload is the output row alone
+            rows = np.array([np.array(g.value.decode().strip("[]").split(),
+                                      np.float64) for g in msgs[:n]])
+            x = torch.from_numpy(np.stack([xs[p][o] for p, o in seq[m][:n]]))
+            with torch.no_grad():
+                want = torch.func.functional_call(
+                    CAR_AUTOENCODER.build("cpu"), cpu, (x,)).numpy()
+            if rows.shape != want.shape or not np.isfinite(rows).all() or \
+                    not np.allclose(rows[:100], want[:100], **CLI_TOL_FIRST) \
+                    or not np.allclose(rows, want, **CLI_TOL_ALL):
+                raise AssertionError(
+                    f"cluster_path (f): member {m}'s payloads {rows.shape} "
+                    f"disagree with a CPU recompute (max "
+                    f"{np.abs(rows - want).max() if rows.shape == want.shape else 'n/a'})")
+            err_first = max(err_first,
+                            float(np.abs(rows[:100] - want[:100]).max()))
+            err_all = max(err_all, float(np.abs(rows - want).max()))
+    finally:
+        client.close()
+    return {"records": len(expected), "scored_by_member": per_member,
+            "lost": 0, "double_scored": 0, "rounds": rounds,
+            "super_batches": fleet.members[0].payload.max_super_batches,
+            "seconds": seconds, "rows_per_s": len(expected) / seconds,
+            "payloads_checked": n * CLUSTER_FLEET,
+            "max_abs_err_first_100": err_first,
+            "max_abs_err_checked": err_all}
+
+
+def _cluster_drills() -> dict:
+    """(g) ``python -m iotml_torch.cluster drill --seed 7`` and ``python -m
+    iotml_torch.replication drill --name reassign``, in-process."""
+    from iotml_torch.cluster.__main__ import main as cluster_main
+    from iotml_torch.replication.__main__ import main as repl_main
+
+    out = {}
+    for name, main, argv in (
+            ("rebalance_under_chaos", cluster_main, ["drill", "--seed", "7"]),
+            ("reassign", repl_main, ["drill", "--name", "reassign"])):
+        so, se = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = main(argv)
+        seconds = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cluster_path (g): {name} drill exited "
+                                 f"{rc}:\n{se.getvalue()}")
+        doc = json.loads(so.getvalue())
+        out[name] = {"ok": doc["ok"], "seconds": seconds,
+                     "published": doc["published"], "scored": doc["scored"],
+                     "slos": doc.get("slos"),
+                     "invariants": [i["name"] for i in doc["invariants"]]}
+    return out
+
+
+def phase_cluster_path(card: str, root: str) -> dict:
+    """The partitioned cluster under the main path: (a) ``cluster up``,
+    (b) one tick at acks=all, (c) the fit, (d) the moves under load, (e)
+    the refit, (f) the scorer fleet, (g) the drills."""
+    reset_launches()
+    reset_fit_launches()
+    t_phase = time.perf_counter()
+    store_root = str(Path(root) / "cluster")
+    counts: dict = {}
+    t0 = time.perf_counter()
+    proc, bootstrap, seen = _cluster_up(store_root)
+    up_s = time.perf_counter() - t0
+    try:
+        isr_s = _cluster_await_isr(bootstrap, CLUSTER_RF, "a")
+        # (b) one tick of the fleet at acks=all through the routed client
+        tick1, tick2 = list(_store_ticks(2))
+        client = ClusterClient(bootstrap=bootstrap,
+                               client_id="smoke-cluster-tick1")
+        tick1_stats = {"redeliveries": 0, "errors": set(), "phase": "tick",
+                       "acked": collections.Counter()}
+        try:
+            t0 = time.perf_counter()
+            _cluster_produce(client, tick1, tick1_stats, CLUSTER_TICK_CHUNK)
+            tick_s = time.perf_counter() - t0
+        finally:
+            client.close()
+        acks_all_rate = len(tick1) / tick_s
+
+        # (c) the cardata fit over the routed client
+        bs = _cluster_batches(bootstrap, "smoke-cluster-fit", "c")
+        counts["fit"] = 1
+        fit = _cluster_fit(bs, "c")
+        xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+        masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+        rows = np.concatenate([b.x for b in bs])
+        bound = order_noise_bound(fit["before"], [rows], masks)
+        err, drift = _store_fit_check(fit["trainer"], fit["before"],
+                                      fit["hist"], xs, masks, bound,
+                                      tag="cluster_path")
+
+        # (d) add-broker and drain-broker while tick 2 is produced
+        moves = _cluster_moves(bootstrap, tick2)
+        reform_s = _cluster_await_isr(bootstrap, CLUSTER_MIN_ISR, "d")
+        t0 = time.perf_counter()
+        read_back = _cluster_acked_present(bootstrap, (tick1, tick2))
+        read_back["seconds"] = time.perf_counter() - t0
+
+        # (e) the refit from offset 0 after the moves
+        bs2 = _cluster_batches(bootstrap, "smoke-cluster-refit", "e")
+        _same_batches(bs, bs2, "cluster_path (e) refit")
+        counts["refit"] = 1
+        refit = _cluster_fit(bs2, "e")
+        _cluster_same_fit(fit, refit)
+
+        # (f) the scorer fleet over both ticks
+        fleet = _cluster_fleet(bootstrap, fit["trainer"].state.params)
+    finally:
+        _cluster_stop(proc, seen)
+
+    # (g) the drills
+    drills = _cluster_drills()
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if launches != sum(counts.values()) or by_design["rows"] != launches:
+        raise AssertionError(f"cluster_path launched B1 {launches}x "
+                             f"({by_design}), sub-phases say {counts}")
+    attention = {k: v for k, v in path_launches().items() if k != "fused_fit"}
+    if any(attention.values()):
+        raise AssertionError(f"cluster_path launched {attention}")
+    shutil.rmtree(store_root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    add, drain = moves["add_broker"], moves["drain_broker"]
+    emit({"phase": "cluster_path", "card": card, "cars": STORE_CARS,
+          "brokers": CLUSTER_BROKERS, "partitions": CLUSTER_PARTS,
+          "replication_factor": CLUSTER_RF, "min_isr": CLUSTER_MIN_ISR,
+          "bootstrap_s": up_s, "isr_form_s": isr_s,
+          "acks_all_records_per_s": acks_all_rate, "tick_s": tick_s,
+          "tick_redeliveries": tick1_stats["redeliveries"],
+          "tick_redelivery_errors": sorted(tick1_stats["errors"]),
+          "fit": {"seconds": fit["seconds"],
+                  "refit_seconds": refit["seconds"],
+                  "loss": fit["hist"]["loss"][-1],
+                  "refit_bit_equal": True, "max_abs_err_vs_plain": err,
+                  "params_drift": drift, "bound": public_bound(bound)},
+          "add_broker": {k: add.get(k) for k in (
+              "state", "epoch", "catch_up_s", "move_s", "raw_mirrored",
+              "records_mirrored", "cli_seconds")},
+          "drain_broker": {k: drain.get(k) for k in (
+              "state", "epoch", "move_s", "cli_seconds")},
+          "moves_load": {k: moves[k] for k in (
+              "requests_acked", "redeliveries", "redelivery_errors",
+              "tail_records")},
+          "read_back": read_back,
+          "consumer_max_stall_s": moves["consumer_max_stall_s"],
+          "isr_reform_s": reform_s, "fleet": fleet, "drills": drills,
+          "phase_seconds": phase_s, "kernel_launches": launches,
+          "kernel_launches_by_design": by_design,
+          "kernel_launches_by_subphase": counts})
+    return {"launches": launches, "launches_by_design": by_design,
+            "by_subphase": counts, "max_abs_err": err}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -7499,6 +8234,7 @@ def main() -> int:
         demo_info = phase_demo_path(card)
         store_info = phase_store_path(card)
         repl_info = phase_replication_path(card, root)
+        cluster_info = phase_cluster_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -7527,6 +8263,7 @@ def main() -> int:
              "obs_path": obs_info["counts"],
              "telemetry_path": tele_info["counts"]}
     design = timing["design"]
+    emit({"phase_ends_s": PHASE_ENDS})
     emit({"kernels": [{
         "name": "fused_fit", "route": "cuda",
         "source": "iotml_torch/ops/csrc/fused_train.cu",
@@ -7538,7 +8275,7 @@ def main() -> int:
         + tele_info["launches"]
         + ksql_info["launches"] + demo_info["launches"]
         + store_info["launches"] + repl_info["launches"]
-        + cc_info["launches"]
+        + cluster_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -7555,6 +8292,7 @@ def main() -> int:
                              "demo_path": demo_info["launches"],
                              "store_path": store_info["launches"],
                              "replication_path": repl_info["launches"],
+                             "cluster_path": cluster_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -7572,6 +8310,7 @@ def main() -> int:
             + demo_info["launches_by_design"][d]
             + store_info["launches_by_design"][d]
             + repl_info["launches_by_design"][d]
+            + cluster_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
@@ -7579,9 +8318,11 @@ def main() -> int:
                            cc_info["max_abs_err"], ksql_info["max_abs_err"],
                            demo_info["max_abs_err"],
                            store_info["max_abs_err"],
-                           repl_info["max_abs_err"]),
+                           repl_info["max_abs_err"],
+                           cluster_info["max_abs_err"]),
         "store_path_launches_by_subphase": store_info["by_subphase"],
         "replication_path_launches_by_subphase": repl_info["by_subphase"],
+        "cluster_path_launches_by_subphase": cluster_info["by_subphase"],
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],

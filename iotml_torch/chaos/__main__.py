@@ -1,21 +1,27 @@
-"""``python -m iotml_torch.chaos`` — the fault-schedule CLI
+"""``python -m iotml_torch.chaos`` — the fault-injection CLI
 (``iotml.chaos``'s twin):
 
+    python -m iotml_torch.chaos run --scenario rebalance-under-chaos \
+                                    --seed 7 --records 2000 [--json]
     python -m iotml_torch.chaos run --list
-    python -m iotml_torch.chaos schedule --scenario mqtt-flap --seed 7 \\
+    python -m iotml_torch.chaos schedule --scenario mqtt-flap --seed 7 \
                                          --records 2000
 
 ``--list`` enumerates the scenarios with their topology; ``schedule``
 prints a scenario's canonical schedule text, byte-identical for the same
-(scenario, seed, records) and equal to the JAX package's.  ``run
---scenario`` drives the runner's topologies, which are ROADMAP A14: it
-raises NotImplementedError naming the item (the ``alert-burn`` drill runs
-through ``python -m iotml_torch.obs tsdb drill``).
+(scenario, seed, records) and equal to the JAX package's.  ``run``
+drives the pipeline under a scenario and prints the injected faults and
+the invariant verdicts (exit status 0 iff every invariant passed); the
+runner's ported topology is ``cluster`` (``rebalance-under-chaos``), and
+a scenario of another topology raises NotImplementedError naming ROADMAP
+A14 (the ``alert-burn`` drill runs through ``python -m iotml_torch.obs
+tsdb drill``).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 from .scenarios import SCENARIOS, build
@@ -35,11 +41,30 @@ def cmd_run(args) -> int:
         print("run: --scenario NAME required (see --list)",
               file=sys.stderr)
         return 2
-    raise NotImplementedError(
-        f"python -m iotml_torch.chaos run --scenario {args.scenario}: the "
-        f"scenario runner's topologies are not ported yet (ROADMAP A14); "
-        f"the alert-burn drill runs through python -m iotml_torch.obs "
-        f"tsdb drill")
+    from .runner import ChaosRunner
+
+    report = ChaosRunner(args.scenario, seed=args.seed,
+                         records=args.records).run()
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
+        return 0 if report.ok else 1
+
+    print(f"scenario {report.scenario}  seed={report.seed}  "
+          f"records={report.records}  topology={report.topology}")
+    print(f"published={report.published}  scored={report.scored}  "
+          f"rewinds={report.rewinds}  "
+          f"accounted_drops={report.dropped_accounted}")
+    print("\ninjected faults:")
+    if report.injected:
+        for label, n in report.injected.items():
+            print(f"  {n:>6}  {label}")
+    else:
+        print("  (none fired)")
+    print("\ninvariants:")
+    for inv in report.invariants:
+        print(f"  {inv.verdict()}")
+    print(f"\nverdict: {'PASS' if report.ok else 'FAIL'}")
+    return 0 if report.ok else 1
 
 
 def cmd_schedule(args) -> int:

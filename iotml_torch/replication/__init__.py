@@ -14,15 +14,17 @@ This package is the Kafka-shaped equivalent over the port's wire broker:
 - ``ReplicaSet`` (``manager.py``): a leader and N followers as one unit
   (ISR formation, ISR-restricted election at epoch+1, live follower add
   and retire).
-- The live ``double-fault`` drill (``drill.py``,
+- ``ShardReassignment`` (``reassign.py``): the online reassignment
+  state machine behind ``python -m iotml_torch.cluster add-broker /
+  drain-broker`` (a new replica bootstraps over RAW_FETCH, joins the
+  ISR, leadership moves through the shard's Topology cell, the old
+  leader retires).
+- The live ``double-fault`` and ``reassign`` drills (``drill.py``,
   ``python -m iotml_torch.replication drill``).
-
-Not ported (ROADMAP A14, cluster): ``ShardReassignment``
-(``reassign.py``) and the ``reassign`` drill, which need the cluster
-controller.
 """
 
 from .isr import ReplicationState
 from .manager import ReplicaSet
+from .reassign import ShardReassignment
 
-__all__ = ["ReplicationState", "ReplicaSet"]
+__all__ = ["ReplicationState", "ReplicaSet", "ShardReassignment"]

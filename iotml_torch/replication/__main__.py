@@ -4,9 +4,6 @@ verdict).
     python -m iotml_torch.replication drill [--name double-fault|reassign]
                                             [--seed 7] [--records 1500]
     python -m iotml_torch.replication list
-
-``--name reassign`` (and ``all``, which includes it) raises
-NotImplementedError: it needs the cluster (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -42,7 +39,8 @@ def cmd_list(_args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m iotml_torch.replication",
-        description="quorum ISR durability drills")
+        description="quorum ISR durability and elastic "
+                    "reassignment drills")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     drill = sub.add_parser("drill", help="run a live drill")

@@ -12,9 +12,14 @@ the stream finishes.  Invariants: zero acked-record loss (byte-identical
 at identical offsets), the new leader in the ISR at the kill, every log
 record consumed (by identity); SLO: time-to-promote.
 
-``reassign`` (add-broker, reassign, drain-broker under load) needs the
-cluster controller: ROADMAP A14 (cluster); it raises
-NotImplementedError.
+``reassign``: a 3-broker quorum cluster under sustained acks=all produce
+and committed consume runs ``add_broker`` (a new node bootstraps shard
+1's log over the RAW_FETCH mirror, joins the ISR, takes leadership, the
+old leader retires) and then ``drain_broker`` (shard 2's leadership moves
+to an existing ISR follower), with the load never pausing.  Invariants:
+zero lost and zero double-consumed records by identity, both moves
+retired, the catch-up rode the raw mirror; SLOs: catch-up time, move
+time and the consumer's longest stall.
 """
 
 from __future__ import annotations
@@ -369,11 +374,93 @@ def drill_double_fault(seed: int = 7, records: int = 1500,
 def drill_reassign(seed: int = 7, records: int = 1500,
                    slo_catch_up_s: float = 30.0,
                    slo_stall_s: float = 8.0) -> DrillReport:
-    """add-broker, reassign, drain-broker under sustained load: needs the
-    cluster controller (ROADMAP A14, cluster)."""
-    raise NotImplementedError(
-        "the reassign drill needs the cluster controller (iotml.cluster), "
-        "which the port does not have yet: ROADMAP A14 (cluster)")
+    """add-broker, reassign, drain-broker under sustained load with no
+    consumer disruption and a RAW_FETCH catch-up."""
+    from ..cluster import ClusterController
+    from ..stream.consumer import StreamConsumer
+
+    parts = 6
+    ctl = ClusterController(brokers=3, replication_factor=3, min_isr=2,
+                            replica_sync="thread", max_lag_s=0.4)
+    ctl.start()
+    load = None
+    client = consumer_client = None
+    reports: List[dict] = []
+    ends: Dict[int, int] = {}
+
+    def await_acked(target: int) -> None:
+        deadline = time.monotonic() + 30
+        while len(load.acked) < target and time.monotonic() < deadline:
+            time.sleep(0.02)
+
+    try:
+        ctl.create_topic(IN_TOPIC, partitions=parts)
+        for i in range(3):
+            assert ctl.replica_sets[i].await_isr(
+                3, IN_TOPIC, i, timeout_s=15), f"shard {i} ISR"
+        client = ctl.client(client_id="reassign-producer")
+        consumer_client = ctl.client(client_id="reassign-consumer")
+        consumer = StreamConsumer(
+            consumer_client, [f"{IN_TOPIC}:{p}:0" for p in range(parts)],
+            group=GROUP)
+        load = _Load(client, consumer, parts).start()
+        # the load establishes, then shard 1 moves onto a NEW node while
+        # producing and consuming go on
+        await_acked(max(records // 3, CARS_PER_TICK))
+        reports.append(ctl.add_broker(shard=1,
+                                      catch_up_timeout_s=slo_catch_up_s))
+        await_acked(max(2 * records // 3, 2 * CARS_PER_TICK))
+        # then shard 2's leader drains onto an existing ISR follower
+        reports.append(ctl.drain_broker(shard=2))
+        await_acked(records)
+    finally:
+        if load is not None:
+            load.stop_producer()
+            ends = {p: ctl.serving[ctl.pmap.shard_for(IN_TOPIC, p)]
+                    .end_offset(IN_TOPIC, p) for p in range(parts)}
+            load.drain_to_end(ends)
+            load.stop()
+        for c in (client, consumer_client):
+            if c is not None:
+                try:
+                    c.close()
+                except OSError:
+                    pass
+        ctl.stop()
+
+    add, drain = reports[0], reports[1]
+    catch_up = add.get("catch_up_s") or float("inf")
+    invariants = load.delivery_invariants(ends) + [
+        Invariant(
+            "reassign_completed",
+            add.get("state") == "retired" and
+            drain.get("state") == "retired",
+            f"add-broker -> {add.get('state')} (epoch "
+            f"{add.get('epoch')}), drain-broker -> "
+            f"{drain.get('state')} (epoch {drain.get('epoch')})"),
+        Invariant(
+            "catch_up_via_raw_fetch",
+            add.get("raw_mirrored", 0) > 0,
+            f"new replica raw-mirrored {add.get('raw_mirrored')} of "
+            f"{add.get('records_mirrored')} records over RAW_FETCH"),
+        Invariant(
+            "catch_up_slo",
+            catch_up <= slo_catch_up_s,
+            f"bootstrap->ISR {catch_up:.2f}s <= {slo_catch_up_s}s"),
+        Invariant(
+            "consumer_disruption_slo",
+            load.max_stall_s <= slo_stall_s,
+            f"longest consumer stall {load.max_stall_s:.2f}s <= "
+            f"{slo_stall_s}s across both moves (reconnect-sized, not "
+            f"outage-sized)"),
+    ]
+    return DrillReport(
+        drill="reassign", seed=seed, records=records,
+        published=len(load.acked), scored=len(load.consumed),
+        restarts={},
+        slos={"catch_up_s": catch_up, "move_s": add.get("move_s"),
+              "consumer_max_stall_s": load.max_stall_s},
+        invariants=invariants, injected={})
 
 
 DRILLS = {

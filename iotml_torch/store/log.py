@@ -562,7 +562,10 @@ class SegmentedLog:
 
         The returned range starts at the sparse-index position at/before
         `offset` (leading frames are skipped by the decoder via their
-        self-describing offsets) and may end mid-frame (the decoder
+        self-describing offsets), or at `offset`'s own frame when the
+        window from that position would end before it (a batch larger
+        than ``max_bytes``: a deviation from ``iotml.store.log``, whose
+        readers fall back to FETCH there), and may end mid-frame (the decoder
         treats the torn tail exactly like crash recovery: batch ends
         there, the next poll resumes).  Safe without the broker lock for
         the same reasons as ``read_from``: the segment list is
@@ -589,13 +592,13 @@ class SegmentedLog:
                     return None
                 s = nxt[0]
                 offset = s.base_offset
-            start_pos = 0
+            start_pos, start_off = 0, -1
             for o, pos in reversed(s.index):
                 if o <= offset:
-                    start_pos = pos
+                    start_pos, start_off = pos, o
                     break
-            want = min(max(int(max_bytes), seg.MIN_BODY + 8),
-                       s.size - start_pos)
+            cap = max(int(max_bytes), seg.MIN_BODY + 8)
+            want = min(cap, s.size - start_pos)
             if want > 0:
                 break
             # a compaction-emptied segment (zero bytes, base/next_offset
@@ -608,6 +611,17 @@ class SegmentedLog:
             return None
         try:
             with open(s.path, "rb") as fh:
+                if start_off < offset:
+                    # deep inside one large batch (one index entry) the
+                    # window from the entry may end before `offset`'s
+                    # frame: start it at that frame instead, or the
+                    # reader finds nothing past its cursor and falls
+                    # back to the per-record FETCH
+                    at = seg.frame_at(fh, start_pos, s.size, offset)
+                    if at is not None and at[1] > start_pos + want and \
+                            at[1] - at[0] <= cap:
+                        start_pos = at[0]
+                        want = min(cap, s.size - start_pos)
                 fh.seek(start_pos)
                 data = fh.read(want)
         except FileNotFoundError:

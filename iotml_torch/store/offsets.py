@@ -46,6 +46,7 @@ class OffsetsFile:
         self.compact_ratio = max(int(compact_ratio), 2)
         self._table: Dict[Tuple[str, str, int], int] = {}
         self._records = 0  # appended records since the last compaction
+        self._unsynced = False  # an append not yet fsynced
         self.recovered_truncated_bytes = 0
         self._load()
         self._writer = SegmentWriter(self.path, fsync=fsync)
@@ -74,33 +75,54 @@ class OffsetsFile:
     # ------------------------------------------------------------ write
     def commit(self, group: str, topic: str, partition: int,
                next_offset: int, sync: bool = True) -> None:
+        """Append one commit.  A commit of the offset the key already
+        holds appends nothing: the file's latest record for the key is
+        that offset.  Consumers commit their unchanged cursors on every
+        idle poll (a scorer loop polls every 5 ms), and JAX's file takes
+        each such commit as a record, which compacts the file, a rewrite
+        and an fsync under the broker's lock, every few polls."""
+        slot = (group, topic, int(partition))
+        if self._table.get(slot) == int(next_offset):
+            if self.fsync == "interval":
+                self._sync_on_interval()
+            return
         key = f"{group}\x00{topic}\x00{partition}".encode()
         frame = seg.encode_record(0, key, str(int(next_offset)).encode(),
                                   0, None)
         self._writer.append(frame)
+        self._unsynced = True
         if self.fsync == "always":
             if sync:
-                self._writer.sync()
+                self._sync()
         elif self.fsync == "interval":
-            # same cadence contract as SegmentedLog.append: loss bounded
-            # to the interval, not to "whenever compaction happens"
-            import time
-
-            now = time.monotonic()
-            if now - self._last_fsync >= self.fsync_interval_s:
-                self._writer.sync()
-                self._last_fsync = now
-        self._table[(group, topic, int(partition))] = int(next_offset)
+            self._sync_on_interval()
+        self._table[slot] = int(next_offset)
         self._records += 1
         if self._records >= self.compact_ratio * max(len(self._table), 1):
             self.compact()
 
+    def _sync(self) -> None:
+        self._writer.sync()
+        self._unsynced = False
+
+    def _sync_on_interval(self) -> None:
+        """The same cadence contract as SegmentedLog.append: loss bounded
+        to the interval, not to "whenever compaction happens"."""
+        import time
+
+        now = time.monotonic()
+        if self._unsynced and now - self._last_fsync >= \
+                self.fsync_interval_s:
+            self._sync()
+            self._last_fsync = now
+
     def commit_many(self, group: str, topic: str, entries) -> None:
-        """Commit [(partition, next_offset), ...] with ONE fsync."""
+        """Commit [(partition, next_offset), ...] with ONE fsync, none
+        when every offset was already committed."""
         for p, off in entries:
             self.commit(group, topic, p, off, sync=False)
-        if self.fsync == "always":
-            self._writer.sync()
+        if self.fsync == "always" and self._unsynced:
+            self._sync()
 
     def compact(self) -> None:
         """Rewrite one record per live key; atomic-rename publication.
@@ -130,6 +152,7 @@ class OffsetsFile:
         seg.atomic_write(self.path, blob, fsync=self.fsync != "never")
         self._writer = SegmentWriter(self.path, fsync=self.fsync)
         self._records = len(self._table)
+        self._unsynced = False
 
     # ------------------------------------------------------------- read
     def table(self) -> Dict[Tuple[str, str, int], int]:
@@ -140,7 +163,7 @@ class OffsetsFile:
 
     def flush(self) -> None:
         if self.fsync != "never":
-            self._writer.sync()
+            self._sync()
         else:
             self._writer.flush()
 

@@ -295,6 +295,37 @@ def iter_frames(path: str, pos: int):
             base += last_end
 
 
+_OFFSET = struct.Struct(">q")
+#: where a frame's record offset sits: the length prefix, crc and attrs
+_OFFSET_AT = _LEN.size + _U32.size + 1
+
+
+def frame_at(fh, pos: int, end: int, offset: int) -> Optional[Tuple[int, int]]:
+    """``(start, stop)`` file positions of the first frame at/after record
+    ``offset``, walking length prefixes from ``pos`` (a frame boundary)
+    without parsing or CRC-checking bodies; None when no whole frame
+    lies before ``end`` or a length prefix is impossible (the readers'
+    own walk stops there)."""
+    buf = b""
+    base = pos  # absolute file position of buf[0]
+    while pos + _LEN.size + MIN_BODY <= end:
+        rel = pos - base
+        if rel + _OFFSET_AT + _OFFSET.size > len(buf):
+            fh.seek(pos)
+            buf = fh.read(min(_SCAN_CHUNK, end - pos))
+            base, rel = pos, 0
+            if len(buf) < _OFFSET_AT + _OFFSET.size:
+                return None
+        (length,) = _LEN.unpack_from(buf, rel)
+        if length < MIN_BODY:
+            return None
+        stop = pos + _LEN.size + length
+        if _OFFSET.unpack_from(buf, rel + _OFFSET_AT)[0] >= offset:
+            return (pos, stop) if stop <= end else None
+        pos = stop
+    return None
+
+
 def atomic_write(path: str, data: bytes, fsync: bool = True) -> None:
     """tmp + rename publication: a reader never observes a half-written
     file."""

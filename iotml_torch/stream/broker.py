@@ -742,7 +742,10 @@ class Broker:
                              if spec.cleanup_policy == "compact"]
             for name, spec in compacted:
                 for p in range(spec.partitions):
-                    slog = self._parts[name][p].slog
+                    # a shard's unowned placeholder holds no log
+                    slog = getattr(self._parts[name][p], "slog", None)
+                    if slog is None:
+                        continue
                     if not force and slog.dirty_ratio() < \
                             pol.compact_min_dirty_ratio:
                         continue
@@ -770,7 +773,8 @@ class Broker:
                 tiered = [(name, p, part.slog)
                           for name, parts in self._parts.items()
                           for p, part in enumerate(parts)
-                          if getattr(part.slog, "remote", None) is not None]
+                          if getattr(getattr(part, "slog", None), "remote",
+                                     None) is not None]
             for name, p, slog in tiered:
                 ceiling = None
                 if self.replication is not None:

@@ -55,10 +55,25 @@ acks: ``acks=-1`` on PRODUCE and RAW_PRODUCE against a broker with
 replication waits in ``wait_replicated`` until the batch is below the
 quorum HWM; an ISR below ``min_isr`` answers NOT_ENOUGH_REPLICAS (19)
 with nothing appended, a quorum that does not catch up in time
-REQUEST_TIMED_OUT (7) with the batch appended but unacked, and invalid
-acks INVALID_REQUIRED_ACKS (21).  Not ported (ROADMAP A14, cluster):
-CLUSTER_ADMIN (66), answered UNSUPPORTED_VERSION as a server without it
-does, the cluster view and the reassignment step-down.
+REQUEST_TIMED_OUT (7) with the batch appended but unacked, a quorum HWM
+that reaches the batch only after the ISR fell below ``min_isr``
+NOT_ENOUGH_REPLICAS_AFTER_APPEND (20), appended but unacked (a deviation:
+``iotml.stream.kafka_wire``'s server acks that batch, held by fewer than
+``min_isr`` replicas), and invalid acks INVALID_REQUIRED_ACKS (21).
+
+The cluster half (``iotml_torch.cluster``): a server given a ``cluster``
+view answers METADATA with the whole cluster's brokers and each
+partition's owning node, FIND_COORDINATOR with the pinned coordinator,
+and every group and offset API with NOT_COORDINATOR (16) unless it is
+that coordinator; a sharded broker's unowned partition answers
+NOT_LEADER_FOR_PARTITION (6) on every produce, fetch and list-offsets
+path, and a ``retiring`` server (leadership moved off it) answers 6 to
+every PRODUCE and RAW_PRODUCE.  CLUSTER_ADMIN (66) carries the
+``add-broker`` / ``drain-broker`` / ``status`` verbs to the server's
+``admin`` hook (the controller); a server without one answers
+UNSUPPORTED_VERSION.  The client raises ``NotLeaderForPartitionError``
+and ``CoordinatorMovedError`` typed, and offers ``cluster_metadata``,
+``find_coordinator`` and ``cluster_admin``.
 
 The client passes the chaos points ``kafka_wire.send``
 (``error``, ``delay``, ``short_write``: half a frame, then OSError) and
@@ -99,6 +114,11 @@ SASL_HANDSHAKE, API_VERSIONS, CREATE_TOPICS = 17, 18, 19
 #: answer UNSUPPORTED_VERSION and the clients pin back to FETCH/PRODUCE.
 RAW_FETCH = 64
 RAW_PRODUCE = 65
+#: the cluster's admin extension: the elastic reassignment verbs
+#: (``python -m iotml_torch.cluster add-broker / drain-broker / status``)
+#: reach the controller through any broker's wire port; a server with no
+#: ``admin`` hook answers UNSUPPORTED_VERSION
+CLUSTER_ADMIN = 66
 
 # error codes
 ERR_NONE = 0
@@ -107,7 +127,9 @@ ERR_CORRUPT_MESSAGE = 2
 ERR_UNKNOWN_TOPIC = 3
 ERR_NOT_LEADER_FOR_PARTITION = 6
 ERR_REQUEST_TIMED_OUT = 7
+ERR_NOT_COORDINATOR = 16
 ERR_NOT_ENOUGH_REPLICAS = 19
+ERR_NOT_ENOUGH_REPLICAS_AFTER_APPEND = 20
 ERR_INVALID_REQUIRED_ACKS = 21
 ERR_ILLEGAL_GENERATION = 22
 ERR_UNKNOWN_MEMBER_ID = 25
@@ -118,6 +140,9 @@ ERR_TOPIC_EXISTS = 36
 ERR_INVALID_CONFIG = 40
 ERR_SASL_AUTH_FAILED = 58
 ERR_FENCED_LEADER_EPOCH = 74  # Kafka's own fencing error code
+#: Kafka's UNKNOWN_SERVER_ERROR: a CLUSTER_ADMIN verb that raised in the
+#: controller (the response body carries its error text)
+ERR_UNKNOWN_SERVER = -1
 
 _SUPPORTED = {PRODUCE: (2, 2), FETCH: (2, 2), LIST_OFFSETS: (1, 1),
               METADATA: (1, 1), OFFSET_COMMIT: (2, 2), OFFSET_FETCH: (1, 1),
@@ -125,7 +150,7 @@ _SUPPORTED = {PRODUCE: (2, 2), FETCH: (2, 2), LIST_OFFSETS: (1, 1),
               HEARTBEAT: (0, 0), LEAVE_GROUP: (0, 0), SYNC_GROUP: (0, 0),
               SASL_HANDSHAKE: (0, 0), API_VERSIONS: (0, 0),
               CREATE_TOPICS: (0, 0), RAW_FETCH: (0, 0),
-              RAW_PRODUCE: (0, 0)}
+              RAW_PRODUCE: (0, 0), CLUSTER_ADMIN: (0, 0)}
 
 # APIs the client may retry after a reconnect (see _request): a duplicate
 # of any of these is invisible (a read) or a no-op (a liveness signal).
@@ -153,9 +178,11 @@ class SaslAuthError(ConnectionError):
 
 class NotLeaderForPartitionError(ConnectionError):
     """Kafka error 6: the addressed broker does not lead this (topic,
-    partition).  A ConnectionError, so a caller's redelivery loop treats
-    it as the failover signal it is (a partitioned cluster's servers
-    answer it; the single-broker server here never does)."""
+    partition): the cluster's partition map moved (a shard failover,
+    stale client metadata) or the broker is a shard that never owned it.
+    Nothing was applied there; ``cluster.ClusterClient`` refreshes its
+    metadata and re-routes.  A ConnectionError, so a non-routing
+    caller's redelivery loop treats it as the failover signal it is."""
 
     def __init__(self, topic: str, partition: int):
         super().__init__(
@@ -163,6 +190,13 @@ class NotLeaderForPartitionError(ConnectionError):
             f"metadata and route to the owning broker (Kafka error 6)")
         self.topic = topic
         self.partition = partition
+
+
+class CoordinatorMovedError(ConnectionError):
+    """Kafka error 16 (NOT_COORDINATOR): a group or offset request
+    reached a broker that is not the group coordinator.  Nothing was
+    applied; the caller re-discovers the coordinator (FIND_COORDINATOR)
+    and retries: a cluster pins group state to exactly one broker."""
 
 
 class NotEnoughReplicasError(ConnectionError):
@@ -179,6 +213,14 @@ class ProduceTimedOutError(ConnectionError):
     error 7).  The record is on the leader yet unacked: the caller
     redelivers (at-least-once); consumers cannot have read it, it sits
     above the quorum HWM."""
+
+
+class NotEnoughReplicasAfterAppendError(ProduceTimedOutError):
+    """An ``acks=all`` produce was appended and the quorum high-water
+    mark reached it, but only after the ISR had shrunk below
+    ``min_isr`` (Kafka error 20): fewer replicas than the guarantee
+    names hold it, so it is unacked and the caller redelivers
+    (at-least-once), as after a timeout."""
 
 
 class FencedEpochError(ConnectionError):
@@ -595,6 +637,14 @@ class KafkaWireBroker(ProducePartitionMixin):
     def _metadata(self, topics: Optional[List[str]] = None) -> Dict[str, int]:
         """{topic: partitions} of the known topics among ``topics`` (all
         topics when None); unknown topics are simply absent."""
+        return self.cluster_metadata(topics)["topics"]
+
+    def cluster_metadata(self, topics: Optional[List[str]] = None) -> dict:
+        """The raw Metadata answer: {"brokers": [(node, host, port,
+        rack)], "topics": {name: partitions}, "leaders": {(topic,
+        partition): node}}, what ``cluster.ClusterClient`` caches and
+        refreshes on NOT_LEADER_FOR_PARTITION (a single-broker server
+        names node 0 everywhere)."""
         w = _Writer()
         if topics is None:
             w.i32(-1)
@@ -614,17 +664,22 @@ class KafkaWireBroker(ProducePartitionMixin):
             rd.i8()  # is_internal
             return (err, name, rd.array(partition))
 
-        r.array(lambda rd: (rd.i32(), rd.string(), rd.i32(), rd.string()))
+        brokers = r.array(lambda rd: (rd.i32(), rd.string(), rd.i32(),
+                                      rd.string()))
         r.i32()  # controller id
-        known = {}
+        meta = {"brokers": brokers, "topics": {}, "leaders": {}}
         for err, name, parts in r.array(topic):
             if err == ERR_NONE:
-                known[name] = len(parts)
+                meta["topics"][name] = len(parts)
                 self._meta[name] = len(parts)
-        return known
+                for perr, pid, leader in parts:
+                    if perr == ERR_NONE:
+                        meta["leaders"][(name, pid)] = leader
+        return meta
 
     def find_coordinator(self, group: str) -> Tuple[int, str, int]:
-        """(node_id, host, port) of the group coordinator."""
+        """(node_id, host, port) of the group coordinator: in a cluster
+        the one broker holding every group's membership and offsets."""
         w = _Writer()
         w.string(group)
         r = self._request(FIND_COORDINATOR, 0, bytes(w.buf))
@@ -708,7 +763,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         delivery guarantee.  A quorum that cannot form raises
         ``NotEnoughReplicasError`` (nothing appended); one that does not
         catch up within ``timeout_ms`` raises ``ProduceTimedOutError``
-        (appended, unacked: redeliver)."""
+        (appended, unacked: redeliver), and one reached only after the
+        ISR fell below ``min_isr`` its subclass
+        ``NotEnoughReplicasAfterAppendError``."""
         by_part: Dict[int, list] = {}
         for key, value, ts, *_hdrs in entries:
             p = self._partition_for(topic, key) if partition is None \
@@ -755,6 +812,11 @@ class KafkaWireBroker(ProducePartitionMixin):
                         f"produce to {topic}:{p} appended but the "
                         f"quorum HWM did not reach it in time; unacked "
                         f"— the caller redelivers (at-least-once)")
+                if err == ERR_NOT_ENOUGH_REPLICAS_AFTER_APPEND:
+                    raise NotEnoughReplicasAfterAppendError(
+                        f"produce to {topic}:{p} appended but the ISR "
+                        f"fell below min_isr before the quorum HWM "
+                        f"reached it; unacked — the caller redelivers")
                 if err == ERR_INVALID_REQUIRED_ACKS:
                     raise ValueError(
                         f"produce to {topic}:{p} refused: required_acks "
@@ -810,6 +872,11 @@ class KafkaWireBroker(ProducePartitionMixin):
             raise ProduceTimedOutError(
                 f"raw produce to {topic}:{partition} appended but "
                 f"unacked within the timeout — the caller redelivers")
+        if err == ERR_NOT_ENOUGH_REPLICAS_AFTER_APPEND:
+            raise NotEnoughReplicasAfterAppendError(
+                f"raw produce to {topic}:{partition} appended but the "
+                f"ISR fell below min_isr before the quorum HWM reached "
+                f"it — the caller redelivers")
         if err == ERR_INVALID_REQUIRED_ACKS:
             raise ValueError(f"raw produce to {topic}:{partition} refused: "
                              f"required_acks must be -1, 0 or 1; nothing "
@@ -977,6 +1044,10 @@ class KafkaWireBroker(ProducePartitionMixin):
         out: Dict[Tuple[str, int], int] = {}
         for tname, parts in tops:
             for pid, off, _meta, err in parts:
+                if err == ERR_NOT_COORDINATOR:
+                    raise CoordinatorMovedError(
+                        f"offset fetch {tname}:{pid}: broker is not the "
+                        f"coordinator")
                 if err != ERR_NONE:
                     raise RuntimeError(f"offset fetch {tname}:{pid}: {err}")
                 if off >= 0:
@@ -1024,6 +1095,12 @@ class KafkaWireBroker(ProducePartitionMixin):
             return True
         if errs == {ERR_ILLEGAL_GENERATION}:
             return False  # fenced: nothing was written
+        if errs == {ERR_NOT_COORDINATOR}:
+            # the group's coordinator moved (a cluster failover): nothing
+            # written here; re-find the coordinator and re-commit
+            raise CoordinatorMovedError(
+                f"offset commit {sorted(by_topic)}: broker is not the "
+                f"coordinator")
         if errs == {ERR_FENCED_LEADER_EPOCH}:
             # the leadership epoch fence (the whole server relationship
             # is stale, not one member): nothing written, the caller
@@ -1054,6 +1131,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         # join loop retries with its member id
         r = self._request(JOIN_GROUP, 0, bytes(w.buf))
         err = r.i16()
+        if err == ERR_NOT_COORDINATOR:
+            raise CoordinatorMovedError(
+                f"join group {group}: broker is not the coordinator")
         if err != ERR_NONE:
             raise RuntimeError(f"join group {group}: error {err}")
         generation = r.i32()
@@ -1099,6 +1179,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         r = self._request(SYNC_GROUP, 0, bytes(w.buf))
         err = r.i16()
         blob = r.bytes_() or b""
+        if err == ERR_NOT_COORDINATOR:
+            raise CoordinatorMovedError(
+                f"sync group {group}: broker is not the coordinator")
         if err == ERR_UNKNOWN_MEMBER_ID:
             raise RuntimeError(
                 f"sync group {group}: member {member_id!r} unknown to "
@@ -1125,6 +1208,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         w = _Writer()
         w.string(group).i32(generation).string(member_id)
         err = self._request(HEARTBEAT, 0, bytes(w.buf)).i16()
+        if err == ERR_NOT_COORDINATOR:
+            raise CoordinatorMovedError(
+                f"heartbeat {group}: broker is not the coordinator")
         # UNKNOWN_MEMBER_ID and REBALANCE_IN_PROGRESS both mean "this
         # generation is over": the caller rejoins either way
         return err == ERR_NONE
@@ -1133,7 +1219,41 @@ class KafkaWireBroker(ProducePartitionMixin):
         w = _Writer()
         w.string(group).string(member_id)
         # not retried: a lost leave heals by session timeout
-        self._request(LEAVE_GROUP, 0, bytes(w.buf)).i16()
+        err = self._request(LEAVE_GROUP, 0, bytes(w.buf)).i16()
+        if err == ERR_NOT_COORDINATOR:
+            # typed, so the cluster client re-finds the coordinator rather
+            # than leaving the member to expire by timeout
+            raise CoordinatorMovedError(
+                f"leave group {group}: broker is not the coordinator")
+
+    # ------------------------------------------------------ cluster admin
+    def cluster_admin(self, command: str,
+                      args: Optional[dict] = None) -> dict:
+        """CLUSTER_ADMIN: run a live controller's ``add-broker`` /
+        ``drain-broker`` / ``status`` verb from another process and
+        return its JSON report.  NotImplementedError against a server
+        with no controller attached; RuntimeError with the controller's
+        error text when the verb raised there."""
+        import json
+
+        w = _Writer()
+        w.string(command)
+        w.bytes_(json.dumps(args or {}).encode())
+        # not retried: the verbs change the cluster (a replayed
+        # add-broker boots a second node); the operator checks `status`
+        r = self._request(CLUSTER_ADMIN, 0, bytes(w.buf))
+        err = r.i16()
+        if err == ERR_UNSUPPORTED_VERSION:
+            raise NotImplementedError(
+                "broker has no cluster controller attached "
+                "(CLUSTER_ADMIN unsupported)")
+        doc = json.loads((r.bytes_() or b"{}").decode() or "{}")
+        if err != ERR_NONE:
+            default = "unknown server error" if err == ERR_UNKNOWN_SERVER \
+                else f"error {err}"
+            raise RuntimeError(f"cluster admin {command!r} failed: "
+                               f"{doc.get('error', default)}")
+        return doc
 
     # --------------------------------------------------- api versions
     def api_versions(self) -> Dict[int, Tuple[int, int]]:
@@ -1322,17 +1442,35 @@ class _KafkaConn(socketserver.BaseRequestHandler):
          JOIN_GROUP: self._join_group, SYNC_GROUP: self._sync_group,
          HEARTBEAT: self._heartbeat, LEAVE_GROUP: self._leave_group,
          CREATE_TOPICS: self._create_topics, RAW_FETCH: self._raw_fetch,
-         RAW_PRODUCE: self._raw_produce}[api_key](broker, r, w)
+         RAW_PRODUCE: self._raw_produce,
+         CLUSTER_ADMIN: self._cluster_admin}[api_key](broker, r, w)
+
+    def _not_coordinator(self) -> bool:
+        """True on a cluster broker that is not the pinned group
+        coordinator: group membership and offsets live in exactly one
+        place, so every other broker answers NOT_COORDINATOR (16)."""
+        cluster = self.server.cluster        # type: ignore[attr-defined]
+        return cluster is not None and \
+            cluster.coordinator()[0] != cluster.node_id
 
     def _metadata(self, broker, r, w):
         n = r.i32()
         names = [r.string() for _ in range(max(n, 0))]
         if n <= 0:
             names = broker.topics()
-        host, port = self.server.server_address[:2]  # type: ignore
-        w.array([(0, host, port)], lambda wr, b: wr.i32(b[0]).string(b[1])
+        cluster = self.server.cluster        # type: ignore[attr-defined]
+        if cluster is not None:
+            # the whole cluster's brokers, and each partition's owning
+            # node: the map routing clients cache
+            rows = list(cluster.brokers())
+            controller = rows[0][0]
+        else:
+            host, port = self.server.server_address[:2]  # type: ignore
+            rows = [(0, host, port)]
+            controller = 0
+        w.array(rows, lambda wr, b: wr.i32(b[0]).string(b[1])
                 .i32(b[2]).string(None))
-        w.i32(0)  # controller id
+        w.i32(controller)
 
         def topic_entry(wr, name):
             known = name in broker.topics()
@@ -1340,9 +1478,13 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             wr.string(name).i8(0)
 
             def part_entry(pw, p):
-                pw.i16(ERR_NONE).i32(p).i32(0)  # leader: this node
-                pw.array([0], lambda x, v: x.i32(v))  # replicas
-                pw.array([0], lambda x, v: x.i32(v))  # isr
+                leader = 0 if cluster is None else \
+                    cluster.leader_node(name, p)
+                pw.i16(ERR_NONE).i32(p).i32(-1 if leader is None
+                                            else leader)
+                node = 0 if leader is None else leader
+                pw.array([node], lambda x, v: x.i32(v))  # replicas
+                pw.array([node], lambda x, v: x.i32(v))  # isr
 
             wr.array(list(range(broker.topic(name).partitions)
                           if known else []), part_entry)
@@ -1368,6 +1510,23 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         return not repl.covers(topic) or \
             repl.isr_size(topic, pid) < repl.min_isr
 
+    @staticmethod
+    def _quorum_ack(repl, topic: str, pid: int, next_offset: int,
+                    timeout_ms: int) -> int:
+        """The acks=all verdict on an appended batch ending at
+        ``next_offset - 1``: NONE once the quorum HWM covers it with the
+        ISR at ``min_isr`` or more, REQUEST_TIMED_OUT when the HWM does
+        not reach it in time, NOT_ENOUGH_REPLICAS_AFTER_APPEND when it
+        does only because the ISR shrank below ``min_isr`` (Kafka's
+        check at the ack point; ``iotml.stream.kafka_wire`` acks here)."""
+        if not repl.wait_replicated(
+                topic, pid, next_offset,
+                timeout_s=min(max(timeout_ms, 0) / 1000.0, 30.0)):
+            return ERR_REQUEST_TIMED_OUT
+        if repl.isr_size(topic, pid) < repl.min_isr:
+            return ERR_NOT_ENOUGH_REPLICAS_AFTER_APPEND
+        return ERR_NONE
+
     def _produce(self, broker, r, w):
         # 1 acks at the leader append, -1 (acks=all) once the batch is
         # below the quorum high-water mark, 0 answers with no delivery
@@ -1379,6 +1538,12 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             return (rd.i32(), rd.bytes_())
 
         tops = r.array(lambda rd: (rd.string(), rd.array(part)))
+        if self.server.retiring:             # type: ignore[attr-defined]
+            # the reassignment step-down: leadership moved, so every
+            # producer (epoch-stamped or not) is told to re-route and
+            # nothing lands in the retired log
+            self._produce_error_resp(w, tops, ERR_NOT_LEADER_FOR_PARTITION)
+            return
         if acks not in (-1, 0, 1):
             self._produce_error_resp(w, tops, ERR_INVALID_REQUIRED_ACKS)
             return
@@ -1389,12 +1554,15 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             return
         repl = getattr(broker, "replication", None)
         quorum = acks == -1 and repl is not None
+        cluster = self.server.cluster        # type: ignore[attr-defined]
         resp = []
         for tname, parts in tops:
             presp = []
             for pid, record_set in parts:
                 entries = decode_message_set(record_set or b"")
-                if tname not in broker.topics():
+                if tname not in broker.topics() and cluster is None:
+                    # a cluster provisions its topics cluster-wide; one
+                    # broker creating it here would fork the topic spec
                     broker.create_topic(tname, partitions=max(pid + 1, 1))
                 if not self._valid_part(broker, tname, pid):
                     presp.append((pid, ERR_UNKNOWN_TOPIC, -1))
@@ -1402,6 +1570,10 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                 if quorum and self._quorum_short(repl, tname, pid):
                     # nothing appended: redelivery is safe
                     presp.append((pid, ERR_NOT_ENOUGH_REPLICAS, -1))
+                    continue
+                if not self.server.begin_write():  # type: ignore[attr-defined]
+                    # stepped down since the request came in
+                    presp.append((pid, ERR_NOT_LEADER_FOR_PARTITION, -1))
                     continue
                 # one bulk append under one broker lock; the returned
                 # LAST offset anchors the response base and the quorum
@@ -1412,22 +1584,27 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                         tname,
                         [(key, value, ts) for _, key, value, ts in entries],
                         partition=pid)
+                except NotLeaderForPartitionError:
+                    # a shard's unowned partition: the client refreshes
+                    # its metadata and re-routes
+                    presp.append((pid, ERR_NOT_LEADER_FOR_PARTITION, -1))
+                    continue
                 except PermissionError:
                     # engine-owned topic (Broker.restrict_topic): an
                     # external client may not write the AVRO leg
                     presp.append((pid, ERR_TOPIC_AUTHORIZATION_FAILED, -1))
                     continue
+                finally:
+                    self.server.end_write()  # type: ignore[attr-defined]
                 base = last - len(entries) + 1 if entries \
                     else broker.end_offset(tname, pid)
-                if quorum and entries and not repl.wait_replicated(
-                        tname, pid, last + 1,
-                        timeout_s=min(max(timeout_ms, 0) / 1000.0, 30.0)):
-                    # appended, unacked: the caller redelivers (followers
-                    # fetch on their own connections, so this handler's
-                    # wait starves nobody)
-                    presp.append((pid, ERR_REQUEST_TIMED_OUT, base))
-                    continue
-                presp.append((pid, ERR_NONE, base))
+                # an error here: appended, unacked, and the caller
+                # redelivers (followers fetch on their own connections,
+                # so this handler's wait starves nobody)
+                err = self._quorum_ack(repl, tname, pid, last + 1,
+                                       timeout_ms) \
+                    if quorum and entries else ERR_NONE
+                presp.append((pid, err, base))
             if acks == 0:
                 # fire-and-forget: the appends ran, the answer carries no
                 # delivery information (errors masked, as in JAX's server)
@@ -1482,6 +1659,10 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                     else:
                         msgs = broker.fetch(tname, pid, offset,
                                             FETCH_MAX_RECORDS)
+                except NotLeaderForPartitionError:
+                    presp.append((pid, ERR_NOT_LEADER_FOR_PARTITION, -1,
+                                  b""))
+                    continue
                 except OffsetOutOfRangeError as e:
                     # Kafka error 1; the hwm slot carries the earliest
                     # retained offset, so the client resets without a
@@ -1595,6 +1776,10 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         repl = getattr(broker, "replication", None)
         quorum = acks == -1 and repl is not None
         produce_raw = getattr(broker, "produce_raw", None)
+        if self.server.retiring:             # type: ignore[attr-defined]
+            # the reassignment step-down, PRODUCE's answer
+            w.i16(ERR_NOT_LEADER_FOR_PARTITION).i64(-1).i32(0)
+            return
         if self._epoch_mismatch():
             # fence before the broker is touched, as PRODUCE does
             w.i16(ERR_FENCED_LEADER_EPOCH).i64(-1).i32(0)
@@ -1605,7 +1790,8 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         if acks not in (-1, 0, 1):
             w.i16(ERR_INVALID_REQUIRED_ACKS).i64(-1).i32(0)
             return
-        if tname not in broker.topics():
+        if tname not in broker.topics() and \
+                self.server.cluster is None:  # type: ignore[attr-defined]
             broker.create_topic(tname, partitions=max(pid + 1, 1))
         if not self._valid_part(broker, tname, pid):
             w.i16(ERR_UNKNOWN_TOPIC).i64(-1).i32(0)
@@ -1627,27 +1813,33 @@ class _KafkaConn(socketserver.BaseRequestHandler):
                 nframes = framing.validate_frame_batch(frames)["count"]
             except framing.CorruptFrameError:
                 nframes = None
+        if not self.server.begin_write():    # type: ignore[attr-defined]
+            # stepped down since the request came in
+            w.i16(ERR_NOT_LEADER_FOR_PARTITION).i64(-1).i32(0)
+            return
         try:
             base = produce_raw(tname, pid, frames)
         except NotImplementedError:
             w.i16(ERR_UNSUPPORTED_VERSION)
+            return
         except CorruptMessageError as e:
             w.i16(ERR_CORRUPT_MESSAGE).i64(e.index).i32(0)
+            return
         except NotLeaderForPartitionError:
             w.i16(ERR_NOT_LEADER_FOR_PARTITION).i64(-1).i32(0)
+            return
         except PermissionError:
             # engine-owned topic without the owner's grant
             w.i16(ERR_TOPIC_AUTHORIZATION_FAILED).i64(-1).i32(0)
-        else:
-            count = nframes if nframes is not None else \
-                broker.end_offset(tname, pid) - base
-            if quorum and count and not repl.wait_replicated(
-                    tname, pid, base + count,
-                    timeout_s=min(max(timeout_ms, 0) / 1000.0, 30.0)):
-                # appended, unacked: the producer redelivers
-                w.i16(ERR_REQUEST_TIMED_OUT).i64(base).i32(count)
-            else:
-                w.i16(ERR_NONE).i64(base).i32(count)
+            return
+        finally:
+            self.server.end_write()          # type: ignore[attr-defined]
+        count = nframes if nframes is not None else \
+            broker.end_offset(tname, pid) - base
+        # an error here: appended, unacked; the producer redelivers
+        err = self._quorum_ack(repl, tname, pid, base + count, timeout_ms) \
+            if quorum and count else ERR_NONE
+        w.i16(err).i64(base).i32(count)
 
     def _list_offsets(self, broker, r, w):
         r.i32()  # replica
@@ -1662,17 +1854,19 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             for pid, ts in parts:
                 if not self._valid_part(broker, tname, pid):
                     presp.append((pid, ERR_UNKNOWN_TOPIC, -1, -1))
-                elif ts == -2:
-                    presp.append((pid, ERR_NONE, -1,
-                                  broker.begin_offset(tname, pid)))
-                elif ts >= 0:
-                    # by timestamp: earliest offset with record ts >= ts
-                    presp.append((pid, ERR_NONE, -1,
-                                  broker.offset_for_timestamp(tname, pid,
-                                                              ts)))
-                else:
-                    presp.append((pid, ERR_NONE, -1,
-                                  broker.end_offset(tname, pid)))
+                    continue
+                try:
+                    if ts == -2:
+                        off = broker.begin_offset(tname, pid)
+                    elif ts >= 0:
+                        # by timestamp: earliest offset with record ts >= ts
+                        off = broker.offset_for_timestamp(tname, pid, ts)
+                    else:
+                        off = broker.end_offset(tname, pid)
+                except NotLeaderForPartitionError:
+                    presp.append((pid, ERR_NOT_LEADER_FOR_PARTITION, -1, -1))
+                    continue
+                presp.append((pid, ERR_NONE, -1, off))
             resp.append((tname, presp))
         w.array(resp, lambda wr, t: (wr.string(t[0]), wr.array(
             t[1], lambda pw, p: pw.i32(p[0]).i16(p[1]).i64(p[2])
@@ -1688,7 +1882,13 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             return (rd.i32(), rd.i64(), rd.string())
 
         tops = r.array(lambda rd: (rd.string(), rd.array(part)))
-        if self._epoch_mismatch():
+        if self._not_coordinator():
+            # a cluster pins offsets to ONE broker: a commit accepted
+            # here would fork the offset table
+            resp = [(tname, [(pid, ERR_NOT_COORDINATOR)
+                             for pid, _, _ in parts])
+                    for tname, parts in tops]
+        elif self._epoch_mismatch():
             # a stale-epoch commit: writing it would let a zombie bypass
             # the promoted log's offset streams
             resp = [(tname, [(pid, ERR_FENCED_LEADER_EPOCH)
@@ -1721,15 +1921,22 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         group = r.string()
         tops = r.array(lambda rd: (rd.string(),
                                    rd.array(lambda p: p.i32())))
-        resp = [(tname, [(pid, broker.committed(group, tname, pid))
+        err = ERR_NOT_COORDINATOR if self._not_coordinator() else ERR_NONE
+        resp = [(tname, [(pid, None if err else
+                          broker.committed(group, tname, pid))
                          for pid in parts]) for tname, parts in tops]
         w.array(resp, lambda wr, t: (wr.string(t[0]), wr.array(
             t[1], lambda pw, p: pw.i32(p[0]).i64(-1 if p[1] is None
                                                  else p[1])
-            .string(None).i16(ERR_NONE))))
+            .string(None).i16(err))))
 
     def _find_coordinator(self, broker, r, w):
-        r.string()  # group id: this server coordinates every group
+        r.string()  # group id: one coordinator serves every group
+        cluster = self.server.cluster        # type: ignore[attr-defined]
+        if cluster is not None:
+            node, host, port = cluster.coordinator()
+            w.i16(ERR_NONE).i32(node).string(host).i32(port)
+            return
         # advertise the address the client connected to, not the bind
         # address (0.0.0.0 would be unconnectable)
         host = self.request.getsockname()[0]
@@ -1737,6 +1944,11 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         w.i16(ERR_NONE).i32(0).string(host).i32(port)
 
     def _join_group(self, broker, r, w):
+        if self._not_coordinator():
+            w.i16(ERR_NOT_COORDINATOR).i32(-1).string("").string("")
+            w.string("")
+            w.array([], lambda wr, x: None)
+            return
         group = r.string()
         session_timeout_ms = r.i32()
         member = r.string()
@@ -1775,6 +1987,9 @@ class _KafkaConn(socketserver.BaseRequestHandler):
         w.array(rows, lambda wr, x: (wr.string(x[0]), wr.bytes_(x[1])))
 
     def _sync_group(self, broker, r, w):
+        if self._not_coordinator():
+            w.i16(ERR_NOT_COORDINATOR).bytes_(b"")
+            return
         group = r.string()
         generation = r.i32()
         member = r.string()
@@ -1799,6 +2014,9 @@ class _KafkaConn(socketserver.BaseRequestHandler):
             w.i16(ERR_NONE).bytes_(bytes(aw.buf))
 
     def _heartbeat(self, broker, r, w):
+        if self._not_coordinator():
+            w.i16(ERR_NOT_COORDINATOR)
+            return
         group = r.string()
         generation = r.i32()
         member = r.string()
@@ -1809,10 +2027,37 @@ class _KafkaConn(socketserver.BaseRequestHandler):
               [coord.heartbeat_verdict(member, generation)])
 
     def _leave_group(self, broker, r, w):
+        if self._not_coordinator():
+            w.i16(ERR_NOT_COORDINATOR)
+            return
         group = r.string()
         member = r.string()
         self.server.group_coordinator(group).leave(member)  # type: ignore
         w.i16(ERR_NONE)
+
+    def _cluster_admin(self, broker, r, w):
+        """The elastic reassignment verbs, run in this handler thread
+        by the server's ``admin`` hook (the controller): the CLI waits for
+        the report while other connections keep being served."""
+        import json
+
+        command = r.string()
+        blob = r.bytes_() or b"{}"
+        admin = self.server.admin            # type: ignore[attr-defined]
+        if admin is None:
+            w.i16(ERR_UNSUPPORTED_VERSION)
+            return
+        try:
+            doc = admin.admin_command(command or "",
+                                      json.loads(blob.decode() or "{}"))
+        except Exception as e:  # noqa: BLE001 - the operator gets the
+            # error text and the connection stays up
+            w.i16(ERR_UNKNOWN_SERVER)
+            w.bytes_(json.dumps(
+                {"error": f"{type(e).__name__}: {e}"}).encode())
+            return
+        w.i16(ERR_NONE)
+        w.bytes_(json.dumps(doc, default=str).encode())
 
     def _create_topics(self, broker, r, w):
         def topic(rd):
@@ -1881,11 +2126,26 @@ class KafkaWireServer(socketserver.ThreadingTCPServer):
     def __init__(self, broker: Broker, host: str = "127.0.0.1",
                  port: int = 0,
                  credentials: Optional[Tuple[str, str]] = None,
-                 epoch: int = 0):
+                 epoch: int = 0, cluster=None):
         super().__init__((host, port), _KafkaConn)
         self.broker = broker
         self.credentials = credentials
         self.port = self.server_address[1]
+        #: the cluster view (``cluster.ShardView``: node_id, brokers(),
+        #: leader_node(topic, partition), coordinator()); None is the
+        #: single-broker server
+        self.cluster = cluster
+        #: the CLUSTER_ADMIN hook (``admin_command(command, args) ->
+        #: dict``, the controller); None answers UNSUPPORTED_VERSION
+        self.admin = None
+        #: the reassignment step-down: once leadership has moved off this
+        #: server, every PRODUCE and RAW_PRODUCE answers NOT_LEADER (so
+        #: unstamped producers re-route too) while reads keep being
+        #: served until the server is retired (``step_down``)
+        self.retiring = False
+        # appends admitted and not yet landed (``begin_write``)
+        self._writes = 0
+        self._writes_cond = threading.Condition()
         #: the leadership epoch this server serves at: a promotion bumps
         #: it (``FollowerReplica.promote``), and a restarted old leader
         #: comes back at its stale one and fences itself against
@@ -1896,6 +2156,34 @@ class KafkaWireServer(socketserver.ThreadingTCPServer):
         self._coord_lock = threading.Lock()
         self._live_conns: set = set()
         self._conn_lock = threading.Lock()
+
+    def begin_write(self) -> bool:
+        """Admit one PRODUCE or RAW_PRODUCE append (``end_write`` once it
+        has landed); False once the server has stepped down."""
+        with self._writes_cond:
+            if self.retiring:
+                return False
+            self._writes += 1
+            return True
+
+    def end_write(self) -> None:
+        with self._writes_cond:
+            self._writes -= 1
+            self._writes_cond.notify_all()
+
+    def step_down(self, timeout_s: float = 10.0) -> bool:
+        """Refuse every later PRODUCE and RAW_PRODUCE with NOT_LEADER and
+        wait for the appends already admitted to land, so the log ends
+        where its last write left it and a successor that mirrors it to
+        that end holds every record this server took (the quorum waits
+        of those appends need not be over).  False when they did not
+        land in time.  Not in ``iotml``: its controller sets
+        ``retiring`` and promotes at once, so an append racing the flag
+        can be acked and be missing on the new leader."""
+        with self._writes_cond:
+            self.retiring = True
+            return self._writes_cond.wait_for(lambda: self._writes == 0,
+                                              timeout_s)
 
     def set_epoch(self, epoch: int) -> None:
         if epoch < self.epoch:

@@ -650,11 +650,12 @@ def test_r14_confines_frame_parsing():
 @pytest.mark.parametrize("raw_batch_bytes", [65536, 1 << 20])
 def test_ring_past_the_sparse_index_gap_falls_back_as_jax(
         tmp_path, monkeypatch, raw_batch_bytes):
-    """A produce_many batch leaves one sparse-index entry, so a raw fetch
-    smaller than the batch, from a cursor deep inside it, holds only
-    frames below the cursor: the ring falls back one chunk to the
-    message-list leg, in the port as in JAX (the same chunks), and the
-    batches stay the per-record leg's; a fetch past the batch needs none."""
+    """A produce_many batch leaves one sparse-index entry, so in JAX a
+    raw fetch smaller than the batch, from a cursor deep inside it, holds
+    only frames below the cursor and the ring falls back one chunk to the
+    message-list leg.  The port's read starts at the cursor's own frame
+    there, so its ring never falls back; the batches of both stay the
+    per-record leg's, and a fetch past the batch falls back in neither."""
     from iotml.stream import consumer as j_consumer
     from iotml_torch.stream import consumer as t_consumer
 
@@ -696,8 +697,8 @@ def test_ring_past_the_sparse_index_gap_falls_back_as_jax(
     memory = Broker()
     memory.produce_many(TOPIC, entries)
     records, _ = _batches(memory, group="records", poll_chunk=256)
-    assert got["port"][1] == got["jax"][1]
-    assert (got["port"][1] > 0) == (raw_batch_bytes < 390_000)
+    assert got["port"][1] == 0
+    assert (got["jax"][1] > 0) == (raw_batch_bytes < 390_000)
     for a, b in zip(got["port"][0], got["jax"][0]):
         assert np.array_equal(a.x, b.x) and np.array_equal(a.keys, b.keys)
     for a, b in zip(got["port"][0], records):

@@ -297,3 +297,56 @@ def test_port_module_imports_no_jax_stack(path):
     bad = [f"{path}:{line} imports {mod}" for line, mod in _imported(tree)
            if mod in FORBIDDEN]
     assert not bad, bad
+
+
+CLUSTER_MODULES = ["iotml_torch/cluster/__init__.py",
+                   "iotml_torch/cluster/__main__.py",
+                   "iotml_torch/cluster/client.py",
+                   "iotml_torch/cluster/controller.py",
+                   "iotml_torch/cluster/fleet.py",
+                   "iotml_torch/cluster/partition_map.py",
+                   "iotml_torch/cluster/shard.py",
+                   "iotml_torch/replication/reassign.py",
+                   "iotml_torch/chaos/runner.py",
+                   "iotml_torch/chaos/__main__.py"]
+
+
+def test_the_cluster_is_covered_and_loads_no_jax_stack():
+    """The cluster modules, imported and driven (a quorum cluster of 3,
+    a routed produce and fetch, an add-broker over CLUSTER_ADMIN, the
+    rebalance-under-chaos runner) in a fresh interpreter, pull in no
+    module of the JAX stack or the JAX package, and no torch: the
+    cluster's command line starts without it."""
+    import subprocess
+    import sys
+
+    assert set(CLUSTER_MODULES) <= set(FILES)
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in CLUSTER_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "from iotml_torch.cluster import ClusterController\n"
+            "from iotml_torch.stream.kafka_wire import KafkaWireBroker\n"
+            "from iotml_torch.chaos.runner import ChaosRunner\n"
+            "ctl = ClusterController(replication_factor=3,\n"
+            "                        replica_sync='manual').start()\n"
+            "ctl.create_topic('t', partitions=3)\n"
+            "c = ctl.client()\n"
+            "c.produce_many('t', [(b'k', b'v', 1)], acks=1)\n"
+            "p = __import__('zlib').crc32(b'k') % 3\n"
+            "assert [m.value for m in c.fetch('t', p, 0)] == [b'v']\n"
+            "for _ in range(3):\n"
+            "    ctl.sync_replicas_once()\n"
+            "w = KafkaWireBroker(ctl.bootstrap())\n"
+            "assert w.cluster_admin('add-broker', {'shard': 1})"
+            "['state'] == 'retired'\n"
+            "w.close()\n"
+            "c.close()\n"
+            "ctl.stop()\n"
+            "assert ChaosRunner('rebalance-under-chaos', records=100)"
+            ".run().ok\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch',)!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -434,8 +434,9 @@ def test_port_server_answers_jax_extensions_unsupported(api):
     """JAX's client against the port's server: RAW_FETCH and RAW_PRODUCE
     are in its table and round-trip (the frames JAX's client reads are
     the broker's, a batch it ships lands as the same records); the
-    connection survives each; CLUSTER_ADMIN is not ported (A14) and is
-    answered UNSUPPORTED_VERSION, which JAX's client reads as a server
+    connection survives each; CLUSTER_ADMIN, served only by a server with
+    a cluster controller attached (``iotml_torch.cluster``), is answered
+    UNSUPPORTED_VERSION by this one, which JAX's client reads as a server
     without the extension."""
     from iotml.ops import framing as j_framing
 
@@ -576,7 +577,7 @@ def test_failover_fetch_is_transparent(srv_kind):
 
 def test_idempotent_apis_match_jax():
     """The retry table equals JAX's (RAW_FETCH in, RAW_PRODUCE out), and
-    the served table equals JAX's without CLUSTER_ADMIN (A14)."""
+    the served table equals JAX's, CLUSTER_ADMIN included."""
     names = ("FETCH", "RAW_FETCH", "METADATA", "LIST_OFFSETS",
              "OFFSET_FETCH", "API_VERSIONS", "SASL_HANDSHAKE", "HEARTBEAT",
              "FIND_COORDINATOR")
@@ -585,8 +586,11 @@ def test_idempotent_apis_match_jax():
     assert tkw.RAW_PRODUCE not in tkw.IDEMPOTENT_APIS
     assert (tkw.RAW_FETCH, tkw.RAW_PRODUCE, tkw.ERR_CORRUPT_MESSAGE) == \
         (jkw.RAW_FETCH, jkw.RAW_PRODUCE, jkw.ERR_CORRUPT_MESSAGE)
-    assert {k: v for k, v in jkw._SUPPORTED.items()
-            if k != jkw.CLUSTER_ADMIN} == tkw._SUPPORTED
+    assert jkw._SUPPORTED == tkw._SUPPORTED
+    assert (tkw.CLUSTER_ADMIN, tkw.ERR_NOT_COORDINATOR,
+            tkw.ERR_UNKNOWN_SERVER) == (jkw.CLUSTER_ADMIN,
+                                        jkw.ERR_NOT_COORDINATOR,
+                                        jkw.ERR_UNKNOWN_SERVER)
 
 
 # ---------------------------------------------------- retention, over wire

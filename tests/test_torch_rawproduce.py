@@ -3,8 +3,9 @@ encode, restamp and validate; ``Broker.produce_raw``; RAW_PRODUCE on the
 wire; ``RawBatchProducer``; the KSQL JSON leg's and the native MQTT
 bridge's raw legs) held against the JAX package's on the CPU.
 
-Every case of ``tests/test_rawproduce.py`` but the replication and
-cluster ones (ROADMAP A14) runs on the port with the same records; the
+Every case of ``tests/test_rawproduce.py`` but the replication one and
+the cluster one (in tests/test_torch_cluster.py) runs on the port with
+the same records; the
 bytes it frames, stamps, appends and serves must equal the JAX package's
 byte for byte, and the JAX test's own assertions hold.  RAW_FETCH and
 RAW_PRODUCE also run over every {port, JAX} client × {port, JAX} server

@@ -27,6 +27,7 @@ server binds 127.0.0.1:0; every wait has a deadline.
 """
 
 import contextlib
+import json
 import socket
 import struct
 import threading
@@ -271,6 +272,41 @@ def test_acks_all_commits_at_quorum_and_times_out_honestly():
                                 timeout_ms=300)
         assert leader.end_offset(T, 0) == 3  # appended, above the hwm
         assert rs.state.quorum_hwm(T, 0) == 2
+    finally:
+        _teardown(srv, rs, client)
+
+
+@pytest.mark.parametrize("api", ["produce", "raw"])
+@pytest.mark.parametrize("srv_kind", list(PKG))
+def test_acks_all_reached_below_min_isr_is_error_20(srv_kind, api):
+    """Both followers stop fetching while an acks=all batch waits: the
+    wait's eviction scan drops them and the quorum HWM reaches the batch
+    with the leader alone in the ISR.  The port's server answers
+    NOT_ENOUGH_REPLICAS_AFTER_APPEND (20), appended but unacked; JAX's
+    acks it below min_isr (ROADMAP §C, open in JAX)."""
+    leader, srv, rs = _leader_with_set(max_lag_s=0.2, kind=srv_kind)
+    client = tkw.KafkaWireBroker(f"127.0.0.1:{srv.port}")
+    try:
+        _form_isr(rs)
+        if api == "produce":
+            send = lambda: client.produce_many(  # noqa: E731
+                T, [(None, b"lone", 0)], partition=0, timeout_ms=5000)
+        else:
+            send = lambda: client.produce_raw(  # noqa: E731
+                T, 0, t_framing.frame_entries([(None, b"lone", 0)], 0),
+                timeout_ms=5000)
+        if srv_kind == "port":
+            with pytest.raises(tkw.NotEnoughReplicasAfterAppendError):
+                send()
+        else:
+            assert send() == 0
+        assert leader.end_offset(T, 0) == 1  # appended either way
+        assert rs.state.quorum_hwm(T, 0) == 1
+        assert rs.state.isr_size(T, 0) == 1 < rs.state.min_isr
+        # the next acks=all batch is refused before any append
+        with pytest.raises(tkw.NotEnoughReplicasError):
+            client.produce_many(T, [(None, b"next", 0)], partition=0)
+        assert leader.end_offset(T, 0) == 1
     finally:
         _teardown(srv, rs, client)
 
@@ -1044,11 +1080,15 @@ def test_double_fault_drill_verdicts_equal_jax():
 
 
 def test_replication_cli_list_and_reassign_names_a14(capsys):
+    """``list`` names both drills; ``drill --name reassign``, which raised
+    naming A14 until the cluster was ported, runs and exits 0."""
     assert repl_main(["list"]) == 0
     out = capsys.readouterr().out
     assert "double-fault" in out and "reassign" in out
-    with pytest.raises(NotImplementedError, match="A14"):
-        repl_main(["drill", "--name", "reassign"])
+    assert repl_main(["drill", "--name", "reassign", "--records",
+                      "300"]) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert doc["drill"] == "reassign" and doc["ok"]
 
 
 # ------------------------------------- the cardata job from a promoted replica

@@ -6,8 +6,8 @@ scenario at three seeds (and two record counts), with the same topology
 and the same errors for an unknown name or too few records;
 ``python -m iotml_torch.chaos schedule`` and ``run --list`` print what
 JAX's print; ``arm_from_env`` arms the same events, and a faulted path
-fires them the same way.  ``run --scenario`` raises naming ROADMAP A14
-(the runner's topologies).
+fires them the same way.  ``run --scenario`` of any topology but the
+cluster's raises naming ROADMAP A14 (the runner's other topologies).
 
 Tolerance: none; every comparison is exact.
 """

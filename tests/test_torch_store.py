@@ -474,6 +474,53 @@ def test_offsets_file_compacts_and_survives_torn_tail(tmp_path):
     assert g0 == 99 and g21 == 9 and torn > 0 and again == 99
 
 
+def test_an_unchanged_commit_appends_nothing(tmp_path):
+    """Consumers commit their unchanged cursors on every idle poll.  JAX's
+    file takes each such commit as a record and compacts every few; the
+    port's appends nothing, so its file stays as it was.  The tables are
+    equal, and each package mounts the other's file to the same table."""
+    got = {}
+    for pkg in PKGS:
+        of = pkg.OffsetsFile(str(tmp_path / pkg.name), fsync="always",
+                             compact_ratio=4)
+        of.commit_many("g", "t", [(0, 5), (1, 7)])
+        before = (tmp_path / pkg.name / "offsets").read_bytes()
+        for _ in range(49):
+            of.commit_many("g", "t", [(0, 5), (1, 7)])
+            of.commit("g", "t", 1, 7)
+        idle = (tmp_path / pkg.name / "offsets").read_bytes()
+        of.commit("g", "t", 0, 6)
+        got[pkg.name] = (of.table(), of._records, before, idle)
+        of.close()
+    table, records, before, idle = got["port"]
+    assert table == got["jax"][0] == {("g", "t", 0): 6, ("g", "t", 1): 7}
+    assert records == 3 and idle == before
+    assert got["jax"][2] == before and got["jax"][3] != before
+    for writer, reader in ((PORT, JAX), (JAX, PORT)):
+        of = reader.OffsetsFile(str(tmp_path / writer.name))
+        assert of.table() == table
+        of.close()
+
+
+def test_an_unchanged_commit_keeps_the_fsync_interval(tmp_path):
+    """Under ``fsync=interval`` an unchanged commit appends nothing but
+    still syncs an earlier append once the interval has passed: the loss
+    stays bounded by the interval."""
+    of = OffsetsFile(str(tmp_path), fsync="interval",
+                     fsync_interval_s=3600.0)
+    syncs = []
+    real = of._writer.sync
+    of._writer.sync = lambda: (syncs.append(1), real())[1]
+    of.commit("g", "t", 0, 5)
+    of.commit("g", "t", 0, 5)
+    assert syncs == []
+    of.fsync_interval_s = 0.0
+    of.commit("g", "t", 0, 5)
+    of.commit("g", "t", 0, 5)
+    assert syncs == [1]
+    of.close()
+
+
 # ----------------------------------------------------- broker (durable)
 def _fetch_all(b, topic, parts):
     return [[(m.offset, m.key, m.value, m.timestamp_ms, m.headers)
@@ -890,3 +937,48 @@ def test_raw_produce_off_takes_the_per_record_encoder(tmp_path, monkeypatch):
     pipeline.set_knobs(raw_produce="off")
     assert pipeline.raw_produce_mode() == "off"
     monkeypatch.delenv("IOTML_RAW_PRODUCE")
+
+
+@pytest.mark.parametrize("max_bytes", [4096, 65536])
+def test_read_raw_deep_in_one_batch_starts_at_the_cursor_frame(
+        tmp_path, max_bytes):
+    """One produce_many batch is one sparse-index entry.  Where JAX's raw
+    window from that entry holds a whole frame at/after the cursor the
+    port's bytes are JAX's; where it ends before (a batch over
+    ``max_bytes``, JAX's readers fall back to FETCH) the port's window
+    starts at the cursor's own frame and holds whole frames from it."""
+    rng = random.Random(5)
+    entries = [(b"k%d" % i, bytes(rng.getrandbits(8)
+                                  for _ in range(rng.randint(40, 300))), i)
+               for i in range(1500)]
+    logs = {}
+    for name, cls in (("port", Broker), ("jax", JBroker)):
+        b = cls(store_dir=str(tmp_path / name))
+        b.create_topic("big")
+        b.produce_many("big", entries)
+        logs[name] = b
+    try:
+        moved = 0
+        for off in (0, 1, 17, 200, 640, 1100, 1499):
+            t = logs["port"].fetch_raw("big", 0, off, max_bytes=max_bytes)
+            j = logs["jax"].fetch_raw("big", 0, off, max_bytes=max_bytes)
+            vj = t_framing.validate_frame_batch_py(j.data, start_offset=off)
+            vt = t_framing.validate_frame_batch_py(t.data, start_offset=off)
+            assert t.start_offset == j.start_offset == off
+            if vj["count"]:
+                assert t.data == j.data
+                continue
+            moved += 1
+            assert vt["first"] == off and vt["start_pos"] == 0
+            assert vt["count"] >= 1
+            assert len(t.data) == max_bytes or \
+                vt["last"] == len(entries) - 1  # the window reached the end
+            want = [(k, v) for k, v, _ in entries[off:off + vt["count"]]]
+            got = [(m.key, m.value) for m in logs["port"].fetch(
+                "big", 0, off, max_messages=vt["count"])]
+            assert got == want
+        # the batch (~255 KB) outgrows both windows past its head
+        assert moved >= 3
+    finally:
+        for b in logs.values():
+            b.close()
