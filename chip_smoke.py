@@ -512,6 +512,40 @@ non-zero exit and no result line:
                 Records/s, catch-up and move seconds, the tail's longest
                 stall, the fit seconds, the fleet's rows/s, the drills'
                 SLOs and B1 launches by sub-phase (2).
+17d. chaos_path — the chaos runner, the mlops drills and the supervised
+                platform (ROADMAP A14) on the card, after cluster_path:
+                (a) every ported scenario through ``python -m
+                iotml_torch.chaos run --scenario S --seed 7 --records N
+                --json`` in this process at the JAX package's CI sizes
+                (2,000 records; 500 for broker-crash-recover,
+                tier-upload-crash and double-fault), each with the launch
+                counts set to 0 just before and read just after:
+                loss-bug-fixture must fail ``scored_or_accounted`` (exit
+                1), drift-storm is held to the port's CPU run of the same
+                scenario (at seed 7 both packages end it still adapting),
+                every other scenario passes; B1 launches in
+                trainer-crash-mid-checkpoint (one a round) and
+                rollout-regression-rollback (the baseline's round), and in
+                no other; alert-burn (600
+                records) as a child process; (b) ``python -m
+                iotml_torch.mlops drill --all --seed 7`` in this process:
+                the swap and rollback seconds against their SLOs (5 s,
+                60 s), one B1 launch (the rollback's baseline); (c)
+                ``Platform.supervised(poll_interval_s=0.02)``: the KSQL
+                pump thread killed and its restart timed, the attached
+                checkpoint writer crashed once at ``ckpt.write`` and the
+                snapshot still queued published after its restart with
+                the trainer's params bit for bit, then ``python -m
+                iotml_torch.cli.up --supervise`` as a child printing its
+                5 units and stopped by Ctrl-C; (d) the first
+                trainer-crash round's B1 launch held against the plain
+                version on its rows (``check_fit``), and every payload of
+                the rollback drill's production scorer within atol 1e-6
+                of a CPU recompute (the baseline's forward, then the
+                candidate's at atol 1e-5, then the baseline's
+                again).  Scenario
+                seconds, injected counts and verdicts, B1 launches by
+                scenario.
 18. fit_orders — after store_path's launch counts are read: its rows in
                 6 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
@@ -621,6 +655,7 @@ two captures, eight chaos rounds, eight timed fits), the KSQL path
 path (seven, by sub-phase in ``store_path_launches_by_subphase``), the
 replication path (by sub-phase), the cluster path (two: the fit and the
 refit, by sub-phase in ``cluster_path_launches_by_subphase``), the
+chaos path (by scenario in ``chaos_path_launches_by_scenario``), the
 creditcard path (one), the LSTM and MNIST paths (none), summed in
 ``launches``; the creditcard fit's time, steps and bound beside; each attention entry's
 design at the layer call and the long-context call; ``launches`` sums the
@@ -7039,6 +7074,476 @@ def phase_cluster_path(card: str, root: str) -> dict:
             "by_subphase": counts, "max_abs_err": err}
 
 
+# ------------------------------------------------------------- chaos_path
+#: the scenarios at the JAX package's CI sizes (chaos.yml, mlops.yml and
+#: online.yml run 2,000 records, deploy/smoke.sh 500), each through the
+#: chaos CLI in this process
+CHAOS_SCENARIOS = (
+    ("mqtt-flap", 2000), ("slow-bridge", 2000), ("dup-storm", 2000),
+    ("partition-blackout", 2000), ("scorer-crash-resume", 2000),
+    ("loss-bug-fixture", 2000), ("leader-kill-mid-drain", 2000),
+    ("trainer-crash-mid-checkpoint", 2000),
+    ("rollout-regression-rollback", 2000), ("drift-storm", 2000),
+    ("broker-crash-recover", 500), ("tier-upload-crash", 500),
+    ("double-fault", 500))
+#: alert-burn at tsdb.yml's size, in a process of its own (its canaries'
+#: latency SLO pages on a loaded host: see telemetry_path)
+CHAOS_CHILD = ("alert-burn", 600)
+#: the scenarios that must FAIL: the checker checked
+CHAOS_MUST_FAIL = ("loss-bug-fixture",)
+#: held to the port's CPU run of the same scenario instead of a pass: at
+#: seed 7 both packages end drift-storm still adapting
+#: (``adaptation_converged`` fails on the CPU in each)
+CHAOS_CPU_HELD = ("drift-storm",)
+#: the scenarios that fit the autoencoder (B1): the trainer's rounds and
+#: the rollback's baseline (drift-storm's learner adapts by a learning-rate
+#: boost at seed 7 and refits nothing)
+CHAOS_FITS = ("trainer-crash-mid-checkpoint", "rollout-regression-rollback")
+#: the card's production scorer against a CPU recompute, parsed payloads:
+#: the baseline's rows at the scorer's payload bound; the candidate's (its
+#: weights + N(0, 1)) at the smoke's all-rows bound, CLI_TOL_ALL: its
+#: layers sum terms of ~10 that cancel to small outputs, so two float32
+#: orders of those sums differ by a few ulps of ~10, not of the output
+#: (2.67e-6 measured on the card)
+CHAOS_PAYLOAD_TOL = {"baseline": dict(rtol=0.0, atol=1e-6),
+                     "candidate": CLI_TOL_ALL}
+
+
+def _chaos_cli(argv, device=None) -> tuple:
+    """``python -m iotml_torch.chaos`` in this process: (exit status,
+    the --json report, seconds)."""
+    from iotml_torch.chaos.__main__ import main as chaos_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = chaos_main(argv, device=device)
+    if device is None:
+        torch.cuda.synchronize()
+    return rc, json.loads(out.getvalue()), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _first_card_fit(record: dict):
+    """Record the first ``Trainer.fit_compiled`` on the card while active:
+    its batches, the state it starts from and ends at, its history and
+    its B1 launches."""
+    real = Trainer.fit_compiled
+
+    def fit(self, batches, epochs: int = 1, fused: str = "auto"):
+        if record or self.device.type != "cuda":
+            return real(self, batches, epochs, fused)
+        bs = list(next(batches.epochs(1)))  # the round's one poll
+        self._ensure_state()
+        before = _clone_state(self.state)
+        launched = fused_train.fused_fit.launches
+        history = real(self, bs, epochs, fused)
+        record.update(batches=bs, epochs=epochs, before=before,
+                      history=history, after=_clone_state(self.state),
+                      launches=fused_train.fused_fit.launches - launched)
+        return history
+
+    Trainer.fit_compiled = fit
+    try:
+        yield record
+    finally:
+        Trainer.fit_compiled = real
+
+
+def _chaos_round_check(r: dict) -> float:
+    """(d) the recorded B1 round against the plain version on its rows."""
+    if r.get("launches") != 1:
+        raise AssertionError(f"chaos_path (d): the trainer-crash round "
+                             f"launched B1 {r.get('launches')}x")
+    xs = torch.from_numpy(np.stack([b.x for b in r["batches"]])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in r["batches"]])).cuda()
+    p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+        r["before"], xs, masks, r["epochs"])
+    return check_fit("chaos_path (d) trainer-crash round",
+                     (r["after"], torch.tensor(r["history"]["loss"]),
+                      torch.tensor(r["history"]["accuracy"])),
+                     (p_state, p_loss.cpu(), p_acc.cpu()),
+                     r["before"].step + len(r["batches"]) * r["epochs"])
+
+
+def _chaos_scenarios() -> dict:
+    """(a) every ported scenario through the chaos CLI, each with the
+    launch counts set to 0 just before and read just after; alert-burn
+    as a child process."""
+    out, fit_record = {}, {}
+    for name, records in CHAOS_SCENARIOS:
+        argv = ["run", "--scenario", name, "--seed", "7", "--records",
+                str(records), "--json"]
+        reset_launches()
+        reset_fit_launches()
+        if name == "trainer-crash-mid-checkpoint":
+            with _first_card_fit(fit_record):
+                rc, doc, seconds = _chaos_cli(argv)
+        else:
+            rc, doc, seconds = _chaos_cli(argv)
+        launches = fused_train.fused_fit.launches
+        by_design = dict(fused_train.fused_fit.launches_by_design)
+        attention = {k: v for k, v in path_launches().items()
+                     if k != "fused_fit"}
+        failed = [i["name"] for i in doc["invariants"] if not i["ok"]]
+        want_rc = 1 if name in CHAOS_MUST_FAIL else 0
+        entry = {"records": records, "seconds": seconds, "rc": rc,
+                 "published": doc["published"], "scored": doc["scored"],
+                 "rewinds": doc["rewinds"],
+                 "dropped_accounted": doc["dropped_accounted"],
+                 "injected": doc["injected"], "failed": failed,
+                 "verdicts": {i["name"]: i["ok"]
+                              for i in doc["invariants"]},
+                 "b1_launches": launches,
+                 "b1_launches_by_design": by_design}
+        if name in CHAOS_CPU_HELD:
+            cpu_rc, cpu, cpu_s = _chaos_cli(argv, device="cpu")
+            cpu_failed = [i["name"] for i in cpu["invariants"]
+                          if not i["ok"]]
+            same = {k: cpu[k] for k in ("published", "scored", "rewinds",
+                                        "dropped_accounted", "injected")}
+            if rc != cpu_rc or failed != cpu_failed or same != {
+                    k: doc[k] for k in same} or [
+                    i["name"] for i in cpu["invariants"]] != list(
+                    entry["verdicts"]):
+                raise AssertionError(
+                    f"chaos_path (a): {name} on the card (rc {rc}, failed "
+                    f"{failed}) differs from the port's CPU run (rc "
+                    f"{cpu_rc}, failed {cpu_failed})")
+            entry["cpu_failed"], entry["cpu_seconds"] = cpu_failed, cpu_s
+            want_rc = cpu_rc
+        elif name in CHAOS_MUST_FAIL:
+            if "scored_or_accounted" not in failed:
+                raise AssertionError(f"chaos_path (a): {name} failed "
+                                     f"{failed}, not scored_or_accounted")
+        if rc != want_rc or (want_rc == 0 and failed):
+            raise AssertionError(
+                f"chaos_path (a): {name} exited {rc}, want {want_rc}:\n"
+                + "\n".join(f"{'PASS' if i['ok'] else 'FAIL'}  "
+                            f"{i['name']}: {i['detail']}"
+                            for i in doc["invariants"]))
+        if any(attention.values()):
+            raise AssertionError(f"chaos_path (a): {name} launched "
+                                 f"{attention}")
+        if (launches > 0) != (name in CHAOS_FITS) or \
+                sum(by_design.values()) != launches:
+            raise AssertionError(f"chaos_path (a): {name} launched B1 "
+                                 f"{launches}x ({by_design})")
+        out[name] = entry
+    name, records = CHAOS_CHILD
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "iotml_torch.chaos", "run", "--scenario",
+         name, "--seed", "7", "--records", str(records), "--json"],
+        capture_output=True, text=True, timeout=300,
+        cwd=str(Path(__file__).parent))
+    seconds = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout[proc.stdout.index("{"):])
+    except ValueError:
+        raise AssertionError(f"chaos_path (a): {name} exited "
+                             f"{proc.returncode}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-4000:]}")
+    if proc.returncode != 0 or not doc["ok"]:
+        raise AssertionError(
+            f"chaos_path (a): {name} exited {proc.returncode}:\n"
+            + "\n".join(f"{'PASS' if i['ok'] else 'FAIL'}  {i['name']}: "
+                        f"{i['detail']}" for i in doc["invariants"]))
+    out[name] = {"records": records, "seconds": seconds, "rc": 0,
+                 "process": "child", "published": doc["published"],
+                 "scored": doc["scored"], "injected": doc["injected"],
+                 "failed": [],
+                 "verdicts": {i["name"]: i["ok"]
+                              for i in doc["invariants"]}}
+    return {"scenarios": out, "fit_record": fit_record}
+
+
+def _chaos_drills() -> dict:
+    """(b) ``python -m iotml_torch.mlops drill --all --seed 7`` in this
+    process; the rollback's production scorer is recorded (its polled
+    rows in order, each swap with the rows scored before it) for (d)."""
+    from iotml_torch.mlops import __main__ as mlops_cli
+    from iotml_torch.mlops import drill as mlops_drill
+
+    seen: dict = {}
+    real_make = mlops_drill._make_scorer
+
+    def make(broker, consumer, params, threshold=None, device=None):
+        scorer = real_make(broker, consumer, params, threshold=threshold,
+                           device=device)
+        if threshold is None:
+            return scorer  # the rollout drill's
+        polled, swaps, weights = [], [], {}
+        poll, set_params = consumer.poll, scorer.set_params
+
+        def recording_poll(max_messages=1024):
+            batch = poll(max_messages)
+            polled.extend(batch)
+            return batch
+
+        def recording_set_params(p, version=None):
+            swaps.append((version, scorer.scored))
+            weights[version] = {k: v.detach().cpu().clone()
+                                for k, v in p.items()}
+            set_params(p, version=version)
+
+        consumer.poll = recording_poll
+        scorer.set_params = recording_set_params
+        seen.update(scorer=scorer, broker=broker, polled=polled,
+                    swaps=swaps, weights=weights)
+        return scorer
+
+    reset_launches()
+    reset_fit_launches()
+    mlops_drill._make_scorer = make
+    out = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mlops_cli.main(["drill", "--all", "--seed", "7", "--json"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        mlops_drill._make_scorer = real_make
+    text, docs, at = out.getvalue().strip(), [], 0
+    while at < len(text):
+        doc, at = json.JSONDecoder().raw_decode(text, at)
+        docs.append(doc)
+        at = len(text) - len(text[at:].lstrip())
+    if rc != 0 or not all(d["ok"] for d in docs):
+        raise AssertionError(
+            f"chaos_path (b): mlops drill --all exited {rc}:\n" + "\n".join(
+                f"{d['drill']} {'PASS' if i['ok'] else 'FAIL'}  "
+                f"{i['name']}: {i['detail']}"
+                for d in docs for i in d["invariants"]))
+    by = {d["drill"]: d for d in docs}
+    launches = fused_train.fused_fit.launches
+    if launches != 1:  # the rollback's baseline round
+        raise AssertionError(f"chaos_path (b): the drills launched B1 "
+                             f"{launches}x, not once")
+    swap_s = by["rollout"]["slos"]["worst_swap_latency_s"]
+    rollback_s = by["rollback"]["slos"]["time_to_rollback_s"]
+    return {"seconds": seconds, "launches": launches,
+            "launches_by_design": dict(
+                fused_train.fused_fit.launches_by_design),
+            "swap_s": swap_s, "slo_swap_s": 5.0,
+            "rollback_s": rollback_s, "slo_rollback_s": 60.0,
+            "healed_s": by["rollback"]["slos"][
+                "time_to_production_healed_s"],
+            "published": {k: d["published"] for k, d in by.items()},
+            "restarts": {k: d["restarts"] for k, d in by.items()},
+            "seen": seen}
+
+
+def _chaos_payloads(seen: dict) -> dict:
+    """(d) the rollback drill's production scorer against a CPU
+    recompute: every payload row within CHAOS_PAYLOAD_TOL of the
+    baseline's or the candidate's forward on its input row, in segments
+    baseline, candidate, baseline as the swaps ran."""
+    scorer, broker, polled = seen["scorer"], seen["broker"], seen["polled"]
+    n = broker.end_offset("model-predictions", 0)
+    if len(polled) != n or scorer.scored != n:
+        raise AssertionError(f"chaos_path (d): {len(polled)} rows polled, "
+                             f"{scorer.scored} scored, {n} payloads")
+    rows_in = Broker()
+    rows_in.create_topic("rows", partitions=1)
+    for m in polled:
+        rows_in.produce("rows", m.value, key=m.key, partition=0,
+                        timestamp_ms=m.timestamp_ms)
+    baseline_v = scorer.model_version
+    candidate_v = next(v for v in seen["weights"] if v != baseline_v)
+    got = _payload_parts([m.value.decode() for m in broker.fetch(
+        "model-predictions", 0, 0, n)])[0]
+    wants = {}
+    for tag, v in (("baseline", baseline_v), ("candidate", candidate_v)):
+        wants[tag], _x = _recompute(rows_in, seen["weights"][v],
+                                    topic="rows")
+    errs = {tag: np.abs(got - want).max(axis=1)
+            for tag, want in wants.items()}
+    within = {tag: (np.abs(got - want) <= CHAOS_PAYLOAD_TOL[tag]["atol"]
+                    + CHAOS_PAYLOAD_TOL[tag]["rtol"] * np.abs(want)
+                    ).all(axis=1)
+              for tag, want in wants.items()}
+    labels = []
+    for i in range(n):
+        ok = [t for t in ("baseline", "candidate") if within[t][i]]
+        if not ok:
+            raise AssertionError(
+                f"chaos_path (d): payload {i} is neither version's "
+                f"forward (max abs err baseline {errs['baseline'][i]}, "
+                f"candidate {errs['candidate'][i]})")
+        labels.append(ok[0])
+    segments = [labels[0]] + [b for a, b in zip(labels, labels[1:])
+                              if a != b]
+    if segments[0] != "baseline" or segments[-1] != "baseline" or \
+            len(segments) > 3:
+        raise AssertionError(f"chaos_path (d): version segments "
+                             f"{segments} (swaps {seen['swaps']})")
+    return {"payloads": n, "baseline_version": baseline_v,
+            "candidate_version": candidate_v,
+            "rows_by_version": {t: labels.count(t) for t in wants},
+            "segments": segments,
+            "max_abs_err": {t: float(errs[t][np.array(labels) == t].max())
+                            for t in set(labels)},
+            "tolerance": CHAOS_PAYLOAD_TOL}
+
+
+def _chaos_supervised(root: str) -> dict:
+    """(c) ``Platform.supervised(poll_interval_s=0.02)`` on the card: the
+    KSQL pump thread killed and respawned; the attached checkpoint writer
+    crashed once at ``ckpt.write`` and restarted, the snapshot still
+    queued published with the trainer's params bit for bit; then
+    ``python -m iotml_torch.cli.up --supervise`` as a child printing its
+    unit count."""
+    reg_dir = str(Path(root) / "chaos-registry")
+    plat = Platform(partitions=10, registry_dir=reg_dir, cc_port=0).start()
+    sup = None
+    try:
+        writer = plat.attach_checkpointer(
+            AsyncCheckpointer(plat.model_registry, queue_depth=2))
+        sup = plat.supervised(poll_interval_s=0.02)
+        units = [u.name for u in sup.units()]
+        trainers = []
+        for seed, cursor in ((1, 5), (2, 9)):
+            tr = Trainer(CAR_AUTOENCODER, seed=seed)  # the card
+            tr._ensure_state()
+            trainers.append(tr)
+            writer.snapshot(tr.state, [(STORE_TOPIC, 0, cursor)])
+        obs_faults.arm(obs_faults.ChaosEngine([obs_faults.FaultEvent(
+            1, "ckpt.write", "error", (("exc", "RuntimeError"),))]))
+        t0 = time.perf_counter()
+        sup.start()
+        deadline = time.monotonic() + 30
+        while plat.model_registry.versions() != [1]:
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"chaos_path (c): the writer published "
+                    f"{plat.model_registry.versions()} after its crash "
+                    f"({sup.snapshot()})")
+            time.sleep(0.005)
+        writer_s = time.perf_counter() - t0
+        obs_faults.disarm()
+        m = plat.model_registry.manifest(1)
+        got = params_from_h5_bytes(
+            plat.model_registry.load_bytes(1, "model.h5"))
+        if sup.unit("ckpt-writer").restarts != 1 or \
+                [tuple(o) for o in m.offsets] != [(STORE_TOPIC, 0, 9)] or \
+                not all(torch.equal(got[k], v.cpu()) for k, v in
+                        trainers[1].state.params.items()):
+            raise AssertionError(
+                f"chaos_path (c): writer restarts "
+                f"{sup.unit('ckpt-writer').restarts}, offsets {m.offsets}, "
+                f"params equal to the trainer's: "
+                f"{[torch.equal(got[k], v.cpu()) for k, v in trainers[1].state.params.items()]}")
+        deadline = time.monotonic() + 10
+        while sup.unit("ksql-tasks").state != "running":
+            if time.monotonic() > deadline:
+                raise AssertionError("chaos_path (c): ksql-tasks never ran")
+            time.sleep(0.005)
+        # kill the continuous-query pump thread as a bug would: its stop
+        # flag set, the thread exits, nobody restarts it by hand
+        t0 = time.perf_counter()
+        plat.ksql._stop.set()
+        deadline = time.monotonic() + 10
+        while sup.unit("ksql-tasks").restarts < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError("chaos_path (c): the dead KSQL pump "
+                                     "was never restarted")
+            time.sleep(0.001)
+        detected_s = time.perf_counter() - t0
+        plat.ksql._stop.clear()
+        while not (plat.ksql._pump_thread.is_alive()
+                   and sup.unit("ksql-tasks").state == "running"):
+            if time.monotonic() > deadline:
+                raise AssertionError("chaos_path (c): the KSQL pump never "
+                                     "ran again")
+            time.sleep(0.001)
+        pump_restart_s = time.perf_counter() - t0
+    finally:
+        obs_faults.disarm()
+        if sup is not None:
+            sup.stop()
+        plat.stop()
+    child = _chaos_up_child()
+    return {"units": units, "pump_restart_detected_s": detected_s,
+            "pump_restart_s": pump_restart_s,
+            "writer_crash_to_publish_s": writer_s,
+            "writer_restarts": 1, "snapshot_bit_equal": True,
+            "cli": child}
+
+
+def _chaos_up_child() -> dict:
+    """``python -m iotml_torch.cli.up --supervise`` as a child: its
+    ``supervisor N units`` line, then Ctrl-C."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "iotml_torch.cli.up", "--supervise",
+         "--metrics-port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(Path(__file__).parent))
+    seen, units = [], None
+    try:
+        for line in proc.stdout:
+            seen.append(line)
+            if line.strip().startswith("supervisor"):
+                units = int(line.split()[1])
+            if line.startswith("Ctrl-C to stop."):
+                break
+        up_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGINT)
+        rest, _ = proc.communicate(timeout=60)
+        seen.append(rest)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError("chaos_path (c): `cli.up --supervise` did not "
+                             "stop on SIGINT")
+    if proc.returncode != 0 or units != 5 or "stopped." not in rest:
+        raise AssertionError(f"chaos_path (c): `cli.up --supervise` exited "
+                             f"{proc.returncode}, units {units}:\n"
+                             f"{''.join(seen)[-3000:]}")
+    return {"units": units, "up_s": up_s, "rc": 0}
+
+
+def phase_chaos_path(card: str, root: str) -> dict:
+    """The chaos runner, the mlops drills and the supervised platform on
+    the card: (a) the scenarios, (b) the drills, (c) supervision, (d) the
+    numerics of a trainer-crash B1 round and the rollback's production
+    scorer."""
+    t_phase = time.perf_counter()
+    a = _chaos_scenarios()
+    fit_err = _chaos_round_check(a["fit_record"])
+    b = _chaos_drills()
+    payloads = _chaos_payloads(b.pop("seen"))
+    c = _chaos_supervised(root)
+    scen = a["scenarios"]
+    by_scenario = {n: s["b1_launches"] for n, s in scen.items()
+                   if "b1_launches" in s}
+    by_scenario["mlops_drill_rollback"] = b["launches"]
+    launches = sum(by_scenario.values())
+    by_design = {d: sum(s.get("b1_launches_by_design", {}).get(d, 0)
+                        for s in scen.values())
+                 + b["launches_by_design"][d] for d in fused_train.DESIGNS}
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "chaos_path", "card": card,
+          "scenarios": {n: {k: s[k] for k in (
+              "records", "seconds", "rc", "published", "scored",
+              "injected", "verdicts") if k in s} | (
+              {"cpu_failed": s["cpu_failed"]} if "cpu_failed" in s else {})
+              for n, s in scen.items()},
+          "drills": {k: b[k] for k in (
+              "seconds", "swap_s", "slo_swap_s", "rollback_s",
+              "slo_rollback_s", "healed_s", "published", "restarts")},
+          "supervised": c,
+          "numerics": {"trainer_crash_round_max_abs_err": fit_err,
+                       "rollback_payloads": payloads},
+          "phase_seconds": phase_s, "kernel_launches": launches,
+          "kernel_launches_by_design": by_design,
+          "kernel_launches_by_scenario": by_scenario})
+    return {"launches": launches, "launches_by_design": by_design,
+            "by_scenario": by_scenario, "max_abs_err": fit_err}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -8235,6 +8740,7 @@ def main() -> int:
         store_info = phase_store_path(card)
         repl_info = phase_replication_path(card, root)
         cluster_info = phase_cluster_path(card, root)
+        chaos_info = phase_chaos_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -8275,7 +8781,8 @@ def main() -> int:
         + tele_info["launches"]
         + ksql_info["launches"] + demo_info["launches"]
         + store_info["launches"] + repl_info["launches"]
-        + cluster_info["launches"] + cc_info["launches"]
+        + cluster_info["launches"] + chaos_info["launches"]
+        + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -8293,6 +8800,7 @@ def main() -> int:
                              "store_path": store_info["launches"],
                              "replication_path": repl_info["launches"],
                              "cluster_path": cluster_info["launches"],
+                             "chaos_path": chaos_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -8311,6 +8819,7 @@ def main() -> int:
             + store_info["launches_by_design"][d]
             + repl_info["launches_by_design"][d]
             + cluster_info["launches_by_design"][d]
+            + chaos_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
@@ -8319,10 +8828,12 @@ def main() -> int:
                            demo_info["max_abs_err"],
                            store_info["max_abs_err"],
                            repl_info["max_abs_err"],
-                           cluster_info["max_abs_err"]),
+                           cluster_info["max_abs_err"],
+                           chaos_info["max_abs_err"]),
         "store_path_launches_by_subphase": store_info["by_subphase"],
         "replication_path_launches_by_subphase": repl_info["by_subphase"],
         "cluster_path_launches_by_subphase": cluster_info["by_subphase"],
+        "chaos_path_launches_by_scenario": chaos_info["by_scenario"],
         "ms": min(timing["kernel_ms"][design]),
         "ms_by_design": {d: min(t) for d, t in timing["kernel_ms"].items()},
         "plain_ms": timing["plain_ms"],

@@ -1,8 +1,8 @@
 """``python -m iotml_torch.chaos`` — the fault-injection CLI
 (``iotml.chaos``'s twin):
 
-    python -m iotml_torch.chaos run --scenario rebalance-under-chaos \
-                                    --seed 7 --records 2000 [--json]
+    python -m iotml_torch.chaos run --scenario mqtt-flap --seed 7 \
+                                    --records 2000 [--json] [--spans PATH]
     python -m iotml_torch.chaos run --list
     python -m iotml_torch.chaos schedule --scenario mqtt-flap --seed 7 \
                                          --records 2000
@@ -10,12 +10,12 @@
 ``--list`` enumerates the scenarios with their topology; ``schedule``
 prints a scenario's canonical schedule text, byte-identical for the same
 (scenario, seed, records) and equal to the JAX package's.  ``run``
-drives the pipeline under a scenario and prints the injected faults and
-the invariant verdicts (exit status 0 iff every invariant passed); the
-runner's ported topology is ``cluster`` (``rebalance-under-chaos``), and
-a scenario of another topology raises NotImplementedError naming ROADMAP
-A14 (the ``alert-burn`` drill runs through ``python -m iotml_torch.obs
-tsdb drill``).
+drives the pipeline under a scenario and prints the injected faults, the
+invariant verdicts and the traced topologies' stage-latency breakdown
+(exit status 0 iff every invariant passed); ``--spans PATH`` keeps that
+span log.  ``compaction-under-crash`` drives the twin service and raises
+NotImplementedError naming ROADMAP A16.  ``main(argv, device=...)`` runs
+the scorers and trainers on ``device`` (``cuda`` unless given).
 """
 
 from __future__ import annotations
@@ -23,8 +23,12 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from typing import TYPE_CHECKING
 
 from .scenarios import SCENARIOS, build
+
+if TYPE_CHECKING:  # the schedule command starts without torch
+    from ..utils.device import DeviceLike
 
 
 def _print_list() -> None:
@@ -33,7 +37,7 @@ def _print_list() -> None:
         print(f"{name:<24} [{topology:>6}]  {desc}")
 
 
-def cmd_run(args) -> int:
+def cmd_run(args, device: DeviceLike = None) -> int:
     if args.list:
         _print_list()
         return 0
@@ -43,8 +47,14 @@ def cmd_run(args) -> int:
         return 2
     from .runner import ChaosRunner
 
-    report = ChaosRunner(args.scenario, seed=args.seed,
-                         records=args.records).run()
+    runner = ChaosRunner(args.scenario, seed=args.seed,
+                         records=args.records, span_path=args.spans,
+                         device=device)
+    if args.spans and runner.schedule.topology == "wire":
+        print("note: --spans has no effect on a wire-topology scenario "
+              "(trace headers end at the TCP boundary by design)",
+              file=sys.stderr)
+    report = runner.run()
     if args.json:
         print(json.dumps(report.to_dict(), indent=2, sort_keys=True))
         return 0 if report.ok else 1
@@ -63,6 +73,16 @@ def cmd_run(args) -> int:
     print("\ninvariants:")
     for inv in report.invariants:
         print(f"  {inv.verdict()}")
+    print("\nstage latency (obs.tracing breakdown of the faulted run):")
+    if report.span_path:
+        from ..obs.__main__ import load_spans, print_table, summarize
+
+        stages, e2e = load_spans(report.span_path)
+        print_table(summarize(stages, e2e))
+        print(f"\nspan log: {report.span_path}")
+    else:
+        print("  (no spans: wire topology — trace headers end at the "
+              "TCP boundary by design)")
     print(f"\nverdict: {'PASS' if report.ok else 'FAIL'}")
     return 0 if report.ok else 1
 
@@ -73,7 +93,7 @@ def cmd_schedule(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: DeviceLike = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m iotml_torch.chaos",
         description="deterministic fault injection with invariant-"
@@ -100,7 +120,7 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     if args.cmd == "run":
-        return cmd_run(args)
+        return cmd_run(args, device)
     if args.cmd == "schedule":
         return cmd_schedule(args)
     ap.print_help()

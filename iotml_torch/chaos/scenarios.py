@@ -64,8 +64,8 @@ Built-ins:
   synthetic canaries; the SLO engine's fast burn-rate pair must fire,
   land in ``_IOTML_ALERTS`` + ``/healthz``, and resolve on recovery.
 
-``runner.ChaosRunner`` drives the ``cluster`` topology; its other
-topologies' harnesses are ROADMAP A14.  ``alert-burn`` runs through
+``runner.ChaosRunner`` drives every topology (``compaction-under-crash``
+drives the twin service, ROADMAP A16); ``alert-burn`` runs through
 ``obs.drill.drill_alert_burn``, and any
 schedule arms in-process (``faults.arm(ChaosEngine(events))``) or from
 the environment (``faults.arm_from_env``).

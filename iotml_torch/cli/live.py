@@ -46,8 +46,8 @@ Differences from the JAX package's CLI:
   usage error (exit 2).
 - There is no fallback to the pure-Python client: a native client that
   cannot connect raises (``ConnectionError``, an ``OSError``).
-- The stdin watcher is a plain daemon thread, ``iotml-stdin-watch`` (the
-  supervise registry is ROADMAP A14).
+- The stdin watcher, ``iotml-stdin-watch``, is a daemon thread in the
+  supervise registry (``supervise.registry.register_thread``).
 """
 
 from __future__ import annotations
@@ -78,8 +78,10 @@ def _stopper(max_seconds: float):
             return  # no readable stdin (a captured one): the deadline rules
         ev.set()
 
-    threading.Thread(target=watch_stdin, daemon=True,
-                     name="iotml-stdin-watch").start()
+    from ..supervise.registry import register_thread
+
+    register_thread(threading.Thread(target=watch_stdin, daemon=True,
+                                     name="iotml-stdin-watch")).start()
     deadline = time.time() + max_seconds if max_seconds else None
     return lambda: ev.is_set() or (deadline is not None
                                    and time.time() > deadline)

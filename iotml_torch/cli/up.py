@@ -46,11 +46,16 @@ in the JAX package; `--tier-uri` without durable mode is a usage error.
 `endpoints()`); the command line always serves it (port 0 by default,
 as in the JAX package), `Platform` when given a port.
 
+With `--supervise` (or `IOTML_SUPERVISE=1`) the component lifecycles
+run under a supervisor (``Platform.supervised()``): a crashed serving
+thread restarts under backoff, and a trainer's checkpoint writer handed
+to ``attach_checkpointer`` runs as a supervised loop.
+
 Left out, each raising NotImplementedError naming its ROADMAP item when
 given (as a constructor argument or a flag): Kafka Connect and the
-car-health twin (`connect_port`, `--connect-port`: A16), the supervised
-platform (`supervised()`, `--supervise`: A14), and `--prefetch-depth`
-(A10).  ``pump()`` drives the KSQL server alone until A16 brings Connect;
+car-health twin (`connect_port`, `--connect-port`: A16), and
+`--prefetch-depth` (A10).  ``pump()`` drives the KSQL server alone until
+A16 brings Connect;
 ``drain_ingest()`` waits until every message the simulated fleet sent is
 bridged and the KSQL outputs stop moving.  `--decode-ring-buffers`,
 `--raw-batch-bytes`, `--raw-produce` and `--produce-batch-bytes` set
@@ -72,8 +77,7 @@ from ..utils.device import DeviceLike, resolve_device
 #: left-out constructor arguments → the ROADMAP item that ports them
 UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)"}
 #: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
-UNPORTED_FLAGS = {"connect_port": "A16", "supervise": "A14",
-                  "prefetch_depth": "A10"}
+UNPORTED_FLAGS = {"connect_port": "A16", "prefetch_depth": "A10"}
 
 
 class Platform:
@@ -181,10 +185,13 @@ class Platform:
 
         # model-lifecycle wing (mlops): mount the versioned registry,
         # sweep torn publishes from a prior kill, and keep a watcher on
-        # the serving channel — scorers attach to it
+        # the serving channel — scorers attach to it.  A trainer hands
+        # its AsyncCheckpointer to attach_checkpointer() so supervised()
+        # owns the writer loop
         self.registry_dir = registry_dir
         self.model_registry = None
         self.registry_watcher = None
+        self.checkpoint_writer = None
         if registry_dir:
             from ..mlops import ModelRegistry
             from ..mlops.rollout import RegistryWatcher
@@ -209,6 +216,13 @@ class Platform:
         self._fleet_published = 0
         self._fleet_lock = threading.Lock()
         self.started = False
+
+    def attach_checkpointer(self, checkpointer):
+        """Register a trainer's AsyncCheckpointer so ``supervised()`` runs
+        its writer as a supervised unit (a crash restarts it under
+        backoff, pending snapshots surviving in the queue)."""
+        self.checkpoint_writer = checkpointer
+        return checkpointer
 
     def start(self, metrics_port: Optional[int] = None) -> "Platform":
         self.kafka.start()
@@ -349,9 +363,82 @@ class Platform:
         """Advance the continuous queries once (deterministic)."""
         return self.ksql.pump_now()
 
+    # ------------------------------------------------------- supervision
     def supervised(self, poll_interval_s: Optional[float] = None):
-        raise NotImplementedError("Platform.supervised() is not ported yet "
-                                  "(ROADMAP A14: the supervisor)")
+        """A Supervisor owning this platform's component lifecycles.
+
+        ``start()`` alone launches every component fire-and-forget; this
+        wraps each component's serving thread in a probed unit, so a
+        crashed accept loop, pump loop or event loop is detected and its
+        thread respawned under backoff: the kubelet role the reference
+        gives to Kubernetes Deployments.  The units: ``kafka-wire``,
+        ``mqtt-front``, ``ksql-tasks`` (the pump thread alone respawned),
+        ``schema-registry``, ``control-center`` (when the platform serves
+        one), ``fleet`` (when a fleet runs), ``registry-watcher`` (with a
+        registry) and the ``ckpt-writer`` loop (with an attached
+        checkpointer).  The MQTT→Kafka bridge has no thread of its own
+        and needs no unit; the JAX package's ``connect-driver`` unit
+        waits for Kafka Connect (ROADMAP A16).  ``poll_interval_s``
+        defaults to ``IOTML_SUPERVISE_POLL_S``, else 0.25.  Returns the
+        Supervisor; the caller starts and stops it."""
+        from ..supervise.registry import register_thread
+        from ..supervise.supervisor import Supervisor
+
+        if poll_interval_s is None:
+            # laxer than the Supervisor's own default (these probe thread
+            # liveness, not failover), but the knob wins when set
+            poll_interval_s = float(os.environ.get(
+                "IOTML_SUPERVISE_POLL_S", "0.25"))
+        sup = Supervisor(poll_interval_s=poll_interval_s,
+                         name="platform-supervisor")
+
+        def thread_alive(get_thread):
+            def probe():
+                t = get_thread()
+                return t is not None and t.is_alive()
+            return probe
+
+        def respawn(get_thread, spawn):
+            def restart():
+                t = get_thread()
+                if t is None or not t.is_alive():
+                    spawn()
+            return restart
+
+        def probed(name, get_thread, spawn=None):
+            sup.add_probed(name, thread_alive(get_thread),
+                           restart=None if spawn is None
+                           else respawn(get_thread, spawn))
+
+        def spawn_ksql_pump():
+            # the pump thread alone: KsqlServer.start() would also start a
+            # second REST serving thread
+            self.ksql._pump_thread = register_thread(threading.Thread(
+                target=self.ksql._pump_loop, daemon=True,
+                name="iotml-ksql-pump"))
+            self.ksql._pump_thread.start()
+
+        probed("kafka-wire", lambda: self.kafka._thread, self.kafka.start)
+        probed("mqtt-front", lambda: self.mqtt._thread, self.mqtt.start)
+        probed("ksql-tasks", lambda: self.ksql._pump_thread,
+               spawn_ksql_pump)
+        for name, rest in (("schema-registry", self.registry_server),
+                           ("control-center", self.control_center)):
+            if rest is not None:
+                probed(name, lambda r=rest: r._thread, rest.start)
+        if self._fleet_thread is not None:
+            probed("fleet", lambda: self._fleet_thread)
+        # the model-lifecycle units: the watcher's poll thread is probed
+        # and respawned like a serving thread; an attached writer runs as
+        # a supervised loop, restarted with its queue intact
+        if self.registry_watcher is not None:
+            probed("registry-watcher",
+                   lambda: self.registry_watcher._thread,
+                   self.registry_watcher.start)
+        if self.checkpoint_writer is not None:
+            sup.add_loop("ckpt-writer", self.checkpoint_writer.unit_loop(),
+                         heartbeat_timeout_s=30.0)
+        return sup
 
     def stop(self) -> None:
         self._fleet_stop.set()
@@ -359,6 +446,8 @@ class Platform:
             self._fleet_thread.join(timeout=3)
         if self.registry_watcher is not None:
             self.registry_watcher.stop()
+        if self.checkpoint_writer is not None:
+            self.checkpoint_writer.stop(flush=True)
         for s in (self.ksql, self.registry_server, self.control_center):
             if s is not None:
                 s.stop()
@@ -424,8 +513,10 @@ def main(argv=None, device: DeviceLike = None) -> int:
                          "torn publishes swept at boot, the serving "
                          "channel watched.  Also via "
                          "IOTML_MLOPS_REGISTRY_DIR.")
-    ap.add_argument("--supervise", action="store_const", const=True,
-                    default=None, help="not ported (A14)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run component lifecycles under the supervisor "
+                         "(crashed serving threads restart under "
+                         "backoff).  Also enabled by IOTML_SUPERVISE=1.")
     ap.add_argument("--trust-passthrough", dest="trust_passthrough",
                     action="store_true", default=None,
                     help="opt back into trusted pass-through on a "
@@ -513,10 +604,15 @@ def main(argv=None, device: DeviceLike = None) -> int:
                         cc_port=args.cc_port, device=device)
     except ValueError as e:  # e.g. negative retention: clean usage error
         ap.error(str(e))
+    supervise = args.supervise or os.environ.get(
+        "IOTML_SUPERVISE", "").strip().lower() in ("1", "true", "yes", "on")
+    sup = None
     try:
         plat.start(metrics_port=args.metrics_port)
         if args.fleet:
             plat.start_fleet(args.fleet, rate_hz=args.rate)
+        if supervise:
+            sup = plat.supervised().start()
         if not args.quiet:
             print("iotml platform up:")
             for k, v in plat.endpoints().items():
@@ -525,6 +621,9 @@ def main(argv=None, device: DeviceLike = None) -> int:
                 print(f"  fleet            {args.fleet} cars @ {args.rate} "
                       f"Hz → mqtt topic vehicles/sensor/data/<car>")
             print(f"  device           {plat.device}")
+            if sup is not None:
+                print(f"  supervisor       {len(sup.units())} units "
+                      f"(self-healing; states on /healthz)")
             print("Ctrl-C to stop.", flush=True)
         try:
             while True:
@@ -532,6 +631,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
         except KeyboardInterrupt:
             pass
     finally:
+        if sup is not None:
+            sup.stop()
         plat.stop()
     if not args.quiet:
         print("stopped.")

@@ -25,8 +25,8 @@ timestamps, partitions) as the JAX package's, byte for byte.
 Two publish legs: ``publish_stream`` writes framed Avro straight onto a
 stream topic, ``publish_mqtt`` writes each car's JSON to an MQTT broker
 with link flaps, store-and-forward, and deferral into a bounded buffer
-while the broker reports ``saturated()``.  Not ported: the chaos
-schedule that runs drift-storm under MQTT flaps (ROADMAP A14).  Under
+while the broker reports ``saturated()``; the chaos runner's
+``drift-storm`` drives the MQTT leg under its flap schedule.  Under
 tracing each record of the stream leg is born with its trace context in
 its headers (the MQTT leg's are born in ``MqttBroker.publish``).
 """

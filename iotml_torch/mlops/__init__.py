@@ -18,7 +18,8 @@ rollback-on-regression.
 
 The chaos points ``ckpt.write`` and ``registry.commit`` and the mlops
 metric families are wired as in the JAX package.  The live drills
-(``iotml.mlops.drill``) need the supervisor and are ROADMAP A14.
+(``drill``: rollout and rollback under a supervisor) run through
+``python -m iotml_torch.mlops drill``.
 """
 
 from .checkpoint import AsyncCheckpointer, restore_trainer

@@ -1,51 +1,64 @@
 """``python -m iotml_torch.mlops`` — the model-lifecycle CLI
 (``python -m iotml.mlops``'s twin).
 
+    python -m iotml_torch.mlops drill [--drill rollout|rollback | --all]
+                                      [--seed S] [--records N] [--json]
+                                      [--slo-swap S] [--slo-rollback S]
     python -m iotml_torch.mlops registry --root DIR [--json]
     python -m iotml_torch.mlops list
-    python -m iotml_torch.mlops drill ...
 
-``registry`` inspects a registry root (the port's or the JAX
+``drill`` runs a live drill (real threads, a supervised scorer, a
+registry watcher hot-swapping under load) and exits with the invariant
+verdict (0: zero records lost or double-scored across every swap, SLOs
+met).  ``registry`` inspects a registry root (the port's or the JAX
 package's): committed versions, channel pointers, promote/rollback
-history, printed as the JAX CLI prints them.  The live drills run a
-supervised scorer under the JAX package's ``Supervisor``, which is not
-ported: ``drill`` raises NotImplementedError naming ROADMAP A14, and
-``list`` says so beside each drill.
+history, printed as the JAX CLI prints them.  ``main(argv,
+device=...)`` runs the drills' scorers and trainers on ``device``
+(``cuda`` unless given).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
-#: the JAX package's drills and the first line of each one's doc, each
-#: not ported yet
-DRILLS = {"rollout": "Zero-downtime hot-swap under sustained load.",
-          "rollback": "Rollback-on-regression, live: the bad model really "
-                      "serves."}
+from ..utils.device import DeviceLike
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: DeviceLike = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m iotml_torch.mlops",
         description="model lifecycle: versioned registry, live "
                     "rollout/rollback drills")
     sub = ap.add_subparsers(dest="cmd")
-    dp = sub.add_parser("drill", help="run a live drill (not ported: "
-                                      "ROADMAP A14)")
+    dp = sub.add_parser("drill", help="run a live drill; exit status is "
+                                      "the invariant verdict")
+    dp.add_argument("--drill", default="rollout",
+                    help="drill name (see `list`)")
+    dp.add_argument("--all", action="store_true",
+                    help="run every drill in sequence")
+    dp.add_argument("--seed", type=int, default=7)
+    dp.add_argument("--records", type=int, default=0,
+                    help="records to pump (0 = the drill's default)")
+    dp.add_argument("--slo-swap", type=float, default=5.0,
+                    help="rollout: max seconds promote -> scorer swap")
+    dp.add_argument("--slo-rollback", type=float, default=60.0,
+                    help="rollback: max seconds deploy -> rollback "
+                         "verdict")
+    dp.add_argument("--json", action="store_true")
     rp = sub.add_parser("registry", help="inspect a model registry root")
     rp.add_argument("--root", required=True)
     rp.add_argument("--json", action="store_true")
     sub.add_parser("list", help="list available drills")
-    # whatever the JAX drill's argv carries is accepted and not read:
-    # the subcommand only names the item that ports it
-    args, rest = ap.parse_known_args(argv)
-    if rest and args.cmd != "drill":
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = ap.parse_args(argv)
+
+    from .drill import DRILLS
 
     if args.cmd == "list":
-        for name, doc in sorted(DRILLS.items()):
-            print(f"{name:<10} {doc} (not ported: ROADMAP A14)")
+        for name, fn in sorted(DRILLS.items()):
+            doc = (fn.__doc__ or "").strip().splitlines()[0]
+            print(f"{name:<10} {doc}")
         return 0
     if args.cmd == "registry":
         from .registry import ModelRegistry
@@ -72,9 +85,30 @@ def main(argv=None) -> int:
     if args.cmd != "drill":
         ap.print_help()
         return 2
-    raise NotImplementedError(
-        "the live mlops drills run under the supervisor, which is not "
-        "ported yet (ROADMAP A14)")
+
+    names = sorted(DRILLS) if args.all else [args.drill]
+    unknown = [n for n in names if n not in DRILLS]
+    if unknown:
+        print(f"unknown drill(s) {unknown}; have: {sorted(DRILLS)}",
+              file=sys.stderr)
+        return 2
+    ok = True
+    for name in names:
+        kw = {"seed": args.seed, "device": device}
+        if args.records:
+            kw["records"] = args.records
+        if name == "rollout":
+            kw["slo_swap_s"] = args.slo_swap
+        elif name == "rollback":
+            kw["slo_rollback_s"] = args.slo_rollback
+        report = DRILLS[name](**kw)
+        if args.json:
+            print(json.dumps(report.to_dict(), indent=2, sort_keys=True,
+                             default=str))
+        else:
+            print("\n".join(report.lines()))
+        ok = ok and report.ok
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -43,9 +43,12 @@ The write passes the chaos point ``ckpt.write`` between serialize and
 the registry publication (a crash there: host state gone, registry
 untouched).  The phases feed ``iotml_checkpoint_seconds{phase}`` beside
 the plain ``seconds``, evictions ``iotml_checkpoint_dropped_total``, and
-``offsets_lag`` the gauge ``iotml_model_offsets_lag{component}``.  Not
-ported: the supervised writer loop (ROADMAP A14: ``start()`` runs a
-plain daemon thread).
+``offsets_lag`` the gauge ``iotml_model_offsets_lag{component}``.
+
+The writer runs either as its own registered daemon thread (``start()``)
+or as a supervised loop unit (``unit_loop()``, which hands the writer to
+a ``Supervisor``: a crash restarts it under backoff with the pending
+snapshots still queued, and ``start()`` becomes a no-op).
 """
 
 from __future__ import annotations
@@ -272,6 +275,8 @@ class AsyncCheckpointer:
         self._kick = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        #: a supervisor owns the writer loop (``unit_loop``)
+        self._external = False
         self._idle = threading.Event()
         self._idle.set()
         self.written = 0
@@ -405,9 +410,30 @@ class AsyncCheckpointer:
         return self._idle.wait(timeout_s)
 
     # -------------------------------------------------------- lifecycle
+    def unit_loop(self) -> Callable:
+        """The writer body as a ``SupervisedUnit`` loop: a heartbeat a
+        round, and a crash (injected or real) surfaces to the supervisor,
+        which restarts a fresh incarnation under backoff; pending
+        snapshots survive in the queue.  From here on ``start()`` spawns
+        nothing."""
+        self._external = True
+
+        def loop(unit):
+            while not unit.should_stop():
+                unit.heartbeat()
+                if self.write_once() is None:
+                    self._kick.wait(0.05)
+                    self._kick.clear()
+
+        return loop
+
     def start(self) -> "AsyncCheckpointer":
-        """Spawn the writer thread (idempotent)."""
-        if self._thread is not None and self._thread.is_alive():
+        """Spawn an unsupervised writer thread (idempotent; a no-op once
+        a supervisor runs ``unit_loop()``)."""
+        from ..supervise.registry import register_thread
+
+        if self._external or (self._thread is not None
+                              and self._thread.is_alive()):
             return self
         self._stop.clear()
 
@@ -423,8 +449,8 @@ class AsyncCheckpointer:
                     self._kick.wait(0.05)
                     self._kick.clear()
 
-        self._thread = threading.Thread(target=run, daemon=True,
-                                        name="iotml-ckpt-writer")
+        self._thread = register_thread(threading.Thread(
+            target=run, daemon=True, name="iotml-ckpt-writer"))
         self._thread.start()
         return self
 

@@ -24,9 +24,9 @@ event:
 Both sides of an ``ABRollout`` score on ``device`` (``cuda`` unless
 given), as every port scorer does.  A watcher's swap counts into
 ``iotml_model_swaps_total`` and sets ``iotml_model_version{component}``;
-a gate decision counts into ``iotml_rollouts_total{outcome}``.  Not
-ported: the supervised watcher loop and the mlops drills (ROADMAP A14);
-``RegistryWatcher.start()`` runs a plain daemon thread.
+a gate decision counts into ``iotml_rollouts_total{outcome}``.  A
+watcher polls on its own registered daemon thread (``start()``) or as a
+supervised loop unit (``unit_loop()``).
 """
 
 from __future__ import annotations
@@ -115,8 +115,22 @@ class RegistryWatcher:
             f"{self.registry.root} after {timeout_s}s")
 
     # -------------------------------------------------------- lifecycle
+    def unit_loop(self) -> Callable:
+        """The watcher body for a ``SupervisedUnit``: a heartbeat and a
+        poll every ``poll_interval_s``."""
+
+        def loop(unit):
+            while not unit.should_stop():
+                unit.heartbeat()
+                self.poll_once()
+                self._stop.wait(self.poll_interval_s)
+
+        return loop
+
     def start(self) -> "RegistryWatcher":
         """Poll on a daemon thread every ``poll_interval_s``."""
+        from ..supervise.registry import register_thread
+
         if self._thread is not None and self._thread.is_alive():
             return self
         self._stop.clear()
@@ -127,8 +141,8 @@ class RegistryWatcher:
                     self.poll_once()
                 except (OSError, ValueError, KeyError):
                     continue  # torn read mid-publish: next poll heals
-        self._thread = threading.Thread(target=run, daemon=True,
-                                        name="iotml-registry-watcher")
+        self._thread = register_thread(threading.Thread(
+            target=run, daemon=True, name="iotml-registry-watcher"))
         self._thread.start()
         return self
 

@@ -7,4 +7,5 @@ leader-kill, broker-restart, mqtt-flap and scorer-crash drills,
 ``python -m iotml_torch.supervise drill``, and the ``DrillReport`` the
 other drills use), and ``registry``, the process-wide registry of
 background threads and supervisors.  ``Platform.supervised()`` and
-``--supervise`` are ROADMAP A14."""
+``python -m iotml_torch.cli.up --supervise`` run the platform under a
+supervisor."""

@@ -290,10 +290,12 @@ class ContinuousTrainer:
             on_round: Optional[Callable[[dict], None]] = None) -> int:
         """Train rounds until ``stop()`` or ``max_rounds``; returns the
         rounds run.  ``on_round`` gets each round's stats.  In registry
-        mode the checkpointer's writer thread runs meanwhile, and at the
-        end the newest state is archived (forced past the cadence) and
-        the queue drained."""
+        mode the checkpointer's writer runs meanwhile, and at the end the
+        newest state is archived (forced past the cadence) and the queue
+        drained."""
         if self.checkpointer is not None:
+            # live mode owns its writer thread: a no-op when a supervisor
+            # runs the writer's unit_loop() instead
             self.checkpointer.start()
         start = self.rounds
         while (stop is None or not stop()) and \

@@ -170,10 +170,8 @@ def test_arm_disarm_and_the_injected_counter():
 
 
 def test_arm_from_env_names_a14_for_a_scenario():
-    """``IOTML_CHAOS`` arms the named scenario's schedule (the scenarios
-    are ported, the runner's non-cluster topologies are ROADMAP A14),
-    and an unknown name
-    raises KeyError as JAX's does, arming nothing."""
+    """``IOTML_CHAOS`` arms the named scenario's schedule, and an unknown
+    name raises KeyError as JAX's does, arming nothing."""
     assert faults.arm_from_env({}) is None
     assert faults.arm_from_env({"IOTML_CHAOS": "off"}) is None
     with pytest.raises(KeyError, match="broker-blackout"):

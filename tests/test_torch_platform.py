@@ -390,10 +390,19 @@ def test_durable_platform_restart_reserves_records_as_jax(tmp_path):
 
 
 def test_supervised_raises_a14():
+    """``supervised()``, once left out, returns the platform's supervisor:
+    its probed units, running once started, stopped by the caller."""
     p = Platform(partitions=1, device="cpu").start()
     try:
-        with pytest.raises(NotImplementedError, match="A14"):
-            p.supervised()
+        sup = p.supervised(poll_interval_s=0.02)
+        assert [u.name for u in sup.units()] == [
+            "kafka-wire", "mqtt-front", "ksql-tasks", "schema-registry"]
+        sup.start()
+        try:
+            assert _wait_for(lambda: all(u.state == "running"
+                                         for u in sup.units()))
+        finally:
+            sup.stop()
     finally:
         p.stop()
 
@@ -449,7 +458,7 @@ class _Built(Exception):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--supervise"], "A14"),
+    (["--supervise"], "supervised"),
     (["--connect-port", "0"], "A16"),
     (["--decode-ring-buffers", "4"], "IOTML_DECODE_RING_BUFFERS"),
     (["--raw-batch-bytes", "4096"], "IOTML_RAW_BATCH_BYTES"),
@@ -459,7 +468,22 @@ class _Built(Exception):
 def test_left_out_flags_raise(flag, item, monkeypatch):
     """The left-out flags raise naming their item; the columnar ring's
     and the raw produce plane's four flags set their knob in the
-    environment before the platform is built, as JAX's CLI does."""
+    environment before the platform is built, as JAX's CLI does;
+    ``--supervise``, once left out, runs the platform under its
+    supervisor."""
+    if item == "supervised":
+        made = []
+        real = Platform.supervised
+
+        def supervised(self, *a, **kw):
+            made.append(real(self, *a, **kw))
+            return made[-1]
+
+        monkeypatch.setattr(Platform, "supervised", supervised)
+        rc, seen = _main_platform(monkeypatch, flag)
+        assert rc == 0 and not seen["plat"].started
+        assert [len(sup.units()) for sup in made] == [5]
+        return
     if item.startswith("IOTML_"):
         monkeypatch.setenv(item, "")  # restored after the test
 
