@@ -537,7 +537,7 @@ non-zero exit and no result line:
                 snapshot still queued published after its restart with
                 the trainer's params bit for bit, then ``python -m
                 iotml_torch.cli.up --supervise`` as a child printing its
-                5 units and stopped by Ctrl-C; (d) the first
+                6 units and stopped by Ctrl-C; (d) the first
                 trainer-crash round's B1 launch held against the plain
                 version on its rows (``check_fit``), and every payload of
                 the rollback drill's production scorer within atol 1e-6
@@ -546,6 +546,35 @@ non-zero exit and no result line:
                 again).  Scenario
                 seconds, injected counts and verdicts, B1 launches by
                 scenario.
+17e. twin_path — the sinks and the digital twin (ROADMAP A16a) on the
+                card, after chaos_path: (a) ``python -m iotml_torch.twin
+                drill --seed 7 --records 1500`` through its ``main`` in
+                this process, exit 0 and its five invariants printed as
+                PASS; (b) ``python -m iotml_torch.chaos run --scenario
+                compaction-under-crash --seed 7 --records 500``, verdict
+                PASS; (c) 100,000 cars x 2 ticks (seed 7) into
+                SENSOR_DATA_S_AVRO's 10 partitions on a durable broker,
+                folded tick by tick by a ``TwinService``, its CAR_TWIN
+                changelog rolled and compacted, a second service rebuilt
+                from it with a snapshot byte-equal to the first's, and
+                ``GET /twin/<car>`` over ``ConnectServer.attach_twin``
+                for 1,000 cars, each equal to ``TwinService.get``; (d)
+                the first 100 batches of 100 normal rows joined with
+                ``TwinFeatureStore.matrix`` of their keys (38 columns)
+                fit for 20 epochs by ``fit_compiled``: exactly one B1
+                launch, through "elements" (the counts 0 just before),
+                held against the plain version (``check_fit``), then
+                kernel and plain timed; (e) ``StreamScorer(feature_store=
+                TwinFeatureStore(...), verdict_mask=np.ones(18, bool))``
+                over all 200,000 rows: rows scored and the predictions'
+                end offset 200,000, payloads against a CPU recompute of
+                the same joined rows (atol 2e-6 the first 100, 1e-5
+                all), the printed errors the live columns' mean (within
+                2e-6, and away from the joined row's), no kernel
+                launched; then the same scorer unjoined over the same
+                rows.  Fold, rebuild and scoring rates, changelog and
+                compaction counts, query p50/p99, the fit's kernel and
+                plain ms.
 18. fit_orders — after store_path's launch counts are read: its rows in
                 6 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
@@ -672,6 +701,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import http.client
 import inspect
 import io
@@ -707,6 +737,7 @@ from iotml_torch.cli import mnist_smoke as mnist_cli
 from iotml_torch.cli import serve as serve_cli
 from iotml_torch.cli.up import Platform
 from iotml_torch.cluster import ClusterClient, ScorerFleet
+from iotml_torch.connect import ConnectServer, ConnectWorker
 from iotml_torch.core.normalize import CAR_NORMALIZER
 from iotml_torch.core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
 from iotml_torch.data import pipeline
@@ -721,7 +752,7 @@ from iotml_torch.mlops import (ABRollout, AsyncCheckpointer, ModelRegistry,
 from iotml_torch.mlops.checkpoint import (params_from_h5_bytes,
                                           params_to_h5_bytes)
 from iotml_torch.models import h5_export
-from iotml_torch.models.autoencoder import (CAR_AUTOENCODER,
+from iotml_torch.models.autoencoder import (CAR_AUTOENCODER, AutoencoderSpec,
                                             CREDITCARD_AUTOENCODER,
                                             PARAM_NAMES, reconstruction_error)
 from iotml_torch.models.convert import params_to_jax
@@ -790,6 +821,8 @@ from iotml_torch.train.checkpoint import CheckpointManager
 from iotml_torch.train.live import ContinuousTrainer
 from iotml_torch.train.loop import Trainer, TrainState, make_scanned_fit
 from iotml_torch.train.optim import Adam
+from iotml_torch.twin import CHANGELOG_TOPIC, TwinFeatureStore, TwinService
+from iotml_torch.twin.__main__ import main as twin_cli
 from iotml_torch.utils import hdf5
 
 #: the JAX suite's own fused-vs-scanned bounds (tests/test_fused_train.py)
@@ -7498,7 +7531,10 @@ def _chaos_up_child() -> dict:
         proc.wait()
         raise AssertionError("chaos_path (c): `cli.up --supervise` did not "
                              "stop on SIGINT")
-    if proc.returncode != 0 or units != 5 or "stopped." not in rest:
+    # kafka-wire, mqtt-front, ksql-tasks, connect-driver, schema-registry,
+    # control-center: the command line serves Connect and the control
+    # center on port 0 by default
+    if proc.returncode != 0 or units != 6 or "stopped." not in rest:
         raise AssertionError(f"chaos_path (c): `cli.up --supervise` exited "
                              f"{proc.returncode}, units {units}:\n"
                              f"{''.join(seen)[-3000:]}")
@@ -7542,6 +7578,346 @@ def phase_chaos_path(card: str, root: str) -> dict:
           "kernel_launches_by_scenario": by_scenario})
     return {"launches": launches, "launches_by_design": by_design,
             "by_scenario": by_scenario, "max_abs_err": fit_err}
+
+
+# -------------------------------------------------------------- twin_path
+#: the reference's fleet (README.md: 100,000 cars) for two ticks into the
+#: sensor topic's 10 partitions (01_installConfluentPlatform.sh:180-183)
+TWIN_CARS = 100_000
+TWIN_TICKS = 2
+TWIN_PARTITIONS = 10
+#: cars queried over GET /twin/<car>, every TWIN_CARS // TWIN_QUERIES-th
+TWIN_QUERIES = 1_000
+#: the joined fit: the main path's slice (100 batches of 100 rows, 20
+#: epochs) with each live row joined to its car's twin features
+TWIN_FIT_BATCHES = 100
+TWIN_FIT_EPOCHS = 20
+#: deploy/smoke.sh's sizes for the drill and the compaction scenario
+TWIN_DRILL_ARGV = ["drill", "--seed", "7", "--records", "1500"]
+TWIN_CHAOS_ARGV = ["run", "--scenario", "compaction-under-crash", "--seed",
+                   "7", "--records", "500", "--json"]
+TWIN_DRILL_INVARIANTS = ("rebuild_equals_snapshot", "resume_no_refold",
+                         "compaction_reclaimed", "retired_stay_retired",
+                         "rest_serves_twin")
+
+
+def _twin_drill_cli() -> dict:
+    """(a) ``python -m iotml_torch.twin drill`` through its ``main`` in
+    this process: exit 0 and all five invariants printed as PASS."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = twin_cli(TWIN_DRILL_ARGV)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    passed = [line.split()[1].rstrip(":") for line in lines[1:]
+              if line.strip().startswith("PASS")]
+    if rc != 0 or tuple(passed) != TWIN_DRILL_INVARIANTS:
+        raise AssertionError(f"twin_path (a): the twin drill exited {rc}:\n"
+                             + out.getvalue())
+    return {"rc": rc, "seconds": seconds, "summary": lines[0],
+            "invariants_passed": passed}
+
+
+def _twin_chaos() -> dict:
+    """(b) the compaction-under-crash scenario through the chaos CLI."""
+    rc, doc, seconds = _chaos_cli(TWIN_CHAOS_ARGV)
+    failed = [i["name"] for i in doc["invariants"] if not i["ok"]]
+    if rc != 0 or failed or not doc["ok"]:
+        raise AssertionError(
+            f"twin_path (b): compaction-under-crash exited {rc}:\n"
+            + "\n".join(f"{'PASS' if i['ok'] else 'FAIL'}  {i['name']}: "
+                        f"{i['detail']}" for i in doc["invariants"]))
+    return {"verdict": "PASS", "seconds": seconds, "rc": rc,
+            "published": doc["published"], "injected": doc["injected"],
+            "invariants": [i["name"] for i in doc["invariants"]]}
+
+
+def _twin_fleet(d: str) -> dict:
+    """(c) the fleet's ticks folded by a TwinService on a durable broker,
+    the CAR_TWIN changelog rolled and compacted, a second service rebuilt
+    from it (its snapshot byte-equal to the first's), and GET /twin/<car>
+    over the connect REST for TWIN_QUERIES cars, each equal to the
+    table's document."""
+    broker = Broker(store_dir=d, store_policy=StorePolicy())
+    broker.create_topic(STORE_TOPIC, partitions=TWIN_PARTITIONS)
+    scenario = FleetScenario(num_cars=TWIN_CARS, seed=7)
+    gen = FleetGenerator(scenario)
+    codec = native.NativeCodec(KSQL_CAR_SCHEMA)
+    svc = TwinService(broker)
+    publish_s = fold_s = 0.0
+    published = 0
+    for _ in range(TWIN_TICKS):
+        # set-up in bulk: the records ``FleetGenerator.publish`` appends
+        # (keys, values, the tick's ms, crc32 partitions), one
+        # ``produce_many`` a tick
+        t0 = time.perf_counter()
+        cols = gen.step_columns()
+        msgs = codec.encode_batch(
+            gen.sensor_matrix(cols),
+            cols["failure_occurred"].astype("S16")[:, None], schema_id=1)
+        ts = int(gen.t * 1000)
+        broker.produce_many(STORE_TOPIC, [
+            (scenario.car_id(int(car)).encode(), m, ts)
+            for car, m in zip(cols["car"], msgs)])
+        published += len(msgs)
+        t1 = time.perf_counter()
+        while svc.pump_once():
+            pass
+        publish_s += t1 - t0
+        fold_s += time.perf_counter() - t1
+    if svc.applied != published or len(svc.table) != TWIN_CARS:
+        raise AssertionError(f"twin_path (c): folded {svc.applied} of "
+                             f"{published} records into "
+                             f"{len(svc.table)} cars")
+    t0 = time.perf_counter()
+    for p in range(TWIN_PARTITIONS):
+        broker.store.log_for(CHANGELOG_TOPIC, p).roll()
+    stats = broker.run_compaction(force=True)
+    compact_s = time.perf_counter() - t0
+    removed = sum(st.records_removed for st in stats.values())
+    t0 = time.perf_counter()
+    svc2 = TwinService(broker, group="iotml-twin-rebuilt")
+    rebuild_s = time.perf_counter() - t0
+    snapshot = svc.table.snapshot()
+    if svc2.table.snapshot() != snapshot or removed <= 0 or \
+            svc2.rebuilt_records != TWIN_CARS:
+        raise AssertionError(
+            f"twin_path (c): the rebuild from {svc2.rebuilt_records} "
+            f"changelog records (compaction removed {removed}) is not "
+            f"byte-equal to the folded table")
+    srv = ConnectServer(ConnectWorker(broker)).start()
+    lat = []
+    try:
+        srv.attach_twin(svc2)
+        host, port = srv.url.split("//")[1].rsplit(":", 1)
+        conn = http.client.HTTPConnection(host, int(port), timeout=10)
+        try:
+            for i in range(0, TWIN_CARS, TWIN_CARS // TWIN_QUERIES):
+                car = scenario.car_id(i)
+                t0 = time.perf_counter()
+                conn.request("GET", f"/twin/{car}")
+                r = conn.getresponse()
+                doc = json.loads(r.read())
+                lat.append(time.perf_counter() - t0)
+                if r.status != 200 or doc != svc2.get(car):
+                    raise AssertionError(f"twin_path (c): GET /twin/{car} "
+                                         f"answered {r.status}: {doc}")
+        finally:
+            conn.close()
+    finally:
+        srv.stop()
+    q = np.percentile(np.array(lat) * 1e3, [50, 99])
+    return {"broker": broker, "svc": svc2,
+            "info": {"cars": TWIN_CARS, "ticks": TWIN_TICKS,
+                     "partitions": TWIN_PARTITIONS, "published": published,
+                     "publish_s": publish_s, "fold_s": fold_s,
+                     "fold_records_per_s": published / fold_s,
+                     "changelog_records": svc.emitted,
+                     "compaction_s": compact_s,
+                     "compaction_records_removed": removed,
+                     "rebuild_s": rebuild_s,
+                     "rebuilt_records": svc2.rebuilt_records,
+                     "rebuild_records_per_s":
+                         svc2.rebuilt_records / rebuild_s,
+                     "snapshot_bytes": sum(len(v)
+                                           for v in snapshot.values()),
+                     "snapshot_byte_equal": True,
+                     "rest_queries": len(lat), "rest_equal": len(lat),
+                     "query_p50_ms": float(q[0]),
+                     "query_p99_ms": float(q[1])}}
+
+
+def _twin_joined(bs, fs):
+    """The batches with each live row joined to its car's twin features,
+    as ``StreamScorer`` joins them."""
+    return [dataclasses.replace(b, x=np.concatenate(
+        [b.x, fs.matrix(b.keys, b.x.shape[0])], axis=1).astype(b.x.dtype))
+        for b in bs]
+
+
+def _twin_fit(broker, fs) -> dict:
+    """(d) the joined model's fit on the card: ``fit_compiled`` over the
+    first TWIN_FIT_BATCHES batches of 100 normal rows, joined, for
+    TWIN_FIT_EPOCHS epochs (exactly one B1 launch, through "elements":
+    the counts are 0 just before), held against the plain version at the
+    fit bounds; the plain version and the kernel timed on the same
+    inputs."""
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(TWIN_PARTITIONS)]
+    bs = _twin_joined(list(SensorBatches(
+        StreamConsumer(broker, specs, group="twin-fit"), batch_size=100,
+        take=TWIN_FIT_BATCHES, only_normal=True, keep_keys=True)), fs)
+    F = bs[0].x.shape[1]
+    spec = AutoencoderSpec(input_dim=F)
+    design = fused_train.fit_design(100, F, spec.encoding_dim,
+                                    spec.hidden_dim)
+    trainer = Trainer(spec)  # the card
+    trainer._ensure_state()
+    before = _clone_state(trainer.state)
+    reset_fit_launches()
+    t0 = time.perf_counter()
+    hist = trainer.fit_compiled(bs, epochs=TWIN_FIT_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    if design != "elements" or launches != 1 or by_design["elements"] != 1:
+        raise AssertionError(f"twin_path (d): the joined fit at F={F} "
+                             f"launched B1 {launches}x ({by_design}), "
+                             f"design {design}, not once through elements")
+    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+        before, xs, masks, TWIN_FIT_EPOCHS)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    steps = len(bs) * TWIN_FIT_EPOCHS
+    err = check_fit("twin_path (d) joined fit",
+                    (trainer.state, torch.tensor(hist["loss"]),
+                     torch.tensor(hist["accuracy"])),
+                    (p_state, p_loss.cpu(), p_acc.cpu()), steps)
+    kernel_ms = cuda_ms(lambda: fused_train.fused_fit(
+        before, xs, masks, TWIN_FIT_EPOCHS), reps=3)
+    bound = fit_bound(len(bs), 100, F, spec.encoding_dim, spec.hidden_dim,
+                      TWIN_FIT_EPOCHS)
+    return {"trainer": trainer, "batches": bs, "launches": launches,
+            "launches_by_design": by_design, "max_abs_err": err,
+            "info": {"shape": [F, spec.encoding_dim, spec.hidden_dim],
+                     "batches": len(bs), "batch": 100,
+                     "epochs": TWIN_FIT_EPOCHS, "design": design,
+                     "fit_ms": 1e3 * fit_s, "kernel_ms": kernel_ms,
+                     "us_per_step": 1e3 * kernel_ms / steps,
+                     "plain_ms": plain_ms, **bound,
+                     "loss_first": hist["loss"][0],
+                     "loss_last": hist["loss"][-1],
+                     "max_abs_err": err, "b1_launches": launches,
+                     "b1_launches_by_design": by_design}}
+
+
+def _twin_score(broker, params, threshold: float, spec, topic: str,
+                group: str, feature_store) -> tuple:
+    """One drain of every record through ``StreamScorer`` on the card:
+    (payloads, rows/s)."""
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(TWIN_PARTITIONS)]
+    broker.create_topic(topic)
+    scorer = StreamScorer(
+        spec, params,
+        SensorBatches(StreamConsumer(broker, specs, group=group),
+                      batch_size=100, keep_keys=True),
+        OutputSequence(broker, topic, partition=0),
+        feature_store=feature_store, verdict_mask=np.ones(18, bool),
+        threshold=threshold)
+    t0 = time.perf_counter()
+    n = scorer.score_available()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = TWIN_CARS * TWIN_TICKS
+    if n != want or broker.end_offset(topic, 0) != want:
+        raise AssertionError(f"twin_path (e): scored {n} rows, "
+                             f"{broker.end_offset(topic, 0)} on {topic}, "
+                             f"published {want}")
+    payloads = [m.value.decode() for m in broker.fetch(topic, 0, 0,
+                                                       want + 1)]
+    return payloads, n / seconds
+
+
+def _twin_serve(broker, fs, fit: dict) -> dict:
+    """(e) the joined scorer on the card over every record, payloads and
+    errors against a CPU recompute of the same joined rows from the same
+    params, its printed errors the mean over the live columns only; then
+    the same scorer unjoined (18 wide, fresh weights) over the same rows,
+    the join's cost."""
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(TWIN_PARTITIONS)]
+    params = fit["trainer"].state.params
+    F = fit["batches"][0].x.shape[1]
+    spec = AutoencoderSpec(input_dim=F)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    x = np.concatenate([b.x[:b.n_valid] for b in _twin_joined(
+        SensorBatches(StreamConsumer(broker, specs, group="twin-recompute"),
+                      batch_size=100, keep_keys=True), fs)])
+    with torch.no_grad():
+        want = torch.func.functional_call(
+            spec.build("cpu"), cpu_params, (torch.from_numpy(x),)).numpy()
+    live = np.square(want[:, :18] - x[:, :18]).mean(axis=1)
+    joined = np.square(want - x).mean(axis=1)
+    threshold = float(np.percentile(live, 99.0))
+    reset_launches()
+    reset_fit_launches()
+    payloads, rows_s = _twin_score(broker, params, threshold, spec,
+                                   "model-predictions", "twin-serve", fs)
+    if any(path_launches().values()):
+        raise AssertionError(f"twin_path (e): the scorer launched "
+                             f"{path_launches()}")
+    rows, verdicts, errs = _payload_parts(payloads)
+    if rows.shape != want.shape or not np.isfinite(rows).all():
+        raise AssertionError(f"twin_path (e): payload rows {rows.shape}, "
+                             f"want {want.shape}")
+    err_first = float(np.abs(rows[:100] - want[:100]).max())
+    err_all = float(np.abs(rows - want).max())
+    if not np.allclose(rows[:100], want[:100], **CLI_TOL_FIRST) \
+            or not np.allclose(rows, want, **CLI_TOL_ALL):
+        raise AssertionError(f"twin_path (e): payloads disagree with a CPU "
+                             f"recompute: first 100 max {err_first}, all "
+                             f"max {err_all}")
+    # the printed error is the live columns' mean (six decimals), not the
+    # joined row's, and the verdicts follow it
+    flipped = [v != ("anomaly" if e > threshold else "normal")
+               for v, e in zip(verdicts, errs) if abs(e - threshold) > 1e-6]
+    live_diff = float(np.abs(errs - live).max())
+    joined_diff = float(np.abs(errs - joined).max())
+    if any(flipped) or live_diff > 2e-6 or joined_diff <= 1e-4:
+        raise AssertionError(
+            f"twin_path (e): printed errors {live_diff} from the live "
+            f"columns' mean, {joined_diff} from the joined row's, "
+            f"{sum(flipped)} verdicts flipped")
+    base = Trainer(CAR_AUTOENCODER)  # unjoined weights, never fitted
+    base._ensure_state()
+    _, unjoined_rows_s = _twin_score(broker, base.state.params, threshold,
+                                     CAR_AUTOENCODER,
+                                     "model-predictions-unjoined",
+                                     "twin-serve-unjoined", None)
+    return {"rows_scored": len(payloads), "threshold": threshold,
+            "anomalies": verdicts.count("anomaly"),
+            "payload_max_err_first_100": err_first,
+            "payload_max_err_all": err_all,
+            "printed_err_vs_live_mean": live_diff,
+            "printed_err_vs_joined_mean": joined_diff,
+            "rows_per_s_joined": rows_s,
+            "rows_per_s_unjoined": unjoined_rows_s}
+
+
+def phase_twin_path(card: str, root: str) -> dict:
+    """The sinks and the digital twin (ROADMAP A16a) on the card: (a) the
+    twin-rebuild drill through its CLI, (b) compaction-under-crash
+    through the chaos CLI, (c) the twin at the reference's fleet size,
+    (d) the joined model's fit (one B1 launch, "elements"), (e) the
+    joined scorer.  The launch counts are 0 just before (d) and read just
+    after it; (a), (b) and (e) launch no kernel."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    reset_fit_launches()
+    a = _twin_drill_cli()
+    b = _twin_chaos()
+    if any(path_launches().values()):
+        raise AssertionError(f"twin_path (a, b) launched "
+                             f"{path_launches()}")
+    d = str(Path(root) / "twin-store")
+    c = _twin_fleet(d)
+    fs = TwinFeatureStore(c["svc"])
+    fit = _twin_fit(c["broker"], fs)
+    e = _twin_serve(c["broker"], fs, fit)
+    c["broker"].close()
+    shutil.rmtree(d, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "twin_path", "card": card, "drill": a, "chaos": b,
+          "fleet": c["info"], "fit": fit["info"], "serve": e,
+          "phase_seconds": phase_s, "kernel_launches": fit["launches"],
+          "kernel_launches_by_design": fit["launches_by_design"]})
+    return {"launches": fit["launches"],
+            "launches_by_design": fit["launches_by_design"],
+            "max_abs_err": fit["max_abs_err"], "fit": fit["info"]}
 
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
@@ -8741,6 +9117,7 @@ def main() -> int:
         repl_info = phase_replication_path(card, root)
         cluster_info = phase_cluster_path(card, root)
         chaos_info = phase_chaos_path(card, root)
+        twin_info = phase_twin_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -8782,7 +9159,7 @@ def main() -> int:
         + ksql_info["launches"] + demo_info["launches"]
         + store_info["launches"] + repl_info["launches"]
         + cluster_info["launches"] + chaos_info["launches"]
-        + cc_info["launches"]
+        + twin_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -8801,6 +9178,7 @@ def main() -> int:
                              "replication_path": repl_info["launches"],
                              "cluster_path": cluster_info["launches"],
                              "chaos_path": chaos_info["launches"],
+                             "twin_path": twin_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -8820,6 +9198,7 @@ def main() -> int:
             + repl_info["launches_by_design"][d]
             + cluster_info["launches_by_design"][d]
             + chaos_info["launches_by_design"][d]
+            + twin_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
@@ -8829,7 +9208,8 @@ def main() -> int:
                            store_info["max_abs_err"],
                            repl_info["max_abs_err"],
                            cluster_info["max_abs_err"],
-                           chaos_info["max_abs_err"]),
+                           chaos_info["max_abs_err"],
+                           twin_info["max_abs_err"]),
         "store_path_launches_by_subphase": store_info["by_subphase"],
         "replication_path_launches_by_subphase": repl_info["by_subphase"],
         "cluster_path_launches_by_subphase": cluster_info["by_subphase"],
@@ -8843,7 +9223,11 @@ def main() -> int:
                        "steps": cc_info["steps"], "ms": cc_info["kernel_ms"],
                        "plain_ms_per_step": cc_info["plain_ms_per_step"],
                        "bound_ms": cc_info["bound_ms"],
-                       "bound_by": cc_info["bound_by"]}},
+                       "bound_by": cc_info["bound_by"]},
+        "twin": {key: twin_info["fit"][key] for key in (
+            "design", "shape", "batches", "batch", "epochs", "kernel_ms",
+            "us_per_step", "plain_ms", "bound_ms", "bound_by",
+            "one_sm_bound_ms")}},
         attention_entry("flash_fwd_causal", "iotml/ops/attention.py:215",
                         "causal", paths, attn_err, attn_timing),
         attention_entry("flash_fwd_full", "iotml/ops/attention.py:149",

@@ -13,8 +13,7 @@ prints a scenario's canonical schedule text, byte-identical for the same
 drives the pipeline under a scenario and prints the injected faults, the
 invariant verdicts and the traced topologies' stage-latency breakdown
 (exit status 0 iff every invariant passed); ``--spans PATH`` keeps that
-span log.  ``compaction-under-crash`` drives the twin service and raises
-NotImplementedError naming ROADMAP A16.  ``main(argv, device=...)`` runs
+span log.  ``main(argv, device=...)`` runs
 the scorers and trainers on ``device`` (``cuda`` unless given).
 """
 

@@ -25,8 +25,8 @@ stack documents:
 The topologies: ``inproc`` (mqtt-flap, slow-bridge, dup-storm,
 partition-blackout, scorer-crash-resume, loss-bug-fixture, which must
 fail), ``wire`` (leader-kill-mid-drain), ``store`` (broker-crash-recover,
-tier-upload-crash; compaction-under-crash drives the twin service, which
-is ROADMAP A16), ``replication`` (double-fault), ``mlops``
+tier-upload-crash, compaction-under-crash over the twin service's
+changelog), ``replication`` (double-fault), ``mlops``
 (trainer-crash-mid-checkpoint, rollout-regression-rollback), ``online``
 (drift-storm), ``obs`` (alert-burn, through ``obs.drill``) and
 ``cluster`` (rebalance-under-chaos).  Every scorer and trainer a run
@@ -517,12 +517,10 @@ class ChaosRunner:
                    span_path: str) -> ChaosReport:
         """The durable-broker scenarios, each in a store directory of its
         own that is removed afterwards."""
-        if self.schedule.name == "compaction-under-crash":
-            raise NotImplementedError(
-                "chaos scenario 'compaction-under-crash' drives the twin "
-                "service (twin/), which is not ported yet (ROADMAP A16)")
         store_dir = tempfile.mkdtemp(prefix="iotml_chaos_store_")
         try:
+            if self.schedule.name == "compaction-under-crash":
+                return self._run_compact_in(eng, span_path, store_dir)
             if self.schedule.name == "tier-upload-crash":
                 return self._run_tiered_in(eng, span_path, store_dir)
             return self._run_store_in(eng, span_path, store_dir)
@@ -692,6 +690,142 @@ class ChaosRunner:
                             rewinds, invariants, span_path)
 
     # ------------------------------------------------------------- tiered
+    def _run_compact_in(self, eng: faults.ChaosEngine, span_path: str,
+                        store_dir: str) -> ChaosReport:
+        """compaction-under-crash: a TwinService changelogs per-car state
+        into the compacted ``CAR_TWIN`` topic on a durable broker, then
+        the compactor is killed at the scheduled mid-pass segment swap
+        (an injected error at ``store.compact_swap``: the ``.cleaned``
+        rewrite is durable, the live segment untouched, a prefix of
+        earlier segments already swapped) and the store is remounted.
+        Proven: the stale tmp is swept at mount, no key (or tombstone) is
+        lost, every surviving record re-serves byte for byte, a finished
+        pass stays byte-stable across a second remount, and the twin
+        rebuilt from it equals the live table."""
+        import glob
+
+        from ..gen.simulator import FleetGenerator, FleetScenario
+        from ..store import StorePolicy
+        from ..store.compact import CLEANED_SUFFIX
+        from ..stream.broker import Broker
+        from ..twin import CHANGELOG_TOPIC, TwinService
+
+        policy = dict(fsync="interval", segment_bytes=16 * 1024,
+                      compact_grace_ms=10 ** 9)
+        parts = 2
+
+        def latest_per_key(reads):
+            latest = {}
+            for p, recs in reads.items():
+                for off, key, value, ts in recs:
+                    latest[(p, key)] = (off, value, ts)
+            return latest
+
+        def cleaned_tmps():
+            return sum(
+                len(glob.glob(os.path.join(d, "*" + CLEANED_SUFFIX)))
+                for d in part_dirs)
+
+        broker = Broker(store_dir=store_dir,
+                        store_policy=StorePolicy(**policy))
+        broker.create_topic(IN_TOPIC, partitions=parts)
+        svc = TwinService(broker)
+        gen = FleetGenerator(FleetScenario(num_cars=CARS_PER_TICK,
+                                           seed=self.schedule.seed))
+        published = 0
+        for _ in range(self._ticks(least=2)):
+            published += gen.publish(broker, IN_TOPIC, n_ticks=1,
+                                     partitions=parts)
+            svc.pump_once()
+        while svc.pump_once():
+            pass
+        svc.retire(svc.cars()[-1])  # a tombstone rides the changelog
+        table_snapshot = svc.table.snapshot()
+        part_dirs = [broker.store.log_for(CHANGELOG_TOPIC, p).dir
+                     for p in range(parts)]
+
+        pre_kill = _read_all(broker, CHANGELOG_TOPIC, parts)
+        latest_pre = latest_per_key(pre_kill)
+        for p in range(parts):
+            broker.store.log_for(CHANGELOG_TOPIC, p).roll()
+
+        # the kill: the scheduled error fires INSIDE the pass, between
+        # the durable rewrite and its atomic swap
+        crashed = False
+        try:
+            broker.run_compaction(force=True)
+        except RuntimeError:
+            crashed = True
+        tmps_left = cleaned_tmps()
+        # the crashed incarnation is dead: nothing flushed, nothing
+        # closed.  Remount from disk.
+        broker2 = Broker(store_dir=store_dir,
+                         store_policy=StorePolicy(**policy))
+        tmps_after = cleaned_tmps()
+        post_kill = _read_all(broker2, CHANGELOG_TOPIC, parts)
+        pre_sets = {p: set(recs) for p, recs in pre_kill.items()}
+        foreign = [r for p, recs in post_kill.items() for r in recs
+                   if r not in pre_sets[p]]
+
+        # finish the interrupted job on the remounted store, then remount
+        # again: the finished pass must be byte-stable
+        stats = broker2.run_compaction(force=True)
+        removed = sum(s.records_removed for s in stats.values())
+        done = _read_all(broker2, CHANGELOG_TOPIC, parts)
+        broker3 = Broker(store_dir=store_dir,
+                         store_policy=StorePolicy(**policy))
+        stable = _read_all(broker3, CHANGELOG_TOPIC, parts)
+        rebuilt = TwinService(broker3).table.snapshot()
+        broker3.close()
+
+        keys_ok = (latest_per_key(post_kill) == latest_pre
+                   and latest_per_key(done) == latest_pre
+                   and latest_per_key(stable) == latest_pre)
+        invariants = [
+            Invariant(
+                "crash_injected",
+                crashed and tmps_left > 0,
+                f"compactor killed mid-pass with {tmps_left} durable "
+                f".cleaned tmp(s) left unswapped" if crashed else
+                "the scheduled store.compact_swap error NEVER FIRED"),
+            Invariant(
+                "cleaned_tmp_swept",
+                tmps_after == 0,
+                "remount swept every stale .cleaned rewrite tmp"
+                if tmps_after == 0 else
+                f"{tmps_after} stale .cleaned tmp(s) SURVIVED the mount"),
+            Invariant(
+                "no_key_lost",
+                keys_ok,
+                f"latest-per-key table identical across kill, remount "
+                f"and finished compaction ({len(latest_pre)} keys incl. "
+                f"the tombstone)" if keys_ok else
+                "latest-per-key table DIVERGED across the crash"),
+            Invariant(
+                "survivors_byte_identical",
+                not foreign,
+                "every post-remount record existed pre-kill with "
+                "identical (offset, key, value, timestamp) — compaction "
+                "only ever removes" if not foreign else
+                f"{len(foreign)} record(s) MUTATED by the crashed pass"),
+            Invariant(
+                "compacted_reads_byte_stable",
+                done == stable and removed > 0,
+                f"finished pass removed {removed} shadowed records and "
+                f"reads are byte-identical across a remount"
+                if done == stable and removed > 0 else
+                f"compacted reads NOT byte-stable (removed={removed})"),
+            Invariant(
+                "twin_rebuild_equals_snapshot",
+                rebuilt == table_snapshot,
+                f"twin table rebuilt from the compacted changelog == the "
+                f"live service's snapshot ({len(table_snapshot)} cars)"
+                if rebuilt == table_snapshot else
+                "rebuilt twin table DIVERGED from the live snapshot"),
+        ]
+        return self._report(eng, "store", published, svc.applied, 0,
+                            invariants, span_path)
+
     def _run_tiered_in(self, eng: faults.ChaosEngine, span_path: str,
                        store_dir: str) -> ChaosReport:
         """tier-upload-crash: a durable broker tiers sealed segments into

@@ -21,6 +21,9 @@ brings up and prints endpoints for
   - the Schema Registry REST API (with both car schemas pre-registered)
   - the KSQL-equivalent REST API, reference DDL pipeline pre-installed,
     the engine owning `SENSOR_DATA_S_AVRO`
+  - the Kafka-Connect REST API (`connect`), with the car-health twin: a
+    `DocumentStoreSink` (`car-health-twin`) upserting the `car-health`
+    topic's alert records by car
   - a Prometheus /metrics + /healthz exporter
   - with `--registry DIR`, a versioned model registry and a watcher on
     its serving channel
@@ -43,19 +46,19 @@ in the JAX package; `--tier-uri` without durable mode is a usage error.
 
 `cc_port` / `--cc-port` serve the control center (`obs.control_center`:
 `GET /` and `GET /api/status`, its row `control-center` in
-`endpoints()`); the command line always serves it (port 0 by default,
-as in the JAX package), `Platform` when given a port.
+`endpoints()`), and `connect_port` / `--connect-port` Kafka Connect and
+the car-health twin (`connect`, its row `connect`); the command line
+always serves both (port 0 by default, as in the JAX package),
+`Platform` each when given a port.
 
 With `--supervise` (or `IOTML_SUPERVISE=1`) the component lifecycles
 run under a supervisor (``Platform.supervised()``): a crashed serving
 thread restarts under backoff, and a trainer's checkpoint writer handed
 to ``attach_checkpointer`` runs as a supervised loop.
 
-Left out, each raising NotImplementedError naming its ROADMAP item when
-given (as a constructor argument or a flag): Kafka Connect and the
-car-health twin (`connect_port`, `--connect-port`: A16), and
-`--prefetch-depth` (A10).  ``pump()`` drives the KSQL server alone until
-A16 brings Connect;
+Left out: `--prefetch-depth` (A10), which raises NotImplementedError
+naming its ROADMAP item when given.  ``pump()`` advances the KSQL
+queries and the connectors once;
 ``drain_ingest()`` waits until every message the simulated fleet sent is
 bridged and the KSQL outputs stop moving.  `--decode-ring-buffers`,
 `--raw-batch-bytes`, `--raw-produce` and `--produce-batch-bytes` set
@@ -74,10 +77,8 @@ from typing import Optional
 
 from ..utils.device import DeviceLike, resolve_device
 
-#: left-out constructor arguments → the ROADMAP item that ports them
-UNPORTED_ARGS = {"connect_port": "A16 (Kafka Connect)"}
 #: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
-UNPORTED_FLAGS = {"connect_port": "A16", "prefetch_depth": "A10"}
+UNPORTED_FLAGS = {"prefetch_depth": "A10"}
 
 
 class Platform:
@@ -96,12 +97,6 @@ class Platform:
                  registry_dir: Optional[str] = None,
                  registry_watch_poll_s: float = 0.25,
                  device: DeviceLike = None):
-        given = {"connect_port": connect_port}
-        for name, item in UNPORTED_ARGS.items():
-            if given[name] is not None:
-                raise NotImplementedError(
-                    f"Platform({name}=...) is not ported yet (ROADMAP "
-                    f"{item})")
         #: the device the platform's consumers (trainers, scorers) run on
         self.device = resolve_device(device)
         from ..core.schema import CAR_SCHEMA, KSQL_CAR_SCHEMA
@@ -174,6 +169,32 @@ class Platform:
         install_reference_pipeline(self.sql)
         self.ksql = KsqlServer(self.sql, host=host, port=ksql_port)
 
+        # Kafka Connect, when a port was given (0 binds a free one), with
+        # the digital twin for car health (the reference's MongoDB sink on
+        # the car stream, mongodb-connector-configmap.yaml:6-23): the
+        # per-car failure detector publishes keyed alert records onto
+        # `car-health` (serve/carhealth.py) and this sink upserts them by
+        # car id; the control center lists the active alerts, and the
+        # ConnectServer's driver thread pumps the sink once started
+        self.connect_worker = None
+        self.connect = None
+        self.car_twin = None
+        if connect_port is not None:
+            from ..connect import (ConnectServer, ConnectWorker,
+                                   DocumentStoreSink)
+
+            self.connect_worker = ConnectWorker(self.broker)
+            self.connect = ConnectServer(self.connect_worker, host=host,
+                                         port=connect_port)
+            self.broker.create_topic("car-health",
+                                     retention_messages=retention_messages)
+            self.car_twin = DocumentStoreSink(id_field="car")
+            self.connect.register_sink(
+                "car-health-twin", self.car_twin, ["car-health"],
+                kind="DocumentStoreSink",
+                config={"connector.class": "DocumentStoreSink",
+                        "topics": "car-health", "document.id.field": "car"})
+
         self.mqtt_broker = MqttBroker()
         self.bridge = KafkaBridge(self.mqtt_broker, self.broker,
                                   partitions=partitions)
@@ -228,6 +249,8 @@ class Platform:
         self.kafka.start()
         self.registry_server.start()
         self.ksql.start()
+        if self.connect is not None:
+            self.connect.start()
         self.mqtt.start()
         if self.registry_watcher is not None:
             self.registry_watcher.start()
@@ -254,6 +277,8 @@ class Platform:
             "schema-registry": self.registry_server.url,
             "ksql": self.ksql.url,
         })
+        if self.connect is not None:
+            out["connect"] = self.connect.url
         if self.control_center is not None:
             out["control-center"] = self.control_center.url
         if self.metrics_server is not None:
@@ -360,8 +385,12 @@ class Platform:
             ends = now
 
     def pump(self) -> int:
-        """Advance the continuous queries once (deterministic)."""
-        return self.ksql.pump_now()
+        """Advance the continuous queries and the connectors once
+        (deterministic); returns the queries' records."""
+        n = self.ksql.pump_now()
+        if self.connect is not None:
+            self.connect.pump_now()
+        return n
 
     # ------------------------------------------------------- supervision
     def supervised(self, poll_interval_s: Optional[float] = None):
@@ -373,12 +402,12 @@ class Platform:
         thread respawned under backoff: the kubelet role the reference
         gives to Kubernetes Deployments.  The units: ``kafka-wire``,
         ``mqtt-front``, ``ksql-tasks`` (the pump thread alone respawned),
-        ``schema-registry``, ``control-center`` (when the platform serves
-        one), ``fleet`` (when a fleet runs), ``registry-watcher`` (with a
-        registry) and the ``ckpt-writer`` loop (with an attached
-        checkpointer).  The MQTT→Kafka bridge has no thread of its own
-        and needs no unit; the JAX package's ``connect-driver`` unit
-        waits for Kafka Connect (ROADMAP A16).  ``poll_interval_s``
+        ``connect-driver`` (the Connect driver thread alone, when the
+        platform serves Connect), ``schema-registry``, ``control-center``
+        (when the platform serves one), ``fleet`` (when a fleet runs),
+        ``registry-watcher`` (with a registry) and the ``ckpt-writer``
+        loop (with an attached checkpointer).  The MQTT→Kafka bridge has
+        no thread of its own and needs no unit.  ``poll_interval_s``
         defaults to ``IOTML_SUPERVISE_POLL_S``, else 0.25.  Returns the
         Supervisor; the caller starts and stops it."""
         from ..supervise.registry import register_thread
@@ -422,6 +451,15 @@ class Platform:
         probed("mqtt-front", lambda: self.mqtt._thread, self.mqtt.start)
         probed("ksql-tasks", lambda: self.ksql._pump_thread,
                spawn_ksql_pump)
+        if self.connect is not None:
+            def spawn_connect_driver():
+                self.connect._driver = register_thread(threading.Thread(
+                    target=self.connect._drive, daemon=True,
+                    name="iotml-connect-driver"))
+                self.connect._driver.start()
+
+            probed("connect-driver", lambda: self.connect._driver,
+                   spawn_connect_driver)
         for name, rest in (("schema-registry", self.registry_server),
                            ("control-center", self.control_center)):
             if rest is not None:
@@ -448,7 +486,8 @@ class Platform:
             self.registry_watcher.stop()
         if self.checkpoint_writer is not None:
             self.checkpoint_writer.stop(flush=True)
-        for s in (self.ksql, self.registry_server, self.control_center):
+        for s in (self.connect, self.ksql, self.registry_server,
+                  self.control_center):
             if s is not None:
                 s.stop()
         self.kafka.shutdown()
@@ -482,8 +521,9 @@ def main(argv=None, device: DeviceLike = None) -> int:
     ap.add_argument("--mqtt-port", type=int, default=0)
     ap.add_argument("--registry-port", type=int, default=0)
     ap.add_argument("--ksql-port", type=int, default=0)
-    ap.add_argument("--connect-port", type=int, default=None,
-                    help="not ported (A16)")
+    ap.add_argument("--connect-port", type=int, default=0,
+                    help="Kafka Connect REST port (connectors, the "
+                         "car-health twin)")
     ap.add_argument("--cc-port", type=int, default=0,
                     help="control-center UI port (topics/queries/metrics)")
     ap.add_argument("--metrics-port", type=int, default=9100)
@@ -597,6 +637,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
                         tier=tier,
                         registry_port=args.registry_port,
                         ksql_port=args.ksql_port,
+                        connect_port=args.connect_port,
                         trusted_passthrough=args.trust_passthrough,
                         registry_dir=args.registry
                         or (cfg.mlops.registry_dir or None),

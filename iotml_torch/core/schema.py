@@ -6,7 +6,7 @@ derived from it: the producer schema (lower_snake_case) and the
 KSQL-derived schema the ML layer consumes (UPPER_CASE, nullable, plus
 the ``FAILURE_OCCURRED`` label), and the evolved writer schema v2 with
 its frame id; and each schema's Avro JSON (what a schema registry
-holds).  The CSV layout is not ported.
+holds); and the offline CSV fixture's column layout.
 """
 
 from __future__ import annotations
@@ -80,6 +80,10 @@ class RecordSchema:
             },
             indent=2,
         )
+
+    @property
+    def field_names(self):
+        return tuple(f.name for f in self.fields)
 
     def field(self, name: str) -> Field:
         for f in self.fields:
@@ -200,3 +204,7 @@ WRITER_SCHEMAS = {1: KSQL_CAR_SCHEMA, CAR_SCHEMA_V2_ID: KSQL_CAR_SCHEMA_V2}
 #: writer version → (schema, frame id)
 WRITER_VERSIONS = {1: (KSQL_CAR_SCHEMA, 1),
                    2: (KSQL_CAR_SCHEMA_V2, CAR_SCHEMA_V2_ID)}
+
+# Offline CSV fixture layout (reference testdata/car-sensor-data.csv):
+# header `time,car,<18 sensor columns in producer order>`.
+CSV_COLUMNS = ("time", "car") + CAR_SCHEMA.field_names

@@ -7,8 +7,8 @@ the same scenario yields the same columns bit for bit, and ``publish``
 appends the same records (key, value, timestamp, partition) to a broker
 topic: Confluent-framed Avro encoded by the native engine (the ML input
 stage), or the raw JSON with producer field names and the label that
-lands on ``sensor-data`` before the KSQL stage.  The CSV fixture writer
-is not ported.
+lands on ``sensor-data`` before the KSQL stage.  ``write_csv_fixture``
+writes the reference's offline CSV file from the same draws.
 """
 
 from __future__ import annotations
@@ -190,3 +190,34 @@ class FleetGenerator:
             count += len(msgs)
         return count
 
+
+
+def write_csv_fixture(path: str, n_rows: int = 10_000,
+                      scenario: Optional[FleetScenario] = None,
+                      start_time: int = 1_567_606_196) -> int:
+    """Write a `car-sensor-data.csv`-shaped offline fixture.
+
+    Header and column order match the reference's 10k-row test file
+    (`testdata/car-sensor-data.csv:1`): `time,car,<18 sensor columns>`, car
+    ids like `car1`, epoch-seconds timestamps.  Returns the row count.
+    """
+    from ..core.schema import CSV_COLUMNS
+
+    scenario = scenario or FleetScenario(num_cars=100)
+    gen = FleetGenerator(scenario)
+    n = 0
+    with open(path, "w") as fh:
+        fh.write(",".join(CSV_COLUMNS) + "\n")
+        t = start_time
+        while n < n_rows:
+            cols = gen.step_columns()
+            for i in range(len(cols["car"])):
+                if n >= n_rows:
+                    break
+                rec = gen.row_record(cols, i, CAR_SCHEMA)
+                row = [str(t), f"car{int(cols['car'][i]) + 1}"] + [
+                    str(rec[f.name]) for f in CAR_SCHEMA.fields]
+                fh.write(",".join(row) + "\n")
+                n += 1
+            t += max(int(scenario.interval_s), 1)
+    return n

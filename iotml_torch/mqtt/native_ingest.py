@@ -13,11 +13,12 @@ clears.
 `NativeIngestBridge` pairs the engine with the Kafka-extension role:
 drained publishes matching the topic mapping are produced onto the stream
 topic with the MQTT topic as key — identical record shape to
-`mqtt.bridge.KafkaBridge`, same metric family — on a pump thread, one
-``produce_many`` a drained batch.  The JAX package also has a
-RAW_PRODUCE leg that frames a drained batch once for a wire client with
-``produce_raw``; no client of the port has ``produce_raw`` until ROADMAP
-A13, so that leg is not ported and every batch takes ``produce_many``.
+`mqtt.bridge.KafkaBridge`, same metric family — on a pump thread.  Which
+leg a drained batch takes depends on the stream client: a wire client
+with ``produce_raw`` (and RAW_PRODUCE engaged) gets ``_produce_raw``,
+the batch framed once and shipped a partition at a time over
+RAW_PRODUCE; anything else (the in-process ``Broker`` among them) gets
+one ``produce_many`` a drained batch.
 
 This front is ingest-ONLY by design (no subscriptions, no retained
 messages, no QoS 2): the full broker semantics live on the Python fronts

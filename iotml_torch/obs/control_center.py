@@ -12,8 +12,10 @@ humans.
   GET /            HTML overview (auto-refreshes)
   GET /api/status  the same data as JSON
 
-The port's platform has no Kafka Connect and no car-health twin yet
-(ROADMAP A16): ``connectors`` is then empty and ``car_health`` absent.
+``connectors`` lists the platform's Kafka Connect connectors and
+``car_health`` summarises its car-health twin; a platform built without
+Connect (``Platform(connect_port=None)``) shows no connector and no
+``car_health``.
 """
 
 from __future__ import annotations

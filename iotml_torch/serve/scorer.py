@@ -29,7 +29,14 @@ super-batch (the values JAX's per-batch calls leave at its end),
 ``iotml_model_version{component=scorer}`` on a stamped swap,
 ``iotml_scorer_rewinds_total``; a completed drain publishes the ``score``
 watermark and, under tracing, closes the batcher's traces with their
-ingest→score span.  The feature-store join is ROADMAP A16.
+ingest→score span.
+
+With a ``feature_store`` (``twin.TwinFeatureStore``, or anything with
+``matrix(keys, n)`` and ``dim``) each 2-D batch's rows are joined with
+their cars' twin features before the forward, ``[F live + K twin]``
+wide: the model's ``input_dim`` must be F + K.  The verdict mask and the
+car-health feature heads stay on the live columns, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -77,9 +84,15 @@ def row_errors(preds: np.ndarray, xs: np.ndarray,
                verdict_mask: Optional[np.ndarray] = None) -> np.ndarray:
     """Per-row error of [S, B, ...] predictions against their inputs:
     the mean of squares over every non-batch axis, over the
-    ``verdict_mask`` features when given ([S, B, F] rows only)."""
+    ``verdict_mask`` features when given ([S, B, F] rows only).  A mask
+    shorter than the rows (rows widened by the feature-store join) is
+    padded with False: the joined columns stay out of the mean."""
     sq = np.square(preds - xs)
     if verdict_mask is not None and sq.ndim == 3:
+        if verdict_mask.shape[0] < sq.shape[2]:
+            verdict_mask = np.concatenate(
+                [verdict_mask,
+                 np.zeros(sq.shape[2] - verdict_mask.shape[0], bool)])
         return sq[:, :, verdict_mask].mean(axis=2)
     return sq.mean(axis=tuple(range(2, sq.ndim)))
 
@@ -103,6 +116,11 @@ class StreamScorer:
         errors and values when its feature heads are on.
       carhealth_topic: where its alert transitions are published (one
         ``produce_many`` a batch with transitions), on ``out``'s broker.
+      feature_store: optional per-car feature source (``matrix(keys,
+        n)`` → [n, dim] float32, ``dim``): 2-D rows are joined with
+        ``matrix(b.keys, B)`` before the forward (batches built with
+        ``keep_keys=True``; keyless rows and unknown cars join zeros).
+        Windowed rows are scored unjoined: they have no single car.
       device: where the forward runs (``cuda`` unless given).
     """
 
@@ -113,7 +131,7 @@ class StreamScorer:
                  out: OutputSequence, threshold: Optional[float] = None,
                  verdict_mask=None, carhealth=None,
                  carhealth_topic: Optional[str] = None,
-                 device: DeviceLike = None):
+                 feature_store=None, device: DeviceLike = None):
         self.device = resolve_device(device)
         #: the forward's module; its own weights are never read: every
         #: forward takes ``self.params``
@@ -128,6 +146,7 @@ class StreamScorer:
                              if verdict_mask is not None else None)
         self.carhealth = carhealth
         self.carhealth_topic = carhealth_topic
+        self.feature_store = feature_store
         self.scored = 0
         #: suspended (iterator, index_base) of a max_rows-truncated drain
         self._resume = None
@@ -241,7 +260,14 @@ class StreamScorer:
         return self.scored - start
 
     def _score_super_batch(self, bs, base: int) -> None:
-        xs = np.stack([b.x for b in bs])  # [S, B, F] (or [S, B, T, F])
+        if self.feature_store is not None and bs[0].x.ndim == 2:
+            # the join: twin features ride beside the live row into the
+            # model, so the reconstruction error covers both
+            xs = np.stack([np.concatenate(
+                [b.x, self.feature_store.matrix(b.keys, b.x.shape[0])],
+                axis=1).astype(b.x.dtype) for b in bs])  # [S, B, F + K]
+        else:
+            xs = np.stack([b.x for b in bs])  # [S, B, F] (or [S, B, T, F])
         S, B = xs.shape[:2]
         row_shape = xs.shape[2:]
         # pad the batch count to a power of two: drains vary in size, and
@@ -292,10 +318,13 @@ class StreamScorer:
             if self.carhealth is not None and b.keys is not None \
                     and b.n_valid:
                 n = b.n_valid
+                # the feature heads see the live columns only: joined
+                # twin features are model input, not car sensors
+                live = b.x.shape[1]
                 trans = self.carhealth.update(
                     b.keys[:n], err[:n],
-                    ferrs=sq[k][:n] if heads else None,
-                    fvals=xs[k][:n] if heads else None)
+                    ferrs=sq[k][:n, :live] if heads else None,
+                    fvals=xs[k][:n, :live] if heads else None)
                 if trans and self.carhealth_topic is not None:
                     self.carhealth.publish_transitions(
                         self.out.broker, self.carhealth_topic, trans)

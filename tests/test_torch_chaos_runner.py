@@ -4,8 +4,8 @@ gives the same published, scored, rewinds, accounted drops, injected
 faults and invariant verdicts (none of which reads a score's value);
 the rollback gate decides as JAX's at two more seeds; a trainer-crash
 run too short for its crash fails ``crash_injected_mid_publish`` where
-JAX's raises KeyError; ``compaction-under-crash`` names ROADMAP A16; the
-CLI's exit status is the verdict; the traced topologies leave tracing
+JAX's raises KeyError; ``compaction-under-crash`` runs the twin's
+compacted changelog to PASS; the CLI's exit status is the verdict; the traced topologies leave tracing
 as they found it."""
 
 import json
@@ -21,12 +21,14 @@ from iotml_torch.chaos.runner import ChaosRunner
 from iotml_torch.obs import tracing
 
 #: (scenario, records): 100 for the inproc, wire, store and replication
-#: topologies, 500 for mlops, drift-storm at JAX's own test size
+#: topologies, 500 for mlops and compaction-under-crash (deploy/smoke.sh's
+#: size), drift-storm at JAX's own test size
 CASES = [("mqtt-flap", 100), ("slow-bridge", 100), ("dup-storm", 100),
          ("partition-blackout", 100), ("scorer-crash-resume", 100),
          ("loss-bug-fixture", 100), ("leader-kill-mid-drain", 100),
          ("broker-crash-recover", 100), ("tier-upload-crash", 100),
-         ("double-fault", 100), ("trainer-crash-mid-checkpoint", 500),
+         ("double-fault", 100), ("compaction-under-crash", 500),
+         ("trainer-crash-mid-checkpoint", 500),
          ("rollout-regression-rollback", 500), ("drift-storm", 2000)]
 
 
@@ -100,10 +102,19 @@ def test_trainer_crash_too_short_fails_where_jax_raises(tmp_path):
 
 
 def test_compaction_under_crash_names_a16():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        ChaosRunner("compaction-under-crash", seed=7, records=100,
-                    device="cpu").run()
-    assert faults.engine() is None  # disarmed on the way out
+    """Once left out naming ROADMAP A16, the scenario now runs: at the
+    JAX suite's 100 records the compactor is killed mid-swap and every
+    invariant holds, as in JAX; the engine is disarmed on the way out."""
+    report = ChaosRunner("compaction-under-crash", seed=7, records=100,
+                         device="cpu").run()
+    assert report.ok, [i.detail for i in report.invariants if not i.ok]
+    assert report.topology == "store"
+    assert report.injected["store.compact_swap:error"] == 1
+    assert [i.name for i in report.invariants] == [
+        "crash_injected", "cleaned_tmp_swept", "no_key_lost",
+        "survivors_byte_identical", "compacted_reads_byte_stable",
+        "twin_rebuild_equals_snapshot"]
+    assert faults.engine() is None
 
 
 def test_alert_burn_runs_the_obs_drill_with_the_schedule(monkeypatch):

@@ -985,11 +985,10 @@ def test_chaos_cli_runs_the_cluster_scenario_and_names_a14_otherwise(
     assert chaos_main(argv) == 0
     out = capsys.readouterr().out
     assert "verdict: PASS" in out and "runner.kill_member" in out
-    # the other topologies run too; the twin's scenario names its item
-    for scenario in ("leader-kill-mid-drain", "double-fault"):
+    # the other topologies run too, the twin's compaction scenario among
+    # them
+    for scenario in ("leader-kill-mid-drain", "double-fault",
+                     "compaction-under-crash"):
         assert chaos_main(["run", "--scenario", scenario, "--records",
                            "100"], device="cpu") == 0
         assert "verdict: PASS" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        chaos_main(["run", "--scenario", "compaction-under-crash"],
-                   device="cpu")

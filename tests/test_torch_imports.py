@@ -350,3 +350,39 @@ def test_the_cluster_is_covered_and_loads_no_jax_stack():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+SINK_TWIN_MODULES = ["iotml_torch/connect/__init__.py",
+                     "iotml_torch/connect/runtime.py",
+                     "iotml_torch/connect/connectors.py",
+                     "iotml_torch/connect/server.py",
+                     "iotml_torch/ops/avro_container.py",
+                     "iotml_torch/twin/__init__.py",
+                     "iotml_torch/twin/state.py",
+                     "iotml_torch/twin/service.py",
+                     "iotml_torch/twin/features.py",
+                     "iotml_torch/twin/drill.py",
+                     "iotml_torch/twin/__main__.py",
+                     "iotml_torch/__main__.py"]
+
+
+def test_the_sinks_and_twin_are_covered_and_load_no_jax_stack():
+    """Connect, the Avro container writer and the twin, imported and
+    driven (the twin-rebuild drill over a durable broker and the connect
+    REST) in a fresh interpreter, pull in no module of the JAX stack or
+    the JAX package."""
+    import subprocess
+    import sys
+
+    assert set(SINK_TWIN_MODULES) <= set(FILES)
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in SINK_TWIN_MODULES]
+    code = ("import sys\n" + "".join(f"import {m}\n" for m in mods) +
+            "from iotml_torch.twin.drill import run_twin_rebuild_drill\n"
+            "assert run_twin_rebuild_drill(seed=11, records=300).ok\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\nprint(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

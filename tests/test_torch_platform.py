@@ -15,8 +15,12 @@ and ``main``) held against the JAX package's.
   (printed values atol 1e-6, the printed error one last digit apart,
   verdicts equal away from the threshold by 1e-4).
 - The REST surfaces, the wire port, a live fleet, the registry mount,
-  ``main`` and every left-out argument and flag (NotImplementedError
-  naming its ROADMAP item); no device and no card raises.
+  ``main`` and every left-out flag (NotImplementedError naming its
+  ROADMAP item); Kafka Connect and the car-health twin
+  (``connect_port``, ``--connect-port``): the Connect REST, the sink
+  pumped, the ``connect-driver`` unit and the control center's
+  ``connectors`` / ``car_health`` against JAX's; no device and no card
+  raises.
 
 Every server binds 127.0.0.1:0; every platform stops in a ``finally``.
 """
@@ -30,6 +34,7 @@ import sys
 import tempfile
 import time
 import types
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -257,6 +262,11 @@ def _get(url):
         conn.close()
 
 
+def _rest(url, path):
+    with urllib.request.urlopen(url + path, timeout=10) as r:
+        return r.status, json.loads(r.read())
+
+
 def test_rest_surfaces_and_wire_port(platforms):
     t, j, _, _ = platforms
     eps = t.endpoints()
@@ -305,8 +315,32 @@ def test_platform_with_live_fleet_and_registry(tmp_path):
 @pytest.mark.parametrize("arg,value,item", [
     ("connect_port", 0, "A16")])
 def test_left_out_arguments_raise(arg, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Platform(device="cpu", **{arg: value})
+    """``connect_port``, once left out (ROADMAP A16), serves Kafka
+    Connect: its REST lists the ``car-health-twin`` sink, and ``pump()``
+    moves the ``car-health`` records into the twin's documents, latest
+    state per car."""
+    p = Platform(partitions=1, device="cpu", **{arg: value}).start()
+    try:
+        url = p.endpoints()["connect"]
+        assert url == p.connect.url and p.connect._driver.is_alive()
+        assert _rest(url, "/connectors") == (200, ["car-health-twin"])
+        status, doc = _rest(url, "/connectors/car-health-twin/status")
+        assert status == 200 and doc["type"] == "sink"
+        p.connect.poll_interval_s = 3600  # pump() alone from here
+        for car, state in (("c1", "ALERT"), ("c2", "OK"), ("c1", "OK")):
+            p.broker.produce("car-health", json.dumps(
+                {"car": car, "state": state}).encode(), key=car.encode())
+        p.pump()
+        assert p.car_twin.docs == {"c1": {"car": "c1", "state": "OK"},
+                                   "c2": {"car": "c2", "state": "OK"}}
+        assert p.broker.committed("connect-car-health-twin", "car-health",
+                                  0) == 3
+    finally:
+        p.stop()
+    assert not p.connect._driver.is_alive()
+    bare = Platform(partitions=1, device="cpu")
+    assert bare.connect is None and bare.car_twin is None
+    assert "car-health" not in bare.broker.topics()
 
 
 @pytest.mark.parametrize("arg", ["store_dir", "store_policy", "tier"])
@@ -470,7 +504,7 @@ def test_left_out_flags_raise(flag, item, monkeypatch):
     and the raw produce plane's four flags set their knob in the
     environment before the platform is built, as JAX's CLI does;
     ``--supervise``, once left out, runs the platform under its
-    supervisor."""
+    supervisor, and ``--connect-port`` serves Kafka Connect."""
     if item == "supervised":
         made = []
         real = Platform.supervised
@@ -482,7 +516,17 @@ def test_left_out_flags_raise(flag, item, monkeypatch):
         monkeypatch.setattr(Platform, "supervised", supervised)
         rc, seen = _main_platform(monkeypatch, flag)
         assert rc == 0 and not seen["plat"].started
-        assert [len(sup.units()) for sup in made] == [5]
+        # kafka-wire, mqtt-front, ksql-tasks, connect-driver, registry, cc
+        assert [len(sup.units()) for sup in made] == [6]
+        return
+    if item == "A16":
+        # --connect-port, once left out, serves Kafka Connect there
+        port = _free_port()
+        rc, seen = _main_platform(monkeypatch, ["--connect-port",
+                                                str(port)])
+        assert rc == 0 and seen["kw"]["connect_port"] == port
+        assert seen["endpoints"]["connect"] == f"http://127.0.0.1:{port}"
+        assert not seen["plat"].started
         return
     if item.startswith("IOTML_"):
         monkeypatch.setenv(item, "")  # restored after the test
@@ -575,3 +619,75 @@ def test_gs_tier_without_google_cloud_storage_says_so(tmp_path, monkeypatch):
 def test_negative_retention_is_a_usage_error():
     with pytest.raises(SystemExit):
         up.main(["--retention", "-5", "--quiet"], device="cpu")
+
+
+def test_connect_driver_unit_equals_jax():
+    """With Connect, ``supervised()`` has JAX's units, ``connect-driver``
+    among them, in JAX's order; a dead driver thread is respawned."""
+    names = {}
+    for kind, make in (("jax", lambda: JPlatform(partitions=1)),
+                       ("port", lambda: Platform(partitions=1, cc_port=0,
+                                                 connect_port=0,
+                                                 device="cpu"))):
+        plat = make().start()
+        try:
+            names[kind] = [u.name for u in plat.supervised().units()]
+            if kind == "port":
+                sup = plat.supervised(poll_interval_s=0.02).start()
+                try:
+                    assert _wait_for(lambda: sup.unit(
+                        "connect-driver").state == "running")
+                    old = plat.connect._driver
+                    plat.connect._stop.set()  # the driver loop exits
+                    old.join(timeout=10)
+                    assert not old.is_alive()
+                    plat.connect._stop.clear()
+                    assert _wait_for(lambda: sup.unit(
+                        "connect-driver").restarts >= 1
+                        and plat.connect._driver is not old
+                        and plat.connect._driver.is_alive())
+                finally:
+                    sup.stop()
+        finally:
+            plat.stop()
+    assert names["port"] == names["jax"] == [
+        "kafka-wire", "mqtt-front", "ksql-tasks", "connect-driver",
+        "schema-registry", "control-center"]
+
+
+def test_control_center_connectors_and_car_health_equal_jax():
+    """The control center's ``connectors`` and ``car_health`` over the
+    same platform state (car-health records pumped through the twin sink)
+    equal JAX's, and so do the topics."""
+    from iotml.obs.control_center import ControlCenter as JControlCenter
+    from iotml_torch.obs.control_center import ControlCenter
+
+    records = [("c%d" % (i % 7), {"car": "c%d" % (i % 7),
+                                  "state": "ALERT" if i % 3 else "OK",
+                                  "t": 1000 + i, "source": "mean",
+                                  "ema": 0.5 + i})
+               for i in range(40)]
+    snaps = {}
+    for kind, make, cc in (
+            ("jax", lambda: JPlatform(partitions=2), JControlCenter),
+            ("port", lambda: Platform(partitions=2, connect_port=0,
+                                      cc_port=0, device="cpu"),
+             ControlCenter)):
+        plat = make()
+        plat.connect.poll_interval_s = 3600
+        plat.start()
+        try:
+            for car, doc in records:
+                plat.broker.produce("car-health", json.dumps(doc).encode(),
+                                    key=car.encode())
+            plat.pump()
+            snap = cc(plat).snapshot()
+            snaps[kind] = {k: snap[k] for k in ("connectors", "car_health",
+                                                "topics", "mqtt_sessions")}
+        finally:
+            plat.stop()
+    assert snaps["port"] == snaps["jax"]
+    ch = snaps["port"]["car_health"]
+    assert snaps["port"]["connectors"] == ["car-health-twin"]
+    assert ch["cars_tracked"] == 7 and ch["n_active"] == \
+        len(ch["active_alerts"]) > 0

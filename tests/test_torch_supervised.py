@@ -1,6 +1,6 @@
 """The supervised platform of the port (``iotml_torch.cli.up``): the units
-of ``Platform.supervised()`` against the JAX package's (less its
-``connect-driver``, which waits for Kafka Connect), a dead KSQL pump
+of ``Platform.supervised()`` against the JAX package's (a platform built
+without Connect has no ``connect-driver``), a dead KSQL pump
 respawned as JAX's test does (``tests/test_supervise.py``), a crashed
 ``ckpt-writer`` restarted with the snapshot still queued published bit for
 bit, ``--supervise`` / ``IOTML_SUPERVISE`` on the command line, and the
@@ -184,7 +184,8 @@ def test_cli_supervise_prints_its_units(how, capsys, monkeypatch):
     assert up.main(argv, device="cpu") == 0
     out = capsys.readouterr().out
     n = len(seen["sup"].units())
-    assert n == 5  # kafka-wire, mqtt-front, ksql-tasks, registry, cc
+    # kafka-wire, mqtt-front, ksql-tasks, connect-driver, registry, cc
+    assert n == 6
     assert f"  supervisor       {n} units (self-healing; states on " \
            f"/healthz)" in out
     assert out.rstrip().endswith("stopped.")
