@@ -109,7 +109,11 @@ non-zero exit and no result line:
                 against a CPU recompute, the cursor at the end); two
                 ``serve ... group`` members in threads, each with its own
                 client, over 10 partitions of 30,000 records (every
-                partition committed at its end, n ≤ scored ≤ 2n).  The
+                partition committed at its end, n ≤ scored ≤ 2n; the
+                leg their batches took, ring, fused ``poll_decoded`` or
+                message lists, counted in rows and equal to the leg the
+                JAX package's ``SensorBatches`` takes for the same
+                consumer, ``jax_sensor_leg``).  The
                 write-back sends one PRODUCE request a non-empty flush;
                 the consumers read through RAW_FETCH into the columnar
                 ring: the RAW_FETCH and RAW_PRODUCE requests equal the
@@ -575,6 +579,34 @@ non-zero exit and no result line:
                 rows.  Fold, rebuild and scoring rates, changelog and
                 compaction counts, query p50/p99, the fit's kernel and
                 plain ms.
+17f. gateway_path — the gateway serving plane (ROADMAP A16b) on the
+                card, after twin_path: (a) ``python -m iotml_torch.gateway
+                drill --seed 7 --records 1500 --cars 30`` three times and
+                ``--seed 11 --records 2000 --cars 40 --json`` once, through
+                its ``main`` in this process, each exit 0 with its six
+                invariants PASS (promote and staleness seconds, the storm's
+                queries and p99, the delta replay); (b) ``python -m
+                iotml_torch.gateway fleet`` at its defaults (100,000 cars,
+                2 front processes, 2 ticks, 2 shards, 8 partitions, seed
+                20): 200,000 published and folded, 100,000 cars served,
+                every front's lookups answered, both fronts native, the
+                payloads encoded by ``NativeCodec``; (c) 20,000 cars x 2
+                ticks (seed 7) into SENSOR_DATA_S_AVRO's 8 partitions,
+                served by a ``GatewayCluster`` of 2 shards with standbys
+                and by a reference ``TwinService(changelog=False)``:
+                ``GatewayClient.matrix`` bit-equal to
+                ``TwinFeatureStore.matrix`` for every batch's keys; the
+                first 100 batches of 100 normal rows joined through each
+                store fit for 20 epochs from one start state, exactly two
+                B1 launches, both "elements" (the counts 0 just before),
+                params bit-equal, the gateway's held against the plain
+                version (``check_fit``); ``StreamScorer(feature_store=
+                GatewayClient(...))`` over all 40,000 rows, shard 0 killed
+                and promoted after the first call (25,600 rows), payloads
+                byte-equal to the same scorer's through the local store
+                and the first 100 against a CPU recompute; no kernel in
+                (a), (b) or the scorers.  Rows/s through either store,
+                the fleet's seconds and records/s.
 18. fit_orders — after store_path's launch counts are read: its rows in
                 6 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
@@ -744,6 +776,9 @@ from iotml_torch.data import pipeline
 from iotml_torch.data.dataset import Batch, RowSource, SensorBatches
 from iotml_torch.data.mnist_stream import synth_mnist
 from iotml_torch.evaluate import anomaly
+from iotml_torch.gateway import GatewayClient, GatewayCluster
+from iotml_torch.gateway import drill as gateway_drill
+from iotml_torch.gateway.__main__ import main as gateway_cli
 from iotml_torch.gen.scenarios import AdversarialFleet
 from iotml_torch.gen.scenarios import condition as scenario_condition
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
@@ -1866,9 +1901,65 @@ def _check_one_produce_per_flush(counts, flushes, where) -> None:
                              f"requests for {flushes[0]} non-empty flushes")
 
 
+#: the three legs a ``SensorBatches`` reads by, by the consumer call each
+#: polls through
+SENSOR_LEGS = {"poll_into": "ring", "poll_decoded": "fused",
+               "poll": "message lists"}
+
+
+def jax_sensor_leg(consumer) -> str:
+    """The leg the JAX package's ``SensorBatches`` takes for a consumer
+    like this one: the columnar ring where the consumer has ``poll_into``
+    and its broker ``fetch_raw`` and the frames exist as bytes (a wire hop
+    or a durable store; iotml/data/dataset.py:203-224), else the fused
+    ``poll_decoded`` over a broker with ``fetch_decode``
+    (iotml/data/dataset.py:372-375), else message lists."""
+    broker = consumer.broker
+    if getattr(consumer, "poll_into", None) is not None and \
+            getattr(broker, "fetch_raw", None) is not None:
+        durable = getattr(broker, "durable", None)
+        if not (obs_tracing.ENABLED and durable is not None) and \
+                (durable is None or bool(durable)):
+            return "ring"
+    if getattr(broker, "fetch_decode", None) is not None:
+        return "fused"
+    return "message lists"
+
+
+@contextlib.contextmanager
+def _group_legs():
+    """Count the rows each ``GroupConsumer`` read by each leg (a call that
+    returns rows counts them) and keep the consumers that polled."""
+    rows = collections.Counter()
+    consumers = []
+    real = {name: getattr(GroupConsumer, name) for name in SENSOR_LEGS}
+
+    def spy(name):
+        def call(self, *a, **kw):
+            res = real[name](self, *a, **kw)
+            if self not in consumers:
+                consumers.append(self)
+            n = 0 if res is None else (res[0] if name == "poll_into"
+                                       else len(res[0]) if name ==
+                                       "poll_decoded" else len(res))
+            rows[SENSOR_LEGS[name]] += int(n)
+            return res
+        return call
+
+    for name in SENSOR_LEGS:
+        setattr(GroupConsumer, name, spy(name))
+    try:
+        yield rows, consumers
+    finally:
+        for name, fn in real.items():
+            setattr(GroupConsumer, name, fn)
+
+
 def _wire_group(params_root: str) -> dict:
     """Two ``serve ... group`` members, threads of this process, each
-    with its own wire client, over 10 partitions of 30,000 records."""
+    with its own wire client, over 10 partitions of 30,000 records; the
+    leg their batches took (ring, fused or message lists) must be the one
+    the JAX package's ``SensorBatches`` takes for the same consumer."""
     backing = Broker()
     n = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01)) \
         .publish(backing, SERVE_TOPIC, n_ticks=300, partitions=10)
@@ -1883,7 +1974,8 @@ def _wire_group(params_root: str) -> dict:
             rcs[i] = serve_cli.main(list(argv), max_rounds=8)
 
         out = io.StringIO()  # both members print here: one stats line each
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), _group_legs() as (legs,
+                                                                members):
             t0 = time.perf_counter()
             threads = [threading.Thread(target=member, args=(i,))
                        for i in (0, 1)]
@@ -1908,8 +2000,15 @@ def _wire_group(params_root: str) -> dict:
         raise AssertionError(f"wire group: committed {committed} vs ends "
                              f"{ends}; {scored} scored of {n} (members "
                              f"{rows})")
+    taken = sorted(leg for leg, k in legs.items() if k)
+    want = sorted({jax_sensor_leg(c) for c in members})
+    if taken != want or len(want) != 1 or len(members) < 2:
+        raise AssertionError(f"wire group: the members read by {dict(legs)}"
+                             f" ({len(members)} consumers), the JAX "
+                             f"package's SensorBatches by {want}")
     return {"records": n, "partitions": 10, "scored": scored,
-            "member_rows": rows, "seconds": seconds}
+            "member_rows": rows, "seconds": seconds,
+            "leg": taken[0], "leg_rows": dict(legs)}
 
 
 def phase_wire_path(card: str, root: str, cli_info: dict) -> dict:
@@ -7920,6 +8019,384 @@ def phase_twin_path(card: str, root: str) -> dict:
             "max_abs_err": fit["max_abs_err"], "fit": fit["info"]}
 
 
+# ----------------------------------------------------------- gateway_path
+#: deploy/smoke.sh's drill (three runs) and .github/workflows/gateway.yml's
+#: (one, with --json)
+GATEWAY_DRILLS = (
+    ["drill", "--seed", "7", "--records", "1500", "--cars", "30"],
+    ["drill", "--seed", "7", "--records", "1500", "--cars", "30"],
+    ["drill", "--seed", "7", "--records", "1500", "--cars", "30"],
+    ["drill", "--seed", "11", "--records", "2000", "--cars", "40", "--json"])
+GATEWAY_INVARIANTS = ("standby_byte_identical", "promote_within_slo",
+                      "zero_wrong_answers", "bounded_staleness",
+                      "fanout_agrees", "scorer_join_matches")
+#: the fleet at the CLI's defaults: 100,000 cars, 2 fronts, 2 ticks,
+#: 2 shards, 8 partitions, seed 20
+GATEWAY_FLEET_ARGV = ["fleet"]
+GATEWAY_FLEET_CARS = 100_000
+GATEWAY_FLEET_TICKS = 2
+#: (c): the sharded join's fleet, served by 2 shards with standbys
+GATEWAY_CARS = 20_000
+GATEWAY_TICKS = 2
+GATEWAY_PARTITIONS = 8
+GATEWAY_SHARDS = 2
+#: the joined fits: the main path's slice of batches and epochs
+GATEWAY_FIT_BATCHES = 100
+GATEWAY_FIT_EPOCHS = 20
+#: each await of (c) (the shards folding 40,000 records) ends here
+GATEWAY_WAIT_S = 300.0
+
+
+def _gateway_drill(argv) -> dict:
+    """One ``python -m iotml_torch.gateway drill`` through its ``main`` in
+    this process: exit 0 and all six invariants PASS."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = gateway_cli(list(argv))
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    if "--json" in argv:
+        doc = json.loads(text)
+        names = [i["name"] for i in doc["invariants"] if i["ok"]]
+        info = {"published": doc["published"],
+                "storm_queries": doc["storm_queries"],
+                "storm_p99_ms": doc["storm_p99_ms"],
+                "promote_s": doc["slos"]["promote_s"],
+                "staleness_s": doc["slos"]["staleness_s"],
+                "delta_replay_records": doc["promote_catchup_records"]}
+    else:
+        lines = text.splitlines()
+        names = [line.split()[1].rstrip(":") for line in lines[1:]
+                 if line.strip().startswith("PASS")]
+        fields = dict(kv.split("=", 1) for kv in lines[0].split()[2:])
+        replay = re.search(r"delta replay (\d+) records", text)
+        info = {"published": int(fields["published"]),
+                "storm_queries": int(fields["storm_queries"]),
+                "storm_p99_ms": float(fields["storm_p99_ms"]),
+                "promote_s": float(fields["promote_s"]),
+                "staleness_s": float(fields["staleness_s"]),
+                "delta_replay_records": int(replay.group(1))}
+    if rc != 0 or tuple(names) != GATEWAY_INVARIANTS:
+        raise AssertionError(f"gateway_path (a): {' '.join(argv)} exited "
+                             f"{rc}:\n{text}")
+    return {"argv": " ".join(argv), "rc": rc, "seconds": seconds,
+            "invariants_passed": len(names), **info}
+
+
+def _gateway_fleet() -> dict:
+    """(b) ``python -m iotml_torch.gateway fleet`` at its defaults through
+    its ``main``: every record folded, every car served, the lookups of
+    each front answered, both fronts native and the payloads encoded by
+    ``NativeCodec``."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = gateway_cli(GATEWAY_FLEET_ARGV)
+    doc = json.loads(out.getvalue())
+    want = GATEWAY_FLEET_CARS * GATEWAY_FLEET_TICKS
+    if rc != 0 or not doc["ok"] or doc["published"] != want or \
+            doc["folded"] != want or \
+            doc["fleet_cars_served"] != GATEWAY_FLEET_CARS or \
+            not all(doc["per_front_lookups_ok"]) or \
+            doc["native_fronts"] != doc["fronts"] or doc["fronts"] != 2 or \
+            doc["codec"] != "native":
+        raise AssertionError(f"gateway_path (b): the fleet exited {rc}: "
+                             f"{doc}")
+    return {**doc, "folded_records_per_s": doc["folded"] / doc["elapsed_s"]}
+
+
+def _gateway_publish(broker) -> int:
+    """GATEWAY_CARS x GATEWAY_TICKS framed-Avro records (seed 7) into
+    SENSOR_DATA_S_AVRO, keyed by car (the broker's crc32 partitioner),
+    made in bulk: one encode and one ``produce_many`` a tick."""
+    broker.create_topic(STORE_TOPIC, partitions=GATEWAY_PARTITIONS)
+    scenario = FleetScenario(num_cars=GATEWAY_CARS, seed=7)
+    gen = FleetGenerator(scenario)
+    codec = native.NativeCodec(KSQL_CAR_SCHEMA)
+    published = 0
+    for _ in range(GATEWAY_TICKS):
+        cols = gen.step_columns()
+        msgs = codec.encode_batch(
+            gen.sensor_matrix(cols),
+            cols["failure_occurred"].astype("S16")[:, None], schema_id=1)
+        ts = int(gen.t * 1000)
+        broker.produce_many(STORE_TOPIC, [
+            (scenario.car_id(int(car)).encode(), m, ts)
+            for car, m in zip(cols["car"], msgs)])
+        published += len(msgs)
+    return published
+
+
+def _gateway_await(cond, what: str) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > GATEWAY_WAIT_S:
+            raise AssertionError(f"gateway_path (c): {what} not reached in "
+                                 f"{GATEWAY_WAIT_S} s")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _gateway_batches(broker, group: str, **kw):
+    specs = [f"{STORE_TOPIC}:{p}:0" for p in range(GATEWAY_PARTITIONS)]
+    return SensorBatches(StreamConsumer(broker, specs, group=group),
+                         batch_size=100, keep_keys=True, **kw)
+
+
+def _gateway_matrices(broker, client, fs) -> dict:
+    """``GatewayClient.matrix`` against ``TwinFeatureStore.matrix`` for
+    every batch's keys, bit for bit."""
+    batches = rows = 0
+    t_remote = t_local = 0.0
+    for b in _gateway_batches(broker, "gw-matrix"):
+        t0 = time.perf_counter()
+        remote = client.matrix(b.keys, b.x.shape[0])
+        t1 = time.perf_counter()
+        local = fs.matrix(b.keys, b.x.shape[0])
+        t_local += time.perf_counter() - t1
+        t_remote += t1 - t0
+        if remote.dtype != np.float32 or not np.array_equal(
+                remote.view(np.uint32), local.view(np.uint32)):
+            raise AssertionError(f"gateway_path (c): GatewayClient.matrix "
+                                 f"differs from TwinFeatureStore.matrix at "
+                                 f"batch {batches}")
+        batches += 1
+        rows += b.n_valid
+    if rows != GATEWAY_CARS * GATEWAY_TICKS:
+        raise AssertionError(f"gateway_path (c): {rows} rows matched")
+    return {"batches": batches, "rows": rows, "bit_equal": True,
+            "remote_ms_per_batch": 1e3 * t_remote / batches,
+            "local_ms_per_batch": 1e3 * t_local / batches}
+
+
+def _gateway_fits(broker, client, fs) -> dict:
+    """The joined model fit once through each feature store from one
+    start state: exactly two B1 launches, both "elements" (the counts 0
+    just before), params bit-equal, the gateway-joined fit held against
+    the plain version (``check_fit``)."""
+    joined = {}
+    for name, store in (("gateway", client), ("local", fs)):
+        joined[name] = _twin_joined(list(_gateway_batches(
+            broker, f"gw-fit-{name}", take=GATEWAY_FIT_BATCHES,
+            only_normal=True)), store)
+    F = joined["gateway"][0].x.shape[1]
+    spec = AutoencoderSpec(input_dim=F)
+    design = fused_train.fit_design(100, F, spec.encoding_dim,
+                                    spec.hidden_dim)
+    start = Trainer(spec)  # the card
+    start._ensure_state()
+    before = _clone_state(start.state)
+    trainers, hists = {}, {}
+    reset_launches()
+    reset_fit_launches()
+    for name in ("gateway", "local"):
+        trainers[name] = Trainer(spec)
+        trainers[name].state = _clone_state(before)
+        hists[name] = trainers[name].fit_compiled(joined[name],
+                                                  epochs=GATEWAY_FIT_EPOCHS)
+    torch.cuda.synchronize()
+    launches = fused_train.fused_fit.launches
+    by_design = dict(fused_train.fused_fit.launches_by_design)
+    flash = {k: n for k, n in path_launches().items() if k != "fused_fit"}
+    if design != "elements" or launches != 2 or by_design["elements"] != 2 \
+            or any(flash.values()):
+        raise AssertionError(f"gateway_path (c): the two joined fits at "
+                             f"F={F} launched B1 {launches}x ({by_design}, "
+                             f"design {design}), flash {flash}")
+    for key in PARAM_NAMES:
+        a = trainers["gateway"].state.params[key]
+        b = trainers["local"].state.params[key]
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"gateway_path (c): the fit through the "
+                                 f"gateway differs from the local fit in "
+                                 f"{key}")
+    bs = joined["gateway"]
+    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+        before, xs, masks, GATEWAY_FIT_EPOCHS)
+    steps = len(bs) * GATEWAY_FIT_EPOCHS
+    hist = hists["gateway"]
+    err = check_fit("gateway_path (c) gateway-joined fit",
+                    (trainers["gateway"].state, torch.tensor(hist["loss"]),
+                     torch.tensor(hist["accuracy"])),
+                    (p_state, p_loss.cpu(), p_acc.cpu()), steps)
+    return {"trainer": trainers["gateway"], "batches": bs,
+            "launches": launches, "launches_by_design": by_design,
+            "max_abs_err": err,
+            "info": {"shape": [F, spec.encoding_dim, spec.hidden_dim],
+                     "batches": len(bs), "epochs": GATEWAY_FIT_EPOCHS,
+                     "design": design, "b1_launches": launches,
+                     "b1_launches_by_design": by_design,
+                     "params_bit_equal": True,
+                     "loss_first": hist["loss"][0],
+                     "loss_last": hist["loss"][-1], "max_abs_err": err}}
+
+
+def _gateway_score(broker, cluster, store, params, spec, threshold: float,
+                   topic: str, kill: bool) -> tuple:
+    """Every record through ``StreamScorer(feature_store=store)`` on the
+    card, in two calls: the first stops at the first super-batch that
+    reaches half the rows (25,600 of 40,000 at 128 batches a super-batch),
+    the second drains the rest; with ``kill``, shard 0 is killed and its
+    standby promoted between them.  (payloads, rows/s,
+    the failover's numbers or None)"""
+    want = GATEWAY_CARS * GATEWAY_TICKS
+    broker.create_topic(topic)
+    scorer = StreamScorer(
+        spec, params, _gateway_batches(broker, f"gw-{topic}"),
+        OutputSequence(broker, topic, partition=0), feature_store=store,
+        verdict_mask=np.ones(18, bool), threshold=threshold)
+    failover = None
+    t0 = time.perf_counter()
+    n = scorer.score_available(max_rows=want // 2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if kill:
+        if not 0 < n < want:
+            raise AssertionError(f"gateway_path (c): the kill would land "
+                                 f"after {n} of {want} rows, not mid-drain")
+        old_url, refreshes = cluster.shards[0].url, store.refreshes
+        cluster.kill_shard(0)
+        failover = {"rows_before_kill": n,
+                    "promote_s": cluster.promote(0),
+                    "new_url": cluster.shards[0].url != old_url}
+    t0 = time.perf_counter()
+    n += scorer.score_available()
+    torch.cuda.synchronize()
+    seconds += time.perf_counter() - t0
+    if kill:
+        failover["client_refreshes"] = store.refreshes - refreshes
+    if n != want or broker.end_offset(topic, 0) != want:
+        raise AssertionError(f"gateway_path (c): scored {n} rows, "
+                             f"{broker.end_offset(topic, 0)} on {topic}, "
+                             f"published {want}")
+    payloads = [m.value for m in broker.fetch(topic, 0, 0, want + 1)]
+    return payloads, n / seconds, failover
+
+
+def _gateway_serve(broker, cluster, client, fs, fit: dict) -> dict:
+    """The joined scorer through ``GatewayClient`` across a kill and
+    promotion of shard 0, its payloads byte-equal to the same scorer's
+    through the local ``TwinFeatureStore`` (same rows, same params, same
+    calls), the first 100 rows against a CPU recompute."""
+    params = fit["trainer"].state.params
+    F = fit["batches"][0].x.shape[1]
+    spec = AutoencoderSpec(input_dim=F)
+    x = np.concatenate([b.x[:b.n_valid] for b in _twin_joined(
+        list(_gateway_batches(broker, "gw-recompute", take=10)), fs)])
+    with torch.no_grad():
+        want = torch.func.functional_call(
+            spec.build("cpu"), {k: v.cpu() for k, v in params.items()},
+            (torch.from_numpy(x),)).numpy()
+    threshold = float(np.percentile(
+        np.square(want[:, :18] - x[:, :18]).mean(axis=1), 99.0))
+    reset_launches()
+    reset_fit_launches()
+    remote, remote_rows_s, failover = _gateway_score(
+        broker, cluster, client, params, spec, threshold,
+        "model-predictions", kill=True)
+    local, local_rows_s, _ = _gateway_score(
+        broker, cluster, fs, params, spec, threshold,
+        "model-predictions-local", kill=False)
+    if any(path_launches().values()):
+        raise AssertionError(f"gateway_path (c): the scorers launched "
+                             f"{path_launches()}")
+    differ = sum(a != b for a, b in zip(remote, local))
+    if differ or len(remote) != len(local):
+        raise AssertionError(f"gateway_path (c): {differ} payloads through "
+                             f"the gateway differ from the local join's")
+    rows, verdicts, _ = _payload_parts([p.decode() for p in remote[:100]])
+    err_first = float(np.abs(rows - want[:100]).max())
+    if not np.allclose(rows, want[:100], **CLI_TOL_FIRST):
+        raise AssertionError(f"gateway_path (c): the first 100 payloads are "
+                             f"{err_first} from a CPU recompute")
+    return {"rows_scored": len(remote), "payloads_byte_equal": True,
+            "threshold": threshold, "failover": failover,
+            "payload_max_err_first_100": err_first,
+            "rows_per_s_gateway": remote_rows_s,
+            "rows_per_s_local": local_rows_s}
+
+
+def _gateway_join() -> dict:
+    """(c) the sharded join: GATEWAY_CARS x GATEWAY_TICKS records served
+    by a ``GatewayCluster`` of GATEWAY_SHARDS shards with standbys and by
+    a reference ``TwinService(changelog=False)``; matrices, the two fits
+    and the scorer across a shard kill."""
+    broker = Broker()
+    published = _gateway_publish(broker)
+    t0 = time.perf_counter()
+    cluster = GatewayCluster(broker, n_shards=GATEWAY_SHARDS,
+                             source_topic=STORE_TOPIC).start()
+    client = GatewayClient(cluster)
+    try:
+        ref = TwinService(broker, source_topic=STORE_TOPIC,
+                          group="gw-smoke-ref", changelog=False)
+        while ref.pump_once():
+            pass
+        fs = TwinFeatureStore(ref)
+        _gateway_await(lambda: client.aggregate()["records"] >= published,
+                       "the shards' fold")
+        _gateway_await(lambda: gateway_drill.sources_committed(cluster),
+                       "the shards' commits")
+        _gateway_await(lambda: all(s.lag() == 0
+                                   for s in cluster.standbys.values()),
+                       "the standbys' catch-up")
+        fold_s = time.perf_counter() - t0
+        if client.count() != GATEWAY_CARS or ref.applied != published:
+            raise AssertionError(f"gateway_path (c): {client.count()} cars "
+                                 f"served, {ref.applied} folded by the "
+                                 f"reference of {published}")
+        matrices = _gateway_matrices(broker, client, fs)
+        fit = _gateway_fits(broker, client, fs)
+        serve = _gateway_serve(broker, cluster, client, fs, fit)
+    finally:
+        client.close()
+        cluster.stop()
+        broker.close()
+    return {"launches": fit["launches"],
+            "launches_by_design": fit["launches_by_design"],
+            "max_abs_err": fit["max_abs_err"],
+            "info": {"cars": GATEWAY_CARS, "ticks": GATEWAY_TICKS,
+                     "partitions": GATEWAY_PARTITIONS,
+                     "shards": GATEWAY_SHARDS, "published": published,
+                     "fold_and_catch_up_s": fold_s,
+                     "matrices": matrices, "fit": fit["info"],
+                     "serve": serve}}
+
+
+def phase_gateway_path(card: str) -> dict:
+    """The gateway serving plane (ROADMAP A16b) on the card: (a) the
+    shard-kill drill through its CLI four times, (b) the federated fleet
+    at 100,000 cars through its CLI, (c) the sharded join (matrices, two
+    B1 launches, the scorer across a shard kill).  The launch counts are
+    0 just before (c)'s fits and read just after them; (a), (b) and (c)'s
+    scorers launch no kernel."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    reset_fit_launches()
+    drills = [_gateway_drill(argv) for argv in GATEWAY_DRILLS]
+    t_fleet = time.perf_counter()
+    fleet = _gateway_fleet()
+    fleet_s = time.perf_counter() - t_fleet
+    if any(path_launches().values()) or fused_train.fused_fit.launches:
+        raise AssertionError(f"gateway_path (a, b) launched "
+                             f"{path_launches()}")
+    t_join = time.perf_counter()
+    join = _gateway_join()
+    join_s = time.perf_counter() - t_join
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "gateway_path", "card": card, "drills": drills,
+          "fleet": fleet, "join": join["info"],
+          "seconds": {"drills": t_fleet - t_phase, "fleet": fleet_s,
+                      "join": join_s},
+          "phase_seconds": phase_s, "kernel_launches": join["launches"],
+          "kernel_launches_by_design": join["launches_by_design"]})
+    return {"launches": join["launches"],
+            "launches_by_design": join["launches_by_design"],
+            "max_abs_err": join["max_abs_err"]}
+
+
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
 #: steps of the creditcard fit held against the plain version (the plain
@@ -9118,6 +9595,7 @@ def main() -> int:
         cluster_info = phase_cluster_path(card, root)
         chaos_info = phase_chaos_path(card, root)
         twin_info = phase_twin_path(card, root)
+        gateway_info = phase_gateway_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -9159,7 +9637,8 @@ def main() -> int:
         + ksql_info["launches"] + demo_info["launches"]
         + store_info["launches"] + repl_info["launches"]
         + cluster_info["launches"] + chaos_info["launches"]
-        + twin_info["launches"] + cc_info["launches"]
+        + twin_info["launches"] + gateway_info["launches"]
+        + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -9179,6 +9658,7 @@ def main() -> int:
                              "cluster_path": cluster_info["launches"],
                              "chaos_path": chaos_info["launches"],
                              "twin_path": twin_info["launches"],
+                             "gateway_path": gateway_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -9199,6 +9679,7 @@ def main() -> int:
             + cluster_info["launches_by_design"][d]
             + chaos_info["launches_by_design"][d]
             + twin_info["launches_by_design"][d]
+            + gateway_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
@@ -9209,7 +9690,8 @@ def main() -> int:
                            repl_info["max_abs_err"],
                            cluster_info["max_abs_err"],
                            chaos_info["max_abs_err"],
-                           twin_info["max_abs_err"]),
+                           twin_info["max_abs_err"],
+                           gateway_info["max_abs_err"]),
         "store_path_launches_by_subphase": store_info["by_subphase"],
         "replication_path_launches_by_subphase": repl_info["by_subphase"],
         "cluster_path_launches_by_subphase": cluster_info["by_subphase"],

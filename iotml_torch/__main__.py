@@ -33,6 +33,8 @@ COMMANDS = [
                                "(run/jobs/show/log/abort/example)"),
     ("iotml_torch.twin", "drill: kill the twin service, rebuild it from "
                          "the compacted CAR_TWIN changelog"),
+    ("iotml_torch.gateway", "drill/front/fleet: the sharded twin serving "
+                            "plane (shard kill, federated MQTT fronts)"),
     ("iotml_torch.chaos", "run/schedule: fault-injection scenarios and "
                           "their invariant verdicts"),
     ("iotml_torch.online", "drill/run: drift detection and online "

@@ -14,8 +14,8 @@ write-back — over either of two sources:
   poll that holds any frame of an evolved writer schema is decoded by
   name through ``ops.avro.ResolvingCodec`` instead, since the
   positional decode would misread it.  Over a broker with a fused
-  ``fetch_decode`` (the native client, ``stream.native_kafka``) a
-  ``StreamConsumer`` polls through ``poll_decoded`` instead: fetch,
+  ``fetch_decode`` (the native client, ``stream.native_kafka``) either
+  consumer polls through ``poll_decoded`` instead: fetch,
   strip and decode in one native call a partition.  At an evolved
   writer's frame it takes exactly one chunk through the message-list
   leg, then resumes;
@@ -374,7 +374,7 @@ class SensorBatches:
         """Whether the consumer polls through the broker's fused
         fetch-and-decode."""
         attr = "fetch_decode_keys" if self._capture_keys else "fetch_decode"
-        return isinstance(self.consumer, StreamConsumer) and \
+        return self.consumer is not None and \
             getattr(self.consumer.broker, attr, None) is not None
 
     def _decoded_chunks(self):

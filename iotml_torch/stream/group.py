@@ -24,8 +24,9 @@ Across processes the coordinator lives in the wire server
 ``GroupConsumer`` reaches it through ``kafka_wire.RemoteGroupCoordinator``,
 the same duck-type over JoinGroup / SyncGroup / Heartbeat / LeaveGroup /
 OffsetCommit.  ``GroupConsumer.poll_into`` is the columnar ring's poll
-over the assigned partitions (``StreamConsumer.poll_into``); the group
-consumer's fused poll is not ported.
+over the assigned partitions (``StreamConsumer.poll_into``), and
+``GroupConsumer.poll_decoded`` the fused fetch-and-decode poll over them
+(``StreamConsumer.poll_decoded``).
 """
 
 from __future__ import annotations
@@ -359,6 +360,21 @@ class GroupConsumer:
         from the assigned partitions round-robin."""
         self._ensure_membership()
         return self._sc.poll(max_messages)
+
+    def poll_decoded(self, codec, strip: int = 5, max_messages: int = 4096,
+                     with_keys: bool = False):
+        """``StreamConsumer.poll_decoded`` over the assigned partitions,
+        after the heartbeat and membership healing ``poll`` does; None
+        when the broker has no fused fetch-and-decode."""
+        fd = getattr(self.broker,
+                     "fetch_decode_keys" if with_keys else "fetch_decode",
+                     None)
+        if fd is None:
+            return None
+        self._ensure_membership()
+        return self._sc.poll_decoded(codec, strip=strip,
+                                     max_messages=max_messages,
+                                     with_keys=with_keys)
 
     def poll_into(self, decoder, out_numeric, out_labels, out_keys=None,
                   max_rows: int = 4096, max_bytes: int = 1 << 20):

@@ -20,7 +20,8 @@ Feature vector layout (dim = F + 2, F = sensor fields):
 Unknown cars get the zero vector — the "no history" null the model sees
 for a car's first records, so cold-start scoring degrades gracefully.
 ``matrix`` and ``dim`` are the duck type ``serve.scorer.StreamScorer``
-joins through (the gateway's client, ROADMAP A16b, will plug in there).
+joins through; ``gateway.router.GatewayClient`` serves the same duck type
+from the sharded twin.
 """
 
 from __future__ import annotations

@@ -74,9 +74,10 @@ class TwinService:
         used by feature-store consumers that follow someone else's
         changelog instead of writing their own).
       table: an already-warm TwinTable to ADOPT instead of building an
-        empty one — the standby-promotion path (the gateway's, ROADMAP
-        A16b): a standby that followed the changelog continuously hands
-        its table over and only the delta past `rebuild_from` replays.
+        empty one — the standby-promotion path
+        (``gateway.shards.GatewayCluster.promote``): a standby that
+        followed the changelog continuously hands its table over and
+        only the delta past `rebuild_from` replays.
       rebuild_from: per-partition changelog offsets the adopted table
         has already applied through (TwinTable.changelog positions);
         replay starts there instead of the log beginning.  Ignored

@@ -24,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -86,6 +87,7 @@ class _BoundedThreadingHTTPServer(ThreadingHTTPServer):
         self._guard_lock = threading.Lock()
         self._active = 0
         self._hseq = 0
+        self._live: set = set()
 
     def active_connections(self) -> int:
         with self._guard_lock:
@@ -100,6 +102,7 @@ class _BoundedThreadingHTTPServer(ThreadingHTTPServer):
                 self._active += 1
                 self._hseq += 1
                 seq = self._hseq
+                self._live.add(request)
         if not admitted:
             # shed BEFORE a handler thread exists: a raw one-shot 503 on
             # the accepted socket is the whole cost of an over-limit
@@ -133,6 +136,25 @@ class _BoundedThreadingHTTPServer(ThreadingHTTPServer):
             self.shutdown_request(request)
             with self._guard_lock:
                 self._active -= 1
+                self._live.discard(request)
+
+    def close_connections(self) -> None:
+        """Sever every established keep-alive connection.  shutdown()
+        only stops the accept loop: admitted handler threads keep
+        answering on their open sockets, which a dead process would not.
+        A crash-shaped stop (a killed serving shard) must look like one
+        to clients holding persistent connections."""
+        with self._guard_lock:
+            conns = list(self._live)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
 
 
 class RestServer:
@@ -274,4 +296,13 @@ class RestServer:
 
     def stop(self):
         self.httpd.shutdown()
+        self.httpd.server_close()
+
+    def kill(self):
+        """Crash-shaped stop: the accept loop down and every established
+        connection severed, so a client on a keep-alive socket sees what
+        a crashed server looks like (a connection error, its cue to
+        refresh and retry) instead of an answer from a zombie."""
+        self.httpd.shutdown()
+        self.httpd.close_connections()
         self.httpd.server_close()

@@ -11,6 +11,10 @@ CPU.
   per-message fetch + ``NativeCodec`` decode bit for bit: per partition,
   across a fetch cut mid-entry, at a partition's end, and as
   ``SensorBatches`` (the fused leg against the message-list leg).
+- A ``GroupConsumer`` over the native client takes the fused leg
+  (``poll_decoded`` over its assigned partitions, never a message-list
+  poll), with batches equal to the in-process broker's and to JAX's
+  group consumer over its own native client.
 - The schema-id guard: an evolved writer's frame stops the fused decode;
   the batcher takes exactly one chunk through the resolving leg and
   resumes; batches equal the JAX package's over its own native client.
@@ -33,6 +37,7 @@ from iotml.data.dataset import SensorBatches as JSensorBatches
 from iotml.stream import kafka_wire as jkw
 from iotml.stream import native as j_native
 from iotml.stream.broker import Broker as JBroker
+from iotml.stream import group as j_group
 from iotml.stream.consumer import StreamConsumer as JStreamConsumer
 from iotml.stream.native_kafka import NativeKafkaBroker as JNativeKafkaBroker
 from iotml_torch.core import schema as t_schema
@@ -40,6 +45,7 @@ from iotml_torch.data.dataset import SensorBatches
 from iotml_torch.gen.simulator import FleetGenerator, FleetScenario
 from iotml_torch.ops import avro as t_avro
 from iotml_torch.ops import framing as t_framing
+from iotml_torch.stream import group as t_group
 from iotml_torch.stream import kafka_wire as tkw
 from iotml_torch.stream import native
 from iotml_torch.stream.broker import Broker, SchemaIdMismatchError
@@ -506,3 +512,56 @@ def test_fused_leg_is_taken_only_over_fetch_decode():
     batches = SensorBatches(StreamConsumer(_backing("port", _fleet(), 2),
                                            [f"{TOPIC}:0:0"]))
     assert not batches._fused()  # the in-process broker has none
+
+
+@pytest.mark.parametrize("keys", [False, True])
+def test_group_consumer_takes_the_fused_leg_equal_jax(keys):
+    """SensorBatches over a GroupConsumer on a broker with fetch_decode
+    polls through GroupConsumer.poll_decoded (spied: every chunk, no
+    message-list poll); the batches equal those of a StreamConsumer on
+    the in-process broker and of JAX's GroupConsumer over its native
+    client on its own server."""
+    msgs = _fleet(partitions=3)
+    kw = {"batch_size": 40, "keep_labels": True, "keep_keys": keys}
+    want = list(SensorBatches(StreamConsumer(
+        _backing("port", msgs, 3), [f"{TOPIC}:{p}:0" for p in range(3)]),
+        **kw))
+    runs = {}
+    for name, group, batcher, client_cls in (
+            ("port", t_group, SensorBatches, NativeKafkaBroker),
+            ("jax", j_group, JSensorBatches, JNativeKafkaBroker)):
+        with SERVERS[name][0](_backing(name, msgs, 3)) as srv:
+            client = client_cls(f"127.0.0.1:{srv.port}",
+                                timeout_s=TIMEOUT_S)
+            coord = group.GroupCoordinator(client, f"fused-{name}")
+            consumer = group.GroupConsumer(coord, [TOPIC],
+                                           member_id=f"m-{name}")
+            calls = {"poll_decoded": 0, "poll": 0}
+            real_fused, real_poll = consumer.poll_decoded, consumer.poll
+
+            def fused(*a, _real=real_fused, _calls=calls, **k):
+                _calls["poll_decoded"] += 1
+                return _real(*a, **k)
+
+            def poll(*a, _real=real_poll, _calls=calls, **k):
+                _calls["poll"] += 1
+                return _real(*a, **k)
+
+            consumer.poll_decoded = fused
+            consumer.poll = poll
+            batches = batcher(consumer, **kw)
+            if name == "port":
+                assert batches._fused()
+            runs[name] = list(batches)
+            assert calls["poll_decoded"] >= 1 and calls["poll"] == 0, name
+            assert consumer.assignment == [(TOPIC, p) for p in range(3)]
+            client.close()
+    assert len(want) > 0
+    for name, got in runs.items():
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.x, w.x)
+            assert (g.n_valid, g.first_index) == (w.n_valid, w.first_index)
+            assert list(g.labels) == list(w.labels)
+            if keys:
+                assert list(g.keys) == list(w.keys), name

@@ -9,7 +9,8 @@ content types and bodies (JSON, raw bytes, 204, 400 on a malformed body,
 the same ``iotml_rest_requests_total`` deltas; past
 ``max_concurrency`` a connection is shed with a raw 503 before a handler
 thread exists; ``IOTML_REST_MAX_CONCURRENCY`` is read and refused alike;
-``register_thread`` refuses what JAX's refuses.  Every server binds
+``register_thread`` refuses what JAX's refuses; ``kill()`` severs an
+established keep-alive connection.  Every server binds
 127.0.0.1:0 and is stopped by the test that starts it.
 """
 
@@ -161,6 +162,30 @@ def test_concurrency_guard_sheds_with_503(mod):
         for c in held:
             c.close()
         srv.stop()
+
+
+@pytest.mark.parametrize("mod", [t_rest, j_rest], ids=["port", "jax"])
+def test_kill_severs_established_keepalive(mod):
+    """Both packages: ``kill()`` looks like a crash to a client on a
+    keep-alive connection.  The next request on the socket that was
+    answered before the kill fails with a transport error (no zombie
+    answer from the handler thread), and the handler's slot is freed."""
+    name = "iotml-rest-kill-" + ("port" if mod is t_rest else "jax")
+    srv = mod.RestServer(name=name)
+    srv.route("GET", r"/ping", lambda m, body: (200, {"pong": True}))
+    srv.start()
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=5)
+    try:
+        conn.request("GET", "/ping")
+        assert conn.getresponse().read() == b'{"pong": true}'
+        _await(lambda: srv.active_connections() == 1, "the slot held")
+        srv.kill()
+        with pytest.raises((OSError, http.client.HTTPException)):
+            conn.request("GET", "/ping")
+            conn.getresponse()
+        _await(lambda: srv.active_connections() == 0, "the slot freed")
+    finally:
+        conn.close()
 
 
 def test_port_handler_threads_are_registered():
