@@ -581,8 +581,8 @@ non-zero exit and no result line:
                 plain ms.
 17f. gateway_path — the gateway serving plane (ROADMAP A16b) on the
                 card, after twin_path: (a) ``python -m iotml_torch.gateway
-                drill --seed 7 --records 1500 --cars 30`` three times and
-                ``--seed 11 --records 2000 --cars 40 --json`` once, through
+                drill --seed 7 --records 1500 --cars 30`` and ``--seed 11
+                --records 2000 --cars 40 --json``, once each, through
                 its ``main`` in this process, each exit 0 with its six
                 invariants PASS (promote and staleness seconds, the storm's
                 queries and p99, the delta replay); (b) ``python -m
@@ -607,6 +607,30 @@ non-zero exit and no result line:
                 and the first 100 against a CPU recompute; no kernel in
                 (a), (b) or the scorers.  Rows/s through either store,
                 the fleet's seconds and records/s.
+17g. analysis_path — the analysis tooling (ROADMAP A13) on the card's
+                machine, after gateway_path: (a) ``python -m
+                iotml_torch.analysis all`` and ``... lockorder`` as child
+                processes, exit 0 with 0 findings and 0 static cycles
+                (wall seconds, files parsed, edges); (b) the build guard
+                (``tracecheck.install_runtime_guard``) armed over
+                ``Trainer.fit_compiled`` and ``OnlineLearner._update``:
+                ``fit_compiled`` twice on the main slice (18→14→7→7→18,
+                100 batches of 100 rows, made anew from main_path's
+                fleet, 20 epochs) from one trainer, and
+                ``_update`` twice on two 100-row windows; 0 builds or
+                loads after each warm-up, exactly two B1 launches, both
+                "rows", none from the updates (the counts 0 just before),
+                each fit held against the plain version from its start
+                state (``check_fit``); each warmed call's count of
+                synchronizing CUDA calls under
+                ``torch.cuda.set_sync_debug_mode("warn")``, printed and
+                not gated; (c) a child process that installs the port's
+                lockcheck pre-seeded with the static edges before any
+                broker exists, then drains 100 cars x 30 ticks through a
+                ``KafkaWireServer``, a wire ``GroupConsumer`` and the
+                card's ``StreamScorer``: every record scored, 0 lock-order
+                cycles (its io-under-lock and unguarded-mutation counts
+                printed).  The three children run beside (b).
 18. fit_orders — after store_path's launch counts are read: its rows in
                 6 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
@@ -759,6 +783,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from iotml_torch.analysis import lockcheck, lockorder, tracecheck
 from iotml_torch.chaos import faults as obs_faults
 from iotml_torch.cli import _app as cli_app
 from iotml_torch.cli import cardata
@@ -842,7 +867,8 @@ from iotml_torch.stream import native
 from iotml_torch.stream.broker import Broker
 from iotml_torch.stream.consumer import StreamConsumer
 from iotml_torch.stream.group import GroupConsumer, GroupCoordinator
-from iotml_torch.stream.kafka_wire import KafkaWireBroker, KafkaWireServer
+from iotml_torch.stream.kafka_wire import (KafkaWireBroker, KafkaWireServer,
+                                          RemoteGroupCoordinator)
 from iotml_torch.stream.native_kafka import NativeKafkaBroker
 from iotml_torch.stream.producer import (OutputSequence, RawBatchProducer,
                                          raw_produce_records)
@@ -8020,11 +8046,10 @@ def phase_twin_path(card: str, root: str) -> dict:
 
 
 # ----------------------------------------------------------- gateway_path
-#: deploy/smoke.sh's drill (three runs) and .github/workflows/gateway.yml's
-#: (one, with --json)
+#: deploy/smoke.sh's drill (which it runs three times; once here, since
+#: the three runs are identical) and .github/workflows/gateway.yml's (one,
+#: with --json)
 GATEWAY_DRILLS = (
-    ["drill", "--seed", "7", "--records", "1500", "--cars", "30"],
-    ["drill", "--seed", "7", "--records", "1500", "--cars", "30"],
     ["drill", "--seed", "7", "--records", "1500", "--cars", "30"],
     ["drill", "--seed", "11", "--records", "2000", "--cars", "40", "--json"])
 GATEWAY_INVARIANTS = ("standby_byte_identical", "promote_within_slo",
@@ -8367,7 +8392,7 @@ def _gateway_join() -> dict:
 
 def phase_gateway_path(card: str) -> dict:
     """The gateway serving plane (ROADMAP A16b) on the card: (a) the
-    shard-kill drill through its CLI four times, (b) the federated fleet
+    shard-kill drill through its CLI twice, (b) the federated fleet
     at 100,000 cars through its CLI, (c) the sharded join (matrices, two
     B1 launches, the scorer across a shard kill).  The launch counts are
     0 just before (c)'s fits and read just after them; (a), (b) and (c)'s
@@ -8396,6 +8421,265 @@ def phase_gateway_path(card: str) -> dict:
             "launches_by_design": join["launches_by_design"],
             "max_abs_err": join["max_abs_err"]}
 
+
+
+# ---------------------------------------------------------- analysis_path
+#: (b): the guarded fits' epochs (the main path's)
+ANALYSIS_FIT_EPOCHS = 20
+#: (c): the lockcheck child's fleet, drained through the wire
+ANALYSIS_CARS, ANALYSIS_TICKS, ANALYSIS_PARTITIONS = 100, 30, 2
+ANALYSIS_GROUP = "analysis-lockcheck"
+
+
+def _analysis_children() -> dict:
+    """(a)'s two CLI runs and (c)'s lockcheck child, started together."""
+    here = str(Path(__file__).parent)
+    run = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+               cwd=here)
+    return {
+        "all": subprocess.Popen([sys.executable, "-m",
+                                 "iotml_torch.analysis", "all"], **run),
+        "lockorder": subprocess.Popen([sys.executable, "-m",
+                                       "iotml_torch.analysis",
+                                       "lockorder"], **run),
+        "lockcheck": subprocess.Popen([sys.executable, __file__,
+                                       "--analysis-lockcheck-child"], **run)}
+
+
+def _analysis_wait(procs: dict) -> tuple:
+    """Each child's (returncode, stdout, stderr); a child still running
+    after 300 s is killed and fails the phase."""
+    done = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.wait()
+            raise AssertionError(f"analysis_path: the {name} child ran "
+                                 f"past 300 s")
+        done[name] = (proc.returncode, out, err)
+    return done
+
+
+def _analysis_static(done: dict) -> dict:
+    """(a): both CLI runs exit 0 with 0 findings / 0 static cycles."""
+    out = {}
+    for verb in ("all", "lockorder"):
+        rc, stdout, stderr = done[verb]
+        summary = stderr.strip().splitlines()[-1] if stderr.strip() else ""
+        parsed = re.search(r"(\d+) file\(s\) parsed once, ([0-9.]+)s wall",
+                           summary)
+        counted = re.search(r"(\d+) (finding|static cycle)", summary)
+        if rc != 0 or not parsed or not counted or counted.group(1) != "0" \
+                or (verb == "all" and stdout.strip()):
+            raise AssertionError(f"analysis_path (a): `python -m "
+                                 f"iotml_torch.analysis {verb}` exited "
+                                 f"{rc}:\n{stdout[-3000:]}\n{stderr[-2000:]}")
+        out[verb] = {"rc": rc, "files_parsed": int(parsed.group(1)),
+                     "wall_s": float(parsed.group(2)), "findings": 0}
+        if verb == "lockorder":
+            out[verb]["edges"] = len(stdout.strip().splitlines())
+            out[verb]["static_cycles"] = 0
+    return out
+
+
+@contextlib.contextmanager
+def _sync_calls():
+    """Count the synchronizing CUDA calls in the block, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them; the count is
+    in the yielded list after the block."""
+    import warnings
+
+    counted: list = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counted
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counted.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def _analysis_main_slice() -> list:
+    """The main path's training slice, made anew: a batcher over a
+    ``RowSource`` yields the next rows on each pass, and ``main_path``'s
+    own batcher is read again by ``timing``."""
+    gen = FleetGenerator(FleetScenario(num_cars=100, failure_rate=0.01))
+    return list(SensorBatches(RowSource.from_fleet(gen, n_ticks=300),
+                              batch_size=100, take=100, only_normal=True))
+
+
+def _analysis_guarded() -> dict:
+    """(b): the build guard over the two hot loops on the card."""
+    bs = _analysis_main_slice()
+    xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
+    masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
+    patched = tracecheck.install_runtime_guard()
+    if sorted(patched) != ["OnlineLearner._update", "Trainer.fit_compiled"]:
+        tracecheck.uninstall_runtime_guard()
+        raise AssertionError(f"analysis_path (b): the guard patched "
+                             f"{patched}")
+    try:
+        trainer = Trainer(CAR_AUTOENCODER)  # the card
+        trainer._ensure_state()
+        learner = OnlineLearner(Broker(), "ANALYSIS_ONLINE", window=100)
+        windows = [Batch(x=bs[i].x, n_valid=bs[i].n_valid,
+                         first_index=100 * i) for i in (0, 1)]
+        reset_launches()
+        reset_fit_launches()
+        fits, starts, ends = [], [], []
+        for _ in range(2):
+            starts.append(_clone_state(trainer.state))
+            before = tracecheck.RecompileGuard.compiles()
+            t0 = time.perf_counter()
+            with _sync_calls() as syncs:
+                hist = trainer.fit_compiled(bs, epochs=ANALYSIS_FIT_EPOCHS)
+            torch.cuda.synchronize()
+            fits.append({"hist": hist, "seconds": time.perf_counter() - t0,
+                         "builds": tracecheck.RecompileGuard.compiles()
+                         - before, "sync_calls": syncs[0]})
+            ends.append(_clone_state(trainer.state))
+        fit_launches = fused_train.fused_fit.launches
+        by_design = dict(fused_train.fused_fit.launches_by_design)
+        updates = []
+        for w in windows:
+            before = tracecheck.RecompileGuard.compiles()
+            t0 = time.perf_counter()
+            with _sync_calls() as syncs:
+                loss = learner._update(w)
+            updates.append({"loss": loss,
+                            "seconds": time.perf_counter() - t0,
+                            "builds": tracecheck.RecompileGuard.compiles()
+                            - before, "sync_calls": syncs[0]})
+        update_launches = fused_train.fused_fit.launches - fit_launches
+        flash = {k: n for k, n in path_launches().items() if k != "fused_fit"}
+    finally:
+        tracecheck.uninstall_runtime_guard()
+    warm_builds = [fits[1]["builds"], updates[1]["builds"]]
+    if fit_launches != 2 or by_design["rows"] != 2 or update_launches \
+            or any(flash.values()) or any(warm_builds) \
+            or not all(math.isfinite(u["loss"]) for u in updates):
+        raise AssertionError(f"analysis_path (b): B1 {fit_launches}x "
+                             f"({by_design}), updates {update_launches}, "
+                             f"flash {flash}, builds after warm-up "
+                             f"{warm_builds}, update losses "
+                             f"{[u['loss'] for u in updates]}")
+    err = 0.0
+    steps = len(bs) * ANALYSIS_FIT_EPOCHS
+    for i, fit in enumerate(fits):
+        p_state, p_loss, p_acc = fused_train.fused_fit_reference(
+            starts[i], xs, masks, ANALYSIS_FIT_EPOCHS)
+        err = max(err, check_fit(
+            f"analysis_path (b) fit_compiled call {i + 1}",
+            (ends[i], torch.tensor(fit["hist"]["loss"]),
+             torch.tensor(fit["hist"]["accuracy"])),
+            (p_state, p_loss.cpu(), p_acc.cpu()), (i + 1) * steps))
+    return {"launches": fit_launches, "launches_by_design": by_design,
+            "max_abs_err": err,
+            "info": {"guarded": sorted(patched),
+                     "fit_compiled": [{k: f[k] for k in (
+                         "seconds", "builds", "sync_calls")}
+                         | {"loss_first": f["hist"]["loss"][0],
+                            "loss_last": f["hist"]["loss"][-1]}
+                         for f in fits],
+                     "online_update": updates,
+                     "builds_after_warm_up": sum(warm_builds),
+                     "b1_launches": fit_launches,
+                     "b1_launches_by_design": by_design,
+                     "update_launches": update_launches,
+                     "max_abs_err": err}}
+
+
+def analysis_lockcheck_child() -> dict:
+    """(c), in its own process: the port's lockcheck installed and
+    pre-seeded with the static edges before any broker exists, then one
+    wire drain (``KafkaWireServer``, a wire ``GroupConsumer``, the card's
+    ``StreamScorer``)."""
+    st = lockcheck.install()
+    seeded = lockorder.preseed(st)
+    backing = Broker()
+    n = FleetGenerator(FleetScenario(num_cars=ANALYSIS_CARS,
+                                     failure_rate=0.01)).publish(
+        backing, SERVE_TOPIC, n_ticks=ANALYSIS_TICKS,
+        partitions=ANALYSIS_PARTITIONS)
+    trainer = Trainer(CAR_AUTOENCODER)  # the card
+    trainer._ensure_state()
+    t0 = time.perf_counter()
+    with KafkaWireServer(backing) as srv:
+        client = KafkaWireBroker(f"127.0.0.1:{srv.port}")
+        try:
+            consumer = GroupConsumer(
+                RemoteGroupCoordinator(client, ANALYSIS_GROUP),
+                [SERVE_TOPIC])
+            out = OutputSequence()
+            scorer = StreamScorer(CAR_AUTOENCODER, trainer.state.params,
+                                  SensorBatches(consumer, batch_size=100),
+                                  out, threshold=5.0)
+            rows, rounds = 0, 0
+            while rows < n and rounds < 50:
+                rows += scorer.score_available()
+                rounds += 1
+        finally:
+            client.close()
+    seconds = time.perf_counter() - t0
+    final = lockcheck.uninstall()
+    kinds = collections.Counter(v.kind for v in final.violations)
+    return {"records": n, "rows_scored": rows, "published":
+            len(out.published), "drain_s": seconds, "seeded_edges": seeded,
+            "edges": len(final.edges), "cycles": kinds.get("cycle", 0),
+            "static_cycles": kinds.get("static-cycle", 0),
+            "io_under_lock": kinds.get("io-under-lock", 0),
+            "unguarded_mutation": kinds.get("unguarded-mutation", 0),
+            "cycle_messages": [v.message for v in final.cycles()][:5]}
+
+
+def _analysis_lockcheck(done: dict) -> dict:
+    rc, stdout, stderr = done["lockcheck"]
+    lines = stdout.strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"analysis_path (c): the lockcheck child "
+                             f"exited {rc}:\n{stdout[-2000:]}\n"
+                             f"{stderr[-3000:]}")
+    info = json.loads(lines[-1])
+    if info["cycles"] or info["rows_scored"] != info["records"] \
+            or info["published"] != info["records"] \
+            or info["records"] != ANALYSIS_CARS * ANALYSIS_TICKS:
+        raise AssertionError(f"analysis_path (c): {info}")
+    return info
+
+
+def phase_analysis_path(card: str) -> dict:
+    """The analysis tooling (ROADMAP A13) on the card's machine: (a) the
+    static passes as child processes, (b) the build guard over the two
+    hot loops on the card, (c) the runtime lockcheck over a wire drain in
+    a child.  The launch counts are 0 just before (b)'s fits and read
+    just after its updates."""
+    t_phase = time.perf_counter()
+    procs = _analysis_children()
+    try:
+        guarded = _analysis_guarded()
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.wait()
+        raise
+    t_wait = time.perf_counter()
+    done = _analysis_wait(procs)
+    static = _analysis_static(done)
+    lock = _analysis_lockcheck(done)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "analysis_path", "card": card, "static": static,
+          "guard": guarded["info"], "lockcheck": lock,
+          "seconds": {"guarded": t_wait - t_phase,
+                      "children_after_guarded": time.perf_counter()
+                      - t_wait},
+          "phase_seconds": phase_s,
+          "kernel_launches": guarded["launches"],
+          "kernel_launches_by_design": guarded["launches_by_design"]})
+    return guarded
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
@@ -9566,7 +9850,14 @@ def backward_entry(name, replaces, kind, entry, paths, errs,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--store-fit-orders", type=int, metavar="N")
+    ap.add_argument("--analysis-lockcheck-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.analysis_lockcheck_child:
+        if not torch.cuda.is_available():
+            raise SystemExit("analysis_path (c) needs a CUDA card")
+        print(json.dumps(analysis_lockcheck_child()), flush=True)
+        return 0
     dev = phase_device()
     card = dev["nvidia_smi"]
     if args.store_fit_orders:
@@ -9596,6 +9887,7 @@ def main() -> int:
         chaos_info = phase_chaos_path(card, root)
         twin_info = phase_twin_path(card, root)
         gateway_info = phase_gateway_path(card)
+        analysis_info = phase_analysis_path(card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -9638,7 +9930,7 @@ def main() -> int:
         + store_info["launches"] + repl_info["launches"]
         + cluster_info["launches"] + chaos_info["launches"]
         + twin_info["launches"] + gateway_info["launches"]
-        + cc_info["launches"]
+        + analysis_info["launches"] + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -9659,6 +9951,7 @@ def main() -> int:
                              "chaos_path": chaos_info["launches"],
                              "twin_path": twin_info["launches"],
                              "gateway_path": gateway_info["launches"],
+                             "analysis_path": analysis_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -9680,6 +9973,7 @@ def main() -> int:
             + chaos_info["launches_by_design"][d]
             + twin_info["launches_by_design"][d]
             + gateway_info["launches_by_design"][d]
+            + analysis_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),
@@ -9691,7 +9985,8 @@ def main() -> int:
                            cluster_info["max_abs_err"],
                            chaos_info["max_abs_err"],
                            twin_info["max_abs_err"],
-                           gateway_info["max_abs_err"]),
+                           gateway_info["max_abs_err"],
+                           analysis_info["max_abs_err"]),
         "store_path_launches_by_subphase": store_info["by_subphase"],
         "replication_path_launches_by_subphase": repl_info["by_subphase"],
         "cluster_path_launches_by_subphase": cluster_info["by_subphase"],

@@ -38,6 +38,10 @@ counterpart is easy to find (``iotml_torch/models/autoencoder.py`` ↔
 - ``chaos``   the fault points and their engine
 - ``store``   ``fsync_dir``
 - ``parallel`` the one-device sequence-parallel step
+- ``analysis`` the checkers: lint, wire-protocol conformance, trace
+              discipline, registry drift, lock order (``python -m
+              iotml_torch.analysis``), the runtime lock-order detector
+              and build guard, and their pytest plugin
 - ``utils``   device policy, bounded exponential backoff
 
 The package imports torch and numpy only — never jax or ``iotml``.

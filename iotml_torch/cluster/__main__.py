@@ -98,6 +98,8 @@ def cmd_admin(args) -> int:
 
 
 def cmd_drill(args) -> int:
+    # lint-ok: R7 CLI entry point delegating to the chaos harness — this
+    # is drill orchestration (the runner's own caller), not a hot path
     from ..chaos.runner import ChaosRunner
 
     report = ChaosRunner("rebalance-under-chaos", seed=args.seed,

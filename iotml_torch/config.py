@@ -281,6 +281,18 @@ NON_CONFIG = {
 }
 
 
+def env_key_names(cfg: Optional[Config] = None) -> list:
+    """Every IOTML_<SECTION>_<FIELD> env var the resolver accepts: the
+    JAX package's list (``iotml/config.py`` ``env_key_names``) over the
+    port's sections, less the keys it refuses as unread
+    (``UNREAD_KEYS``).  The drift pass (D1) checks every IOTML_* read
+    in the tree against these and ``NON_CONFIG``."""
+    cfg = cfg or Config()
+    return [f"IOTML_{section.upper()}_{field.upper()}"
+            for section, sub in dataclasses.asdict(cfg).items()
+            for field in sub if f"{section}.{field}" not in UNREAD_KEYS]
+
+
 def _coerce(value: Any, typ: type, where: str) -> Any:
     if isinstance(value, typ) and not (typ is int and isinstance(value, bool)):
         return value

@@ -71,8 +71,10 @@ class DevicePrefetcher:
         self._err = None
         self._closed = False
         self._consumed = False
-        self._thread = threading.Thread(target=self._work, daemon=True,
-                                        name="iotml-prefetch")
+        from ..supervise.registry import register_thread
+
+        self._thread = register_thread(threading.Thread(
+            target=self._work, daemon=True, name="iotml-prefetch"))
         self._thread.start()
 
     @staticmethod

@@ -602,10 +602,13 @@ def start_http_server(port: int = 9100, registry: Registry = default_registry):
         def log_message(self, *a):  # quiet
             pass
 
+    from ..supervise.registry import register_thread
+
     srv = http.server.ThreadingHTTPServer(("0.0.0.0", port), Handler)
     srv.daemon_threads = True
-    threading.Thread(target=srv.serve_forever, daemon=True,
-                     name=f"iotml-metrics-{srv.server_address[1]}").start()
+    register_thread(threading.Thread(
+        target=srv.serve_forever, daemon=True,
+        name=f"iotml-metrics-{srv.server_address[1]}")).start()
     # federation: the endpoint joins the fleet's manifest when
     # IOTML_OBS_ENDPOINTS names one (and the in-process registry always),
     # so `python -m iotml_torch.obs fleet` finds every process

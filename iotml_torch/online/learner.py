@@ -260,6 +260,8 @@ class OnlineLearner:
         t0 = time.perf_counter()
         x, mask = tr._to_device(b.x), tr._to_device(b.mask)
         tr.state, m = tr._step(tr.state, x, x, mask)
+        # lint-ok: T2 the window's one sync: the pre-update loss is the
+        # drift detector's host-side signal, read once a window
         loss = float(m["loss"])
         self._observe_step(time.perf_counter() - t0)
         self.updates += 1
@@ -281,6 +283,8 @@ class OnlineLearner:
         masks = tr._to_device(np.stack([b.mask for b in bs]))
         scan = scanned_window_steps_cached(tr.model, self._tx)
         tr.state, losses = scan(tr.state, xs, masks)
+        # lint-ok: T2 the group's one sync: the K pre-update losses come
+        # back together for the detector
         losses = losses.tolist()
         self._observe_step(time.perf_counter() - t0)
         n_valid = sum(b.n_valid for b in bs)

@@ -226,6 +226,9 @@ def _bind(lib: ctypes.CDLL, entries) -> ctypes.CDLL:
 def _library(name: str, entries):
     from . import _build
 
+    # lint-ok: T3 _build.load is memoized by name (_build._LOADED): past
+    # the first launch it is a dict lookup, no build and no dlopen (the
+    # runtime guard counts the real ones)
     return _bind(_build.load(name), entries)
 
 

@@ -206,6 +206,9 @@ def _unflatten(flat: torch.Tensor, like) -> dict:
 def _library():
     from . import _build
 
+    # lint-ok: T3 _build.load is memoized by name (_build._LOADED): past
+    # the first launch it is a dict lookup, no build and no dlopen (the
+    # runtime guard counts the real ones)
     lib = _build.load("fused_train")
     if lib.iotml_fused_fit.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

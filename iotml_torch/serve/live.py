@@ -123,6 +123,8 @@ class LiveScorer:
                     self.store.download_tree(artifact, local))["params"]
         finally:
             shutil.rmtree(restore_dir, ignore_errors=True)
+        # lint-ok: R13 legacy artifact-store pointer flow (pre-registry
+        # deployments); registry-backed LiveScorers swap via _watcher
         self.scorer.set_params(params)
         self._current_artifact = artifact
         self.model_updates += 1

@@ -174,7 +174,7 @@ class StreamScorer:
         #: waits for its first model starts)
         self.params_loaded = False
         if params is not None:
-            self.set_params(params)
+            self._swap_params(params)
 
     def set_params(self, params, version: Optional[int] = None) -> None:
         """Swap the model weights: a new dict of device tensors (one copy
@@ -184,6 +184,11 @@ class StreamScorer:
         reordered (the ``OutputSequence`` index stream is untouched).
         ``version`` stamps ``model_version``; a car-health detector is
         told, since new weights shift every car's error together."""
+        self._swap_params(params, version)
+
+    def _swap_params(self, params, version: Optional[int] = None) -> None:
+        """``set_params``'s body; the constructor loads its first
+        weights through it, since that is no deploy."""
         if set(params) != set(self.params):
             raise ValueError(f"params keys {sorted(params)} are not the "
                              f"model's {sorted(self.params)}")
@@ -279,6 +284,8 @@ class StreamScorer:
         with torch.no_grad():
             x_dev = torch.from_numpy(
                 xs_in.reshape((S_pad * B,) + row_shape)).to(self.device)
+            # lint-ok: T2 the super-batch's one read-back: the
+            # predictions are formatted and written on the host
             preds = torch.func.functional_call(
                 self.model, self.params, (x_dev,)).cpu().numpy()
         seconds = time.perf_counter() - t0

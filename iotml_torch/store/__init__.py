@@ -22,11 +22,12 @@ from .log import SegmentedLog, StorePolicy
 from .mount import StoreMount
 from .offsets import OffsetsFile
 from .remote import RemoteSegmentMeta, RemoteTier
-from .segment import SegmentWriter, atomic_write, crc32c, fsync_dir
+from .segment import (SegmentWriter, atomic_write, crc32c, fsync_dir,
+                      fsync_file)
 from .tiered import RemoteSegmentCache, TieredLog, TierPolicy, TierUploader
 
 __all__ = ["SegmentedLog", "StorePolicy", "StoreMount", "OffsetsFile",
            "SegmentWriter", "atomic_write", "crc32c", "fsync_dir",
-           "CompactionStats", "StoreCompactor", "RemoteTier",
+           "fsync_file", "CompactionStats", "StoreCompactor", "RemoteTier",
            "RemoteSegmentMeta", "TieredLog", "TierPolicy", "TierUploader",
            "RemoteSegmentCache", "HwmFile", "hwm_file_for"]

@@ -338,6 +338,17 @@ def atomic_write(path: str, data: bytes, fsync: bool = True) -> None:
     os.replace(tmp, path)
 
 
+def fsync_file(path: str) -> None:
+    """fsync a written FILE's bytes by path, for writers outside the
+    store that publish by tmp + rename (checkpoints, artifact pointers):
+    the durability call is made here, beside ``fsync_dir``."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
 def fsync_dir(path: str) -> None:
     """fsync a DIRECTORY so a completed rename survives power loss.
 

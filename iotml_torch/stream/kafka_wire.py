@@ -508,6 +508,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         leader at the current epoch instead of failing the same way
         forever."""
         stale = self._epoch
+        # lint-ok: R4 single-socket client by design (same contract as
+        # _request): reconnect I/O is bounded by timeout_s and requests
+        # are serialized over one connection anyway.
         with self._lock:
             try:
                 self._connect_any()  # re-resolves the topology first
@@ -588,8 +591,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         return corr, self._recv_frame()
 
     def _request(self, api_key: int, api_version: int, body: bytes) -> _Reader:
-        # every socket op is bounded by timeout_s, so a stalled broker
-        # parks callers for at most that
+        # lint-ok: R4 single-socket client by design: requests are
+        # serialized over one connection and every socket op is bounded by
+        # timeout_s, so a stalled broker parks callers for at most that.
         with self._lock:
             try:
                 if self._sock is None:
@@ -625,6 +629,12 @@ class KafkaWireBroker(ProducePartitionMixin):
             raise ConnectionError("correlation id mismatch in handshake")
         err = r.i16()
         mechanisms = r.array(lambda rd: rd.string())
+        if err == ERR_SASL_AUTH_FAILED:
+            # the server rejected the MECHANISM (not the credentials —
+            # those are checked on the raw token exchange below)
+            raise SaslAuthError(
+                f"server rejected SASL mechanism PLAIN; offers "
+                f"{mechanisms}")
         if err != ERR_NONE:
             raise SaslAuthError(
                 f"SASL handshake failed ({err}); server offers {mechanisms}")
@@ -650,6 +660,10 @@ class KafkaWireBroker(ProducePartitionMixin):
             w.i32(-1)
         else:
             w.array(topics, lambda wr, t: wr.string(t))
+        # lint-ok: P3 metadata reports existence per topic: unknown
+        # topics carry ERR_UNKNOWN_TOPIC in their row and are simply
+        # left out of the leaders map — absence IS the answer, not an
+        # error to raise
         r = self._request(METADATA, 1, bytes(w.buf))
 
         def partition(rd):
@@ -722,8 +736,8 @@ class KafkaWireBroker(ProducePartitionMixin):
 
         w.array([None], one)
         w.i32(10_000)  # timeout ms
-        # not retried: a lost CreateTopics raises ConnectionError, and
-        # re-issuing it is safe (TOPIC_EXISTS is handled below)
+        # retry-ok: not auto-retried; a lost CreateTopics surfaces
+        # ConnectionError and re-issuing is safe (TOPIC_EXISTS handled below)
         r = self._request(CREATE_TOPICS, 0, bytes(w.buf))
         existed = False
         for _, err in r.array(lambda rd: (rd.string(), rd.i16())):
@@ -781,8 +795,8 @@ class KafkaWireBroker(ProducePartitionMixin):
 
         w.array([None], lambda wr, _: wr.string(topic).array(
             sorted(by_part.items()), part_entry))
-        # not retried (a double append); ConnectionError reaches the
-        # producer, which owns redelivery
+        # retry-ok: produce is NOT auto-retried (double-append risk);
+        # ConnectionError reaches the producer, which owns redelivery
         r = self._request(PRODUCE, 2, bytes(w.buf))
 
         def part_resp(rd):
@@ -850,6 +864,8 @@ class KafkaWireBroker(ProducePartitionMixin):
         # the frames, and absent ones mean -1)
         w.i16(self._acks if acks is None else int(acks))
         w.i32(int(timeout_ms))
+        # retry-ok: RAW_PRODUCE is NOT auto-retried (double-append risk,
+        # same stance as produce); ConnectionError reaches the producer
         r = self._request(RAW_PRODUCE, 0, bytes(w.buf))
         err = r.i16()
         if err == ERR_UNSUPPORTED_VERSION:
@@ -1084,8 +1100,9 @@ class KafkaWireBroker(ProducePartitionMixin):
             wr.string(tp[0]),
             wr.array(tp[1], lambda pw, p: pw.i32(p[0]).i64(p[1])
                      .string(None))))
-        # not retried: a stale commit replayed after a rebalance could
-        # bypass the fence; callers re-commit from their own cursors
+        # retry-ok: offset commits are NOT auto-retried (a stale commit
+        # replayed after a rebalance could fence-bypass); callers re-commit
+        # from their own cursors on ConnectionError
         r = self._request(OFFSET_COMMIT, 2, bytes(w.buf))
         tops = r.array(lambda rd: (rd.string(), rd.array(
             lambda p: (p.i32(), p.i16()))))
@@ -1127,8 +1144,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         w.string("consumer")
         w.array([("range", bytes(meta.buf))],
                 lambda wr, p: (wr.string(p[0]), wr.bytes_(p[1])))
-        # not retried: join mutates membership; RemoteGroupCoordinator's
-        # join loop retries with its member id
+        # retry-ok: join mutates membership (may create a member id); the
+        # coordinator adapter's join loop retries with its member id, so a
+        # lost response never leaks a zombie member past session timeout
         r = self._request(JOIN_GROUP, 0, bytes(w.buf))
         err = r.i16()
         if err == ERR_NOT_COORDINATOR:
@@ -1175,7 +1193,8 @@ class KafkaWireBroker(ProducePartitionMixin):
             wr.string(other_id).bytes_(bytes(aw.buf))
 
         w.array(sorted((assignments or {}).items()), one)
-        # not retried: sync is generation-fenced; callers rejoin
+        # retry-ok: sync is generation-fenced server-side; callers rejoin
+        # on ConnectionError rather than replay a possibly-stale sync
         r = self._request(SYNC_GROUP, 0, bytes(w.buf))
         err = r.i16()
         blob = r.bytes_() or b""
@@ -1211,14 +1230,17 @@ class KafkaWireBroker(ProducePartitionMixin):
         if err == ERR_NOT_COORDINATOR:
             raise CoordinatorMovedError(
                 f"heartbeat {group}: broker is not the coordinator")
-        # UNKNOWN_MEMBER_ID and REBALANCE_IN_PROGRESS both mean "this
-        # generation is over": the caller rejoins either way
+        if err in (ERR_UNKNOWN_MEMBER_ID, ERR_REBALANCE_IN_PROGRESS):
+            # both mean "this generation is over": the caller rejoins —
+            # same False signal either way, not worth distinct raises
+            return False
         return err == ERR_NONE
 
     def leave_group(self, group: str, member_id: str) -> None:
         w = _Writer()
         w.string(group).string(member_id)
-        # not retried: a lost leave heals by session timeout
+        # retry-ok: a lost leave is self-healing (session timeout expires
+        # the member); not worth retrying against a possibly-new leader
         err = self._request(LEAVE_GROUP, 0, bytes(w.buf)).i16()
         if err == ERR_NOT_COORDINATOR:
             # typed, so the cluster client re-finds the coordinator rather
@@ -1239,8 +1261,9 @@ class KafkaWireBroker(ProducePartitionMixin):
         w = _Writer()
         w.string(command)
         w.bytes_(json.dumps(args or {}).encode())
-        # not retried: the verbs change the cluster (a replayed
-        # add-broker boots a second node); the operator checks `status`
+        # retry-ok: admin verbs MUTATE cluster membership (a replayed
+        # add-broker boots a second node); a ConnectionError surfaces
+        # and the operator re-checks `status` before re-issuing
         r = self._request(CLUSTER_ADMIN, 0, bytes(w.buf))
         err = r.i16()
         if err == ERR_UNSUPPORTED_VERSION:
@@ -2208,9 +2231,11 @@ class KafkaWireServer(socketserver.ThreadingTCPServer):
             return coord
 
     def start(self) -> "KafkaWireServer":
-        self._thread = threading.Thread(
+        from ..supervise.registry import register_thread
+
+        self._thread = register_thread(threading.Thread(
             target=self.serve_forever, daemon=True,
-            name=f"iotml-torch-kafka-wire-{self.port}")
+            name=f"iotml-torch-kafka-wire-{self.port}"))
         self._thread.start()
         return self
 

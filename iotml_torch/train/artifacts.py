@@ -18,7 +18,7 @@ import shutil
 import tempfile
 from typing import Optional
 
-from ..store.segment import fsync_dir
+from ..store.segment import fsync_dir, fsync_file
 
 
 class ArtifactStore:
@@ -136,8 +136,7 @@ class ArtifactStore:
         try:
             with open(tmp, "w") as fh:
                 fh.write(text)
-                fh.flush()
-                os.fsync(fh.fileno())
+            fsync_file(tmp)
             os.replace(tmp, dst)
         finally:
             if os.path.exists(tmp):

@@ -28,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..store.segment import fsync_dir
+from ..store.segment import fsync_dir, fsync_file
 from .optim import AdamState
 
 FORMAT = "iotml_torch.checkpoint/1"
@@ -45,8 +45,7 @@ def _host(t) -> np.ndarray:
 def _write_synced(path: str, write) -> None:
     with open(path, "wb") as fh:
         write(fh)
-        fh.flush()
-        os.fsync(fh.fileno())
+    fsync_file(path)
 
 
 class CheckpointManager:

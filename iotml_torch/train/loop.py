@@ -327,13 +327,15 @@ class Trainer:
             # ingest→train span ends after it was queued
             for ctx in batches.take_traces():
                 ctx.close("train")
-        # ONE sync for both metric vectors
-        losses, accs = torch.stack([losses, accs]).cpu().numpy()
+        # lint-ok: T2 the one sync that ends a fit, for both metric
+        # vectors
+        host_losses, host_accs = torch.stack([losses, accs]).cpu().numpy()
         t_end = time.perf_counter()
         obs_metrics.step_seconds.observe(t_end - t_dev, loop="train",
                                          phase="device_compute")
         dt = t_end - t0
-        return {"loss": losses.tolist(), "accuracy": accs.tolist(),
+        return {"loss": host_losses.tolist(),
+                "accuracy": host_accs.tolist(),
                 "records": [records] * epochs,
                 "seconds": [dt / epochs] * epochs,
                 "host_pipeline_s": t_dev - t0,
