@@ -630,7 +630,40 @@ non-zero exit and no result line:
                 ``KafkaWireServer``, a wire ``GroupConsumer`` and the
                 card's ``StreamScorer``: every record scored, 0 lock-order
                 cycles (its io-under-lock and unguarded-mutation counts
-                printed).  The three children run beside (b).
+                printed).  The three children run beside (b).  The guard
+                also wraps ``ShardedStreamTrainer.fit_round`` and
+                ``fit_compiled``, which (b) does not call.
+17h. mesh_path — data parallelism (ROADMAP A10) after analysis_path,
+                ``[cuda:0, cuda:0]`` as the data axis (two logical shards
+                on the one card): (a) ``ShardedTrainer.fit`` on the main
+                slice (18→14→7→7→18, 100 batches of 100, 2 epochs)
+                against the single-device ``Trainer.fit`` of the same rows
+                and init, losses and params at rtol 1e-4 / atol 1e-6, ms a
+                step for 2 shards, 1 shard and the Trainer; (b)
+                ``ContinuousTrainer(mesh=, device_normalize=True)`` in
+                registry mode over a durable 8-partition broker (100 cars
+                x 80 ticks), three rounds of 10 batches a feed: one
+                manifest a round stamping all 8 cursors, each round's
+                loss and params against the same rounds on two CPU
+                shards (the fit bounds); (c) ``OnlineLearner(mesh=,
+                chip_monitors=)`` over two windows, the loss and the
+                per-device losses against a CPU learner's at rtol 1e-5;
+                (f) ``bench_leg(2)`` (40,000 timed records), its
+                records/s printed beside the card, not gated and not a
+                scaling figure; then (d) ``python -m
+                iotml_torch.parallel.multihost_worker`` as two ranks on
+                the card over gloo (CUDA tensors) and as one rank over
+                NCCL, started together, each rank's ``MULTIHOST ... ok``
+                line, equal trajectories across ranks, each within rtol
+                1e-4 of an in-process CPU recompute, while (e) the
+                cardata CLI trains through ``main(argv,
+                devices=[cuda:0, cuda:0])`` with ``--mesh.data=2`` (its
+                20 epochs cut to 2, to keep the phase short)
+                and prints JAX's ``mesh: {'data': 2, 'model': 1} over 2
+                devices`` line, and ``IOTML_MESH_DATA=2`` with the default
+                device list refuses with JAX's ValueError on a one-card
+                machine.  Every launch count 0 just before (a) and read
+                just after (e): no kernel on this path.
 18. fit_orders — after store_path's launch counts are read: its rows in
                 6 orders, B1 and the plain version with each batch's
                 rows reversed fit for 20 epochs on each, both held to
@@ -836,6 +869,7 @@ from iotml_torch.obs import tracing as obs_tracing
 from iotml_torch.obs import tsdb as obs_tsdb
 from iotml_torch.online import __main__ as online_cli
 from iotml_torch.online import drill as online_drill
+from iotml_torch.online import detectors as online_detectors
 from iotml_torch.online.learner import AdaptationPolicy, OnlineLearner
 from iotml_torch.ops import _build, fused_train
 from iotml_torch.ops.attention import (FLASH_DESIGNS, attention_reference,
@@ -853,6 +887,11 @@ from iotml_torch.ops.flash_parity import (bwd_rounding_flips,
                                           check_wgmma_forward)
 from iotml_torch.ops.framing import (frame_entries, iter_frame_entries,
                                      strip_frame)
+from iotml_torch.parallel import distributed as parallel_distributed
+from iotml_torch.parallel import mesh as parallel_mesh
+from iotml_torch.parallel import multihost_worker
+from iotml_torch.parallel import streaming as parallel_streaming
+from iotml_torch.parallel.data_parallel import ShardedTrainer
 from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
 from iotml_torch.serve import fastfmt
@@ -8518,7 +8557,10 @@ def _analysis_guarded() -> dict:
     xs = torch.from_numpy(np.stack([b.x for b in bs])).cuda()
     masks = torch.from_numpy(np.stack([b.mask for b in bs])).cuda()
     patched = tracecheck.install_runtime_guard()
-    if sorted(patched) != ["OnlineLearner._update", "Trainer.fit_compiled"]:
+    if sorted(patched) != ["OnlineLearner._update",
+                           "ShardedStreamTrainer.fit_compiled",
+                           "ShardedStreamTrainer.fit_round",
+                           "Trainer.fit_compiled"]:
         tracecheck.uninstall_runtime_guard()
         raise AssertionError(f"analysis_path (b): the guard patched "
                              f"{patched}")
@@ -8680,6 +8722,392 @@ def phase_analysis_path(card: str) -> dict:
           "kernel_launches": guarded["launches"],
           "kernel_launches_by_design": guarded["launches_by_design"]})
     return guarded
+
+
+# -------------------------------------------------------------- mesh_path
+#: the data-parallel bound of tests/test_parallel.py (losses and params)
+MESH_TOL = dict(rtol=1e-4, atol=1e-6)
+#: the online learner's per-device losses against a CPU recompute
+MESH_CHIP_TOL = dict(rtol=1e-5, atol=0.0)
+#: (a): the main slice's epochs (the reference job's 20, cut to 2)
+MESH_FIT_EPOCHS = 2
+#: (b): rounds, batches a feed a round, partitions, cars x ticks
+MESH_ROUNDS, MESH_TAKE, MESH_PARTITIONS = 3, 10, 8
+MESH_CARS, MESH_TICKS = 100, 80
+#: (d): the rehearsal's steps and its wall limit
+MESH_WORKER_STEPS, MESH_WORKER_TIMEOUT_S = 6, 300.0
+#: (e): the CLI's epochs (its default 20, cut to 2)
+MESH_CLI_EPOCHS = 2
+#: (f): bench_leg's timed and warm records
+MESH_BENCH_RECORDS, MESH_BENCH_WARMUP = 40_000, 8_000
+
+
+def _card_shards(n: int = 2) -> list:
+    return [torch.device("cuda", 0)] * n
+
+
+def _mesh_of(devices) -> "parallel_mesh.Mesh":
+    return parallel_mesh.make_mesh((len(devices),), ("data",),
+                                   devices=devices)
+
+
+def _mesh_step_profile(tr, batch, root: str) -> dict:
+    """One warmed step of the two-shard ``ShardedTrainer`` ``tr`` on
+    ``batch`` (its shards already on the card) in an ``obs.profile``
+    capture: wall and device ms, busy share, CUDA launches, and the host
+    ms in the shards' forwards (``_loss_fn``), their backwards
+    (``torch.autograd.grad``) and the Adam updates, each wrapped in a
+    named span for the capture alone; the rest of the step is the mask
+    sum, the flat ``cat`` and sum, the split and the metrics."""
+    x, _y, m = tr.put_batch(batch.x, batch.x, batch.mask)
+    tr._step(x, x, m)  # this shape warmed
+    loss_fn, grad = tr._loss_fn, torch.autograd.grad
+
+    def spanned(name, fn):
+        def call(*a, **k):
+            with obs_profile.annotate(name):
+                return fn(*a, **k)
+        return call
+
+    tr._loss_fn = spanned("mesh.forward", loss_fn)
+    tr.tx.update = spanned("mesh.adam", tr.tx.update)
+    torch.autograd.grad = spanned("mesh.backward", grad)
+    try:
+        with obs_profile.trace(f"{root}/mesh_step_profile") as cap:
+            with obs_profile.annotate("mesh.step"):
+                metrics = tr._step(x, x, m)
+            float(metrics["loss"])
+    finally:
+        tr._loss_fn, torch.autograd.grad = loss_fn, grad
+        del tr.tx.update
+    with open(cap.path, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    spans, launches = {}, 0
+    for e in doc["traceEvents"] if isinstance(doc, dict) else doc:
+        if e.get("ph") != "X":
+            continue
+        name = e.get("name", "")
+        if e.get("cat") == "user_annotation" and name.startswith("mesh."):
+            n, us = spans.get(name, (0, 0.0))
+            spans[name] = (n + 1, us + float(e.get("dur", 0.0)))
+        elif e.get("cat") == "cuda_runtime" and "LaunchKernel" in name:
+            launches += 1
+    host = {k[5:]: {"count": n, "ms": us / 1e3}
+            for k, (n, us) in sorted(spans.items())}
+    step_ms = host.get("step", {}).get("ms", 0.0)
+    host["rest"] = {"ms": step_ms - sum(
+        host.get(k, {}).get("ms", 0.0)
+        for k in ("forward", "backward", "adam"))}
+    s = cap.summary(top=5)
+    return {"shards": len(x.shards), "rows": int(batch.x.shape[0]),
+            "step_ms": step_ms, "wall_ms_profiled": s["window_ms"],
+            "cuda_launches": launches, "device_ops": s["device_ops"],
+            "device_ms": s["device_ms"], "device_busy_share":
+            s["busy_share"] if s["device_ops"] else None,
+            "host_ms": host, "top": s["top"]}
+
+
+def _mesh_fit(root: str) -> dict:
+    """(a): ``ShardedTrainer.fit`` on two card shards against the
+    single-device ``Trainer.fit`` of the same rows and init; ms a step
+    for 1 and 2 shards; one warmed two-shard step profiled."""
+    bs = _analysis_main_slice()
+    runs, trainers = {}, {}
+    for tag, make in (
+            ("2 shards", lambda: ShardedTrainer(
+                CAR_AUTOENCODER, _mesh_of(_card_shards(2)))),
+            ("1 shard", lambda: ShardedTrainer(
+                CAR_AUTOENCODER, _mesh_of(_card_shards(1)))),
+            ("Trainer", lambda: Trainer(CAR_AUTOENCODER))):
+        tr = trainers[tag] = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.fit(bs, epochs=MESH_FIT_EPOCHS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[tag] = (hist, tr.state, seconds)
+    steps = len(bs) * MESH_FIT_EPOCHS
+    (hist, state, _), (ref, ref_state, _) = runs["2 shards"], runs["Trainer"]
+    err = check_close("mesh_path (a) losses", torch.tensor(hist["loss"]),
+                      torch.tensor(ref["loss"]), **MESH_TOL)
+    for key in PARAM_NAMES:
+        err = max(err, check_close(f"mesh_path (a) {key}",
+                                   state.params[key],
+                                   ref_state.params[key], **MESH_TOL))
+    if state.step != steps or not hist["loss"][-1] < hist["loss"][0]:
+        raise AssertionError(f"mesh_path (a): step {state.step} of "
+                             f"{steps}, losses {hist['loss']}")
+    return {"batches": len(bs), "batch": 100, "epochs": MESH_FIT_EPOCHS,
+            "steps": steps, "loss": hist["loss"], "max_abs_err": err,
+            "ms_per_step": {tag: 1e3 * s / steps
+                            for tag, (_h, _st, s) in runs.items()},
+            "step_profile": _mesh_step_profile(trainers["2 shards"],
+                                               bs[0], root)}
+
+
+def _mesh_live(store_dir: str) -> dict:
+    """(b): ``ContinuousTrainer(mesh=, device_normalize=True)`` over a
+    durable broker with 8 partitions, registry mode: a manifest a round
+    stamping all 8 cursors; each round's params against the same rounds
+    on two CPU shards."""
+    broker = Broker(store_dir=store_dir,
+                    store_policy=StorePolicy(fsync="never"))
+    try:
+        n = FleetGenerator(FleetScenario(
+            num_cars=MESH_CARS, failure_rate=0.01)).publish(
+            broker, SERVE_TOPIC, n_ticks=MESH_TICKS,
+            partitions=MESH_PARTITIONS)
+        roots = {tag: tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{tag}_")
+                 for tag in ("card", "cpu")}
+        trainers = {
+            tag: ContinuousTrainer(
+                broker, SERVE_TOPIC, None,
+                registry=ModelRegistry(roots[tag]),
+                group=f"mesh-live-{tag}", mesh=_mesh_of(devs),
+                device_normalize=True, take_batches=MESH_TAKE,
+                batch_size=100)
+            for tag, devs in (("card", _card_shards(2)),
+                              ("cpu", [torch.device("cpu")] * 2))}
+        rounds, err = [], 0.0
+        for r in range(MESH_ROUNDS):
+            stats = {tag: tr.train_round() for tag, tr in trainers.items()}
+            version = trainers["card"].checkpointer.write_once()
+            trainers["cpu"].checkpointer.write_once()
+            m = trainers["card"].registry.manifest(version)
+            parts = sorted(p for _t, p, _o in m.offsets)
+            if parts != list(range(MESH_PARTITIONS)) or \
+                    stats["card"]["records"] != stats["cpu"]["records"] or \
+                    not stats["card"]["records"]:
+                raise AssertionError(f"mesh_path (b) round {r + 1}: "
+                                     f"manifest partitions {parts}, "
+                                     f"stats {stats}")
+            err = max(err, check_close(
+                f"mesh_path (b) round {r + 1} loss",
+                torch.tensor([stats["card"]["loss"]]),
+                torch.tensor([stats["cpu"]["loss"]]), **MESH_TOL))
+            card_state = trainers["card"].trainer.state
+            cpu_state = trainers["cpu"].trainer.state
+            for key in PARAM_NAMES:
+                err = max(err, check_close(
+                    f"mesh_path (b) round {r + 1} {key}",
+                    card_state.params[key], cpu_state.params[key],
+                    **MESH_TOL))
+            rounds.append({"round": r + 1, "version": version,
+                           "records": stats["card"]["records"],
+                           "loss": stats["card"]["loss"],
+                           "seconds": stats["card"]["seconds"],
+                           "manifest_partitions": len(parts)})
+        manifests = len(trainers["card"].registry.versions())
+        for tr in trainers.values():
+            tr.close()
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+        if manifests != MESH_ROUNDS:
+            raise AssertionError(f"mesh_path (b): {manifests} manifests "
+                                 f"for {MESH_ROUNDS} rounds")
+        return {"records_published": n, "rounds": rounds,
+                "manifests": manifests, "max_abs_err": err}
+    finally:
+        broker.close()
+
+
+def _mesh_online() -> dict:
+    """(c): ``OnlineLearner(mesh=, chip_monitors=)``, two windows, the
+    global and per-device losses against a CPU learner's."""
+    rng = np.random.default_rng(7)
+    wins = [rng.normal(0, 0.1, (100, 18)).astype(np.float32)
+            for _ in range(2)]
+    wins[1][50:] += 3.0  # the second shard's rows off-distribution
+    got = {}
+    for tag, devs in (("card", _card_shards(2)),
+                      ("cpu", [torch.device("cpu")] * 2)):
+        lr = OnlineLearner(Broker(), "MESH_ONLINE", mesh=_mesh_of(devs),
+                           device_normalize=True, window=100,
+                           chip_monitors=[online_detectors.DriftMonitor()
+                                          for _ in devs])
+        got[tag] = [(lr._update(Batch(x=x, n_valid=100,
+                                      first_index=100 * i)),
+                     np.asarray(lr.last_chip_losses))
+                    for i, x in enumerate(wins)]
+    err = 0.0
+    for i, ((loss, chips), (c_loss, c_chips)) in enumerate(
+            zip(got["card"], got["cpu"])):
+        err = max(err, check_close(
+            f"mesh_path (c) window {i + 1}",
+            torch.tensor([loss, *chips]),
+            torch.tensor([c_loss, *c_chips]), **MESH_CHIP_TOL))
+    return {"windows": [{"loss": loss, "chip_losses": chips.tolist()}
+                        for loss, chips in got["card"]],
+            "max_abs_err": err}
+
+
+def _mesh_rehearsal_broker() -> Broker:
+    broker = Broker()
+    FleetGenerator(FleetScenario(num_cars=40, failure_rate=0.02)).publish(
+        broker, "SENSOR", n_ticks=60, partitions=4)
+    return broker
+
+
+def _mesh_cpu_losses(broker, n_procs: int, shards: int) -> list:
+    """The rehearsal's trajectory recomputed in this process on the CPU:
+    each step's batch the ranks' batches in rank order."""
+    per_rank = []
+    for pid in range(n_procs):
+        parts = parallel_distributed.assign_partitions(4, n_procs, pid)
+        consumer = StreamConsumer(
+            broker, parallel_distributed.consumer_specs("SENSOR", parts),
+            group=f"mesh-recompute-{n_procs}-{pid}")
+        per_rank.append(list(SensorBatches(consumer, batch_size=32,
+                                           only_normal=True,
+                                           pad_tail=False)))
+    tr = ShardedTrainer(CAR_AUTOENCODER, _mesh_of(
+        [torch.device("cpu")] * (n_procs * shards)))
+    losses = []
+    for i in range(MESH_WORKER_STEPS):
+        bs = [r[i % len(r)] for r in per_rank]
+        x = np.concatenate([b.x for b in bs])
+        losses.append(float(tr.step(x, x, np.concatenate(
+            [b.mask for b in bs]))["loss"]))
+    return losses
+
+
+def _mesh_rehearsals() -> dict:
+    """(d): ``python -m iotml_torch.parallel.multihost_worker`` as two
+    ranks on the one card over gloo (CUDA tensors), and as one rank over
+    NCCL, started together."""
+    cases = {"gloo 2 ranks": (2, "gloo"), "nccl 1 rank": (1, "nccl")}
+    brokers = {tag: _mesh_rehearsal_broker() for tag in cases}
+    with ThreadPoolExecutor(max_workers=len(cases)) as pool:
+        futs = {tag: pool.submit(
+            multihost_worker.spawn_rehearsal, steps=MESH_WORKER_STEPS,
+            timeout=MESH_WORKER_TIMEOUT_S, n_partitions=4, n_procs=n,
+            shards=2, device="cuda:0", backend=backend,
+            broker=brokers[tag])
+            for tag, (n, backend) in cases.items()}
+        done = {tag: f.result() for tag, f in futs.items()}
+    out, err = {}, 0.0
+    for tag, (procs, outs) in done.items():
+        n = cases[tag][0]
+        trajs = []
+        for pid, (p, text) in enumerate(zip(procs, outs)):
+            ok = re.search(rf"MULTIHOST pid={pid}/{n} devices={2 * n} "
+                           rf".* loss [\d.]+->[\d.]+ .* ok", text)
+            if p.returncode != 0 or not ok:
+                raise AssertionError(f"mesh_path (d) {tag} rank {pid} "
+                                     f"exited {p.returncode}:\n"
+                                     f"{text[-3000:]}")
+            line = next(ln for ln in text.splitlines()
+                        if ln.startswith("MULTIHOST-LOSSES "))
+            trajs.append(json.loads(line.split(" ", 1)[1]))
+        if any(t != trajs[0] for t in trajs):
+            raise AssertionError(f"mesh_path (d) {tag}: the ranks' "
+                                 f"trajectories differ: {trajs}")
+        err = max(err, check_close(
+            f"mesh_path (d) {tag} vs the CPU", torch.tensor(trajs[0]),
+            torch.tensor(_mesh_cpu_losses(brokers[tag], n, 2)),
+            rtol=1e-4, atol=0.0))
+        out[tag] = {"ranks": n, "shards_a_rank": 2, "losses": trajs[0],
+                    "lines": [ln for text in outs
+                              for ln in text.splitlines()
+                              if ln.startswith("MULTIHOST pid=")]}
+    return {"runs": out, "max_abs_err": err}
+
+
+def _mesh_cli(root: str) -> dict:
+    """(e): the cardata CLI's mesh train through ``main(argv,
+    devices=[cuda:0, cuda:0])`` with ``--mesh.data=2``; and
+    ``IOTML_MESH_DATA=2`` with the default device list, which on a
+    one-card machine must refuse as JAX's CLI does."""
+    argv = ["emulator:30000", SERVE_TOPIC, "0", "model-predictions",
+            "train", "mesh-model", os.path.join(root, "mesh_cli"),
+            "--mesh.data=2", f"--train.epochs={MESH_CLI_EPOCHS}"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cardata.main(argv, devices=_card_shards(2))
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    stats = json.loads(out.split("stats: ")[1].splitlines()[0]) \
+        if "stats: " in out else {}
+    losses = stats.get("loss", [])
+    if rc != 0 or "mesh: {'data': 2, 'model': 1} over 2 devices" not in out \
+            or stats.get("records") != 10_000 \
+            or len(losses) != MESH_CLI_EPOCHS \
+            or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh_path (e): rc {rc}:\n{out[-3000:]}")
+    refusal = None
+    if torch.cuda.device_count() == 1:
+        saved = os.environ.get("IOTML_MESH_DATA")
+        os.environ["IOTML_MESH_DATA"] = "2"
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cardata.main(argv[:7] + ["--train.epochs=1"])
+        except ValueError as e:
+            refusal = str(e)
+        finally:
+            if saved is None:
+                os.environ.pop("IOTML_MESH_DATA")
+            else:
+                os.environ["IOTML_MESH_DATA"] = saved
+        if refusal != "mesh shape (2, 1) needs 2 devices, have 1":
+            raise AssertionError(f"mesh_path (e): IOTML_MESH_DATA=2 on one "
+                                 f"card gave {refusal!r}")
+    return {"losses": losses, "records": stats["records"],
+            "fit_seconds": stats["fit_seconds"], "seconds": seconds,
+            "refusal": refusal}
+
+
+def phase_mesh_path(card: str, root: str) -> dict:
+    """Data parallelism (ROADMAP A10) on the card, ``[cuda:0, cuda:0]``
+    as the data axis: (a) ``ShardedTrainer.fit``, (b) the live trainer's
+    mesh rounds, (c) the online learner's per-device monitors, (f)
+    ``bench_leg(2)``, then (d) the multi-process worker as child
+    processes while (e) the CLI's mesh train runs.  The launch counts
+    are 0 just before (a) and read just after (e): no kernel on this
+    path."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    reset_fit_launches()
+    fit = _mesh_fit(root)
+    t_fit = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_store_")
+    try:
+        live = _mesh_live(store_dir)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    online = _mesh_online()
+    t_bench = time.perf_counter()
+    leg = parallel_streaming.bench_leg(
+        2, records=MESH_BENCH_RECORDS, warmup_records=MESH_BENCH_WARMUP,
+        devices=_card_shards(2))
+    t_children = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        rehearsals = pool.submit(_mesh_rehearsals)
+        cli = _mesh_cli(root)
+        workers = rehearsals.result()
+    launches = path_launches()
+    if any(launches.values()):
+        raise AssertionError(f"mesh_path: kernel launches {launches}")
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "mesh_path", "card": card, "shards": 2,
+          "fit": fit, "live": live, "online": online,
+          "rehearsals": workers["runs"], "cli": cli,
+          "bench_leg": {**leg, "card": card, "note": "two logical shards "
+                        "on one card; not a scaling figure"},
+          "seconds": {"fit": t_fit - t_phase,
+                      "live_online": t_bench - t_fit,
+                      "bench_leg": t_children - t_bench,
+                      "children_and_cli": time.perf_counter()
+                      - t_children},
+          "phase_seconds": phase_s, "kernel_launches": launches})
+    return {"launches": launches["fused_fit"],
+            "launches_by_design":
+                dict(fused_train.fused_fit.launches_by_design),
+            "max_abs_err": max(fit["max_abs_err"], live["max_abs_err"],
+                               online["max_abs_err"],
+                               workers["max_abs_err"])}
+
 
 #: the Kaggle creditcard file's row count, which the synthetic file takes
 CC_ROWS = 284_807
@@ -9888,6 +10316,7 @@ def main() -> int:
         twin_info = phase_twin_path(card, root)
         gateway_info = phase_gateway_path(card)
         analysis_info = phase_analysis_path(card)
+        mesh_info = phase_mesh_path(card, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_fit_orders(card, store_info)
@@ -9930,7 +10359,8 @@ def main() -> int:
         + store_info["launches"] + repl_info["launches"]
         + cluster_info["launches"] + chaos_info["launches"]
         + twin_info["launches"] + gateway_info["launches"]
-        + analysis_info["launches"] + cc_info["launches"]
+        + analysis_info["launches"] + mesh_info["launches"]
+        + cc_info["launches"]
         + lstm_info["counts"]["fused_fit"]
         + mnist_info["counts"]["fused_fit"],
         "launches_by_path": {"main_path": main_info["launches"],
@@ -9952,6 +10382,7 @@ def main() -> int:
                              "twin_path": twin_info["launches"],
                              "gateway_path": gateway_info["launches"],
                              "analysis_path": analysis_info["launches"],
+                             "mesh_path": mesh_info["launches"],
                              "creditcard_path": cc_info["launches"],
                              "lstm_path": lstm_info["counts"]["fused_fit"],
                              "mnist_path":
@@ -9974,6 +10405,7 @@ def main() -> int:
             + twin_info["launches_by_design"][d]
             + gateway_info["launches_by_design"][d]
             + analysis_info["launches_by_design"][d]
+            + mesh_info["launches_by_design"][d]
             + cc_info["launches_by_design"][d]
             for d in fused_train.DESIGNS},
         "max_abs_err": max(err, *timing["max_abs_err"].values(),

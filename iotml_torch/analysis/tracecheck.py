@@ -52,7 +52,8 @@ finds its library cached is a lookup and not counted), and
 (instance, shape/dtype signature) key has run once (the warm-up call),
 a later call under the same key that builds or loads raises
 ``RecompileError``.  The pytest plugin installs it over
-``Trainer.fit_compiled`` and ``OnlineLearner._update`` when
+``Trainer.fit_compiled``, ``ShardedStreamTrainer.fit_round`` and
+``fit_compiled``, and ``OnlineLearner._update`` when
 ``IOTML_TRACECHECK=1``.
 """
 
@@ -79,8 +80,8 @@ PASS_RULES: Dict[str, str] = {
 }
 
 #: the hot loops this pass walks by default: package-relative file ->
-#: ((qualified function name, device-valued parameters), ...).  The JAX
-#: package's TRACE_TARGET_RELS less its parallel/ rows (ROADMAP A10).
+#: ((qualified function name, device-valued parameters), ...): the JAX
+#: package's TRACE_TARGET_RELS files, and the port's kernel wrappers.
 TRACE_TARGETS: Dict[str, Tuple[Tuple[str, Tuple[str, ...]], ...]] = {
     "train/loop.py": (
         ("make_raw_train_step.step", ("state", "x", "y", "mask")),
@@ -88,11 +89,22 @@ TRACE_TARGETS: Dict[str, Tuple[Tuple[str, Tuple[str, ...]], ...]] = {
         ("make_scanned_window_steps.run", ("state", "xs", "masks")),
         ("Trainer.fit_compiled", ()),
     ),
+    "parallel/streaming.py": (
+        ("ShardedStreamTrainer.fit_round", ()),
+        ("ShardedStreamTrainer._assemble", ()),
+        ("shard_mean_losses", ("row_loss",)),
+    ),
+    "parallel/data_parallel.py": (
+        ("ShardedTrainer._raw_step", ("x", "y", "mask")),
+        ("ShardedTrainer._step", ("x", "y", "mask")),
+        ("ShardedTrainer.fit", ()),
+    ),
     "core/normalize.py": (
         ("Normalizer.__call__", ()),
     ),
     "online/learner.py": (
         ("OnlineLearner._update", ()),
+        ("OnlineLearner._update_mesh", ()),
         ("OnlineLearner._update_group", ()),
     ),
     "serve/scorer.py": (
@@ -692,11 +704,12 @@ def guard_hot_loop(fn, label: Optional[str] = None):
     return wrapped
 
 
-#: the hot loops the pytest plugin guards under IOTML_TRACECHECK=1.  The
-#: JAX package's ShardedStreamTrainer rows wait for its port (ROADMAP
-#: A10).
+#: the hot loops the pytest plugin guards under IOTML_TRACECHECK=1
 _GUARD_TARGETS = (
     ("iotml_torch.train.loop", "Trainer", "fit_compiled"),
+    ("iotml_torch.parallel.streaming", "ShardedStreamTrainer", "fit_round"),
+    ("iotml_torch.parallel.streaming", "ShardedStreamTrainer",
+     "fit_compiled"),
     ("iotml_torch.online.learner", "OnlineLearner", "_update"),
 )
 

@@ -22,9 +22,19 @@ reference's does (cardata-v3.py:227-231): train exports the params
 (``models.h5_export``, through ``utils.hdf5``) and uploads them, predict
 downloads and imports them; any other name moves the port's checkpoint.
 An app without h5 interop (the LSTM) refuses an ``.h5`` name with the JAX
-CLI's message and exit 1.  The parts the port does not have yet raise
-NotImplementedError naming their ROADMAP item: a multi-device mesh and a
-multi-host job.
+CLI's message and exit 1.
+
+A configured mesh (``--mesh.data`` / ``--mesh.model`` flags or a config
+file, or the ``IOTML_MESH_DATA`` process knob at 2 or more, as the
+deploy manifests set it) trains data-parallel
+(``parallel.data_parallel.ShardedTrainer.fit``) over an ('data',
+'model') mesh of the first devices of ``devices`` (every visible CUDA
+device unless given; ``--mesh.data=-1`` takes them all) and prints
+``mesh: {...} over N devices``; a mesh larger than the devices raises
+ValueError, as JAX's CLI does.  On a multi-host Job
+(``JAX_NUM_PROCESSES`` > 1) each process consumes its
+``assign_partitions`` share of the topic (``JAX_PROCESS_ID``) and an
+empty share trains nothing.
 """
 
 from __future__ import annotations
@@ -40,9 +50,13 @@ from typing import Callable, NamedTuple, Optional
 
 from ..config import Config, load_config
 from ..data.dataset import SensorBatches
+from ..data.pipeline import mesh_data
 from ..gen.simulator import FleetGenerator, FleetScenario
 from ..models.h5_export import autoencoder_params_to_h5
 from ..models.h5_import import autoencoder_params_from_h5
+from ..parallel.data_parallel import ShardedTrainer
+from ..parallel.distributed import assign_partitions
+from ..parallel.mesh import auto_mesh, local_devices
 from ..serve.scorer import StreamScorer
 from ..stream import native
 from ..stream.broker import Broker
@@ -123,13 +137,15 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
                       predict_take: int, supervised: bool = False,
                       window: Optional[int] = None,
                       h5_interop: bool = False,
-                      device: DeviceLike = None) -> int:
+                      device: DeviceLike = None, devices=None) -> int:
     """Run one train or predict job; returns the process exit code (1 on
     an argument error).  ``supervised`` and ``window`` are the LSTM's:
     fit ``model(x)`` to the next row, over [B, window, F] windows.
     ``h5_interop`` says whether the app takes ``.h5`` model files (the
     autoencoder's does; the LSTM's exits 1).
-    ``device`` is where the model runs (``cuda`` unless given).  Each
+    ``device`` is where the model runs (``cuda`` unless given);
+    ``devices`` are those a configured mesh is laid over (every visible
+    CUDA device unless given; a device may repeat).  Each
     mode ends with a ``stats: {...}`` JSON line: losses and fit seconds
     (train), rows and scoring seconds (predict), and the rows and seconds
     of the native engine's decode and format calls."""
@@ -158,15 +174,6 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
     offset = offset.strip().lower()
     if offset != "committed":
         offset = int(offset)
-    if int(os.environ.get("IOTML_MESH_DATA", "0") or 0) >= 2:
-        raise NotImplementedError(
-            "IOTML_MESH_DATA >= 2 asks for a multi-device mesh, which is "
-            "not ported yet (ROADMAP A10)")
-    if int(os.environ.get("JAX_NUM_PROCESSES", "1") or 1) > 1:
-        raise NotImplementedError(
-            "JAX_NUM_PROCESSES > 1 asks for a multi-host job with a "
-            "partition share per host, which is not ported yet (ROADMAP "
-            "A10)")
 
     applied = cfg.applied
     if "train.epochs" in applied:
@@ -176,13 +183,34 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
     if "train.take_batches" in applied:
         take_batches = cfg.train.take_batches
 
+    # a configured mesh (flags, config file, or the IOTML_MESH_DATA knob
+    # the deploy manifests set, >= 2 as everywhere) trains data-parallel
+    use_mesh = bool({"mesh.data", "mesh.model"} & applied)
+    knob = mesh_data()
+    if knob >= 2 and "mesh.data" not in applied:
+        cfg.mesh.data = knob
+        use_mesh = True
+    mesh = None
+    if use_mesh:
+        pool = list(devices) if devices is not None else local_devices()
+        model_par = max(cfg.mesh.model, 1)
+        n_dev = len(pool) if cfg.mesh.data in (-1, 0) \
+            else cfg.mesh.data * model_par
+        mesh = auto_mesh(n_dev, model_parallel=model_par, devices=pool)
+        print(f"mesh: {dict(mesh.shape)} over {n_dev} devices")
+
     with connected(servers, topic, cfg) as conn:
         broker = conn.broker
         store = ArtifactStore(artifact_root)
 
-        # one host consumes every partition; `committed` resumes from the
-        # group's offset cursor
-        parts = topic_partitions(broker, topic)
+        # this host's partition share: on an indexed multi-host Job each
+        # process consumes a disjoint subset; an empty share (more hosts
+        # than partitions) trains nothing rather than overlap another's.
+        # `committed` resumes from the group's offset cursor
+        n_parts = len(topic_partitions(broker, topic))
+        n_hosts = int(os.environ.get("JAX_NUM_PROCESSES", "1"))
+        host_id = int(os.environ.get("JAX_PROCESS_ID", "0"))
+        parts = assign_partitions(n_parts, n_hosts, host_id)
         if offset == "committed":
             consumer = StreamConsumer.from_committed(broker, topic, parts,
                                                      group=group)
@@ -190,17 +218,33 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
             consumer = StreamConsumer(broker,
                                       [f"{topic}:{p}:{offset}" for p in parts],
                                       group=group)
+        if not parts:
+            print(f"host {host_id}/{n_hosts}: no partition share of "
+                  f"{n_parts}-partition topic {topic}; idle")
         model = make_model()
         before = dict(native.stats)
 
         if mode == "train":
-            trainer = Trainer(model, learning_rate=cfg.train.learning_rate,
-                              supervised=supervised, device=device)
             batches = SensorBatches(consumer, batch_size=batch_size,
                                     take=take_batches, window=window,
                                     only_normal=not supervised
                                     and cfg.train.only_normal)
-            history = trainer.fit_compiled(batches, epochs=epochs)
+            if mesh is not None:
+                trainer = ShardedTrainer(
+                    model, mesh, learning_rate=cfg.train.learning_rate,
+                    supervised=supervised)
+                history = trainer.fit(batches, epochs=epochs)
+                if trainer.state is None:
+                    history["loss"] = []
+                # the step loop reports whole-epoch seconds only
+                history["host_pipeline_s"] = None
+                history["device_compute_s"] = None
+                fit_s = sum(history["seconds"])
+            else:
+                trainer = Trainer(model, learning_rate=cfg.train.learning_rate,
+                                  supervised=supervised, device=device)
+                history = trainer.fit_compiled(batches, epochs=epochs)
+                fit_s = None
             if not history["loss"]:
                 print(f"No records on {topic} from offset {offset}; nothing "
                       f"trained, nothing stored")
@@ -228,7 +272,8 @@ def run_streaming_app(argv, *, prog: str, usage: str, make_model: Callable,
                 "mode": "train", "broker": conn.kind,
                 "records": history["records"][0],
                 "loss": history["loss"],
-                "fit_seconds": history["host_pipeline_s"]
+                "fit_seconds": fit_s if fit_s is not None
+                else history["host_pipeline_s"]
                 + history["device_compute_s"],
                 "host_pipeline_s": history["host_pipeline_s"],
                 "device_compute_s": history["device_compute_s"],

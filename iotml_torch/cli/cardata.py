@@ -37,12 +37,13 @@ USAGE = ("usage: python -m iotml_torch.cli.cardata <servers> <topic> "
          "  servers: emulator[:n_records]")
 
 
-def main(argv=None, *, device: DeviceLike = None) -> int:
+def main(argv=None, *, device: DeviceLike = None, devices=None) -> int:
     return run_streaming_app(
         argv, prog="cardata", usage=USAGE, make_model=lambda: CAR_AUTOENCODER,
         group="cardata-autoencoder", epochs=NB_EPOCH, batch_size=BATCH_SIZE,
         take_batches=TAKE_BATCHES, predict_skip=PREDICT_SKIP,
-        predict_take=TAKE_BATCHES, h5_interop=True, device=device)
+        predict_take=TAKE_BATCHES, h5_interop=True, device=device,
+        devices=devices)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,15 @@ stdin closes or reads a ``STOP`` line, or after ``--max-seconds``.  Both
 run on ``cuda``; ``main(argv, device="cpu")`` runs them on the CPU from
 Python.
 
+``--mesh-data N`` (``IOTML_MESH_DATA``, N >= 2) trains data-parallel
+over the first N of ``main``'s ``devices`` (every visible CUDA device
+unless given; a device may repeat): one feed a device, each over its own
+partition subset (``parallel.streaming``); more than there are devices
+is a usage error, as in JAX's CLI.  ``--device-normalize 1``
+(``IOTML_DEVICE_NORMALIZE``) folds the normalization into the sharded
+step and needs ``--mesh-data`` >= 2; ``--prefetch-depth``
+(``IOTML_PREFETCH_DEPTH``) sets the mesh feeds' staging depth.
+
 Differences from the JAX package's CLI:
 - ``--model-name`` defaults to ``cardata-live.h5`` as there, and rounds
   are Keras h5; a name not ending in ``.h5`` stores the port's checkpoint
@@ -34,10 +43,6 @@ Differences from the JAX package's CLI:
 - ``--metrics-port N`` serves ``/metrics`` and ``/healthz``
   (``obs.metrics.start_http_server``; 0, the default, is off; a port
   that cannot be bound raises) until ``main`` returns.
-- A flag the port has not got raises NotImplementedError naming its
-  ROADMAP item when given: ``--mesh-data`` and ``--device-normalize`` (A10),
-  ``--prefetch-depth`` (A10: only the mesh paths build a
-  ``data.prefetch.DevicePrefetcher``, in the JAX package too).
 - ``--decode-ring-buffers``, ``--raw-batch-bytes``, ``--raw-produce`` and
   ``--produce-batch-bytes`` set their knobs (``IOTML_DECODE_RING_BUFFERS``,
   ``IOTML_RAW_BATCH_BYTES``, ``IOTML_RAW_PRODUCE``,
@@ -59,10 +64,6 @@ import threading
 import time
 
 from ..utils.device import DeviceLike, resolve_device
-
-#: unported flags → the ROADMAP item that ports them
-UNPORTED = {"mesh_data": "A10", "device_normalize": "A10",
-            "prefetch_depth": "A10"}
 
 
 def _stopper(max_seconds: float):
@@ -146,7 +147,8 @@ def _parser() -> argparse.ArgumentParser:
                             "stream offsets; score follows the serving "
                             "channel")
         p.add_argument("--prefetch-depth", type=int, default=None,
-                       help="not ported (A10)")
+                       help="host-to-device prefetch depth of the mesh "
+                            "feeds (sets IOTML_PREFETCH_DEPTH; default 2)")
         p.add_argument("--decode-ring-buffers", type=int, default=None,
                        help="reusable columnar decode buffers (sets "
                             "IOTML_DECODE_RING_BUFFERS; default 4)")
@@ -165,36 +167,60 @@ def _parser() -> argparse.ArgumentParser:
                        help="serve /metrics + /healthz on this port "
                             "(0 = off)")
         p.add_argument("--mesh-data", type=int, default=None,
-                       help="not ported (A10)")
+                       help="data-parallel training: data-axis size of "
+                            "the device mesh (sets IOTML_MESH_DATA; "
+                            "0/absent = one device); each device consumes "
+                            "its own partition subset (train only)")
         p.add_argument("--device-normalize", default=None,
-                       choices=("0", "1"), help="not ported (A10)")
+                       choices=("0", "1"),
+                       help="fold the normalization into the sharded "
+                            "step so the host ships raw columns (sets "
+                            "IOTML_DEVICE_NORMALIZE; needs --mesh-data "
+                            ">= 2)")
     return ap
 
 
-def main(argv=None, *, device: DeviceLike = None) -> int:
+def main(argv=None, *, device: DeviceLike = None, devices=None) -> int:
     """Run one service until it is stopped; returns the exit code (1 when
-    the input topic never appears; argparse exits 2 on bad arguments)."""
+    the input topic never appears; argparse exits 2 on bad arguments).
+    ``devices`` are those a ``--mesh-data`` mesh takes its first N of."""
     ap = _parser()
     args = ap.parse_args(argv)
-    for name, item in UNPORTED.items():
-        if getattr(args, name, None) is not None:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
-    from ..data.pipeline import set_knobs
+    from ..data import pipeline
 
     try:
-        set_knobs(decode_ring_buffers=args.decode_ring_buffers,
-                  raw_batch_bytes=args.raw_batch_bytes,
-                  produce_batch_bytes=args.produce_batch_bytes,
-                  raw_produce=args.raw_produce)
+        pipeline.set_knobs(prefetch_depth=args.prefetch_depth,
+                           decode_ring_buffers=args.decode_ring_buffers,
+                           raw_batch_bytes=args.raw_batch_bytes,
+                           produce_batch_bytes=args.produce_batch_bytes,
+                           raw_produce=args.raw_produce,
+                           mesh_data=args.mesh_data,
+                           device_normalize=None
+                           if args.device_normalize is None
+                           else args.device_normalize == "1")
+        mesh_devices = pipeline.mesh_data()
+        dev_norm = pipeline.device_normalize()
     except ValueError as e:
         ap.error(str(e))
+    if dev_norm and mesh_devices < 2:
+        ap.error("IOTML_DEVICE_NORMALIZE=1 needs IOTML_MESH_DATA >= 2 "
+                 "(the affine fold lives in the sharded step)")
+    mesh = None
+    if args.cmd == "train" and mesh_devices >= 2:
+        from ..parallel.mesh import local_devices, make_mesh
+
+        pool = list(devices) if devices is not None else local_devices()
+        if mesh_devices > len(pool):
+            ap.error(f"IOTML_MESH_DATA={mesh_devices} but only "
+                     f"{len(pool)} local devices")
+        mesh = make_mesh((mesh_devices,), ("data",),
+                         devices=pool[:mesh_devices])
     car_th = None
     if args.cmd == "score":
         car_th = args.car_threshold if args.car_threshold == "auto" \
             else float(args.car_threshold)
-    device = resolve_device(device)  # no card and no device: raise now
+    if mesh is None:
+        device = resolve_device(device)  # no card and no device: raise now
 
     from ..config import load_config
     from ..core.normalize import CAR_NORMALIZER, FULL_NORMALIZER
@@ -259,11 +285,16 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
                 epochs_per_round=args.epochs_per_round,
                 normalizer=normalizer,
                 backfill_since_ms=args.backfill_since_ms,
-                registry=registry, checkpointer=checkpointer, device=device)
+                registry=registry, checkpointer=checkpointer, mesh=mesh,
+                device_normalize=dev_norm,
+                device=device if mesh is None else None)
             print(f"live train: {args.topic} rounds of "
                   f"{args.take_batches}x{args.batch_size} -> "
                   f"{args.artifact_root}/{args.model_name}"
-                  + (f" + registry {registry_root}" if registry else ""),
+                  + (f" + registry {registry_root}" if registry else "")
+                  + (f" [mesh data={mesh_devices}"
+                     f"{', device-normalize' if dev_norm else ''}]"
+                     if mesh is not None else ""),
                   flush=True)
             try:
                 rounds = svc.run(stop=stop, on_round=emit)

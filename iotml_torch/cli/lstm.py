@@ -37,7 +37,7 @@ USAGE = ("usage: python -m iotml_torch.cli.lstm <servers> <topic> <offset> "
          "  servers: emulator[:n_records] | host:port[,host:port...]")
 
 
-def main(argv=None, *, device: DeviceLike = None) -> int:
+def main(argv=None, *, device: DeviceLike = None, devices=None) -> int:
     n_batches = max(1, TRAIN_TAKE // BATCH_SIZE)
     return run_streaming_app(
         argv, prog="lstm", usage=USAGE,
@@ -45,7 +45,8 @@ def main(argv=None, *, device: DeviceLike = None) -> int:
         group="cardata-lstm", epochs=NB_EPOCH, batch_size=BATCH_SIZE,
         take_batches=n_batches, predict_skip=n_batches,
         predict_take=max(1, PREDICT_TAKE // BATCH_SIZE),
-        supervised=True, window=LOOK_BACK, device=device)
+        supervised=True, window=LOOK_BACK, device=device,
+        devices=devices)
 
 
 if __name__ == "__main__":

@@ -56,13 +56,11 @@ run under a supervisor (``Platform.supervised()``): a crashed serving
 thread restarts under backoff, and a trainer's checkpoint writer handed
 to ``attach_checkpointer`` runs as a supervised loop.
 
-Left out: `--prefetch-depth` (A10), which raises NotImplementedError
-naming its ROADMAP item when given.  ``pump()`` advances the KSQL
-queries and the connectors once;
+``pump()`` advances the KSQL queries and the connectors once;
 ``drain_ingest()`` waits until every message the simulated fleet sent is
-bridged and the KSQL outputs stop moving.  `--decode-ring-buffers`,
-`--raw-batch-bytes`, `--raw-produce` and `--produce-batch-bytes` set
-their knobs through ``data.pipeline.set_knobs`` before the platform is
+bridged and the KSQL outputs stop moving.  `--prefetch-depth`,
+`--decode-ring-buffers`, `--raw-batch-bytes`, `--raw-produce` and
+`--produce-batch-bytes` set their knobs through ``data.pipeline.set_knobs`` before the platform is
 built, as in the JAX package; an invalid value is a usage error.
 """
 
@@ -76,9 +74,6 @@ import time
 from typing import Optional
 
 from ..utils.device import DeviceLike, resolve_device
-
-#: left-out CLI flags (argparse dest) → the ROADMAP item that ports them
-UNPORTED_FLAGS = {"prefetch_depth": "A10"}
 
 
 class Platform:
@@ -564,7 +559,10 @@ def main(argv=None, device: DeviceLike = None) -> int:
                          "fully re-validate pass-through batches; "
                          "loopback trusts with 1-in-32 sampling)")
     ap.add_argument("--prefetch-depth", type=int, default=None,
-                    help="not ported (A10)")
+                    metavar="N",
+                    help="host-to-device prefetch queue depth for every "
+                         "prefetching pipeline this process builds (sets "
+                         "IOTML_PREFETCH_DEPTH; default 2, min 1)")
     ap.add_argument("--decode-ring-buffers", type=int, default=None,
                     metavar="N",
                     help="reusable columnar decode buffers per pipeline "
@@ -588,15 +586,11 @@ def main(argv=None, device: DeviceLike = None) -> int:
                          "1 MiB)")
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
-    for name, item in UNPORTED_FLAGS.items():
-        if getattr(args, name) is not None:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
     from ..data.pipeline import set_knobs
 
     try:
-        set_knobs(decode_ring_buffers=args.decode_ring_buffers,
+        set_knobs(prefetch_depth=args.prefetch_depth,
+                  decode_ring_buffers=args.decode_ring_buffers,
                   raw_batch_bytes=args.raw_batch_bytes,
                   produce_batch_bytes=args.produce_batch_bytes,
                   raw_produce=args.raw_produce)

@@ -18,10 +18,10 @@ exits non-zero on any failed invariant.  ``add-broker``,
 unless the move ended moved or retired).
 
 The pipeline knobs (``--prefetch-depth``, ``--decode-ring-buffers``,
-``--raw-batch-bytes``, ``--raw-produce``, ``--produce-batch-bytes``) go
-through ``data.pipeline.set_knobs``; an invalid value is a usage error.
-``--mesh-data`` and ``--device-normalize`` (multi-device training) are
-not ported: they raise NotImplementedError naming ROADMAP A10.
+``--raw-batch-bytes``, ``--raw-produce``, ``--produce-batch-bytes``,
+``--mesh-data``, ``--device-normalize``) go through
+``data.pipeline.set_knobs`` for the trainers this process's environment
+starts; an invalid value is a usage error.
 """
 
 from __future__ import annotations
@@ -30,9 +30,6 @@ import argparse
 import json
 import sys
 import time
-
-#: left-out flags (argparse dest) → the ROADMAP item that ports them
-UNPORTED = {"mesh_data": "A10", "device_normalize": "A10"}
 
 
 def cmd_up(args) -> int:
@@ -159,9 +156,14 @@ def main(argv=None) -> int:
                     help="max frame bytes a RAW_PRODUCE request (sets "
                          "IOTML_PRODUCE_BATCH_BYTES)")
     up.add_argument("--mesh-data", type=int, default=None,
-                    help="not ported (A10)")
+                    help="data-parallel training for trainers launched "
+                         "from this process's environment (sets "
+                         "IOTML_MESH_DATA: data-axis devices; 0 = one "
+                         "device)")
     up.add_argument("--device-normalize", default=None, choices=("0", "1"),
-                    help="not ported (A10)")
+                    help="fold the normalization into the sharded train "
+                         "step (sets IOTML_DEVICE_NORMALIZE; needs "
+                         "--mesh-data >= 2)")
     up.add_argument("--metrics-port", type=int, default=0,
                     help="serve /metrics and /healthz (0 = off)")
     up.add_argument("--quiet", action="store_true")
@@ -193,11 +195,6 @@ def main(argv=None) -> int:
         p.set_defaults(fn=cmd_admin, cmd=verb)
 
     args = ap.parse_args(argv)
-    for name, item in UNPORTED.items():
-        if getattr(args, name, None) is not None:
-            flag = "--" + name.replace("_", "-")
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
     if args.cmd == "up":
         from ..data.pipeline import set_knobs
 
@@ -206,7 +203,10 @@ def main(argv=None) -> int:
                       decode_ring_buffers=args.decode_ring_buffers,
                       raw_batch_bytes=args.raw_batch_bytes,
                       raw_produce=args.raw_produce,
-                      produce_batch_bytes=args.produce_batch_bytes)
+                      produce_batch_bytes=args.produce_batch_bytes,
+                      mesh_data=args.mesh_data,
+                      device_normalize=None if args.device_normalize is None
+                      else args.device_normalize == "1")
         except ValueError as e:
             ap.error(str(e))
     return args.fn(args)

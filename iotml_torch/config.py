@@ -1,5 +1,4 @@
-"""Typed configuration (``iotml.config``'s resolver and its sections but
-``mesh``).
+"""Typed configuration (``iotml.config``'s resolver and its sections).
 
 One dataclass tree with one resolution order:
 
@@ -12,10 +11,8 @@ Values are coerced to the field's type, so a typo'd value fails at load
 time.  An unknown section or field raises ValueError, as in the JAX
 package, and so does a key the JAX package parses and never reads
 (``UNREAD_KEYS``: the whole ``stream``, ``artifacts`` and ``scenario``
-sections among them, kept so ``Config()`` has the JAX package's
-sections); a section the JAX package has and the port does not yet
-raises NotImplementedError naming the ROADMAP item, so a setting is
-never dropped quietly.
+sections and ``mesh.seq`` among them, kept so ``Config()`` has the JAX
+package's sections), so a setting is never dropped quietly.
 """
 
 from __future__ import annotations
@@ -215,6 +212,20 @@ def slo_rules(cfg: SloConfig) -> list:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """The training mesh's shape (the CLIs' ``--mesh.data`` /
+    ``--mesh.model``).
+
+    The env key ``IOTML_MESH_DATA`` is the streaming process knob
+    (``data.pipeline``, in ``NON_CONFIG``), so ``data`` is set by the
+    flag or a config file."""
+
+    data: int = -1      # -1 = every device on the data axis
+    model: int = 1
+    seq: int = 1
+
+
+@dataclasses.dataclass
 class Config:
     broker: BrokerConfig = dataclasses.field(default_factory=BrokerConfig)
     stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
@@ -224,6 +235,7 @@ class Config:
         default_factory=ArtifactConfig)
     scenario: ScenarioConfig = dataclasses.field(
         default_factory=ScenarioConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     store: StoreConfig = dataclasses.field(default_factory=StoreConfig)
     tier: TierConfig = dataclasses.field(default_factory=TierConfig)
     mlops: MlopsConfig = dataclasses.field(default_factory=MlopsConfig)
@@ -236,11 +248,6 @@ class Config:
     def dumps(self) -> str:
         return json.dumps(self.as_dict(), indent=2, sort_keys=True)
 
-
-#: the JAX package's other sections, and the ROADMAP item that ports each
-UNPORTED_SECTIONS = {
-    "mesh": "A10 (multi-GPU data parallel)",
-}
 
 _UNREAD_SECTIONS = {
     StreamConfig: ("stream", "the CLIs take their topics, offset and group "
@@ -259,6 +266,8 @@ UNREAD_KEYS = {
                          "sets their partitions",
     "broker.retention_messages": "the CLIs create no topics: the broker's "
                                  "owner sets their retention",
+    "mesh.seq": "the training mesh is ('data', 'model'): the "
+                "sequence-parallel step takes its mesh from its caller",
     **{f"{section}.{f.name}": why
        for cls, (section, why) in _UNREAD_SECTIONS.items()
        for f in dataclasses.fields(cls)},
@@ -315,10 +324,6 @@ def _apply(cfg: Config, dotted: str, value: Any, applied: set) -> None:
     section, _, field = dotted.partition(".")
     if not field:
         raise ValueError(f"config key {dotted!r}: expected section.field")
-    if section in UNPORTED_SECTIONS:
-        raise NotImplementedError(
-            f"config key {dotted!r}: the {section!r} section is not ported "
-            f"yet (ROADMAP {UNPORTED_SECTIONS[section]})")
     if dotted in UNREAD_KEYS:
         raise ValueError(f"config key {dotted!r} is not read: "
                          f"{UNREAD_KEYS[dotted]}")

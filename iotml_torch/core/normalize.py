@@ -71,6 +71,23 @@ class Normalizer:
         return out.astype(np.float32)
 
 
+class IdentityNormalizer:
+    """Raw columns for device-side normalization: the batcher ships the
+    decoder's float32 columns untouched (``np`` is a cast-only view, no
+    copy when already float32) and the sharded step applies the real
+    normalizer's affine map on each device
+    (``parallel.data_parallel.make_device_normalized_step``)."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32)
+
+    def np(self, x: np.ndarray) -> np.ndarray:
+        return np.asarray(x).astype(np.float32, copy=False)
+
+
+#: the one raw-columns instance the streaming pipelines share
+RAW_COLUMNS = IdentityNormalizer()
+
 # The reference-parity normalizer the pipeline uses by default.
 CAR_NORMALIZER = Normalizer(CAR_SCHEMA, parity=True)
 

@@ -1,5 +1,5 @@
 """The columnar decode ring and the pipeline's process-level knobs
-(``iotml.data.pipeline``, without the mesh knobs).
+(``iotml.data.pipeline``'s twin).
 
 Raw frame batches (``Broker.fetch_raw``, the wire's RAW_FETCH) are
 decoded by the native ``stream.native.FrameDecoder`` straight into a
@@ -29,10 +29,12 @@ Knobs are environment toggles in ``config.NON_CONFIG``, like
   IOTML_PRODUCE_BATCH_BYTES  most frame bytes a RAW_PRODUCE request
                              carries (default 1 MiB; at least 4096):
                              larger batches split at frame boundaries
-
-The JAX module's mesh knobs (``IOTML_MESH_DATA``,
-``IOTML_DEVICE_NORMALIZE``) belong to code the port has not got, ROADMAP
-A10; ``set_knobs`` raises naming the item when one of them is given.
+  IOTML_MESH_DATA            data-axis size of the training mesh (default
+                             0 = off; 1 behaves like 0; >= 2 trains
+                             data-parallel over that many devices, the
+                             deploy manifests' chip count)
+  IOTML_DEVICE_NORMALIZE     fold the normalization into the sharded step
+                             (default off; needs IOTML_MESH_DATA >= 2)
 """
 
 from __future__ import annotations
@@ -48,10 +50,9 @@ _DEFAULTS = {
     "IOTML_DECODE_RING_BUFFERS": (4, 2),
     "IOTML_RAW_BATCH_BYTES": (1 << 20, 4096),
     "IOTML_PRODUCE_BATCH_BYTES": (1 << 20, 4096),
+    "IOTML_MESH_DATA": (0, 0),
 }
 
-#: knobs of the JAX module the port has not got → the ROADMAP item
-UNPORTED_KNOBS = {"mesh_data": "A10", "device_normalize": "A10"}
 _RAW_PRODUCE_MODES = ("auto", "on", "off")
 
 
@@ -95,6 +96,24 @@ def produce_batch_bytes() -> int:
     return _env_int("IOTML_PRODUCE_BATCH_BYTES")
 
 
+def mesh_data() -> int:
+    """Data-axis size of the training mesh (IOTML_MESH_DATA, default 0
+    = off).  1 behaves like 0; >= 2 trains data-parallel."""
+    return _env_int("IOTML_MESH_DATA")
+
+
+def device_normalize() -> bool:
+    """Device-side normalization (IOTML_DEVICE_NORMALIZE, default off);
+    a malformed value fails loudly, like every knob."""
+    raw = os.environ.get("IOTML_DEVICE_NORMALIZE", "0").strip().lower()
+    if raw in ("", "0", "false", "off", "no"):
+        return False
+    if raw in ("1", "true", "on", "yes"):
+        return True
+    raise ValueError(f"env IOTML_DEVICE_NORMALIZE={raw!r}: expected a "
+                     f"boolean (0|1|true|false|on|off)")
+
+
 def raw_produce_mode() -> str:
     """Write-path plane selector (IOTML_RAW_PRODUCE): auto|on|off.
     A malformed value fails loudly, like every pipeline knob."""
@@ -111,7 +130,9 @@ def set_knobs(prefetch_depth: Optional[int] = None,
               decode_ring_buffers: Optional[int] = None,
               raw_batch_bytes: Optional[int] = None,
               produce_batch_bytes: Optional[int] = None,
-              raw_produce: Optional[str] = None, **unported) -> None:
+              raw_produce: Optional[str] = None,
+              mesh_data: Optional[int] = None,
+              device_normalize: Optional[bool] = None) -> None:
     """CLI → env bridge: publish the given knobs into this process's
     environment (each validated before any is published; None leaves one
     as it is), so every pipeline built afterwards reads them."""
@@ -120,18 +141,12 @@ def set_knobs(prefetch_depth: Optional[int] = None,
         if mode not in _RAW_PRODUCE_MODES:
             raise ValueError(f"IOTML_RAW_PRODUCE={raw_produce!r}: expected "
                              f"one of {'|'.join(_RAW_PRODUCE_MODES)}")
-    for name, value in unported.items():
-        if name not in UNPORTED_KNOBS:
-            raise TypeError(f"set_knobs() got an unexpected keyword "
-                            f"argument {name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP {UNPORTED_KNOBS[name]})")
     ints = {}
     for name, value in (("IOTML_PREFETCH_DEPTH", prefetch_depth),
                         ("IOTML_DECODE_RING_BUFFERS", decode_ring_buffers),
                         ("IOTML_RAW_BATCH_BYTES", raw_batch_bytes),
-                        ("IOTML_PRODUCE_BATCH_BYTES", produce_batch_bytes)):
+                        ("IOTML_PRODUCE_BATCH_BYTES", produce_batch_bytes),
+                        ("IOTML_MESH_DATA", mesh_data)):
         if value is None:
             continue
         value = int(value)
@@ -144,6 +159,9 @@ def set_knobs(prefetch_depth: Optional[int] = None,
     os.environ.update(ints)
     if raw_produce is not None:
         os.environ["IOTML_RAW_PRODUCE"] = mode
+    if device_normalize is not None:
+        os.environ["IOTML_DEVICE_NORMALIZE"] = \
+            "1" if bool(device_normalize) else "0"
 
 
 class _Slot:

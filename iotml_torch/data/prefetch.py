@@ -11,10 +11,17 @@ overlaps the work already queued on the card, and the host does not wait
 for it.  A pageable source is refused, never copied in silence.  On the
 CPU the arrays are wrapped as they are.
 
-The JAX package uses the prefetcher on its mesh paths only
-(``parallel/data_parallel.py``, ``parallel/streaming.py``: ROADMAP A10);
-its single-device ``fit_compiled`` stages a slice in one transfer, as the
-port's does, so no single-card path of the port feeds through it.
+With ``sharding=`` (a row sharding over a mesh's ``data`` axis) the
+whole batch, x, y and mask, is padded and cut into one row block a
+shard, and each block lands on its shard's device: the worker pins the
+blocks bound for a card, one side stream a card copies them, and each
+card's consuming stream waits on its side stream before the step reads
+a shard.  The batch comes out as ``parallel.mesh.ShardedTensor``s.
+
+The mesh paths feed through the prefetcher (``parallel/data_parallel.py``
+cuts batches with it, ``parallel/streaming.py`` decodes each feed on its
+thread), as in the JAX package; the single-device ``fit_compiled`` stages
+a slice in one transfer, so no single-card path feeds through it.
 """
 
 from __future__ import annotations
@@ -44,13 +51,16 @@ class DevicePrefetcher:
       device: where the batches go (``cuda`` unless given).
       loop: the ``step_seconds`` / ``prefetch_occupancy`` loop label
         (train | score | online).
+      sharding: a ``parallel.mesh.NamedSharding`` cutting rows over a
+        mesh's 'data' axis; the batch's arrays land shard by shard on
+        the mesh's devices (``device`` is then not read).
     """
 
     _END = object()
 
     def __init__(self, batches: Iterable, to_device: Optional[Callable] = None,
                  depth: Optional[int] = None, device: DeviceLike = None,
-                 loop: str = "train"):
+                 loop: str = "train", sharding=None):
         if depth is None:
             from .pipeline import prefetch_depth
 
@@ -60,13 +70,31 @@ class DevicePrefetcher:
             # queue.Queue(maxsize=0) is UNBOUNDED: depth 0 would stage the
             # whole stream with no backpressure instead of disabling it
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
-        self.device = resolve_device(device)
+        self.sharding = sharding
+        self._shard_devices = None
+        if sharding is not None:
+            if to_device is not None:
+                raise ValueError("DevicePrefetcher: to_device or "
+                                 "sharding, not both")
+            from ..parallel.mesh import data_devices
+
+            self._shard_devices = data_devices(sharding.mesh)
+            self.device = self._shard_devices[0]
+            #: one side stream a card the shards go to
+            self._streams = {d: torch.cuda.Stream(d)
+                             for d in set(self._shard_devices)
+                             if d.type == "cuda"}
+        else:
+            self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         self.batches = batches
         #: a caller's to_device gets the host batch itself
         self._custom = to_device is not None
-        self.to_device = to_device or self._default_to_device
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self.to_device = to_device or (
+            self._sharded_to_device if sharding is not None
+            else self._default_to_device)
+        self._stream = torch.cuda.Stream(self.device) \
+            if self._cuda and sharding is None else None
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._err = None
         self._closed = False
@@ -84,9 +112,13 @@ class DevicePrefetcher:
         return batch.x, y, mask
 
     def _host(self, batch):
-        """Worker side: on CUDA, the batch's arrays in pinned tensors."""
+        """Worker side: on CUDA, the batch's arrays in pinned tensors
+        (cut into shard blocks under a sharding)."""
         if self._custom:
             return batch
+        if self.sharding is not None:
+            return batch, tuple(None if a is None else self._blocks(a)
+                                for a in self._arrays(batch))
         if not self._cuda:
             return batch, None
         pinned = tuple(None if a is None else
@@ -117,6 +149,52 @@ class DevicePrefetcher:
                 d.record_stream(consumer)
                 out.append(d)
         consumer.wait_stream(self._stream)
+        return tuple(out), batch
+
+    def _blocks(self, a: np.ndarray) -> list:
+        """``a`` padded and cut into one row block a shard; a block
+        bound for a card is pinned."""
+        from ..parallel.mesh import split_rows
+
+        out = []
+        for blk, dev in zip(split_rows(a, len(self._shard_devices)),
+                            self._shard_devices):
+            t = torch.from_numpy(np.ascontiguousarray(blk))
+            out.append(t.pin_memory() if dev.type == "cuda" else t)
+        return out
+
+    def _sharded_to_device(self, item):
+        """Each block onto its shard's device: non_blocking copies on
+        the card's side stream, and each card's consuming stream waits
+        on that side stream before the step reads a shard."""
+        from ..parallel.mesh import ShardedTensor
+
+        batch, arrays = item
+        for dev, side in self._streams.items():
+            # no copy may start before the consumer's earlier work on
+            # reused memory is ordered
+            side.wait_stream(torch.cuda.current_stream(dev))
+        out = []
+        for blocks in arrays:
+            if blocks is None:
+                out.append(None)
+                continue
+            shards = []
+            for blk, dev in zip(blocks, self._shard_devices):
+                if dev.type != "cuda":
+                    shards.append(blk)
+                    continue
+                if not blk.is_pinned():
+                    raise RuntimeError("DevicePrefetcher: a non_blocking "
+                                       "copy from pageable memory")
+                consumer = torch.cuda.current_stream(dev)
+                with torch.cuda.stream(self._streams[dev]):
+                    d = blk.to(dev, non_blocking=True)
+                    d.record_stream(consumer)
+                shards.append(d)
+            out.append(ShardedTensor(shards, self.sharding))
+        for dev, side in self._streams.items():
+            torch.cuda.current_stream(dev).wait_stream(side)
         return tuple(out), batch
 
     def _put(self, item) -> bool:

@@ -17,6 +17,10 @@ multi-threaded system delivers them while the fleet keeps publishing:
   baseline within an SLO, and the production scorer must end up back on
   the baseline version having lost nothing.
 
+The rollback drill's first evaluation step waits for the watcher to swap
+the candidate in: JAX's drill judges at once, and a quick verdict there
+can re-point serving before the candidate was ever live.
+
 The supervisor, SLOs (swap 5 s, rollback 60 s) and invariants are the
 JAX package's; each model is made by ``Trainer(..., seed=seed + k)`` and
 trains and scores on ``device`` (``cuda`` unless given).  Run via
@@ -388,8 +392,12 @@ def drill_rollback(seed: int = 7, records: int = 1500,
     t_deploy = time.monotonic()
     t_decided = None
     t_restored = None
-    saw_candidate_live = False
     try:
+        # the gate judges the candidate while it serves: the first
+        # evaluation step waits for the watcher's swap, so a quick
+        # verdict cannot re-point serving before the candidate was live
+        saw_candidate_live = _wait(
+            lambda: scorer.model_version == candidate, slo_rollback_s)
         for _ in range(ticks - history_ticks):
             published += _publish_tick(gen, broker, codec,
                                        KSQL_CAR_SCHEMA, frame)

@@ -73,10 +73,14 @@ class DenseAutoencoder(nn.Module):
                 fan_in, fan_out, init.glorot_uniform(fan_out, fan_in, gen),
                 bias=True, device=device))
 
-    def forward(self, x: torch.Tensor, with_penalty: bool = False):
+    def forward(self, x: torch.Tensor, with_penalty: bool = False,
+                penalty_rows: Optional[int] = None):
+        """``penalty_rows`` is the batch the penalty divides by when
+        ``x`` is one shard of it (``x.shape[0]`` unless given)."""
         h = torch.tanh(self.encoder0(x))
         # Keras activity regularizer: l1 * sum(|h|) / batch
-        penalty = self.activity_l1 * torch.sum(torch.abs(h)) / x.shape[0]
+        penalty = self.activity_l1 * torch.sum(torch.abs(h)) / (
+            x.shape[0] if penalty_rows is None else penalty_rows)
         out = F.relu(self.decoder1(torch.tanh(self.decoder0(
             F.relu(self.encoder1(h))))))
         if with_penalty:

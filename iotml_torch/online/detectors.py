@@ -364,8 +364,8 @@ class DriftMonitor:
         exactly as an internal fire would, handing the convergence /
         re-anchor machinery the episode (a no-op while already
         adapting, so several signals of one drift open ONE episode).
-        The JAX package's mesh learner opens its per-chip episodes
-        here; the port's mesh path is ROADMAP A10."""
+        The mesh learner (``OnlineLearner(mesh=...)``) opens its
+        per-device episodes here."""
         if self.state == ADAPTING:
             return
         self.drifts += 1

@@ -44,7 +44,18 @@ Instrumented at the JAX learner's sites: the chaos point
 detector and action, ``iotml_online_converged_total``, the
 ``iotml_online_learning_rate`` and ``iotml_online_drift_stat`` gauges,
 and the ``train`` watermark at each group boundary; counts and seconds
-stay plain attributes too.  Not ported: the mesh path (ROADMAP A10).
+stay plain attributes too.
+
+With ``mesh=`` each window's step runs data-parallel
+(``parallel.data_parallel.ShardedTrainer``: the window's rows split over
+the data axis, padded to a multiple of it), window by window, and each
+shard's device has its own ``DriftMonitor`` (``chip_monitors``) fed its
+rows' mean pre-update loss: a drift that only one shard's rows carry
+trips that shard's monitor while the fleet mean stays calm, and opens
+one episode on the global monitor (one model, one registry).  A refit
+replays the buffer through the sharded step, as the JAX package's does,
+so the mesh path launches no fit kernel.  ``device_normalize=True``
+ships raw columns and folds the normalization into the step.
 """
 
 from __future__ import annotations
@@ -70,6 +81,17 @@ from ..train.loop import Trainer, TrainState, scanned_window_steps_cached
 from ..train.optim import InjectableAdam, set_learning_rate
 from ..utils.device import DeviceLike
 from .detectors import ADAPTING, DriftMonitor
+
+
+def _padded_shard_counts(mask: np.ndarray, n_shards: int) -> list:
+    """Each shard's valid-row count under ``ShardedTrainer.put_batch``'s
+    padding: rows pad up to a multiple of the data axis, shards are
+    contiguous row blocks, padding rows carry mask 0."""
+    b = len(mask)
+    r = b if b % n_shards == 0 else b + (n_shards - b % n_shards)
+    m = np.zeros((r,), np.float32)
+    m[:b] = mask
+    return [int(c) for c in m.reshape(n_shards, -1).sum(axis=1)]
 
 
 @dataclasses.dataclass
@@ -126,9 +148,11 @@ class OnlineLearner:
       fuse: catch-up fusion cap: a backlog is trained in groups of up to
         this many windows (power-of-two sizes); 1 trains window by
         window.
-      device: where the model trains (``cuda`` unless given).
-      mesh/device_normalize/chip_monitors: the multi-device learner,
-        not ported (ROADMAP A10).
+      device: where the model trains (``cuda`` unless given; a mesh
+        names its own devices).
+      mesh/device_normalize/chip_monitors: the data-parallel learner, a
+        monitor a data-axis device (fresh ``DriftMonitor``s unless
+        given), and the device-side normalization, which needs a mesh.
     """
 
     def __init__(self, broker, topic: str, registry=None,
@@ -143,10 +167,9 @@ class OnlineLearner:
                  fuse: int = 8, mesh=None, device_normalize: bool = False,
                  chip_monitors: Optional[list] = None,
                  device: DeviceLike = None):
-        if mesh is not None or device_normalize or chip_monitors:
-            raise NotImplementedError(
-                "the multi-device online learner (mesh, device_normalize, "
-                "chip_monitors) is not ported yet (ROADMAP A10)")
+        if mesh is not None and device is not None:
+            raise ValueError("a mesh names its devices: pass mesh or "
+                             "device, not both")
         self.broker = broker
         self.topic = topic
         self.group = group
@@ -159,6 +182,36 @@ class OnlineLearner:
         self.publish_every = int(publish_every)
         # the rate is optimizer state: a boost is a state edit
         self._tx = InjectableAdam(learning_rate)
+        self.mesh = mesh
+        self._sharded = None
+        self.chip_monitors: list = []
+        self.last_chip_losses = None
+        self._chip_signal: Optional[tuple] = None
+        if mesh is not None:
+            from ..core.normalize import CAR_NORMALIZER
+            from ..parallel.data_parallel import ShardedTrainer
+            from ..parallel.streaming import data_axis_devices
+
+            devices = data_axis_devices(mesh)
+            device = devices[0]
+            self._sharded = ShardedTrainer(
+                self.model, mesh, tx=self._tx,
+                normalizer=(normalizer or CAR_NORMALIZER)
+                if device_normalize else None, row_loss=True)
+            self.chip_monitors = list(chip_monitors) if chip_monitors \
+                else [DriftMonitor() for _ in devices]
+            if len(self.chip_monitors) != len(devices):
+                raise ValueError(f"{len(self.chip_monitors)} chip "
+                                 f"monitors for a {len(devices)}-device mesh")
+        elif chip_monitors:
+            raise ValueError("chip_monitors need a mesh")
+        if device_normalize:
+            if mesh is None:
+                raise ValueError("device_normalize needs a mesh (the "
+                                 "affine fold lives in the sharded step)")
+            from ..core.normalize import RAW_COLUMNS
+
+            normalizer = RAW_COLUMNS  # the batcher ships raw columns
         self.trainer = Trainer(self.model, learning_rate=learning_rate,
                                tx=self._tx, device=device)
         self.checkpointer = checkpointer
@@ -249,12 +302,17 @@ class OnlineLearner:
             return
         self.trainer.state = dataclasses.replace(
             st, opt_state=set_learning_rate(st.opt_state, lr))
+        if self._sharded is not None and self._sharded.state is not None:
+            # the sharded step trains from its own copies
+            self._sharded.state = self.trainer.state
         obs_metrics.online_lr.set(float(lr))
 
     # ----------------------------------------------------------- update
     def _update(self, b) -> float:
         """One incremental step on one window; returns the pre-update
         loss (the drift signal)."""
+        if self._sharded is not None:
+            return self._update_mesh(b)
         tr = self.trainer
         tr._ensure_state()
         t0 = time.perf_counter()
@@ -270,6 +328,44 @@ class OnlineLearner:
         obs_metrics.online_updates.inc()
         obs_metrics.records_trained.inc(b.n_valid)
         self.buffer.append((x, mask, b.n_valid))
+        return loss
+
+    def _update_mesh(self, b) -> float:
+        """The sharded window step: the global pre-update loss is the
+        drift signal as ever, and each shard's mean pre-update loss also
+        feeds its device's monitor; a monitor that fires stages one
+        episode, which ``_after_update`` opens on the global monitor."""
+        from ..parallel.streaming import shard_mean_losses
+
+        tr = self.trainer
+        if self._sharded.state is None:
+            # the (possibly warm-started) state, laid out once
+            tr._ensure_state()
+            self._sharded.init(from_state=tr.state)
+        t0 = time.perf_counter()
+        m = self._sharded.step(b.x, b.x, b.mask)
+        # lint-ok: T2 the window's one sync: the pre-update loss is the
+        # drift detector's host-side signal, read once a window
+        loss = float(m["loss"])
+        self._observe_step(time.perf_counter() - t0)
+        # the publish, the refit and current_lr read the trainer's state
+        tr.state = self._sharded.state
+        counts = _padded_shard_counts(b.mask, len(self.chip_monitors))
+        chip = shard_mean_losses(m["row_loss"], counts)
+        self.last_chip_losses = chip
+        for i, (mon, cl, cnt) in enumerate(
+                zip(self.chip_monitors, chip, counts)):
+            if cnt <= 0:
+                continue  # an all-padding shard: no signal to judge
+            sig = mon.update(float(cl))
+            if sig is not None:
+                self._chip_signal = (i, sig)
+        self.updates += 1
+        self.records_trained += b.n_valid
+        self.last_loss = loss
+        obs_metrics.online_updates.inc()
+        obs_metrics.records_trained.inc(b.n_valid)
+        self.buffer.append((b.x, b.mask, b.n_valid))
         return loss
 
     def _update_group(self, bs) -> list:
@@ -331,8 +427,17 @@ class OnlineLearner:
         conv_before = self.monitor.converged
         signal = self.monitor.update(loss)
         obs_metrics.online_drift_stat.set(self.monitor.ph.stat)
+        chip_signal, self._chip_signal = self._chip_signal, None
         if signal is not None:
             self._adapt(signal)
+        elif chip_signal is not None and not was_adapting \
+                and self.monitor.state != ADAPTING:
+            # a shard-local drift the fleet mean diluted: open ONE global
+            # episode (one model) and adapt at that shard's severity
+            i, sig = chip_signal
+            tag = f"chip{i}-{sig}"
+            self.monitor.begin_episode(tag)
+            self._adapt(tag, severity=self.chip_monitors[i].severity())
         elif was_adapting and self.monitor.state != ADAPTING:
             # adaptation episode ended (converged or timed out): restore
             # the base LR and publish the adapted model — THIS is the
@@ -374,8 +479,10 @@ class OnlineLearner:
                 break
             while group:
                 # largest power-of-two chunk, as the JAX package bounds
-                # its compiled variants
-                k = 1 << (len(group).bit_length() - 1)
+                # its compiled variants; a mesh steps window by window
+                # (the shard losses are window-granular)
+                k = 1 if self._sharded is not None \
+                    else 1 << (len(group).bit_length() - 1)
                 chunk, group = group[:k], group[k:]
                 losses = [self._update(chunk[0])] if k == 1 \
                     else self._update_group(chunk)
@@ -395,9 +502,10 @@ class OnlineLearner:
         return n
 
     # ------------------------------------------------------- adaptation
-    def _adapt(self, signal: str) -> None:
-        action = self.policy.choose(self.monitor.severity(),
-                                    len(self.buffer))
+    def _adapt(self, signal: str, severity: Optional[float] = None) -> None:
+        if severity is None:
+            severity = self.monitor.severity()
+        action = self.policy.choose(severity, len(self.buffer))
         self.adaptations.append((self.updates, signal, action))
         obs_metrics.online_drifts.inc(detector=signal)
         obs_metrics.online_adaptations.inc(action=action)
@@ -433,6 +541,10 @@ class OnlineLearner:
         if epochs <= 0 or not wins:
             return
         t0 = time.perf_counter()
+        if self._sharded is not None:
+            self._refit_mesh(epochs, wins)
+            self.seconds["refit"] += time.perf_counter() - t0
+            return
         tr = self.trainer
         xs = torch.stack([x for x, _m, _n in wins])
         masks = torch.stack([m for _x, m, _n in wins])
@@ -455,6 +567,19 @@ class OnlineLearner:
         self.last_loss = float(m["loss"])
         self.refits += 1
         self.seconds["refit"] += time.perf_counter() - t0
+
+    def _refit_mesh(self, epochs: int, wins: list) -> None:
+        """The refit on a mesh: the buffered windows replayed through the
+        sharded step, ``epochs`` passes, as the JAX package's refit."""
+        last = None
+        for _ in range(epochs):
+            for x, mask, n in wins:
+                last = self._sharded.step(x, x, mask)
+                self.records_trained += n
+        self.trainer.state = self._sharded.state
+        # lint-ok: T2 the refit's last pre-update loss, once a refit
+        self.last_loss = float(last["loss"])
+        self.refits += 1
 
     # ------------------------------------------------------- publishing
     def _publish(self, force: bool = False) -> None:
@@ -523,9 +648,12 @@ class OnlineLearner:
             self.checkpointer.stop(flush=True, timeout_s=timeout_s)
 
     def describe(self) -> dict:
-        return {"updates": self.updates,
-                "records_trained": self.records_trained,
-                "loss": self.last_loss, "lr": self.current_lr,
-                "adaptations": list(self.adaptations),
-                "monitor": self.monitor.describe(),
-                "published": list(self.published_versions)}
+        out = {"updates": self.updates,
+               "records_trained": self.records_trained,
+               "loss": self.last_loss, "lr": self.current_lr,
+               "adaptations": list(self.adaptations),
+               "monitor": self.monitor.describe(),
+               "published": list(self.published_versions)}
+        if self.chip_monitors:
+            out["chips"] = [m.describe() for m in self.chip_monitors]
+        return out

@@ -33,7 +33,16 @@ Two ways to publish:
 Each round counts into ``live_train_rounds_total``, sets
 ``live_train_loss`` and publishes the ``train`` watermark from the
 consumer's event-time ranges; the poll loop passes the chaos point
-``trainer.poll``.  Not ported: the multi-device mesh (ROADMAP A10).
+``trainer.poll``.
+
+With ``mesh=`` the rounds train data-parallel
+(``parallel.streaming``): one feed a data-axis shard, each over its own
+partition subset, a round ``take_batches`` batches a feed (so
+``min_available`` scales with the shards), one sharded step a batch row
+and no launch of the fit kernel.  Rounds are single-epoch, the feeds are
+the cursor, and a manifest stamps every feed's cursors as one resume
+unit.  ``device_normalize=True`` has the feeds ship raw columns and
+folds the normalization into the step on each device.
 """
 
 from __future__ import annotations
@@ -101,6 +110,10 @@ class ContinuousTrainer:
         ``checkpoint_interval_s`` is the cadence of a checkpointer made
         here.
       device: where the fit runs (``cuda`` unless given).
+      mesh/device_normalize: the data-parallel rounds (a
+        ``parallel.mesh.Mesh`` whose devices are the fit's; no
+        ``device`` with it) and the device-side normalization, which
+        needs a mesh.
     """
 
     def __init__(self, broker, topic: str, store: Optional[ArtifactStore],
@@ -112,10 +125,18 @@ class ContinuousTrainer:
                  backfill_since_ms: Optional[int] = None,
                  registry=None, checkpointer=None, warm_start: bool = True,
                  checkpoint_interval_s: float = 0.0, mesh=None,
-                 device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a multi-device mesh is not ported yet (ROADMAP A10)")
+                 device_normalize: bool = False, device: DeviceLike = None):
+        if device_normalize and mesh is None:
+            # the affine fold lives in the sharded step: no quiet host
+            # normalization in its place
+            raise ValueError("device_normalize needs a mesh (the affine "
+                             "fold lives in the sharded step)")
+        if mesh is not None and epochs_per_round != 1:
+            raise ValueError("mesh streaming rounds are single-epoch "
+                             "(the cursor is the slice)")
+        if mesh is not None and device is not None:
+            raise ValueError("a mesh names its devices: pass mesh or "
+                             "device, not both")
         if store is None and registry is None and checkpointer is None:
             raise ValueError("need an ArtifactStore, a ModelRegistry, or "
                              "an AsyncCheckpointer to publish models to")
@@ -127,7 +148,22 @@ class ContinuousTrainer:
         self.batch_size = batch_size
         self.take_batches = take_batches
         self.epochs_per_round = epochs_per_round
-        self.trainer = Trainer(CAR_AUTOENCODER, device=device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..core.normalize import CAR_NORMALIZER
+            from ..parallel.streaming import MeshFeeds, ShardedStreamTrainer
+
+            feeds = MeshFeeds(broker, topic, mesh.shape["data"], group=group,
+                              batch_size=batch_size,
+                              take_batches=take_batches,
+                              only_normal=only_normal, normalizer=normalizer,
+                              device_normalize=device_normalize)
+            self.trainer = ShardedStreamTrainer(
+                CAR_AUTOENCODER, mesh, feeds,
+                normalizer=(normalizer or CAR_NORMALIZER)
+                if device_normalize else None)
+        else:
+            self.trainer = Trainer(CAR_AUTOENCODER, device=device)
         self.registry = registry
         self.checkpointer = checkpointer
         if registry is not None and checkpointer is None:
@@ -137,9 +173,10 @@ class ContinuousTrainer:
             self.registry = self.checkpointer.registry
             self.checkpointer.commit_fn = self._commit_checkpointed
         parts = range(broker.topic(topic).partitions)
-        # ONE persistent cursor for the process's lifetime
-        self.consumer = StreamConsumer.from_committed(broker, topic, parts,
-                                                      group=group)
+        # ONE persistent cursor for the process's lifetime; a mesh's
+        # feeds are the cursor, their positions every partition's
+        self.consumer = self.trainer.feeds if mesh is not None else \
+            StreamConsumer.from_committed(broker, topic, parts, group=group)
         # registry warm start: the newest committed version's weights (+
         # Adam state when archived) and its stamped offsets; the manifest
         # beats both offset 0 and backfill for its partitions (the
@@ -165,16 +202,23 @@ class ContinuousTrainer:
             cur = broker.committed(group, t, p) or 0
             if off > cur:
                 self.consumer.seek(t, p, off)
-        batch_kw = {} if normalizer is None else dict(normalizer=normalizer)
-        self.batches = SensorBatches(self.consumer, batch_size=batch_size,
-                                     take=take_batches, only_normal=only_normal,
-                                     **batch_kw)
+        if mesh is None:
+            batch_kw = {} if normalizer is None \
+                else dict(normalizer=normalizer)
+            self.batches = SensorBatches(self.consumer, batch_size=batch_size,
+                                         take=take_batches,
+                                         only_normal=only_normal, **batch_kw)
+        else:
+            self.batches = None  # the batchers are the feeds'
         self.rounds = 0
         self.records_trained = 0
         self.last_loss: Optional[float] = None
         self._last_coalesced = False
-        #: new records a round waits for: its records + 10%
-        self.min_available = int(take_batches * batch_size * 1.1) + 1
+        #: new records a round waits for: its records + 10% (a mesh
+        #: round takes take_batches batches a feed)
+        round_records = take_batches * batch_size * \
+            (mesh.shape["data"] if mesh is not None else 1)
+        self.min_available = int(round_records * 1.1) + 1
         #: wall seconds over all rounds: the fit's host pipeline (poll,
         #: decode, batch, stack) and device legs, the publish (store mode:
         #: serialize, upload, pointer; registry mode: the snapshot) and

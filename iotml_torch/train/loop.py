@@ -58,13 +58,29 @@ class TrainState:
         return cls(step=0, params=params, opt_state=tx.init(params))
 
 
-def _masked_mse(pred, target, mask):
+def _masked_mse(pred, target, mask, denom=None):
     """Mean squared error over valid rows only (mask is [B], 0/1 or a
-    fractional per-row weight that enters linearly)."""
+    fractional per-row weight that enters linearly).  ``denom`` replaces
+    the batch's own ``max(sum(mask) * features, 1)``: a shard of a
+    sharded batch divides its squared-error sum by the whole batch's."""
     per_elem = torch.square(pred - target)
     m = mask.reshape(mask.shape + (1,) * (per_elem.dim() - 1))
-    denom = torch.clamp_min(torch.sum(m) * per_elem[0].numel(), 1.0)
+    if denom is None:
+        denom = loss_denominator(torch.sum(m), per_elem[0].numel())
     return torch.sum(per_elem * m) / denom
+
+
+def loss_denominator(mask_sum, features: int):
+    """``max(sum(mask) * features, 1)``: what the masked MSE and the
+    accuracy divide by."""
+    return torch.clamp_min(mask_sum * features, 1.0)
+
+
+def row_losses(pred, target, mask):
+    """Per-row masked MSE, [B] (padding rows 0): each row's pre-update
+    loss, the per-device drift signal of the sharded step."""
+    per_elem = torch.square(pred - target)
+    return torch.mean(per_elem.reshape(per_elem.shape[0], -1), dim=-1) * mask
 
 
 def _keras_accuracy(pred, target, mask):
@@ -76,17 +92,23 @@ def _keras_accuracy(pred, target, mask):
 
 def make_loss_fn(model: torch.nn.Module, supervised: bool = False):
     """Loss closure.  Autoencoder mode targets the input itself;
-    supervised mode uses (x, y)."""
+    supervised mode uses (x, y).
 
-    def loss_fn(params, x, y, mask):
+    For one shard of a sharded batch, ``denom`` is the whole batch's
+    masked-MSE denominator and ``rows`` its row count (padding and the
+    zero shards of dry feeds included), which the activity penalty
+    divides by: the shards' losses then sum to the batch's loss."""
+
+    def loss_fn(params, x, y, mask, denom=None, rows=None):
         if supervised:
             pred = torch.func.functional_call(model, params, (x,))
             penalty, target = 0.0, y
         else:
             pred, penalty = torch.func.functional_call(
-                model, params, (x,), {"with_penalty": True})
+                model, params, (x,), {"with_penalty": True,
+                                      "penalty_rows": rows})
             target = x
-        loss = _masked_mse(pred, target, mask) + penalty
+        loss = _masked_mse(pred, target, mask, denom) + penalty
         return loss, (pred, target)
 
     return loss_fn

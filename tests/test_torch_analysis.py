@@ -273,8 +273,7 @@ def test_env_key_names_are_jax_less_unported_and_unread():
     cfg = t_config.Config()
     for key in jax_keys - port:
         section, _, field = key[len("IOTML_"):].lower().partition("_")
-        assert section in t_config.UNPORTED_SECTIONS \
-            or f"{section}.{field}" in t_config.UNREAD_KEYS \
+        assert f"{section}.{field}" in t_config.UNREAD_KEYS \
             or not hasattr(getattr(cfg, section), field), key
 
 

@@ -154,21 +154,72 @@ def test_argument_errors_return_1_like_jax(argv):
 
 
 @pytest.mark.parametrize("change,env,item", [
-    ({7: "--mesh.data=4"}, {}, "A10"),          # a device mesh
-    ({}, {"IOTML_MESH_DATA": "2"}, "A10"),
-    ({}, {"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"}, "A10"),
+    # a device mesh from the flag, from the deploy manifests' knob, and
+    # a multi-host Job's partition share (the ids of the cases that
+    # refused them before the mesh path was ported)
+    pytest.param({7: "--mesh.data=4"}, {}, "mesh: {'data': 4, 'model': 1}",
+                 id="change0-env0-A10"),
+    pytest.param({}, {"IOTML_MESH_DATA": "2"},
+                 "mesh: {'data': 2, 'model': 1}", id="change1-env1-A10"),
+    pytest.param({}, {"JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "1"},
+                 "host 1/2: no partition share", id="change2-env2-A10"),
 ])
-def test_unported_paths_raise_naming_roadmap(tmp_path, monkeypatch, change,
-                                             env, item):
-    argv = _argv("train", tmp_path / "store")
-    for i, v in change.items():
-        argv[i] = v
+def test_unported_paths_raise_naming_roadmap(tmp_path, monkeypatch, capsys,
+                                             change, env, item):
+    """The mesh train and the multi-host share run as in the JAX CLI:
+    the same mesh line and device count, records trained, committed
+    cursor, checkpoint step and cursors (the port lays its mesh over
+    eight CPU ``devices``, the JAX suite's eight virtual devices); a
+    process with no partition share trains and stores nothing."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cardata.main(argv, device="cpu")
-    # refused before anything was trained or stored
-    assert not (tmp_path / "store").exists()
+    runs = {}
+    for tag, main, app, kw in (
+            ("port", cardata.main, t_app,
+             {"device": "cpu", "devices": [torch.device("cpu")] * 8}),
+            ("jax", j_cardata.main, j_app, {})):
+        root = tmp_path / tag
+        argv = _argv("train", root)
+        for i, v in change.items():
+            argv.insert(i, v)
+        rc, broker = _run(main, app, argv, **kw)
+        out = capsys.readouterr().out
+        assert rc == 0, out
+        runs[tag] = (out, broker, root)
+    (t_out, t_broker, t_root), (j_out, j_broker, j_root) = \
+        runs["port"], runs["jax"]
+    t_lines = [ln for ln in t_out.splitlines() if ln.startswith(item)]
+    assert t_lines and t_lines == \
+        [ln for ln in j_out.splitlines() if ln.startswith(item)]
+    assert t_broker.committed(GROUP, TOPIC, 0) == \
+        j_broker.committed(GROUP, TOPIC, 0)
+    if item.startswith("host"):
+        assert not (t_root / "m1").exists() and not (j_root / "m1").exists()
+        return
+    stats = json.loads(t_out.split("stats: ")[1].splitlines()[0])
+    assert stats["records"] == 1000 and len(stats["loss"]) == 2
+    ckpt = CheckpointManager.load_dir(ArtifactStore(str(t_root))
+                                      .download_tree("m1", str(tmp_path / "r")))
+    JArtifactStore(str(j_root)).download_tree("m1", str(tmp_path / "j"))
+    j_ckpt = ocp.PyTreeCheckpointer().restore(str(tmp_path / "j"))
+    assert ckpt["step"] == int(j_ckpt["step"]) == 200
+    assert ckpt["cursors"] == [tuple(c) for c in j_ckpt["cursors"]]
+
+
+def test_mesh_larger_than_the_devices_raises_as_jax(tmp_path, monkeypatch):
+    """``--mesh.data`` past the devices raises JAX's ValueError."""
+    argv = _argv("train", tmp_path / "port") + ["--mesh.data=16"]
+    with pytest.raises(ValueError) as t_err:
+        cardata.main(argv, device="cpu", devices=[torch.device("cpu")] * 8)
+    with pytest.raises(ValueError) as j_err:
+        j_cardata.main(_argv("train", tmp_path / "jax") + ["--mesh.data=16"])
+    assert str(t_err.value) == str(j_err.value) == \
+        "mesh shape (16, 1) needs 16 devices, have 8"
+    # the default device list is every visible CUDA device: none here
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="needs 2 devices, have 0"):
+        cardata.main(_argv("train", tmp_path / "p2") + ["--mesh.data=2"],
+                     device="cpu")
 
 
 def test_cli_needs_a_card_unless_told(tmp_path, monkeypatch):

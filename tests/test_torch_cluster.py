@@ -937,10 +937,11 @@ def test_scorer_fleet_payloads_and_errors_equal_jax(monkeypatch):
 
 
 # ------------------------------------------------------------ command lines
-def test_cluster_cli_drill_and_admin_verbs(capsys):
+def test_cluster_cli_drill_and_admin_verbs(capsys, monkeypatch):
     """``drill`` exits with its verdict; ``status``, ``add-broker`` and
-    ``drain-broker`` reach a live controller over CLUSTER_ADMIN; the
-    unported flags name A10; against a plain server the verbs raise."""
+    ``drain-broker`` reach a live controller over CLUSTER_ADMIN; the mesh
+    flags set their knobs before ``up`` starts, in both packages; against
+    a plain server the verbs raise."""
     assert cluster_main(["drill", "--seed", "7", "--records", "200"]) == 0
     doc = json.loads(capsys.readouterr().out)
     assert doc["ok"] and doc["topology"] == "cluster"
@@ -961,9 +962,19 @@ def test_cluster_cli_drill_and_admin_verbs(capsys):
                              "--shard", "2"]) == 0
         drain = json.loads(capsys.readouterr().out)
         assert drain["state"] == "retired" and ctl.pmap.epoch(2) == 1
-    for flag in (["--mesh-data", "2"], ["--device-normalize", "1"]):
-        with pytest.raises(NotImplementedError, match="A10"):
-            cluster_main(["up"] + flag)
+    from iotml.cluster import __main__ as j_cluster_cli
+    from iotml_torch.cluster import __main__ as t_cluster_cli
+
+    for mod in (t_cluster_cli, j_cluster_cli):
+        started = []
+        monkeypatch.setattr(mod, "cmd_up", lambda args: started.append(
+            (os.environ["IOTML_MESH_DATA"],
+             os.environ["IOTML_DEVICE_NORMALIZE"])) or 0)
+        monkeypatch.setenv("IOTML_MESH_DATA", "")  # restored after
+        monkeypatch.setenv("IOTML_DEVICE_NORMALIZE", "")
+        assert mod.main(["up", "--mesh-data", "2"]) == 0
+        assert mod.main(["up", "--device-normalize", "1"]) == 0
+        assert started == [("2", ""), ("2", "1")]
     with contextlib.redirect_stderr(io.StringIO()), pytest.raises(SystemExit):
         cluster_main(["up", "--decode-ring-buffers", "0"])
     srv = tkw.KafkaWireServer(Broker()).start()

@@ -1,13 +1,13 @@
 """The port's configuration (``iotml_torch.config``) held against the JAX
 package's (``tests/test_config.py``'s cases on both resolvers).
 
-The ``stream``, ``artifacts`` and ``scenario`` sections are the JAX
-package's dataclasses (fields, types, defaults), so ``Config()`` has its
-sections but ``mesh`` (ROADMAP A10) and ``dumps()`` writes the same
-JSON for every section the two share.  The JAX package
-reads none of those three sections' keys, so the port refuses each key
-naming why (the CLIs take topics and paths as positional arguments), as
-it refuses ``broker.servers``.  ``store``, ``tier`` and ``slo`` resolve
+The ``stream``, ``artifacts``, ``scenario`` and ``mesh`` sections are
+the JAX package's dataclasses (fields, types, defaults), so ``Config()``
+has its sections and ``dumps()`` writes the same JSON for every section
+the two share.  The JAX package reads none of the first three sections'
+keys nor ``mesh.seq``, so the port refuses each key naming why (the CLIs
+take topics and paths as positional arguments), as it refuses
+``broker.servers``; ``--mesh.data``/``--mesh.model`` resolve as JAX's.  ``store``, ``tier`` and ``slo`` resolve
 equal to JAX's from file, environment and flags, and ``slo_rules`` gives
 JAX's rule dicts (the canary defaults, a JSON file, ``window_scale``).
 """
@@ -41,14 +41,14 @@ def _shared(t_doc: dict, j_doc: dict) -> None:
 
 
 def test_config_has_the_jax_sections_but_the_unported():
-    want = [f.name for f in dataclasses.fields(j_config.Config)
-            if f.name not in t_config.UNPORTED_SECTIONS]
+    """Every JAX section is ported (``mesh`` was the last)."""
+    want = [f.name for f in dataclasses.fields(j_config.Config)]
     assert SHARED == want
-    assert set(t_config.UNPORTED_SECTIONS) == {"mesh"}
+    assert not hasattr(t_config, "UNPORTED_SECTIONS")
 
 
 @pytest.mark.parametrize("section", ["stream", "artifacts", "scenario",
-                                     "store", "tier", "slo"])
+                                     "store", "tier", "slo", "mesh"])
 def test_sections_are_the_jax_dataclasses(section):
     t_cls = type(getattr(t_config.Config(), section))
     j_cls = type(getattr(j_config.Config(), section))
@@ -152,7 +152,7 @@ def test_unread_section_keys_are_refused_naming_why(tmp_path, key, value):
 
 def test_a_jax_dump_loads_only_without_the_unread_sections(tmp_path):
     """A JAX ``dumps()`` file holds keys the port refuses; with the
-    refused and unported sections dropped it resolves as in JAX."""
+    refused sections and keys dropped it resolves as in JAX."""
     j_cfg, _ = j_config.load_config(["--store.retention_ms=100000",
                                      "--tier.uri=/t"], env={})
     path = str(tmp_path / "cfg.json")
@@ -161,14 +161,38 @@ def test_a_jax_dump_loads_only_without_the_unread_sections(tmp_path):
     with pytest.raises(ValueError):
         t_config.load_config([], env={}, path=path)
     doc = json.loads(j_cfg.dumps())
-    for name in ("broker", "stream", "artifacts", "scenario", "mesh"):
+    for name in ("broker", "stream", "artifacts", "scenario"):
         doc.pop(name)
     doc["train"].pop("model")
+    doc["mesh"].pop("seq")
     with open(path, "w") as fh:
         json.dump(doc, fh)
     t_cfg, _ = t_config.load_config([], env={}, path=path)
     assert t_cfg.store.retention_ms == 100000 and t_cfg.tier.uri == "/t"
     assert _sections(t_cfg)["store"] == dataclasses.asdict(j_cfg.store)
+
+
+@pytest.mark.parametrize("argv,env", [
+    ([], {}),
+    (["--mesh.data=2"], {}),
+    (["--mesh.data", "4", "--mesh.model=2"], {"IOTML_MESH_DATA": "8"}),
+    ([], {"IOTML_MESH_MODEL": "2", "IOTML_MESH_DATA": "3"})])
+def test_the_mesh_section_resolves_as_jax(argv, env):
+    """``mesh.data``/``mesh.model`` from flags and the environment; the
+    ``IOTML_MESH_DATA`` process knob never reaches the config tree."""
+    t_cfg, t_rest = t_config.load_config(argv + ["x"], env=env)
+    j_cfg, j_rest = j_config.load_config(argv + ["x"], env=env)
+    assert dataclasses.asdict(t_cfg.mesh) == dataclasses.asdict(j_cfg.mesh)
+    assert t_cfg.applied == j_cfg.applied
+    assert t_rest == j_rest == ["x"]
+
+
+def test_mesh_seq_is_refused_as_unread():
+    """JAX parses ``mesh.seq`` and no module of it reads the key."""
+    with pytest.raises(ValueError, match="mesh.seq"):
+        t_config.load_config(["--mesh.seq=2"], env={})
+    j_cfg, _ = j_config.load_config(["--mesh.seq=2"], env={})
+    assert "mesh.seq" in j_cfg.applied
 
 
 @pytest.mark.parametrize("argv,env", [

@@ -198,10 +198,15 @@ def test_argument_errors_exit_as_jax(argv):
     assert codes == [2, 2]
 
 
-#: the left-out flags → their ROADMAP item; the ported knobs' flags →
-#: the environment variable each sets
-UNPORTED = [("--mesh-data", "2", "A10"), ("--device-normalize", "1", "A10"),
-            ("--prefetch-depth", "2", "A10"),
+#: each knob flag → the environment variable it sets; the ids of the
+#: three mesh flags are those of the cases that refused them before
+#: the mesh path was ported
+UNPORTED = [pytest.param("--mesh-data", "2", "IOTML_MESH_DATA",
+                         id="--mesh-data-2-A10"),
+            pytest.param("--device-normalize", "1", "IOTML_DEVICE_NORMALIZE",
+                         id="--device-normalize-1-A10"),
+            pytest.param("--prefetch-depth", "2", "IOTML_PREFETCH_DEPTH",
+                         id="--prefetch-depth-2-A10"),
             ("--decode-ring-buffers", "4", "IOTML_DECODE_RING_BUFFERS"),
             ("--raw-batch-bytes", "4096", "IOTML_RAW_BATCH_BYTES"),
             ("--raw-produce", "on", "IOTML_RAW_PRODUCE"),
@@ -212,19 +217,37 @@ UNPORTED = [("--mesh-data", "2", "A10"), ("--device-normalize", "1", "A10"),
 @pytest.mark.parametrize("flag,value,item", UNPORTED)
 def test_unported_flags_name_their_item(cmd, flag, value, item,
                                         monkeypatch):
-    """A left-out flag raises naming its item; the four knob flags set
-    their knob for the process before the client connects (here to a
-    port nothing listens on), as JAX's CLI does."""
+    """Each knob flag sets its knob for the process before the client
+    connects (here to a port nothing listens on), in both packages;
+    ``--mesh-data 2`` lays a train mesh over two of ``devices`` first,
+    and ``--device-normalize 1`` without a mesh is a usage error in
+    both."""
     pos = ["127.0.0.1:1", TOPIC, "root"] if cmd == "train" else \
         ["127.0.0.1:1", TOPIC, "out", "root"]
-    if item.startswith("IOTML_"):
-        monkeypatch.setenv(item, "")  # restored after the test
-        with pytest.raises(OSError):
-            live.main([cmd, *pos, flag, value], device="cpu")
-        assert os.environ[item] == value
+    for k in ("IOTML_MESH_DATA", "IOTML_DEVICE_NORMALIZE", item):
+        monkeypatch.setenv(k, "")  # restored after the test
+    argv = [cmd, *pos, flag, value]
+    cpu = [torch.device("cpu")] * 2
+    if item == "IOTML_DEVICE_NORMALIZE":
+        codes = []
+        for main, kw in ((live.main, {"device": "cpu", "devices": cpu}),
+                         (j_live.main, {})):
+            with pytest.raises(SystemExit) as e:
+                main(argv, **kw)
+            codes.append(e.value.code)
+        assert codes == [2, 2]
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        live.main([cmd, *pos, flag, value], device="cpu")
+    for main, kw in ((live.main, {"device": "cpu", "devices": cpu}),
+                     (j_live.main, {})):
+        monkeypatch.setenv(item, "")
+        with pytest.raises(OSError):
+            main(argv, **kw)
+        assert os.environ[item] == value
+    # more mesh devices than there are is a usage error, as in JAX's CLI
+    if flag == "--mesh-data" and cmd == "train":
+        with pytest.raises(SystemExit) as e:
+            live.main(argv, device="cpu", devices=cpu[:1])
+        assert e.value.code == 2
 
 
 def test_unreachable_server_raises_oserror(tmp_path):

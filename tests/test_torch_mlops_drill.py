@@ -6,6 +6,7 @@ seeds 11 and 13, and ``python -m iotml_torch.mlops list`` / ``drill``
 answer as JAX's CLI does."""
 
 import json
+import time
 
 import pytest
 
@@ -38,6 +39,37 @@ def test_rollback_gate_decides_as_jax(seed):
     jax = J_DRILLS["rollback"](seed=seed)
     assert _summary(port) == _summary(jax)
     assert {i.name: i.ok for i in port.invariants}["regression_rolled_back"]
+
+
+def _slow_swaps(monkeypatch, watcher_cls, delay_s=0.5):
+    """Delay every watcher swap after the first by ``delay_s``."""
+    real = watcher_cls.poll_once
+
+    def poll_once(self):
+        v = self.registry.channel(self.channel)
+        if self.current_version is not None and v is not None \
+                and v != self.current_version:
+            time.sleep(delay_s)
+        return real(self)
+
+    monkeypatch.setattr(watcher_cls, "poll_once", poll_once)
+
+
+def test_rollback_gate_waits_for_the_swap_under_an_injected_delay(
+        monkeypatch):
+    """With the watcher's swap to the candidate delayed 0.5 s, the port's
+    gate waits for it and the drill passes; JAX's gate decides before
+    the swap and its drill fails ``candidate_deployed_live``."""
+    from iotml.mlops.rollout import RegistryWatcher as JRegistryWatcher
+    from iotml_torch.mlops.rollout import RegistryWatcher
+
+    _slow_swaps(monkeypatch, RegistryWatcher)
+    _slow_swaps(monkeypatch, JRegistryWatcher)
+    port = DRILLS["rollback"](seed=7, records=500, device="cpu")
+    assert port.ok, [i.verdict() for i in port.invariants if not i.ok]
+    jax = J_DRILLS["rollback"](seed=7, records=500)
+    assert not {i.name: i.ok for i in jax.invariants}[
+        "candidate_deployed_live"]
 
 
 @pytest.mark.parametrize("name,records", [("rollout", 100),

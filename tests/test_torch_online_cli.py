@@ -250,10 +250,31 @@ def test_drift_adapt_swap_e2e(tmp_path):
 
 
 def test_learner_refuses_the_mesh_and_needs_a_card_unless_told(monkeypatch):
-    for kw in (dict(mesh=object()), dict(device_normalize=True),
-               dict(chip_monitors=[object()])):
-        with pytest.raises(NotImplementedError, match="A10"):
-            _learner(Broker(), "T", **kw)
+    """A mesh with a device, device_normalize or chip_monitors without a
+    mesh, and a monitor count off the data axis refuse as JAX's learner
+    does (ValueError); no card and no device raises."""
+    from iotml.online.detectors import DriftMonitor as JDriftMonitor
+    from iotml.online.learner import OnlineLearner as JOnlineLearner
+    from iotml.parallel.mesh import make_mesh as j_make_mesh
+    from iotml_torch.online.detectors import DriftMonitor
+    from iotml_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("data",), devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="mesh or device"):
+        _learner(Broker(), "T", mesh=mesh)  # the helper passes device
+    j_mesh = j_make_mesh((2,), ("data",), devices=jax.devices()[:2])
+    for t_kw, j_kw, match in (
+            ({"device_normalize": True, "device": "cpu"},
+             {"device_normalize": True}, "needs a mesh"),
+            ({"chip_monitors": [DriftMonitor()], "device": "cpu"},
+             {"chip_monitors": [JDriftMonitor()]}, "need a mesh"),
+            ({"mesh": mesh, "chip_monitors": [DriftMonitor()] * 3},
+             {"mesh": j_mesh, "chip_monitors": [JDriftMonitor()] * 3},
+             "3 chip monitors for a 2-device mesh")):
+        with pytest.raises(ValueError, match=match):
+            OnlineLearner(Broker(), "T", **t_kw)
+        with pytest.raises(ValueError, match=match):
+            JOnlineLearner(JBroker(), "T", **j_kw)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         OnlineLearner(Broker(), "T")

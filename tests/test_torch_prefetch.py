@@ -113,12 +113,17 @@ def test_set_knobs_validates_before_publishing(monkeypatch):
     assert pipeline.prefetch_depth() == 2
     pipeline.set_knobs(prefetch_depth=4)
     assert pipeline.prefetch_depth() == 4
-    assert pipeline.UNPORTED_KNOBS == {"mesh_data": "A10",
-                                       "device_normalize": "A10"}
-    for name, item in pipeline.UNPORTED_KNOBS.items():
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            pipeline.set_knobs(**{name: 1})
-        pipeline.set_knobs(**{name: None})
+    # the mesh knobs, as JAX's: validated, published, read back
+    for name in ("IOTML_MESH_DATA", "IOTML_DEVICE_NORMALIZE"):
+        monkeypatch.setenv(name, "")
+    for mod in (pipeline, j_pipeline):
+        with pytest.raises(ValueError):
+            mod.set_knobs(mesh_data=-1)
+        assert mod.mesh_data() == 0 and mod.device_normalize() is False
+        mod.set_knobs(mesh_data=2, device_normalize=True)
+        assert mod.mesh_data() == 2 and mod.device_normalize() is True
+        mod.set_knobs(mesh_data=0, device_normalize=False)
+    assert not hasattr(pipeline, "UNPORTED_KNOBS")
     with pytest.raises(TypeError):
         pipeline.set_knobs(nonsense=1)
     # the ring's and the raw produce plane's knobs are ported: each
