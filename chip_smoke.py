@@ -852,6 +852,7 @@ from iotml_torch.models.convert import params_to_jax
 from iotml_torch.models.h5_import import autoencoder_params_from_h5
 from iotml_torch.models.lstm import LSTMSpec
 from iotml_torch.models.mnist import MNISTClassifier
+from iotml_torch.models.moe import MoESensorFormer
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.mqtt.bridge import KafkaBridge
 from iotml_torch.mqtt.broker import MqttBroker
@@ -892,8 +893,12 @@ from iotml_torch.parallel import mesh as parallel_mesh
 from iotml_torch.parallel import multihost_worker
 from iotml_torch.parallel import streaming as parallel_streaming
 from iotml_torch.parallel.data_parallel import ShardedTrainer
+from iotml_torch.parallel.expert_parallel import make_ep_train_step
+from iotml_torch.parallel.pipeline import make_pp_train_step, unstack_blocks
+from iotml_torch.parallel.ring_attention import make_ring_attention
 from iotml_torch.parallel.seq_parallel import (loss_and_grads,
                                                make_sp_train_step)
+from iotml_torch.parallel.sharded_step import host_params
 from iotml_torch.serve import fastfmt
 from iotml_torch.serve import scorer as scorer_module
 from iotml_torch.serve.carhealth import CarHealthDetector
@@ -9484,7 +9489,8 @@ def fit_in_turns(tag: str, xs, masks, epochs: int):
     shows only late in a long fit fails here), then timed in turns, the
     design ``fit_design`` picks first (it, the other, the other, it).
     Returns (that design, ms per fit by design, largest difference by
-    design, the plain version's output and the kernels')."""
+    design, the plain version's output and the kernels', the plain
+    version's ms: its one run, timed between synchronizes)."""
     S, B, F = xs.shape
     state = fresh_state(CAR_AUTOENCODER, "cuda")
     picked = fused_train.fit_design(B, F, CAR_AUTOENCODER.encoding_dim,
@@ -9496,14 +9502,17 @@ def fit_in_turns(tag: str, xs, masks, epochs: int):
         return fused_train.fused_fit(state, xs, masks, epochs, design=design)
 
     kernel_out = {d: kernel(d) for d in designs}  # warm, and held below
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plain_out = fused_train.fused_fit_reference(state, xs, masks, epochs)
     torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
     errs = {d: check_fit(f"{tag} {d}", out, plain_out, epochs * S)
             for d, out in kernel_out.items()}
     ms = {d: [] for d in designs}
     for d in designs + designs[::-1]:
         ms[d].append(cuda_ms(lambda: kernel(d), 5))
-    return picked, ms, errs, plain_out, kernel_out
+    return picked, ms, errs, plain_out, kernel_out, plain_ms
 
 
 def _stacked(batches):
@@ -9517,12 +9526,8 @@ def phase_timing(card: str, batches, source) -> dict:
     S, B, F = xs.shape
     epochs = 20
     state = fresh_state(CAR_AUTOENCODER, "cuda")
-    main_design, ms, errs, plain_out, kernel_out = fit_in_turns(
+    main_design, ms, errs, plain_out, kernel_out, plain_ms = fit_in_turns(
         "reference shape", xs, masks, epochs)
-
-    def plain():
-        return fused_train.fused_fit_reference(state, xs, masks, epochs)
-
     model = CAR_AUTOENCODER.build("cuda")
     loop = make_scanned_fit(model, Adam())
 
@@ -9530,7 +9535,6 @@ def phase_timing(card: str, batches, source) -> dict:
         return loop(state, xs, xs, masks, epochs)
 
     loop(state, xs[:2], xs[:2], masks[:2], 1)
-    plain_ms = cuda_ms(plain, 2)
     loop_ms = cuda_ms(step_loop, 1)
     E, H = CAR_AUTOENCODER.encoding_dim, CAR_AUTOENCODER.hidden_dim
     p_loss = plain_out[1]
@@ -9541,8 +9545,8 @@ def phase_timing(card: str, batches, source) -> dict:
     wide = SensorBatches(source, batch_size=256, take=39, only_normal=True)
     w_xs, w_masks = _stacked(wide)
     w_S, w_B, _ = w_xs.shape
-    w_design, w_ms, w_errs, _, _ = fit_in_turns("B=256", w_xs, w_masks,
-                                               epochs)
+    w_design, w_ms, w_errs, _, _, _ = fit_in_turns("B=256", w_xs, w_masks,
+                                                  epochs)
     w_bound = fit_bound(w_S, w_B, F, E, H, epochs)
     info = {"phase": "timing", "card": card, "shape": [S, B, F],
             "epochs": epochs, "steps": epochs * S, "design": main_design,
@@ -9846,7 +9850,7 @@ def phase_attention_timing(card: str) -> dict:
             library()
             torch.cuda.synchronize()
             ms = cuda_ms(kernel, reps)
-            plain_ms = cuda_ms(plain, 2)
+            plain_ms = cuda_ms(plain, 1)
             library_ms = cuda_ms(library, reps)
             ms_again = cuda_ms(kernel, reps)
             bound = attention_bound(B, T, H, D, causal, dtype)
@@ -10097,6 +10101,312 @@ def phase_sensorformer_train(card: str, hist: np.ndarray) -> dict:
     return info
 
 
+#: model_parallel_path (ROADMAP A11, A12) on logical shards of cuda:0:
+#: (a) ring attention's 'seq' shards, (b) the sequence-parallel step's
+#: ('data', 'seq') mesh, (c) the pipeline step's ('data', 'pipe') mesh and
+#: microbatches, (d) the expert-parallel step's ('data', 'expert') mesh
+MP_SEQ = 4
+MP_SP_MESH, MP_PP_MESH, MP_EP_MESH = (2, 4), (1, 2), (1, 4)
+MP_MICROBATCHES = 4
+#: Adam steps held against the one-device step, timed steps a sub-phase
+MP_ADAM_STEPS, MP_TIMED_STEPS = 3, 2
+MP_LR, MP_AUX_WEIGHT = 1e-3, 0.01
+#: (a): cars a chunk of the plain attention's [B, H, T, T] scores
+MP_DENSE_CARS = 2
+#: (a): the JAX suite's ring bound (tests/test_attention.py:80)
+RING_TOL = dict(rtol=1e-5, atol=1e-5)
+#: params after each Adam step against the one-device step's: rtol 1e-4
+#: / atol 1e-5 a step, 2·lr a step where the one-device gradients so far
+#: are below 1e-6 RMS (float noise Adam turns into ±lr steps; the bound
+#: of tests/test_torch_seq_parallel.py)
+MP_PARAM_RTOL, MP_PARAM_ATOL_PER_STEP, MP_NOISE_RMS = 1e-4, 1e-5, 1e-6
+#: (d): mse and loss against the one-device model a row block
+MP_EP_TOL = dict(rtol=1e-5, atol=0.0)
+
+
+def _mp_mesh(shape, names):
+    n = int(np.prod(shape))
+    return parallel_mesh.make_mesh(shape, names,
+                                   devices=[torch.device("cuda", 0)] * n)
+
+
+def _mp_ring() -> dict:
+    """(a) ring attention over 4 'seq' shards at [100, 4096, 4, 16] f32,
+    held against the plain attention a chunk of cars at a time; the B3
+    kernel's output beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = (SF_CARS, SF_TICKS, 4, 16)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    ring = make_ring_attention(_mp_mesh((MP_SEQ,), ("seq",)), "seq")
+    seconds = []
+    with torch.no_grad():
+        for _ in range(2):  # the first call, then a warm one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ring(q, k, v)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        got = torch.cat(out.shards, dim=1)
+        err = 0.0
+        for c in range(0, SF_CARS, MP_DENSE_CARS):
+            sl = slice(c, c + MP_DENSE_CARS)
+            err = max(err, check_close(
+                f"ring attention cars {c}..", got[sl],
+                attention_reference(q[sl], k[sl], v[sl], causal=True),
+                **RING_TOL))
+        flash, _ = flash_attention_fwd(q, k, v, causal=True)
+        err_b3 = float((got - flash).abs().max())
+    return {"shape": list(shape), "seq_shards": MP_SEQ,
+            "pieces": [list(s.shape) for s in out.shards],
+            "seconds_first_and_warm": seconds,
+            "max_abs_err_vs_plain": err,
+            "tolerance": RING_TOL, "max_abs_diff_vs_b3": err_b3}
+
+
+def _mp_one_device(x: torch.Tensor) -> dict:
+    """The one-device flash step on the fleet histories: step 1's loss
+    and grads, then each Adam step's params and second moments."""
+    model = SensorFormer(attn_mode="flash")  # seed 0: every mode's weights
+    init, step, _ = make_sp_train_step(model, Adam(MP_LR))
+    state = init()
+    loss, grads = loss_and_grads(model, state.params, x)
+    params, nus = [], []
+    for _ in range(MP_ADAM_STEPS):
+        state, _ = step(state, x)
+        params.append({k: v.detach().clone() for k, v in state.params.items()})
+        nus.append(dict(state.opt_state.nu))
+    return {"loss": loss, "grads": grads, "params": params, "nu": nus}
+
+
+def _mp_check_grads(tag: str, loss, grads: dict, ref: dict) -> dict:
+    err_loss = check_close(f"{tag} step-1 loss", loss, ref["loss"],
+                           **TRAIN_LOSS_TOL)
+    err = max(check_close(f"{tag} grad {k}", grads[k], g, **TRAIN_GRAD_TOL)
+              for k, g in ref["grads"].items())
+    return {"step1_loss_err": err_loss, "step1_grad_max_abs_err": err}
+
+
+def _mp_check_params(tag: str, got: dict, ref: dict, step: int,
+                     noisy: dict) -> float:
+    """Params after Adam step ``step`` (1-based) against the one-device
+    step's; ``noisy`` marks, leaf by leaf, the entries whose one-device
+    gradients have been below MP_NOISE_RMS (their second moment says
+    so)."""
+    want, nu = ref["params"][step - 1], ref["nu"][step - 1]
+    floor = MP_NOISE_RMS ** 2 * (1 - 0.999 ** step)
+    err = 0.0
+    for k, w in want.items():
+        g = torch.as_tensor(got[k]).to(w.device)
+        tiny = noisy[k] = noisy.get(k, torch.zeros_like(w, dtype=torch.bool)) \
+            | (nu[k] < floor)
+        if bool(tiny.any()):
+            check_close(f"{tag} step {step} {k} (noise)", g[tiny], w[tiny],
+                        rtol=0.0, atol=2 * MP_LR * step)
+        if not bool(tiny.all()):
+            err = max(err, check_close(f"{tag} step {step} {k}", g[~tiny],
+                                       w[~tiny], rtol=MP_PARAM_RTOL,
+                                       atol=MP_PARAM_ATOL_PER_STEP * step))
+    return err
+
+
+def _mp_timed(step, state, x, per_step: dict, tag: str, counted: dict):
+    """MP_TIMED_STEPS steps after the checked ones, on the host clock
+    between synchronizes (each step ends with a sync of its own), the
+    peak memory of those steps, and each step's launches, exact."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(MP_TIMED_STEPS):
+        state, metrics = _mp_counted(lambda: step(state, x), per_step, tag,
+                                     counted)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / MP_TIMED_STEPS
+    return state, metrics, ms, torch.cuda.max_memory_allocated()
+
+
+def _mp_counted(fn, per_step: dict, tag: str, counted: dict):
+    """``fn()``, one step of a path, with the counts read around it: its
+    launches must be ``per_step`` exactly; they add to ``counted``."""
+    before = dict(flash_attention.launches)
+    out = fn()
+    ran = {key: flash_attention.launches[key] - before[key] for key in before}
+    if ran != per_step:
+        raise AssertionError(f"model_parallel_path {tag}: a step launched "
+                             f"{ran}, not {per_step}")
+    for key, n in ran.items():
+        counted[key] += n
+    return out
+
+
+def _mp_sp(hist, ref: dict, counted: dict) -> dict:
+    """(b) the sequence-parallel step on ('data', 'seq') = (2, 4)."""
+    model = SensorFormer(attn_mode="ring")
+    init, step, put_x = make_sp_train_step(
+        model, Adam(MP_LR), _mp_mesh(MP_SP_MESH, ("data", "seq")))
+    state, xs = init(), put_x(hist)
+    none = expected_launches()
+    metrics, grads = _mp_counted(lambda: step.value_and_grad(state, xs),
+                                 none, "(b)", counted)
+    checks = _mp_check_grads("(b)", metrics["loss"],
+                             {k: torch.from_numpy(g.numpy())
+                              for k, g in grads.items()}, ref)
+    del grads
+    noisy, errs = {}, []
+    for i in range(1, MP_ADAM_STEPS + 1):
+        state, _ = _mp_counted(lambda: step(state, xs), none, "(b)", counted)
+        errs.append(_mp_check_params("(b)", host_params(state.params), ref,
+                                     i, noisy))
+    state, metrics, ms, peak = _mp_timed(step, state, xs, none, "(b)",
+                                         counted)
+    return {"mesh": dict(zip(("data", "seq"), MP_SP_MESH)),
+            "pieces": [list(s.shape) for s in xs.shards], **checks,
+            "adam_param_max_abs_err": errs, "step_ms": ms,
+            "peak_memory_bytes": peak, "loss": float(metrics["loss"])}
+
+
+def _mp_pp(hist, ref: dict, counted: dict) -> dict:
+    """(c) the pipeline step on ('data', 'pipe') = (1, 2), 4
+    microbatches, flash attention in each stage."""
+    model = SensorFormer(attn_mode="flash")
+    L = model.num_layers
+    init, step, put_x = make_pp_train_step(
+        model, Adam(MP_LR), _mp_mesh(MP_PP_MESH, ("data", "pipe")),
+        MP_MICROBATCHES)
+    state, xs = init(), put_x(hist)
+    per_step = expected_launches(causal=L * MP_MICROBATCHES,
+                                 bwd_dkv_causal=L * MP_MICROBATCHES,
+                                 bwd_dq_causal=L * MP_MICROBATCHES)
+
+    def whole(tree):
+        host = host_params(tree)
+        return unstack_blocks({k: torch.from_numpy(v)
+                               for k, v in host["static"].items()},
+                              {k: torch.from_numpy(v)
+                               for k, v in host["blocks"].items()}, L)
+
+    metrics, grads = _mp_counted(lambda: step.value_and_grad(state, xs),
+                                 per_step, "(c)", counted)
+    checks = _mp_check_grads("(c)", metrics["loss"], whole(grads), ref)
+    del grads
+    stage_rows = [list(s.shape) for s in
+                  state.params["blocks"]["attn.qkv.weight"].shards]
+    noisy, errs = {}, []
+    for i in range(1, MP_ADAM_STEPS + 1):
+        state, _ = _mp_counted(lambda: step(state, xs), per_step, "(c)",
+                               counted)
+        errs.append(_mp_check_params("(c)", whole(state.params), ref, i,
+                                     noisy))
+    state, metrics, ms, peak = _mp_timed(step, state, xs, per_step, "(c)",
+                                         counted)
+    return {"mesh": dict(zip(("data", "pipe"), MP_PP_MESH)),
+            "microbatches": MP_MICROBATCHES, "stage_qkv_pieces": stage_rows,
+            "launches_per_step": per_step, **checks,
+            "adam_param_max_abs_err": errs, "step_ms": ms,
+            "peak_memory_bytes": peak, "loss": float(metrics["loss"])}
+
+
+def _mp_ep(hist, counted: dict) -> dict:
+    """(d) the expert-parallel step on ('data', 'expert') = (1, 4) with
+    the default MoESensorFormer (8 experts, capacity 1.25), flash
+    attention; held against the one-device model run on each shard's
+    25-car row block (the same capacity a block, so the same drops: the
+    step's own drop count must equal the blocks' exactly)."""
+    model = MoESensorFormer(attn_mode="flash")
+    L = model.num_layers
+    n = int(np.prod(MP_EP_MESH))
+    init, step, put_x = make_ep_train_step(
+        model, Adam(MP_LR), _mp_mesh(MP_EP_MESH, ("data", "expert")),
+        aux_weight=MP_AUX_WEIGHT)
+    state, xs = init(), put_x(hist)
+    per_step = expected_launches(causal=L * n, bwd_dkv_causal=L * n,
+                                 bwd_dq_causal=L * n)
+    metrics, grads = _mp_counted(lambda: step.value_and_grad(state, xs),
+                                 per_step, "(d)", counted)
+    ep_dropped = step.dropped()
+    local = [s.shape[0] for s in state.params["block0.moe.w1"].shards]
+    if local != [model.num_experts // MP_EP_MESH[1]] * MP_EP_MESH[1]:
+        raise AssertionError(f"(d): expert leaves' local leading dims "
+                             f"{local}")
+    # the one-device oracle, uncounted
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in model.state_dict().items()}
+    x = torch.from_numpy(hist).cuda()
+    se, aux, dropped = 0.0, 0.0, 0
+    for blk in x.chunk(n):
+        pred, a = torch.func.functional_call(model, leaves, (blk,))
+        se = se + torch.sum(torch.square(pred[:, :-1] - blk[:, 1:]))
+        aux = aux + a
+        dropped += sum(int(getattr(model, f"block{i}").moe.dropped)
+                       for i in range(L))
+    mse = se / x[:, 1:].numel()
+    loss = mse + MP_AUX_WEIGHT * aux / n
+    want = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    if ep_dropped != dropped:
+        raise AssertionError(f"(d): the step dropped {ep_dropped} tokens, "
+                             f"the one-device blocks {dropped}")
+    err_mse = check_close("(d) mse", metrics["mse"], mse.detach(),
+                          **MP_EP_TOL)
+    err_loss = check_close("(d) loss", metrics["loss"], loss.detach(),
+                           **MP_EP_TOL)
+    err_grad = max(check_close(f"(d) grad {k}", torch.from_numpy(
+        grads[k].numpy()), g, **TRAIN_GRAD_TOL) for k, g in want.items())
+    del grads, want, leaves
+    state, metrics, ms, peak = _mp_timed(step, state, xs, per_step, "(d)",
+                                         counted)
+    N = SF_CARS // n * SF_TICKS
+    return {"mesh": dict(zip(("data", "expert"), MP_EP_MESH)),
+            "experts": model.num_experts,
+            "capacity_factor": model.capacity_factor,
+            "tokens_a_shard": N,
+            "capacity": max(1, int(model.capacity_factor * N
+                                   / model.num_experts)),
+            "expert_leaf_local_dims": local,
+            "dropped_tokens_step1": ep_dropped,
+            "launches_per_step": per_step, "mse_err": err_mse,
+            "loss_err": err_loss, "step1_grad_max_abs_err": err_grad,
+            "tolerance": {"mse_loss": MP_EP_TOL, "grads": TRAIN_GRAD_TOL},
+            "step_ms": ms, "peak_memory_bytes": peak,
+            "loss": float(metrics["loss"])}
+
+
+def phase_model_parallel_path(card: str, hist: np.ndarray,
+                              train_info: dict) -> dict:
+    """ROADMAP A11 and A12 on logical shards of the card: (a) ring
+    attention, (b) the sequence-parallel step, (c) the pipeline step,
+    (d) the expert-parallel step, at the serving fleet's full width.
+    The one-device oracles and comparisons run outside the counted
+    steps; each counted step's launches are read around it."""
+    t_phase = time.perf_counter()
+    ring = _mp_ring()
+    torch.cuda.empty_cache()
+    ref = _mp_one_device(torch.from_numpy(hist).cuda())
+    counted = expected_launches()
+    t_sp = time.perf_counter()
+    sp = _mp_sp(hist, ref, counted)
+    torch.cuda.empty_cache()
+    t_pp = time.perf_counter()
+    pp = _mp_pp(hist, ref, counted)
+    del ref
+    torch.cuda.empty_cache()
+    t_ep = time.perf_counter()
+    ep = _mp_ep(hist, counted)
+    torch.cuda.empty_cache()
+    info = {"phase": "model_parallel_path", "card": card,
+            "shape": list(hist.shape), "ring": ring,
+            "sequence_parallel": sp, "pipeline": pp, "expert_parallel": ep,
+            "one_device_flash_step_ms": train_info["step_ms"],
+            "note": "logical shards of one card: not a scaling figure",
+            "seconds": {"ring_and_oracle": t_sp - t_phase,
+                        "sequence_parallel": t_pp - t_sp,
+                        "pipeline": t_ep - t_pp,
+                        "expert_parallel": time.perf_counter() - t_ep},
+            "phase_seconds": time.perf_counter() - t_phase,
+            "kernel_launches": counted}
+    emit(info)
+    return info
+
+
 def phase_attention_backward_timing(card: str) -> dict:
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention
@@ -10172,7 +10482,7 @@ def phase_attention_backward_timing(card: str) -> dict:
                 fn()
             torch.cuda.synchronize()
             dkv_ms, dq_ms = cuda_ms(dkv, reps), cuda_ms(dq, reps)
-            plain_ms = cuda_ms(plain, 2)
+            plain_ms = cuda_ms(plain, 1)
             port_ms = cuda_ms(port, reps)
             library_ms = cuda_ms(library, reps)
             lib_ms = {part: cuda_ms(lib_bwd(which), reps) for part, which in
@@ -10326,11 +10636,14 @@ def main() -> int:
     attn_timing = phase_attention_timing(card)
     bwd_err = phase_attention_backward_kernel()
     train_info = phase_sensorformer_train(card, sf_info["histories"])
+    mp_info = phase_model_parallel_path(card, sf_info["histories"],
+                                        train_info)
     bwd_timing = phase_attention_backward_timing(card)
     long_paths = [bwd_timing[("long_context", entry)]["forward_backward"]
                   ["kernel_launches"] for entry in ("causal", "full")]
     paths = {"sensorformer_path": sf_info["kernel_launches"],
              "sensorformer_train": train_info["kernel_launches"],
+             "model_parallel_path": mp_info["kernel_launches"],
              "long_context": {key: sum(p[key] for p in long_paths)
                               for key in flash_attention.launches},
              "serve_path": {key: serve_info["launches"][key]

@@ -1,0 +1,1 @@
+from .moe import MoEBlock, MoEFFN, MoESensorFormer  # noqa: F401

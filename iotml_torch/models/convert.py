@@ -34,6 +34,7 @@ import torch
 from ..train.optim import HYPERPARAMS, AdamState, InjectableAdamState
 from .autoencoder import LAYERS
 from .lstm import GATES
+from .moe import EXPERT_LEAVES
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -118,23 +119,31 @@ def sensorformer_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     _dense_from_jax(out, "embed", tree["embed"])
     out["pos.weight"] = torch.from_numpy(
         _f32(tree["pos"]["embedding"]).copy())
-    blocks = sorted((k for k in tree if k.startswith("block")),
-                    key=lambda k: int(k[len("block"):]))
-    for b in blocks:
+    for b in _blocks(tree):
         blk = tree[b]
-        _norm_from_jax(out, f"{b}.ln1", blk["ln1"])
-        _dense_from_jax(out, f"{b}.attn.qkv", blk["attn"]["qkv"])
-        kernel = _f32(blk["attn"]["out"]["kernel"])  # [H, D, d]
-        out[f"{b}.attn.out.weight"] = torch.from_numpy(np.ascontiguousarray(
-            kernel.reshape(-1, kernel.shape[-1]).T))
-        out[f"{b}.attn.out.bias"] = torch.from_numpy(
-            _f32(blk["attn"]["out"]["bias"]).copy())
-        _norm_from_jax(out, f"{b}.ln2", blk["ln2"])
+        _attn_block_from_jax(out, b, blk)
         _dense_from_jax(out, f"{b}.mlp_in", blk["mlp_in"])
         _dense_from_jax(out, f"{b}.mlp_out", blk["mlp_out"])
     _norm_from_jax(out, "ln_f", tree["ln_f"])
     _dense_from_jax(out, "head", tree["head"])
     return out
+
+
+def _attn_block_from_jax(out: dict, b: str, blk: dict) -> None:
+    """A block's two LayerNorms and its attention (``qkv``, ``out``)."""
+    _norm_from_jax(out, f"{b}.ln1", blk["ln1"])
+    _dense_from_jax(out, f"{b}.attn.qkv", blk["attn"]["qkv"])
+    kernel = _f32(blk["attn"]["out"]["kernel"])  # [H, D, d]
+    out[f"{b}.attn.out.weight"] = torch.from_numpy(np.ascontiguousarray(
+        kernel.reshape(-1, kernel.shape[-1]).T))
+    out[f"{b}.attn.out.bias"] = torch.from_numpy(
+        _f32(blk["attn"]["out"]["bias"]).copy())
+    _norm_from_jax(out, f"{b}.ln2", blk["ln2"])
+
+
+def _blocks(keys) -> list:
+    return sorted({k.split(".")[0] for k in keys if k.startswith("block")},
+                  key=lambda k: int(k[len("block"):]))
 
 
 def sensorformer_params_to_jax(state: Dict[str, torch.Tensor],
@@ -143,33 +152,45 @@ def sensorformer_params_to_jax(state: Dict[str, torch.Tensor],
     float32 arrays.  ``num_heads`` shapes the ``qkv`` / ``out`` kernels
     ([d, 3, H, D], [H, D, d]), which the state_dict's 2-D weights do not
     record."""
-    def dense(name):
-        return {"kernel": np.ascontiguousarray(_host(state[f"{name}.weight"]).T),
-                "bias": _host(state[f"{name}.bias"]).copy()}
+    tree = _outer_to_jax(state)
+    for b in _blocks(state):
+        tree[b] = {**_attn_block_to_jax(state, b, num_heads),
+                   "mlp_in": _dense_to_jax(state, f"{b}.mlp_in"),
+                   "mlp_out": _dense_to_jax(state, f"{b}.mlp_out")}
+    return tree
 
-    def norm(name):
-        return {"scale": _host(state[f"{name}.weight"]).copy(),
-                "bias": _host(state[f"{name}.bias"]).copy()}
 
-    tree = {"embed": dense("embed"),
+def _dense_to_jax(state, name: str) -> dict:
+    return {"kernel": np.ascontiguousarray(_host(state[f"{name}.weight"]).T),
+            "bias": _host(state[f"{name}.bias"]).copy()}
+
+
+def _norm_to_jax(state, name: str) -> dict:
+    return {"scale": _host(state[f"{name}.weight"]).copy(),
+            "bias": _host(state[f"{name}.bias"]).copy()}
+
+
+def _outer_to_jax(state) -> dict:
+    """embed, pos, ln_f and head of a SensorFormer-shaped state_dict."""
+    return {"embed": _dense_to_jax(state, "embed"),
             "pos": {"embedding": _host(state["pos.weight"]).copy()},
-            "ln_f": norm("ln_f"), "head": dense("head")}
-    blocks = sorted({k.split(".")[0] for k in state if k.startswith("block")},
-                    key=lambda k: int(k[len("block"):]))
-    for b in blocks:
-        qkv = dense(f"{b}.attn.qkv")
-        d = qkv["kernel"].shape[0]
-        H = num_heads
-        D = qkv["kernel"].shape[1] // (3 * H)
-        out = dense(f"{b}.attn.out")
-        tree[b] = {
-            "ln1": norm(f"{b}.ln1"), "ln2": norm(f"{b}.ln2"),
+            "ln_f": _norm_to_jax(state, "ln_f"),
+            "head": _dense_to_jax(state, "head")}
+
+
+def _attn_block_to_jax(state, b: str, num_heads: int) -> dict:
+    """A block's LayerNorms and attention as flax leaves."""
+    qkv = _dense_to_jax(state, f"{b}.attn.qkv")
+    d = qkv["kernel"].shape[0]
+    H = num_heads
+    D = qkv["kernel"].shape[1] // (3 * H)
+    out = _dense_to_jax(state, f"{b}.attn.out")
+    return {"ln1": _norm_to_jax(state, f"{b}.ln1"),
+            "ln2": _norm_to_jax(state, f"{b}.ln2"),
             "attn": {"qkv": {"kernel": qkv["kernel"].reshape(d, 3, H, D),
                              "bias": qkv["bias"].reshape(3, H, D)},
                      "out": {"kernel": out["kernel"].reshape(H, D, -1),
-                             "bias": out["bias"]}},
-            "mlp_in": dense(f"{b}.mlp_in"), "mlp_out": dense(f"{b}.mlp_out")}
-    return tree
+                             "bias": out["bias"]}}}
 
 
 def sensorformer_adam_from_optax(count, mu, nu) -> AdamState:
@@ -187,6 +208,61 @@ def sensorformer_adam_to_optax(state: AdamState, num_heads: int
     return (np.asarray(state.count, np.int32),
             sensorformer_params_to_jax(state.mu, num_heads),
             sensorformer_params_to_jax(state.nu, num_heads))
+
+
+def moe_sensorformer_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax ``MoESensorFormer`` param tree (numpy leaves) → state_dict of
+    CPU float32 tensors for ``iotml_torch.models.moe.MoESensorFormer``:
+    the SensorFormer's leaves, with each block's ``moe`` (``router``
+    kernel [d, E] → ``moe.router.weight`` [E, d]; the expert leaves as
+    they are) in place of the MLP."""
+    out: Dict[str, torch.Tensor] = {}
+    _dense_from_jax(out, "embed", tree["embed"])
+    out["pos.weight"] = torch.from_numpy(
+        _f32(tree["pos"]["embedding"]).copy())
+    for b in _blocks(tree):
+        blk = tree[b]
+        _attn_block_from_jax(out, b, blk)
+        moe = blk["moe"]
+        out[f"{b}.moe.router.weight"] = torch.from_numpy(
+            np.ascontiguousarray(_f32(moe["router"]["kernel"]).T))
+        for leaf in EXPERT_LEAVES:
+            out[f"{b}.moe.{leaf}"] = torch.from_numpy(_f32(moe[leaf]).copy())
+    _norm_from_jax(out, "ln_f", tree["ln_f"])
+    _dense_from_jax(out, "head", tree["head"])
+    return out
+
+
+def moe_sensorformer_params_to_jax(state: Dict[str, torch.Tensor],
+                                   num_heads: int) -> dict:
+    """MoESensorFormer state_dict (any device) → flax param tree of
+    numpy float32 arrays; ``num_heads`` as in
+    ``sensorformer_params_to_jax``."""
+    tree = _outer_to_jax(state)
+    for b in _blocks(state):
+        moe = {"router": {"kernel": np.ascontiguousarray(
+            _host(state[f"{b}.moe.router.weight"]).T)}}
+        for leaf in EXPERT_LEAVES:
+            moe[leaf] = _host(state[f"{b}.moe.{leaf}"]).copy()
+        tree[b] = {**_attn_block_to_jax(state, b, num_heads), "moe": moe}
+    return tree
+
+
+def moe_sensorformer_adam_from_optax(count, mu, nu) -> AdamState:
+    """optax ``ScaleByAdamState`` fields over a flax ``MoESensorFormer``
+    param tree → the port's ``AdamState``."""
+    return AdamState(count=int(np.asarray(count)),
+                     mu=moe_sensorformer_params_from_jax(mu),
+                     nu=moe_sensorformer_params_from_jax(nu))
+
+
+def moe_sensorformer_adam_to_optax(state: AdamState, num_heads: int
+                                   ) -> Tuple[np.ndarray, dict, dict]:
+    """The port's MoESensorFormer ``AdamState`` → (int32 count, mu tree,
+    nu tree)."""
+    return (np.asarray(state.count, np.int32),
+            moe_sensorformer_params_to_jax(state.mu, num_heads),
+            moe_sensorformer_params_to_jax(state.nu, num_heads))
 
 
 #: the LSTM's cells in flax's creation order

@@ -20,8 +20,12 @@ splits [B, T, 3, H, D] on the ``3`` axis.
   'flash_reference' – ``flash_attention_reference`` on any device: the
                       kernel's plain version, as flax's 'flash_interpret'
                       runs the Pallas kernel's body without the TPU
-  'ring'            – sequence-parallel ring attention: raises
-                      NotImplementedError until the multi-GPU slice
+  'ring'            – ``parallel.ring_attention``, over the mesh axis
+                      ``ring_axis``: the model runs inside
+                      ``shard_map`` (the sequence-parallel step) on
+                      this shard's time block, with its global
+                      ``positions``; outside one it raises NameError,
+                      as flax's axis lookup does outside ``shard_map``
 """
 
 from __future__ import annotations
@@ -72,11 +76,12 @@ def _linear(fan_in: int, fan_out: int, gen: torch.Generator,
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, attn_mode: str,
-                 gen: torch.Generator, device):
+                 gen: torch.Generator, device, ring_axis: str = "seq"):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
         self.attn_mode = attn_mode
+        self.ring_axis = ring_axis
         hd = num_heads * self.head_dim
         self.qkv = _linear(d_model, 3 * hd, gen, device)
         self.out = _linear(hd, d_model, gen, device)
@@ -89,6 +94,11 @@ class MultiHeadAttention(nn.Module):
             o = attention_reference(q, k, v, causal=True)
         elif self.attn_mode == "flash":
             o = flash_attention(q, k, v, causal=True)
+        elif self.attn_mode == "ring":
+            from ..parallel.ring_attention import ring_attention
+
+            o = ring_attention(q, k, v, axis_name=self.ring_axis,
+                               causal=True)
         else:  # flash_reference
             o, _ = flash_attention_reference(q, k, v, causal=True)
         return self.out(o.reshape(B, T, H * D))
@@ -96,11 +106,11 @@ class MultiHeadAttention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, attn_mode: str,
-                 gen: torch.Generator, device):
+                 gen: torch.Generator, device, ring_axis: str = "seq"):
         super().__init__()
         self.ln1 = LayerNorm(d_model, device=device)
         self.attn = MultiHeadAttention(d_model, num_heads, attn_mode, gen,
-                                       device)
+                                       device, ring_axis)
         self.ln2 = LayerNorm(d_model, device=device)
         self.mlp_in = _linear(d_model, d_model * MLP_RATIO, gen, device)
         self.mlp_out = _linear(d_model * MLP_RATIO, d_model, gen, device)
@@ -114,18 +124,16 @@ class Block(nn.Module):
 class SensorFormer(nn.Module):
     """Next-step sensor prediction over [B, T, features], on ``device``
     (``cuda`` unless given), with weights drawn on the CPU from
-    ``generator`` (seed 0 when None)."""
+    ``generator`` (seed 0 when None).  ``ring_axis`` names the mesh axis
+    ``attn_mode='ring'`` rotates K/V over."""
 
     def __init__(self, features: int = 18, d_model: int = 64,
                  num_heads: int = 4, num_layers: int = 2,
-                 max_len: int = 4096, attn_mode: str = "dense", *,
+                 max_len: int = 4096, attn_mode: str = "dense",
+                 ring_axis: str = "seq", *,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if attn_mode == "ring":
-            raise NotImplementedError(
-                "attn_mode='ring' (sequence-parallel ring attention) comes "
-                "with the port's multi-GPU slice (ROADMAP A11)")
         if attn_mode not in ATTN_MODES:
             raise ValueError(f"unknown attn_mode {attn_mode}")
         if d_model % num_heads:
@@ -137,13 +145,14 @@ class SensorFormer(nn.Module):
         self.features, self.d_model = features, d_model
         self.num_heads, self.num_layers = num_heads, num_layers
         self.max_len, self.attn_mode = max_len, attn_mode
+        self.ring_axis = ring_axis
         self.embed = _linear(features, d_model, gen, device)
         self.pos = nn.Embedding.from_pretrained(
             (torch.randn(max_len, d_model, generator=gen)
              / math.sqrt(d_model)).to(device), freeze=False)
         for i in range(num_layers):
             setattr(self, f"block{i}", Block(d_model, num_heads, attn_mode,
-                                             gen, device))
+                                             gen, device, ring_axis))
         self.ln_f = LayerNorm(d_model, device=device)
         self.head = _linear(d_model, features, gen, device)
 

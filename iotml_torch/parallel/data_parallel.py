@@ -51,7 +51,7 @@ from ..train.loop import TrainState, loss_denominator, make_loss_fn, \
 from ..train.optim import Adam, InjectableAdamState
 from . import distributed
 from .mesh import Mesh, NamedSharding, P, ShardedTensor, batch_sharding, \
-    data_devices, split_rows
+    cut, data_devices, is_replicated, spec_axes, spec_blocks, split_rows
 
 Params = Dict[str, torch.Tensor]
 
@@ -103,24 +103,37 @@ def _host_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def put_global(x: np.ndarray, sharding: NamedSharding) -> ShardedTensor:
-    """Host array → ``ShardedTensor``.  ``P('data')``: the rows are cut
-    into contiguous blocks, one a data-axis shard on its device (the row
-    count must divide); ``P()``: a whole copy on each distinct device.
-    Under ``torch.distributed`` ``x`` is this process's share of the
-    global batch, which is the processes' shares in rank order."""
-    mesh = sharding.mesh
-    if sharding.spec and sharding.spec[0] == "data":
-        devs = data_devices(mesh)
-        if x.shape[0] % len(devs):
-            raise ValueError(f"{x.shape[0]} rows do not split over a "
-                             f"{len(devs)}-shard data axis")
-        return ShardedTensor([_host_tensor(b, d) for b, d in
-                              zip(np.split(x, len(devs)), devs)], sharding)
-    if sharding.spec and any(a is not None for a in sharding.spec):
-        raise ValueError(f"put_global cuts rows over 'data' or "
-                         f"replicates, not {sharding.spec!r}")
-    return ShardedTensor([_host_tensor(x, d) for d in
-                          _distinct(mesh.devices.flat)], sharding)
+    """Host array → ``ShardedTensor``, the pieces in JAX's row and
+    column order.  A cut dimension splits into contiguous blocks, one a
+    shard of its axis (or of the product of its axes, major first:
+    ``P(('data', 'expert'))`` gives row block ``d·expert + e``), each on
+    the first device that holds it (``P('data')``: the data-axis
+    shards' devices; ``P('data', 'seq')``: rows over 'data' and time
+    over 'seq'); every cut must divide.  ``P()``: a whole copy on each
+    distinct device.  Under ``torch.distributed`` ``x`` is this
+    process's part of the global array: the processes' shares in rank
+    order along the mesh's process axis."""
+    mesh, spec = sharding.mesh, sharding.spec
+    if is_replicated(spec):
+        return ShardedTensor([_host_tensor(x, d) for d in
+                              _distinct(mesh.devices.flat)], sharding)
+    for k, entry in enumerate(spec):
+        for a in spec_axes(entry):
+            if a not in mesh.axis_names:
+                raise ValueError(f"put_global: {spec!r} names an axis the "
+                                 f"mesh {mesh.axis_names} lacks")
+        n = int(np.prod([mesh.shape[a] for a in spec_axes(entry)]))
+        if x.shape[k] % n:
+            what = "rows" if k == 0 else f"dimension {k}"
+            raise ValueError(f"{x.shape[k]} {what} do not split over a "
+                             f"{n}-shard {spec_axes(entry)} axis")
+    shards, blocks = [], []
+    for block, coords in spec_blocks(mesh, spec):
+        t = cut(torch.from_numpy(np.ascontiguousarray(x)), mesh, spec,
+                coords)
+        shards.append(_host_tensor(t.numpy(), mesh.devices[coords]))
+        blocks.append(block)
+    return ShardedTensor(shards, sharding, blocks)
 
 
 def shard_params(params: Params, mesh: Mesh,

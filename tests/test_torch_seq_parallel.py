@@ -8,6 +8,11 @@ histories of T=32/40 steps, made by numpy from a seed; the flax params
 forward and backward on CPU tensors; the JAX side runs its Pallas flash
 kernels in interpret mode (``flash_interpret``) or dense attention.
 
+The multi-device step runs on eight ``torch.device("cpu")`` shards of a
+``('data', 'seq')`` mesh against JAX's ``make_sp_train_step`` on its
+eight virtual devices (``tests/test_transformer_sp.py``'s cases), with
+``attn_mode="ring"`` on both sides.
+
 Tolerances:
 - the next-step loss: rtol 1e-5 (one float32 mean, sums in another
   order);
@@ -47,6 +52,7 @@ from iotml_torch.models.convert import (sensorformer_adam_from_optax,
 from iotml_torch.models.transformer import SensorFormer
 from iotml_torch.ops.attention import flash_attention
 from iotml_torch.parallel import seq_parallel as t_sp
+from iotml_torch.parallel.mesh import make_mesh as make_torch_mesh
 from iotml_torch.train.loop import TrainState
 from iotml_torch.train.optim import B2 as optax_b2, Adam
 
@@ -225,12 +231,183 @@ def test_adam_state_round_trips_with_optax():
 
 
 def test_multi_device_mesh_raises_not_implemented():
+    """Once a refusal (ROADMAP A11); now a parity case: a (1, 2) CPU
+    mesh with a ring model gives the one-device step's loss and grads,
+    and only a multi-device sequence that is not a ``Mesh`` is refused."""
     model = SensorFormer(**_cfg(1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         t_sp.make_sp_train_step(model, Adam(), mesh=["cpu", "cpu"])
+    x = _x(B=2, T=16, seed=9)
+    ring = SensorFormer(**_cfg(1), attn_mode="ring", device="cpu")
+    ring.load_state_dict(model.state_dict())
+    mesh = make_cpu_mesh((1, 2), ("data", "seq"))
+    init, step, put_x = t_sp.make_sp_train_step(ring, Adam(), mesh)
+    metrics, grads = step.value_and_grad(init(), put_x(x))
+    want_loss, want_grads = t_sp.loss_and_grads(
+        model, model.state_dict(), torch.from_numpy(x))
+    np.testing.assert_allclose(float(metrics["loss"]), float(want_loss),
+                               **LOSS_TOL)
+    for k, g in want_grads.items():
+        np.testing.assert_allclose(grads[k].numpy(), g.numpy(),
+                                   err_msg=k, **GRAD_TOL)
     init, step, put_x = t_sp.make_sp_train_step(model, Adam(),
                                                 mesh=["cpu"])
     x = put_x(_x(B=1, T=8).astype(np.float64))
     assert x.dtype == torch.float32 and x.device.type == "cpu"
     state, metrics = step(init(), x)
     assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+
+
+# ---------------------------------------------------------------------
+# the multi-device step: tests/test_transformer_sp.py's cases on both
+# packages, JAX's eight virtual devices against eight CPU shards
+# ---------------------------------------------------------------------
+
+def make_cpu_mesh(shape, names):
+    return make_torch_mesh(shape, names,
+                           devices=[torch.device("cpu")] * int(np.prod(shape)))
+
+
+class _Sgd:
+    """``optax.sgd``: p + (-lr)·g, no state."""
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def init(self, params):
+        return ()
+
+    def update(self, grads, state, params):
+        return {k: params[k] + (-self.lr) * g for k, g in grads.items()}, \
+            state
+
+
+def _jax_ring_run(x, tx, steps, layers=2, seed=0):
+    """JAX make_sp_train_step on its (2, 4) mesh: the initial params,
+    then per step the loss, the params and the optimizer state."""
+    mesh = make_mesh((2, 4), ("data", "seq"))
+    model = JSensorFormer(**_cfg(layers), attn_mode="ring", ring_axis="seq")
+    init, step, put_x = j_sp.make_sp_train_step(model, tx, mesh)
+    state = init(jax.random.PRNGKey(seed), x)
+    start = jax.device_get(state.params)
+    runs = []
+    for _ in range(steps):
+        state, metrics = step(state, put_x(x))
+        runs.append((float(metrics["loss"]), jax.device_get(state.params),
+                     jax.device_get(state.opt_state)))
+    return start, runs
+
+
+def _port_ring(layers, tree):
+    return _port(layers, tree, attn_mode="ring")
+
+
+def _host(params):
+    return {k: torch.from_numpy(v.numpy()) for k, v in params.items()}
+
+
+def test_sp_step_on_a_2x4_mesh_matches_jax_and_the_dense_oracle():
+    """tests/test_transformer_sp.py:test_sp_gradients_match_dense_oracle
+    on both packages: with SGD the param delta is −lr·grad, so the
+    post-step params compare the sharded gradients (rtol 1e-4 / atol
+    1e-6); the loss rel 1e-5."""
+    x = _x(B=4, T=32, seed=5)
+    start, runs = _jax_ring_run(x, optax.sgd(0.1), steps=1, layers=1,
+                                seed=2)
+    (want_loss, want_params, _), = runs
+    dense = JSensorFormer(**_cfg(1))
+    oracle = float(j_sp.sp_next_step_loss_reference(dense, start,
+                                                    jnp.asarray(x)))
+    model = _port_ring(1, start)
+    init, step, put_x = t_sp.make_sp_train_step(
+        model, _Sgd(0.1), make_cpu_mesh((2, 4), ("data", "seq")))
+    state, metrics = step(init(), put_x(x))
+    assert float(metrics["loss"]) == pytest.approx(want_loss, rel=1e-5)
+    assert float(metrics["loss"]) == pytest.approx(oracle, rel=1e-5)
+    _assert_tree_close(_host(state.params), want_params, "sgd params",
+                       rtol=1e-4, atol=1e-6)
+
+
+def test_sp_step_on_a_2x4_mesh_matches_jax_adam_steps():
+    x = _x(B=4, T=32, seed=0)
+    start, runs = _jax_ring_run(x, optax.adam(LR), steps=3)
+    model = _port_ring(2, start)
+    init, step, put_x = t_sp.make_sp_train_step(
+        model, Adam(LR), make_cpu_mesh((2, 4), ("data", "seq")))
+    state, xs = init(), put_x(x)
+    assert len(xs.shards) == 8 and xs.shape == x.shape
+    assert [tuple(s.shape) for s in xs.shards] == [(2, 8, 18)] * 8
+    np.testing.assert_array_equal(xs.numpy(), x)
+    noisy = {}
+    losses = []
+    for i, (want_loss, want_params, want_opt) in enumerate(runs, 1):
+        state, metrics = step(state, xs)
+        losses.append(float(metrics["loss"]))
+        np.testing.assert_allclose(losses[-1], want_loss, **LOSS_TOL)
+        _assert_params_close(_host(state.params), want_params, want_opt[0],
+                             i, noisy)
+    assert losses[-1] < losses[0] and state.step == 3
+
+
+def test_sp_mesh_grads_equal_the_one_device_step():
+    """The sharded step's gradients (``step.value_and_grad``) against
+    ``loss_and_grads`` of the one-device flash and dense models."""
+    x = _x(B=4, T=40, seed=11)
+    one = SensorFormer(**_cfg(2), attn_mode="flash", device="cpu",
+                       generator=torch.Generator().manual_seed(8))
+    ring = SensorFormer(**_cfg(2), attn_mode="ring", device="cpu")
+    ring.load_state_dict(one.state_dict())
+    init, step, put_x = t_sp.make_sp_train_step(
+        ring, Adam(), make_cpu_mesh((2, 4), ("data", "seq")))
+    metrics, grads = step.value_and_grad(init(), put_x(x))
+    for mode in ("flash", "dense"):
+        ref = SensorFormer(**_cfg(2), attn_mode=mode, device="cpu")
+        ref.load_state_dict(one.state_dict())
+        loss, want = t_sp.loss_and_grads(ref, ref.state_dict(),
+                                         torch.from_numpy(x))
+        np.testing.assert_allclose(float(metrics["loss"]), float(loss),
+                                   **LOSS_TOL)
+        for k, g in want.items():
+            np.testing.assert_allclose(grads[k].numpy(), g.numpy(),
+                                       err_msg=f"{mode} {k}", **GRAD_TOL)
+
+
+def test_shift_in_next_and_mask_match_jax():
+    from iotml.parallel.mesh import shard_map as j_shard_map
+    from jax.sharding import PartitionSpec as JP
+
+    from iotml_torch.parallel.mesh import P, shard_map
+
+    x = _x(B=2, T=32, seed=4)
+    j_mesh = make_mesh((2, 4), ("data", "seq"))
+    j_fn = j_shard_map(
+        lambda a: (j_sp.shift_in_next(a, "seq"),
+                   jnp.broadcast_to(j_sp.next_step_mask(a.shape[1], "seq"),
+                                    a.shape[:2])),
+        mesh=j_mesh, in_specs=(JP("data", "seq"),),
+        out_specs=(JP("data", "seq"), JP("data", "seq")), check_vma=False)
+    want_x, want_m = map(np.asarray, j_fn(jnp.asarray(x)))
+    fn = shard_map(
+        lambda a: (t_sp.shift_in_next(a, "seq"),
+                   t_sp.next_step_mask(a.shape[1], "seq")
+                   .expand(a.shape[:2])),
+        make_cpu_mesh((2, 4), ("data", "seq")), in_specs=(P("data", "seq"),),
+        out_specs=(P("data", "seq"), P("data", "seq")))
+    got_x, got_m = fn(x)
+    np.testing.assert_array_equal(got_m.numpy(), want_m)
+    live = want_m.astype(bool)
+    np.testing.assert_array_equal(got_x.numpy()[live], want_x[live])
+    np.testing.assert_array_equal(got_x.numpy()[:, :-1], x[:, 1:])
+
+
+def test_sp_mesh_refuses_as_jax():
+    model = SensorFormer(**_cfg(1), attn_mode="ring", device="cpu",
+                         max_len=16)
+    init, step, put_x = t_sp.make_sp_train_step(
+        model, Adam(), make_cpu_mesh((1, 4), ("data", "seq")))
+    with pytest.raises(ValueError, match="exceeds model.max_len=16"):
+        step(init(), put_x(_x(B=1, T=32)))
+    with pytest.raises(ValueError, match="attn_mode='ring'"):
+        t_sp.make_sp_train_step(SensorFormer(**_cfg(1), device="cpu"),
+                                Adam(), make_cpu_mesh((1, 4),
+                                                      ("data", "seq")))

@@ -121,8 +121,48 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
 
 
 def test_ring_mode_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        SensorFormer(attn_mode="ring", device="cpu")
+    """Once a refusal (ROADMAP A11), now a parity case: ``ring`` mode
+    under ``shard_map`` over a 4-shard 'seq' axis, each shard at its
+    global positions, gives flax's ring forward and the dense forward
+    (the model bound); outside ``shard_map`` it raises NameError, as
+    flax's axis lookup does."""
+    from iotml.parallel.mesh import make_mesh as j_make_mesh
+    from iotml.parallel.mesh import shard_map as j_shard_map
+    from jax.sharding import PartitionSpec as JP
+
+    from iotml_torch.parallel.mesh import P, axis_index, make_mesh, \
+        shard_map
+
+    x = _x(B=2, T=32, seed=12)
+    _, tree = _flax(SMALL, x, seed=4)
+    ring_j = JSensorFormer(**SMALL, attn_mode="ring", ring_axis="seq")
+
+    def j_body(xl):
+        Tl = xl.shape[1]
+        pos = jax.lax.axis_index("seq") * Tl + jnp.arange(Tl)
+        return ring_j.apply({"params": tree}, xl, positions=pos)
+
+    want = np.asarray(j_shard_map(
+        j_body, mesh=j_make_mesh((4,), ("seq",), devices=jax.devices()[:4]),
+        in_specs=(JP(None, "seq"),), out_specs=JP(None, "seq"),
+        check_vma=False)(jnp.asarray(x)))
+    model = _port(SMALL, tree, "ring")
+    assert model.ring_axis == "seq"
+
+    def body(xl):
+        Tl = xl.shape[1]
+        return model(xl, positions=axis_index("seq") * Tl
+                     + torch.arange(Tl))
+
+    mesh = make_mesh((4,), ("seq",), devices=[torch.device("cpu")] * 4)
+    with torch.no_grad():
+        got = shard_map(body, mesh, in_specs=(P(None, "seq"),),
+                        out_specs=P(None, "seq"))(x).numpy()
+        dense = _port(SMALL, tree, "dense")(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, **MODEL_TOL)
+    np.testing.assert_allclose(got, dense, **MODEL_TOL)
+    with pytest.raises(NameError, match="unbound axis name: seq"):
+        model(torch.from_numpy(x))
     with pytest.raises(ValueError, match="unknown attn_mode"):
         SensorFormer(attn_mode="sparse", device="cpu")
 
